@@ -9,19 +9,35 @@ Phases (any failure raises and the script exits non-zero):
    versions, and the build of the hand-written kernels from
    ``paddle_tpu_torch/csrc`` (nvcc, sm_90a) with its time;
 2. each kernel against its plain PyTorch version on the card, at the
-   serving path's shapes, in bf16 and f32: max error, kernel / plain /
-   library-call device times (torch.profiler, summed kernel durations),
-   the kernel's CUDA-event time over back-to-back calls (launch gaps
-   included) and the least time the card could take (``bound_ms``);
+   serving and generation paths' shapes, in bf16 and f32: max error,
+   kernel / plain / library-call device times (torch.profiler, summed
+   kernel durations; CUDA events where the profiler records none, as
+   ``timers`` says), the kernel's CUDA-event time over back-to-back calls
+   (launch gaps included) and the least time the card could take
+   (``bound_ms``);
 3. the serving main path end to end: full Llama-2-7B in bf16 (32 layers,
    seeded random weights) through ``create_serving_engine``, 16 requests;
-   launch counters zeroed just before and read just after; then a
-   torch.profiler breakdown of one mixed step and one decode quantum;
+   launch counters zeroed just before and read just after; the same
+   requests again with the sampling arm (top-k, top-p, temperature); then
+   a torch.profiler breakdown of one mixed step and one decode quantum,
+   greedy and sampled;
 4. the kernel path against the plain path end to end, at full width and
-   4 layers in f32 (no argmax near-ties): greedy streams must be equal.
+   4 layers in f32 (no argmax near-ties): greedy streams must be equal;
+5. contiguous-cache generation end to end: full Mistral-7B in bf16 (32
+   layers, seeded random weights) through ``LlamaForCausalLM.generate``,
+   4 rows of 4,608-token prompts (the prefill band clips at the 4,096
+   window and the decode buffer wraps) and 64 new tokens; launch counters
+   zeroed just before and read just after; then ``top_k=1`` sampling,
+   whose stream must equal the greedy one (up to exact argmax ties), and
+   a torch.profiler breakdown of one prefill and one decode step;
+6. generation's kernel path against its plain path (Mistral width, 4
+   layers, f32, greedy streams equal), and one fixed-seed sampling
+   serving run repeated (Llama-2-7B width, 4 layers: equal streams).
 
-The line before the last is the ``{"kernels": [...]}`` record; the last
-line is ``{"ok": true, "device": {...}}``. Without CUDA it prints no
+The line before the last is the ``{"kernels": [...]}`` record (each
+kernel's launches come from the run of the path that carries it: K1-K3
+the serving run of phase 3, K4-K5 the generation run of phase 5); the
+last line is ``{"ok": true, "device": {...}}``. Without CUDA it prints no
 result and exits 2.
 """
 from __future__ import annotations
@@ -38,6 +54,13 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {"bfloat16": 989e12,  # dense tensor-core rate
               "float32": 67e12}    # f32 outside the tensor cores
 SEED = 0
+# phase 5: rows, prompt tokens (past Mistral's 4,096 window), new tokens
+GENERATE_SHAPE = (4, 4608, 64)
+# phase 6: the same for the f32 kernel-vs-plain generate run
+GENERATE_PARITY_SHAPE = (2, 4352, 16)
+# the serving sampling arm's knobs (phases 3 and 6)
+SAMPLING = dict(decode_strategy="sampling", top_k=50, top_p=0.9,
+                temperature=0.8)
 
 
 def emit(record):
@@ -57,20 +80,26 @@ def bound_ms(nbytes, flops, dtype_name):
 
 
 def device_ms(torch, fn, iters=10):
-    """GPU time of one call: the summed durations of every kernel the call
-    launches (torch.profiler), without the launch gaps between them."""
+    """(GPU time of one call, timer). The time is the summed durations of
+    every kernel the call launches (torch.profiler), without the launch
+    gaps between them. Now and then the profiler on this stack records no
+    device time for a whole profile (once a library call, once a port
+    kernel): the profile is then taken again, three times in all, and
+    after that the call is timed by CUDA events (launch gaps included)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(_device_us(ev) for ev in prof.key_averages()
-                   if ev.device_type == torch.autograd.DeviceType.CUDA)
-    check(total_us > 0, "the profiler recorded no device time")
-    return total_us / iters / 1e3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(_device_us(ev) for ev in prof.key_averages()
+                       if ev.device_type == torch.autograd.DeviceType.CUDA)
+        if total_us > 0:
+            return total_us / iters / 1e3, "profiler"
+    return cuda_ms(torch, fn), "cuda_events"
 
 
 def _device_us(ev):
@@ -181,7 +210,8 @@ def k2_cases(torch, g, dev):
     b, d, bs = 8, 128, 32
     lens_list = [1, 31, 32, 33, 500, 1024, 2047, 2048]
     for dtype in (torch.bfloat16, torch.float32):
-        for h, hk in ((32, 32), (32, 8)):
+        # MHA, GQA 4, and Qwen2-7B's group of 7 (28 query heads over 4)
+        for h, hk in ((32, 32), (32, 8), (28, 4)):
             q, kp, vp, tables, lens = _paged_inputs(
                 torch, g, dev, dtype, b, h, hk, d, bs, lens_list)
             # the library yardstick: SDPA over the dense gathered cache
@@ -270,6 +300,98 @@ def k3_cases(torch, g, dev):
                                str(dtype).removeprefix("torch.")))
 
 
+def _sdpa_layout(torch, x, rep):
+    """(B, S, HK, D) -> (B, H, S, D) with each KV head repeated ``rep``
+    times (the library call's layout)."""
+    return x.repeat_interleave(rep, dim=2).transpose(1, 2).contiguous()
+
+
+def k4_cases(torch, g, dev):
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.ops.flash_attention import band_mask
+    import torch.nn.functional as tF
+
+    d = 128
+    # (label, B, Sq, Sk, H, HK, window): Mistral prefill (the primary),
+    # Llama-2 no-cache dense causal, bottom-right causal (Sq < Sk)
+    for label, b, sq, sk, h, hk, window in (
+            ("mistral_prefill", 1, 4608, 4608, 32, 8, 4096),
+            ("dense_causal", 1, 2048, 2048, 32, 32, None),
+            ("bottom_right", 1, 64, 1024, 32, 8, None)):
+        mask = band_mask(sq, sk, True, window, dev)
+        pairs = int(mask.sum())
+        for dtype in (torch.bfloat16, torch.float32):
+            q = torch.randn(b, sq, h, d, generator=g, device=dev).to(dtype)
+            k = torch.randn(b, sk, hk, d, generator=g, device=dev).to(dtype)
+            v = torch.randn(b, sk, hk, d, generator=g, device=dev).to(dtype)
+            qt = q.transpose(1, 2).contiguous()
+            kt, vt = _sdpa_layout(torch, k, h // hk), _sdpa_layout(
+                torch, v, h // hk)
+            if sq == sk and window is None:
+                library = (lambda qt=qt, kt=kt, vt=vt:
+                           tF.scaled_dot_product_attention(
+                               qt, kt, vt, is_causal=True))
+            else:
+                library = (lambda qt=qt, kt=kt, vt=vt:
+                           tF.scaled_dot_product_attention(
+                               qt, kt, vt, attn_mask=mask))
+            e = q.element_size()
+            nbytes = (2 * b * sq * h * d + 2 * b * sk * hk * d) * e \
+                + 4 * b * h * sq
+            yield dict(
+                name="flash_attention", dtype=dtype,
+                shape=f"{label}:B={b},Sq={sq},Sk={sk},H={h},HK={hk},D={d},"
+                      f"causal,window={window}",
+                primary=(label == "mistral_prefill"
+                         and dtype == torch.bfloat16),
+                kernel=lambda q=q, k=k, v=v: ops.flash_attention(
+                    q, k, v, causal=True, window_size=window),
+                plain=lambda q=q, k=k, v=v: ops.flash_attention_plain(
+                    q, k, v, causal=True, window_size=window)[0],
+                library=library,
+                bound=bound_ms(nbytes, 4.0 * pairs * b * h * d,
+                               str(dtype).removeprefix("torch.")))
+
+
+def k5_cases(torch, g, dev):
+    from paddle_tpu_torch import ops
+    import torch.nn.functional as tF
+
+    b, d, s_max = 4, 128, 4096
+    lens_list = [1, 1500, 3000, 4096]
+    lens = torch.tensor(lens_list, dtype=torch.int32, device=dev)
+    mask = (torch.arange(s_max, device=dev)[None]
+            < lens[:, None])[:, None, None, :]
+    # Mistral's GQA 4, MHA, and Qwen2-7B's group of 7
+    for h, hk in ((32, 8), (32, 32), (28, 4)):
+        for dtype in (torch.bfloat16, torch.float32):
+            q = torch.randn(b, h, d, generator=g, device=dev).to(dtype)
+            kc = torch.randn(b, s_max, hk, d, generator=g,
+                             device=dev).to(dtype)
+            vc = torch.randn(b, s_max, hk, d, generator=g,
+                             device=dev).to(dtype)
+            q4 = q[:, :, None, :]
+            kt, vt = _sdpa_layout(torch, kc, h // hk), _sdpa_layout(
+                torch, vc, h // hk)
+            e = q.element_size()
+            live = sum(lens_list)
+            nbytes = (2 * b * h * d + 2 * live * hk * d) * e + 4 * b
+            yield dict(
+                name="decode_attention", dtype=dtype,
+                shape=f"B={b},H={h},HK={hk},D={d},S_max={s_max},"
+                      f"lens={lens_list}",
+                primary=(hk == 8 and dtype == torch.bfloat16),
+                kernel=lambda q=q, kc=kc, vc=vc: ops.decode_attention(
+                    q, kc, vc, lens),
+                plain=lambda q=q, kc=kc, vc=vc: ops.decode_attention_plain(
+                    q, kc, vc, lens),
+                library=lambda q4=q4, kt=kt, vt=vt:
+                    tF.scaled_dot_product_attention(q4, kt, vt,
+                                                    attn_mask=mask),
+                # the kernel upcasts to f32: its products run at the f32 rate
+                bound=bound_ms(nbytes, 4.0 * live * h * d, "float32"))
+
+
 def _cumsum(xs):
     t = 0
     for x in xs:
@@ -286,7 +408,17 @@ KERNELS = {
     "varlen_flash_attention": (
         "cuda", "paddle_tpu_torch/csrc/varlen_flash_attention.cu",
         "paddle_tpu/ops/pallas/varlen_flash_attention.py:160"),
+    "flash_attention": (
+        "cuda", "paddle_tpu_torch/csrc/flash_attention.cu",
+        "paddle_tpu/ops/pallas/flash_attention.py:225"),
+    "decode_attention": (
+        "cuda", "paddle_tpu_torch/csrc/decode_attention.cu",
+        "paddle_tpu/ops/pallas/decode_attention.py:128"),
 }
+# the kernels each main path must launch
+SERVING_KERNELS = ("rms_norm", "paged_decode_attention",
+                   "varlen_flash_attention")
+GENERATE_KERNELS = ("rms_norm", "flash_attention", "decode_attention")
 
 
 def kernel_phase(torch, dev):
@@ -295,19 +427,25 @@ def kernel_phase(torch, dev):
     # one case at a time: each case's inputs live only while it runs
     for case in itertools.chain(k1_cases(torch, g, dev),
                                 k2_cases(torch, g, dev),
-                                k3_cases(torch, g, dev)):
+                                k3_cases(torch, g, dev),
+                                k4_cases(torch, g, dev),
+                                k5_cases(torch, g, dev)):
         out = case["kernel"]()
         ref = case["plain"]()
         torch.cuda.synchronize()
         err, ok, tol = close(torch, out, ref, case["dtype"],
-                             case["name"] == "varlen_flash_attention")
+                             case["name"] in ("varlen_flash_attention",
+                                              "flash_attention"))
+        ms, ms_timer = device_ms(torch, case["kernel"])
+        plain_ms, plain_timer = device_ms(torch, case["plain"], iters=3)
+        lib_ms, lib_timer = device_ms(torch, case["library"])
         rec = {"phase": "kernel_check", "name": case["name"],
                "dtype": str(case["dtype"]).removeprefix("torch."),
                "shape": case["shape"], "max_abs_err": err, "tol": tol,
-               "ok": ok,
-               "ms": device_ms(torch, case["kernel"]),
-               "plain_ms": device_ms(torch, case["plain"], iters=3),
-               "library_ms": device_ms(torch, case["library"]),
+               "ok": ok, "ms": ms, "plain_ms": plain_ms,
+               "library_ms": lib_ms,
+               "timers": {"ms": ms_timer, "plain_ms": plain_timer,
+                          "library_ms": lib_timer},
                "event_ms": cuda_ms(torch, case["kernel"]),
                "bound_ms": case["bound"][0], "bound_by": case["bound"][1]}
         emit(rec)
@@ -330,12 +468,10 @@ def make_requests(vocab, n=16):
                  max_new_tokens=int(mn)) for ln, mn in zip(lens, max_new)]
 
 
-def serve(torch, model, requests):
+def serve(torch, model, requests, **kw):
     from paddle_tpu_torch import create_serving_engine
 
-    engine = create_serving_engine(model, num_slots=8, block_size=32,
-                                   max_context=2048, prefill_chunk=128,
-                                   decode_quantum=8)
+    engine = create_serving_engine(model, **serve_kw(**kw))
     split = {"mixed_s": 0.0, "decode_s": 0.0}
 
     def timed(fn, key):
@@ -385,8 +521,9 @@ def e2e_phase(torch, dev):
     ops.reset_launches()
     engine, reqs, wall, split = serve(torch, model, requests)
     launches = dict(ops.LAUNCHES)
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched by the main path")
+    for name in SERVING_KERNELS:
+        check(launches[name] > 0,
+              f"kernel {name} was not launched by the serving path")
     check_run(engine, reqs, cfg.vocab_size)
     st = engine.engine_stats()
     gen = sum(len(r.tokens) for r in reqs)
@@ -404,7 +541,24 @@ def e2e_phase(torch, dev):
           "model_init_s": init_s,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
     del engine
+    # the same requests sampled: the per-step draw's cost beside greedy
+    sampled = [dict(r, seed=i) for i, r in enumerate(requests)]
+    engine, reqs, swall, ssplit = serve(torch, model, sampled, **SAMPLING)
+    check_run(engine, reqs, cfg.vocab_size)
+    st = engine.engine_stats()
+    emit({"phase": "e2e_llama2_7b_bf16_sampling", **SAMPLING,
+          "generated_tokens": sum(len(r.tokens) for r in reqs),
+          "wall_s": swall, "greedy_wall_s": wall,
+          "generated_tok_per_s": gen / swall,
+          "mixed_step_s": ssplit["mixed_s"],
+          "decode_quanta_s": ssplit["decode_s"],
+          "greedy_decode_quanta_s": split["decode_s"],
+          "mixed_steps": st["mixed_steps"],
+          "decode_quanta": st["decode_quanta"]})
+    del engine
     profile_phase(torch, model, requests)
+    profile_phase(torch, model, sampled, labels=("decode_quantum",),
+                  tag="_sampling", **SAMPLING)
     del model
     torch.cuda.empty_cache()
     return launches
@@ -412,9 +566,10 @@ def e2e_phase(torch, dev):
 
 def _kernel_family(name):
     for key, fam in (("rms_norm_kernel", "K1 rms_norm"),
-                     ("paged_split_kernel", "K2 paged_decode"),
-                     ("paged_merge_kernel", "K2 paged_decode"),
+                     ("PagedRows", "K2 paged_decode"),
                      ("varlen_fwd_", "K3 varlen_flash"),
+                     ("flash_fwd_", "K4 flash_attention"),
+                     ("ContiguousRows", "K5 decode_attention"),
                      ("gemm", "matmul"), ("nvjet", "matmul"),
                      ("cutlass", "matmul"), ("xmma", "matmul")):
         if key in name:
@@ -422,7 +577,8 @@ def _kernel_family(name):
     return "other"
 
 
-def profile_phase(torch, model, requests):
+def profile_phase(torch, model, requests,
+                  labels=("mixed_step", "decode_quantum"), tag="", **kw):
     """Where one mixed step and one decode quantum spend device time:
     torch.profiler over a single engine step each (the main run's counts
     are read before this). Device busy share = summed kernel time over the
@@ -430,14 +586,15 @@ def profile_phase(torch, model, requests):
     from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch import create_serving_engine
 
-    engine = create_serving_engine(model, num_slots=8, block_size=32,
-                                   max_context=2048, prefill_chunk=128,
-                                   decode_quantum=8)
+    engine = create_serving_engine(model, **serve_kw(**kw))
     for r in requests[:8]:
         engine.submit(**r)
-    for label in ("mixed_step", "decode_quantum"):
+    for label in labels:
         if label == "decode_quantum":
-            while engine.scheduler.prefilling():
+            # admission happens inside step(): run until every admitted
+            # request has finished its prefill
+            while (engine.scheduler.prefilling()
+                   or not engine.scheduler.decoding()):
                 engine.step()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -446,24 +603,31 @@ def profile_phase(torch, model, requests):
             engine.step()
             torch.cuda.synchronize()
             wall_us = 1e6 * (time.perf_counter() - t0)
-        fams, n_kernels = {}, 0
-        for ev in prof.key_averages():
-            dev_us = _device_us(ev)
-            if ev.device_type == torch.autograd.DeviceType.CUDA \
-                    and dev_us > 0:
-                fam = _kernel_family(ev.key)
-                fams[fam] = fams.get(fam, 0.0) + dev_us
-                n_kernels += ev.count
-        busy = sum(fams.values())
-        emit({"phase": "profile", "step": label,
-              "wall_ms_under_profiler": wall_us / 1e3,
-              "device_ms": busy / 1e3 if busy else "not measured",
-              "device_busy_share": busy / wall_us if busy
-              else "not measured",
-              "kernels_launched": n_kernels,
-              "device_ms_by_family": {k: v / 1e3 for k, v in sorted(
-                  fams.items(), key=lambda kv: -kv[1])}})
+        emit(_profile_record(torch, prof, label + tag, wall_us))
     del engine
+
+
+def _profile_record(torch, prof, label, wall_us):
+    fams, n_kernels = {}, 0
+    for ev in prof.key_averages():
+        dev_us = _device_us(ev)
+        if ev.device_type == torch.autograd.DeviceType.CUDA and dev_us > 0:
+            fam = _kernel_family(ev.key)
+            fams[fam] = fams.get(fam, 0.0) + dev_us
+            n_kernels += ev.count
+    busy = sum(fams.values())
+    return {"phase": "profile", "step": label,
+            "wall_ms_under_profiler": wall_us / 1e3,
+            "device_ms": busy / 1e3 if busy else "not measured",
+            "device_busy_share": busy / wall_us if busy else "not measured",
+            "kernels_launched": n_kernels,
+            "device_ms_by_family": {k: v / 1e3 for k, v in sorted(
+                fams.items(), key=lambda kv: -kv[1])}}
+
+
+def serve_kw(**kw):
+    return dict(num_slots=8, block_size=32, max_context=2048,
+                prefill_chunk=128, decode_quantum=8, **kw)
 
 
 def parity_phase(torch, dev):
@@ -488,7 +652,7 @@ def parity_phase(torch, dev):
         emit({"phase": "parity_f32_4layer", "path": "plain" if plain
               else "kernels", "wall_s": wall, "launches": launches[-1]})
         del engine
-    check(all(n > 0 for n in launches[0].values()),
+    check(all(launches[0][k] > 0 for k in SERVING_KERNELS),
           f"kernel path missed a kernel: {launches[0]}")
     check(all(n == 0 for n in launches[1].values()),
           f"plain path launched a kernel: {launches[1]}")
@@ -496,6 +660,195 @@ def parity_phase(torch, dev):
     emit({"phase": "parity_f32_4layer", "streams_equal": all(same),
           "requests_equal": sum(same), "requests": len(same)})
     check(all(same), "kernel and plain greedy streams differ")
+    # fixed-seed sampling serving, twice: the same streams
+    sampled = []
+    for _ in range(2):
+        engine, reqs, wall, _ = serve(
+            torch, model, [dict(r, seed=i) for i, r in enumerate(requests)],
+            **SAMPLING)
+        check_run(engine, reqs, cfg.vocab_size)
+        sampled.append([list(r.tokens) for r in reqs])
+        del engine
+    emit({"phase": "sampling_serving_f32_4layer", "wall_s": wall,
+          "streams_equal": sampled[0] == sampled[1],
+          "differs_from_greedy": sum(a != b for a, b in
+                                     zip(sampled[0], streams[0]))})
+    check(sampled[0] == sampled[1], "fixed-seed sampling streams differ")
+    del model
+    torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------ phase 5, 6
+def _mistral_prompts(vocab, b, s):
+    import numpy as np
+
+    return np.random.RandomState(SEED).randint(1, vocab, (b, s))
+
+
+def _instrument(torch, model):
+    """Patch ``model.forward`` to record, per call, a CUDA event after it
+    and its last-position logits: call 0 is the prefill, the rest decode
+    steps. Returns the list it appends (event, logits) to."""
+    calls = []
+    orig = model.forward
+
+    def forward(*args, **kwargs):
+        out = orig(*args, **kwargs)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        calls.append((ev, out[0][:, -1].clone()))
+        return out
+
+    model.forward = forward
+    return calls
+
+
+def _timed_generate(torch, model, ids, **kw):
+    calls = _instrument(torch, model)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    out = model.generate(ids, **kw)
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    del model.forward
+    timing = {"wall_s": wall,
+              "prefill_s": start.elapsed_time(calls[0][0]) / 1e3,
+              "decode_s": calls[0][0].elapsed_time(end) / 1e3,
+              "decode_steps": len(calls) - 1}
+    return out, timing, [lg for _, lg in calls]
+
+
+def _same_up_to_ties(torch, greedy, sampled, logits, s_in):
+    """Row by row, the top_k=1 sampled stream equals the greedy one until
+    a step whose greedy logits tie at the maximum; there the sampled token
+    must be one of the tied maxima (the two runs shared every earlier
+    token, so they saw the same logits), and the rows may part. Returns
+    (rows equal, ties met) or raises."""
+    equal = ties = 0
+    for r in range(greedy.shape[0]):
+        diff = (greedy[r, s_in:] != sampled[r, s_in:]).nonzero()
+        if diff.numel() == 0:
+            equal += 1
+            continue
+        t = int(diff[0])
+        lg = logits[t][r].float()
+        check(lg[greedy[r, s_in + t]] == lg.max()
+              and lg[sampled[r, s_in + t]] == lg.max(),
+              f"row {r}: top_k=1 sampling left greedy at step {t} without "
+              f"an argmax tie")
+        ties += 1
+    return equal, ties
+
+
+def generate_phase(torch, dev):
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.nlp import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig.mistral_7b(dtype="bfloat16")
+    b, s_in, new = GENERATE_SHAPE
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(
+        cfg, generator=torch.Generator(device=dev).manual_seed(SEED))
+    model.eval()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    ids = torch.from_numpy(_mistral_prompts(cfg.vocab_size, b, s_in)).to(dev)
+    layers = cfg.num_hidden_layers
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    out, timing, logits = _timed_generate(torch, model, ids,
+                                          max_new_tokens=new)
+    launches = dict(ops.LAUNCHES)
+    steps = new - 1
+    want = {"flash_attention": layers, "decode_attention": layers * steps,
+            "rms_norm": (2 * layers + 1) * new, "paged_decode_attention": 0,
+            "varlen_flash_attention": 0}
+    check(launches == want, f"generate launches {launches}, expected {want}")
+    check(tuple(out.shape) == (b, s_in + new)
+          and bool((out[:, :s_in] == ids).all())
+          and bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+          f"generate returned {tuple(out.shape)} or ids outside the vocab")
+    emit({"phase": "e2e_mistral_7b_bf16_generate", "layers": layers,
+          "batch": b, "prompt_tokens": s_in, "new_tokens": new,
+          "window": cfg.sliding_window, **timing,
+          "prefill_tok_per_s": b * s_in / timing["prefill_s"],
+          "decode_tok_per_s": b * steps / timing["decode_s"],
+          "generated_tok_per_s": b * new / timing["wall_s"],
+          "launches": launches, "model_init_s": init_s,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
+    sampled, stiming, _ = _timed_generate(
+        torch, model, ids, max_new_tokens=new, decode_strategy="sampling",
+        top_k=1, seed=7)
+    equal, ties = _same_up_to_ties(torch, out, sampled, logits, s_in)
+    emit({"phase": "e2e_mistral_7b_bf16_sampling_top_k_1",
+          "wall_s": stiming["wall_s"], "rows_equal_to_greedy": equal,
+          "rows_parted_at_an_argmax_tie": ties, "rows": b})
+    del logits, sampled
+    generate_profile(torch, model, ids)
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def generate_profile(torch, model, ids):
+    """Where one Mistral prefill and one decode step spend device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    b, s_in = ids.shape
+    with torch.no_grad():
+        caches = model.init_caches(b, s_in + 2)
+        for label in ("generate_prefill", "generate_decode_step"):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                if label == "generate_prefill":
+                    logits, caches = model(ids, 0, caches)
+                else:
+                    logits, caches = model(tok, s_in, caches)
+                torch.cuda.synchronize()
+                wall_us = 1e6 * (time.perf_counter() - t0)
+            tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+            emit(_profile_record(torch, prof, label, wall_us))
+    del caches
+
+
+def generate_parity_phase(torch, dev):
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.nlp import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig.mistral_7b(num_hidden_layers=4, dtype="float32")
+    model = LlamaForCausalLM(
+        cfg, generator=torch.Generator(device=dev).manual_seed(SEED + 2))
+    model.eval()
+    b, s_in, new = GENERATE_PARITY_SHAPE
+    ids = torch.from_numpy(_mistral_prompts(cfg.vocab_size, b, s_in)).to(dev)
+    outs, launches = [], []
+    for plain in (False, True):
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if plain:
+            with ops.plain_versions():
+                outs.append(model.generate(ids, max_new_tokens=new))
+        else:
+            outs.append(model.generate(ids, max_new_tokens=new))
+        torch.cuda.synchronize()
+        launches.append(dict(ops.LAUNCHES))
+        emit({"phase": "generate_parity_f32_4layer",
+              "path": "plain" if plain else "kernels",
+              "wall_s": time.perf_counter() - t0, "launches": launches[-1]})
+    check(all(launches[0][k] > 0 for k in GENERATE_KERNELS),
+          f"generate kernel path missed a kernel: {launches[0]}")
+    check(all(n == 0 for n in launches[1].values()),
+          f"generate plain path launched a kernel: {launches[1]}")
+    same = bool(torch.equal(outs[0], outs[1]))
+    emit({"phase": "generate_parity_f32_4layer", "streams_equal": same})
+    check(same, "generate kernel and plain greedy streams differ")
     del model
     torch.cuda.empty_cache()
 
@@ -518,16 +871,23 @@ def main():
     primary = kernel_phase(torch, dev)
     launches = e2e_phase(torch, dev)
     parity_phase(torch, dev)
+    gen_launches = generate_phase(torch, dev)
+    generate_parity_phase(torch, dev)
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
         rec = primary[name]
+        path = "serving" if name in SERVING_KERNELS else "generate"
         kernels.append({
             "name": name, "route": route, "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces,
+            "launches": (launches if path == "serving"
+                         else gen_launches)[name],
+            "launches_path": path,
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
-            "event_ms": rec["event_ms"], "dtype": rec["dtype"],
+            "event_ms": rec["event_ms"], "timers": rec["timers"],
+            "dtype": rec["dtype"],
             "shape": rec["shape"]})
     print(smi, flush=True)
     emit({"kernels": kernels})

@@ -26,12 +26,11 @@
 //   rounded to bf16 before P.V as in the TPU kernel, and the f32 output
 //   accumulator lives in shared memory, rescaled per row by each tile.
 // - f32: CUDA-core FMA (no f32 tensor-core path that keeps full f32
-//   precision); each thread owns a 4x4 score micro-tile (rows ty + 16 i,
-//   columns tx + 16 j, so shared-memory reads do not collide on banks)
-//   and a 4 x D/16 slice of the output in registers.
+//   precision), the tile loop of flash_f32.cuh, shared with K4.
 #include <mma.h>
 
 #include "common.cuh"
+#include "flash_f32.cuh"
 
 using namespace ptt;
 namespace wmma = nvcuda::wmma;
@@ -41,7 +40,8 @@ namespace {
 constexpr int kBQ = 64;  // query rows per CTA
 constexpr int kBK = 64;  // keys per tile
 constexpr int kDMax = 128;
-static_assert(kBQ == kBK, "copy_tile / load_rows copy 64-row tiles");
+static_assert(kBQ == kBK && kBQ == flash_f32::kBQ && kBK == flash_f32::kBK,
+              "copy_tile copies 64-row tiles; the f32 path shares the tiles");
 
 // Segment of packed position pos (0 <= pos < cu[nseg]): the largest s with
 // cu[s] <= pos, which is searchsorted(cu[1:], pos, side="right").
@@ -303,42 +303,28 @@ __global__ void __launch_bounds__(kThreadsTC)
 }
 
 // ------------------------------------------------------------------- f32
-// CUDA-core path: 256 threads, each owning a 4x4 score micro-tile and a
-// 4 x D/16 slice of the output accumulator in registers.
-constexpr int kThreadsF = 256;
-constexpr int kRows = kBQ / 16;    // score rows per thread
-constexpr int kCols = kBK / 16;    // score columns per thread
-constexpr int kDPer = kDMax / 16;  // output columns per thread
-constexpr int kQS = kDMax + 1;     // padded row stride of the Q / K tiles
-constexpr int kSS = kBK + 1;       // padded row stride of the P tile
-
+// CUDA-core path: flash_f32.cuh's tile loop; the policy below walks the
+// segment-aware tiles with the index arrays appended to its shared memory.
 size_t smem_bytes_f32() {
-  return sizeof(float) * (static_cast<size_t>(kBQ) * kQS + kBK * kQS +
-                          kBK * kDMax + kBQ * kSS) +
-         sizeof(int) * (2 * kBQ + 2 * kBK);
+  return flash_f32::kSmemBytes + sizeof(int) * (2 * kBQ + 2 * kBK);
 }
 
-// dst[r][c] = src row (row0 + r, head), rows past limit zero.
-__device__ __forceinline__ void load_rows(const float* __restrict__ src,
-                                          float* dst, int stride, int row0,
-                                          int limit, int heads, int head,
-                                          int d) {
-  const int vpr = d / 4;
-  for (int idx = threadIdx.x; idx < kBQ * vpr; idx += blockDim.x) {
-    const int r = idx / vpr;
-    const int c = (idx - r * vpr) * 4;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < limit)
-      val = *reinterpret_cast<const float4*>(
-          src + (static_cast<size_t>(row0 + r) * heads + head) * d + c);
-    dst[r * stride + c] = val.x;
-    dst[r * stride + c + 1] = val.y;
-    dst[r * stride + c + 2] = val.z;
-    dst[r * stride + c + 3] = val.w;
+struct SegmentTiles {
+  const int* cu_k;
+  int nseg, khi, causal, window;
+  const int *qseg, *qrel;
+  int *kseg, *krel;
+
+  __device__ bool tile(int k0) {
+    return key_tile(cu_k, nseg, k0, khi, qseg, qrel, kseg, krel, causal,
+                    window);
   }
-}
+  __device__ bool live(int r, int, int c) const {
+    return live_pair(qseg[r], qrel[r], kseg[c], krel[c], causal, window);
+  }
+};
 
-__global__ void __launch_bounds__(kThreadsF)
+__global__ void __launch_bounds__(flash_f32::kThreads)
     varlen_fwd_f32_kernel(const float* __restrict__ q,
                           const float* __restrict__ k,
                           const float* __restrict__ v,
@@ -350,127 +336,30 @@ __global__ void __launch_bounds__(kThreadsF)
   const int q0 = blockIdx.x * kBQ;
   const int head = blockIdx.y;
   const int kvh = head / (h / hk);
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
 
   extern __shared__ float smem[];
-  float* qs = smem;               // [BQ][kQS]
-  float* ks = qs + kBQ * kQS;     // [BK][kQS]
-  float* vs = ks + kBK * kQS;     // [BK][kDMax]
-  float* ps = vs + kBK * kDMax;   // [BQ][kSS]
-  int* qseg = reinterpret_cast<int*>(ps + kBQ * kSS);
+  int* qseg = reinterpret_cast<int*>(
+      reinterpret_cast<char*>(smem) + flash_f32::kSmemBytes);
   int* qrel = qseg + kBQ;
   int* kseg = qrel + kBQ;
   int* krel = kseg + kBK;
   __shared__ int krange[2];
 
   query_rows(cu_q, cu_k, nseg, tq, q0, qseg, qrel);
-  load_rows(q, qs, kQS, q0, tq, h, head, d);
   __syncthreads();
-  if (tid == 0)
+  if (threadIdx.x == 0)
     key_range(cu_k, tq, tk, q0, qseg, qrel, causal, window, krange);
   __syncthreads();
-  const int klo = krange[0];
-  const int khi = krange[1];
-
-  float m[kRows], l[kRows], acc[kRows][kDPer];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < kDPer; ++j) acc[i][j] = 0.f;
-  }
-  const int nd = d / 16;
-
-  for (int k0 = klo; k0 < khi; k0 += kBK) {
-    if (!key_tile(cu_k, nseg, k0, khi, qseg, qrel, kseg, krel, causal,
-                  window))
-      continue;  // dead tile: no K/V bytes read
-    load_rows(k, ks, kQS, k0, khi, hk, kvh, d);
-    load_rows(v, vs, kDMax, k0, khi, hk, kvh, d);
-    __syncthreads();
-
-    float s[kRows][kCols];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) s[i][j] = 0.f;
-    for (int c = 0; c < d; ++c) {
-      float qv[kRows], kv[kCols];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) qv[i] = qs[(ty + 16 * i) * kQS + c];
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) kv[j] = ks[(tx + 16 * j) * kQS + c];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int r = ty + 16 * i;
-      bool ok[kCols];
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int c = tx + 16 * j;
-        ok[j] = live_pair(qseg[r], qrel[r], kseg[c], krel[c], causal, window);
-        s[i][j] = ok[j] ? s[i][j] * sm_scale : kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int o = 8; o > 0; o >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_new = fmaxf(m[i], mx);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const float p = ok[j] ? expf(s[i][j] - m_new) : 0.f;
-        ps[r * kSS + tx + 16 * j] = p;
-        rs += p;
-      }
-#pragma unroll
-      for (int o = 8; o > 0; o >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, o);
-      const float alpha = expf(m[i] - m_new);
-      l[i] = alpha * l[i] + rs;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < kDPer; ++j) acc[i][j] *= alpha;
-    }
-    __syncthreads();
-
-    for (int c = 0; c < kBK; ++c) {
-      float pv[kRows];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) pv[i] = ps[(ty + 16 * i) * kSS + c];
-#pragma unroll
-      for (int j = 0; j < kDPer; ++j) {
-        if (j < nd) {
-          const float vv = vs[c * kDMax + tx + 16 * j];
-#pragma unroll
-          for (int i = 0; i < kRows; ++i) acc[i][j] = fmaf(pv[i], vv, acc[i][j]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int qi = q0 + ty + 16 * i;
-    if (qi < tq) {
-      const float lc = fmaxf(l[i], 1e-30f);
-      float* orow = out + (static_cast<size_t>(qi) * h + head) * d;
-#pragma unroll
-      for (int j = 0; j < kDPer; ++j)
-        if (j < nd) orow[tx + 16 * j] = acc[i][j] / lc;
-      if (tx == 0) lse[static_cast<size_t>(head) * tq + qi] = m[i] + logf(lc);
-    }
-  }
+  SegmentTiles tiles{cu_k, nseg, krange[1], causal, window,
+                     qseg, qrel, kseg, krel};
+  const size_t row = static_cast<size_t>(h) * d;
+  flash_f32::attend(q + (static_cast<size_t>(q0) * h + head) * d, row,
+                    min(kBQ, tq - q0), k + static_cast<size_t>(kvh) * d,
+                    v + static_cast<size_t>(kvh) * d,
+                    static_cast<size_t>(hk) * d, krange[0], krange[1], d,
+                    sm_scale, tiles,
+                    out + (static_cast<size_t>(q0) * h + head) * d, row,
+                    lse + static_cast<size_t>(head) * tq + q0, smem);
 }
 
 template <typename Kernel>
@@ -514,7 +403,7 @@ extern "C" int ptt_varlen_flash_attention(
     static bool configured = false;
     const size_t bytes = smem_bytes_f32();
     if (int e = set_smem(varlen_fwd_f32_kernel, bytes, &configured)) return e;
-    varlen_fwd_f32_kernel<<<grid, kThreadsF, bytes, s>>>(
+    varlen_fwd_f32_kernel<<<grid, flash_f32::kThreads, bytes, s>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), cq, ck, static_cast<float*>(out), l, tq,
         tk, nseg, h, hk, d, causal, window, sm_scale);

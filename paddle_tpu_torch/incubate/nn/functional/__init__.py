@@ -1,16 +1,18 @@
-"""Serving attention over the paged KV pool (counterpart of
-``paddle_tpu/incubate/nn/functional/__init__.py``
-``block_multihead_attention``, float-pool path)."""
+"""Serving attention ops (counterpart of
+``paddle_tpu/incubate/nn/functional/__init__.py``): the one-token decode op
+``masked_multihead_attention`` over a contiguous cache, and
+``block_multihead_attention`` over the paged KV pool (float-pool path)."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
 from ....nn.functional.rope import apply_rotary_emb
+from ....ops.decode_attention import decode_attention, decode_attention_plain
 from ....ops.paged_attention import paged_decode_attention
 from ....ops.varlen_flash_attention import varlen_flash_attention
 
-__all__ = ["block_multihead_attention"]
+__all__ = ["masked_multihead_attention", "block_multihead_attention"]
 
 # the reference's int8 / static-scale / out-quant epilogue kwargs: they
 # belong to the int8 serving slice
@@ -24,6 +26,36 @@ def _host(x):
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+def masked_multihead_attention(x, cache_kv=None, src_mask=None,
+                               sequence_lengths=None, out_scale=-1,
+                               num_heads=None, name=None):
+    """One-token decode attention over a KV cache (the fused decode op
+    behind ``fused_multi_transformer``).
+
+    x: (B, H, D) or (B, 1, H, D) new-token queries; cache_kv:
+    (2, B, S_max, HK, D) stacked k/v caches; sequence_lengths: (B,) valid
+    entries, the new token included. Without ``src_mask`` it runs the K5
+    wrapper (the kernel on CUDA tensors); an additive ``src_mask``
+    (broadcastable to (B, H, 1, S_max)) takes the plain version as a
+    logits bias, as the reference sends it to XLA. ``out_scale > 0``
+    quantizes the output to int8, ``clip(round(out / out_scale), -128,
+    127)`` (round half to even)."""
+    if cache_kv is None or sequence_lengths is None:
+        raise ValueError(
+            "masked_multihead_attention requires cache_kv and "
+            "sequence_lengths")
+    kc, vc = cache_kv[0], cache_kv[1]
+    lens = sequence_lengths.to(x.device, torch.int32)
+    if src_mask is None:
+        out = decode_attention(x, kc, vc, lens)
+    else:
+        out = decode_attention_plain(x, kc, vc, lens, bias=src_mask)
+    if out_scale and out_scale > 0:
+        out = torch.clamp(torch.round(out.float() / float(out_scale)),
+                          -128, 127).to(torch.int8)
+    return out
 
 
 def block_multihead_attention(qkv, key_cache, value_cache,

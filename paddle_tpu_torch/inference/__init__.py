@@ -11,6 +11,8 @@ def create_serving_engine(model, **kwargs):
     pool, chunked mixed prefill, decode quantum). Keyword arguments go to
     the engine: ``num_slots``, ``block_size``, ``num_blocks``,
     ``max_context``, ``prefill_chunk``, ``decode_quantum``,
+    ``decode_strategy`` (``"greedy"`` or ``"sampling"`` with ``top_k``,
+    ``top_p``, ``temperature``, ``per_request_sampling``),
     ``eos_token_id``, ``device`` (default ``cuda``; raises without CUDA
     unless ``"cpu"``)."""
     from ..serving import ServingEngine

@@ -7,9 +7,12 @@ carry transposes once. Both of the reference's builds, tensor-parallel
 (Column/RowParallelLinear, which degrade to serial layers without a mesh)
 and serial, give the same keys and shapes, so one port covers both.
 
-Attention without a cache runs through the varlen kernel (K3) with one
-segment per batch row; RMSNorm through K1. The serving path (paged KV
-pool) lives in ``serving/engine.py`` and ``incubate/nn/functional``.
+Attention without a cache runs through ``F.scaled_dot_product_attention``
+(dense) or ``F.sliding_window_attention`` (windowed), both the flash
+kernel K4; with a contiguous cache, windowed prefill runs K4 and a single
+decoded token the decode kernel K5; RMSNorm runs K1. Generation over the
+cache lives in ``nlp/generation.py``; the serving path (paged KV pool) in
+``serving/engine.py`` and ``incubate/nn/functional``.
 """
 from __future__ import annotations
 
@@ -22,7 +25,7 @@ from .._device import resolve_device
 from ..nn import functional as F
 from ..nn.functional.rope import apply_rotary_emb, build_rope_cache
 from ..nn.layer.norm import RMSNorm
-from ..ops.varlen_flash_attention import varlen_flash_attention
+from ..ops.decode_attention import decode_attention
 
 __all__ = ["LlamaConfig", "LlamaAttention", "LlamaMLP", "LlamaDecoderLayer",
            "LlamaModel", "LlamaForCausalLM"]
@@ -120,7 +123,6 @@ class LlamaConfig:
 def _check_ported(config):
     """Refuse the options whose code paths belong to later slices."""
     later = {
-        "sliding_window": ("sliding-window attention", "ROADMAP A3"),
         "use_recompute": ("recompute", "ROADMAP A11"),
         "context_parallel": ("context parallelism", "ROADMAP A12"),
         "fuse_linear_cross_entropy": ("the fused lm-head loss",
@@ -133,8 +135,8 @@ def _check_ported(config):
 
 
 class LlamaAttention(nn.Module):
-    """Self-attention with rotary embedding, GQA and Qwen2-style q/k/v
-    biases. The no-cache forward attends through the varlen kernel."""
+    """Self-attention with rotary embedding, GQA, Qwen2-style q/k/v biases
+    and the optional sliding window, with or without a KV cache."""
 
     def __init__(self, config, device=None, dtype=None):
         super().__init__()
@@ -149,7 +151,12 @@ class LlamaAttention(nn.Module):
         self.v_proj = nn.Linear(config.hidden_size, hk * d, bias=bias, **kw)
         self.o_proj = nn.Linear(h * d, config.hidden_size, bias=False, **kw)
 
-    def forward(self, hidden, position_offset=0):
+    def forward(self, hidden, position_offset=0, cache=None):
+        """Returns ``(out, cache)``. ``cache`` is a ``(k, v)`` pair of
+        (B, S_max, HK, D) tensors holding ``position_offset`` tokens; this
+        call's K/V are written into it IN PLACE (the reference returns new
+        arrays) and the same pair is returned. A sliding-window model
+        uses it as a rolling buffer (writes wrap at S_max)."""
         b, s, _ = hidden.shape
         h, hk, d = self.num_heads, self.num_kv_heads, self.head_dim
         q = self.q_proj(hidden).view(b, s, h, d)
@@ -160,14 +167,93 @@ class LlamaAttention(nn.Module):
                                     device=hidden.device)
         q = apply_rotary_emb(q, cos, sin)
         k = apply_rotary_emb(k, cos, sin)
-        # one varlen segment per batch row = dense causal attention
-        cu = torch.arange(0, (b + 1) * s, s, dtype=torch.int32,
-                          device=hidden.device)
-        out = varlen_flash_attention(
-            q.reshape(b * s, h, d), k.reshape(b * s, hk, d),
-            v.reshape(b * s, hk, d).contiguous(), cu, cu, causal=True,
-            sm_scale=1.0 / math.sqrt(d))
-        return self.o_proj(out.reshape(b, s, h * d))
+        window = self.config.sliding_window
+        if cache is not None:
+            if window and s > 1:
+                # windowed prefill attends the call's own keys through the
+                # banded kernel (every query's band lies inside this call
+                # at offset 0); the rolling buffer is storage for decode
+                if position_offset != 0:
+                    raise NotImplementedError(
+                        "sliding_window + chunked prefill (cache with "
+                        "position_offset>0 and s>1) is not supported; "
+                        "prefill in one chunk, then decode token by token")
+                cache = self._update_cache(k, v, cache, position_offset)
+                out = F.sliding_window_attention(q, k, v, window)
+            else:
+                cache = self._update_cache(k, v, cache, position_offset)
+                out = self._decode_attend(q, cache[0], cache[1],
+                                          position_offset + s)
+        elif window:
+            out = F.sliding_window_attention(q, k, v, window)
+        else:
+            out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        return self.o_proj(out.reshape(b, s, h * d)), cache
+
+    def _update_cache(self, k, v, cache, position_offset):
+        """Write this call's K/V into the cache pair in place."""
+        kc, vc = cache
+        cache_len = kc.shape[1]
+        s = k.shape[1]
+        if not self.config.sliding_window:
+            if s > cache_len:
+                # wrap-writes would permute slots the slot-index causal
+                # mask then misreads (a silent causality violation)
+                raise ValueError(
+                    f"KV cache length {cache_len} < {s} tokens written; "
+                    f"allocate init_caches(max_len >= prompt + new tokens)")
+            # the reference's dynamic_update_slice clamps the start so the
+            # update fits
+            start = min(max(int(position_offset), 0), cache_len - s)
+            kc[:, start:start + s] = k.to(kc.dtype)
+            vc[:, start:start + s] = v.to(vc.dtype)
+            return kc, vc
+        if s > cache_len:
+            # rolling buffer: only this call's last cache_len tokens matter
+            k, v = k[:, s - cache_len:], v[:, s - cache_len:]
+            position_offset = position_offset + (s - cache_len)
+            s = cache_len
+        idx = (position_offset + torch.arange(s, device=k.device)) % cache_len
+        kc[:, idx] = k.to(kc.dtype)
+        vc[:, idx] = v.to(vc.dtype)
+        return kc, vc
+
+    def _decode_attend(self, q, kc, vc, valid_len):
+        """Attention of this call's queries over the cache. ``valid_len``
+        counts ABSOLUTE tokens so far; a rolling buffer holds only
+        ``min(valid_len, cache_len)`` live slots. A single query runs the
+        decode kernel (K5) when the buffer is no longer than the window
+        (the window IS the buffer, and the wrapped order is irrelevant to
+        softmax); a multi-token suffix masks by each slot's reconstructed
+        absolute position in f32."""
+        window = self.config.sliding_window
+        b, sq, h, d = q.shape
+        cache_len = kc.shape[1]
+        if sq == 1 and (not window or cache_len <= window):
+            live = min(valid_len, cache_len) if window else valid_len
+            lens = torch.full((b,), live, dtype=torch.int32, device=q.device)
+            return decode_attention(q, kc, vc, lens)
+        rep = h // kc.shape[2]
+        kr = kc.repeat_interleave(rep, dim=2) if rep > 1 else kc
+        vr = vc.repeat_interleave(rep, dim=2) if rep > 1 else vc
+        logits = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                              kr.float()) / math.sqrt(d)
+        dev = q.device
+        q_pos = valid_len - sq + torch.arange(sq, device=dev)
+        k_slot = torch.arange(cache_len, device=dev)
+        if window:
+            # slot j holds absolute position a(j): the largest p <
+            # valid_len with p % cache_len == j
+            a = valid_len - 1 - ((valid_len - 1 - k_slot) % cache_len)
+            mask = ((a[None, :] <= q_pos[:, None])
+                    & (a[None, :] > q_pos[:, None] - window)
+                    & (a[None, :] >= 0))
+        else:
+            mask = k_slot[None, :] <= q_pos[:, None]
+        logits = logits.masked_fill(~mask, -1e30)
+        p = torch.softmax(logits, dim=-1)
+        out = torch.einsum("bhqk,bkhd->bqhd", p, vr.float())
+        return out.to(q.dtype)
 
 
 class LlamaMLP(nn.Module):
@@ -199,10 +285,11 @@ class LlamaDecoderLayer(nn.Module):
             config.hidden_size, epsilon=config.rms_norm_eps, **kw)
         self.mlp = LlamaMLP(config, **kw)
 
-    def forward(self, hidden, position_offset=0):
-        hidden = hidden + self.self_attn(self.input_layernorm(hidden),
-                                         position_offset)
-        return hidden + self.mlp(self.post_attention_layernorm(hidden))
+    def forward(self, hidden, position_offset=0, cache=None):
+        attn_out, cache = self.self_attn(self.input_layernorm(hidden),
+                                         position_offset, cache)
+        hidden = hidden + attn_out
+        return hidden + self.mlp(self.post_attention_layernorm(hidden)), cache
 
 
 class LlamaModel(nn.Module):
@@ -218,11 +305,17 @@ class LlamaModel(nn.Module):
         self.norm = RMSNorm(config.hidden_size, epsilon=config.rms_norm_eps,
                             **kw)
 
-    def forward(self, input_ids, position_offset=0):
+    def forward(self, input_ids, position_offset=0, caches=None):
+        """Returns ``(hidden, new_caches)``; ``new_caches`` is None without
+        caches."""
         hidden = self.embed_tokens(input_ids)
-        for layer in self.layers:
-            hidden = layer(hidden, position_offset)
-        return self.norm(hidden)
+        new_caches = [] if caches is not None else None
+        for i, layer in enumerate(self.layers):
+            hidden, cache = layer(hidden, position_offset,
+                                  caches[i] if caches is not None else None)
+            if new_caches is not None:
+                new_caches.append(cache)
+        return self.norm(hidden), new_caches
 
 
 class LlamaForCausalLM(nn.Module):
@@ -263,12 +356,37 @@ class LlamaForCausalLM(nn.Module):
 
     def forward(self, input_ids, position_offset=0, caches=None,
                 cu_seqlens=None):
-        """Logits (B, S, vocab) of a causal forward without a KV cache."""
-        if caches is not None:
-            raise NotImplementedError(
-                "contiguous-cache generation is not ported yet "
-                "(ROADMAP A4); serve through ServingEngine")
+        """Logits (B, S, vocab); with ``caches`` (a list of per-layer
+        ``(k, v)`` pairs from :meth:`init_caches`, holding
+        ``position_offset`` tokens) returns ``(logits, new_caches)``."""
         if cu_seqlens is not None:
             raise NotImplementedError(
                 "packed cu_seqlens training is not ported yet (ROADMAP A3)")
-        return self.lm_head(self.llama(input_ids, position_offset))
+        hidden, new_caches = self.llama(input_ids, position_offset, caches)
+        logits = self.lm_head(hidden)
+        if caches is not None:
+            return logits, new_caches
+        return logits
+
+    def generate(self, input_ids, max_new_tokens=32,
+                 decode_strategy="greedy_search", **kwargs):
+        """Paddle-style generation entry (greedy / sampling / beam; see
+        :func:`paddle_tpu_torch.nlp.generation.generate`)."""
+        from .generation import generate
+
+        return generate(self, input_ids, max_new_tokens,
+                        decode_strategy=decode_strategy, **kwargs)
+
+    def init_caches(self, batch_size, max_len, dtype=None):
+        """Empty KV caches on the model's device: a list of ``(k, v)`` per
+        layer, each (B, max_len, HK, D) in ``dtype`` (default the model's).
+        A sliding-window model never needs more than the window."""
+        cfg = self.config
+        if cfg.sliding_window:
+            max_len = min(max_len, cfg.sliding_window)
+        dev = self.lm_head.weight.device
+        dt = cfg.torch_dtype if dtype is None else _DTYPES.get(dtype, dtype)
+        shape = (batch_size, max_len, cfg.num_key_value_heads, cfg.head_dim)
+        return [(torch.zeros(shape, dtype=dt, device=dev),
+                 torch.zeros(shape, dtype=dt, device=dev))
+                for _ in range(cfg.num_hidden_layers)]

@@ -1,0 +1,86 @@
+"""Attention functionals (counterpart of
+``paddle_tpu/nn/functional/attention.py``).
+
+Layout (batch, seq, heads, head_dim), paddle's flash-attn layout. Without
+a mask or dropout, attention goes through the K4 wrapper
+(:func:`~paddle_tpu_torch.ops.flash_attention`: the kernel on CUDA
+tensors, its plain version on CPU tensors), as the reference routes to its
+Pallas flash kernel. An ``attn_mask`` or dropout takes the plain
+:func:`_xla_attention`, as the reference sends them to XLA.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ...ops.flash_attention import band_mask
+from ...ops.flash_attention import flash_attention as _flash_kernel
+
+__all__ = ["scaled_dot_product_attention", "flash_attention",
+           "sliding_window_attention"]
+
+
+def _xla_attention(q, k, v, mask=None, causal=False, dropout_p=0.0,
+                   scale=None, generator=None):
+    """Plain masked attention in f32 (the reference's XLA path); layout
+    (B, S, H, D). ``mask``: bool (True = keep) or an additive bias,
+    broadcastable to (B, H, Sq, Sk). Dropout draws its keep mask from
+    ``generator``."""
+    if k.shape[2] != q.shape[2]:  # GQA/MQA: repeat kv heads to q heads
+        rep = q.shape[2] // k.shape[2]
+        k = k.repeat_interleave(rep, dim=2)
+        v = v.repeat_interleave(rep, dim=2)
+    sc = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * sc
+    if causal:
+        sq, sk = logits.shape[-2], logits.shape[-1]
+        logits = logits.masked_fill(~band_mask(sq, sk, True,
+                                               device=q.device), -math.inf)
+    if mask is not None:
+        if mask.dtype == torch.bool:
+            logits = logits.masked_fill(~mask, -math.inf)
+        else:
+            logits = logits + mask.float()
+    probs = torch.softmax(logits, dim=-1)
+    if dropout_p > 0.0:
+        keep = torch.rand(probs.shape, generator=generator,
+                          device=probs.device) < 1.0 - dropout_p
+        probs = torch.where(keep, probs / (1.0 - dropout_p), 0.0)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, v.float())
+    return out.to(q.dtype)
+
+
+def sliding_window_attention(query, key, value, window_size, training=True,
+                             name=None):
+    """Causal sliding-window attention (Mistral semantics: each query
+    attends to the last ``window_size`` keys, itself included) through
+    K4's banded tiles."""
+    w = int(window_size)
+    if w < 1:
+        raise ValueError(f"window_size must be >= 1, got {window_size}")
+    return _flash_kernel(query, key, value, causal=True, window_size=w)
+
+
+def scaled_dot_product_attention(query, key, value, attn_mask=None,
+                                 dropout_p=0.0, is_causal=False,
+                                 training=True, name=None, generator=None):
+    """Paddle's SDPA. ``generator`` (a ``torch.Generator`` on the inputs'
+    device) feeds the dropout keep mask when ``dropout_p > 0`` and
+    ``training``."""
+    dropout = dropout_p if training else 0.0
+    if attn_mask is None and dropout == 0.0:
+        return _flash_kernel(query, key, value, causal=is_causal)
+    return _xla_attention(query, key, value, mask=attn_mask,
+                          causal=is_causal, dropout_p=dropout,
+                          generator=generator)
+
+
+def flash_attention(query, key, value, dropout=0.0, causal=False,
+                    return_softmax=False, fixed_seed_offset=None,
+                    rng_name="", training=True, name=None, generator=None):
+    """``paddle.nn.functional.flash_attention.flash_attention``: returns
+    ``(out, None)`` (no softmax is materialized)."""
+    out = scaled_dot_product_attention(query, key, value, None, dropout,
+                                       causal, training, generator=generator)
+    return out, None

@@ -34,18 +34,21 @@ __all__ = ["LAUNCHES", "reset_launches", "plain_versions", "use_plain",
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "paddle_tpu_torch"
-SOURCES = ("rms_norm.cu", "paged_attention.cu", "varlen_flash_attention.cu")
-HEADERS = ("common.cuh",)
+SOURCES = ("rms_norm.cu", "paged_attention.cu", "varlen_flash_attention.cu",
+           "decode_attention.cu", "flash_attention.cu")
+HEADERS = ("common.cuh", "split_decode.cuh", "flash_f32.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-lineinfo", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# tokens of one sequence each CTA of the paged kernel covers (the C side's
-# kSplitTokens, checked against it when the library loads)
-PAGED_SPLIT_TOKENS = 256
+# tokens of one sequence each CTA of the paged and contiguous decode
+# kernels covers (split_decode.cuh's kSplitTokens, checked against it when
+# the library loads)
+SPLIT_TOKENS = 128
 
 # kernel name -> launches since the last reset_launches()
 LAUNCHES = {"rms_norm": 0, "paged_decode_attention": 0,
-            "varlen_flash_attention": 0}
+            "varlen_flash_attention": 0, "flash_attention": 0,
+            "decode_attention": 0}
 
 _plain = False
 _lib = None
@@ -154,6 +157,14 @@ def _declare(lib):
         # window, sm_scale, dtype, stream
         "ptt_varlen_flash_attention": (p, p, p, p, p, p, p, i, i, i, i, i,
                                        i, i, i, f, i, p),
+        # q, k_cache, v_cache, lens, out, part_o, part_ml, b, h, hk, d,
+        # s_max, nsplit, sm_scale, dtype, stream
+        "ptt_decode_attention": (p, p, p, p, p, p, p, i, i, i, i, i, i, f, i,
+                                 p),
+        # q, k, v, out, lse, b, sq, sk, h, hk, d, causal, window, sm_scale,
+        # dtype, stream
+        "ptt_flash_attention": (p, p, p, p, p, i, i, i, i, i, i, i, i, f, i,
+                                p),
     }
     for name, args in sigs.items():
         fn = getattr(lib, name)
@@ -163,8 +174,8 @@ def _declare(lib):
     lib.ptt_paged_split_tokens.restype = ctypes.c_int
     lib.ptt_error_string.argtypes = [ctypes.c_int]
     lib.ptt_error_string.restype = ctypes.c_char_p
-    if lib.ptt_paged_split_tokens() != PAGED_SPLIT_TOKENS:
-        raise RuntimeError("paged_attention.cu and _library.py disagree on "
+    if lib.ptt_paged_split_tokens() != SPLIT_TOKENS:
+        raise RuntimeError("split_decode.cuh and _library.py disagree on "
                            "the split size")
     return lib
 

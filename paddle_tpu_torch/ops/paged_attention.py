@@ -23,7 +23,7 @@ __all__ = ["paged_decode_attention", "paged_decode_attention_plain",
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)  # D the kernel is built for (D / 32 dims per lane)
-_MAX_GROUP = 8          # query heads per KV head the kernel holds
+_MAX_GROUP = 8  # query heads per KV head the kernel takes (1..8)
 
 
 def paged_decode_attention_plain(q, k_pool, v_pool, block_tables, seq_lens,
@@ -127,7 +127,7 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, seq_lens,
                          "aligned q and pools")
     lib = L.library()
     w = block_tables.shape[1]
-    nsplit = -(-w * bs // L.PAGED_SPLIT_TOKENS)
+    nsplit = -(-w * bs // L.SPLIT_TOKENS)
     # per-split partial results (G x D accumulators, then G x (max, sum)),
     # merged by the kernel's second pass
     n_o = b * hk * nsplit * (h // hk) * d

@@ -18,7 +18,11 @@ The loop is the reference's:
 
 The reference compiles its quantum into one jitted program; here it is a
 Python loop of eager steps (CUDA-graph capture is later work). Pools are
-updated in place. Decoding is greedy. Observability, SLOs, the flight
+updated in place. Decoding is greedy, or sampling with engine-wide
+``top_k``/``top_p``/``temperature`` (and, with ``per_request_sampling``,
+a per-slot temperature): each draw is keyed by (request seed, tokens
+emitted so far), so a stream does not depend on preemption or on how
+steps group into quanta. Observability, SLOs, the flight
 recorder, fault injection, resilience, speculative decoding, tensor
 parallelism, int8, the prefix cache and multi-quantum dispatch are
 later slices (ROADMAP A7-A12); the engine does not take their options.
@@ -32,6 +36,7 @@ import torch
 
 from .._device import resolve_device
 from ..incubate.nn.functional import block_multihead_attention
+from ..nlp.generation import _filter_logits, fold_seed, gumbel_argmax
 from ..nlp.paged_cache import PagedKVCachePool
 from ..nn.functional.rope import build_rope_cache, inv_freq
 from ..ops.paged_attention import paged_decode_attention
@@ -111,27 +116,41 @@ class ServingEngine:
         max_context: per-request prompt + generation bound (default the
             model's ``max_position_embeddings``).
         prefill_chunk / decode_quantum: see ``SchedulerConfig``.
-        decode_strategy: ``"greedy"`` (sampling is a later slice).
+        decode_strategy: ``"greedy"`` or ``"sampling"`` (engine-wide
+            ``top_k``/``top_p``/``temperature``, per-request ``seed``).
         eos_token_id: retire a slot the step after it emits this id.
+        per_request_sampling: (sampling only) each slot takes its own
+            ``submit(..., temperature=)``, divided into the logits before
+            the top-k/top-p cut; a request without one gets the
+            engine-wide temperature.
         device: default ``cuda``; raises without CUDA unless ``"cpu"``.
     """
 
     def __init__(self, model, num_slots=8, block_size=32, num_blocks=None,
                  max_context=None, prefill_chunk=64, decode_quantum=8,
-                 decode_strategy="greedy", eos_token_id=None, device=None):
+                 decode_strategy="greedy", top_k=0, top_p=1.0,
+                 temperature=1.0, eos_token_id=None,
+                 per_request_sampling=False, device=None):
         cfg = model.config
         if getattr(cfg, "sliding_window", None):
             raise NotImplementedError(
                 "ServingEngine does not compose with sliding_window: a "
                 "rolling buffer wrap-writes over pool slots the block "
                 "tables still map")
-        if decode_strategy == "sampling":
-            raise NotImplementedError(
-                "sampling serving is not ported yet (ROADMAP A4/A7)")
-        if decode_strategy != "greedy":
+        if decode_strategy not in ("greedy", "sampling"):
             raise ValueError(
                 f"decode_strategy must be greedy|sampling, got "
                 f"{decode_strategy!r}")
+        self._per_request_sampling = bool(per_request_sampling)
+        if self._per_request_sampling and decode_strategy != "sampling":
+            raise ValueError(
+                "per_request_sampling=True requires "
+                "decode_strategy='sampling' (per-slot temperature only "
+                "changes the sampling quantum)")
+        self.decode_strategy = decode_strategy
+        self.top_k = 0 if top_k is None else int(top_k)
+        self.top_p = 1.0 if top_p is None else float(top_p)
+        self.temperature = 1.0 if temperature is None else float(temperature)
         self.device = resolve_device(device)
         params = list(model.parameters())
         if params[0].device.type != self.device.type:
@@ -168,6 +187,8 @@ class ServingEngine:
         self._n_gen = np.zeros(s, np.int32)
         self._done = np.ones(s, bool)
         self._max_new = np.zeros(s, np.int32)
+        self._seeds = np.zeros(s, np.int64)
+        self._temps = np.ones(s, np.float32)
 
         # rotary table of prefill (block_mha fused rope); the quantum
         # computes the same angles per row on the device
@@ -183,13 +204,16 @@ class ServingEngine:
     def submit(self, prompt, max_new_tokens=32, req_id=None, seed=0,
                arrival_time=None, priority=1, temperature=None,
                stop_token_ids=None, stop_sequences=None):
-        """Queue one request; returns the :class:`Request` handle."""
-        if temperature is not None:
-            raise NotImplementedError(
-                "per-request temperature needs sampling serving (ROADMAP "
-                "A10)")
+        """Queue one request; returns the :class:`Request` handle.
+        ``seed`` keys the request's sampled stream; ``temperature`` needs
+        an engine built with ``per_request_sampling=True``."""
+        if temperature is not None and not self._per_request_sampling:
+            raise ValueError(
+                "per-request temperature needs an engine built with "
+                "per_request_sampling=True (and "
+                "decode_strategy='sampling')")
         req = Request(prompt, max_new_tokens=max_new_tokens, req_id=req_id,
-                      seed=seed, priority=priority,
+                      seed=seed, priority=priority, temperature=temperature,
                       stop_token_ids=stop_token_ids,
                       stop_sequences=stop_sequences,
                       arrival_time=(time.perf_counter()
@@ -275,10 +299,30 @@ class ServingEngine:
             self._n_gen[slot] = 0
             self._done[slot] = True  # not decodable until prefill ends
             self._max_new[slot] = req.max_new_tokens
+            self._seeds[slot] = req.seed
+            self._temps[slot] = (self.temperature if req.temperature is None
+                                 else req.temperature)
 
     def _dev(self, a):
         return torch.from_numpy(np.array(a)).to(self.device,
                                                 non_blocking=True)
+
+    def _select(self, logits, slots, steps):
+        """Next tokens (R,) for logits (R, V) of the given slots: argmax,
+        or a filtered categorical draw keyed by (the slot's request seed,
+        ``steps[i]`` = tokens it has emitted so far). The keys are host
+        values, so the quantum stays free of host syncs."""
+        if self.decode_strategy == "greedy":
+            return torch.argmax(logits, dim=-1)
+        if self._per_request_sampling:
+            temps = self._dev(self._temps[slots]).clamp_min(1e-6)
+            filt = _filter_logits(logits.float() / temps[:, None],
+                                  self.top_k, self.top_p, None)
+        else:
+            filt = _filter_logits(logits, self.top_k, self.top_p,
+                                  self.temperature)
+        return gumbel_argmax(filt, [fold_seed(self._seeds[slot], step)
+                                    for slot, step in zip(slots, steps)])
 
     @torch.inference_mode()
     def _mixed_forward(self, tables, enc_lens, dec_lens, this_time, ids):
@@ -347,9 +391,12 @@ class ServingEngine:
                 or (req.prefill_pos + this_time[i] >= req.prefill_target)]
         if need:
             last_idx = self._dev(np.asarray([cu[i + 1] - 1 for i in need]))
+            picked = [rows[i] for i in need]
             with torch.inference_mode():
                 logits = self.model.lm_head(hidden[last_idx])
-                nxt = torch.argmax(logits, dim=-1).cpu().numpy()
+                nxt = self._select(
+                    logits, [r.slot for r in picked],
+                    [len(r.tokens) for r in picked]).cpu().numpy()
         now = time.perf_counter()
         for i, req in enumerate(rows):
             slot = req.slot
@@ -376,9 +423,11 @@ class ServingEngine:
 
     # -- the decode quantum ------------------------------------------------
     def _decode_quantum(self):
-        """``decode_quantum`` greedy steps for every slot. The slot state
-        stays on the device through the steps (retirement masks included)
-        and comes back to the host once, at the end."""
+        """``decode_quantum`` steps for every slot. The slot state stays on
+        the device through the steps (retirement masks included) and comes
+        back to the host once, at the end. A slot live at step j has
+        emitted ``n_gen + j`` tokens (the host value at the quantum's
+        start), which keys its draw; a done slot's draw is discarded."""
         t_steps = self.config.decode_quantum
         rows = self.scheduler.decoding()
         for req in rows:
@@ -399,14 +448,16 @@ class ServingEngine:
         max_new = self._dev(self._max_new)
         eos = self.eos_token_id
         toks = []
+        slots = list(range(self.config.num_slots))
         with torch.inference_mode():
-            for _ in range(t_steps):
+            for j in range(t_steps):
                 live = ~done
                 logits = paged_decode_math(
                     self.model, self._scratch_block, last_tok[:, None],
                     seq_lens, tables, self.pool.k_pools, self.pool.v_pools,
                     live)
-                nxt = torch.argmax(logits, dim=-1).int()
+                nxt = self._select(logits, slots,
+                                   (self._n_gen + j).tolist()).int()
                 nxt = torch.where(done, last_tok, nxt)
                 n_gen = n_gen + live.int()
                 done_next = done | (n_gen >= max_new)

@@ -1,6 +1,6 @@
 """The port's CUDA kernels on the card: each kernel against its plain
-PyTorch version, and the serving engine's kernel path against its plain
-path. Skips where no CUDA device is present (a CUDA kernel has no CPU
+PyTorch version, and the serving engine's and ``generate``'s kernel paths
+against their plain paths. Skips where no CUDA device is present (a CUDA kernel has no CPU
 mode). Imports neither jax nor paddle_tpu, so on a machine with a GPU and
 no JAX it runs without the suite's conftest:
 
@@ -43,7 +43,10 @@ def test_cuda_kernels_match_plain(cuda, dtype, tol):
                                    rtol=tol)
         torch.testing.assert_close(r, r_ref, atol=1e-5, rtol=1e-5)
 
-    for h, hk, bs in ((32, 32, 32), (32, 8, 16), (4, 1, 4)):
+    # groups of 1, 4, 4, 7 (Qwen2-7B's 28 over 4) and 3: a group that is
+    # no power of two runs in the next one's slot
+    for h, hk, bs in ((32, 32, 32), (32, 8, 16), (4, 1, 4), (28, 4, 16),
+                      (6, 2, 16)):
         lens = torch.tensor([1, 31, 32, 300], dtype=torch.int32,
                             device=cuda)
         w = -(-300 // bs) + 2
@@ -98,6 +101,90 @@ def test_cuda_engine_kernel_path_equals_plain_path(cuda):
             assert all(n == 0 for n in ops.LAUNCHES.values())
         else:
             engine.run()
-            assert all(n > 0 for n in ops.LAUNCHES.values())
+            assert all(ops.LAUNCHES[k] > 0 for k in (
+                "rms_norm", "paged_decode_attention",
+                "varlen_flash_attention"))
         streams.append([r.tokens for r in reqs])
     assert streams[0] == streams[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_cuda_flash_attention_matches_plain(cuda, dtype, tol):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    # (B, Sq, Sk, H, HK, D, causal, window): dense, ragged, bottom-right
+    # causal, GQA/MQA, a window band, and Sq > Sk (rows with no live key)
+    for b, sq, sk, h, hk, d, causal, window in (
+            (2, 128, 128, 4, 2, 64, True, None),
+            (2, 100, 100, 4, 4, 128, True, None),
+            (1, 64, 1024, 8, 2, 128, True, None),
+            (2, 96, 200, 4, 2, 64, False, None),
+            (2, 300, 300, 8, 1, 128, True, 17),
+            (1, 200, 130, 4, 4, 64, True, None)):
+        q = _rnd(g, dtype, b, sq, h, d)
+        k, v = _rnd(g, dtype, b, sk, hk, d), _rnd(g, dtype, b, sk, hk, d)
+        out, lse = ops.flash_attention(q, k, v, causal=causal,
+                                       window_size=window, return_lse=True)
+        ref, lse_ref = ops.flash_attention_plain(q, k, v, causal=causal,
+                                                 window_size=window)
+        torch.testing.assert_close(out.float(), ref.float(), atol=tol,
+                                   rtol=tol)
+        torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_cuda_decode_attention_matches_plain(cuda, dtype, tol):
+    g = torch.Generator(device=cuda).manual_seed(2)
+    # groups of 4, 1, 7, 5, 6 and 8
+    for b, h, hk, d, s_max, lens in ((4, 32, 8, 128, 4096,
+                                      [1, 700, 4095, 4096]),
+                                     (2, 8, 8, 64, 300, [0, 257]),
+                                     (3, 28, 4, 128, 700, [1, 129, 700]),
+                                     (2, 10, 2, 64, 300, [300, 5]),
+                                     (2, 12, 2, 128, 257, [256, 257]),
+                                     (3, 8, 1, 128, 513, [513, 1, 256])):
+        q = _rnd(g, dtype, b, h, d)
+        kc, vc = (_rnd(g, dtype, b, s_max, hk, d),
+                  _rnd(g, dtype, b, s_max, hk, d))
+        sl = torch.tensor(lens, dtype=torch.int32, device=cuda)
+        out = ops.decode_attention(q, kc, vc, sl)
+        ref = ops.decode_attention_plain(q, kc, vc, sl)
+        torch.testing.assert_close(out.float(), ref.float(), atol=tol,
+                                   rtol=tol)
+    # a bf16 query over f32 caches (greedy_search's caches), 4-D query
+    q4 = _rnd(g, torch.bfloat16, b, 1, h, d)
+    kc, vc = kc.float(), vc.float()
+    out = ops.decode_attention(q4, kc, vc, sl)
+    assert out.shape == q4.shape and out.dtype == torch.bfloat16
+    torch.testing.assert_close(
+        out.float(), ops.decode_attention_plain(q4, kc, vc, sl).float(),
+        atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [None, 24])
+def test_cuda_generate_kernel_path_equals_plain_path(cuda, window):
+    from paddle_tpu_torch.nlp.generation import generate
+
+    model = LlamaForCausalLM(
+        LlamaConfig.tiny(hidden_size=256, num_attention_heads=4,
+                         num_key_value_heads=2, vocab_size=512,
+                         sliding_window=window),
+        generator=torch.Generator(device=cuda).manual_seed(0))
+    ids = torch.from_numpy(
+        np.random.RandomState(1).randint(1, 512, (3, 40))).to(cuda)
+    streams = []
+    for plain in (False, True):
+        ops.reset_launches()
+        if plain:
+            with ops.plain_versions():
+                streams.append(generate(model, ids, max_new_tokens=12))
+            assert all(n == 0 for n in ops.LAUNCHES.values())
+        else:
+            streams.append(generate(model, ids, max_new_tokens=12))
+            assert ops.LAUNCHES["flash_attention"] == (2 if window else 0)
+            assert ops.LAUNCHES["decode_attention"] == 2 * 11
+    assert torch.equal(streams[0], streams[1])

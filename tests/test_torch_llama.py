@@ -83,6 +83,7 @@ def test_weight_carry_checks_every_key_and_shape():
     {"attention_bias": True},             # Qwen2-style q/k/v biases
     {"num_key_value_heads": 1},           # MQA
     {"num_key_value_heads": 4, "tensor_parallel": False},   # MHA, serial
+    {"sliding_window": 8},                # Mistral-style band, K4's window
 ])
 def test_no_cache_logits_match_reference(overrides):
     ref, port = _pair(seed=1, **overrides)
@@ -96,7 +97,8 @@ def test_no_cache_logits_match_reference(overrides):
         ref.set_state_dict({k: paddle.to_tensor(v)
                             for k, v in arrays.items()})
         load_paddle_tpu_arrays(port, arrays)
-    ids = np.random.RandomState(2).randint(0, 128, (2, 11)).astype("int64")
+    # 20 tokens: past a window of 8
+    ids = np.random.RandomState(2).randint(0, 128, (2, 20)).astype("int64")
     want = np.asarray(ref(paddle.to_tensor(ids)).numpy())
     with torch.no_grad():
         got = port(torch.from_numpy(ids)).numpy()
@@ -104,8 +106,7 @@ def test_no_cache_logits_match_reference(overrides):
 
 
 def test_model_refuses_later_slices():
-    for kw in ({"sliding_window": 8}, {"use_recompute": True},
-               {"context_parallel": "ring"}):
+    for kw in ({"use_recompute": True}, {"context_parallel": "ring"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             LlamaForCausalLM(LlamaConfig.tiny(**kw), device="cpu")
     port = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu")

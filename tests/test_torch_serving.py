@@ -137,8 +137,12 @@ def test_eos_retirement_equals_reference(models):
 
 def test_engine_refuses_later_slices_and_bad_input(models):
     _, port_model = models
-    with pytest.raises(NotImplementedError, match="sampling"):
-        ServingEngine(port_model, decode_strategy="sampling", device="cpu")
+    with pytest.raises(ValueError, match="sampling"):
+        ServingEngine(port_model, per_request_sampling=True, device="cpu")
+    with pytest.raises(ValueError, match="per_request_sampling"):
+        ServingEngine(port_model, num_slots=2, block_size=4,
+                      device="cpu").submit(np.arange(1, 5, dtype=np.int32),
+                                           temperature=0.7)
     with pytest.raises(ValueError, match="greedy|sampling"):
         ServingEngine(port_model, decode_strategy="beam", device="cpu")
     with pytest.raises(TypeError, match="spec_draft"):
@@ -150,3 +154,86 @@ def test_engine_refuses_later_slices_and_bad_input(models):
     with pytest.raises(ValueError, match="unsupported device"):
         ServingEngine(port_model, device="meta")
     assert isinstance(engine.pool.k_pools[0], torch.Tensor)
+
+
+# ------------------------------------------------ sampling arm
+# the reference's sampling oracles (tests/test_serving.py): its
+# _SAMPLING_KW and prompts; streams are the port's own (no threefry)
+_SAMPLING_KW = dict(num_slots=2, block_size=4, prefill_chunk=4,
+                    decode_strategy="sampling", top_k=8, temperature=0.9,
+                    device="cpu")
+
+
+@pytest.fixture(scope="module")
+def sampling_prompts():
+    rng = np.random.RandomState(2)
+    return [rng.randint(1, 128, n).astype(np.int32) for n in (5, 7, 3)]
+
+
+def _sample(model, prompts, decode_quantum=3, preempt=False, per_request=False,
+            **kw):
+    engine = ServingEngine(model, decode_quantum=decode_quantum,
+                           per_request_sampling=per_request,
+                           **dict(_SAMPLING_KW, **kw))
+    temp = {"temperature": _SAMPLING_KW["temperature"]} if per_request else {}
+    reqs = [engine.submit(p, max_new_tokens=5, seed=i, **temp)
+            for i, p in enumerate(prompts)]
+    if preempt:
+        while len(reqs[0].tokens) < 2:
+            engine.step()
+        assert not reqs[0].finished
+        engine.preempt(reqs[0])
+    engine.run()
+    if preempt:
+        assert engine.scheduler.preempted_total == 1
+        assert engine.scheduler.resumed_total == 1
+    return [engine.output_tokens(r).tolist() for r in reqs]
+
+
+@pytest.fixture(scope="module")
+def plain_sampling_outputs(models, sampling_prompts):
+    return _sample(models[1], sampling_prompts)
+
+
+def test_top_k_1_sampling_equals_greedy_engine(models, sampling_prompts):
+    _, port_model = models
+    greedy = ServingEngine(port_model, decode_quantum=3, device="cpu",
+                           **{k: v for k, v in _SAMPLING_KW.items()
+                              if k in ("num_slots", "block_size",
+                                       "prefill_chunk")})
+    reqs = [greedy.submit(p, max_new_tokens=5) for p in sampling_prompts]
+    greedy.run()
+    want = [greedy.output_tokens(r).tolist() for r in reqs]
+    for seed_shift in (0, 1):
+        got = _sample(port_model, sampling_prompts, top_k=1)
+        assert got == want, seed_shift
+
+
+@pytest.mark.parametrize("decode_quantum,preempt", [(1, False), (4, False),
+                                                    (3, True), (1, True)])
+def test_sampling_stream_invariant_to_quantum_and_preemption(
+        models, sampling_prompts, plain_sampling_outputs, decode_quantum,
+        preempt):
+    """Each draw is keyed by (request seed, tokens emitted so far): a
+    mid-run preemption (re-prefill on resume) and the grouping of steps
+    into quanta leave a fixed-seed stream unchanged."""
+    got = _sample(models[1], sampling_prompts, decode_quantum=decode_quantum,
+                  preempt=preempt)
+    assert got == plain_sampling_outputs
+
+
+def test_per_request_temperature_replays_engine_wide(models, sampling_prompts,
+                                                     plain_sampling_outputs):
+    """tests/test_serving.py::test_preemption_and_temperature_sampling_
+    bit_exact: a uniform per-request temperature, with a preemption,
+    replays the engine-wide run; other temperatures and seeds change it."""
+    got = _sample(models[1], sampling_prompts, preempt=True,
+                  per_request=True)
+    assert got == plain_sampling_outputs
+    hot = ServingEngine(models[1], decode_quantum=3, per_request_sampling=True,
+                        **_SAMPLING_KW)
+    reqs = [hot.submit(p, max_new_tokens=5, seed=i + 10, temperature=5.0)
+            for i, p in enumerate(sampling_prompts)]
+    hot.run()
+    assert [hot.output_tokens(r).tolist() for r in reqs] \
+        != plain_sampling_outputs
