@@ -9,7 +9,8 @@ Phases (any failure raises and the script exits non-zero):
    versions, and the build of the hand-written kernels from
    ``paddle_tpu_torch/csrc`` (nvcc, sm_90a) with its time;
 2. each kernel against its plain PyTorch version on the card, at the
-   serving and generation paths' shapes, in bf16 and f32: max error,
+   serving, generation and training paths' shapes, in bf16 and f32
+   (K6/K7 also at Mistral's GQA width with its window): max error,
    kernel / plain / library-call device times (torch.profiler, summed
    kernel durations; CUDA events where the profiler records none, as
    ``timers`` says), the kernel's CUDA-event time over back-to-back calls
@@ -32,16 +33,31 @@ Phases (any failure raises and the script exits non-zero):
    a torch.profiler breakdown of one prefill and one decode step;
 6. generation's kernel path against its plain path (Mistral width, 4
    layers, f32, greedy streams equal), and one fixed-seed sampling
-   serving run repeated (Llama-2-7B width, 4 layers: equal streams).
+   serving run repeated (Llama-2-7B width, 4 layers: equal streams);
+7. the training main path: Llama-2-7B width with 4 layers in bf16
+   (bench.py's configuration: f32 master weights, bf16 AdamW moments,
+   weight decay 0.01, no recompute, B=1, S=4,096, one seeded batch)
+   through ``JittedTrainStep``: 2 warm-up steps, then 10 steps in one
+   ``run_steps`` call with the launch counters zeroed just before and read
+   just after (exactly K1 9, K4 4, K6 9, K7a 4, K7b 4 per step), step
+   time, tokens/s, MFU and peak memory; the loss must fall. Then the same
+   configuration with ``fuse_linear_cross_entropy`` (its step-1 loss
+   within bf16 rounding of the unfused one, its peak memory), and a
+   torch.profiler breakdown of one unfused step;
+8. the training kernel path against its plain path in f32 (Llama-2-7B
+   width, 2 layers, S=1,024): step-1 gradients per tensor within 1e-4 of
+   the tensor's largest |g|, and the losses of 3 steps within 1e-4.
 
 The line before the last is the ``{"kernels": [...]}`` record (each
 kernel's launches come from the run of the path that carries it: K1-K3
-the serving run of phase 3, K4-K5 the generation run of phase 5); the
-last line is ``{"ok": true, "device": {...}}``. Without CUDA it prints no
-result and exits 2.
+the serving run of phase 3, K4-K5 the generation run of phase 5, K6, K7a
+and K7b the training run of phase 7); the last line is
+``{"ok": true, "device": {...}}``. Without CUDA it prints no result and
+exits 2.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import math
@@ -58,6 +74,10 @@ SEED = 0
 GENERATE_SHAPE = (4, 4608, 64)
 # phase 6: the same for the f32 kernel-vs-plain generate run
 GENERATE_PARITY_SHAPE = (2, 4352, 16)
+# phase 7: batch, sequence, warm-up steps, timed steps (one run_steps)
+TRAIN_SHAPE = (1, 4096, 2, 10)
+# phase 8: sequence and steps of the f32 kernel-vs-plain training run
+TRAIN_PARITY_SHAPE = (1024, 3)
 # the serving sampling arm's knobs (phases 3 and 6)
 SAMPLING = dict(decode_strategy="sampling", top_k=50, top_p=0.9,
                 temperature=0.8)
@@ -124,20 +144,30 @@ def cuda_ms(torch, fn, iters=20, warmup=3):
 
 
 def close(torch, out, ref, dtype, p_rounded=False):
-    """(max abs error, within tolerance). f32: 1e-4 relative + absolute
-    (summation order only). bf16: one rounding step of the reference
-    value (both sides compute in f32 and round once), plus 1e-2 absolute
-    where the probabilities are rounded to bf16 before P.V (K3, as the
-    TPU kernel does): a p on a rounding boundary may round one step
+    """(max abs error, within tolerance) over one output or a tuple of
+    them. f32: 1e-4 relative + absolute (summation order only). bf16: one
+    rounding step of the reference value (both sides compute in f32 and
+    round once), plus 1e-2 absolute where probabilities or their
+    gradients are rounded to bf16 before a product (K3, K4, K7, as the TPU
+    kernels do): a p on a rounding boundary may round one step
     differently when the f32 scores differ in their last bits, which
-    moves the output by up to 2^-8 * |v|."""
+    moves the output by up to 2^-8 * |v|. A 1-D output (K6's dw, a sum
+    over every row) takes the absolute term times its largest value."""
     if dtype != torch.bfloat16:
         rtol, atol = 1e-4, 1e-4
     else:
         rtol, atol = 2.0 ** -7, (1e-2 if p_rounded else 1e-3)
-    diff = (out.float() - ref.float()).abs()
-    ok = bool((diff <= atol + rtol * ref.float().abs()).all())
-    return float(diff.max()), ok, {"rtol": rtol, "atol": atol}
+    if isinstance(out, torch.Tensor):
+        out, ref = (out,), (ref,)
+    err, ok = 0.0, True
+    for o, r in zip(out, ref):
+        # a sum over many rows (K6's dw) is held relative to its size
+        a = atol * max(1.0, float(r.float().abs().max())) if r.dim() == 1 \
+            else atol
+        diff = (o.float() - r.float()).abs()
+        ok &= bool((diff <= a + rtol * r.float().abs()).all())
+        err = max(err, float(diff.max()))
+    return err, ok, {"rtol": rtol, "atol": atol}
 
 
 def env_phase(torch):
@@ -392,6 +422,102 @@ def k5_cases(torch, g, dev):
                 bound=bound_ms(nbytes, 4.0 * live * h * d, "float32"))
 
 
+def k6_cases(torch, g, dev):
+    from paddle_tpu_torch import ops
+    import torch.nn.functional as tF
+
+    rows, n = 4096, 4096   # the training path's rows (B=1, S=4,096)
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.randn(rows, n, generator=g, device=dev).to(dtype)
+        w = torch.randn(n, generator=g, device=dev).to(dtype)
+        dy = torch.randn(rows, n, generator=g, device=dev).to(dtype)
+        _, r = ops.rms_norm_plain(x, w)
+        # the library yardstick: F.rms_norm's backward through autograd
+        xl, wl = x.clone().requires_grad_(), w.clone().requires_grad_()
+        yl = tF.rms_norm(xl, (n,), wl, 1e-6)
+        e = x.element_size()
+        nbytes = (3 * rows * n + 2 * n) * e + 4 * rows
+        yield dict(
+            name="rms_norm_bwd", dtype=dtype, shape=f"rows={rows},N={n}",
+            primary=(dtype == torch.bfloat16),
+            kernel=lambda x=x, w=w, r=r, dy=dy: ops.rms_norm_bwd(x, w, r, dy),
+            plain=lambda x=x, w=w, r=r, dy=dy: ops.rms_norm_bwd_plain(
+                x, w, r, dy),
+            library=lambda yl=yl, xl=xl, wl=wl, dy=dy: torch.autograd.grad(
+                yl, (xl, wl), dy, retain_graph=True),
+            bound=bound_ms(nbytes, 8.0 * rows * n, "float32"))
+
+
+def k7_cases(torch, g, dev):
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.ops.flash_attention import band_mask
+    import torch.nn.functional as tF
+
+    d = 128
+    # (label, B, S, H, HK, window, dtypes): the training path (Llama-2-7B
+    # width, S=4,096, causal; bf16 is the primary) and Mistral's GQA width
+    # with its window
+    for label, b, sq, h, hk, window, dtypes in (
+            ("train", 1, 4096, 32, 32, None,
+             (torch.bfloat16, torch.float32)),
+            ("mistral_gqa_window", 1, 4608, 32, 8, 4096,
+             (torch.bfloat16,))):
+        mask = band_mask(sq, sq, True, window, dev)
+        pairs = int(mask.sum())
+        for dtype in dtypes:
+            q = torch.randn(b, sq, h, d, generator=g, device=dev).to(dtype)
+            k = torch.randn(b, sq, hk, d, generator=g, device=dev).to(dtype)
+            v = torch.randn(b, sq, hk, d, generator=g, device=dev).to(dtype)
+            do = torch.randn(b, sq, h, d, generator=g, device=dev).to(dtype)
+            out, lse = ops.flash_attention(q, k, v, causal=True,
+                                           window_size=window,
+                                           return_lse=True)
+            delta = ops.flash_attention_bwd_delta(out, do)
+            # the library yardstick: SDPA's whole backward (dq, dk, dv)
+            # through autograd on the same inputs
+            qt = q.transpose(1, 2).contiguous().requires_grad_()
+            kt = _sdpa_layout(torch, k, h // hk).requires_grad_()
+            vt = _sdpa_layout(torch, v, h // hk).requires_grad_()
+            lo = (tF.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+                  if window is None else
+                  tF.scaled_dot_product_attention(qt, kt, vt,
+                                                  attn_mask=mask))
+            dot = do.transpose(1, 2).contiguous()
+            e = q.element_size()
+            ddt = str(dtype).removeprefix("torch.")
+            common = dict(
+                dtype=dtype, primary=(label == "train"
+                                      and dtype == torch.bfloat16),
+                shape=f"{label}:B={b},S={sq},H={h},HK={hk},D={d},causal,"
+                      f"window={window}",
+                library=lambda lo=lo, qt=qt, kt=kt, vt=vt, dot=dot:
+                    torch.autograd.grad(lo, (qt, kt, vt), dot,
+                                        retain_graph=True))
+            args = (q, k, v, do, lse, delta, True)
+
+            def plain(q=q, k=k, v=v, out=out, lse=lse, do=do, delta=delta,
+                      window=window):
+                return ops.flash_attention_bwd_plain(
+                    q, k, v, out, lse, do, True, window_size=window,
+                    delta=delta)
+            yield dict(
+                name="flash_attention_bwd_dq",
+                kernel=lambda args=args, window=window:
+                    ops.flash_attention_bwd_dq(*args, window_size=window),
+                plain=lambda plain=plain: plain()[0],
+                bound=bound_ms((3 * b * sq * h * d + 2 * b * sq * hk * d) * e
+                               + 8 * b * h * sq, 6.0 * d * pairs * b * h,
+                               ddt), **common)
+            yield dict(
+                name="flash_attention_bwd_dkv",
+                kernel=lambda args=args, window=window:
+                    ops.flash_attention_bwd_dkv(*args, window_size=window),
+                plain=lambda plain=plain: plain()[1:],
+                bound=bound_ms((2 * b * sq * h * d + 4 * b * sq * hk * d) * e
+                               + 8 * b * h * sq, 8.0 * d * pairs * b * h,
+                               ddt), **common)
+
+
 def _cumsum(xs):
     t = 0
     for x in xs:
@@ -414,11 +540,21 @@ KERNELS = {
     "decode_attention": (
         "cuda", "paddle_tpu_torch/csrc/decode_attention.cu",
         "paddle_tpu/ops/pallas/decode_attention.py:128"),
+    "rms_norm_bwd": ("cuda", "paddle_tpu_torch/csrc/rms_norm.cu",
+                     "paddle_tpu/ops/pallas/rms_norm.py:91"),
+    "flash_attention_bwd_dq": (
+        "cuda", "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+        "paddle_tpu/ops/pallas/flash_attention.py:402"),
+    "flash_attention_bwd_dkv": (
+        "cuda", "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+        "paddle_tpu/ops/pallas/flash_attention.py:425"),
 }
 # the kernels each main path must launch
 SERVING_KERNELS = ("rms_norm", "paged_decode_attention",
                    "varlen_flash_attention")
 GENERATE_KERNELS = ("rms_norm", "flash_attention", "decode_attention")
+TRAIN_KERNELS = ("rms_norm_bwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv")
 
 
 def kernel_phase(torch, dev):
@@ -429,13 +565,14 @@ def kernel_phase(torch, dev):
                                 k2_cases(torch, g, dev),
                                 k3_cases(torch, g, dev),
                                 k4_cases(torch, g, dev),
-                                k5_cases(torch, g, dev)):
+                                k5_cases(torch, g, dev),
+                                k6_cases(torch, g, dev),
+                                k7_cases(torch, g, dev)):
         out = case["kernel"]()
         ref = case["plain"]()
         torch.cuda.synchronize()
         err, ok, tol = close(torch, out, ref, case["dtype"],
-                             case["name"] in ("varlen_flash_attention",
-                                              "flash_attention"))
+                             "flash_attention" in case["name"])
         ms, ms_timer = device_ms(torch, case["kernel"])
         plain_ms, plain_timer = device_ms(torch, case["plain"], iters=3)
         lib_ms, lib_timer = device_ms(torch, case["library"])
@@ -566,6 +703,10 @@ def e2e_phase(torch, dev):
 
 def _kernel_family(name):
     for key, fam in (("rms_norm_kernel", "K1 rms_norm"),
+                     ("rms_norm_bwd_kernel", "K6 rms_norm_bwd"),
+                     ("rms_norm_dw_kernel", "K6 rms_norm_bwd"),
+                     ("bwd_dq_", "K7a flash_attention_bwd_dq"),
+                     ("bwd_dkv_", "K7b flash_attention_bwd_dkv"),
                      ("PagedRows", "K2 paged_decode"),
                      ("varlen_fwd_", "K3 varlen_flash"),
                      ("flash_fwd_", "K4 flash_attention"),
@@ -607,10 +748,15 @@ def profile_phase(torch, model, requests,
     del engine
 
 
-def _profile_record(torch, prof, label, wall_us):
+def _profile_record(torch, prof, label, wall_us, ranges=()):
+    """Device time by kernel family. ``ranges`` names record_function
+    ranges: their device-side annotation spans are no kernels and are
+    left out of the sums."""
     fams, n_kernels = {}, 0
     for ev in prof.key_averages():
         dev_us = _device_us(ev)
+        if ev.key in ranges:
+            continue
         if ev.device_type == torch.autograd.DeviceType.CUDA and dev_us > 0:
             fam = _kernel_family(ev.key)
             fams[fam] = fams.get(fam, 0.0) + dev_us
@@ -764,9 +910,10 @@ def generate_phase(torch, dev):
                                           max_new_tokens=new)
     launches = dict(ops.LAUNCHES)
     steps = new - 1
-    want = {"flash_attention": layers, "decode_attention": layers * steps,
-            "rms_norm": (2 * layers + 1) * new, "paged_decode_attention": 0,
-            "varlen_flash_attention": 0}
+    want = dict.fromkeys(launches, 0)
+    want.update({"flash_attention": layers,
+                 "decode_attention": layers * steps,
+                 "rms_norm": (2 * layers + 1) * new})
     check(launches == want, f"generate launches {launches}, expected {want}")
     check(tuple(out.shape) == (b, s_in + new)
           and bool((out[:, :s_in] == ids).all())
@@ -853,6 +1000,198 @@ def generate_parity_phase(torch, dev):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------ phase 7, 8
+def _train_setup(torch, dev, cfg, seed):
+    """bench.py's training setup on the port: model, criterion (the
+    unfused one on f32 logits), AdamW with f32 master weights for a bf16
+    model, and the step."""
+    from paddle_tpu_torch.jit import JittedTrainStep
+    from paddle_tpu_torch.nlp import (LlamaForCausalLM,
+                                      LlamaPretrainingCriterion)
+    from paddle_tpu_torch.optimizer import AdamW
+
+    model = LlamaForCausalLM(
+        cfg, generator=torch.Generator(device=dev).manual_seed(seed))
+    fused = cfg.fuse_linear_cross_entropy
+    crit = LlamaPretrainingCriterion(cfg,
+                                     lm_head=model.lm_head if fused else None)
+    bf16 = cfg.dtype == "bfloat16"
+    opt = AdamW(1e-4, parameters=model.named_parameters(), weight_decay=0.01,
+                multi_precision=bf16,
+                moment_dtype="bfloat16" if bf16 else "float32")
+    step = JittedTrainStep(
+        model, crit if fused else (lambda out, lb: crit(out.float(), lb)),
+        opt)
+    return model, step
+
+
+def _train_ids(torch, dev, vocab, b, s):
+    import numpy as np
+
+    return torch.from_numpy(
+        np.random.RandomState(SEED).randint(0, vocab, (b, s))).to(dev)
+
+
+def train_phase(torch, dev):
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.nlp import LlamaConfig
+    from paddle_tpu_torch.profiler import MFUMeter, transformer_train_flops
+
+    b, seq, warm, steps = TRAIN_SHAPE
+    cfg = LlamaConfig.llama2_7b(num_hidden_layers=4, tensor_parallel=False,
+                                dtype="bfloat16")
+    layers = cfg.num_hidden_layers
+    t0 = time.perf_counter()
+    model, step = _train_setup(torch, dev, cfg, SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    ids = _train_ids(torch, dev, cfg.vocab_size, b, seq)
+    n_params = sum(p.numel() for p in model.parameters())
+    tokens = b * seq
+    flops = transformer_train_flops(n_params, tokens, num_layers=layers,
+                                    seq_len=seq, hidden=cfg.hidden_size)
+    torch.cuda.reset_peak_memory_stats()
+    losses = [step(ids, ids) for _ in range(warm)]
+    stacked = ids[None].expand(steps, b, seq)
+    ops.reset_launches()
+    meter = MFUMeter(flops * steps, tokens * steps)
+    timed = []
+    res = meter.measure(lambda: timed.append(step.run_steps(stacked,
+                                                            stacked)),
+                        warmup=0, iters=1)
+    launches = dict(ops.LAUNCHES)
+    per_step = {"rms_norm": 2 * layers + 1, "flash_attention": layers,
+                "rms_norm_bwd": 2 * layers + 1,
+                "flash_attention_bwd_dq": layers,
+                "flash_attention_bwd_dkv": layers}
+    want = {k: per_step.get(k, 0) * steps for k in launches}
+    check(launches == want, f"train launches {launches}, expected {want}")
+    losses = torch.cat([torch.stack(losses), timed[0]]).float().cpu()
+    check(bool(torch.isfinite(losses).all()), f"non-finite loss: {losses}")
+    check(float(losses[-1]) < float(losses[0]),
+          f"the loss did not fall over {len(losses)} steps: {losses}")
+    step_s = res["step_time_s"] / steps
+    emit({"phase": "train_llama2_7b_width_bf16", "layers": layers,
+          "params": n_params, "batch": b, "seq": seq,
+          "warmup_steps": warm, "timed_steps": steps, "step_ms": 1e3 * step_s,
+          "train_tok_per_s": tokens / step_s,
+          "model_tflops_per_step": flops / 1e12,
+          "model_tflop_per_s": flops / step_s / 1e12,
+          "mfu_vs_989_tflops": flops / step_s / PEAK_FLOPS["bfloat16"],
+          "mfu_meter": res["mfu"], "losses": [float(x) for x in losses],
+          "launches": launches, "model_init_s": init_s,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
+    train_profile(torch, step, ids)
+    unfused_loss1 = float(losses[0])
+    del model, step, timed, stacked
+    torch.cuda.empty_cache()
+
+    # the same configuration with the chunked fused lm-head + loss
+    fcfg = LlamaConfig.llama2_7b(num_hidden_layers=4, tensor_parallel=False,
+                                 dtype="bfloat16",
+                                 fuse_linear_cross_entropy=True)
+    model, step = _train_setup(torch, dev, fcfg, SEED)
+    torch.cuda.reset_peak_memory_stats()
+    floss = [float(step(ids, ids)) for _ in range(warm)]
+    torch.cuda.synchronize()
+    rel = abs(floss[0] - unfused_loss1) / abs(unfused_loss1)
+    emit({"phase": "train_llama2_7b_width_bf16_fused_lce",
+          "chunk_rows": fcfg.lce_chunk_rows, "losses": floss,
+          "unfused_step1_loss": unfused_loss1, "step1_rel_diff": rel,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
+    check(rel <= 2.0 ** -7, f"fused step-1 loss {floss[0]} is not within "
+          f"bf16 rounding of the unfused {unfused_loss1}")
+    del model, step
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_profile(torch, step, ids):
+    """Where one training step spends device time: torch.profiler over a
+    single step, the optimizer update under its own record_function range
+    (its kernels are elementwise ones that fall under "other" by name)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    opt = step._optimizer
+    apply = opt.apply
+
+    def traced_apply(*a, **kw):
+        with record_function("optimizer_update"):
+            return apply(*a, **kw)
+
+    opt.apply = traced_apply
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(ids, ids)
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    del opt.apply
+    rec = _profile_record(torch, prof, "train_step", wall_us,
+                          ranges=("optimizer_update",))
+    # the kernels launched inside the range: its CPU children's, without
+    # the range's own device-side annotation span
+    opt_us = sum(sum(k.duration for k in ev.kernels if k.name != ev.name)
+                 + sum(ch.device_time_total for ch in ev.cpu_children)
+                 for ev in prof.events()
+                 if ev.name == "optimizer_update"
+                 and ev.device_type == torch.autograd.DeviceType.CPU)
+    fams = rec["device_ms_by_family"]
+    if opt_us and "other" in fams:
+        # the update's kernels are elementwise ones, named like "other"
+        fams["optimizer (AdamW update)"] = opt_us / 1e3
+        fams["other"] -= opt_us / 1e3
+    rec["optimizer_device_ms"] = opt_us / 1e3 if opt_us else "not measured"
+    emit(rec)
+
+
+def _grads(model):
+    return {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+
+
+def train_parity_phase(torch, dev):
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.nlp import LlamaConfig
+
+    seq, steps = TRAIN_PARITY_SHAPE
+    cfg = LlamaConfig.llama2_7b(num_hidden_layers=2, tensor_parallel=False,
+                                dtype="float32")
+    ids = _train_ids(torch, dev, cfg.vocab_size, 1, seq)
+    runs = []
+    for plain in (False, True):
+        model, step = _train_setup(torch, dev, cfg, SEED + 3)
+        ops.reset_launches()
+        with (ops.plain_versions() if plain else contextlib.nullcontext()):
+            loss = step._criterion(model(ids), ids)
+            loss.backward()
+            grads = _grads(model)
+            model.zero_grad(set_to_none=True)
+            losses = [float(step(ids, ids)) for _ in range(steps)]
+        launches = dict(ops.LAUNCHES)
+        emit({"phase": "train_parity_f32_2layer",
+              "path": "plain" if plain else "kernels", "seq": seq,
+              "losses": losses, "launches": launches})
+        if plain:
+            check(all(n == 0 for n in launches.values()),
+                  f"plain training path launched a kernel: {launches}")
+        else:
+            check(all(launches[k] > 0 for k in TRAIN_KERNELS
+                      + ("rms_norm", "flash_attention")),
+                  f"training kernel path missed a kernel: {launches}")
+        runs.append((grads, losses))
+        del model, step, loss
+        torch.cuda.empty_cache()
+    (gk, lk), (gp, lp) = runs
+    worst = max(float((gk[n] - gp[n]).abs().max())
+                / max(float(gp[n].abs().max()), 1e-30) for n in gp)
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lk, lp))
+    emit({"phase": "train_parity_f32_2layer", "grad_worst_rel_to_max": worst,
+          "loss_worst_rel": loss_rel})
+    check(worst <= 1e-4, f"kernel and plain step-1 grads differ: {worst}")
+    check(loss_rel <= 1e-4, f"kernel and plain losses differ: {lk} {lp}")
+
+
 def main():
     import torch
 
@@ -873,15 +1212,18 @@ def main():
     parity_phase(torch, dev)
     gen_launches = generate_phase(torch, dev)
     generate_parity_phase(torch, dev)
+    train_launches = train_phase(torch, dev)
+    train_parity_phase(torch, dev)
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
         rec = primary[name]
-        path = "serving" if name in SERVING_KERNELS else "generate"
+        path = ("serving" if name in SERVING_KERNELS else
+                "train" if name in TRAIN_KERNELS else "generate")
         kernels.append({
             "name": name, "route": route, "source": source,
             "replaces": replaces,
-            "launches": (launches if path == "serving"
-                         else gen_launches)[name],
+            "launches": {"serving": launches, "generate": gen_launches,
+                         "train": train_launches}[path][name],
             "launches_path": path,
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],

@@ -8,13 +8,15 @@ kernels of ``paddle_tpu/ops/pallas`` become hand-written CUDA kernels under
 ``paddle_tpu_torch/ops``. Entry points run on ``cuda`` unless the caller
 passes ``device="cpu"``.
 """
-from . import inference, nlp, nn, ops, serving
+from . import inference, jit, nlp, nn, ops, optimizer, profiler, serving
 from .inference import create_serving_engine
-from .nlp import LlamaConfig, LlamaForCausalLM
+from .jit import JittedTrainStep
+from .nlp import LlamaConfig, LlamaForCausalLM, LlamaPretrainingCriterion
 from .serving import ServingEngine
 
 __version__ = "0.1.0"
 
-__all__ = ["inference", "nlp", "nn", "ops", "serving",
-           "create_serving_engine", "LlamaConfig", "LlamaForCausalLM",
-           "ServingEngine"]
+__all__ = ["inference", "jit", "nlp", "nn", "ops", "optimizer", "profiler",
+           "serving", "create_serving_engine", "LlamaConfig",
+           "LlamaForCausalLM", "LlamaPretrainingCriterion",
+           "JittedTrainStep", "ServingEngine"]

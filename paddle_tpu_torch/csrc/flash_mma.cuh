@@ -1,0 +1,143 @@
+// Pieces shared by the dense flash-attention kernels, forward (K4,
+// flash_attention.cu) and backward (K7a/K7b, flash_attention_bwd.cu): the
+// tile sizes, the live band of (query, key) pairs (bottom-right causal,
+// sliding window, keys past sk), and the bf16 tensor-core building blocks
+// (`mma.sync` m16n8k16 with f32 accumulation, `ldmatrix.trans`, 16-byte
+// `cp.async` tile staging). Keeping the band logic in one place keeps the
+// forward and the backward from ever disagreeing on which pairs are live
+// (the TPU kernels share `_run_full` for the same reason).
+#pragma once
+
+#include "common.cuh"
+
+namespace ptt {
+namespace flash {
+
+constexpr int kBQ = 64;  // query rows per CTA
+constexpr int kBK = 64;  // keys per tile
+constexpr int kDMax = 128;
+constexpr float kLog2e = 1.4426950408889634f;
+
+struct Dims {
+  int sq, sk, h, hk;
+  int causal, window;  // window 0: none
+  int off;             // causal offset sk - sq (bottom-right alignment)
+  float scale;
+};
+
+// The key range [lo, hi) the rows [q0, q0 + kBQ) of one CTA can see.
+__device__ __forceinline__ void key_range(const Dims& s, int q0, int* lo,
+                                          int* hi) {
+  int l = 0, u = s.sk;
+  if (s.causal) {
+    const int q_last = min(q0 + kBQ, s.sq) - 1;
+    u = min(u, q_last + s.off + 1);
+    if (s.window > 0) l = max(0, q0 + s.off - s.window + 1);
+  }
+  *lo = l;
+  *hi = u;
+}
+
+__device__ __forceinline__ bool band_live(const Dims& s, int r, int c) {
+  if (c >= s.sk) return false;
+  if (s.causal) {
+    const int diag = r + s.off;
+    if (c > diag) return false;
+    if (s.window > 0 && c <= diag - s.window) return false;
+  }
+  return true;
+}
+
+// Every (row, key) pair of the tile is live for every real row.
+__device__ __forceinline__ bool full_tile(const Dims& s, int q0, int k0) {
+  if (k0 + kBK > s.sk) return false;
+  if (!s.causal) return true;
+  if (k0 + kBK - 1 > q0 + s.off) return false;
+  const int q_last = min(q0 + kBQ, s.sq) - 1;
+  return s.window <= 0 || k0 > q_last + s.off - s.window;
+}
+
+// bf16 tensor-core building blocks (mma.sync m16n8k16, ldmatrix, cp.async)
+constexpr int kWarpsTC = 4;
+constexpr int kThreadsTC = 32 * kWarpsTC;
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte global -> shared copy; nothing is read and zeros are written
+// when !pred.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(pred ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// c += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// 64 rows of D bf16 from src (row i at src + i * stride) into a shared
+// tile of row stride LD; rows at or past `limit` are zero-filled.
+template <int D, int LD>
+__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
+                                          const __nv_bfloat16* src,
+                                          size_t stride, int row0,
+                                          int limit) {
+  constexpr int kChunks = D / 8;  // 16-byte chunks per row
+  for (int idx = threadIdx.x; idx < kBK * kChunks; idx += kThreadsTC) {
+    const int r = idx / kChunks;
+    const int c = (idx - r * kChunks) * 8;
+    const bool ok = row0 + r < limit;
+    cp_async16(dst + r * LD + c,
+               ok ? src + static_cast<size_t>(row0 + r) * stride + c : src,
+               ok);
+  }
+}
+
+template <typename Kernel>
+int set_smem(Kernel kernel, size_t bytes, bool* done) {
+  if (*done) return 0;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  *done = true;
+  return 0;
+}
+
+}  // namespace flash
+}  // namespace ptt

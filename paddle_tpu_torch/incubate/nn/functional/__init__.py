@@ -1,7 +1,8 @@
-"""Serving attention ops (counterpart of
+"""Serving attention ops and the fused training loss (counterpart of
 ``paddle_tpu/incubate/nn/functional/__init__.py``): the one-token decode op
-``masked_multihead_attention`` over a contiguous cache, and
-``block_multihead_attention`` over the paged KV pool (float-pool path)."""
+``masked_multihead_attention`` over a contiguous cache,
+``block_multihead_attention`` over the paged KV pool (float-pool path), and
+``fused_linear_cross_entropy``."""
 from __future__ import annotations
 
 import numpy as np
@@ -11,8 +12,10 @@ from ....nn.functional.rope import apply_rotary_emb
 from ....ops.decode_attention import decode_attention, decode_attention_plain
 from ....ops.paged_attention import paged_decode_attention
 from ....ops.varlen_flash_attention import varlen_flash_attention
+from .fused_linear_cross_entropy import fused_linear_cross_entropy
 
-__all__ = ["masked_multihead_attention", "block_multihead_attention"]
+__all__ = ["masked_multihead_attention", "block_multihead_attention",
+           "fused_linear_cross_entropy"]
 
 # the reference's int8 / static-scale / out-quant epilogue kwargs: they
 # belong to the int8 serving slice

@@ -1,9 +1,11 @@
 """Models and serving caches of the port."""
-from .convert import load_paddle_tpu_arrays
+from .convert import load_paddle_tpu_arrays, paddle_tpu_arrays_to_port
 from .llama import (LlamaAttention, LlamaConfig, LlamaDecoderLayer,
-                    LlamaForCausalLM, LlamaMLP, LlamaModel)
+                    LlamaForCausalLM, LlamaMLP, LlamaModel,
+                    LlamaPretrainingCriterion)
 from .paged_cache import PagedKVCachePool
 
 __all__ = ["LlamaConfig", "LlamaAttention", "LlamaMLP", "LlamaDecoderLayer",
-           "LlamaModel", "LlamaForCausalLM", "PagedKVCachePool",
-           "load_paddle_tpu_arrays"]
+           "LlamaModel", "LlamaForCausalLM", "LlamaPretrainingCriterion",
+           "PagedKVCachePool", "load_paddle_tpu_arrays",
+           "paddle_tpu_arrays_to_port"]

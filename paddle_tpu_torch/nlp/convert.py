@@ -12,7 +12,7 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["load_paddle_tpu_arrays"]
+__all__ = ["load_paddle_tpu_arrays", "paddle_tpu_arrays_to_port"]
 
 
 def _params(model):
@@ -25,10 +25,13 @@ def _params(model):
     return out
 
 
-def load_paddle_tpu_arrays(model, arrays):
-    """Copy the reference's arrays into ``model``'s parameters (onto the
-    model's device and dtype). Raises on a missing or extra key and on a
-    shape that does not match. Returns the model."""
+def paddle_tpu_arrays_to_port(model, arrays):
+    """The reference's arrays in ``model``'s layout, without loading them:
+    ``key -> numpy array`` with the keys and transposes of
+    :func:`load_paddle_tpu_arrays` (each Linear weight transposed). Raises
+    on a missing or extra key and on a shape that does not match. Use it
+    to hold the reference's gradients or updated parameters against the
+    port's."""
     params = _params(model)
     missing = sorted(set(params) - set(arrays))
     extra = sorted(set(arrays) - set(params))
@@ -36,14 +39,27 @@ def load_paddle_tpu_arrays(model, arrays):
         raise KeyError(
             f"reference arrays do not match the port's parameters: "
             f"missing {missing}, unexpected {extra}")
+    out = {}
+    for key, (p, transpose) in params.items():
+        a = np.asarray(arrays[key])
+        if transpose:
+            a = a.T
+        if tuple(a.shape) != tuple(p.shape):
+            raise ValueError(
+                f"{key}: reference shape {tuple(np.asarray(arrays[key]).shape)}"
+                f" does not carry onto {tuple(p.shape)}")
+        out[key] = a
+    return out
+
+
+def load_paddle_tpu_arrays(model, arrays):
+    """Copy the reference's arrays into ``model``'s parameters (onto the
+    model's device and dtype). Raises on a missing or extra key and on a
+    shape that does not match. Returns the model."""
+    ported = paddle_tpu_arrays_to_port(model, arrays)
+    params = _params(model)
     with torch.no_grad():
-        for key, (p, transpose) in params.items():
-            a = np.asarray(arrays[key])
-            if transpose:
-                a = a.T
-            if tuple(a.shape) != tuple(p.shape):
-                raise ValueError(
-                    f"{key}: reference shape {tuple(np.asarray(arrays[key]).shape)}"
-                    f" does not carry onto {tuple(p.shape)}")
+        for key, a in ported.items():
+            p = params[key][0]
             p.copy_(torch.from_numpy(np.array(a)).to(p.dtype))
     return model

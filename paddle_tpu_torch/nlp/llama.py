@@ -9,9 +9,11 @@ and serial, give the same keys and shapes, so one port covers both.
 
 Attention without a cache runs through ``F.scaled_dot_product_attention``
 (dense) or ``F.sliding_window_attention`` (windowed), both the flash
-kernel K4; with a contiguous cache, windowed prefill runs K4 and a single
-decoded token the decode kernel K5; RMSNorm runs K1. Generation over the
-cache lives in ``nlp/generation.py``; the serving path (paged KV pool) in
+kernel K4 with K7a/K7b as its backward; with a contiguous cache, windowed
+prefill runs K4 and a single decoded token the decode kernel K5; RMSNorm
+runs K1 with K6 as its backward. Training: ``LlamaPretrainingCriterion``
+here, the step in ``jit/train.py``. Generation over the cache lives in
+``nlp/generation.py``; the serving path (paged KV pool) in
 ``serving/engine.py`` and ``incubate/nn/functional``.
 """
 from __future__ import annotations
@@ -28,7 +30,7 @@ from ..nn.layer.norm import RMSNorm
 from ..ops.decode_attention import decode_attention
 
 __all__ = ["LlamaConfig", "LlamaAttention", "LlamaMLP", "LlamaDecoderLayer",
-           "LlamaModel", "LlamaForCausalLM"]
+           "LlamaModel", "LlamaForCausalLM", "LlamaPretrainingCriterion"]
 
 # the dtypes the port's kernels take
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -123,10 +125,9 @@ class LlamaConfig:
 def _check_ported(config):
     """Refuse the options whose code paths belong to later slices."""
     later = {
-        "use_recompute": ("recompute", "ROADMAP A11"),
+        "use_recompute": ("recompute",
+                          "ROADMAP A11, after packed pretraining"),
         "context_parallel": ("context parallelism", "ROADMAP A12"),
-        "fuse_linear_cross_entropy": ("the fused lm-head loss",
-                                      "ROADMAP A11"),
     }
     for field, (what, item) in later.items():
         if getattr(config, field):
@@ -358,11 +359,17 @@ class LlamaForCausalLM(nn.Module):
                 cu_seqlens=None):
         """Logits (B, S, vocab); with ``caches`` (a list of per-layer
         ``(k, v)`` pairs from :meth:`init_caches`, holding
-        ``position_offset`` tokens) returns ``(logits, new_caches)``."""
+        ``position_offset`` tokens) returns ``(logits, new_caches)``. With
+        ``config.fuse_linear_cross_entropy`` and no caches it returns the
+        final hidden states: the lm-head product happens inside
+        :class:`LlamaPretrainingCriterion`'s chunked fused loss."""
         if cu_seqlens is not None:
             raise NotImplementedError(
-                "packed cu_seqlens training is not ported yet (ROADMAP A3)")
+                "packed cu_seqlens training is not ported yet (ROADMAP "
+                "A3/A11, next slice: packed pretraining with K8a/K8b)")
         hidden, new_caches = self.llama(input_ids, position_offset, caches)
+        if self.config.fuse_linear_cross_entropy and caches is None:
+            return hidden
         logits = self.lm_head(hidden)
         if caches is not None:
             return logits, new_caches
@@ -390,3 +397,40 @@ class LlamaForCausalLM(nn.Module):
         return [(torch.zeros(shape, dtype=dt, device=dev),
                  torch.zeros(shape, dtype=dt, device=dev))
                 for _ in range(cfg.num_hidden_layers)]
+
+
+class LlamaPretrainingCriterion(nn.Module):
+    """Shifted next-token cross entropy (the reference's criterion, its
+    unpacked paths). With ``config.fuse_linear_cross_entropy`` the model
+    returns the final hidden states and this criterion applies the chunked
+    fused lm-head + loss; ``lm_head`` must then be passed, and is kept as a
+    plain attribute, not a submodule, so its weight registers only on the
+    model."""
+
+    def __init__(self, config=None, lm_head=None):
+        super().__init__()
+        self._fuse = bool(config is not None
+                          and config.fuse_linear_cross_entropy)
+        self._lce_chunk_rows = int(
+            getattr(config, "lce_chunk_rows", 0) or 1024)
+        object.__setattr__(self, "_lm_head", lm_head)
+
+    def forward(self, logits, labels, cu_seqlens=None):
+        if cu_seqlens is not None:
+            raise NotImplementedError(
+                "the packed cu_seqlens criterion is not ported yet (ROADMAP "
+                "A3/A11, next slice: packed pretraining with K8a/K8b)")
+        shifted = logits[:, :-1, :]
+        targets = labels[:, 1:]
+        if self._fuse:
+            if self._lm_head is None:
+                raise ValueError(
+                    "fuse_linear_cross_entropy needs the lm_head: construct "
+                    "LlamaPretrainingCriterion(config, lm_head=model.lm_head)")
+            from ..incubate.nn.functional import fused_linear_cross_entropy
+
+            return fused_linear_cross_entropy(
+                shifted, self._lm_head.weight, targets,
+                bias=self._lm_head.bias, chunk_rows=self._lce_chunk_rows)
+        return F.cross_entropy(shifted.reshape(-1, shifted.shape[-1]),
+                               targets.reshape(-1))

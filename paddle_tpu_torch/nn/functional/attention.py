@@ -2,11 +2,12 @@
 ``paddle_tpu/nn/functional/attention.py``).
 
 Layout (batch, seq, heads, head_dim), paddle's flash-attn layout. Without
-a mask or dropout, attention goes through the K4 wrapper
-(:func:`~paddle_tpu_torch.ops.flash_attention`: the kernel on CUDA
-tensors, its plain version on CPU tensors), as the reference routes to its
-Pallas flash kernel. An ``attn_mask`` or dropout takes the plain
-:func:`_xla_attention`, as the reference sends them to XLA.
+a mask or dropout, attention goes through
+:class:`~paddle_tpu_torch.ops.flash_attention.FlashAttentionFunction` (K4
+forward, K7a/K7b backward on CUDA tensors; their plain versions on CPU
+tensors), as the reference routes to its Pallas flash kernel. An
+``attn_mask`` or dropout takes the plain :func:`_xla_attention`, as the
+reference sends them to XLA.
 """
 from __future__ import annotations
 
@@ -14,8 +15,7 @@ import math
 
 import torch
 
-from ...ops.flash_attention import band_mask
-from ...ops.flash_attention import flash_attention as _flash_kernel
+from ...ops.flash_attention import FlashAttentionFunction, band_mask
 
 __all__ = ["scaled_dot_product_attention", "flash_attention",
            "sliding_window_attention"]
@@ -55,11 +55,11 @@ def sliding_window_attention(query, key, value, window_size, training=True,
                              name=None):
     """Causal sliding-window attention (Mistral semantics: each query
     attends to the last ``window_size`` keys, itself included) through
-    K4's banded tiles."""
+    K4's banded tiles (K7a/K7b backward)."""
     w = int(window_size)
     if w < 1:
         raise ValueError(f"window_size must be >= 1, got {window_size}")
-    return _flash_kernel(query, key, value, causal=True, window_size=w)
+    return FlashAttentionFunction.apply(query, key, value, True, None, w)
 
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
@@ -70,7 +70,7 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     ``training``."""
     dropout = dropout_p if training else 0.0
     if attn_mask is None and dropout == 0.0:
-        return _flash_kernel(query, key, value, causal=is_causal)
+        return FlashAttentionFunction.apply(query, key, value, is_causal)
     return _xla_attention(query, key, value, mask=attn_mask,
                           causal=is_causal, dropout_p=dropout,
                           generator=generator)

@@ -9,7 +9,7 @@ __all__ = ["RMSNorm"]
 
 
 class RMSNorm(torch.nn.Module):
-    """The Llama-family norm; its forward is the K1 wrapper."""
+    """The Llama-family norm: K1 forward, K6 backward (``F.rms_norm``)."""
 
     def __init__(self, hidden_size, epsilon=1e-6, device=None, dtype=None):
         super().__init__()

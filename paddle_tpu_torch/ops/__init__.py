@@ -1,26 +1,39 @@
 """The port's kernels: each hand-written Hopper kernel with its wrapper
 and plain PyTorch version.
 
-- K1 ``rms_norm`` (csrc/rms_norm.cu)
+- K1 ``rms_norm`` and K6 ``rms_norm_bwd`` (csrc/rms_norm.cu), joined by
+  ``RMSNormFunction``
 - K2 ``paged_decode_attention`` (csrc/paged_attention.cu)
 - K3 ``varlen_flash_attention`` (csrc/varlen_flash_attention.cu)
-- K4 ``flash_attention`` forward (csrc/flash_attention.cu)
+- K4 ``flash_attention`` forward (csrc/flash_attention.cu), K7a
+  ``flash_attention_bwd_dq`` and K7b ``flash_attention_bwd_dkv``
+  (csrc/flash_attention_bwd.cu, both run by ``flash_attention_bwd``),
+  joined by ``FlashAttentionFunction``
 - K5 ``decode_attention`` (csrc/decode_attention.cu)
 """
 from ._library import LAUNCHES, plain_versions, reset_launches
 from .decode_attention import decode_attention, decode_attention_plain
-from .flash_attention import flash_attention, flash_attention_plain
+from .flash_attention import (FlashAttentionFunction, flash_attention,
+                              flash_attention_bwd, flash_attention_bwd_delta,
+                              flash_attention_bwd_dkv, flash_attention_bwd_dq,
+                              flash_attention_bwd_plain,
+                              flash_attention_plain)
 from .paged_attention import (paged_cache_write, paged_decode_attention,
                               paged_decode_attention_plain)
-from .rms_norm import rms_norm, rms_norm_plain
+from .rms_norm import (RMSNormFunction, rms_norm, rms_norm_bwd,
+                       rms_norm_bwd_plain, rms_norm_plain)
 from .varlen_flash_attention import (varlen_flash_attention,
                                      varlen_flash_attention_plain)
 
 __all__ = [
     "LAUNCHES", "plain_versions", "reset_launches", "rms_norm",
-    "rms_norm_plain", "paged_decode_attention",
+    "rms_norm_plain", "rms_norm_bwd", "rms_norm_bwd_plain",
+    "RMSNormFunction", "paged_decode_attention",
     "paged_decode_attention_plain", "paged_cache_write",
     "varlen_flash_attention", "varlen_flash_attention_plain",
-    "flash_attention", "flash_attention_plain", "decode_attention",
-    "decode_attention_plain",
+    "flash_attention", "flash_attention_plain", "flash_attention_bwd",
+    "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+    "flash_attention_bwd_delta", "flash_attention_bwd_plain",
+    "FlashAttentionFunction",
+    "decode_attention", "decode_attention_plain",
 ]

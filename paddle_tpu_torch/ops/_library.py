@@ -29,14 +29,16 @@ from pathlib import Path
 import torch
 
 __all__ = ["LAUNCHES", "reset_launches", "plain_versions", "use_plain",
-           "library", "check_status", "cuda_stream", "BUILD_DIR"]
+           "refuse_grad", "library", "check_status", "cuda_stream",
+           "BUILD_DIR"]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "paddle_tpu_torch"
 SOURCES = ("rms_norm.cu", "paged_attention.cu", "varlen_flash_attention.cu",
-           "decode_attention.cu", "flash_attention.cu")
-HEADERS = ("common.cuh", "split_decode.cuh", "flash_f32.cuh")
+           "decode_attention.cu", "flash_attention.cu",
+           "flash_attention_bwd.cu")
+HEADERS = ("common.cuh", "split_decode.cuh", "flash_f32.cuh", "flash_mma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-lineinfo", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -48,7 +50,8 @@ SPLIT_TOKENS = 128
 # kernel name -> launches since the last reset_launches()
 LAUNCHES = {"rms_norm": 0, "paged_decode_attention": 0,
             "varlen_flash_attention": 0, "flash_attention": 0,
-            "decode_attention": 0}
+            "decode_attention": 0, "rms_norm_bwd": 0,
+            "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}
 
 _plain = False
 _lib = None
@@ -83,6 +86,17 @@ def use_plain(t: torch.Tensor) -> bool:
     if t.device.type != "cuda":
         raise ValueError(f"unsupported device {t.device}")
     return _plain
+
+
+def refuse_grad(name, item, *tensors):
+    """Raise where a kernel without a backward would hand autograd a
+    detached output: grad mode is on and an input requires grad. The
+    wrappers of such kernels call it on their kernel path (the plain
+    versions on CPU tensors are differentiable by autograd)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"the {name} kernel has no backward yet ({item}); call it under "
+            f"torch.no_grad() or with inputs that do not require grad")
 
 
 def _nvcc():
@@ -165,6 +179,16 @@ def _declare(lib):
         # dtype, stream
         "ptt_flash_attention": (p, p, p, p, p, i, i, i, i, i, i, i, i, f, i,
                                 p),
+        # x, w, rstd, dy, dx, dw_part, dw, rows, n, nblk, dtype, stream
+        "ptt_rms_norm_bwd": (p, p, p, p, p, p, p, i, i, i, i, p),
+        # q, k, v, do, lse, delta, dq, b, sq, sk, h, hk, d, causal, window,
+        # sm_scale, dtype, stream
+        "ptt_flash_attention_bwd_dq": (p, p, p, p, p, p, p, i, i, i, i, i, i,
+                                       i, i, f, i, p),
+        # q, k, v, do, lse, delta, dk, dv, b, sq, sk, h, hk, d, causal,
+        # window, sm_scale, dtype, stream
+        "ptt_flash_attention_bwd_dkv": (p, p, p, p, p, p, p, p, i, i, i, i,
+                                        i, i, i, i, f, i, p),
     }
     for name, args in sigs.items():
         fn = getattr(lib, name)

@@ -1,16 +1,20 @@
-"""Dense flash attention forward: the Hopper kernel K4 and its plain
-PyTorch version.
+"""Dense flash attention, forward and backward: the Hopper kernels K4
+(forward), K7a (dq) and K7b (dk, dv), their plain PyTorch versions, and
+the autograd Function that joins them.
 
-Counterpart of ``paddle_tpu/ops/pallas/flash_attention.py`` (forward; the
-backward kernels belong to the training slice). Paddle layout: q
-(B, Sq, H, D), k/v (B, Sk, HK, D), H a multiple of HK. Causal masks are
-bottom-right aligned (``k <= q + Sk - Sq``), keys past ``Sk`` never count,
-and ``window_size`` (with ``causal``) keeps the last ``window_size`` keys
-of each query, itself included (Mistral semantics). A row that sees no
-key returns zeros. Scores and softmax statistics are f32; the
-probabilities are rounded to v's dtype before the product with v, as the
-TPU kernel does. The CUDA source is
-``paddle_tpu_torch/csrc/flash_attention.cu``.
+Counterpart of ``paddle_tpu/ops/pallas/flash_attention.py``. Paddle
+layout: q (B, Sq, H, D), k/v (B, Sk, HK, D), H a multiple of HK. Causal
+masks are bottom-right aligned (``k <= q + Sk - Sq``), keys past ``Sk``
+never count, and ``window_size`` (with ``causal``) keeps the last
+``window_size`` keys of each query, itself included (Mistral semantics). A
+row that sees no key returns zeros. Scores and softmax statistics are f32;
+the probabilities are rounded to v's dtype before the product with v, as
+the TPU kernel does. The backward recomputes P from the forward's
+log-sum-exp with the TPU kernel's roundings (see
+:func:`flash_attention_bwd_plain`). :class:`FlashAttentionFunction` mirrors
+the reference's ``custom_vjp``. The CUDA sources are
+``paddle_tpu_torch/csrc/flash_attention.cu`` and
+``paddle_tpu_torch/csrc/flash_attention_bwd.cu``.
 """
 from __future__ import annotations
 
@@ -20,7 +24,10 @@ import torch
 
 from . import _library as L
 
-__all__ = ["flash_attention", "flash_attention_plain", "band_mask"]
+__all__ = ["flash_attention", "flash_attention_plain", "band_mask",
+           "flash_attention_bwd", "flash_attention_bwd_dq",
+           "flash_attention_bwd_dkv", "flash_attention_bwd_delta",
+           "flash_attention_bwd_plain", "FlashAttentionFunction"]
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -64,13 +71,8 @@ def flash_attention_plain(q, k, v, causal=False, sm_scale=None,
     return out.reshape(b, sq, h, d).to(q.dtype), lse
 
 
-def flash_attention(q, k, v, causal=False, sm_scale=None, window_size=None,
-                    return_lse=False):
-    """Flash attention over paddle layout (B, S, H, D).
-
-    CPU tensors run :func:`flash_attention_plain`; CUDA tensors launch
-    the kernel or raise. With ``return_lse`` also returns the (B, H, Sq)
-    f32 log-sum-exp the kernel writes (the backward's residual)."""
+def _check_args(q, k, v, causal, window_size):
+    """Validate the layout; returns (b, sq, sk, h, hk, d)."""
     if window_size is not None:
         if not causal:
             raise ValueError(
@@ -88,25 +90,26 @@ def flash_attention(q, k, v, causal=False, sm_scale=None, window_size=None,
     if h % hk != 0:
         raise ValueError(
             f"query heads ({h}) must be a multiple of kv heads ({hk})")
+    return b, sq, sk, h, hk, d
+
+
+def flash_attention(q, k, v, causal=False, sm_scale=None, window_size=None,
+                    return_lse=False):
+    """Flash attention over paddle layout (B, S, H, D).
+
+    CPU tensors run :func:`flash_attention_plain`; CUDA tensors launch
+    the kernel or raise. With ``return_lse`` also returns the (B, H, Sq)
+    f32 log-sum-exp the kernel writes (the backward's residual). The
+    result carries no autograd history on the kernel path: differentiate
+    through :class:`FlashAttentionFunction`."""
+    b, sq, sk, h, hk, d = _check_args(q, k, v, causal, window_size)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
     if L.use_plain(q):
         out, lse = flash_attention_plain(q, k, v, causal, sm_scale,
                                          window_size)
         return (out, lse) if return_lse else out
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(
-            f"flash_attention kernel takes float32 or bfloat16 q, k, v of "
-            f"one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if d not in _HEAD_DIMS:
-        raise NotImplementedError(
-            f"flash_attention kernel takes head_dim in {_HEAD_DIMS}, got {d}")
-    for t in (k, v):
-        if t.device != q.device:
-            raise ValueError("flash_attention: inputs lie on different "
-                             "devices")
-    if not all(t.is_contiguous() for t in (q, k, v)):
-        raise ValueError("flash_attention kernel needs contiguous q, k, v")
+    _check_kernel_inputs("flash_attention", q, k, v)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     status = L.library().ptt_flash_attention(
@@ -117,3 +120,158 @@ def flash_attention(q, k, v, causal=False, sm_scale=None, window_size=None,
     L.check_status("flash_attention", status)
     L.LAUNCHES["flash_attention"] += 1
     return (out, lse) if return_lse else out
+
+
+def _check_kernel_inputs(name, q, *others):
+    if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in others):
+        raise TypeError(
+            f"{name} kernel takes float32 or bfloat16 inputs of one dtype, "
+            f"got {[t.dtype for t in (q, *others)]}")
+    if q.shape[-1] not in _HEAD_DIMS:
+        raise NotImplementedError(
+            f"{name} kernel takes head_dim in {_HEAD_DIMS}, got "
+            f"{q.shape[-1]}")
+    if any(t.device != q.device for t in others):
+        raise ValueError(f"{name}: inputs lie on different devices")
+    if not all(t.is_contiguous() for t in (q, *others)):
+        raise ValueError(f"{name} kernel needs contiguous inputs")
+
+
+def flash_attention_bwd_delta(out, do):
+    """``delta = rowsum(do * out)`` in f32, (B, H, Sq): the backward's
+    per-row term (a torch op, as the reference computes it outside
+    Pallas)."""
+    return (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def flash_attention_bwd_plain(q, k, v, out, lse, do, causal=False,
+                              sm_scale=None, window_size=None, delta=None):
+    """Plain version of K7a/K7b (the reference's ``_flash_bwd``): returns
+    ``(dq, dk, dv)`` like q, k, v. P is recomputed from ``lse`` in f32 and
+    ``delta`` (default from ``out``) is f32; P is rounded to do's dtype
+    before dV, dS to k's dtype before dQ and to q's dtype before dK;
+    products accumulate in f32. A GQA group's query heads are summed into
+    their KV head's dk and dv in f32 before the one rounding to the input
+    dtype."""
+    b, sq, h, d = q.shape
+    sk, hk = k.shape[1], k.shape[2]
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    if delta is None:
+        delta = flash_attention_bwd_delta(out, do)
+    g = h // hk
+    mask = band_mask(sq, sk, causal, window_size, q.device)
+    qf = q.float().reshape(b, sq, hk, g, d)
+    dof = do.float().reshape(b, sq, hk, g, d)
+    kf, vf = k.float(), v.float()
+    s = torch.einsum("bqkgd,bskd->bkgqs", qf, kf) * sm_scale
+    p = torch.where(mask, torch.exp(s - lse.reshape(b, hk, g, sq, 1)), 0.0)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", dof, vf)
+    ds = p * (dp - delta.reshape(b, hk, g, sq, 1)) * sm_scale
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p.to(do.dtype).float(), dof)
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds.to(k.dtype).float(), kf)
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds.to(q.dtype).float(), qf)
+    return (dq.reshape(b, sq, h, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def _bwd_launch_args(q, k, v, do, lse, delta, causal, sm_scale,
+                     window_size):
+    b, sq, sk, h, hk, d = _check_args(q, k, v, causal, window_size)
+    if do.shape != q.shape or lse.shape != (b, h, sq) \
+            or delta.shape != (b, h, sq):
+        raise ValueError(
+            f"flash_attention backward: do {tuple(do.shape)}, lse "
+            f"{tuple(lse.shape)}, delta {tuple(delta.shape)} for q "
+            f"{tuple(q.shape)}")
+    _check_kernel_inputs("flash_attention backward", q, k, v, do)
+    for t in (lse, delta):
+        if t.dtype != torch.float32 or not t.is_contiguous() \
+                or t.device != q.device:
+            raise TypeError("flash_attention backward kernels take "
+                            "contiguous f32 lse and delta on q's device")
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr()), (
+        b, sq, sk, h, hk, d, int(bool(causal)), int(window_size or 0),
+        float(sm_scale), _DTYPES[q.dtype], L.cuda_stream(q))
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=False,
+                           sm_scale=None, window_size=None):
+    """K7a: dq (like q) from the forward's ``lse`` and ``delta``
+    (:func:`flash_attention_bwd_delta`). CPU tensors run the plain
+    backward; CUDA tensors launch the kernel or raise."""
+    if L.use_plain(q):
+        return flash_attention_bwd_plain(q, k, v, None, lse, do, causal,
+                                         sm_scale, window_size, delta)[0]
+    ptrs, dims = _bwd_launch_args(q, k, v, do, lse, delta, causal, sm_scale,
+                                  window_size)
+    dq = torch.empty_like(q)
+    status = L.library().ptt_flash_attention_bwd_dq(*ptrs, dq.data_ptr(),
+                                                    *dims)
+    L.check_status("flash_attention_bwd_dq", status)
+    L.LAUNCHES["flash_attention_bwd_dq"] += 1
+    return dq
+
+
+def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal=False,
+                            sm_scale=None, window_size=None):
+    """K7b: ``(dk, dv)`` (like k, v), each KV head's sum over the query
+    heads of its group. CPU tensors run the plain backward; CUDA tensors
+    launch the kernel or raise."""
+    if L.use_plain(q):
+        return flash_attention_bwd_plain(q, k, v, None, lse, do, causal,
+                                         sm_scale, window_size, delta)[1:]
+    ptrs, dims = _bwd_launch_args(q, k, v, do, lse, delta, causal, sm_scale,
+                                  window_size)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    status = L.library().ptt_flash_attention_bwd_dkv(
+        *ptrs, dk.data_ptr(), dv.data_ptr(), *dims)
+    L.check_status("flash_attention_bwd_dkv", status)
+    L.LAUNCHES["flash_attention_bwd_dkv"] += 1
+    return dk, dv
+
+
+def flash_attention_bwd(q, k, v, out, lse, do, causal=False, sm_scale=None,
+                        window_size=None):
+    """Gradients ``(dq, dk, dv)`` of flash attention from the forward's
+    ``out`` and ``lse`` and the upstream ``do`` (like q): delta, then K7a
+    and K7b on CUDA tensors, :func:`flash_attention_bwd_plain` on CPU
+    tensors."""
+    if out.shape != q.shape:
+        raise ValueError(f"flash_attention_bwd: out {tuple(out.shape)} for "
+                         f"q {tuple(q.shape)}")
+    if L.use_plain(q):
+        _check_args(q, k, v, causal, window_size)
+        return flash_attention_bwd_plain(q, k, v, out, lse, do, causal,
+                                         sm_scale, window_size)
+    delta = flash_attention_bwd_delta(out, do)
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, causal, sm_scale,
+                                window_size)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal,
+                                     sm_scale, window_size)
+    return dq, dk, dv
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """``out = flash_attention(q, k, v, causal, sm_scale, window_size)``
+    with K7a/K7b as its backward (the reference's
+    ``_flash_attention_bhsd`` custom_vjp: the forward keeps q, k, v, out
+    and lse, the backward recomputes P from lse)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal=False, sm_scale=None, window_size=None):
+        out, lse = flash_attention(q, k, v, causal, sm_scale, window_size,
+                                   return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, sm_scale, window_size)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(
+            q, k, v, out, lse, do.contiguous().to(q.dtype), *ctx.args)
+        return dq, dk, dv, None, None, None

@@ -99,6 +99,9 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, seq_lens,
         out = paged_decode_attention_plain(q, k_pool, v_pool, block_tables,
                                            seq_lens, sm_scale)
         return out[:, None] if squeeze else out
+    L.refuse_grad("paged_decode_attention",
+                  "ROADMAP A11: decode attention is inference-only, as the "
+                  "TPU kernel is", q, k_pool, v_pool)
     if q.dtype not in _DTYPES or k_pool.dtype != q.dtype \
             or v_pool.dtype != q.dtype:
         raise TypeError(

@@ -111,6 +111,9 @@ def varlen_flash_attention(q, k, v, cu_seqlens_q, cu_seqlens_k,
             q, k, v, cu_seqlens_q, cu_seqlens_k, causal, sm_scale,
             window_size)
         return (out, lse) if return_lse else out
+    L.refuse_grad("varlen_flash_attention",
+                  "ROADMAP A11: the varlen backward K8a/K8b comes with packed "
+                  "pretraining", q, k, v)
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(
             f"varlen_flash_attention kernel takes float32 or bfloat16 q, k, "

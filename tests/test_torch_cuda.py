@@ -1,6 +1,6 @@
 """The port's CUDA kernels on the card: each kernel against its plain
-PyTorch version, and the serving engine's and ``generate``'s kernel paths
-against their plain paths. Skips where no CUDA device is present (a CUDA kernel has no CPU
+PyTorch version, and the serving engine's, ``generate``'s and the training
+step's kernel paths against their plain paths. Skips where no CUDA device is present (a CUDA kernel has no CPU
 mode). Imports neither jax nor paddle_tpu, so on a machine with a GPU and
 no JAX it runs without the suite's conftest:
 
@@ -15,7 +15,11 @@ import pytest
 import torch
 
 from paddle_tpu_torch import create_serving_engine, ops
-from paddle_tpu_torch.nlp import LlamaConfig, LlamaForCausalLM
+from paddle_tpu_torch.jit import JittedTrainStep
+from paddle_tpu_torch.nlp import (LlamaConfig, LlamaForCausalLM,
+                                  LlamaPretrainingCriterion)
+from paddle_tpu_torch.nn import functional as F
+from paddle_tpu_torch.optimizer import AdamW
 
 
 @pytest.fixture
@@ -188,3 +192,114 @@ def test_cuda_generate_kernel_path_equals_plain_path(cuda, window):
             assert ops.LAUNCHES["flash_attention"] == (2 if window else 0)
             assert ops.LAUNCHES["decode_attention"] == 2 * 11
     assert torch.equal(streams[0], streams[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_cuda_rms_norm_backward_matches_plain(cuda, dtype, tol):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    for rows, n in ((37, 4096), (3, 64), (5, 100), (1000, 512)):
+        x, w = _rnd(g, dtype, rows, n), _rnd(g, dtype, n)
+        dy = _rnd(g, dtype, rows, n)
+        _, r = ops.rms_norm(x, w, return_rstd=True)
+        dx, dw = ops.rms_norm_bwd(x, w, r, dy)
+        dx_ref, dw_ref = ops.rms_norm_bwd_plain(x, w, r, dy)
+        torch.testing.assert_close(dx.float(), dx_ref.float(), atol=tol,
+                                   rtol=tol)
+        # dw sums ``rows`` terms: the tolerance scales with the sum
+        scale = float(dw_ref.float().abs().max())
+        torch.testing.assert_close(dw.float(), dw_ref.float(),
+                                   atol=tol * scale, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+def test_cuda_flash_attention_backward_matches_plain(cuda, dtype, tol):
+    g = torch.Generator(device=cuda).manual_seed(4)
+    # (B, Sq, Sk, H, HK, D, causal, window): GQA groups 1, 4 and 7, a
+    # window band, ragged lengths, bottom-right causal, Sq > Sk
+    for b, sq, sk, h, hk, d, causal, window in (
+            (2, 128, 128, 4, 4, 64, True, None),
+            (2, 100, 100, 8, 2, 128, True, None),
+            (1, 190, 190, 7, 1, 128, True, None),
+            (2, 96, 200, 4, 2, 64, False, None),
+            (1, 300, 300, 8, 2, 128, True, 17),
+            (1, 64, 1024, 8, 2, 128, True, None),
+            (1, 200, 130, 4, 4, 64, True, None)):
+        q = _rnd(g, dtype, b, sq, h, d)
+        k, v = _rnd(g, dtype, b, sk, hk, d), _rnd(g, dtype, b, sk, hk, d)
+        do = _rnd(g, dtype, b, sq, h, d)
+        out, lse = ops.flash_attention(q, k, v, causal=causal,
+                                       window_size=window, return_lse=True)
+        got = ops.flash_attention_bwd(q, k, v, out, lse, do, causal,
+                                      window_size=window)
+        want = ops.flash_attention_bwd_plain(q, k, v, out, lse, do, causal,
+                                             window_size=window)
+        for a, ref in zip(got, want):
+            assert a.dtype == dtype and a.shape == ref.shape
+            scale = max(1.0, float(ref.float().abs().max()))
+            torch.testing.assert_close(a.float(), ref.float(),
+                                       atol=tol * scale, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_cuda_wrappers_carry_a_grad_fn_or_refuse(cuda):
+    x = torch.randn(4, 64, device=cuda, requires_grad=True)
+    w = torch.ones(64, device=cuda, requires_grad=True)
+    assert F.rms_norm(x, w).grad_fn is not None
+    q = torch.randn(1, 32, 4, 64, device=cuda, requires_grad=True)
+    kv = torch.randn(1, 32, 2, 64, device=cuda, requires_grad=True)
+    out = F.scaled_dot_product_attention(q, kv, kv, is_causal=True)
+    assert out.grad_fn is not None
+    out.sum().backward()
+    assert q.grad is not None and kv.grad is not None
+    lens = torch.tensor([5], dtype=torch.int32, device=cuda)
+    qd = torch.randn(1, 4, 64, device=cuda, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+        ops.decode_attention(qd, kv.detach(), kv.detach(), lens)
+    cu = torch.tensor([0, 32], dtype=torch.int32, device=cuda)
+    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+        ops.varlen_flash_attention(q[0], kv[0], kv[0], cu, cu, causal=True)
+    pool = torch.randn(3, 16, 2, 64, device=cuda, requires_grad=True)
+    tables = torch.tensor([[1, 2]], dtype=torch.int32, device=cuda)
+    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+        ops.paged_decode_attention(qd.detach(), pool, pool, tables, lens)
+    with torch.no_grad():
+        ops.decode_attention(qd, kv.detach(), kv.detach(), lens)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fuse", [False, True])
+def test_cuda_train_step_kernel_path_equals_plain_path(cuda, fuse):
+    cfg = LlamaConfig.tiny(hidden_size=256, num_attention_heads=4,
+                           num_key_value_heads=2, vocab_size=512,
+                           tensor_parallel=False,
+                           fuse_linear_cross_entropy=fuse, lce_chunk_rows=48)
+    ids = torch.from_numpy(
+        np.random.RandomState(1).randint(0, 512, (2, 96))).to(cuda)
+    runs = []
+    for plain in (False, True):
+        model = LlamaForCausalLM(
+            cfg, generator=torch.Generator(device=cuda).manual_seed(0))
+        crit = LlamaPretrainingCriterion(
+            cfg, lm_head=model.lm_head if fuse else None)
+        step = JittedTrainStep(model, crit,
+                               AdamW(1e-3, parameters=model.parameters()))
+        ops.reset_launches()
+        if plain:
+            with ops.plain_versions():
+                losses = [step(ids, ids) for _ in range(3)]
+            assert all(n == 0 for n in ops.LAUNCHES.values())
+        else:
+            losses = [step(ids, ids) for _ in range(3)]
+            want = {"rms_norm": 15, "flash_attention": 6,
+                    "rms_norm_bwd": 15, "flash_attention_bwd_dq": 6,
+                    "flash_attention_bwd_dkv": 6}
+            assert {k: ops.LAUNCHES[k] for k in want} == want
+        runs.append((torch.stack(losses), [p.detach().clone()
+                                           for p in step.params]))
+    torch.testing.assert_close(runs[0][0], runs[1][0], rtol=1e-5, atol=0)
+    for a, b in zip(runs[0][1], runs[1][1]):
+        torch.testing.assert_close(a, b, rtol=0, atol=6e-3)
