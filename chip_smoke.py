@@ -10,12 +10,15 @@ Phases (any failure raises and the script exits non-zero):
    ``paddle_tpu_torch/csrc`` (nvcc, sm_90a) with its time;
 2. each kernel against its plain PyTorch version on the card, at the
    serving, generation and training paths' shapes, in bf16 and f32
-   (K6/K7 also at Mistral's GQA width with its window): max error,
-   kernel / plain / library-call device times (torch.profiler, summed
-   kernel durations; CUDA events where the profiler records none, as
-   ``timers`` says), the kernel's CUDA-event time over back-to-back calls
-   (launch gaps included) and the least time the card could take
-   (``bound_ms``);
+   (K6/K7 also at Mistral's GQA width with its window; K8a/K8b at the
+   packed 941M row, with GQA and a window, with unequal query and key
+   lengths, and with empty segments): max error, kernel / plain /
+   library-call device times (torch.profiler, summed kernel durations;
+   CUDA events where the profiler records none, as ``timers`` says; where
+   several library calls compute the same function the fastest counts,
+   and ``library_call`` names it), the kernel's CUDA-event time over
+   back-to-back calls (launch gaps included) and the least time the card
+   could take (``bound_ms``);
 3. the serving main path end to end: full Llama-2-7B in bf16 (32 layers,
    seeded random weights) through ``create_serving_engine``, 16 requests;
    launch counters zeroed just before and read just after; the same
@@ -46,13 +49,30 @@ Phases (any failure raises and the script exits non-zero):
    torch.profiler breakdown of one unfused step;
 8. the training kernel path against its plain path in f32 (Llama-2-7B
    width, 2 layers, S=1,024): step-1 gradients per tensor within 1e-4 of
-   the tensor's largest |g|, and the losses of 3 steps within 1e-4.
+   the tensor's largest |g|, and the losses of 3 steps within 1e-4;
+9. packed (cu_seqlens) training, ``scripts/bench_suite.py``'s
+   llama_941m_packed_varlen_train_mfu on the port: hidden 2,048, 16
+   layers, 32 heads, bf16 with f32 masters and bf16 moments, one row of 8
+   segments (T = 4,096), the model called as ``model(ids, cu)`` and the
+   packed criterion on f32 logits: 2 warm-up steps, then 10 in one
+   ``run_steps`` with the counters zeroed just before and read just after
+   (exactly K1 33, K6 33, K3 16, K8a 16, K8b 16 per step and no K4/K7),
+   step time, tokens/s, MFU (attention at the effective length
+   sum(len^2) / T), peak memory and a step profile; the loss must fall.
+   Then the same configuration with full recompute for 3 steps from the
+   same weights and batches: its losses beside the first run's, a lower
+   peak, and K1 65 and K3 32 launches per step;
+10. packed training's kernel path against its plain path in f32 (the same
+    width, 2 layers, T = 1,024 in 4 segments): step-1 gradients per tensor
+    within 1e-5 of the tensor's largest |g|, the losses of 3 steps within
+    1e-6.
 
 The line before the last is the ``{"kernels": [...]}`` record (each
 kernel's launches come from the run of the path that carries it: K1-K3
 the serving run of phase 3, K4-K5 the generation run of phase 5, K6, K7a
-and K7b the training run of phase 7); the last line is
-``{"ok": true, "device": {...}}``. Without CUDA it prints no result and
+and K7b the training run of phase 7, K8a and K8b the packed training run
+of phase 9; ``launches_by_path`` has every path's count); the last line
+is ``{"ok": true, "device": {...}}``. Without CUDA it prints no result and
 exits 2.
 """
 from __future__ import annotations
@@ -78,6 +98,12 @@ GENERATE_PARITY_SHAPE = (2, 4352, 16)
 TRAIN_SHAPE = (1, 4096, 2, 10)
 # phase 8: sequence and steps of the f32 kernel-vs-plain training run
 TRAIN_PARITY_SHAPE = (1024, 3)
+# phase 9: the packed row of scripts/bench_suite.py's 941M configuration
+# (T = 4,096) and its steps: warm-up, timed (one run_steps), with recompute
+PACKED_LENS = [1600, 800, 600, 400, 300, 200, 120, 76]
+PACKED_TRAIN_STEPS = (2, 10, 3)
+# phase 10: the f32 kernel-vs-plain packed run's segments and steps
+PACKED_PARITY = ([500, 300, 150, 74], 3)
 # the serving sampling arm's knobs (phases 3 and 6)
 SAMPLING = dict(decode_strategy="sampling", top_k=50, top_p=0.9,
                 temperature=0.8)
@@ -148,8 +174,8 @@ def close(torch, out, ref, dtype, p_rounded=False):
     them. f32: 1e-4 relative + absolute (summation order only). bf16: one
     rounding step of the reference value (both sides compute in f32 and
     round once), plus 1e-2 absolute where probabilities or their
-    gradients are rounded to bf16 before a product (K3, K4, K7, as the TPU
-    kernels do): a p on a rounding boundary may round one step
+    gradients are rounded to bf16 before a product (K3, K4, K7, K8, as the
+    TPU kernels do): a p on a rounding boundary may round one step
     differently when the f32 scores differ in their last bits, which
     moves the output by up to 2^-8 * |v|. A 1-D output (K6's dw, a sum
     over every row) takes the absolute term times its largest value."""
@@ -518,6 +544,118 @@ def k7_cases(torch, g, dev):
                                ddt), **common)
 
 
+def _segment_library(torch, q, k, v, do, lens_q, lens_k, window):
+    """The library yardsticks of K8a/K8b: SDPA's whole backward (dq, dk,
+    dv) through autograd on the same inputs, once over the packed row
+    under a block-diagonal causal (banded) mask and once as the sum of
+    per-segment SDPA backwards (``is_causal`` where a segment's query and
+    key lengths agree and no window cuts, else its bottom-right band)."""
+    from paddle_tpu_torch.ops.flash_attention import band_mask
+    from paddle_tpu_torch.ops.varlen_flash_attention import segment_mask
+    import torch.nn.functional as tF
+
+    dev = q.device
+    h, hk = q.shape[1], k.shape[1]
+    cu_q = torch.tensor([0] + list(_cumsum(lens_q)), device=dev)
+    cu_k = torch.tensor([0] + list(_cumsum(lens_k)), device=dev)
+    qt = q.transpose(0, 1)[None].contiguous().requires_grad_()
+    kt = _sdpa_layout(torch, k[None], h // hk).requires_grad_()
+    vt = _sdpa_layout(torch, v[None], h // hk).requires_grad_()
+    mask = segment_mask(cu_q, cu_k, q.shape[0], k.shape[0], True, window)
+    lo = tF.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+    dot = do.transpose(0, 1)[None].contiguous()
+    outs, ins, grads = [], [], []
+    for a, b, c, e in zip(cu_q.tolist(), cu_q.tolist()[1:], cu_k.tolist(),
+                          cu_k.tolist()[1:]):
+        if b == a or e == c:
+            continue
+        qs, ks, vs = (x.detach()[:, :, lo_:hi_].clone().requires_grad_()
+                      for x, lo_, hi_ in ((qt, a, b), (kt, c, e), (vt, c, e)))
+        if b - a == e - c and window is None:
+            o = tF.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+        else:
+            o = tF.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=band_mask(b - a, e - c, True, window,
+                                                dev))
+        outs.append(o)
+        ins += [qs, ks, vs]
+        grads.append(dot[:, :, a:b])
+    return {
+        "sdpa_block_diagonal_mask": lambda: torch.autograd.grad(
+            lo, (qt, kt, vt), dot, retain_graph=True),
+        "sdpa_per_segment": lambda: torch.autograd.grad(
+            outs, ins, grads, retain_graph=True)}
+
+
+def k8_cases(torch, g, dev):
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.ops.varlen_flash_attention import segment_mask
+
+    # (label, lens_q, lens_k or None, H, HK, D, window, dtypes): the packed
+    # training path (the 941M configuration's row; bf16 is the primary),
+    # GQA with a window shorter than the long segments, unequal query and
+    # key lengths, and empty segments
+    for label, lens_q, lens_k, h, hk, d, window, dtypes in (
+            ("packed_941m", PACKED_LENS, None, 32, 32, 64, None,
+             (torch.bfloat16, torch.float32)),
+            ("gqa_window", PACKED_LENS, None, 32, 8, 128, 512,
+             (torch.bfloat16,)),
+            ("cross_lengths", [1024, 512, 300, 76], [1600, 512, 700, 76],
+             32, 32, 64, None, (torch.bfloat16,)),
+            ("empty_segments", [1600, 0, 800, 600, 0, 400, 300, 200, 120,
+                                76, 0], None, 32, 32, 64, None,
+             (torch.bfloat16,))):
+        lens_k = lens_q if lens_k is None else lens_k
+        cu_q = torch.tensor([0] + list(_cumsum(lens_q)), dtype=torch.int32,
+                            device=dev)
+        cu_k = torch.tensor([0] + list(_cumsum(lens_k)), dtype=torch.int32,
+                            device=dev)
+        tq, tk = sum(lens_q), sum(lens_k)
+        pairs = int(segment_mask(cu_q, cu_k, tq, tk, True, window).sum())
+        for dtype in dtypes:
+            q = torch.randn(tq, h, d, generator=g, device=dev).to(dtype)
+            k = torch.randn(tk, hk, d, generator=g, device=dev).to(dtype)
+            v = torch.randn(tk, hk, d, generator=g, device=dev).to(dtype)
+            do = torch.randn(tq, h, d, generator=g, device=dev).to(dtype)
+            out, lse = ops.varlen_flash_attention(
+                q, k, v, cu_q, cu_k, causal=True, window_size=window,
+                return_lse=True)
+            delta = ops.varlen_flash_attention_bwd_delta(out, do)
+            e = q.element_size()
+            ddt = str(dtype).removeprefix("torch.")
+            common = dict(
+                dtype=dtype, primary=(label == "packed_941m"
+                                      and dtype == torch.bfloat16),
+                shape=f"{label}:lens_q={lens_q},lens_k={lens_k},H={h},"
+                      f"HK={hk},D={d},causal,window={window}",
+                library=_segment_library(torch, q, k, v, do, lens_q, lens_k,
+                                         window))
+            args = (q, k, v, do, lse, delta, cu_q, cu_k, True)
+
+            def plain(args=args, out=out, window=window):
+                q, k, v, do, lse, delta, cu_q, cu_k, causal = args
+                return ops.varlen_flash_attention_bwd_plain(
+                    q, k, v, out, lse, do, cu_q, cu_k, causal,
+                    window_size=window, delta=delta)
+            # bytes: q, do, dq (or k, v, dk, dv) and lse, delta once
+            nbytes = (3 * tq * h * d + 2 * tk * hk * d) * e + 8 * h * tq
+            yield dict(
+                name="varlen_flash_attention_bwd_dq",
+                kernel=lambda args=args, window=window:
+                    ops.varlen_flash_attention_bwd_dq(*args,
+                                                      window_size=window),
+                plain=lambda plain=plain: plain()[0],
+                bound=bound_ms(nbytes, 6.0 * d * pairs * h, ddt), **common)
+            nbytes = (2 * tq * h * d + 4 * tk * hk * d) * e + 8 * h * tq
+            yield dict(
+                name="varlen_flash_attention_bwd_dkv",
+                kernel=lambda args=args, window=window:
+                    ops.varlen_flash_attention_bwd_dkv(*args,
+                                                       window_size=window),
+                plain=lambda plain=plain: plain()[1:],
+                bound=bound_ms(nbytes, 8.0 * d * pairs * h, ddt), **common)
+
+
 def _cumsum(xs):
     t = 0
     for x in xs:
@@ -548,6 +686,12 @@ KERNELS = {
     "flash_attention_bwd_dkv": (
         "cuda", "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
         "paddle_tpu/ops/pallas/flash_attention.py:425"),
+    "varlen_flash_attention_bwd_dq": (
+        "cuda", "paddle_tpu_torch/csrc/varlen_flash_attention_bwd.cu",
+        "paddle_tpu/ops/pallas/varlen_flash_attention.py:336"),
+    "varlen_flash_attention_bwd_dkv": (
+        "cuda", "paddle_tpu_torch/csrc/varlen_flash_attention_bwd.cu",
+        "paddle_tpu/ops/pallas/varlen_flash_attention.py:376"),
 }
 # the kernels each main path must launch
 SERVING_KERNELS = ("rms_norm", "paged_decode_attention",
@@ -555,6 +699,8 @@ SERVING_KERNELS = ("rms_norm", "paged_decode_attention",
 GENERATE_KERNELS = ("rms_norm", "flash_attention", "decode_attention")
 TRAIN_KERNELS = ("rms_norm_bwd", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv")
+PACKED_KERNELS = ("varlen_flash_attention_bwd_dq",
+                  "varlen_flash_attention_bwd_dkv")
 
 
 def kernel_phase(torch, dev):
@@ -567,7 +713,8 @@ def kernel_phase(torch, dev):
                                 k4_cases(torch, g, dev),
                                 k5_cases(torch, g, dev),
                                 k6_cases(torch, g, dev),
-                                k7_cases(torch, g, dev)):
+                                k7_cases(torch, g, dev),
+                                k8_cases(torch, g, dev)):
         out = case["kernel"]()
         ref = case["plain"]()
         torch.cuda.synchronize()
@@ -575,7 +722,14 @@ def kernel_phase(torch, dev):
                              "flash_attention" in case["name"])
         ms, ms_timer = device_ms(torch, case["kernel"])
         plain_ms, plain_timer = device_ms(torch, case["plain"], iters=3)
-        lib_ms, lib_timer = device_ms(torch, case["library"])
+        # several library calls compute the same function: the fastest
+        # one is the yardstick, and the record says which
+        libs = case["library"]
+        if not isinstance(libs, dict):
+            libs = {"library": libs}
+        lib_times = {k: device_ms(torch, fn) for k, fn in libs.items()}
+        lib_call = min(lib_times, key=lambda k: lib_times[k][0])
+        lib_ms, lib_timer = lib_times[lib_call]
         rec = {"phase": "kernel_check", "name": case["name"],
                "dtype": str(case["dtype"]).removeprefix("torch."),
                "shape": case["shape"], "max_abs_err": err, "tol": tol,
@@ -585,11 +739,14 @@ def kernel_phase(torch, dev):
                           "library_ms": lib_timer},
                "event_ms": cuda_ms(torch, case["kernel"]),
                "bound_ms": case["bound"][0], "bound_by": case["bound"][1]}
+        if len(libs) > 1:
+            rec["library_call"] = lib_call
+            rec["library_calls_ms"] = {k: v[0] for k, v in lib_times.items()}
         emit(rec)
         check(ok, f"{case['name']} disagrees with its plain version: {rec}")
         if case["primary"]:
             primary[case["name"]] = rec
-        del out, ref
+        del out, ref, case, libs
     torch.cuda.empty_cache()
     return primary
 
@@ -705,6 +862,10 @@ def _kernel_family(name):
     for key, fam in (("rms_norm_kernel", "K1 rms_norm"),
                      ("rms_norm_bwd_kernel", "K6 rms_norm_bwd"),
                      ("rms_norm_dw_kernel", "K6 rms_norm_bwd"),
+                     ("varlen_bwd_dq_", "K8a varlen_flash_attention_bwd_dq"),
+                     ("varlen_bwd_dkv_",
+                      "K8b varlen_flash_attention_bwd_dkv"),
+                     ("varlen_bwd_order", "K8a/K8b tile order"),
                      ("bwd_dq_", "K7a flash_attention_bwd_dq"),
                      ("bwd_dkv_", "K7b flash_attention_bwd_dkv"),
                      ("PagedRows", "K2 paged_decode"),
@@ -1081,7 +1242,7 @@ def train_phase(torch, dev):
           "mfu_meter": res["mfu"], "losses": [float(x) for x in losses],
           "launches": launches, "model_init_s": init_s,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
-    train_profile(torch, step, ids)
+    train_profile(torch, step, ids, ids)
     unfused_loss1 = float(losses[0])
     del model, step, timed, stacked
     torch.cuda.empty_cache()
@@ -1106,7 +1267,7 @@ def train_phase(torch, dev):
     return launches
 
 
-def train_profile(torch, step, ids):
+def train_profile(torch, step, inputs, labels, label="train_step"):
     """Where one training step spends device time: torch.profiler over a
     single step, the optimizer update under its own record_function range
     (its kernels are elementwise ones that fall under "other" by name)."""
@@ -1124,11 +1285,11 @@ def train_profile(torch, step, ids):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(ids, ids)
+        step(inputs, labels)
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
     del opt.apply
-    rec = _profile_record(torch, prof, "train_step", wall_us,
+    rec = _profile_record(torch, prof, label, wall_us,
                           ranges=("optimizer_update",))
     # the kernels launched inside the range: its CPU children's, without
     # the range's own device-side annotation span
@@ -1192,6 +1353,205 @@ def train_parity_phase(torch, dev):
     check(loss_rel <= 1e-4, f"kernel and plain losses differ: {lk} {lp}")
 
 
+# ----------------------------------------------------------- phase 9, 10
+def _packed_cfg(torch, **overrides):
+    """The reference's packed configuration, ``scripts/bench_suite.py``'s
+    llama_941m_packed_varlen_train_mfu: hidden 2,048, intermediate 5,504,
+    16 layers, 32 heads (head dim 64), vocab 32,000, no recompute."""
+    from paddle_tpu_torch.nlp import LlamaConfig
+
+    cfg = dict(vocab_size=32000, hidden_size=2048, intermediate_size=5504,
+               num_hidden_layers=16, num_attention_heads=32,
+               max_position_embeddings=4096, tensor_parallel=False,
+               use_recompute=False, dtype="bfloat16")
+    cfg.update(overrides)
+    return LlamaConfig(**cfg)
+
+
+def _packed_setup(torch, dev, cfg, seed):
+    """The reference benchmark's packed training on the port: the model
+    wrapped as ``_Packed`` (``model(ids, cu)``), the unfused packed
+    criterion on f32 logits, AdamW with f32 master weights for a bf16
+    model (bf16 moments), weight decay 0.01, lr 1e-4, and the step."""
+    from paddle_tpu_torch.jit import JittedTrainStep
+    from paddle_tpu_torch.nlp import (LlamaForCausalLM,
+                                      LlamaPretrainingCriterion)
+    from paddle_tpu_torch.optimizer import AdamW
+
+    class Packed(torch.nn.Module):
+        def __init__(self, m):
+            super().__init__()
+            self.m = m
+
+        def forward(self, ids, cu):
+            return self.m(ids, cu_seqlens=cu)
+
+    model = Packed(LlamaForCausalLM(
+        cfg, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(seed)))
+    crit = LlamaPretrainingCriterion()
+    bf16 = cfg.dtype == "bfloat16"
+    opt = AdamW(1e-4, parameters=model.named_parameters(), weight_decay=0.01,
+                multi_precision=bf16,
+                moment_dtype="bfloat16" if bf16 else "float32")
+    step = JittedTrainStep(
+        model, lambda out, labels, cu: crit(out.float(), labels,
+                                            cu_seqlens=cu), opt)
+    return model, step
+
+
+def _packed_batches(torch, dev, vocab, n, lens):
+    """(n, 1, T) token rows and the (n, nseg + 1) int32 cu_seqlens stacked
+    beside them, as the reference's packed benchmark feeds ``run_steps``.
+    One seeded row (the reference's RandomState(1) draw) repeated, as
+    phase 7 repeats its batch: on fresh random rows a randomly initialised
+    model's loss only wanders around log(vocab), and a repeated row shows
+    the steps learn."""
+    import numpy as np
+
+    t = sum(lens)
+    ids = torch.from_numpy(np.random.RandomState(1).randint(
+        0, vocab, (1, 1, t))).to(dev)
+    cu = torch.tensor([0] + list(_cumsum(lens)), dtype=torch.int32,
+                      device=dev)
+    return (ids.expand(n, 1, t).contiguous(),
+            cu[None].expand(n, -1).contiguous())
+
+
+def packed_train_phase(torch, dev):
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.profiler import MFUMeter, transformer_train_flops
+
+    warm, steps, rsteps = PACKED_TRAIN_STEPS
+    cfg = _packed_cfg(torch)
+    layers = cfg.num_hidden_layers
+    t = sum(PACKED_LENS)
+    t0 = time.perf_counter()
+    model, step = _packed_setup(torch, dev, cfg, SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    ids, cu = _packed_batches(torch, dev, cfg.vocab_size, warm + steps,
+                              PACKED_LENS)
+    n_params = sum(p.numel() for p in model.parameters())
+    # attention FLOPs scale with sum(len^2): the reference folds them into
+    # an effective sequence length (bench_suite.py)
+    eff_seq = sum(ln * ln for ln in PACKED_LENS) / t
+    flops = transformer_train_flops(n_params, t, num_layers=layers,
+                                    seq_len=eff_seq, hidden=cfg.hidden_size,
+                                    causal=True)
+    torch.cuda.reset_peak_memory_stats()
+    losses = [step([ids[i], cu[i]], [ids[i], cu[i]]) for i in range(warm)]
+    ops.reset_launches()
+    meter = MFUMeter(flops * steps, t * steps)
+    timed = []
+    res = meter.measure(lambda: timed.append(step.run_steps(
+        [ids[warm:], cu[warm:]], [ids[warm:], cu[warm:]])), warmup=0,
+        iters=1)
+    launches = dict(ops.LAUNCHES)
+    per_step = {"rms_norm": 2 * layers + 1, "rms_norm_bwd": 2 * layers + 1,
+                "varlen_flash_attention": layers,
+                "varlen_flash_attention_bwd_dq": layers,
+                "varlen_flash_attention_bwd_dkv": layers}
+    want = {k: per_step.get(k, 0) * steps for k in launches}
+    check(launches == want,
+          f"packed train launches {launches}, expected {want}")
+    losses = torch.cat([torch.stack(losses), timed[0]]).float().cpu()
+    check(bool(torch.isfinite(losses).all()), f"non-finite loss: {losses}")
+    check(float(losses[-1]) < float(losses[0]),
+          f"the loss did not fall over {len(losses)} steps: {losses}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_s = res["step_time_s"] / steps
+    emit({"phase": "train_llama_941m_packed_bf16", "layers": layers,
+          "params": n_params, "segments": PACKED_LENS, "tokens": t,
+          "eff_seq": eff_seq, "warmup_steps": warm, "timed_steps": steps,
+          "step_ms": 1e3 * step_s, "train_tok_per_s": t / step_s,
+          "model_tflops_per_step": flops / 1e12,
+          "model_tflop_per_s": flops / step_s / 1e12,
+          "mfu_vs_989_tflops": flops / step_s / PEAK_FLOPS["bfloat16"],
+          "mfu_meter": res["mfu"], "losses": [float(x) for x in losses],
+          "launches": launches,
+          "launches_per_step": {k: v / steps for k, v in launches.items()},
+          "model_init_s": init_s, "peak_mem_gb": peak})
+    train_profile(torch, step, [ids[0], cu[0]], [ids[0], cu[0]],
+                  label="packed_train_step")
+    del model, step, timed
+    torch.cuda.empty_cache()
+
+    # the same configuration with full recompute, from the same weights
+    # and batches: the same losses, a lower peak, K1 and K3 run again
+    model, step = _packed_setup(
+        torch, dev, _packed_cfg(torch, use_recompute=True,
+                                recompute_granularity="full"), SEED)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    rlosses = step.run_steps([ids[:rsteps], cu[:rsteps]],
+                             [ids[:rsteps], cu[:rsteps]]).float().cpu()
+    torch.cuda.synchronize()
+    rlaunches = dict(ops.LAUNCHES)
+    rpeak = torch.cuda.max_memory_allocated() / 2 ** 30
+    per_step.update(rms_norm=4 * layers + 1, varlen_flash_attention=2 *
+                    layers)
+    rwant = {k: per_step.get(k, 0) * rsteps for k in rlaunches}
+    diff = float((rlosses - losses[:rsteps]).abs().max())
+    emit({"phase": "train_llama_941m_packed_bf16_recompute_full",
+          "steps": rsteps, "losses": [float(x) for x in rlosses],
+          "no_recompute_losses": [float(x) for x in losses[:rsteps]],
+          "losses_bit_equal": bool(torch.equal(rlosses, losses[:rsteps])),
+          "max_loss_diff": diff, "peak_mem_gb": rpeak,
+          "no_recompute_peak_mem_gb": peak, "launches": rlaunches,
+          "launches_per_step": {k: v / rsteps for k, v in rlaunches.items()}})
+    check(rlaunches == rwant,
+          f"recompute launches {rlaunches}, expected {rwant}")
+    check(diff <= 2.0 ** -7 * float(losses[:rsteps].abs().max()),
+          f"recompute losses {rlosses} part from {losses[:rsteps]}")
+    check(rpeak < peak, f"recompute peak {rpeak} GiB is not below {peak}")
+    del model, step
+    torch.cuda.empty_cache()
+    return launches
+
+
+def packed_parity_phase(torch, dev):
+    from paddle_tpu_torch import ops
+
+    lens, steps = PACKED_PARITY
+    cfg = _packed_cfg(torch, num_hidden_layers=2, dtype="float32")
+    ids, cu = _packed_batches(torch, dev, cfg.vocab_size, 1, lens)
+    inputs = [ids[0], cu[0]]
+    runs = []
+    for plain in (False, True):
+        model, step = _packed_setup(torch, dev, cfg, SEED + 4)
+        ops.reset_launches()
+        with (ops.plain_versions() if plain else contextlib.nullcontext()):
+            loss = step._criterion(model(*inputs), *inputs)
+            loss.backward()
+            grads = _grads(model)
+            model.zero_grad(set_to_none=True)
+            losses = [float(step(inputs, inputs)) for _ in range(steps)]
+        launches = dict(ops.LAUNCHES)
+        emit({"phase": "train_packed_parity_f32_2layer",
+              "path": "plain" if plain else "kernels", "segments": lens,
+              "losses": losses, "launches": launches})
+        if plain:
+            check(all(n == 0 for n in launches.values()),
+                  f"plain packed path launched a kernel: {launches}")
+        else:
+            check(all(launches[k] > 0 for k in PACKED_KERNELS + (
+                "rms_norm", "rms_norm_bwd", "varlen_flash_attention")),
+                  f"packed kernel path missed a kernel: {launches}")
+        runs.append((grads, losses))
+        del model, step, loss
+        torch.cuda.empty_cache()
+    (gk, lk), (gp, lp) = runs
+    worst = max(float((gk[n] - gp[n]).abs().max())
+                / max(float(gp[n].abs().max()), 1e-30) for n in gp)
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lk, lp))
+    emit({"phase": "train_packed_parity_f32_2layer",
+          "grad_worst_rel_to_max": worst, "loss_worst_rel": loss_rel})
+    check(worst <= 1e-5, f"packed kernel and plain grads differ: {worst}")
+    check(loss_rel <= 1e-6,
+          f"packed kernel and plain losses differ: {lk} {lp}")
+
+
 def main():
     import torch
 
@@ -1214,23 +1574,28 @@ def main():
     generate_parity_phase(torch, dev)
     train_launches = train_phase(torch, dev)
     train_parity_phase(torch, dev)
+    packed_launches = packed_train_phase(torch, dev)
+    packed_parity_phase(torch, dev)
+    paths = {"serving": launches, "generate": gen_launches,
+             "train": train_launches, "packed_train": packed_launches}
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
         rec = primary[name]
         path = ("serving" if name in SERVING_KERNELS else
-                "train" if name in TRAIN_KERNELS else "generate")
+                "train" if name in TRAIN_KERNELS else
+                "packed_train" if name in PACKED_KERNELS else "generate")
         kernels.append({
             "name": name, "route": route, "source": source,
-            "replaces": replaces,
-            "launches": {"serving": launches, "generate": gen_launches,
-                         "train": train_launches}[path][name],
+            "replaces": replaces, "launches": paths[path][name],
             "launches_path": path,
+            "launches_by_path": {k: v[name] for k, v in paths.items()},
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
             "event_ms": rec["event_ms"], "timers": rec["timers"],
-            "dtype": rec["dtype"],
-            "shape": rec["shape"]})
+            "dtype": rec["dtype"], "shape": rec["shape"],
+            **({"library_call": rec["library_call"]}
+               if "library_call" in rec else {})})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -8,7 +8,8 @@ kernels of ``paddle_tpu/ops/pallas`` become hand-written CUDA kernels under
 ``paddle_tpu_torch/ops``. Entry points run on ``cuda`` unless the caller
 passes ``device="cpu"``.
 """
-from . import inference, jit, nlp, nn, ops, optimizer, profiler, serving
+from . import (distributed, inference, jit, nlp, nn, ops, optimizer,
+               profiler, serving)
 from .inference import create_serving_engine
 from .jit import JittedTrainStep
 from .nlp import LlamaConfig, LlamaForCausalLM, LlamaPretrainingCriterion
@@ -16,7 +17,7 @@ from .serving import ServingEngine
 
 __version__ = "0.1.0"
 
-__all__ = ["inference", "jit", "nlp", "nn", "ops", "optimizer", "profiler",
+__all__ = ["distributed", "inference", "jit", "nlp", "nn", "ops", "optimizer", "profiler",
            "serving", "create_serving_engine", "LlamaConfig",
            "LlamaForCausalLM", "LlamaPretrainingCriterion",
            "JittedTrainStep", "ServingEngine"]

@@ -3,9 +3,10 @@
 // tile sizes, the live band of (query, key) pairs (bottom-right causal,
 // sliding window, keys past sk), and the bf16 tensor-core building blocks
 // (`mma.sync` m16n8k16 with f32 accumulation, `ldmatrix.trans`, 16-byte
-// `cp.async` tile staging). Keeping the band logic in one place keeps the
-// forward and the backward from ever disagreeing on which pairs are live
-// (the TPU kernels share `_run_full` for the same reason).
+// `cp.async` tile staging, and the backward's fragment helpers, which the
+// varlen backward K8a/K8b shares). Keeping the band logic in one place
+// keeps the forward and the backward from ever disagreeing on which pairs
+// are live (the TPU kernels share `_run_full` for the same reason).
 #pragma once
 
 #include "common.cuh"
@@ -125,6 +126,72 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
     cp_async16(dst + r * LD + c,
                ok ? src + static_cast<size_t>(row0 + r) * stride + c : src,
                ok);
+  }
+}
+
+// Fragment helpers of the backward kernels (K7a/K7b here, K8a/K8b in
+// varlen_flash_attention_bwd.cu): each warp owns 16 rows of a 64-row tile,
+// thread (g = lane / 4, tig = lane % 4) rows g and g + 8.
+
+// 4-byte global -> shared copy, zeros when !pred.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(pred ? 4 : 0));
+}
+
+// The A fragment (16 x 16, rows of the warp) at column block kk of a
+// shared tile; `w` points at row (warp * 16 + g), column tig * 2.
+template <int LD>
+__device__ __forceinline__ void a_frag(uint32_t* a,
+                                       const __nv_bfloat16* w, int kk) {
+  a[0] = lds32(w + kk * 16);
+  a[1] = lds32(w + 8 * LD + kk * 16);
+  a[2] = lds32(w + kk * 16 + 8);
+  a[3] = lds32(w + 8 * LD + kk * 16 + 8);
+}
+
+// Re-pack accumulator columns [16 kk, 16 kk + 16) as a bf16 A fragment.
+__device__ __forceinline__ void pack_a(uint32_t* a, float (*c)[4], int kk) {
+  a[0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
+  a[1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
+  a[2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
+  a[3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
+}
+
+// acc (16 x D) += a (16 x 16) * B, B the 16 rows [16 kk, 16 kk + 16) of a
+// shared tile read along its rows (ldmatrix.trans).
+template <int D, int LD>
+__device__ __forceinline__ void mma_rows(float (*acc)[4], const uint32_t* a,
+                                         const __nv_bfloat16* tile, int kk,
+                                         int lane) {
+  const __nv_bfloat16* r =
+      tile + (kk * 16 + (lane & 15)) * LD + (lane >> 4) * 8;
+#pragma unroll
+  for (int nd = 0; nd < D / 8; nd += 2) {
+    uint32_t bf[4];
+    ldmatrix_x4_trans(bf, r + nd * 8);
+    mma_bf16(acc[nd], a, bf[0], bf[1]);
+    mma_bf16(acc[nd + 1], a, bf[2], bf[3]);
+  }
+}
+
+// Write a warp's 16 x D accumulator rows (r0, r0 + 8) in bf16; `base` is
+// row 0 of the output, rows `stride` apart.
+template <int D>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* base,
+                                           size_t stride, float (*acc)[4],
+                                           int r0, int limit, int tig) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = r0 + half * 8;
+    if (r >= limit) continue;
+    __nv_bfloat16* dst = base + static_cast<size_t>(r) * stride + tig * 2;
+#pragma unroll
+    for (int nd = 0; nd < D / 8; ++nd)
+      *reinterpret_cast<__nv_bfloat162*>(dst + nd * 8) =
+          __floats2bfloat162_rn(acc[nd][2 * half], acc[nd][2 * half + 1]);
   }
 }
 

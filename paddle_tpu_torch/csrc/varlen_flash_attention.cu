@@ -19,7 +19,10 @@
 // in 64-key tiles. Per tile it first computes the segment-id / relative-
 // position mask from indices alone and skips the tile with no live pair
 // before loading any K/V byte (the TPU kernel's run map, built in-kernel
-// here instead of by XLA). Online softmax statistics stay in f32.
+// here instead of by XLA). Online softmax statistics stay in f32. The
+// segment logic (live pairs, key ranges, tile tests) lives in
+// varlen_seg.cuh, shared with the backward kernels K8a/K8b; rows at or
+// past cu_seqlens_q[-1] are padding, see nothing and write zeros.
 // - bf16: the products run on the tensor cores (WMMA 16x16x16, bf16
 //   operands, f32 accumulation). Each of the 4 warps owns 16 query rows;
 //   scores go through shared memory for the masked online softmax, P is
@@ -31,8 +34,10 @@
 
 #include "common.cuh"
 #include "flash_f32.cuh"
+#include "varlen_seg.cuh"
 
 using namespace ptt;
+using namespace ptt::varlen;
 namespace wmma = nvcuda::wmma;
 
 namespace {
@@ -40,100 +45,10 @@ namespace {
 constexpr int kBQ = 64;  // query rows per CTA
 constexpr int kBK = 64;  // keys per tile
 constexpr int kDMax = 128;
-static_assert(kBQ == kBK && kBQ == flash_f32::kBQ && kBK == flash_f32::kBK,
-              "copy_tile copies 64-row tiles; the f32 path shares the tiles");
-
-// Segment of packed position pos (0 <= pos < cu[nseg]): the largest s with
-// cu[s] <= pos, which is searchsorted(cu[1:], pos, side="right").
-__device__ __forceinline__ int find_seg(const int* __restrict__ cu, int nseg,
-                                        int pos) {
-  int lo = 0, hi = nseg - 1;
-  while (lo < hi) {
-    const int mid = (lo + hi + 1) >> 1;
-    if (cu[mid] <= pos)
-      lo = mid;
-    else
-      hi = mid - 1;
-  }
-  return lo;
-}
-
-__device__ __forceinline__ bool live_pair(int qs, int qr, int ks, int kr,
-                                          int causal, int window) {
-  if (qs != ks || qs < 0) return false;
-  if (causal) {
-    if (qr < kr) return false;
-    if (window > 0 && kr <= qr - window) return false;
-  }
-  return true;
-}
-
-// Segment id and bottom-right relative position of the CTA's query rows
-// (padding rows get ids no key has).
-__device__ void query_rows(const int* __restrict__ cu_q,
-                           const int* __restrict__ cu_k, int nseg, int tq,
-                           int q0, int* qseg, int* qrel) {
-  for (int r = threadIdx.x; r < kBQ; r += blockDim.x) {
-    const int qi = q0 + r;
-    if (qi < tq) {
-      const int s = find_seg(cu_q, nseg, qi);
-      qseg[r] = s;
-      qrel[r] = qi - cu_q[s] + (cu_k[s + 1] - cu_k[s]) - (cu_q[s + 1] - cu_q[s]);
-    } else {
-      qseg[r] = -1;
-      qrel[r] = -(1 << 30);
-    }
-  }
-}
-
-// The contiguous key range [lo, hi) the CTA's rows can see: their
-// segments' keys, cut at the last row's causal diagonal and the first
-// row's window edge (keys of the segments in between all stay inside).
-__device__ void key_range(const int* __restrict__ cu_k, int tq, int tk,
-                          int q0, const int* qseg, const int* qrel,
-                          int causal, int window, int* range) {
-  const int last = min(q0 + kBQ, tq) - 1 - q0;
-  const int s_lo = qseg[0];
-  const int s_hi = qseg[last];
-  int lo = cu_k[s_lo];
-  int hi = cu_k[s_hi + 1];
-  if (causal) {
-    const int diag = cu_k[s_hi] + qrel[last] + 1;
-    hi = min(hi, max(diag, s_hi > s_lo ? cu_k[s_hi] : 0));
-    if (window > 0) {
-      const int edge = cu_k[s_lo] + qrel[0] - window + 1;
-      lo = max(lo, s_hi > s_lo ? min(edge, cu_k[s_lo + 1]) : edge);
-    }
-  }
-  range[0] = lo;
-  range[1] = min(hi, tk);
-}
-
-// Segment ids / relative positions of one key tile; returns (to every
-// thread of the CTA) whether any (query, key) pair of the tile is live.
-__device__ bool key_tile(const int* __restrict__ cu_k, int nseg, int k0,
-                         int khi, const int* qseg, const int* qrel,
-                         int* kseg, int* krel, int causal, int window) {
-  for (int c = threadIdx.x; c < kBK; c += blockDim.x) {
-    const int kj = k0 + c;
-    if (kj < khi) {
-      const int s = find_seg(cu_k, nseg, kj);
-      kseg[c] = s;
-      krel[c] = kj - cu_k[s];
-    } else {
-      kseg[c] = -2;
-      krel[c] = 1 << 30;
-    }
-  }
-  __syncthreads();
-  bool any = false;
-  for (int idx = threadIdx.x; idx < kBQ * kBK; idx += blockDim.x) {
-    const int r = idx / kBK;
-    const int c = idx - r * kBK;
-    any |= live_pair(qseg[r], qrel[r], kseg[c], krel[c], causal, window);
-  }
-  return __syncthreads_or(any);
-}
+static_assert(kBQ == kBK && kBQ == flash_f32::kBQ && kBK == flash_f32::kBK &&
+                  kBQ == kTile,
+              "copy_tile copies 64-row tiles; the f32 path and varlen_seg.cuh "
+              "share the tiles");
 
 // ------------------------------------------------------------------ bf16
 // Tensor-core path. Shared memory (bytes): Q, K, V tiles bf16 with rows

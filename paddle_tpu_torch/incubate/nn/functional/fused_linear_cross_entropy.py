@@ -7,16 +7,28 @@ gradient ``softmax - onehot`` (0 on ignored rows, cast to the hidden
 states' dtype) into ``dh`` and an f32 ``dW``. The backward only scales
 them by ``g / count``. Peak logits memory is ``chunk_rows * V`` instead of
 ``N * V``. The reference's products have no Pallas kernel (XLA runs
-them); here they are ``torch.matmul``. The logits come out of the product
-in the hidden states' dtype before the f32 softmax, as the unfused
-criterion sees them (a bf16 lm-head returns bf16 logits); each chunk's
-``dW`` product is summed into the f32 accumulator.
+them); here they are cuBLAS / CPU matrix products. As in the reference
+(``preferred_element_type=float32``), each chunk's logits and its ``dW``
+product are formed in f32 from the operands in their own dtype: on CUDA
+one bf16 product with an f32 output (``torch.mm(..., out_dtype=
+torch.float32)``), elsewhere a product of operands upcast to f32 (exact:
+a bf16 value is an f32 value). The ``dW`` products are summed in an f32
+accumulator; ``dh`` is the product rounded to the hidden states' dtype.
 """
 from __future__ import annotations
 
 import torch
 
 __all__ = ["fused_linear_cross_entropy"]
+
+
+def _mm_f32(a, b):
+    """``a @ b`` formed in f32 from operands of one dtype."""
+    if a.dtype == torch.float32:
+        return torch.mm(a, b)
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return torch.mm(a.float(), b.float())
 
 
 class _FusedLinearCrossEntropy(torch.autograd.Function):
@@ -31,7 +43,7 @@ class _FusedLinearCrossEntropy(torch.autograd.Function):
               if bias is not None else None)
         for c0 in range(0, n, chunk_rows):
             hc, yc = h[c0:c0 + chunk_rows], y[c0:c0 + chunk_rows]
-            logits = torch.matmul(hc, weight.t()).float()
+            logits = _mm_f32(hc, weight.t())
             if bias is not None:
                 logits = logits + bias.float()
             lse = torch.logsumexp(logits, dim=-1)
@@ -47,8 +59,8 @@ class _FusedLinearCrossEntropy(torch.autograd.Function):
             if db is not None:
                 db += p.sum(dim=0)
             p = p.to(h.dtype)
-            dh[c0:c0 + chunk_rows] = torch.matmul(p, weight)
-            dw += torch.matmul(p.t(), hc).float()
+            dh[c0:c0 + chunk_rows] = _mm_f32(p, weight)
+            dw += _mm_f32(p.t(), hc)
         count = count.clamp_min(1.0)
         # the unscaled gradients are residuals of this op, not inputs
         ctx.grads = (dh, dw, db, count)

@@ -2,10 +2,10 @@
 from .convert import load_paddle_tpu_arrays, paddle_tpu_arrays_to_port
 from .llama import (LlamaAttention, LlamaConfig, LlamaDecoderLayer,
                     LlamaForCausalLM, LlamaMLP, LlamaModel,
-                    LlamaPretrainingCriterion)
+                    LlamaPretrainingCriterion, packed_position_ids)
 from .paged_cache import PagedKVCachePool
 
 __all__ = ["LlamaConfig", "LlamaAttention", "LlamaMLP", "LlamaDecoderLayer",
            "LlamaModel", "LlamaForCausalLM", "LlamaPretrainingCriterion",
-           "PagedKVCachePool", "load_paddle_tpu_arrays",
-           "paddle_tpu_arrays_to_port"]
+           "packed_position_ids", "PagedKVCachePool",
+           "load_paddle_tpu_arrays", "paddle_tpu_arrays_to_port"]

@@ -9,12 +9,17 @@ and serial, give the same keys and shapes, so one port covers both.
 
 Attention without a cache runs through ``F.scaled_dot_product_attention``
 (dense) or ``F.sliding_window_attention`` (windowed), both the flash
-kernel K4 with K7a/K7b as its backward; with a contiguous cache, windowed
-prefill runs K4 and a single decoded token the decode kernel K5; RMSNorm
-runs K1 with K6 as its backward. Training: ``LlamaPretrainingCriterion``
-here, the step in ``jit/train.py``. Generation over the cache lives in
-``nlp/generation.py``; the serving path (paged KV pool) in
-``serving/engine.py`` and ``incubate/nn/functional``.
+kernel K4 with K7a/K7b as its backward; packed training (``cu_seqlens``,
+one (1, T) row of segments, rotary positions restarting per segment)
+through ``F.flash_attn_unpadded``, the varlen kernel K3 with K8a/K8b as
+its backward; with a contiguous cache, windowed prefill runs K4 and a
+single decoded token the decode kernel K5; RMSNorm runs K1 with K6 as its
+backward. Training: ``LlamaPretrainingCriterion`` here (unpacked and
+packed), the step in ``jit/train.py``, recompute at the reference's four
+granularities through ``distributed/fleet/utils/recompute.py``.
+Generation over the cache lives in ``nlp/generation.py``; the serving
+path (paged KV pool) in ``serving/engine.py`` and
+``incubate/nn/functional``.
 """
 from __future__ import annotations
 
@@ -24,13 +29,15 @@ import torch
 from torch import nn
 
 from .._device import resolve_device
+from ..distributed.fleet.utils.recompute import recompute, should_remat_layer
 from ..nn import functional as F
 from ..nn.functional.rope import apply_rotary_emb, build_rope_cache
 from ..nn.layer.norm import RMSNorm
 from ..ops.decode_attention import decode_attention
 
 __all__ = ["LlamaConfig", "LlamaAttention", "LlamaMLP", "LlamaDecoderLayer",
-           "LlamaModel", "LlamaForCausalLM", "LlamaPretrainingCriterion"]
+           "LlamaModel", "LlamaForCausalLM", "LlamaPretrainingCriterion",
+           "packed_position_ids"]
 
 # the dtypes the port's kernels take
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -125,8 +132,6 @@ class LlamaConfig:
 def _check_ported(config):
     """Refuse the options whose code paths belong to later slices."""
     later = {
-        "use_recompute": ("recompute",
-                          "ROADMAP A11, after packed pretraining"),
         "context_parallel": ("context parallelism", "ROADMAP A12"),
     }
     for field, (what, item) in later.items():
@@ -152,12 +157,16 @@ class LlamaAttention(nn.Module):
         self.v_proj = nn.Linear(config.hidden_size, hk * d, bias=bias, **kw)
         self.o_proj = nn.Linear(h * d, config.hidden_size, bias=False, **kw)
 
-    def forward(self, hidden, position_offset=0, cache=None):
+    def forward(self, hidden, position_offset=0, cache=None,
+                cu_seqlens=None, position_ids=None):
         """Returns ``(out, cache)``. ``cache`` is a ``(k, v)`` pair of
         (B, S_max, HK, D) tensors holding ``position_offset`` tokens; this
         call's K/V are written into it IN PLACE (the reference returns new
         arrays) and the same pair is returned. A sliding-window model
-        uses it as a rolling buffer (writes wrap at S_max)."""
+        uses it as a rolling buffer (writes wrap at S_max). Packed
+        training passes ``cu_seqlens`` (int32 prefix sums of the segments
+        of the (1, T) row) and ``position_ids`` (1, T), the rotary
+        positions restarting per segment (:func:`packed_position_ids`)."""
         b, s, _ = hidden.shape
         h, hk, d = self.num_heads, self.num_kv_heads, self.head_dim
         q = self.q_proj(hidden).view(b, s, h, d)
@@ -166,10 +175,19 @@ class LlamaAttention(nn.Module):
         cos, sin = build_rope_cache(s, d, base=self.config.rope_theta,
                                     position_offset=position_offset,
                                     device=hidden.device)
-        q = apply_rotary_emb(q, cos, sin)
-        k = apply_rotary_emb(k, cos, sin)
+        q = apply_rotary_emb(q, cos, sin, position_ids=position_ids)
+        k = apply_rotary_emb(k, cos, sin, position_ids=position_ids)
         window = self.config.sliding_window
-        if cache is not None:
+        if cu_seqlens is not None:
+            # packed segments, (B=1, T): attention never crosses a segment
+            # and the window applies per segment
+            t = b * s
+            out, _ = F.flash_attn_unpadded(
+                q.reshape(t, h, d), k.reshape(t, hk, d), v.reshape(t, hk, d),
+                cu_seqlens, cu_seqlens, s, s, scale=1.0 / math.sqrt(d),
+                causal=True, window_size=window or None)
+            out = out.reshape(b, s, h, d)
+        elif cache is not None:
             if window and s > 1:
                 # windowed prefill attends the call's own keys through the
                 # banded kernel (every query's band lies inside this call
@@ -190,6 +208,12 @@ class LlamaAttention(nn.Module):
         else:
             out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
         return self.o_proj(out.reshape(b, s, h * d)), cache
+
+    def forward_no_cache(self, hidden, position_offset=0, cu_seqlens=None,
+                         position_ids=None):
+        """Single-output variant for the recompute wrapper (core_attn)."""
+        return self.forward(hidden, position_offset, None, cu_seqlens,
+                            position_ids)[0]
 
     def _update_cache(self, k, v, cache, position_offset):
         """Write this call's K/V into the cache pair in place."""
@@ -286,11 +310,38 @@ class LlamaDecoderLayer(nn.Module):
             config.hidden_size, epsilon=config.rms_norm_eps, **kw)
         self.mlp = LlamaMLP(config, **kw)
 
-    def forward(self, hidden, position_offset=0, cache=None):
-        attn_out, cache = self.self_attn(self.input_layernorm(hidden),
-                                         position_offset, cache)
+    def forward(self, hidden, position_offset=0, cache=None,
+                cu_seqlens=None, position_ids=None):
+        cfg = self.config
+        # full_attn / core_attn recompute only the attention sublayer (its
+        # score intermediates), keeping the MLP activations resident
+        if (cfg.use_recompute and cache is None
+                and cfg.recompute_granularity in ("full_attn", "core_attn")):
+            attn_out = recompute(self.self_attn.forward_no_cache,
+                                 self.input_layernorm(hidden),
+                                 position_offset, cu_seqlens, position_ids)
+        else:
+            attn_out, cache = self.self_attn(self.input_layernorm(hidden),
+                                             position_offset, cache,
+                                             cu_seqlens, position_ids)
         hidden = hidden + attn_out
         return hidden + self.mlp(self.post_attention_layernorm(hidden)), cache
+
+    def forward_no_cache(self, hidden, position_offset=0, cu_seqlens=None,
+                         position_ids=None):
+        """Single-output variant for the recompute wrapper."""
+        return self.forward(hidden, position_offset, None, cu_seqlens,
+                            position_ids)[0]
+
+
+def packed_position_ids(cu_seqlens, total_tokens):
+    """Per-token rotary positions of a packed (1, T) row: they restart at
+    every ``cu_seqlens`` boundary. Returns a (1, T) int64 tensor on
+    ``cu_seqlens``' device."""
+    cu = cu_seqlens.long()
+    t = torch.arange(total_tokens, device=cu.device)
+    seg = torch.searchsorted(cu, t, right=True) - 1
+    return (t - cu[seg])[None, :]
 
 
 class LlamaModel(nn.Module):
@@ -306,14 +357,39 @@ class LlamaModel(nn.Module):
         self.norm = RMSNorm(config.hidden_size, epsilon=config.rms_norm_eps,
                             **kw)
 
-    def forward(self, input_ids, position_offset=0, caches=None):
+    def forward(self, input_ids, position_offset=0, caches=None,
+                cu_seqlens=None):
         """Returns ``(hidden, new_caches)``; ``new_caches`` is None without
-        caches."""
+        caches. ``cu_seqlens`` ((nseg + 1,) prefix sums) packs the segments
+        of a (1, T) row; it excludes caches."""
         hidden = self.embed_tokens(input_ids)
+        position_ids = None
+        if cu_seqlens is not None:
+            if caches is not None:
+                raise ValueError(
+                    "packed cu_seqlens training and KV caches are "
+                    "mutually exclusive (serving uses the paged path)")
+            if input_ids.shape[0] != 1:
+                raise ValueError(
+                    f"packed cu_seqlens training expects the (1, T) "
+                    f"packed layout, got batch {input_ids.shape[0]}")
+            cu_seqlens = torch.as_tensor(cu_seqlens, device=hidden.device,
+                                         dtype=torch.int32)
+            position_ids = packed_position_ids(cu_seqlens,
+                                               input_ids.shape[1])
         new_caches = [] if caches is not None else None
         for i, layer in enumerate(self.layers):
-            hidden, cache = layer(hidden, position_offset,
-                                  caches[i] if caches is not None else None)
+            cache = caches[i] if caches is not None else None
+            # full_attn / core_attn recompute inside the layer; full and
+            # selective wrap the whole block, only without caches
+            if caches is None and should_remat_layer(
+                    self.config, i, allowed=("full", "full_attn",
+                                             "core_attn", "selective")):
+                hidden = recompute(layer.forward_no_cache, hidden,
+                                   position_offset, cu_seqlens, position_ids)
+            else:
+                hidden, cache = layer(hidden, position_offset, cache,
+                                      cu_seqlens, position_ids)
             if new_caches is not None:
                 new_caches.append(cache)
         return self.norm(hidden), new_caches
@@ -362,12 +438,11 @@ class LlamaForCausalLM(nn.Module):
         ``position_offset`` tokens) returns ``(logits, new_caches)``. With
         ``config.fuse_linear_cross_entropy`` and no caches it returns the
         final hidden states: the lm-head product happens inside
-        :class:`LlamaPretrainingCriterion`'s chunked fused loss."""
-        if cu_seqlens is not None:
-            raise NotImplementedError(
-                "packed cu_seqlens training is not ported yet (ROADMAP "
-                "A3/A11, next slice: packed pretraining with K8a/K8b)")
-        hidden, new_caches = self.llama(input_ids, position_offset, caches)
+        :class:`LlamaPretrainingCriterion`'s chunked fused loss.
+        ``cu_seqlens`` packs segments into the (1, T) row (packed
+        training; see :meth:`LlamaModel.forward`)."""
+        hidden, new_caches = self.llama(input_ids, position_offset, caches,
+                                        cu_seqlens)
         if self.config.fuse_linear_cross_entropy and caches is None:
             return hidden
         logits = self.lm_head(hidden)
@@ -399,13 +474,25 @@ class LlamaForCausalLM(nn.Module):
                 for _ in range(cfg.num_hidden_layers)]
 
 
+def _same_segment(cu_seqlens, n):
+    """(n,) bool: position i and i + 1 of a packed row lie in one segment
+    (the shifted target of a segment's last token is the next segment's
+    first token, which packed training must not predict)."""
+    cu = cu_seqlens.to(torch.long)
+    pos = torch.arange(n, device=cu.device)
+    return (torch.searchsorted(cu, pos, right=True)
+            == torch.searchsorted(cu, pos + 1, right=True))
+
+
 class LlamaPretrainingCriterion(nn.Module):
-    """Shifted next-token cross entropy (the reference's criterion, its
-    unpacked paths). With ``config.fuse_linear_cross_entropy`` the model
-    returns the final hidden states and this criterion applies the chunked
-    fused lm-head + loss; ``lm_head`` must then be passed, and is kept as a
-    plain attribute, not a submodule, so its weight registers only on the
-    model."""
+    """Shifted next-token cross entropy (the reference's criterion). With
+    ``config.fuse_linear_cross_entropy`` the model returns the final
+    hidden states and this criterion applies the chunked fused lm-head +
+    loss; ``lm_head`` must then be passed, and is kept as a plain
+    attribute, not a submodule, so its weight registers only on the
+    model. With ``cu_seqlens`` (a packed (1, T) row) the positions whose
+    target lies in the next segment leave the mean (unfused) or become
+    ``ignore_index`` (fused)."""
 
     def __init__(self, config=None, lm_head=None):
         super().__init__()
@@ -416,12 +503,17 @@ class LlamaPretrainingCriterion(nn.Module):
         object.__setattr__(self, "_lm_head", lm_head)
 
     def forward(self, logits, labels, cu_seqlens=None):
-        if cu_seqlens is not None:
-            raise NotImplementedError(
-                "the packed cu_seqlens criterion is not ported yet (ROADMAP "
-                "A3/A11, next slice: packed pretraining with K8a/K8b)")
         shifted = logits[:, :-1, :]
         targets = labels[:, 1:]
+        same = None
+        if cu_seqlens is not None:
+            if logits.shape[0] != 1:
+                raise ValueError(
+                    f"packed cu_seqlens criterion expects batch 1 (packed "
+                    f"(1, T) layout), got batch {logits.shape[0]}")
+            same = _same_segment(
+                torch.as_tensor(cu_seqlens, device=logits.device),
+                targets.shape[1])
         if self._fuse:
             if self._lm_head is None:
                 raise ValueError(
@@ -429,8 +521,15 @@ class LlamaPretrainingCriterion(nn.Module):
                     "LlamaPretrainingCriterion(config, lm_head=model.lm_head)")
             from ..incubate.nn.functional import fused_linear_cross_entropy
 
+            if same is not None:
+                targets = torch.where(same[None, :], targets, -100)
             return fused_linear_cross_entropy(
                 shifted, self._lm_head.weight, targets,
                 bias=self._lm_head.bias, chunk_rows=self._lce_chunk_rows)
-        return F.cross_entropy(shifted.reshape(-1, shifted.shape[-1]),
-                               targets.reshape(-1))
+        flat = shifted.reshape(-1, shifted.shape[-1])
+        if same is None:
+            return F.cross_entropy(flat, targets.reshape(-1))
+        per_tok = F.cross_entropy(flat, targets.reshape(-1),
+                                  reduction="none")
+        mask = same.to(per_tok.dtype)
+        return (per_tok * mask).sum() / mask.sum().clamp_min(1.0)

@@ -7,7 +7,9 @@ a mask or dropout, attention goes through
 forward, K7a/K7b backward on CUDA tensors; their plain versions on CPU
 tensors), as the reference routes to its Pallas flash kernel. An
 ``attn_mask`` or dropout takes the plain :func:`_xla_attention`, as the
-reference sends them to XLA.
+reference sends them to XLA. Packed (cu_seqlens) attention,
+:func:`flash_attn_unpadded`, goes through ``VarlenFlashAttentionFunction``
+(``ops/varlen_flash_attention.py``: K3 forward, K8a/K8b backward).
 """
 from __future__ import annotations
 
@@ -16,9 +18,10 @@ import math
 import torch
 
 from ...ops.flash_attention import FlashAttentionFunction, band_mask
+from ...ops.varlen_flash_attention import VarlenFlashAttentionFunction
 
 __all__ = ["scaled_dot_product_attention", "flash_attention",
-           "sliding_window_attention"]
+           "flash_attn_unpadded", "sliding_window_attention"]
 
 
 def _xla_attention(q, k, v, mask=None, causal=False, dropout_p=0.0,
@@ -83,4 +86,34 @@ def flash_attention(query, key, value, dropout=0.0, causal=False,
     ``(out, None)`` (no softmax is materialized)."""
     out = scaled_dot_product_attention(query, key, value, None, dropout,
                                        causal, training, generator=generator)
+    return out, None
+
+
+def flash_attn_unpadded(query, key, value, cu_seqlens_q, cu_seqlens_k,
+                        max_seqlen_q, max_seqlen_k, scale, dropout=0.0,
+                        causal=False, return_softmax=False,
+                        fixed_seed_offset=None, rng_name="", training=True,
+                        window_size=None, name=None):
+    """Varlen flash attention over packed ``(total_tokens, H, D)`` inputs
+    with ``cu_seqlens`` prefix sums (int32, on the inputs' device); returns
+    ``(out, None)``. Runs :class:`VarlenFlashAttentionFunction`: the
+    kernels K3 / K8a / K8b on CUDA tensors, their plain versions on CPU
+    tensors. ``window_size`` (causal only) applies the sliding-window band
+    per segment. Dropout in training is not ported: the reference sends it
+    to XLA's masked attention, outside the kernel."""
+    if window_size is not None:
+        if not causal:
+            raise ValueError(
+                "flash_attn_unpadded: window_size requires causal=True")
+        if window_size < 1:
+            raise ValueError(
+                f"flash_attn_unpadded: window_size must be >= 1, got "
+                f"{window_size}")
+    if dropout > 0.0 and training:
+        raise NotImplementedError(
+            "flash_attn_unpadded with dropout in training is not ported "
+            "(the reference leaves the varlen kernel for XLA there)")
+    out = VarlenFlashAttentionFunction.apply(
+        query, key, value, cu_seqlens_q, cu_seqlens_k, causal, scale,
+        window_size)
     return out, None

@@ -4,7 +4,12 @@ and plain PyTorch version.
 - K1 ``rms_norm`` and K6 ``rms_norm_bwd`` (csrc/rms_norm.cu), joined by
   ``RMSNormFunction``
 - K2 ``paged_decode_attention`` (csrc/paged_attention.cu)
-- K3 ``varlen_flash_attention`` (csrc/varlen_flash_attention.cu)
+- K3 ``varlen_flash_attention`` forward (csrc/varlen_flash_attention.cu),
+  K8a ``varlen_flash_attention_bwd_dq`` and K8b
+  ``varlen_flash_attention_bwd_dkv`` (csrc/varlen_flash_attention_bwd.cu,
+  both run by ``varlen_flash_attention_bwd``), joined by
+  ``VarlenFlashAttentionFunction``; the segment logic they share is
+  csrc/varlen_seg.cuh
 - K4 ``flash_attention`` forward (csrc/flash_attention.cu), K7a
   ``flash_attention_bwd_dq`` and K7b ``flash_attention_bwd_dkv``
   (csrc/flash_attention_bwd.cu, both run by ``flash_attention_bwd``),
@@ -22,7 +27,13 @@ from .paged_attention import (paged_cache_write, paged_decode_attention,
                               paged_decode_attention_plain)
 from .rms_norm import (RMSNormFunction, rms_norm, rms_norm_bwd,
                        rms_norm_bwd_plain, rms_norm_plain)
-from .varlen_flash_attention import (varlen_flash_attention,
+from .varlen_flash_attention import (VarlenFlashAttentionFunction,
+                                     varlen_flash_attention,
+                                     varlen_flash_attention_bwd,
+                                     varlen_flash_attention_bwd_delta,
+                                     varlen_flash_attention_bwd_dkv,
+                                     varlen_flash_attention_bwd_dq,
+                                     varlen_flash_attention_bwd_plain,
                                      varlen_flash_attention_plain)
 
 __all__ = [
@@ -31,6 +42,9 @@ __all__ = [
     "RMSNormFunction", "paged_decode_attention",
     "paged_decode_attention_plain", "paged_cache_write",
     "varlen_flash_attention", "varlen_flash_attention_plain",
+    "varlen_flash_attention_bwd", "varlen_flash_attention_bwd_dq",
+    "varlen_flash_attention_bwd_dkv", "varlen_flash_attention_bwd_delta",
+    "varlen_flash_attention_bwd_plain", "VarlenFlashAttentionFunction",
     "flash_attention", "flash_attention_plain", "flash_attention_bwd",
     "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
     "flash_attention_bwd_delta", "flash_attention_bwd_plain",

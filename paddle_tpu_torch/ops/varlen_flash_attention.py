@@ -19,11 +19,16 @@ import torch
 from . import _library as L
 
 __all__ = ["varlen_flash_attention", "varlen_flash_attention_plain",
-           "segment_mask"]
+           "segment_mask", "varlen_flash_attention_bwd",
+           "varlen_flash_attention_bwd_dq", "varlen_flash_attention_bwd_dkv",
+           "varlen_flash_attention_bwd_delta",
+           "varlen_flash_attention_bwd_plain", "VarlenFlashAttentionFunction"]
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_HEAD_DIM = 128
+_BWD_HEAD_DIMS = (64, 128)
+_TILE = 64  # rows per tile of the backward kernels (their order scratch)
 
 
 def segment_mask(cu_seqlens_q, cu_seqlens_k, tq, tk, causal, window=None):
@@ -112,8 +117,9 @@ def varlen_flash_attention(q, k, v, cu_seqlens_q, cu_seqlens_k,
             window_size)
         return (out, lse) if return_lse else out
     L.refuse_grad("varlen_flash_attention",
-                  "ROADMAP A11: the varlen backward K8a/K8b comes with packed "
-                  "pretraining", q, k, v)
+                  "its backward K8a/K8b runs through "
+                  "VarlenFlashAttentionFunction, or F.flash_attn_unpadded",
+                  q, k, v)
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(
             f"varlen_flash_attention kernel takes float32 or bfloat16 q, k, "
@@ -143,3 +149,190 @@ def varlen_flash_attention(q, k, v, cu_seqlens_q, cu_seqlens_k,
     L.check_status("varlen_flash_attention", status)
     L.LAUNCHES["varlen_flash_attention"] += 1
     return (out, lse) if return_lse else out
+
+
+def varlen_flash_attention_bwd_delta(out, do):
+    """``delta = rowsum(do * out)`` in f32, (H, total_q): the backward's
+    per-row term (a torch op, as the reference computes it outside
+    Pallas)."""
+    return (do.float() * out.float()).sum(-1).t().contiguous()
+
+
+def varlen_flash_attention_bwd_plain(q, k, v, out, lse, do, cu_seqlens_q,
+                                     cu_seqlens_k, causal=False,
+                                     sm_scale=None, window_size=None,
+                                     delta=None):
+    """Plain version of K8a/K8b (the reference's ``_varlen_bwd``): returns
+    ``(dq, dk, dv)`` like q, k, v. P is recomputed from ``lse`` (H,
+    total_q) in f32 and taken to 0 on dead pairs by a select (a row with no
+    live key has lse about -1e30, where exp overflows); ``delta`` (default
+    from ``out``) is f32. P is rounded to do's dtype before dV, dS to k's
+    dtype before dQ and to q's dtype before dK; products accumulate in f32.
+    A GQA group's query heads are summed into their KV head's dk and dv in
+    f32 before the one rounding to the input dtype."""
+    tq, h, d = q.shape
+    tk, hk = k.shape[0], k.shape[1]
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    if delta is None:
+        delta = varlen_flash_attention_bwd_delta(out, do)
+    g = h // hk
+    mask = segment_mask(cu_seqlens_q.to(q.device), cu_seqlens_k, tq, tk,
+                        causal, window_size)
+    qf = q.float().reshape(tq, hk, g, d)
+    dof = do.float().reshape(tq, hk, g, d)
+    kf, vf = k.float(), v.float()
+    s = torch.einsum("qkgd,skd->kgqs", qf, kf) * sm_scale
+    p = torch.where(mask, torch.exp(s - lse.reshape(hk, g, tq, 1)), 0.0)
+    dp = torch.einsum("qkgd,skd->kgqs", dof, vf)
+    ds = p * (dp - delta.reshape(hk, g, tq, 1)) * sm_scale
+    dv = torch.einsum("kgqs,qkgd->skd", p.to(do.dtype).float(), dof)
+    dq = torch.einsum("kgqs,skd->qkgd", ds.to(k.dtype).float(), kf)
+    dk = torch.einsum("kgqs,qkgd->skd", ds.to(q.dtype).float(), qf)
+    return (dq.reshape(tq, h, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def _bwd_launch_args(q, k, v, do, lse, delta, cu_seqlens_q, cu_seqlens_k,
+                     causal, sm_scale, window_size):
+    if window_size is not None and not causal:
+        raise ValueError("window_size requires causal=True")
+    tq, h, d = q.shape
+    tk, hk = k.shape[0], k.shape[1]
+    if k.dim() != 3 or v.shape != k.shape or k.shape[2] != d \
+            or h % hk != 0 or do.shape != q.shape \
+            or lse.shape != (h, tq) or delta.shape != (h, tq):
+        raise ValueError(
+            f"varlen_flash_attention backward: q {tuple(q.shape)}, k "
+            f"{tuple(k.shape)}, v {tuple(v.shape)}, do {tuple(do.shape)}, "
+            f"lse {tuple(lse.shape)}, delta {tuple(delta.shape)}")
+    if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in (k, v, do)):
+        raise TypeError(
+            f"varlen_flash_attention backward kernels take float32 or "
+            f"bfloat16 q, k, v, do of one dtype, got "
+            f"{[t.dtype for t in (q, k, v, do)]}")
+    if d not in _BWD_HEAD_DIMS:
+        raise NotImplementedError(
+            f"varlen_flash_attention backward kernels take head_dim in "
+            f"{_BWD_HEAD_DIMS}, got {d}")
+    for t in (lse, delta):
+        if t.dtype != torch.float32:
+            raise TypeError("varlen_flash_attention backward kernels take "
+                            "f32 lse and delta")
+    if cu_seqlens_q.shape != cu_seqlens_k.shape or cu_seqlens_q.dim() != 1 \
+            or cu_seqlens_q.dtype != torch.int32 \
+            or cu_seqlens_k.dtype != torch.int32:
+        raise TypeError("varlen_flash_attention backward: cu_seqlens must "
+                        "be (B+1,) int32")
+    tensors = (q, k, v, do, lse, delta, cu_seqlens_q, cu_seqlens_k)
+    if any(t.device != q.device for t in tensors):
+        raise ValueError("varlen_flash_attention backward: inputs lie on "
+                         "different devices")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("varlen_flash_attention backward kernels need "
+                         "contiguous inputs")
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    ptrs = tuple(t.data_ptr() for t in tensors)
+    dims = (tq, tk, cu_seqlens_q.shape[0] - 1, h, hk, d, int(bool(causal)),
+            int(window_size or 0), float(sm_scale), _DTYPES[q.dtype],
+            L.cuda_stream(q))
+    return ptrs, dims
+
+
+def _order_scratch(rows, like):
+    """int32 scratch for the kernels' tile order (one entry per 64 rows)."""
+    return torch.empty((rows + _TILE - 1) // _TILE, dtype=torch.int32,
+                       device=like.device)
+
+
+def varlen_flash_attention_bwd_dq(q, k, v, do, lse, delta, cu_seqlens_q,
+                                  cu_seqlens_k, causal=False, sm_scale=None,
+                                  window_size=None):
+    """K8a: dq (like q) from the forward's ``lse`` and ``delta``
+    (:func:`varlen_flash_attention_bwd_delta`). CPU tensors run the plain
+    backward; CUDA tensors launch the kernel or raise."""
+    if L.use_plain(q):
+        return varlen_flash_attention_bwd_plain(
+            q, k, v, None, lse, do, cu_seqlens_q, cu_seqlens_k, causal,
+            sm_scale, window_size, delta)[0]
+    ptrs, dims = _bwd_launch_args(q, k, v, do, lse, delta, cu_seqlens_q,
+                                  cu_seqlens_k, causal, sm_scale, window_size)
+    dq = torch.empty_like(q)
+    order = _order_scratch(q.shape[0], q)
+    status = L.library().ptt_varlen_flash_attention_bwd_dq(
+        *ptrs, order.data_ptr(), dq.data_ptr(), *dims)
+    L.check_status("varlen_flash_attention_bwd_dq", status)
+    L.LAUNCHES["varlen_flash_attention_bwd_dq"] += 1
+    return dq
+
+
+def varlen_flash_attention_bwd_dkv(q, k, v, do, lse, delta, cu_seqlens_q,
+                                   cu_seqlens_k, causal=False, sm_scale=None,
+                                   window_size=None):
+    """K8b: ``(dk, dv)`` (like k, v), each KV head's sum over the query
+    heads of its group. CPU tensors run the plain backward; CUDA tensors
+    launch the kernel or raise."""
+    if L.use_plain(q):
+        return varlen_flash_attention_bwd_plain(
+            q, k, v, None, lse, do, cu_seqlens_q, cu_seqlens_k, causal,
+            sm_scale, window_size, delta)[1:]
+    ptrs, dims = _bwd_launch_args(q, k, v, do, lse, delta, cu_seqlens_q,
+                                  cu_seqlens_k, causal, sm_scale, window_size)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    order = _order_scratch(k.shape[0], k)
+    status = L.library().ptt_varlen_flash_attention_bwd_dkv(
+        *ptrs, order.data_ptr(), dk.data_ptr(), dv.data_ptr(), *dims)
+    L.check_status("varlen_flash_attention_bwd_dkv", status)
+    L.LAUNCHES["varlen_flash_attention_bwd_dkv"] += 1
+    return dk, dv
+
+
+def varlen_flash_attention_bwd(q, k, v, out, lse, do, cu_seqlens_q,
+                               cu_seqlens_k, causal=False, sm_scale=None,
+                               window_size=None):
+    """Gradients ``(dq, dk, dv)`` of varlen attention from the forward's
+    ``out`` and ``lse`` and the upstream ``do`` (like q): delta, then K8a
+    and K8b on CUDA tensors, :func:`varlen_flash_attention_bwd_plain` on
+    CPU tensors."""
+    if out.shape != q.shape:
+        raise ValueError(f"varlen_flash_attention_bwd: out "
+                         f"{tuple(out.shape)} for q {tuple(q.shape)}")
+    if L.use_plain(q):
+        return varlen_flash_attention_bwd_plain(
+            q, k, v, out, lse, do, cu_seqlens_q, cu_seqlens_k, causal,
+            sm_scale, window_size)
+    delta = varlen_flash_attention_bwd_delta(out, do)
+    args = (q, k, v, do, lse, delta, cu_seqlens_q, cu_seqlens_k, causal,
+            sm_scale, window_size)
+    dq = varlen_flash_attention_bwd_dq(*args)
+    dk, dv = varlen_flash_attention_bwd_dkv(*args)
+    return dq, dk, dv
+
+
+class VarlenFlashAttentionFunction(torch.autograd.Function):
+    """``out = varlen_flash_attention(q, k, v, cu_seqlens_q, cu_seqlens_k,
+    causal, sm_scale, window_size)`` with K8a/K8b as its backward (the
+    reference's ``_varlen_htd`` custom_vjp: the forward keeps q, k, v, out
+    and lse, the backward recomputes P from lse). The cu_seqlens get no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, cu_seqlens_q, cu_seqlens_k, causal=False,
+                sm_scale=None, window_size=None):
+        out, lse = varlen_flash_attention(q, k, v, cu_seqlens_q,
+                                          cu_seqlens_k, causal, sm_scale,
+                                          window_size, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse, cu_seqlens_q, cu_seqlens_k)
+        ctx.args = (causal, sm_scale, window_size)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse, cu_q, cu_k = ctx.saved_tensors
+        # the upstream gradient arrives as a (T, H, D) view of whatever the
+        # caller reshaped; the kernels read it as packed rows
+        dq, dk, dv = varlen_flash_attention_bwd(
+            q, k, v, out, lse, do.to(q.dtype).contiguous(), cu_q, cu_k,
+            *ctx.args)
+        return dq, dk, dv, None, None, None, None, None

@@ -226,3 +226,33 @@ def test_fused_linear_cross_entropy_matches_reference(n, chunk, bias):
     if bias:
         np.testing.assert_allclose(_np(bt.grad), np.asarray(br.grad._value),
                                    rtol=1e-5, atol=1e-7)
+
+
+def test_fused_linear_cross_entropy_bf16_forms_f32_logits():
+    """bf16 hidden states and lm-head: each chunk's logits (and its dW
+    product) are formed in f32 from the bf16 operands, as the reference's
+    ``preferred_element_type`` does, not rounded to bf16 first. The f32
+    loss agrees to ``1e-6``; dh and dW, both rounded once from f32 sums
+    that differ only in order, agree exactly on all but a few elements
+    (an f32 sum on a bf16 rounding boundary), and those within one bf16
+    step. Logits rounded to bf16 before the softmax would move the loss
+    by ~1e-3 and most of dh / dW by one or more bf16 steps."""
+    hid, w, y, _ = _lce_data(n=96, h=64, v=300, seed=4)
+    hid, w = hid * 4, w * 4    # logits of a few units: bf16 steps matter
+    hb = jnp.asarray(hid, jnp.bfloat16)
+    wb = jnp.asarray(w, jnp.bfloat16)
+    hr = paddle.to_tensor(hb, stop_gradient=False)
+    wr = paddle.to_tensor(wb, stop_gradient=False)
+    ref = ref_fused_lce(hr, wr, paddle.to_tensor(y), chunk_rows=32)
+    ref.backward()
+    ht = _t(np.asarray(hb, np.float32)).bfloat16().requires_grad_()
+    wt = _t(np.asarray(wb, np.float32).T).bfloat16().requires_grad_()
+    got = fused_linear_cross_entropy(ht, wt, _t(y), chunk_rows=32)
+    got.backward()
+    np.testing.assert_allclose(float(got.detach()), float(ref), rtol=1e-6)
+    for g, r in ((ht.grad, hr.grad), (wt.grad.t(), wr.grad)):
+        assert g.dtype == torch.bfloat16
+        a = _np(g)
+        b = np.asarray(np.asarray(r._value), np.float32)
+        assert (a != b).mean() <= 0.01
+        np.testing.assert_allclose(a, b, rtol=2.0 ** -8, atol=1e-30)

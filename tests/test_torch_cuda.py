@@ -260,8 +260,12 @@ def test_cuda_wrappers_carry_a_grad_fn_or_refuse(cuda):
     with pytest.raises(NotImplementedError, match="ROADMAP A11"):
         ops.decode_attention(qd, kv.detach(), kv.detach(), lens)
     cu = torch.tensor([0, 32], dtype=torch.int32, device=cuda)
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+    with pytest.raises(NotImplementedError,
+                       match="VarlenFlashAttentionFunction"):
         ops.varlen_flash_attention(q[0], kv[0], kv[0], cu, cu, causal=True)
+    out, _ = F.flash_attn_unpadded(q[0], kv[0], kv[0], cu, cu, 32, 32,
+                                   0.125, causal=True)
+    assert out.grad_fn is not None
     pool = torch.randn(3, 16, 2, 64, device=cuda, requires_grad=True)
     tables = torch.tensor([[1, 2]], dtype=torch.int32, device=cuda)
     with pytest.raises(NotImplementedError, match="ROADMAP A11"):
@@ -303,3 +307,105 @@ def test_cuda_train_step_kernel_path_equals_plain_path(cuda, fuse):
     torch.testing.assert_close(runs[0][0], runs[1][0], rtol=1e-5, atol=0)
     for a, b in zip(runs[0][1], runs[1][1]):
         torch.testing.assert_close(a, b, rtol=0, atol=6e-3)
+
+
+def _cu(lens, device):
+    return torch.tensor(np.concatenate([[0], np.cumsum(lens)]),
+                        dtype=torch.int32, device=device)
+
+
+class _Packed(torch.nn.Module):
+    """``model(ids, cu)``: the packed call as a train step makes it."""
+
+    def __init__(self, m):
+        super().__init__()
+        self.m = m
+
+    def forward(self, ids, cu):
+        return self.m(ids, cu_seqlens=cu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+def test_cuda_varlen_backward_matches_plain(cuda, dtype, tol):
+    g = torch.Generator(device=cuda).manual_seed(5)
+    # (lens_q, lens_k or None, H, HK, D, causal, window, padding rows):
+    # ragged GQA, empty segments at D=128, cross lengths (causal and not),
+    # a window band with a group of 8 (also over cross lengths), and rows
+    # that see no key (a segment without keys, more queries than keys,
+    # padding past cu[-1])
+    for lens_q, lens_k, h, hk, d, causal, window, pad in (
+            ([13, 37, 1, 77], None, 4, 2, 64, True, None, 0),
+            ([200, 0, 130, 64, 1, 0], None, 8, 2, 128, True, None, 0),
+            ([9, 25, 140], [17, 125, 61], 4, 4, 64, True, None, 0),
+            ([9, 25, 140], [17, 125, 61], 4, 4, 64, False, None, 0),
+            ([90, 25, 140, 0], [17, 125, 61, 30], 8, 2, 64, True, 20, 0),
+            ([300, 70, 190], None, 8, 1, 128, True, 48, 0),
+            ([6, 10, 12], [9, 0, 4], 4, 2, 64, True, None, 5)):
+        cu_q = _cu(lens_q, cuda)
+        cu_k = cu_q if lens_k is None else _cu(lens_k, cuda)
+        tq, tk = int(cu_q[-1]) + pad, int(cu_k[-1])
+        q, do = _rnd(g, dtype, tq, h, d), _rnd(g, dtype, tq, h, d)
+        k, v = _rnd(g, dtype, tk, hk, d), _rnd(g, dtype, tk, hk, d)
+        out, lse = ops.varlen_flash_attention(
+            q, k, v, cu_q, cu_k, causal=causal, window_size=window,
+            return_lse=True)
+        # the forward K3 on the same rows: padding rows past cu_q[-1] and
+        # rows without keys see nothing in both
+        ref_out, ref_lse = ops.varlen_flash_attention_plain(
+            q, k, v, cu_q, cu_k, causal=causal, window_size=window)
+        torch.testing.assert_close(out.float(), ref_out.float(), atol=tol,
+                                   rtol=tol)
+        torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-4)
+        got = ops.varlen_flash_attention_bwd(q, k, v, out, lse, do, cu_q,
+                                             cu_k, causal,
+                                             window_size=window)
+        want = ops.varlen_flash_attention_bwd_plain(
+            q, k, v, out, lse, do, cu_q, cu_k, causal, window_size=window)
+        for a, ref in zip(got, want):
+            assert a.dtype == dtype and a.shape == ref.shape
+            assert torch.isfinite(a).all()
+            scale = max(1.0, float(ref.float().abs().max()))
+            torch.testing.assert_close(a.float(), ref.float(),
+                                       atol=tol * scale, rtol=tol)
+        if pad:
+            assert float(got[0][int(cu_q[-1]):].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("recompute", [False, True])
+def test_cuda_packed_train_step_kernel_path_equals_plain_path(cuda,
+                                                               recompute):
+    cfg = LlamaConfig.tiny(hidden_size=256, num_attention_heads=4,
+                           num_key_value_heads=2, vocab_size=512,
+                           tensor_parallel=False, use_recompute=recompute)
+    ids = torch.from_numpy(
+        np.random.RandomState(1).randint(0, 512, (1, 96))).to(cuda)
+    cu = _cu([40, 0, 30, 26], cuda)
+    runs = []
+    for plain in (False, True):
+        model = _Packed(LlamaForCausalLM(
+            cfg, generator=torch.Generator(device=cuda).manual_seed(0)))
+        crit = LlamaPretrainingCriterion(cfg)
+        step = JittedTrainStep(
+            model, lambda out, lb: crit(out, lb, cu_seqlens=cu),
+            AdamW(1e-3, parameters=model.parameters()))
+        ops.reset_launches()
+        if plain:
+            with ops.plain_versions():
+                losses = [step([ids, cu], ids) for _ in range(3)]
+            assert all(n == 0 for n in ops.LAUNCHES.values())
+        else:
+            losses = [step([ids, cu], ids) for _ in range(3)]
+            # 2 layers: forward K1 5 and K3 2 per step, again for the
+            # recomputed blocks; backward K6 5, K8a 2, K8b 2
+            fwd = 2 if recompute else 1
+            want = {"rms_norm": 15 + 12 * (fwd - 1),
+                    "varlen_flash_attention": 6 * fwd,
+                    "rms_norm_bwd": 15, "varlen_flash_attention_bwd_dq": 6,
+                    "varlen_flash_attention_bwd_dkv": 6,
+                    "flash_attention": 0}
+            assert {k: ops.LAUNCHES[k] for k in want} == want
+        runs.append(torch.stack(losses))
+    torch.testing.assert_close(runs[0], runs[1], rtol=1e-5, atol=0)

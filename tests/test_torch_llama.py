@@ -106,13 +106,17 @@ def test_no_cache_logits_match_reference(overrides):
 
 
 def test_model_refuses_later_slices():
-    for kw in ({"use_recompute": True}, {"context_parallel": "ring"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            LlamaForCausalLM(LlamaConfig.tiny(**kw), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+        LlamaForCausalLM(LlamaConfig.tiny(context_parallel="ring"),
+                         device="cpu")
+    # the packed path's own refusals (the reference's ValueErrors)
     port = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A3"):
+    cu = torch.tensor([0, 4])
+    with pytest.raises(ValueError, match="mutually exclusive"):
         port(torch.zeros(1, 4, dtype=torch.long),
-             cu_seqlens=torch.tensor([0, 4]))
+             caches=port.init_caches(1, 4), cu_seqlens=cu)
+    with pytest.raises(ValueError, match="packed"):
+        port(torch.zeros(2, 4, dtype=torch.long), cu_seqlens=cu)
 
 
 def test_seeded_init_is_reproducible():
