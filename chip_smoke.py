@@ -12,7 +12,9 @@ Phases (any failure raises and the script exits non-zero):
    serving, generation and training paths' shapes, in bf16 and f32
    (K6/K7 also at Mistral's GQA width with its window; K8a/K8b at the
    packed 941M row, with GQA and a window, with unequal query and key
-   lengths, and with empty segments): max error, kernel / plain /
+   lengths, and with empty segments; K2's int8 arm with static (HK,)
+   scales and with per-row scale pools at the serving shape and at GQA
+   32/8): max error, kernel / plain /
    library-call device times (torch.profiler, summed kernel durations;
    CUDA events where the profiler records none, as ``timers`` says; where
    several library calls compute the same function the fastest counts,
@@ -65,19 +67,42 @@ Phases (any failure raises and the script exits non-zero):
 10. packed training's kernel path against its plain path in f32 (the same
     width, 2 layers, T = 1,024 in 4 segments): step-1 gradients per tensor
     within 1e-5 of the tensor's largest |g|, the losses of 3 steps within
-    1e-6.
+    1e-6;
+11. int8 serving at full width: Llama-2-7B in bf16 (32 layers, seeded
+    weights), phase 3's knobs and requests, three engines through
+    ``create_serving_engine``: ``quantize="weight_only_int8"`` (the entry
+    point sweeps the model), the float engine over the dequantized
+    weights (its greedy streams must be equal), and
+    ``quantize="weight_only_int8", kv_dtype="int8"`` (the main path of
+    K2's per-row mode: counters zeroed just before and read just after;
+    it must launch K1, K3 and K2's per-row mode and no float K2). Per
+    arm: tokens/s, peak memory, the pool's bytes in use after a fixed
+    step, the float / int8 residency ratio, the int8-KV arm's token
+    agreement with the weight-only arm; then profiles of its mixed step
+    and decode quantum with the weight dequantization as its own range;
+12. int8 parity in f32 (Llama-2-7B width, 4 layers), kernel path against
+    plain path: the weight-only int8 engine (equal greedy streams), the
+    int8-KV engine (equal streams up to partings at near-ties, each a
+    swap of the two best tokens: an f32 rounding difference can move a
+    KV element to the neighbouring int8 value), and one
+    ``block_multihead_attention`` mixed batch over int8 pools with static
+    quant scales at the serving shape (8 slots, 128-token prefill chunks
+    and decode rows), the path of K2's static int8 arm: kernel path vs
+    plain within f32 1e-4, equal int8 pools.
 
 The line before the last is the ``{"kernels": [...]}`` record (each
 kernel's launches come from the run of the path that carries it: K1-K3
 the serving run of phase 3, K4-K5 the generation run of phase 5, K6, K7a
 and K7b the training run of phase 7, K8a and K8b the packed training run
-of phase 9; ``launches_by_path`` has every path's count); the last line
-is ``{"ok": true, "device": {...}}``. Without CUDA it prints no result and
-exits 2.
+of phase 9, K2's per-row int8 mode the int8-KV serving run of phase 11,
+its static int8 arm the batch of phase 12; ``launches_by_path`` has every
+path's count); the last line is ``{"ok": true, "device": {...}}``.
+Without CUDA it prints no result and exits 2.
 """
 from __future__ import annotations
 
 import contextlib
+import gc
 import itertools
 import json
 import math
@@ -239,12 +264,19 @@ def k1_cases(torch, g, dev):
                 bound=bound_ms(nbytes, 4.0 * rows * n, "float32"))
 
 
-def _paged_inputs(torch, g, dev, dtype, b, h, hk, d, bs, lens_list):
+def _paged_inputs(torch, g, dev, dtype, b, h, hk, d, bs, lens_list,
+                  pool_dtype=None):
+    """q in ``dtype`` over pools of ``pool_dtype`` (default q's; int8 pools
+    hold the whole int8 range)."""
     w = 2048 // bs
     num_blocks = b * w + 1
-    kp = torch.randn(num_blocks, bs, hk, d, generator=g, device=dev)
-    vp = torch.randn(num_blocks, bs, hk, d, generator=g, device=dev)
-    kp, vp = kp.to(dtype), vp.to(dtype)
+    shape = (num_blocks, bs, hk, d)
+    if pool_dtype == torch.int8:
+        kp, vp = (torch.randint(-128, 128, shape, generator=g, device=dev,
+                                dtype=torch.int8) for _ in range(2))
+    else:
+        kp = torch.randn(*shape, generator=g, device=dev).to(dtype)
+        vp = torch.randn(*shape, generator=g, device=dev).to(dtype)
     perm = torch.randperm(num_blocks - 1, generator=g, device=dev) + 1
     tables = torch.full((b, w), 10 ** 7, dtype=torch.int32, device=dev)
     nxt = 0
@@ -299,6 +331,84 @@ def k2_cases(torch, g, dev):
                     q4, kd, vd, attn_mask=mask),
                 bound=bound_ms(nbytes, 4.0 * live * h * d,
                                str(dtype).removeprefix("torch.")))
+
+
+def k2_int8_cases(torch, g, dev):
+    """K2's int8 arm: int8 pools dequantized by static (HK,) scales (the
+    TPU kernel's arm) and by per-row scale pools (the int8 engine's
+    quantum), at the K2 serving shape and at GQA 32/8. The library
+    yardstick gathers the live blocks, dequantizes them and runs one
+    SDPA call, all inside the timed function (SDPA takes no int8)."""
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.ops.paged_attention import (
+        _paged_decode_attention_rows, _paged_decode_attention_rows_plain)
+    import torch.nn.functional as tF
+
+    b, d, bs = 8, 128, 32
+    lens_list = [1, 31, 32, 33, 500, 1024, 2047, 2048]
+    live = sum(lens_list)
+    live_blocks = sum(-(-ln // bs) for ln in lens_list)
+    for dtype in (torch.bfloat16, torch.float32):
+        for h, hk in ((32, 32), (32, 8)):
+            q, kp, vp, tables, lens = _paged_inputs(
+                torch, g, dev, dtype, b, h, hk, d, bs, lens_list,
+                pool_dtype=torch.int8)
+            nb_pool = kp.shape[0]
+            ks = torch.rand(hk, generator=g, device=dev) * 0.02 + 0.005
+            vs = torch.rand(hk, generator=g, device=dev) * 0.02 + 0.005
+            rks = torch.rand(nb_pool, bs, hk, generator=g, device=dev) \
+                * 0.02 + 0.005
+            rvs = torch.rand(nb_pool, bs, hk, generator=g, device=dev) \
+                * 0.02 + 0.005
+            nb = -(-max(lens_list) // bs)
+            safe = torch.where(
+                torch.arange(nb, device=dev)[None] * bs < lens[:, None],
+                tables[:, :nb], 0).long()
+            mask = (torch.arange(nb * bs, device=dev)[None]
+                    < lens[:, None])[:, None, None, :]
+            q4 = q[:, :, None, :]
+
+            def library(k_sc, v_sc, safe=safe, kp=kp, vp=vp, hk=hk, h=h,
+                        mask=mask, q4=q4):
+                def dense(pool, sc):
+                    x = pool[safe].float() * sc
+                    return x.reshape(b, nb * bs, hk, d).to(q4.dtype) \
+                        .repeat_interleave(h // hk, dim=2).transpose(1, 2)
+                return tF.scaled_dot_product_attention(
+                    q4, dense(kp, k_sc(safe)), dense(vp, v_sc(safe)),
+                    attn_mask=mask)
+
+            e = q.element_size()
+            common = dict(dtype=dtype, primary=(hk == 32
+                                                and dtype == torch.bfloat16))
+            shape = (f"B={b},H={h},HK={hk},D={d},BS={bs},lens={lens_list},"
+                     f"int8 pools")
+            # q and out, int8 K/V rows, tables and lens
+            nbytes = 2 * b * h * d * e + 2 * live * hk * d \
+                + 4 * (b + live_blocks)
+            ddt = str(dtype).removeprefix("torch.")
+            yield dict(
+                name="paged_decode_attention_int8",
+                shape=shape + ", (HK,) scales",
+                kernel=lambda: ops.paged_decode_attention(
+                    q, kp, vp, tables, lens, k_scale=ks, v_scale=vs),
+                plain=lambda: ops.paged_decode_attention_plain(
+                    q, kp, vp, tables, lens, k_scale=ks, v_scale=vs),
+                library=lambda: library(lambda i: ks[:, None],
+                                        lambda i: vs[:, None]),
+                bound=bound_ms(nbytes + 2 * 4 * hk, 4.0 * live * h * d,
+                               ddt), **common)
+            yield dict(
+                name="paged_decode_attention_int8_rows",
+                shape=shape + ", (NB, BS, HK) row scales",
+                kernel=lambda: _paged_decode_attention_rows(
+                    q, kp, vp, rks, rvs, tables, lens),
+                plain=lambda: _paged_decode_attention_rows_plain(
+                    q, kp, vp, rks, rvs, tables, lens),
+                library=lambda: library(lambda i: rks[i][..., None],
+                                        lambda i: rvs[i][..., None]),
+                bound=bound_ms(nbytes + 2 * 4 * live * hk,
+                               4.0 * live * h * d, ddt), **common)
 
 
 def k3_cases(torch, g, dev):
@@ -669,6 +779,14 @@ KERNELS = {
     "paged_decode_attention": (
         "cuda", "paddle_tpu_torch/csrc/paged_attention.cu",
         "paddle_tpu/ops/pallas/paged_attention.py:157"),
+    # K2's int8 arm (_paged_kernel's has_scales, lines 53-58): static
+    # (HK,) scales, and the per-row scale pools of the int8 engine
+    "paged_decode_attention_int8": (
+        "cuda", "paddle_tpu_torch/csrc/paged_attention.cu",
+        "paddle_tpu/ops/pallas/paged_attention.py:157"),
+    "paged_decode_attention_int8_rows": (
+        "cuda", "paddle_tpu_torch/csrc/paged_attention.cu",
+        "paddle_tpu/ops/pallas/paged_attention.py:157"),
     "varlen_flash_attention": (
         "cuda", "paddle_tpu_torch/csrc/varlen_flash_attention.cu",
         "paddle_tpu/ops/pallas/varlen_flash_attention.py:160"),
@@ -701,6 +819,13 @@ TRAIN_KERNELS = ("rms_norm_bwd", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv")
 PACKED_KERNELS = ("varlen_flash_attention_bwd_dq",
                   "varlen_flash_attention_bwd_dkv")
+INT8_SERVING_KERNELS = ("rms_norm", "varlen_flash_attention",
+                        "paged_decode_attention_int8_rows")
+STATIC_INT8_KERNELS = ("paged_decode_attention_int8",
+                       "varlen_flash_attention")
+# the path whose run gives each kernel's launches in the kernels line
+KERNEL_PATH = {"paged_decode_attention_int8": "block_mha_static_int8",
+               "paged_decode_attention_int8_rows": "int8_serving"}
 
 
 def kernel_phase(torch, dev):
@@ -709,6 +834,7 @@ def kernel_phase(torch, dev):
     # one case at a time: each case's inputs live only while it runs
     for case in itertools.chain(k1_cases(torch, g, dev),
                                 k2_cases(torch, g, dev),
+                                k2_int8_cases(torch, g, dev),
                                 k3_cases(torch, g, dev),
                                 k4_cases(torch, g, dev),
                                 k5_cases(torch, g, dev),
@@ -762,11 +888,31 @@ def make_requests(vocab, n=16):
                  max_new_tokens=int(mn)) for ln, mn in zip(lens, max_new)]
 
 
-def serve(torch, model, requests, **kw):
+def serve(torch, model, requests, residency_at=None, on_engine=None, **kw):
+    """Drive ``requests`` through a fresh engine; returns the engine, the
+    requests, the wall time and the mixed-step / quantum time split (with
+    ``residency_at``, also the pool's bytes in use after that step).
+    ``on_engine`` is called with the engine before the run."""
     from paddle_tpu_torch import create_serving_engine
 
     engine = create_serving_engine(model, **serve_kw(**kw))
+    if on_engine is not None:
+        on_engine(engine)
+    # the peak from here on: weights, pools and the run (not the sweep of
+    # a model that the engine quantized)
+    torch.cuda.reset_peak_memory_stats()
     split = {"mixed_s": 0.0, "decode_s": 0.0}
+    if residency_at is not None:
+        step, steps = engine.step, [0]
+
+        def counted():
+            more = step()
+            steps[0] += 1
+            if steps[0] == residency_at:
+                split["pool_bytes"] = engine.pool.bytes_in_use()
+            return more
+
+        engine.step = counted
 
     def timed(fn, key):
         def run():
@@ -868,6 +1014,8 @@ def _kernel_family(name):
                      ("varlen_bwd_order", "K8a/K8b tile order"),
                      ("bwd_dq_", "K7a flash_attention_bwd_dq"),
                      ("bwd_dkv_", "K7b flash_attention_bwd_dkv"),
+                     ("PagedRows<1>", "K2-int8 static"),
+                     ("PagedRows<2>", "K2-int8 rows"),
                      ("PagedRows", "K2 paged_decode"),
                      ("varlen_fwd_", "K3 varlen_flash"),
                      ("flash_fwd_", "K4 flash_attention"),
@@ -884,9 +1032,19 @@ def profile_phase(torch, model, requests,
     """Where one mixed step and one decode quantum spend device time:
     torch.profiler over a single engine step each (the main run's counts
     are read before this). Device busy share = summed kernel time over the
-    step's wall time under the profiler."""
-    from torch.profiler import ProfilerActivity, profile
+    step's wall time under the profiler. A weight-only int8 model's
+    dequantization runs under its own record_function range and is
+    reported as "dequant" (its kernels are elementwise ones, named like
+    "other")."""
+    from torch.profiler import ProfilerActivity, profile, record_function
     from paddle_tpu_torch import create_serving_engine
+    from paddle_tpu_torch.nn.quant import QuantizedLinear
+
+    dequant = QuantizedLinear.dequantized_weight
+
+    def traced_dequant(self, dtype):
+        with record_function("dequant"):
+            return dequant(self, dtype)
 
     engine = create_serving_engine(model, **serve_kw(**kw))
     for r in requests[:8]:
@@ -899,13 +1057,22 @@ def profile_phase(torch, model, requests,
                    or not engine.scheduler.decoding()):
                 engine.step()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            engine.step()
-            torch.cuda.synchronize()
-            wall_us = 1e6 * (time.perf_counter() - t0)
-        emit(_profile_record(torch, prof, label + tag, wall_us))
+        QuantizedLinear.dequantized_weight = traced_dequant
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                engine.step()
+                torch.cuda.synchronize()
+                wall_us = 1e6 * (time.perf_counter() - t0)
+        finally:
+            QuantizedLinear.dequantized_weight = dequant
+        rec = _profile_record(torch, prof, label + tag, wall_us,
+                              ranges=("dequant",))
+        if kw.get("quantize"):
+            rec["dequant_device_ms"] = _split_range(torch, prof, rec,
+                                                    "dequant", "dequant")
+        emit(rec)
     del engine
 
 
@@ -1291,20 +1458,27 @@ def train_profile(torch, step, inputs, labels, label="train_step"):
     del opt.apply
     rec = _profile_record(torch, prof, label, wall_us,
                           ranges=("optimizer_update",))
-    # the kernels launched inside the range: its CPU children's, without
-    # the range's own device-side annotation span
-    opt_us = sum(sum(k.duration for k in ev.kernels if k.name != ev.name)
-                 + sum(ch.device_time_total for ch in ev.cpu_children)
-                 for ev in prof.events()
-                 if ev.name == "optimizer_update"
-                 and ev.device_type == torch.autograd.DeviceType.CPU)
-    fams = rec["device_ms_by_family"]
-    if opt_us and "other" in fams:
-        # the update's kernels are elementwise ones, named like "other"
-        fams["optimizer (AdamW update)"] = opt_us / 1e3
-        fams["other"] -= opt_us / 1e3
-    rec["optimizer_device_ms"] = opt_us / 1e3 if opt_us else "not measured"
+    # the update's kernels are elementwise ones, named like "other"
+    rec["optimizer_device_ms"] = _split_range(
+        torch, prof, rec, "optimizer_update", "optimizer (AdamW update)")
     emit(rec)
+
+
+def _split_range(torch, prof, rec, name, family):
+    """Move the device time of the kernels launched inside the
+    record_function range ``name`` (its CPU children's, without the
+    range's own device-side annotation span) from "other" to ``family``
+    in a profile record; returns it in ms, or "not measured"."""
+    us = sum(sum(k.duration for k in ev.kernels if k.name != ev.name)
+             + sum(ch.device_time_total for ch in ev.cpu_children)
+             for ev in prof.events()
+             if ev.name == name
+             and ev.device_type == torch.autograd.DeviceType.CPU)
+    fams = rec["device_ms_by_family"]
+    if us and "other" in fams:
+        fams[family] = us / 1e3
+        fams["other"] -= us / 1e3
+    return us / 1e3 if us else "not measured"
 
 
 def _grads(model):
@@ -1552,6 +1726,283 @@ def packed_parity_phase(torch, dev):
           f"packed kernel and plain losses differ: {lk} {lp}")
 
 
+# ---------------------------------------------------------- phase 11, 12
+INT8_ARMS = (("w8", dict(quantize="weight_only_int8")),
+             ("float_dequantized", {}),
+             ("w8kv8", dict(quantize="weight_only_int8", kv_dtype="int8")))
+# the engine step after which each arm's pool residency is read (the arms
+# schedule identically: no eos, the same token counts)
+RESIDENCY_STEP = 8
+
+
+def _dequantized_float_model(torch, qmodel):
+    """The float oracle of a weight-only int8 model: a copy whose every
+    QuantizedLinear is a float Linear holding the dequantized product it
+    multiplies by (in the model's dtype), so the same cuBLAS products
+    run."""
+    import copy
+
+    from paddle_tpu_torch.nn.quant import QuantizedLinear
+
+    model = copy.deepcopy(qmodel)
+    dtype = model.config.torch_dtype
+    for mod in list(model.modules()):
+        for name, sub in list(mod.named_children()):
+            if isinstance(sub, QuantizedLinear):
+                lin = torch.nn.Linear(sub.in_features, sub.out_features,
+                                      bias=sub.bias is not None,
+                                      device=sub.quant_weight.device,
+                                      dtype=dtype)
+                with torch.no_grad():
+                    lin.weight.copy_(sub.dequantized_weight(dtype))
+                    if sub.bias is not None:
+                        lin.bias.copy_(sub.bias)
+                setattr(mod, name, lin)
+    return model
+
+
+def _agreement(a, b):
+    """Share of tokens equal before each stream's first difference."""
+    same = total = 0
+    for x, y in zip(a, b):
+        n = 0
+        while n < min(len(x), len(y)) and x[n] == y[n]:
+            n += 1
+        same += n
+        total += len(x)
+    return same / total
+
+
+def int8_serving_phase(torch, dev):
+    """Phase 11: int8 serving at full Llama-2-7B width and depth through
+    ``create_serving_engine``: weight-only int8 (the entry point sweeps the
+    seeded model), the float engine over the dequantized weights (its
+    oracle: equal greedy streams), and int8 weights with int8 KV pools
+    (the main path of K2's per-row mode, counters zeroed just before and
+    read just after)."""
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.nlp import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig.llama2_7b(dtype="bfloat16")
+    qmodel = LlamaForCausalLM(
+        cfg, generator=torch.Generator(device=dev).manual_seed(SEED))
+    requests = make_requests(cfg.vocab_size)
+    streams, records, launches = {}, {}, {}
+    for arm, kw in INT8_ARMS:
+        model = (_dequantized_float_model(torch, qmodel)
+                 if arm == "float_dequantized" else qmodel)
+        # the previous arm's engine sits in a reference cycle (its timed
+        # methods close over it): free it before this arm's peak
+        gc.collect()
+        torch.cuda.empty_cache()
+        ops.reset_launches()
+        engine, reqs, wall, split = serve(
+            torch, model, requests, residency_at=RESIDENCY_STEP, **kw)
+        launches[arm] = dict(ops.LAUNCHES)
+        check_run(engine, reqs, cfg.vocab_size)
+        st = engine.engine_stats()
+        gen = sum(len(r.tokens) for r in reqs)
+        streams[arm] = [list(r.tokens) for r in reqs]
+        records[arm] = {
+            "phase": "int8_serving_llama2_7b", "arm": arm, **kw,
+            "layers": cfg.num_hidden_layers, "requests": len(reqs),
+            "generated_tokens": gen, "wall_s": wall,
+            "generated_tok_per_s": gen / wall,
+            "prefill_tok_per_s": st["prefill_tokens"] / split["mixed_s"],
+            "mixed_step_s": split["mixed_s"],
+            "decode_quanta_s": split["decode_s"],
+            "decode_steps": st["decode_quanta"] * engine.config.decode_quantum,
+            "pool_kv_dtype": st["pool"]["kv_dtype"],
+            "pool_bytes_in_use_at_step": {RESIDENCY_STEP:
+                                          split["pool_bytes"]},
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "launches": launches[arm]}
+        del engine
+        if arm == "float_dequantized":
+            del model
+    equal = streams["w8"] == streams["float_dequantized"]
+    f_bytes = records["w8"]["pool_bytes_in_use_at_step"][RESIDENCY_STEP]
+    q_bytes = records["w8kv8"]["pool_bytes_in_use_at_step"][RESIDENCY_STEP]
+    records["w8"]["streams_equal_dequantized_float"] = equal
+    records["w8kv8"]["residency_ratio_float_over_int8"] = f_bytes / q_bytes
+    records["w8kv8"]["token_agreement_with_w8"] = _agreement(
+        streams["w8kv8"], streams["w8"])
+    for arm, _ in INT8_ARMS:
+        emit(records[arm])
+    check(equal, "weight-only int8 greedy streams differ from the "
+          "dequantized float engine's")
+    main_path = launches["w8kv8"]
+    for name in INT8_SERVING_KERNELS:
+        check(main_path[name] > 0,
+              f"kernel {name} was not launched by the int8 serving path")
+    check(main_path["paged_decode_attention"] == 0
+          and main_path["paged_decode_attention_int8"] == 0,
+          f"the int8 KV engine launched a float or static K2: {main_path}")
+    profile_phase(torch, qmodel, requests, tag="_w8kv8",
+                  **dict(INT8_ARMS)["w8kv8"])
+    profile_phase(torch, qmodel, requests, labels=("decode_quantum",),
+                  tag="_w8", **dict(INT8_ARMS)["w8"])
+    del qmodel
+    torch.cuda.empty_cache()
+    return main_path
+
+
+def _static_int8_batch(torch, g, dev):
+    """One block_multihead_attention mixed batch over int8 pools with
+    static per-head quant scales at the serving shape: 8 slots, 4 of them
+    prefilling 128-token chunks over cached contexts, 4 decoding one
+    token; H = HK = 32, D = 128, block size 32, f32."""
+    import numpy as np
+    from paddle_tpu_torch.incubate.nn.functional import (
+        block_multihead_attention)
+
+    h = hk = 32
+    d, bs, w = 128, 32, 64
+    cached = [0, 320, 896, 1792, 31, 500, 1024, 2046]
+    this = [128, 128, 128, 128, 1, 1, 1, 1]
+    num_blocks = 8 * w + 1
+    kp, vp = (torch.randint(-128, 128, (num_blocks, bs, hk, d), generator=g,
+                            device=dev, dtype=torch.int8) for _ in range(2))
+    perm = torch.randperm(num_blocks - 1, generator=g, device=dev) + 1
+    tables = perm[:8 * w].view(8, w).int().cpu().numpy()
+    qkv = torch.randn(sum(this), (h + 2 * hk) * d, generator=g, device=dev)
+    qs = torch.rand(hk, generator=g, device=dev) * 20 + 30
+    args = dict(
+        seq_lens_encoder=np.asarray([t if t > 1 else 0 for t in this],
+                                    np.int32),
+        seq_lens_decoder=np.asarray(cached, np.int32),
+        seq_lens_this_time=np.asarray(this, np.int32), block_tables=tables,
+        num_heads=h, kv_num_heads=hk, head_dim=d, cache_k_quant_scales=qs,
+        cache_v_quant_scales=qs * 0.8)
+
+    def run():
+        pools = (kp.clone(), vp.clone())
+        out = block_multihead_attention(qkv, *pools, **args)
+        return out, pools
+
+    return run
+
+
+def _record_runner_up(engine, table):
+    """Wrap the engine's token choice to keep, for every (request, tokens
+    emitted so far), the top two token ids and their logit gap."""
+    select = engine._select
+
+    def traced(logits, slots, steps):
+        top = logits.float().topk(2, dim=-1)
+        ids, vals = top.indices.tolist(), top.values.tolist()
+        owner = {r.slot: r for r in engine.scheduler.live()}
+        for i, (slot, step) in enumerate(zip(slots, steps)):
+            if slot in owner:
+                table[(owner[slot].req_id, int(step))] = (
+                    ids[i][0], ids[i][1], vals[i][0] - vals[i][1])
+        return select(logits, slots, steps)
+
+    engine._select = traced
+
+
+def _partings(streams, tables, reqs):
+    """Each request's first differing token between two runs, with both
+    runs' (best, runner-up, gap) there; a parting is a runner-up swap
+    when each run's token is the other run's second choice."""
+    out = []
+    for (a, b), r0, r1 in zip(zip(*streams), *reqs):
+        j = next((n for n, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is None:
+            continue
+        t0, t1 = tables[0][(r0.req_id, j)], tables[1][(r1.req_id, j)]
+        out.append({"request": len(out), "token": j, "kernel": t0,
+                    "plain": t1, "swap": (t0[0], t0[1]) == (a[j], b[j])
+                    and (t1[0], t1[1]) == (b[j], a[j])})
+    return out
+
+
+def int8_parity_phase(torch, dev):
+    """Phase 12: f32 parity at Llama-2-7B width with 4 layers, kernel path
+    against plain path: the weight-only int8 engine (equal greedy
+    streams), the int8-KV engine, and one block_multihead_attention mixed
+    batch with STATIC quant scales (the TPU kernel's own int8 arm) within
+    f32 1e-4, its counters zeroed just before and read just after the
+    kernel-path call. The int8-KV engine's streams are equal up to
+    partings at near-ties: a 1-ulp difference before ``quantize_kv_rows``
+    can round a KV element to the neighbouring int8 value (1/127 of its
+    row's range), so each parting must be a runner-up swap (each path's
+    token the other's second choice) and the share of equal tokens is
+    reported."""
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.nlp import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig.llama2_7b(num_hidden_layers=4, dtype="float32")
+    model = LlamaForCausalLM(
+        cfg, generator=torch.Generator(device=dev).manual_seed(SEED + 1))
+    requests = make_requests(cfg.vocab_size)
+    for arm, kw in (INT8_ARMS[0], INT8_ARMS[2]):
+        streams, launches, tables, reqs_by_path = [], [], [], []
+        for plain in (False, True):
+            table = {}
+            ops.reset_launches()
+            with (ops.plain_versions() if plain
+                  else contextlib.nullcontext()):
+                engine, reqs, wall, _ = serve(
+                    torch, model, requests,
+                    on_engine=lambda e, t=table: _record_runner_up(e, t),
+                    **kw)
+            check_run(engine, reqs, cfg.vocab_size)
+            streams.append([list(r.tokens) for r in reqs])
+            launches.append(dict(ops.LAUNCHES))
+            tables.append(table)
+            reqs_by_path.append(reqs)
+            emit({"phase": "int8_parity_f32_4layer", "arm": arm,
+                  "path": "plain" if plain else "kernels", "wall_s": wall,
+                  "launches": launches[-1]})
+            del engine
+        check(all(n == 0 for n in launches[1].values()),
+              f"plain path launched a kernel: {launches[1]}")
+        partings = _partings(streams, tables, reqs_by_path)
+        emit({"phase": "int8_parity_f32_4layer", "arm": arm,
+              "streams_equal": not partings,
+              "requests_equal": len(requests) - len(partings),
+              "requests": len(requests),
+              "token_agreement": _agreement(*streams),
+              "partings": partings})
+        if arm == "w8":
+            check(launches[0]["paged_decode_attention"] > 0,
+                  f"kernel path missed K2: {launches[0]}")
+            check(not partings, "weight-only int8 engine: kernel and plain "
+                  "greedy streams differ")
+        else:
+            check(launches[0]["paged_decode_attention_int8_rows"] > 0,
+                  f"kernel path missed K2's per-row mode: {launches[0]}")
+            check(all(p["swap"] for p in partings),
+                  f"int8-KV engine: a parting is no runner-up swap: "
+                  f"{partings}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    run = _static_int8_batch(
+        torch, torch.Generator(device=dev).manual_seed(SEED + 2), dev)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    out, pools = run()
+    torch.cuda.synchronize()
+    static_launches = dict(ops.LAUNCHES)
+    with ops.plain_versions():
+        ref, ref_pools = run()
+    err, ok, tol = close(torch, out, ref, torch.float32)
+    pools_equal = all(torch.equal(a, b) for a, b in zip(pools, ref_pools))
+    emit({"phase": "block_mha_static_int8_f32", "max_abs_err": err,
+          "tol": tol, "ok": ok, "pools_equal": pools_equal,
+          "launches": static_launches})
+    check(ok and pools_equal,
+          f"static int8 block_multihead_attention: kernel path differs "
+          f"from plain (err {err}, pools equal {pools_equal})")
+    for name in STATIC_INT8_KERNELS:
+        check(static_launches[name] > 0,
+              f"kernel {name} was not launched by the static int8 batch")
+    return static_launches
+
+
 def main():
     import torch
 
@@ -1576,14 +2027,19 @@ def main():
     train_parity_phase(torch, dev)
     packed_launches = packed_train_phase(torch, dev)
     packed_parity_phase(torch, dev)
+    int8_launches = int8_serving_phase(torch, dev)
+    static_launches = int8_parity_phase(torch, dev)
     paths = {"serving": launches, "generate": gen_launches,
-             "train": train_launches, "packed_train": packed_launches}
+             "train": train_launches, "packed_train": packed_launches,
+             "int8_serving": int8_launches,
+             "block_mha_static_int8": static_launches}
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
         rec = primary[name]
-        path = ("serving" if name in SERVING_KERNELS else
-                "train" if name in TRAIN_KERNELS else
-                "packed_train" if name in PACKED_KERNELS else "generate")
+        path = KERNEL_PATH.get(name) or (
+            "serving" if name in SERVING_KERNELS else
+            "train" if name in TRAIN_KERNELS else
+            "packed_train" if name in PACKED_KERNELS else "generate")
         kernels.append({
             "name": name, "route": route, "source": source,
             "replaces": replaces, "launches": paths[path][name],

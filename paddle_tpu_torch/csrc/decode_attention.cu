@@ -21,6 +21,7 @@ using namespace ptt;
 namespace {
 
 struct ContiguousRows {
+  static constexpr int kScale = split_decode::kNoScale;
   const int* lens;  // (B,)
   int s_max, hk, d;
 

@@ -1,14 +1,28 @@
 // Split-over-the-sequence decode attention ("flash decoding"), shared by
 // the paged kernel (K2, paged_attention.cu) and the contiguous-cache
 // kernel (K5, decode_attention.cu). The two differ only in where token
-// `pos` of sequence `b` lives, which a small address policy supplies:
+// `pos` of sequence `b` lives, and in how its K/V row dequantizes, which
+// a small address policy supplies:
 //
 //   struct Policy {
+//     static constexpr int kScale;          // kNoScale, kHeadScale or
+//                                           // kRowScale (below)
 //     __device__ int length(int b) const;   // live tokens of sequence b
 //     // element offset of (b, pos, kv head) row start; false when the row
 //     // must not be read (the paged table points outside the pool)
 //     __device__ bool row(int b, int pos, int kvh, size_t* off) const;
+//     // (k, v) dequant scales: of KV head kvh (kHeadScale, read once per
+//     // CTA) or of pool row `row` = offset / D (kRowScale, read beside
+//     // the row: one f32 pair, the same address for the whole warp)
+//     __device__ float2 scales(int kvh, size_t row) const;
 //   };
+//
+// The cache element type C is q's type T (float pools, no scale: the
+// loop has no dequant multiply, as the TPU kernel's static `has_scales`
+// flag keeps it) or int8_t (int8 pools, K2's int8 arm). A scale is
+// folded into the score (s * sm_scale * k_scale) and into the
+// probability that weights V (p * v_scale), never into each element:
+// two multiplies per token and query head instead of 2 * D.
 //
 // Bound on the H100: bytes. Every live K/V row is read once and used for
 // 2 * G * D multiply-adds (G = query heads per KV head, 1..8), a few flops
@@ -28,13 +42,19 @@
 // (TPU kernel's per-block online softmax, a 4-token block). The warps
 // then merge through shared memory and each split writes (m, l, acc) to a
 // small f32 scratch; a second kernel merges the splits, rescaling by
-// exp(m_s - m). Only positions below length(b) are ever read.
+// exp(m_s - m). Only positions below length(b) are ever read. An int8
+// row is D bytes: a lane loads its D/32 bytes (2 or 4), so a warp still
+// reads each row as one coalesced stretch.
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 
 namespace ptt {
 namespace split_decode {
+
+enum ScaleMode : int { kNoScale = 0, kHeadScale = 1, kRowScale = 2 };
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
@@ -56,14 +76,15 @@ __device__ __forceinline__ void load_pack(const T* p, float* out) {
 
 // One split: part_o[b, kvh, split] (group, D) unnormalised accumulator and
 // part_ml[b, kvh, split] (group, 2) = (running max, running sum). G is the
-// register capacity (>= group = h / hk).
-template <typename T, int DPL, int G, typename Policy>
+// register capacity (>= group = h / hk); C the cache element type.
+template <typename T, typename C, int DPL, int G, typename Policy>
 __global__ void __launch_bounds__(kThreads)
-    split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
-                 const T* __restrict__ vc, Policy policy,
+    split_kernel(const T* __restrict__ q, const C* __restrict__ kc,
+                 const C* __restrict__ vc, Policy policy,
                  float* __restrict__ part_o, float* __restrict__ part_ml,
                  int h, int hk, int nsplit, float sm_scale) {
   constexpr int D = DPL * 32;
+  constexpr int kScale = Policy::kScale;
   const int b = blockIdx.x;
   const int kvh = blockIdx.y;
   const int split = blockIdx.z;
@@ -74,6 +95,13 @@ __global__ void __launch_bounds__(kThreads)
   const int t0 = split * kSplitTokens;
   if (t0 >= len) return;  // the merge reads only splits below len
   const int t1 = min(t0 + kSplitTokens, len);
+  // a KV head's static dequant scales, once per CTA
+  float ks_head = 1.f, vs_head = 1.f;
+  if constexpr (kScale == kHeadScale) {
+    const float2 sc = policy.scales(kvh, 0);
+    ks_head = sc.x;
+    vs_head = sc.y;
+  }
 
   float qr[G][DPL];
   float m[G], l[G], acc[G][DPL];
@@ -93,16 +121,24 @@ __global__ void __launch_bounds__(kThreads)
   for (int base = t0 + warp * kUnroll; base < t1;
        base += kWarps * kUnroll) {
     float kf[kUnroll][DPL], vf[kUnroll][DPL];
+    float ksc[kUnroll], vsc[kUnroll];
     bool ok[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int pos = base + u;
       size_t off = 0;
       ok[u] = pos < t1 && policy.row(b, pos, kvh, &off);
+      ksc[u] = ks_head;
+      vsc[u] = vs_head;
       if (ok[u]) {
+        if constexpr (kScale == kRowScale) {
+          const float2 sc = policy.scales(kvh, off / D);
+          ksc[u] = sc.x;
+          vsc[u] = sc.y;
+        }
         off += lane * DPL;
-        load_pack<T, DPL>(kc + off, kf[u]);
-        load_pack<T, DPL>(vc + off, vf[u]);
+        load_pack<C, DPL>(kc + off, kf[u]);
+        load_pack<C, DPL>(vc + off, vf[u]);
       } else {
 #pragma unroll
         for (int i = 0; i < DPL; ++i) kf[u][i] = vf[u][i] = 0.f;
@@ -127,6 +163,11 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int g = 0; g < G; ++g)
           s[u][g] += __shfl_xor_sync(0xffffffffu, s[u][g], o);
+    // each token's score multiplier: sm_scale, times its K dequant scale
+    float qs[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      qs[u] = kScale == kNoScale ? sm_scale : sm_scale * ksc[u];
     // one online-softmax update per group for the kUnroll tokens (ok is
     // uniform over the warp: same position, same row)
 #pragma unroll
@@ -134,15 +175,17 @@ __global__ void __launch_bounds__(kThreads)
       float mx = kNegInf;
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u)
-        if (ok[u]) mx = fmaxf(mx, s[u][g] * sm_scale);
+        if (ok[u]) mx = fmaxf(mx, s[u][g] * qs[u]);
       const float m_new = fmaxf(m[g], mx);
       const float alpha = expf(m[g] - m_new);
-      float p[kUnroll];
+      float p[kUnroll], pv[kUnroll];
       float ps = 0.f;
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
-        p[u] = ok[u] ? expf(s[u][g] * sm_scale - m_new) : 0.f;
+        p[u] = ok[u] ? expf(s[u][g] * qs[u] - m_new) : 0.f;
         ps += p[u];
+        // the weight of V's row: p, times its V dequant scale
+        pv[u] = kScale == kNoScale ? p[u] : p[u] * vsc[u];
       }
       l[g] = alpha * l[g] + ps;
       m[g] = m_new;
@@ -150,7 +193,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int i = 0; i < DPL; ++i) {
         float a = acc[g][i] * alpha;
 #pragma unroll
-        for (int u = 0; u < kUnroll; ++u) a = fmaf(p[u], vf[u][i], a);
+        for (int u = 0; u < kUnroll; ++u) a = fmaf(pv[u], vf[u][i], a);
         acc[g][i] = a;
       }
     }
@@ -219,45 +262,45 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int DPL, int G, typename Policy>
+template <typename T, typename C, int DPL, int G, typename Policy>
 void launch(const void* q, const void* kc, const void* vc, Policy policy,
             void* out, float* part_o, float* part_ml, int b, int h, int hk,
             int nsplit, float sm_scale, cudaStream_t stream) {
-  split_kernel<T, DPL, G, Policy>
+  split_kernel<T, C, DPL, G, Policy>
       <<<dim3(b, hk, nsplit), kThreads, 0, stream>>>(
-          static_cast<const T*>(q), static_cast<const T*>(kc),
-          static_cast<const T*>(vc), policy, part_o, part_ml, h, hk, nsplit,
+          static_cast<const T*>(q), static_cast<const C*>(kc),
+          static_cast<const C*>(vc), policy, part_o, part_ml, h, hk, nsplit,
           sm_scale);
   merge_kernel<T, Policy><<<dim3(b, hk), kThreads, 0, stream>>>(
       part_o, part_ml, policy, static_cast<T*>(out), h, hk, DPL * 32,
       nsplit);
 }
 
-template <typename T, int DPL, typename Policy>
+template <typename T, typename C, int DPL, typename Policy>
 int launch_group(const void* q, const void* kc, const void* vc,
                  Policy policy, void* out, float* part_o, float* part_ml,
                  int b, int h, int hk, int nsplit, float scale,
                  cudaStream_t s) {
   switch (h / hk) {
     case 1:
-      launch<T, DPL, 1>(q, kc, vc, policy, out, part_o, part_ml, b, h, hk,
-                        nsplit, scale, s);
+      launch<T, C, DPL, 1>(q, kc, vc, policy, out, part_o, part_ml, b, h, hk,
+                           nsplit, scale, s);
       break;
     case 2:
-      launch<T, DPL, 2>(q, kc, vc, policy, out, part_o, part_ml, b, h, hk,
-                        nsplit, scale, s);
+      launch<T, C, DPL, 2>(q, kc, vc, policy, out, part_o, part_ml, b, h, hk,
+                           nsplit, scale, s);
       break;
     case 3:
     case 4:
-      launch<T, DPL, 4>(q, kc, vc, policy, out, part_o, part_ml, b, h, hk,
-                        nsplit, scale, s);
+      launch<T, C, DPL, 4>(q, kc, vc, policy, out, part_o, part_ml, b, h, hk,
+                           nsplit, scale, s);
       break;
     case 5:
     case 6:
     case 7:
     case 8:
-      launch<T, DPL, 8>(q, kc, vc, policy, out, part_o, part_ml, b, h, hk,
-                        nsplit, scale, s);
+      launch<T, C, DPL, 8>(q, kc, vc, policy, out, part_o, part_ml, b, h, hk,
+                           nsplit, scale, s);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -265,27 +308,37 @@ int launch_group(const void* q, const void* kc, const void* vc,
   return static_cast<int>(cudaGetLastError());
 }
 
-// dtype code, head dim and group size h / hk (1..8) -> the
-// template instance; returns the launch status (cudaGetLastError), or
+template <typename T, typename C, typename Policy>
+int dispatch_dim(const void* q, const void* kc, const void* vc,
+                 Policy policy, void* out, float* part_o, float* part_ml,
+                 int b, int h, int hk, int d, int nsplit, float scale,
+                 cudaStream_t s) {
+  if (d == 64)
+    return launch_group<T, C, 2>(q, kc, vc, policy, out, part_o, part_ml, b,
+                                 h, hk, nsplit, scale, s);
+  if (d == 128)
+    return launch_group<T, C, 4>(q, kc, vc, policy, out, part_o, part_ml, b,
+                                 h, hk, nsplit, scale, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// dtype code of q and the output, head dim and group size h / hk (1..8)
+// -> the template instance, over pools of q's dtype or, with Int8Cache,
+// int8 pools; returns the launch status (cudaGetLastError), or
 // cudaErrorInvalidValue for an unsupported dtype, head dim or group.
-template <typename Policy>
+template <bool Int8Cache = false, typename Policy>
 int dispatch(const void* q, const void* kc, const void* vc, Policy policy,
              void* out, float* part_o, float* part_ml, int b, int h, int hk,
              int d, int nsplit, float scale, int dtype, cudaStream_t s) {
-  if (dtype == kF32 && d == 64)
-    return launch_group<float, 2>(q, kc, vc, policy, out, part_o, part_ml, b,
-                                  h, hk, nsplit, scale, s);
-  if (dtype == kF32 && d == 128)
-    return launch_group<float, 4>(q, kc, vc, policy, out, part_o, part_ml, b,
-                                  h, hk, nsplit, scale, s);
-  if (dtype == kBF16 && d == 64)
-    return launch_group<__nv_bfloat16, 2>(q, kc, vc, policy, out, part_o,
-                                          part_ml, b, h, hk, nsplit, scale,
-                                          s);
-  if (dtype == kBF16 && d == 128)
-    return launch_group<__nv_bfloat16, 4>(q, kc, vc, policy, out, part_o,
-                                          part_ml, b, h, hk, nsplit, scale,
-                                          s);
+  if (dtype == kF32)
+    return dispatch_dim<float, std::conditional_t<Int8Cache, int8_t, float>>(
+        q, kc, vc, policy, out, part_o, part_ml, b, h, hk, d, nsplit, scale,
+        s);
+  if (dtype == kBF16)
+    return dispatch_dim<__nv_bfloat16,
+                        std::conditional_t<Int8Cache, int8_t, __nv_bfloat16>>(
+        q, kc, vc, policy, out, part_o, part_ml, b, h, hk, d, nsplit, scale,
+        s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

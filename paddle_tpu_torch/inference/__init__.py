@@ -13,8 +13,11 @@ def create_serving_engine(model, **kwargs):
     ``max_context``, ``prefill_chunk``, ``decode_quantum``,
     ``decode_strategy`` (``"greedy"`` or ``"sampling"`` with ``top_k``,
     ``top_p``, ``temperature``, ``per_request_sampling``),
-    ``eos_token_id``, ``device`` (default ``cuda``; raises without CUDA
-    unless ``"cpu"``)."""
+    ``eos_token_id``, ``quantize`` (``"weight_only_int8"`` or
+    ``"llm.int8"``: the model's Linears swept IN PLACE to int8 weights
+    with per-channel scales), ``kv_dtype`` (``"int8"``: int8 KV pools
+    with per-row scale pools), ``device`` (default ``cuda``; raises
+    without CUDA unless ``"cpu"``)."""
     from ..serving import ServingEngine
 
     return ServingEngine(model, **kwargs)

@@ -4,13 +4,17 @@ The reference's ``state_dict()`` (read through numpy, e.g.
 ``{k: v.numpy() for k, v in ref.state_dict().items()}``) has the same keys
 as the port's parameters. Paddle's ``Linear`` keeps its weight as
 (in, out) and ``torch.nn.Linear`` as (out, in): the carry transposes each
-Linear weight once and copies everything else as it is.
+Linear weight once and copies everything else as it is. A quantized
+model's int8 ``quant_weight`` (``QuantizedLinear``) is transposed the same
+way; its ``weight_scale`` is per output channel and carries as it is.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 from torch import nn
+
+from ..nn.quant import QuantizedLinear
 
 __all__ = ["load_paddle_tpu_arrays", "paddle_tpu_arrays_to_port"]
 
@@ -21,7 +25,9 @@ def _params(model):
     for name, mod in model.named_modules():
         for pname, p in mod.named_parameters(recurse=False):
             key = f"{name}.{pname}" if name else pname
-            out[key] = (p, isinstance(mod, nn.Linear) and pname == "weight")
+            out[key] = (p, (isinstance(mod, nn.Linear) and pname == "weight")
+                        or (isinstance(mod, QuantizedLinear)
+                            and pname == "quant_weight"))
     return out
 
 

@@ -8,9 +8,10 @@ pools are ``(num_blocks, block_size, HK, D)`` torch tensors, one K and
 one V per layer, updated IN PLACE by the serving path (the reference
 replaces its immutable arrays instead).
 
-This slice ports the allocation and accounting subset. The prefix cache
-(``prefix_cache=True``: chain-hash index, copy-on-write, LRU eviction)
-and int8 pools (``kv_dtype="int8"``) come with later slices.
+This slice ports the allocation and accounting subset and int8 pools
+(``kv_dtype="int8"``: int8 block buffers beside per-row f32 scale
+pools). The prefix cache (``prefix_cache=True``: chain-hash index,
+copy-on-write, LRU eviction) comes with a later slice.
 """
 from __future__ import annotations
 
@@ -30,6 +31,11 @@ class PagedKVCachePool:
         block_size: tokens per block.
         num_kv_heads, head_dim, num_layers: cache geometry.
         dtype: cache dtype (bf16 for serving).
+        kv_dtype: ``"int8"`` makes the block buffers int8 and adds
+            per-layer scale pools ``k_scales`` / ``v_scales`` of shape
+            (num_blocks, block_size, num_kv_heads) f32: one abs-max
+            scale per written KV row, written beside the row and read
+            by the attention's dequant. ``None`` keeps float pools.
         device: where the pools live (default ``cuda``; raises without
             CUDA unless ``"cpu"`` is asked for).
     """
@@ -40,10 +46,10 @@ class PagedKVCachePool:
         if prefix_cache:
             raise NotImplementedError(
                 "the prefix cache is not ported yet (ROADMAP A5)")
-        if kv_dtype is not None:
-            raise NotImplementedError(
-                f"kv_dtype={kv_dtype!r} pools are not ported yet "
-                f"(ROADMAP A9)")
+        if kv_dtype not in (None, "int8"):
+            raise ValueError(
+                f"unsupported kv_dtype {kv_dtype!r} (None or 'int8')")
+        self.kv_dtype = kv_dtype
         self.num_blocks = int(num_blocks)
         self.block_size = int(block_size)
         self.num_kv_heads = int(num_kv_heads)
@@ -52,16 +58,34 @@ class PagedKVCachePool:
         self.device = resolve_device(device)
         shape = (self.num_blocks, self.block_size, self.num_kv_heads,
                  self.head_dim)
-        self.k_pools = [torch.zeros(shape, dtype=dtype, device=self.device)
+        pool_dtype = torch.int8 if self.quantized else dtype
+        self.k_pools = [torch.zeros(shape, dtype=pool_dtype,
+                                    device=self.device)
                         for _ in range(self.num_layers)]
-        self.v_pools = [torch.zeros(shape, dtype=dtype, device=self.device)
+        self.v_pools = [torch.zeros(shape, dtype=pool_dtype,
+                                    device=self.device)
                         for _ in range(self.num_layers)]
+        self.k_scales, self.v_scales = [], []
+        if self.quantized:
+            sshape = shape[:3]
+            self.k_scales = [torch.zeros(sshape, dtype=torch.float32,
+                                         device=self.device)
+                             for _ in range(self.num_layers)]
+            self.v_scales = [torch.zeros(sshape, dtype=torch.float32,
+                                         device=self.device)
+                             for _ in range(self.num_layers)]
         self._free = list(range(self.num_blocks - 1, -1, -1))
         self._tables: dict = {}     # seq_id -> list[int] block ids
         self._lens: dict = {}       # seq_id -> int tokens
         self._refcounts: dict = {}  # block id -> holders (>= 1 while out)
         self._peak_blocks = 0       # high-water mark of blocks_in_use
         self._freed_total = 0       # blocks returned over the pool's life
+
+    @property
+    def quantized(self):
+        """True when the block buffers are int8 beside per-row scale
+        pools."""
+        return self.kv_dtype == "int8"
 
     # -- allocator ---------------------------------------------------------
     def _alloc_block(self):
@@ -225,9 +249,13 @@ class PagedKVCachePool:
         }
 
     def bytes_in_use(self):
-        """Live cache bytes: scales with allocated blocks."""
+        """Live cache bytes: scales with allocated blocks, at the pools'
+        element size, plus the scale rows of an int8 pool."""
         per_block = (self.block_size * self.num_kv_heads * self.head_dim
                      * self.k_pools[0].element_size())
+        if self.quantized:
+            per_block += (self.block_size * self.num_kv_heads
+                          * self.k_scales[0].element_size())
         return 2 * self.num_layers * self.blocks_in_use * per_block
 
     # -- host views --------------------------------------------------------

@@ -1,5 +1,5 @@
-"""Neural-network layers and functionals of the port."""
-from . import functional
+"""Neural-network layers, functionals and quantization of the port."""
+from . import functional, quant
 from .layer import RMSNorm
 
-__all__ = ["functional", "RMSNorm"]
+__all__ = ["functional", "quant", "RMSNorm"]

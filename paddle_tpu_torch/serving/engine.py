@@ -22,10 +22,14 @@ updated in place. Decoding is greedy, or sampling with engine-wide
 ``top_k``/``top_p``/``temperature`` (and, with ``per_request_sampling``,
 a per-slot temperature): each draw is keyed by (request seed, tokens
 emitted so far), so a stream does not depend on preemption or on how
-steps group into quanta. Observability, SLOs, the flight
-recorder, fault injection, resilience, speculative decoding, tensor
-parallelism, int8, the prefix cache and multi-quantum dispatch are
-later slices (ROADMAP A7-A12); the engine does not take their options.
+steps group into quanta. int8 serving: ``quantize="weight_only_int8"``
+sweeps the model's Linears to int8 weights with per-channel scales, and
+``kv_dtype="int8"`` keeps int8 pools with per-row scale pools, every
+written row quantized by its own abs-max (the quantum's attention is
+K2's per-row mode). Observability, SLOs, the flight recorder, fault
+injection, resilience, speculative decoding, tensor parallelism, the
+prefix cache and multi-quantum dispatch are later slices (ROADMAP
+A7-A12); the engine does not take their options.
 """
 from __future__ import annotations
 
@@ -39,7 +43,9 @@ from ..incubate.nn.functional import block_multihead_attention
 from ..nlp.generation import _filter_logits, fold_seed, gumbel_argmax
 from ..nlp.paged_cache import PagedKVCachePool
 from ..nn.functional.rope import build_rope_cache, inv_freq
-from ..ops.paged_attention import paged_decode_attention
+from ..nn.quant import quantize_for_serving, quantize_kv_rows
+from ..ops.paged_attention import (_paged_decode_attention_rows,
+                                   paged_decode_attention)
 from .scheduler import Request, Scheduler, SchedulerConfig
 
 __all__ = ["ServingEngine", "paged_decode_math"]
@@ -56,14 +62,28 @@ def _rope_rows(x, cos, sin):
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
 
 
+def _paged_attn(q, kp, vp, tables, lens, ks=None, vs=None):
+    """The quantum's decode attention: K2 over float pools, or K2's
+    per-row mode over int8 pools with per-row scale pools ``ks``/``vs``
+    (where the reference engine gathers and dequantizes the whole
+    context, ``_xla_paged_decode_attn``)."""
+    if ks is None:
+        return paged_decode_attention(q, kp, vp, tables, lens)
+    return _paged_decode_attention_rows(q, kp, vp, ks, vs, tables, lens)
+
+
 def paged_decode_math(model, scratch_block, ids_t, seq_lens, tables, kc, vc,
-                      live):
+                      live, ks=(), vs=()):
     """One token for every slot over a paged pool (the quantum's step).
 
     ``ids_t`` (S, 1) last tokens, ``seq_lens`` (S,) int32 tokens cached,
     ``tables`` (S, W) int32, ``kc``/``vc`` the per-layer pools (written in
     place), ``live`` (S,) bool. A masked row writes its KV into the
-    scratch block and attends one position. Returns logits (S, vocab)."""
+    scratch block and attends one position. ``ks``/``vs`` are the
+    per-layer scale pools of an int8 pool (empty for a float pool): each
+    written row, the scratch block's included, quantizes by its own
+    abs-max and its scale is written beside it. Returns logits
+    (S, vocab)."""
     cfg = model.config
     core = model.llama
     s = ids_t.shape[0]
@@ -94,9 +114,16 @@ def paged_decode_math(model, scratch_block, ids_t, seq_lens, tables, kc, vc,
                         cos, sin)
         q, k = qk[:, :h], qk[:, h:]
         v = attn.v_proj(x).view(s, hk, d)
+        ksi = vsi = None
+        if ks:
+            k, k_sc = quantize_kv_rows(k)
+            v, v_sc = quantize_kv_rows(v)
+            ksi, vsi = ks[i], vs[i]
+            ksi.index_put_((write_blk, write_off), k_sc)
+            vsi.index_put_((write_blk, write_off), v_sc)
         kc[i].index_put_((write_blk, write_off), k.to(kc[i].dtype))
         vc[i].index_put_((write_blk, write_off), v.to(vc[i].dtype))
-        att = paged_decode_attention(q, kc[i], vc[i], tables, lens)
+        att = _paged_attn(q, kc[i], vc[i], tables, lens, ksi, vsi)
         hidden = residual + attn.o_proj(att.view(s, 1, h * d))
         hidden = hidden + layer.mlp(layer.post_attention_layernorm(hidden))
     return model.lm_head(core.norm(hidden))[:, 0]
@@ -123,6 +150,14 @@ class ServingEngine:
             ``submit(..., temperature=)``, divided into the logits before
             the top-k/top-p cut; a request without one gets the
             engine-wide temperature.
+        quantize: ``"weight_only_int8"`` (or ``"llm.int8"``, the same
+            algorithm) sweeps the model's Linears IN PLACE to
+            :class:`~paddle_tpu_torch.nn.quant.QuantizedLinear` (int8
+            weights, per-output-channel f32 scales) before ``eval()``.
+            Greedy streams equal a float engine's over the dequantized
+            weights. ``None``: float weights.
+        kv_dtype: ``"int8"`` builds int8 pools with per-row f32 scale
+            pools; ``None`` keeps float pools in the model's dtype.
         device: default ``cuda``; raises without CUDA unless ``"cpu"``.
     """
 
@@ -130,7 +165,8 @@ class ServingEngine:
                  max_context=None, prefill_chunk=64, decode_quantum=8,
                  decode_strategy="greedy", top_k=0, top_p=1.0,
                  temperature=1.0, eos_token_id=None,
-                 per_request_sampling=False, device=None):
+                 per_request_sampling=False, quantize=None, kv_dtype=None,
+                 device=None):
         cfg = model.config
         if getattr(cfg, "sliding_window", None):
             raise NotImplementedError(
@@ -157,6 +193,13 @@ class ServingEngine:
             raise ValueError(
                 f"the model lies on {params[0].device}, the engine on "
                 f"{self.device}: build the model with device=")
+        if kv_dtype not in (None, "int8"):
+            raise ValueError(
+                f"unsupported kv_dtype {kv_dtype!r} (None or 'int8')")
+        if quantize is not None:
+            # sweep before eval(): the quantized layers are what runs
+            quantize_for_serving(model, algo=quantize)
+            params = list(model.parameters())
         model.eval()
         self.model = model
         self.config = SchedulerConfig(num_slots=num_slots,
@@ -165,6 +208,8 @@ class ServingEngine:
         self.eos_token_id = (None if eos_token_id is None
                              else int(eos_token_id))
         self.max_context = int(max_context or cfg.max_position_embeddings)
+        # the float pools' dtype: the first FLOATING parameter's (a
+        # quantized model's first Linear parameter is int8)
         cache_dtype = next(p.dtype for p in params if p.is_floating_point())
         s = self.config.num_slots
         bs = int(block_size)
@@ -174,7 +219,7 @@ class ServingEngine:
         self.pool = PagedKVCachePool(
             num_blocks, bs, cfg.num_key_value_heads, cfg.head_dim,
             num_layers=cfg.num_hidden_layers, dtype=cache_dtype,
-            device=self.device)
+            kv_dtype=kv_dtype, device=self.device)
         # masked (retired/empty) rows dump their KV writes here
         self._scratch_block = self.pool.ensure("__scratch__", 1)[0]
         self.scheduler = Scheduler(self.config, self.pool, reserved_blocks=1)
@@ -342,13 +387,19 @@ class ServingEngine:
             use_neox_rotary_style=True,  # the model's rope layout
             num_heads=h, kv_num_heads=hk, head_dim=d)
         hidden = core.embed_tokens(self._dev(ids))          # (T, E)
+        pool = self.pool
         for i, layer in enumerate(core.layers):
             attn = layer.self_attn
             x = layer.input_layernorm(hidden)
             qkv = torch.cat([attn.q_proj(x), attn.k_proj(x),
                              attn.v_proj(x)], dim=-1)
+            # an int8 pool threads its per-row scale pools (written in
+            # place beside the rows)
+            scales = ({} if not pool.quantized else
+                      dict(cache_k_scale_pool=pool.k_scales[i],
+                           cache_v_scale_pool=pool.v_scales[i]))
             att = block_multihead_attention(
-                qkv, self.pool.k_pools[i], self.pool.v_pools[i], **common)
+                qkv, pool.k_pools[i], pool.v_pools[i], **common, **scales)
             hidden = hidden + attn.o_proj(att)
             hidden = hidden + layer.mlp(layer.post_attention_layernorm(hidden))
         return core.norm(hidden)
@@ -455,7 +506,7 @@ class ServingEngine:
                 logits = paged_decode_math(
                     self.model, self._scratch_block, last_tok[:, None],
                     seq_lens, tables, self.pool.k_pools, self.pool.v_pools,
-                    live)
+                    live, self.pool.k_scales, self.pool.v_scales)
                 nxt = self._select(logits, slots,
                                    (self._n_gen + j).tolist()).int()
                 nxt = torch.where(done, last_tok, nxt)

@@ -85,6 +85,89 @@ def test_cuda_kernels_match_plain(cuda, dtype, tol):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_cuda_paged_int8_matches_plain(cuda, dtype, tol):
+    """K2's int8 arm (static (HK,) scales, one given) and its per-row
+    mode against their plain versions: groups 1, 4, 7 (in the 8-row
+    slot) and 8, head dims 64 and 128. Outputs are compared relative to
+    the largest dequantized |v| (up to 128 without a v scale), the scale
+    of f32 rounding in a weighted sum of V rows."""
+    from paddle_tpu_torch.ops.paged_attention import (
+        _paged_decode_attention_rows, _paged_decode_attention_rows_plain)
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    for h, hk in ((32, 32), (32, 8), (28, 4), (16, 2)):
+        for d, bs in ((64, 16), (128, 32)):
+            lens = torch.tensor([1, 31, 32, 300], dtype=torch.int32,
+                                device=cuda)
+            w = -(-300 // bs) + 2
+            nb = 4 * w + 1
+            kp, vp = (torch.randint(-128, 128, (nb, bs, hk, d), generator=g,
+                                    device=cuda, dtype=torch.int8)
+                      for _ in range(2))
+            tables = torch.randperm(nb, device=cuda)[:4 * w].view(4, w).int()
+            for i, ln in enumerate(lens.tolist()):
+                tables[i, -(-ln // bs):] = 10 ** 6      # never read
+            q = _rnd(g, dtype, 4, h, d)
+            ks = torch.rand(hk, generator=g, device=cuda) * 0.02 + 0.005
+            vs = torch.rand(hk, generator=g, device=cuda) * 0.02 + 0.005
+            # raw int8 keys (no k_scale: scale 1) take a smaller query,
+            # or the scores reach ~200 and f32 rounding alone moves them
+            for kw, qq in ((dict(k_scale=ks, v_scale=vs), q),
+                           (dict(v_scale=vs), q * 0.02),
+                           (dict(k_scale=ks), q)):
+                out = ops.paged_decode_attention(qq, kp, vp, tables, lens,
+                                                 **kw)
+                ref = ops.paged_decode_attention_plain(qq, kp, vp, tables,
+                                                       lens, **kw)
+                vmax = 128 * float(kw.get("v_scale", torch.ones(1)).max())
+                torch.testing.assert_close(out.float() / vmax,
+                                           ref.float() / vmax, atol=tol,
+                                           rtol=tol)
+            rks = torch.rand(nb, bs, hk, generator=g, device=cuda) * 0.02
+            rvs = torch.rand(nb, bs, hk, generator=g, device=cuda) * 0.02
+            out = _paged_decode_attention_rows(q, kp, vp, rks, rvs, tables,
+                                               lens)
+            ref = _paged_decode_attention_rows_plain(q, kp, vp, rks, rvs,
+                                                     tables, lens)
+            vmax = 128 * float(rvs.max())
+            torch.testing.assert_close(out.float() / vmax, ref.float() / vmax,
+                                       atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_cuda_int8_engine_kernel_path_equals_plain_path(cuda):
+    """The int8 engine (int8 weights, int8 KV pools) on the card: the
+    quantum runs K2's per-row mode and no float K2, and its f32 streams
+    equal the plain path's."""
+    model = LlamaForCausalLM(
+        LlamaConfig.tiny(hidden_size=256, num_attention_heads=4,
+                         num_key_value_heads=2, vocab_size=512),
+        generator=torch.Generator(device=cuda).manual_seed(0))
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(1, 512, n).astype(np.int32)
+               for n in (5, 40, 3, 77, 18)]
+    streams = []
+    for plain in (False, True):
+        ops.reset_launches()
+        engine = create_serving_engine(
+            model, num_slots=3, block_size=16, prefill_chunk=32,
+            decode_quantum=4, quantize="weight_only_int8", kv_dtype="int8")
+        reqs = [engine.submit(p, max_new_tokens=9) for p in prompts]
+        if plain:
+            with ops.plain_versions():
+                engine.run()
+            assert all(n == 0 for n in ops.LAUNCHES.values())
+        else:
+            engine.run()
+            assert ops.LAUNCHES["paged_decode_attention_int8_rows"] > 0
+            assert ops.LAUNCHES["paged_decode_attention"] == 0
+        streams.append([r.tokens for r in reqs])
+    assert streams[0] == streams[1]
+
+
+@pytest.mark.cuda
 def test_cuda_engine_kernel_path_equals_plain_path(cuda):
     model = LlamaForCausalLM(
         LlamaConfig.tiny(hidden_size=256, num_attention_heads=4,

@@ -1,5 +1,7 @@
 """The port's kernels K1-K3 (paddle_tpu_torch.ops) held against the Pallas
-kernels of paddle_tpu, on the shapes the reference's own kernel tests use.
+kernels of paddle_tpu, on the shapes the reference's own kernel tests use
+(K2 also in its int8 arm, and its per-row mode against the reference
+engine's gather path).
 
 On the CPU the port's wrappers run their plain PyTorch versions and the
 Pallas kernels run in interpret mode, so these tests check the plain
@@ -23,6 +25,7 @@ from paddle_tpu.ops.pallas.rms_norm import rms_norm as jax_rms_norm
 from paddle_tpu.ops.pallas.varlen_flash_attention import (
     varlen_flash_attention as jax_varlen_flash_attention,
 )
+from paddle_tpu.serving.engine import _xla_paged_decode_attn
 from paddle_tpu_torch import ops
 from paddle_tpu_torch.ops import _library
 
@@ -147,11 +150,130 @@ def test_paged_cache_write_matches_reference():
 
 
 def test_paged_rejects_int8_scales():
-    with pytest.raises(NotImplementedError, match="int8"):
-        ops.paged_decode_attention(
-            torch.zeros(1, 2, 16), torch.zeros(4, 8, 2, 16),
-            torch.zeros(4, 8, 2, 16), torch.zeros(1, 1, dtype=torch.int32),
-            torch.ones(1, dtype=torch.int32), k_scale=torch.ones(2))
+    """The scales this slice once refused now run as in the reference,
+    which applies (HK,) scales to float pools too (its ``has_scales``):
+    the plain version against the Pallas kernel on float pools."""
+    rng = np.random.RandomState(6)
+    q, kp, vp, tables, sl = _paged_setup(rng, [9, 40], 4, 2, 16, 8)
+    ks, vs = np.asarray([0.5, 2.0], "f4"), np.asarray([1.5, 0.25], "f4")
+    want = jax_paged_decode_attention(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+        jnp.asarray(tables), jnp.asarray(sl), k_scale=jnp.asarray(ks),
+        v_scale=jnp.asarray(vs))
+    got = ops.paged_decode_attention(_t(q), _t(kp), _t(vp), _t(tables),
+                                     _t(sl), k_scale=_t(ks), v_scale=_t(vs))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+
+
+def _int8_pools(rng, kp, vp):
+    """int8 pools spanning the whole int8 range."""
+    return tuple(np.clip(np.round(p * 40), -128, 127).astype(np.int8)
+                 for p in (kp, vp))
+
+
+@pytest.mark.parametrize("scales", ["both", "k_only", "v_only", "none"])
+@pytest.mark.parametrize("lens,h,hk,d,bs", [
+    ([7, 32, 57, 128], 8, 4, 64, 32),
+    ([1, 40, 33], 4, 4, 64, 16),
+])
+def test_paged_int8_plain_matches_pallas(scales, lens, h, hk, d, bs):
+    """K2's int8 arm: int8 pools dequantized by (HK,) scales inside the
+    kernel. With one scale given the other is ones; with none the int8
+    values run at scale 1 (the reference's has_scales=False)."""
+    rng = np.random.RandomState(7)
+    q, kp, vp, tables, sl = _paged_setup(rng, lens, h, hk, d, bs)
+    kq, vq = _int8_pools(rng, kp, vp)
+    ks = (rng.rand(hk) * 0.05 + 0.01).astype("f4")
+    vs = (rng.rand(hk) * 0.05 + 0.01).astype("f4")
+    kw = {"both": dict(k_scale=ks, v_scale=vs), "k_only": dict(k_scale=ks),
+          "v_only": dict(v_scale=vs), "none": {}}[scales]
+    if "k_scale" not in kw:
+        q = q * 0.02  # raw int8 keys: keep the scores near the scaled ones
+    want = jax_paged_decode_attention(
+        jnp.asarray(q), jnp.asarray(kq), jnp.asarray(vq),
+        jnp.asarray(tables), jnp.asarray(sl),
+        **{k: jnp.asarray(v) for k, v in kw.items()})
+    got = ops.paged_decode_attention(_t(q), _t(kq), _t(vq), _t(tables),
+                                     _t(sl), **{k: _t(v) for k, v in
+                                                kw.items()})
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+
+
+def test_paged_int8_plain_matches_pallas_bf16_query():
+    rng = np.random.RandomState(8)
+    q, kp, vp, tables, sl = _paged_setup(rng, [9, 64, 70], 8, 2, 64, 32)
+    q = _bf16_np(q)
+    kq, vq = _int8_pools(rng, kp, vp)
+    ks, vs = np.asarray([0.02, 0.03], "f4"), np.asarray([0.04, 0.01], "f4")
+    want = jax_paged_decode_attention(
+        jnp.asarray(q, jnp.bfloat16), jnp.asarray(kq), jnp.asarray(vq),
+        jnp.asarray(tables), jnp.asarray(sl), k_scale=jnp.asarray(ks),
+        v_scale=jnp.asarray(vs))
+    got = ops.paged_decode_attention(_t(q).bfloat16(), _t(kq), _t(vq),
+                                     _t(tables), _t(sl), k_scale=_t(ks),
+                                     v_scale=_t(vs))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), **BF16)
+
+
+@pytest.mark.parametrize("lens,h,hk,d,bs", [
+    ([7, 32, 57, 128], 8, 4, 64, 32),
+    ([1, 40, 33], 4, 4, 64, 16),
+    ([5, 100], 8, 1, 32, 32),
+])
+def test_paged_int8_rows_plain_matches_reference_engine(lens, h, hk, d, bs):
+    """K2's per-row mode (the int8 engine's quantum attention): its plain
+    version against the reference engine's gather path with per-row
+    scale pools. Table entries past each length are 0 here, as the
+    engine pads them (the reference's gather reads every entry)."""
+    from paddle_tpu_torch.ops.paged_attention import (
+        _paged_decode_attention_rows)
+
+    rng = np.random.RandomState(9)
+    q, kp, vp, tables, sl = _paged_setup(rng, lens, h, hk, d, bs,
+                                         garbage=False)
+    kq, vq = _int8_pools(rng, kp, vp)
+    ks = (rng.rand(*kp.shape[:3]) * 0.05 + 0.01).astype("f4")
+    vs = (rng.rand(*kp.shape[:3]) * 0.05 + 0.01).astype("f4")
+    want = _xla_paged_decode_attn(
+        jnp.asarray(q), jnp.asarray(kq), jnp.asarray(vq),
+        jnp.asarray(tables), jnp.asarray(sl), ks=jnp.asarray(ks),
+        vs=jnp.asarray(vs))
+    got = _paged_decode_attention_rows(_t(q), _t(kq), _t(vq), _t(ks), _t(vs),
+                                       _t(tables), _t(sl))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+    # the same rows at a uniform per-head scale are the static arm
+    flat = np.broadcast_to(ks[0, 0], ks.shape).copy()
+    rows = _paged_decode_attention_rows(_t(q), _t(kq), _t(vq), _t(flat),
+                                        _t(flat), _t(tables), _t(sl))
+    static = ops.paged_decode_attention(_t(q), _t(kq), _t(vq), _t(tables),
+                                        _t(sl), k_scale=_t(ks[0, 0]),
+                                        v_scale=_t(ks[0, 0]))
+    np.testing.assert_allclose(rows.numpy(), static.numpy(), **F32)
+
+
+def test_library_digest_covers_every_source_and_header(tmp_path,
+                                                       monkeypatch):
+    """A stale kernel library is never loaded: the library's name hashes
+    every CUDA source and header, so editing any of them renames it."""
+    import shutil
+
+    on_disk = {p.name for p in _library.CSRC.iterdir()
+               if p.suffix in (".cu", ".cuh")}
+    assert on_disk == set(_library.SOURCES) | set(_library.HEADERS)
+    before = _library._digest()
+    copy = tmp_path / "csrc"
+    shutil.copytree(_library.CSRC, copy)
+    monkeypatch.setattr(_library, "CSRC", copy)
+    assert _library._digest() == before
+    for name in ("split_decode.cuh", "common.cuh", "paged_attention.cu"):
+        path = copy / name
+        text = path.read_text()
+        path.write_text(text + "\n")
+        assert _library._digest() != before, name
+        path.write_text(text)
 
 
 # ------------------------------------------------------------------ K3

@@ -11,10 +11,12 @@ from paddle_tpu.nlp import PagedKVCachePool as RefPool
 from paddle_tpu_torch.nlp import PagedKVCachePool
 
 
-def _pools(num_blocks=24, bs=4):
-    ref = RefPool(num_blocks, bs, 2, 8, num_layers=2, dtype=jnp.float32)
+def _pools(num_blocks=24, bs=4, kv_dtype=None):
+    ref = RefPool(num_blocks, bs, 2, 8, num_layers=2, dtype=jnp.float32,
+                  kv_dtype=kv_dtype)
     port = PagedKVCachePool(num_blocks, bs, 2, 8, num_layers=2,
-                            dtype=torch.float32, device="cpu")
+                            dtype=torch.float32, kv_dtype=kv_dtype,
+                            device="cpu")
     return ref, port
 
 
@@ -101,9 +103,46 @@ def test_pools_are_device_tensors_written_in_place():
     assert port.k_pools[0].shape == (8, 4, 2, 8)
     assert port.k_pools[0].dtype == torch.bfloat16
     assert port.fragmentation_stats()["kv_dtype"] == "bfloat16"
+    assert not port.quantized and port.k_scales == []
     with pytest.raises(NotImplementedError, match="prefix"):
         PagedKVCachePool(8, 4, 2, 8, prefix_cache=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="int8"):
-        PagedKVCachePool(8, 4, 2, 8, kv_dtype="int8", device="cpu")
+    # int8 pools: int8 block buffers beside per-row f32 scale pools
+    q8 = PagedKVCachePool(8, 4, 2, 8, num_layers=3, dtype=torch.bfloat16,
+                          kv_dtype="int8", device="cpu")
+    assert q8.quantized
+    assert all(p.dtype == torch.int8 and p.shape == (8, 4, 2, 8)
+               for p in q8.k_pools + q8.v_pools)
+    assert len(q8.k_scales) == 3 and len(q8.v_scales) == 3
+    assert all(s.dtype == torch.float32 and s.shape == (8, 4, 2)
+               for s in q8.k_scales + q8.v_scales)
+    assert q8.fragmentation_stats()["kv_dtype"] == "int8"
+    with pytest.raises(ValueError, match="kv_dtype"):
+        PagedKVCachePool(8, 4, 2, 8, kv_dtype="fp8", device="cpu")
     with pytest.raises(NotImplementedError, match="copy-on-write"):
         port.grow_decode_table("a", 4, 0, cow=True)
+
+
+def test_int8_pool_accounting_equals_reference():
+    """An int8 pool's statistics and bytes (int8 rows plus one f32 scale
+    per row and KV head) equal the reference's through allocation, growth
+    and release; a block costs (8 + 4) / (8 * 4) of an f32 block here."""
+    ref, port = _pools(kv_dtype="int8")
+    assert port.quantized and ref.quantized
+    port.ensure("a", 9)
+    ref.ensure("a", 9)
+    port.ensure("b", 3)
+    ref.ensure("b", 3)
+    _same(ref, port, ["a", "b"])
+    assert port.fragmentation_stats()["kv_dtype"] == "int8"
+    f32 = _pools()[1]
+    f32.ensure("a", 9)
+    f32.ensure("b", 3)
+    assert port.bytes_in_use() * 32 == f32.bytes_in_use() * 12
+    np.testing.assert_array_equal(
+        np.asarray(ref.grow_decode_table("b", 7, 3, pad_to=4)),
+        port.grow_decode_table("b", 7, 3, pad_to=4))
+    for sid in ("a", "b"):
+        ref.free(sid)
+        port.free(sid)
+    _same(ref, port, [])
+    assert port.bytes_in_use() == 0
