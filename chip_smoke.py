@@ -12,9 +12,10 @@ Phases (any failure raises and the script exits non-zero):
    serving, generation and training paths' shapes, in bf16 and f32
    (K6/K7 also at Mistral's GQA width with its window; K8a/K8b at the
    packed 941M row, with GQA and a window, with unequal query and key
-   lengths, and with empty segments; K2's int8 arm with static (HK,)
-   scales and with per-row scale pools at the serving shape and at GQA
-   32/8): max error, kernel / plain /
+   lengths, and with empty segments; K3 also at the packed 941M row and
+   with GQA and a window; K2's int8 arm with static (HK,) scales and with
+   per-row scale pools at the serving shape and at GQA 32/8, and K2's
+   static scales over float pools): max error, kernel / plain /
    library-call device times (torch.profiler, summed kernel durations;
    CUDA events where the profiler records none, as ``timers`` says; where
    several library calls compute the same function the fastest counts,
@@ -87,16 +88,20 @@ Phases (any failure raises and the script exits non-zero):
     KV element to the neighbouring int8 value), and one
     ``block_multihead_attention`` mixed batch over int8 pools with static
     quant scales at the serving shape (8 slots, 128-token prefill chunks
-    and decode rows), the path of K2's static int8 arm: kernel path vs
-    plain within f32 1e-4, equal int8 pools.
+    and decode rows), the path of K2's static int8 arm, and one decode
+    step of 8 sequences through ``paged_decode_attention`` with (HK,)
+    scales over f32 pools (the public op that applies such scales to any
+    pool), the path of K2's static-scale mode over float pools: kernel
+    path vs plain within f32 1e-4, equal pools.
 
 The line before the last is the ``{"kernels": [...]}`` record (each
 kernel's launches come from the run of the path that carries it: K1-K3
 the serving run of phase 3, K4-K5 the generation run of phase 5, K6, K7a
 and K7b the training run of phase 7, K8a and K8b the packed training run
 of phase 9, K2's per-row int8 mode the int8-KV serving run of phase 11,
-its static int8 arm the batch of phase 12; ``launches_by_path`` has every
-path's count); the last line is ``{"ok": true, "device": {...}}``.
+its static int8 arm and its float-pool scaled mode the two runs of phase
+12; ``launches_by_path`` has every path's count); the last line is
+``{"ok": true, "device": {...}}``.
 Without CUDA it prints no result and exits 2.
 """
 from __future__ import annotations
@@ -331,6 +336,29 @@ def k2_cases(torch, g, dev):
                     q4, kd, vd, attn_mask=mask),
                 bound=bound_ms(nbytes, 4.0 * live * h * d,
                                str(dtype).removeprefix("torch.")))
+            if hk != 32:
+                continue
+            # the static-scale mode over float pools: (HK,) k and v scales
+            # (the TPU kernel's has_scales arm on a float pool); the
+            # yardstick scales the gathered dense cache, then one SDPA call
+            ks = torch.rand(hk, generator=g, device=dev) * 1.5 + 0.25
+            vs = torch.rand(hk, generator=g, device=dev) * 1.5 + 0.25
+            ksr = ks.repeat_interleave(h // hk)[None, :, None, None]
+            vsr = vs.repeat_interleave(h // hk)[None, :, None, None]
+            yield dict(
+                name="paged_decode_attention_scaled", dtype=dtype,
+                shape=f"B={b},H={h},HK={hk},D={d},BS={bs},lens={lens_list},"
+                      f"(HK,) scales",
+                primary=(dtype == torch.bfloat16),
+                kernel=lambda: ops.paged_decode_attention(
+                    q, kp, vp, tables, lens, k_scale=ks, v_scale=vs),
+                plain=lambda: ops.paged_decode_attention_plain(
+                    q, kp, vp, tables, lens, k_scale=ks, v_scale=vs),
+                library=lambda: tF.scaled_dot_product_attention(
+                    q4, (kd * ksr).to(dtype), (vd * vsr).to(dtype),
+                    attn_mask=mask),
+                bound=bound_ms(nbytes + 2 * 4 * hk, 4.0 * live * h * d,
+                               str(dtype).removeprefix("torch.")))
 
 
 def k2_int8_cases(torch, g, dev):
@@ -412,6 +440,13 @@ def k2_int8_cases(torch, g, dev):
 
 
 def k3_cases(torch, g, dev):
+    """K3 at the serving path's shape (8 x 128-token chunks over cached
+    contexts; the primary), at the packed training path's row (the 941M
+    configuration: D = 64, causal) and with GQA and a window at D = 128.
+    The serving case's library yardstick is one SDPA call over the
+    segments padded to a batch; the packed cases' the faster of one
+    block-diagonal-masked SDPA call over the row and the per-segment SDPA
+    forwards (``is_causal`` where no window cuts)."""
     from paddle_tpu_torch import ops
     from paddle_tpu_torch.ops.varlen_flash_attention import segment_mask
     import torch.nn.functional as tF
@@ -464,6 +499,70 @@ def k3_cases(torch, g, dev):
                     qb, kb, vb, attn_mask=mask),
                 bound=bound_ms(nbytes, 4.0 * pairs * h * d,
                                str(dtype).removeprefix("torch.")))
+    # (label, lens, H, HK, D, window, dtypes)
+    for label, lens, h, hk, d, window, dtypes in (
+            ("packed_941m", PACKED_LENS, 32, 32, 64, None,
+             (torch.bfloat16, torch.float32)),
+            ("gqa_window", PACKED_LENS, 32, 8, 128, 512, (torch.bfloat16,))):
+        cu = torch.tensor([0] + list(_cumsum(lens)), dtype=torch.int32,
+                          device=dev)
+        t = sum(lens)
+        pairs = int(segment_mask(cu, cu, t, t, True, window).sum())
+        for dtype in dtypes:
+            q = torch.randn(t, h, d, generator=g, device=dev).to(dtype)
+            k = torch.randn(t, hk, d, generator=g, device=dev).to(dtype)
+            v = torch.randn(t, hk, d, generator=g, device=dev).to(dtype)
+            e = q.element_size()
+            nbytes = (2 * t * h * d + 2 * t * hk * d) * e \
+                + 4 * (t * h + 2 * (len(lens) + 1))
+            yield dict(
+                name="varlen_flash_attention", dtype=dtype,
+                shape=f"{label}:lens={lens},H={h},HK={hk},D={d},causal,"
+                      f"window={window}",
+                primary=False,
+                kernel=lambda q=q, k=k, v=v, cu=cu, window=window:
+                    ops.varlen_flash_attention(q, k, v, cu, cu, causal=True,
+                                               window_size=window),
+                plain=lambda q=q, k=k, v=v, cu=cu, window=window:
+                    ops.varlen_flash_attention_plain(
+                        q, k, v, cu, cu, causal=True,
+                        window_size=window)[0],
+                library=_segment_forward_library(torch, q, k, v, lens,
+                                                 window),
+                bound=bound_ms(nbytes, 4.0 * pairs * h * d,
+                               str(dtype).removeprefix("torch.")))
+
+
+def _segment_forward_library(torch, q, k, v, lens, window):
+    """K3's library yardsticks on a packed row (equal query and key
+    lengths): one SDPA call over the row under the block-diagonal causal
+    (banded) mask, and the per-segment SDPA forwards (``is_causal``, or
+    the segment's band under a window)."""
+    from paddle_tpu_torch.ops.flash_attention import band_mask
+    from paddle_tpu_torch.ops.varlen_flash_attention import segment_mask
+    import torch.nn.functional as tF
+
+    dev = q.device
+    h, hk = q.shape[1], k.shape[1]
+    cu = torch.tensor([0] + list(_cumsum(lens)), device=dev)
+    qt = q.transpose(0, 1)[None].contiguous()
+    kt = _sdpa_layout(torch, k[None], h // hk).contiguous()
+    vt = _sdpa_layout(torch, v[None], h // hk).contiguous()
+    mask = segment_mask(cu, cu, q.shape[0], k.shape[0], True, window)
+    segs = [tuple(x[:, :, a:b].contiguous() for x in (qt, kt, vt))
+            + (None if window is None
+               else band_mask(b - a, b - a, True, window, dev),)
+            for a, b in zip(cu.tolist(), cu.tolist()[1:]) if b > a]
+
+    def per_segment():
+        return [tF.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+                if band is None else
+                tF.scaled_dot_product_attention(qs, ks, vs, attn_mask=band)
+                for qs, ks, vs, band in segs]
+    return {
+        "sdpa_block_diagonal_mask": lambda: tF.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask),
+        "sdpa_per_segment": per_segment}
 
 
 def _sdpa_layout(torch, x, rep):
@@ -787,6 +886,10 @@ KERNELS = {
     "paged_decode_attention_int8_rows": (
         "cuda", "paddle_tpu_torch/csrc/paged_attention.cu",
         "paddle_tpu/ops/pallas/paged_attention.py:157"),
+    # the same arm's static scales over float pools
+    "paged_decode_attention_scaled": (
+        "cuda", "paddle_tpu_torch/csrc/paged_attention.cu",
+        "paddle_tpu/ops/pallas/paged_attention.py:157"),
     "varlen_flash_attention": (
         "cuda", "paddle_tpu_torch/csrc/varlen_flash_attention.cu",
         "paddle_tpu/ops/pallas/varlen_flash_attention.py:160"),
@@ -823,9 +926,11 @@ INT8_SERVING_KERNELS = ("rms_norm", "varlen_flash_attention",
                         "paged_decode_attention_int8_rows")
 STATIC_INT8_KERNELS = ("paged_decode_attention_int8",
                        "varlen_flash_attention")
+SCALED_FLOAT_KERNELS = ("paged_decode_attention_scaled",)
 # the path whose run gives each kernel's launches in the kernels line
 KERNEL_PATH = {"paged_decode_attention_int8": "block_mha_static_int8",
-               "paged_decode_attention_int8_rows": "int8_serving"}
+               "paged_decode_attention_int8_rows": "int8_serving",
+               "paged_decode_attention_scaled": "scaled_float_decode"}
 
 
 def kernel_phase(torch, dev):
@@ -1011,7 +1116,7 @@ def _kernel_family(name):
                      ("varlen_bwd_dq_", "K8a varlen_flash_attention_bwd_dq"),
                      ("varlen_bwd_dkv_",
                       "K8b varlen_flash_attention_bwd_dkv"),
-                     ("varlen_bwd_order", "K8a/K8b tile order"),
+                     ("tile_order_kernel", "K3/K8 tile order"),
                      ("bwd_dq_", "K7a flash_attention_bwd_dq"),
                      ("bwd_dkv_", "K7b flash_attention_bwd_dkv"),
                      ("PagedRows<1>", "K2-int8 static"),
@@ -1847,22 +1952,27 @@ def int8_serving_phase(torch, dev):
     return main_path
 
 
-def _static_int8_batch(torch, g, dev):
+# cached tokens of the 8 rows of phase 12's batches
+STATIC_BATCH_CACHED = (0, 320, 896, 1792, 31, 500, 1024, 2046)
+
+
+def _static_scale_batch(torch, g, dev):
     """One block_multihead_attention mixed batch over int8 pools with
-    static per-head quant scales at the serving shape: 8 slots, 4 of them
-    prefilling 128-token chunks over cached contexts, 4 decoding one
-    token; H = HK = 32, D = 128, block size 32, f32."""
+    static per-head quant scales (K2's static int8 arm) at the serving
+    shape: 8 slots, 4 of them prefilling 128-token chunks over cached
+    contexts, 4 decoding one token; H = HK = 32, D = 128, block size 32,
+    f32."""
     import numpy as np
     from paddle_tpu_torch.incubate.nn.functional import (
         block_multihead_attention)
 
     h = hk = 32
     d, bs, w = 128, 32, 64
-    cached = [0, 320, 896, 1792, 31, 500, 1024, 2046]
     this = [128, 128, 128, 128, 1, 1, 1, 1]
     num_blocks = 8 * w + 1
-    kp, vp = (torch.randint(-128, 128, (num_blocks, bs, hk, d), generator=g,
-                            device=dev, dtype=torch.int8) for _ in range(2))
+    shape = (num_blocks, bs, hk, d)
+    kp, vp = (torch.randint(-128, 128, shape, generator=g, device=dev,
+                            dtype=torch.int8) for _ in range(2))
     perm = torch.randperm(num_blocks - 1, generator=g, device=dev) + 1
     tables = perm[:8 * w].view(8, w).int().cpu().numpy()
     qkv = torch.randn(sum(this), (h + 2 * hk) * d, generator=g, device=dev)
@@ -1870,15 +1980,44 @@ def _static_int8_batch(torch, g, dev):
     args = dict(
         seq_lens_encoder=np.asarray([t if t > 1 else 0 for t in this],
                                     np.int32),
-        seq_lens_decoder=np.asarray(cached, np.int32),
+        seq_lens_decoder=np.asarray(STATIC_BATCH_CACHED, np.int32),
         seq_lens_this_time=np.asarray(this, np.int32), block_tables=tables,
-        num_heads=h, kv_num_heads=hk, head_dim=d, cache_k_quant_scales=qs,
-        cache_v_quant_scales=qs * 0.8)
+        num_heads=h, kv_num_heads=hk, head_dim=d,
+        cache_k_quant_scales=qs, cache_v_quant_scales=qs * 0.8)
 
     def run():
         pools = (kp.clone(), vp.clone())
         out = block_multihead_attention(qkv, *pools, **args)
         return out, pools
+
+    return run
+
+
+def _scaled_float_decode(torch, g, dev):
+    """One decode step of 8 sequences through the public
+    ``paged_decode_attention`` with (HK,) k and v scales over f32 pools
+    (the reference's op applies such scales to any pool dtype;
+    block_multihead_attention passes them only to int8 pools): the
+    static batch's cached lengths plus the new token, H = HK = 32, D =
+    128, block size 32."""
+    from paddle_tpu_torch import ops
+
+    h = hk = 32
+    d, bs, w = 128, 32, 64
+    num_blocks = 8 * w + 1
+    kp, vp = (torch.randn((num_blocks, bs, hk, d), generator=g, device=dev)
+              for _ in range(2))
+    perm = torch.randperm(num_blocks - 1, generator=g, device=dev) + 1
+    tables = perm[:8 * w].view(8, w).int()
+    lens = torch.tensor([c + 1 for c in STATIC_BATCH_CACHED],
+                        dtype=torch.int32, device=dev)
+    q = torch.randn(8, h, d, generator=g, device=dev)
+    ks = torch.rand(hk, generator=g, device=dev) * 1.5 + 0.25
+    vs = ks * 0.8
+
+    def run():
+        return ops.paged_decode_attention(q, kp, vp, tables, lens,
+                                          k_scale=ks, v_scale=vs)
 
     return run
 
@@ -1920,15 +2059,16 @@ def _partings(streams, tables, reqs):
 def int8_parity_phase(torch, dev):
     """Phase 12: f32 parity at Llama-2-7B width with 4 layers, kernel path
     against plain path: the weight-only int8 engine (equal greedy
-    streams), the int8-KV engine, and one block_multihead_attention mixed
-    batch with STATIC quant scales (the TPU kernel's own int8 arm) within
-    f32 1e-4, its counters zeroed just before and read just after the
-    kernel-path call. The int8-KV engine's streams are equal up to
-    partings at near-ties: a 1-ulp difference before ``quantize_kv_rows``
-    can round a KV element to the neighbouring int8 value (1/127 of its
-    row's range), so each parting must be a runner-up swap (each path's
-    token the other's second choice) and the share of equal tokens is
-    reported."""
+    streams), the int8-KV engine, then STATIC (HK,) scales (the TPU
+    kernel's own has_scales arm) in a block_multihead_attention mixed
+    batch over int8 pools and in a paged_decode_attention step over f32
+    pools, within f32 1e-4, their counters zeroed just before and read
+    just after each kernel-path call. The int8-KV engine's streams are
+    equal up to partings at near-ties: a 1-ulp difference before
+    ``quantize_kv_rows`` can round a KV element to the neighbouring int8
+    value (1/127 of its row's range), so each parting must be a runner-up
+    swap (each path's token the other's second choice) and the share of
+    equal tokens is reported."""
     from paddle_tpu_torch import ops
     from paddle_tpu_torch.nlp import LlamaConfig, LlamaForCausalLM
 
@@ -1980,27 +2120,40 @@ def int8_parity_phase(torch, dev):
     gc.collect()
     torch.cuda.empty_cache()
 
-    run = _static_int8_batch(
-        torch, torch.Generator(device=dev).manual_seed(SEED + 2), dev)
-    torch.cuda.synchronize()
-    ops.reset_launches()
-    out, pools = run()
-    torch.cuda.synchronize()
-    static_launches = dict(ops.LAUNCHES)
-    with ops.plain_versions():
-        ref, ref_pools = run()
-    err, ok, tol = close(torch, out, ref, torch.float32)
-    pools_equal = all(torch.equal(a, b) for a, b in zip(pools, ref_pools))
-    emit({"phase": "block_mha_static_int8_f32", "max_abs_err": err,
-          "tol": tol, "ok": ok, "pools_equal": pools_equal,
-          "launches": static_launches})
-    check(ok and pools_equal,
-          f"static int8 block_multihead_attention: kernel path differs "
-          f"from plain (err {err}, pools equal {pools_equal})")
-    for name in STATIC_INT8_KERNELS:
-        check(static_launches[name] > 0,
-              f"kernel {name} was not launched by the static int8 batch")
-    return static_launches
+    launches = {}
+    for label, kernels, make in (
+            ("block_mha_static_int8", STATIC_INT8_KERNELS,
+             _static_scale_batch),
+            ("scaled_float_decode", SCALED_FLOAT_KERNELS,
+             _scaled_float_decode)):
+        run = make(torch, torch.Generator(device=dev).manual_seed(SEED + 2),
+                   dev)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        out = run()
+        torch.cuda.synchronize()
+        launches[label] = dict(ops.LAUNCHES)
+        with ops.plain_versions():
+            ref = run()
+        if isinstance(out, tuple):  # block_multihead_attention's pools
+            (out, pools), (ref, ref_pools) = out, ref
+            pools_equal = all(torch.equal(a, b)
+                              for a, b in zip(pools, ref_pools))
+        else:
+            pools_equal = True
+        err, ok, tol = close(torch, out, ref, torch.float32)
+        ok = ok and bool(torch.isfinite(out).all())
+        emit({"phase": label + "_f32", "max_abs_err": err, "tol": tol,
+              "ok": ok, "pools_equal": pools_equal,
+              "launches": launches[label]})
+        check(ok and pools_equal,
+              f"{label}: kernel path differs from plain (err {err}, pools "
+              f"equal {pools_equal})")
+        for name in kernels:
+            check(launches[label][name] > 0,
+                  f"kernel {name} was not launched by the {label} run")
+        del run, out, ref
+    return launches
 
 
 def main():
@@ -2028,11 +2181,10 @@ def main():
     packed_launches = packed_train_phase(torch, dev)
     packed_parity_phase(torch, dev)
     int8_launches = int8_serving_phase(torch, dev)
-    static_launches = int8_parity_phase(torch, dev)
+    batch_launches = int8_parity_phase(torch, dev)
     paths = {"serving": launches, "generate": gen_launches,
              "train": train_launches, "packed_train": packed_launches,
-             "int8_serving": int8_launches,
-             "block_mha_static_int8": static_launches}
+             "int8_serving": int8_launches, **batch_launches}
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
         rec = primary[name]

@@ -88,6 +88,14 @@ __device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
+// 2^x in one MUFU.EX2 (subnormal results flush to zero); exp2f adds the
+// instructions that keep them.
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
@@ -111,22 +119,52 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
       : "r"(smem_u32(p)));
 }
 
-// 64 rows of D bf16 from src (row i at src + i * stride) into a shared
-// tile of row stride LD; rows at or past `limit` are zero-filled.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// The B fragments of n-tiles nt and nt + 1 at column block kk, for a B
+// operand stored as the rows n of a shared tile of row stride LD (K in
+// Q K^T; Q or dO in the backward's K Q^T and V dO^T): b[0], b[1] for nt,
+// b[2], b[3] for nt + 1, one ldmatrix.x4 in place of eight 4-byte loads.
+template <int LD>
+__device__ __forceinline__ void b_frags(uint32_t* b, const __nv_bfloat16* tile,
+                                        int nt, int kk, int lane) {
+  ldmatrix_x4(b, tile + (nt * 8 + (lane & 7) + ((lane >> 4) << 3)) * LD +
+                     kk * 16 + ((lane >> 3) & 1) * 8);
+}
+
+// 64 rows of a head of width d <= D (a multiple of 8) from src (row i at
+// src + i * stride) into a shared tile of D columns and row stride LD;
+// rows at or past `limit` and the columns from d to D are zero-filled, so
+// a product over the padded width adds only zeros (the varlen forward K3
+// takes any d % 16 == 0 up to 128).
+template <int D, int LD>
+__device__ __forceinline__ void load_tile_cols(__nv_bfloat16* dst,
+                                               const __nv_bfloat16* src,
+                                               size_t stride, int row0,
+                                               int limit, int d) {
+  constexpr int kChunks = D / 8;  // 16-byte chunks per row
+  for (int idx = threadIdx.x; idx < kBK * kChunks; idx += kThreadsTC) {
+    const int r = idx / kChunks;
+    const int c = (idx - r * kChunks) * 8;
+    const bool ok = row0 + r < limit && c < d;
+    cp_async16(dst + r * LD + c,
+               ok ? src + static_cast<size_t>(row0 + r) * stride + c : src,
+               ok);
+  }
+}
+
+// load_tile_cols of a head that fills the tile's D columns.
 template <int D, int LD>
 __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
                                           const __nv_bfloat16* src,
                                           size_t stride, int row0,
                                           int limit) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  for (int idx = threadIdx.x; idx < kBK * kChunks; idx += kThreadsTC) {
-    const int r = idx / kChunks;
-    const int c = (idx - r * kChunks) * 8;
-    const bool ok = row0 + r < limit;
-    cp_async16(dst + r * LD + c,
-               ok ? src + static_cast<size_t>(row0 + r) * stride + c : src,
-               ok);
-  }
+  load_tile_cols<D, LD>(dst, src, stride, row0, limit, D);
 }
 
 // Fragment helpers of the backward kernels (K7a/K7b here, K8a/K8b in

@@ -5,9 +5,10 @@
 // sequence attends its cached context through a per-sequence block table
 // into a shared (num_blocks, block_size, HK, D) pool; the GQA group of
 // query heads forms the rows of the score product; online f32 softmax).
-// Its int8 arm (`has_scales`, `_paged_kernel` lines 53-58) reads int8
-// pools and dequantizes by static per-KV-head (HK,) f32 scales; the same
-// kernel also takes (num_blocks, block_size, HK) per-row f32 scale pools,
+// Its `has_scales` arm (`_paged_kernel` lines 53-58) multiplies the rows
+// of any pool by static per-KV-head (HK,) f32 scales: int8 pools (the
+// int8 arm) and float pools (the scaled mode below); the same kernel also
+// takes (num_blocks, block_size, HK) per-row f32 scale pools over int8,
 // the int8 serving engine's pools, for which the reference has only an
 // XLA gather (`_xla_paged_decode_attn(ks=, vs=)` in serving/engine.py).
 //
@@ -114,4 +115,26 @@ extern "C" int ptt_paged_decode_attention_int8(
   return split_decode::dispatch<true>(q, k_pool, v_pool, rows, out, po, pml,
                                       b, h, hk, d, nsplit, sm_scale, dtype,
                                       st);
+}
+
+// The static-scale arm over float pools of q's dtype (dtype): the TPU
+// kernel applies (HK,) scales to any pool. The same address mode as the
+// int8 arm's static scales, with the cache element of the float instances.
+extern "C" int ptt_paged_decode_attention_scaled(
+    const void* q, const void* k_pool, const void* v_pool,
+    const void* k_scale, const void* v_scale, const void* tables,
+    const void* lens, void* out, void* part_o, void* part_ml, int b, int h,
+    int hk, int d, int num_blocks, int block_size, int table_width,
+    int nsplit, float sm_scale, int dtype, void* stream) {
+  if (b <= 0) return 0;
+  if (!valid(q, k_pool, v_pool, h, hk, block_size, table_width, nsplit))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const PagedRows<split_decode::kHeadScale> rows{
+      static_cast<const int*>(tables), static_cast<const int*>(lens),
+      static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
+      num_blocks, block_size, table_width, hk, d};
+  return split_decode::dispatch(
+      q, k_pool, v_pool, rows, out, static_cast<float*>(part_o),
+      static_cast<float*>(part_ml), b, h, hk, d, nsplit, sm_scale, dtype,
+      static_cast<cudaStream_t>(stream));
 }

@@ -17,7 +17,7 @@
 //     __device__ float2 scales(int kvh, size_t row) const;
 //   };
 //
-// The cache element type C is q's type T (float pools, no scale: the
+// The cache element type C is q's type T (float pools; without scales the
 // loop has no dequant multiply, as the TPU kernel's static `has_scales`
 // flag keeps it) or int8_t (int8 pools, K2's int8 arm). A scale is
 // folded into the score (s * sm_scale * k_scale) and into the

@@ -33,28 +33,42 @@
 // output and loops over the tiles of the other side inside the block.
 // - K8a: grid (H, query tiles). Q and dO stay in shared memory. The CTA
 //   walks only the key range its rows can see (varlen_seg.cuh key_range)
-//   and, per 64-key tile, first tests from indices alone whether any pair
-//   is live, skipping a dead tile before loading any K/V byte; a tile whose
-//   pairs are all live skips the per-pair mask.
+//   and, per 64-key tile, first tests whether any pair is live (from
+//   positions or indices, varlen_seg.cuh Walk), skipping a dead tile
+//   before loading any K/V byte; a tile whose pairs are all live skips the
+//   per-pair mask.
 // - K8b: grid (HK, key tiles). One CTA serves a KV head for all G query
 //   heads of its group: it walks the query range that sees its keys
-//   (varlen_seg.cuh query_range, the transpose of key_range), tests each
-//   64-query tile once, and loops over the G heads of a live tile, summing
-//   dk and dv in f32 registers: no K/V repeated per query head (the TPU
-//   kernel materialises `jnp.repeat`ed K/V and sums the group afterwards)
-//   and no atomics, so the result is deterministic.
-// - Heaviest tiles first: a one-CTA kernel ranks the tiles by the length
-//   of the range each walks (longest first) before the main launch, and
-//   blockIdx.y walks that order with the heads fastest, so the longest
-//   tiles of long segments do not trail at the end of the grid.
+//   (varlen_seg.cuh query_range, the transpose of key_range) as a sequence
+//   of (live query tile, head) pairs, the heads fastest, summing dk and dv
+//   in f32 registers: no K/V repeated per query head (the TPU kernel
+//   materialises `jnp.repeat`ed K/V and sums the group afterwards) and no
+//   atomics, so the result is deterministic. Q, dO, lse and delta stream
+//   through a two-stage cp.async ring: the next pair's copy is in flight
+//   while this pair's four products run. The test of which query tile
+//   comes next runs ahead of its copy, so a dead tile's Q / dO bytes are
+//   never read: for a key tile inside one segment (the common case) from
+//   positions alone, else from the query indices written into a second set
+//   of index arrays (varlen_seg.cuh Walk, shared with K3 and K8a). The
+//   B operands of K Q^T and V dO^T come from ldmatrix.x4, those of P^T dO
+//   and dS^T Q from ldmatrix.trans. Each pair runs in two halves of 32
+//   queries, so only one half's score and dP accumulators are live (three
+//   CTAs per SM at D = 64); each warp's K and V A fragments stay in
+//   registers for the whole walk, and P's exp2 is one MUFU instruction
+//   (exp2_ftz).
+// - Heaviest tiles first: a one-CTA kernel (varlen_seg.cuh) ranks the
+//   tiles by the length of the range each walks (longest first) before the
+//   main launch, and blockIdx.y walks that order with the heads fastest, so
+//   the longest tiles of long segments do not trail at the end of the grid.
 // - bf16: tensor cores through `mma.sync` m16n8k16 in K7's layout and with
 //   flash_mma.cuh's fragment helpers: each of the 4 warps owns 16 output
-//   rows; the score and dP accumulators (16 x 64 per warp) become dS / P in
-//   place and are re-packed as the A operand of the next product.
+//   rows; the score and dP accumulators (16 x 64 per warp, 16 x 32 per
+//   half in K8b) become dS / P in place and are re-packed as the A operand
+//   of the next product.
 // - f32: CUDA-core FMA in the tile shape of flash_f32.cuh (256 threads,
 //   each a 4 x 4 micro-tile of scores and a 4 x D/16 slice of the output).
-// One stage of shared tiles each (a first version: the index test between
-// tiles would need double-buffered index arrays to overlap the loads).
+// K8a keeps one stage of shared K / V tiles, loaded after each tile's
+// index test.
 #include "common.cuh"
 #include "flash_f32.cuh"
 #include "flash_mma.cuh"
@@ -68,9 +82,11 @@ namespace {
 namespace fl = ptt::flash;
 using bf16 = __nv_bfloat16;
 using fl::a_frag;
+using fl::b_frags;
 using fl::cp_async4;
 using fl::cp_async_commit;
 using fl::cp_async_wait;
+using fl::exp2_ftz;
 using fl::kLog2e;
 using fl::kThreadsTC;
 using fl::lds32;
@@ -85,74 +101,6 @@ static_assert(fl::kBQ == kTile && fl::kBK == kTile &&
                   flash_f32::kBQ == kTile && flash_f32::kBK == kTile,
               "K8 shares the 64-row tiles of flash_mma.cuh, flash_f32.cuh "
               "and varlen_seg.cuh");
-
-struct Seg {
-  int tq, tk, nseg, h, hk;
-  int causal, window;  // window 0: none
-  float scale;
-};
-
-// --------------------------------------------------------------- order
-constexpr int kOrderThreads = 1024;
-constexpr size_t kMaxOrderSmem = 232448;  // a block's shared memory
-
-// order[rank] = tile, the tiles ranked by the length of the range each
-// walks, longest first (ties by index): key tiles by their query range
-// (K8b) or query tiles by their key range (K8a). One CTA.
-__global__ void __launch_bounds__(kOrderThreads)
-    varlen_bwd_order_kernel(const int* __restrict__ cu_q,
-                            const int* __restrict__ cu_k, Seg s, int by_keys,
-                            int ntiles, int* __restrict__ order) {
-  extern __shared__ int work[];
-  for (int t = threadIdx.x; t < ntiles; t += blockDim.x) {
-    const int r0 = t * kTile;
-    int lo = 0, hi = 0;
-    if (by_keys) {
-      const int end = min(min(r0 + kTile, s.tk), cu_k[s.nseg]);
-      if (r0 < end) {
-        const int s_lo = find_seg(cu_k, s.nseg, r0);
-        const int s_hi = find_seg(cu_k, s.nseg, end - 1);
-        query_range_of(cu_q, cu_k, s_lo, r0 - cu_k[s_lo], s_hi,
-                       end - 1 - cu_k[s_hi], s.causal, s.window, &lo, &hi);
-      }
-    } else {
-      const int end = min(min(r0 + kTile, s.tq), cu_q[s.nseg]);
-      if (r0 < end) {
-        int sf, rf, sl, rl;
-        query_row(cu_q, cu_k, s.nseg, s.tq, r0, &sf, &rf);
-        query_row(cu_q, cu_k, s.nseg, s.tq, end - 1, &sl, &rl);
-        key_range_of(cu_k, s.tk, sf, rf, sl, rl, s.causal, s.window, &lo,
-                     &hi);
-      }
-    }
-    work[t] = max(hi - lo, 0);
-  }
-  __syncthreads();
-  for (int t = threadIdx.x; t < ntiles; t += blockDim.x) {
-    const int w = work[t];
-    int rank = 0;
-    for (int u = 0; u < ntiles; ++u)
-      rank += work[u] > w || (work[u] == w && u < t);
-    order[rank] = t;
-  }
-}
-
-int launch_order(const int* cu_q, const int* cu_k, const Seg& s, int by_keys,
-                 int ntiles, int* order, cudaStream_t st) {
-  static size_t configured = 48 * 1024;
-  const size_t bytes = sizeof(int) * static_cast<size_t>(ntiles);
-  if (bytes > kMaxOrderSmem) return static_cast<int>(cudaErrorInvalidValue);
-  if (bytes > configured) {
-    cudaError_t e = cudaFuncSetAttribute(
-        varlen_bwd_order_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(kMaxOrderSmem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-    configured = kMaxOrderSmem;
-  }
-  varlen_bwd_order_kernel<<<1, kOrderThreads, bytes, st>>>(
-      cu_q, cu_k, s, by_keys, ntiles, order);
-  return static_cast<int>(cudaGetLastError());
-}
 
 // ------------------------------------------------------------ K8a bf16
 template <int D>
@@ -232,13 +180,13 @@ __global__ void __launch_bounds__(kThreadsTC, 2)
   const float scale_log2 = s.scale * kLog2e;
   const bf16* qw = qs + lr * LD + tig * 2;
   const bf16* dw = dos + lr * LD + tig * 2;
+  const Walk walk = key_walk(cu_k, qseg, qrel, hi, s.causal, s.window);
 
-  for (int k0 = lo; k0 < hi; k0 += kTile) {
-    key_rows(cu_k, s.nseg, k0, hi, kseg, krel);
-    __syncthreads();
-    const int state =
-        tile_pairs(qseg, qrel, kseg, krel, s.causal, s.window);
-    if (state == kDead) continue;  // no K/V byte read
+  // dead tiles are passed over before any K/V byte is read
+  int k0 = lo;
+  for (int state; (state = next_key_tile(cu_k, s.nseg, walk, &k0, hi, qseg,
+                                         qrel, kseg, krel)) != kDead;
+       k0 += kTile) {
     load_tile<D, LD>(ks, kb, kv_stride, k0, hi);
     load_tile<D, LD>(vs, vb, kv_stride, k0, hi);
     cp_async_commit();
@@ -273,9 +221,8 @@ __global__ void __launch_bounds__(kThreadsTC, 2)
       for (int e = 0; e < 4; ++e) {
         const int half = e >> 1;
         const int c = nt * 8 + tig * 2 + (e & 1);
-        const bool live =
-            state == kFull || live_pair(rseg[half], rrel[half], kseg[c],
-                                        krel[c], s.causal, s.window);
+        const bool live = state == kFull ||
+                          walk.live(rseg[half], rrel[half], kseg, krel, k0, c);
         const float p =
             live ? exp2f(fmaf(sc[nt][e], scale_log2, -lse2[half])) : 0.f;
         sc[nt][e] = p * (dp[nt][e] - dl[half]) * s.scale;
@@ -296,14 +243,37 @@ __global__ void __launch_bounds__(kThreadsTC, 2)
 }
 
 // ------------------------------------------------------------ K8b bf16
+// Shared memory: the K and V tiles, two stages of Q and dO tiles and of
+// their lse and delta rows, two sets of query indices, the key indices.
 template <int D>
 constexpr size_t dkv_smem_bytes() {
-  return sizeof(bf16) * 4ull * kTile * (D + 8) +
-         sizeof(float) * 2 * kTile + sizeof(int) * 4 * kTile;
+  return sizeof(bf16) * 6ull * kTile * (D + 8) +
+         sizeof(float) * 4 * kTile + sizeof(int) * 6 * kTile;
+}
+
+// Q, dO, lse and delta of query tile q0, query head `head`, into one stage
+// (rows at or past tq zero-filled; one cp.async group with the caller's
+// commit).
+template <int D>
+__device__ __forceinline__ void load_query_stage(
+    bf16* qs, bf16* dos, float* ls, float* dls, const bf16* __restrict__ q,
+    const bf16* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, int q0, int head, const Seg& s) {
+  constexpr int LD = D + 8;
+  const size_t q_stride = static_cast<size_t>(s.h) * D;
+  load_tile<D, LD>(qs, q + static_cast<size_t>(head) * D, q_stride, q0, s.tq);
+  load_tile<D, LD>(dos, dout + static_cast<size_t>(head) * D, q_stride, q0,
+                   s.tq);
+  for (int i = threadIdx.x; i < kTile; i += kThreadsTC) {
+    const bool ok = q0 + i < s.tq;
+    const size_t at = ok ? static_cast<size_t>(head) * s.tq + q0 + i : 0;
+    cp_async4(ls + i, lse + at, ok);
+    cp_async4(dls + i, delta + at, ok);
+  }
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreadsTC, 2)
+__global__ void __launch_bounds__(kThreadsTC, D == 64 ? 3 : 2)
     varlen_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
                                const bf16* __restrict__ k,
                                const bf16* __restrict__ v,
@@ -317,18 +287,18 @@ __global__ void __launch_bounds__(kThreadsTC, 2)
                                Seg s) {
   constexpr int LD = D + 8;
   constexpr int kSteps = D / 16;
-  constexpr int kNtS = kTile / 8;  // score n-tiles (queries) per warp
+  constexpr int kNtH = kTile / 16;  // score n-tiles (queries) per half
   constexpr int kNtO = D / 8;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* ks = reinterpret_cast<bf16*>(smem_raw);
   bf16* vs = ks + kTile * LD;
-  bf16* qs = vs + kTile * LD;
-  bf16* dos = qs + kTile * LD;
-  float* ls = reinterpret_cast<float*>(dos + kTile * LD);
-  float* dls = ls + kTile;
-  int* qseg = reinterpret_cast<int*>(dls + kTile);
-  int* qrel = qseg + kTile;
-  int* kseg = qrel + kTile;
+  bf16* qs = vs + kTile * LD;       // [2][kTile][LD]
+  bf16* dos = qs + 2 * kTile * LD;  // [2][kTile][LD]
+  float* ls = reinterpret_cast<float*>(dos + 2 * kTile * LD);  // [2][kTile]
+  float* dls = ls + 2 * kTile;                                 // [2][kTile]
+  int* qseg = reinterpret_cast<int*>(dls + 2 * kTile);         // [2][kTile]
+  int* qrel = qseg + 2 * kTile;                                // [2][kTile]
+  int* kseg = qrel + 2 * kTile;
   int* krel = kseg + kTile;
   __shared__ int qrange[2];
 
@@ -339,7 +309,6 @@ __global__ void __launch_bounds__(kThreadsTC, 2)
   const int warp = threadIdx.x >> 5;
   const int g = lane >> 2;
   const int tig = lane & 3;
-  const size_t q_stride = static_cast<size_t>(s.h) * D;
   const size_t kv_stride = static_cast<size_t>(s.hk) * D;
   const size_t kv_off = static_cast<size_t>(kvh) * D;
   // keys at or past cu_k[nseg] are padding: no query sees them
@@ -348,13 +317,33 @@ __global__ void __launch_bounds__(kThreadsTC, 2)
   key_rows(cu_k, s.nseg, k0, kend, kseg, krel);
   load_tile<D, LD>(ks, k + kv_off, kv_stride, k0, kend);
   load_tile<D, LD>(vs, v + kv_off, kv_stride, k0, kend);
-  cp_async_commit();
   __syncthreads();
   if (threadIdx.x == 0)
     query_range(cu_q, cu_k, kseg, krel, s.causal, s.window, qrange);
   __syncthreads();
-  const int lo = qrange[0];
   const int hi = qrange[1];
+
+  // The CTA walks the pairs (live query tile, head of the group), the heads
+  // fastest; the copy of the next pair's Q, dO, lse and delta is in flight
+  // while this pair's four products run (two stages), and the next live
+  // tile's index test (into the other set of query indices) runs ahead of
+  // its copy, so no Q / dO byte of a dead tile is read.
+  const Walk walk =
+      query_walk(cu_q, cu_k, s.tq, kseg, krel, s.causal, s.window);
+  // from the query tile at *qp on, the first live one: its state (kDead
+  // when none is left); tiles tested by index write their query indices
+  // into set `buf`
+  auto next_tile = [&](int* qp, int buf) -> int {
+    return next_query_tile(cu_q, cu_k, s.nseg, s.tq, walk, qp, hi,
+                           qseg + buf * kTile, qrel + buf * kTile, kseg,
+                           krel);
+  };
+  int q0 = qrange[0];
+  int state = next_tile(&q0, 0);
+  if (state != kDead)
+    load_query_stage<D>(qs, dos, ls, dls, q, dout, lse, delta, q0,
+                        kvh * grp, s);
+  cp_async_commit();
 
   const int lk = warp * 16 + g;  // the thread's keys lk, lk + 8 of the tile
   const int kseg_r[2] = {kseg[lk], kseg[lk + 8]};
@@ -367,78 +356,107 @@ __global__ void __launch_bounds__(kThreadsTC, 2)
   const float scale_log2 = s.scale * kLog2e;
   const bf16* kw = ks + lk * LD + tig * 2;
   const bf16* vw = vs + lk * LD + tig * 2;
+  int j = 0, stage = 0, buf = 0;
+  // the warp's K and V A fragments, constant over the CTA's walk
+  uint32_t akr[kSteps][4], avr[kSteps][4];
+  bool first = true;
 
-  for (int q0 = lo; q0 < hi; q0 += kTile) {
-    query_rows(cu_q, cu_k, s.nseg, s.tq, q0, qseg, qrel);
-    __syncthreads();
-    const int state =
-        tile_pairs(qseg, qrel, kseg, krel, s.causal, s.window);
-    if (state == kDead) continue;  // no Q/dO byte read
-    for (int j = 0; j < grp; ++j) {
-      const int head = kvh * grp + j;
-      load_tile<D, LD>(qs, q + static_cast<size_t>(head) * D, q_stride, q0,
-                       s.tq);
-      load_tile<D, LD>(dos, dout + static_cast<size_t>(head) * D, q_stride,
-                       q0, s.tq);
-      for (int i = threadIdx.x; i < kTile; i += kThreadsTC) {
-        const bool ok = q0 + i < s.tq;
-        const size_t at = ok ? static_cast<size_t>(head) * s.tq + q0 + i : 0;
-        cp_async4(ls + i, lse + at, ok);
-        cp_async4(dls + i, delta + at, ok);
-      }
+  while (state != kDead) {
+    int nq0 = q0, nj = j + 1, nstate = state, nbuf = buf;
+    if (nj == grp) {
+      nj = 0;
+      nq0 = q0 + kTile;
+      nbuf = buf ^ 1;
+      nstate = next_tile(&nq0, nbuf);
+    }
+    const int nst = stage ^ 1;
+    if (nstate != kDead) {
+      load_query_stage<D>(qs + nst * kTile * LD, dos + nst * kTile * LD,
+                          ls + nst * kTile, dls + nst * kTile, q, dout, lse,
+                          delta, nq0, kvh * grp + nj, s);
       cp_async_commit();
+      cp_async_wait<1>();
+    } else {
       cp_async_wait<0>();
-      __syncthreads();
-
-      // S^T = K Q^T and dP^T = V dO^T for the warp's 16 keys x 64 queries
-      float sc[kNtS][4], dp[kNtS][4];
+    }
+    __syncthreads();
+    if (first) {
 #pragma unroll
-      for (int nt = 0; nt < kNtS; ++nt)
+      for (int kk = 0; kk < kSteps; ++kk) {
+        a_frag<LD>(akr[kk], kw, kk);
+        a_frag<LD>(avr[kk], vw, kk);
+      }
+      first = false;
+    }
+    const bf16* qt = qs + stage * kTile * LD;
+    const bf16* dt = dos + stage * kTile * LD;
+    const float* lt = ls + stage * kTile;
+    const float* dlt = dls + stage * kTile;
+    const int* qsg = qseg + buf * kTile;
+    const int* qrl = qrel + buf * kTile;
+
+    // the tile's 64 queries in two halves of 32, so the score and dP
+    // accumulators of only one half are live at a time
+#pragma unroll
+    for (int hq = 0; hq < 2; ++hq) {
+      // S^T = K Q^T and dP^T = V dO^T for the warp's 16 keys x 32 queries
+      float sc[kNtH][4], dp[kNtH][4];
+#pragma unroll
+      for (int nt = 0; nt < kNtH; ++nt)
 #pragma unroll
         for (int e = 0; e < 4; ++e) sc[nt][e] = dp[nt][e] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < kSteps; ++kk) {
-        uint32_t ak[4], av[4];
-        a_frag<LD>(ak, kw, kk);
-        a_frag<LD>(av, vw, kk);
+        const uint32_t* ak = akr[kk];
+        const uint32_t* av = avr[kk];
 #pragma unroll
-        for (int nt = 0; nt < kNtS; ++nt) {
-          const bf16* qr = qs + (nt * 8 + g) * LD + tig * 2 + kk * 16;
-          const bf16* dr = dos + (nt * 8 + g) * LD + tig * 2 + kk * 16;
-          mma_bf16(sc[nt], ak, lds32(qr), lds32(qr + 8));
-          mma_bf16(dp[nt], av, lds32(dr), lds32(dr + 8));
+        for (int nt = 0; nt < kNtH; nt += 2) {
+          uint32_t bq[4], bd[4];
+          b_frags<LD>(bq, qt, hq * kNtH + nt, kk, lane);
+          b_frags<LD>(bd, dt, hq * kNtH + nt, kk, lane);
+          mma_bf16(sc[nt], ak, bq[0], bq[1]);
+          mma_bf16(sc[nt + 1], ak, bq[2], bq[3]);
+          mma_bf16(dp[nt], av, bd[0], bd[1]);
+          mma_bf16(dp[nt + 1], av, bd[2], bd[3]);
         }
       }
 
       // P^T in sc (dead pairs 0 by a select), dS^T = P^T (dP^T - delta)
       // scale in dp
 #pragma unroll
-      for (int nt = 0; nt < kNtS; ++nt)
+      for (int nt = 0; nt < kNtH; ++nt)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int c = nt * 8 + tig * 2 + (e & 1);  // query in the tile
+          // the query in the tile
+          const int c = (hq * kNtH + nt) * 8 + tig * 2 + (e & 1);
           const int half = e >> 1;
           const bool live =
-              state == kFull || live_pair(qseg[c], qrel[c], kseg_r[half],
-                                          krel_r[half], s.causal, s.window);
+              state == kFull ||
+              walk.live(kseg_r[half], krel_r[half], qsg, qrl, q0, c);
           const float p =
-              live ? exp2f(fmaf(sc[nt][e], scale_log2, -ls[c] * kLog2e))
+              live ? exp2_ftz(fmaf(sc[nt][e], scale_log2, -lt[c] * kLog2e))
                    : 0.f;
           sc[nt][e] = p;
-          dp[nt][e] = p * (dp[nt][e] - dls[c]) * s.scale;
+          dp[nt][e] = p * (dp[nt][e] - dlt[c]) * s.scale;
         }
 
-      // dV += P^T dO and dK += dS^T Q (P^T and dS^T rounded to bf16)
+      // dV += P^T dO and dK += dS^T Q over the half's queries (P^T and
+      // dS^T rounded to bf16)
 #pragma unroll
-      for (int kk = 0; kk < kTile / 16; ++kk) {
+      for (int kk = 0; kk < kNtH / 2; ++kk) {
         uint32_t a[4];
         pack_a(a, sc, kk);
-        mma_rows<D, LD>(adv, a, dos, kk, lane);
+        mma_rows<D, LD>(adv, a, dt, hq * (kNtH / 2) + kk, lane);
         pack_a(a, dp, kk);
-        mma_rows<D, LD>(adk, a, qs, kk, lane);
+        mma_rows<D, LD>(adk, a, qt, hq * (kNtH / 2) + kk, lane);
       }
-      __syncthreads();  // the next head or tile overwrites Q, dO, lse
     }
+    __syncthreads();  // the next iterations refill this stage and indices
+    q0 = nq0;
+    j = nj;
+    state = nstate;
+    buf = nbuf;
+    stage = nst;
   }
   cp_async_wait<0>();
   store_rows<D>(dk + kv_off, kv_stride, adk, k0 + lk, s.tk, tig);
@@ -759,7 +777,7 @@ extern "C" int ptt_varlen_flash_attention_bwd_dq(
   int* ord = static_cast<int*>(order);
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
-  if (int e = launch_order(cq, ck, s, 0, ntiles, ord, st)) return e;
+  if (int e = launch_tile_order(cq, ck, s, 0, ntiles, ord, st)) return e;
   const dim3 grid(h, ntiles);
   if (dtype == kBF16) {
     const bf16* qb = static_cast<const bf16*>(q);
@@ -817,7 +835,7 @@ extern "C" int ptt_varlen_flash_attention_bwd_dkv(
   int* ord = static_cast<int*>(order);
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
-  if (int e = launch_order(cq, ck, s, 1, ntiles, ord, st)) return e;
+  if (int e = launch_tile_order(cq, ck, s, 1, ntiles, ord, st)) return e;
   const dim3 grid(hk, ntiles);
   if (dtype == kBF16) {
     const bf16* qb = static_cast<const bf16*>(q);

@@ -1,10 +1,11 @@
 // Segment logic shared by the varlen flash-attention kernels, forward (K3,
 // varlen_flash_attention.cu) and backward (K8a/K8b,
 // varlen_flash_attention_bwd.cu): which (query, key) pairs of a packed
-// (cu_seqlens) batch are live, and which contiguous ranges of keys (or
-// queries) a 64-row tile has to walk. Keeping it in one place keeps the
-// forward and the backward from ever disagreeing on a live pair, as
-// flash_mma.cuh does for the dense kernels.
+// (cu_seqlens) batch are live, which contiguous ranges of keys (or
+// queries) a 64-row tile has to walk, which tiles of a range hold a live
+// pair, and the order in which the tiles are launched. Keeping it in one
+// place keeps the forward and the backward from ever disagreeing on a live
+// pair, as flash_mma.cuh does for the dense kernels.
 //
 // Conventions (the TPU kernel's): a query at packed position qi of segment
 // s has the bottom-right relative position rel_q = qi - cu_q[s] + len_k(s) -
@@ -37,14 +38,15 @@ __device__ __forceinline__ int find_seg(const int* __restrict__ cu, int nseg,
   return lo;
 }
 
+// A pair inside one segment, from its relative positions.
+__device__ __forceinline__ bool rel_live(int qr, int kr, int causal,
+                                         int window) {
+  return !causal || (kr <= qr && (window <= 0 || kr > qr - window));
+}
+
 __device__ __forceinline__ bool live_pair(int qs, int qr, int ks, int kr,
                                           int causal, int window) {
-  if (qs != ks || qs < 0) return false;
-  if (causal) {
-    if (qr < kr) return false;
-    if (window > 0 && kr <= qr - window) return false;
-  }
-  return true;
+  return qs == ks && qs >= 0 && rel_live(qr, kr, causal, window);
 }
 
 // Segment id and bottom-right relative position of query row qi.
@@ -176,8 +178,26 @@ __device__ inline void query_range(const int* __restrict__ cu_q,
 
 enum TileState : int { kDead = 0, kPartial = 1, kFull = 2 };
 
+// The state of a pair of runs inside one segment: queries of relative
+// positions q_lo .. q_hi against keys k_lo .. k_hi (each a run without
+// gaps; an empty run when lo > hi), `whole` when both runs fill their
+// tiles (no row of either tile lies outside them).
+__device__ __forceinline__ int run_pairs(int q_lo, int q_hi, int k_lo,
+                                         int k_hi, bool whole, int causal,
+                                         int window) {
+  if (q_lo > q_hi || k_lo > k_hi) return kDead;
+  if (!causal) return whole ? kFull : kPartial;
+  // live: rel_k <= rel_q and (window) rel_k > rel_q - window
+  const bool any = k_lo <= q_hi && (window <= 0 || k_hi > q_lo - window);
+  const bool all =
+      whole && k_hi <= q_lo && (window <= 0 || k_lo > q_hi - window);
+  return !any ? kDead : all ? kFull : kPartial;
+}
+
 // Whether no, some or every (query, key) pair of a tile is live, to every
-// thread of the CTA (the index arrays must be visible to all threads).
+// thread of the CTA, testing every pair (the index arrays must be visible
+// to all threads; the call ends with a barrier, so the caller may
+// overwrite them next).
 __device__ inline int tile_pairs(const int* qseg, const int* qrel,
                                  const int* kseg, const int* krel, int causal,
                                  int window) {
@@ -194,6 +214,117 @@ __device__ inline int tile_pairs(const int* qseg, const int* qrel,
   return __syncthreads_and(all) ? kFull : kPartial;
 }
 
+// How a CTA tests the tiles of the range it walks (keys for K3 and K8a,
+// queries for K8b) against its own 64 rows. When its own rows all lie in
+// one segment (the common case), every walked row lies in that segment too,
+// at relative position = packed position - off: a tile's state and a
+// pair's liveness follow from positions alone, with no index arrays and no
+// barrier. Otherwise (`one_seg` false) the walk writes each tile's indices
+// and tests its pairs (tile_pairs).
+struct Walk {
+  bool one_seg;
+  bool keys;   // the walked side is the keys
+  int lo, hi;  // walked positions inside the segment
+  int off;     // walked position - off = its relative position
+  int own0;    // relative position of the CTA's first own row
+  int causal, window;
+
+  // the state of the walked tile at p0 (one_seg)
+  __device__ __forceinline__ int state(int p0) const {
+    const int a = max(p0, lo) - off;
+    const int b = min(p0 + kTile, hi) - 1 - off;
+    const bool whole = p0 >= lo && p0 + kTile <= hi;
+    const int e = own0 + kTile - 1;
+    return keys ? run_pairs(own0, e, a, b, whole, causal, window)
+                : run_pairs(a, b, own0, e, whole, causal, window);
+  }
+  // whether the own row (own_seg, own_rel) and row c of the walked tile at
+  // p0 (indices wseg / wrel when not one_seg) are a live pair
+  __device__ __forceinline__ bool live(int own_seg, int own_rel,
+                                       const int* wseg, const int* wrel,
+                                       int p0, int c) const {
+    if (one_seg) {
+      const int p = p0 + c;
+      return p >= lo && p < hi &&
+             (keys ? rel_live(own_rel, p - off, causal, window)
+                   : rel_live(p - off, own_rel, causal, window));
+    }
+    return keys ? live_pair(own_seg, own_rel, wseg[c], wrel[c], causal,
+                            window)
+                : live_pair(wseg[c], wrel[c], own_seg, own_rel, causal,
+                            window);
+  }
+};
+
+// The walk of a query tile (query_rows qseg / qrel) over keys below khi.
+__device__ inline Walk key_walk(const int* __restrict__ cu_k,
+                                const int* qseg, const int* qrel, int khi,
+                                int causal, int window) {
+  const int sq = qseg[0];
+  if (sq < 0 || qseg[kTile - 1] != sq)
+    return Walk{false, true, 0, 0, 0, 0, causal, window};
+  return Walk{true, true, cu_k[sq], khi, cu_k[sq], qrel[0], causal, window};
+}
+
+// The walk of a key tile (key_rows kseg / krel) over the queries of a
+// batch of tq rows: a query qi of segment s has rel_q = qi - (cu_q[s + 1] -
+// len_k(s)).
+__device__ inline Walk query_walk(const int* __restrict__ cu_q,
+                                  const int* __restrict__ cu_k, int tq,
+                                  const int* kseg, const int* krel,
+                                  int causal, int window) {
+  const int sk = kseg[0];
+  if (sk < 0 || kseg[kTile - 1] != sk)
+    return Walk{false, false, 0, 0, 0, 0, causal, window};
+  return Walk{true,           false,
+              cu_q[sk],       min(cu_q[sk + 1], tq),
+              cu_q[sk + 1] - (cu_k[sk + 1] - cu_k[sk]),
+              krel[0],        causal,
+              window};
+}
+
+// From the key tile at *k0 on, in steps of kTile below khi, the first one
+// with a live pair against the CTA's query rows: *k0 moves to it, its key
+// rows go to kseg / krel (unless w.one_seg), and its state is returned
+// (kDead when none is left). No K/V byte is read for the tiles passed over.
+__device__ inline int next_key_tile(const int* __restrict__ cu_k, int nseg,
+                                    const Walk& w, int* k0, int khi,
+                                    const int* qseg, const int* qrel,
+                                    int* kseg, int* krel) {
+  for (; *k0 < khi; *k0 += kTile) {
+    int state;
+    if (w.one_seg) {
+      state = w.state(*k0);
+    } else {
+      key_rows(cu_k, nseg, *k0, khi, kseg, krel);
+      __syncthreads();
+      state = tile_pairs(qseg, qrel, kseg, krel, w.causal, w.window);
+    }
+    if (state != kDead) return state;
+  }
+  return kDead;
+}
+
+// The same over query tiles from *q0 below qhi, against the CTA's keys.
+__device__ inline int next_query_tile(const int* __restrict__ cu_q,
+                                      const int* __restrict__ cu_k, int nseg,
+                                      int tq, const Walk& w, int* q0, int qhi,
+                                      int* qseg, int* qrel, const int* kseg,
+                                      const int* krel) {
+  for (; *q0 < qhi; *q0 += kTile) {
+    int state;
+    if (w.one_seg) {
+      state = w.state(*q0);
+    } else {
+      query_rows(cu_q, cu_k, nseg, tq, *q0, qseg, qrel);
+      __syncthreads();
+      state = tile_pairs(qseg, qrel, kseg, krel, w.causal, w.window);
+    }
+    if (state != kDead) return state;
+  }
+  return kDead;
+}
+
 // key_rows of the tile at k0, then whether any pair with the CTA's query
 // rows is live (the forward's dead-tile test, before any K/V byte is read).
 __device__ inline bool key_tile(const int* __restrict__ cu_k, int nseg, int k0,
@@ -202,6 +333,85 @@ __device__ inline bool key_tile(const int* __restrict__ cu_k, int nseg, int k0,
   key_rows(cu_k, nseg, k0, khi, kseg, krel);
   __syncthreads();
   return tile_pairs(qseg, qrel, kseg, krel, causal, window) != kDead;
+}
+
+struct Seg {
+  int tq, tk, nseg, h, hk;
+  int causal, window;  // window 0: none
+  float scale;
+};
+
+// ------------------------------------------------------------ tile order
+// Heaviest tiles first: a one-CTA kernel ranks the tiles by the length of
+// the range each walks (longest first, ties by index) into `order`, and the
+// main kernel walks that order, so the longest tiles of long segments do
+// not trail at the end of the grid. The ranks live in shared memory: past
+// kMaxOrderTiles tiles (3.7M rows) the order is the packing order. Static:
+// each kernel file that includes this header gets its own copy.
+constexpr int kOrderThreads = 1024;
+constexpr size_t kMaxOrderSmem = 232448;  // a block's shared memory
+constexpr int kMaxOrderTiles = kMaxOrderSmem / sizeof(int);
+
+// order[rank] = tile: key tiles by their query range (by_keys, K8b) or
+// query tiles by their key range (K3, K8a).
+static __global__ void __launch_bounds__(kOrderThreads)
+    tile_order_kernel(const int* __restrict__ cu_q,
+                      const int* __restrict__ cu_k, Seg s, int by_keys,
+                      int ntiles, int* __restrict__ order) {
+  extern __shared__ int work[];
+  if (ntiles > kMaxOrderTiles) {
+    for (int t = threadIdx.x; t < ntiles; t += blockDim.x) order[t] = t;
+    return;
+  }
+  for (int t = threadIdx.x; t < ntiles; t += blockDim.x) {
+    const int r0 = t * kTile;
+    int lo = 0, hi = 0;
+    if (by_keys) {
+      const int end = min(min(r0 + kTile, s.tk), cu_k[s.nseg]);
+      if (r0 < end) {
+        const int s_lo = find_seg(cu_k, s.nseg, r0);
+        const int s_hi = find_seg(cu_k, s.nseg, end - 1);
+        query_range_of(cu_q, cu_k, s_lo, r0 - cu_k[s_lo], s_hi,
+                       end - 1 - cu_k[s_hi], s.causal, s.window, &lo, &hi);
+      }
+    } else {
+      const int end = min(min(r0 + kTile, s.tq), cu_q[s.nseg]);
+      if (r0 < end) {
+        int sf, rf, sl, rl;
+        query_row(cu_q, cu_k, s.nseg, s.tq, r0, &sf, &rf);
+        query_row(cu_q, cu_k, s.nseg, s.tq, end - 1, &sl, &rl);
+        key_range_of(cu_k, s.tk, sf, rf, sl, rl, s.causal, s.window, &lo,
+                     &hi);
+      }
+    }
+    work[t] = max(hi - lo, 0);
+  }
+  __syncthreads();
+  for (int t = threadIdx.x; t < ntiles; t += blockDim.x) {
+    const int w = work[t];
+    int rank = 0;
+    for (int u = 0; u < ntiles; ++u)
+      rank += work[u] > w || (work[u] == w && u < t);
+    order[rank] = t;
+  }
+}
+
+static inline int launch_tile_order(const int* cu_q, const int* cu_k,
+                                    const Seg& s, int by_keys, int ntiles,
+                                    int* order, cudaStream_t st) {
+  static size_t configured = 48 * 1024;
+  const size_t bytes =
+      ntiles > kMaxOrderTiles ? 0 : sizeof(int) * static_cast<size_t>(ntiles);
+  if (bytes > configured) {
+    cudaError_t e = cudaFuncSetAttribute(
+        tile_order_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(kMaxOrderSmem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured = kMaxOrderSmem;
+  }
+  tile_order_kernel<<<1, kOrderThreads, bytes, st>>>(cu_q, cu_k, s, by_keys,
+                                                      ntiles, order);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace varlen

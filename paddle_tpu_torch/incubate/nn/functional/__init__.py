@@ -284,7 +284,8 @@ def block_multihead_attention(qkv, key_cache, value_cache,
             q[dec_idx], key_cache, value_cache,
             dev_tensor(tbl_np[dec_rows], np.int32),
             dev_tensor(dec_lens[dec_rows] + 1, np.int32),
-            k_scale=k_ds, v_scale=v_ds)
+            k_scale=k_ds if quant_cache else None,
+            v_scale=v_ds if quant_cache else None)
         out[dec_idx] = o_dec
     out = out.reshape(total, h * d)
     if out_shift is not None:

@@ -15,10 +15,19 @@ multiply by its reciprocal), and the reference's working dtypes (the
 weight's own dtype for :func:`weight_quantize_stacked`, f32 for
 :func:`quantize_kv_rows`).
 
+:func:`weight_only_linear` takes the reference's ``(in, out)`` int8
+weight, the layout :func:`weight_quantize` returns; ``QuantizedLinear``
+keeps torch's ``(out, in)`` parameter. Its bias stays in the weight's
+dtype, where the reference's is f32 (a biased bf16 layer returns bf16
+here, f32 there): an f32 projection output would reach the attention
+kernels beside bf16 KV pools, which they refuse (ROADMAP, queue C,
+deliberate differences).
+
 Not in the port yet: ``a8w8_linear`` and activation-quantized
-``QuantizedLinear`` (ROADMAP A9: CUDA has no int32 ``torch.matmul``), the
+``QuantizedLinear`` (ROADMAP A3: an int8 x int8 -> int32 product, as the
+reference's ``dot_general`` with ``preferred_element_type=int32``), the
 tensor-parallel ``QuantizedColumnParallelLinear`` /
-``QuantizedRowParallelLinear`` (A12), and QAT/PTQ (A14).
+``QuantizedRowParallelLinear`` (A7), and QAT/PTQ (A9).
 """
 from __future__ import annotations
 
@@ -110,31 +119,35 @@ def quantize_kv_rows(x):
 
 def weight_only_linear(x, weight, bias=None, weight_scale=None,
                        weight_dtype="int8", name=None):
-    """``y = x @ dequant(weight) + bias`` for an int8 ``(out, in)``
-    weight (torch's layout) and f32 per-output-channel scales. The
-    weight dequantizes in ``x``'s dtype, the scale cast to it first
-    (``wq.to(x.dtype) * ws.to(x.dtype)``, as the reference does), so a
-    float Linear holding that product computes the same output."""
+    """``y = x @ dequant(weight) + bias`` for an int8 ``(in, out)``
+    weight (the reference's layout, as :func:`weight_quantize` returns
+    it) and f32 per-output-channel ``(out,)`` scales. The weight
+    dequantizes in ``x``'s dtype, the scale cast to it first
+    (``wq.to(x.dtype) * ws.to(x.dtype)``), and the bias is added after
+    the product, as the reference does."""
     if weight_scale is None:
         raise ValueError("weight_only_linear requires weight_scale")
-    return tF.linear(x, _dequantized(weight, weight_scale, x.dtype), bias)
+    y = x @ (weight * weight_scale.to(x.dtype))
+    return y if bias is None else y + bias
 
 
 def _dequantized(wq, ws, dtype):
-    # one pass (int8 read, float written): the int8 operand promotes to
-    # ``dtype`` inside the multiply, exactly as ``wq.to(dtype)`` would
+    # an (out, in) weight: one pass (int8 read, float written), the int8
+    # operand promotes to ``dtype`` inside the multiply, exactly as
+    # ``wq.to(dtype)`` would
     return wq * ws.to(dtype)[:, None]
 
 
 def a8w8_linear(x, weight, x_scale, weight_scale, bias=None, name=None):
     raise NotImplementedError(
-        "a8w8_linear is not ported yet (ROADMAP A9: CUDA has no int32 "
-        "torch.matmul; it needs a hand-written int8 GEMM)")
+        "a8w8_linear is not ported yet (ROADMAP A3: an int8 x int8 -> "
+        "int32 product)")
 
 
 class QuantizedLinear(nn.Module):
     """Weight-only int8 Linear: ``quant_weight`` int8 ``(out, in)`` and
-    ``weight_scale`` f32 ``(out,)``, both parameters without grad."""
+    ``weight_scale`` f32 ``(out,)``, both parameters without grad; the
+    bias (if any) in the float weight's dtype."""
 
     def __init__(self, in_features, out_features, has_bias=True,
                  device=None, dtype=torch.float32):
@@ -158,7 +171,7 @@ class QuantizedLinear(nn.Module):
         if act_scale is not None:
             raise NotImplementedError(
                 "QuantizedLinear with an activation scale runs a8w8_linear, "
-                "which is not ported yet (ROADMAP A9)")
+                "which is not ported yet (ROADMAP A3)")
         w = linear.weight.detach()
         out = QuantizedLinear(linear.in_features, linear.out_features,
                               has_bias=linear.bias is not None,
@@ -188,7 +201,7 @@ class QuantizedColumnParallelLinear(QuantizedLinear):
     def __init__(self, *args, **kwargs):
         raise NotImplementedError(
             "tensor-parallel quantized layers come with the multi-device "
-            "port (ROADMAP A12)")
+            "port (ROADMAP A7)")
 
 
 class QuantizedRowParallelLinear(QuantizedColumnParallelLinear):

@@ -52,6 +52,7 @@ SPLIT_TOKENS = 128
 LAUNCHES = {"rms_norm": 0, "paged_decode_attention": 0,
             "paged_decode_attention_int8": 0,
             "paged_decode_attention_int8_rows": 0,
+            "paged_decode_attention_scaled": 0,
             "varlen_flash_attention": 0, "flash_attention": 0,
             "decode_attention": 0, "rms_norm_bwd": 0,
             "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
@@ -178,10 +179,16 @@ def _declare(lib):
         "ptt_paged_decode_attention_int8": (p, p, p, p, p, p, p, p, p, p, i,
                                             i, i, i, i, i, i, i, f, i, i,
                                             p),
-        # q, k, v, cu_q, cu_k, out, lse, tq, tk, nseg, h, hk, d, causal,
-        # window, sm_scale, dtype, stream
-        "ptt_varlen_flash_attention": (p, p, p, p, p, p, p, i, i, i, i, i,
-                                       i, i, i, f, i, p),
+        # q, k_pool, v_pool, k_scale, v_scale, tables, lens, out, part_o,
+        # part_ml, b, h, hk, d, num_blocks, block_size, table_width,
+        # nsplit, sm_scale, dtype, stream
+        "ptt_paged_decode_attention_scaled": (p, p, p, p, p, p, p, p, p, p,
+                                              i, i, i, i, i, i, i, i, f, i,
+                                              p),
+        # q, k, v, cu_q, cu_k, order, out, lse, tq, tk, nseg, h, hk, d,
+        # causal, window, sm_scale, dtype, stream
+        "ptt_varlen_flash_attention": (p, p, p, p, p, p, p, p, i, i, i, i,
+                                       i, i, i, i, f, i, p),
         # q, k_cache, v_cache, lens, out, part_o, part_ml, b, h, hk, d,
         # s_max, nsplit, sm_scale, dtype, stream
         "ptt_decode_attention": (p, p, p, p, p, p, p, i, i, i, i, i, i, f, i,

@@ -6,9 +6,10 @@ Counterpart of ``paddle_tpu/ops/pallas/paged_attention.py``. The pool is
 owns a row of ``block_tables``. Entries at or past a sequence's
 ``ceil(len / block_size)`` are arbitrary: the kernel never reads them and
 the plain versions re-point them at block 0 before their gather, as the
-TPU kernel's index map does. int8 pools dequantize inside the kernel:
-by static per-KV-head scales (:func:`paged_decode_attention`'s
-``k_scale``/``v_scale``, the TPU kernel's arm) or by the per-row scale
+TPU kernel's index map does. Static per-KV-head scales
+(:func:`paged_decode_attention`'s ``k_scale``/``v_scale``, the TPU
+kernel's ``has_scales`` arm) multiply the rows of float or int8 pools
+inside the kernel; int8 pools also dequantize by the per-row scale
 pools of the int8 serving engine (:func:`_paged_decode_attention_rows`,
 whose plain version ports the reference engine's
 ``_xla_paged_decode_attn(ks=, vs=)``). The CUDA source is
@@ -128,18 +129,21 @@ def _check(name, q, k_pool, v_pool, block_tables, seq_lens):
 
 def _launch(name, q, k_pool, v_pool, block_tables, seq_lens, sm_scale,
             scales=None, per_row=False):
-    """Check the kernel's inputs and launch K2 on the card: float pools
-    (``scales`` None) or int8 pools with (HK,) or per-row scales."""
+    """Check the kernel's inputs and launch K2 on the card: pools of q's
+    dtype, without ``scales`` or with (HK,) ones, or int8 pools with (HK,)
+    or (``per_row``) per-row scales."""
     L.refuse_grad(name, "ROADMAP A11: decode attention is inference-only, "
                   "as the TPU kernel is", q, k_pool, v_pool)
     b, h, d = q.shape
     num_blocks, bs, hk = k_pool.shape[:3]
-    pool_dtype = q.dtype if scales is None else torch.int8
-    if q.dtype not in _DTYPES or k_pool.dtype != pool_dtype \
-            or v_pool.dtype != pool_dtype:
+    int8 = k_pool.dtype == torch.int8
+    if q.dtype not in _DTYPES or k_pool.dtype not in (q.dtype, torch.int8) \
+            or v_pool.dtype != k_pool.dtype or (int8 and scales is None) \
+            or (per_row and not int8):
         raise TypeError(
-            f"{name} kernel takes float32 or bfloat16 q and {pool_dtype} "
-            f"pools, got {q.dtype}, {k_pool.dtype}, {v_pool.dtype}")
+            f"{name} kernel takes float32 or bfloat16 q with pools of its "
+            f"dtype, or int8 pools with scales (per-row scales only for "
+            f"int8), got {q.dtype}, {k_pool.dtype}, {v_pool.dtype}")
     if block_tables.dtype != torch.int32 or seq_lens.dtype != torch.int32:
         raise TypeError(f"{name}: tables and lens must be int32")
     others = (k_pool, v_pool, block_tables, seq_lens) + tuple(scales or ())
@@ -179,6 +183,13 @@ def _launch(name, q, k_pool, v_pool, block_tables, seq_lens, sm_scale,
             block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
             part.data_ptr(), part[n_o:].data_ptr(), *geometry,
             L.cuda_stream(q))
+    elif not int8:
+        status = lib.ptt_paged_decode_attention_scaled(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            scales[0].data_ptr(), scales[1].data_ptr(),
+            block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
+            part.data_ptr(), part[n_o:].data_ptr(), *geometry,
+            L.cuda_stream(q))
     else:
         status = lib.ptt_paged_decode_attention_int8(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
@@ -202,13 +213,13 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, seq_lens,
         seq_lens: (B,) int32 valid tokens per sequence (the decoded one
             included).
         k_scale, v_scale: optional (HK,) f32 per-KV-head dequant scales,
-            applied inside the kernel (the int8 pools stay int8 in
-            memory); with only one given the other is ones, and int8
-            pools without either run at scale 1, as in the reference.
+            applied inside the kernel to float or int8 pools (the int8
+            pools stay int8 in memory); with only one given the other is
+            ones, and int8 pools without either run at scale 1, as in the
+            reference.
     Returns (B, H, D) (or (B, 1, H, D) matching q) in the query's dtype.
     CPU tensors run :func:`paged_decode_attention_plain`; CUDA tensors
-    launch the kernel or raise (the kernel takes scales only with int8
-    pools)."""
+    launch the kernel or raise."""
     squeeze = q.dim() == 4
     if squeeze:
         q = q[:, 0]
@@ -226,12 +237,12 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, seq_lens,
         out = _launch("paged_decode_attention_int8", q, k_pool, v_pool,
                       block_tables, seq_lens, sm_scale, scales)
         L.LAUNCHES["paged_decode_attention_int8"] += 1
+    elif k_scale is not None or v_scale is not None:
+        scales = _head_scales(k_scale, v_scale, k_pool.shape[2], q.device)
+        out = _launch("paged_decode_attention_scaled", q, k_pool, v_pool,
+                      block_tables, seq_lens, sm_scale, scales)
+        L.LAUNCHES["paged_decode_attention_scaled"] += 1
     else:
-        if k_scale is not None or v_scale is not None:
-            raise NotImplementedError(
-                "paged_decode_attention kernel: dequant scales apply to "
-                "int8 pools; float pools with scales run only in the "
-                "plain version")
         out = _launch("paged_decode_attention", q, k_pool, v_pool,
                       block_tables, seq_lens, sm_scale)
         L.LAUNCHES["paged_decode_attention"] += 1

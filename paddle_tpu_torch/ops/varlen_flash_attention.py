@@ -28,7 +28,7 @@ NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_HEAD_DIM = 128
 _BWD_HEAD_DIMS = (64, 128)
-_TILE = 64  # rows per tile of the backward kernels (their order scratch)
+_TILE = 64  # rows per tile of the kernels (their tile-order scratch)
 
 
 def segment_mask(cu_seqlens_q, cu_seqlens_k, tq, tk, causal, window=None):
@@ -140,9 +140,11 @@ def varlen_flash_attention(q, k, v, cu_seqlens_q, cu_seqlens_k,
                          "inputs")
     out = torch.empty_like(q)
     lse = torch.empty((h, tq), dtype=torch.float32, device=q.device)
+    order = _order_scratch(tq, q)
     status = L.library().ptt_varlen_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), cu_seqlens_q.data_ptr(),
-        cu_seqlens_k.data_ptr(), out.data_ptr(), lse.data_ptr(), tq, tk,
+        cu_seqlens_k.data_ptr(), order.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), tq, tk,
         cu_seqlens_q.shape[0] - 1, h, hk, d, int(bool(causal)),
         int(window_size or 0), float(sm_scale), _DTYPES[q.dtype],
         L.cuda_stream(q))

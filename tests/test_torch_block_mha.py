@@ -220,6 +220,29 @@ def test_static_int8_random_matches_reference(dequant):
               [10, 22], [6, 1], tables, **kw)
 
 
+def test_float_pools_ignore_dequant_scales_as_the_reference():
+    """Dequant scales without quant scales over float pools: the
+    reference applies them only to an int8 cache, so prefill and decode
+    rows alike run unscaled; the same calls without the scales give the
+    same output."""
+    rng = np.random.RandomState(13)
+    ds = dict(cache_k_dequant_scales=(rng.rand(HK) + 0.5).astype("f4"),
+              cache_v_dequant_scales=(rng.rand(HK) + 0.5).astype("f4"))
+    tables = np.asarray([[0, 1], [2, 3]], np.int32)
+    lens = [9, 21]
+    calls = [(rng.randn(sum(lens), (H + 2 * HK) * D).astype("f4"), lens,
+              [0, 0], lens),
+             (rng.randn(2, (H + 2 * HK) * D).astype("f4"), [0, 0], lens,
+              [1, 1]),
+             (rng.randn(7, (H + 2 * HK) * D).astype("f4"), [6, 0],
+              [10, 22], [6, 1])]
+    scaled, plain = _Both(16), _Both(16)
+    for qkv, enc, dec, this in calls:
+        got = scaled.call(qkv, enc, dec, this, tables, **ds)
+        np.testing.assert_array_equal(
+            got.numpy(), plain.call(qkv, enc, dec, this, tables).numpy())
+
+
 @pytest.mark.parametrize("neox", [None, True])
 def test_dynamic_scale_pools_match_reference(neox):
     """Per-row scale pools (the serving engine's): every written row

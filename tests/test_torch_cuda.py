@@ -137,6 +137,44 @@ def test_cuda_paged_int8_matches_plain(cuda, dtype, tol):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_cuda_paged_float_scaled_matches_plain(cuda, dtype, tol):
+    """K2's static-scale mode over float pools (the TPU kernel applies
+    (HK,) scales to any pool): both scales, one of them, groups 1, 4 and 7
+    (in the 8-row slot), head dims 64 and 128, against the plain version;
+    it counts its launches under its own name."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    for h, hk in ((32, 32), (32, 8), (28, 4)):
+        for d, bs in ((64, 16), (128, 32)):
+            lens = torch.tensor([1, 31, 32, 300], dtype=torch.int32,
+                                device=cuda)
+            w = -(-300 // bs) + 2
+            nb = 4 * w + 1
+            kp, vp = _rnd(g, dtype, nb, bs, hk, d), _rnd(g, dtype, nb, bs,
+                                                         hk, d)
+            tables = torch.randperm(nb, device=cuda)[:4 * w].view(4, w).int()
+            for i, ln in enumerate(lens.tolist()):
+                tables[i, -(-ln // bs):] = 10 ** 6      # never read
+            q = _rnd(g, dtype, 4, h, d)
+            ks = torch.rand(hk, generator=g, device=cuda) * 1.5 + 0.25
+            vs = torch.rand(hk, generator=g, device=cuda) * 1.5 + 0.25
+            for kw in (dict(k_scale=ks, v_scale=vs), dict(v_scale=vs),
+                       dict(k_scale=ks)):
+                ops.reset_launches()
+                out = ops.paged_decode_attention(q, kp, vp, tables, lens,
+                                                 **kw)
+                assert ops.LAUNCHES["paged_decode_attention_scaled"] == 1
+                assert ops.LAUNCHES["paged_decode_attention"] == 0
+                ref = ops.paged_decode_attention_plain(q, kp, vp, tables,
+                                                       lens, **kw)
+                vmax = float(kw.get("v_scale", torch.ones(1)).max())
+                torch.testing.assert_close(out.float() / vmax,
+                                           ref.float() / vmax, atol=tol,
+                                           rtol=tol)
+
+
+@pytest.mark.cuda
 def test_cuda_int8_engine_kernel_path_equals_plain_path(cuda):
     """The int8 engine (int8 weights, int8 KV pools) on the card: the
     quantum runs K2's per-row mode and no float K2, and its f32 streams
@@ -408,6 +446,94 @@ class _Packed(torch.nn.Module):
         return self.m(ids, cu_seqlens=cu)
 
 
+# (lens_q, lens_k or None, H, HK, causal, window, padding rows): query
+# tiles straddling two segments and segments shorter than a tile, empty
+# segments, cross lengths (causal and not), a window over cross lengths,
+# a window with a GQA group of 8, rows without keys and padding rows, and
+# the serving mix (128-token chunks over cached contexts)
+VARLEN_CASES = (
+    ([13, 37, 1, 77, 150], None, 4, 2, True, None, 0),
+    ([200, 0, 130, 64, 1, 0], None, 4, 4, True, None, 0),
+    ([9, 25, 140], [17, 125, 61], 4, 4, True, None, 0),
+    ([9, 25, 140], [17, 125, 61], 4, 4, False, None, 0),
+    ([90, 25, 140, 0], [17, 125, 61, 30], 8, 2, True, 20, 0),
+    ([300, 70, 190], None, 8, 1, True, 48, 0),
+    ([6, 10, 12], [9, 0, 4], 4, 2, True, None, 5),
+    ([128, 128, 128], [128, 320, 1000], 4, 4, True, None, 0),
+)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", range(16, 129, 16))
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_cuda_varlen_forward_matches_plain_every_head_dim(cuda, dtype, tol,
+                                                          d):
+    """K3 at every head dim it takes (d % 16 == 0 up to 128: the bf16 path
+    zero-fills a narrower head to its padded width 64 or 128) over the
+    segment layouts of VARLEN_CASES; rows that see no key are zeros."""
+    g = torch.Generator(device=cuda).manual_seed(d)
+    for lens_q, lens_k, h, hk, causal, window, pad in VARLEN_CASES:
+        cu_q = _cu(lens_q, cuda)
+        cu_k = cu_q if lens_k is None else _cu(lens_k, cuda)
+        tq, tk = int(cu_q[-1]) + pad, int(cu_k[-1])
+        q = _rnd(g, dtype, tq, h, d)
+        k, v = _rnd(g, dtype, tk, hk, d), _rnd(g, dtype, tk, hk, d)
+        out, lse = ops.varlen_flash_attention(
+            q, k, v, cu_q, cu_k, causal=causal, window_size=window,
+            return_lse=True)
+        ref, lse_ref = ops.varlen_flash_attention_plain(
+            q, k, v, cu_q, cu_k, causal=causal, window_size=window)
+        torch.testing.assert_close(out.float(), ref.float(), atol=tol,
+                                   rtol=tol)
+        torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-4)
+        if pad:
+            assert float(out[int(cu_q[-1]):].float().abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_cuda_varlen_forward_past_65535_query_tiles(cuda, dtype, tol):
+    """K3 over 65,600 causal 64-token segments (4.2M query rows, 65,600
+    query tiles: more than a grid's y dimension and more than the tile
+    order kernel ranks in shared memory, which then keeps the packing
+    order) equals one batched causal SDPA call over the segments."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    nseg, n, d = 65600, 64, 16
+    cu = torch.arange(0, (nseg + 1) * n, n, dtype=torch.int32, device=cuda)
+    q, k, v = (_rnd(g, dtype, nseg * n, 1, d) for _ in range(3))
+    out = ops.varlen_flash_attention(q, k, v, cu, cu, causal=True)
+    seg = [t.view(nseg, n, d).float() for t in (q, k, v)]
+    ref = torch.nn.functional.scaled_dot_product_attention(*seg,
+                                                           is_causal=True)
+    torch.testing.assert_close(out.view(nseg, n, d).float(), ref, atol=tol,
+                               rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_varlen_kernels_are_deterministic(cuda, dtype):
+    """Two calls of K3 (out, lse) and of K8b (dk, dv) on the same inputs
+    are bit-equal (no atomics: recompute relies on it), at the packed
+    941M row's segments with a GQA group of 4."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    cu = _cu([1600, 800, 600, 400, 300, 200, 120, 76], cuda)
+    t = int(cu[-1])
+    q, do = _rnd(g, dtype, t, 8, 64), _rnd(g, dtype, t, 8, 64)
+    k, v = _rnd(g, dtype, t, 2, 64), _rnd(g, dtype, t, 2, 64)
+    runs = []
+    for _ in range(2):
+        out, lse = ops.varlen_flash_attention(q, k, v, cu, cu, causal=True,
+                                              return_lse=True)
+        delta = ops.varlen_flash_attention_bwd_delta(out, do)
+        dk, dv = ops.varlen_flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                    cu, cu, True)
+        runs.append((out, lse, dk, dv))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 3e-2)])
@@ -417,9 +543,11 @@ def test_cuda_varlen_backward_matches_plain(cuda, dtype, tol):
     # ragged GQA, empty segments at D=128, cross lengths (causal and not),
     # a window band with a group of 8 (also over cross lengths), and rows
     # that see no key (a segment without keys, more queries than keys,
-    # padding past cu[-1])
+    # padding past cu[-1]), and K8b's ring over many live query tiles of a
+    # group of 4
     for lens_q, lens_k, h, hk, d, causal, window, pad in (
             ([13, 37, 1, 77], None, 4, 2, 64, True, None, 0),
+            ([700, 300, 5], None, 8, 2, 64, True, None, 0),
             ([200, 0, 130, 64, 1, 0], None, 8, 2, 128, True, None, 0),
             ([9, 25, 140], [17, 125, 61], 4, 4, 64, True, None, 0),
             ([9, 25, 140], [17, 125, 61], 4, 4, 64, False, None, 0),
@@ -446,7 +574,11 @@ def test_cuda_varlen_backward_matches_plain(cuda, dtype, tol):
                                              window_size=window)
         want = ops.varlen_flash_attention_bwd_plain(
             q, k, v, out, lse, do, cu_q, cu_k, causal, window_size=window)
-        for a, ref in zip(got, want):
+        # K8b on its own, from the same lse and delta
+        delta = ops.varlen_flash_attention_bwd_delta(out, do)
+        dkv = ops.varlen_flash_attention_bwd_dkv(
+            q, k, v, do, lse, delta, cu_q, cu_k, causal, window_size=window)
+        for a, ref in zip(got + dkv, want + want[1:]):
             assert a.dtype == dtype and a.shape == ref.shape
             assert torch.isfinite(a).all()
             scale = max(1.0, float(ref.float().abs().max()))
