@@ -10,7 +10,10 @@ Phases (any failure raises and the script exits non-zero):
    ``paddle_tpu_torch/csrc`` (nvcc, sm_90a) with its time;
 2. each kernel against its plain PyTorch version on the card, at the
    serving, generation and training paths' shapes, in bf16 and f32
-   (K6/K7 also at Mistral's GQA width with its window; K8a/K8b at the
+   (K4 also at the training shape against one ``is_causal`` SDPA call;
+   the backward in bf16 as the fused kernel K7, in f32 as K7a and K7b;
+   K6/K7 also at
+   Mistral's GQA width with its window; K8a/K8b at the
    packed 941M row, with GQA and a window, with unequal query and key
    lengths, and with empty segments; K3 also at the packed 941M row and
    with GQA and a window; K2's int8 arm with static (HK,) scales and with
@@ -45,14 +48,15 @@ Phases (any failure raises and the script exits non-zero):
    weight decay 0.01, no recompute, B=1, S=4,096, one seeded batch)
    through ``JittedTrainStep``: 2 warm-up steps, then 10 steps in one
    ``run_steps`` call with the launch counters zeroed just before and read
-   just after (exactly K1 9, K4 4, K6 9, K7a 4, K7b 4 per step), step
+   just after (exactly K1 9, K4 4, K6 9, K7 4 per step), step
    time, tokens/s, MFU and peak memory; the loss must fall. Then the same
    configuration with ``fuse_linear_cross_entropy`` (its step-1 loss
    within bf16 rounding of the unfused one, its peak memory), and a
    torch.profiler breakdown of one unfused step;
 8. the training kernel path against its plain path in f32 (Llama-2-7B
-   width, 2 layers, S=1,024): step-1 gradients per tensor within 1e-4 of
-   the tensor's largest |g|, and the losses of 3 steps within 1e-4;
+   width, 2 layers, S=1,024; the backward's f32 route, K7a and K7b, and
+   not K7): step-1 gradients per tensor within 1e-4 of the tensor's
+   largest |g|, and the losses of 3 steps within 1e-4;
 9. packed (cu_seqlens) training, ``scripts/bench_suite.py``'s
    llama_941m_packed_varlen_train_mfu on the port: hidden 2,048, 16
    layers, 32 heads, bf16 with f32 masters and bf16 moments, one row of 8
@@ -96,8 +100,9 @@ Phases (any failure raises and the script exits non-zero):
 
 The line before the last is the ``{"kernels": [...]}`` record (each
 kernel's launches come from the run of the path that carries it: K1-K3
-the serving run of phase 3, K4-K5 the generation run of phase 5, K6, K7a
-and K7b the training run of phase 7, K8a and K8b the packed training run
+the serving run of phase 3, K4-K5 the generation run of phase 5, K6 and
+K7 the training run of phase 7, K7a and K7b the f32 kernel run of phase
+8, K8a and K8b the packed training run
 of phase 9, K2's per-row int8 mode the int8-KV serving run of phase 11,
 its static int8 arm and its float-pool scaled mode the two runs of phase
 12; ``launches_by_path`` has every path's count); the last line is
@@ -577,15 +582,19 @@ def k4_cases(torch, g, dev):
     import torch.nn.functional as tF
 
     d = 128
-    # (label, B, Sq, Sk, H, HK, window): Mistral prefill (the primary),
-    # Llama-2 no-cache dense causal, bottom-right causal (Sq < Sk)
-    for label, b, sq, sk, h, hk, window in (
-            ("mistral_prefill", 1, 4608, 4608, 32, 8, 4096),
-            ("dense_causal", 1, 2048, 2048, 32, 32, None),
-            ("bottom_right", 1, 64, 1024, 32, 8, None)):
+    # (label, B, Sq, Sk, H, HK, window, dtypes): Mistral prefill (the
+    # primary), Llama-2 no-cache dense causal, bottom-right causal (Sq <
+    # Sk), and the training shape (Llama-2-7B width, S = 4,096), where one
+    # is_causal SDPA call computes the same function
+    both = (torch.bfloat16, torch.float32)
+    for label, b, sq, sk, h, hk, window, dtypes in (
+            ("mistral_prefill", 1, 4608, 4608, 32, 8, 4096, both),
+            ("dense_causal", 1, 2048, 2048, 32, 32, None, both),
+            ("bottom_right", 1, 64, 1024, 32, 8, None, both),
+            ("train", 1, 4096, 4096, 32, 32, None, (torch.bfloat16,))):
         mask = band_mask(sq, sk, True, window, dev)
         pairs = int(mask.sum())
-        for dtype in (torch.bfloat16, torch.float32):
+        for dtype in dtypes:
             q = torch.randn(b, sq, h, d, generator=g, device=dev).to(dtype)
             k = torch.randn(b, sk, hk, d, generator=g, device=dev).to(dtype)
             v = torch.randn(b, sk, hk, d, generator=g, device=dev).to(dtype)
@@ -690,8 +699,9 @@ def k7_cases(torch, g, dev):
 
     d = 128
     # (label, B, S, H, HK, window, dtypes): the training path (Llama-2-7B
-    # width, S=4,096, causal; bf16 is the primary) and Mistral's GQA width
-    # with its window
+    # width, S=4,096, causal; the fused bf16 kernel K7 is the primary, K7a
+    # and K7b in f32 the primaries of their f32 route) and Mistral's GQA
+    # width with its window
     for label, b, sq, h, hk, window, dtypes in (
             ("train", 1, 4096, 32, 32, None,
              (torch.bfloat16, torch.float32)),
@@ -720,9 +730,9 @@ def k7_cases(torch, g, dev):
             dot = do.transpose(1, 2).contiguous()
             e = q.element_size()
             ddt = str(dtype).removeprefix("torch.")
+            f32 = dtype == torch.float32
             common = dict(
-                dtype=dtype, primary=(label == "train"
-                                      and dtype == torch.bfloat16),
+                dtype=dtype, primary=label == "train",
                 shape=f"{label}:B={b},S={sq},H={h},HK={hk},D={d},causal,"
                       f"window={window}",
                 library=lambda lo=lo, qt=qt, kt=kt, vt=vt, dot=dot:
@@ -735,6 +745,20 @@ def k7_cases(torch, g, dev):
                 return ops.flash_attention_bwd_plain(
                     q, k, v, out, lse, do, True, window_size=window,
                     delta=delta)
+            # q, do, dq and k, v, dk, dv once each, lse and delta
+            nbytes = (3 * b * sq * h * d + 4 * b * sq * hk * d) * e \
+                + 8 * b * h * sq
+            if not f32:
+                # K7: S^T, dP^T, dV, dK, dQ: 10 * D flops per live pair
+                yield dict(
+                    name="flash_attention_bwd",
+                    kernel=lambda args=args, window=window:
+                        ops.flash_attention_bwd_fused(*args,
+                                                      window_size=window),
+                    plain=plain,
+                    bound=bound_ms(nbytes, 10.0 * d * pairs * b * h, ddt),
+                    **common)
+                continue
             yield dict(
                 name="flash_attention_bwd_dq",
                 kernel=lambda args=args, window=window:
@@ -901,6 +925,11 @@ KERNELS = {
         "paddle_tpu/ops/pallas/decode_attention.py:128"),
     "rms_norm_bwd": ("cuda", "paddle_tpu_torch/csrc/rms_norm.cu",
                      "paddle_tpu/ops/pallas/rms_norm.py:91"),
+    # K7, the fused bf16 backward: both TPU kernels of `_flash_bwd`
+    "flash_attention_bwd": (
+        "cuda", "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+        "paddle_tpu/ops/pallas/flash_attention.py:402, :425"),
+    # K7a and K7b, the f32 route (phase 8's parity path)
     "flash_attention_bwd_dq": (
         "cuda", "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
         "paddle_tpu/ops/pallas/flash_attention.py:402"),
@@ -918,8 +947,9 @@ KERNELS = {
 SERVING_KERNELS = ("rms_norm", "paged_decode_attention",
                    "varlen_flash_attention")
 GENERATE_KERNELS = ("rms_norm", "flash_attention", "decode_attention")
-TRAIN_KERNELS = ("rms_norm_bwd", "flash_attention_bwd_dq",
-                 "flash_attention_bwd_dkv")
+TRAIN_KERNELS = ("rms_norm_bwd", "flash_attention_bwd")
+TRAIN_F32_KERNELS = ("rms_norm_bwd", "flash_attention_bwd_dq",
+                     "flash_attention_bwd_dkv")
 PACKED_KERNELS = ("varlen_flash_attention_bwd_dq",
                   "varlen_flash_attention_bwd_dkv")
 INT8_SERVING_KERNELS = ("rms_norm", "varlen_flash_attention",
@@ -928,7 +958,9 @@ STATIC_INT8_KERNELS = ("paged_decode_attention_int8",
                        "varlen_flash_attention")
 SCALED_FLOAT_KERNELS = ("paged_decode_attention_scaled",)
 # the path whose run gives each kernel's launches in the kernels line
-KERNEL_PATH = {"paged_decode_attention_int8": "block_mha_static_int8",
+KERNEL_PATH = {"flash_attention_bwd_dq": "train_f32_parity",
+               "flash_attention_bwd_dkv": "train_f32_parity",
+               "paged_decode_attention_int8": "block_mha_static_int8",
                "paged_decode_attention_int8_rows": "int8_serving",
                "paged_decode_attention_scaled": "scaled_float_decode"}
 
@@ -1117,6 +1149,7 @@ def _kernel_family(name):
                      ("varlen_bwd_dkv_",
                       "K8b varlen_flash_attention_bwd_dkv"),
                      ("tile_order_kernel", "K3/K8 tile order"),
+                     ("bwd_fused_", "K7 flash_attention_bwd"),
                      ("bwd_dq_", "K7a flash_attention_bwd_dq"),
                      ("bwd_dkv_", "K7b flash_attention_bwd_dkv"),
                      ("PagedRows<1>", "K2-int8 static"),
@@ -1495,8 +1528,7 @@ def train_phase(torch, dev):
     launches = dict(ops.LAUNCHES)
     per_step = {"rms_norm": 2 * layers + 1, "flash_attention": layers,
                 "rms_norm_bwd": 2 * layers + 1,
-                "flash_attention_bwd_dq": layers,
-                "flash_attention_bwd_dkv": layers}
+                "flash_attention_bwd": layers}
     want = {k: per_step.get(k, 0) * steps for k in launches}
     check(launches == want, f"train launches {launches}, expected {want}")
     losses = torch.cat([torch.stack(losses), timed[0]]).float().cpu()
@@ -1570,15 +1602,19 @@ def train_profile(torch, step, inputs, labels, label="train_step"):
 
 
 def _split_range(torch, prof, rec, name, family):
-    """Move the device time of the kernels launched inside the
-    record_function range ``name`` (its CPU children's, without the
-    range's own device-side annotation span) from "other" to ``family``
-    in a profile record; returns it in ms, or "not measured"."""
-    us = sum(sum(k.duration for k in ev.kernels if k.name != ev.name)
-             + sum(ch.device_time_total for ch in ev.cpu_children)
-             for ev in prof.events()
-             if ev.name == name
-             and ev.device_type == torch.autograd.DeviceType.CPU)
+    """Move the device time of the kernels that ran inside the
+    record_function range ``name`` from "other" to ``family`` in a profile
+    record: each kernel within one of the range's device-side annotation
+    spans, once (the spans themselves are no kernels); returns it in ms,
+    or "not measured"."""
+    cuda = torch.autograd.DeviceType.CUDA
+    events = [ev for ev in prof.events() if ev.device_type == cuda]
+    spans = [(ev.time_range.start, ev.time_range.end) for ev in events
+             if ev.name == name]
+    us = sum(ev.time_range.end - ev.time_range.start for ev in events
+             if ev.name != name
+             and any(a <= ev.time_range.start and ev.time_range.end <= b
+                     for a, b in spans))
     fams = rec["device_ms_by_family"]
     if us and "other" in fams:
         fams[family] = us / 1e3
@@ -1616,9 +1652,12 @@ def train_parity_phase(torch, dev):
             check(all(n == 0 for n in launches.values()),
                   f"plain training path launched a kernel: {launches}")
         else:
-            check(all(launches[k] > 0 for k in TRAIN_KERNELS
+            check(all(launches[k] > 0 for k in TRAIN_F32_KERNELS
                       + ("rms_norm", "flash_attention")),
                   f"training kernel path missed a kernel: {launches}")
+            check(launches["flash_attention_bwd"] == 0,
+                  f"the f32 backward launched the bf16 kernel: {launches}")
+            kernel_launches = launches
         runs.append((grads, losses))
         del model, step, loss
         torch.cuda.empty_cache()
@@ -1630,6 +1669,7 @@ def train_parity_phase(torch, dev):
           "loss_worst_rel": loss_rel})
     check(worst <= 1e-4, f"kernel and plain step-1 grads differ: {worst}")
     check(loss_rel <= 1e-4, f"kernel and plain losses differ: {lk} {lp}")
+    return kernel_launches
 
 
 # ----------------------------------------------------------- phase 9, 10
@@ -2177,13 +2217,14 @@ def main():
     gen_launches = generate_phase(torch, dev)
     generate_parity_phase(torch, dev)
     train_launches = train_phase(torch, dev)
-    train_parity_phase(torch, dev)
+    parity_launches = train_parity_phase(torch, dev)
     packed_launches = packed_train_phase(torch, dev)
     packed_parity_phase(torch, dev)
     int8_launches = int8_serving_phase(torch, dev)
     batch_launches = int8_parity_phase(torch, dev)
     paths = {"serving": launches, "generate": gen_launches,
-             "train": train_launches, "packed_train": packed_launches,
+             "train": train_launches, "train_f32_parity": parity_launches,
+             "packed_train": packed_launches,
              "int8_serving": int8_launches, **batch_launches}
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():

@@ -1,44 +1,78 @@
-// Flash attention backward for Hopper: K7a (dq) and K7b (dk, dv).
+// Flash attention backward for Hopper: K7, one fused bf16 kernel for dq,
+// dk and dv, and K7a (dq) / K7b (dk, dv) in f32.
 //
 // Replaces: paddle_tpu/ops/pallas/flash_attention.py, `_flash_bwd` ->
-// `_bwd_dq_kernel` (K7a) and `_bwd_dkv_kernel` (K7b). Both recompute the
-// probabilities from the forward's log-sum-exp, P = exp(S * scale - lse),
-// and take delta = rowsum(dO * O) (f32, computed by the wrapper):
+// `_bwd_dq_kernel` (its pl.pallas_call at :402) and `_bwd_dkv_kernel`
+// (:425). Both recompute the probabilities from the forward's
+// log-sum-exp, P = exp(S * scale - lse), and take delta = rowsum(dO * O)
+// (f32, computed by the wrapper):
 //   dS = P * (dO V^T - delta) * scale
 //   dQ = dS K            dK = dS^T Q            dV = P^T dO
 // with the TPU kernel's roundings: P is rounded to dO's dtype before dV,
 // dS to K's dtype before dQ and to Q's dtype before dK, every product
-// accumulates in f32, and dq, dk, dv are written in the input dtype. The
-// live (query, key) pairs are the forward's (flash_mma.cuh): bottom-right
-// causal, the sliding-window band, keys past sk never count.
+// accumulates in f32, and dq, dk, dv are written in the input dtype; a
+// GQA group's dk / dv is summed in f32 before its one rounding (the TPU
+// kernel rounds each query head's, then sums). The live (query, key)
+// pairs are the forward's (flash_mma.cuh): bottom-right causal, the
+// sliding-window band, keys past sk never count.
 //
-// Bound on the H100: operations at training shapes. Per live pair K7a does
-// 3 products of D (S, dP, dQ: 6 * D flops) and K7b 4 (S, dP, dV, dK:
-// 8 * D flops) against 4 * D (q, dO, dq rows) or 4 * D (k, v, dk, dv rows)
-// bytes read or written once.
+// Bound on the H100: operations at training shapes. The TPU's two kernels
+// each recompute S = Q K^T and dP = dO V^T: 14 * D flops per live pair.
+// K7 computes them once, 10 * D flops per live pair (S^T, dP^T, dV, dK,
+// dQ), against 4 * D bf16 values of q, do, dq and of k, v, dk, dv read or
+// written once. At the training shape (B = 1, S = 4,096, H = 32, D =
+// 128, causal) that is 8.39 M live pairs per head, 344 GFLOP: 0.347 ms at
+// 989 TFLOP/s, against ~0.02 ms for its bytes.
 //
-// Design. The TPU grid carries dq (or dk/dv) in scratch across its
-// sequential key (or query) axis; here each CTA owns one 64-row tile of
-// the output and loops over the tiles of the other side inside the block,
-// walking only the band of tiles that holds a live pair (computed from
-// indices, as the forward does), so a dead tile costs no byte.
-// - K7a: grid (query tiles, H, B), heaviest tiles first. Q and dO stay in
-//   shared memory; K and V tiles stream through two cp.async stages.
-// - K7b: grid (key tiles, HK, B). One CTA serves a KV head for all G query
-//   heads of its group, looping over (head, query tile) and summing their
-//   dk/dv in f32 registers: no K/V repeated per query head (the TPU kernel
-//   materialises `jnp.repeat`ed K/V and sums afterwards) and no atomics.
-//   Q, dO, lse and delta tiles stream through two cp.async stages.
-// - bf16: tensor cores through `mma.sync` m16n8k16 in K4's layout: each of
-//   the 4 warps owns 16 output rows; the score and dP accumulators (16 x
-//   64 per warp) become dS / P in place and are re-packed as the A operand
-//   of the next product; the B operands that run along the key (K7a) or
-//   query (K7b) axis come from ldmatrix.trans.
-// - f32: CUDA-core FMA in the tile shape of flash_f32.cuh (256 threads,
-//   each a 4 x 4 micro-tile of scores and a 4 x D/16 slice of the output).
+// Design of the bf16 kernel K7 (`bwd_fused_wgmma_kernel`).
+// - One CTA per (batch, KV head, 128-key tile), 8 warps. K and V stay in
+//   shared memory for the whole walk; the CTA walks the 64-row query
+//   tiles that hold a live pair with its keys (highest first) and, for
+//   each, the G query heads of its KV head's group, and sums dk and dv of
+//   all of them in f32 registers: no atomics and no repeated K / V per
+//   query head. Q, dO, lse and delta stream through a three-stage ring
+//   (Q and dO by TMA from one thread, lse and delta by cp.async): two
+//   steps' copies are in flight while one computes.
+// - Per step, on Hopper's tensor cores (wgmma.cuh; two warpgroups, each
+//   owning 64 keys, f32 accumulators): S^T = K Q^T and dP^T = V dO^T (A
+//   and B from shared memory), each its own commit group so P^T is formed
+//   while dP^T is in flight; dV += P^T dO, in flight while dS^T is formed,
+//   and dK += dS^T Q, with P^T / dS^T re-packed from the accumulators as
+//   register A operands (exp2 in one MUFU instruction); dS^T goes once to
+//   shared memory, and dQ_partial = dS K takes it as A (each warpgroup D /
+//   2 columns of the 64 query rows).
+// - dq is a reduction across CTAs, kept deterministic by a fixed order of
+//   adds (no free atomics): the partial is staged in shared memory (f32,
+//   rows padded by 4 so the fragment stores hit distinct banks) and sent
+//   to an f32 workspace tile (B, H, query tile, 64, D + 4) as one bulk
+//   copy (the first contributor) or one bulk reduce-add
+//   (`cp.reduce.async.bulk`, the others); the last contributor reads the
+//   workspace, adds its partial in registers and writes dq in bf16.
+//   The order (ops/flash_attention.py `BwdSchedule`, which states it in
+//   Python and which the tests rehearse): each CTA claims its work item
+//   from a ticket counter at its start, key tiles ascending with the
+//   (batch, KV head) pairs interleaved, so causal masking's long walks
+//   start first; each (batch, query head, query tile) takes its adds in
+//   ascending key-tile order, and a per-tile counter says how many have
+//   landed. A CTA waits only for the key tile just below its own, whose
+//   ticket is earlier; every claimed ticket belongs to a running CTA and
+//   the earliest unfinished one waits on nobody, so the waits cannot
+//   deadlock. Under causal masking every walk starts at the last query
+//   tile, so key tile j - 1 stays ahead of key tile j once it started a
+//   step earlier: only the first wave waits. A CTA releases a tile's
+//   counter once its bulk op has completed, in its next step after its
+//   first products (or at its end), and never while it waits itself.
+// The f32 kernels K7a / K7b (the parity route) are CUDA-core FMA in the
+// tile shape of flash_f32.cuh (256 threads, each a 4 x 4 micro-tile of
+// scores and a 4 x D/16 slice of the output): K7a a CTA per 64-row query
+// tile walking its key range, K7b a CTA per 64-key tile walking its query
+// range over the G heads of its group.
+#include <cuda.h>
+
 #include "common.cuh"
 #include "flash_f32.cuh"
 #include "flash_mma.cuh"
+#include "wgmma.cuh"
 
 using namespace ptt;
 using namespace ptt::flash;
@@ -50,225 +84,364 @@ static_assert(kBQ == flash_f32::kBQ && kBK == flash_f32::kBK,
 using bf16 = __nv_bfloat16;
 
 // The query range [lo, hi) that sees at least one of the keys
-// [k0, k0 + kBK): the transpose of key_range (`_q_band_clamp`).
+// [k0, k0 + BK): the transpose of key_range (`_q_band_clamp`).
+template <int BK>
 __device__ __forceinline__ void query_range(const Dims& s, int k0, int* lo,
                                             int* hi) {
   int l = 0, u = s.sq;
   if (s.causal) {
     l = max(0, k0 - s.off);
-    if (s.window > 0) u = min(u, min(k0 + kBK, s.sk) - 1 - s.off + s.window);
+    if (s.window > 0) u = min(u, min(k0 + BK, s.sk) - 1 - s.off + s.window);
   }
   *lo = l;
   *hi = u;
 }
 
+// ------------------------------------------------------------- K7 bf16
+constexpr int kFBK = 128;             // keys per CTA
+constexpr int kFWarps = kFBK / 16;    // each warp owns 16 keys
+constexpr int kFThreads = 32 * kFWarps;
+
 // Every pair of the query tile at q0 and the key tile at k0 is live, and
 // both tiles are whole (rows past sq would add to dk / dv).
-__device__ __forceinline__ bool full_pair(const Dims& s, int q0, int k0) {
-  if (q0 + kBQ > s.sq || k0 + kBK > s.sk) return false;
+__device__ __forceinline__ bool fused_full_pair(const Dims& s, int q0,
+                                                int k0) {
+  if (q0 + kBQ > s.sq || k0 + kFBK > s.sk) return false;
   if (!s.causal) return true;
-  if (k0 + kBK - 1 > q0 + s.off) return false;
+  if (k0 + kFBK - 1 > q0 + s.off) return false;
   return s.window <= 0 || k0 > q0 + kBQ - 1 + s.off - s.window;
 }
 
-// ------------------------------------------------------------ K7a bf16
-template <int D>
-constexpr size_t dq_smem_bytes() {
-  return sizeof(bf16) * static_cast<size_t>(2 * kBQ + 4 * kBK) * (D + 8);
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
 }
 
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;\n" ::"l"(p), "r"(v)
+               : "memory");
+}
+
+// Spin until the counter at p reaches `want` (one thread). A wait that
+// outlasts any schedule (about 2^26 polls, seconds) traps, so a broken
+// order fails the launch instead of hanging the card.
+__device__ __forceinline__ void wait_counter(const int* p, int want) {
+  for (int n = 0; ld_acquire(p) < want; ++n) {
+    if (n == (1 << 26)) __trap();
+    __nanosleep(32);
+  }
+}
+
+// Shared -> global bulk copy, and bulk reduce-add of f32 (each element
+// of the destination += the source's), tracked by the bulk async-group.
+__device__ __forceinline__ void bulk_store(void* g, const void* s,
+                                           unsigned bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+          g),
+      "r"(smem_u32(s)), "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_reduce_add(float* g, const float* s,
+                                                unsigned bytes) {
+  asm volatile(
+      "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], "
+      "[%1], %2;\n" ::"l"(g),
+      "r"(smem_u32(s)), "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// The bulk ops of this thread are complete: their writes are performed.
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// Order this thread's shared writes before a later bulk op reads them.
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Order global accesses of the generic and the async proxy.
+__device__ __forceinline__ void fence_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+// Thread 0: once the bulk op of the tile whose counter is `*pending` has
+// completed, release the tile to its next contributor (the staging is
+// then free again).
+__device__ __forceinline__ void release_dq(int* sync, int* pending,
+                                           int pending_val) {
+  if (threadIdx.x != 0 || !*pending) return;
+  bulk_wait();
+  fence_async_global();
+  st_release(sync + *pending, pending_val);
+  *pending = 0;
+}
+
+// The dq side of one step of K7: this key tile's place
+// in the add order of query tile i of `head`, and its add. The thread
+// holds partial rows mq + g and mq + g + 8, columns nc + 8 nd + 2 tig and
+// one more (nd < D / 16). The first contributor stores the staged tile
+// into the workspace, the others bulk-add it, each in its turn; the last
+// adds the workspace to its partial in registers and writes dq in bf16
+// (one contributor alone writes dq straight away). Thread 0 keeps the
+// counter of an add in flight in *pending (released by release_dq).
 template <int D>
-__global__ void __launch_bounds__(kThreadsTC, 2)
-    bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v,
-                       const bf16* __restrict__ dout,
-                       const float* __restrict__ lse,
-                       const float* __restrict__ delta,
-                       bf16* __restrict__ dq, Dims s) {
-  constexpr int LD = D + 8;
-  constexpr int kSteps = D / 16;
-  constexpr int kNtS = kBK / 8;
+__device__ __forceinline__ void add_dq(float (*dqa)[4], const Dims& s, int b,
+                                       int head, int i, int j, int nq,
+                                       int mq, int nc, bf16* dq, float* ws,
+                                       int* sync, float* stg, int* pending,
+                                       int* pending_val) {
+  constexpr int LDW = D + 4;
+  constexpr int kNtQ = D / 16;
+  constexpr unsigned kStageBytes = sizeof(float) * kBQ * LDW;
+  const int g = (threadIdx.x & 31) >> 2;
+  const int tig = threadIdx.x & 3;
+  const int q0 = i * kBQ;
+  int klo, khi;
+  key_range(s, q0, &klo, &khi);
+  const int rank = j - klo / kFBK;
+  const bool last = j == (khi - 1) / kFBK;
+  const int cidx = 1 + (b * s.h + head) * nq + i;
+  float* wt =
+      ws + (static_cast<size_t>(b * s.h + head) * nq + i) * (kBQ * LDW);
+  if (last) {
+    if (rank > 0) {
+      // the earlier contributors' sum, then dq = sum + this partial
+      if (threadIdx.x == 0) wait_counter(sync + cidx, rank);
+      __syncthreads();
+#pragma unroll
+      for (int nd = 0; nd < kNtQ; ++nd)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const float2 w = __ldcg(reinterpret_cast<const float2*>(
+              wt + (mq + g + half * 8) * LDW + nc + nd * 8 + tig * 2));
+          dqa[nd][2 * half] = w.x + dqa[nd][2 * half];
+          dqa[nd][2 * half + 1] = w.y + dqa[nd][2 * half + 1];
+        }
+    }
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = q0 + mq + g + half * 8;
+      if (r >= s.sq) continue;
+      bf16* o = dq + ((static_cast<size_t>(b) * s.sq + r) * s.h + head) * D +
+                nc + tig * 2;
+#pragma unroll
+      for (int nd = 0; nd < kNtQ; ++nd)
+        *reinterpret_cast<__nv_bfloat162*>(o + nd * 8) =
+            __floats2bfloat162_rn(dqa[nd][2 * half], dqa[nd][2 * half + 1]);
+    }
+    return;
+  }
+#pragma unroll
+  for (int nd = 0; nd < kNtQ; ++nd)
+#pragma unroll
+    for (int half = 0; half < 2; ++half)
+      *reinterpret_cast<float2*>(stg + (mq + g + half * 8) * LDW + nc +
+                                 nd * 8 + tig * 2) =
+          make_float2(dqa[nd][2 * half], dqa[nd][2 * half + 1]);
+  fence_async_shared();
+  if (threadIdx.x == 0 && rank > 0) wait_counter(sync + cidx, rank);
+  __syncthreads();  // the staging is complete; it is our turn
+  if (threadIdx.x == 0) {
+    fence_async_global();
+    if (rank == 0)
+      bulk_store(wt, stg, kStageBytes);
+    else
+      bulk_reduce_add(wt, stg, kStageBytes);
+    bulk_commit();
+    *pending = cidx;
+    *pending_val = rank + 1;
+  }
+}
+
+// ------------------------------------------------------- K7 bf16, wgmma
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// Wait for the phase of parity `parity` of the barrier to complete; a
+// wait that outlasts any schedule traps, as wait_counter does.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  for (int n = 0;; ++n) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (n == (1 << 22)) __trap();
+  }
+}
+
+// One 64-row x 64-column box of a (B, S, H, D) bf16 tensor into shared
+// memory (128-byte swizzle), completing on `bar`.
+__device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map,
+                                        int d0, int h, int s0, int b,
+                                        uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(d0), "r"(h), "r"(s0), "r"(b),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Byte offsets of the wgmma kernel's shared memory at head width D: the
+// bf16 tiles are blocked (wgmma.cuh), without padding.
+template <int D>
+struct WgSmem {
+  static constexpr size_t kv_bytes = sizeof(bf16) * kFBK * D;
+  static constexpr size_t q_bytes = sizeof(bf16) * kBQ * D;
+  static constexpr size_t k = 0;
+  static constexpr size_t v = k + kv_bytes;
+  static constexpr size_t q = v + kv_bytes;          // [3 stages]
+  static constexpr size_t dout = q + 3 * q_bytes;    // [3 stages]
+  static constexpr size_t dst = dout + 3 * q_bytes;  // dS^T [kFBK][kBQ]
+  static constexpr size_t stage = dst + sizeof(bf16) * kFBK * kBQ;
+  static constexpr size_t lse = stage + sizeof(float) * kBQ * (D + 4);
+  static constexpr size_t delta = lse + sizeof(float) * 3 * kBQ;  // [3][kBQ]
+  static constexpr size_t bars = delta + sizeof(float) * 3 * kBQ;  // full[3]
+  // and 1 KB of room to align the base to the 128-byte swizzle's atoms
+  static constexpr size_t bytes = bars + sizeof(uint64_t) * 3 + 1024;
+  static_assert(stage % 16 == 0, "bulk copies read 16-byte aligned rows");
+};
+
+// ROWS rows of a head of width D into a blocked tile by all kFThreads
+// threads (consecutive threads fill consecutive 16-byte chunks); rows at
+// or past `limit` are zero-filled.
+template <int D, int ROWS>
+__device__ __forceinline__ void load_rows_blocked(bf16* dst, const bf16* src,
+                                                  size_t stride, int row0,
+                                                  int limit) {
+  constexpr int kChunks = D / 8;
+  char* base = reinterpret_cast<char*>(dst);
+  for (int idx = threadIdx.x; idx < ROWS * kChunks; idx += kFThreads) {
+    const int r = idx / (8 * kChunks) * 8 + (idx & 7);
+    const int c8 = (idx >> 3) % kChunks;
+    const bool ok = row0 + r < limit;
+    cp_async16(base + idx * 16,
+               ok ? src + static_cast<size_t>(row0 + r) * stride + c8 * 8
+                  : src,
+               ok);
+  }
+}
+
+// K7 on Hopper's wgmma: two warpgroups, each owning 64 of the CTA's 128
+// keys. Per step S^T, dP^T (A = K / V, B = Q / dO, both K-major from
+// shared memory), dV += P^T dO and dK += dS^T Q (A = P^T / dS^T from
+// registers, B = dO / Q MN-major), and dQ = dS K (A = dS^T, written once
+// to shared memory, and B = K, both MN-major; each warpgroup takes half
+// of D); the walk and the dq order are the header's. The ring has three
+// stages: thread 0 asks TMA for each step's Q and dO boxes
+// (128-byte swizzle, completing on the stage's mbarrier), the threads
+// copy lse and delta with cp.async; K and V (blocked, no swizzle) are
+// copied once by cp.async.
+template <int D>
+__global__ void __launch_bounds__(kFThreads, 1)
+    bwd_fused_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                           const __grid_constant__ CUtensorMap dmap,
+                           const bf16* __restrict__ k,
+                           const bf16* __restrict__ v,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           bf16* __restrict__ dq, bf16* __restrict__ dk,
+                           bf16* __restrict__ dv, float* __restrict__ ws,
+                           int* __restrict__ sync, Dims s, int nb) {
+  using M = WgSmem<D>;
+  constexpr int kRow8 = 16 * D;   // bytes between 8-row groups of a tile
+  constexpr int kNtS = kBQ / 8;   // score n-tiles (8 queries)
   constexpr int kNtO = D / 8;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* dos = qs + kBQ * LD;
-  bf16* ks = dos + kBQ * LD;      // [2][kBK][LD]
-  bf16* vs = ks + 2 * kBK * LD;   // [2][kBK][LD]
+  constexpr int kNtQ = D / 16;    // dq n-tiles of a warpgroup (half of D)
+  extern __shared__ __align__(128) unsigned char smem_dyn[];
+  unsigned char* smem_raw =
+      smem_dyn + ((1024 - (smem_u32(smem_dyn) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem_raw + M::bars);
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw + M::k);
+  bf16* vs = reinterpret_cast<bf16*>(smem_raw + M::v);
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw + M::q);
+  bf16* dos = reinterpret_cast<bf16*>(smem_raw + M::dout);
+  char* dst = reinterpret_cast<char*>(smem_raw + M::dst);
+  float* stg = reinterpret_cast<float*>(smem_raw + M::stage);
+  float* ls = reinterpret_cast<float*>(smem_raw + M::lse);
+  float* dls = reinterpret_cast<float*>(smem_raw + M::delta);
+  __shared__ int ticket;
 
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
-  const int head = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kvh = head / (s.h / s.hk);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int g = lane >> 2;
-  const int tig = lane & 3;
-
-  const size_t q_stride = static_cast<size_t>(s.h) * D;
-  const size_t kv_stride = static_cast<size_t>(s.hk) * D;
-  const size_t q_off = (static_cast<size_t>(b) * s.sq * s.h + head) * D;
-  const size_t kv_off = (static_cast<size_t>(b) * s.sk * s.hk + kvh) * D;
-  const bf16* kb = k + kv_off;
-  const bf16* vb = v + kv_off;
-
-  int lo, hi;
-  key_range(s, q0, &lo, &hi);
-  const int ntiles = hi > lo ? (hi - lo + kBK - 1) / kBK : 0;
-
-  load_tile<D, LD>(qs, q + q_off, q_stride, q0, s.sq);
-  load_tile<D, LD>(dos, dout + q_off, q_stride, q0, s.sq);
-  if (ntiles > 0) {
-    load_tile<D, LD>(ks, kb, kv_stride, lo, hi);
-    load_tile<D, LD>(vs, vb, kv_stride, lo, hi);
+  // the work item: ticket = (j * nb + batch) * hk + kv_head
+  if (threadIdx.x == 0) {
+    ticket = atomicAdd(sync, 1);
+    for (int i = 0; i < 3; ++i) mbar_init(full + i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  cp_async_commit();
-
-  const int r0 = q0 + warp * 16 + g;  // the thread's rows r0, r0 + 8
-  const size_t row0 = (static_cast<size_t>(b) * s.h + head) * s.sq;
-  float lse2[2], dl[2];
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int r = r0 + half * 8;
-    lse2[half] = r < s.sq ? lse[row0 + r] * kLog2e : 0.f;
-    dl[half] = r < s.sq ? delta[row0 + r] : 0.f;
-  }
-  float acc[kNtO][4];
-#pragma unroll
-  for (int i = 0; i < kNtO; ++i)
-    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  const float scale_log2 = s.scale * kLog2e;
-  const bf16* qw = qs + (warp * 16 + g) * LD + tig * 2;
-  const bf16* dw = dos + (warp * 16 + g) * LD + tig * 2;
-
-  for (int t = 0; t < ntiles; ++t) {
-    const int k0 = lo + t * kBK;
-    const int stage = t & 1;
-    if (t + 1 < ntiles) {
-      load_tile<D, LD>(ks + (stage ^ 1) * kBK * LD, kb, kv_stride, k0 + kBK,
-                       hi);
-      load_tile<D, LD>(vs + (stage ^ 1) * kBK * LD, vb, kv_stride, k0 + kBK,
-                       hi);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* kt = ks + stage * kBK * LD;
-    const bf16* vt = vs + stage * kBK * LD;
-
-    // S = Q K^T and dP = dO V^T for the warp's 16 rows x 64 keys
-    float sc[kNtS][4], dp[kNtS][4];
-#pragma unroll
-    for (int nt = 0; nt < kNtS; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sc[nt][e] = dp[nt][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kSteps; ++kk) {
-      uint32_t aq[4], ad[4];
-      a_frag<LD>(aq, qw, kk);
-      a_frag<LD>(ad, dw, kk);
-#pragma unroll
-      for (int nt = 0; nt < kNtS; ++nt) {
-        const bf16* kr = kt + (nt * 8 + g) * LD + tig * 2 + kk * 16;
-        const bf16* vr = vt + (nt * 8 + g) * LD + tig * 2 + kk * 16;
-        mma_bf16(sc[nt], aq, lds32(kr), lds32(kr + 8));
-        mma_bf16(dp[nt], ad, lds32(vr), lds32(vr + 8));
-      }
-    }
-
-    // P from lse (dead pairs 0), then dS = P (dP - delta) scale in sc
-    const bool full = full_tile(s, q0, k0);
-#pragma unroll
-    for (int nt = 0; nt < kNtS; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int half = e >> 1;
-        float p = exp2f(fmaf(sc[nt][e], scale_log2, -lse2[half]));
-        if (!full &&
-            !band_live(s, r0 + half * 8, k0 + nt * 8 + tig * 2 + (e & 1)))
-          p = 0.f;
-        sc[nt][e] = p * (dp[nt][e] - dl[half]) * s.scale;
-      }
-
-    // dQ += dS K (dS rounded to bf16)
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      uint32_t a[4];
-      pack_a(a, sc, kk);
-      mma_rows<D, LD>(acc, a, kt, kk, lane);
-    }
-    __syncthreads();  // the next iteration refills this stage
-  }
-  store_rows<D>(dq + q_off, q_stride, acc, r0, s.sq, tig);
-}
-
-// ------------------------------------------------------------ K7b bf16
-template <int D>
-constexpr size_t dkv_smem_bytes() {
-  return sizeof(bf16) * static_cast<size_t>(2 * kBK + 4 * kBQ) * (D + 8) +
-         sizeof(float) * 4 * kBQ;
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreadsTC, 2)
-    bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
-                        const bf16* __restrict__ k,
-                        const bf16* __restrict__ v,
-                        const bf16* __restrict__ dout,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ delta,
-                        bf16* __restrict__ dk, bf16* __restrict__ dv,
-                        Dims s) {
-  constexpr int LD = D + 8;
-  constexpr int kSteps = D / 16;
-  constexpr int kNtS = kBQ / 8;  // score n-tiles (queries) per warp
-  constexpr int kNtO = D / 8;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* vs = ks + kBK * LD;
-  bf16* qs = vs + kBK * LD;        // [2][kBQ][LD]
-  bf16* dos = qs + 2 * kBQ * LD;   // [2][kBQ][LD]
-  float* ls = reinterpret_cast<float*>(dos + 2 * kBQ * LD);  // [2][kBQ]
-  float* dls = ls + 2 * kBQ;                                 // [2][kBQ]
-
-  const int k0 = blockIdx.x * kBK;
-  const int kvh = blockIdx.y;
-  const int b = blockIdx.z;
+  __syncthreads();
+  const int j = ticket / (nb * s.hk);
+  const int b = ticket / s.hk % nb;
+  const int kvh = ticket % s.hk;
+  const int k0 = j * kFBK;
   const int grp = s.h / s.hk;
+  const int nq = (s.sq + kBQ - 1) / kBQ;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  const int wgi = warp >> 2;  // the warpgroup: keys 64 wgi .. 64 wgi + 63
   const int g = lane >> 2;
   const int tig = lane & 3;
-
-  const size_t q_stride = static_cast<size_t>(s.h) * D;
   const size_t kv_stride = static_cast<size_t>(s.hk) * D;
   const size_t kv_off = (static_cast<size_t>(b) * s.sk * s.hk + kvh) * D;
 
   int lo, hi;
-  query_range(s, k0, &lo, &hi);
-  const int nqt = hi > lo ? (hi - lo + kBQ - 1) / kBQ : 0;
-  const int items = grp * nqt;  // (query head of the group, query tile)
+  query_range<kFBK>(s, k0, &lo, &hi);
+  const int ihi = (hi - 1) / kBQ;
+  const int items = hi > lo ? (ihi - lo / kBQ + 1) * grp : 0;
 
-  // stage the Q / dO rows, lse and delta of item t
-  auto load_item = [&](int t, int stage) {
-    const int head = kvh * grp + t / nqt;
-    const int q0 = lo + (t % nqt) * kBQ;
-    const size_t q_off = (static_cast<size_t>(b) * s.sq * s.h + head) * D;
-    load_tile<D, LD>(qs + stage * kBQ * LD, q + q_off, q_stride, q0, s.sq);
-    load_tile<D, LD>(dos + stage * kBQ * LD, dout + q_off, q_stride, q0,
-                     s.sq);
+  auto load_step = [&](int t, int st) {
+    const int q0 = (ihi - t / grp) * kBQ;
+    const int head = kvh * grp + t % grp;
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(full + st, 2 * sizeof(bf16) * kBQ * D);
+#pragma unroll
+      for (int c = 0; c < D / 64; ++c) {
+        tma_box(qs + st * kBQ * D + c * 64 * kBQ, &qmap, c * 64, head, q0, b,
+                full + st);
+        tma_box(dos + st * kBQ * D + c * 64 * kBQ, &dmap, c * 64, head, q0, b,
+                full + st);
+      }
+    }
     const size_t row0 = (static_cast<size_t>(b) * s.h + head) * s.sq;
-    for (int i = threadIdx.x; i < kBQ; i += kThreadsTC) {
-      const bool ok = q0 + i < s.sq;
-      cp_async4(ls + stage * kBQ + i, lse + (ok ? row0 + q0 + i : 0), ok);
-      cp_async4(dls + stage * kBQ + i, delta + (ok ? row0 + q0 + i : 0), ok);
+    for (int r = threadIdx.x; r < kBQ; r += kFThreads) {
+      const bool ok = q0 + r < s.sq;
+      cp_async4(ls + st * kBQ + r, lse + (ok ? row0 + q0 + r : 0), ok);
+      cp_async4(dls + st * kBQ + r, delta + (ok ? row0 + q0 + r : 0), ok);
     }
   };
 
-  load_tile<D, LD>(ks, k + kv_off, kv_stride, k0, s.sk);
-  load_tile<D, LD>(vs, v + kv_off, kv_stride, k0, s.sk);
-  if (items > 0) load_item(0, 0);
+  load_rows_blocked<D, kFBK>(ks, k + kv_off, kv_stride, k0, s.sk);
+  load_rows_blocked<D, kFBK>(vs, v + kv_off, kv_stride, k0, s.sk);
+  if (items > 0) load_step(0, 0);
+  cp_async_commit();
+  if (items > 1) load_step(1, 1);
   cp_async_commit();
 
   float adk[kNtO][4], adv[kNtO][4];
@@ -277,74 +450,151 @@ __global__ void __launch_bounds__(kThreadsTC, 2)
 #pragma unroll
     for (int e = 0; e < 4; ++e) adk[i][e] = adv[i][e] = 0.f;
   const float scale_log2 = s.scale * kLog2e;
-  const int kr0 = k0 + warp * 16 + g;  // the thread's keys kr0, kr0 + 8
-  const bf16* kw = ks + (warp * 16 + g) * LD + tig * 2;
-  const bf16* vw = vs + (warp * 16 + g) * LD + tig * 2;
+  const int lk = warp * 16 + g;    // the thread's keys lk, lk + 8
+  const int mq = (warp & 3) * 16;  // the warp's dq rows
+  const int nc = wgi * (D / 2);    // the warpgroup's dq columns
+  // the warpgroup's K and V rows (A of S^T and dP^T), and K's columns of
+  // its dq half (B of dQ)
+  const uint32_t ka = smem_u32(ks) + wgi * 8 * kRow8;
+  const uint32_t va = smem_u32(vs) + wgi * 8 * kRow8;
+  const uint32_t kb = smem_u32(ks) + wgi * (D / 16) * 128;
+  const uint32_t sa = smem_u32(dst);
+  int pending = 0, pending_val = 0;
 
   for (int t = 0; t < items; ++t) {
-    const int stage = t & 1;
-    const int q0 = lo + (t % nqt) * kBQ;
-    if (t + 1 < items) {
-      load_item(t + 1, stage ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
+    const int st = t % 3;
+    const int i = ihi - t / grp;
+    const int head = kvh * grp + t % grp;
+    const int q0 = i * kBQ;
+    cp_async_wait<1>();    // lse, delta (and K, V) of this step
+    fence_async_shared();  // K and V are read by wgmma (async proxy)
+    // this stage has landed, and both warpgroups are done with the last
+    // step (their wgmma reads of its stage, of dS^T and of the staging):
+    // only now may step t + 2's copy overwrite that stage
     __syncthreads();
-    const bf16* qt = qs + stage * kBQ * LD;
-    const bf16* dot = dos + stage * kBQ * LD;
-    const float* lt = ls + stage * kBQ;
-    const float* dt = dls + stage * kBQ;
+    if (t + 2 < items) load_step(t + 2, (t + 2) % 3);
+    cp_async_commit();  // one group a step, empty or not
+    mbar_wait(full + st, (t / 3) & 1);  // this step's Q and dO boxes
+    const uint32_t qa = smem_u32(qs + st * kBQ * D);
+    const uint32_t da = smem_u32(dos + st * kBQ * D);
+    const float* lt = ls + st * kBQ;
+    const float* dlt = dls + st * kBQ;
+    const bool full = fused_full_pair(s, q0, k0);
 
-    // S^T = K Q^T and dP^T = V dO^T for the warp's 16 keys x 64 queries
+    // -lse log2(e) and delta of the thread's 16 query columns
+    float nl[kNtS][2], dl[kNtS][2];
+#pragma unroll
+    for (int nt = 0; nt < kNtS; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        nl[nt][e] = -lt[nt * 8 + tig * 2 + e] * kLog2e;
+        dl[nt][e] = dlt[nt * 8 + tig * 2 + e];
+      }
+
+    // S^T = K Q^T and dP^T = V dO^T: the warpgroup's 64 keys x 64 queries,
+    // each its own commit group so P is formed while dP^T is in flight
     float sc[kNtS][4], dp[kNtS][4];
 #pragma unroll
     for (int nt = 0; nt < kNtS; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) sc[nt][e] = dp[nt][e] = 0.f;
+    wg::fence();
 #pragma unroll
-    for (int kk = 0; kk < kSteps; ++kk) {
-      uint32_t ak[4], av[4];
-      a_frag<LD>(ak, kw, kk);
-      a_frag<LD>(av, vw, kk);
+    for (int kk = 0; kk < D / 16; ++kk)
+      wg::ss<kBQ, 0, 0>(&sc[0][0], wg::desc(ka + kk * 256, 128, kRow8),
+                        wg::desc_sw128(qa + kk / 4 * 8192 + kk % 4 * 32, 16,
+                                       1024), 1);
+    wg::commit();
 #pragma unroll
-      for (int nt = 0; nt < kNtS; ++nt) {
-        const bf16* qr = qt + (nt * 8 + g) * LD + tig * 2 + kk * 16;
-        const bf16* dr = dot + (nt * 8 + g) * LD + tig * 2 + kk * 16;
-        mma_bf16(sc[nt], ak, lds32(qr), lds32(qr + 8));
-        mma_bf16(dp[nt], av, lds32(dr), lds32(dr + 8));
-      }
-    }
+    for (int kk = 0; kk < D / 16; ++kk)
+      wg::ss<kBQ, 0, 0>(&dp[0][0], wg::desc(va + kk * 256, 128, kRow8),
+                        wg::desc_sw128(da + kk / 4 * 8192 + kk % 4 * 32, 16,
+                                       1024), 1);
+    wg::commit();
+    wg::wait<1>();
+    wg::fence_regs<4 * kNtS>(&sc[0][0]);
 
-    // P^T in sc (dead pairs 0), dS^T = P^T (dP^T - delta) scale in dp
-    const bool full = full_pair(s, q0, k0);
+    // P^T in sc (dead pairs 0 by a select), then dV += P^T dO (P^T rounded
+    // to bf16, A from registers; B MN-major: rows are the queries), in
+    // flight while dS^T is formed
 #pragma unroll
     for (int nt = 0; nt < kNtS; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int c = nt * 8 + tig * 2 + (e & 1);  // query in the tile
-        float p = exp2f(fmaf(sc[nt][e], scale_log2, -lt[c] * kLog2e));
-        if (!full && !(q0 + c < s.sq &&
-                       band_live(s, q0 + c, kr0 + (e >> 1) * 8)))
-          p = 0.f;
-        sc[nt][e] = p;
-        dp[nt][e] = p * (dp[nt][e] - dt[c]) * s.scale;
+        const int c = nt * 8 + tig * 2 + (e & 1);
+        const bool live =
+            full || (q0 + c < s.sq &&
+                     band_live(s, q0 + c, k0 + lk + (e >> 1) * 8));
+        sc[nt][e] =
+            live ? exp2_ftz(fmaf(sc[nt][e], scale_log2, nl[nt][e & 1])) : 0.f;
       }
-
-    // dV += P^T dO and dK += dS^T Q (P^T and dS^T rounded to bf16)
+    uint32_t ap[kBQ / 16][4], ads[kBQ / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < kBQ / 16; ++kk) {
-      uint32_t a[4];
-      pack_a(a, sc, kk);
-      mma_rows<D, LD>(adv, a, dot, kk, lane);
-      pack_a(a, dp, kk);
-      mma_rows<D, LD>(adk, a, qt, kk, lane);
-    }
-    __syncthreads();  // the next iteration refills this stage
+    for (int kk = 0; kk < kBQ / 16; ++kk) pack_a(ap[kk], sc, kk);
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < kBQ / 16; ++kk)
+      wg::rs<D, 1>(&adv[0][0], ap[kk],
+                   wg::desc_sw128(da + kk * 2048, 8192, 1024), 1);
+    wg::commit();
+    wg::wait<1>();
+    wg::fence_regs<4 * kNtS>(&dp[0][0]);
+
+    // dS^T = P^T (dP^T - delta) scale, then dK += dS^T Q (dS^T rounded to
+    // bf16)
+#pragma unroll
+    for (int nt = 0; nt < kNtS; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dp[nt][e] = sc[nt][e] * (dp[nt][e] - dl[nt][e & 1]) * s.scale;
+#pragma unroll
+    for (int kk = 0; kk < kBQ / 16; ++kk) pack_a(ads[kk], dp, kk);
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < kBQ / 16; ++kk)
+      wg::rs<D, 1>(&adk[0][0], ads[kk],
+                   wg::desc_sw128(qa + kk * 2048, 8192, 1024), 1);
+    wg::commit();
+
+    // dS^T (bf16) into its blocked tile, rows the keys
+#pragma unroll
+    for (int nt = 0; nt < kNtS; ++nt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+        *reinterpret_cast<uint32_t*>(
+            dst + wg::chunk_offset<kBQ>(lk + half * 8, nt) + tig * 4) =
+            ads[nt >> 1][(nt & 1) * 2 + half];
+    fence_async_shared();
+    // the previous step's bulk op has had this step's products to land
+    release_dq(sync, &pending, pending_val);
+    __syncthreads();  // dS^T is complete
+
+    // dQ_partial = dS K: the tile's 64 queries x the warpgroup's D / 2
+    // columns (A = dS^T, B = K, both MN-major: rows are the keys)
+    float dqa[kNtQ][4];
+#pragma unroll
+    for (int nd = 0; nd < kNtQ; ++nd)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dqa[nd][e] = 0.f;
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < kFBK / 16; ++kk)
+      wg::ss<D / 2, 1, 1>(&dqa[0][0],
+                          wg::desc(sa + kk * 2 * (16 * kBQ), 16 * kBQ, 128),
+                          wg::desc(kb + kk * 2 * kRow8, kRow8, 128), 1);
+    wg::commit();
+    wg::wait<0>();
+    wg::fence_regs<4 * kNtO>(&adv[0][0]);
+    wg::fence_regs<4 * kNtO>(&adk[0][0]);
+    wg::fence_regs<4 * kNtQ>(&dqa[0][0]);
+
+    add_dq<D>(dqa, s, b, head, i, j, nq, mq, nc, dq, ws, sync, stg, &pending,
+              &pending_val);
   }
-  store_rows<D>(dk + kv_off, kv_stride, adk, kr0, s.sk, tig);
-  store_rows<D>(dv + kv_off, kv_stride, adv, kr0, s.sk, tig);
+  release_dq(sync, &pending, pending_val);
+  cp_async_wait<0>();  // a CTA without steps still has K and V in flight
+  store_rows<D>(dk + kv_off, kv_stride, adk, k0 + lk, s.sk, tig);
+  store_rows<D>(dv + kv_off, kv_stride, adv, k0 + lk, s.sk, tig);
 }
 
 // ---------------------------------------------------------------- f32
@@ -502,7 +752,7 @@ __global__ void __launch_bounds__(flash_f32::kThreads)
     for (int j = 0; j < kDPer; ++j) ak[i][j] = av[i][j] = 0.f;
   const int nd = d / 16;
   int lo, hi;
-  query_range(s, k0, &lo, &hi);
+  query_range<kBK>(s, k0, &lo, &hi);
 
   for (int j0 = 0; j0 < grp; ++j0) {
     const int head = kvh * grp + j0;
@@ -596,102 +846,144 @@ bool valid(int sk, int h, int hk, int d, int causal, int window) {
          window >= 0 && (window == 0 || causal);
 }
 
-template <int D>
-int launch_dq_bf16(const void* q, const void* k, const void* v,
-                   const void* dout, const float* lse, const float* delta,
-                   void* dq, const Dims& s, dim3 grid, cudaStream_t st) {
-  static bool configured = false;
-  constexpr size_t bytes = dq_smem_bytes<D>();
-  if (int e = set_smem(bwd_dq_bf16_kernel<D>, bytes, &configured)) return e;
-  bwd_dq_bf16_kernel<D><<<grid, kThreadsTC, bytes, st>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, delta,
-      static_cast<bf16*>(dq), s);
-  return static_cast<int>(cudaGetLastError());
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// A (B, S, H, D) bf16 tensor as TMA boxes of 64 rows x 64 columns of one
+// head, 128-byte swizzle; rows past S read as zeros. The encoder comes
+// from the driver through the runtime, so the library links no -lcuda.
+int make_map(CUtensorMap* m, const void* base, int b, int sq, int h, int d) {
+  static EncodeTiled encode = nullptr;
+  if (!encode) {
+    cudaDriverEntryPointQueryResult found;
+    void* fn = nullptr;
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
+                                            cudaEnableDefault, &found);
+    if (e != cudaSuccess || found != cudaDriverEntryPointSuccess || !fn)
+      return static_cast<int>(cudaErrorSymbolNotFound);
+    encode = reinterpret_cast<EncodeTiled>(fn);
+  }
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(h),
+                              static_cast<cuuint64_t>(sq),
+                              static_cast<cuuint64_t>(b)};
+  const cuuint64_t strides[3] = {
+      static_cast<cuuint64_t>(d) * 2, static_cast<cuuint64_t>(h) * d * 2,
+      static_cast<cuuint64_t>(sq) * h * d * 2};
+  const cuuint32_t box[4] = {64, 1, 64, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <int D>
-int launch_dkv_bf16(const void* q, const void* k, const void* v,
-                    const void* dout, const float* lse, const float* delta,
-                    void* dk, void* dv, const Dims& s, dim3 grid,
-                    cudaStream_t st) {
+int launch_fused(const void* q, const void* k, const void* v,
+                 const void* dout, const float* lse, const float* delta,
+                 void* dq, void* dk, void* dv, float* ws, int* sync,
+                 const Dims& s, int b, int items, cudaStream_t st) {
   static bool configured = false;
-  constexpr size_t bytes = dkv_smem_bytes<D>();
-  if (int e = set_smem(bwd_dkv_bf16_kernel<D>, bytes, &configured)) return e;
-  bwd_dkv_bf16_kernel<D><<<grid, kThreadsTC, bytes, st>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, delta,
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), s);
+  CUtensorMap qmap, dmap;
+  if (int e = make_map(&qmap, q, b, s.sq, s.h, D)) return e;
+  if (int e = make_map(&dmap, dout, b, s.sq, s.h, D)) return e;
+  constexpr size_t bytes = WgSmem<D>::bytes;
+  if (int e = set_smem(bwd_fused_wgmma_kernel<D>, bytes, &configured))
+    return e;
+  bwd_fused_wgmma_kernel<D><<<items, kFThreads, bytes, st>>>(
+      qmap, dmap, static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      lse, delta, static_cast<bf16*>(dq), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), ws, sync, s, b);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// q, do, dq (B, Sq, H, D); k, v (B, Sk, HK, D); lse, delta (B, H, Sq) f32;
-// all contiguous, one dtype for the (B, S, *, D) tensors. D is 64 or 128;
-// window 0 means none (needs causal).
+// K7. q, do, dq (B, Sq, H, D); k, v, dk, dv (B, Sk, HK, D); lse, delta
+// (B, H, Sq) f32; all contiguous bf16 but lse and delta. D is 64 or 128;
+// window 0 means none (needs causal). dq_ws is the f32 workspace (B, H,
+// ceil(Sq / 64), 64, D + 4) and counters 1 + B * H * ceil(Sq / 64) int32
+// zeros (the ticket, then one counter per (batch, head, query tile)); dk,
+// dv are each KV head's sum over the query heads of its group. Rows of a
+// query tile no key tile reaches (sq > sk, causal) are not written.
+extern "C" int ptt_flash_attention_bwd_fused(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dq, void* dk, void* dv,
+    void* dq_ws, void* counters, int b, int sq, int sk, int h, int hk,
+    int d, int causal, int window, float sm_scale, int dtype, void* stream) {
+  if (b <= 0 || sk <= 0) return 0;
+  const long long items =
+      static_cast<long long>((sk + kFBK - 1) / kFBK) * b * hk;
+  if (sq < 0 || dtype != kBF16 || !valid(sk, h, hk, d, causal, window) ||
+      items > 0x7fffffffLL || !aligned16(q) || !aligned16(k) ||
+      !aligned16(v) || !aligned16(dout) || !aligned16(dq) ||
+      !aligned16(dk) || !aligned16(dv) || !aligned16(dq_ws))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Dims s{sq, sk, h, hk, causal, window, sk - sq, sm_scale};
+  const float* l = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
+  float* ws = static_cast<float*>(dq_ws);
+  int* sync = static_cast<int*>(counters);
+  const int n = static_cast<int>(items);
+  return d == 64 ? launch_fused<64>(q, k, v, dout, l, dl, dq, dk, dv, ws,
+                                    sync, s, b, n, st)
+                 : launch_fused<128>(q, k, v, dout, l, dl, dq, dk, dv, ws,
+                                     sync, s, b, n, st);
+}
+
+// K7a, f32: dq from q, k, v, do, lse, delta as above.
 extern "C" int ptt_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq, int b, int sq, int sk,
     int h, int hk, int d, int causal, int window, float sm_scale, int dtype,
     void* stream) {
   if (b <= 0 || sq <= 0) return 0;
-  if (!valid(sk, h, hk, d, causal, window) || !aligned16(q) ||
-      !aligned16(k) || !aligned16(v) || !aligned16(dout) || !aligned16(dq))
+  if (dtype != kF32 || !valid(sk, h, hk, d, causal, window) ||
+      !aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(dout) ||
+      !aligned16(dq))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Dims s{sq, sk, h, hk, causal, window, sk - sq, sm_scale};
-  const float* l = static_cast<const float*>(lse);
-  const float* dl = static_cast<const float*>(delta);
   const dim3 grid((sq + kBQ - 1) / kBQ, h, b);
-  if (dtype == kBF16)
-    return d == 64
-               ? launch_dq_bf16<64>(q, k, v, dout, l, dl, dq, s, grid, st)
-               : launch_dq_bf16<128>(q, k, v, dout, l, dl, dq, s, grid, st);
-  if (dtype == kF32) {
-    static bool configured = false;
-    if (int e = set_smem(bwd_dq_f32_kernel, kDqSmemF32, &configured))
-      return e;
-    bwd_dq_f32_kernel<<<grid, flash_f32::kThreads, kDqSmemF32, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(dout), l, dl,
-        static_cast<float*>(dq), s, d);
-    return static_cast<int>(cudaGetLastError());
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  static bool configured = false;
+  if (int e = set_smem(bwd_dq_f32_kernel, kDqSmemF32, &configured)) return e;
+  bwd_dq_f32_kernel<<<grid, flash_f32::kThreads, kDqSmemF32, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<float*>(dq), s, d);
+  return static_cast<int>(cudaGetLastError());
 }
 
-// As above; writes dk, dv (B, Sk, HK, D), each KV head's sum over the
-// query heads of its group.
+// K7b, f32: dk, dv (B, Sk, HK, D), each KV head's sum over the query
+// heads of its group.
 extern "C" int ptt_flash_attention_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dk, void* dv, int b, int sq,
     int sk, int h, int hk, int d, int causal, int window, float sm_scale,
     int dtype, void* stream) {
   if (b <= 0 || sk <= 0) return 0;
-  if (sq < 0 || !valid(sk, h, hk, d, causal, window) || !aligned16(q) ||
-      !aligned16(k) || !aligned16(v) || !aligned16(dout) || !aligned16(dk) ||
-      !aligned16(dv))
+  if (sq < 0 || dtype != kF32 || !valid(sk, h, hk, d, causal, window) ||
+      !aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(dout) ||
+      !aligned16(dk) || !aligned16(dv))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Dims s{sq, sk, h, hk, causal, window, sk - sq, sm_scale};
-  const float* l = static_cast<const float*>(lse);
-  const float* dl = static_cast<const float*>(delta);
   const dim3 grid((sk + kBK - 1) / kBK, hk, b);
-  if (dtype == kBF16)
-    return d == 64 ? launch_dkv_bf16<64>(q, k, v, dout, l, dl, dk, dv, s,
-                                         grid, st)
-                   : launch_dkv_bf16<128>(q, k, v, dout, l, dl, dk, dv, s,
-                                          grid, st);
-  if (dtype == kF32) {
-    static bool configured = false;
-    if (int e = set_smem(bwd_dkv_f32_kernel, kDkvSmemF32, &configured))
-      return e;
-    bwd_dkv_f32_kernel<<<grid, flash_f32::kThreads, kDkvSmemF32, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(dout), l, dl,
-        static_cast<float*>(dk), static_cast<float*>(dv), s, d);
-    return static_cast<int>(cudaGetLastError());
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  static bool configured = false;
+  if (int e = set_smem(bwd_dkv_f32_kernel, kDkvSmemF32, &configured))
+    return e;
+  bwd_dkv_f32_kernel<<<grid, flash_f32::kThreads, kDkvSmemF32, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<float*>(dk), static_cast<float*>(dv), s, d);
+  return static_cast<int>(cudaGetLastError());
 }

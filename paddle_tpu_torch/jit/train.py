@@ -9,7 +9,7 @@ and the loss comes back as a 0-d device tensor without a host sync.
 
 Unlike the reference, which compiles the step into one XLA program over
 immutable arrays, the step runs eagerly as ordinary PyTorch (compiling it,
-and capturing it as a CUDA graph, are ROADMAP A7/A13; the kernels'
+and capturing it as a CUDA graph, are ROADMAP A1 and A8; the kernels'
 ctypes launches would not survive a graph capture today) and updates the
 model's own parameters in place, so ``params`` are the model's parameters
 and ``sync_to_model`` only hands the optimizer state back.
@@ -28,7 +28,7 @@ def _as_list(x):
 class JittedTrainStep:
     """One training step of ``model`` under ``criterion(output, *labels)``
     and ``optimizer``. ``state_sharding_axis`` and ``input_batch_axes``
-    (the reference's ZeRO / mesh placement) are not ported (ROADMAP A12);
+    (the reference's ZeRO / mesh placement) are not ported (ROADMAP A7);
     ``donate`` is taken for the reference's signature and has nothing to
     do here (the update is in place)."""
 
@@ -37,7 +37,7 @@ class JittedTrainStep:
         if state_sharding_axis is not None or input_batch_axes is not None:
             raise NotImplementedError(
                 "state_sharding_axis / input_batch_axes need a device mesh, "
-                "which is not ported yet (ROADMAP A12)")
+                "which is not ported yet (ROADMAP A7)")
         self._model = model
         self._criterion = criterion
         self._optimizer = optimizer

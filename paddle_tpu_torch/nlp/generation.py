@@ -21,7 +21,7 @@ Sampling cannot reproduce JAX's threefry bits. Each draw is a Gumbel-max
 over the filtered logits with noise from a ``torch.Generator`` seeded by
 :func:`fold_seed` of (seed, step): deterministic given (seed, inputs) and
 independent of how steps are grouped. ``speculative_generate`` is not
-ported yet (ROADMAP A8).
+ported yet (ROADMAP A2).
 """
 from __future__ import annotations
 

@@ -9,7 +9,7 @@ and serial, give the same keys and shapes, so one port covers both.
 
 Attention without a cache runs through ``F.scaled_dot_product_attention``
 (dense) or ``F.sliding_window_attention`` (windowed), both the flash
-kernel K4 with K7a/K7b as its backward; packed training (``cu_seqlens``,
+kernel K4 with K7 as its backward; packed training (``cu_seqlens``,
 one (1, T) row of segments, rotary positions restarting per segment)
 through ``F.flash_attn_unpadded``, the varlen kernel K3 with K8a/K8b as
 its backward; with a contiguous cache, windowed prefill runs K4 and a
@@ -132,7 +132,7 @@ class LlamaConfig:
 def _check_ported(config):
     """Refuse the options whose code paths belong to later slices."""
     later = {
-        "context_parallel": ("context parallelism", "ROADMAP A12"),
+        "context_parallel": ("context parallelism", "ROADMAP A7"),
     }
     for field, (what, item) in later.items():
         if getattr(config, field):

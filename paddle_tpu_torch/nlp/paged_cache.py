@@ -45,7 +45,7 @@ class PagedKVCachePool:
                  kv_dtype=None, device=None):
         if prefix_cache:
             raise NotImplementedError(
-                "the prefix cache is not ported yet (ROADMAP A5)")
+                "the prefix cache is not ported yet (ROADMAP A4)")
         if kv_dtype not in (None, "int8"):
             raise ValueError(
                 f"unsupported kv_dtype {kv_dtype!r} (None or 'int8')")
@@ -116,7 +116,7 @@ class PagedKVCachePool:
         ported yet."""
         if cow:
             raise NotImplementedError(
-                "copy-on-write needs the prefix cache (ROADMAP A5)")
+                "copy-on-write needs the prefix cache (ROADMAP A4)")
         if need_tokens > self.seq_len(seq_id):
             self.ensure(seq_id, need_tokens)
         return self.block_table_array([seq_id], pad_to=pad_to)[0]

@@ -4,7 +4,7 @@
 Layout (batch, seq, heads, head_dim), paddle's flash-attn layout. Without
 a mask or dropout, attention goes through
 :class:`~paddle_tpu_torch.ops.flash_attention.FlashAttentionFunction` (K4
-forward, K7a/K7b backward on CUDA tensors; their plain versions on CPU
+forward, K7 backward on CUDA tensors; their plain versions on CPU
 tensors), as the reference routes to its Pallas flash kernel. An
 ``attn_mask`` or dropout takes the plain :func:`_xla_attention`, as the
 reference sends them to XLA. Packed (cu_seqlens) attention,
@@ -58,7 +58,7 @@ def sliding_window_attention(query, key, value, window_size, training=True,
                              name=None):
     """Causal sliding-window attention (Mistral semantics: each query
     attends to the last ``window_size`` keys, itself included) through
-    K4's banded tiles (K7a/K7b backward)."""
+    K4's banded tiles (K7 backward)."""
     w = int(window_size)
     if w < 1:
         raise ValueError(f"window_size must be >= 1, got {window_size}")

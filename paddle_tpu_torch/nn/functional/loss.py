@@ -19,7 +19,7 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,
             or label_smoothing or axis not in (-1, input.dim() - 1)):
         raise NotImplementedError(
             "cross_entropy is ported for hard labels over the last axis "
-            "without class weights or label smoothing (ROADMAP A11)")
+            "without class weights or label smoothing (ROADMAP A6)")
     if reduction not in ("mean", "sum", "none"):
         raise ValueError(f"unknown reduction {reduction!r}")
     logp = torch.log_softmax(input.float(), dim=-1)

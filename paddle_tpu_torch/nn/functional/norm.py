@@ -16,7 +16,7 @@ def rms_norm(x, weight, bias=None, epsilon=1e-6, begin_norm_axis=-1):
     if weight is None or bias is not None:
         raise NotImplementedError(
             "rms_norm without a weight or with a bias is not ported yet "
-            "(ROADMAP A14)")
+            "(ROADMAP A6)")
     axis0 = begin_norm_axis % x.dim()
     lead = x.shape[:axis0]
     out = RMSNormFunction.apply(x.reshape(*lead, -1), weight.reshape(-1),

@@ -10,10 +10,11 @@ and plain PyTorch version.
   both run by ``varlen_flash_attention_bwd``), joined by
   ``VarlenFlashAttentionFunction``; the segment logic they share is
   csrc/varlen_seg.cuh
-- K4 ``flash_attention`` forward (csrc/flash_attention.cu), K7a
-  ``flash_attention_bwd_dq`` and K7b ``flash_attention_bwd_dkv``
-  (csrc/flash_attention_bwd.cu, both run by ``flash_attention_bwd``),
-  joined by ``FlashAttentionFunction``
+- K4 ``flash_attention`` forward (csrc/flash_attention.cu) and its
+  backward ``flash_attention_bwd`` (csrc/flash_attention_bwd.cu): in bf16
+  one fused kernel K7 for dq, dk and dv, in f32 K7a
+  ``flash_attention_bwd_dq`` and K7b ``flash_attention_bwd_dkv``; joined
+  by ``FlashAttentionFunction``
 - K5 ``decode_attention`` (csrc/decode_attention.cu)
 """
 from ._library import LAUNCHES, plain_versions, reset_launches
@@ -21,6 +22,7 @@ from .decode_attention import decode_attention, decode_attention_plain
 from .flash_attention import (FlashAttentionFunction, flash_attention,
                               flash_attention_bwd, flash_attention_bwd_delta,
                               flash_attention_bwd_dkv, flash_attention_bwd_dq,
+                              flash_attention_bwd_fused,
                               flash_attention_bwd_plain,
                               flash_attention_plain)
 from .paged_attention import (paged_cache_write, paged_decode_attention,
@@ -47,6 +49,7 @@ __all__ = [
     "varlen_flash_attention_bwd_plain", "VarlenFlashAttentionFunction",
     "flash_attention", "flash_attention_plain", "flash_attention_bwd",
     "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+    "flash_attention_bwd_fused",
     "flash_attention_bwd_delta", "flash_attention_bwd_plain",
     "FlashAttentionFunction",
     "decode_attention", "decode_attention_plain",

@@ -39,7 +39,7 @@ SOURCES = ("rms_norm.cu", "paged_attention.cu", "varlen_flash_attention.cu",
            "decode_attention.cu", "flash_attention.cu",
            "flash_attention_bwd.cu", "varlen_flash_attention_bwd.cu")
 HEADERS = ("common.cuh", "split_decode.cuh", "flash_f32.cuh", "flash_mma.cuh",
-           "varlen_seg.cuh")
+           "varlen_seg.cuh", "wgmma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-lineinfo", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -55,6 +55,7 @@ LAUNCHES = {"rms_norm": 0, "paged_decode_attention": 0,
             "paged_decode_attention_scaled": 0,
             "varlen_flash_attention": 0, "flash_attention": 0,
             "decode_attention": 0, "rms_norm_bwd": 0,
+            "flash_attention_bwd": 0,
             "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
             "varlen_flash_attention_bwd_dq": 0,
             "varlen_flash_attention_bwd_dkv": 0}
@@ -101,7 +102,7 @@ def refuse_grad(name, item, *tensors):
     versions on CPU tensors are differentiable by autograd)."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise NotImplementedError(
-            f"the {name} kernel has no backward yet ({item}); call it under "
+            f"the {name} kernel has no backward ({item}); call it under "
             f"torch.no_grad() or with inputs that do not require grad")
 
 
@@ -199,6 +200,10 @@ def _declare(lib):
                                 p),
         # x, w, rstd, dy, dx, dw_part, dw, rows, n, nblk, dtype, stream
         "ptt_rms_norm_bwd": (p, p, p, p, p, p, p, i, i, i, i, p),
+        # q, k, v, do, lse, delta, dq, dk, dv, dq_workspace, counters, b,
+        # sq, sk, h, hk, d, causal, window, sm_scale, dtype, stream
+        "ptt_flash_attention_bwd_fused": (p, p, p, p, p, p, p, p, p, p, p, i,
+                                          i, i, i, i, i, i, i, f, i, p),
         # q, k, v, do, lse, delta, dq, b, sq, sk, h, hk, d, causal, window,
         # sm_scale, dtype, stream
         "ptt_flash_attention_bwd_dq": (p, p, p, p, p, p, p, i, i, i, i, i, i,

@@ -91,8 +91,8 @@ def decode_attention(q, k_cache, v_cache, seq_lens, sm_scale=None):
         return decode_attention_plain(q, k_cache, v_cache, seq_lens,
                                       sm_scale)
     L.refuse_grad("decode_attention",
-                  "ROADMAP A11: decode attention is inference-only, as the "
-                  "TPU kernel is", q, k_cache, v_cache)
+                  "decode attention is inference-only, as the TPU kernel "
+                  "is", q, k_cache, v_cache)
     if k_cache.dtype not in _DTYPES or v_cache.dtype != k_cache.dtype:
         raise TypeError(
             f"decode_attention kernel takes float32 or bfloat16 caches of "

@@ -1,5 +1,6 @@
 """Dense flash attention, forward and backward: the Hopper kernels K4
-(forward), K7a (dq) and K7b (dk, dv), their plain PyTorch versions, and
+(forward) and K7 (the backward: one fused bf16 kernel for dq, dk and dv;
+K7a and K7b for dq and dk/dv in f32), their plain PyTorch versions, and
 the autograd Function that joins them.
 
 Counterpart of ``paddle_tpu/ops/pallas/flash_attention.py``. Paddle
@@ -11,7 +12,9 @@ row that sees no key returns zeros. Scores and softmax statistics are f32;
 the probabilities are rounded to v's dtype before the product with v, as
 the TPU kernel does. The backward recomputes P from the forward's
 log-sum-exp with the TPU kernel's roundings (see
-:func:`flash_attention_bwd_plain`). :class:`FlashAttentionFunction` mirrors
+:func:`flash_attention_bwd_plain`); :class:`BwdSchedule` states the fused
+bf16 backward's work order and dq add order, which the kernel follows.
+:class:`FlashAttentionFunction` mirrors
 the reference's ``custom_vjp``. The CUDA sources are
 ``paddle_tpu_torch/csrc/flash_attention.cu`` and
 ``paddle_tpu_torch/csrc/flash_attention_bwd.cu``.
@@ -26,12 +29,18 @@ from . import _library as L
 
 __all__ = ["flash_attention", "flash_attention_plain", "band_mask",
            "flash_attention_bwd", "flash_attention_bwd_dq",
-           "flash_attention_bwd_dkv", "flash_attention_bwd_delta",
-           "flash_attention_bwd_plain", "FlashAttentionFunction"]
+           "flash_attention_bwd_dkv", "flash_attention_bwd_fused",
+           "flash_attention_bwd_delta",
+           "flash_attention_bwd_plain", "FlashAttentionFunction",
+           "BwdSchedule"]
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
+# the fused backward's tiles (flash_attention_bwd.cu): 64 query rows of a
+# dq tile (flash_mma.cuh kBQ), 128 keys per CTA (kFBK)
+BWD_BLOCK_Q = 64
+BWD_BLOCK_K = 128
 
 
 def band_mask(sq, sk, causal, window=None, device=None):
@@ -146,7 +155,7 @@ def flash_attention_bwd_delta(out, do):
 
 def flash_attention_bwd_plain(q, k, v, out, lse, do, causal=False,
                               sm_scale=None, window_size=None, delta=None):
-    """Plain version of K7a/K7b (the reference's ``_flash_bwd``): returns
+    """Plain version of K7 (the reference's ``_flash_bwd``): returns
     ``(dq, dk, dv)`` like q, k, v. P is recomputed from ``lse`` in f32 and
     ``delta`` (default from ``out``) is f32; P is rounded to do's dtype
     before dV, dS to k's dtype before dQ and to q's dtype before dK;
@@ -175,6 +184,112 @@ def flash_attention_bwd_plain(q, k, v, out, lse, do, causal=False,
             dv.to(v.dtype))
 
 
+class BwdSchedule:
+    """The fused bf16 backward's work order (``csrc/flash_attention_bwd.cu``,
+    which follows it formula for formula).
+
+    A work item is one CTA's key tile: (batch, KV head, key tile ``j`` of
+    ``block_k`` keys). It walks the query tiles (``block_q`` rows) that hold
+    a live pair with its keys, highest first, and for each tile the query
+    heads of its KV head's group in order; it sums dk and dv in registers
+    and adds its dq partial of each (query head, query tile) into an f32
+    workspace. Order:
+
+    - Items are claimed through one ticket counter in the order
+      ``ticket = (j * b + batch) * hk + kv_head``: key tiles ascending,
+      heads interleaved. Under causal masking low key tiles walk the most
+      query tiles, so the long items start first and the grid ends on
+      short ones.
+    - Each (batch, query head, query tile) receives its dq partials in
+      ascending key-tile order, ``rank = j - jlo``: the first (``rank``
+      0) stores into the workspace, the last (``j == jhi``) adds the
+      workspace to its own partial and writes dq in bf16; a tile with one
+      contributor writes dq straight away.
+    - A contributor waits only on the one before it, a lower key tile of
+      the same batch and KV head: an earlier ticket. Every claimed ticket
+      belongs to a running CTA and the earliest unfinished one waits on
+      nobody, so the waits cannot deadlock. Under causal masking every
+      key tile's walk starts at the last query tile, and key tile j - 1
+      reaches each tile before key tile j whenever it started at least
+      one step earlier, as it does after the first wave: so after the
+      first wave no CTA waits (``tests/test_torch_flash_bwd_schedule.py``
+      simulates it).
+    """
+
+    def __init__(self, b, sq, sk, h, hk, causal, window=None,
+                 block_q=BWD_BLOCK_Q, block_k=BWD_BLOCK_K):
+        self.b, self.sq, self.sk, self.h, self.hk = b, sq, sk, h, hk
+        self.causal, self.window = bool(causal), int(window or 0)
+        self.block_q, self.block_k = block_q, block_k
+        self.off = sk - sq  # bottom-right causal alignment
+        self.group = h // hk
+        self.n_q = -(-sq // block_q)
+        self.n_k = -(-sk // block_k)
+        self.n_items = self.n_k * b * hk
+        # the ticket counter, then one per (batch, head, query tile)
+        self.n_counters = 1 + b * h * self.n_q
+
+    def item(self, ticket):
+        """(key tile, batch, KV head) of a ticket."""
+        j, r = divmod(ticket, self.b * self.hk)
+        return j, r // self.hk, r % self.hk
+
+    def ticket(self, j, batch, kv_head):
+        return (j * self.b + batch) * self.hk + kv_head
+
+    def key_tiles(self, i):
+        """(jlo, jhi), the key tiles holding a live pair with query tile
+        ``i`` (flash_mma.cuh ``key_range``), or None."""
+        q0 = i * self.block_q
+        lo, hi = 0, self.sk
+        if self.causal:
+            hi = min(hi, min(q0 + self.block_q, self.sq) - 1 + self.off + 1)
+            if self.window:
+                lo = max(0, q0 + self.off - self.window + 1)
+        if hi <= lo:
+            return None
+        return lo // self.block_k, (hi - 1) // self.block_k
+
+    def query_tiles(self, j):
+        """(ilo, ihi), the query tiles holding a live pair with key tile
+        ``j`` (the kernel's ``query_range``), or None."""
+        k0 = j * self.block_k
+        lo, hi = 0, self.sq
+        if self.causal:
+            lo = max(0, k0 - self.off)
+            if self.window:
+                hi = min(hi, min(k0 + self.block_k, self.sk) - 1 - self.off
+                         + self.window)
+        if hi <= lo:
+            return None
+        return lo // self.block_q, (hi - 1) // self.block_q
+
+    def walk(self, j):
+        """The steps of key tile ``j``'s CTA: (query tile, query head of
+        the group), tiles from the highest down."""
+        tiles = self.query_tiles(j)
+        if tiles is None:
+            return []
+        return [(i, g) for i in range(tiles[1], tiles[0] - 1, -1)
+                for g in range(self.group)]
+
+    def rank(self, i, j):
+        """(rank, contributors) of key tile ``j`` in query tile ``i``'s
+        add order."""
+        jlo, jhi = self.key_tiles(i)
+        return j - jlo, jhi - jlo + 1
+
+    def counter(self, batch, head, i):
+        return 1 + (batch * self.h + head) * self.n_q + i
+
+    def workspace_shape(self, d):
+        """The f32 dq workspace: one contiguous (block_q, d + 4) tile per
+        (batch, head, query tile), sent as one bulk copy or reduce-add; 4
+        f32 of row padding keep the kernel's staging rows off one
+        shared-memory bank."""
+        return (self.b, self.h, self.n_q, self.block_q, d + 4)
+
+
 def _bwd_launch_args(q, k, v, do, lse, delta, causal, sm_scale,
                      window_size):
     b, sq, sk, h, hk, d = _check_args(q, k, v, causal, window_size)
@@ -198,14 +313,54 @@ def _bwd_launch_args(q, k, v, do, lse, delta, causal, sm_scale,
         float(sm_scale), _DTYPES[q.dtype], L.cuda_stream(q))
 
 
+def flash_attention_bwd_fused(q, k, v, do, lse, delta, causal=False,
+                              sm_scale=None, window_size=None):
+    """K7: ``(dq, dk, dv)`` in one launch of the fused backward kernel,
+    from the forward's ``lse`` and ``delta``
+    (:func:`flash_attention_bwd_delta`); dk and dv are each KV head's sum
+    over the query heads of its group. CPU tensors run the plain
+    backward; CUDA tensors must be bf16 (f32 takes K7a and K7b)."""
+    if L.use_plain(q):
+        return flash_attention_bwd_plain(q, k, v, None, lse, do, causal,
+                                         sm_scale, window_size, delta)
+    if q.dtype != torch.bfloat16:
+        raise TypeError("the fused flash_attention backward kernel takes "
+                        f"bfloat16 inputs, got {q.dtype}")
+    ptrs, dims = _bwd_launch_args(q, k, v, do, lse, delta, causal, sm_scale,
+                                  window_size)
+    b, sq, sk, h, hk, d = dims[:6]
+    sched = BwdSchedule(b, sq, sk, h, hk, causal, window_size)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if sk == 0:
+        return torch.zeros_like(q), dk, dv
+    dq = torch.empty_like(q)
+    if causal and sq > sk:
+        # rows that see no key: their tiles may have no contributor
+        dq[:, :sq - sk].zero_()
+    ws = torch.empty(sched.workspace_shape(d), dtype=torch.float32,
+                     device=q.device)
+    counters = torch.zeros(sched.n_counters, dtype=torch.int32,
+                           device=q.device)
+    status = L.library().ptt_flash_attention_bwd_fused(
+        *ptrs, dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), ws.data_ptr(),
+        counters.data_ptr(), *dims)
+    L.check_status("flash_attention_bwd", status)
+    L.LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv
+
+
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=False,
                            sm_scale=None, window_size=None):
-    """K7a: dq (like q) from the forward's ``lse`` and ``delta``
+    """dq (like q) from the forward's ``lse`` and ``delta``
     (:func:`flash_attention_bwd_delta`). CPU tensors run the plain
-    backward; CUDA tensors launch the kernel or raise."""
+    backward; CUDA tensors launch a kernel or raise: the fused K7 (which
+    also computes dk and dv) in bf16, K7a in f32."""
     if L.use_plain(q):
         return flash_attention_bwd_plain(q, k, v, None, lse, do, causal,
                                          sm_scale, window_size, delta)[0]
+    if q.dtype == torch.bfloat16:
+        return flash_attention_bwd_fused(q, k, v, do, lse, delta, causal,
+                                         sm_scale, window_size)[0]
     ptrs, dims = _bwd_launch_args(q, k, v, do, lse, delta, causal, sm_scale,
                                   window_size)
     dq = torch.empty_like(q)
@@ -218,12 +373,15 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=False,
 
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal=False,
                             sm_scale=None, window_size=None):
-    """K7b: ``(dk, dv)`` (like k, v), each KV head's sum over the query
-    heads of its group. CPU tensors run the plain backward; CUDA tensors
-    launch the kernel or raise."""
+    """``(dk, dv)`` (like k, v), each KV head's sum over the query heads
+    of its group. CPU tensors run the plain backward; CUDA tensors launch
+    a kernel or raise: the fused K7 in bf16, K7b in f32."""
     if L.use_plain(q):
         return flash_attention_bwd_plain(q, k, v, None, lse, do, causal,
                                          sm_scale, window_size, delta)[1:]
+    if q.dtype == torch.bfloat16:
+        return flash_attention_bwd_fused(q, k, v, do, lse, delta, causal,
+                                         sm_scale, window_size)[1:]
     ptrs, dims = _bwd_launch_args(q, k, v, do, lse, delta, causal, sm_scale,
                                   window_size)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
@@ -237,9 +395,9 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal=False,
 def flash_attention_bwd(q, k, v, out, lse, do, causal=False, sm_scale=None,
                         window_size=None):
     """Gradients ``(dq, dk, dv)`` of flash attention from the forward's
-    ``out`` and ``lse`` and the upstream ``do`` (like q): delta, then K7a
-    and K7b on CUDA tensors, :func:`flash_attention_bwd_plain` on CPU
-    tensors."""
+    ``out`` and ``lse`` and the upstream ``do`` (like q): delta, then on
+    CUDA tensors one launch of the fused K7 in bf16, K7a and K7b in f32;
+    :func:`flash_attention_bwd_plain` on CPU tensors."""
     if out.shape != q.shape:
         raise ValueError(f"flash_attention_bwd: out {tuple(out.shape)} for "
                          f"q {tuple(q.shape)}")
@@ -248,6 +406,9 @@ def flash_attention_bwd(q, k, v, out, lse, do, causal=False, sm_scale=None,
         return flash_attention_bwd_plain(q, k, v, out, lse, do, causal,
                                          sm_scale, window_size)
     delta = flash_attention_bwd_delta(out, do)
+    if q.dtype == torch.bfloat16:
+        return flash_attention_bwd_fused(q, k, v, do, lse, delta, causal,
+                                         sm_scale, window_size)
     dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, causal, sm_scale,
                                 window_size)
     dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal,
@@ -257,7 +418,7 @@ def flash_attention_bwd(q, k, v, out, lse, do, causal=False, sm_scale=None,
 
 class FlashAttentionFunction(torch.autograd.Function):
     """``out = flash_attention(q, k, v, causal, sm_scale, window_size)``
-    with K7a/K7b as its backward (the reference's
+    with K7 as its backward (the reference's
     ``_flash_attention_bhsd`` custom_vjp: the forward keeps q, k, v, out
     and lse, the backward recomputes P from lse)."""
 

@@ -132,8 +132,8 @@ def _launch(name, q, k_pool, v_pool, block_tables, seq_lens, sm_scale,
     """Check the kernel's inputs and launch K2 on the card: pools of q's
     dtype, without ``scales`` or with (HK,) ones, or int8 pools with (HK,)
     or (``per_row``) per-row scales."""
-    L.refuse_grad(name, "ROADMAP A11: decode attention is inference-only, "
-                  "as the TPU kernel is", q, k_pool, v_pool)
+    L.refuse_grad(name, "decode attention is inference-only, as the "
+                  "TPU kernel is", q, k_pool, v_pool)
     b, h, d = q.shape
     num_blocks, bs, hk = k_pool.shape[:3]
     int8 = k_pool.dtype == torch.int8

@@ -29,7 +29,7 @@ written row quantized by its own abs-max (the quantum's attention is
 K2's per-row mode). Observability, SLOs, the flight recorder, fault
 injection, resilience, speculative decoding, tensor parallelism, the
 prefix cache and multi-quantum dispatch are later slices (ROADMAP
-A7-A12); the engine does not take their options.
+A1, A2, A4, A5, A7); the engine does not take their options.
 """
 from __future__ import annotations
 

@@ -1,4 +1,4 @@
-"""The port's backward kernels K6 (rms_norm) and K7a/K7b (flash attention),
+"""The port's backward kernels K6 (rms_norm) and K7 (flash attention),
 their autograd Functions, and the losses, held against paddle_tpu.
 
 On the CPU the port's wrappers run their plain PyTorch versions and the
@@ -164,10 +164,10 @@ def test_refuse_grad_logic(grad_mode, requires, raises):
     x = torch.zeros(2, requires_grad=requires)
     with torch.set_grad_enabled(grad_mode):
         if raises:
-            with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-                L.refuse_grad("decode_attention", "ROADMAP A11", x)
+            with pytest.raises(NotImplementedError, match="inference-only"):
+                L.refuse_grad("decode_attention", "inference-only", x)
         else:
-            L.refuse_grad("decode_attention", "ROADMAP A11", x)
+            L.refuse_grad("decode_attention", "inference-only", x)
 
 
 # --------------------------------------------------------------- losses

@@ -338,17 +338,27 @@ def test_cuda_rms_norm_backward_matches_plain(cuda, dtype, tol):
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 3e-2)])
 def test_cuda_flash_attention_backward_matches_plain(cuda, dtype, tol):
+    """bf16 runs the fused K7 (one launch for dq, dk and dv), f32 K7a and
+    K7b."""
     g = torch.Generator(device=cuda).manual_seed(4)
-    # (B, Sq, Sk, H, HK, D, causal, window): GQA groups 1, 4 and 7, a
-    # window band, ragged lengths, bottom-right causal, Sq > Sk
+    # (B, Sq, Sk, H, HK, D, causal, window): GQA groups 1, 4 and 7 at D 64
+    # and 128, a window band, ragged lengths, bottom-right causal (Sq <
+    # Sk), Sq > Sk (query tiles no key tile reaches), not causal, and the
+    # training shape (Llama-2-7B width, S = 4,096)
     for b, sq, sk, h, hk, d, causal, window in (
             (2, 128, 128, 4, 4, 64, True, None),
             (2, 100, 100, 8, 2, 128, True, None),
             (1, 190, 190, 7, 1, 128, True, None),
+            (1, 333, 333, 7, 1, 64, True, None),
             (2, 96, 200, 4, 2, 64, False, None),
+            (1, 260, 390, 8, 2, 128, False, None),
             (1, 300, 300, 8, 2, 128, True, 17),
+            (1, 640, 640, 8, 2, 64, True, 200),
             (1, 64, 1024, 8, 2, 128, True, None),
-            (1, 200, 130, 4, 4, 64, True, None)):
+            (1, 200, 130, 4, 4, 64, True, None),
+            (1, 400, 70, 4, 1, 128, True, None),
+            (1, 4096, 4096, 32, 32, 128, True, None)):
+        ops.reset_launches()
         q = _rnd(g, dtype, b, sq, h, d)
         k, v = _rnd(g, dtype, b, sk, hk, d), _rnd(g, dtype, b, sk, hk, d)
         do = _rnd(g, dtype, b, sq, h, d)
@@ -358,11 +368,41 @@ def test_cuda_flash_attention_backward_matches_plain(cuda, dtype, tol):
                                       window_size=window)
         want = ops.flash_attention_bwd_plain(q, k, v, out, lse, do, causal,
                                              window_size=window)
+        fused = dtype == torch.bfloat16
+        assert ops.LAUNCHES["flash_attention_bwd"] == int(fused)
+        assert ops.LAUNCHES["flash_attention_bwd_dq"] == int(not fused)
+        assert ops.LAUNCHES["flash_attention_bwd_dkv"] == int(not fused)
         for a, ref in zip(got, want):
             assert a.dtype == dtype and a.shape == ref.shape
             scale = max(1.0, float(ref.float().abs().max()))
             torch.testing.assert_close(a.float(), ref.float(),
                                        atol=tol * scale, rtol=tol)
+        # the public parts return the same values
+        delta = ops.flash_attention_bwd_delta(out, do)
+        args = (q, k, v, do, lse, delta, causal)
+        dq = ops.flash_attention_bwd_dq(*args, window_size=window)
+        dk, dv = ops.flash_attention_bwd_dkv(*args, window_size=window)
+        for a, ref in zip((dq, dk, dv), got):
+            assert torch.equal(a, ref)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_backward_is_deterministic(cuda):
+    """Two calls of the fused bf16 backward on the same inputs are
+    bit-equal in dq, dk and dv: its dq adds across CTAs land in a fixed
+    order (at the training shape, and at GQA 4 with a window)."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    for b, s, h, hk, window in ((1, 4096, 32, 32, None),
+                                (1, 2304, 32, 8, 1024)):
+        q, do = (_rnd(g, torch.bfloat16, b, s, h, 128) for _ in range(2))
+        k, v = (_rnd(g, torch.bfloat16, b, s, hk, 128) for _ in range(2))
+        out, lse = ops.flash_attention(q, k, v, causal=True,
+                                       window_size=window, return_lse=True)
+        runs = [ops.flash_attention_bwd(q, k, v, out, lse, do, True,
+                                        window_size=window)
+                for _ in range(2)]
+        for a, c in zip(*runs):
+            assert torch.equal(a, c)
 
 
 @pytest.mark.cuda
@@ -378,7 +418,7 @@ def test_cuda_wrappers_carry_a_grad_fn_or_refuse(cuda):
     assert q.grad is not None and kv.grad is not None
     lens = torch.tensor([5], dtype=torch.int32, device=cuda)
     qd = torch.randn(1, 4, 64, device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+    with pytest.raises(NotImplementedError, match="inference-only"):
         ops.decode_attention(qd, kv.detach(), kv.detach(), lens)
     cu = torch.tensor([0, 32], dtype=torch.int32, device=cuda)
     with pytest.raises(NotImplementedError,
@@ -389,7 +429,7 @@ def test_cuda_wrappers_carry_a_grad_fn_or_refuse(cuda):
     assert out.grad_fn is not None
     pool = torch.randn(3, 16, 2, 64, device=cuda, requires_grad=True)
     tables = torch.tensor([[1, 2]], dtype=torch.int32, device=cuda)
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+    with pytest.raises(NotImplementedError, match="inference-only"):
         ops.paged_decode_attention(qd.detach(), pool, pool, tables, lens)
     with torch.no_grad():
         ops.decode_attention(qd, kv.detach(), kv.detach(), lens)
@@ -419,8 +459,10 @@ def test_cuda_train_step_kernel_path_equals_plain_path(cuda, fuse):
             assert all(n == 0 for n in ops.LAUNCHES.values())
         else:
             losses = [step(ids, ids) for _ in range(3)]
+            # f32: the backward takes K7a and K7b, not the bf16 fused K7
             want = {"rms_norm": 15, "flash_attention": 6,
-                    "rms_norm_bwd": 15, "flash_attention_bwd_dq": 6,
+                    "rms_norm_bwd": 15, "flash_attention_bwd": 0,
+                    "flash_attention_bwd_dq": 6,
                     "flash_attention_bwd_dkv": 6}
             assert {k: ops.LAUNCHES[k] for k in want} == want
         runs.append((torch.stack(losses), [p.detach().clone()

@@ -106,7 +106,7 @@ def test_no_cache_logits_match_reference(overrides):
 
 
 def test_model_refuses_later_slices():
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
         LlamaForCausalLM(LlamaConfig.tiny(context_parallel="ring"),
                          device="cpu")
     # the packed path's own refusals (the reference's ValueErrors)

@@ -287,6 +287,6 @@ def test_run_steps_equals_single_steps_and_syncs_state():
 def test_train_step_refuses_mesh_options():
     model = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu")
     opt = AdamW(LR, parameters=model.parameters())
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
         JittedTrainStep(model, LlamaPretrainingCriterion(), opt,
                         state_sharding_axis="sharding")
