@@ -23,8 +23,10 @@ Phases (any failure raises and the script exits non-zero):
    CUDA events where the profiler records none, as ``timers`` says; where
    several library calls compute the same function the fastest counts,
    and ``library_call`` names it), the kernel's CUDA-event time over
-   back-to-back calls (launch gaps included) and the least time the card
-   could take (``bound_ms``);
+   back-to-back calls (launch gaps included), the least time the card
+   could take (``bound_ms``), its share of the kernel's time
+   (``bound_share``) and the kernel's time over the library call's
+   (``vs_library``);
 3. the serving main path end to end: full Llama-2-7B in bf16 (32 layers,
    seeded random weights) through ``create_serving_engine``, 16 requests;
    launch counters zeroed just before and read just after; the same
@@ -1001,7 +1003,11 @@ def kernel_phase(torch, dev):
                "timers": {"ms": ms_timer, "plain_ms": plain_timer,
                           "library_ms": lib_timer},
                "event_ms": cuda_ms(torch, case["kernel"]),
-               "bound_ms": case["bound"][0], "bound_by": case["bound"][1]}
+               "bound_ms": case["bound"][0], "bound_by": case["bound"][1],
+               # the share of the card's peak the kernel reaches, and its
+               # time over the library call's
+               "bound_share": case["bound"][0] / ms,
+               "vs_library": ms / lib_ms}
         if len(libs) > 1:
             rec["library_call"] = lib_call
             rec["library_calls_ms"] = {k: v[0] for k, v in lib_times.items()}

@@ -73,6 +73,11 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// The shared-state-space address of a pointer into shared memory.
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
 inline bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }

@@ -11,26 +11,50 @@
 // pair against 2 * D K/V bytes read per KV head), bytes for short queries
 // over long keys.
 //
-// Design: grid (q tiles of 64 rows, H, B), the q tiles with the most live
-// keys launched first. Each CTA derives from indices alone the contiguous
-// key range its rows can see (the causal diagonal of its last row, the
-// window edge of its first row: `_kv_band_clamp` computed in-kernel) and
-// walks only that range in 64-key tiles, so no byte of a dead tile is
-// read. Tiles wholly inside the band skip the mask (`_run_full`'s `full`).
-// - bf16: tensor cores through `mma.sync` m16n8k16 (bf16 operands, f32
-//   accumulation), FlashAttention-2 layout: each of the 4 warps owns 16
-//   query rows, keeps its Q fragments, the 16 x 64 scores and the 16 x D
-//   output accumulator in registers; the scores' accumulator fragments are
-//   re-packed in place as the A operand of P.V (P rounded to bf16, as the
-//   TPU kernel rounds P to v's dtype; the row sum l uses the unrounded P).
-//   K and V tiles stream through shared memory with cp.async, two stages,
-//   so the next tile loads while this one computes; V's B fragments come
-//   from ldmatrix.trans.
+// Design of the bf16 kernel (`flash_fwd_wgmma_kernel`). The tile plan is
+// stated once in Python (ops/flash_attention.py `FwdTiles`, rehearsed on
+// the CPU by tests/test_torch_flash_fwd_tiles.py) and followed here:
+// - One CTA per (128-row query tile, head, batch), 256 threads: two
+//   warpgroups, each owning 64 of the rows. The CTA derives from indices
+//   alone the contiguous key range its rows can see (the causal diagonal
+//   of its last row, the window edge of its first row: `_kv_band_clamp`,
+//   flash_mma.cuh `key_range` at 128 rows) and walks only that range in
+//   128-key tiles, so no byte of a dead tile is read. Tiles wholly inside
+//   the band skip the mask (`_run_full`'s `full`, `full_tile` at 128 x
+//   128).
+// - Launch order (a 1-D grid): the query tiles by their live keys, most
+//   first, and within one tile every (batch, head) with the heads fastest,
+//   so the query heads of one KV head run side by side and share its K / V
+//   tiles through L2. Only the last (ragged) query tile can have fewer
+//   live keys than a lower one; `tile_of_rank` finds its place.
+// - Copies by TMA (tma.cuh), issued by one thread: the Q tile once, the K
+//   and V tiles into a ring of stages behind mbarriers (expect_tx), all in
+//   64 x 64 boxes with the 128-byte swizzle that wgmma reads. A stage is
+//   refilled by whichever warpgroup finishes with it last (a turn counter
+//   in shared memory), so neither waits for the other.
+// - Products on `wgmma` (wgmma.cuh), f32 accumulators: S = Q K^T from
+//   shared memory (both K-major: D is contiguous in Q and K), the online
+//   softmax on the accumulator (mma.sync's m16n8 layout per warp; exp2 in
+//   one MUFU instruction), P rounded to bf16 and re-packed as a register
+//   A operand (the TPU kernel rounds P to v's dtype; the row sum l uses the
+//   unrounded P), O += P V with V MN-major (keys are the reduction axis, D
+//   contiguous: the `trans` flag).
+// - Overlap, two kinds: within a warpgroup, tile t's S is issued together
+//   with tile t - 1's P V, so the softmax of tile t runs while the tensor
+//   cores take P V of tile t - 1; between the two warpgroups, named
+//   barriers hand the tensor cores from one to the other in turn
+//   (ping-pong), so one's softmax runs under the other's products. Each
+//   took time off at the training and Mistral shapes; a third ring stage
+//   at D = 128 did not (PERF.md §6). Warpgroup 1 of a last query tile of
+//   at most 64 rows holds no real row: it computes nothing and only keeps
+//   its turns (the stages' and the cores').
 // - f32: CUDA-core FMA (no f32 tensor-core path keeps full f32 precision),
-//   the tile loop of flash_f32.cuh, shared with K3.
+//   the tile loop of flash_f32.cuh over 64-row tiles, shared with K3.
 #include "common.cuh"
 #include "flash_f32.cuh"
 #include "flash_mma.cuh"
+#include "tma.cuh"
+#include "wgmma.cuh"
 
 using namespace ptt;
 using namespace ptt::flash;
@@ -39,109 +63,204 @@ namespace {
 
 static_assert(kBQ == flash_f32::kBQ && kBK == flash_f32::kBK,
               "the f32 path uses flash_f32.cuh's tiles");
+using bf16 = __nv_bfloat16;
 
+// ------------------------------------------------------------- bf16
+constexpr int kTQ = 128;  // query rows per CTA: two warpgroups of 64
+constexpr int kTK = 128;  // keys per tile
+constexpr int kThreadsWG = 256;
+constexpr int kBox = 64 * 128;   // bytes of one TMA box (64 rows x 128 B)
+constexpr int kCol = 2 * kBox;   // one 64-column slice of a 128-row tile
+
+// Byte offsets of the shared memory at head width D: the Q tile, then
+// the rings of K and V tiles (two stages at D = 128, 160 KB in all; three
+// at D = 64); every tile is D / 64 slices of 128 rows x 128 bytes (two
+// TMA boxes each), in the 128-byte swizzle.
 template <int D>
-constexpr size_t smem_bytes_tc() {
-  return sizeof(__nv_bfloat16) * static_cast<size_t>(kBQ + 4 * kBK) *
-         (D + 8);
+struct FwdSmem {
+  static constexpr int kStages = D == 64 ? 3 : 2;
+  static constexpr size_t tile = sizeof(bf16) * kTK * D;
+  static constexpr size_t q = 0;
+  static constexpr size_t k = q + tile;               // [kStages]
+  static constexpr size_t v = k + kStages * tile;     // [kStages]
+  // the barriers: q, then K's and V's full[kStages]
+  static constexpr size_t bars = v + kStages * tile;
+  static constexpr size_t turns = bars + sizeof(uint64_t) * (1 + 2 * kStages);
+  // K's and V's turn counters, and 1 KB of room to align the base to the
+  // swizzle's 1024-byte atoms
+  static constexpr size_t bytes = turns + sizeof(int) * 2 * kStages + 1024;
+  static_assert(tile % 1024 == 0, "TMA boxes land on 1024-byte atoms");
+};
+
+// The live keys of query tile i (its key range's length) and the range's
+// start.
+__device__ __forceinline__ int tile_keys(const Dims& s, int i, int* lo) {
+  int hi;
+  key_range<kTQ>(s, i * kTQ, lo, &hi);
+  return max(hi - *lo, 0);
+}
+
+// The query tile of launch rank r: tiles by live keys, most first, ties
+// to the higher tile (FwdTiles.tile_of_rank). Below the last tile the
+// count never falls as the tile rises (each key range's two ends move up
+// with the rows, the start no faster than the end), so the order is the
+// tiles from the top down with the last one moved behind the tiles that
+// see more keys than it does.
+__device__ __forceinline__ int tile_of_rank(const Dims& s, int nq, int r) {
+  int lo;
+  const int last = tile_keys(s, nq - 1, &lo);
+  int p = 0;  // the tiles below the last that see more keys
+  while (p < nq - 1 && tile_keys(s, nq - 2 - p, &lo) > last) ++p;
+  return r < p ? nq - 2 - r : (r == p ? nq - 1 : nq - 1 - r);
+}
+
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreadsTC, 2)
-    flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                          const __nv_bfloat16* __restrict__ k,
-                          const __nv_bfloat16* __restrict__ v,
-                          __nv_bfloat16* __restrict__ out,
-                          float* __restrict__ lse, Dims s) {
-  constexpr int LD = D + 8;  // shared row stride: 16-byte rows, no bank clash
-  constexpr int kSteps = D / 16;
-  constexpr int kNtS = kBK / 8;  // score n-tiles per warp
-  constexpr int kNtO = D / 8;    // output n-tiles per warp
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* ks = qs + kBQ * LD;   // [2][kBK][LD]
-  __nv_bfloat16* vs = ks + 2 * kBK * LD;  // [2][kBK][LD]
+__global__ void __launch_bounds__(kThreadsWG, 1)
+    flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                           const __grid_constant__ CUtensorMap kmap,
+                           const __grid_constant__ CUtensorMap vmap,
+                           bf16* __restrict__ out, float* __restrict__ lse,
+                           Dims s, int nb) {
+  using M = FwdSmem<D>;
+  constexpr int S = M::kStages;
+  constexpr int kNtS = kTK / 8;  // score n-tiles (8 keys)
+  constexpr int kNtO = D / 8;    // output n-tiles
+  constexpr int kKs = kTK / 16;  // k16 steps of P V
+  extern __shared__ __align__(128) unsigned char smem_dyn[];
+  unsigned char* sm =
+      smem_dyn + ((1024 - (smem_u32(smem_dyn) & 1023)) & 1023);
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(sm + M::bars);
+  uint64_t* kfull = qbar + 1;
+  uint64_t* vfull = kfull + S;
+  int* kturn = reinterpret_cast<int*>(sm + M::turns);
+  int* vturn = kturn + S;
 
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
-  const int head = blockIdx.y;
-  const int b = blockIdx.z;
+  const int nq = (s.sq + kTQ - 1) / kTQ;
+  const int bh = blockIdx.x % (nb * s.h);
+  const int i = tile_of_rank(s, nq, blockIdx.x / (nb * s.h));
+  const int b = bh / s.h;
+  const int head = bh % s.h;
   const int kvh = head / (s.h / s.hk);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+  const int q0 = i * kTQ;
+  int lo, hi;
+  key_range<kTQ>(s, q0, &lo, &hi);
+  const int n = hi > lo ? (hi - lo + kTK - 1) / kTK : 0;
+
+  const int tid = threadIdx.x;
+  const int wgi = tid >> 7;  // the warpgroup: rows 64 wgi .. 64 wgi + 63
+  const int warp = (tid >> 5) & 3;
+  const int lane = tid & 31;
   const int g = lane >> 2;
   const int tig = lane & 3;
+  // warpgroup 1 of a last tile of at most 64 rows holds no real row
+  const bool busy = q0 + wgi * 64 < s.sq;
 
-  const size_t q_stride = static_cast<size_t>(s.h) * D;
-  const size_t kv_stride = static_cast<size_t>(s.hk) * D;
-  const __nv_bfloat16* qb =
-      q + (static_cast<size_t>(b) * s.sq * s.h + head) * D;
-  const __nv_bfloat16* kb =
-      k + (static_cast<size_t>(b) * s.sk * s.hk + kvh) * D;
-  const __nv_bfloat16* vb =
-      v + (static_cast<size_t>(b) * s.sk * s.hk + kvh) * D;
-
-  int lo, hi;
-  key_range(s, q0, &lo, &hi);
-  const int ntiles = hi > lo ? (hi - lo + kBK - 1) / kBK : 0;
-
-  load_tile<D, LD>(qs, qb, q_stride, q0, s.sq);
-  if (ntiles > 0) {
-    load_tile<D, LD>(ks, kb, kv_stride, lo, hi);
-    load_tile<D, LD>(vs, vb, kv_stride, lo, hi);
+  // tile t of K or V (`map`) into stage st of its ring (one thread)
+  auto load = [&](const CUtensorMap* map, size_t ring, uint64_t* full, int t,
+                  int st) {
+    const int k0 = lo + t * kTK;
+    mbar_expect_tx(full + st, M::tile);
+#pragma unroll
+    for (int c = 0; c < D / 64; ++c)
+#pragma unroll
+      for (int rh = 0; rh < 2; ++rh)
+        tma_box(sm + ring + st * M::tile + c * kCol + rh * kBox, map, c * 64,
+                kvh, k0 + rh * 64, b, full + st);
+  };
+  if (tid == 0) {
+    mbar_init(qbar, 1);
+    for (int st = 0; st < S; ++st) {
+      mbar_init(kfull + st, 1);
+      mbar_init(vfull + st, 1);
+      kturn[st] = vturn[st] = 0;
+    }
+    mbar_fence_init();
+    if (n > 0) {
+      mbar_expect_tx(qbar, M::tile);
+#pragma unroll
+      for (int c = 0; c < D / 64; ++c)
+#pragma unroll
+        for (int rh = 0; rh < 2; ++rh)
+          tma_box(sm + M::q + c * kCol + rh * kBox, &qmap, c * 64, head,
+                  q0 + rh * 64, b, qbar);
+      for (int t = 0; t < S && t < n; ++t) {
+        load(&kmap, M::k, kfull, t, t);
+        load(&vmap, M::v, vfull, t, t);
+      }
+    }
   }
-  cp_async_commit();
+  __syncthreads();
+
+  // the warpgroup is done reading tile t of K (S done) or of V (P V
+  // done): the second of the two warpgroups to finish refills the stage
+  // with tile t + S
+  auto release = [&](const CUtensorMap* map, size_t ring, uint64_t* full,
+                     int* turn, int t) {
+    if (t + S < n && (tid & 127) == 0) {
+      __threadfence_block();
+      if (atomicAdd(turn + t % S, 1) & 1) {
+        __threadfence_block();
+        load(map, ring, full, t + S, t % S);
+      }
+    }
+  };
 
   float o[kNtO][4];
 #pragma unroll
-  for (int i = 0; i < kNtO; ++i)
-    o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+  for (int j = 0; j < kNtO; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  float sc[kNtS][4];    // the scores of the tile in hand, then its P
+  uint32_t ap[kKs][4];  // P (bf16) of the tile whose P V is next
   float m[2] = {kNegInf, kNegInf};  // running max of scaled scores
   float l[2] = {0.f, 0.f};          // this thread's share of the row sum
-  uint32_t qf[kSteps][4];
   const float scale_log2 = s.scale * kLog2e;
-  const int r0 = q0 + warp * 16 + g;  // the thread's two rows: r0, r0 + 8
+  const int r0 = q0 + wgi * 64 + warp * 16 + g;  // rows r0, r0 + 8
+  const uint32_t qa = smem_u32(sm + M::q) + wgi * kBox;
+  const uint32_t ka = smem_u32(sm + M::k);
+  const uint32_t va = smem_u32(sm + M::v);
 
-  for (int t = 0; t < ntiles; ++t) {
-    const int k0 = lo + t * kBK;
-    const int stage = t & 1;
-    if (t + 1 < ntiles) {
-      load_tile<D, LD>(ks + (stage ^ 1) * kBK * LD, kb, kv_stride, k0 + kBK,
-                       hi);
-      load_tile<D, LD>(vs + (stage ^ 1) * kBK * LD, vb, kv_stride, k0 + kBK,
-                       hi);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (t == 0) {
-      const __nv_bfloat16* qw = qs + (warp * 16 + g) * LD + tig * 2;
+  // Every product is issued on a path that all its warpgroup takes, after
+  // a fence that every register it reads is defined before (fence_regs):
+  // ptxas would otherwise add fences of its own and serialize them.
+  // S = Q K^T over tile t of K: the warpgroup's 64 rows x 128 keys
+  auto issue_s = [&](int t) {
+    const uint32_t kt = ka + (t % S) * M::tile;
 #pragma unroll
-      for (int kk = 0; kk < kSteps; ++kk) {
-        qf[kk][0] = lds32(qw + kk * 16);
-        qf[kk][1] = lds32(qw + 8 * LD + kk * 16);
-        qf[kk][2] = lds32(qw + kk * 16 + 8);
-        qf[kk][3] = lds32(qw + 8 * LD + kk * 16 + 8);
-      }
-    }
-    const __nv_bfloat16* kt = ks + stage * kBK * LD;
-    const __nv_bfloat16* vt = vs + stage * kBK * LD;
-
-    // S = Q K^T (raw dot products) for the warp's 16 rows x 64 keys
-    float sc[kNtS][4];
-#pragma unroll
-    for (int nt = 0; nt < kNtS; ++nt) {
+    for (int nt = 0; nt < kNtS; ++nt)
       sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
-      const __nv_bfloat16* kr = kt + (nt * 8 + g) * LD + tig * 2;
+    wg::fence_regs<4 * kNtS>(&sc[0][0]);
+    wg::fence_regs<4 * kNtO>(&o[0][0]);
+    wg::fence_regs<4 * kKs>(&ap[0][0]);
+    wg::fence();
 #pragma unroll
-      for (int kk = 0; kk < kSteps; ++kk)
-        mma_bf16(sc[nt], qf[kk], lds32(kr + kk * 16),
-                 lds32(kr + kk * 16 + 8));
-    }
-
+    for (int kk = 0; kk < D / 16; ++kk)
+      wg::ss<kTK, 0, 0>(
+          &sc[0][0], wg::desc_sw128(qa + kk / 4 * kCol + kk % 4 * 32, 16, 1024),
+          wg::desc_sw128(kt + kk / 4 * kCol + kk % 4 * 32, 16, 1024), 1);
+    wg::commit();
+  };
+  // O += P V over tile t of V (A: P from registers; B: V, MN-major)
+  auto issue_pv = [&](int t) {
+    const uint32_t vt = va + (t % S) * M::tile;
+#pragma unroll
+    for (int kk = 0; kk < kKs; ++kk)
+      wg::rs<D, 1>(&o[0][0], ap[kk],
+                   wg::desc_sw128(vt + kk * 2048, kCol, 1024), 1);
+    wg::commit();
+  };
+  // mask, online softmax and P of tile t's scores (in sc), the rescale of
+  // O (which no product may be writing)
+  auto softmax = [&](int t, float* alpha) {
+    const int k0 = lo + t * kTK;
     // mask (boundary tiles only): dead pairs to -inf, which exp sends to 0
-    if (!full_tile(s, q0, k0)) {
+    if (!full_tile<kTQ, kTK>(s, q0, k0)) {
 #pragma unroll
       for (int nt = 0; nt < kNtS; ++nt)
 #pragma unroll
@@ -151,9 +270,8 @@ __global__ void __launch_bounds__(kThreadsTC, 2)
           if (!band_live(s, r, c)) sc[nt][e] = -INFINITY;
         }
     }
-
-    // online softmax: rows r0 (e = 0, 1) and r0 + 8 (e = 2, 3); the four
-    // threads of a quad share a row
+    // rows r0 (e = 0, 1) and r0 + 8 (e = 2, 3); the four threads of a
+    // quad share a row
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       float mx = -INFINITY;
@@ -163,48 +281,90 @@ __global__ void __launch_bounds__(kThreadsTC, 2)
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
       const float m_new = fmaxf(m[half], mx * s.scale);
-      const float alpha = exp2f((m[half] - m_new) * kLog2e);
+      alpha[half] = exp2_ftz((m[half] - m_new) * kLog2e);
       const float ml = m_new * kLog2e;
       float rs = 0.f;
 #pragma unroll
-      for (int nt = 0; nt < kNtS; ++nt) {
+      for (int nt = 0; nt < kNtS; ++nt)
 #pragma unroll
         for (int e = 2 * half; e < 2 * half + 2; ++e) {
-          const float p = exp2f(fmaf(sc[nt][e], scale_log2, -ml));
+          const float p = exp2_ftz(fmaf(sc[nt][e], scale_log2, -ml));
           sc[nt][e] = p;
           rs += p;
         }
-      }
-      l[half] = alpha * l[half] + rs;
+      l[half] = alpha[half] * l[half] + rs;
       m[half] = m_new;
-#pragma unroll
-      for (int nd = 0; nd < kNtO; ++nd) {
-        o[nd][2 * half] *= alpha;
-        o[nd][2 * half + 1] *= alpha;
-      }
     }
+  };
+  // O *= alpha, then P (bf16) straight from the score fragments
+  auto rescale_pack = [&](const float* alpha) {
+#pragma unroll
+    for (int nd = 0; nd < kNtO; ++nd) {
+      o[nd][0] *= alpha[0];
+      o[nd][1] *= alpha[0];
+      o[nd][2] *= alpha[1];
+      o[nd][3] *= alpha[1];
+    }
+#pragma unroll
+    for (int kk = 0; kk < kKs; ++kk) pack_a(ap[kk], sc, kk);
+  };
+  auto wait_k = [&](int t) { mbar_wait(kfull + t % S, (t / S) & 1); };
+  auto wait_v = [&](int t) { mbar_wait(vfull + t % S, (t / S) & 1); };
 
-    // O += P V: P (bf16) straight from the score fragments
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      uint32_t a[4];
-      a[0] = pack_bf16(sc[2 * kk][0], sc[2 * kk][1]);
-      a[1] = pack_bf16(sc[2 * kk][2], sc[2 * kk][3]);
-      a[2] = pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]);
-      a[3] = pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3]);
-      const __nv_bfloat16* vr =
-          vt + (kk * 16 + (lane & 15)) * LD + (lane >> 4) * 8;
-#pragma unroll
-      for (int nd = 0; nd < kNtO; nd += 2) {
-        uint32_t bf[4];
-        ldmatrix_x4_trans(bf, vr + nd * 8);
-        mma_bf16(o[nd], a, bf[0], bf[1]);
-        mma_bf16(o[nd + 1], a, bf[2], bf[3]);
-      }
+  if (!busy) {
+    // no real row: compute nothing, free each stage in its turn (and keep
+    // the turns of the cores with warpgroup 0)
+    if (n > 0) bar_arrive(1, kThreadsWG);
+    for (int t = 0; t < n; ++t) {
+      bar_sync(2, kThreadsWG);
+      bar_arrive(1, kThreadsWG);
+      wait_k(t);
+      release(&kmap, M::k, kfull, kturn, t);
+      wait_v(t);
+      release(&vmap, M::v, vfull, vturn, t);
     }
-    __syncthreads();  // the next iteration refills this stage
+  } else if (n > 0) {
+    float alpha[2];
+    mbar_wait(qbar, 0);
+    if (wgi == 1) bar_arrive(1, kThreadsWG);  // warpgroup 0 goes first
+    // tile 0, then each tile's S issued before the previous tile's P V,
+    // so its softmax runs while the tensor cores take P V
+    wait_k(0);
+    bar_sync(1 + wgi, kThreadsWG);  // this warpgroup's turn on the cores
+    issue_s(0);
+    bar_arrive(2 - wgi, kThreadsWG);  // the other warpgroup's turn
+    wg::wait<0>();
+    wg::fence_regs<4 * kNtS>(&sc[0][0]);
+    release(&kmap, M::k, kfull, kturn, 0);
+    softmax(0, alpha);
+    rescale_pack(alpha);
+    for (int t = 1; t < n; ++t) {
+      wait_k(t);
+      wait_v(t - 1);
+      bar_sync(1 + wgi, kThreadsWG);
+      issue_s(t);
+      issue_pv(t - 1);
+      bar_arrive(2 - wgi, kThreadsWG);
+      wg::wait<1>();
+      wg::fence_regs<4 * kNtS>(&sc[0][0]);
+      release(&kmap, M::k, kfull, kturn, t);
+      softmax(t, alpha);
+      wg::wait<0>();
+      wg::fence_regs<4 * kNtO>(&o[0][0]);
+      release(&vmap, M::v, vfull, vturn, t - 1);
+      rescale_pack(alpha);
+    }
+    wait_v(n - 1);
+    wg::fence_regs<4 * kNtO>(&o[0][0]);
+    wg::fence_regs<4 * kKs>(&ap[0][0]);
+    wg::fence();
+    issue_pv(n - 1);
+    wg::wait<0>();
+    wg::fence_regs<4 * kNtO>(&o[0][0]);
+    if (wgi == 0) bar_sync(1, kThreadsWG);  // warpgroup 1's last arrival
   }
 
+  // O / max(l, 1e-30) in bf16; lse = m + log(max(l, 1e-30))
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     float lt = l[half];
@@ -214,8 +374,8 @@ __global__ void __launch_bounds__(kThreadsTC, 2)
     if (r < s.sq) {
       const float lc = fmaxf(lt, 1e-30f);
       const float inv = 1.f / lc;
-      __nv_bfloat16* dst = out + ((static_cast<size_t>(b) * s.sq + r) * s.h +
-                                  head) * D + tig * 2;
+      bf16* dst = out + ((static_cast<size_t>(b) * s.sq + r) * s.h + head) * D +
+                  tig * 2;
 #pragma unroll
       for (int nd = 0; nd < kNtO; ++nd)
         *reinterpret_cast<__nv_bfloat162*>(dst + nd * 8) =
@@ -267,16 +427,27 @@ __global__ void __launch_bounds__(flash_f32::kThreads)
 
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* out,
-                float* lse, const Dims& s, dim3 grid, cudaStream_t stream) {
+                float* lse, const Dims& s, int b, cudaStream_t stream) {
   static bool configured = false;
-  constexpr size_t bytes = smem_bytes_tc<D>();
-  if (int e = set_smem(flash_fwd_bf16_kernel<D>, bytes, &configured))
+  const long long items =
+      static_cast<long long>((s.sq + kTQ - 1) / kTQ) * b * s.h;
+  if (items > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  // with no keys no tile is copied, but a map needs a tensor: q's
+  const bool keys = s.sk > 0;
+  CUtensorMap qmap, kmap, vmap;
+  if (int e = make_map(&qmap, q, b, s.sq, s.h, D)) return e;
+  if (int e = make_map(&kmap, keys ? k : q, b, keys ? s.sk : s.sq,
+                       keys ? s.hk : s.h, D))
     return e;
-  flash_fwd_bf16_kernel<D><<<grid, kThreadsTC, bytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v),
-      static_cast<__nv_bfloat16*>(out), lse, s);
+  if (int e = make_map(&vmap, keys ? v : q, b, keys ? s.sk : s.sq,
+                       keys ? s.hk : s.h, D))
+    return e;
+  constexpr size_t bytes = FwdSmem<D>::bytes;
+  if (int e = set_smem(flash_fwd_wgmma_kernel<D>, bytes, &configured))
+    return e;
+  flash_fwd_wgmma_kernel<D><<<static_cast<int>(items), kThreadsWG, bytes,
+                              stream>>>(qmap, kmap, vmap,
+                                        static_cast<bf16*>(out), lse, s, b);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -297,14 +468,14 @@ extern "C" int ptt_flash_attention(const void* q, const void* k,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Dims s{sq, sk, h, hk, causal, window, sk - sq, sm_scale};
   float* l = static_cast<float*>(lse);
-  const dim3 grid((sq + kBQ - 1) / kBQ, h, b);
   if (dtype == kBF16)
-    return d == 64 ? launch_bf16<64>(q, k, v, out, l, s, grid, st)
-                   : launch_bf16<128>(q, k, v, out, l, s, grid, st);
+    return d == 64 ? launch_bf16<64>(q, k, v, out, l, s, b, st)
+                   : launch_bf16<128>(q, k, v, out, l, s, b, st);
   if (dtype == kF32) {
     static bool configured = false;
     constexpr size_t bytes = flash_f32::kSmemBytes;
     if (int e = set_smem(flash_fwd_f32_kernel, bytes, &configured)) return e;
+    const dim3 grid((sq + kBQ - 1) / kBQ, h, b);
     flash_fwd_f32_kernel<<<grid, flash_f32::kThreads, bytes, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(out), l, s, d);

@@ -67,11 +67,10 @@
 // scores and a 4 x D/16 slice of the output): K7a a CTA per 64-row query
 // tile walking its key range, K7b a CTA per 64-key tile walking its query
 // range over the G heads of its group.
-#include <cuda.h>
-
 #include "common.cuh"
 #include "flash_f32.cuh"
 #include "flash_mma.cuh"
+#include "tma.cuh"
 #include "wgmma.cuh"
 
 using namespace ptt;
@@ -265,51 +264,6 @@ __device__ __forceinline__ void add_dq(float (*dqa)[4], const Dims& s, int b,
 }
 
 // ------------------------------------------------------- K7 bf16, wgmma
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-// Wait for the phase of parity `parity` of the barrier to complete; a
-// wait that outlasts any schedule traps, as wait_counter does.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  for (int n = 0;; ++n) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (n == (1 << 22)) __trap();
-  }
-}
-
-// One 64-row x 64-column box of a (B, S, H, D) bf16 tensor into shared
-// memory (128-byte swizzle), completing on `bar`.
-__device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map,
-                                        int d0, int h, int s0, int b,
-                                        uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(d0), "r"(h), "r"(s0), "r"(b),
-      "r"(smem_u32(bar))
-      : "memory");
-}
-
 // Byte offsets of the wgmma kernel's shared memory at head width D: the
 // bf16 tiles are blocked (wgmma.cuh), without padding.
 template <int D>
@@ -394,7 +348,7 @@ __global__ void __launch_bounds__(kFThreads, 1)
   if (threadIdx.x == 0) {
     ticket = atomicAdd(sync, 1);
     for (int i = 0; i < 3; ++i) mbar_init(full + i, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
   const int j = ticket / (nb * s.hk);
@@ -844,44 +798,6 @@ __global__ void __launch_bounds__(flash_f32::kThreads)
 bool valid(int sk, int h, int hk, int d, int causal, int window) {
   return sk >= 0 && hk > 0 && h % hk == 0 && (d == 64 || d == 128) &&
          window >= 0 && (window == 0 || causal);
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// A (B, S, H, D) bf16 tensor as TMA boxes of 64 rows x 64 columns of one
-// head, 128-byte swizzle; rows past S read as zeros. The encoder comes
-// from the driver through the runtime, so the library links no -lcuda.
-int make_map(CUtensorMap* m, const void* base, int b, int sq, int h, int d) {
-  static EncodeTiled encode = nullptr;
-  if (!encode) {
-    cudaDriverEntryPointQueryResult found;
-    void* fn = nullptr;
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
-                                            cudaEnableDefault, &found);
-    if (e != cudaSuccess || found != cudaDriverEntryPointSuccess || !fn)
-      return static_cast<int>(cudaErrorSymbolNotFound);
-    encode = reinterpret_cast<EncodeTiled>(fn);
-  }
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
-                              static_cast<cuuint64_t>(h),
-                              static_cast<cuuint64_t>(sq),
-                              static_cast<cuuint64_t>(b)};
-  const cuuint64_t strides[3] = {
-      static_cast<cuuint64_t>(d) * 2, static_cast<cuuint64_t>(h) * d * 2,
-      static_cast<cuuint64_t>(sq) * h * d * 2};
-  const cuuint32_t box[4] = {64, 1, 64, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = encode(
-      m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
-      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <int D>

@@ -1,10 +1,11 @@
 // Pieces shared by the dense flash-attention kernels, forward (K4,
-// flash_attention.cu) and backward (K7a/K7b, flash_attention_bwd.cu): the
+// flash_attention.cu) and backward (K7, flash_attention_bwd.cu): the
 // tile sizes, the live band of (query, key) pairs (bottom-right causal,
 // sliding window, keys past sk), and the bf16 tensor-core building blocks
 // (`mma.sync` m16n8k16 with f32 accumulation, `ldmatrix.trans`, 16-byte
-// `cp.async` tile staging, and the backward's fragment helpers, which the
-// varlen backward K8a/K8b shares). Keeping the band logic in one place
+// `cp.async` tile staging, and the fragment helpers, which the varlen
+// kernels K3 and K8a/K8b share; K4 and K7 take the fragment re-packing
+// for their `wgmma` products). Keeping the band logic in one place
 // keeps the forward and the backward from ever disagreeing on which pairs
 // are live (the TPU kernels share `_run_full` for the same reason).
 #pragma once
@@ -14,8 +15,8 @@
 namespace ptt {
 namespace flash {
 
-constexpr int kBQ = 64;  // query rows per CTA
-constexpr int kBK = 64;  // keys per tile
+constexpr int kBQ = 64;  // query rows per CTA (f32 kernels; K7's dq tile)
+constexpr int kBK = 64;  // keys per tile (f32 kernels)
 constexpr int kDMax = 128;
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -26,12 +27,15 @@ struct Dims {
   float scale;
 };
 
-// The key range [lo, hi) the rows [q0, q0 + kBQ) of one CTA can see.
+// The key range [lo, hi) the rows [q0, q0 + BQ) of one CTA can see (BQ:
+// the tile height, 64 for K7 and the f32 kernels, 128 for K4's bf16
+// kernel).
+template <int BQ = kBQ>
 __device__ __forceinline__ void key_range(const Dims& s, int q0, int* lo,
                                           int* hi) {
   int l = 0, u = s.sk;
   if (s.causal) {
-    const int q_last = min(q0 + kBQ, s.sq) - 1;
+    const int q_last = min(q0 + BQ, s.sq) - 1;
     u = min(u, q_last + s.off + 1);
     if (s.window > 0) l = max(0, q0 + s.off - s.window + 1);
   }
@@ -49,22 +53,19 @@ __device__ __forceinline__ bool band_live(const Dims& s, int r, int c) {
   return true;
 }
 
-// Every (row, key) pair of the tile is live for every real row.
+// Every (row, key) pair of the BQ x BK tile is live for every real row.
+template <int BQ = kBQ, int BK = kBK>
 __device__ __forceinline__ bool full_tile(const Dims& s, int q0, int k0) {
-  if (k0 + kBK > s.sk) return false;
+  if (k0 + BK > s.sk) return false;
   if (!s.causal) return true;
-  if (k0 + kBK - 1 > q0 + s.off) return false;
-  const int q_last = min(q0 + kBQ, s.sq) - 1;
+  if (k0 + BK - 1 > q0 + s.off) return false;
+  const int q_last = min(q0 + BQ, s.sq) - 1;
   return s.window <= 0 || k0 > q_last + s.off - s.window;
 }
 
 // bf16 tensor-core building blocks (mma.sync m16n8k16, ldmatrix, cp.async)
 constexpr int kWarpsTC = 4;
 constexpr int kThreadsTC = 32 * kWarpsTC;
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
 
 // 16-byte global -> shared copy; nothing is read and zeros are written
 // when !pred.

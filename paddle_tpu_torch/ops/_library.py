@@ -39,7 +39,7 @@ SOURCES = ("rms_norm.cu", "paged_attention.cu", "varlen_flash_attention.cu",
            "decode_attention.cu", "flash_attention.cu",
            "flash_attention_bwd.cu", "varlen_flash_attention_bwd.cu")
 HEADERS = ("common.cuh", "split_decode.cuh", "flash_f32.cuh", "flash_mma.cuh",
-           "varlen_seg.cuh", "wgmma.cuh")
+           "varlen_seg.cuh", "wgmma.cuh", "tma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-lineinfo", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -12,8 +12,9 @@ row that sees no key returns zeros. Scores and softmax statistics are f32;
 the probabilities are rounded to v's dtype before the product with v, as
 the TPU kernel does. The backward recomputes P from the forward's
 log-sum-exp with the TPU kernel's roundings (see
-:func:`flash_attention_bwd_plain`); :class:`BwdSchedule` states the fused
-bf16 backward's work order and dq add order, which the kernel follows.
+:func:`flash_attention_bwd_plain`). :class:`FwdTiles` states the bf16
+forward kernel's tile plan and launch order, :class:`BwdSchedule` the fused
+bf16 backward's work order and dq add order; the kernels follow them.
 :class:`FlashAttentionFunction` mirrors
 the reference's ``custom_vjp``. The CUDA sources are
 ``paddle_tpu_torch/csrc/flash_attention.cu`` and
@@ -32,11 +33,15 @@ __all__ = ["flash_attention", "flash_attention_plain", "band_mask",
            "flash_attention_bwd_dkv", "flash_attention_bwd_fused",
            "flash_attention_bwd_delta",
            "flash_attention_bwd_plain", "FlashAttentionFunction",
-           "BwdSchedule"]
+           "FwdTiles", "BwdSchedule"]
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
+# the bf16 forward's tiles (flash_attention.cu kTQ, kTK): 128 query rows
+# per CTA, 128 keys per tile
+FWD_BLOCK_Q = 128
+FWD_BLOCK_K = 128
 # the fused backward's tiles (flash_attention_bwd.cu): 64 query rows of a
 # dq tile (flash_mma.cuh kBQ), 128 keys per CTA (kFBK)
 BWD_BLOCK_Q = 64
@@ -182,6 +187,86 @@ def flash_attention_bwd_plain(q, k, v, out, lse, do, causal=False,
     dk = torch.einsum("bkgqs,bqkgd->bskd", ds.to(q.dtype).float(), qf)
     return (dq.reshape(b, sq, h, d).to(q.dtype), dk.to(k.dtype),
             dv.to(v.dtype))
+
+
+class FwdTiles:
+    """The bf16 forward kernel's tile plan (``csrc/flash_attention.cu``,
+    which follows it formula for formula).
+
+    One CTA per (query tile ``i`` of ``block_q`` rows, batch, head). Its
+    rows see one contiguous key range ``[lo, hi)``: the window edge of its
+    first row to the causal diagonal of its last row (``_kv_band_clamp``;
+    all of ``[0, sk)`` without ``causal``). It walks that range from
+    ``lo`` in tiles of ``block_k`` keys, so no tile without a live pair is
+    read, and masks only the boundary tiles: a "full" tile is all live
+    for every real row. The grid is 1-D. Rank ``r`` of the launch order
+    takes the query tiles by their live keys, most first, ties to the
+    higher tile; within a rank the (batch, head) pairs follow with the
+    heads fastest, so the query heads of one KV head run side by side.
+    """
+
+    block_q, block_k = FWD_BLOCK_Q, FWD_BLOCK_K
+
+    def __init__(self, b, sq, sk, h, hk, causal, window=None):
+        self.b, self.sq, self.sk, self.h, self.hk = b, sq, sk, h, hk
+        self.causal, self.window = bool(causal), int(window or 0)
+        self.off = sk - sq  # bottom-right causal alignment
+        self.n_q = -(-sq // self.block_q)
+        self.n_items = self.n_q * b * h
+
+    def key_range(self, i):
+        """``(lo, hi)`` of query tile ``i`` (flash_mma.cuh ``key_range``);
+        no key when ``hi <= lo``."""
+        q0 = i * self.block_q
+        lo, hi = 0, self.sk
+        if self.causal:
+            hi = min(hi, min(q0 + self.block_q, self.sq) - 1 + self.off + 1)
+            if self.window:
+                lo = max(0, q0 + self.off - self.window + 1)
+        return lo, hi
+
+    def live_keys(self, i):
+        lo, hi = self.key_range(i)
+        return max(hi - lo, 0)
+
+    def tiles(self, i):
+        """The first keys of the key tiles query tile ``i`` walks."""
+        lo, hi = self.key_range(i)
+        return list(range(lo, hi, self.block_k)) if hi > lo else []
+
+    def full(self, i, k0):
+        """Every pair of query tile ``i`` and the key tile at ``k0`` is
+        live for every row below ``sq`` (flash_mma.cuh ``full_tile``): the
+        kernel skips the mask."""
+        if k0 + self.block_k > self.sk:
+            return False
+        if not self.causal:
+            return True
+        q0 = i * self.block_q
+        if k0 + self.block_k - 1 > q0 + self.off:
+            return False
+        q_last = min(q0 + self.block_q, self.sq) - 1
+        return not self.window or k0 > q_last + self.off - self.window
+
+    def tile_of_rank(self, r):
+        """The query tile of rank ``r``. Below the last tile the live keys
+        never fall as the tile rises, so the order is the tiles from the
+        top down with the last (ragged) one placed behind the tiles that
+        see more keys than it does."""
+        n = self.n_q
+        last = self.live_keys(n - 1)
+        p = 0
+        while p < n - 1 and self.live_keys(n - 2 - p) > last:
+            p += 1
+        return n - 2 - r if r < p else (n - 1 if r == p else n - 1 - r)
+
+    def item(self, w):
+        """``(query tile, batch, head)`` of CTA ``w`` (``blockIdx.x``)."""
+        r, bh = divmod(w, self.b * self.h)
+        return self.tile_of_rank(r), bh // self.h, bh % self.h
+
+    def order(self):
+        return [self.item(w) for w in range(self.n_items)]
 
 
 class BwdSchedule:

@@ -239,14 +239,27 @@ def test_cuda_engine_kernel_path_equals_plain_path(cuda):
 def test_cuda_flash_attention_matches_plain(cuda, dtype, tol):
     g = torch.Generator(device=cuda).manual_seed(1)
     # (B, Sq, Sk, H, HK, D, causal, window): dense, ragged, bottom-right
-    # causal, GQA/MQA, a window band, and Sq > Sk (rows with no live key)
+    # causal, GQA/MQA, a window band, and Sq > Sk (rows with no live key);
+    # then shapes across the bf16 kernel's 128-row and 128-key tile edges:
+    # Sq 1, 65, 127, 129 and 383, windows 127, 128 and 129, GQA groups 1,
+    # 4 and 7 (28 / 4), B = 3, D 64 and 128, Sq < Sk and Sq > Sk
     for b, sq, sk, h, hk, d, causal, window in (
             (2, 128, 128, 4, 2, 64, True, None),
             (2, 100, 100, 4, 4, 128, True, None),
             (1, 64, 1024, 8, 2, 128, True, None),
             (2, 96, 200, 4, 2, 64, False, None),
             (2, 300, 300, 8, 1, 128, True, 17),
-            (1, 200, 130, 4, 4, 64, True, None)):
+            (1, 200, 130, 4, 4, 64, True, None),
+            (3, 1, 1, 4, 4, 128, True, None),
+            (3, 1, 300, 28, 4, 64, True, 129),
+            (3, 65, 65, 28, 4, 64, True, 127),
+            (1, 127, 300, 8, 2, 128, True, 128),
+            (2, 129, 129, 8, 8, 64, True, 129),
+            (3, 383, 383, 28, 4, 128, True, None),
+            (1, 383, 383, 8, 2, 128, True, 128),
+            (2, 383, 200, 4, 1, 128, True, None),
+            (1, 129, 1000, 8, 2, 64, False, None),
+            (3, 127, 127, 4, 1, 128, False, None)):
         q = _rnd(g, dtype, b, sq, h, d)
         k, v = _rnd(g, dtype, b, sk, hk, d), _rnd(g, dtype, b, sk, hk, d)
         out, lse = ops.flash_attention(q, k, v, causal=causal,
@@ -256,6 +269,22 @@ def test_cuda_flash_attention_matches_plain(cuda, dtype, tol):
         torch.testing.assert_close(out.float(), ref.float(), atol=tol,
                                    rtol=tol)
         torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_is_deterministic(cuda):
+    """Two calls of the bf16 forward on the same inputs are bit-equal in
+    out and lse (no reduction across CTAs: each output is written once),
+    at Llama's dense causal shape and at GQA 7 with a window."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    for b, s, h, hk, window in ((1, 2048, 32, 32, None),
+                                (2, 1000, 28, 4, 129)):
+        q = _rnd(g, torch.bfloat16, b, s, h, 128)
+        k, v = (_rnd(g, torch.bfloat16, b, s, hk, 128) for _ in range(2))
+        runs = [ops.flash_attention(q, k, v, causal=True, window_size=window,
+                                    return_lse=True) for _ in range(2)]
+        for a, c in zip(*runs):
+            assert torch.equal(a, c)
 
 
 @pytest.mark.cuda
