@@ -13,9 +13,10 @@ Phases (any failure raises and the script exits non-zero):
    (K4 also at the training shape against one ``is_causal`` SDPA call;
    the backward in bf16 as the fused kernel K7, in f32 as K7a and K7b;
    K6/K7 also at
-   Mistral's GQA width with its window; K8a/K8b at the
-   packed 941M row, with GQA and a window, with unequal query and key
-   lengths, and with empty segments; K3 also at the packed 941M row and
+   Mistral's GQA width with its window; the varlen backward in bf16 as the
+   fused kernel K8 at the packed 941M row, with GQA and a window, with
+   unequal query and key lengths, and with empty segments, in f32 as K8a
+   and K8b at the packed row; K3 also at the packed 941M row and
    with GQA and a window; K2's int8 arm with static (HK,) scales and with
    per-row scale pools at the serving shape and at GQA 32/8, and K2's
    static scales over float pools): max error, kernel / plain /
@@ -65,16 +66,17 @@ Phases (any failure raises and the script exits non-zero):
    segments (T = 4,096), the model called as ``model(ids, cu)`` and the
    packed criterion on f32 logits: 2 warm-up steps, then 10 in one
    ``run_steps`` with the counters zeroed just before and read just after
-   (exactly K1 33, K6 33, K3 16, K8a 16, K8b 16 per step and no K4/K7),
+   (exactly K1 33, K6 33, K3 16, K8 16 per step and no K8a/K8b, K4 or
+   K7),
    step time, tokens/s, MFU (attention at the effective length
    sum(len^2) / T), peak memory and a step profile; the loss must fall.
    Then the same configuration with full recompute for 3 steps from the
    same weights and batches: its losses beside the first run's, a lower
    peak, and K1 65 and K3 32 launches per step;
 10. packed training's kernel path against its plain path in f32 (the same
-    width, 2 layers, T = 1,024 in 4 segments): step-1 gradients per tensor
-    within 1e-5 of the tensor's largest |g|, the losses of 3 steps within
-    1e-6;
+    width, 2 layers, T = 1,024 in 4 segments; the backward's f32 route,
+    K8a and K8b, and not K8): step-1 gradients per tensor within 1e-5 of
+    the tensor's largest |g|, the losses of 3 steps within 1e-6;
 11. int8 serving at full width: Llama-2-7B in bf16 (32 layers, seeded
     weights), phase 3's knobs and requests, three engines through
     ``create_serving_engine``: ``quantize="weight_only_int8"`` (the entry
@@ -104,11 +106,11 @@ The line before the last is the ``{"kernels": [...]}`` record (each
 kernel's launches come from the run of the path that carries it: K1-K3
 the serving run of phase 3, K4-K5 the generation run of phase 5, K6 and
 K7 the training run of phase 7, K7a and K7b the f32 kernel run of phase
-8, K8a and K8b the packed training run
-of phase 9, K2's per-row int8 mode the int8-KV serving run of phase 11,
-its static int8 arm and its float-pool scaled mode the two runs of phase
-12; ``launches_by_path`` has every path's count); the last line is
-``{"ok": true, "device": {...}}``.
+8, K8 the packed training run of phase 9, K8a and K8b the f32 packed
+kernel run of phase 10, K2's per-row int8 mode the int8-KV serving run
+of phase 11, its static int8 arm and its float-pool scaled mode the two
+runs of phase 12; ``launches_by_path`` has every path's count); the last
+line is ``{"ok": true, "device": {...}}``.
 Without CUDA it prints no result and exits 2.
 """
 from __future__ import annotations
@@ -780,9 +782,9 @@ def k7_cases(torch, g, dev):
 
 
 def _segment_library(torch, q, k, v, do, lens_q, lens_k, window):
-    """The library yardsticks of K8a/K8b: SDPA's whole backward (dq, dk,
-    dv) through autograd on the same inputs, once over the packed row
-    under a block-diagonal causal (banded) mask and once as the sum of
+    """The library yardsticks of K8 (and K8a/K8b): SDPA's whole backward
+    (dq, dk, dv) through autograd on the same inputs, once over the packed
+    row under a block-diagonal causal (banded) mask and once as the sum of
     per-segment SDPA backwards (``is_causal`` where a segment's query and
     key lengths agree and no window cuts, else its bottom-right band)."""
     from paddle_tpu_torch.ops.flash_attention import band_mask
@@ -827,7 +829,8 @@ def k8_cases(torch, g, dev):
     from paddle_tpu_torch.ops.varlen_flash_attention import segment_mask
 
     # (label, lens_q, lens_k or None, H, HK, D, window, dtypes): the packed
-    # training path (the 941M configuration's row; bf16 is the primary),
+    # training path (the 941M configuration's row; the fused bf16 kernel K8
+    # is the primary, K8a and K8b in f32 the primaries of their f32 route),
     # GQA with a window shorter than the long segments, unequal query and
     # key lengths, and empty segments
     for label, lens_q, lens_k, h, hk, d, window, dtypes in (
@@ -859,8 +862,7 @@ def k8_cases(torch, g, dev):
             e = q.element_size()
             ddt = str(dtype).removeprefix("torch.")
             common = dict(
-                dtype=dtype, primary=(label == "packed_941m"
-                                      and dtype == torch.bfloat16),
+                dtype=dtype, primary=label == "packed_941m",
                 shape=f"{label}:lens_q={lens_q},lens_k={lens_k},H={h},"
                       f"HK={hk},D={d},causal,window={window}",
                 library=_segment_library(torch, q, k, v, do, lens_q, lens_k,
@@ -872,23 +874,38 @@ def k8_cases(torch, g, dev):
                 return ops.varlen_flash_attention_bwd_plain(
                     q, k, v, out, lse, do, cu_q, cu_k, causal,
                     window_size=window, delta=delta)
-            # bytes: q, do, dq (or k, v, dk, dv) and lse, delta once
-            nbytes = (3 * tq * h * d + 2 * tk * hk * d) * e + 8 * h * tq
+            if dtype == torch.bfloat16:
+                # K8: q, do, dq and k, v, dk, dv once each, lse and delta;
+                # S^T, dP^T, dV, dK, dQ: 10 * D flops per live pair
+                yield dict(
+                    name="varlen_flash_attention_bwd",
+                    kernel=lambda args=args, window=window:
+                        ops.varlen_flash_attention_bwd_fused(
+                            *args, window_size=window),
+                    plain=plain,
+                    bound=bound_ms((3 * tq * h * d + 4 * tk * hk * d) * e
+                                   + 8 * h * tq, 10.0 * d * pairs * h, ddt),
+                    **common)
+                continue
+            # the f32 route, K8a and K8b: each reads q, do or k, v once
             yield dict(
                 name="varlen_flash_attention_bwd_dq",
                 kernel=lambda args=args, window=window:
                     ops.varlen_flash_attention_bwd_dq(*args,
                                                       window_size=window),
                 plain=lambda plain=plain: plain()[0],
-                bound=bound_ms(nbytes, 6.0 * d * pairs * h, ddt), **common)
-            nbytes = (2 * tq * h * d + 4 * tk * hk * d) * e + 8 * h * tq
+                bound=bound_ms((3 * tq * h * d + 2 * tk * hk * d) * e
+                               + 8 * h * tq, 6.0 * d * pairs * h, ddt),
+                **common)
             yield dict(
                 name="varlen_flash_attention_bwd_dkv",
                 kernel=lambda args=args, window=window:
                     ops.varlen_flash_attention_bwd_dkv(*args,
                                                        window_size=window),
                 plain=lambda plain=plain: plain()[1:],
-                bound=bound_ms(nbytes, 8.0 * d * pairs * h, ddt), **common)
+                bound=bound_ms((2 * tq * h * d + 4 * tk * hk * d) * e
+                               + 8 * h * tq, 8.0 * d * pairs * h, ddt),
+                **common)
 
 
 def _cumsum(xs):
@@ -938,6 +955,11 @@ KERNELS = {
     "flash_attention_bwd_dkv": (
         "cuda", "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
         "paddle_tpu/ops/pallas/flash_attention.py:425"),
+    # K8, the fused bf16 varlen backward: both TPU kernels of `_varlen_bwd`
+    "varlen_flash_attention_bwd": (
+        "cuda", "paddle_tpu_torch/csrc/varlen_flash_attention_bwd.cu",
+        "paddle_tpu/ops/pallas/varlen_flash_attention.py:336, :376"),
+    # K8a and K8b, the f32 route (phase 10's parity path)
     "varlen_flash_attention_bwd_dq": (
         "cuda", "paddle_tpu_torch/csrc/varlen_flash_attention_bwd.cu",
         "paddle_tpu/ops/pallas/varlen_flash_attention.py:336"),
@@ -952,8 +974,9 @@ GENERATE_KERNELS = ("rms_norm", "flash_attention", "decode_attention")
 TRAIN_KERNELS = ("rms_norm_bwd", "flash_attention_bwd")
 TRAIN_F32_KERNELS = ("rms_norm_bwd", "flash_attention_bwd_dq",
                      "flash_attention_bwd_dkv")
-PACKED_KERNELS = ("varlen_flash_attention_bwd_dq",
-                  "varlen_flash_attention_bwd_dkv")
+PACKED_KERNELS = ("varlen_flash_attention_bwd",)
+PACKED_F32_KERNELS = ("varlen_flash_attention_bwd_dq",
+                      "varlen_flash_attention_bwd_dkv")
 INT8_SERVING_KERNELS = ("rms_norm", "varlen_flash_attention",
                         "paged_decode_attention_int8_rows")
 STATIC_INT8_KERNELS = ("paged_decode_attention_int8",
@@ -962,6 +985,8 @@ SCALED_FLOAT_KERNELS = ("paged_decode_attention_scaled",)
 # the path whose run gives each kernel's launches in the kernels line
 KERNEL_PATH = {"flash_attention_bwd_dq": "train_f32_parity",
                "flash_attention_bwd_dkv": "train_f32_parity",
+               "varlen_flash_attention_bwd_dq": "packed_f32_parity",
+               "varlen_flash_attention_bwd_dkv": "packed_f32_parity",
                "paged_decode_attention_int8": "block_mha_static_int8",
                "paged_decode_attention_int8_rows": "int8_serving",
                "paged_decode_attention_scaled": "scaled_float_decode"}
@@ -1151,10 +1176,11 @@ def _kernel_family(name):
     for key, fam in (("rms_norm_kernel", "K1 rms_norm"),
                      ("rms_norm_bwd_kernel", "K6 rms_norm_bwd"),
                      ("rms_norm_dw_kernel", "K6 rms_norm_bwd"),
+                     ("varlen_bwd_fused_", "K8 varlen_flash_attention_bwd"),
                      ("varlen_bwd_dq_", "K8a varlen_flash_attention_bwd_dq"),
                      ("varlen_bwd_dkv_",
                       "K8b varlen_flash_attention_bwd_dkv"),
-                     ("tile_order_kernel", "K3/K8 tile order"),
+                     ("tile_order_kernel", "K3/K8a/K8b tile order"),
                      ("bwd_fused_", "K7 flash_attention_bwd"),
                      ("bwd_dq_", "K7a flash_attention_bwd_dq"),
                      ("bwd_dkv_", "K7b flash_attention_bwd_dkv"),
@@ -1775,8 +1801,7 @@ def packed_train_phase(torch, dev):
     launches = dict(ops.LAUNCHES)
     per_step = {"rms_norm": 2 * layers + 1, "rms_norm_bwd": 2 * layers + 1,
                 "varlen_flash_attention": layers,
-                "varlen_flash_attention_bwd_dq": layers,
-                "varlen_flash_attention_bwd_dkv": layers}
+                "varlen_flash_attention_bwd": layers}
     want = {k: per_step.get(k, 0) * steps for k in launches}
     check(launches == want,
           f"packed train launches {launches}, expected {want}")
@@ -1860,9 +1885,12 @@ def packed_parity_phase(torch, dev):
             check(all(n == 0 for n in launches.values()),
                   f"plain packed path launched a kernel: {launches}")
         else:
-            check(all(launches[k] > 0 for k in PACKED_KERNELS + (
+            check(all(launches[k] > 0 for k in PACKED_F32_KERNELS + (
                 "rms_norm", "rms_norm_bwd", "varlen_flash_attention")),
                   f"packed kernel path missed a kernel: {launches}")
+            check(launches["varlen_flash_attention_bwd"] == 0,
+                  f"the f32 packed path launched the bf16 K8: {launches}")
+            kernel_launches = launches
         runs.append((grads, losses))
         del model, step, loss
         torch.cuda.empty_cache()
@@ -1875,6 +1903,7 @@ def packed_parity_phase(torch, dev):
     check(worst <= 1e-5, f"packed kernel and plain grads differ: {worst}")
     check(loss_rel <= 1e-6,
           f"packed kernel and plain losses differ: {lk} {lp}")
+    return kernel_launches
 
 
 # ---------------------------------------------------------- phase 11, 12
@@ -2225,12 +2254,13 @@ def main():
     train_launches = train_phase(torch, dev)
     parity_launches = train_parity_phase(torch, dev)
     packed_launches = packed_train_phase(torch, dev)
-    packed_parity_phase(torch, dev)
+    packed_parity_launches = packed_parity_phase(torch, dev)
     int8_launches = int8_serving_phase(torch, dev)
     batch_launches = int8_parity_phase(torch, dev)
     paths = {"serving": launches, "generate": gen_launches,
              "train": train_launches, "train_f32_parity": parity_launches,
              "packed_train": packed_launches,
+             "packed_f32_parity": packed_parity_launches,
              "int8_serving": int8_launches, **batch_launches}
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():

@@ -67,6 +67,7 @@
 // scores and a 4 x D/16 slice of the output): K7a a CTA per 64-row query
 // tile walking its key range, K7b a CTA per 64-key tile walking its query
 // range over the G heads of its group.
+#include "bwd_fused.cuh"
 #include "common.cuh"
 #include "flash_f32.cuh"
 #include "flash_mma.cuh"
@@ -75,6 +76,7 @@
 
 using namespace ptt;
 using namespace ptt::flash;
+using namespace ptt::bwd;
 
 namespace {
 
@@ -111,158 +113,6 @@ __device__ __forceinline__ bool fused_full_pair(const Dims& s, int q0,
   return s.window <= 0 || k0 > q0 + kBQ - 1 + s.off - s.window;
 }
 
-__device__ __forceinline__ int ld_acquire(const int* p) {
-  int v;
-  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n"
-               : "=r"(v)
-               : "l"(p)
-               : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void st_release(int* p, int v) {
-  asm volatile("st.release.gpu.global.b32 [%0], %1;\n" ::"l"(p), "r"(v)
-               : "memory");
-}
-
-// Spin until the counter at p reaches `want` (one thread). A wait that
-// outlasts any schedule (about 2^26 polls, seconds) traps, so a broken
-// order fails the launch instead of hanging the card.
-__device__ __forceinline__ void wait_counter(const int* p, int want) {
-  for (int n = 0; ld_acquire(p) < want; ++n) {
-    if (n == (1 << 26)) __trap();
-    __nanosleep(32);
-  }
-}
-
-// Shared -> global bulk copy, and bulk reduce-add of f32 (each element
-// of the destination += the source's), tracked by the bulk async-group.
-__device__ __forceinline__ void bulk_store(void* g, const void* s,
-                                           unsigned bytes) {
-  asm volatile(
-      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
-          g),
-      "r"(smem_u32(s)), "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void bulk_reduce_add(float* g, const float* s,
-                                                unsigned bytes) {
-  asm volatile(
-      "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], "
-      "[%1], %2;\n" ::"l"(g),
-      "r"(smem_u32(s)), "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void bulk_commit() {
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-
-// The bulk ops of this thread are complete: their writes are performed.
-__device__ __forceinline__ void bulk_wait() {
-  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
-
-// Order this thread's shared writes before a later bulk op reads them.
-__device__ __forceinline__ void fence_async_shared() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// Order global accesses of the generic and the async proxy.
-__device__ __forceinline__ void fence_async_global() {
-  asm volatile("fence.proxy.async.global;\n" ::: "memory");
-}
-
-// Thread 0: once the bulk op of the tile whose counter is `*pending` has
-// completed, release the tile to its next contributor (the staging is
-// then free again).
-__device__ __forceinline__ void release_dq(int* sync, int* pending,
-                                           int pending_val) {
-  if (threadIdx.x != 0 || !*pending) return;
-  bulk_wait();
-  fence_async_global();
-  st_release(sync + *pending, pending_val);
-  *pending = 0;
-}
-
-// The dq side of one step of K7: this key tile's place
-// in the add order of query tile i of `head`, and its add. The thread
-// holds partial rows mq + g and mq + g + 8, columns nc + 8 nd + 2 tig and
-// one more (nd < D / 16). The first contributor stores the staged tile
-// into the workspace, the others bulk-add it, each in its turn; the last
-// adds the workspace to its partial in registers and writes dq in bf16
-// (one contributor alone writes dq straight away). Thread 0 keeps the
-// counter of an add in flight in *pending (released by release_dq).
-template <int D>
-__device__ __forceinline__ void add_dq(float (*dqa)[4], const Dims& s, int b,
-                                       int head, int i, int j, int nq,
-                                       int mq, int nc, bf16* dq, float* ws,
-                                       int* sync, float* stg, int* pending,
-                                       int* pending_val) {
-  constexpr int LDW = D + 4;
-  constexpr int kNtQ = D / 16;
-  constexpr unsigned kStageBytes = sizeof(float) * kBQ * LDW;
-  const int g = (threadIdx.x & 31) >> 2;
-  const int tig = threadIdx.x & 3;
-  const int q0 = i * kBQ;
-  int klo, khi;
-  key_range(s, q0, &klo, &khi);
-  const int rank = j - klo / kFBK;
-  const bool last = j == (khi - 1) / kFBK;
-  const int cidx = 1 + (b * s.h + head) * nq + i;
-  float* wt =
-      ws + (static_cast<size_t>(b * s.h + head) * nq + i) * (kBQ * LDW);
-  if (last) {
-    if (rank > 0) {
-      // the earlier contributors' sum, then dq = sum + this partial
-      if (threadIdx.x == 0) wait_counter(sync + cidx, rank);
-      __syncthreads();
-#pragma unroll
-      for (int nd = 0; nd < kNtQ; ++nd)
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const float2 w = __ldcg(reinterpret_cast<const float2*>(
-              wt + (mq + g + half * 8) * LDW + nc + nd * 8 + tig * 2));
-          dqa[nd][2 * half] = w.x + dqa[nd][2 * half];
-          dqa[nd][2 * half + 1] = w.y + dqa[nd][2 * half + 1];
-        }
-    }
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = q0 + mq + g + half * 8;
-      if (r >= s.sq) continue;
-      bf16* o = dq + ((static_cast<size_t>(b) * s.sq + r) * s.h + head) * D +
-                nc + tig * 2;
-#pragma unroll
-      for (int nd = 0; nd < kNtQ; ++nd)
-        *reinterpret_cast<__nv_bfloat162*>(o + nd * 8) =
-            __floats2bfloat162_rn(dqa[nd][2 * half], dqa[nd][2 * half + 1]);
-    }
-    return;
-  }
-#pragma unroll
-  for (int nd = 0; nd < kNtQ; ++nd)
-#pragma unroll
-    for (int half = 0; half < 2; ++half)
-      *reinterpret_cast<float2*>(stg + (mq + g + half * 8) * LDW + nc +
-                                 nd * 8 + tig * 2) =
-          make_float2(dqa[nd][2 * half], dqa[nd][2 * half + 1]);
-  fence_async_shared();
-  if (threadIdx.x == 0 && rank > 0) wait_counter(sync + cidx, rank);
-  __syncthreads();  // the staging is complete; it is our turn
-  if (threadIdx.x == 0) {
-    fence_async_global();
-    if (rank == 0)
-      bulk_store(wt, stg, kStageBytes);
-    else
-      bulk_reduce_add(wt, stg, kStageBytes);
-    bulk_commit();
-    *pending = cidx;
-    *pending_val = rank + 1;
-  }
-}
-
 // ------------------------------------------------------- K7 bf16, wgmma
 // Byte offsets of the wgmma kernel's shared memory at head width D: the
 // bf16 tiles are blocked (wgmma.cuh), without padding.
@@ -283,26 +133,6 @@ struct WgSmem {
   static constexpr size_t bytes = bars + sizeof(uint64_t) * 3 + 1024;
   static_assert(stage % 16 == 0, "bulk copies read 16-byte aligned rows");
 };
-
-// ROWS rows of a head of width D into a blocked tile by all kFThreads
-// threads (consecutive threads fill consecutive 16-byte chunks); rows at
-// or past `limit` are zero-filled.
-template <int D, int ROWS>
-__device__ __forceinline__ void load_rows_blocked(bf16* dst, const bf16* src,
-                                                  size_t stride, int row0,
-                                                  int limit) {
-  constexpr int kChunks = D / 8;
-  char* base = reinterpret_cast<char*>(dst);
-  for (int idx = threadIdx.x; idx < ROWS * kChunks; idx += kFThreads) {
-    const int r = idx / (8 * kChunks) * 8 + (idx & 7);
-    const int c8 = (idx >> 3) % kChunks;
-    const bool ok = row0 + r < limit;
-    cp_async16(base + idx * 16,
-               ok ? src + static_cast<size_t>(row0 + r) * stride + c8 * 8
-                  : src,
-               ok);
-  }
-}
 
 // K7 on Hopper's wgmma: two warpgroups, each owning 64 of the CTA's 128
 // keys. Per step S^T, dP^T (A = K / V, B = Q / dO, both K-major from
@@ -391,8 +221,8 @@ __global__ void __launch_bounds__(kFThreads, 1)
     }
   };
 
-  load_rows_blocked<D, kFBK>(ks, k + kv_off, kv_stride, k0, s.sk);
-  load_rows_blocked<D, kFBK>(vs, v + kv_off, kv_stride, k0, s.sk);
+  load_rows_blocked<D, kFBK, kFThreads>(ks, k + kv_off, kv_stride, k0, s.sk);
+  load_rows_blocked<D, kFBK, kFThreads>(vs, v + kv_off, kv_stride, k0, s.sk);
   if (items > 0) load_step(0, 0);
   cp_async_commit();
   if (items > 1) load_step(1, 1);
@@ -542,8 +372,15 @@ __global__ void __launch_bounds__(kFThreads, 1)
     wg::fence_regs<4 * kNtO>(&adk[0][0]);
     wg::fence_regs<4 * kNtQ>(&dqa[0][0]);
 
-    add_dq<D>(dqa, s, b, head, i, j, nq, mq, nc, dq, ws, sync, stg, &pending,
-              &pending_val);
+    // this key tile's place in query tile i's add order: ascending key
+    // tiles from the first that reaches it
+    int klo, khi;
+    key_range(s, q0, &klo, &khi);
+    const int rank = j - klo / kFBK;
+    add_dq<D>(dqa, rank == 0, j == (khi - 1) / kFBK, sync,
+              1 + (b * s.h + head) * nq + i, rank, rank + 1, ws, dq,
+              static_cast<size_t>(b) * s.sq + q0, s.h, head, s.sq - q0, mq,
+              nc, stg, &pending, &pending_val);
   }
   release_dq(sync, &pending, pending_val);
   cp_async_wait<0>();  // a CTA without steps still has K and V in flight

@@ -4,7 +4,7 @@
 // sliding window, keys past sk), and the bf16 tensor-core building blocks
 // (`mma.sync` m16n8k16 with f32 accumulation, `ldmatrix.trans`, 16-byte
 // `cp.async` tile staging, and the fragment helpers, which the varlen
-// kernels K3 and K8a/K8b share; K4 and K7 take the fragment re-packing
+// kernel K3 shares; K4, K7 and K8 take the fragment re-packing
 // for their `wgmma` products). Keeping the band logic in one place
 // keeps the forward and the backward from ever disagreeing on which pairs
 // are live (the TPU kernels share `_run_full` for the same reason).
@@ -159,18 +159,9 @@ __device__ __forceinline__ void load_tile_cols(__nv_bfloat16* dst,
   }
 }
 
-// load_tile_cols of a head that fills the tile's D columns.
-template <int D, int LD>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          size_t stride, int row0,
-                                          int limit) {
-  load_tile_cols<D, LD>(dst, src, stride, row0, limit, D);
-}
-
-// Fragment helpers of the backward kernels (K7a/K7b here, K8a/K8b in
-// varlen_flash_attention_bwd.cu): each warp owns 16 rows of a 64-row tile,
-// thread (g = lane / 4, tig = lane % 4) rows g and g + 8.
+// Fragment helpers of the backward kernels (K7 and K8): each warp owns 16
+// rows of a 64-row tile, thread (g = lane / 4, tig = lane % 4) rows g and
+// g + 8.
 
 // 4-byte global -> shared copy, zeros when !pred.
 __device__ __forceinline__ void cp_async4(void* dst, const void* src,
@@ -180,40 +171,12 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src,
                "l"(src), "r"(pred ? 4 : 0));
 }
 
-// The A fragment (16 x 16, rows of the warp) at column block kk of a
-// shared tile; `w` points at row (warp * 16 + g), column tig * 2.
-template <int LD>
-__device__ __forceinline__ void a_frag(uint32_t* a,
-                                       const __nv_bfloat16* w, int kk) {
-  a[0] = lds32(w + kk * 16);
-  a[1] = lds32(w + 8 * LD + kk * 16);
-  a[2] = lds32(w + kk * 16 + 8);
-  a[3] = lds32(w + 8 * LD + kk * 16 + 8);
-}
-
 // Re-pack accumulator columns [16 kk, 16 kk + 16) as a bf16 A fragment.
 __device__ __forceinline__ void pack_a(uint32_t* a, float (*c)[4], int kk) {
   a[0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
   a[1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
   a[2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
   a[3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
-}
-
-// acc (16 x D) += a (16 x 16) * B, B the 16 rows [16 kk, 16 kk + 16) of a
-// shared tile read along its rows (ldmatrix.trans).
-template <int D, int LD>
-__device__ __forceinline__ void mma_rows(float (*acc)[4], const uint32_t* a,
-                                         const __nv_bfloat16* tile, int kk,
-                                         int lane) {
-  const __nv_bfloat16* r =
-      tile + (kk * 16 + (lane & 15)) * LD + (lane >> 4) * 8;
-#pragma unroll
-  for (int nd = 0; nd < D / 8; nd += 2) {
-    uint32_t bf[4];
-    ldmatrix_x4_trans(bf, r + nd * 8);
-    mma_bf16(acc[nd], a, bf[0], bf[1]);
-    mma_bf16(acc[nd + 1], a, bf[2], bf[3]);
-  }
 }
 
 // Write a warp's 16 x D accumulator rows (r0, r0 + 8) in bf16; `base` is

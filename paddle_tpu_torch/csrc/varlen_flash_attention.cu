@@ -18,8 +18,8 @@
 // last row, the window edge of its first row) and walks only that range in
 // 64-key tiles. The segment logic (live pairs, key ranges, tile tests, the
 // tile order) lives in varlen_seg.cuh, shared with the backward kernels
-// K8a/K8b; rows at or past cu_seqlens_q[-1] are padding, see nothing and
-// write zeros. Online softmax statistics stay in f32.
+// K8 (and K8a/K8b in f32); rows at or past cu_seqlens_q[-1] are padding,
+// see nothing and write zeros. Online softmax statistics stay in f32.
 // - bf16: FlashAttention-2 on the tensor cores, K4's pieces
 //   (flash_mma.cuh): `mma.sync` m16n8k16, bf16 operands, f32 accumulation;
 //   each of the 4 warps owns 16 query rows and keeps its Q fragments, the
@@ -34,7 +34,7 @@
 //   loads while this one computes and no byte of a dead tile is read: for a
 //   query tile inside one segment (the common case) from positions alone,
 //   else from the key indices written into a second pair of index arrays
-//   (varlen_seg.cuh Walk, shared with K8a/K8b). Tiles whose pairs are all
+//   (varlen_seg.cuh Walk, shared with K8). Tiles whose pairs are all
 //   live skip the mask (kFull). The kernel is built for padded widths 64
 //   and 128: a narrower head (any d % 16 == 0) is zero-filled to the
 //   padded width in shared memory, so shared memory and registers follow

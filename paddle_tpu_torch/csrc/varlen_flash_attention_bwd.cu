@@ -1,466 +1,572 @@
-// Varlen (packed) flash attention backward for Hopper: K8a (dq) and K8b
-// (dk, dv).
+// Varlen (packed) flash attention backward for Hopper: K8, one fused bf16
+// kernel for dq, dk and dv, and K8a (dq) / K8b (dk, dv) in f32.
 //
 // Replaces: paddle_tpu/ops/pallas/varlen_flash_attention.py, `_varlen_bwd`
-// -> `_bwd_dq_kernel` (K8a) and `_bwd_dkv_kernel` (K8b). Sequences are
-// packed back to back, q / do / dq (Tq, H, D) and k / v / dk / dv (Tk, HK,
-// D), with cu_seqlens prefix sums; lse and delta = rowsum(dO * O) are (H,
-// Tq) f32 (the forward K3 writes lse; the wrapper computes delta). Both
-// kernels recompute the probabilities from lse, P = exp(S * scale - lse):
+// -> `_bwd_dq_kernel` (its pl.pallas_call at :336) and `_bwd_dkv_kernel`
+// (:376). Sequences are packed back to back, q / do / dq (Tq, H, D) and k
+// / v / dk / dv (Tk, HK, D), with cu_seqlens prefix sums; lse and delta =
+// rowsum(dO * O) are (H, Tq) f32 (the forward K3 writes lse; the wrapper
+// computes delta). Both TPU kernels recompute the probabilities from lse,
+// P = exp(S * scale - lse):
 //   dS = P * (dO V^T - delta) * scale
 //   dQ = dS K            dK = dS^T Q            dV = P^T dO
 // with the TPU kernel's roundings: P is rounded to dO's dtype before dV,
 // dS to K's dtype before dQ and to Q's dtype before dK, every product
-// accumulates in f32, and dq, dk, dv are written in the input dtype. The
-// live pairs are K3's (varlen_seg.cuh): one segment, bottom-right causal
-// per segment, the per-segment window. A masked pair's probability is
-// taken to 0 by a select before it is used (a row with no live key has
-// lse ~ -1e30 and exp(s - lse) overflows there), so such rows and padding
-// rows past cu_seqlens_q[-1] get dq = 0, and a key no query sees gets dk =
-// dv = 0.
+// accumulates in f32, and dq, dk, dv are written in the input dtype; a
+// GQA group's dk / dv is summed in f32 before its one rounding (the TPU
+// kernel rounds each query head's, then sums). The live pairs are K3's
+// (varlen_seg.cuh): one segment, bottom-right causal per segment, the
+// per-segment window. A masked pair's probability is taken to 0 by a
+// select before it is used (a row with no live key has lse ~ -1e30 and
+// exp(s - lse) overflows there), so such rows and padding rows past
+// cu_seqlens_q[-1] get dq = 0, and a key no query sees gets dk = dv = 0.
 //
-// Bound on the H100: operations at training shapes. Per live pair K8a does
-// 3 products of D (S, dP, dQ: 6 * D flops) and K8b 4 (S, dP, dV, dK: 8 * D
-// flops). At the packed 941M configuration (T = 4,096 in 8 segments of
-// 1,600 .. 76 tokens, 32 heads, D = 64, causal) that is 61.99 M live pairs
-// over 32 heads: K8a ~23.8 GFLOP (~0.024 ms at 989 TFLOP/s, about the time
-// its ~85 MB of q, k, v, do, dq, lse and delta take at 3.35 TB/s) and K8b
-// ~31.7 GFLOP (~0.032 ms).
+// Bound on the H100: operations at training shapes. The TPU's two kernels
+// each recompute S = Q K^T and dP = dO V^T: 14 * D flops per live pair. K8
+// computes them once, 10 * D flops per live pair (S^T, dP^T, dV, dK, dQ).
+// At the packed 941M configuration (T = 4,096 in 8 segments of 1,600 ..
+// 76 tokens, H = HK = 32, D = 64, causal: 61.99 M live pairs) that is 39.7
+// GFLOP, 0.040 ms at 989 TFLOP/s, above the ~0.035 ms its ~118 MB of q,
+// do, dq, k, v, dk, dv, lse and delta take at 3.35 TB/s.
 //
-// Design: K7's (flash_attention_bwd.cu) with the segment masks in place of
-// the dense band. The TPU grid carries dq (or dk/dv) in scratch across its
-// sequential key (or query) axis; here each CTA owns one 64-row tile of the
-// output and loops over the tiles of the other side inside the block.
-// - K8a: grid (H, query tiles). Q and dO stay in shared memory. The CTA
-//   walks only the key range its rows can see (varlen_seg.cuh key_range)
-//   and, per 64-key tile, first tests whether any pair is live (from
-//   positions or indices, varlen_seg.cuh Walk), skipping a dead tile
-//   before loading any K/V byte; a tile whose pairs are all live skips the
-//   per-pair mask.
-// - K8b: grid (HK, key tiles). One CTA serves a KV head for all G query
-//   heads of its group: it walks the query range that sees its keys
-//   (varlen_seg.cuh query_range, the transpose of key_range) as a sequence
-//   of (live query tile, head) pairs, the heads fastest, summing dk and dv
-//   in f32 registers: no K/V repeated per query head (the TPU kernel
-//   materialises `jnp.repeat`ed K/V and sums the group afterwards) and no
-//   atomics, so the result is deterministic. Q, dO, lse and delta stream
-//   through a two-stage cp.async ring: the next pair's copy is in flight
-//   while this pair's four products run. The test of which query tile
-//   comes next runs ahead of its copy, so a dead tile's Q / dO bytes are
-//   never read: for a key tile inside one segment (the common case) from
-//   positions alone, else from the query indices written into a second set
-//   of index arrays (varlen_seg.cuh Walk, shared with K3 and K8a). The
-//   B operands of K Q^T and V dO^T come from ldmatrix.x4, those of P^T dO
-//   and dS^T Q from ldmatrix.trans. Each pair runs in two halves of 32
-//   queries, so only one half's score and dP accumulators are live (three
-//   CTAs per SM at D = 64); each warp's K and V A fragments stay in
-//   registers for the whole walk, and P's exp2 is one MUFU instruction
-//   (exp2_ftz).
-// - Heaviest tiles first: a one-CTA kernel (varlen_seg.cuh) ranks the
-//   tiles by the length of the range each walks (longest first) before the
-//   main launch, and blockIdx.y walks that order with the heads fastest, so
-//   the longest tiles of long segments do not trail at the end of the grid.
-// - bf16: tensor cores through `mma.sync` m16n8k16 in K7's layout and with
-//   flash_mma.cuh's fragment helpers: each of the 4 warps owns 16 output
-//   rows; the score and dP accumulators (16 x 64 per warp, 16 x 32 per
-//   half in K8b) become dS / P in place and are re-packed as the A operand
-//   of the next product.
-// - f32: CUDA-core FMA in the tile shape of flash_f32.cuh (256 threads,
-//   each a 4 x 4 micro-tile of scores and a 4 x D/16 slice of the output).
-// K8a keeps one stage of shared K / V tiles, loaded after each tile's
-// index test.
+// Design of the bf16 kernel K8 (`varlen_bwd_fused_kernel`): K7's
+// (flash_attention_bwd.cu, bwd_fused.cuh) with the segment masks in place
+// of the dense band.
+// - One CTA per (KV head, key tile), one warpgroup per 64 keys: 128 keys
+//   on two warpgroups at D = 128; 64 keys on one at D = 64, where two CTAs
+//   share an SM and each hides the other's barriers, dq waits and
+//   prologue (a 128-key CTA there runs alone and spends a fifth of its
+//   time before its first product). K and V stay in shared memory for the
+//   whole walk. The CTA walks the 64-row query tiles that hold a live pair
+//   with any of its 64-key halves, highest first, and for each the G
+//   query heads of its group, summing dk and dv in f32 registers. The walk is found before the first copy,
+//   a chunk of up to 256 query tiles at a time, one tile a thread: its
+//   state against each half (varlen_seg.cuh's 64-row `Walk` inside one
+//   segment, `runs_live` across segments; a dead tile's Q / dO bytes are
+//   never read) and its dq order, packed in order into a shared list, so
+//   no segment search sits between two steps. A pair's mask is one
+//   interval test: each key knows the queries that see it
+//   (`key_queries`), and a tile whose pairs are all live skips it. A half
+//   with no live pair in a tile still runs its products (all its P are
+//   0): guarding a product would make ptxas serialize every wgmma.
+// - Q and dO come by TMA (a (1, Tq, H, D) tensor map; rows past Tq read
+//   as zeros) into a three-stage ring from one thread, lse and delta by
+//   cp.async; the products are K7's on wgmma: S^T = K Q^T and dP^T = V
+//   dO^T (shared A and B, each its own commit group), dV += P^T dO and dK
+//   += dS^T Q (register A re-packed from the accumulators, exp2 in one MUFU
+//   instruction), dS^T once to shared memory and dQ_partial = dS K.
+// - dq by ordered bulk reduce-adds (bwd_fused.cuh) into an f32 workspace
+//   (H, ceil(Tq / 64), 64, D + 4) with one counter per (query head, query
+//   tile); the order is ops/varlen_flash_attention.py `VarlenBwdSchedule`,
+//   which states it in Python and which the tests rehearse. Each CTA
+//   claims its item from a ticket counter at its start, ticket = j * HK +
+//   kv_head: key tiles ascending, KV heads interleaved. A query tile takes
+//   its adds from its live contributors only (the key tiles with a
+//   live pair with its rows; in a packed batch a key tile inside its key
+//   range may be dead), in ascending key-tile order: the counter holds 1 +
+//   the key tile of the last add landed, and a contributor waits for its
+//   predecessor (the nearest live key tile below it, found by `runs_live`
+//   inside the tile's key_range_of), whose ticket is earlier. Every
+//   claimed ticket belongs to a running CTA and the earliest unfinished one
+//   waits on nobody, so the waits cannot deadlock; each wait traps after a
+//   bound instead of hanging the card. A query tile with no contributor
+//   (padding rows, rows that see no key) gets dq = 0 from the CTA whose
+//   ticket is its index (modulo the grid), at that CTA's end.
+// The f32 kernels K8a / K8b (the parity route) are CUDA-core FMA in the
+// tile shape of flash_f32.cuh (256 threads, each a 4 x 4 micro-tile of
+// scores and a 4 x D/16 slice of the output): K8a a CTA per 64-row query
+// tile walking its key range, K8b a CTA per 64-key tile walking its query
+// range over the G heads of its group, both in the heaviest-first order of
+// varlen_seg.cuh's tile-order kernel, dead tiles skipped by their indices.
+#include "bwd_fused.cuh"
 #include "common.cuh"
 #include "flash_f32.cuh"
 #include "flash_mma.cuh"
+#include "tma.cuh"
 #include "varlen_seg.cuh"
+#include "wgmma.cuh"
 
 using namespace ptt;
 using namespace ptt::varlen;
+using namespace ptt::bwd;
 
 namespace {
 
 namespace fl = ptt::flash;
 using bf16 = __nv_bfloat16;
-using fl::a_frag;
-using fl::b_frags;
 using fl::cp_async4;
 using fl::cp_async_commit;
 using fl::cp_async_wait;
 using fl::exp2_ftz;
 using fl::kLog2e;
-using fl::kThreadsTC;
-using fl::lds32;
-using fl::load_tile;
-using fl::mma_bf16;
-using fl::mma_rows;
 using fl::pack_a;
 using fl::set_smem;
 using fl::store_rows;
 
-static_assert(fl::kBQ == kTile && fl::kBK == kTile &&
-                  flash_f32::kBQ == kTile && flash_f32::kBK == kTile,
+static_assert(fl::kBQ == kTile && flash_f32::kBQ == kTile &&
+                  flash_f32::kBK == kTile,
               "K8 shares the 64-row tiles of flash_mma.cuh, flash_f32.cuh "
               "and varlen_seg.cuh");
 
-// ------------------------------------------------------------ K8a bf16
-template <int D>
-constexpr size_t dq_smem_bytes() {
-  return sizeof(bf16) * 4ull * kTile * (D + 8) + sizeof(int) * 4 * kTile;
-}
+// ---------------------------------------------------------------- K8 bf16
+// The segment searches of a CTA read cu_seqlens from shared memory, where a
+// batch has at most kCuSmem - 1 segments (else from global memory): on an
+// H100 the shared copy takes 2-8% off K8 at chip_smoke.py's shapes
+// (scripts/torch_ab_varlen_bwd.py, both forms alternated on one card).
+constexpr int kCuSmem = 1024;
 
+// The CTA shape of K8 at head width D: BK keys on BK / 64 warpgroups, 128
+// keys on two at D = 128, 64 keys on one at D = 64, where two CTAs fit an
+// SM.
 template <int D>
-__global__ void __launch_bounds__(kThreadsTC, 2)
-    varlen_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
-                              const bf16* __restrict__ k,
-                              const bf16* __restrict__ v,
-                              const bf16* __restrict__ dout,
-                              const float* __restrict__ lse,
-                              const float* __restrict__ delta,
-                              const int* __restrict__ cu_q,
-                              const int* __restrict__ cu_k,
-                              const int* __restrict__ order,
-                              bf16* __restrict__ dq, Seg s) {
-  constexpr int LD = D + 8;
-  constexpr int kSteps = D / 16;
-  constexpr int kNtS = kTile / 8;
+struct Shape {
+  static constexpr int BK = D == 64 ? 64 : 128;  // keys per CTA
+  static constexpr int W = BK / kTile;          // warpgroups
+  static constexpr int kThreads = 128 * W;
+  static constexpr int kWarps = 4 * W;
+  static constexpr int NC = D / W;  // dq columns of a warpgroup
+};
+
+// Byte offsets of K8's shared memory at head width D: the bf16 tiles are
+// blocked (wgmma.cuh; K, V, dS^T) or TMA boxes with the 128-byte swizzle
+// (Q, dO), without padding.
+template <int D>
+struct FusedSmem {
+  static constexpr int BK = Shape<D>::BK;
+  static constexpr size_t kv_bytes = sizeof(bf16) * BK * D;
+  static constexpr size_t q_bytes = sizeof(bf16) * kTile * D;
+  static constexpr size_t k = 0;
+  static constexpr size_t v = k + kv_bytes;
+  static constexpr size_t q = v + kv_bytes;          // [3 stages]
+  static constexpr size_t dout = q + 3 * q_bytes;    // [3 stages]
+  static constexpr size_t dst = dout + 3 * q_bytes;  // dS^T [BK][kTile]
+  static constexpr size_t stage = dst + sizeof(bf16) * BK * kTile;
+  static constexpr size_t lse = stage + sizeof(float) * kTile * (D + 4);
+  static constexpr size_t delta = lse + sizeof(float) * 3 * kTile;
+  // the walk: a chunk of up to one live query tile a thread (tile,
+  // previous contributor, states and last flag)
+  static constexpr size_t walk = delta + sizeof(float) * 3 * kTile;
+  // cu_seqlens_q and _k of up to kCuSmem entries each
+  static constexpr size_t cu = walk + sizeof(int) * 3 * Shape<D>::kThreads;
+  static constexpr size_t bars = cu + sizeof(int) * 2 * kCuSmem;
+  // and 1 KB of room to align the base to the 128-byte swizzle's atoms
+  static constexpr size_t bytes = bars + sizeof(uint64_t) * 3 + 1024;
+  static_assert(q % 1024 == 0 && q_bytes % 1024 == 0 && stage % 16 == 0 &&
+                    bars % 8 == 0,
+                "TMA boxes 1024-byte aligned, bulk rows 16-byte aligned");
+};
+
+// One step of a CTA's walk: query tile i (-1 once the walk is over), head
+// g of the KV head's group, the tile's state against each 64-key half,
+// and the tile's dq order: the key tile of the previous contributor (-1:
+// this one is the first) and whether this one is the last.
+struct Step {
+  int i, g, st0, st1, prev, last;
+};
+
+// K8 on Hopper's wgmma; the products and the dq reduction are K7's, the
+// walk and the order the header's.
+template <int D>
+__global__ void __launch_bounds__(Shape<D>::kThreads, 3 - Shape<D>::W)
+    varlen_bwd_fused_kernel(const __grid_constant__ CUtensorMap qmap,
+                            const __grid_constant__ CUtensorMap dmap,
+                            const bf16* __restrict__ k,
+                            const bf16* __restrict__ v,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            const int* __restrict__ cu_q_g,
+                            const int* __restrict__ cu_k_g,
+                            bf16* __restrict__ dq, bf16* __restrict__ dk,
+                            bf16* __restrict__ dv, float* __restrict__ ws,
+                            int* __restrict__ sync, Seg s) {
+  using M = FusedSmem<D>;
+  constexpr int BK = Shape<D>::BK;
+  constexpr int W = Shape<D>::W;
+  constexpr int kThreads = Shape<D>::kThreads;
+  constexpr int NC = Shape<D>::NC;
+  constexpr int kRow8 = 16 * D;  // bytes between 8-row groups of a tile
+  constexpr int kNtS = kTile / 8;  // score n-tiles (8 queries)
   constexpr int kNtO = D / 8;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* dos = qs + kTile * LD;
-  bf16* ks = dos + kTile * LD;
-  bf16* vs = ks + kTile * LD;
-  int* qseg = reinterpret_cast<int*>(vs + kTile * LD);
-  int* qrel = qseg + kTile;
-  int* kseg = qrel + kTile;
-  int* krel = kseg + kTile;
-  __shared__ int krange[2];
+  constexpr int kNtQ = NC / 8;  // dq n-tiles of a warpgroup
+  extern __shared__ __align__(128) unsigned char smem_dyn[];
+  unsigned char* smem_raw =
+      smem_dyn + ((1024 - (smem_u32(smem_dyn) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem_raw + M::bars);
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw + M::k);
+  bf16* vs = reinterpret_cast<bf16*>(smem_raw + M::v);
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw + M::q);
+  bf16* dos = reinterpret_cast<bf16*>(smem_raw + M::dout);
+  char* dst = reinterpret_cast<char*>(smem_raw + M::dst);
+  float* stg = reinterpret_cast<float*>(smem_raw + M::stage);
+  float* ls = reinterpret_cast<float*>(smem_raw + M::lse);
+  float* dls = reinterpret_cast<float*>(smem_raw + M::delta);
+  int* wl_i = reinterpret_cast<int*>(smem_raw + M::walk);
+  int* wl_prev = wl_i + kThreads;
+  int* wl_flags = wl_prev + kThreads;
+  __shared__ int ticket;
+  __shared__ Walk walks[W];  // each warpgroup's walk
+  __shared__ int wl_warp[Shape<D>::kWarps];
 
-  const int head = blockIdx.x;
-  const int q0 = order[blockIdx.y] * kTile;
-  const int kvh = head / (s.h / s.hk);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int g = lane >> 2;
-  const int tig = lane & 3;
-  const size_t q_stride = static_cast<size_t>(s.h) * D;
-  const size_t kv_stride = static_cast<size_t>(s.hk) * D;
-  const bf16* kb = k + static_cast<size_t>(kvh) * D;
-  const bf16* vb = v + static_cast<size_t>(kvh) * D;
-
-  query_rows(cu_q, cu_k, s.nseg, s.tq, q0, qseg, qrel);
-  load_tile<D, LD>(qs, q + static_cast<size_t>(head) * D, q_stride, q0,
-                   s.tq);
-  load_tile<D, LD>(dos, dout + static_cast<size_t>(head) * D, q_stride, q0,
-                   s.tq);
-  cp_async_commit();
-  __syncthreads();
-  if (threadIdx.x == 0)
-    key_range(cu_k, s.tq, s.tk, q0, qseg, qrel, s.causal, s.window, krange);
-  __syncthreads();
-  const int lo = krange[0];
-  const int hi = krange[1];
-
-  const int lr = warp * 16 + g;  // the thread's rows lr, lr + 8 of the tile
-  int rseg[2], rrel[2];
-  float lse2[2], dl[2];
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int r = lr + half * 8;
-    const size_t at = static_cast<size_t>(head) * s.tq + q0 + r;
-    const bool ok = q0 + r < s.tq;
-    rseg[half] = qseg[r];
-    rrel[half] = qrel[r];
-    lse2[half] = ok ? lse[at] * kLog2e : 0.f;
-    dl[half] = ok ? delta[at] : 0.f;
+  // the work item: ticket = j * hk + kv_head; cu_seqlens into shared memory
+  if (threadIdx.x == 0) {
+    ticket = atomicAdd(sync, 1);
+    for (int i = 0; i < 3; ++i) mbar_init(full + i, 1);
+    mbar_fence_init();
   }
-  float acc[kNtO][4];
-#pragma unroll
-  for (int i = 0; i < kNtO; ++i)
-    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  const float scale_log2 = s.scale * kLog2e;
-  const bf16* qw = qs + lr * LD + tig * 2;
-  const bf16* dw = dos + lr * LD + tig * 2;
-  const Walk walk = key_walk(cu_k, qseg, qrel, hi, s.causal, s.window);
-
-  // dead tiles are passed over before any K/V byte is read
-  int k0 = lo;
-  for (int state; (state = next_key_tile(cu_k, s.nseg, walk, &k0, hi, qseg,
-                                         qrel, kseg, krel)) != kDead;
-       k0 += kTile) {
-    load_tile<D, LD>(ks, kb, kv_stride, k0, hi);
-    load_tile<D, LD>(vs, vb, kv_stride, k0, hi);
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-
-    // S = Q K^T and dP = dO V^T for the warp's 16 rows x 64 keys
-    float sc[kNtS][4], dp[kNtS][4];
-#pragma unroll
-    for (int nt = 0; nt < kNtS; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sc[nt][e] = dp[nt][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kSteps; ++kk) {
-      uint32_t aq[4], ad[4];
-      a_frag<LD>(aq, qw, kk);
-      a_frag<LD>(ad, dw, kk);
-#pragma unroll
-      for (int nt = 0; nt < kNtS; ++nt) {
-        const bf16* kr = ks + (nt * 8 + g) * LD + tig * 2 + kk * 16;
-        const bf16* vr = vs + (nt * 8 + g) * LD + tig * 2 + kk * 16;
-        mma_bf16(sc[nt], aq, lds32(kr), lds32(kr + 8));
-        mma_bf16(dp[nt], ad, lds32(vr), lds32(vr + 8));
-      }
+  const bool cu_shared = s.nseg < kCuSmem;
+  int* cu_s = reinterpret_cast<int*>(smem_raw + M::cu);
+  if (cu_shared)
+    for (int i = threadIdx.x; i <= s.nseg; i += kThreads) {
+      cu_s[i] = cu_q_g[i];
+      cu_s[kCuSmem + i] = cu_k_g[i];
     }
-
-    // P from lse (dead pairs 0 by a select), then dS = P (dP - delta)
-    // scale in sc
-#pragma unroll
-    for (int nt = 0; nt < kNtS; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int half = e >> 1;
-        const int c = nt * 8 + tig * 2 + (e & 1);
-        const bool live = state == kFull ||
-                          walk.live(rseg[half], rrel[half], kseg, krel, k0, c);
-        const float p =
-            live ? exp2f(fmaf(sc[nt][e], scale_log2, -lse2[half])) : 0.f;
-        sc[nt][e] = p * (dp[nt][e] - dl[half]) * s.scale;
-      }
-
-    // dQ += dS K (dS rounded to bf16)
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      uint32_t a[4];
-      pack_a(a, sc, kk);
-      mma_rows<D, LD>(acc, a, ks, kk, lane);
-    }
-    __syncthreads();  // the next tile overwrites K, V and the key indices
-  }
-  cp_async_wait<0>();
-  store_rows<D>(dq + static_cast<size_t>(head) * D, q_stride, acc, q0 + lr,
-                s.tq, tig);
-}
-
-// ------------------------------------------------------------ K8b bf16
-// Shared memory: the K and V tiles, two stages of Q and dO tiles and of
-// their lse and delta rows, two sets of query indices, the key indices.
-template <int D>
-constexpr size_t dkv_smem_bytes() {
-  return sizeof(bf16) * 6ull * kTile * (D + 8) +
-         sizeof(float) * 4 * kTile + sizeof(int) * 6 * kTile;
-}
-
-// Q, dO, lse and delta of query tile q0, query head `head`, into one stage
-// (rows at or past tq zero-filled; one cp.async group with the caller's
-// commit).
-template <int D>
-__device__ __forceinline__ void load_query_stage(
-    bf16* qs, bf16* dos, float* ls, float* dls, const bf16* __restrict__ q,
-    const bf16* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, int q0, int head, const Seg& s) {
-  constexpr int LD = D + 8;
-  const size_t q_stride = static_cast<size_t>(s.h) * D;
-  load_tile<D, LD>(qs, q + static_cast<size_t>(head) * D, q_stride, q0, s.tq);
-  load_tile<D, LD>(dos, dout + static_cast<size_t>(head) * D, q_stride, q0,
-                   s.tq);
-  for (int i = threadIdx.x; i < kTile; i += kThreadsTC) {
-    const bool ok = q0 + i < s.tq;
-    const size_t at = ok ? static_cast<size_t>(head) * s.tq + q0 + i : 0;
-    cp_async4(ls + i, lse + at, ok);
-    cp_async4(dls + i, delta + at, ok);
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreadsTC, D == 64 ? 3 : 2)
-    varlen_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
-                               const bf16* __restrict__ k,
-                               const bf16* __restrict__ v,
-                               const bf16* __restrict__ dout,
-                               const float* __restrict__ lse,
-                               const float* __restrict__ delta,
-                               const int* __restrict__ cu_q,
-                               const int* __restrict__ cu_k,
-                               const int* __restrict__ order,
-                               bf16* __restrict__ dk, bf16* __restrict__ dv,
-                               Seg s) {
-  constexpr int LD = D + 8;
-  constexpr int kSteps = D / 16;
-  constexpr int kNtH = kTile / 16;  // score n-tiles (queries) per half
-  constexpr int kNtO = D / 8;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* vs = ks + kTile * LD;
-  bf16* qs = vs + kTile * LD;       // [2][kTile][LD]
-  bf16* dos = qs + 2 * kTile * LD;  // [2][kTile][LD]
-  float* ls = reinterpret_cast<float*>(dos + 2 * kTile * LD);  // [2][kTile]
-  float* dls = ls + 2 * kTile;                                 // [2][kTile]
-  int* qseg = reinterpret_cast<int*>(dls + 2 * kTile);         // [2][kTile]
-  int* qrel = qseg + 2 * kTile;                                // [2][kTile]
-  int* kseg = qrel + 2 * kTile;
-  int* krel = kseg + kTile;
-  __shared__ int qrange[2];
-
-  const int kvh = blockIdx.x;
-  const int k0 = order[blockIdx.y] * kTile;
+  const int* cu_q = cu_shared ? cu_s : cu_q_g;
+  const int* cu_k = cu_shared ? cu_s + kCuSmem : cu_k_g;
+  __syncthreads();
+  const int j = ticket / s.hk;
+  const int kvh = ticket % s.hk;
+  const int k0 = j * BK;
   const int grp = s.h / s.hk;
+  const int nq = (s.tq + kTile - 1) / kTile;
+  // rows at or past cu_q[nseg] and keys at or past cu_k[nseg] are padding
+  const int qend = min(s.tq, cu_q[s.nseg]);
+  const int kend = min(s.tk, cu_k[s.nseg]);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  const int wgi = warp >> 2;  // the warpgroup: keys 64 wgi .. 64 wgi + 63
   const int g = lane >> 2;
   const int tig = lane & 3;
   const size_t kv_stride = static_cast<size_t>(s.hk) * D;
   const size_t kv_off = static_cast<size_t>(kvh) * D;
-  // keys at or past cu_k[nseg] are padding: no query sees them
-  const int kend = min(s.tk, cu_k[s.nseg]);
+  const size_t q_stride = static_cast<size_t>(s.h) * D;
 
-  key_rows(cu_k, s.nseg, k0, kend, kseg, krel);
-  load_tile<D, LD>(ks, k + kv_off, kv_stride, k0, kend);
-  load_tile<D, LD>(vs, v + kv_off, kv_stride, k0, kend);
-  __syncthreads();
-  if (threadIdx.x == 0)
-    query_range(cu_q, cu_k, kseg, krel, s.causal, s.window, qrange);
-  __syncthreads();
-  const int hi = qrange[1];
+  load_rows_blocked<D, BK, kThreads>(ks, k + kv_off, kv_stride, k0, kend);
+  load_rows_blocked<D, BK, kThreads>(vs, v + kv_off, kv_stride, k0, kend);
+  // each warpgroup's walk (into shared memory, read after the first
+  // fill's barrier) and query range (every thread computes the same); the
+  // CTA walks the query tiles of any of the ranges, highest first
+  int lo = s.tq, hi = 0;
+  for (int w = 0; w < W; ++w) {
+    int rlo, rhi;
+    const Walk wk = query_walk(cu_q, cu_k, s.nseg, s.tq, kend,
+                               k0 + w * kTile, s.causal, s.window, &rlo,
+                               &rhi);
+    if (threadIdx.x == w) walks[w] = wk;
+    if (rlo < rhi) {
+      lo = min(lo, rlo);
+      hi = max(hi, rhi);
+    }
+  }
+  hi = min(hi, qend);
+  const int ilo = lo / kTile;
 
-  // The CTA walks the pairs (live query tile, head of the group), the heads
-  // fastest; the copy of the next pair's Q, dO, lse and delta is in flight
-  // while this pair's four products run (two stages), and the next live
-  // tile's index test (into the other set of query indices) runs ahead of
-  // its copy, so no Q / dO byte of a dead tile is read.
-  const Walk walk =
-      query_walk(cu_q, cu_k, s.tq, kseg, krel, s.causal, s.window);
-  // from the query tile at *qp on, the first live one: its state (kDead
-  // when none is left); tiles tested by index write their query indices
-  // into set `buf`
-  auto next_tile = [&](int* qp, int buf) -> int {
-    return next_query_tile(cu_q, cu_k, s.nseg, s.tq, walk, qp, hi,
-                           qseg + buf * kTile, qrel + buf * kTile, kseg,
-                           krel);
+  // the state of the query tile at q0 against half w's keys
+  auto half_state = [&](int w, int q0) -> int {
+    if (walks[w].one_seg) return walks[w].state(q0);
+    const int kw = k0 + w * kTile;
+    return runs_live(cu_q, cu_k, s.nseg, q0, min(q0 + kTile, qend), kw,
+                     min(kw + kTile, kend), s.causal, s.window)
+               ? kPartial
+               : kDead;
   };
-  int q0 = qrange[0];
-  int state = next_tile(&q0, 0);
-  if (state != kDead)
-    load_query_stage<D>(qs, dos, ls, dls, q, dout, lse, delta, q0,
-                        kvh * grp, s);
+  // the dq order of live query tile i: its live contributors are the key
+  // tiles inside its key range with a live pair with its rows; *prev the
+  // one below this CTA's (-1: none), *last none above it
+  auto order = [&](int i, int* prev, int* last) {
+    const int q0 = i * kTile;
+    const int q1 = min(q0 + kTile, qend);
+    int sf, rf, sl, rl, klo, khi;
+    query_row(cu_q, cu_k, s.nseg, s.tq, q0, &sf, &rf);
+    query_row(cu_q, cu_k, s.nseg, s.tq, q1 - 1, &sl, &rl);
+    key_range_of(cu_k, s.tk, sf, rf, sl, rl, s.causal, s.window, &klo, &khi);
+    khi = min(khi, kend);
+    auto live = [&](int jj) {
+      return runs_live(cu_q, cu_k, s.nseg, q0, q1, jj * BK,
+                       min(jj * BK + BK, kend), s.causal, s.window);
+    };
+    *prev = -1;
+    for (int jj = j - 1; jj >= klo / BK; --jj)
+      if (live(jj)) {
+        *prev = jj;
+        break;
+      }
+    *last = 1;
+    for (int jj = j + 1; jj * BK < khi; ++jj)
+      if (live(jj)) {
+        *last = 0;
+        break;
+      }
+  };
+  // The walk in chunks: each thread tests one query tile below wl_top
+  // (highest first) and finds the dq order of a live one, all in
+  // parallel, and the live tiles are packed in order into the shared list
+  // (called by every thread; the list is read only between two fills).
+  int wl_top = hi > lo ? (hi - 1) / kTile : ilo - 1;
+  int wl_pos = 0, wl_len = 0;
+  auto fill = [&]() {
+    __syncthreads();  // every thread is done with the last chunk
+    const int i = wl_top - static_cast<int>(threadIdx.x);
+    int st0 = kDead, st1 = kDead, prev = -1, last = 0;
+    if (i >= ilo) {
+      st0 = half_state(0, i * kTile);
+      if constexpr (W > 1) st1 = half_state(1, i * kTile);
+      if (st0 != kDead || st1 != kDead) order(i, &prev, &last);
+    }
+    const bool live = st0 != kDead || st1 != kDead;
+    const unsigned ballot = __ballot_sync(0xffffffffu, live);
+    if (lane == 0) wl_warp[warp] = __popc(ballot);
+    __syncthreads();
+    int at = __popc(ballot & ((1u << lane) - 1)), total = 0;
+    for (int w = 0; w < Shape<D>::kWarps; ++w) {
+      at += w < warp ? wl_warp[w] : 0;
+      total += wl_warp[w];
+    }
+    if (live) {
+      wl_i[at] = i;
+      wl_prev[at] = prev;
+      wl_flags[at] = st0 | st1 << 2 | last << 4;
+    }
+    __syncthreads();
+    wl_top -= kThreads;
+    wl_pos = 0;
+    wl_len = total;
+  };
+  // the step after c: the next head of the group, else the next live
+  // query tile of the walk (every thread computes the same)
+  auto advance = [&](Step c) -> Step {
+    if (c.i < 0 || ++c.g < grp) return c;
+    c.g = 0;
+    while (wl_pos == wl_len) {
+      if (wl_top < ilo) {
+        c.i = -1;
+        return c;
+      }
+      fill();
+    }
+    c.i = wl_i[wl_pos];
+    c.prev = wl_prev[wl_pos];
+    const int f = wl_flags[wl_pos++];
+    c.st0 = f & 3;
+    c.st1 = (f >> 2) & 3;
+    c.last = f >> 4;
+    return c;
+  };
+  // Q and dO of step c by TMA (thread 0), lse and delta into stage st
+  auto load_step = [&](const Step& c, int st) {
+    const int q0 = c.i * kTile;
+    const int head = kvh * grp + c.g;
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(full + st, 2 * sizeof(bf16) * kTile * D);
+#pragma unroll
+      for (int cc = 0; cc < D / 64; ++cc) {
+        tma_box(qs + st * kTile * D + cc * 64 * kTile, &qmap, cc * 64, head,
+                q0, 0, full + st);
+        tma_box(dos + st * kTile * D + cc * 64 * kTile, &dmap, cc * 64, head,
+                q0, 0, full + st);
+      }
+    }
+    const size_t row0 = static_cast<size_t>(head) * s.tq;
+    for (int r = threadIdx.x; r < kTile; r += kThreads) {
+      const bool ok = q0 + r < s.tq;
+      cp_async4(ls + st * kTile + r, lse + (ok ? row0 + q0 + r : 0), ok);
+      cp_async4(dls + st * kTile + r, delta + (ok ? row0 + q0 + r : 0), ok);
+    }
+  };
+
+  Step cur{0, grp - 1, 0, 0, -1, 0};
+  cur = advance(cur);
+  Step nx1 = advance(cur);
+  Step nx2 = advance(nx1);
+  if (cur.i >= 0) load_step(cur, 0);
+  cp_async_commit();
+  if (nx1.i >= 0) load_step(nx1, 1);
   cp_async_commit();
 
-  const int lk = warp * 16 + g;  // the thread's keys lk, lk + 8 of the tile
-  const int kseg_r[2] = {kseg[lk], kseg[lk + 8]};
-  const int krel_r[2] = {krel[lk], krel[lk + 8]};
   float adk[kNtO][4], adv[kNtO][4];
 #pragma unroll
   for (int i = 0; i < kNtO; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) adk[i][e] = adv[i][e] = 0.f;
   const float scale_log2 = s.scale * kLog2e;
-  const bf16* kw = ks + lk * LD + tig * 2;
-  const bf16* vw = vs + lk * LD + tig * 2;
-  int j = 0, stage = 0, buf = 0;
-  // the warp's K and V A fragments, constant over the CTA's walk
-  uint32_t akr[kSteps][4], avr[kSteps][4];
-  bool first = true;
+  const int lk = warp * 16 + g;    // the thread's keys lk, lk + 8
+  const int mq = (warp & 3) * 16;  // the warp's dq rows
+  const int nc = wgi * NC;         // the warpgroup's dq columns
+  // the queries [seen_lo, seen_hi) that see each of the thread's keys: a
+  // pair's mask is one interval test on the query's position
+  int seen_lo[2], seen_hi[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half)
+    key_queries(cu_q, cu_k, s.nseg, s.tq, kend, k0 + lk + half * 8,
+                s.causal, s.window, seen_lo + half, seen_hi + half);
+  // the warpgroup's K and V rows (A of S^T and dP^T), and K's columns of
+  // its dq half (B of dQ)
+  const uint32_t ka = smem_u32(ks) + wgi * 8 * kRow8;
+  const uint32_t va = smem_u32(vs) + wgi * 8 * kRow8;
+  const uint32_t kb = smem_u32(ks) + wgi * (NC / 8) * 128;
+  const uint32_t sa = smem_u32(dst);
+  int pending = 0, pending_val = 0;
 
-  while (state != kDead) {
-    int nq0 = q0, nj = j + 1, nstate = state, nbuf = buf;
-    if (nj == grp) {
-      nj = 0;
-      nq0 = q0 + kTile;
-      nbuf = buf ^ 1;
-      nstate = next_tile(&nq0, nbuf);
-    }
-    const int nst = stage ^ 1;
-    if (nstate != kDead) {
-      load_query_stage<D>(qs + nst * kTile * LD, dos + nst * kTile * LD,
-                          ls + nst * kTile, dls + nst * kTile, q, dout, lse,
-                          delta, nq0, kvh * grp + nj, s);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
+  for (int t = 0; cur.i >= 0; ++t) {
+    const int st = t % 3;
+    const int q0 = cur.i * kTile;
+    const int head = kvh * grp + cur.g;
+    cp_async_wait<1>();    // lse, delta (and K, V) of this step
+    fence_async_shared();  // K and V are read by wgmma (async proxy)
+    // this stage has landed, and both warpgroups are done with the last
+    // step (their wgmma reads of its stage, of dS^T and of the staging):
+    // only now may step t + 2's copy overwrite that stage
     __syncthreads();
-    if (first) {
+    if (nx2.i >= 0) load_step(nx2, (t + 2) % 3);
+    cp_async_commit();  // one group a step, empty or not
+    mbar_wait(full + st, (t / 3) & 1);  // this step's Q and dO boxes
+    const uint32_t qa = smem_u32(qs + st * kTile * D);
+    const uint32_t da = smem_u32(dos + st * kTile * D);
+    const float* lt = ls + st * kTile;
+    const float* dlt = dls + st * kTile;
+    // the thread's keys see the tile's columns [c_lo[h], c_lo[h] + c_n[h])
+    // (all 64 when every pair of the half is live)
+    const bool all_live = (wgi ? cur.st1 : cur.st0) == kFull;
+    unsigned c_lo[2], c_n[2];
 #pragma unroll
-      for (int kk = 0; kk < kSteps; ++kk) {
-        a_frag<LD>(akr[kk], kw, kk);
-        a_frag<LD>(avr[kk], vw, kk);
-      }
-      first = false;
+    for (int h = 0; h < 2; ++h) {
+      c_lo[h] = all_live ? 0u : static_cast<unsigned>(seen_lo[h] - q0);
+      c_n[h] = all_live ? kTile
+                        : static_cast<unsigned>(seen_hi[h] - seen_lo[h]);
     }
-    const bf16* qt = qs + stage * kTile * LD;
-    const bf16* dt = dos + stage * kTile * LD;
-    const float* lt = ls + stage * kTile;
-    const float* dlt = dls + stage * kTile;
-    const int* qsg = qseg + buf * kTile;
-    const int* qrl = qrel + buf * kTile;
 
-    // the tile's 64 queries in two halves of 32, so the score and dP
-    // accumulators of only one half are live at a time
+    // -lse log2(e) and delta of the thread's 16 query columns
+    float nl[kNtS][2], dl[kNtS][2];
 #pragma unroll
-    for (int hq = 0; hq < 2; ++hq) {
-      // S^T = K Q^T and dP^T = V dO^T for the warp's 16 keys x 32 queries
-      float sc[kNtH][4], dp[kNtH][4];
+    for (int nt = 0; nt < kNtS; ++nt)
 #pragma unroll
-      for (int nt = 0; nt < kNtH; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) sc[nt][e] = dp[nt][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < kSteps; ++kk) {
-        const uint32_t* ak = akr[kk];
-        const uint32_t* av = avr[kk];
-#pragma unroll
-        for (int nt = 0; nt < kNtH; nt += 2) {
-          uint32_t bq[4], bd[4];
-          b_frags<LD>(bq, qt, hq * kNtH + nt, kk, lane);
-          b_frags<LD>(bd, dt, hq * kNtH + nt, kk, lane);
-          mma_bf16(sc[nt], ak, bq[0], bq[1]);
-          mma_bf16(sc[nt + 1], ak, bq[2], bq[3]);
-          mma_bf16(dp[nt], av, bd[0], bd[1]);
-          mma_bf16(dp[nt + 1], av, bd[2], bd[3]);
-        }
+      for (int e = 0; e < 2; ++e) {
+        nl[nt][e] = -lt[nt * 8 + tig * 2 + e] * kLog2e;
+        dl[nt][e] = dlt[nt * 8 + tig * 2 + e];
       }
 
-      // P^T in sc (dead pairs 0 by a select), dS^T = P^T (dP^T - delta)
-      // scale in dp
+    // S^T = K Q^T and dP^T = V dO^T: the warpgroup's 64 keys x 64 queries,
+    // each its own commit group so P is formed while dP^T is in flight
+    float sc[kNtS][4], dp[kNtS][4];
 #pragma unroll
-      for (int nt = 0; nt < kNtH; ++nt)
+    for (int nt = 0; nt < kNtS; ++nt)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          // the query in the tile
-          const int c = (hq * kNtH + nt) * 8 + tig * 2 + (e & 1);
-          const int half = e >> 1;
-          const bool live =
-              state == kFull ||
-              walk.live(kseg_r[half], krel_r[half], qsg, qrl, q0, c);
-          const float p =
-              live ? exp2_ftz(fmaf(sc[nt][e], scale_log2, -lt[c] * kLog2e))
-                   : 0.f;
-          sc[nt][e] = p;
-          dp[nt][e] = p * (dp[nt][e] - dlt[c]) * s.scale;
-        }
+      for (int e = 0; e < 4; ++e) sc[nt][e] = dp[nt][e] = 0.f;
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wg::ss<kTile, 0, 0>(&sc[0][0], wg::desc(ka + kk * 256, 128, kRow8),
+                          wg::desc_sw128(qa + kk / 4 * 8192 + kk % 4 * 32, 16,
+                                         1024), 1);
+    wg::commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wg::ss<kTile, 0, 0>(&dp[0][0], wg::desc(va + kk * 256, 128, kRow8),
+                          wg::desc_sw128(da + kk / 4 * 8192 + kk % 4 * 32, 16,
+                                         1024), 1);
+    wg::commit();
+    wg::wait<1>();
+    wg::fence_regs<4 * kNtS>(&sc[0][0]);
 
-      // dV += P^T dO and dK += dS^T Q over the half's queries (P^T and
-      // dS^T rounded to bf16)
+    // P^T in sc (dead pairs 0 by a select, without a branch), then dV +=
+    // P^T dO (P^T rounded to bf16, A from registers; B MN-major: rows are
+    // the queries), in flight while dS^T is formed
 #pragma unroll
-      for (int kk = 0; kk < kNtH / 2; ++kk) {
-        uint32_t a[4];
-        pack_a(a, sc, kk);
-        mma_rows<D, LD>(adv, a, dt, hq * (kNtH / 2) + kk, lane);
-        pack_a(a, dp, kk);
-        mma_rows<D, LD>(adk, a, qt, hq * (kNtH / 2) + kk, lane);
+    for (int nt = 0; nt < kNtS; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const unsigned c = nt * 8 + tig * 2 + (e & 1);
+        const float p = exp2_ftz(fmaf(sc[nt][e], scale_log2, nl[nt][e & 1]));
+        sc[nt][e] = c - c_lo[e >> 1] < c_n[e >> 1] ? p : 0.f;
       }
-    }
-    __syncthreads();  // the next iterations refill this stage and indices
-    q0 = nq0;
-    j = nj;
-    state = nstate;
-    buf = nbuf;
-    stage = nst;
+    uint32_t ap[kTile / 16][4], ads[kTile / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) pack_a(ap[kk], sc, kk);
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk)
+      wg::rs<D, 1>(&adv[0][0], ap[kk],
+                   wg::desc_sw128(da + kk * 2048, 8192, 1024), 1);
+    wg::commit();
+    wg::wait<1>();
+    wg::fence_regs<4 * kNtS>(&dp[0][0]);
+
+    // dS^T = P^T (dP^T - delta) scale, then dK += dS^T Q (dS^T rounded to
+    // bf16)
+#pragma unroll
+    for (int nt = 0; nt < kNtS; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dp[nt][e] = sc[nt][e] * (dp[nt][e] - dl[nt][e & 1]) * s.scale;
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) pack_a(ads[kk], dp, kk);
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk)
+      wg::rs<D, 1>(&adk[0][0], ads[kk],
+                   wg::desc_sw128(qa + kk * 2048, 8192, 1024), 1);
+    wg::commit();
+
+    // dS^T (bf16) into its blocked tile, rows the keys
+#pragma unroll
+    for (int nt = 0; nt < kNtS; ++nt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+        *reinterpret_cast<uint32_t*>(
+            dst + wg::chunk_offset<kTile>(lk + half * 8, nt) + tig * 4) =
+            ads[nt >> 1][(nt & 1) * 2 + half];
+    fence_async_shared();
+    // the previous step's bulk op has had this step's products to land
+    release_dq(sync, &pending, pending_val);
+    __syncthreads();  // dS^T is complete
+
+    // dQ_partial = dS K: the tile's 64 queries x the warpgroup's NC
+    // columns (A = dS^T, B = K, both MN-major: rows are the keys)
+    float dqa[kNtQ][4];
+#pragma unroll
+    for (int nd = 0; nd < kNtQ; ++nd)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dqa[nd][e] = 0.f;
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wg::ss<NC, 1, 1>(&dqa[0][0],
+                          wg::desc(sa + kk * 2 * (16 * kTile), 16 * kTile,
+                                   128),
+                          wg::desc(kb + kk * 2 * kRow8, kRow8, 128), 1);
+    wg::commit();
+    wg::wait<0>();
+    wg::fence_regs<4 * kNtO>(&adv[0][0]);
+    wg::fence_regs<4 * kNtO>(&adk[0][0]);
+    wg::fence_regs<4 * kNtQ>(&dqa[0][0]);
+
+    // this key tile's add into (head, query tile i), after its predecessor
+    add_dq<D, NC>(dqa, cur.prev < 0, cur.last, sync,
+                  1 + head * nq + cur.i, cur.prev + 1, j + 1, ws, dq, q0,
+                  s.h, head, s.tq - q0, mq, nc, stg, &pending, &pending_val);
+    cur = nx1;
+    nx1 = nx2;
+    nx2 = advance(nx2);
   }
-  cp_async_wait<0>();
+  release_dq(sync, &pending, pending_val);
+  cp_async_wait<0>();  // a CTA without steps still has K and V in flight
   store_rows<D>(dk + kv_off, kv_stride, adk, k0 + lk, s.tk, tig);
   store_rows<D>(dv + kv_off, kv_stride, adv, k0 + lk, s.tk, tig);
+
+  // dq = 0 on the query tiles that hold no live pair (padding, rows that
+  // see no key), which no key tile adds to: each CTA takes the tiles whose
+  // index is its ticket modulo the grid (rows q0 .. q0 + 63 of every head
+  // are one contiguous block)
+  for (int i = ticket; i < nq; i += gridDim.x) {
+    const int q0 = i * kTile;
+    if (runs_live(cu_q, cu_k, s.nseg, q0, min(q0 + kTile, qend), 0, kend,
+                  s.causal, s.window))
+      continue;
+    uint4* o = reinterpret_cast<uint4*>(dq + q0 * q_stride);
+    const int n =
+        (min(q0 + kTile, s.tq) - q0) * static_cast<int>(q_stride) / 8;
+    for (int e = threadIdx.x; e < n; e += kThreads)
+      o[e] = make_uint4(0, 0, 0, 0);
+  }
 }
 
 // ---------------------------------------------------------------- f32
@@ -753,12 +859,66 @@ bool valid(int nseg, int h, int hk, int d, int causal, int window) {
          window >= 0 && (window == 0 || causal);
 }
 
+template <int D>
+int launch_fused(const void* q, const void* k, const void* v,
+                 const void* dout, const float* lse, const float* delta,
+                 const int* cu_q, const int* cu_k, void* dq, void* dk,
+                 void* dv, float* ws, int* sync, const Seg& s, int items,
+                 cudaStream_t st) {
+  static bool configured = false;
+  CUtensorMap qmap, dmap;
+  if (int e = make_map(&qmap, q, 1, s.tq, s.h, D)) return e;
+  if (int e = make_map(&dmap, dout, 1, s.tq, s.h, D)) return e;
+  constexpr size_t bytes = FusedSmem<D>::bytes;
+  if (int e = set_smem(varlen_bwd_fused_kernel<D>, bytes, &configured))
+    return e;
+  varlen_bwd_fused_kernel<D><<<items, Shape<D>::kThreads, bytes, st>>>(
+      qmap, dmap, static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      lse, delta, cu_q, cu_k, static_cast<bf16*>(dq), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), ws, sync, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// q, do, dq (Tq, H, D); k, v (Tk, HK, D); lse, delta (H, Tq) f32; cu_q,
-// cu_k (nseg + 1,) int32; order int32 scratch of ceil(Tq / 64); all
-// contiguous, one dtype for the (T, *, D) tensors. D is 64 or 128; window
-// 0 means none (needs causal).
+// K8. q, do, dq (Tq, H, D); k, v, dk, dv (Tk, HK, D); lse, delta (H, Tq)
+// f32; cu_q, cu_k (nseg + 1,) int32; all contiguous bf16 but lse, delta
+// and the cu_seqlens. D is 64 or 128; window 0 means none (needs causal).
+// dq_ws is the f32 workspace (H, ceil(Tq / 64), 64, D + 4) and counters 1
+// + H * ceil(Tq / 64) int32 zeros (the ticket, then one counter per (head,
+// query tile)); dk, dv are each KV head's sum over the query heads of its
+// group.
+extern "C" int ptt_varlen_flash_attention_bwd_fused(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, const void* cu_q, const void* cu_k,
+    void* dq, void* dk, void* dv, void* dq_ws, void* counters, int tq,
+    int tk, int nseg, int h, int hk, int d, int causal, int window,
+    float sm_scale, int dtype, void* stream) {
+  if (tq <= 0 || tk <= 0) return 0;
+  const int bk = d == 64 ? Shape<64>::BK : Shape<128>::BK;
+  const long long items = static_cast<long long>((tk + bk - 1) / bk) * hk;
+  if (dtype != kBF16 || !valid(nseg, h, hk, d, causal, window) ||
+      items > 0x7fffffffLL || !aligned16(q) || !aligned16(k) ||
+      !aligned16(v) || !aligned16(dout) || !aligned16(dq) ||
+      !aligned16(dk) || !aligned16(dv) || !aligned16(dq_ws))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Seg s{tq, tk, nseg, h, hk, causal, window, sm_scale};
+  const float* l = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
+  const int* cq = static_cast<const int*>(cu_q);
+  const int* ck = static_cast<const int*>(cu_k);
+  float* ws = static_cast<float*>(dq_ws);
+  int* sync = static_cast<int*>(counters);
+  const int n = static_cast<int>(items);
+  return d == 64 ? launch_fused<64>(q, k, v, dout, l, dl, cq, ck, dq, dk,
+                                    dv, ws, sync, s, n, st)
+                 : launch_fused<128>(q, k, v, dout, l, dl, cq, ck, dq, dk,
+                                     dv, ws, sync, s, n, st);
+}
+
+// K8a, f32: dq from q, k, v, do, lse, delta as above; order is int32
+// scratch of ceil(Tq / 64).
 extern "C" int ptt_varlen_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, const void* cu_q, const void* cu_k,
@@ -766,57 +926,30 @@ extern "C" int ptt_varlen_flash_attention_bwd_dq(
     int causal, int window, float sm_scale, int dtype, void* stream) {
   if (tq <= 0) return 0;
   const int ntiles = (tq + kTile - 1) / kTile;
-  if (tk < 0 || ntiles > 65535 || !valid(nseg, h, hk, d, causal, window) ||
-      !aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(dout) ||
-      !aligned16(dq))
+  if (tk < 0 || ntiles > 65535 || dtype != kF32 ||
+      !valid(nseg, h, hk, d, causal, window) || !aligned16(q) ||
+      !aligned16(k) || !aligned16(v) || !aligned16(dout) || !aligned16(dq))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Seg s{tq, tk, nseg, h, hk, causal, window, sm_scale};
   const int* cq = static_cast<const int*>(cu_q);
   const int* ck = static_cast<const int*>(cu_k);
   int* ord = static_cast<int*>(order);
-  const float* l = static_cast<const float*>(lse);
-  const float* dl = static_cast<const float*>(delta);
   if (int e = launch_tile_order(cq, ck, s, 0, ntiles, ord, st)) return e;
-  const dim3 grid(h, ntiles);
-  if (dtype == kBF16) {
-    const bf16* qb = static_cast<const bf16*>(q);
-    const bf16* kb = static_cast<const bf16*>(k);
-    const bf16* vb = static_cast<const bf16*>(v);
-    const bf16* db = static_cast<const bf16*>(dout);
-    bf16* out = static_cast<bf16*>(dq);
-    if (d == 64) {
-      static bool configured = false;
-      constexpr size_t bytes = dq_smem_bytes<64>();
-      if (int e = set_smem(varlen_bwd_dq_bf16_kernel<64>, bytes, &configured))
-        return e;
-      varlen_bwd_dq_bf16_kernel<64><<<grid, kThreadsTC, bytes, st>>>(
-          qb, kb, vb, db, l, dl, cq, ck, ord, out, s);
-    } else {
-      static bool configured = false;
-      constexpr size_t bytes = dq_smem_bytes<128>();
-      if (int e = set_smem(varlen_bwd_dq_bf16_kernel<128>, bytes, &configured))
-        return e;
-      varlen_bwd_dq_bf16_kernel<128><<<grid, kThreadsTC, bytes, st>>>(
-          qb, kb, vb, db, l, dl, cq, ck, ord, out, s);
-    }
-    return static_cast<int>(cudaGetLastError());
-  }
-  if (dtype == kF32) {
-    static bool configured = false;
-    if (int e = set_smem(varlen_bwd_dq_f32_kernel, kDqSmemF32, &configured))
-      return e;
-    varlen_bwd_dq_f32_kernel<<<grid, flash_f32::kThreads, kDqSmemF32, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(dout), l, dl,
-        cq, ck, ord, static_cast<float*>(dq), s, d);
-    return static_cast<int>(cudaGetLastError());
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  static bool configured = false;
+  if (int e = set_smem(varlen_bwd_dq_f32_kernel, kDqSmemF32, &configured))
+    return e;
+  varlen_bwd_dq_f32_kernel<<<dim3(h, ntiles), flash_f32::kThreads,
+                             kDqSmemF32, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta), cq,
+      ck, ord, static_cast<float*>(dq), s, d);
+  return static_cast<int>(cudaGetLastError());
 }
 
-// As above; writes dk, dv (Tk, HK, D), each KV head's sum over the query
-// heads of its group; order is int32 scratch of ceil(Tk / 64).
+// K8b, f32: dk, dv (Tk, HK, D), each KV head's sum over the query heads of
+// its group; order is int32 scratch of ceil(Tk / 64).
 extern "C" int ptt_varlen_flash_attention_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, const void* cu_q, const void* cu_k,
@@ -824,53 +957,25 @@ extern "C" int ptt_varlen_flash_attention_bwd_dkv(
     int d, int causal, int window, float sm_scale, int dtype, void* stream) {
   if (tk <= 0) return 0;
   const int ntiles = (tk + kTile - 1) / kTile;
-  if (tq < 0 || ntiles > 65535 || !valid(nseg, h, hk, d, causal, window) ||
-      !aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(dout) ||
-      !aligned16(dk) || !aligned16(dv))
+  if (tq < 0 || ntiles > 65535 || dtype != kF32 ||
+      !valid(nseg, h, hk, d, causal, window) || !aligned16(q) ||
+      !aligned16(k) || !aligned16(v) || !aligned16(dout) || !aligned16(dk) ||
+      !aligned16(dv))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Seg s{tq, tk, nseg, h, hk, causal, window, sm_scale};
   const int* cq = static_cast<const int*>(cu_q);
   const int* ck = static_cast<const int*>(cu_k);
   int* ord = static_cast<int*>(order);
-  const float* l = static_cast<const float*>(lse);
-  const float* dl = static_cast<const float*>(delta);
   if (int e = launch_tile_order(cq, ck, s, 1, ntiles, ord, st)) return e;
-  const dim3 grid(hk, ntiles);
-  if (dtype == kBF16) {
-    const bf16* qb = static_cast<const bf16*>(q);
-    const bf16* kb = static_cast<const bf16*>(k);
-    const bf16* vb = static_cast<const bf16*>(v);
-    const bf16* db = static_cast<const bf16*>(dout);
-    bf16* gk = static_cast<bf16*>(dk);
-    bf16* gv = static_cast<bf16*>(dv);
-    if (d == 64) {
-      static bool configured = false;
-      constexpr size_t bytes = dkv_smem_bytes<64>();
-      if (int e = set_smem(varlen_bwd_dkv_bf16_kernel<64>, bytes, &configured))
-        return e;
-      varlen_bwd_dkv_bf16_kernel<64><<<grid, kThreadsTC, bytes, st>>>(
-          qb, kb, vb, db, l, dl, cq, ck, ord, gk, gv, s);
-    } else {
-      static bool configured = false;
-      constexpr size_t bytes = dkv_smem_bytes<128>();
-      if (int e = set_smem(varlen_bwd_dkv_bf16_kernel<128>, bytes, &configured))
-        return e;
-      varlen_bwd_dkv_bf16_kernel<128><<<grid, kThreadsTC, bytes, st>>>(
-          qb, kb, vb, db, l, dl, cq, ck, ord, gk, gv, s);
-    }
-    return static_cast<int>(cudaGetLastError());
-  }
-  if (dtype == kF32) {
-    static bool configured = false;
-    if (int e =
-            set_smem(varlen_bwd_dkv_f32_kernel, kDkvSmemF32, &configured))
-      return e;
-    varlen_bwd_dkv_f32_kernel<<<grid, flash_f32::kThreads, kDkvSmemF32, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(dout), l, dl,
-        cq, ck, ord, static_cast<float*>(dk), static_cast<float*>(dv), s, d);
-    return static_cast<int>(cudaGetLastError());
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  static bool configured = false;
+  if (int e = set_smem(varlen_bwd_dkv_f32_kernel, kDkvSmemF32, &configured))
+    return e;
+  varlen_bwd_dkv_f32_kernel<<<dim3(hk, ntiles), flash_f32::kThreads,
+                              kDkvSmemF32, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta), cq,
+      ck, ord, static_cast<float*>(dk), static_cast<float*>(dv), s, d);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -1,5 +1,5 @@
 // Segment logic shared by the varlen flash-attention kernels, forward (K3,
-// varlen_flash_attention.cu) and backward (K8a/K8b,
+// varlen_flash_attention.cu) and backward (K8, and K8a/K8b in f32,
 // varlen_flash_attention_bwd.cu): which (query, key) pairs of a packed
 // (cu_seqlens) batch are live, which contiguous ranges of keys (or
 // queries) a 64-row tile has to walk, which tiles of a range hold a live
@@ -194,6 +194,58 @@ __device__ __forceinline__ int run_pairs(int q_lo, int q_hi, int k_lo,
   return !any ? kDead : all ? kFull : kPartial;
 }
 
+// The queries [*qa, *qb) that see key kj (at or past kend: a padding key,
+// which no query sees): those of its segment with rel_q >= rel_k and, with
+// a window, rel_q < rel_k + window.
+__device__ __forceinline__ void key_queries(const int* __restrict__ cu_q,
+                                            const int* __restrict__ cu_k,
+                                            int nseg, int tq, int kend,
+                                            int kj, int causal, int window,
+                                            int* qa, int* qb) {
+  if (kj >= kend) {
+    *qa = *qb = 0;
+    return;
+  }
+  const int ks = find_seg(cu_k, nseg, kj);
+  const int kr = kj - cu_k[ks];
+  // query qi of segment ks has rel_q = qi - cu_q[ks] + shift
+  const int shift = (cu_k[ks + 1] - cu_k[ks]) - (cu_q[ks + 1] - cu_q[ks]);
+  int a = cu_q[ks];
+  int b = min(cu_q[ks + 1], tq);
+  if (causal) {
+    a = max(a, cu_q[ks] + kr - shift);
+    if (window > 0) b = min(b, cu_q[ks] + kr + window - shift);
+  }
+  *qa = a;
+  *qb = max(a, b);
+}
+
+// Whether any query of the rows [q0, q1) and any key of [k0, k1) form a
+// live pair, from positions alone: run_pairs of the two runs in each
+// segment they share. The caller bounds the rows by min(tq, cu_q[nseg])
+// and the keys by min(tk, cu_k[nseg]). The fused backward K8 tests its
+// tiles and finds a query tile's other contributors with it.
+__device__ inline bool runs_live(const int* __restrict__ cu_q,
+                                 const int* __restrict__ cu_k, int nseg,
+                                 int q0, int q1, int k0, int k1, int causal,
+                                 int window) {
+  if (q0 >= q1 || k0 >= k1) return false;
+  const int s_hi =
+      min(find_seg(cu_q, nseg, q1 - 1), find_seg(cu_k, nseg, k1 - 1));
+  for (int s = max(find_seg(cu_q, nseg, q0), find_seg(cu_k, nseg, k0));
+       s <= s_hi; ++s) {
+    const int qs = cu_q[s], ks = cu_k[s];
+    // bottom-right: rel_q = qi - cu_q[s] + len_k - len_q
+    const int shift = (cu_k[s + 1] - ks) - (cu_q[s + 1] - qs);
+    if (run_pairs(max(q0, qs) - qs + shift,
+                  min(q1, cu_q[s + 1]) - 1 - qs + shift, max(k0, ks) - ks,
+                  min(k1, cu_k[s + 1]) - 1 - ks, false, causal,
+                  window) != kDead)
+      return true;
+  }
+  return false;
+}
+
 // Whether no, some or every (query, key) pair of a tile is live, to every
 // thread of the CTA, testing every pair (the index arrays must be visible
 // to all threads; the call ends with a barrier, so the caller may
@@ -214,13 +266,14 @@ __device__ inline int tile_pairs(const int* qseg, const int* qrel,
   return __syncthreads_and(all) ? kFull : kPartial;
 }
 
-// How a CTA tests the tiles of the range it walks (keys for K3 and K8a,
-// queries for K8b) against its own 64 rows. When its own rows all lie in
-// one segment (the common case), every walked row lies in that segment too,
-// at relative position = packed position - off: a tile's state and a
-// pair's liveness follow from positions alone, with no index arrays and no
-// barrier. Otherwise (`one_seg` false) the walk writes each tile's indices
-// and tests its pairs (tile_pairs).
+// How a CTA tests the tiles of the range it walks (keys for K3, queries
+// for each 64-key half of K8) against its own 64 rows. When its own rows
+// all lie in one segment (the common case), every walked row lies in that
+// segment too, at relative position = packed position - off: a tile's
+// state and a pair's liveness follow from positions alone, with no index
+// arrays and no barrier. Otherwise (`one_seg` false) K3 writes each tile's
+// indices and tests its pairs (tile_pairs), and K8 tests the tile by
+// runs_live.
 struct Walk {
   bool one_seg;
   bool keys;   // the walked side is the keys
@@ -238,21 +291,18 @@ struct Walk {
     return keys ? run_pairs(own0, e, a, b, whole, causal, window)
                 : run_pairs(a, b, own0, e, whole, causal, window);
   }
-  // whether the own row (own_seg, own_rel) and row c of the walked tile at
-  // p0 (indices wseg / wrel when not one_seg) are a live pair
+  // whether the own query row (own_seg, own_rel) and key c of the walked
+  // key tile at p0 (indices wseg / wrel when not one_seg) are a live pair
+  // (K3's walk; K8 masks its pairs by key_queries)
   __device__ __forceinline__ bool live(int own_seg, int own_rel,
                                        const int* wseg, const int* wrel,
                                        int p0, int c) const {
     if (one_seg) {
       const int p = p0 + c;
       return p >= lo && p < hi &&
-             (keys ? rel_live(own_rel, p - off, causal, window)
-                   : rel_live(p - off, own_rel, causal, window));
+             rel_live(own_rel, p - off, causal, window);
     }
-    return keys ? live_pair(own_seg, own_rel, wseg[c], wrel[c], causal,
-                            window)
-                : live_pair(wseg[c], wrel[c], own_seg, own_rel, causal,
-                            window);
+    return live_pair(own_seg, own_rel, wseg[c], wrel[c], causal, window);
   }
 };
 
@@ -266,20 +316,29 @@ __device__ inline Walk key_walk(const int* __restrict__ cu_k,
   return Walk{true, true, cu_k[sq], khi, cu_k[sq], qrel[0], causal, window};
 }
 
-// The walk of a key tile (key_rows kseg / krel) over the queries of a
-// batch of tq rows: a query qi of segment s has rel_q = qi - (cu_q[s + 1] -
-// len_k(s)).
+// The walk of the key tile of kTile keys from kw (keys at or past kend are
+// padding) over the queries of a batch of tq rows, and its query range
+// [*lo, *hi) (query_range), from the segments of its first and last key:
+// a query qi of segment s has rel_q = qi - (cu_q[s + 1] - len_k(s)).
 __device__ inline Walk query_walk(const int* __restrict__ cu_q,
-                                  const int* __restrict__ cu_k, int tq,
-                                  const int* kseg, const int* krel,
-                                  int causal, int window) {
-  const int sk = kseg[0];
-  if (sk < 0 || kseg[kTile - 1] != sk)
-    return Walk{false, false, 0, 0, 0, 0, causal, window};
+                                  const int* __restrict__ cu_k, int nseg,
+                                  int tq, int kend, int kw, int causal,
+                                  int window, int* lo, int* hi) {
+  const int last = min(kw + kTile, kend) - 1;
+  const Walk none{false, false, 0, 0, 0, 0, causal, window};
+  if (last < kw) {
+    *lo = *hi = 0;
+    return none;
+  }
+  const int sf = find_seg(cu_k, nseg, kw);
+  const int sl = find_seg(cu_k, nseg, last);
+  query_range_of(cu_q, cu_k, sf, kw - cu_k[sf], sl, last - cu_k[sl], causal,
+                 window, lo, hi);
+  if (sl != sf || last != kw + kTile - 1) return none;
   return Walk{true,           false,
-              cu_q[sk],       min(cu_q[sk + 1], tq),
-              cu_q[sk + 1] - (cu_k[sk + 1] - cu_k[sk]),
-              krel[0],        causal,
+              cu_q[sf],       min(cu_q[sf + 1], tq),
+              cu_q[sf + 1] - (cu_k[sf + 1] - cu_k[sf]),
+              kw - cu_k[sf],  causal,
               window};
 }
 
@@ -297,26 +356,6 @@ __device__ inline int next_key_tile(const int* __restrict__ cu_k, int nseg,
       state = w.state(*k0);
     } else {
       key_rows(cu_k, nseg, *k0, khi, kseg, krel);
-      __syncthreads();
-      state = tile_pairs(qseg, qrel, kseg, krel, w.causal, w.window);
-    }
-    if (state != kDead) return state;
-  }
-  return kDead;
-}
-
-// The same over query tiles from *q0 below qhi, against the CTA's keys.
-__device__ inline int next_query_tile(const int* __restrict__ cu_q,
-                                      const int* __restrict__ cu_k, int nseg,
-                                      int tq, const Walk& w, int* q0, int qhi,
-                                      int* qseg, int* qrel, const int* kseg,
-                                      const int* krel) {
-  for (; *q0 < qhi; *q0 += kTile) {
-    int state;
-    if (w.one_seg) {
-      state = w.state(*q0);
-    } else {
-      query_rows(cu_q, cu_k, nseg, tq, *q0, qseg, qrel);
       __syncthreads();
       state = tile_pairs(qseg, qrel, kseg, krel, w.causal, w.window);
     }
@@ -352,8 +391,8 @@ constexpr int kOrderThreads = 1024;
 constexpr size_t kMaxOrderSmem = 232448;  // a block's shared memory
 constexpr int kMaxOrderTiles = kMaxOrderSmem / sizeof(int);
 
-// order[rank] = tile: key tiles by their query range (by_keys, K8b) or
-// query tiles by their key range (K3, K8a).
+// order[rank] = tile: key tiles by their query range (by_keys, K8b f32) or
+// query tiles by their key range (K3, K8a f32).
 static __global__ void __launch_bounds__(kOrderThreads)
     tile_order_kernel(const int* __restrict__ cu_q,
                       const int* __restrict__ cu_k, Seg s, int by_keys,

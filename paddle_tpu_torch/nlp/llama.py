@@ -11,13 +11,14 @@ Attention without a cache runs through ``F.scaled_dot_product_attention``
 (dense) or ``F.sliding_window_attention`` (windowed), both the flash
 kernel K4 with K7 as its backward; packed training (``cu_seqlens``,
 one (1, T) row of segments, rotary positions restarting per segment)
-through ``F.flash_attn_unpadded``, the varlen kernel K3 with K8a/K8b as
-its backward; with a contiguous cache, windowed prefill runs K4 and a
-single decoded token the decode kernel K5; RMSNorm runs K1 with K6 as its
-backward. Training: ``LlamaPretrainingCriterion`` here (unpacked and
-packed), the step in ``jit/train.py``, recompute at the reference's four
-granularities through ``distributed/fleet/utils/recompute.py``.
-Generation over the cache lives in ``nlp/generation.py``; the serving
+through ``F.flash_attn_unpadded``, the varlen kernel K3 with K8 (K8a/K8b
+in f32) as its backward; with a contiguous cache, windowed prefill runs
+K4 and a single decoded token the decode kernel K5; RMSNorm runs K1
+with K6 as its backward. Training: ``LlamaPretrainingCriterion`` here
+(unpacked and packed), the step in ``jit/train.py``, recompute at the
+reference's four granularities through
+``distributed/fleet/utils/recompute.py``. Generation over the cache lives
+in ``nlp/generation.py``; the serving
 path (paged KV pool) in ``serving/engine.py`` and
 ``incubate/nn/functional``.
 """

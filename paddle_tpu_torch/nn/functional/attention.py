@@ -9,7 +9,8 @@ tensors), as the reference routes to its Pallas flash kernel. An
 ``attn_mask`` or dropout takes the plain :func:`_xla_attention`, as the
 reference sends them to XLA. Packed (cu_seqlens) attention,
 :func:`flash_attn_unpadded`, goes through ``VarlenFlashAttentionFunction``
-(``ops/varlen_flash_attention.py``: K3 forward, K8a/K8b backward).
+(``ops/varlen_flash_attention.py``: K3 forward, K8 backward; K8a/K8b in
+f32).
 """
 from __future__ import annotations
 
@@ -97,10 +98,11 @@ def flash_attn_unpadded(query, key, value, cu_seqlens_q, cu_seqlens_k,
     """Varlen flash attention over packed ``(total_tokens, H, D)`` inputs
     with ``cu_seqlens`` prefix sums (int32, on the inputs' device); returns
     ``(out, None)``. Runs :class:`VarlenFlashAttentionFunction`: the
-    kernels K3 / K8a / K8b on CUDA tensors, their plain versions on CPU
-    tensors. ``window_size`` (causal only) applies the sliding-window band
-    per segment. Dropout in training is not ported: the reference sends it
-    to XLA's masked attention, outside the kernel."""
+    kernels K3 / K8 (K8a / K8b in f32) on CUDA tensors, their plain
+    versions on CPU tensors. ``window_size`` (causal only) applies the
+    sliding-window band per segment. Dropout in training is not ported:
+    the reference sends it to XLA's masked attention, outside the
+    kernel."""
     if window_size is not None:
         if not causal:
             raise ValueError(

@@ -4,10 +4,12 @@ and plain PyTorch version.
 - K1 ``rms_norm`` and K6 ``rms_norm_bwd`` (csrc/rms_norm.cu), joined by
   ``RMSNormFunction``
 - K2 ``paged_decode_attention`` (csrc/paged_attention.cu)
-- K3 ``varlen_flash_attention`` forward (csrc/varlen_flash_attention.cu),
-  K8a ``varlen_flash_attention_bwd_dq`` and K8b
-  ``varlen_flash_attention_bwd_dkv`` (csrc/varlen_flash_attention_bwd.cu,
-  both run by ``varlen_flash_attention_bwd``), joined by
+- K3 ``varlen_flash_attention`` forward (csrc/varlen_flash_attention.cu)
+  and its backward ``varlen_flash_attention_bwd``
+  (csrc/varlen_flash_attention_bwd.cu): in bf16 one fused kernel K8
+  (``varlen_flash_attention_bwd_fused``) for dq, dk and dv, in f32 K8a
+  ``varlen_flash_attention_bwd_dq`` and K8b
+  ``varlen_flash_attention_bwd_dkv``; joined by
   ``VarlenFlashAttentionFunction``; the segment logic they share is
   csrc/varlen_seg.cuh
 - K4 ``flash_attention`` forward (csrc/flash_attention.cu) and its
@@ -35,6 +37,7 @@ from .varlen_flash_attention import (VarlenFlashAttentionFunction,
                                      varlen_flash_attention_bwd_delta,
                                      varlen_flash_attention_bwd_dkv,
                                      varlen_flash_attention_bwd_dq,
+                                     varlen_flash_attention_bwd_fused,
                                      varlen_flash_attention_bwd_plain,
                                      varlen_flash_attention_plain)
 
@@ -45,7 +48,8 @@ __all__ = [
     "paged_decode_attention_plain", "paged_cache_write",
     "varlen_flash_attention", "varlen_flash_attention_plain",
     "varlen_flash_attention_bwd", "varlen_flash_attention_bwd_dq",
-    "varlen_flash_attention_bwd_dkv", "varlen_flash_attention_bwd_delta",
+    "varlen_flash_attention_bwd_dkv", "varlen_flash_attention_bwd_fused",
+    "varlen_flash_attention_bwd_delta",
     "varlen_flash_attention_bwd_plain", "VarlenFlashAttentionFunction",
     "flash_attention", "flash_attention_plain", "flash_attention_bwd",
     "flash_attention_bwd_dq", "flash_attention_bwd_dkv",

@@ -1,14 +1,15 @@
-"""Varlen (packed) flash attention forward: the Hopper kernel K3 and its
-plain PyTorch version.
+"""Varlen (packed) flash attention: the Hopper kernels K3 (forward) and K8
+(the fused bf16 backward; K8a / K8b its f32 route), their plain PyTorch
+versions, and the fused backward's work order.
 
-Counterpart of ``paddle_tpu/ops/pallas/varlen_flash_attention.py``
-(forward; the backward kernels belong to the training slice). Sequences
-are packed back to back, ``q`` (total_q, H, D) and ``k``/``v``
+Counterpart of ``paddle_tpu/ops/pallas/varlen_flash_attention.py``.
+Sequences are packed back to back, ``q`` (total_q, H, D) and ``k``/``v``
 (total_k, HK, D), with ``cu_seqlens`` prefix sums; attention never crosses
 a segment, causal masks are bottom-right aligned per segment
 (``rel_q = pos - start_q + len_k - len_q``), and ``window_size`` applies
 the sliding-window band per segment. Rows that see no key return zeros.
-The CUDA source is ``paddle_tpu_torch/csrc/varlen_flash_attention.cu``.
+The CUDA sources are ``paddle_tpu_torch/csrc/varlen_flash_attention.cu``
+and ``varlen_flash_attention_bwd.cu``.
 """
 from __future__ import annotations
 
@@ -20,15 +21,23 @@ from . import _library as L
 
 __all__ = ["varlen_flash_attention", "varlen_flash_attention_plain",
            "segment_mask", "varlen_flash_attention_bwd",
+           "varlen_flash_attention_bwd_fused",
            "varlen_flash_attention_bwd_dq", "varlen_flash_attention_bwd_dkv",
            "varlen_flash_attention_bwd_delta",
-           "varlen_flash_attention_bwd_plain", "VarlenFlashAttentionFunction"]
+           "varlen_flash_attention_bwd_plain", "VarlenBwdSchedule",
+           "VarlenFlashAttentionFunction"]
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_HEAD_DIM = 128
 _BWD_HEAD_DIMS = (64, 128)
 _TILE = 64  # rows per tile of the kernels (their tile-order scratch)
+
+
+def _bwd_block_k(d):
+    """Keys per CTA of the fused backward K8 at head width d: 64 on one
+    warpgroup at d = 64 (two CTAs share an SM), else 128 on two."""
+    return 64 if d == 64 else 128
 
 
 def segment_mask(cu_seqlens_q, cu_seqlens_k, tq, tk, causal, window=None):
@@ -117,7 +126,7 @@ def varlen_flash_attention(q, k, v, cu_seqlens_q, cu_seqlens_k,
             window_size)
         return (out, lse) if return_lse else out
     L.refuse_grad("varlen_flash_attention",
-                  "its backward K8a/K8b runs through "
+                  "its backward K8 runs through "
                   "VarlenFlashAttentionFunction, or F.flash_attn_unpadded",
                   q, k, v)
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -164,8 +173,8 @@ def varlen_flash_attention_bwd_plain(q, k, v, out, lse, do, cu_seqlens_q,
                                      cu_seqlens_k, causal=False,
                                      sm_scale=None, window_size=None,
                                      delta=None):
-    """Plain version of K8a/K8b (the reference's ``_varlen_bwd``): returns
-    ``(dq, dk, dv)`` like q, k, v. P is recomputed from ``lse`` (H,
+    """Plain version of K8 and K8a/K8b (the reference's ``_varlen_bwd``):
+    returns ``(dq, dk, dv)`` like q, k, v. P is recomputed from ``lse`` (H,
     total_q) in f32 and taken to 0 on dead pairs by a select (a row with no
     live key has lse about -1e30, where exp overflows); ``delta`` (default
     from ``out``) is f32. P is rounded to do's dtype before dV, dS to k's
@@ -248,16 +257,329 @@ def _order_scratch(rows, like):
                        device=like.device)
 
 
+class VarlenBwdSchedule:
+    """The fused bf16 varlen backward's work order
+    (``csrc/varlen_flash_attention_bwd.cu``, which follows it formula for
+    formula; the segment formulas are ``csrc/varlen_seg.cuh``'s), from
+    the cu_seqlens on the host.
+
+    A work item is one CTA's key tile: (key tile ``j`` of ``block_k``
+    keys, KV head), ``halves`` warpgroups of 64 keys; ``block_k`` is 64 at
+    head width ``d`` = 64 and 128 at d = 128 (``_bwd_block_k``). It walks
+    the 64-row query tiles that hold a live pair with any half, highest
+    first, and for
+    each the query heads of its KV head's group in order; it sums dk and
+    dv in registers and adds its dq partial of each (query head, query
+    tile) into an f32 workspace. Order:
+
+    - Items are claimed through one ticket counter in the order ``ticket
+      = j * hk + kv_head``: key tiles ascending, heads interleaved.
+    - The contributors of a query tile are the key tiles with a live pair
+      with its rows (``runs_live``); in a packed batch a key tile inside
+      the tile's key range may be dead (keys of a segment without
+      queries, a window edge). Each (query head, query tile) takes its dq
+      adds from them alone, in ascending key-tile order: the first stores
+      into the workspace, the last adds the workspace to its own partial
+      and writes dq in bf16. The tile's counter holds 1 + the key tile of
+      the last add landed, and a contributor waits for ``prev``, the
+      nearest contributor below it, found by scanning down from it inside
+      the tile's ``key_range_of`` (``last``: none above it in the range).
+    - ``prev`` is a lower key tile of the same KV head: an earlier ticket.
+      Every claimed ticket belongs to a running CTA and the earliest
+      unfinished one waits on nobody, so the waits cannot deadlock
+      (``tests/test_torch_varlen_bwd_schedule.py`` simulates the grid).
+    - A query tile with no contributor gets dq = 0 from the CTA whose
+      ticket is its index modulo the grid.
+    - A pair's mask is one interval test: key kj is seen by the queries
+      ``key_queries(kj)``.
+    """
+
+    def __init__(self, cu_seqlens_q, cu_seqlens_k, tq, tk, h, hk, causal,
+                 window=None, d=128):
+        self.cu_q = [int(x) for x in cu_seqlens_q]
+        self.cu_k = [int(x) for x in cu_seqlens_k]
+        self.nseg = len(self.cu_q) - 1
+        self.tq, self.tk, self.h, self.hk = tq, tk, h, hk
+        self.causal, self.window = bool(causal), int(window or 0)
+        self.group = h // hk
+        self.block_q, self.block_k = _TILE, _bwd_block_k(d)
+        self.halves = self.block_k // _TILE  # warpgroups of 64 keys
+        # rows at or past cu_q[-1] and keys at or past cu_k[-1] are padding
+        self.qend = min(tq, self.cu_q[-1])
+        self.kend = min(tk, self.cu_k[-1])
+        self.n_q = -(-tq // _TILE)
+        self.n_k = -(-tk // self.block_k)
+        self.n_items = self.n_k * hk
+        self.n_counters = self.launch_sizes(tq, h, d)[1]
+
+    # -- varlen_seg.cuh
+    def _find_seg(self, cu, pos):
+        lo, hi = 0, self.nseg - 1
+        while lo < hi:
+            mid = (lo + hi + 1) >> 1
+            if cu[mid] <= pos:
+                lo = mid
+            else:
+                hi = mid - 1
+        return lo
+
+    def _run_pairs(self, q_lo, q_hi, k_lo, k_hi, whole):
+        """0 dead, 1 partial, 2 full (``run_pairs``)."""
+        if q_lo > q_hi or k_lo > k_hi:
+            return 0
+        if not self.causal:
+            return 2 if whole else 1
+        w = self.window
+        any_ = k_lo <= q_hi and (w <= 0 or k_hi > q_lo - w)
+        all_ = whole and k_hi <= q_lo and (w <= 0 or k_lo > q_hi - w)
+        return 0 if not any_ else 2 if all_ else 1
+
+    def _query_row(self, qi):
+        cu_q, cu_k = self.cu_q, self.cu_k
+        if qi < self.tq and qi < cu_q[-1]:
+            s = self._find_seg(cu_q, qi)
+            return s, qi - cu_q[s] + (cu_k[s + 1] - cu_k[s]) \
+                - (cu_q[s + 1] - cu_q[s])
+        return -1, -(1 << 30)
+
+    def _key_range_of(self, s_lo, first, s_hi, last):
+        cu_k = self.cu_k
+        lo, hi = cu_k[s_lo], cu_k[s_hi + 1]
+        if self.causal:
+            diag = cu_k[s_hi] + last + 1
+            hi = min(hi, max(diag, cu_k[s_hi] if s_hi > s_lo else 0))
+            if self.window:
+                edge = cu_k[s_lo] + first - self.window + 1
+                lo = max(lo, min(edge, cu_k[s_lo + 1]) if s_hi > s_lo
+                         else edge)
+        return lo, min(hi, self.tk)
+
+    def _query_range_of(self, s_lo, first, s_hi, last):
+        cu_q, cu_k = self.cu_q, self.cu_k
+        lo, hi = cu_q[s_lo], cu_q[s_hi + 1]
+        if self.causal:
+            shift_lo = (cu_q[s_lo + 1] - cu_q[s_lo]) \
+                - (cu_k[s_lo + 1] - cu_k[s_lo])
+            start = cu_q[s_lo] + first + shift_lo
+            lo = max(lo, min(start, cu_q[s_lo + 1]) if s_hi > s_lo
+                     else start)
+            if self.window:
+                shift_hi = (cu_q[s_hi + 1] - cu_q[s_hi]) \
+                    - (cu_k[s_hi + 1] - cu_k[s_hi])
+                end = cu_q[s_hi] + last + self.window + shift_hi
+                hi = min(hi, max(end, cu_q[s_hi]) if s_hi > s_lo else end)
+        return lo, max(hi, lo)
+
+    def _query_walk(self, kw):
+        """``query_walk`` of the 64 keys from kw: ((one_seg, lo, hi, off,
+        own0), query range)."""
+        none = (False, 0, 0, 0, 0)
+        last = min(kw + _TILE, self.kend) - 1
+        if last < kw:
+            return none, (0, 0)
+        cu_q, cu_k = self.cu_q, self.cu_k
+        sf, sl = self._find_seg(cu_k, kw), self._find_seg(cu_k, last)
+        rng = self._query_range_of(sf, kw - cu_k[sf], sl, last - cu_k[sl])
+        if sl != sf or last != kw + _TILE - 1:
+            return none, rng
+        return (True, cu_q[sf], min(cu_q[sf + 1], self.tq),
+                cu_q[sf + 1] - (cu_k[sf + 1] - cu_k[sf]), kw - cu_k[sf]), rng
+
+    def key_queries(self, kj):
+        """[qa, qb): the queries that see key kj, the interval the kernel
+        tests each pair's query position against (``key_queries``)."""
+        if kj >= self.kend:
+            return 0, 0
+        cu_q, cu_k = self.cu_q, self.cu_k
+        ks = self._find_seg(cu_k, kj)
+        kr = kj - cu_k[ks]
+        shift = (cu_k[ks + 1] - cu_k[ks]) - (cu_q[ks + 1] - cu_q[ks])
+        a, b = cu_q[ks], min(cu_q[ks + 1], self.tq)
+        if self.causal:
+            a = max(a, cu_q[ks] + kr - shift)
+            if self.window:
+                b = min(b, cu_q[ks] + kr + self.window - shift)
+        return a, max(a, b)
+
+    def runs_live(self, q0, q1, k0, k1):
+        """Whether a query of [q0, q1) and a key of [k0, k1) (bounded by
+        the padding) form a live pair (``runs_live``)."""
+        if q0 >= q1 or k0 >= k1:
+            return False
+        cu_q, cu_k = self.cu_q, self.cu_k
+        s_hi = min(self._find_seg(cu_q, q1 - 1), self._find_seg(cu_k, k1 - 1))
+        for s in range(max(self._find_seg(cu_q, q0),
+                           self._find_seg(cu_k, k0)), s_hi + 1):
+            qs, ks = cu_q[s], cu_k[s]
+            shift = (cu_k[s + 1] - ks) - (cu_q[s + 1] - qs)
+            if self._run_pairs(max(q0, qs) - qs + shift,
+                               min(q1, cu_q[s + 1]) - 1 - qs + shift,
+                               max(k0, ks) - ks,
+                               min(k1, cu_k[s + 1]) - 1 - ks, False):
+                return True
+        return False
+
+    # -- the kernel's walk and order
+    def ticket(self, j, kv_head):
+        return j * self.hk + kv_head
+
+    def item(self, ticket):
+        """(key tile, KV head) of a ticket."""
+        return divmod(ticket, self.hk)
+
+    def half_state(self, j, w, q0):
+        """0 / 1 / 2: no, some or every pair of the query tile at q0 and
+        half w of key tile j is live."""
+        kw = j * self.block_k + w * _TILE
+        (one_seg, lo, hi, off, own0), _ = self._query_walk(kw)
+        if one_seg:
+            return self._run_pairs(max(q0, lo) - off,
+                                   min(q0 + _TILE, hi) - 1 - off, own0,
+                                   own0 + _TILE - 1,
+                                   q0 >= lo and q0 + _TILE <= hi)
+        return int(self.runs_live(q0, min(q0 + _TILE, self.qend), kw,
+                                  min(kw + _TILE, self.kend)))
+
+    def tiles(self, j):
+        """Key tile j's walk over query tiles, highest first: (i, state of
+        half 0, state of half 1) of each tile with a live pair."""
+        ranges = [self._query_walk(j * self.block_k + w * _TILE)[1]
+                  for w in range(self.halves)]
+        ranges = [r for r in ranges if r[0] < r[1]]
+        if not ranges:
+            return []
+        lo = min(r[0] for r in ranges)
+        hi = min(max(r[1] for r in ranges), self.qend)
+        if hi <= lo:
+            return []
+        out = []
+        for i in range((hi - 1) // _TILE, lo // _TILE - 1, -1):
+            st = tuple(self.half_state(j, w, i * _TILE) if w < self.halves
+                       else 0 for w in (0, 1))
+            if any(st):
+                out.append((i, *st))
+        return out
+
+    def walk(self, j):
+        """The steps of key tile j's CTA: (query tile, query head of the
+        group)."""
+        return [(i, g) for i, _, _ in self.tiles(j)
+                for g in range(self.group)]
+
+    def _live(self, i, j):
+        q0 = i * _TILE
+        bk = self.block_k
+        return self.runs_live(q0, min(q0 + _TILE, self.qend), j * bk,
+                              min(j * bk + bk, self.kend))
+
+    def key_range(self, i):
+        """[klo, khi): the keys query tile i's rows can see
+        (``key_range_of`` of its first and last real row)."""
+        q0 = i * _TILE
+        q1 = min(q0 + _TILE, self.qend)
+        sf, rf = self._query_row(q0)
+        sl, rl = self._query_row(q1 - 1)
+        lo, hi = self._key_range_of(sf, rf, sl, rl)
+        return lo, min(hi, self.kend)
+
+    def order(self, i, j):
+        """(prev, last) of key tile j in live query tile i's adds: the
+        nearest contributor below j (-1 when j is the first), and whether
+        none lies above it."""
+        klo, khi = self.key_range(i)
+        bk = self.block_k
+        prev = next((jj for jj in range(j - 1, klo // bk - 1, -1)
+                     if self._live(i, jj)), -1)
+        last = not any(self._live(i, jj) for jj in range(j + 1, self.n_k)
+                       if jj * bk < khi)
+        return prev, last
+
+    def contributors(self, i):
+        """The key tiles that add to query tile i, ascending."""
+        return [j for j in range(self.n_k) if self._live(i, j)]
+
+    def rank(self, i, j):
+        """(rank, contributors) of key tile j in query tile i's adds:
+        ranks count the live contributors only."""
+        c = self.contributors(i)
+        return c.index(j), len(c)
+
+    def zero_tiles(self):
+        """The query tiles no key tile adds to, whose dq the kernel
+        zeroes (padding rows, rows that see no key)."""
+        return [i for i in range(self.n_q)
+                if not self.runs_live(i * _TILE, min(i * _TILE + _TILE,
+                                                     self.qend), 0,
+                                      self.kend)]
+
+    def counter(self, head, i):
+        return 1 + head * self.n_q + i
+
+    @staticmethod
+    def launch_sizes(tq, h, d):
+        """The f32 dq workspace's shape and the number of int32 counters,
+        from the shapes alone (the launch takes them without reading
+        cu_seqlens on the host). The workspace holds one contiguous
+        (64, d + 4) tile per (head, query tile), sent as one bulk copy or
+        reduce-add; 4 f32 of row padding keep the kernel's staging rows off
+        one shared-memory bank. The counters are the ticket counter, then
+        one per (head, query tile)."""
+        n_q = -(-tq // _TILE)
+        return (h, n_q, _TILE, d + 4), 1 + h * n_q
+
+    def workspace_shape(self, d):
+        return self.launch_sizes(self.tq, self.h, d)[0]
+
+
+def varlen_flash_attention_bwd_fused(q, k, v, do, lse, delta, cu_seqlens_q,
+                                     cu_seqlens_k, causal=False,
+                                     sm_scale=None, window_size=None):
+    """K8: ``(dq, dk, dv)`` in one launch of the fused backward kernel,
+    from the forward's ``lse`` and ``delta``
+    (:func:`varlen_flash_attention_bwd_delta`); dk and dv are each KV
+    head's sum over the query heads of its group. CPU tensors run the
+    plain backward; CUDA tensors must be bf16 (f32 takes K8a and K8b)."""
+    if L.use_plain(q):
+        return varlen_flash_attention_bwd_plain(
+            q, k, v, None, lse, do, cu_seqlens_q, cu_seqlens_k, causal,
+            sm_scale, window_size, delta)
+    if q.dtype != torch.bfloat16:
+        raise TypeError("the fused varlen_flash_attention backward kernel "
+                        f"takes bfloat16 inputs, got {q.dtype}")
+    ptrs, dims = _bwd_launch_args(q, k, v, do, lse, delta, cu_seqlens_q,
+                                  cu_seqlens_k, causal, sm_scale, window_size)
+    tq, tk, h, d = q.shape[0], k.shape[0], q.shape[1], q.shape[2]
+    if tq == 0 or tk == 0:
+        return (torch.zeros_like(q), torch.zeros_like(k),
+                torch.zeros_like(v))
+    ws_shape, n_counters = VarlenBwdSchedule.launch_sizes(tq, h, d)
+    dq = torch.empty_like(q)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    ws = torch.empty(ws_shape, dtype=torch.float32, device=q.device)
+    counters = torch.zeros(n_counters, dtype=torch.int32, device=q.device)
+    status = L.library().ptt_varlen_flash_attention_bwd_fused(
+        *ptrs, dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), ws.data_ptr(),
+        counters.data_ptr(), *dims)
+    L.check_status("varlen_flash_attention_bwd", status)
+    L.LAUNCHES["varlen_flash_attention_bwd"] += 1
+    return dq, dk, dv
+
+
 def varlen_flash_attention_bwd_dq(q, k, v, do, lse, delta, cu_seqlens_q,
                                   cu_seqlens_k, causal=False, sm_scale=None,
                                   window_size=None):
-    """K8a: dq (like q) from the forward's ``lse`` and ``delta``
+    """dq (like q) from the forward's ``lse`` and ``delta``
     (:func:`varlen_flash_attention_bwd_delta`). CPU tensors run the plain
-    backward; CUDA tensors launch the kernel or raise."""
+    backward; CUDA tensors launch a kernel or raise: the fused K8 (which
+    also computes dk and dv) in bf16, K8a in f32."""
     if L.use_plain(q):
         return varlen_flash_attention_bwd_plain(
             q, k, v, None, lse, do, cu_seqlens_q, cu_seqlens_k, causal,
             sm_scale, window_size, delta)[0]
+    if q.dtype == torch.bfloat16:
+        return varlen_flash_attention_bwd_fused(
+            q, k, v, do, lse, delta, cu_seqlens_q, cu_seqlens_k, causal,
+            sm_scale, window_size)[0]
     ptrs, dims = _bwd_launch_args(q, k, v, do, lse, delta, cu_seqlens_q,
                                   cu_seqlens_k, causal, sm_scale, window_size)
     dq = torch.empty_like(q)
@@ -272,13 +594,17 @@ def varlen_flash_attention_bwd_dq(q, k, v, do, lse, delta, cu_seqlens_q,
 def varlen_flash_attention_bwd_dkv(q, k, v, do, lse, delta, cu_seqlens_q,
                                    cu_seqlens_k, causal=False, sm_scale=None,
                                    window_size=None):
-    """K8b: ``(dk, dv)`` (like k, v), each KV head's sum over the query
-    heads of its group. CPU tensors run the plain backward; CUDA tensors
-    launch the kernel or raise."""
+    """``(dk, dv)`` (like k, v), each KV head's sum over the query heads
+    of its group. CPU tensors run the plain backward; CUDA tensors launch
+    a kernel or raise: the fused K8 in bf16, K8b in f32."""
     if L.use_plain(q):
         return varlen_flash_attention_bwd_plain(
             q, k, v, None, lse, do, cu_seqlens_q, cu_seqlens_k, causal,
             sm_scale, window_size, delta)[1:]
+    if q.dtype == torch.bfloat16:
+        return varlen_flash_attention_bwd_fused(
+            q, k, v, do, lse, delta, cu_seqlens_q, cu_seqlens_k, causal,
+            sm_scale, window_size)[1:]
     ptrs, dims = _bwd_launch_args(q, k, v, do, lse, delta, cu_seqlens_q,
                                   cu_seqlens_k, causal, sm_scale, window_size)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
@@ -294,9 +620,9 @@ def varlen_flash_attention_bwd(q, k, v, out, lse, do, cu_seqlens_q,
                                cu_seqlens_k, causal=False, sm_scale=None,
                                window_size=None):
     """Gradients ``(dq, dk, dv)`` of varlen attention from the forward's
-    ``out`` and ``lse`` and the upstream ``do`` (like q): delta, then K8a
-    and K8b on CUDA tensors, :func:`varlen_flash_attention_bwd_plain` on
-    CPU tensors."""
+    ``out`` and ``lse`` and the upstream ``do`` (like q): delta, then on
+    CUDA tensors one launch of the fused K8 in bf16, K8a and K8b in f32;
+    :func:`varlen_flash_attention_bwd_plain` on CPU tensors."""
     if out.shape != q.shape:
         raise ValueError(f"varlen_flash_attention_bwd: out "
                          f"{tuple(out.shape)} for q {tuple(q.shape)}")
@@ -307,6 +633,8 @@ def varlen_flash_attention_bwd(q, k, v, out, lse, do, cu_seqlens_q,
     delta = varlen_flash_attention_bwd_delta(out, do)
     args = (q, k, v, do, lse, delta, cu_seqlens_q, cu_seqlens_k, causal,
             sm_scale, window_size)
+    if q.dtype == torch.bfloat16:
+        return varlen_flash_attention_bwd_fused(*args)
     dq = varlen_flash_attention_bwd_dq(*args)
     dk, dv = varlen_flash_attention_bwd_dkv(*args)
     return dq, dk, dv
@@ -314,7 +642,8 @@ def varlen_flash_attention_bwd(q, k, v, out, lse, do, cu_seqlens_q,
 
 class VarlenFlashAttentionFunction(torch.autograd.Function):
     """``out = varlen_flash_attention(q, k, v, cu_seqlens_q, cu_seqlens_k,
-    causal, sm_scale, window_size)`` with K8a/K8b as its backward (the
+    causal, sm_scale, window_size)`` with K8 (K8a/K8b in f32) as its
+    backward (the
     reference's ``_varlen_htd`` custom_vjp: the forward keeps q, k, v, out
     and lse, the backward recomputes P from lse). The cu_seqlens get no
     gradient."""

@@ -19,6 +19,7 @@ from paddle_tpu_torch.jit import JittedTrainStep
 from paddle_tpu_torch.nlp import (LlamaConfig, LlamaForCausalLM,
                                   LlamaPretrainingCriterion)
 from paddle_tpu_torch.nn import functional as F
+from paddle_tpu_torch.ops.varlen_flash_attention import segment_mask
 from paddle_tpu_torch.optimizer import AdamW
 
 
@@ -585,9 +586,11 @@ def test_cuda_varlen_forward_past_65535_query_tiles(cuda, dtype, tol):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_varlen_kernels_are_deterministic(cuda, dtype):
-    """Two calls of K3 (out, lse) and of K8b (dk, dv) on the same inputs
-    are bit-equal (no atomics: recompute relies on it), at the packed
-    941M row's segments with a GQA group of 4."""
+    """Two calls of K3 (out, lse) and of the backward (dq, dk, dv: K8 in
+    bf16, whose dq adds across CTAs land in a fixed order; K8a and K8b in
+    f32) on the same inputs are bit-equal (no free atomics: recompute
+    relies on it), at the packed 941M row's segments with a GQA group of
+    4."""
     g = torch.Generator(device=cuda).manual_seed(6)
     cu = _cu([1600, 800, 600, 400, 300, 200, 120, 76], cuda)
     t = int(cu[-1])
@@ -597,25 +600,130 @@ def test_cuda_varlen_kernels_are_deterministic(cuda, dtype):
     for _ in range(2):
         out, lse = ops.varlen_flash_attention(q, k, v, cu, cu, causal=True,
                                               return_lse=True)
-        delta = ops.varlen_flash_attention_bwd_delta(out, do)
-        dk, dv = ops.varlen_flash_attention_bwd_dkv(q, k, v, do, lse, delta,
-                                                    cu, cu, True)
-        runs.append((out, lse, dk, dv))
+        runs.append((out, lse) + ops.varlen_flash_attention_bwd(
+            q, k, v, out, lse, do, cu, cu, True))
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+# chip_smoke's K8 shapes: (lens_q, lens_k or None, H, HK, window) at the
+# packed 941M row, GQA with a window, cross lengths and empty segments
+K8_SHAPES = {
+    "packed_941m": ([1600, 800, 600, 400, 300, 200, 120, 76], None, 32, 32,
+                    None),
+    "gqa_window": ([1600, 800, 600, 400, 300, 200, 120, 76], None, 32, 8,
+                   512),
+    "cross_lengths": ([1024, 512, 300, 76], [1600, 512, 700, 76], 32, 32,
+                      None),
+    "empty_segments": ([1600, 0, 800, 600, 0, 400, 300, 200, 120, 76, 0],
+                       None, 32, 32, None),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("shape", list(K8_SHAPES))
+def test_cuda_varlen_fused_backward_matches_plain(cuda, shape, d):
+    """K8 against the plain backward in bf16 at chip_smoke's shapes, with
+    chip_smoke's tolerance for kernels that round P and dS to bf16 before
+    a product (``close(..., p_rounded=True)``: one bf16 rounding step plus
+    1e-2): one launch for dq, dk and dv."""
+    lens_q, lens_k, h, hk, window = K8_SHAPES[shape]
+    g = torch.Generator(device=cuda).manual_seed(8)
+    cu_q = _cu(lens_q, cuda)
+    cu_k = cu_q if lens_k is None else _cu(lens_k, cuda)
+    tq, tk = int(cu_q[-1]), int(cu_k[-1])
+    q, do = (_rnd(g, torch.bfloat16, tq, h, d) for _ in range(2))
+    k, v = (_rnd(g, torch.bfloat16, tk, hk, d) for _ in range(2))
+    out, lse = ops.varlen_flash_attention(q, k, v, cu_q, cu_k, causal=True,
+                                          window_size=window,
+                                          return_lse=True)
+    delta = ops.varlen_flash_attention_bwd_delta(out, do)
+    ops.reset_launches()
+    got = ops.varlen_flash_attention_bwd_fused(
+        q, k, v, do, lse, delta, cu_q, cu_k, True, window_size=window)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["varlen_flash_attention_bwd"] == 1
+    want = ops.varlen_flash_attention_bwd_plain(
+        q, k, v, out, lse, do, cu_q, cu_k, True, window_size=window,
+        delta=delta)
+    for a, ref in zip(got, want):
+        assert a.dtype == torch.bfloat16 and a.shape == ref.shape
+        torch.testing.assert_close(a.float(), ref.float(), atol=1e-2,
+                                   rtol=2.0 ** -7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_cuda_varlen_fused_backward_many_short_segments(cuda, d):
+    """K8 over 1,500 segments of 0-8 tokens (several in one query tile,
+    empty ones among them), GQA 4/2, causal and with a window of 3,
+    against the plain backward with the fused test's tolerance."""
+    g = torch.Generator(device=cuda).manual_seed(10)
+    lens = np.random.default_rng(10).integers(0, 9, size=1500)
+    cu = _cu(lens, cuda)
+    t = int(cu[-1])
+    q, do = (_rnd(g, torch.bfloat16, t, 4, d) for _ in range(2))
+    k, v = (_rnd(g, torch.bfloat16, t, 2, d) for _ in range(2))
+    for window in (None, 3):
+        out, lse = ops.varlen_flash_attention(q, k, v, cu, cu, causal=True,
+                                              window_size=window,
+                                              return_lse=True)
+        delta = ops.varlen_flash_attention_bwd_delta(out, do)
+        got = ops.varlen_flash_attention_bwd_fused(
+            q, k, v, do, lse, delta, cu, cu, True, window_size=window)
+        want = ops.varlen_flash_attention_bwd_plain(
+            q, k, v, out, lse, do, cu, cu, True, window_size=window,
+            delta=delta)
+        for a, ref in zip(got, want):
+            torch.testing.assert_close(a.float(), ref.float(), atol=1e-2,
+                                       rtol=2.0 ** -7)
+
+
+@pytest.mark.cuda
+def test_cuda_varlen_fused_backward_zeroes_rows_without_keys(cuda):
+    """K8 writes dq = 0 on rows that see no key and on padding rows past
+    cu_q[-1], also where a whole query tile has no key tile to add to it
+    (a segment without keys, more queries than keys, 100 padding rows),
+    into a dq whose memory held NaNs before."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    lens_q, lens_k, pad = [6, 130, 12, 70], [9, 0, 4, 20], 100
+    cu_q, cu_k = _cu(lens_q, cuda), _cu(lens_k, cuda)
+    tq, tk = int(cu_q[-1]) + pad, int(cu_k[-1])
+    q, do = (_rnd(g, torch.bfloat16, tq, 4, 64) for _ in range(2))
+    k, v = (_rnd(g, torch.bfloat16, tk, 2, 64) for _ in range(2))
+    out, lse = ops.varlen_flash_attention(q, k, v, cu_q, cu_k, causal=True,
+                                          return_lse=True)
+    delta = ops.varlen_flash_attention_bwd_delta(out, do)
+    # the allocator hands the freed NaN block to the kernel's dq
+    torch.full_like(q, float("nan"))
+    dq, dk, dv = ops.varlen_flash_attention_bwd_fused(
+        q, k, v, do, lse, delta, cu_q, cu_k, True)
+    sees = segment_mask(cu_q, cu_k, tq, tk, True).any(1)
+    assert not sees[6:136].any() and not sees[-pad:].any()
+    assert float(dq[~sees].float().abs().max()) == 0.0
+    want = ops.varlen_flash_attention_bwd_plain(
+        q, k, v, out, lse, do, cu_q, cu_k, True, delta=delta)
+    for a, ref in zip((dq, dk, dv), want):
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a.float(), ref.float(), atol=1e-2,
+                                   rtol=2.0 ** -7)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 3e-2)])
 def test_cuda_varlen_backward_matches_plain(cuda, dtype, tol):
+    """bf16 runs the fused K8 (one launch for dq, dk and dv), f32 K8a and
+    K8b."""
     g = torch.Generator(device=cuda).manual_seed(5)
     # (lens_q, lens_k or None, H, HK, D, causal, window, padding rows):
     # ragged GQA, empty segments at D=128, cross lengths (causal and not),
     # a window band with a group of 8 (also over cross lengths), and rows
     # that see no key (a segment without keys, more queries than keys,
-    # padding past cu[-1]), and K8b's ring over many live query tiles of a
-    # group of 4
+    # padding past cu[-1]), a walk over many live query tiles of a group
+    # of 4, and key tiles dead inside a query tile's key range (a segment
+    # without queries; a window behind more keys than queries)
     for lens_q, lens_k, h, hk, d, causal, window, pad in (
             ([13, 37, 1, 77], None, 4, 2, 64, True, None, 0),
             ([700, 300, 5], None, 8, 2, 64, True, None, 0),
@@ -624,7 +732,10 @@ def test_cuda_varlen_backward_matches_plain(cuda, dtype, tol):
             ([9, 25, 140], [17, 125, 61], 4, 4, 64, False, None, 0),
             ([90, 25, 140, 0], [17, 125, 61, 30], 8, 2, 64, True, 20, 0),
             ([300, 70, 190], None, 8, 1, 128, True, 48, 0),
-            ([6, 10, 12], [9, 0, 4], 4, 2, 64, True, None, 5)):
+            ([6, 10, 12], [9, 0, 4], 4, 2, 64, True, None, 5),
+            ([100, 0, 100, 60], [100, 300, 100, 60], 4, 2, 128, True, None,
+             0),
+            ([40, 100], [40, 1000], 4, 2, 64, True, 64, 0)):
         cu_q = _cu(lens_q, cuda)
         cu_k = cu_q if lens_k is None else _cu(lens_k, cuda)
         tq, tk = int(cu_q[-1]) + pad, int(cu_k[-1])
@@ -640,12 +751,18 @@ def test_cuda_varlen_backward_matches_plain(cuda, dtype, tol):
         torch.testing.assert_close(out.float(), ref_out.float(), atol=tol,
                                    rtol=tol)
         torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-4)
+        ops.reset_launches()
         got = ops.varlen_flash_attention_bwd(q, k, v, out, lse, do, cu_q,
                                              cu_k, causal,
                                              window_size=window)
+        fused = dtype == torch.bfloat16
+        assert ops.LAUNCHES["varlen_flash_attention_bwd"] == int(fused)
+        assert ops.LAUNCHES["varlen_flash_attention_bwd_dq"] == int(not fused)
+        assert ops.LAUNCHES["varlen_flash_attention_bwd_dkv"] == \
+            int(not fused)
         want = ops.varlen_flash_attention_bwd_plain(
             q, k, v, out, lse, do, cu_q, cu_k, causal, window_size=window)
-        # K8b on its own, from the same lse and delta
+        # the public dk / dv part on its own, from the same lse and delta
         delta = ops.varlen_flash_attention_bwd_delta(out, do)
         dkv = ops.varlen_flash_attention_bwd_dkv(
             q, k, v, do, lse, delta, cu_q, cu_k, causal, window_size=window)
@@ -685,7 +802,7 @@ def test_cuda_packed_train_step_kernel_path_equals_plain_path(cuda,
         else:
             losses = [step([ids, cu], ids) for _ in range(3)]
             # 2 layers: forward K1 5 and K3 2 per step, again for the
-            # recomputed blocks; backward K6 5, K8a 2, K8b 2
+            # recomputed blocks; backward K6 5, K8a 2, K8b 2 (f32)
             fwd = 2 if recompute else 1
             want = {"rms_norm": 15 + 12 * (fwd - 1),
                     "varlen_flash_attention": 6 * fwd,

@@ -1,6 +1,6 @@
 """Packed (cu_seqlens) Llama pretraining and recompute in the port, held
 against paddle_tpu: rotary positions restarting per segment, attention
-that never crosses a segment (F.flash_attn_unpadded: K3 forward, K8a/K8b
+that never crosses a segment (F.flash_attn_unpadded: K3 forward, K8
 backward, their plain versions on the CPU), the packed criterion (unfused
 masked mean and fused ``ignore_index``), a packed ``JittedTrainStep``, and
 recompute at the reference's four granularities.

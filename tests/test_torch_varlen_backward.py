@@ -1,6 +1,6 @@
-"""The port's varlen flash-attention backward (K8a dq, K8b dk/dv): the
-plain backward and ``VarlenFlashAttentionFunction`` held against
-``jax.grad`` of paddle_tpu's Pallas varlen kernel.
+"""The port's varlen flash-attention backward (K8; K8a dq and K8b dk/dv
+in f32): the plain backward and ``VarlenFlashAttentionFunction`` held
+against ``jax.grad`` of paddle_tpu's Pallas varlen kernel.
 
 On the CPU the port's wrappers run their plain PyTorch versions and the
 Pallas kernel runs in interpret mode, so these tests check the plain
@@ -114,7 +114,7 @@ def test_function_and_plain_backward_match_pallas(name):
         _t(a["q"]), _t(a["k"]), _t(a["v"]), o, lse, do, cq, ck, causal,
         window_size=window)
     _assert_grads(plain, want, "plain")
-    # the K8a / K8b wrappers take their plain versions on CPU tensors
+    # the dq / dk, dv wrappers take their plain versions on CPU tensors
     delta = ops.varlen_flash_attention_bwd_delta(o, do)
     assert delta.shape == lse.shape and delta.dtype == torch.float32
     args = (_t(a["q"]), _t(a["k"]), _t(a["v"]), do, lse, delta, cq, ck,
