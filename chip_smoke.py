@@ -19,7 +19,9 @@ Phases (any failure raises and the script exits non-zero):
    and K8b at the packed row; K3 also at the packed 941M row and
    with GQA and a window; K2's int8 arm with static (HK,) scales and with
    per-row scale pools at the serving shape and at GQA 32/8, and K2's
-   static scales over float pools): max error, kernel / plain /
+   static scales over float pools; K2 also over one sequence and one KV
+   head of 4,096 tokens, K5 also at the generate run's own step, 4 rows
+   of 4,096 live tokens): max error, kernel / plain /
    library-call device times (torch.profiler, summed kernel durations;
    CUDA events where the profiler records none, as ``timers`` says; where
    several library calls compute the same function the fastest counts,
@@ -279,10 +281,10 @@ def k1_cases(torch, g, dev):
 
 
 def _paged_inputs(torch, g, dev, dtype, b, h, hk, d, bs, lens_list,
-                  pool_dtype=None):
+                  pool_dtype=None, reach=2048):
     """q in ``dtype`` over pools of ``pool_dtype`` (default q's; int8 pools
-    hold the whole int8 range)."""
-    w = 2048 // bs
+    hold the whole int8 range), tables of ``reach`` tokens."""
+    w = reach // bs
     num_blocks = b * w + 1
     shape = (num_blocks, bs, hk, d)
     if pool_dtype == torch.int8:
@@ -309,65 +311,70 @@ def k2_cases(torch, g, dev):
     from paddle_tpu_torch import ops
     import torch.nn.functional as tF
 
-    b, d, bs = 8, 128, 32
-    lens_list = [1, 31, 32, 33, 500, 1024, 2047, 2048]
-    for dtype in (torch.bfloat16, torch.float32):
-        # MHA, GQA 4, and Qwen2-7B's group of 7 (28 query heads over 4)
-        for h, hk in ((32, 32), (32, 8), (28, 4)):
-            q, kp, vp, tables, lens = _paged_inputs(
-                torch, g, dev, dtype, b, h, hk, d, bs, lens_list)
-            # the library yardstick: SDPA over the dense gathered cache
-            lmax = max(lens_list)
-            nb = -(-lmax // bs)
-            safe = torch.where(
-                torch.arange(nb, device=dev)[None] * bs < lens[:, None],
-                tables[:, :nb], 0).long()
-            kd = kp[safe].reshape(b, nb * bs, hk, d).repeat_interleave(
-                h // hk, dim=2).transpose(1, 2).contiguous()
-            vd = vp[safe].reshape(b, nb * bs, hk, d).repeat_interleave(
-                h // hk, dim=2).transpose(1, 2).contiguous()
-            mask = (torch.arange(nb * bs, device=dev)[None]
-                    < lens[:, None])[:, None, None, :]
-            q4 = q[:, :, None, :]
-            e = q.element_size()
-            live = sum(lens_list)
-            nbytes = (2 * b * h * d + 2 * live * hk * d) * e \
-                + 4 * (b + sum(-(-ln // bs) for ln in lens_list))
-            yield dict(
-                name="paged_decode_attention", dtype=dtype,
-                shape=f"B={b},H={h},HK={hk},D={d},BS={bs},lens={lens_list}",
-                primary=(hk == 32 and dtype == torch.bfloat16),
-                kernel=lambda: ops.paged_decode_attention(q, kp, vp, tables,
-                                                          lens),
-                plain=lambda: ops.paged_decode_attention_plain(
-                    q, kp, vp, tables, lens),
-                library=lambda: tF.scaled_dot_product_attention(
-                    q4, kd, vd, attn_mask=mask),
-                bound=bound_ms(nbytes, 4.0 * live * h * d,
-                               str(dtype).removeprefix("torch.")))
-            if hk != 32:
-                continue
-            # the static-scale mode over float pools: (HK,) k and v scales
-            # (the TPU kernel's has_scales arm on a float pool); the
-            # yardstick scales the gathered dense cache, then one SDPA call
-            ks = torch.rand(hk, generator=g, device=dev) * 1.5 + 0.25
-            vs = torch.rand(hk, generator=g, device=dev) * 1.5 + 0.25
-            ksr = ks.repeat_interleave(h // hk)[None, :, None, None]
-            vsr = vs.repeat_interleave(h // hk)[None, :, None, None]
-            yield dict(
-                name="paged_decode_attention_scaled", dtype=dtype,
-                shape=f"B={b},H={h},HK={hk},D={d},BS={bs},lens={lens_list},"
-                      f"(HK,) scales",
-                primary=(dtype == torch.bfloat16),
-                kernel=lambda: ops.paged_decode_attention(
-                    q, kp, vp, tables, lens, k_scale=ks, v_scale=vs),
-                plain=lambda: ops.paged_decode_attention_plain(
-                    q, kp, vp, tables, lens, k_scale=ks, v_scale=vs),
-                library=lambda: tF.scaled_dot_product_attention(
-                    q4, (kd * ksr).to(dtype), (vd * vsr).to(dtype),
-                    attn_mask=mask),
-                bound=bound_ms(nbytes + 2 * 4 * hk, 4.0 * live * h * d,
-                               str(dtype).removeprefix("torch.")))
+    d, bs = 128, 32
+    # B=8 sequences of 1-2,048 tokens; then one sequence and one head over
+    # 4,096 tokens (the split plan's smallest B x HK), bf16 only
+    shapes = [(8, [1, 31, 32, 33, 500, 1024, 2047, 2048], dtype, h, hk)
+              for dtype in (torch.bfloat16, torch.float32)
+              # MHA, GQA 4, and Qwen2-7B's group of 7 (28 query heads over 4)
+              for h, hk in ((32, 32), (32, 8), (28, 4))]
+    shapes.append((1, [4096], torch.bfloat16, 1, 1))
+    for b, lens_list, dtype, h, hk in shapes:
+        q, kp, vp, tables, lens = _paged_inputs(
+            torch, g, dev, dtype, b, h, hk, d, bs, lens_list,
+            reach=max(2048, lens_list[-1]))
+        # the library yardstick: SDPA over the dense gathered cache
+        lmax = max(lens_list)
+        nb = -(-lmax // bs)
+        safe = torch.where(
+            torch.arange(nb, device=dev)[None] * bs < lens[:, None],
+            tables[:, :nb], 0).long()
+        kd = kp[safe].reshape(b, nb * bs, hk, d).repeat_interleave(
+            h // hk, dim=2).transpose(1, 2).contiguous()
+        vd = vp[safe].reshape(b, nb * bs, hk, d).repeat_interleave(
+            h // hk, dim=2).transpose(1, 2).contiguous()
+        mask = (torch.arange(nb * bs, device=dev)[None]
+                < lens[:, None])[:, None, None, :]
+        q4 = q[:, :, None, :]
+        e = q.element_size()
+        live = sum(lens_list)
+        nbytes = (2 * b * h * d + 2 * live * hk * d) * e \
+            + 4 * (b + sum(-(-ln // bs) for ln in lens_list))
+        yield dict(
+            name="paged_decode_attention", dtype=dtype,
+            shape=f"B={b},H={h},HK={hk},D={d},BS={bs},lens={lens_list}",
+            primary=(hk == 32 and dtype == torch.bfloat16),
+            kernel=lambda: ops.paged_decode_attention(q, kp, vp, tables,
+                                                      lens),
+            plain=lambda: ops.paged_decode_attention_plain(
+                q, kp, vp, tables, lens),
+            library=lambda: tF.scaled_dot_product_attention(
+                q4, kd, vd, attn_mask=mask),
+            bound=bound_ms(nbytes, 4.0 * live * h * d,
+                           str(dtype).removeprefix("torch.")))
+        if hk != 32:
+            continue
+        # the static-scale mode over float pools: (HK,) k and v scales
+        # (the TPU kernel's has_scales arm on a float pool); the
+        # yardstick scales the gathered dense cache, then one SDPA call
+        ks = torch.rand(hk, generator=g, device=dev) * 1.5 + 0.25
+        vs = torch.rand(hk, generator=g, device=dev) * 1.5 + 0.25
+        ksr = ks.repeat_interleave(h // hk)[None, :, None, None]
+        vsr = vs.repeat_interleave(h // hk)[None, :, None, None]
+        yield dict(
+            name="paged_decode_attention_scaled", dtype=dtype,
+            shape=f"B={b},H={h},HK={hk},D={d},BS={bs},lens={lens_list},"
+                  f"(HK,) scales",
+            primary=(dtype == torch.bfloat16),
+            kernel=lambda: ops.paged_decode_attention(
+                q, kp, vp, tables, lens, k_scale=ks, v_scale=vs),
+            plain=lambda: ops.paged_decode_attention_plain(
+                q, kp, vp, tables, lens, k_scale=ks, v_scale=vs),
+            library=lambda: tF.scaled_dot_product_attention(
+                q4, (kd * ksr).to(dtype), (vd * vsr).to(dtype),
+                attn_mask=mask),
+            bound=bound_ms(nbytes + 2 * 4 * hk, 4.0 * live * h * d,
+                           str(dtype).removeprefix("torch.")))
 
 
 def k2_int8_cases(torch, g, dev):
@@ -636,38 +643,43 @@ def k5_cases(torch, g, dev):
     import torch.nn.functional as tF
 
     b, d, s_max = 4, 128, 4096
-    lens_list = [1, 1500, 3000, 4096]
-    lens = torch.tensor(lens_list, dtype=torch.int32, device=dev)
-    mask = (torch.arange(s_max, device=dev)[None]
-            < lens[:, None])[:, None, None, :]
-    # Mistral's GQA 4, MHA, and Qwen2-7B's group of 7
-    for h, hk in ((32, 8), (32, 32), (28, 4)):
-        for dtype in (torch.bfloat16, torch.float32):
-            q = torch.randn(b, h, d, generator=g, device=dev).to(dtype)
-            kc = torch.randn(b, s_max, hk, d, generator=g,
-                             device=dev).to(dtype)
-            vc = torch.randn(b, s_max, hk, d, generator=g,
-                             device=dev).to(dtype)
-            q4 = q[:, :, None, :]
-            kt, vt = _sdpa_layout(torch, kc, h // hk), _sdpa_layout(
-                torch, vc, h // hk)
-            e = q.element_size()
-            live = sum(lens_list)
-            nbytes = (2 * b * h * d + 2 * live * hk * d) * e + 4 * b
-            yield dict(
-                name="decode_attention", dtype=dtype,
-                shape=f"B={b},H={h},HK={hk},D={d},S_max={s_max},"
-                      f"lens={lens_list}",
-                primary=(hk == 8 and dtype == torch.bfloat16),
-                kernel=lambda q=q, kc=kc, vc=vc: ops.decode_attention(
-                    q, kc, vc, lens),
-                plain=lambda q=q, kc=kc, vc=vc: ops.decode_attention_plain(
-                    q, kc, vc, lens),
-                library=lambda q4=q4, kt=kt, vt=vt:
-                    tF.scaled_dot_product_attention(q4, kt, vt,
-                                                    attn_mask=mask),
-                # the kernel upcasts to f32: its products run at the f32 rate
-                bound=bound_ms(nbytes, 4.0 * live * h * d, "float32"))
+    # Mistral's GQA 4, MHA, and Qwen2-7B's group of 7 over 1-4,096 live
+    # tokens; then the generate run's own step (4 rows of 4,096 live tokens
+    # in the rolling 4,096-token buffer), bf16
+    shapes = [([1, 1500, 3000, 4096], h, hk, dtype)
+              for h, hk in ((32, 8), (32, 32), (28, 4))
+              for dtype in (torch.bfloat16, torch.float32)]
+    shapes.append(([s_max] * b, 32, 8, torch.bfloat16))
+    for lens_list, h, hk, dtype in shapes:
+        lens = torch.tensor(lens_list, dtype=torch.int32, device=dev)
+        mask = (torch.arange(s_max, device=dev)[None]
+                < lens[:, None])[:, None, None, :]
+        q = torch.randn(b, h, d, generator=g, device=dev).to(dtype)
+        kc = torch.randn(b, s_max, hk, d, generator=g,
+                         device=dev).to(dtype)
+        vc = torch.randn(b, s_max, hk, d, generator=g,
+                         device=dev).to(dtype)
+        q4 = q[:, :, None, :]
+        kt, vt = _sdpa_layout(torch, kc, h // hk), _sdpa_layout(
+            torch, vc, h // hk)
+        e = q.element_size()
+        live = sum(lens_list)
+        nbytes = (2 * b * h * d + 2 * live * hk * d) * e + 4 * b
+        yield dict(
+            name="decode_attention", dtype=dtype,
+            shape=f"B={b},H={h},HK={hk},D={d},S_max={s_max},"
+                  f"lens={lens_list}",
+            primary=(hk == 8 and dtype == torch.bfloat16
+                     and lens_list[0] == 1),
+            kernel=lambda q=q, kc=kc, vc=vc, lens=lens:
+                ops.decode_attention(q, kc, vc, lens),
+            plain=lambda q=q, kc=kc, vc=vc, lens=lens:
+                ops.decode_attention_plain(q, kc, vc, lens),
+            library=lambda q4=q4, kt=kt, vt=vt, mask=mask:
+                tF.scaled_dot_product_attention(q4, kt, vt,
+                                                attn_mask=mask),
+            bound=bound_ms(nbytes, 4.0 * live * h * d,
+                           str(dtype).removeprefix("torch.")))
 
 
 def k6_cases(torch, g, dev):

@@ -12,17 +12,21 @@
 // the int8 serving engine's pools, for which the reference has only an
 // XLA gather (`_xla_paged_decode_attn(ks=, vs=)` in serving/engine.py).
 //
-// Bound and design: split_decode.cuh (bytes-bound; grid B x HK x splits of
-// 128 tokens, one warp per token stream, a second pass merges the splits).
+// Bound and design: split_decode.cuh (bytes-bound; one launch of
+// stretches planned on the host, a cp.async ring, tensor cores for bf16
+// queries, the splits merged by the last CTA of each sequence and head).
 // An int8 row is half a bf16 row's bytes (plus 4 bytes of scale per K or
 // V row in the per-row mode). The address policy below maps a token to its
 // pool row through the block table. Only table entries below
 // ceil(len / block_size) are read: the engine leaves later entries
 // arbitrary, and a stale id may lie outside the pool (such a row is
 // skipped, never dereferenced).
+#include <climits>
+
 #include "split_decode.cuh"
 
 using namespace ptt;
+namespace sd = ptt::split_decode;
 
 namespace {
 
@@ -32,56 +36,59 @@ struct PagedRows {
   const int* tables;  // (B, w)
   const int* lens;    // (B,)
   // dequant scales: (HK,) for kHeadScale, (num_blocks, block_size, HK)
-  // for kRowScale (row-major: a pool row's index); unused for kNoScale
+  // for kRowScale (row-major: a pool row's index times HK plus the
+  // head's); unused for kNoScale
   const float* k_scale;
   const float* v_scale;
-  int num_blocks, bs, w, hk, d;
+  int num_blocks, bs, w;
 
   __device__ int length(int b) const { return min(lens[b], w * bs); }
 
-  __device__ bool row(int b, int pos, int kvh, size_t* off) const {
+  __device__ int row(int b, int pos) const {
     const int blk = tables[static_cast<size_t>(b) * w + pos / bs];
-    if (blk < 0 || blk >= num_blocks) return false;
-    *off = ((static_cast<size_t>(blk) * bs + pos % bs) * hk + kvh) * d;
-    return true;
-  }
-
-  __device__ float2 scales(int kvh, size_t row) const {
-    const size_t i = Scale == split_decode::kHeadScale ? kvh : row;
-    return make_float2(k_scale[i], v_scale[i]);
+    if (blk < 0 || blk >= num_blocks) return -1;
+    return blk * bs + pos % bs;
   }
 };
 
-bool valid(const void* q, const void* k_pool, const void* v_pool, int h,
-           int hk, int block_size, int table_width, int nsplit) {
-  return hk > 0 && h % hk == 0 && h / hk <= split_decode::kMaxGroup &&
-         block_size > 0 && table_width > 0 &&
-         nsplit * split_decode::kSplitTokens >= table_width * block_size &&
-         aligned16(q) && aligned16(k_pool) && aligned16(v_pool);
+// False for a pool, table or plan the kernel refuses.
+bool checked(const sd::Launch& a, int num_blocks, int block_size,
+             int table_width) {
+  return block_size > 0 && table_width > 0 && num_blocks >= 0 &&
+         static_cast<long long>(num_blocks) * block_size <= INT_MAX &&
+         sd::valid(a, static_cast<long long>(table_width) * block_size);
 }
 
 }  // namespace
 
-extern "C" int ptt_paged_split_tokens() { return split_decode::kSplitTokens; }
+// The plan's limits (ops/split_decode.py checks them when it loads the
+// library): 0 the stretch unit, 1 the longest stretch, 2 the most splits.
+extern "C" int ptt_decode_split_limit(int which) {
+  return which == 0 ? sd::kStretchUnit
+                    : (which == 1 ? sd::kMaxStretch : sd::kMaxSplits);
+}
 
 // part_o: (B, HK, nsplit, G, D) f32 and part_ml: (B, HK, nsplit, G, 2)
-// f32 scratch, nsplit >= ceil(table_width * block_size / split tokens).
+// f32 scratch (unused when nsplit is 1); tickets: B * HK int32, zero
+// (each launch leaves them zero). stretch, nsplit: the plan
+// (ops/split_decode.py), nsplit * stretch >= table_width * block_size.
 extern "C" int ptt_paged_decode_attention(
     const void* q, const void* k_pool, const void* v_pool,
     const void* tables, const void* lens, void* out, void* part_o,
-    void* part_ml, int b, int h, int hk, int d, int num_blocks,
-    int block_size, int table_width, int nsplit, float sm_scale, int dtype,
-    void* stream) {
+    void* part_ml, void* tickets, int b, int h, int hk, int d,
+    int num_blocks, int block_size, int table_width, int stretch,
+    int nsplit, float sm_scale, int dtype, void* stream) {
   if (b <= 0) return 0;
-  if (!valid(q, k_pool, v_pool, h, hk, block_size, table_width, nsplit))
+  const sd::Launch a{q, k_pool, v_pool, out, static_cast<float*>(part_o),
+                     static_cast<float*>(part_ml),
+                     static_cast<int*>(tickets), b, h, hk, stretch, nsplit,
+                     sm_scale, static_cast<cudaStream_t>(stream)};
+  if (!checked(a, num_blocks, block_size, table_width))
     return static_cast<int>(cudaErrorInvalidValue);
-  const PagedRows<split_decode::kNoScale> rows{
+  const PagedRows<sd::kNoScale> rows{
       static_cast<const int*>(tables), static_cast<const int*>(lens),
-      nullptr, nullptr, num_blocks, block_size, table_width, hk, d};
-  return split_decode::dispatch(
-      q, k_pool, v_pool, rows, out, static_cast<float*>(part_o),
-      static_cast<float*>(part_ml), b, h, hk, d, nsplit, sm_scale, dtype,
-      static_cast<cudaStream_t>(stream));
+      nullptr, nullptr, num_blocks, block_size, table_width};
+  return sd::dispatch(a, rows, d, dtype);
 }
 
 // The int8 arm: int8 pools, q and out f32 or bf16 (dtype). per_row = 0:
@@ -90,31 +97,29 @@ extern "C" int ptt_paged_decode_attention(
 extern "C" int ptt_paged_decode_attention_int8(
     const void* q, const void* k_pool, const void* v_pool,
     const void* k_scale, const void* v_scale, const void* tables,
-    const void* lens, void* out, void* part_o, void* part_ml, int b, int h,
-    int hk, int d, int num_blocks, int block_size, int table_width,
-    int nsplit, float sm_scale, int dtype, int per_row, void* stream) {
+    const void* lens, void* out, void* part_o, void* part_ml, void* tickets,
+    int b, int h, int hk, int d, int num_blocks, int block_size,
+    int table_width, int stretch, int nsplit, float sm_scale, int dtype,
+    int per_row, void* stream) {
   if (b <= 0) return 0;
-  if (!valid(q, k_pool, v_pool, h, hk, block_size, table_width, nsplit))
+  const sd::Launch a{q, k_pool, v_pool, out, static_cast<float*>(part_o),
+                     static_cast<float*>(part_ml),
+                     static_cast<int*>(tickets), b, h, hk, stretch, nsplit,
+                     sm_scale, static_cast<cudaStream_t>(stream)};
+  if (!checked(a, num_blocks, block_size, table_width))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto* tbl = static_cast<const int*>(tables);
   const auto* ln = static_cast<const int*>(lens);
   const auto* ks = static_cast<const float*>(k_scale);
   const auto* vs = static_cast<const float*>(v_scale);
-  auto* po = static_cast<float*>(part_o);
-  auto* pml = static_cast<float*>(part_ml);
-  auto* st = static_cast<cudaStream_t>(stream);
   if (per_row) {
-    const PagedRows<split_decode::kRowScale> rows{
-        tbl, ln, ks, vs, num_blocks, block_size, table_width, hk, d};
-    return split_decode::dispatch<true>(q, k_pool, v_pool, rows, out, po,
-                                        pml, b, h, hk, d, nsplit, sm_scale,
-                                        dtype, st);
+    const PagedRows<sd::kRowScale> rows{tbl, ln, ks, vs, num_blocks,
+                                        block_size, table_width};
+    return sd::dispatch<true>(a, rows, d, dtype);
   }
-  const PagedRows<split_decode::kHeadScale> rows{
-      tbl, ln, ks, vs, num_blocks, block_size, table_width, hk, d};
-  return split_decode::dispatch<true>(q, k_pool, v_pool, rows, out, po, pml,
-                                      b, h, hk, d, nsplit, sm_scale, dtype,
-                                      st);
+  const PagedRows<sd::kHeadScale> rows{tbl, ln, ks, vs, num_blocks,
+                                       block_size, table_width};
+  return sd::dispatch<true>(a, rows, d, dtype);
 }
 
 // The static-scale arm over float pools of q's dtype (dtype): the TPU
@@ -123,18 +128,20 @@ extern "C" int ptt_paged_decode_attention_int8(
 extern "C" int ptt_paged_decode_attention_scaled(
     const void* q, const void* k_pool, const void* v_pool,
     const void* k_scale, const void* v_scale, const void* tables,
-    const void* lens, void* out, void* part_o, void* part_ml, int b, int h,
-    int hk, int d, int num_blocks, int block_size, int table_width,
-    int nsplit, float sm_scale, int dtype, void* stream) {
+    const void* lens, void* out, void* part_o, void* part_ml, void* tickets,
+    int b, int h, int hk, int d, int num_blocks, int block_size,
+    int table_width, int stretch, int nsplit, float sm_scale, int dtype,
+    void* stream) {
   if (b <= 0) return 0;
-  if (!valid(q, k_pool, v_pool, h, hk, block_size, table_width, nsplit))
+  const sd::Launch a{q, k_pool, v_pool, out, static_cast<float*>(part_o),
+                     static_cast<float*>(part_ml),
+                     static_cast<int*>(tickets), b, h, hk, stretch, nsplit,
+                     sm_scale, static_cast<cudaStream_t>(stream)};
+  if (!checked(a, num_blocks, block_size, table_width))
     return static_cast<int>(cudaErrorInvalidValue);
-  const PagedRows<split_decode::kHeadScale> rows{
+  const PagedRows<sd::kHeadScale> rows{
       static_cast<const int*>(tables), static_cast<const int*>(lens),
       static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
-      num_blocks, block_size, table_width, hk, d};
-  return split_decode::dispatch(
-      q, k_pool, v_pool, rows, out, static_cast<float*>(part_o),
-      static_cast<float*>(part_ml), b, h, hk, d, nsplit, sm_scale, dtype,
-      static_cast<cudaStream_t>(stream));
+      num_blocks, block_size, table_width};
+  return sd::dispatch(a, rows, d, dtype);
 }

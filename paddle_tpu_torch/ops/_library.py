@@ -28,6 +28,8 @@ from pathlib import Path
 
 import torch
 
+from . import split_decode as sd
+
 __all__ = ["LAUNCHES", "reset_launches", "plain_versions", "use_plain",
            "refuse_grad", "library", "check_status", "cuda_stream",
            "BUILD_DIR"]
@@ -42,11 +44,6 @@ HEADERS = ("common.cuh", "split_decode.cuh", "flash_f32.cuh", "flash_mma.cuh",
            "varlen_seg.cuh", "wgmma.cuh", "tma.cuh", "bwd_fused.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-lineinfo", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-
-# tokens of one sequence each CTA of the paged and contiguous decode
-# kernels covers (split_decode.cuh's kSplitTokens, checked against it when
-# the library loads)
-SPLIT_TOKENS = 128
 
 # kernel name -> launches since the last reset_launches()
 LAUNCHES = {"rms_norm": 0, "paged_decode_attention": 0,
@@ -170,31 +167,31 @@ def _declare(lib):
     sigs = {
         # x, w, y, rstd, rows, n, eps, dtype, stream
         "ptt_rms_norm": (p, p, p, p, i, i, f, i, p),
-        # q, k_pool, v_pool, tables, lens, out, part_o, part_ml, b, h,
-        # hk, d, num_blocks, block_size, table_width, nsplit, sm_scale,
-        # dtype, stream
-        "ptt_paged_decode_attention": (p, p, p, p, p, p, p, p, i, i, i, i,
-                                       i, i, i, i, f, i, p),
-        # q, k_pool, v_pool, k_scale, v_scale, tables, lens, out, part_o,
-        # part_ml, b, h, hk, d, num_blocks, block_size, table_width,
-        # nsplit, sm_scale, dtype, per_row, stream
-        "ptt_paged_decode_attention_int8": (p, p, p, p, p, p, p, p, p, p, i,
-                                            i, i, i, i, i, i, i, f, i, i,
-                                            p),
-        # q, k_pool, v_pool, k_scale, v_scale, tables, lens, out, part_o,
-        # part_ml, b, h, hk, d, num_blocks, block_size, table_width,
+        # q, k_pool, v_pool, tables, lens, out, part_o, part_ml, tickets,
+        # b, h, hk, d, num_blocks, block_size, table_width, stretch,
         # nsplit, sm_scale, dtype, stream
+        "ptt_paged_decode_attention": (p, p, p, p, p, p, p, p, p, i, i, i,
+                                       i, i, i, i, i, i, f, i, p),
+        # q, k_pool, v_pool, k_scale, v_scale, tables, lens, out, part_o,
+        # part_ml, tickets, b, h, hk, d, num_blocks, block_size,
+        # table_width, stretch, nsplit, sm_scale, dtype, per_row, stream
+        "ptt_paged_decode_attention_int8": (p, p, p, p, p, p, p, p, p, p, p,
+                                            i, i, i, i, i, i, i, i, i, f, i,
+                                            i, p),
+        # q, k_pool, v_pool, k_scale, v_scale, tables, lens, out, part_o,
+        # part_ml, tickets, b, h, hk, d, num_blocks, block_size,
+        # table_width, stretch, nsplit, sm_scale, dtype, stream
         "ptt_paged_decode_attention_scaled": (p, p, p, p, p, p, p, p, p, p,
-                                              i, i, i, i, i, i, i, i, f, i,
-                                              p),
+                                              p, i, i, i, i, i, i, i, i, i,
+                                              f, i, p),
         # q, k, v, cu_q, cu_k, order, out, lse, tq, tk, nseg, h, hk, d,
         # causal, window, sm_scale, dtype, stream
         "ptt_varlen_flash_attention": (p, p, p, p, p, p, p, p, i, i, i, i,
                                        i, i, i, i, f, i, p),
-        # q, k_cache, v_cache, lens, out, part_o, part_ml, b, h, hk, d,
-        # s_max, nsplit, sm_scale, dtype, stream
-        "ptt_decode_attention": (p, p, p, p, p, p, p, i, i, i, i, i, i, f, i,
-                                 p),
+        # q, k_cache, v_cache, lens, out, part_o, part_ml, tickets, b, h,
+        # hk, d, s_max, stretch, nsplit, sm_scale, dtype, stream
+        "ptt_decode_attention": (p, p, p, p, p, p, p, p, i, i, i, i, i, i, i,
+                                 f, i, p),
         # q, k, v, out, lse, b, sq, sk, h, hk, d, causal, window, sm_scale,
         # dtype, stream
         "ptt_flash_attention": (p, p, p, p, p, i, i, i, i, i, i, i, i, f, i,
@@ -234,13 +231,14 @@ def _declare(lib):
         fn = getattr(lib, name)
         fn.argtypes = list(args)
         fn.restype = ctypes.c_int
-    lib.ptt_paged_split_tokens.argtypes = []
-    lib.ptt_paged_split_tokens.restype = ctypes.c_int
+    lib.ptt_decode_split_limit.argtypes = [ctypes.c_int]
+    lib.ptt_decode_split_limit.restype = ctypes.c_int
     lib.ptt_error_string.argtypes = [ctypes.c_int]
     lib.ptt_error_string.restype = ctypes.c_char_p
-    if lib.ptt_paged_split_tokens() != SPLIT_TOKENS:
-        raise RuntimeError("split_decode.cuh and _library.py disagree on "
-                           "the split size")
+    limits = (sd.STRETCH_UNIT, sd.MAX_STRETCH, sd.MAX_SPLITS)
+    if tuple(lib.ptt_decode_split_limit(i) for i in range(3)) != limits:
+        raise RuntimeError("split_decode.cuh and ops/split_decode.py "
+                           "disagree on the decode plan's limits")
     return lib
 
 

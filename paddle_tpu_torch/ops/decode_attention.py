@@ -16,12 +16,13 @@ import math
 import torch
 
 from . import _library as L
+from . import split_decode as SD
 
 __all__ = ["decode_attention", "decode_attention_plain"]
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)  # D the kernel is built for (D / 32 dims per lane)
+_HEAD_DIMS = (64, 128)  # D the kernel is built for
 _MAX_GROUP = 8  # query heads per KV head the kernel takes (1..8)
 
 
@@ -119,18 +120,15 @@ def decode_attention(q, k_cache, v_cache, seq_lens, sm_scale=None):
         raise ValueError("decode_attention kernel needs 16-byte aligned q "
                          "and caches")
     lib = L.library()
-    nsplit = -(-s_max // L.SPLIT_TOKENS)
     g = h // hk
-    # per-split partial results (G x D accumulators, then G x (max, sum)),
-    # merged by the kernel's second pass
-    n_o = b * hk * nsplit * g * d
-    part = torch.empty(n_o + b * hk * nsplit * g * 2, dtype=torch.float32,
-                       device=q3.device)
+    splits = SD.plan_for(b * hk, s_max, 2 * d * k_cache.element_size(),
+                         q3.device)
+    ptrs, part = SD.workspace(splits, b * hk, g, d, q3.device)
     out = torch.empty_like(qk)
     status = lib.ptt_decode_attention(
         qk.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        seq_lens.data_ptr(), out.data_ptr(), part.data_ptr(),
-        part[n_o:].data_ptr(), b, h, hk, d, s_max, nsplit, float(sm_scale),
+        seq_lens.data_ptr(), out.data_ptr(), *ptrs, b, h, hk, d, s_max,
+        splits.stretch, splits.nsplit, float(sm_scale),
         _DTYPES[k_cache.dtype], L.cuda_stream(q3))
     L.check_status("decode_attention", status)
     L.LAUNCHES["decode_attention"] += 1

@@ -22,13 +22,14 @@ import math
 import torch
 
 from . import _library as L
+from . import split_decode as SD
 
 __all__ = ["paged_decode_attention", "paged_decode_attention_plain",
            "paged_cache_write"]
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)  # D the kernel is built for (D / 32 dims per lane)
+_HEAD_DIMS = (64, 128)  # D the kernel is built for
 _MAX_GROUP = 8  # query heads per KV head the kernel takes (1..8)
 
 
@@ -168,35 +169,30 @@ def _launch(name, q, k_pool, v_pool, block_tables, seq_lens, sm_scale,
         raise ValueError(f"{name} kernel needs 16-byte aligned q and pools")
     lib = L.library()
     w = block_tables.shape[1]
-    nsplit = -(-w * bs // L.SPLIT_TOKENS)
-    # per-split partial results (G x D accumulators, then G x (max, sum)),
-    # merged by the kernel's second pass
-    n_o = b * hk * nsplit * (h // hk) * d
-    part = torch.empty(n_o + b * hk * nsplit * (h // hk) * 2,
-                       dtype=torch.float32, device=q.device)
+    splits = SD.plan_for(b * hk, w * bs, 2 * d * k_pool.element_size(),
+                         q.device)
+    ptrs, part = SD.workspace(splits, b * hk, h // hk, d, q.device)
     out = torch.empty_like(q)
-    geometry = (b, h, hk, d, num_blocks, bs, w, nsplit, float(sm_scale),
-                _DTYPES[q.dtype])
+    scratch = (out.data_ptr(), *ptrs)
+    geometry = (b, h, hk, d, num_blocks, bs, w, splits.stretch,
+                splits.nsplit, float(sm_scale), _DTYPES[q.dtype])
     if scales is None:
         status = lib.ptt_paged_decode_attention(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-            part.data_ptr(), part[n_o:].data_ptr(), *geometry,
-            L.cuda_stream(q))
+            block_tables.data_ptr(), seq_lens.data_ptr(), *scratch,
+            *geometry, L.cuda_stream(q))
     elif not int8:
         status = lib.ptt_paged_decode_attention_scaled(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             scales[0].data_ptr(), scales[1].data_ptr(),
-            block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-            part.data_ptr(), part[n_o:].data_ptr(), *geometry,
-            L.cuda_stream(q))
+            block_tables.data_ptr(), seq_lens.data_ptr(), *scratch,
+            *geometry, L.cuda_stream(q))
     else:
         status = lib.ptt_paged_decode_attention_int8(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             scales[0].data_ptr(), scales[1].data_ptr(),
-            block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-            part.data_ptr(), part[n_o:].data_ptr(), *geometry, int(per_row),
-            L.cuda_stream(q))
+            block_tables.data_ptr(), seq_lens.data_ptr(), *scratch,
+            *geometry, int(per_row), L.cuda_stream(q))
     L.check_status(name, status)
     return out
 

@@ -63,6 +63,8 @@ def test_cuda_kernels_match_plain(cuda, dtype, tol):
             tables[i, -(-ln // bs):] = 10 ** 6      # never read
         q = _rnd(g, dtype, 4, h, 128)
         out = ops.paged_decode_attention(q, kp, vp, tables, lens)
+        assert torch.equal(out, ops.paged_decode_attention(q, kp, vp, tables,
+                                                           lens))
         ref = ops.paged_decode_attention_plain(q, kp, vp, tables, lens)
         torch.testing.assert_close(out.float(), ref.float(), atol=tol,
                                    rtol=tol)
@@ -120,6 +122,8 @@ def test_cuda_paged_int8_matches_plain(cuda, dtype, tol):
                            (dict(k_scale=ks), q)):
                 out = ops.paged_decode_attention(qq, kp, vp, tables, lens,
                                                  **kw)
+                assert torch.equal(out, ops.paged_decode_attention(
+                    qq, kp, vp, tables, lens, **kw))
                 ref = ops.paged_decode_attention_plain(qq, kp, vp, tables,
                                                        lens, **kw)
                 vmax = 128 * float(kw.get("v_scale", torch.ones(1)).max())
@@ -130,6 +134,8 @@ def test_cuda_paged_int8_matches_plain(cuda, dtype, tol):
             rvs = torch.rand(nb, bs, hk, generator=g, device=cuda) * 0.02
             out = _paged_decode_attention_rows(q, kp, vp, rks, rvs, tables,
                                                lens)
+            assert torch.equal(out, _paged_decode_attention_rows(
+                q, kp, vp, rks, rvs, tables, lens))
             ref = _paged_decode_attention_rows_plain(q, kp, vp, rks, rvs,
                                                      tables, lens)
             vmax = 128 * float(rvs.max())
@@ -167,6 +173,8 @@ def test_cuda_paged_float_scaled_matches_plain(cuda, dtype, tol):
                                                  **kw)
                 assert ops.LAUNCHES["paged_decode_attention_scaled"] == 1
                 assert ops.LAUNCHES["paged_decode_attention"] == 0
+                assert torch.equal(out, ops.paged_decode_attention(
+                    q, kp, vp, tables, lens, **kw))
                 ref = ops.paged_decode_attention_plain(q, kp, vp, tables,
                                                        lens, **kw)
                 vmax = float(kw.get("v_scale", torch.ones(1)).max())
@@ -306,6 +314,7 @@ def test_cuda_decode_attention_matches_plain(cuda, dtype, tol):
                   _rnd(g, dtype, b, s_max, hk, d))
         sl = torch.tensor(lens, dtype=torch.int32, device=cuda)
         out = ops.decode_attention(q, kc, vc, sl)
+        assert torch.equal(out, ops.decode_attention(q, kc, vc, sl))
         ref = ops.decode_attention_plain(q, kc, vc, sl)
         torch.testing.assert_close(out.float(), ref.float(), atol=tol,
                                    rtol=tol)
@@ -317,6 +326,115 @@ def test_cuda_decode_attention_matches_plain(cuda, dtype, tol):
     torch.testing.assert_close(
         out.float(), ops.decode_attention_plain(q4, kc, vc, sl).float(),
         atol=2e-2, rtol=2e-2)
+
+
+def _split_lens(stretch, reach):
+    """Lens at the decode kernel's split boundaries: 0, 1, a stretch +- 1,
+    two stretches + 1 and the table's reach."""
+    return [x for x in (0, 1, stretch - 1, stretch, stretch + 1,
+                        2 * stretch + 1, reach) if x <= reach]
+
+
+# (B, H, HK, D, block size, table width): the plan's extremes (one
+# sequence and head over 4,096 tokens: 64 stretches of 64; B x HK =
+# 2,048: one or two long stretches), then groups 1-8 at D 64 and 128
+SPLIT_SHAPES = ([(1, 1, 1, 128, 32, 128), (64, 32, 32, 128, 16, 20)]
+                + [(7, 2 * gr, 2, 64 if gr % 2 else 128, 16, 24)
+                   for gr in range(1, 9)])
+
+
+def _paged_call(mode, g, dtype, b, h, hk, d, bs, lens, width):
+    """(kernel, plain, vmax) of K2 in ``mode`` over fresh pools: vmax is
+    the largest dequantized |v| scale the outputs are compared at."""
+    from paddle_tpu_torch.ops.paged_attention import (
+        _paged_decode_attention_rows, _paged_decode_attention_rows_plain)
+
+    dev = g.device
+    nb = b * width + 1
+    int8 = mode.startswith("int8")
+    if int8:
+        kp, vp = (torch.randint(-128, 128, (nb, bs, hk, d), generator=g,
+                                device=dev, dtype=torch.int8)
+                  for _ in range(2))
+    else:
+        kp, vp = _rnd(g, dtype, nb, bs, hk, d), _rnd(g, dtype, nb, bs, hk, d)
+    tables = torch.randperm(nb, device=dev)[:b * width].view(b, width).int()
+    for i, ln in enumerate(lens):
+        tables[i, -(-ln // bs):] = 10 ** 6      # stale: never read
+    lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+    q = _rnd(g, dtype, b, h, d)
+    if mode == "int8_rows":
+        rks, rvs = (torch.rand(nb, bs, hk, generator=g, device=dev) * 0.02
+                    + 0.005 for _ in range(2))
+        args = (q, kp, vp, rks, rvs, tables, lens)
+        return (lambda: _paged_decode_attention_rows(*args),
+                lambda: _paged_decode_attention_rows_plain(*args),
+                128 * float(rvs.max()))
+    kw = {}
+    if mode != "float":
+        lo, span = (0.005, 0.02) if int8 else (0.25, 1.5)
+        kw = {k: torch.rand(hk, generator=g, device=dev) * span + lo
+              for k in ("k_scale", "v_scale")}
+    vmax = (128 if int8 else 1) * float(kw["v_scale"].max()) if kw else 1.0
+    args = (q, kp, vp, tables, lens)
+    return (lambda: ops.paged_decode_attention(*args, **kw),
+            lambda: ops.paged_decode_attention_plain(*args, **kw), vmax)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["float", "scaled", "int8_static",
+                                  "int8_rows"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_cuda_paged_decode_splits_match_plain(cuda, mode, dtype, tol):
+    """K2 in each of its modes at the split plan's extremes, at every
+    group of 1-8 query heads with D 64 and 128, and at lens around the
+    split boundaries, against its plain version (outputs relative to the
+    largest dequantized |v|); two calls are bit-equal."""
+    from paddle_tpu_torch.ops import split_decode as SD
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    esize = 1 if mode.startswith("int8") else (4 if dtype == torch.float32
+                                               else 2)
+    for b, h, hk, d, bs, width in SPLIT_SHAPES:
+        reach = width * bs
+        st = SD.plan_for(b * hk, reach, 2 * d * esize, cuda).stretch
+        base = _split_lens(st, reach)
+        lens = [reach] if b == 1 else [base[i % len(base)] for i in range(b)]
+        kernel, plain, vmax = _paged_call(mode, g, dtype, b, h, hk, d, bs,
+                                          lens, width)
+        out = kernel()
+        assert torch.equal(out, kernel())
+        torch.testing.assert_close(out.float() / vmax,
+                                   plain().float() / vmax, atol=tol,
+                                   rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_cuda_decode_attention_splits_match_plain(cuda, dtype, tol):
+    """K5 at the split plan's extremes, at every group of 1-8 query heads
+    with D 64 and 128, and at lens around the split boundaries; two calls
+    are bit-equal."""
+    from paddle_tpu_torch.ops import split_decode as SD
+
+    g = torch.Generator(device=cuda).manual_seed(6)
+    esize = 4 if dtype == torch.float32 else 2
+    for b, h, hk, d, bs, width in SPLIT_SHAPES:
+        s_max = bs * width
+        st = SD.plan_for(b * hk, s_max, 2 * d * esize, cuda).stretch
+        base = _split_lens(st, s_max)
+        lens = [s_max] if b == 1 else [base[i % len(base)] for i in range(b)]
+        q = _rnd(g, dtype, b, h, d)
+        kc, vc = (_rnd(g, dtype, b, s_max, hk, d),
+                  _rnd(g, dtype, b, s_max, hk, d))
+        sl = torch.tensor(lens, dtype=torch.int32, device=cuda)
+        out = ops.decode_attention(q, kc, vc, sl)
+        assert torch.equal(out, ops.decode_attention(q, kc, vc, sl))
+        torch.testing.assert_close(
+            out.float(), ops.decode_attention_plain(q, kc, vc, sl).float(),
+            atol=tol, rtol=tol)
 
 
 @pytest.mark.cuda
