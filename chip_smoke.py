@@ -10,13 +10,14 @@ Phases (any failure raises and the script exits non-zero):
    ``paddle_tpu_torch/csrc`` (nvcc, sm_90a) with its time;
 2. each kernel against its plain PyTorch version on the card, at the
    serving, generation and training paths' shapes, in bf16 and f32
-   (K4 also at the training shape against one ``is_causal`` SDPA call;
-   the backward in bf16 as the fused kernel K7, in f32 as K7a and K7b;
-   K6/K7 also at
+   (K4 also at the training shape against one ``is_causal`` SDPA call,
+   in bf16 and f32; the backward as the fused kernel K7, in bf16 on wgmma
+   and in f32 as 3xTF32; K6/K7 also at
    Mistral's GQA width with its window; the varlen backward in bf16 as the
    fused kernel K8 at the packed 941M row, with GQA and a window, with
-   unequal query and key lengths, and with empty segments, in f32 as K8a
-   and K8b at the packed row; K3 also at the packed 941M row and
+   unequal query and key lengths, and with empty segments, in f32 as the
+   fused 3xTF32 kernel at the packed row; K3 also at the packed 941M row
+   (bf16 and f32) and
    with GQA and a window; K2's int8 arm with static (HK,) scales and with
    per-row scale pools at the serving shape and at GQA 32/8, and K2's
    static scales over float pools; K2 also over one sequence and one KV
@@ -59,16 +60,18 @@ Phases (any failure raises and the script exits non-zero):
    within bf16 rounding of the unfused one, its peak memory), and a
    torch.profiler breakdown of one unfused step;
 8. the training kernel path against its plain path in f32 (Llama-2-7B
-   width, 2 layers, S=1,024; the backward's f32 route, K7a and K7b, and
-   not K7): step-1 gradients per tensor within 1e-4 of the tensor's
-   largest |g|, and the losses of 3 steps within 1e-4;
+   width, 2 layers, S=1,024; the backward's f32 route, the fused f32 K7,
+   exactly one launch per layer and backward, and never the bf16 K7):
+   step-1 gradients per tensor within 1e-4 of the tensor's largest |g|,
+   and the losses of 3 steps within 1e-4; each step's wall time, then
+   one more step under the profiler;
 9. packed (cu_seqlens) training, ``scripts/bench_suite.py``'s
    llama_941m_packed_varlen_train_mfu on the port: hidden 2,048, 16
    layers, 32 heads, bf16 with f32 masters and bf16 moments, one row of 8
    segments (T = 4,096), the model called as ``model(ids, cu)`` and the
    packed criterion on f32 logits: 2 warm-up steps, then 10 in one
    ``run_steps`` with the counters zeroed just before and read just after
-   (exactly K1 33, K6 33, K3 16, K8 16 per step and no K8a/K8b, K4 or
+   (exactly K1 33, K6 33, K3 16, K8 16 per step and no f32 K8, K4 or
    K7),
    step time, tokens/s, MFU (attention at the effective length
    sum(len^2) / T), peak memory and a step profile; the loss must fall.
@@ -77,8 +80,10 @@ Phases (any failure raises and the script exits non-zero):
    peak, and K1 65 and K3 32 launches per step;
 10. packed training's kernel path against its plain path in f32 (the same
     width, 2 layers, T = 1,024 in 4 segments; the backward's f32 route,
-    K8a and K8b, and not K8): step-1 gradients per tensor within 1e-5 of
-    the tensor's largest |g|, the losses of 3 steps within 1e-6;
+    the fused f32 K8, exactly one launch per layer and backward, and never
+    the bf16 K8): step-1 gradients per tensor within 1e-5 of the tensor's
+    largest |g|, the losses of 3 steps within 1e-6; step walls and one
+    profiled step, as in phase 8;
 11. int8 serving at full width: Llama-2-7B in bf16 (32 layers, seeded
     weights), phase 3's knobs and requests, three engines through
     ``create_serving_engine``: ``quantize="weight_only_int8"`` (the entry
@@ -107,9 +112,9 @@ Phases (any failure raises and the script exits non-zero):
 The line before the last is the ``{"kernels": [...]}`` record (each
 kernel's launches come from the run of the path that carries it: K1-K3
 the serving run of phase 3, K4-K5 the generation run of phase 5, K6 and
-K7 the training run of phase 7, K7a and K7b the f32 kernel run of phase
-8, K8 the packed training run of phase 9, K8a and K8b the f32 packed
-kernel run of phase 10, K2's per-row int8 mode the int8-KV serving run
+K7 the training run of phase 7, the f32 K7 and K4 the f32 kernel run of
+phase 8, K8 the packed training run of phase 9, the f32 K8 and K3 the f32
+packed kernel run of phase 10, K2's per-row int8 mode the int8-KV serving run
 of phase 11, its static int8 arm and its float-pool scaled mode the two
 runs of phase 12; ``launches_by_path`` has every path's count); the last
 line is ``{"ok": true, "device": {...}}``.
@@ -129,7 +134,8 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {"bfloat16": 989e12,  # dense tensor-core rate
-              "float32": 67e12}    # f32 outside the tensor cores
+              "float32": 67e12,    # f32 outside the tensor cores
+              "tfloat32": 495e12}  # dense TF32 tensor-core rate
 SEED = 0
 # phase 5: rows, prompt tokens (past Mistral's 4,096 window), new tokens
 GENERATE_SHAPE = (4, 4608, 64)
@@ -535,7 +541,11 @@ def k3_cases(torch, g, dev):
                 name="varlen_flash_attention", dtype=dtype,
                 shape=f"{label}:lens={lens},H={h},HK={hk},D={d},causal,"
                       f"window={window}",
-                primary=False,
+                # K3's f32 forward (flash_f32.cuh) at the packed row has
+                # its own row
+                primary=dtype == torch.float32 and label == "packed_941m",
+                row="varlen_flash_attention_f32" if dtype == torch.float32
+                else "varlen_flash_attention",
                 kernel=lambda q=q, k=k, v=v, cu=cu, window=window:
                     ops.varlen_flash_attention(q, k, v, cu, cu, causal=True,
                                                window_size=window),
@@ -602,7 +612,7 @@ def k4_cases(torch, g, dev):
             ("mistral_prefill", 1, 4608, 4608, 32, 8, 4096, both),
             ("dense_causal", 1, 2048, 2048, 32, 32, None, both),
             ("bottom_right", 1, 64, 1024, 32, 8, None, both),
-            ("train", 1, 4096, 4096, 32, 32, None, (torch.bfloat16,))):
+            ("train", 1, 4096, 4096, 32, 32, None, both)):
         mask = band_mask(sq, sk, True, window, dev)
         pairs = int(mask.sum())
         for dtype in dtypes:
@@ -628,7 +638,11 @@ def k4_cases(torch, g, dev):
                 shape=f"{label}:B={b},Sq={sq},Sk={sk},H={h},HK={hk},D={d},"
                       f"causal,window={window}",
                 primary=(label == "mistral_prefill"
-                         and dtype == torch.bfloat16),
+                         and dtype == torch.bfloat16)
+                or (label == "train" and dtype == torch.float32),
+                # the f32 forward (flash_f32.cuh) has its own row
+                row="flash_attention_f32" if dtype == torch.float32
+                else "flash_attention",
                 kernel=lambda q=q, k=k, v=v: ops.flash_attention(
                     q, k, v, causal=True, window_size=window),
                 plain=lambda q=q, k=k, v=v: ops.flash_attention_plain(
@@ -715,8 +729,8 @@ def k7_cases(torch, g, dev):
 
     d = 128
     # (label, B, S, H, HK, window, dtypes): the training path (Llama-2-7B
-    # width, S=4,096, causal; the fused bf16 kernel K7 is the primary, K7a
-    # and K7b in f32 the primaries of their f32 route) and Mistral's GQA
+    # width, S=4,096, causal; the fused kernel K7 is the primary in bf16
+    # and in f32, its 3xTF32 kernel) and Mistral's GQA
     # width with its window
     for label, b, sq, h, hk, window, dtypes in (
             ("train", 1, 4096, 32, 32, None,
@@ -764,37 +778,23 @@ def k7_cases(torch, g, dev):
             # q, do, dq and k, v, dk, dv once each, lse and delta
             nbytes = (3 * b * sq * h * d + 4 * b * sq * hk * d) * e \
                 + 8 * b * h * sq
-            if not f32:
-                # K7: S^T, dP^T, dV, dK, dQ: 10 * D flops per live pair
-                yield dict(
-                    name="flash_attention_bwd",
-                    kernel=lambda args=args, window=window:
-                        ops.flash_attention_bwd_fused(*args,
-                                                      window_size=window),
-                    plain=plain,
-                    bound=bound_ms(nbytes, 10.0 * d * pairs * b * h, ddt),
-                    **common)
-                continue
+            # K7: S^T, dP^T, dV, dK, dQ: 10 * D flops per live pair; in
+            # f32 each product is three TF32 products (3xTF32)
+            flops = 10.0 * d * pairs * b * h
             yield dict(
-                name="flash_attention_bwd_dq",
+                name="flash_attention_bwd_f32" if f32 else
+                     "flash_attention_bwd",
                 kernel=lambda args=args, window=window:
-                    ops.flash_attention_bwd_dq(*args, window_size=window),
-                plain=lambda plain=plain: plain()[0],
-                bound=bound_ms((3 * b * sq * h * d + 2 * b * sq * hk * d) * e
-                               + 8 * b * h * sq, 6.0 * d * pairs * b * h,
-                               ddt), **common)
-            yield dict(
-                name="flash_attention_bwd_dkv",
-                kernel=lambda args=args, window=window:
-                    ops.flash_attention_bwd_dkv(*args, window_size=window),
-                plain=lambda plain=plain: plain()[1:],
-                bound=bound_ms((2 * b * sq * h * d + 4 * b * sq * hk * d) * e
-                               + 8 * b * h * sq, 8.0 * d * pairs * b * h,
-                               ddt), **common)
+                    ops.flash_attention_bwd_fused(*args,
+                                                  window_size=window),
+                plain=plain,
+                bound=(bound_ms(nbytes, 3 * flops, "tfloat32") if f32 else
+                       bound_ms(nbytes, flops, ddt)),
+                **common)
 
 
 def _segment_library(torch, q, k, v, do, lens_q, lens_k, window):
-    """The library yardsticks of K8 (and K8a/K8b): SDPA's whole backward
+    """The library yardsticks of K8 (bf16 and f32): SDPA's whole backward
     (dq, dk, dv) through autograd on the same inputs, once over the packed
     row under a block-diagonal causal (banded) mask and once as the sum of
     per-segment SDPA backwards (``is_causal`` where a segment's query and
@@ -842,7 +842,7 @@ def k8_cases(torch, g, dev):
 
     # (label, lens_q, lens_k or None, H, HK, D, window, dtypes): the packed
     # training path (the 941M configuration's row; the fused bf16 kernel K8
-    # is the primary, K8a and K8b in f32 the primaries of their f32 route),
+    # is the primary in bf16 and in f32, its 3xTF32 kernel),
     # GQA with a window shorter than the long segments, unequal query and
     # key lengths, and empty segments
     for label, lens_q, lens_k, h, hk, d, window, dtypes in (
@@ -886,37 +886,21 @@ def k8_cases(torch, g, dev):
                 return ops.varlen_flash_attention_bwd_plain(
                     q, k, v, out, lse, do, cu_q, cu_k, causal,
                     window_size=window, delta=delta)
-            if dtype == torch.bfloat16:
-                # K8: q, do, dq and k, v, dk, dv once each, lse and delta;
-                # S^T, dP^T, dV, dK, dQ: 10 * D flops per live pair
-                yield dict(
-                    name="varlen_flash_attention_bwd",
-                    kernel=lambda args=args, window=window:
-                        ops.varlen_flash_attention_bwd_fused(
-                            *args, window_size=window),
-                    plain=plain,
-                    bound=bound_ms((3 * tq * h * d + 4 * tk * hk * d) * e
-                                   + 8 * h * tq, 10.0 * d * pairs * h, ddt),
-                    **common)
-                continue
-            # the f32 route, K8a and K8b: each reads q, do or k, v once
+            # K8: q, do, dq and k, v, dk, dv once each, lse and delta;
+            # S^T, dP^T, dV, dK, dQ: 10 * D flops per live pair; in f32
+            # each product is three TF32 products (3xTF32)
+            f32 = dtype == torch.float32
+            nbytes = (3 * tq * h * d + 4 * tk * hk * d) * e + 8 * h * tq
+            flops = 10.0 * d * pairs * h
             yield dict(
-                name="varlen_flash_attention_bwd_dq",
+                name="varlen_flash_attention_bwd_f32" if f32 else
+                     "varlen_flash_attention_bwd",
                 kernel=lambda args=args, window=window:
-                    ops.varlen_flash_attention_bwd_dq(*args,
-                                                      window_size=window),
-                plain=lambda plain=plain: plain()[0],
-                bound=bound_ms((3 * tq * h * d + 2 * tk * hk * d) * e
-                               + 8 * h * tq, 6.0 * d * pairs * h, ddt),
-                **common)
-            yield dict(
-                name="varlen_flash_attention_bwd_dkv",
-                kernel=lambda args=args, window=window:
-                    ops.varlen_flash_attention_bwd_dkv(*args,
-                                                       window_size=window),
-                plain=lambda plain=plain: plain()[1:],
-                bound=bound_ms((2 * tq * h * d + 4 * tk * hk * d) * e
-                               + 8 * h * tq, 8.0 * d * pairs * h, ddt),
+                    ops.varlen_flash_attention_bwd_fused(
+                        *args, window_size=window),
+                plain=plain,
+                bound=(bound_ms(nbytes, 3 * flops, "tfloat32") if f32 else
+                       bound_ms(nbytes, flops, ddt)),
                 **common)
 
 
@@ -960,45 +944,51 @@ KERNELS = {
     "flash_attention_bwd": (
         "cuda", "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
         "paddle_tpu/ops/pallas/flash_attention.py:402, :425"),
-    # K7a and K7b, the f32 route (phase 8's parity path)
-    "flash_attention_bwd_dq": (
+    # K7 in f32 (3xTF32), the route of an f32 model (phase 8)
+    "flash_attention_bwd_f32": (
         "cuda", "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
-        "paddle_tpu/ops/pallas/flash_attention.py:402"),
-    "flash_attention_bwd_dkv": (
-        "cuda", "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
-        "paddle_tpu/ops/pallas/flash_attention.py:425"),
+        "paddle_tpu/ops/pallas/flash_attention.py:402, :425"),
+    # K4's f32 forward (flash_f32.cuh), counted with K4 as
+    # flash_attention; its launches are phase 8's, an f32-only run
+    "flash_attention_f32": (
+        "cuda", "paddle_tpu_torch/csrc/flash_attention.cu",
+        "paddle_tpu/ops/pallas/flash_attention.py:225"),
     # K8, the fused bf16 varlen backward: both TPU kernels of `_varlen_bwd`
     "varlen_flash_attention_bwd": (
         "cuda", "paddle_tpu_torch/csrc/varlen_flash_attention_bwd.cu",
         "paddle_tpu/ops/pallas/varlen_flash_attention.py:336, :376"),
-    # K8a and K8b, the f32 route (phase 10's parity path)
-    "varlen_flash_attention_bwd_dq": (
+    # K8 in f32 (3xTF32), the route of an f32 model (phase 10)
+    "varlen_flash_attention_bwd_f32": (
         "cuda", "paddle_tpu_torch/csrc/varlen_flash_attention_bwd.cu",
-        "paddle_tpu/ops/pallas/varlen_flash_attention.py:336"),
-    "varlen_flash_attention_bwd_dkv": (
-        "cuda", "paddle_tpu_torch/csrc/varlen_flash_attention_bwd.cu",
-        "paddle_tpu/ops/pallas/varlen_flash_attention.py:376"),
+        "paddle_tpu/ops/pallas/varlen_flash_attention.py:336, :376"),
+    # K3's f32 forward (flash_f32.cuh), counted with K3 as
+    # varlen_flash_attention; its launches are phase 10's, an f32-only run
+    "varlen_flash_attention_f32": (
+        "cuda", "paddle_tpu_torch/csrc/varlen_flash_attention.cu",
+        "paddle_tpu/ops/pallas/varlen_flash_attention.py:160"),
 }
 # the kernels each main path must launch
 SERVING_KERNELS = ("rms_norm", "paged_decode_attention",
                    "varlen_flash_attention")
 GENERATE_KERNELS = ("rms_norm", "flash_attention", "decode_attention")
 TRAIN_KERNELS = ("rms_norm_bwd", "flash_attention_bwd")
-TRAIN_F32_KERNELS = ("rms_norm_bwd", "flash_attention_bwd_dq",
-                     "flash_attention_bwd_dkv")
+TRAIN_F32_KERNELS = ("rms_norm_bwd", "flash_attention_bwd_f32")
 PACKED_KERNELS = ("varlen_flash_attention_bwd",)
-PACKED_F32_KERNELS = ("varlen_flash_attention_bwd_dq",
-                      "varlen_flash_attention_bwd_dkv")
+PACKED_F32_KERNELS = ("varlen_flash_attention_bwd_f32",)
 INT8_SERVING_KERNELS = ("rms_norm", "varlen_flash_attention",
                         "paged_decode_attention_int8_rows")
 STATIC_INT8_KERNELS = ("paged_decode_attention_int8",
                        "varlen_flash_attention")
 SCALED_FLOAT_KERNELS = ("paged_decode_attention_scaled",)
 # the path whose run gives each kernel's launches in the kernels line
-KERNEL_PATH = {"flash_attention_bwd_dq": "train_f32_parity",
-               "flash_attention_bwd_dkv": "train_f32_parity",
-               "varlen_flash_attention_bwd_dq": "packed_f32_parity",
-               "varlen_flash_attention_bwd_dkv": "packed_f32_parity",
+# rows of the kernels line whose launches another counter holds: the f32
+# forwards count with their bf16 kernels, on paths that run f32 alone
+COUNTER = {"flash_attention_f32": "flash_attention",
+           "varlen_flash_attention_f32": "varlen_flash_attention"}
+KERNEL_PATH = {"flash_attention_bwd_f32": "train_f32_parity",
+               "flash_attention_f32": "train_f32_parity",
+               "varlen_flash_attention_bwd_f32": "packed_f32_parity",
+               "varlen_flash_attention_f32": "packed_f32_parity",
                "paged_decode_attention_int8": "block_mha_static_int8",
                "paged_decode_attention_int8_rows": "int8_serving",
                "paged_decode_attention_scaled": "scaled_float_decode"}
@@ -1051,7 +1041,7 @@ def kernel_phase(torch, dev):
         emit(rec)
         check(ok, f"{case['name']} disagrees with its plain version: {rec}")
         if case["primary"]:
-            primary[case["name"]] = rec
+            primary[case.get("row", case["name"])] = rec
         del out, ref, case, libs
     torch.cuda.empty_cache()
     return primary
@@ -1188,14 +1178,12 @@ def _kernel_family(name):
     for key, fam in (("rms_norm_kernel", "K1 rms_norm"),
                      ("rms_norm_bwd_kernel", "K6 rms_norm_bwd"),
                      ("rms_norm_dw_kernel", "K6 rms_norm_bwd"),
+                     ("varlen_bwd_fused_f32",
+                      "K8 f32 varlen_flash_attention_bwd_f32"),
                      ("varlen_bwd_fused_", "K8 varlen_flash_attention_bwd"),
-                     ("varlen_bwd_dq_", "K8a varlen_flash_attention_bwd_dq"),
-                     ("varlen_bwd_dkv_",
-                      "K8b varlen_flash_attention_bwd_dkv"),
-                     ("tile_order_kernel", "K3/K8a/K8b tile order"),
+                     ("tile_order_kernel", "K3 tile order"),
+                     ("bwd_fused_f32", "K7 f32 flash_attention_bwd_f32"),
                      ("bwd_fused_", "K7 flash_attention_bwd"),
-                     ("bwd_dq_", "K7a flash_attention_bwd_dq"),
-                     ("bwd_dkv_", "K7b flash_attention_bwd_dkv"),
                      ("PagedRows<1>", "K2-int8 static"),
                      ("PagedRows<2>", "K2-int8 rows"),
                      ("PagedRows", "K2 paged_decode"),
@@ -1666,6 +1654,17 @@ def _split_range(torch, prof, rec, name, family):
     return us / 1e3 if us else "not measured"
 
 
+def _timed_steps(step, inputs, labels, n):
+    """The losses of ``n`` steps and each step's wall ms (reading the loss
+    waits for the step's work on the card)."""
+    losses, walls = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        losses.append(float(step(inputs, labels)))
+        walls.append(1e3 * (time.perf_counter() - t0))
+    return losses, walls
+
+
 def _grads(model):
     return {n: p.grad.detach().clone() for n, p in model.named_parameters()}
 
@@ -1687,11 +1686,15 @@ def train_parity_phase(torch, dev):
             loss.backward()
             grads = _grads(model)
             model.zero_grad(set_to_none=True)
-            losses = [float(step(ids, ids)) for _ in range(steps)]
+            losses, walls = _timed_steps(step, ids, ids, steps)
         launches = dict(ops.LAUNCHES)
         emit({"phase": "train_parity_f32_2layer",
               "path": "plain" if plain else "kernels", "seq": seq,
-              "losses": losses, "launches": launches})
+              "losses": losses, "step_wall_ms": walls,
+              "launches": launches})
+        if not plain:
+            # one more step under the profiler: the f32 step's device time
+            train_profile(torch, step, ids, ids, label="train_f32_step")
         if plain:
             check(all(n == 0 for n in launches.values()),
                   f"plain training path launched a kernel: {launches}")
@@ -1699,8 +1702,13 @@ def train_parity_phase(torch, dev):
             check(all(launches[k] > 0 for k in TRAIN_F32_KERNELS
                       + ("rms_norm", "flash_attention")),
                   f"training kernel path missed a kernel: {launches}")
-            check(launches["flash_attention_bwd"] == 0,
-                  f"the f32 backward launched the bf16 kernel: {launches}")
+            # one fused f32 backward per attention layer and backward
+            # (one loss.backward, then one per step), never the bf16 K7
+            check(launches["flash_attention_bwd_f32"]
+                  == cfg.num_hidden_layers * (1 + steps)
+                  and launches["flash_attention_bwd"] == 0,
+                  f"the f32 backward is not one fused f32 launch per "
+                  f"layer: {launches}")
             kernel_launches = launches
         runs.append((grads, losses))
         del model, step, loss
@@ -1888,11 +1896,16 @@ def packed_parity_phase(torch, dev):
             loss.backward()
             grads = _grads(model)
             model.zero_grad(set_to_none=True)
-            losses = [float(step(inputs, inputs)) for _ in range(steps)]
+            losses, walls = _timed_steps(step, inputs, inputs, steps)
         launches = dict(ops.LAUNCHES)
         emit({"phase": "train_packed_parity_f32_2layer",
               "path": "plain" if plain else "kernels", "segments": lens,
-              "losses": losses, "launches": launches})
+              "losses": losses, "step_wall_ms": walls,
+              "launches": launches})
+        if not plain:
+            # one more step under the profiler: the f32 step's device time
+            train_profile(torch, step, inputs, inputs,
+                          label="packed_f32_step")
         if plain:
             check(all(n == 0 for n in launches.values()),
                   f"plain packed path launched a kernel: {launches}")
@@ -1900,8 +1913,13 @@ def packed_parity_phase(torch, dev):
             check(all(launches[k] > 0 for k in PACKED_F32_KERNELS + (
                 "rms_norm", "rms_norm_bwd", "varlen_flash_attention")),
                   f"packed kernel path missed a kernel: {launches}")
-            check(launches["varlen_flash_attention_bwd"] == 0,
-                  f"the f32 packed path launched the bf16 K8: {launches}")
+            # one fused f32 backward per attention layer and backward,
+            # never the bf16 K8
+            check(launches["varlen_flash_attention_bwd_f32"]
+                  == cfg.num_hidden_layers * (1 + steps)
+                  and launches["varlen_flash_attention_bwd"] == 0,
+                  f"the f32 packed backward is not one fused f32 launch "
+                  f"per layer: {launches}")
             kernel_launches = launches
         runs.append((grads, losses))
         del model, step, loss
@@ -2277,15 +2295,16 @@ def main():
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
         rec = primary[name]
+        counter = COUNTER.get(name, name)
         path = KERNEL_PATH.get(name) or (
             "serving" if name in SERVING_KERNELS else
             "train" if name in TRAIN_KERNELS else
             "packed_train" if name in PACKED_KERNELS else "generate")
         kernels.append({
             "name": name, "route": route, "source": source,
-            "replaces": replaces, "launches": paths[path][name],
+            "replaces": replaces, "launches": paths[path][counter],
             "launches_path": path,
-            "launches_by_path": {k: v[name] for k, v in paths.items()},
+            "launches_by_path": {k: v[counter] for k, v in paths.items()},
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],

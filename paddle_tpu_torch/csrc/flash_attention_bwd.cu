@@ -1,5 +1,5 @@
-// Flash attention backward for Hopper: K7, one fused bf16 kernel for dq,
-// dk and dv, and K7a (dq) / K7b (dk, dv) in f32.
+// Flash attention backward for Hopper: K7, one fused kernel for dq, dk and
+// dv, in bf16 on wgmma and in f32 on the tensor cores as 3xTF32.
 //
 // Replaces: paddle_tpu/ops/pallas/flash_attention.py, `_flash_bwd` ->
 // `_bwd_dq_kernel` (its pl.pallas_call at :402) and `_bwd_dkv_kernel`
@@ -62,14 +62,16 @@
 //   step earlier: only the first wave waits. A CTA releases a tile's
 //   counter once its bulk op has completed, in its next step after its
 //   first products (or at its end), and never while it waits itself.
-// The f32 kernels K7a / K7b (the parity route) are CUDA-core FMA in the
-// tile shape of flash_f32.cuh (256 threads, each a 4 x 4 micro-tile of
-// scores and a 4 x D/16 slice of the output): K7a a CTA per 64-row query
-// tile walking its key range, K7b a CTA per 64-key tile walking its query
-// range over the G heads of its group.
+// The f32 kernel (`bwd_fused_f32_kernel`, the route of an f32 model) keeps
+// K7's walk, work order and dq order (BwdSchedule at its own key tile: 128
+// keys at D = 128, 64 at D = 64) and computes the same five products per
+// live pair on mma.sync TF32 as 3xTF32 (bwd_f32.cuh), 3 x 10 * D TF32
+// flops per live pair: 1,031 GFLOP at the training shape, 2.08 ms at 495
+// TFLOP/s. Its dq adds go straight into the f32 dq in the same fixed
+// order, so two calls are bit-equal.
+#include "bwd_f32.cuh"
 #include "bwd_fused.cuh"
 #include "common.cuh"
-#include "flash_f32.cuh"
 #include "flash_mma.cuh"
 #include "tma.cuh"
 #include "wgmma.cuh"
@@ -80,8 +82,6 @@ using namespace ptt::bwd;
 
 namespace {
 
-static_assert(kBQ == flash_f32::kBQ && kBK == flash_f32::kBK,
-              "the f32 path uses flash_f32.cuh's tiles");
 using bf16 = __nv_bfloat16;
 
 // The query range [lo, hi) that sees at least one of the keys
@@ -388,247 +388,157 @@ __global__ void __launch_bounds__(kFThreads, 1)
   store_rows<D>(dv + kv_off, kv_stride, adv, k0 + lk, s.sk, tig);
 }
 
-// ---------------------------------------------------------------- f32
-using flash_f32::kDPer;
-using flash_f32::kQS;
-using flash_f32::kSS;
-using flash_f32::load_rows;
+// ------------------------------------------------------------- K7 f32
+// K7's walk and dq order in f32 on bwd_f32.cuh's 3xTF32 tile math: one CTA
+// per (batch, KV head, BK-key tile), BK / 16 warps of 16 keys; K and V
+// resident, Q (with lse and delta) and dO one step at a time: the next
+// step's Q is copied while dQ runs, its dO while the next S^T runs.
+template <int D>
+using F32 = bwd32::Shape<D>;
 
-constexpr size_t kDqSmemF32 =
-    sizeof(float) * (4 * static_cast<size_t>(kBQ) * kQS + kBQ * kSS);
-constexpr size_t kDkvSmemF32 =
-    sizeof(float) *
-    (4 * static_cast<size_t>(kBQ) * kQS + 2 * kBQ * kSS + 2 * kBQ);
-
-__global__ void __launch_bounds__(flash_f32::kThreads)
-    bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v,
-                      const float* __restrict__ dout,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ delta,
-                      float* __restrict__ dq, Dims s, int d) {
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
-  const int head = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kvh = head / (s.h / s.hk);
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  extern __shared__ float smem[];
-  float* qs = smem;              // [BQ][kQS]
-  float* dos = qs + kBQ * kQS;   // [BQ][kQS]
-  float* ks = dos + kBQ * kQS;   // [BK][kQS]
-  float* vs = ks + kBK * kQS;    // [BK][kQS]
-  float* ps = vs + kBK * kQS;    // [BQ][kSS]: dS
-
-  const size_t row = static_cast<size_t>(s.h) * d;
-  const size_t q_off = (static_cast<size_t>(b) * s.sq * s.h + head) * d;
-  const size_t kv_off = (static_cast<size_t>(b) * s.sk * s.hk + kvh) * d;
-  const size_t kv_row = static_cast<size_t>(s.hk) * d;
-  load_rows(q + q_off, qs, kQS, row, q0, s.sq, d);
-  load_rows(dout + q_off, dos, kQS, row, q0, s.sq, d);
-  const size_t lrow = (static_cast<size_t>(b) * s.h + head) * s.sq;
-  float lr[flash_f32::kRows], dl[flash_f32::kRows];
-  float acc[flash_f32::kRows][kDPer];
-#pragma unroll
-  for (int i = 0; i < flash_f32::kRows; ++i) {
-    const int r = q0 + ty + 16 * i;
-    lr[i] = r < s.sq ? lse[lrow + r] : 0.f;
-    dl[i] = r < s.sq ? delta[lrow + r] : 0.f;
-#pragma unroll
-    for (int j = 0; j < kDPer; ++j) acc[i][j] = 0.f;
-  }
-  const int nd = d / 16;
-  int lo, hi;
-  key_range(s, q0, &lo, &hi);
-
-  for (int k0 = lo; k0 < hi; k0 += kBK) {
-    load_rows(k + kv_off, ks, kQS, kv_row, k0, hi, d);
-    load_rows(v + kv_off, vs, kQS, kv_row, k0, hi, d);
-    __syncthreads();
-    float sc[flash_f32::kRows][flash_f32::kCols] = {};
-    float dp[flash_f32::kRows][flash_f32::kCols] = {};
-    for (int c = 0; c < d; ++c) {
-      float qv[flash_f32::kRows], dv[flash_f32::kRows];
-      float kv[flash_f32::kCols], vv[flash_f32::kCols];
-#pragma unroll
-      for (int i = 0; i < flash_f32::kRows; ++i) {
-        qv[i] = qs[(ty + 16 * i) * kQS + c];
-        dv[i] = dos[(ty + 16 * i) * kQS + c];
-      }
-#pragma unroll
-      for (int j = 0; j < flash_f32::kCols; ++j) {
-        kv[j] = ks[(tx + 16 * j) * kQS + c];
-        vv[j] = vs[(tx + 16 * j) * kQS + c];
-      }
-#pragma unroll
-      for (int i = 0; i < flash_f32::kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < flash_f32::kCols; ++j) {
-          sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
-          dp[i][j] = fmaf(dv[i], vv[j], dp[i][j]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < flash_f32::kRows; ++i)
-#pragma unroll
-      for (int j = 0; j < flash_f32::kCols; ++j) {
-        const bool live = band_live(s, q0 + ty + 16 * i, k0 + tx + 16 * j);
-        const float p = live ? expf(sc[i][j] * s.scale - lr[i]) : 0.f;
-        ps[(ty + 16 * i) * kSS + tx + 16 * j] = p * (dp[i][j] - dl[i]) *
-                                               s.scale;
-      }
-    __syncthreads();
-    for (int c = 0; c < kBK; ++c) {
-      float dsv[flash_f32::kRows];
-#pragma unroll
-      for (int i = 0; i < flash_f32::kRows; ++i)
-        dsv[i] = ps[(ty + 16 * i) * kSS + c];
-#pragma unroll
-      for (int j = 0; j < kDPer; ++j) {
-        if (j < nd) {
-          const float kk = ks[c * kQS + tx + 16 * j];
-#pragma unroll
-          for (int i = 0; i < flash_f32::kRows; ++i)
-            acc[i][j] = fmaf(dsv[i], kk, acc[i][j]);
-        }
-      }
-    }
-    __syncthreads();  // the next tile overwrites ks, vs, ps
-  }
-#pragma unroll
-  for (int i = 0; i < flash_f32::kRows; ++i) {
-    const int r = q0 + ty + 16 * i;
-    if (r >= s.sq) continue;
-    float* dst = dq + q_off + static_cast<size_t>(r) * row;
-#pragma unroll
-    for (int j = 0; j < kDPer; ++j)
-      if (j < nd) dst[tx + 16 * j] = acc[i][j];
-  }
+// Every pair of the query tile at q0 and the BK-key tile at k0 is live,
+// and both tiles are whole.
+template <int BK>
+__device__ __forceinline__ bool f32_full_pair(const Dims& s, int q0,
+                                              int k0) {
+  if (q0 + kBQ > s.sq || k0 + BK > s.sk) return false;
+  if (!s.causal) return true;
+  if (k0 + BK - 1 > q0 + s.off) return false;
+  return s.window <= 0 || k0 > q0 + kBQ - 1 + s.off - s.window;
 }
 
-__global__ void __launch_bounds__(flash_f32::kThreads)
-    bwd_dkv_f32_kernel(const float* __restrict__ q,
-                       const float* __restrict__ k,
-                       const float* __restrict__ v,
-                       const float* __restrict__ dout,
-                       const float* __restrict__ lse,
-                       const float* __restrict__ delta,
-                       float* __restrict__ dk, float* __restrict__ dv, Dims s,
-                       int d) {
-  const int k0 = blockIdx.x * kBK;
-  const int kvh = blockIdx.y;
-  const int b = blockIdx.z;
+template <int D>
+__global__ void __launch_bounds__(F32<D>::kThreads, D == 64 ? 3 : 1)
+    bwd_fused_f32_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         float* __restrict__ dq, float* __restrict__ dk,
+                         float* __restrict__ dv, int* __restrict__ sync,
+                         Dims s, int nb) {
+  using M = F32<D>;
+  constexpr int BK = M::BK;
+  constexpr int kThreads = M::kThreads;
+  extern __shared__ __align__(16) float smem_f[];
+  float* ks = smem_f + M::k_off;
+  float* vs = smem_f + M::v_off;
+  float* qs = smem_f + M::q_off;
+  float* dos = smem_f + M::do_off;  // dO, then dS^T
+  float* ls = smem_f + M::lse_off;
+  float* dls = smem_f + M::delta_off;
+  __shared__ int ticket;
+
+  // the work item: ticket = (j * nb + batch) * hk + kv_head
+  if (threadIdx.x == 0) ticket = atomicAdd(sync, 1);
+  __syncthreads();
+  const int j = ticket / (nb * s.hk);
+  const int b = ticket / s.hk % nb;
+  const int kvh = ticket % s.hk;
+  const int k0 = j * BK;
   const int grp = s.h / s.hk;
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  extern __shared__ float smem[];
-  float* ks = smem;              // [BK][kQS]
-  float* vs = ks + kBK * kQS;    // [BK][kQS]
-  float* qs = vs + kBK * kQS;    // [BQ][kQS]
-  float* dos = qs + kBQ * kQS;   // [BQ][kQS]
-  float* pt = dos + kBQ * kQS;   // [BK][kSS]: P^T
-  float* dst = pt + kBK * kSS;   // [BK][kSS]: dS^T
-  float* ls = dst + kBK * kSS;   // [BQ]
-  float* dls = ls + kBQ;         // [BQ]
+  const int nq = (s.sq + kBQ - 1) / kBQ;
+  const int warp = threadIdx.x >> 5;
+  const int lk = warp * 16 + ((threadIdx.x & 31) >> 2);  // keys lk, lk + 8
+  const int mq = (warp & 3) * 16;  // the warp's dq rows
+  const int nc = (warp >> 2) * M::NC;  // and columns
+  const size_t kv_stride = static_cast<size_t>(s.hk) * D;
+  const size_t kv_off = (static_cast<size_t>(b) * s.sk * s.hk + kvh) * D;
+  const size_t q_stride = static_cast<size_t>(s.h) * D;
 
-  const size_t row = static_cast<size_t>(s.h) * d;
-  const size_t kv_row = static_cast<size_t>(s.hk) * d;
-  const size_t kv_off = (static_cast<size_t>(b) * s.sk * s.hk + kvh) * d;
-  load_rows(k + kv_off, ks, kQS, kv_row, k0, s.sk, d);
-  load_rows(v + kv_off, vs, kQS, kv_row, k0, s.sk, d);
-  float ak[flash_f32::kRows][kDPer], av[flash_f32::kRows][kDPer];
-#pragma unroll
-  for (int i = 0; i < flash_f32::kRows; ++i)
-#pragma unroll
-    for (int j = 0; j < kDPer; ++j) ak[i][j] = av[i][j] = 0.f;
-  const int nd = d / 16;
   int lo, hi;
-  query_range<kBK>(s, k0, &lo, &hi);
+  query_range<BK>(s, k0, &lo, &hi);
+  const int ihi = (hi - 1) / kBQ;
+  const int items = hi > lo ? (ihi - lo / kBQ + 1) * grp : 0;
 
-  for (int j0 = 0; j0 < grp; ++j0) {
-    const int head = kvh * grp + j0;
-    const size_t q_off = (static_cast<size_t>(b) * s.sq * s.h + head) * d;
-    const size_t lrow = (static_cast<size_t>(b) * s.h + head) * s.sq;
-    for (int q0 = lo; q0 < hi; q0 += kBQ) {
-      __syncthreads();  // the previous tile's readers are done
-      load_rows(q + q_off, qs, kQS, row, q0, s.sq, d);
-      load_rows(dout + q_off, dos, kQS, row, q0, s.sq, d);
-      for (int i = threadIdx.x; i < kBQ; i += blockDim.x) {
-        const bool ok = q0 + i < s.sq;
-        ls[i] = ok ? lse[lrow + q0 + i] : 0.f;
-        dls[i] = ok ? delta[lrow + q0 + i] : 0.f;
-      }
-      __syncthreads();
-      // rows: keys ty + 16 i; columns: queries tx + 16 j
-      float sc[flash_f32::kRows][flash_f32::kCols] = {};
-      float dp[flash_f32::kRows][flash_f32::kCols] = {};
-      for (int c = 0; c < d; ++c) {
-        float kv[flash_f32::kRows], vv[flash_f32::kRows];
-        float qv[flash_f32::kCols], gv[flash_f32::kCols];
-#pragma unroll
-        for (int i = 0; i < flash_f32::kRows; ++i) {
-          kv[i] = ks[(ty + 16 * i) * kQS + c];
-          vv[i] = vs[(ty + 16 * i) * kQS + c];
-        }
-#pragma unroll
-        for (int j = 0; j < flash_f32::kCols; ++j) {
-          qv[j] = qs[(tx + 16 * j) * kQS + c];
-          gv[j] = dos[(tx + 16 * j) * kQS + c];
-        }
-#pragma unroll
-        for (int i = 0; i < flash_f32::kRows; ++i)
-#pragma unroll
-          for (int j = 0; j < flash_f32::kCols; ++j) {
-            sc[i][j] = fmaf(kv[i], qv[j], sc[i][j]);
-            dp[i][j] = fmaf(vv[i], gv[j], dp[i][j]);
-          }
-      }
-#pragma unroll
-      for (int i = 0; i < flash_f32::kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < flash_f32::kCols; ++j) {
-          const int qc = tx + 16 * j;
-          const bool live = q0 + qc < s.sq &&
-                            band_live(s, q0 + qc, k0 + ty + 16 * i);
-          const float p = live ? expf(sc[i][j] * s.scale - ls[qc]) : 0.f;
-          pt[(ty + 16 * i) * kSS + qc] = p;
-          dst[(ty + 16 * i) * kSS + qc] = p * (dp[i][j] - dls[qc]) * s.scale;
-        }
-      __syncthreads();
-      for (int c = 0; c < kBQ; ++c) {
-        float pv[flash_f32::kRows], dsv[flash_f32::kRows];
-#pragma unroll
-        for (int i = 0; i < flash_f32::kRows; ++i) {
-          pv[i] = pt[(ty + 16 * i) * kSS + c];
-          dsv[i] = dst[(ty + 16 * i) * kSS + c];
-        }
-#pragma unroll
-        for (int j = 0; j < kDPer; ++j) {
-          if (j < nd) {
-            const float gq = dos[c * kQS + tx + 16 * j];
-            const float qq = qs[c * kQS + tx + 16 * j];
-#pragma unroll
-            for (int i = 0; i < flash_f32::kRows; ++i) {
-              av[i][j] = fmaf(pv[i], gq, av[i][j]);
-              ak[i][j] = fmaf(dsv[i], qq, ak[i][j]);
-            }
-          }
-        }
-      }
+  // step t's Q, lse and delta; its dO
+  auto load_q = [&](int t) {
+    const int q0 = (ihi - t / grp) * kBQ;
+    const int head = kvh * grp + t % grp;
+    bwd32::load_rows_f32<D, kBQ, kThreads>(
+        qs, q + (static_cast<size_t>(b) * s.sq * s.h + head) * D, q_stride,
+        q0, s.sq);
+    const size_t row0 = (static_cast<size_t>(b) * s.h + head) * s.sq;
+    for (int r = threadIdx.x; r < kBQ; r += kThreads) {
+      const bool ok = q0 + r < s.sq;
+      cp_async4(ls + r, lse + (ok ? row0 + q0 + r : 0), ok);
+      cp_async4(dls + r, delta + (ok ? row0 + q0 + r : 0), ok);
     }
-  }
+  };
+  auto load_do = [&](int t) {
+    const int q0 = (ihi - t / grp) * kBQ;
+    const int head = kvh * grp + t % grp;
+    bwd32::load_rows_f32<D, kBQ, kThreads>(
+        dos, dout + (static_cast<size_t>(b) * s.sq * s.h + head) * D,
+        q_stride, q0, s.sq);
+  };
+
+  bwd32::load_rows_f32<D, BK, kThreads>(ks, k + kv_off, kv_stride, k0, s.sk);
+  bwd32::load_rows_f32<D, BK, kThreads>(vs, v + kv_off, kv_stride, k0, s.sk);
+  if (items > 0) load_q(0);
+  cp_async_commit();
+
+  float adk[D / 8][4], adv[D / 8][4];
 #pragma unroll
-  for (int i = 0; i < flash_f32::kRows; ++i) {
-    const int key = k0 + ty + 16 * i;
-    if (key >= s.sk) continue;
-    const size_t o = kv_off + static_cast<size_t>(key) * kv_row;
+  for (int i = 0; i < D / 8; ++i)
 #pragma unroll
-    for (int j = 0; j < kDPer; ++j)
-      if (j < nd) {
-        dk[o + tx + 16 * j] = ak[i][j];
-        dv[o + tx + 16 * j] = av[i][j];
-      }
+    for (int e = 0; e < 4; ++e) adk[i][e] = adv[i][e] = 0.f;
+  int* pending = nullptr;  // thread 0: the counter of an add in flight
+  int pending_val = 0;
+
+  for (int t = 0; t < items; ++t) {
+    const int i = ihi - t / grp;
+    const int head = kvh * grp + t % grp;
+    const int q0 = i * kBQ;
+    const bool full = f32_full_pair<BK>(s, q0, k0);
+    cp_async_wait<0>();  // Q, lse, delta (and K, V) of this step
+    bwd32::bulk_wait_read();  // the last dq add has read its staging
+    __syncthreads();
+    load_do(t);  // into the dO tile, while S^T runs
+    cp_async_commit();
+
+    float sc[kBQ / 8][4], dp[kBQ / 8][4];
+    bwd32::rows_by_rows<D>(ks, warp * 16, qs, sc);  // S^T = K Q^T
+    bwd32::probs(sc, ls, s.scale, [&](int c, int half) {
+      return full ||
+             (q0 + c < s.sq && band_live(s, q0 + c, k0 + lk + half * 8));
+    });
+    // the last step's dq add has had this step's first products to land
+    bwd32::release_dq_f32(&pending, pending_val);
+    cp_async_wait<0>();  // dO of this step
+    __syncthreads();
+    bwd32::acc_by_rows<D>(sc, dos, adv);            // dV += P^T dO
+    bwd32::rows_by_rows<D>(vs, warp * 16, dos, dp);  // dP^T = V dO^T
+    bwd32::dsoft(dp, sc, dls, s.scale);
+    bwd32::acc_by_rows<D>(dp, qs, adk);  // dK += dS^T Q
+    __syncthreads();  // every warp is done with Q and dO
+    if (t + 1 < items) load_q(t + 1);
+    cp_async_commit();
+    bwd32::store_dst(dos, warp * 16, dp);
+    __syncthreads();  // dS^T is complete
+    float dqa[8][4];
+    bwd32::dq_partial<D>(dos, ks, mq, nc, dqa);  // dQ = dS K
+    __syncthreads();  // every warp is done with dS^T: the staging is free
+
+    // this key tile's place in query tile i's add order: ascending key
+    // tiles from the first that reaches it
+    int klo, khi;
+    key_range(s, q0, &klo, &khi);
+    const int rank = j - klo / BK;
+    int* counter = sync + 1 + (b * s.h + head) * nq + i;
+    bwd32::add_dq_f32<D>(dqa, rank == 0, counter, rank,
+                         dq + (static_cast<size_t>(b) * s.sq + q0) *
+                                  q_stride +
+                             static_cast<size_t>(head) * D,
+                         q_stride, s.sq - q0, mq, nc, dos);
+    pending = counter;
+    pending_val = rank + 1;
   }
+  bwd32::release_dq_f32(&pending, pending_val);
+  cp_async_wait<0>();  // a CTA without steps still has K and V in flight
+  bwd32::store_rows_f32<D>(dk + kv_off, kv_stride, adk, k0 + warp * 16, s.sk);
+  bwd32::store_rows_f32<D>(dv + kv_off, kv_stride, adv, k0 + warp * 16, s.sk);
 }
 
 // ------------------------------------------------------------- launch
@@ -656,27 +566,48 @@ int launch_fused(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int D>
+int launch_fused_f32(const void* q, const void* k, const void* v,
+                     const void* dout, const float* lse, const float* delta,
+                     void* dq, void* dk, void* dv, int* sync, const Dims& s,
+                     int b, int items, cudaStream_t st) {
+  static bool configured = false;
+  constexpr size_t bytes = F32<D>::bytes;
+  if (int e = set_smem(bwd_fused_f32_kernel<D>, bytes, &configured))
+    return e;
+  bwd_fused_f32_kernel<D><<<items, F32<D>::kThreads, bytes, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+      delta, static_cast<float*>(dq), static_cast<float*>(dk),
+      static_cast<float*>(dv), sync, s, b);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // K7. q, do, dq (B, Sq, H, D); k, v, dk, dv (B, Sk, HK, D); lse, delta
-// (B, H, Sq) f32; all contiguous bf16 but lse and delta. D is 64 or 128;
-// window 0 means none (needs causal). dq_ws is the f32 workspace (B, H,
-// ceil(Sq / 64), 64, D + 4) and counters 1 + B * H * ceil(Sq / 64) int32
-// zeros (the ticket, then one counter per (batch, head, query tile)); dk,
-// dv are each KV head's sum over the query heads of its group. Rows of a
-// query tile no key tile reaches (sq > sk, causal) are not written.
+// (B, H, Sq) f32; all contiguous, of one dtype (bf16 or f32) but lse and
+// delta. D is 64 or 128; window 0 means none (needs causal). counters are
+// 1 + B * H * ceil(Sq / 64) int32 zeros (the ticket, then one counter per
+// (batch, head, query tile)); dk, dv are each KV head's sum over the query
+// heads of its group. Rows of a query tile no key tile reaches (sq > sk,
+// causal) are not written. bf16: dq_ws is the f32 workspace (B, H,
+// ceil(Sq / 64), 64, D + 4), CTAs of 128 keys; f32: dq takes the adds
+// itself (dq_ws unused), CTAs of 128 keys at D = 128 and 64 at D = 64.
 extern "C" int ptt_flash_attention_bwd_fused(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq, void* dk, void* dv,
     void* dq_ws, void* counters, int b, int sq, int sk, int h, int hk,
     int d, int causal, int window, float sm_scale, int dtype, void* stream) {
   if (b <= 0 || sk <= 0) return 0;
-  const long long items =
-      static_cast<long long>((sk + kFBK - 1) / kFBK) * b * hk;
-  if (sq < 0 || dtype != kBF16 || !valid(sk, h, hk, d, causal, window) ||
-      items > 0x7fffffffLL || !aligned16(q) || !aligned16(k) ||
-      !aligned16(v) || !aligned16(dout) || !aligned16(dq) ||
-      !aligned16(dk) || !aligned16(dv) || !aligned16(dq_ws))
+  const bool f32 = dtype == kF32;
+  const int bk = f32 && d == 64 ? F32<64>::BK : kFBK;
+  const long long items = static_cast<long long>((sk + bk - 1) / bk) * b * hk;
+  if (sq < 0 || (dtype != kBF16 && !f32) ||
+      !valid(sk, h, hk, d, causal, window) || items > 0x7fffffffLL ||
+      !aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(dout) ||
+      !aligned16(dq) || !aligned16(dk) || !aligned16(dv) ||
+      (!f32 && !aligned16(dq_ws)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Dims s{sq, sk, h, hk, causal, window, sk - sq, sm_scale};
@@ -685,58 +616,13 @@ extern "C" int ptt_flash_attention_bwd_fused(
   float* ws = static_cast<float*>(dq_ws);
   int* sync = static_cast<int*>(counters);
   const int n = static_cast<int>(items);
+  if (f32)
+    return d == 64 ? launch_fused_f32<64>(q, k, v, dout, l, dl, dq, dk, dv,
+                                          sync, s, b, n, st)
+                   : launch_fused_f32<128>(q, k, v, dout, l, dl, dq, dk, dv,
+                                           sync, s, b, n, st);
   return d == 64 ? launch_fused<64>(q, k, v, dout, l, dl, dq, dk, dv, ws,
                                     sync, s, b, n, st)
                  : launch_fused<128>(q, k, v, dout, l, dl, dq, dk, dv, ws,
                                      sync, s, b, n, st);
-}
-
-// K7a, f32: dq from q, k, v, do, lse, delta as above.
-extern "C" int ptt_flash_attention_bwd_dq(
-    const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, void* dq, int b, int sq, int sk,
-    int h, int hk, int d, int causal, int window, float sm_scale, int dtype,
-    void* stream) {
-  if (b <= 0 || sq <= 0) return 0;
-  if (dtype != kF32 || !valid(sk, h, hk, d, causal, window) ||
-      !aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(dout) ||
-      !aligned16(dq))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Dims s{sq, sk, h, hk, causal, window, sk - sq, sm_scale};
-  const dim3 grid((sq + kBQ - 1) / kBQ, h, b);
-  static bool configured = false;
-  if (int e = set_smem(bwd_dq_f32_kernel, kDqSmemF32, &configured)) return e;
-  bwd_dq_f32_kernel<<<grid, flash_f32::kThreads, kDqSmemF32, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<float*>(dq), s, d);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// K7b, f32: dk, dv (B, Sk, HK, D), each KV head's sum over the query
-// heads of its group.
-extern "C" int ptt_flash_attention_bwd_dkv(
-    const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, void* dk, void* dv, int b, int sq,
-    int sk, int h, int hk, int d, int causal, int window, float sm_scale,
-    int dtype, void* stream) {
-  if (b <= 0 || sk <= 0) return 0;
-  if (sq < 0 || dtype != kF32 || !valid(sk, h, hk, d, causal, window) ||
-      !aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(dout) ||
-      !aligned16(dk) || !aligned16(dv))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Dims s{sq, sk, h, hk, causal, window, sk - sq, sm_scale};
-  const dim3 grid((sk + kBK - 1) / kBK, hk, b);
-  static bool configured = false;
-  if (int e = set_smem(bwd_dkv_f32_kernel, kDkvSmemF32, &configured))
-    return e;
-  bwd_dkv_f32_kernel<<<grid, flash_f32::kThreads, kDkvSmemF32, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<float*>(dk), static_cast<float*>(dv), s, d);
-  return static_cast<int>(cudaGetLastError());
 }

@@ -1,8 +1,11 @@
 // The f32 flash-attention tile loop on the CUDA cores, shared by the
 // varlen kernel (K3, varlen_flash_attention.cu) and the dense kernel (K4,
-// flash_attention.cu). f32 stays off the tensor cores: TF32 would not keep
-// f32 results. The two kernels differ only in which keys a CTA walks and
-// which (query row, key) pairs are live, which a small policy supplies:
+// flash_attention.cu). It stays on f32 FMA: one TF32 product alone would
+// not keep f32 results, but a 3xTF32 split does (big + small operands,
+// three tensor-core products; the fused f32 backward, bwd_f32.cuh), which
+// is left to the forward's redesign. The two kernels differ only in which
+// keys a CTA walks and which (query row, key) pairs are live, which a
+// small policy supplies:
 //
 //   struct Policy {
 //     // called by every thread of the CTA for each key tile; false skips

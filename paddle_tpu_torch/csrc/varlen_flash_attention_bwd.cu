@@ -1,5 +1,6 @@
-// Varlen (packed) flash attention backward for Hopper: K8, one fused bf16
-// kernel for dq, dk and dv, and K8a (dq) / K8b (dk, dv) in f32.
+// Varlen (packed) flash attention backward for Hopper: K8, one fused kernel
+// for dq, dk and dv, in bf16 on wgmma and in f32 on the tensor cores as
+// 3xTF32.
 //
 // Replaces: paddle_tpu/ops/pallas/varlen_flash_attention.py, `_varlen_bwd`
 // -> `_bwd_dq_kernel` (its pl.pallas_call at :336) and `_bwd_dkv_kernel`
@@ -72,15 +73,15 @@
 //   bound instead of hanging the card. A query tile with no contributor
 //   (padding rows, rows that see no key) gets dq = 0 from the CTA whose
 //   ticket is its index (modulo the grid), at that CTA's end.
-// The f32 kernels K8a / K8b (the parity route) are CUDA-core FMA in the
-// tile shape of flash_f32.cuh (256 threads, each a 4 x 4 micro-tile of
-// scores and a 4 x D/16 slice of the output): K8a a CTA per 64-row query
-// tile walking its key range, K8b a CTA per 64-key tile walking its query
-// range over the G heads of its group, both in the heaviest-first order of
-// varlen_seg.cuh's tile-order kernel, dead tiles skipped by their indices.
+// The f32 kernel (`varlen_bwd_fused_f32_kernel`, the route of an f32
+// model) keeps K8's CTA shape, walk, work order and dq order
+// (VarlenBwdSchedule) and computes the same five products per live pair on
+// mma.sync TF32 as 3xTF32 (bwd_f32.cuh): 3 x 39.7 GFLOP at the packed
+// 941M row, 0.24 ms at 495 TFLOP/s. Its dq adds go straight into the f32
+// dq in the same fixed order, so two calls are bit-equal.
+#include "bwd_f32.cuh"
 #include "bwd_fused.cuh"
 #include "common.cuh"
-#include "flash_f32.cuh"
 #include "flash_mma.cuh"
 #include "tma.cuh"
 #include "varlen_seg.cuh"
@@ -103,9 +104,8 @@ using fl::pack_a;
 using fl::set_smem;
 using fl::store_rows;
 
-static_assert(fl::kBQ == kTile && flash_f32::kBQ == kTile &&
-                  flash_f32::kBK == kTile,
-              "K8 shares the 64-row tiles of flash_mma.cuh, flash_f32.cuh "
+static_assert(fl::kBQ == kTile && bwd32::kBQ == kTile,
+              "K8 shares the 64-row tiles of flash_mma.cuh, bwd_f32.cuh "
               "and varlen_seg.cuh");
 
 // ---------------------------------------------------------------- K8 bf16
@@ -569,287 +569,279 @@ __global__ void __launch_bounds__(Shape<D>::kThreads, 3 - Shape<D>::W)
   }
 }
 
-// ---------------------------------------------------------------- f32
-using flash_f32::kCols;
-using flash_f32::kDPer;
-using flash_f32::kQS;
-using flash_f32::kRows;
-using flash_f32::kSS;
-using flash_f32::load_rows;
+// ---------------------------------------------------------------- K8 f32
+// K8's walk and dq order in f32 on bwd_f32.cuh's 3xTF32 tile math: one CTA
+// per (KV head, BK-key tile) (BK = 64 at D = 64, 128 at D = 128, as K8),
+// BK / 16 warps of 16 keys, the 64-key half of warp w is w / 4; K and V
+// resident, Q (with lse and delta) and dO one step at a time. The walk is
+// K8's: chunks of up to one live query tile a thread, found in parallel.
+template <int D>
+using F32 = bwd32::Shape<D>;
+// cu_seqlens entries in shared memory (2 KB), so that three 64-key CTAs
+// share an SM at D = 64
+constexpr int kCuSmemF32 = 256;
 
-constexpr size_t kDqSmemF32 =
-    sizeof(float) * (4 * static_cast<size_t>(kTile) * kQS + kTile * kSS) +
-    sizeof(int) * 4 * kTile;
-constexpr size_t kDkvSmemF32 =
-    sizeof(float) * (4 * static_cast<size_t>(kTile) * kQS +
-                     2 * kTile * kSS + 2 * kTile) +
-    sizeof(int) * 4 * kTile;
+// One step of the f32 walk: query tile i (-1 once the walk is over), head
+// g of the group, the tile's state against each 64-key half, and the key
+// tile of its previous contributor (-1: this one is the first).
+struct StepF32 {
+  int i, g, st0, st1, prev;
+};
 
-__global__ void __launch_bounds__(flash_f32::kThreads)
-    varlen_bwd_dq_f32_kernel(const float* __restrict__ q,
-                             const float* __restrict__ k,
-                             const float* __restrict__ v,
-                             const float* __restrict__ dout,
-                             const float* __restrict__ lse,
-                             const float* __restrict__ delta,
-                             const int* __restrict__ cu_q,
-                             const int* __restrict__ cu_k,
-                             const int* __restrict__ order,
-                             float* __restrict__ dq, Seg s, int d) {
-  const int head = blockIdx.x;
-  const int q0 = order[blockIdx.y] * kTile;
-  const int kvh = head / (s.h / s.hk);
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  extern __shared__ float smem[];
-  float* qs = smem;               // [64][kQS]
-  float* dos = qs + kTile * kQS;  // [64][kQS]
-  float* ks = dos + kTile * kQS;  // [64][kQS]
-  float* vs = ks + kTile * kQS;   // [64][kQS]
-  float* ps = vs + kTile * kQS;   // [64][kSS]: dS
-  int* qseg = reinterpret_cast<int*>(ps + kTile * kSS);
-  int* qrel = qseg + kTile;
-  int* kseg = qrel + kTile;
-  int* krel = kseg + kTile;
-  __shared__ int krange[2];
+template <int D>
+__global__ void __launch_bounds__(F32<D>::kThreads, D == 64 ? 3 : 1)
+    varlen_bwd_fused_f32_kernel(const float* __restrict__ q,
+                                const float* __restrict__ k,
+                                const float* __restrict__ v,
+                                const float* __restrict__ dout,
+                                const float* __restrict__ lse,
+                                const float* __restrict__ delta,
+                                const int* __restrict__ cu_q_g,
+                                const int* __restrict__ cu_k_g,
+                                float* __restrict__ dq,
+                                float* __restrict__ dk,
+                                float* __restrict__ dv,
+                                int* __restrict__ sync, Seg s) {
+  using M = F32<D>;
+  constexpr int BK = M::BK;
+  constexpr int W = BK / kTile;  // 64-key halves
+  constexpr int kThreads = M::kThreads;
+  constexpr int kWarps = M::kWarps;
+  extern __shared__ __align__(16) float smem_f[];
+  float* ks = smem_f + M::k_off;
+  float* vs = smem_f + M::v_off;
+  float* qs = smem_f + M::q_off;
+  float* dos = smem_f + M::do_off;  // dO, then dS^T
+  float* ls = smem_f + M::lse_off;
+  float* dls = smem_f + M::delta_off;
+  __shared__ int ticket;
+  __shared__ Walk walks[W];
+  __shared__ int wl_warp[kWarps];
+  __shared__ int wl_i[kThreads], wl_prev[kThreads], wl_flags[kThreads];
+  __shared__ int cu_s[2 * kCuSmemF32];
 
-  const size_t row = static_cast<size_t>(s.h) * d;
-  const size_t kv_row = static_cast<size_t>(s.hk) * d;
-  query_rows(cu_q, cu_k, s.nseg, s.tq, q0, qseg, qrel);
-  load_rows(q + static_cast<size_t>(head) * d, qs, kQS, row, q0, s.tq, d);
-  load_rows(dout + static_cast<size_t>(head) * d, dos, kQS, row, q0, s.tq,
-            d);
-  float lr[kRows], dl[kRows], acc[kRows][kDPer];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int r = q0 + ty + 16 * i;
-    const size_t at = static_cast<size_t>(head) * s.tq + r;
-    lr[i] = r < s.tq ? lse[at] : 0.f;
-    dl[i] = r < s.tq ? delta[at] : 0.f;
-#pragma unroll
-    for (int j = 0; j < kDPer; ++j) acc[i][j] = 0.f;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0)
-    key_range(cu_k, s.tq, s.tk, q0, qseg, qrel, s.causal, s.window, krange);
-  __syncthreads();
-  const int lo = krange[0];
-  const int hi = krange[1];
-  const int nd = d / 16;
-
-  for (int k0 = lo; k0 < hi; k0 += kTile) {
-    key_rows(cu_k, s.nseg, k0, hi, kseg, krel);
-    __syncthreads();
-    const int state =
-        tile_pairs(qseg, qrel, kseg, krel, s.causal, s.window);
-    if (state == kDead) continue;
-    load_rows(k + static_cast<size_t>(kvh) * d, ks, kQS, kv_row, k0, hi, d);
-    load_rows(v + static_cast<size_t>(kvh) * d, vs, kQS, kv_row, k0, hi, d);
-    __syncthreads();
-    float sc[kRows][kCols] = {};
-    float dp[kRows][kCols] = {};
-    for (int c = 0; c < d; ++c) {
-      float qv[kRows], gv[kRows], kv[kCols], vv[kCols];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        qv[i] = qs[(ty + 16 * i) * kQS + c];
-        gv[i] = dos[(ty + 16 * i) * kQS + c];
-      }
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        kv[j] = ks[(tx + 16 * j) * kQS + c];
-        vv[j] = vs[(tx + 16 * j) * kQS + c];
-      }
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) {
-          sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
-          dp[i][j] = fmaf(gv[i], vv[j], dp[i][j]);
-        }
+  // the work item: ticket = j * hk + kv_head; cu_seqlens into shared memory
+  if (threadIdx.x == 0) ticket = atomicAdd(sync, 1);
+  const bool cu_shared = s.nseg < kCuSmemF32;
+  if (cu_shared)
+    for (int i = threadIdx.x; i <= s.nseg; i += kThreads) {
+      cu_s[i] = cu_q_g[i];
+      cu_s[kCuSmemF32 + i] = cu_k_g[i];
     }
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int r = ty + 16 * i;
-        const int c = tx + 16 * j;
-        const bool live =
-            state == kFull || live_pair(qseg[r], qrel[r], kseg[c], krel[c],
-                                        s.causal, s.window);
-        const float p = live ? expf(sc[i][j] * s.scale - lr[i]) : 0.f;
-        ps[r * kSS + c] = p * (dp[i][j] - dl[i]) * s.scale;
-      }
-    __syncthreads();
-    for (int c = 0; c < kTile; ++c) {
-      float dsv[kRows];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) dsv[i] = ps[(ty + 16 * i) * kSS + c];
-#pragma unroll
-      for (int j = 0; j < kDPer; ++j) {
-        if (j < nd) {
-          const float kk = ks[c * kQS + tx + 16 * j];
-#pragma unroll
-          for (int i = 0; i < kRows; ++i)
-            acc[i][j] = fmaf(dsv[i], kk, acc[i][j]);
-        }
-      }
-    }
-    __syncthreads();  // the next tile overwrites ks, vs, ps, the indices
-  }
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int r = q0 + ty + 16 * i;
-    if (r >= s.tq) continue;
-    float* dst = dq + static_cast<size_t>(head) * d + r * row;
-#pragma unroll
-    for (int j = 0; j < kDPer; ++j)
-      if (j < nd) dst[tx + 16 * j] = acc[i][j];
-  }
-}
-
-__global__ void __launch_bounds__(flash_f32::kThreads)
-    varlen_bwd_dkv_f32_kernel(const float* __restrict__ q,
-                              const float* __restrict__ k,
-                              const float* __restrict__ v,
-                              const float* __restrict__ dout,
-                              const float* __restrict__ lse,
-                              const float* __restrict__ delta,
-                              const int* __restrict__ cu_q,
-                              const int* __restrict__ cu_k,
-                              const int* __restrict__ order,
-                              float* __restrict__ dk, float* __restrict__ dv,
-                              Seg s, int d) {
-  const int kvh = blockIdx.x;
-  const int k0 = order[blockIdx.y] * kTile;
+  const int* cu_q = cu_shared ? cu_s : cu_q_g;
+  const int* cu_k = cu_shared ? cu_s + kCuSmemF32 : cu_k_g;
+  __syncthreads();
+  const int j = ticket / s.hk;
+  const int kvh = ticket % s.hk;
+  const int k0 = j * BK;
   const int grp = s.h / s.hk;
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  extern __shared__ float smem[];
-  float* ks = smem;               // [64][kQS]
-  float* vs = ks + kTile * kQS;   // [64][kQS]
-  float* qs = vs + kTile * kQS;   // [64][kQS]
-  float* dos = qs + kTile * kQS;  // [64][kQS]
-  float* pt = dos + kTile * kQS;  // [64][kSS]: P^T
-  float* dst = pt + kTile * kSS;  // [64][kSS]: dS^T
-  float* ls = dst + kTile * kSS;  // [64]
-  float* dls = ls + kTile;        // [64]
-  int* qseg = reinterpret_cast<int*>(dls + kTile);
-  int* qrel = qseg + kTile;
-  int* kseg = qrel + kTile;
-  int* krel = kseg + kTile;
-  __shared__ int qrange[2];
-
-  const size_t row = static_cast<size_t>(s.h) * d;
-  const size_t kv_row = static_cast<size_t>(s.hk) * d;
-  const size_t kv_off = static_cast<size_t>(kvh) * d;
+  const int nq = (s.tq + kTile - 1) / kTile;
+  const int qend = min(s.tq, cu_q[s.nseg]);
   const int kend = min(s.tk, cu_k[s.nseg]);
-  key_rows(cu_k, s.nseg, k0, kend, kseg, krel);
-  load_rows(k + kv_off, ks, kQS, kv_row, k0, kend, d);
-  load_rows(v + kv_off, vs, kQS, kv_row, k0, kend, d);
-  float ak[kRows][kDPer], av[kRows][kDPer];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i)
-#pragma unroll
-    for (int j = 0; j < kDPer; ++j) ak[i][j] = av[i][j] = 0.f;
-  __syncthreads();
-  if (threadIdx.x == 0)
-    query_range(cu_q, cu_k, kseg, krel, s.causal, s.window, qrange);
-  __syncthreads();
-  const int lo = qrange[0];
-  const int hi = qrange[1];
-  const int nd = d / 16;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int half_of = warp >> 2;  // the warp's 64-key half
+  const int lk = warp * 16 + (lane >> 2);  // the thread's keys lk, lk + 8
+  const int mq = (warp & 3) * 16;          // the warp's dq rows
+  const int nc = (warp >> 2) * M::NC;      // and columns
+  const size_t kv_stride = static_cast<size_t>(s.hk) * D;
+  const size_t kv_off = static_cast<size_t>(kvh) * D;
+  const size_t q_stride = static_cast<size_t>(s.h) * D;
 
-  for (int q0 = lo; q0 < hi; q0 += kTile) {
-    query_rows(cu_q, cu_k, s.nseg, s.tq, q0, qseg, qrel);
-    __syncthreads();
-    const int state =
-        tile_pairs(qseg, qrel, kseg, krel, s.causal, s.window);
-    if (state == kDead) continue;
-    for (int j0 = 0; j0 < grp; ++j0) {
-      const int head = kvh * grp + j0;
-      __syncthreads();  // the previous head's readers are done
-      load_rows(q + static_cast<size_t>(head) * d, qs, kQS, row, q0, s.tq,
-                d);
-      load_rows(dout + static_cast<size_t>(head) * d, dos, kQS, row, q0,
-                s.tq, d);
-      for (int i = threadIdx.x; i < kTile; i += blockDim.x) {
-        const bool ok = q0 + i < s.tq;
-        const size_t at = static_cast<size_t>(head) * s.tq + q0 + i;
-        ls[i] = ok ? lse[at] : 0.f;
-        dls[i] = ok ? delta[at] : 0.f;
-      }
-      __syncthreads();
-      // rows: keys ty + 16 i; columns: queries tx + 16 j
-      float sc[kRows][kCols] = {};
-      float dp[kRows][kCols] = {};
-      for (int c = 0; c < d; ++c) {
-        float kv[kRows], vv[kRows], qv[kCols], gv[kCols];
-#pragma unroll
-        for (int i = 0; i < kRows; ++i) {
-          kv[i] = ks[(ty + 16 * i) * kQS + c];
-          vv[i] = vs[(ty + 16 * i) * kQS + c];
-        }
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) {
-          qv[j] = qs[(tx + 16 * j) * kQS + c];
-          gv[j] = dos[(tx + 16 * j) * kQS + c];
-        }
-#pragma unroll
-        for (int i = 0; i < kRows; ++i)
-#pragma unroll
-          for (int j = 0; j < kCols; ++j) {
-            sc[i][j] = fmaf(kv[i], qv[j], sc[i][j]);
-            dp[i][j] = fmaf(vv[i], gv[j], dp[i][j]);
-          }
-      }
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) {
-          const int kr = ty + 16 * i;
-          const int qc = tx + 16 * j;
-          const bool live =
-              state == kFull || live_pair(qseg[qc], qrel[qc], kseg[kr],
-                                          krel[kr], s.causal, s.window);
-          const float p = live ? expf(sc[i][j] * s.scale - ls[qc]) : 0.f;
-          pt[kr * kSS + qc] = p;
-          dst[kr * kSS + qc] = p * (dp[i][j] - dls[qc]) * s.scale;
-        }
-      __syncthreads();
-      for (int c = 0; c < kTile; ++c) {
-        float pv[kRows], dsv[kRows];
-#pragma unroll
-        for (int i = 0; i < kRows; ++i) {
-          pv[i] = pt[(ty + 16 * i) * kSS + c];
-          dsv[i] = dst[(ty + 16 * i) * kSS + c];
-        }
-#pragma unroll
-        for (int j = 0; j < kDPer; ++j) {
-          if (j < nd) {
-            const float gq = dos[c * kQS + tx + 16 * j];
-            const float qq = qs[c * kQS + tx + 16 * j];
-#pragma unroll
-            for (int i = 0; i < kRows; ++i) {
-              av[i][j] = fmaf(pv[i], gq, av[i][j]);
-              ak[i][j] = fmaf(dsv[i], qq, ak[i][j]);
-            }
-          }
-        }
-      }
+  bwd32::load_rows_f32<D, BK, kThreads>(ks, k + kv_off, kv_stride, k0, kend);
+  bwd32::load_rows_f32<D, BK, kThreads>(vs, v + kv_off, kv_stride, k0, kend);
+  // each half's walk and query range (as K8)
+  int lo = s.tq, hi = 0;
+  for (int w = 0; w < W; ++w) {
+    int rlo, rhi;
+    const Walk wk = query_walk(cu_q, cu_k, s.nseg, s.tq, kend,
+                               k0 + w * kTile, s.causal, s.window, &rlo,
+                               &rhi);
+    if (threadIdx.x == w) walks[w] = wk;
+    if (rlo < rhi) {
+      lo = min(lo, rlo);
+      hi = max(hi, rhi);
     }
   }
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int key = k0 + ty + 16 * i;
-    if (key >= s.tk) continue;
-    const size_t o = kv_off + static_cast<size_t>(key) * kv_row;
-#pragma unroll
-    for (int j = 0; j < kDPer; ++j)
-      if (j < nd) {
-        dk[o + tx + 16 * j] = ak[i][j];
-        dv[o + tx + 16 * j] = av[i][j];
+  hi = min(hi, qend);
+  const int ilo = lo / kTile;
+
+  auto half_state = [&](int w, int q0) -> int {
+    if (walks[w].one_seg) return walks[w].state(q0);
+    const int kw = k0 + w * kTile;
+    return runs_live(cu_q, cu_k, s.nseg, q0, min(q0 + kTile, qend), kw,
+                     min(kw + kTile, kend), s.causal, s.window)
+               ? kPartial
+               : kDead;
+  };
+  // the previous live contributor of live query tile i below this CTA's
+  // key tile (-1: none)
+  auto prev_of = [&](int i) -> int {
+    const int q0 = i * kTile;
+    const int q1 = min(q0 + kTile, qend);
+    int sf, rf, sl, rl, klo, khi;
+    query_row(cu_q, cu_k, s.nseg, s.tq, q0, &sf, &rf);
+    query_row(cu_q, cu_k, s.nseg, s.tq, q1 - 1, &sl, &rl);
+    key_range_of(cu_k, s.tk, sf, rf, sl, rl, s.causal, s.window, &klo, &khi);
+    for (int jj = j - 1; jj >= klo / BK; --jj)
+      if (runs_live(cu_q, cu_k, s.nseg, q0, q1, jj * BK,
+                    min(jj * BK + BK, kend), s.causal, s.window))
+        return jj;
+    return -1;
+  };
+  int wl_top = hi > lo ? (hi - 1) / kTile : ilo - 1;
+  int wl_pos = 0, wl_len = 0;
+  auto fill = [&]() {
+    __syncthreads();  // every thread is done with the last chunk
+    const int i = wl_top - static_cast<int>(threadIdx.x);
+    int st0 = kDead, st1 = kDead, prev = -1;
+    if (i >= ilo) {
+      st0 = half_state(0, i * kTile);
+      if constexpr (W > 1) st1 = half_state(1, i * kTile);
+      if (st0 != kDead || st1 != kDead) prev = prev_of(i);
+    }
+    const bool live = st0 != kDead || st1 != kDead;
+    const unsigned ballot = __ballot_sync(0xffffffffu, live);
+    if (lane == 0) wl_warp[warp] = __popc(ballot);
+    __syncthreads();
+    int at = __popc(ballot & ((1u << lane) - 1)), total = 0;
+    for (int w = 0; w < kWarps; ++w) {
+      at += w < warp ? wl_warp[w] : 0;
+      total += wl_warp[w];
+    }
+    if (live) {
+      wl_i[at] = i;
+      wl_prev[at] = prev;
+      wl_flags[at] = st0 | st1 << 2;
+    }
+    __syncthreads();
+    wl_top -= kThreads;
+    wl_pos = 0;
+    wl_len = total;
+  };
+  auto advance = [&](StepF32 c) -> StepF32 {
+    if (c.i < 0 || ++c.g < grp) return c;
+    c.g = 0;
+    while (wl_pos == wl_len) {
+      if (wl_top < ilo) {
+        c.i = -1;
+        return c;
       }
+      fill();
+    }
+    c.i = wl_i[wl_pos];
+    c.prev = wl_prev[wl_pos];
+    const int f = wl_flags[wl_pos++];
+    c.st0 = f & 3;
+    c.st1 = (f >> 2) & 3;
+    return c;
+  };
+  // step c's Q, lse and delta; its dO
+  auto load_q = [&](const StepF32& c) {
+    const int q0 = c.i * kTile;
+    const int head = kvh * grp + c.g;
+    bwd32::load_rows_f32<D, kTile, kThreads>(
+        qs, q + static_cast<size_t>(head) * D, q_stride, q0, s.tq);
+    const size_t row0 = static_cast<size_t>(head) * s.tq;
+    for (int r = threadIdx.x; r < kTile; r += kThreads) {
+      const bool ok = q0 + r < s.tq;
+      cp_async4(ls + r, lse + (ok ? row0 + q0 + r : 0), ok);
+      cp_async4(dls + r, delta + (ok ? row0 + q0 + r : 0), ok);
+    }
+  };
+  auto load_do = [&](const StepF32& c) {
+    bwd32::load_rows_f32<D, kTile, kThreads>(
+        dos, dout + static_cast<size_t>(kvh * grp + c.g) * D, q_stride,
+        c.i * kTile, s.tq);
+  };
+
+  StepF32 cur{0, grp - 1, 0, 0, -1};
+  cur = advance(cur);
+  StepF32 nxt = advance(cur);
+  if (cur.i >= 0) load_q(cur);
+  cp_async_commit();
+
+  float adk[D / 8][4], adv[D / 8][4];
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) adk[i][e] = adv[i][e] = 0.f;
+  // the queries [seen_lo, seen_hi) that see each of the thread's keys
+  int seen_lo[2], seen_hi[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    key_queries(cu_q, cu_k, s.nseg, s.tq, kend, k0 + lk + h * 8, s.causal,
+                s.window, seen_lo + h, seen_hi + h);
+  int* pending = nullptr;  // thread 0: the counter of an add in flight
+  const int pending_val = j + 1;
+
+  while (cur.i >= 0) {
+    const int q0 = cur.i * kTile;
+    const int head = kvh * grp + cur.g;
+    // the thread's keys see the tile's columns [c_lo[h], c_lo[h] + c_n[h])
+    // (all 64 when every pair of the half is live)
+    const bool all_live = (half_of ? cur.st1 : cur.st0) == kFull;
+    unsigned c_lo[2], c_n[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      c_lo[h] = all_live ? 0u : static_cast<unsigned>(seen_lo[h] - q0);
+      c_n[h] = all_live ? kTile
+                        : static_cast<unsigned>(seen_hi[h] - seen_lo[h]);
+    }
+    cp_async_wait<0>();  // Q, lse, delta (and K, V) of this step
+    bwd32::bulk_wait_read();  // the last dq add has read its staging
+    __syncthreads();
+    load_do(cur);  // into the dO tile, while S^T runs
+    cp_async_commit();
+
+    float sc[kTile / 8][4], dp[kTile / 8][4];
+    bwd32::rows_by_rows<D>(ks, warp * 16, qs, sc);  // S^T = K Q^T
+    bwd32::probs(sc, ls, s.scale, [&](int c, int h) {
+      return static_cast<unsigned>(c) - c_lo[h] < c_n[h];
+    });
+    // the last step's dq add has had this step's first products to land
+    bwd32::release_dq_f32(&pending, pending_val);
+    cp_async_wait<0>();  // dO of this step
+    __syncthreads();
+    bwd32::acc_by_rows<D>(sc, dos, adv);            // dV += P^T dO
+    bwd32::rows_by_rows<D>(vs, warp * 16, dos, dp);  // dP^T = V dO^T
+    bwd32::dsoft(dp, sc, dls, s.scale);
+    bwd32::acc_by_rows<D>(dp, qs, adk);  // dK += dS^T Q
+    __syncthreads();  // every warp is done with Q and dO
+    if (nxt.i >= 0) load_q(nxt);
+    cp_async_commit();
+    bwd32::store_dst(dos, warp * 16, dp);
+    __syncthreads();  // dS^T is complete
+    float dqa[8][4];
+    bwd32::dq_partial<D>(dos, ks, mq, nc, dqa);  // dQ = dS K
+    __syncthreads();  // every warp is done with dS^T: the staging is free
+
+    // this key tile's add into (head, query tile i), after its predecessor
+    int* counter = sync + 1 + head * nq + cur.i;
+    bwd32::add_dq_f32<D>(dqa, cur.prev < 0, counter, cur.prev + 1,
+                         dq + q0 * q_stride + static_cast<size_t>(head) * D,
+                         q_stride, s.tq - q0, mq, nc, dos);
+    pending = counter;
+    cur = nxt;
+    nxt = advance(nxt);
+  }
+  bwd32::release_dq_f32(&pending, pending_val);
+  cp_async_wait<0>();  // a CTA without steps still has K and V in flight
+  bwd32::store_rows_f32<D>(dk + kv_off, kv_stride, adk, k0 + warp * 16, s.tk);
+  bwd32::store_rows_f32<D>(dv + kv_off, kv_stride, adv, k0 + warp * 16, s.tk);
+
+  // dq = 0 on the query tiles that hold no live pair, which no key tile
+  // adds to (as K8)
+  for (int i = ticket; i < nq; i += gridDim.x) {
+    const int q0 = i * kTile;
+    if (runs_live(cu_q, cu_k, s.nseg, q0, min(q0 + kTile, qend), 0, kend,
+                  s.causal, s.window))
+      continue;
+    float4* o = reinterpret_cast<float4*>(dq + q0 * q_stride);
+    const int n =
+        (min(q0 + kTile, s.tq) - q0) * static_cast<int>(q_stride) / 4;
+    for (int e = threadIdx.x; e < n; e += kThreads)
+      o[e] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
 }
 
@@ -879,15 +871,34 @@ int launch_fused(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int D>
+int launch_fused_f32(const void* q, const void* k, const void* v,
+                     const void* dout, const float* lse, const float* delta,
+                     const int* cu_q, const int* cu_k, void* dq, void* dk,
+                     void* dv, int* sync, const Seg& s, int items,
+                     cudaStream_t st) {
+  static bool configured = false;
+  constexpr size_t bytes = F32<D>::bytes;
+  if (int e = set_smem(varlen_bwd_fused_f32_kernel<D>, bytes, &configured))
+    return e;
+  varlen_bwd_fused_f32_kernel<D><<<items, F32<D>::kThreads, bytes, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+      delta, cu_q, cu_k, static_cast<float*>(dq), static_cast<float*>(dk),
+      static_cast<float*>(dv), sync, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // K8. q, do, dq (Tq, H, D); k, v, dk, dv (Tk, HK, D); lse, delta (H, Tq)
-// f32; cu_q, cu_k (nseg + 1,) int32; all contiguous bf16 but lse, delta
-// and the cu_seqlens. D is 64 or 128; window 0 means none (needs causal).
-// dq_ws is the f32 workspace (H, ceil(Tq / 64), 64, D + 4) and counters 1
-// + H * ceil(Tq / 64) int32 zeros (the ticket, then one counter per (head,
-// query tile)); dk, dv are each KV head's sum over the query heads of its
-// group.
+// f32; cu_q, cu_k (nseg + 1,) int32; all contiguous, of one dtype (bf16 or
+// f32) but lse, delta and the cu_seqlens. D is 64 or 128; window 0 means
+// none (needs causal). counters are 1 + H * ceil(Tq / 64) int32 zeros (the
+// ticket, then one counter per (head, query tile)); dk, dv are each KV
+// head's sum over the query heads of its group. bf16: dq_ws is the f32
+// workspace (H, ceil(Tq / 64), 64, D + 4); f32: dq takes the adds itself
+// (dq_ws unused).
 extern "C" int ptt_varlen_flash_attention_bwd_fused(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, const void* cu_q, const void* cu_k,
@@ -895,12 +906,13 @@ extern "C" int ptt_varlen_flash_attention_bwd_fused(
     int tk, int nseg, int h, int hk, int d, int causal, int window,
     float sm_scale, int dtype, void* stream) {
   if (tq <= 0 || tk <= 0) return 0;
+  const bool f32 = dtype == kF32;
   const int bk = d == 64 ? Shape<64>::BK : Shape<128>::BK;
   const long long items = static_cast<long long>((tk + bk - 1) / bk) * hk;
-  if (dtype != kBF16 || !valid(nseg, h, hk, d, causal, window) ||
+  if ((dtype != kBF16 && !f32) || !valid(nseg, h, hk, d, causal, window) ||
       items > 0x7fffffffLL || !aligned16(q) || !aligned16(k) ||
       !aligned16(v) || !aligned16(dout) || !aligned16(dq) ||
-      !aligned16(dk) || !aligned16(dv) || !aligned16(dq_ws))
+      !aligned16(dk) || !aligned16(dv) || (!f32 && !aligned16(dq_ws)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Seg s{tq, tk, nseg, h, hk, causal, window, sm_scale};
@@ -911,71 +923,13 @@ extern "C" int ptt_varlen_flash_attention_bwd_fused(
   float* ws = static_cast<float*>(dq_ws);
   int* sync = static_cast<int*>(counters);
   const int n = static_cast<int>(items);
+  if (f32)
+    return d == 64 ? launch_fused_f32<64>(q, k, v, dout, l, dl, cq, ck, dq,
+                                          dk, dv, sync, s, n, st)
+                   : launch_fused_f32<128>(q, k, v, dout, l, dl, cq, ck, dq,
+                                           dk, dv, sync, s, n, st);
   return d == 64 ? launch_fused<64>(q, k, v, dout, l, dl, cq, ck, dq, dk,
                                     dv, ws, sync, s, n, st)
                  : launch_fused<128>(q, k, v, dout, l, dl, cq, ck, dq, dk,
                                      dv, ws, sync, s, n, st);
-}
-
-// K8a, f32: dq from q, k, v, do, lse, delta as above; order is int32
-// scratch of ceil(Tq / 64).
-extern "C" int ptt_varlen_flash_attention_bwd_dq(
-    const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, const void* cu_q, const void* cu_k,
-    void* order, void* dq, int tq, int tk, int nseg, int h, int hk, int d,
-    int causal, int window, float sm_scale, int dtype, void* stream) {
-  if (tq <= 0) return 0;
-  const int ntiles = (tq + kTile - 1) / kTile;
-  if (tk < 0 || ntiles > 65535 || dtype != kF32 ||
-      !valid(nseg, h, hk, d, causal, window) || !aligned16(q) ||
-      !aligned16(k) || !aligned16(v) || !aligned16(dout) || !aligned16(dq))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Seg s{tq, tk, nseg, h, hk, causal, window, sm_scale};
-  const int* cq = static_cast<const int*>(cu_q);
-  const int* ck = static_cast<const int*>(cu_k);
-  int* ord = static_cast<int*>(order);
-  if (int e = launch_tile_order(cq, ck, s, 0, ntiles, ord, st)) return e;
-  static bool configured = false;
-  if (int e = set_smem(varlen_bwd_dq_f32_kernel, kDqSmemF32, &configured))
-    return e;
-  varlen_bwd_dq_f32_kernel<<<dim3(h, ntiles), flash_f32::kThreads,
-                             kDqSmemF32, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta), cq,
-      ck, ord, static_cast<float*>(dq), s, d);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// K8b, f32: dk, dv (Tk, HK, D), each KV head's sum over the query heads of
-// its group; order is int32 scratch of ceil(Tk / 64).
-extern "C" int ptt_varlen_flash_attention_bwd_dkv(
-    const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, const void* cu_q, const void* cu_k,
-    void* order, void* dk, void* dv, int tq, int tk, int nseg, int h, int hk,
-    int d, int causal, int window, float sm_scale, int dtype, void* stream) {
-  if (tk <= 0) return 0;
-  const int ntiles = (tk + kTile - 1) / kTile;
-  if (tq < 0 || ntiles > 65535 || dtype != kF32 ||
-      !valid(nseg, h, hk, d, causal, window) || !aligned16(q) ||
-      !aligned16(k) || !aligned16(v) || !aligned16(dout) || !aligned16(dk) ||
-      !aligned16(dv))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Seg s{tq, tk, nseg, h, hk, causal, window, sm_scale};
-  const int* cq = static_cast<const int*>(cu_q);
-  const int* ck = static_cast<const int*>(cu_k);
-  int* ord = static_cast<int*>(order);
-  if (int e = launch_tile_order(cq, ck, s, 1, ntiles, ord, st)) return e;
-  static bool configured = false;
-  if (int e = set_smem(varlen_bwd_dkv_f32_kernel, kDkvSmemF32, &configured))
-    return e;
-  varlen_bwd_dkv_f32_kernel<<<dim3(hk, ntiles), flash_f32::kThreads,
-                              kDkvSmemF32, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta), cq,
-      ck, ord, static_cast<float*>(dk), static_cast<float*>(dv), s, d);
-  return static_cast<int>(cudaGetLastError());
 }

@@ -6,16 +6,15 @@ and plain PyTorch version.
 - K2 ``paged_decode_attention`` (csrc/paged_attention.cu)
 - K3 ``varlen_flash_attention`` forward (csrc/varlen_flash_attention.cu)
   and its backward ``varlen_flash_attention_bwd``
-  (csrc/varlen_flash_attention_bwd.cu): in bf16 one fused kernel K8
-  (``varlen_flash_attention_bwd_fused``) for dq, dk and dv, in f32 K8a
-  ``varlen_flash_attention_bwd_dq`` and K8b
-  ``varlen_flash_attention_bwd_dkv``; joined by
-  ``VarlenFlashAttentionFunction``; the segment logic they share is
+  (csrc/varlen_flash_attention_bwd.cu): one fused kernel K8
+  (``varlen_flash_attention_bwd_fused``) for dq, dk and dv, on wgmma in
+  bf16 and as 3xTF32 in f32 (``_dq`` and ``_dkv`` return its parts);
+  joined by ``VarlenFlashAttentionFunction``; the segment logic they share is
   csrc/varlen_seg.cuh
 - K4 ``flash_attention`` forward (csrc/flash_attention.cu) and its
-  backward ``flash_attention_bwd`` (csrc/flash_attention_bwd.cu): in bf16
-  one fused kernel K7 for dq, dk and dv, in f32 K7a
-  ``flash_attention_bwd_dq`` and K7b ``flash_attention_bwd_dkv``; joined
+  backward ``flash_attention_bwd`` (csrc/flash_attention_bwd.cu): one
+  fused kernel K7 for dq, dk and dv, on wgmma in bf16 and as 3xTF32 in
+  f32 (``flash_attention_bwd_dq`` and ``_dkv`` return its parts); joined
   by ``FlashAttentionFunction``
 - K5 ``decode_attention`` (csrc/decode_attention.cu)
 """

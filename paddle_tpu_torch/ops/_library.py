@@ -41,7 +41,8 @@ SOURCES = ("rms_norm.cu", "paged_attention.cu", "varlen_flash_attention.cu",
            "decode_attention.cu", "flash_attention.cu",
            "flash_attention_bwd.cu", "varlen_flash_attention_bwd.cu")
 HEADERS = ("common.cuh", "split_decode.cuh", "flash_f32.cuh", "flash_mma.cuh",
-           "varlen_seg.cuh", "wgmma.cuh", "tma.cuh", "bwd_fused.cuh")
+           "varlen_seg.cuh", "wgmma.cuh", "tma.cuh", "bwd_fused.cuh",
+           "bwd_f32.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-lineinfo", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -52,11 +53,9 @@ LAUNCHES = {"rms_norm": 0, "paged_decode_attention": 0,
             "paged_decode_attention_scaled": 0,
             "varlen_flash_attention": 0, "flash_attention": 0,
             "decode_attention": 0, "rms_norm_bwd": 0,
-            "flash_attention_bwd": 0,
-            "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
+            "flash_attention_bwd": 0, "flash_attention_bwd_f32": 0,
             "varlen_flash_attention_bwd": 0,
-            "varlen_flash_attention_bwd_dq": 0,
-            "varlen_flash_attention_bwd_dkv": 0}
+            "varlen_flash_attention_bwd_f32": 0}
 
 _plain = False
 _lib = None
@@ -202,30 +201,12 @@ def _declare(lib):
         # sq, sk, h, hk, d, causal, window, sm_scale, dtype, stream
         "ptt_flash_attention_bwd_fused": (p, p, p, p, p, p, p, p, p, p, p, i,
                                           i, i, i, i, i, i, i, f, i, p),
-        # q, k, v, do, lse, delta, dq, b, sq, sk, h, hk, d, causal, window,
-        # sm_scale, dtype, stream
-        "ptt_flash_attention_bwd_dq": (p, p, p, p, p, p, p, i, i, i, i, i, i,
-                                       i, i, f, i, p),
-        # q, k, v, do, lse, delta, dk, dv, b, sq, sk, h, hk, d, causal,
-        # window, sm_scale, dtype, stream
-        "ptt_flash_attention_bwd_dkv": (p, p, p, p, p, p, p, p, i, i, i, i,
-                                        i, i, i, i, f, i, p),
         # q, k, v, do, lse, delta, cu_q, cu_k, dq, dk, dv, dq_workspace,
         # counters, tq, tk, nseg, h, hk, d, causal, window, sm_scale, dtype,
         # stream
         "ptt_varlen_flash_attention_bwd_fused": (p, p, p, p, p, p, p, p, p, p,
                                                  p, p, p, i, i, i, i, i, i, i,
                                                  i, f, i, p),
-        # q, k, v, do, lse, delta, cu_q, cu_k, order, dq, tq, tk, nseg, h,
-        # hk, d, causal, window, sm_scale, dtype, stream
-        "ptt_varlen_flash_attention_bwd_dq": (p, p, p, p, p, p, p, p, p, p,
-                                              i, i, i, i, i, i, i, i, f, i,
-                                              p),
-        # q, k, v, do, lse, delta, cu_q, cu_k, order, dk, dv, tq, tk, nseg,
-        # h, hk, d, causal, window, sm_scale, dtype, stream
-        "ptt_varlen_flash_attention_bwd_dkv": (p, p, p, p, p, p, p, p, p, p,
-                                               p, i, i, i, i, i, i, i, i, f,
-                                               i, p),
     }
     for name, args in sigs.items():
         fn = getattr(lib, name)

@@ -123,13 +123,15 @@ def decode_attention(q, k_cache, v_cache, seq_lens, sm_scale=None):
     g = h // hk
     splits = SD.plan_for(b * hk, s_max, 2 * d * k_cache.element_size(),
                          q3.device)
-    ptrs, part = SD.workspace(splits, b * hk, g, d, q3.device)
+    stream = L.cuda_stream(q3)
+    ptrs, part = SD.workspace(splits, b * hk, g, d, q3.device,
+                              stream.value or 0)
     out = torch.empty_like(qk)
     status = lib.ptt_decode_attention(
         qk.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         seq_lens.data_ptr(), out.data_ptr(), *ptrs, b, h, hk, d, s_max,
         splits.stretch, splits.nsplit, float(sm_scale),
-        _DTYPES[k_cache.dtype], L.cuda_stream(q3))
+        _DTYPES[k_cache.dtype], stream)
     L.check_status("decode_attention", status)
     L.LAUNCHES["decode_attention"] += 1
     out = out.to(q3.dtype)

@@ -1,7 +1,7 @@
 """Dense flash attention, forward and backward: the Hopper kernels K4
-(forward) and K7 (the backward: one fused bf16 kernel for dq, dk and dv;
-K7a and K7b for dq and dk/dv in f32), their plain PyTorch versions, and
-the autograd Function that joins them.
+(forward) and K7 (the backward: one fused kernel for dq, dk and dv, on
+wgmma in bf16 and as 3xTF32 in f32), their plain PyTorch versions, and the
+autograd Function that joins them.
 
 Counterpart of ``paddle_tpu/ops/pallas/flash_attention.py``. Paddle
 layout: q (B, Sq, H, D), k/v (B, Sk, HK, D), H a multiple of HK. Causal
@@ -14,7 +14,8 @@ the TPU kernel does. The backward recomputes P from the forward's
 log-sum-exp with the TPU kernel's roundings (see
 :func:`flash_attention_bwd_plain`). :class:`FwdTiles` states the bf16
 forward kernel's tile plan and launch order, :class:`BwdSchedule` the fused
-bf16 backward's work order and dq add order; the kernels follow them.
+backward's work order and dq add order (:func:`bwd_block_k` its key tile);
+the kernels follow them.
 :class:`FlashAttentionFunction` mirrors
 the reference's ``custom_vjp``. The CUDA sources are
 ``paddle_tpu_torch/csrc/flash_attention.cu`` and
@@ -33,7 +34,7 @@ __all__ = ["flash_attention", "flash_attention_plain", "band_mask",
            "flash_attention_bwd_dkv", "flash_attention_bwd_fused",
            "flash_attention_bwd_delta",
            "flash_attention_bwd_plain", "FlashAttentionFunction",
-           "FwdTiles", "BwdSchedule"]
+           "FwdTiles", "BwdSchedule", "bwd_block_k"]
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -43,9 +44,16 @@ _HEAD_DIMS = (64, 128)
 FWD_BLOCK_Q = 128
 FWD_BLOCK_K = 128
 # the fused backward's tiles (flash_attention_bwd.cu): 64 query rows of a
-# dq tile (flash_mma.cuh kBQ), 128 keys per CTA (kFBK)
+# dq tile (flash_mma.cuh kBQ), 128 keys per CTA (kFBK; the f32 kernel's
+# bwd_f32.cuh Shape: 64 at head width 64)
 BWD_BLOCK_Q = 64
 BWD_BLOCK_K = 128
+
+
+def bwd_block_k(dtype, d):
+    """Keys per CTA of the fused backward: 128, but 64 for the f32 kernel
+    at head width 64 (three 64-key CTAs share an SM)."""
+    return 64 if dtype == torch.float32 and d == 64 else BWD_BLOCK_K
 
 
 def band_mask(sq, sk, causal, window=None, device=None):
@@ -270,8 +278,9 @@ class FwdTiles:
 
 
 class BwdSchedule:
-    """The fused bf16 backward's work order (``csrc/flash_attention_bwd.cu``,
-    which follows it formula for formula).
+    """The fused backward's work order (``csrc/flash_attention_bwd.cu``,
+    whose bf16 and f32 kernels follow it formula for formula, each at its
+    own ``block_k``: :func:`bwd_block_k`).
 
     A work item is one CTA's key tile: (batch, KV head, key tile ``j`` of
     ``block_k`` keys). It walks the query tiles (``block_q`` rows) that hold
@@ -289,7 +298,8 @@ class BwdSchedule:
       ascending key-tile order, ``rank = j - jlo``: the first (``rank``
       0) stores into the workspace, the last (``j == jhi``) adds the
       workspace to its own partial and writes dq in bf16; a tile with one
-      contributor writes dq straight away.
+      contributor writes dq straight away. The f32 kernel adds into dq
+      itself in the same order: rank 0 stores, each later rank adds.
     - A contributor waits only on the one before it, a lower key tile of
       the same batch and KV head: an earlier ticket. Every claimed ticket
       belongs to a running CTA and the earliest unfinished one waits on
@@ -404,17 +414,17 @@ def flash_attention_bwd_fused(q, k, v, do, lse, delta, causal=False,
     from the forward's ``lse`` and ``delta``
     (:func:`flash_attention_bwd_delta`); dk and dv are each KV head's sum
     over the query heads of its group. CPU tensors run the plain
-    backward; CUDA tensors must be bf16 (f32 takes K7a and K7b)."""
+    backward; CUDA tensors launch the bf16 kernel (counted as
+    ``flash_attention_bwd``) or the f32 one (``flash_attention_bwd_f32``)."""
     if L.use_plain(q):
         return flash_attention_bwd_plain(q, k, v, None, lse, do, causal,
                                          sm_scale, window_size, delta)
-    if q.dtype != torch.bfloat16:
-        raise TypeError("the fused flash_attention backward kernel takes "
-                        f"bfloat16 inputs, got {q.dtype}")
     ptrs, dims = _bwd_launch_args(q, k, v, do, lse, delta, causal, sm_scale,
                                   window_size)
     b, sq, sk, h, hk, d = dims[:6]
-    sched = BwdSchedule(b, sq, sk, h, hk, causal, window_size)
+    f32 = q.dtype == torch.float32
+    sched = BwdSchedule(b, sq, sk, h, hk, causal, window_size,
+                        block_k=bwd_block_k(q.dtype, d))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if sk == 0:
         return torch.zeros_like(q), dk, dv
@@ -422,15 +432,17 @@ def flash_attention_bwd_fused(q, k, v, do, lse, delta, causal=False,
     if causal and sq > sk:
         # rows that see no key: their tiles may have no contributor
         dq[:, :sq - sk].zero_()
-    ws = torch.empty(sched.workspace_shape(d), dtype=torch.float32,
-                     device=q.device)
+    # the f32 kernel adds into dq itself: no workspace
+    ws = None if f32 else torch.empty(sched.workspace_shape(d),
+                                      dtype=torch.float32, device=q.device)
     counters = torch.zeros(sched.n_counters, dtype=torch.int32,
                            device=q.device)
+    name = "flash_attention_bwd_f32" if f32 else "flash_attention_bwd"
     status = L.library().ptt_flash_attention_bwd_fused(
-        *ptrs, dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), ws.data_ptr(),
-        counters.data_ptr(), *dims)
-    L.check_status("flash_attention_bwd", status)
-    L.LAUNCHES["flash_attention_bwd"] += 1
+        *ptrs, dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        None if ws is None else ws.data_ptr(), counters.data_ptr(), *dims)
+    L.check_status(name, status)
+    L.LAUNCHES[name] += 1
     return dq, dk, dv
 
 
@@ -438,50 +450,32 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=False,
                            sm_scale=None, window_size=None):
     """dq (like q) from the forward's ``lse`` and ``delta``
     (:func:`flash_attention_bwd_delta`). CPU tensors run the plain
-    backward; CUDA tensors launch a kernel or raise: the fused K7 (which
-    also computes dk and dv) in bf16, K7a in f32."""
+    backward; CUDA tensors launch the fused K7 (which also computes dk
+    and dv) or raise."""
     if L.use_plain(q):
         return flash_attention_bwd_plain(q, k, v, None, lse, do, causal,
                                          sm_scale, window_size, delta)[0]
-    if q.dtype == torch.bfloat16:
-        return flash_attention_bwd_fused(q, k, v, do, lse, delta, causal,
-                                         sm_scale, window_size)[0]
-    ptrs, dims = _bwd_launch_args(q, k, v, do, lse, delta, causal, sm_scale,
-                                  window_size)
-    dq = torch.empty_like(q)
-    status = L.library().ptt_flash_attention_bwd_dq(*ptrs, dq.data_ptr(),
-                                                    *dims)
-    L.check_status("flash_attention_bwd_dq", status)
-    L.LAUNCHES["flash_attention_bwd_dq"] += 1
-    return dq
+    return flash_attention_bwd_fused(q, k, v, do, lse, delta, causal,
+                                     sm_scale, window_size)[0]
 
 
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal=False,
                             sm_scale=None, window_size=None):
     """``(dk, dv)`` (like k, v), each KV head's sum over the query heads
     of its group. CPU tensors run the plain backward; CUDA tensors launch
-    a kernel or raise: the fused K7 in bf16, K7b in f32."""
+    the fused K7 or raise."""
     if L.use_plain(q):
         return flash_attention_bwd_plain(q, k, v, None, lse, do, causal,
                                          sm_scale, window_size, delta)[1:]
-    if q.dtype == torch.bfloat16:
-        return flash_attention_bwd_fused(q, k, v, do, lse, delta, causal,
-                                         sm_scale, window_size)[1:]
-    ptrs, dims = _bwd_launch_args(q, k, v, do, lse, delta, causal, sm_scale,
-                                  window_size)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    status = L.library().ptt_flash_attention_bwd_dkv(
-        *ptrs, dk.data_ptr(), dv.data_ptr(), *dims)
-    L.check_status("flash_attention_bwd_dkv", status)
-    L.LAUNCHES["flash_attention_bwd_dkv"] += 1
-    return dk, dv
+    return flash_attention_bwd_fused(q, k, v, do, lse, delta, causal,
+                                     sm_scale, window_size)[1:]
 
 
 def flash_attention_bwd(q, k, v, out, lse, do, causal=False, sm_scale=None,
                         window_size=None):
     """Gradients ``(dq, dk, dv)`` of flash attention from the forward's
     ``out`` and ``lse`` and the upstream ``do`` (like q): delta, then on
-    CUDA tensors one launch of the fused K7 in bf16, K7a and K7b in f32;
+    CUDA tensors one launch of the fused K7 (bf16 or f32);
     :func:`flash_attention_bwd_plain` on CPU tensors."""
     if out.shape != q.shape:
         raise ValueError(f"flash_attention_bwd: out {tuple(out.shape)} for "
@@ -491,14 +485,8 @@ def flash_attention_bwd(q, k, v, out, lse, do, causal=False, sm_scale=None,
         return flash_attention_bwd_plain(q, k, v, out, lse, do, causal,
                                          sm_scale, window_size)
     delta = flash_attention_bwd_delta(out, do)
-    if q.dtype == torch.bfloat16:
-        return flash_attention_bwd_fused(q, k, v, do, lse, delta, causal,
-                                         sm_scale, window_size)
-    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, causal, sm_scale,
-                                window_size)
-    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal,
+    return flash_attention_bwd_fused(q, k, v, do, lse, delta, causal,
                                      sm_scale, window_size)
-    return dq, dk, dv
 
 
 class FlashAttentionFunction(torch.autograd.Function):

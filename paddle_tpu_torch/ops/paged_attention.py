@@ -171,7 +171,9 @@ def _launch(name, q, k_pool, v_pool, block_tables, seq_lens, sm_scale,
     w = block_tables.shape[1]
     splits = SD.plan_for(b * hk, w * bs, 2 * d * k_pool.element_size(),
                          q.device)
-    ptrs, part = SD.workspace(splits, b * hk, h // hk, d, q.device)
+    stream = L.cuda_stream(q)
+    ptrs, part = SD.workspace(splits, b * hk, h // hk, d, q.device,
+                              stream.value or 0)
     out = torch.empty_like(q)
     scratch = (out.data_ptr(), *ptrs)
     geometry = (b, h, hk, d, num_blocks, bs, w, splits.stretch,
@@ -180,19 +182,19 @@ def _launch(name, q, k_pool, v_pool, block_tables, seq_lens, sm_scale,
         status = lib.ptt_paged_decode_attention(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             block_tables.data_ptr(), seq_lens.data_ptr(), *scratch,
-            *geometry, L.cuda_stream(q))
+            *geometry, stream)
     elif not int8:
         status = lib.ptt_paged_decode_attention_scaled(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             scales[0].data_ptr(), scales[1].data_ptr(),
             block_tables.data_ptr(), seq_lens.data_ptr(), *scratch,
-            *geometry, L.cuda_stream(q))
+            *geometry, stream)
     else:
         status = lib.ptt_paged_decode_attention_int8(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             scales[0].data_ptr(), scales[1].data_ptr(),
             block_tables.data_ptr(), seq_lens.data_ptr(), *scratch,
-            *geometry, int(per_row), L.cuda_stream(q))
+            *geometry, int(per_row), stream)
     L.check_status(name, status)
     return out
 

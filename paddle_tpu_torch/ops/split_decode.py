@@ -19,8 +19,9 @@ from dataclasses import dataclass
 
 import torch
 
-__all__ = ["DecodeSplits", "plan", "plan_for", "workspace", "STRETCH_UNIT",
-           "MIN_STRETCH", "MAX_STRETCH", "MAX_SPLITS"]
+__all__ = ["DecodeSplits", "plan", "plan_for", "workspace", "ticket_key",
+           "tickets_for", "STRETCH_UNIT", "MIN_STRETCH", "MAX_STRETCH",
+           "MAX_SPLITS", "MIN_TICKETS"]
 
 STRETCH_UNIT = 64     # a stretch is a multiple of this (one bf16 ring stage)
 # the shortest planned stretch: shorter ones cost more in each CTA's fixed
@@ -85,24 +86,48 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-# device index -> int32 tickets, zero between launches (each launch
-# leaves them zero); shared by the launches of one stream at a time
+# the smallest ticket buffer, in int32 tickets (one per pair)
+MIN_TICKETS = 1024
+# ticket_key(...) -> int32 tickets, zero between launches (each launch
+# leaves them zero: the last CTA of a pair resets its ticket)
 _TICKETS = {}
 
 
+def ticket_key(index, stream: int, pairs: int):
+    """The key of the ticket buffer a launch of ``pairs`` pairs on the
+    stream with handle ``stream`` of device ``index`` counts in: (index,
+    stream, capacity), the capacity the least power of two that holds the
+    pairs and at least :data:`MIN_TICKETS`. A pure function. Launches
+    that can be in flight at once lie on different streams and so never
+    share tickets; the launches of one stream run one after another. A
+    buffer is made at a key's first use and never replaced, so an address
+    a launch (or a captured CUDA graph) took stays valid: a larger launch
+    takes a buffer of its own capacity."""
+    cap = max(MIN_TICKETS, 1 << (max(int(pairs), 1) - 1).bit_length())
+    return (index, int(stream), cap)
+
+
+def tickets_for(device, stream: int, pairs: int):
+    """The zeroed int32 ticket buffer of :func:`ticket_key`, made at its
+    first use (make it before a CUDA graph is captured)."""
+    key = ticket_key(device.index, stream, pairs)
+    tickets = _TICKETS.get(key)
+    if tickets is None:
+        tickets = torch.zeros(key[2], dtype=torch.int32, device=device)
+        _TICKETS[key] = tickets
+    return tickets
+
+
 def workspace(splits: DecodeSplits, pairs: int, group: int, d: int,
-              device):
-    """The scratch of one launch as device pointers (part_o, part_ml,
-    tickets) and the tensor that holds the partials: the f32 partials
-    of the splits (none when one split covers the reach), then the
-    pairs' tickets."""
+              device, stream: int):
+    """The scratch of one launch on the stream with handle ``stream`` as
+    device pointers (part_o, part_ml, tickets) and the tensor that holds
+    the partials: the f32 partials of the splits (none when one split
+    covers the reach), allocated per call, and the pairs' tickets
+    (:func:`tickets_for`)."""
     n = pairs * splits.nsplit * group if splits.nsplit > 1 else 0
     part = torch.empty(n * (d + 2), dtype=torch.float32, device=device)
-    tickets = _TICKETS.get(device.index)
-    if tickets is None or tickets.numel() < pairs:
-        tickets = torch.zeros(max(pairs, 1024), dtype=torch.int32,
-                              device=device)
-        _TICKETS[device.index] = tickets
+    tickets = tickets_for(device, stream, pairs)
     base = part.data_ptr()
     return (base, base + 4 * n * d, tickets.data_ptr()), part
 

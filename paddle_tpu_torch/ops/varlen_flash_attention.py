@@ -1,6 +1,6 @@
 """Varlen (packed) flash attention: the Hopper kernels K3 (forward) and K8
-(the fused bf16 backward; K8a / K8b its f32 route), their plain PyTorch
-versions, and the fused backward's work order.
+(the fused backward: on wgmma in bf16, as 3xTF32 in f32), their plain
+PyTorch versions, and the fused backward's work order.
 
 Counterpart of ``paddle_tpu/ops/pallas/varlen_flash_attention.py``.
 Sequences are packed back to back, ``q`` (total_q, H, D) and ``k``/``v``
@@ -35,8 +35,9 @@ _TILE = 64  # rows per tile of the kernels (their tile-order scratch)
 
 
 def _bwd_block_k(d):
-    """Keys per CTA of the fused backward K8 at head width d: 64 on one
-    warpgroup at d = 64 (two CTAs share an SM), else 128 on two."""
+    """Keys per CTA of the fused backward K8 at head width d, in bf16 and
+    f32: 64 at d = 64 (two bf16 or three f32 CTAs share an SM), else
+    128."""
     return 64 if d == 64 else 128
 
 
@@ -173,7 +174,7 @@ def varlen_flash_attention_bwd_plain(q, k, v, out, lse, do, cu_seqlens_q,
                                      cu_seqlens_k, causal=False,
                                      sm_scale=None, window_size=None,
                                      delta=None):
-    """Plain version of K8 and K8a/K8b (the reference's ``_varlen_bwd``):
+    """Plain version of K8 (the reference's ``_varlen_bwd``):
     returns ``(dq, dk, dv)`` like q, k, v. P is recomputed from ``lse`` (H,
     total_q) in f32 and taken to 0 on dead pairs by a select (a row with no
     live key has lse about -1e30, where exp overflows); ``delta`` (default
@@ -258,10 +259,10 @@ def _order_scratch(rows, like):
 
 
 class VarlenBwdSchedule:
-    """The fused bf16 varlen backward's work order
-    (``csrc/varlen_flash_attention_bwd.cu``, which follows it formula for
-    formula; the segment formulas are ``csrc/varlen_seg.cuh``'s), from
-    the cu_seqlens on the host.
+    """The fused varlen backward's work order
+    (``csrc/varlen_flash_attention_bwd.cu``, whose bf16 and f32 kernels
+    follow it formula for formula; the segment formulas are
+    ``csrc/varlen_seg.cuh``'s), from the cu_seqlens on the host.
 
     A work item is one CTA's key tile: (key tile ``j`` of ``block_k``
     keys, KV head), ``halves`` warpgroups of 64 keys; ``block_k`` is 64 at
@@ -280,7 +281,8 @@ class VarlenBwdSchedule:
       queries, a window edge). Each (query head, query tile) takes its dq
       adds from them alone, in ascending key-tile order: the first stores
       into the workspace, the last adds the workspace to its own partial
-      and writes dq in bf16. The tile's counter holds 1 + the key tile of
+      and writes dq in bf16 (the f32 kernel adds into dq itself, in the
+      same order: the first stores, each later one adds). The tile's counter holds 1 + the key tile of
       the last add landed, and a contributor waits for ``prev``, the
       nearest contributor below it, found by scanning down from it inside
       the tile's ``key_range_of`` (``last``: none above it in the range).
@@ -538,30 +540,34 @@ def varlen_flash_attention_bwd_fused(q, k, v, do, lse, delta, cu_seqlens_q,
     from the forward's ``lse`` and ``delta``
     (:func:`varlen_flash_attention_bwd_delta`); dk and dv are each KV
     head's sum over the query heads of its group. CPU tensors run the
-    plain backward; CUDA tensors must be bf16 (f32 takes K8a and K8b)."""
+    plain backward; CUDA tensors launch the bf16 kernel (counted as
+    ``varlen_flash_attention_bwd``) or the f32 one
+    (``varlen_flash_attention_bwd_f32``)."""
     if L.use_plain(q):
         return varlen_flash_attention_bwd_plain(
             q, k, v, None, lse, do, cu_seqlens_q, cu_seqlens_k, causal,
             sm_scale, window_size, delta)
-    if q.dtype != torch.bfloat16:
-        raise TypeError("the fused varlen_flash_attention backward kernel "
-                        f"takes bfloat16 inputs, got {q.dtype}")
     ptrs, dims = _bwd_launch_args(q, k, v, do, lse, delta, cu_seqlens_q,
                                   cu_seqlens_k, causal, sm_scale, window_size)
     tq, tk, h, d = q.shape[0], k.shape[0], q.shape[1], q.shape[2]
     if tq == 0 or tk == 0:
         return (torch.zeros_like(q), torch.zeros_like(k),
                 torch.zeros_like(v))
+    f32 = q.dtype == torch.float32
     ws_shape, n_counters = VarlenBwdSchedule.launch_sizes(tq, h, d)
     dq = torch.empty_like(q)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    ws = torch.empty(ws_shape, dtype=torch.float32, device=q.device)
+    # the f32 kernel adds into dq itself: no workspace
+    ws = None if f32 else torch.empty(ws_shape, dtype=torch.float32,
+                                      device=q.device)
     counters = torch.zeros(n_counters, dtype=torch.int32, device=q.device)
+    name = ("varlen_flash_attention_bwd_f32" if f32
+            else "varlen_flash_attention_bwd")
     status = L.library().ptt_varlen_flash_attention_bwd_fused(
-        *ptrs, dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), ws.data_ptr(),
-        counters.data_ptr(), *dims)
-    L.check_status("varlen_flash_attention_bwd", status)
-    L.LAUNCHES["varlen_flash_attention_bwd"] += 1
+        *ptrs, dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        None if ws is None else ws.data_ptr(), counters.data_ptr(), *dims)
+    L.check_status(name, status)
+    L.LAUNCHES[name] += 1
     return dq, dk, dv
 
 
@@ -570,25 +576,15 @@ def varlen_flash_attention_bwd_dq(q, k, v, do, lse, delta, cu_seqlens_q,
                                   window_size=None):
     """dq (like q) from the forward's ``lse`` and ``delta``
     (:func:`varlen_flash_attention_bwd_delta`). CPU tensors run the plain
-    backward; CUDA tensors launch a kernel or raise: the fused K8 (which
-    also computes dk and dv) in bf16, K8a in f32."""
+    backward; CUDA tensors launch the fused K8 (which also computes dk and
+    dv) or raise."""
     if L.use_plain(q):
         return varlen_flash_attention_bwd_plain(
             q, k, v, None, lse, do, cu_seqlens_q, cu_seqlens_k, causal,
             sm_scale, window_size, delta)[0]
-    if q.dtype == torch.bfloat16:
-        return varlen_flash_attention_bwd_fused(
-            q, k, v, do, lse, delta, cu_seqlens_q, cu_seqlens_k, causal,
-            sm_scale, window_size)[0]
-    ptrs, dims = _bwd_launch_args(q, k, v, do, lse, delta, cu_seqlens_q,
-                                  cu_seqlens_k, causal, sm_scale, window_size)
-    dq = torch.empty_like(q)
-    order = _order_scratch(q.shape[0], q)
-    status = L.library().ptt_varlen_flash_attention_bwd_dq(
-        *ptrs, order.data_ptr(), dq.data_ptr(), *dims)
-    L.check_status("varlen_flash_attention_bwd_dq", status)
-    L.LAUNCHES["varlen_flash_attention_bwd_dq"] += 1
-    return dq
+    return varlen_flash_attention_bwd_fused(
+        q, k, v, do, lse, delta, cu_seqlens_q, cu_seqlens_k, causal,
+        sm_scale, window_size)[0]
 
 
 def varlen_flash_attention_bwd_dkv(q, k, v, do, lse, delta, cu_seqlens_q,
@@ -596,24 +592,14 @@ def varlen_flash_attention_bwd_dkv(q, k, v, do, lse, delta, cu_seqlens_q,
                                    window_size=None):
     """``(dk, dv)`` (like k, v), each KV head's sum over the query heads
     of its group. CPU tensors run the plain backward; CUDA tensors launch
-    a kernel or raise: the fused K8 in bf16, K8b in f32."""
+    the fused K8 or raise."""
     if L.use_plain(q):
         return varlen_flash_attention_bwd_plain(
             q, k, v, None, lse, do, cu_seqlens_q, cu_seqlens_k, causal,
             sm_scale, window_size, delta)[1:]
-    if q.dtype == torch.bfloat16:
-        return varlen_flash_attention_bwd_fused(
-            q, k, v, do, lse, delta, cu_seqlens_q, cu_seqlens_k, causal,
-            sm_scale, window_size)[1:]
-    ptrs, dims = _bwd_launch_args(q, k, v, do, lse, delta, cu_seqlens_q,
-                                  cu_seqlens_k, causal, sm_scale, window_size)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    order = _order_scratch(k.shape[0], k)
-    status = L.library().ptt_varlen_flash_attention_bwd_dkv(
-        *ptrs, order.data_ptr(), dk.data_ptr(), dv.data_ptr(), *dims)
-    L.check_status("varlen_flash_attention_bwd_dkv", status)
-    L.LAUNCHES["varlen_flash_attention_bwd_dkv"] += 1
-    return dk, dv
+    return varlen_flash_attention_bwd_fused(
+        q, k, v, do, lse, delta, cu_seqlens_q, cu_seqlens_k, causal,
+        sm_scale, window_size)[1:]
 
 
 def varlen_flash_attention_bwd(q, k, v, out, lse, do, cu_seqlens_q,
@@ -621,7 +607,7 @@ def varlen_flash_attention_bwd(q, k, v, out, lse, do, cu_seqlens_q,
                                window_size=None):
     """Gradients ``(dq, dk, dv)`` of varlen attention from the forward's
     ``out`` and ``lse`` and the upstream ``do`` (like q): delta, then on
-    CUDA tensors one launch of the fused K8 in bf16, K8a and K8b in f32;
+    CUDA tensors one launch of the fused K8 (bf16 or f32);
     :func:`varlen_flash_attention_bwd_plain` on CPU tensors."""
     if out.shape != q.shape:
         raise ValueError(f"varlen_flash_attention_bwd: out "
@@ -633,17 +619,12 @@ def varlen_flash_attention_bwd(q, k, v, out, lse, do, cu_seqlens_q,
     delta = varlen_flash_attention_bwd_delta(out, do)
     args = (q, k, v, do, lse, delta, cu_seqlens_q, cu_seqlens_k, causal,
             sm_scale, window_size)
-    if q.dtype == torch.bfloat16:
-        return varlen_flash_attention_bwd_fused(*args)
-    dq = varlen_flash_attention_bwd_dq(*args)
-    dk, dv = varlen_flash_attention_bwd_dkv(*args)
-    return dq, dk, dv
+    return varlen_flash_attention_bwd_fused(*args)
 
 
 class VarlenFlashAttentionFunction(torch.autograd.Function):
     """``out = varlen_flash_attention(q, k, v, cu_seqlens_q, cu_seqlens_k,
-    causal, sm_scale, window_size)`` with K8 (K8a/K8b in f32) as its
-    backward (the
+    causal, sm_scale, window_size)`` with K8 as its backward (the
     reference's ``_varlen_htd`` custom_vjp: the forward keeps q, k, v, out
     and lse, the backward recomputes P from lse). The cu_seqlens get no
     gradient."""

@@ -13,8 +13,14 @@ window 4,096), dense causal 2,048, bottom-right (Sq=64, Sk=1,024, GQA
 32/8) and a head width of 64 (B=4, S=2,048, H=16), and for the backward
 K7 at the training shape: CUDA-event ms per call over 30 back-to-back
 calls after 5 warm-up calls, and the forward's largest |out - plain| and
-|lse - plain|. Prints one JSON line with the card's name and power
-limit. Exits non-zero without a GPU.
+|lse - plain|. Then the f32 route at the training shape (``f32_train``):
+K4's f32 forward, the whole f32 backward (``flash_attention_bwd``: the
+fused f32 K7 where the tree has it, else K7a and K7b), whether two
+backward calls are bit-equal, its largest |grad - plain| over the
+gradient's largest |plain|, and one f32 SDPA backward (dq, dk, dv through
+autograd) as the library yardstick. Prints one JSON line with the card's
+name and power limit. Exits non-zero without a GPU. With ``--f32`` it
+times only the f32 route.
 """
 import json
 import subprocess
@@ -47,9 +53,41 @@ def event_ms(fn, iters=30, warmup=5):
     return start.elapsed_time(end) / iters
 
 
-def main(label):
+def f32_train(dev, g):
+    """The f32 route at the training shape (B=1, S=4,096, H=HK=32, D=128,
+    causal)."""
+    import torch.nn.functional as tF
+
+    q, k, v, do = (torch.randn(1, 4096, 32, 128, generator=g, device=dev)
+                   for _ in range(4))
+    o, lse = ops.flash_attention(q, k, v, causal=True, return_lse=True)
+    first, second = (ops.flash_attention_bwd(q, k, v, o, lse, do, True)
+                     for _ in range(2))
+    ref = ops.flash_attention_bwd_plain(q, k, v, o, lse, do, True)
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    lo = tF.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    dot = do.transpose(1, 2).contiguous()
+    return {
+        "k4_ms": event_ms(lambda: ops.flash_attention(q, k, v,
+                                                      causal=True)),
+        "k7_ms": event_ms(lambda: ops.flash_attention_bwd(q, k, v, o, lse,
+                                                          do, True)),
+        "k7_bit_equal": all(torch.equal(a, b)
+                            for a, b in zip(first, second)),
+        "k7_err_rel_to_max": max(
+            float((a - r).abs().max() / r.abs().max())
+            for a, r in zip(first, ref)),
+        "sdpa_fwd_ms": event_ms(lambda: tF.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True)),
+        "sdpa_bwd_ms": event_ms(lambda: torch.autograd.grad(
+            lo, (qt, kt, vt), dot, retain_graph=True))}
+
+
+def main(label, only_f32=False):
     if not torch.cuda.is_available():
         sys.exit("needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
     gpu = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -57,7 +95,7 @@ def main(label):
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     out = {"tree": label, "gpu": gpu}
-    for name, b, sq, sk, h, hk, d, window in SHAPES:
+    for name, b, sq, sk, h, hk, d, window in SHAPES * (not only_f32):
         q, k, v = (torch.randn(b, s, n, d, generator=g, device=dev).bfloat16()
                    for s, n in ((sq, h), (sk, hk), (sk, hk)))
         o, lse = ops.flash_attention(q, k, v, causal=True,
@@ -73,8 +111,10 @@ def main(label):
             out["k7_train"] = event_ms(lambda: ops.flash_attention_bwd(
                 q, k, v, o, lse, do, True))
         del q, k, v, o, lse, ro, rl
+    out["f32_train"] = f32_train(dev, g)
     print(json.dumps(out), flush=True)
 
 
 if __name__ == "__main__":
-    main(sys.argv[1] if len(sys.argv) > 1 else "tree")
+    args = [a for a in sys.argv[1:] if a != "--f32"]
+    main(args[0] if args else "tree", "--f32" in sys.argv[1:])

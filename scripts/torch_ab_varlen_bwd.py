@@ -17,9 +17,12 @@ back-to-back calls after 5 warm-up calls, whether two calls are bit-equal,
 the largest |grad - plain| over dq, dk and dv, and the sum of per-segment
 SDPA backwards (dq, dk, dv through autograd) as the library yardstick.
 Prints one JSON line with the card's name and power limit. Exits non-zero
-without a GPU. With ``--hk-sweep`` it times instead the fused kernel
-alone at the packed row (D = 64) with 32, 8, 4 and 1 KV heads: the same
-steps in fewer, longer CTAs.
+without a GPU. Then the f32 route at the packed row (``packed_941m_f32``:
+the fused f32 kernel where the tree has it, else K8a and K8b), with the
+same fields, its error also over each gradient's largest |plain|. With
+``--hk-sweep`` it times instead the fused kernel alone at the packed row
+(D = 64) with 32, 8, 4 and 1 KV heads: the same steps in fewer, longer
+CTAs; with ``--f32`` only the f32 route.
 """
 import json
 import subprocess
@@ -80,34 +83,41 @@ def hk_sweep(dev, g):
     return out
 
 
-def main(label):
+def main(label, only_f32=False):
     if not torch.cuda.is_available():
         sys.exit("needs an NVIDIA GPU")
     gpu = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+    torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     fused = hasattr(ops, "varlen_flash_attention_bwd_fused")
-    out = {"tree": label, "gpu": gpu, "fused": fused}
+    # the tree's f32 backward is one fused launch
+    fused_f32 = "varlen_flash_attention_bwd_f32" in ops.LAUNCHES
+    out = {"tree": label, "gpu": gpu, "fused": fused,
+           "fused_f32": fused_f32}
     if label == "--hk-sweep":
         print(json.dumps({**out, **hk_sweep(dev, g)}), flush=True)
         return
-    for name, lens_q, lens_k, h, hk, d, window in SHAPES:
+    cases = [(name, dt, *rest) for name, *rest in SHAPES
+             for dt in (torch.bfloat16,)] * (not only_f32)
+    cases.append(("packed_941m_f32", torch.float32, *SHAPES[0][1:]))
+    for name, dtype, lens_q, lens_k, h, hk, d, window in cases:
         cu_q = _cu(lens_q, dev)
         cu_k = cu_q if lens_k is None else _cu(lens_k, dev)
         tq, tk = int(cu_q[-1]), int(cu_k[-1])
-        q, do = (torch.randn(tq, h, d, generator=g, device=dev).bfloat16()
+        q, do = (torch.randn(tq, h, d, generator=g, device=dev).to(dtype)
                  for _ in range(2))
-        k, v = (torch.randn(tk, hk, d, generator=g, device=dev).bfloat16()
+        k, v = (torch.randn(tk, hk, d, generator=g, device=dev).to(dtype)
                 for _ in range(2))
         o, lse = ops.varlen_flash_attention(q, k, v, cu_q, cu_k, causal=True,
                                             window_size=window,
                                             return_lse=True)
         delta = ops.varlen_flash_attention_bwd_delta(o, do)
         args = (q, k, v, do, lse, delta, cu_q, cu_k, True)
-        if fused:
+        if fused and (dtype == torch.bfloat16 or fused_f32):
             def bwd():
                 return ops.varlen_flash_attention_bwd_fused(
                     *args, window_size=window)
@@ -126,6 +136,9 @@ def main(label):
             "bit_equal": all(torch.equal(a, b) for a, b in zip(first, second)),
             "max_err": max(float((a.float() - r.float()).abs().max())
                            for a, r in zip(first, ref)),
+            "err_rel_to_max": max(
+                float((a.float() - r.float()).abs().max()
+                      / r.float().abs().max()) for a, r in zip(first, ref)),
             "sdpa_per_segment_ms": event_ms(_segment_library(
                 torch, q, k, v, do, lens_q, lens_k or lens_q,
                 window)["sdpa_per_segment"])}
@@ -135,4 +148,5 @@ def main(label):
 
 
 if __name__ == "__main__":
-    main(sys.argv[1] if len(sys.argv) > 1 else "tree")
+    args = [a for a in sys.argv[1:] if a != "--f32"]
+    main(args[0] if args else "tree", "--f32" in sys.argv[1:])

@@ -437,6 +437,80 @@ def test_cuda_decode_attention_splits_match_plain(cuda, dtype, tol):
             atol=tol, rtol=tol)
 
 
+def _decode_call(mode, g, dtype, b, h, hk, d, bs, lens, width):
+    """(kernel, plain) of K2 in ``mode`` or, for "contiguous", of K5 over a
+    cache of ``bs * width`` positions."""
+    if mode != "contiguous":
+        return _paged_call(mode, g, dtype, b, h, hk, d, bs, lens, width)[:2]
+    s_max = bs * width
+    q = _rnd(g, dtype, b, h, d)
+    kc, vc = (_rnd(g, dtype, b, s_max, hk, d) for _ in range(2))
+    sl = torch.tensor(lens, dtype=torch.int32, device=g.device)
+    return (lambda: ops.decode_attention(q, kc, vc, sl),
+            lambda: ops.decode_attention_plain(q, kc, vc, sl))
+
+
+def _tickets_zero():
+    from paddle_tpu_torch.ops import split_decode as SD
+
+    torch.cuda.synchronize()
+    return all(int(t.abs().sum()) == 0 for t in SD._TICKETS.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["float", "scaled", "int8_static",
+                                  "int8_rows", "contiguous"])
+def test_cuda_decode_two_streams_equal_alone(cuda, mode):
+    """K2 in each mode and K5 launched on two streams at once, each with
+    its own inputs: every result equals, bit for bit, the same call made
+    alone (the streams count their merges in tickets of their own), and
+    the tickets read zero after."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    b, h, hk, d, bs, width = 8, 32, 8, 128, 16, 128
+    calls = [_decode_call(mode, g, torch.bfloat16, b, h, hk, d, bs,
+                          [bs * width - 9 * i - r for i in range(b)],
+                          width)[0] for r in range(2)]
+    alone = [c() for c in calls]
+    assert _tickets_zero()
+    streams = [torch.cuda.Stream(cuda) for _ in calls]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream(cuda))
+    outs = [[], []]
+    for _ in range(25):
+        for i, (c, s) in enumerate(zip(calls, streams)):
+            with torch.cuda.stream(s):
+                outs[i].append(c())
+    torch.cuda.synchronize()
+    for want, got in zip(alone, outs):
+        for o in got:
+            assert torch.equal(o, want)
+    assert _tickets_zero()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["float", "contiguous"])
+def test_cuda_decode_past_1024_pairs_then_smaller(cuda, mode):
+    """K2 and K5 over 2,048 (sequence, KV head) pairs, then fewer, then
+    1,280, then 2 again: each against its plain version, the tickets zero
+    after each call, and no ticket buffer replaced (the addresses of the
+    first round stay those of the second)."""
+    from paddle_tpu_torch.ops import split_decode as SD
+
+    g = torch.Generator(device=cuda).manual_seed(12)
+    bs, width, d = 16, 20, 128
+    addresses = []
+    for _ in range(2):
+        for b, h, hk in ((64, 32, 32), (4, 8, 2), (40, 32, 32), (1, 4, 2)):
+            lens = [(37 * i) % (bs * width) + 1 for i in range(b)]
+            kernel, plain = _decode_call(mode, g, torch.float32, b, h, hk,
+                                         d, bs, lens, width)
+            torch.testing.assert_close(kernel(), plain(), atol=1e-5,
+                                       rtol=1e-5)
+            assert _tickets_zero()
+        addresses.append({k: t.data_ptr() for k, t in SD._TICKETS.items()})
+    assert addresses[0] == addresses[1]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("window", [None, 24])
 def test_cuda_generate_kernel_path_equals_plain_path(cuda, window):
@@ -486,8 +560,8 @@ def test_cuda_rms_norm_backward_matches_plain(cuda, dtype, tol):
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 3e-2)])
 def test_cuda_flash_attention_backward_matches_plain(cuda, dtype, tol):
-    """bf16 runs the fused K7 (one launch for dq, dk and dv), f32 K7a and
-    K7b."""
+    """One launch of the fused K7 for dq, dk and dv: the wgmma kernel in
+    bf16, the 3xTF32 one in f32."""
     g = torch.Generator(device=cuda).manual_seed(4)
     # (B, Sq, Sk, H, HK, D, causal, window): GQA groups 1, 4 and 7 at D 64
     # and 128, a window band, ragged lengths, bottom-right causal (Sq <
@@ -516,10 +590,9 @@ def test_cuda_flash_attention_backward_matches_plain(cuda, dtype, tol):
                                       window_size=window)
         want = ops.flash_attention_bwd_plain(q, k, v, out, lse, do, causal,
                                              window_size=window)
-        fused = dtype == torch.bfloat16
-        assert ops.LAUNCHES["flash_attention_bwd"] == int(fused)
-        assert ops.LAUNCHES["flash_attention_bwd_dq"] == int(not fused)
-        assert ops.LAUNCHES["flash_attention_bwd_dkv"] == int(not fused)
+        bf16 = dtype == torch.bfloat16
+        assert ops.LAUNCHES["flash_attention_bwd"] == int(bf16)
+        assert ops.LAUNCHES["flash_attention_bwd_f32"] == int(not bf16)
         for a, ref in zip(got, want):
             assert a.dtype == dtype and a.shape == ref.shape
             scale = max(1.0, float(ref.float().abs().max()))
@@ -535,15 +608,16 @@ def test_cuda_flash_attention_backward_matches_plain(cuda, dtype, tol):
 
 
 @pytest.mark.cuda
-def test_cuda_flash_attention_backward_is_deterministic(cuda):
-    """Two calls of the fused bf16 backward on the same inputs are
-    bit-equal in dq, dk and dv: its dq adds across CTAs land in a fixed
-    order (at the training shape, and at GQA 4 with a window)."""
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_flash_attention_backward_is_deterministic(cuda, dtype):
+    """Two calls of the fused backward (bf16 or f32) on the same inputs
+    are bit-equal in dq, dk and dv: its dq adds across CTAs land in a
+    fixed order (at the training shape, and at GQA 4 with a window)."""
     g = torch.Generator(device=cuda).manual_seed(7)
     for b, s, h, hk, window in ((1, 4096, 32, 32, None),
                                 (1, 2304, 32, 8, 1024)):
-        q, do = (_rnd(g, torch.bfloat16, b, s, h, 128) for _ in range(2))
-        k, v = (_rnd(g, torch.bfloat16, b, s, hk, 128) for _ in range(2))
+        q, do = (_rnd(g, dtype, b, s, h, 128) for _ in range(2))
+        k, v = (_rnd(g, dtype, b, s, hk, 128) for _ in range(2))
         out, lse = ops.flash_attention(q, k, v, causal=True,
                                        window_size=window, return_lse=True)
         runs = [ops.flash_attention_bwd(q, k, v, out, lse, do, True,
@@ -607,11 +681,11 @@ def test_cuda_train_step_kernel_path_equals_plain_path(cuda, fuse):
             assert all(n == 0 for n in ops.LAUNCHES.values())
         else:
             losses = [step(ids, ids) for _ in range(3)]
-            # f32: the backward takes K7a and K7b, not the bf16 fused K7
+            # f32: one launch of the f32 fused K7 per layer and step,
+            # never the bf16 kernel
             want = {"rms_norm": 15, "flash_attention": 6,
                     "rms_norm_bwd": 15, "flash_attention_bwd": 0,
-                    "flash_attention_bwd_dq": 6,
-                    "flash_attention_bwd_dkv": 6}
+                    "flash_attention_bwd_f32": 6}
             assert {k: ops.LAUNCHES[k] for k in want} == want
         runs.append((torch.stack(losses), [p.detach().clone()
                                            for p in step.params]))
@@ -704,11 +778,10 @@ def test_cuda_varlen_forward_past_65535_query_tiles(cuda, dtype, tol):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_varlen_kernels_are_deterministic(cuda, dtype):
-    """Two calls of K3 (out, lse) and of the backward (dq, dk, dv: K8 in
-    bf16, whose dq adds across CTAs land in a fixed order; K8a and K8b in
-    f32) on the same inputs are bit-equal (no free atomics: recompute
-    relies on it), at the packed 941M row's segments with a GQA group of
-    4."""
+    """Two calls of K3 (out, lse) and of the backward (dq, dk, dv: K8,
+    whose dq adds across CTAs land in a fixed order in bf16 and in f32)
+    on the same inputs are bit-equal (no free atomics: recompute relies on
+    it), at the packed 941M row's segments with a GQA group of 4."""
     g = torch.Generator(device=cuda).manual_seed(6)
     cu = _cu([1600, 800, 600, 400, 300, 200, 120, 76], cuda)
     t = int(cu[-1])
@@ -738,21 +811,35 @@ K8_SHAPES = {
 }
 
 
+def _close_k8(a, ref, dtype):
+    """bf16: chip_smoke's tolerance for kernels that round P and dS to
+    bf16 before a product (``close(..., p_rounded=True)``: one bf16
+    rounding step plus 1e-2); f32: 1e-4 of the largest |g| and 1e-4
+    relative (the f32 backward tests' tolerance)."""
+    assert a.dtype == dtype and a.shape == ref.shape
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(a.float(), ref.float(), atol=1e-2,
+                                   rtol=2.0 ** -7)
+    else:
+        scale = max(1.0, float(ref.abs().max()))
+        torch.testing.assert_close(a, ref, atol=1e-4 * scale, rtol=1e-4)
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("shape", list(K8_SHAPES))
-def test_cuda_varlen_fused_backward_matches_plain(cuda, shape, d):
-    """K8 against the plain backward in bf16 at chip_smoke's shapes, with
-    chip_smoke's tolerance for kernels that round P and dS to bf16 before
-    a product (``close(..., p_rounded=True)``: one bf16 rounding step plus
-    1e-2): one launch for dq, dk and dv."""
+def test_cuda_varlen_fused_backward_matches_plain(cuda, shape, d, dtype):
+    """K8 against the plain backward at chip_smoke's shapes, in bf16 (the
+    wgmma kernel) and f32 (the 3xTF32 one): one launch for dq, dk and
+    dv."""
     lens_q, lens_k, h, hk, window = K8_SHAPES[shape]
     g = torch.Generator(device=cuda).manual_seed(8)
     cu_q = _cu(lens_q, cuda)
     cu_k = cu_q if lens_k is None else _cu(lens_k, cuda)
     tq, tk = int(cu_q[-1]), int(cu_k[-1])
-    q, do = (_rnd(g, torch.bfloat16, tq, h, d) for _ in range(2))
-    k, v = (_rnd(g, torch.bfloat16, tk, hk, d) for _ in range(2))
+    q, do = (_rnd(g, dtype, tq, h, d) for _ in range(2))
+    k, v = (_rnd(g, dtype, tk, hk, d) for _ in range(2))
     out, lse = ops.varlen_flash_attention(q, k, v, cu_q, cu_k, causal=True,
                                           window_size=window,
                                           return_lse=True)
@@ -761,19 +848,20 @@ def test_cuda_varlen_fused_backward_matches_plain(cuda, shape, d):
     got = ops.varlen_flash_attention_bwd_fused(
         q, k, v, do, lse, delta, cu_q, cu_k, True, window_size=window)
     torch.cuda.synchronize()
-    assert ops.LAUNCHES["varlen_flash_attention_bwd"] == 1
+    f32 = dtype == torch.float32
+    assert ops.LAUNCHES["varlen_flash_attention_bwd"] == int(not f32)
+    assert ops.LAUNCHES["varlen_flash_attention_bwd_f32"] == int(f32)
     want = ops.varlen_flash_attention_bwd_plain(
         q, k, v, out, lse, do, cu_q, cu_k, True, window_size=window,
         delta=delta)
     for a, ref in zip(got, want):
-        assert a.dtype == torch.bfloat16 and a.shape == ref.shape
-        torch.testing.assert_close(a.float(), ref.float(), atol=1e-2,
-                                   rtol=2.0 ** -7)
+        _close_k8(a, ref, dtype)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("d", [64, 128])
-def test_cuda_varlen_fused_backward_many_short_segments(cuda, d):
+def test_cuda_varlen_fused_backward_many_short_segments(cuda, d, dtype):
     """K8 over 1,500 segments of 0-8 tokens (several in one query tile,
     empty ones among them), GQA 4/2, causal and with a window of 3,
     against the plain backward with the fused test's tolerance."""
@@ -781,8 +869,8 @@ def test_cuda_varlen_fused_backward_many_short_segments(cuda, d):
     lens = np.random.default_rng(10).integers(0, 9, size=1500)
     cu = _cu(lens, cuda)
     t = int(cu[-1])
-    q, do = (_rnd(g, torch.bfloat16, t, 4, d) for _ in range(2))
-    k, v = (_rnd(g, torch.bfloat16, t, 2, d) for _ in range(2))
+    q, do = (_rnd(g, dtype, t, 4, d) for _ in range(2))
+    k, v = (_rnd(g, dtype, t, 2, d) for _ in range(2))
     for window in (None, 3):
         out, lse = ops.varlen_flash_attention(q, k, v, cu, cu, causal=True,
                                               window_size=window,
@@ -794,12 +882,12 @@ def test_cuda_varlen_fused_backward_many_short_segments(cuda, d):
             q, k, v, out, lse, do, cu, cu, True, window_size=window,
             delta=delta)
         for a, ref in zip(got, want):
-            torch.testing.assert_close(a.float(), ref.float(), atol=1e-2,
-                                       rtol=2.0 ** -7)
+            _close_k8(a, ref, dtype)
 
 
 @pytest.mark.cuda
-def test_cuda_varlen_fused_backward_zeroes_rows_without_keys(cuda):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_varlen_fused_backward_zeroes_rows_without_keys(cuda, dtype):
     """K8 writes dq = 0 on rows that see no key and on padding rows past
     cu_q[-1], also where a whole query tile has no key tile to add to it
     (a segment without keys, more queries than keys, 100 padding rows),
@@ -808,8 +896,8 @@ def test_cuda_varlen_fused_backward_zeroes_rows_without_keys(cuda):
     lens_q, lens_k, pad = [6, 130, 12, 70], [9, 0, 4, 20], 100
     cu_q, cu_k = _cu(lens_q, cuda), _cu(lens_k, cuda)
     tq, tk = int(cu_q[-1]) + pad, int(cu_k[-1])
-    q, do = (_rnd(g, torch.bfloat16, tq, 4, 64) for _ in range(2))
-    k, v = (_rnd(g, torch.bfloat16, tk, 2, 64) for _ in range(2))
+    q, do = (_rnd(g, dtype, tq, 4, 64) for _ in range(2))
+    k, v = (_rnd(g, dtype, tk, 2, 64) for _ in range(2))
     out, lse = ops.varlen_flash_attention(q, k, v, cu_q, cu_k, causal=True,
                                           return_lse=True)
     delta = ops.varlen_flash_attention_bwd_delta(out, do)
@@ -824,16 +912,15 @@ def test_cuda_varlen_fused_backward_zeroes_rows_without_keys(cuda):
         q, k, v, out, lse, do, cu_q, cu_k, True, delta=delta)
     for a, ref in zip((dq, dk, dv), want):
         assert torch.isfinite(a).all()
-        torch.testing.assert_close(a.float(), ref.float(), atol=1e-2,
-                                   rtol=2.0 ** -7)
+        _close_k8(a, ref, dtype)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 3e-2)])
 def test_cuda_varlen_backward_matches_plain(cuda, dtype, tol):
-    """bf16 runs the fused K8 (one launch for dq, dk and dv), f32 K8a and
-    K8b."""
+    """One launch of the fused K8 for dq, dk and dv: the wgmma kernel in
+    bf16, the 3xTF32 one in f32."""
     g = torch.Generator(device=cuda).manual_seed(5)
     # (lens_q, lens_k or None, H, HK, D, causal, window, padding rows):
     # ragged GQA, empty segments at D=128, cross lengths (causal and not),
@@ -873,11 +960,10 @@ def test_cuda_varlen_backward_matches_plain(cuda, dtype, tol):
         got = ops.varlen_flash_attention_bwd(q, k, v, out, lse, do, cu_q,
                                              cu_k, causal,
                                              window_size=window)
-        fused = dtype == torch.bfloat16
-        assert ops.LAUNCHES["varlen_flash_attention_bwd"] == int(fused)
-        assert ops.LAUNCHES["varlen_flash_attention_bwd_dq"] == int(not fused)
-        assert ops.LAUNCHES["varlen_flash_attention_bwd_dkv"] == \
-            int(not fused)
+        bf16 = dtype == torch.bfloat16
+        assert ops.LAUNCHES["varlen_flash_attention_bwd"] == int(bf16)
+        assert ops.LAUNCHES["varlen_flash_attention_bwd_f32"] == \
+            int(not bf16)
         want = ops.varlen_flash_attention_bwd_plain(
             q, k, v, out, lse, do, cu_q, cu_k, causal, window_size=window)
         # the public dk / dv part on its own, from the same lse and delta
@@ -920,12 +1006,13 @@ def test_cuda_packed_train_step_kernel_path_equals_plain_path(cuda,
         else:
             losses = [step([ids, cu], ids) for _ in range(3)]
             # 2 layers: forward K1 5 and K3 2 per step, again for the
-            # recomputed blocks; backward K6 5, K8a 2, K8b 2 (f32)
+            # recomputed blocks; backward K6 5 and the f32 K8 2, never
+            # the bf16 K8
             fwd = 2 if recompute else 1
             want = {"rms_norm": 15 + 12 * (fwd - 1),
                     "varlen_flash_attention": 6 * fwd,
-                    "rms_norm_bwd": 15, "varlen_flash_attention_bwd_dq": 6,
-                    "varlen_flash_attention_bwd_dkv": 6,
+                    "rms_norm_bwd": 15, "varlen_flash_attention_bwd_f32": 6,
+                    "varlen_flash_attention_bwd": 0,
                     "flash_attention": 0}
             assert {k: ops.LAUNCHES[k] for k in want} == want
         runs.append(torch.stack(losses))

@@ -118,6 +118,53 @@ def test_plan_refuses_a_reach_past_the_kernel():
         SD.plan(1, SD.MAX_SPLITS * SD.MAX_STRETCH + 1, 512, 132)
 
 
+# ----------------------------------------------------------- merge tickets
+# Fake stream handles: the rule is a pure function of the handle's value.
+STREAMS = (0, 0x7f3a10, 0x7f3a20, 2 ** 47 + 16)
+
+
+@pytest.mark.parametrize("pairs", [1, 7, 256, 1023, 1024, 1025, 4096, 70000])
+def test_ticket_key_is_a_pure_function(pairs):
+    key = SD.ticket_key(0, STREAMS[1], pairs)
+    assert key == SD.ticket_key(0, STREAMS[1], pairs)
+    index, stream, cap = key
+    assert (index, stream) == (0, STREAMS[1])
+    # a power of two that holds the pairs, never below the floor
+    assert cap >= max(pairs, SD.MIN_TICKETS) and cap & (cap - 1) == 0
+    assert cap == SD.MIN_TICKETS or cap < 2 * pairs
+
+
+@pytest.mark.parametrize("pairs", [8, 1024, 5000])
+def test_two_streams_never_share_tickets(pairs):
+    keys = {SD.ticket_key(dev, s, pairs) for dev in (0, 1) for s in STREAMS}
+    assert len(keys) == 2 * len(STREAMS)
+    # nor do launches of different sizes on two streams
+    assert SD.ticket_key(0, STREAMS[1], pairs) != SD.ticket_key(
+        0, STREAMS[2], 2 * pairs)
+
+
+def test_ticket_buffers_are_never_replaced(monkeypatch):
+    import torch
+
+    monkeypatch.setattr(SD, "_TICKETS", {})
+    dev = torch.device("cpu")
+    # a small launch, one past the floor, then a small one again
+    seen = {}
+    for pairs in (8, 1024, 1025, 8, 5000, 1025, 64):
+        t = SD.tickets_for(dev, STREAMS[1], pairs)
+        assert t.dtype == torch.int32 and t.numel() >= pairs
+        assert int(t.abs().sum()) == 0
+        key = SD.ticket_key(None, STREAMS[1], pairs)
+        # the same buffer, at the same address, at every later use
+        assert seen.setdefault(key, (t, t.data_ptr()))[1] == t.data_ptr()
+        assert seen[key][0] is t
+    assert len(SD._TICKETS) == 3  # 1024, 2048 and 8192 tickets
+    other = SD.tickets_for(dev, STREAMS[2], 8)
+    assert other.data_ptr() != SD.tickets_for(dev, STREAMS[1], 8).data_ptr()
+    assert len(SD._TICKETS) == 4
+
+
+
 # ----------------------------------------------------------- rehearsal
 def _pair(q, k, v, ok, ks, vs, splits, sm_scale, geometry):
     """The kernel's order for one (sequence, KV head) pair: q (G, D), the

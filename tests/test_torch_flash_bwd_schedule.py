@@ -16,7 +16,8 @@ import math
 import pytest
 import torch
 
-from paddle_tpu_torch.ops.flash_attention import BwdSchedule, band_mask
+from paddle_tpu_torch.ops.flash_attention import (BwdSchedule, band_mask,
+                                                  bwd_block_k)
 
 # (B, Sq, Sk, H, HK, causal, window): the card tests' shapes, then the
 # training shape (Llama-2-7B width, S = 4,096) and Mistral's GQA window
@@ -180,3 +181,30 @@ def test_workspace_and_counters_size_the_launch():
     assert math.prod(shape) * 4 == 69206016
     g4 = BwdSchedule(2, 100, 100, 8, 2, True)
     assert g4.group == 4 and g4.item(3) == (0, 1, 1)
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=IDS)
+def test_f32_key_tiles_keep_the_order(shape):
+    """The f32 kernel at head width 64 walks 64-key tiles
+    (``bwd_block_k``): its contributors are still the live key tiles,
+    each wait is on an earlier ticket, and each tile's ranks land 0, 1,
+    ... in ticket order (the f32 kernel stores rank 0 and adds the rest
+    into dq itself)."""
+    s = BwdSchedule(*shape, block_k=bwd_block_k(torch.float32, 64))
+    assert s.block_k == 64
+    live = _live_tiles(s)
+    landed = {}
+    for t in range(s.n_items):
+        j, b, kh = s.item(t)
+        assert sorted({i for i, _ in s.walk(j)}) == \
+            live[:, j].nonzero().flatten().tolist()
+        for i, g in s.walk(j):
+            rank, n = s.rank(i, j)
+            if rank > 0:
+                jlo, _ = s.key_tiles(i)
+                assert s.ticket(jlo + rank - 1, b, kh) < t
+            key = (b, kh * s.group + g, i)
+            assert landed.get(key, 0) == rank < n
+            landed[key] = rank + 1
+    for (b, head, i), count in landed.items():
+        assert count == int(live[i].sum())
