@@ -172,6 +172,13 @@ def bound_ms(nbytes, flops, dtype_name):
                                        else "operations")
 
 
+def attention_bound(nbytes, flops, f32):
+    """bound_ms of an attention kernel doing ``flops`` (bf16) operations;
+    in f32 each product is three TF32 products (3xTF32)."""
+    return (bound_ms(nbytes, 3 * flops, "tfloat32") if f32 else
+            bound_ms(nbytes, flops, "bfloat16"))
+
+
 def device_ms(torch, fn, iters=10):
     """(GPU time of one call, timer). The time is the summed durations of
     every kernel the call launches (torch.profiler), without the launch
@@ -519,8 +526,8 @@ def k3_cases(torch, g, dev):
                     q, k, v, cu_q, cu_k, causal=True)[0],
                 library=lambda: tF.scaled_dot_product_attention(
                     qb, kb, vb, attn_mask=mask),
-                bound=bound_ms(nbytes, 4.0 * pairs * h * d,
-                               str(dtype).removeprefix("torch.")))
+                bound=attention_bound(nbytes, 4.0 * pairs * h * d,
+                                      dtype == torch.float32))
     # (label, lens, H, HK, D, window, dtypes)
     for label, lens, h, hk, d, window, dtypes in (
             ("packed_941m", PACKED_LENS, 32, 32, 64, None,
@@ -537,14 +544,15 @@ def k3_cases(torch, g, dev):
             e = q.element_size()
             nbytes = (2 * t * h * d + 2 * t * hk * d) * e \
                 + 4 * (t * h + 2 * (len(lens) + 1))
+            f32 = dtype == torch.float32
             yield dict(
                 name="varlen_flash_attention", dtype=dtype,
                 shape=f"{label}:lens={lens},H={h},HK={hk},D={d},causal,"
                       f"window={window}",
                 # K3's f32 forward (flash_f32.cuh) at the packed row has
                 # its own row
-                primary=dtype == torch.float32 and label == "packed_941m",
-                row="varlen_flash_attention_f32" if dtype == torch.float32
+                primary=f32 and label == "packed_941m",
+                row="varlen_flash_attention_f32" if f32
                 else "varlen_flash_attention",
                 kernel=lambda q=q, k=k, v=v, cu=cu, window=window:
                     ops.varlen_flash_attention(q, k, v, cu, cu, causal=True,
@@ -555,8 +563,7 @@ def k3_cases(torch, g, dev):
                         window_size=window)[0],
                 library=_segment_forward_library(torch, q, k, v, lens,
                                                  window),
-                bound=bound_ms(nbytes, 4.0 * pairs * h * d,
-                               str(dtype).removeprefix("torch.")))
+                bound=attention_bound(nbytes, 4.0 * pairs * h * d, f32))
 
 
 def _segment_forward_library(torch, q, k, v, lens, window):
@@ -648,8 +655,8 @@ def k4_cases(torch, g, dev):
                 plain=lambda q=q, k=k, v=v: ops.flash_attention_plain(
                     q, k, v, causal=True, window_size=window)[0],
                 library=library,
-                bound=bound_ms(nbytes, 4.0 * pairs * b * h * d,
-                               str(dtype).removeprefix("torch.")))
+                bound=attention_bound(nbytes, 4.0 * pairs * b * h * d,
+                                      dtype == torch.float32))
 
 
 def k5_cases(torch, g, dev):
@@ -759,7 +766,6 @@ def k7_cases(torch, g, dev):
                                                   attn_mask=mask))
             dot = do.transpose(1, 2).contiguous()
             e = q.element_size()
-            ddt = str(dtype).removeprefix("torch.")
             f32 = dtype == torch.float32
             common = dict(
                 dtype=dtype, primary=label == "train",
@@ -788,8 +794,7 @@ def k7_cases(torch, g, dev):
                     ops.flash_attention_bwd_fused(*args,
                                                   window_size=window),
                 plain=plain,
-                bound=(bound_ms(nbytes, 3 * flops, "tfloat32") if f32 else
-                       bound_ms(nbytes, flops, ddt)),
+                bound=attention_bound(nbytes, flops, f32),
                 **common)
 
 
@@ -872,7 +877,6 @@ def k8_cases(torch, g, dev):
                 return_lse=True)
             delta = ops.varlen_flash_attention_bwd_delta(out, do)
             e = q.element_size()
-            ddt = str(dtype).removeprefix("torch.")
             common = dict(
                 dtype=dtype, primary=label == "packed_941m",
                 shape=f"{label}:lens_q={lens_q},lens_k={lens_k},H={h},"
@@ -899,8 +903,7 @@ def k8_cases(torch, g, dev):
                     ops.varlen_flash_attention_bwd_fused(
                         *args, window_size=window),
                 plain=plain,
-                bound=(bound_ms(nbytes, 3 * flops, "tfloat32") if f32 else
-                       bound_ms(nbytes, flops, ddt)),
+                bound=attention_bound(nbytes, flops, f32),
                 **common)
 
 
@@ -948,8 +951,8 @@ KERNELS = {
     "flash_attention_bwd_f32": (
         "cuda", "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
         "paddle_tpu/ops/pallas/flash_attention.py:402, :425"),
-    # K4's f32 forward (flash_f32.cuh), counted with K4 as
-    # flash_attention; its launches are phase 8's, an f32-only run
+    # K4's f32 forward (flash_f32.cuh, 3xTF32), the route of an f32 model
+    # (phase 8)
     "flash_attention_f32": (
         "cuda", "paddle_tpu_torch/csrc/flash_attention.cu",
         "paddle_tpu/ops/pallas/flash_attention.py:225"),
@@ -961,8 +964,8 @@ KERNELS = {
     "varlen_flash_attention_bwd_f32": (
         "cuda", "paddle_tpu_torch/csrc/varlen_flash_attention_bwd.cu",
         "paddle_tpu/ops/pallas/varlen_flash_attention.py:336, :376"),
-    # K3's f32 forward (flash_f32.cuh), counted with K3 as
-    # varlen_flash_attention; its launches are phase 10's, an f32-only run
+    # K3's f32 forward (flash_f32.cuh, 3xTF32), the route of an f32 model
+    # (phase 10)
     "varlen_flash_attention_f32": (
         "cuda", "paddle_tpu_torch/csrc/varlen_flash_attention.cu",
         "paddle_tpu/ops/pallas/varlen_flash_attention.py:160"),
@@ -971,20 +974,23 @@ KERNELS = {
 SERVING_KERNELS = ("rms_norm", "paged_decode_attention",
                    "varlen_flash_attention")
 GENERATE_KERNELS = ("rms_norm", "flash_attention", "decode_attention")
+# the same paths of an f32 model (phases 4 and 6): the f32 forwards
+SERVING_F32_KERNELS = ("rms_norm", "paged_decode_attention",
+                       "varlen_flash_attention_f32")
+GENERATE_F32_KERNELS = ("rms_norm", "flash_attention_f32",
+                        "decode_attention")
 TRAIN_KERNELS = ("rms_norm_bwd", "flash_attention_bwd")
-TRAIN_F32_KERNELS = ("rms_norm_bwd", "flash_attention_bwd_f32")
+TRAIN_F32_KERNELS = ("rms_norm_bwd", "flash_attention_f32",
+                     "flash_attention_bwd_f32")
 PACKED_KERNELS = ("varlen_flash_attention_bwd",)
-PACKED_F32_KERNELS = ("varlen_flash_attention_bwd_f32",)
+PACKED_F32_KERNELS = ("varlen_flash_attention_f32",
+                      "varlen_flash_attention_bwd_f32")
 INT8_SERVING_KERNELS = ("rms_norm", "varlen_flash_attention",
                         "paged_decode_attention_int8_rows")
 STATIC_INT8_KERNELS = ("paged_decode_attention_int8",
-                       "varlen_flash_attention")
+                       "varlen_flash_attention_f32")
 SCALED_FLOAT_KERNELS = ("paged_decode_attention_scaled",)
 # the path whose run gives each kernel's launches in the kernels line
-# rows of the kernels line whose launches another counter holds: the f32
-# forwards count with their bf16 kernels, on paths that run f32 alone
-COUNTER = {"flash_attention_f32": "flash_attention",
-           "varlen_flash_attention_f32": "varlen_flash_attention"}
 KERNEL_PATH = {"flash_attention_bwd_f32": "train_f32_parity",
                "flash_attention_f32": "train_f32_parity",
                "varlen_flash_attention_bwd_f32": "packed_f32_parity",
@@ -1296,7 +1302,8 @@ def parity_phase(torch, dev):
         emit({"phase": "parity_f32_4layer", "path": "plain" if plain
               else "kernels", "wall_s": wall, "launches": launches[-1]})
         del engine
-    check(all(launches[0][k] > 0 for k in SERVING_KERNELS),
+    check(all(launches[0][k] > 0 for k in SERVING_F32_KERNELS)
+          and launches[0]["varlen_flash_attention"] == 0,
           f"kernel path missed a kernel: {launches[0]}")
     check(all(n == 0 for n in launches[1].values()),
           f"plain path launched a kernel: {launches[1]}")
@@ -1487,7 +1494,8 @@ def generate_parity_phase(torch, dev):
         emit({"phase": "generate_parity_f32_4layer",
               "path": "plain" if plain else "kernels",
               "wall_s": time.perf_counter() - t0, "launches": launches[-1]})
-    check(all(launches[0][k] > 0 for k in GENERATE_KERNELS),
+    check(all(launches[0][k] > 0 for k in GENERATE_F32_KERNELS)
+          and launches[0]["flash_attention"] == 0,
           f"generate kernel path missed a kernel: {launches[0]}")
     check(all(n == 0 for n in launches[1].values()),
           f"generate plain path launched a kernel: {launches[1]}")
@@ -1700,8 +1708,15 @@ def train_parity_phase(torch, dev):
                   f"plain training path launched a kernel: {launches}")
         else:
             check(all(launches[k] > 0 for k in TRAIN_F32_KERNELS
-                      + ("rms_norm", "flash_attention")),
+                      + ("rms_norm",)),
                   f"training kernel path missed a kernel: {launches}")
+            # one f32 forward per attention layer and forward (one loss,
+            # then one per step), never the bf16 K4
+            check(launches["flash_attention_f32"]
+                  == cfg.num_hidden_layers * (1 + steps)
+                  and launches["flash_attention"] == 0,
+                  f"the f32 forward is not one f32 launch per layer: "
+                  f"{launches}")
             # one fused f32 backward per attention layer and backward
             # (one loss.backward, then one per step), never the bf16 K7
             check(launches["flash_attention_bwd_f32"]
@@ -1911,8 +1926,15 @@ def packed_parity_phase(torch, dev):
                   f"plain packed path launched a kernel: {launches}")
         else:
             check(all(launches[k] > 0 for k in PACKED_F32_KERNELS + (
-                "rms_norm", "rms_norm_bwd", "varlen_flash_attention")),
+                "rms_norm", "rms_norm_bwd")),
                   f"packed kernel path missed a kernel: {launches}")
+            # one f32 forward per attention layer and forward, never the
+            # bf16 K3
+            check(launches["varlen_flash_attention_f32"]
+                  == cfg.num_hidden_layers * (1 + steps)
+                  and launches["varlen_flash_attention"] == 0,
+                  f"the f32 packed forward is not one f32 launch per "
+                  f"layer: {launches}")
             # one fused f32 backward per attention layer and backward,
             # never the bf16 K8
             check(launches["varlen_flash_attention_bwd_f32"]
@@ -2295,22 +2317,22 @@ def main():
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
         rec = primary[name]
-        counter = COUNTER.get(name, name)
         path = KERNEL_PATH.get(name) or (
             "serving" if name in SERVING_KERNELS else
             "train" if name in TRAIN_KERNELS else
             "packed_train" if name in PACKED_KERNELS else "generate")
         kernels.append({
             "name": name, "route": route, "source": source,
-            "replaces": replaces, "launches": paths[path][counter],
+            "replaces": replaces, "launches": paths[path][name],
             "launches_path": path,
-            "launches_by_path": {k: v[counter] for k, v in paths.items()},
+            "launches_by_path": {k: v[name] for k, v in paths.items()},
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
             "event_ms": rec["event_ms"], "timers": rec["timers"],
             "dtype": rec["dtype"], "shape": rec["shape"],
-            **({"library_call": rec["library_call"]}
+            **({"library_call": rec["library_call"],
+                "library_calls_ms": rec["library_calls_ms"]}
                if "library_call" in rec else {})})
     print(smi, flush=True)
     emit({"kernels": kernels})

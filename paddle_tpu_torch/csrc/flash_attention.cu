@@ -48,8 +48,11 @@
 //   at D = 128 did not (PERF.md §6). Warpgroup 1 of a last query tile of
 //   at most 64 rows holds no real row: it computes nothing and only keeps
 //   its turns (the stages' and the cores').
-// - f32: CUDA-core FMA (no f32 tensor-core path keeps full f32 precision),
-//   the tile loop of flash_f32.cuh over 64-row tiles, shared with K3.
+// - f32 (`flash_fwd_f32_kernel`): flash_f32.cuh's tile loop, shared with
+//   K3: both products on the tensor cores as 3xTF32 (mma.sync m16n8k8, f32
+//   results), 64-row query tiles on 4 warps, one CTA per (query tile,
+//   batch, head) in a 1-D grid, the tiles with the most live keys first
+//   and the heads of one KV head side by side.
 #include "common.cuh"
 #include "flash_f32.cuh"
 #include "flash_mma.cuh"
@@ -389,40 +392,66 @@ __global__ void __launch_bounds__(kThreadsWG, 1)
 }
 
 // ------------------------------------------------------------------- f32
-// CUDA-core path: flash_f32.cuh's tile loop over the band's key range;
-// every tile in the range holds a live pair, so none is skipped.
+// flash_f32.cuh's 3xTF32 tile loop over the band's key range; every tile
+// in the range holds a live pair, so none is skipped, and a tile wholly
+// inside the band skips the mask.
 struct BandTiles {
   Dims s;
   int q0;
 
-  __device__ bool tile(int) { return true; }
-  __device__ bool live(int r, int k0, int c) const {
+  __device__ int tile(int k0, int) const {
+    return full_tile(s, q0, k0) ? flash_f32::kFull : flash_f32::kPartial;
+  }
+  __device__ bool live(int r, int k0, int c, int) const {
     return band_live(s, q0 + r, k0 + c);
   }
 };
 
-__global__ void __launch_bounds__(flash_f32::kThreads)
+// A 1-D grid: item = (rank * B + batch) * H + head, the query tiles by
+// their live keys, most first (the last tile down to the first under a
+// causal mask), and within one rank every (batch, head) with the heads
+// fastest, so the query heads of one KV head run side by side.
+template <int D>
+__global__ void __launch_bounds__(flash_f32::kThreads, D == 64 ? 3 : 2)
     flash_fwd_f32_kernel(const float* __restrict__ q,
                          const float* __restrict__ k,
                          const float* __restrict__ v, float* __restrict__ out,
-                         float* __restrict__ lse, Dims s, int d) {
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
-  const int head = blockIdx.y;
-  const int b = blockIdx.z;
+                         float* __restrict__ lse, Dims s, int b) {
+  const int head = blockIdx.x % s.h;
+  const int rest = blockIdx.x / s.h;
+  const int bi = rest % b;
+  const int q0 = ((s.sq + kBQ - 1) / kBQ - 1 - rest / b) * kBQ;
   const int kvh = head / (s.h / s.hk);
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem_f32[];
 
   int lo, hi;
   key_range(s, q0, &lo, &hi);
   BandTiles tiles{s, q0};
-  const size_t row = static_cast<size_t>(s.h) * d;
-  const size_t kv0 = (static_cast<size_t>(b) * s.sk * s.hk + kvh) * d;
-  flash_f32::attend(
-      q + ((static_cast<size_t>(b) * s.sq + q0) * s.h + head) * d, row,
-      min(kBQ, s.sq - q0), k + kv0, v + kv0, static_cast<size_t>(s.hk) * d,
-      lo, hi, d, s.scale, tiles,
-      out + ((static_cast<size_t>(b) * s.sq + q0) * s.h + head) * d, row,
-      lse + (static_cast<size_t>(b) * s.h + head) * s.sq + q0, smem);
+  const size_t row = static_cast<size_t>(s.h) * D;
+  const size_t kv0 = (static_cast<size_t>(bi) * s.sk * s.hk + kvh) * D;
+  flash_f32::attend<D>(
+      q + ((static_cast<size_t>(bi) * s.sq + q0) * s.h + head) * D, row,
+      min(kBQ, s.sq - q0), k + kv0, v + kv0, static_cast<size_t>(s.hk) * D,
+      lo, hi, D, s.scale, tiles,
+      out + ((static_cast<size_t>(bi) * s.sq + q0) * s.h + head) * D, row,
+      lse + (static_cast<size_t>(bi) * s.h + head) * s.sq + q0, smem_f32);
+}
+
+template <int D>
+int launch_f32(const void* q, const void* k, const void* v, void* out,
+               float* lse, const Dims& s, int b, cudaStream_t stream) {
+  static bool configured = false;
+  const long long items =
+      static_cast<long long>((s.sq + kBQ - 1) / kBQ) * b * s.h;
+  if (items > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr size_t bytes = flash_f32::Smem<D>::bytes;
+  if (int e = set_smem(flash_fwd_f32_kernel<D>, bytes, &configured))
+    return e;
+  flash_fwd_f32_kernel<D><<<static_cast<int>(items), flash_f32::kThreads,
+                            bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), lse, s, b);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
@@ -471,15 +500,8 @@ extern "C" int ptt_flash_attention(const void* q, const void* k,
   if (dtype == kBF16)
     return d == 64 ? launch_bf16<64>(q, k, v, out, l, s, b, st)
                    : launch_bf16<128>(q, k, v, out, l, s, b, st);
-  if (dtype == kF32) {
-    static bool configured = false;
-    constexpr size_t bytes = flash_f32::kSmemBytes;
-    if (int e = set_smem(flash_fwd_f32_kernel, bytes, &configured)) return e;
-    const dim3 grid((sq + kBQ - 1) / kBQ, h, b);
-    flash_fwd_f32_kernel<<<grid, flash_f32::kThreads, bytes, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(out), l, s, d);
-    return static_cast<int>(cudaGetLastError());
-  }
+  if (dtype == kF32)
+    return d == 64 ? launch_f32<64>(q, k, v, out, l, s, b, st)
+                   : launch_f32<128>(q, k, v, out, l, s, b, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -44,8 +44,10 @@
 //   (blockIdx.x = rank * H + head, the heads fastest). No atomics: every
 //   output is written once, so two calls are bit-equal (recompute relies on
 //   it).
-// - f32: CUDA-core FMA (no f32 tensor-core path that keeps full f32
-//   precision), the tile loop of flash_f32.cuh, shared with K4.
+// - f32: flash_f32.cuh's tile loop, shared with K4: both products on the
+//   tensor cores as 3xTF32 (mma.sync m16n8k8, f32 results), the same walk
+//   (Walk, kFull tiles unmasked), padded widths and heaviest-first order as
+//   the bf16 path.
 #include <climits>
 
 #include "common.cuh"
@@ -320,70 +322,100 @@ int launch_bf16(const void* q, const void* k, const void* v, const int* cu_q,
 }
 
 // ------------------------------------------------------------------- f32
-// CUDA-core path: flash_f32.cuh's tile loop; the policy below walks the
-// segment-aware tiles with the index arrays appended to its shared memory.
-size_t smem_bytes_f32() {
-  return flash_f32::kSmemBytes + sizeof(int) * (2 * kBQ + 2 * kBK);
+// flash_f32.cuh's 3xTF32 tile loop, built for padded widths 64 and 128 as
+// the bf16 path is; the policy below walks the segment-aware tiles as the
+// bf16 path does (varlen_seg.cuh Walk: from positions alone inside one
+// segment, else from two sets of key indices appended to flash_f32's
+// shared memory), and the grid walks the query tiles in the order kernel's
+// ranks, heaviest first.
+template <int DP>
+constexpr size_t smem_bytes_f32() {
+  return flash_f32::Smem<DP>::bytes + sizeof(int) * (2 * kBQ + 4 * kBK);
 }
 
 struct SegmentTiles {
   const int* cu_k;
-  int nseg, khi, causal, window;
+  int nseg, khi;
+  Walk walk;
   const int *qseg, *qrel;
-  int *kseg, *krel;
+  int *kseg, *krel;  // [2][kBK]
 
-  __device__ bool tile(int k0) {
-    return key_tile(cu_k, nseg, k0, khi, qseg, qrel, kseg, krel, causal,
-                    window);
+  __device__ int tile(int k0, int set) {
+    return key_tile_state(cu_k, nseg, walk, k0, khi, qseg, qrel,
+                          kseg + set * kBK, krel + set * kBK);
   }
-  __device__ bool live(int r, int, int c) const {
-    return live_pair(qseg[r], qrel[r], kseg[c], krel[c], causal, window);
+  __device__ bool live(int r, int k0, int c, int set) const {
+    return walk.live(qseg[r], qrel[r], kseg + set * kBK, krel + set * kBK,
+                     k0, c);
   }
 };
+static_assert(flash_f32::kDead == kDead && flash_f32::kPartial == kPartial &&
+                  flash_f32::kFull == kFull,
+              "flash_f32.cuh takes varlen_seg.cuh's tile states");
 
-__global__ void __launch_bounds__(flash_f32::kThreads)
+template <int DP>
+__global__ void __launch_bounds__(flash_f32::kThreads, DP == 64 ? 3 : 2)
     varlen_fwd_f32_kernel(const float* __restrict__ q,
                           const float* __restrict__ k,
                           const float* __restrict__ v,
                           const int* __restrict__ cu_q,
                           const int* __restrict__ cu_k,
+                          const int* __restrict__ order,
                           float* __restrict__ out, float* __restrict__ lse,
-                          int tq, int tk, int nseg, int h, int hk, int d,
-                          int causal, int window, float sm_scale) {
-  const int q0 = blockIdx.x * kBQ;
-  const int head = blockIdx.y;
-  const int kvh = head / (h / hk);
+                          Seg s, int d) {
+  const int head = blockIdx.x % s.h;
+  const int q0 = order[blockIdx.x / s.h] * kBQ;
+  const int kvh = head / (s.h / s.hk);
 
-  extern __shared__ float smem[];
-  int* qseg = reinterpret_cast<int*>(
-      reinterpret_cast<char*>(smem) + flash_f32::kSmemBytes);
+  extern __shared__ __align__(16) float smem[];
+  int* qseg = reinterpret_cast<int*>(smem + flash_f32::Smem<DP>::floats);
   int* qrel = qseg + kBQ;
-  int* kseg = qrel + kBQ;
-  int* krel = kseg + kBK;
+  int* kseg = qrel + kBQ;  // [2][kBK]
+  int* krel = kseg + 2 * kBK;  // [2][kBK]
   __shared__ int krange[2];
 
-  query_rows(cu_q, cu_k, nseg, tq, q0, qseg, qrel);
+  query_rows(cu_q, cu_k, s.nseg, s.tq, q0, qseg, qrel);
   __syncthreads();
   if (threadIdx.x == 0)
-    key_range(cu_k, tq, tk, q0, qseg, qrel, causal, window, krange);
+    key_range(cu_k, s.tq, s.tk, q0, qseg, qrel, s.causal, s.window, krange);
   __syncthreads();
-  SegmentTiles tiles{cu_k, nseg, krange[1], causal, window,
+  const int hi = krange[1];
+  SegmentTiles tiles{cu_k, s.nseg, hi,
+                     key_walk(cu_k, qseg, qrel, hi, s.causal, s.window),
                      qseg, qrel, kseg, krel};
-  const size_t row = static_cast<size_t>(h) * d;
-  flash_f32::attend(q + (static_cast<size_t>(q0) * h + head) * d, row,
-                    min(kBQ, tq - q0), k + static_cast<size_t>(kvh) * d,
-                    v + static_cast<size_t>(kvh) * d,
-                    static_cast<size_t>(hk) * d, krange[0], krange[1], d,
-                    sm_scale, tiles,
-                    out + (static_cast<size_t>(q0) * h + head) * d, row,
-                    lse + static_cast<size_t>(head) * tq + q0, smem);
+  const size_t row = static_cast<size_t>(s.h) * d;
+  flash_f32::attend<DP>(q + (static_cast<size_t>(q0) * s.h + head) * d, row,
+                        min(kBQ, s.tq - q0), k + static_cast<size_t>(kvh) * d,
+                        v + static_cast<size_t>(kvh) * d,
+                        static_cast<size_t>(s.hk) * d, krange[0], hi, d,
+                        s.scale, tiles,
+                        out + (static_cast<size_t>(q0) * s.h + head) * d, row,
+                        lse + static_cast<size_t>(head) * s.tq + q0, smem);
+}
+
+template <int DP>
+int launch_f32(const void* q, const void* k, const void* v, const int* cu_q,
+               const int* cu_k, int* order, void* out, float* lse,
+               const Seg& s, int d, cudaStream_t st) {
+  const int ntiles = (s.tq + kBQ - 1) / kBQ;
+  if (int e = launch_tile_order(cu_q, cu_k, s, 0, ntiles, order, st))
+    return e;
+  static bool configured = false;
+  constexpr size_t bytes = smem_bytes_f32<DP>();
+  if (int e = set_smem(varlen_fwd_f32_kernel<DP>, bytes, &configured))
+    return e;
+  varlen_fwd_f32_kernel<DP><<<ntiles * s.h, flash_f32::kThreads, bytes, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), cu_q, cu_k, order,
+      static_cast<float*>(out), lse, s, d);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // q (Tq, H, D), k / v (Tk, HK, D), out like q, lse (H, Tq) f32, cu_q /
-// cu_k (nseg + 1,) int32, order int32 scratch of ceil(Tq / 64) (the bf16
-// path's tile order); all contiguous. D is a multiple of 16 up to 128;
+// cu_k (nseg + 1,) int32, order int32 scratch of ceil(Tq / 64) (the tile
+// order); all contiguous. D is a multiple of 16 up to 128;
 // window 0 means none.
 extern "C" int ptt_varlen_flash_attention(
     const void* q, const void* k, const void* v, const void* cu_q,
@@ -400,7 +432,7 @@ extern "C" int ptt_varlen_flash_attention(
   const int* ck = static_cast<const int*>(cu_k);
   float* l = static_cast<float*>(lse);
   const Seg s{tq, tk, nseg, h, hk, causal, window, sm_scale};
-  if (static_cast<long long>(ntiles) * h > INT_MAX)  // the bf16 grid's x
+  if (static_cast<long long>(ntiles) * h > INT_MAX)  // the grid's x
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == kBF16)
     return d <= 64 ? launch_bf16<64>(q, k, v, cq, ck, static_cast<int*>(order),
@@ -408,15 +440,11 @@ extern "C" int ptt_varlen_flash_attention(
                    : launch_bf16<128>(q, k, v, cq, ck,
                                       static_cast<int*>(order), out, l, s, d,
                                       st);
-  if (dtype == kF32) {
-    static bool configured = false;
-    const size_t bytes = smem_bytes_f32();
-    if (int e = set_smem(varlen_fwd_f32_kernel, bytes, &configured)) return e;
-    varlen_fwd_f32_kernel<<<dim3(ntiles, h), flash_f32::kThreads, bytes, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), cq, ck, static_cast<float*>(out), l, tq,
-        tk, nseg, h, hk, d, causal, window, sm_scale);
-    return static_cast<int>(cudaGetLastError());
-  }
+  if (dtype == kF32)
+    return d <= 64 ? launch_f32<64>(q, k, v, cq, ck, static_cast<int*>(order),
+                                    out, l, s, d, st)
+                   : launch_f32<128>(q, k, v, cq, ck,
+                                     static_cast<int*>(order), out, l, s, d,
+                                     st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -342,6 +342,19 @@ __device__ inline Walk query_walk(const int* __restrict__ cu_q,
               window};
 }
 
+// The state of the key tile at k0 against the CTA's query rows (kDead,
+// kPartial or kFull): from positions when w.one_seg, else from its key
+// rows, written to kseg / krel. Called by every thread (may synchronise).
+__device__ inline int key_tile_state(const int* __restrict__ cu_k, int nseg,
+                                     const Walk& w, int k0, int khi,
+                                     const int* qseg, const int* qrel,
+                                     int* kseg, int* krel) {
+  if (w.one_seg) return w.state(k0);
+  key_rows(cu_k, nseg, k0, khi, kseg, krel);
+  __syncthreads();
+  return tile_pairs(qseg, qrel, kseg, krel, w.causal, w.window);
+}
+
 // From the key tile at *k0 on, in steps of kTile below khi, the first one
 // with a live pair against the CTA's query rows: *k0 moves to it, its key
 // rows go to kseg / krel (unless w.one_seg), and its state is returned
@@ -351,27 +364,11 @@ __device__ inline int next_key_tile(const int* __restrict__ cu_k, int nseg,
                                     const int* qseg, const int* qrel,
                                     int* kseg, int* krel) {
   for (; *k0 < khi; *k0 += kTile) {
-    int state;
-    if (w.one_seg) {
-      state = w.state(*k0);
-    } else {
-      key_rows(cu_k, nseg, *k0, khi, kseg, krel);
-      __syncthreads();
-      state = tile_pairs(qseg, qrel, kseg, krel, w.causal, w.window);
-    }
+    const int state =
+        key_tile_state(cu_k, nseg, w, *k0, khi, qseg, qrel, kseg, krel);
     if (state != kDead) return state;
   }
   return kDead;
-}
-
-// key_rows of the tile at k0, then whether any pair with the CTA's query
-// rows is live (the forward's dead-tile test, before any K/V byte is read).
-__device__ inline bool key_tile(const int* __restrict__ cu_k, int nseg, int k0,
-                                int khi, const int* qseg, const int* qrel,
-                                int* kseg, int* krel, int causal, int window) {
-  key_rows(cu_k, nseg, k0, khi, kseg, krel);
-  __syncthreads();
-  return tile_pairs(qseg, qrel, kseg, krel, causal, window) != kDead;
 }
 
 struct Seg {

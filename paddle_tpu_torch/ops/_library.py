@@ -42,7 +42,7 @@ SOURCES = ("rms_norm.cu", "paged_attention.cu", "varlen_flash_attention.cu",
            "flash_attention_bwd.cu", "varlen_flash_attention_bwd.cu")
 HEADERS = ("common.cuh", "split_decode.cuh", "flash_f32.cuh", "flash_mma.cuh",
            "varlen_seg.cuh", "wgmma.cuh", "tma.cuh", "bwd_fused.cuh",
-           "bwd_f32.cuh")
+           "bwd_f32.cuh", "tf32x3.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-lineinfo", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -51,7 +51,8 @@ LAUNCHES = {"rms_norm": 0, "paged_decode_attention": 0,
             "paged_decode_attention_int8": 0,
             "paged_decode_attention_int8_rows": 0,
             "paged_decode_attention_scaled": 0,
-            "varlen_flash_attention": 0, "flash_attention": 0,
+            "varlen_flash_attention": 0, "varlen_flash_attention_f32": 0,
+            "flash_attention": 0, "flash_attention_f32": 0,
             "decode_attention": 0, "rms_norm_bwd": 0,
             "flash_attention_bwd": 0, "flash_attention_bwd_f32": 0,
             "varlen_flash_attention_bwd": 0,

@@ -139,8 +139,10 @@ def flash_attention(q, k, v, causal=False, sm_scale=None, window_size=None,
         lse.data_ptr(), b, sq, sk, h, hk, d, int(bool(causal)),
         int(window_size or 0), float(sm_scale), _DTYPES[q.dtype],
         L.cuda_stream(q))
-    L.check_status("flash_attention", status)
-    L.LAUNCHES["flash_attention"] += 1
+    name = ("flash_attention_f32" if q.dtype == torch.float32
+            else "flash_attention")
+    L.check_status(name, status)
+    L.LAUNCHES[name] += 1
     return (out, lse) if return_lse else out
 
 

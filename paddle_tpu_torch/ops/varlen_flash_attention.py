@@ -158,8 +158,10 @@ def varlen_flash_attention(q, k, v, cu_seqlens_q, cu_seqlens_k,
         cu_seqlens_q.shape[0] - 1, h, hk, d, int(bool(causal)),
         int(window_size or 0), float(sm_scale), _DTYPES[q.dtype],
         L.cuda_stream(q))
-    L.check_status("varlen_flash_attention", status)
-    L.LAUNCHES["varlen_flash_attention"] += 1
+    name = ("varlen_flash_attention_f32" if q.dtype == torch.float32
+            else "varlen_flash_attention")
+    L.check_status(name, status)
+    L.LAUNCHES[name] += 1
     return (out, lse) if return_lse else out
 
 

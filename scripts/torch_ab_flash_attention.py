@@ -14,7 +14,8 @@ window 4,096), dense causal 2,048, bottom-right (Sq=64, Sk=1,024, GQA
 K7 at the training shape: CUDA-event ms per call over 30 back-to-back
 calls after 5 warm-up calls, and the forward's largest |out - plain| and
 |lse - plain|. Then the f32 route at the training shape (``f32_train``):
-K4's f32 forward, the whole f32 backward (``flash_attention_bwd``: the
+K4's f32 forward (its ms, whether two calls are bit-equal, its largest
+|out - plain| and |lse - plain|), the whole f32 backward (``flash_attention_bwd``: the
 fused f32 K7 where the tree has it, else K7a and K7b), whether two
 backward calls are bit-equal, its largest |grad - plain| over the
 gradient's largest |plain|, and one f32 SDPA backward (dq, dk, dv through
@@ -61,6 +62,9 @@ def f32_train(dev, g):
     q, k, v, do = (torch.randn(1, 4096, 32, 128, generator=g, device=dev)
                    for _ in range(4))
     o, lse = ops.flash_attention(q, k, v, causal=True, return_lse=True)
+    o_ref, lse_ref = ops.flash_attention_plain(q, k, v, causal=True)
+    fwd_equal = all(torch.equal(a, b) for a, b in zip(
+        (o, lse), ops.flash_attention(q, k, v, causal=True, return_lse=True)))
     first, second = (ops.flash_attention_bwd(q, k, v, o, lse, do, True)
                      for _ in range(2))
     ref = ops.flash_attention_bwd_plain(q, k, v, o, lse, do, True)
@@ -71,6 +75,9 @@ def f32_train(dev, g):
     return {
         "k4_ms": event_ms(lambda: ops.flash_attention(q, k, v,
                                                       causal=True)),
+        "k4_bit_equal": fwd_equal,
+        "k4_max_err": float((o - o_ref).abs().max()),
+        "k4_lse_max_err": float((lse - lse_ref).abs().max()),
         "k7_ms": event_ms(lambda: ops.flash_attention_bwd(q, k, v, o, lse,
                                                           do, True)),
         "k7_bit_equal": all(torch.equal(a, b)

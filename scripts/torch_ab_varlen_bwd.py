@@ -19,7 +19,10 @@ SDPA backwards (dq, dk, dv through autograd) as the library yardstick.
 Prints one JSON line with the card's name and power limit. Exits non-zero
 without a GPU. Then the f32 route at the packed row (``packed_941m_f32``:
 the fused f32 kernel where the tree has it, else K8a and K8b), with the
-same fields, its error also over each gradient's largest |plain|. With
+same fields, its error also over each gradient's largest |plain|, and
+K3's f32 forward at the packed row (``packed_941m_f32_fwd``: event ms,
+bit equality, its largest |out - plain| and |lse - plain|, and the two
+library calls of chip_smoke's K3 f32 row). With
 ``--hk-sweep`` it times instead the fused kernel alone at the packed row
 (D = 64) with 32, 8, 4 and 1 KV heads: the same steps in fewer, longer
 CTAs; with ``--f32`` only the f32 route.
@@ -83,6 +86,34 @@ def hk_sweep(dev, g):
     return out
 
 
+def f32_forward(dev, g):
+    """K3's f32 forward at the packed row: event ms, whether two calls are
+    bit-equal, its largest |out - plain| and |lse - plain|, and both
+    library yardsticks of chip_smoke's K3 row (one block-diagonal-masked
+    SDPA call over the row, the per-segment is_causal SDPA calls)."""
+    from chip_smoke import _segment_forward_library
+
+    _, lens, _, h, hk, d, window = SHAPES[0]
+    cu = _cu(lens, dev)
+    t = int(cu[-1])
+    q = torch.randn(t, h, d, generator=g, device=dev)
+    k, v = (torch.randn(t, hk, d, generator=g, device=dev)
+            for _ in range(2))
+
+    def fwd():
+        return ops.varlen_flash_attention(q, k, v, cu, cu, causal=True,
+                                          return_lse=True)
+    first, second = fwd(), fwd()
+    ref = ops.varlen_flash_attention_plain(q, k, v, cu, cu, True)
+    lib = _segment_forward_library(torch, q, k, v, lens, window)
+    return {"ms": event_ms(fwd),
+            "bit_equal": all(torch.equal(a, b)
+                             for a, b in zip(first, second)),
+            "max_err": float((first[0] - ref[0]).abs().max()),
+            "lse_max_err": float((first[1] - ref[1]).abs().max()),
+            **{f"{name}_ms": event_ms(fn) for name, fn in lib.items()}}
+
+
 def main(label, only_f32=False):
     if not torch.cuda.is_available():
         sys.exit("needs an NVIDIA GPU")
@@ -103,6 +134,7 @@ def main(label, only_f32=False):
         return
     cases = [(name, dt, *rest) for name, *rest in SHAPES
              for dt in (torch.bfloat16,)] * (not only_f32)
+    out["packed_941m_f32_fwd"] = f32_forward(dev, g)
     cases.append(("packed_941m_f32", torch.float32, *SHAPES[0][1:]))
     for name, dtype, lens_q, lens_k, h, hk, d, window in cases:
         cu_q = _cu(lens_q, dev)

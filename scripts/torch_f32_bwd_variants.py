@@ -5,7 +5,7 @@ on one GPU: where its time goes, and which of a few design choices wins.
 
 Each variant is a copy of ``paddle_tpu_torch`` under
 ``build/f32_variants/NAME/`` (gitignored) with a textual edit of
-``csrc/bwd_f32.cuh`` or a kernel source; the copies build in parallel
+``csrc/bwd_f32.cuh``, ``csrc/tf32x3.cuh`` or a kernel source; the copies build in parallel
 (one process each), then each is timed in its own process, in the order given, twice over
 (first pass, then second, so a drift of the card shows). Per variant:
 CUDA-event ms of the dense f32 backward (``flash_attention_bwd_fused``)
@@ -27,34 +27,37 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parents[1]
 ROOT = REPO / "build" / "f32_variants"
 HEADER = "paddle_tpu_torch/csrc/bwd_f32.cuh"
+TF32 = "csrc/tf32x3.cuh"  # the 3xTF32 products, shared with the forward
 
 # name -> [(old, new)] edits of bwd_f32.cuh, or [(file, old, new)] of
 # another file under paddle_tpu_torch/
 VARIANTS = {
     "base": [],
     # one TF32 product instead of three (wrong results): the cost of 3x
-    "one_tf32": [("  mma_tf32(c, as, bb0, bb1);\n  mma_tf32(c, ab, bs0, bs1);\n",
-                  "")],
+    "one_tf32": [(TF32, "  mma_tf32(c, as, bb0, bb1);\n"
+                        "  mma_tf32(c, ab, bs0, bs1);\n", "")],
     # no rounding instructions, raw f32 bits as big and small (wrong
     # results): the cost of the split
-    "no_split": [("  *big = to_tf32(x);\n  *small = __float_as_uint(x - "
-                  "__uint_as_float(*big));",
+    "no_split": [(TF32, "  *big = to_tf32(x);\n  *small = __float_as_uint(x"
+                        " - __uint_as_float(*big));",
                   "  *big = __float_as_uint(x);\n  *small = *big;")],
     # the dq add's bulk copies left out, its waits kept (wrong dq)
     "no_dq_add": [("    for (int r = 0; r < n; ++r) {",
                    "    for (int r = 0; r < 0; ++r) {")],
     # small rounded by a second cvt.rna, as big is
-    "rna_small": [("  *small = __float_as_uint(x - __uint_as_float(*big));",
+    "rna_small": [(TF32,
+                   "  *small = __float_as_uint(x - __uint_as_float(*big));",
                    "  *small = to_tf32(x - __uint_as_float(*big));")],
     # big truncated by the tensor core too: small = x - (x with its low 13
     # bits cleared), one integer and one float instruction
-    "trunc_big": [("  *big = to_tf32(x);\n  *small = __float_as_uint(x - "
-                   "__uint_as_float(*big));",
+    "trunc_big": [(TF32, "  *big = to_tf32(x);\n  *small = __float_as_uint("
+                         "x - __uint_as_float(*big));",
                    "  *big = __float_as_uint(x);\n  *small = __float_as_uint("
                    "x - __uint_as_float(*big & 0xffffe000u));")],
     # big rounded by the cvt.rna.tf32.f32 instruction in place of its two
     # integer instructions (bit-identical results)
-    "cvt_rna": [("  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;",
+    "cvt_rna": [(TF32,
+                 "  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;",
                  "  uint32_t r;\n  asm(\"cvt.rna.tf32.f32 %0, %1;\\n\" : "
                  "\"=r\"(r) : \"f\"(x));\n  return r;")],
     # dP^T before dV += P^T dO (both kernels)
@@ -122,13 +125,13 @@ print(json.dumps(out))
 """
 
 
-def make(name):
-    dst = ROOT / name
+def make(name, edits, root=ROOT):
+    dst = root / name
     if dst.exists():
         shutil.rmtree(dst)
     shutil.copytree(REPO / "paddle_tpu_torch", dst / "paddle_tpu_torch",
                     ignore=shutil.ignore_patterns("__pycache__"))
-    for edit in VARIANTS[name]:
+    for edit in edits:
         rel, (old, new) = ((HEADER, edit) if len(edit) == 2 else
                            ("paddle_tpu_torch/" + edit[0], edit[1:]))
         path = dst / rel
@@ -139,7 +142,10 @@ def make(name):
     return dst
 
 
-def main(names):
+def main(names, variants=VARIANTS, timer=TIMER, root=ROOT):
+    """Build the named variants (all when none is named) under ``root``
+    and time each with ``timer`` (a script printing one JSON line), twice
+    over; scripts/torch_f32_fwd_variants.py passes its own."""
     import torch
 
     if not torch.cuda.is_available():
@@ -148,8 +154,8 @@ def main(names):
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    names = names or list(VARIANTS)
-    dirs = {n: make(n) for n in names}
+    names = names or list(variants)
+    dirs = {n: make(n, variants[n], root) for n in names}
     build = "from paddle_tpu_torch.ops import _library as L; L.library()"
     procs = {n: subprocess.Popen([sys.executable, "-c", build], cwd=d,
                                  stdout=subprocess.PIPE,
@@ -161,7 +167,7 @@ def main(names):
             sys.exit(f"{n}: build failed\n{log[-4000:]}")
     for rnd in (1, 2):
         for n, d in dirs.items():
-            run = subprocess.run([sys.executable, "-c", TIMER], cwd=d,
+            run = subprocess.run([sys.executable, "-c", timer], cwd=d,
                                  capture_output=True, text=True)
             if run.returncode:
                 print(json.dumps({"variant": n, "round": rnd,

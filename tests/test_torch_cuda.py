@@ -235,9 +235,11 @@ def test_cuda_engine_kernel_path_equals_plain_path(cuda):
             assert all(n == 0 for n in ops.LAUNCHES.values())
         else:
             engine.run()
+            # an f32 model: K3's f32 forward, never the bf16 one
             assert all(ops.LAUNCHES[k] > 0 for k in (
                 "rms_norm", "paged_decode_attention",
-                "varlen_flash_attention"))
+                "varlen_flash_attention_f32"))
+            assert ops.LAUNCHES["varlen_flash_attention"] == 0
         streams.append([r.tokens for r in reqs])
     assert streams[0] == streams[1]
 
@@ -281,19 +283,52 @@ def test_cuda_flash_attention_matches_plain(cuda, dtype, tol):
 
 
 @pytest.mark.cuda
-def test_cuda_flash_attention_is_deterministic(cuda):
-    """Two calls of the bf16 forward on the same inputs are bit-equal in
-    out and lse (no reduction across CTAs: each output is written once),
-    at Llama's dense causal shape and at GQA 7 with a window."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_is_deterministic(cuda, dtype):
+    """Two calls of the forward (bf16, and the f32 3xTF32 kernel) on the
+    same inputs are bit-equal in out and lse (no reduction across CTAs:
+    each output is written once), at Llama's dense causal shape and at
+    GQA 7 with a window."""
     g = torch.Generator(device=cuda).manual_seed(8)
     for b, s, h, hk, window in ((1, 2048, 32, 32, None),
                                 (2, 1000, 28, 4, 129)):
-        q = _rnd(g, torch.bfloat16, b, s, h, 128)
-        k, v = (_rnd(g, torch.bfloat16, b, s, hk, 128) for _ in range(2))
+        q = _rnd(g, dtype, b, s, h, 128)
+        k, v = (_rnd(g, dtype, b, s, hk, 128) for _ in range(2))
         runs = [ops.flash_attention(q, k, v, causal=True, window_size=window,
                                     return_lse=True) for _ in range(2)]
         for a, c in zip(*runs):
             assert torch.equal(a, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_cuda_f32_flash_attention_across_tile_edges(cuda, d):
+    """The f32 forward K4 (flash_f32.cuh: 64-row query tiles, 64-key
+    tiles, 3xTF32) across its tile edges: Sq 1, 63, 65, 127 and 129,
+    windows at the tile width and one off it (63, 64, 65), GQA 7 (28 / 4),
+    Sq < Sk and Sq > Sk; exactly one f32 launch a call, no bf16 one."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    for b, sq, sk, h, hk, causal, window in (
+            (2, 1, 1, 4, 4, True, None),
+            (2, 63, 63, 28, 4, True, None),
+            (1, 65, 65, 8, 2, True, 63),
+            (2, 127, 127, 4, 1, True, 64),
+            (1, 129, 129, 28, 4, True, 65),
+            (2, 63, 300, 8, 2, True, 65),
+            (1, 129, 64, 4, 4, True, None),
+            (3, 65, 129, 28, 4, False, None),
+            (1, 300, 300, 8, 8, True, 63)):
+        q = _rnd(g, torch.float32, b, sq, h, d)
+        k, v = (_rnd(g, torch.float32, b, sk, hk, d) for _ in range(2))
+        ops.reset_launches()
+        out, lse = ops.flash_attention(q, k, v, causal=causal,
+                                       window_size=window, return_lse=True)
+        assert ops.LAUNCHES["flash_attention_f32"] == 1
+        assert ops.LAUNCHES["flash_attention"] == 0
+        ref, lse_ref = ops.flash_attention_plain(q, k, v, causal=causal,
+                                                 window_size=window)
+        torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)
+        torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.cuda
@@ -532,7 +567,9 @@ def test_cuda_generate_kernel_path_equals_plain_path(cuda, window):
             assert all(n == 0 for n in ops.LAUNCHES.values())
         else:
             streams.append(generate(model, ids, max_new_tokens=12))
-            assert ops.LAUNCHES["flash_attention"] == (2 if window else 0)
+            assert ops.LAUNCHES["flash_attention_f32"] == (2 if window
+                                                           else 0)
+            assert ops.LAUNCHES["flash_attention"] == 0
             assert ops.LAUNCHES["decode_attention"] == 2 * 11
     assert torch.equal(streams[0], streams[1])
 
@@ -681,9 +718,10 @@ def test_cuda_train_step_kernel_path_equals_plain_path(cuda, fuse):
             assert all(n == 0 for n in ops.LAUNCHES.values())
         else:
             losses = [step(ids, ids) for _ in range(3)]
-            # f32: one launch of the f32 fused K7 per layer and step,
-            # never the bf16 kernel
-            want = {"rms_norm": 15, "flash_attention": 6,
+            # f32: one launch of the f32 forward K4 and of the f32 fused
+            # K7 per layer and step, never the bf16 kernels
+            want = {"rms_norm": 15, "flash_attention_f32": 6,
+                    "flash_attention": 0,
                     "rms_norm_bwd": 15, "flash_attention_bwd": 0,
                     "flash_attention_bwd_f32": 6}
             assert {k: ops.LAUNCHES[k] for k in want} == want
@@ -724,6 +762,9 @@ VARLEN_CASES = (
     ([300, 70, 190], None, 8, 1, True, 48, 0),
     ([6, 10, 12], [9, 0, 4], 4, 2, True, None, 5),
     ([128, 128, 128], [128, 320, 1000], 4, 4, True, None, 0),
+    # windows one off the 64-key tile, GQA 7 (28 / 4)
+    ([63, 65, 129, 1], None, 28, 4, True, 65, 0),
+    ([64, 127, 200], None, 8, 2, True, 63, 0),
 )
 
 
@@ -743,9 +784,13 @@ def test_cuda_varlen_forward_matches_plain_every_head_dim(cuda, dtype, tol,
         tq, tk = int(cu_q[-1]) + pad, int(cu_k[-1])
         q = _rnd(g, dtype, tq, h, d)
         k, v = _rnd(g, dtype, tk, hk, d), _rnd(g, dtype, tk, hk, d)
+        ops.reset_launches()
         out, lse = ops.varlen_flash_attention(
             q, k, v, cu_q, cu_k, causal=causal, window_size=window,
             return_lse=True)
+        f32 = dtype == torch.float32
+        assert ops.LAUNCHES["varlen_flash_attention_f32"] == int(f32)
+        assert ops.LAUNCHES["varlen_flash_attention"] == int(not f32)
         ref, lse_ref = ops.varlen_flash_attention_plain(
             q, k, v, cu_q, cu_k, causal=causal, window_size=window)
         torch.testing.assert_close(out.float(), ref.float(), atol=tol,
@@ -1005,12 +1050,13 @@ def test_cuda_packed_train_step_kernel_path_equals_plain_path(cuda,
             assert all(n == 0 for n in ops.LAUNCHES.values())
         else:
             losses = [step([ids, cu], ids) for _ in range(3)]
-            # 2 layers: forward K1 5 and K3 2 per step, again for the
-            # recomputed blocks; backward K6 5 and the f32 K8 2, never
-            # the bf16 K8
+            # 2 layers: forward K1 5 and the f32 K3 2 per step, again for
+            # the recomputed blocks; backward K6 5 and the f32 K8 2, never
+            # the bf16 K3 or K8
             fwd = 2 if recompute else 1
             want = {"rms_norm": 15 + 12 * (fwd - 1),
-                    "varlen_flash_attention": 6 * fwd,
+                    "varlen_flash_attention_f32": 6 * fwd,
+                    "varlen_flash_attention": 0,
                     "rms_norm_bwd": 15, "varlen_flash_attention_bwd_f32": 6,
                     "varlen_flash_attention_bwd": 0,
                     "flash_attention": 0}
