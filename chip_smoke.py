@@ -12,8 +12,10 @@ Phases (any failure raises and the script exits non-zero):
    serving, generation and training paths' shapes, in bf16 and f32
    (K4 also at the training shape against one ``is_causal`` SDPA call,
    in bf16 and f32; the backward as the fused kernel K7, in bf16 on wgmma
-   and in f32 as 3xTF32; K6/K7 also at
-   Mistral's GQA width with its window; the varlen backward in bf16 as the
+   and in f32 as 3xTF32; K7 also at
+   Mistral's GQA width with its window; K1 also at the training path's
+   4,096 rows, past the L2; K6 also at the packed width 2,048 and at phase
+   8's f32 rows; the varlen backward in bf16 as the
    fused kernel K8 at the packed 941M row, with GQA and a window, with
    unequal query and key lengths, and with empty segments, in f32 as the
    fused 3xTF32 kernel at the packed row; K3 also at the packed 941M row
@@ -278,7 +280,9 @@ def k1_cases(torch, g, dev):
     import torch.nn.functional as tF
 
     for dtype in (torch.bfloat16, torch.float32):
-        for rows in (8, 1024):
+        # 1,024 rows (the primary, in the L2 across back-to-back calls) and
+        # the training path's 4,096 (67 MB in bf16: past the 50 MB L2)
+        for rows in (8, 1024, 4096):
             n = 4096
             x = torch.randn(rows, n, generator=g, device=dev).to(dtype)
             w = torch.randn(n, generator=g, device=dev).to(dtype)
@@ -707,8 +711,12 @@ def k6_cases(torch, g, dev):
     from paddle_tpu_torch import ops
     import torch.nn.functional as tF
 
-    rows, n = 4096, 4096   # the training path's rows (B=1, S=4,096)
-    for dtype in (torch.bfloat16, torch.float32):
+    # the training path's rows (B=1, S=4,096) at Llama-2-7B's width, the
+    # packed path's at the 941M width, and phase 8's f32 rows (S=1,024)
+    for dtype, rows, n in ((torch.bfloat16, 4096, 4096),
+                           (torch.float32, 4096, 4096),
+                           (torch.bfloat16, 4096, 2048),
+                           (torch.float32, 1024, 4096)):
         x = torch.randn(rows, n, generator=g, device=dev).to(dtype)
         w = torch.randn(n, generator=g, device=dev).to(dtype)
         dy = torch.randn(rows, n, generator=g, device=dev).to(dtype)
@@ -720,7 +728,7 @@ def k6_cases(torch, g, dev):
         nbytes = (3 * rows * n + 2 * n) * e + 4 * rows
         yield dict(
             name="rms_norm_bwd", dtype=dtype, shape=f"rows={rows},N={n}",
-            primary=(dtype == torch.bfloat16),
+            primary=(dtype == torch.bfloat16 and n == 4096),
             kernel=lambda x=x, w=w, r=r, dy=dy: ops.rms_norm_bwd(x, w, r, dy),
             plain=lambda x=x, w=w, r=r, dy=dy: ops.rms_norm_bwd_plain(
                 x, w, r, dy),
@@ -1181,9 +1189,11 @@ def e2e_phase(torch, dev):
 
 
 def _kernel_family(name):
-    for key, fam in (("rms_norm_kernel", "K1 rms_norm"),
-                     ("rms_norm_bwd_kernel", "K6 rms_norm_bwd"),
+    # K6 is two launches: the row pass (rms_norm_bwd_rows_kernel, or
+    # rms_norm_bwd_any_kernel off the vector path) and the dw reduction
+    for key, fam in (("rms_norm_bwd_", "K6 rms_norm_bwd"),
                      ("rms_norm_dw_kernel", "K6 rms_norm_bwd"),
+                     ("rms_norm_kernel", "K1 rms_norm"),
                      ("varlen_bwd_fused_f32",
                       "K8 f32 varlen_flash_attention_bwd_f32"),
                      ("varlen_bwd_fused_", "K8 varlen_flash_attention_bwd"),

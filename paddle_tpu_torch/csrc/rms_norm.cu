@@ -115,163 +115,395 @@ extern "C" int ptt_rms_norm(const void* x, const void* w, void* y,
 // r and dw), a few flops per element: (3 * rows * N * elem) / 3.35 TB/s.
 //
 // Design: the TPU kernel carries dw in scratch across its sequential grid;
-// here blocks run in parallel, so the rows are cut into `nblk` contiguous
-// blocks, one CTA each. A CTA walks its rows one at a time: a first sweep
-// sums g * x over the row (warp shuffles, one shared step) and adds
-// dy * x * r into a shared f32 row of dw partial sums in which each column
-// belongs to one thread (no race, no atomics); a second sweep over the row
-// (now in L1/L2) writes dx. Each CTA then writes its partial row to
-// `part[b]`, and a second small kernel sums the nblk partials of each
-// column in a fixed order: the result does not depend on scheduling.
+// here CTAs run in parallel, so each sums its own rows and a second launch
+// adds the sums. The host plan (ops/rms_norm.py `BwdPlan`) fixes both.
+// 1. The row pass: about two persistent CTAs an SM, each walking a
+//    contiguous range of rows. Each thread owns a fixed set of 16-byte
+//    column vectors (strided by the CTA's width, so a warp's accesses
+//    coalesce) and keeps its slice of w and its dw sums in registers for
+//    the whole CTA: no shared read-modify-write, no bank conflict. Every
+//    row is read once: a thread copies its own vectors of x and dy into a
+//    two-row ring in shared memory (cp.async), one row ahead of the row it
+//    works on, and reads back only what it copied, so
+//    `cp.async.wait_group` alone orders the ring (a deeper ring measured
+//    no faster: scripts/torch_rms_norm_variants.py). g·x is summed per
+//    thread, across a warp by butterfly and across warps through two
+//    slots of warp sums used in turns: one barrier a row, with the next
+//    row's loads in flight across it. dx is written from the registers
+//    that hold x and g, and each CTA ends by writing one f32 row of dw
+//    partials. Widths that do not split into 16-byte vectors take a
+//    general kernel of the same plan that keeps its dw sums in its
+//    partial row.
+// 2. The reduction: one CTA per 32 columns; warp k sums the partial rows
+//    k, k + 16, ... in order, and the 16 warp sums meet in a fixed
+//    pairwise tree. No atomics: dw is bit-equal across calls.
 
-template <int THREADS>
-__device__ __forceinline__ float block_sum(float v, float* red) {
+constexpr int kBwdMaxThreads = 256;  // ops/rms_norm.py BWD_MAX_THREADS
+constexpr int kBwdMaxElems = 32;     // BWD_MAX_ELEMS
+constexpr int kStages = 2;           // BWD_STAGES
+constexpr int kRedWarps = 16;        // RED_WARPS
+constexpr int kRedCols = 32;         // RED_COLS
+
+// Rows [lo, hi) of this CTA: the plan's balanced split (`row_range`).
+__device__ __forceinline__ void row_range(int rows, int& lo, int& hi) {
+  lo = static_cast<int>(static_cast<long long>(blockIdx.x) * rows /
+                        gridDim.x);
+  hi = static_cast<int>(static_cast<long long>(blockIdx.x + 1) * rows /
+                        gridDim.x);
+}
+
+// The CTA's sum of one value per thread: a warp butterfly, then the warp
+// sums in warp order from `slot`. Rows use two slots in turns: a slot is
+// rewritten two rows later, behind the next row's barrier, which every
+// thread passes only after reading it here.
+__device__ __forceinline__ float row_sum(float v, float* slot, int nwarps) {
   v = warp_sum(v);
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  if ((threadIdx.x & 31) == 0) slot[threadIdx.x >> 5] = v;
   __syncthreads();
-  const int lane = threadIdx.x & 31;
-  float t = lane < THREADS / 32 ? red[lane] : 0.f;
-  t = warp_sum(t);  // every warp reduces the same values
-  __syncthreads();  // red is rewritten by the next call
+  float t = 0.f;
+  for (int k = 0; k < nwarps; ++k) t += slot[k];
   return t;
 }
 
-template <typename T, int THREADS>
-__global__ void __launch_bounds__(THREADS)
-    rms_norm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                        const float* __restrict__ rstd,
-                        const T* __restrict__ dy, T* __restrict__ dx,
-                        float* __restrict__ part, int rows, int n, int per,
-                        bool vec) {
-  constexpr int V = Vec<T>::N;
-  extern __shared__ float acc[];  // [n]: this CTA's dw partial sums
-  __shared__ float red[THREADS / 32];
-  for (int i = threadIdx.x; i < n; i += THREADS) acc[i] = 0.f;
-  __syncthreads();  // the sweeps below own columns in another pattern
-  const int r_begin = blockIdx.x * per;
-  const int r_end = min(rows, r_begin + per);
-  const float inv_n = 1.f / static_cast<float>(n);
-
-  for (int row = r_begin; row < r_end; ++row) {
-    const T* xr = x + static_cast<size_t>(row) * n;
-    const T* dyr = dy + static_cast<size_t>(row) * n;
-    T* dxr = dx + static_cast<size_t>(row) * n;
-    const float r = rstd[row];
-    float gx = 0.f;
-    if (vec) {
-      for (int i = threadIdx.x * V; i < n; i += THREADS * V) {
-        float xv[V], dv[V], wv[V];
-        load_vec(xr + i, xv);
-        load_vec(dyr + i, dv);
-        load_vec(w + i, wv);
+template <typename T>
+__device__ __forceinline__ void unpack(const uint4& raw, float* out) {
+  const T* e = reinterpret_cast<const T*>(&raw);
 #pragma unroll
-        for (int k = 0; k < V; ++k) {
-          gx = fmaf(dv[k] * wv[k], xv[k], gx);
-          acc[i + k] += dv[k] * xv[k] * r;
+  for (int i = 0; i < Vec<T>::N; ++i) out[i] = to_f32(e[i]);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+template <typename T, int VPT>
+__global__ void __launch_bounds__(kBwdMaxThreads)
+    rms_norm_bwd_rows_kernel(const T* __restrict__ x,
+                             const T* __restrict__ w,
+                             const float* __restrict__ rstd,
+                             const T* __restrict__ dy, T* __restrict__ dx,
+                             float* __restrict__ part, int rows, int n) {
+  constexpr int V = Vec<T>::N;
+  extern __shared__ uint4 ring[];  // [kStages][2][nvec]: a row's x, dy
+  __shared__ float red[2][kBwdMaxThreads / 32];
+  const int nvec = n / V, tid = threadIdx.x, nthr = blockDim.x;
+  int lo, hi;
+  row_range(rows, lo, hi);
+  const int cnt = hi - lo;
+
+  float wv[VPT][V], acc[VPT][V];
+#pragma unroll
+  for (int j = 0; j < VPT; ++j) {
+    const int c = j * nthr + tid;
+    if (c < nvec) {
+      load_vec(w + static_cast<size_t>(c) * V, wv[j]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < V; ++k) wv[j][k] = 0.f;
+    }
+#pragma unroll
+    for (int k = 0; k < V; ++k) acc[j][k] = 0.f;
+  }
+
+  // Copies this thread's vectors of the CTA's row `i` into ring stage
+  // `slot` and returns its r; one commit group per row, empty past the
+  // last row, so wait_group<kStages - 1> means "row i has landed".
+  auto stage = [&](int i, int slot) -> float {
+    float r = 0.f;
+    if (i < cnt) {
+      const int row = lo + i;
+      uint4* s = ring + static_cast<size_t>(slot) * 2 * nvec;
+      const T* xr = x + static_cast<size_t>(row) * n;
+      const T* dr = dy + static_cast<size_t>(row) * n;
+#pragma unroll
+      for (int j = 0; j < VPT; ++j) {
+        const int c = j * nthr + tid;
+        if (c < nvec) {
+          cp_async16(s + c, xr + static_cast<size_t>(c) * V);
+          cp_async16(s + nvec + c, dr + static_cast<size_t>(c) * V);
         }
       }
-    } else {
-      for (int i = threadIdx.x; i < n; i += THREADS) {
-        const float xv = to_f32(xr[i]), dv = to_f32(dyr[i]);
-        gx = fmaf(dv * to_f32(w[i]), xv, gx);
-        acc[i] += dv * xv * r;
-      }
+      r = __ldg(rstd + row);
     }
-    const float c = r * r * r * block_sum<THREADS>(gx, red) * inv_n;
-    if (vec) {
-      for (int i = threadIdx.x * V; i < n; i += THREADS * V) {
-        float xv[V], dv[V], wv[V];
-        load_vec(xr + i, xv);
-        load_vec(dyr + i, dv);
-        load_vec(w + i, wv);
+    cp_async_commit();
+    return r;
+  };
+
+  // r of the rows in the ring, by stage. The row loop is unrolled by
+  // kStages, so row i sits in stage i % kStages and every index below is
+  // a constant: r stays in registers, its load in flight as long as the
+  // row's copies.
+  float rq[kStages];
 #pragma unroll
-        for (int k = 0; k < V; ++k) xv[k] = dv[k] * wv[k] * r - xv[k] * c;
-        store_vec(dxr + i, xv);
+  for (int k = 0; k + 1 < kStages; ++k) rq[k] = stage(k, k);
+
+  const float inv_n = 1.f / static_cast<float>(n);
+  for (int base = 0; base < cnt; base += kStages) {
+#pragma unroll
+    for (int u = 0; u < kStages; ++u) {
+      const int i = base + u;
+      if (i >= cnt) break;
+      constexpr int kAhead = kStages - 1;
+      rq[(u + kAhead) % kStages] = stage(i + kAhead, (u + kAhead) % kStages);
+      cp_async_wait<kAhead>();
+      const uint4* s = ring + static_cast<size_t>(u) * 2 * nvec;
+      const float r = rq[u];
+      // x and g = dy w stay in registers across the row's barrier; the dw
+      // sums take dy x r before it
+      float xv[VPT][V], g[VPT][V];
+      float gx = 0.f;
+#pragma unroll
+      for (int j = 0; j < VPT; ++j) {
+        const int c = j * nthr + tid;
+        if (c < nvec) {
+          float dv[V];
+          unpack<T>(s[c], xv[j]);
+          unpack<T>(s[nvec + c], dv);
+#pragma unroll
+          for (int k = 0; k < V; ++k) {
+            g[j][k] = dv[k] * wv[j][k];
+            gx = fmaf(g[j][k], xv[j][k], gx);
+            acc[j][k] = fmaf(dv[k] * xv[j][k], r, acc[j][k]);
+          }
+        }
       }
-    } else {
-      for (int i = threadIdx.x; i < n; i += THREADS) {
-        const float xv = to_f32(xr[i]);
-        dxr[i] = from_f32<T>(to_f32(dyr[i]) * to_f32(w[i]) * r - xv * c);
+      const float cf = r * r * r * row_sum(gx, red[i & 1], nthr >> 5) * inv_n;
+      T* dxr = dx + static_cast<size_t>(lo + i) * n;
+#pragma unroll
+      for (int j = 0; j < VPT; ++j) {
+        const int c = j * nthr + tid;
+        if (c < nvec) {
+          float o[V];
+#pragma unroll
+          for (int k = 0; k < V; ++k)
+            o[k] = fmaf(g[j][k], r, -(xv[j][k] * cf));
+          store_vec(dxr + static_cast<size_t>(c) * V, o);
+        }
       }
     }
   }
+
   float* pr = part + static_cast<size_t>(blockIdx.x) * n;
-  if (vec) {
-    for (int i = threadIdx.x * V; i < n; i += THREADS * V)
 #pragma unroll
-      for (int k = 0; k < V; ++k) pr[i + k] = acc[i + k];
-  } else {
-    for (int i = threadIdx.x; i < n; i += THREADS) pr[i] = acc[i];
+  for (int j = 0; j < VPT; ++j) {
+    const int c = j * nthr + tid;
+    if (c < nvec) {
+#pragma unroll
+      for (int k = 0; k < V; k += 4)
+        *reinterpret_cast<float4*>(pr + static_cast<size_t>(c) * V + k) =
+            make_float4(acc[j][k], acc[j][k + 1], acc[j][k + 2],
+                        acc[j][k + 3]);
+    }
   }
 }
 
-// dw[j] = sum over b of part[b][j], b in order.
+// The general path: any width and alignment. Thread t owns the columns
+// t, t + blockDim.x, ... and adds its dw sums straight into its partial row.
 template <typename T>
-__global__ void __launch_bounds__(256)
-    rms_norm_dw_kernel(const float* __restrict__ part, T* __restrict__ dw,
-                       int nblk, int n) {
-  const int j = blockIdx.x * 256 + threadIdx.x;
-  if (j >= n) return;
-  float s = 0.f;
-  for (int b = 0; b < nblk; ++b) s += part[static_cast<size_t>(b) * n + j];
-  dw[j] = from_f32<T>(s);
+__global__ void __launch_bounds__(kBwdMaxThreads)
+    rms_norm_bwd_any_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                            const float* __restrict__ rstd,
+                            const T* __restrict__ dy, T* __restrict__ dx,
+                            float* __restrict__ part, int rows, int n) {
+  __shared__ float red[2][kBwdMaxThreads / 32];
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  int lo, hi;
+  row_range(rows, lo, hi);
+  float* pr = part + static_cast<size_t>(blockIdx.x) * n;
+  for (int i = tid; i < n; i += nthr) pr[i] = 0.f;
+  const float inv_n = 1.f / static_cast<float>(n);
+  for (int row = lo; row < hi; ++row) {
+    const T* xr = x + static_cast<size_t>(row) * n;
+    const T* dr = dy + static_cast<size_t>(row) * n;
+    const float r = rstd[row];
+    float gx = 0.f;
+    for (int i = tid; i < n; i += nthr) {
+      const float xv = to_f32(xr[i]), dv = to_f32(dr[i]);
+      gx = fmaf(dv * to_f32(w[i]), xv, gx);
+      pr[i] = fmaf(dv * xv, r, pr[i]);
+    }
+    const float cf = r * r * r * row_sum(gx, red[(row - lo) & 1], nthr >> 5)
+                     * inv_n;
+    T* dxr = dx + static_cast<size_t>(row) * n;
+    for (int i = tid; i < n; i += nthr) {
+      const float xv = to_f32(xr[i]), dv = to_f32(dr[i]);
+      dxr[i] = from_f32<T>(fmaf(dv * to_f32(w[i]), r, -(xv * cf)));
+    }
+  }
 }
 
-template <typename T, int THREADS>
+// dw[c] = the sum of part[p][c] over p: warp k sums p = k, k + kRedWarps,
+// ... in order, then the warp sums meet in a pairwise tree (`red_tree`).
+template <typename T>
+__global__ void __launch_bounds__(kRedWarps * 32)
+    rms_norm_dw_kernel(const float* __restrict__ part, T* __restrict__ dw,
+                       int nparts, int n) {
+  __shared__ float sums[kRedWarps][kRedCols];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c = blockIdx.x * kRedCols + lane;
+  float v = 0.f;
+  if (c < n) {
+    // the loads do not wait on the sum: sixteen in flight a thread
+#pragma unroll 16
+    for (int p = warp; p < nparts; p += kRedWarps)
+      v += part[static_cast<size_t>(p) * n + c];
+  }
+  sums[warp][lane] = v;
+#pragma unroll
+  for (int h = kRedWarps / 2; h > 0; h >>= 1) {
+    __syncthreads();
+    if (warp < h) sums[warp][lane] += sums[warp + h][lane];
+  }
+  if (warp == 0 && c < n) dw[c] = from_f32<T>(sums[0][lane]);
+}
+
+// The largest ring of the vector path: two rows of 256 threads x 32 f32.
+constexpr int kMaxRing = kStages * 2 * kBwdMaxThreads * kBwdMaxElems * 4;
+
+// Once per instance and device (the host cost stays off every launch):
+// the ring may take up to kMaxRing of dynamic shared memory, and the SM's
+// unified L1 / shared memory split leans to shared memory (the ring's
+// copies bypass L1), so that the plan's CTAs an SM fit.
+template <typename T, int VPT>
+static cudaError_t prepare_ring() {
+  static bool ready[64] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess || (dev < 64 && ready[dev])) return e;
+  auto kernel = rms_norm_bwd_rows_kernel<T, VPT>;
+  e = cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributePreferredSharedMemoryCarveout,
+                           cudaSharedmemCarveoutMaxShared);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxRing);
+  if (e == cudaSuccess && dev < 64) ready[dev] = true;
+  return e;
+}
+
+// The row pass on the vector path, the plan's instance. With `fit`, it
+// launches nothing and stores the CTAs an SM holds in *fit.
+template <typename T, int VPT>
+static cudaError_t rows_pass(const void* x, const void* w, const float* rstd,
+                             const void* dy, void* dx, float* part, int rows,
+                             int n, int ctas, int threads, cudaStream_t s,
+                             int* fit) {
+  const size_t smem = static_cast<size_t>(kStages) * 2 * (n / Vec<T>::N) *
+                      sizeof(uint4);
+  auto kernel = rms_norm_bwd_rows_kernel<T, VPT>;
+  cudaError_t e = prepare_ring<T, VPT>();
+  if (e != cudaSuccess) return e;
+  if (fit != nullptr)
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(fit, kernel, threads,
+                                                         smem);
+  kernel<<<ctas, threads, smem, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w), rstd,
+      static_cast<const T*>(dy), static_cast<T*>(dx), part, rows, n);
+  return cudaGetLastError();
+}
+
+template <typename T>
+static cudaError_t rows_pass_any(int vpt, const void* x, const void* w,
+                                 const float* rstd, const void* dy, void* dx,
+                                 float* part, int rows, int n, int ctas,
+                                 int threads, cudaStream_t s, int* fit) {
+  switch (vpt) {
+    case 1: return rows_pass<T, 1>(x, w, rstd, dy, dx, part, rows, n, ctas,
+                                   threads, s, fit);
+    case 2: return rows_pass<T, 2>(x, w, rstd, dy, dx, part, rows, n, ctas,
+                                   threads, s, fit);
+    case 4: return rows_pass<T, 4>(x, w, rstd, dy, dx, part, rows, n, ctas,
+                                   threads, s, fit);
+    case 8:
+      // a thread holds at most kBwdMaxElems elements of a row
+      if constexpr (8 * Vec<T>::N <= kBwdMaxElems)
+        return rows_pass<T, 8>(x, w, rstd, dy, dx, part, rows, n, ctas,
+                               threads, s, fit);
+      return cudaErrorInvalidValue;
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
 static int launch_bwd(const void* x, const void* w, const float* rstd,
                       const void* dy, void* dx, float* part, void* dw,
-                      int rows, int n, int nblk, cudaStream_t stream) {
-  const bool vec = (n % Vec<T>::N == 0) && aligned16(x) && aligned16(w) &&
-                   aligned16(dy) && aligned16(dx);
-  const size_t smem = sizeof(float) * static_cast<size_t>(n);
-  auto kernel = rms_norm_bwd_kernel<T, THREADS>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
+                      int rows, int n, int ctas, int threads, int vpt,
+                      cudaStream_t s) {
+  cudaError_t e;
+  if (vpt > 0) {
+    const int nvec = n / Vec<T>::N;
+    if (n % Vec<T>::N != 0 || !aligned16(x) || !aligned16(w) ||
+        !aligned16(dy) || !aligned16(dx) || nvec > threads * vpt)
+      return static_cast<int>(cudaErrorInvalidValue);
+    e = rows_pass_any<T>(vpt, x, w, rstd, dy, dx, part, rows, n, ctas,
+                         threads, s, nullptr);
+  } else {
+    rms_norm_bwd_any_kernel<T><<<ctas, threads, 0, s>>>(
+        static_cast<const T*>(x), static_cast<const T*>(w), rstd,
+        static_cast<const T*>(dy), static_cast<T*>(dx), part, rows, n);
+    e = cudaGetLastError();
   }
-  const int per = (rows + nblk - 1) / nblk;
-  kernel<<<nblk, THREADS, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), rstd,
-      static_cast<const T*>(dy), static_cast<T*>(dx), part, rows, n, per,
-      vec);
-  cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  rms_norm_dw_kernel<T><<<(n + 255) / 256, 256, 0, stream>>>(
-      part, static_cast<T*>(dw), nblk, n);
+  rms_norm_dw_kernel<T><<<(n + kRedCols - 1) / kRedCols, kRedWarps * 32, 0,
+                          s>>>(part, static_cast<T*>(dw), ctas, n);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-static int launch_bwd_any(const void* x, const void* w, const float* rstd,
-                          const void* dy, void* dx, float* part, void* dw,
-                          int rows, int n, int nblk, cudaStream_t stream) {
-  if (n >= 256 * Vec<T>::N)
-    return launch_bwd<T, 256>(x, w, rstd, dy, dx, part, dw, rows, n, nblk,
-                              stream);
-  return launch_bwd<T, 128>(x, w, rstd, dy, dx, part, dw, rows, n, nblk,
-                            stream);
-}
-
 // x, dy, dx (rows, n) and w, dw (n,) in one dtype; rstd (rows,) f32; part
-// (nblk, n) f32 scratch, 1 <= nblk <= rows. All contiguous.
+// (ctas, n) f32 scratch. All contiguous. ctas, threads and vpt are the
+// host plan's (ops/rms_norm.py `bwd_plan`): 1 <= ctas <= rows; threads a
+// multiple of 32 up to 256; vpt 1, 2, 4 or 8 (at most 32 elements a
+// thread) on the vector path (16-byte aligned tensors, n a multiple of the
+// vector), vpt 0 on the general path.
 extern "C" int ptt_rms_norm_bwd(const void* x, const void* w,
                                 const void* rstd, const void* dy, void* dx,
                                 void* part, void* dw, int rows, int n,
-                                int nblk, int dtype, void* stream) {
+                                int ctas, int threads, int vpt, int dtype,
+                                void* stream) {
   if (rows <= 0) return 0;
-  if (n <= 0 || nblk <= 0 || nblk > rows)
+  if (n <= 0 || ctas <= 0 || ctas > rows || threads < 32 ||
+      threads > kBwdMaxThreads || threads % 32 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* r = static_cast<const float*>(rstd);
   float* pp = static_cast<float*>(part);
   if (dtype == kF32)
-    return launch_bwd_any<float>(x, w, r, dy, dx, pp, dw, rows, n, nblk, s);
+    return launch_bwd<float>(x, w, r, dy, dx, pp, dw, rows, n, ctas, threads,
+                             vpt, s);
   if (dtype == kBF16)
-    return launch_bwd_any<__nv_bfloat16>(x, w, r, dy, dx, pp, dw, rows, n,
-                                         nblk, s);
+    return launch_bwd<__nv_bfloat16>(x, w, r, dy, dx, pp, dw, rows, n, ctas,
+                                     threads, vpt, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The row CTAs of a vector-path plan that one SM holds (registers and
+// shared memory, as the card reports them), or -1 for a plan the kernel
+// does not take. Lets a test hold the plan's `per_sm` to the card.
+extern "C" int ptt_rms_norm_bwd_fit(int n, int threads, int vpt,
+                                    int dtype) {
+  int fit = -1;
+  cudaError_t e = cudaErrorInvalidValue;
+  if (dtype == kF32)
+    e = rows_pass_any<float>(vpt, nullptr, nullptr, nullptr, nullptr,
+                             nullptr, nullptr, 0, n, 0, threads, nullptr,
+                             &fit);
+  else if (dtype == kBF16)
+    e = rows_pass_any<__nv_bfloat16>(vpt, nullptr, nullptr, nullptr,
+                                     nullptr, nullptr, nullptr, 0, n, 0,
+                                     threads, nullptr, &fit);
+  return e == cudaSuccess ? fit : -1;
 }
 
 extern "C" const char* ptt_error_string(int code) {

@@ -196,8 +196,11 @@ def _declare(lib):
         # dtype, stream
         "ptt_flash_attention": (p, p, p, p, p, i, i, i, i, i, i, i, i, f, i,
                                 p),
-        # x, w, rstd, dy, dx, dw_part, dw, rows, n, nblk, dtype, stream
-        "ptt_rms_norm_bwd": (p, p, p, p, p, p, p, i, i, i, i, p),
+        # x, w, rstd, dy, dx, dw_part, dw, rows, n, ctas, threads, vpt,
+        # dtype, stream (ops/rms_norm.py `bwd_plan`)
+        "ptt_rms_norm_bwd": (p, p, p, p, p, p, p, i, i, i, i, i, i, p),
+        # n, threads, vpt, dtype -> row CTAs an SM holds
+        "ptt_rms_norm_bwd_fit": (i, i, i, i),
         # q, k, v, do, lse, delta, dq, dk, dv, dq_workspace, counters, b,
         # sq, sk, h, hk, d, causal, window, sm_scale, dtype, stream
         "ptt_flash_attention_bwd_fused": (p, p, p, p, p, p, p, p, p, p, p, i,

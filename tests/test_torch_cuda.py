@@ -10,6 +10,8 @@ Tolerances: f32 ``1e-5`` (summation order only, full-f32 products), bf16
 ``2e-2`` (about two bf16 rounding steps at |x| ~ 1); engine streams in
 f32 must be equal.
 """
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -578,10 +580,22 @@ def test_cuda_generate_kernel_path_equals_plain_path(cuda, window):
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 2e-2)])
 def test_cuda_rms_norm_backward_matches_plain(cuda, dtype, tol):
+    """K6 at the training shapes (Llama-2-7B's 4,096 and the packed 941M
+    row's 2,048 over 4,096 rows), the 3B, 13B and 70B widths, one row, rows
+    below the plan's partial count, widths off the vector path (100 in
+    bf16, 16,384) and a misaligned x and dy (the general kernel); two calls
+    give the same bits."""
     g = torch.Generator(device=cuda).manual_seed(3)
-    for rows, n in ((37, 4096), (3, 64), (5, 100), (1000, 512)):
-        x, w = _rnd(g, dtype, rows, n), _rnd(g, dtype, n)
-        dy = _rnd(g, dtype, rows, n)
+    for rows, n, offset in ((37, 4096, 0), (3, 64, 0), (5, 100, 0),
+                            (1000, 512, 0), (4096, 4096, 0), (4096, 2048, 0),
+                            (64, 5120, 0), (64, 8192, 0), (1, 4096, 0),
+                            (100, 4096, 0), (37, 4096, 1), (300, 3072, 0),
+                            (7, 16384, 0)):
+        def rnd(*shape):
+            flat = _rnd(g, dtype, offset + int(np.prod(shape)))
+            return flat[offset:].view(*shape)
+
+        x, w, dy = rnd(rows, n), _rnd(g, dtype, n), rnd(rows, n)
         _, r = ops.rms_norm(x, w, return_rstd=True)
         dx, dw = ops.rms_norm_bwd(x, w, r, dy)
         dx_ref, dw_ref = ops.rms_norm_bwd_plain(x, w, r, dy)
@@ -591,6 +605,43 @@ def test_cuda_rms_norm_backward_matches_plain(cuda, dtype, tol):
         scale = float(dw_ref.float().abs().max())
         torch.testing.assert_close(dw.float(), dw_ref.float(),
                                    atol=tol * scale, rtol=tol)
+        dx2, dw2 = ops.rms_norm_bwd(x, w, r, dy)
+        assert torch.equal(dx, dx2) and torch.equal(dw, dw2), (rows, n)
+
+
+@pytest.mark.cuda
+def test_cuda_rms_norm_backward_plan_fits_the_card(cuda):
+    """K6's host plan assumes ``per_sm`` row CTAs an SM: the card holds at
+    least that many of the kernel instance it picks (registers and shared
+    memory as ptxas compiled them), at the Llama widths in both dtypes."""
+    from paddle_tpu_torch.ops import _library as lib
+    R = sys.modules["paddle_tpu_torch.ops.rms_norm"]
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for elem, dtype in ((4, 0), (2, 1)):
+        for n in (2048, 4096, 5120, 8192):
+            plan = R.bwd_plan(4096, n, elem, True, sms)
+            assert plan.vpt, plan
+            fit = lib.library().ptt_rms_norm_bwd_fit(
+                n, plan.threads, plan.vpt, dtype)
+            assert fit >= plan.per_sm, (plan, fit)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_cuda_rms_norm_forward_training_rows(cuda, dtype, tol):
+    """K1 at the training path's 4,096 rows (past the L2 in both dtypes):
+    equal to its plain version, the same bits twice."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    for n in (4096, 2048):
+        x, w = _rnd(g, dtype, 4096, n), _rnd(g, dtype, n)
+        y, r = ops.rms_norm(x, w, return_rstd=True)
+        y_ref, r_ref = ops.rms_norm_plain(x, w)
+        torch.testing.assert_close(y.float(), y_ref.float(), atol=tol,
+                                   rtol=tol)
+        torch.testing.assert_close(r, r_ref, atol=1e-5, rtol=1e-5)
+        y2, r2 = ops.rms_norm(x, w, return_rstd=True)
+        assert torch.equal(y, y2) and torch.equal(r, r2)
 
 
 @pytest.mark.cuda
