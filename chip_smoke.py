@@ -34,20 +34,25 @@ Phases (any failure raises and the script exits non-zero):
    (``bound_share``) and the kernel's time over the library call's
    (``vs_library``);
 3. the serving main path end to end: full Llama-2-7B in bf16 (32 layers,
-   seeded random weights) through ``create_serving_engine``, 16 requests;
-   launch counters zeroed just before and read just after; the same
-   requests again with the sampling arm (top-k, top-p, temperature); then
-   a torch.profiler breakdown of one mixed step and one decode quantum,
-   greedy and sampled;
+   seeded random weights) through ``create_serving_engine``, 16 requests,
+   the decode quantum as the engine's captured CUDA graph (each replay
+   adds its capture's launches to the counters); launch counters zeroed
+   just before and read just after; the same requests again with the
+   sampling arm (top-k, top-p, temperature); then a torch.profiler
+   breakdown of one mixed step and one replayed decode quantum, greedy
+   and sampled;
 4. the kernel path against the plain path end to end, at full width and
    4 layers in f32 (no argmax near-ties): greedy streams must be equal;
 5. contiguous-cache generation end to end: full Mistral-7B in bf16 (32
    layers, seeded random weights) through ``LlamaForCausalLM.generate``,
    4 rows of 4,608-token prompts (the prefill band clips at the 4,096
-   window and the decode buffer wraps) and 64 new tokens; launch counters
-   zeroed just before and read just after; then ``top_k=1`` sampling,
-   whose stream must equal the greedy one (up to exact argmax ties), and
-   a torch.profiler breakdown of one prefill and one decode step;
+   window and the decode buffer wraps) and 64 new tokens, the decode step
+   a captured CUDA graph; launch counters zeroed just before and read
+   just after; the same run with eager decode steps (equal streams, and
+   every step's logits); then ``top_k=1`` sampling, whose stream must
+   equal the greedy one (up to exact argmax ties), phase 13's generate
+   half, and a torch.profiler breakdown of one prefill and one eager
+   decode step;
 6. generation's kernel path against its plain path (Mistral width, 4
    layers, f32, greedy streams equal), and one fixed-seed sampling
    serving run repeated (Llama-2-7B width, 4 layers: equal streams);
@@ -97,7 +102,9 @@ Phases (any failure raises and the script exits non-zero):
     arm: tokens/s, peak memory, the pool's bytes in use after a fixed
     step, the float / int8 residency ratio, the int8-KV arm's token
     agreement with the weight-only arm; then profiles of its mixed step
-    and decode quantum with the weight dequantization as its own range;
+    and replayed decode quantum, and of the w8 arm's quantum run eagerly
+    with the weight dequantization as its own range (a replay runs no
+    Python, so it has no such range);
 12. int8 parity in f32 (Llama-2-7B width, 4 layers), kernel path against
     plain path: the weight-only int8 engine (equal greedy streams), the
     int8-KV engine (equal streams up to partings at near-ties, each a
@@ -109,7 +116,25 @@ Phases (any failure raises and the script exits non-zero):
     step of 8 sequences through ``paged_decode_attention`` with (HK,)
     scales over f32 pools (the public op that applies such scales to any
     pool), the path of K2's static-scale mode over float pools: kernel
-    path vs plain within f32 1e-4, equal pools.
+    path vs plain within f32 1e-4, equal pools. The two int8 engines
+    record each step's two best tokens on the host, so the kernel and
+    plain runs that compare them run their quantum eagerly; each engine
+    also runs first on its kernel path as the card runs it, the quantum
+    captured, and its streams must equal the eager kernel run's;
+13. the decode graphs at full width (the card's name and power limit
+    beside every timing). Serving: Llama-2-7B bf16 with phase 3's knobs
+    and requests, the captured quantum against its eager body (greedy;
+    sampled at fixed seeds), ``multi_quantum=4`` against 1 (equal streams
+    and ``decode_quanta``), two engines driven dispatch, dispatch,
+    collect, collect against ``step()``, and phase 11's w8kv8 engine
+    captured against eager: streams equal token for token; then the
+    decode dispatch's wall, host and device ms, busy share and replays,
+    eager and captured, float and w8kv8. Generate (in phase 5, on its
+    Mistral-7B): ``sampling_search`` captured against eager (equal
+    streams), and greedy ``generate`` through its entry point, eagerly
+    and as replays of the step it captured and kept: per decode step the
+    stream's ms, the host's enqueue ms and the device ms, with its busy
+    share.
 
 The line before the last is the ``{"kernels": [...]}`` record (each
 kernel's launches come from the run of the path that carries it: K1-K3
@@ -1072,14 +1097,18 @@ def make_requests(vocab, n=16):
                  max_new_tokens=int(mn)) for ln, mn in zip(lens, max_new)]
 
 
-def serve(torch, model, requests, residency_at=None, on_engine=None, **kw):
+def serve(torch, model, requests, residency_at=None, on_engine=None,
+          eager=False, **kw):
     """Drive ``requests`` through a fresh engine; returns the engine, the
-    requests, the wall time and the mixed-step / quantum time split (with
-    ``residency_at``, also the pool's bytes in use after that step).
-    ``on_engine`` is called with the engine before the run."""
+    requests, the wall time and the mixed-step / decode-dispatch time
+    split (with ``residency_at``, also the pool's bytes in use after that
+    step). ``on_engine`` is called with the engine before the run;
+    ``eager`` runs the quantum's body eagerly (the oracle of the captured
+    graph, the engine's decode path on the card)."""
     from paddle_tpu_torch import create_serving_engine
 
     engine = create_serving_engine(model, **serve_kw(**kw))
+    engine._eager = eager
     if on_engine is not None:
         on_engine(engine)
     # the peak from here on: weights, pools and the run (not the sweep of
@@ -1107,7 +1136,21 @@ def serve(torch, model, requests, residency_at=None, on_engine=None, **kw):
         return run
 
     engine._mixed_step = timed(engine._mixed_step, "mixed_s")
-    engine._decode_quantum = timed(engine._decode_quantum, "decode_s")
+    dispatch, collect = engine._decode_dispatch, engine._decode_collect
+
+    def timed_dispatch():
+        t0 = time.perf_counter()
+        pending = dispatch()
+        pending["t0"] = t0
+        return pending
+
+    def timed_collect(pending):
+        collect(pending)
+        torch.cuda.synchronize()
+        split["decode_s"] += time.perf_counter() - pending["t0"]
+
+    engine._decode_dispatch = timed_dispatch
+    engine._decode_collect = timed_collect
     reqs = [engine.submit(**r) for r in requests]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1148,6 +1191,8 @@ def e2e_phase(torch, dev):
     for name in SERVING_KERNELS:
         check(launches[name] > 0,
               f"kernel {name} was not launched by the serving path")
+    check(engine._graph is not None,
+          "the serving path's decode quantum did not run as a graph")
     check_run(engine, reqs, cfg.vocab_size)
     st = engine.engine_stats()
     gen = sum(len(r.tokens) for r in reqs)
@@ -1161,6 +1206,7 @@ def e2e_phase(torch, dev):
               "decode_s"], "mixed_steps": st["mixed_steps"],
           "decode_quanta": st["decode_quanta"],
           "decode_steps": st["decode_quanta"] * engine.config.decode_quantum,
+          "decode_graph_launches_per_replay": engine._graph.launches,
           "prefill_tokens": st["prefill_tokens"], "launches": launches,
           "model_init_s": init_s,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
@@ -1214,14 +1260,18 @@ def _kernel_family(name):
 
 
 def profile_phase(torch, model, requests,
-                  labels=("mixed_step", "decode_quantum"), tag="", **kw):
+                  labels=("mixed_step", "decode_quantum"), tag="",
+                  eager=False, **kw):
     """Where one mixed step and one decode quantum spend device time:
     torch.profiler over a single engine step each (the main run's counts
     are read before this). Device busy share = summed kernel time over the
-    step's wall time under the profiler. A weight-only int8 model's
-    dequantization runs under its own record_function range and is
+    step's wall time under the profiler. The quantum profiled is a replay
+    of its captured graph (the first decode step, which captures it, runs
+    before), or with ``eager`` its body run eagerly. A weight-only int8
+    model's dequantization runs under its own record_function range and is
     reported as "dequant" (its kernels are elementwise ones, named like
-    "other")."""
+    "other"); a replay runs no Python, so only an eager profile splits it
+    out."""
     from torch.profiler import ProfilerActivity, profile, record_function
     from paddle_tpu_torch import create_serving_engine
     from paddle_tpu_torch.nn.quant import QuantizedLinear
@@ -1233,15 +1283,20 @@ def profile_phase(torch, model, requests,
             return dequant(self, dtype)
 
     engine = create_serving_engine(model, **serve_kw(**kw))
+    engine._eager = eager
     for r in requests[:8]:
         engine.submit(**r)
     for label in labels:
         if label == "decode_quantum":
             # admission happens inside step(): run until every admitted
-            # request has finished its prefill
+            # request has finished its prefill, then one decode step (the
+            # capture)
             while (engine.scheduler.prefilling()
                    or not engine.scheduler.decoding()):
                 engine.step()
+            engine.step()
+            check(eager or engine._graph is not None,
+                  "the decode quantum was not captured")
         torch.cuda.synchronize()
         QuantizedLinear.dequantized_weight = traced_dequant
         try:
@@ -1346,41 +1401,59 @@ def _mistral_prompts(vocab, b, s):
     return np.random.RandomState(SEED).randint(1, vocab, (b, s))
 
 
-def _instrument(torch, model):
-    """Patch ``model.forward`` to record, per call, a CUDA event after it
-    and its last-position logits: call 0 is the prefill, the rest decode
-    steps. Returns the list it appends (event, logits) to."""
+def _timed_generate(torch, model, ids, eager=False, logits=False, **kw):
+    """``model.generate`` timed: CUDA events at its start, after the
+    prefill forward (run inside the record_function range
+    "generate_prefill") and at its end, and the host's clock when the
+    prefill returns and when generate returns. Returns the output, the
+    wall, prefill and decode seconds with the host's decode seconds (the
+    time to enqueue the decode steps), and, with ``logits``, each
+    forward's last-position logits (call 0 the prefill; only eager
+    steps run a forward in Python). The decode step runs as the entry
+    point's captured graph, or with ``eager`` as eager steps on buffers
+    of the call's own."""
+    from torch.profiler import record_function
+    from paddle_tpu_torch.nlp import generation
+
     calls = []
     orig = model.forward
 
     def forward(*args, **kwargs):
-        out = orig(*args, **kwargs)
+        if calls:
+            out = orig(*args, **kwargs)
+        else:
+            with record_function("generate_prefill"):
+                out = orig(*args, **kwargs)
         ev = torch.cuda.Event(enable_timing=True)
         ev.record()
-        calls.append((ev, out[0][:, -1].clone()))
+        calls.append((ev, out[0][:, -1].clone() if logits else None,
+                      time.perf_counter()))
+        if not logits:
+            del model.forward   # a capture must record no event
         return out
 
     model.forward = forward
-    return calls
-
-
-def _timed_generate(torch, model, ids, **kw):
-    calls = _instrument(torch, model)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    start.record()
-    out = model.generate(ids, **kw)
-    end.record()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    del model.forward
+    prev, generation._EAGER = generation._EAGER, eager
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        out = model.generate(ids, **kw)
+        t_ret = time.perf_counter()
+        end.record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        generation._EAGER = prev
+        model.__dict__.pop("forward", None)
     timing = {"wall_s": wall,
               "prefill_s": start.elapsed_time(calls[0][0]) / 1e3,
               "decode_s": calls[0][0].elapsed_time(end) / 1e3,
-              "decode_steps": len(calls) - 1}
-    return out, timing, [lg for _, lg in calls]
+              "host_decode_s": t_ret - calls[0][2],
+              "decode_steps": kw["max_new_tokens"] - 1}
+    return out, timing, [lg for _, lg, _ in calls]
 
 
 def _same_up_to_ties(torch, greedy, sampled, logits, s_in):
@@ -1405,7 +1478,7 @@ def _same_up_to_ties(torch, greedy, sampled, logits, s_in):
     return equal, ties
 
 
-def generate_phase(torch, dev):
+def generate_phase(torch, dev, smi):
     from paddle_tpu_torch import ops
     from paddle_tpu_torch.nlp import LlamaConfig, LlamaForCausalLM
 
@@ -1421,8 +1494,7 @@ def generate_phase(torch, dev):
     layers = cfg.num_hidden_layers
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
-    out, timing, logits = _timed_generate(torch, model, ids,
-                                          max_new_tokens=new)
+    out, timing, _ = _timed_generate(torch, model, ids, max_new_tokens=new)
     launches = dict(ops.LAUNCHES)
     steps = new - 1
     want = dict.fromkeys(launches, 0)
@@ -1434,14 +1506,23 @@ def generate_phase(torch, dev):
           and bool((out[:, :s_in] == ids).all())
           and bool(((out >= 0) & (out < cfg.vocab_size)).all()),
           f"generate returned {tuple(out.shape)} or ids outside the vocab")
+    # the eager steps: the captured graph's oracle, and the logits of
+    # every step for the top_k=1 run's tie check
+    eager_out, eager_timing, logits = _timed_generate(
+        torch, model, ids, eager=True, logits=True, max_new_tokens=new)
+    same = bool(torch.equal(out, eager_out))
+    del eager_out
     emit({"phase": "e2e_mistral_7b_bf16_generate", "layers": layers,
           "batch": b, "prompt_tokens": s_in, "new_tokens": new,
           "window": cfg.sliding_window, **timing,
+          "captured_equals_eager": same,
+          "eager_decode_s": eager_timing["decode_s"],
           "prefill_tok_per_s": b * s_in / timing["prefill_s"],
           "decode_tok_per_s": b * steps / timing["decode_s"],
           "generated_tok_per_s": b * new / timing["wall_s"],
           "launches": launches, "model_init_s": init_s,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
+    check(same, "generate's captured decode steps part from the eager ones")
     sampled, stiming, _ = _timed_generate(
         torch, model, ids, max_new_tokens=new, decode_strategy="sampling",
         top_k=1, seed=7)
@@ -1450,10 +1531,87 @@ def generate_phase(torch, dev):
           "wall_s": stiming["wall_s"], "rows_equal_to_greedy": equal,
           "rows_parted_at_an_argmax_tie": ties, "rows": b})
     del logits, sampled
+    generate_graphs(torch, model, ids, smi)
     generate_profile(torch, model, ids)
     del model
     torch.cuda.empty_cache()
     return launches
+
+
+def _generate_timing(torch, model, ids, eager, timed=2):
+    """Greedy ``generate`` through its entry point, its decode steps
+    eager or replays of the step the entry point captured and kept: one
+    call to warm up (the captured arm's capture), ``timed`` calls timed
+    (``_timed_generate``), one under torch.profiler. Per decode step and
+    timed call: the stream's ms between the events after the prefill
+    and at the end (the decode's wall on the card) and the host's ms to
+    enqueue it; the device ms (the profiled call's kernels outside the
+    prefill's range) with its share of the last timed call's stream
+    ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    new = GENERATE_SHAPE[2]
+    _timed_generate(torch, model, ids, eager=eager, max_new_tokens=new)
+    runs = [_timed_generate(torch, model, ids, eager=eager,
+                            max_new_tokens=new)[1] for _ in range(timed)]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _timed_generate(torch, model, ids, eager=eager, max_new_tokens=new)
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    rec = _profile_record(torch, prof, "generate", wall_us,
+                          ranges=("generate_prefill",))
+    prefill = _split_range(torch, prof, rec, "generate_prefill", "prefill")
+    steps = new - 1
+    stream = [1e3 * t["decode_s"] / steps for t in runs]
+    measured = "not measured" not in (rec["device_ms"], prefill)
+    dev_ms = ((rec["device_ms"] - prefill) / steps if measured
+              else "not measured")
+    return {"stream_ms_per_step": stream,
+            "host_ms_per_step": [1e3 * t["host_decode_s"] / steps
+                                 for t in runs],
+            "device_ms_per_step": dev_ms,
+            "device_busy_share": (dev_ms / stream[-1] if measured
+                                  else "not measured"),
+            "replays": 0 if eager else steps, "steps": steps,
+            "call_wall_s": [t["wall_s"] for t in runs],
+            "prefill_s": [t["prefill_s"] for t in runs],
+            "profiled_prefill_device_ms": prefill}
+
+
+def generate_graphs(torch, model, ids, smi):
+    """Phase 13 (generate): ``sampling_search`` with its decode step
+    captured against eager (equal streams), then greedy ``generate``
+    through its entry point, eager and captured (``_generate_timing``)."""
+    from paddle_tpu_torch.nlp import generation
+
+    new = GENERATE_SHAPE[2]
+    outs, walls = [], []
+    for eager in (True, False):
+        prev, generation._EAGER = generation._EAGER, eager
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs.append(generation.sampling_search(
+                model, ids, max_new_tokens=new, seed=11, top_k=50,
+                top_p=0.9, temperature=0.8))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        finally:
+            generation._EAGER = prev
+    same = bool(torch.equal(outs[0], outs[1]))
+    b, s_in = ids.shape
+    timing = {("eager" if eager else "captured"):
+              _generate_timing(torch, model, ids, eager)
+              for eager in (True, False)}
+    emit({"phase": "graphs_mistral_7b_generate", "gpu": smi,
+          "batch": b, "prompt_tokens": s_in, "new_tokens": new,
+          "sampling_search_captured_equals_eager": same,
+          "sampling_search_wall_s": {"eager": walls[0],
+                                     "captured": walls[1]},
+          "generate_decode": timing})
+    check(same, "sampling_search: captured and eager streams differ")
+    del outs
 
 
 def generate_profile(torch, model, ids):
@@ -2029,7 +2187,7 @@ def int8_serving_phase(torch, dev):
     qmodel = LlamaForCausalLM(
         cfg, generator=torch.Generator(device=dev).manual_seed(SEED))
     requests = make_requests(cfg.vocab_size)
-    streams, records, launches = {}, {}, {}
+    streams, records, launches, graphs = {}, {}, {}, True
     for arm, kw in INT8_ARMS:
         model = (_dequantized_float_model(torch, qmodel)
                  if arm == "float_dequantized" else qmodel)
@@ -2041,6 +2199,7 @@ def int8_serving_phase(torch, dev):
         engine, reqs, wall, split = serve(
             torch, model, requests, residency_at=RESIDENCY_STEP, **kw)
         launches[arm] = dict(ops.LAUNCHES)
+        graphs = graphs and engine._graph is not None
         check_run(engine, reqs, cfg.vocab_size)
         st = engine.engine_stats()
         gen = sum(len(r.tokens) for r in reqs)
@@ -2074,6 +2233,7 @@ def int8_serving_phase(torch, dev):
     check(equal, "weight-only int8 greedy streams differ from the "
           "dequantized float engine's")
     main_path = launches["w8kv8"]
+    check(graphs, "an int8 engine's decode quantum did not run as a graph")
     for name in INT8_SERVING_KERNELS:
         check(main_path[name] > 0,
               f"kernel {name} was not launched by the int8 serving path")
@@ -2082,8 +2242,9 @@ def int8_serving_phase(torch, dev):
           f"the int8 KV engine launched a float or static K2: {main_path}")
     profile_phase(torch, qmodel, requests, tag="_w8kv8",
                   **dict(INT8_ARMS)["w8kv8"])
+    # the dequantization's share: only an eager quantum runs its range
     profile_phase(torch, qmodel, requests, labels=("decode_quantum",),
-                  tag="_w8", **dict(INT8_ARMS)["w8"])
+                  tag="_w8_eager", eager=True, **dict(INT8_ARMS)["w8"])
     del qmodel
     torch.cuda.empty_cache()
     return main_path
@@ -2161,14 +2322,19 @@ def _scaled_float_decode(torch, g, dev):
 
 def _record_runner_up(engine, table):
     """Wrap the engine's token choice to keep, for every (request, tokens
-    emitted so far), the top two token ids and their logit gap."""
+    emitted so far), the top two token ids and their logit gap. The
+    record reads them on the host at every step, so the engine runs its
+    quantum eagerly (phase 12 holds the captured quantum to this eager
+    kernel run in a run of its own)."""
+    engine._eager = True
     select = engine._select
 
     def traced(logits, slots, steps):
         top = logits.float().topk(2, dim=-1)
         ids, vals = top.indices.tolist(), top.values.tolist()
         owner = {r.slot: r for r in engine.scheduler.live()}
-        for i, (slot, step) in enumerate(zip(slots, steps)):
+        rows = range(engine.config.num_slots) if slots is None else slots
+        for i, (slot, step) in enumerate(zip(rows, steps.tolist())):
             if slot in owner:
                 table[(owner[slot].req_id, int(step))] = (
                     ids[i][0], ids[i][1], vals[i][0] - vals[i][1])
@@ -2214,6 +2380,18 @@ def int8_parity_phase(torch, dev):
         cfg, generator=torch.Generator(device=dev).manual_seed(SEED + 1))
     requests = make_requests(cfg.vocab_size)
     for arm, kw in (INT8_ARMS[0], INT8_ARMS[2]):
+        # the kernel path as the card runs it: the quantum captured
+        ops.reset_launches()
+        engine, reqs, wall, _ = serve(torch, model, requests, **kw)
+        check_run(engine, reqs, cfg.vocab_size)
+        check(engine._graph is not None,
+              f"{arm}: the decode quantum was not captured")
+        captured = [list(r.tokens) for r in reqs]
+        captured_launches = dict(ops.LAUNCHES)
+        emit({"phase": "int8_parity_f32_4layer", "arm": arm,
+              "path": "kernels_captured", "wall_s": wall,
+              "launches": captured_launches})
+        del engine
         streams, launches, tables, reqs_by_path = [], [], [], []
         for plain in (False, True):
             table = {}
@@ -2237,19 +2415,27 @@ def int8_parity_phase(torch, dev):
               f"plain path launched a kernel: {launches[1]}")
         partings = _partings(streams, tables, reqs_by_path)
         emit({"phase": "int8_parity_f32_4layer", "arm": arm,
+              "captured_equals_eager_kernels": captured == streams[0],
               "streams_equal": not partings,
               "requests_equal": len(requests) - len(partings),
               "requests": len(requests),
               "token_agreement": _agreement(*streams),
               "partings": partings})
+        check(captured == streams[0], f"{arm}: the captured quantum's "
+              f"streams differ from the eager kernel path's")
         if arm == "w8":
-            check(launches[0]["paged_decode_attention"] > 0,
-                  f"kernel path missed K2: {launches[0]}")
+            check(launches[0]["paged_decode_attention"] > 0
+                  and captured_launches["paged_decode_attention"] > 0,
+                  f"kernel path missed K2: {launches[0]}, "
+                  f"{captured_launches}")
             check(not partings, "weight-only int8 engine: kernel and plain "
                   "greedy streams differ")
         else:
-            check(launches[0]["paged_decode_attention_int8_rows"] > 0,
-                  f"kernel path missed K2's per-row mode: {launches[0]}")
+            check(launches[0]["paged_decode_attention_int8_rows"] > 0
+                  and captured_launches[
+                      "paged_decode_attention_int8_rows"] > 0,
+                  f"kernel path missed K2's per-row mode: {launches[0]}, "
+                  f"{captured_launches}")
             check(all(p["swap"] for p in partings),
                   f"int8-KV engine: a parting is no runner-up swap: "
                   f"{partings}")
@@ -2293,6 +2479,165 @@ def int8_parity_phase(torch, dev):
     return launches
 
 
+# ---------------------------------------------------------------- phase 13
+def _quantum_timing(torch, model, requests, eager, smi, n=3, **kw):
+    """The decode dispatch, eagerly or as replays of its captured graph,
+    on phase 3's knobs and first 8 requests: after the prefill and one
+    decode step (the capture), ``n`` dispatches each timed from
+    ``step_dispatch`` (host ms: until it returns) to the end of
+    ``step_collect`` (wall ms), then one more under torch.profiler
+    (device ms and busy share, as ``profile_phase``)."""
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch import create_serving_engine
+
+    engine = create_serving_engine(model, **serve_kw(**kw))
+    engine._eager = eager
+    for r in requests[:8]:
+        engine.submit(**r)
+    while engine.scheduler.prefilling() or not engine.scheduler.decoding():
+        engine.step()
+    engine.step()
+    host, wall, replays = [], [], []
+    for _ in range(n + 1):
+        torch.cuda.synchronize()
+        prof = None
+        if len(wall) == n:
+            prof = profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA])
+            prof.__enter__()
+        t0 = time.perf_counter()
+        pending = engine.step_dispatch()
+        t1 = time.perf_counter()
+        check(pending is not None, "a timed step was no decode dispatch")
+        engine.step_collect(pending)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        if prof is not None:
+            prof.__exit__(None, None, None)
+            rec = _profile_record(torch, prof, "decode_quantum", 1e6 * (
+                t2 - t0))
+        else:
+            host.append(1e3 * (t1 - t0))
+            wall.append(1e3 * (t2 - t0))
+            replays.append(0 if eager else pending["k"])
+    del engine
+    return {"gpu": smi, "wall_ms": wall, "host_ms_per_dispatch": host,
+            "replays_per_dispatch": replays,
+            "profiled_wall_ms": rec["wall_ms_under_profiler"],
+            "device_ms": rec["device_ms"],
+            "device_busy_share": rec["device_busy_share"],
+            "kernels_launched": rec["kernels_launched"],
+            "device_ms_by_family": rec["device_ms_by_family"]}
+
+
+def _overlapped(torch, model, traces):
+    """Two engines (one per (requests, knobs) trace) on one model, driven
+    dispatch, dispatch, collect, collect until both are idle; returns
+    each engine's streams and the wall."""
+    from paddle_tpu_torch import create_serving_engine
+
+    engines = [create_serving_engine(model, **serve_kw(**kw))
+               for _, kw in traces]
+    reqs = [[e.submit(**r) for r in tr] for e, (tr, _) in zip(engines,
+                                                              traces)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while any(e.has_work for e in engines):
+        pending = [e.step_dispatch() if e.has_work else None
+                   for e in engines]
+        for e, p in zip(engines, pending):
+            e.step_collect(p)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(all(e._graph is not None for e in engines),
+          "an overlapped engine did not capture its quantum")
+    streams = [[list(r.tokens) for r in rs] for rs in reqs]
+    del engines
+    return streams, wall
+
+
+def graphs_serving_phase(torch, dev, smi):
+    """Phase 13 (serving): full Llama-2-7B bf16, phase 3's knobs and
+    requests. The captured quantum against its eager body (greedy,
+    sampled at fixed seeds), ``multi_quantum=4`` against 1, two engines
+    driven dispatch, dispatch, collect, collect against ``step()``, and
+    phase 11's w8kv8 engine captured against eager: streams equal token
+    for token. Then the decode dispatch's wall, host, device ms and busy
+    share, eager and captured, float and w8kv8."""
+    from paddle_tpu_torch.nlp import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig.llama2_7b(dtype="bfloat16")
+    requests = make_requests(cfg.vocab_size)
+    sampled = [dict(r, seed=i) for i, r in enumerate(requests)]
+    w8kv8 = dict(INT8_ARMS)["w8kv8"]
+    arms = (("greedy", requests, {}, (True, False)),
+            ("sampling", sampled, SAMPLING, (True, False)),
+            ("multi_quantum_4", requests, dict(multi_quantum=4), (False,)),
+            ("w8kv8", requests, w8kv8, (True, False)))
+    runs, timing = {}, {}
+    model = None
+    for name, reqs, kw, modes in arms:
+        if model is None or name == "w8kv8":
+            # the w8kv8 engine sweeps its model in place: a fresh one
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+            model = LlamaForCausalLM(
+                cfg, generator=torch.Generator(device=dev).manual_seed(SEED))
+        for eager in modes:
+            gc.collect()
+            torch.cuda.empty_cache()
+            engine, rs, wall, split = serve(torch, model, reqs, eager=eager,
+                                            **kw)
+            check_run(engine, rs, cfg.vocab_size)
+            check(eager == (engine._graph is None),
+                  f"{name}: eager={eager} but graph {engine._graph}")
+            st = engine.engine_stats()
+            runs[name, eager] = {
+                "streams": [list(r.tokens) for r in rs], "wall_s": wall,
+                "decode_dispatch_s": split["decode_s"],
+                "mixed_step_s": split["mixed_s"],
+                "decode_quanta": st["decode_quanta"], "steps": st["steps"]}
+            del engine
+        if name in ("greedy", "w8kv8"):
+            timing[name] = {("eager" if eager else "captured"):
+                            _quantum_timing(torch, model, requests, eager,
+                                            smi, **kw)
+                            for eager in (True, False)}
+        if name == "sampling":
+            overlapped, o_wall = _overlapped(
+                torch, model, ((requests, {}), (sampled, SAMPLING)))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    equal = {name: runs[name, True]["streams"] == runs[name, False]["streams"]
+             for name in ("greedy", "sampling", "w8kv8")}
+    greedy = runs["greedy", False]
+    mq = runs["multi_quantum_4", False]
+    equal["multi_quantum_4_vs_1"] = mq["streams"] == greedy["streams"]
+    equal["dispatch_collect_vs_step"] = overlapped == [
+        greedy["streams"], runs["sampling", False]["streams"]]
+    emit({"phase": "graphs_llama2_7b_serving", "gpu": smi,
+          "streams_equal": equal,
+          "w8kv8_token_agreement": _agreement(
+              runs["w8kv8", False]["streams"],
+              runs["w8kv8", True]["streams"]),
+          "decode_quanta": {"k1": greedy["decode_quanta"],
+                            "k4": mq["decode_quanta"]},
+          "host_steps": {"k1": greedy["steps"], "k4": mq["steps"]},
+          "overlapped_wall_s": o_wall,
+          "runs": {f"{n}_{'eager' if e else 'captured'}":
+                   {k: v for k, v in r.items() if k != "streams"}
+                   for (n, e), r in runs.items()}})
+    for name, rec in timing.items():
+        emit({"phase": "graphs_llama2_7b_decode_dispatch", "engine": name,
+              **rec})
+    check(all(equal.values()), f"captured and eager streams differ: {equal}")
+    check(mq["decode_quanta"] == greedy["decode_quanta"],
+          f"multi_quantum=4 ran {mq['decode_quanta']} quanta, K=1 "
+          f"{greedy['decode_quanta']}")
+
+
 def main():
     import torch
 
@@ -2311,7 +2656,7 @@ def main():
     primary = kernel_phase(torch, dev)
     launches = e2e_phase(torch, dev)
     parity_phase(torch, dev)
-    gen_launches = generate_phase(torch, dev)
+    gen_launches = generate_phase(torch, dev, smi)
     generate_parity_phase(torch, dev)
     train_launches = train_phase(torch, dev)
     parity_launches = train_parity_phase(torch, dev)
@@ -2319,6 +2664,7 @@ def main():
     packed_parity_launches = packed_parity_phase(torch, dev)
     int8_launches = int8_serving_phase(torch, dev)
     batch_launches = int8_parity_phase(torch, dev)
+    graphs_serving_phase(torch, dev, smi)
     paths = {"serving": launches, "generate": gen_launches,
              "train": train_launches, "train_f32_parity": parity_launches,
              "packed_train": packed_launches,

@@ -16,8 +16,15 @@ def create_serving_engine(model, **kwargs):
     ``eos_token_id``, ``quantize`` (``"weight_only_int8"`` or
     ``"llm.int8"``: the model's Linears swept IN PLACE to int8 weights
     with per-channel scales), ``kv_dtype`` (``"int8"``: int8 KV pools
-    with per-row scale pools), ``device`` (default ``cuda``; raises
-    without CUDA unless ``"cpu"``)."""
+    with per-row scale pools), ``multi_quantum`` (K > 1: up to K decode
+    quanta per dispatch in steady state; on the card it saves host
+    syncs only), ``attn_impl`` (``"gather"`` or ``"fused"``, for parity
+    with the reference: both launch K2 on the card, so it changes nothing
+    there; on the CPU ``"fused"`` runs the online-softmax port of the
+    reference's block stream), ``device``
+    (default ``cuda``; raises without CUDA unless ``"cpu"``). On the card
+    the decode quantum runs as one captured CUDA graph; drive the engine
+    with ``step()`` or with ``step_dispatch()`` / ``step_collect()``."""
     from ..serving import ServingEngine
 
     return ServingEngine(model, **kwargs)

@@ -163,7 +163,11 @@ class LlamaAttention(nn.Module):
         """Returns ``(out, cache)``. ``cache`` is a ``(k, v)`` pair of
         (B, S_max, HK, D) tensors holding ``position_offset`` tokens; this
         call's K/V are written into it IN PLACE (the reference returns new
-        arrays) and the same pair is returned. A sliding-window model
+        arrays) and the same pair is returned. A single-token call (s ==
+        1) also takes ``position_offset`` as a 0-d integer device tensor,
+        so that a captured decode step reads its position from the device
+        (``nlp.generation._ondevice_decode``), with the int position's
+        results bit for bit. A sliding-window model
         uses it as a rolling buffer (writes wrap at S_max). Packed
         training passes ``cu_seqlens`` (int32 prefix sums of the segments
         of the (1, T) row) and ``position_ids`` (1, T), the rotary
@@ -230,6 +234,12 @@ class LlamaAttention(nn.Module):
                     f"allocate init_caches(max_len >= prompt + new tokens)")
             # the reference's dynamic_update_slice clamps the start so the
             # update fits
+            if isinstance(position_offset, torch.Tensor):
+                idx = (position_offset.clamp(0, cache_len - s)
+                       + torch.arange(s, device=k.device))
+                kc.index_copy_(1, idx, k.to(kc.dtype))
+                vc.index_copy_(1, idx, v.to(vc.dtype))
+                return kc, vc
             start = min(max(int(position_offset), 0), cache_len - s)
             kc[:, start:start + s] = k.to(kc.dtype)
             vc[:, start:start + s] = v.to(vc.dtype)
@@ -256,8 +266,13 @@ class LlamaAttention(nn.Module):
         b, sq, h, d = q.shape
         cache_len = kc.shape[1]
         if sq == 1 and (not window or cache_len <= window):
-            live = min(valid_len, cache_len) if window else valid_len
-            lens = torch.full((b,), live, dtype=torch.int32, device=q.device)
+            if isinstance(valid_len, torch.Tensor):
+                live = valid_len.clamp(max=cache_len) if window else valid_len
+                lens = live.to(torch.int32).reshape(1).expand(b).contiguous()
+            else:
+                live = min(valid_len, cache_len) if window else valid_len
+                lens = torch.full((b,), live, dtype=torch.int32,
+                                  device=q.device)
             return decode_attention(q, kc, vc, lens)
         rep = h // kc.shape[2]
         kr = kc.repeat_interleave(rep, dim=2) if rep > 1 else kc

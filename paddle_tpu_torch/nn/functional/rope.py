@@ -22,9 +22,10 @@ def inv_freq(head_dim, base=10000.0, device=None):
 
 def build_rope_cache(seq_len, head_dim, base=10000.0, dtype=torch.float32,
                      position_offset=0, device=None):
-    """Returns (cos, sin) of shape (seq_len, head_dim // 2)."""
-    pos = float(position_offset) + torch.arange(seq_len, dtype=torch.float32,
-                                                device=device)
+    """Returns (cos, sin) of shape (seq_len, head_dim // 2).
+    ``position_offset`` is an int or a 0-d integer tensor on ``device``."""
+    pos = torch.arange(seq_len, dtype=torch.float32,
+                       device=device) + position_offset
     freqs = torch.outer(pos, inv_freq(head_dim, base, device))
     return torch.cos(freqs).to(dtype), torch.sin(freqs).to(dtype)
 

@@ -12,38 +12,49 @@ The loop is the reference's:
   kernel K2 for decode rows);
 - the decode quantum: ``decode_quantum`` single-token steps of
   :func:`paged_decode_math` for every slot, with the eos / max-length
-  ``done`` masks kept on the device and ONE host sync per quantum;
+  ``done`` masks kept on the device and ONE host sync per dispatch;
+  ``multi_quantum=K`` runs up to K quanta per dispatch while the
+  scheduler is in steady state;
 - block accounting by the scheduler, retirement returning blocks to the
   pool free list for immediate reuse, preemption by recompute-on-resume.
 
-The reference compiles its quantum into one jitted program; here it is a
-Python loop of eager steps (CUDA-graph capture is later work). Pools are
-updated in place. Decoding is greedy, or sampling with engine-wide
+The reference compiles its quantum into one jitted program; here the
+quantum is one captured CUDA graph on the card
+(:class:`~paddle_tpu_torch._graphs.CapturedStep`). The slot state lives in
+static device buffers, staged from the host mirrors by one copy before
+each dispatch and read back by one copy after it; the graph's T steps
+write their results back into those buffers, so K quanta are K replays.
+The mixed prefill step stays eager (its shapes vary; the reference
+compiles it per shape). Pools are updated in place and never
+reallocated. Decoding is greedy, or sampling with engine-wide
 ``top_k``/``top_p``/``temperature`` (and, with ``per_request_sampling``,
-a per-slot temperature): each draw is keyed by (request seed, tokens
-emitted so far), so a stream does not depend on preemption or on how
-steps group into quanta. int8 serving: ``quantize="weight_only_int8"``
-sweeps the model's Linears to int8 weights with per-channel scales, and
-``kv_dtype="int8"`` keeps int8 pools with per-row scale pools, every
-written row quantized by its own abs-max (the quantum's attention is
-K2's per-row mode). Observability, SLOs, the flight recorder, fault
-injection, resilience, speculative decoding, tensor parallelism, the
-prefix cache and multi-quantum dispatch are later slices (ROADMAP
-A1, A2, A4, A5, A7); the engine does not take their options.
+a per-slot temperature): each draw is keyed on the device by (request
+seed, tokens emitted so far), so a stream does not depend on preemption
+or on how steps group into quanta. int8 serving:
+``quantize="weight_only_int8"`` sweeps the model's Linears to int8
+weights with per-channel scales, and ``kv_dtype="int8"`` keeps int8 pools
+with per-row scale pools, every written row quantized by its own abs-max
+(the quantum's attention is K2's per-row mode). Observability, SLOs, the
+flight recorder, fault injection, resilience, speculative decoding,
+tensor parallelism and the prefix cache are later slices (ROADMAP A2,
+A4, A5, A7); the engine does not take their options.
 """
 from __future__ import annotations
 
+import math
 import time
 
 import numpy as np
 import torch
 
 from .._device import resolve_device
+from .._graphs import CapturedStep
 from ..incubate.nn.functional import block_multihead_attention
-from ..nlp.generation import _filter_logits, fold_seed, gumbel_argmax
+from ..nlp.generation import _filter_logits, keyed_gumbel_argmax
 from ..nlp.paged_cache import PagedKVCachePool
 from ..nn.functional.rope import build_rope_cache, inv_freq
 from ..nn.quant import quantize_for_serving, quantize_kv_rows
+from ..ops import _library as L
 from ..ops.paged_attention import (_paged_decode_attention_rows,
                                    paged_decode_attention)
 from .scheduler import Request, Scheduler, SchedulerConfig
@@ -62,18 +73,72 @@ def _rope_rows(x, cos, sin):
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
 
 
-def _paged_attn(q, kp, vp, tables, lens, ks=None, vs=None):
-    """The quantum's decode attention: K2 over float pools, or K2's
-    per-row mode over int8 pools with per-row scale pools ``ks``/``vs``
-    (where the reference engine gathers and dequantizes the whole
-    context, ``_xla_paged_decode_attn``)."""
+def _fused_paged_decode_attn(q, kp, vp, tables, lens, ks=None, vs=None):
+    """Plain port of the reference's fused decode attention: an
+    online-softmax stream over the block-table entries, one pool block
+    per row and step folded into running (m, l, acc) f32 statistics. A
+    row whose context ended before block ``ki`` re-points its read at
+    pool block 0 and masks the whole block; masked logits are -1e30.
+    ``ks``/``vs`` are an int8 pool's per-row scale pools: blocks
+    dequantize in f32 as they stream through. q (S, H, D); returns
+    (S, H, D) in q's dtype."""
+    s_, h, d = q.shape
+    w = tables.shape[1]
+    bs, hk = kp.shape[1], kp.shape[2]
+    rep = h // hk
+    sc = 1.0 / math.sqrt(d)
+    qf = q.float()
+    neg = -1e30
+    dev = q.device
+    lens = lens.to(dev)
+    offs = torch.arange(bs, device=dev)
+    m = torch.full((s_, h), neg, dtype=torch.float32, device=dev)
+    l = torch.zeros((s_, h), dtype=torch.float32, device=dev)
+    acc = torch.zeros((s_, h, d), dtype=torch.float32, device=dev)
+    # every row attends >= 1 position (masked rows carry lens == 1), so
+    # the first live block lifts m above -1e30 before any dead block's
+    # exp(neg - m) underflows to an exact 0
+    for ki in range(w):
+        start = ki * bs
+        alive = start < lens                               # (S,)
+        blk = torch.where(alive, tables[:, ki], 0).long()  # elision clamp
+        k = kp[blk].float()                                # (S, BS, HK, D)
+        v = vp[blk].float()
+        if ks is not None:
+            k = k * ks[blk][..., None]
+            v = v * vs[blk][..., None]
+        if rep > 1:
+            k = k.repeat_interleave(rep, dim=2)
+            v = v.repeat_interleave(rep, dim=2)
+        logits = torch.einsum("bhd,bkhd->bhk", qf, k) * sc  # (S, H, BS)
+        mask = alive[:, None] & ((start + offs)[None, :] < lens[:, None])
+        logits = torch.where(mask[:, None, :], logits, neg)
+        m2 = torch.maximum(m, logits.amax(dim=-1))
+        alpha = torch.exp(m - m2)                          # (S, H)
+        p = torch.exp(logits - m2[..., None])              # (S, H, BS)
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bhk,bkhd->bhd", p, v)
+        m = m2
+    return (acc / torch.clamp_min(l, 1e-30)[..., None]).to(q.dtype)
+
+
+def _paged_attn(q, kp, vp, tables, lens, ks=None, vs=None, impl="gather"):
+    """The quantum's decode attention. On the card both ``impl`` values
+    launch K2 over float pools, or K2's per-row mode over int8 pools with
+    per-row scale pools ``ks``/``vs``: K2 already streams the block
+    table, as the reference sends both values to its Pallas kernel on a
+    TPU. On the CPU (and under ``ops.plain_versions()``) ``"gather"``
+    runs K2's plain versions (the reference's ``_xla_paged_decode_attn``)
+    and ``"fused"`` runs :func:`_fused_paged_decode_attn`."""
+    if impl == "fused" and L.use_plain(q):
+        return _fused_paged_decode_attn(q, kp, vp, tables, lens, ks, vs)
     if ks is None:
         return paged_decode_attention(q, kp, vp, tables, lens)
     return _paged_decode_attention_rows(q, kp, vp, ks, vs, tables, lens)
 
 
 def paged_decode_math(model, scratch_block, ids_t, seq_lens, tables, kc, vc,
-                      live, ks=(), vs=()):
+                      live, ks=(), vs=(), attn_impl="gather"):
     """One token for every slot over a paged pool (the quantum's step).
 
     ``ids_t`` (S, 1) last tokens, ``seq_lens`` (S,) int32 tokens cached,
@@ -82,8 +147,8 @@ def paged_decode_math(model, scratch_block, ids_t, seq_lens, tables, kc, vc,
     scratch block and attends one position. ``ks``/``vs`` are the
     per-layer scale pools of an int8 pool (empty for a float pool): each
     written row, the scratch block's included, quantizes by its own
-    abs-max and its scale is written beside it. Returns logits
-    (S, vocab)."""
+    abs-max and its scale is written beside it. ``attn_impl`` routes the
+    attention (:func:`_paged_attn`). Returns logits (S, vocab)."""
     cfg = model.config
     core = model.llama
     s = ids_t.shape[0]
@@ -123,10 +188,46 @@ def paged_decode_math(model, scratch_block, ids_t, seq_lens, tables, kc, vc,
             vsi.index_put_((write_blk, write_off), v_sc)
         kc[i].index_put_((write_blk, write_off), k.to(kc[i].dtype))
         vc[i].index_put_((write_blk, write_off), v.to(vc[i].dtype))
-        att = _paged_attn(q, kc[i], vc[i], tables, lens, ksi, vsi)
+        att = _paged_attn(q, kc[i], vc[i], tables, lens, ksi, vsi,
+                          attn_impl)
         hidden = residual + attn.o_proj(att.view(s, 1, h * d))
         hidden = hidden + layer.mlp(layer.post_attention_layernorm(hidden))
     return model.lm_head(core.norm(hidden))[:, 0]
+
+
+class _StateBuffers:
+    """The decode dispatch's slot state as views of ONE device byte
+    buffer, beside two host buffers of the same layout (pinned on the
+    card): ``stage``, which the host mirrors are copied into before one
+    host-to-device copy of the whole buffer, and ``back``, which one
+    device-to-host copy fills after the dispatch. ``dev``, ``stage`` and
+    ``back`` map each field's name to its view (numpy on the host)."""
+
+    def __init__(self, fields, device):
+        layout, n = {}, 0
+        for name, shape, dtype in fields:
+            n = -(-n // 8) * 8
+            size = (int(np.prod(shape))
+                    * torch.empty((), dtype=dtype).element_size())
+            layout[name] = (n, size, shape, dtype)
+            n += size
+        pin = device.type == "cuda"
+        self.device_buf = torch.zeros(n, dtype=torch.uint8, device=device)
+        self.stage_buf = torch.zeros(n, dtype=torch.uint8, pin_memory=pin)
+        self.back_buf = torch.zeros(n, dtype=torch.uint8, pin_memory=pin)
+
+        def views(buf):
+            return {name: buf[o:o + size].view(dtype).view(shape)
+                    for name, (o, size, shape, dtype) in layout.items()}
+
+        self.dev = views(self.device_buf)
+        self.stage = {k: v.numpy() for k, v in views(self.stage_buf).items()}
+        self.back = {k: v.numpy() for k, v in views(self.back_buf).items()}
+
+
+# the host mirrors staged into the state buffers before each dispatch
+_STAGED = ("tables", "seq_lens", "last_tok", "n_gen", "max_new", "seeds",
+           "temps", "done")
 
 
 class ServingEngine:
@@ -158,15 +259,40 @@ class ServingEngine:
             weights. ``None``: float weights.
         kv_dtype: ``"int8"`` builds int8 pools with per-row f32 scale
             pools; ``None`` keeps float pools in the model's dtype.
+        multi_quantum: ``K > 1`` runs up to K decode quanta per dispatch
+            (K replays of the quantum's graph, one host sync) while
+            ``Scheduler.steady_state()`` holds; the tables grow to cover
+            the K quanta first. ``decode_quanta`` counts the quanta that
+            started with a live row, as the reference's while loop does;
+            later quanta still run, masked (no on-device early exit).
+            Streams equal the K=1 engine's. Default 1. On the card it
+            saves host syncs only, and a replayed quantum's host time is
+            small beside its device time: K=4 measured no faster than
+            K=1 (PERF.md).
+        attn_impl: ``"gather"`` or ``"fused"``, for parity with the
+            reference's options. On the card it changes nothing: both
+            launch K2. On the CPU ``"fused"`` runs the online-softmax
+            port of the reference's ``_fused_paged_decode_attn`` instead
+            of the gather, the port held to the reference's in the CPU
+            tests. Streams are equal.
         device: default ``cuda``; raises without CUDA unless ``"cpu"``.
+
+    On the card the decode quantum runs only as a captured CUDA graph,
+    captured at the first decode dispatch and never rebuilt; a failed
+    capture or replay raises. (``_eager = True`` on an engine runs the
+    same body eagerly: the oracle of the card's tests.)
     """
+
+    # run the quantum's body eagerly on the card (a test oracle; the
+    # captured graph is the engine's decode path)
+    _eager = False
 
     def __init__(self, model, num_slots=8, block_size=32, num_blocks=None,
                  max_context=None, prefill_chunk=64, decode_quantum=8,
                  decode_strategy="greedy", top_k=0, top_p=1.0,
                  temperature=1.0, eos_token_id=None,
                  per_request_sampling=False, quantize=None, kv_dtype=None,
-                 device=None):
+                 multi_quantum=1, attn_impl="gather", device=None):
         cfg = model.config
         if getattr(cfg, "sliding_window", None):
             raise NotImplementedError(
@@ -183,6 +309,14 @@ class ServingEngine:
                 "per_request_sampling=True requires "
                 "decode_strategy='sampling' (per-slot temperature only "
                 "changes the sampling quantum)")
+        if attn_impl not in ("gather", "fused"):
+            raise ValueError(
+                f"attn_impl must be gather|fused, got {attn_impl!r}")
+        self.attn_impl = attn_impl
+        self._mq_max = int(multi_quantum)
+        if self._mq_max < 1:
+            raise ValueError(
+                f"multi_quantum must be >= 1, got {multi_quantum}")
         self.decode_strategy = decode_strategy
         self.top_k = 0 if top_k is None else int(top_k)
         self.top_p = 1.0 if top_p is None else float(top_p)
@@ -234,6 +368,25 @@ class ServingEngine:
         self._max_new = np.zeros(s, np.int32)
         self._seeds = np.zeros(s, np.int64)
         self._temps = np.ones(s, np.float32)
+        # ... and the static device buffers the quantum reads and writes:
+        # the mirrors, the (K, T, S) token buffer, the quantum index and
+        # the count of quanta that started with a live row
+        t = self.config.decode_quantum
+        self._state = _StateBuffers(
+            [("tables", (s, w), torch.int32),
+             ("seq_lens", (s,), torch.int32),
+             ("last_tok", (s,), torch.int32),
+             ("n_gen", (s,), torch.int32),
+             ("max_new", (s,), torch.int32),
+             ("seeds", (s,), torch.int64),
+             ("temps", (s,), torch.float32),
+             ("done", (s,), torch.bool),
+             ("toks", (self._mq_max, t, s), torch.int32),
+             ("qi", (1,), torch.int64),
+             ("count", (1,), torch.int32)], self.device)
+        self._graph = None          # the quantum's CapturedStep
+        self._graph_pools = None    # the pool addresses it captured
+        self._graph_error = None    # a failed capture stops the engine
 
         # rotary table of prefill (block_mha fused rope); the quantum
         # computes the same angles per row on the device
@@ -292,8 +445,17 @@ class ServingEngine:
 
     def step(self):
         """One scheduler iteration: admit, then either a mixed
-        prefill(+decode) step or a decode quantum, then retire. Returns
-        whether work remains."""
+        prefill(+decode) step or a decode dispatch, then retire. Returns
+        whether work remains. Exactly ``step_collect(step_dispatch())``."""
+        return self.step_collect(self.step_dispatch())
+
+    def step_dispatch(self):
+        """The dispatch half of :meth:`step`: admit, then either run the
+        mixed step to completion (returns ``None``) or enqueue the decode
+        quantum (K quanta in steady state) and its read-back WITHOUT a
+        host sync, returning a pending record for :meth:`step_collect`.
+        Between the halves the card works while the host is free (e.g. to
+        dispatch another engine)."""
         self.stats["steps"] += 1
         self._admit()
         live = self.scheduler.live()
@@ -301,7 +463,16 @@ class ServingEngine:
         if self.scheduler.prefilling():
             self._mixed_step()
         elif self.scheduler.decoding():
-            self._decode_quantum()
+            return self._decode_dispatch()
+        return None
+
+    def step_collect(self, pending):
+        """The collect half of :meth:`step`: wait for the pending
+        dispatch, refresh the host mirrors, record its tokens and retire
+        finished requests. ``pending=None`` (the step completed in
+        :meth:`step_dispatch`) only reports whether work remains."""
+        if pending is not None:
+            self._decode_collect(pending)
         return self.scheduler.has_work
 
     def run(self, requests=None):
@@ -353,21 +524,25 @@ class ServingEngine:
                                                 non_blocking=True)
 
     def _select(self, logits, slots, steps):
-        """Next tokens (R,) for logits (R, V) of the given slots: argmax,
-        or a filtered categorical draw keyed by (the slot's request seed,
-        ``steps[i]`` = tokens it has emitted so far). The keys are host
-        values, so the quantum stays free of host syncs."""
+        """Next tokens (R,) for logits (R, V): argmax, or a filtered
+        categorical draw keyed by (the slot's request seed, ``steps`` (R,)
+        on the device: tokens the slot has emitted so far). ``slots`` is
+        a host list of the rows' slots (the mixed step), or ``None`` for
+        every slot in order (the quantum, which reads the seeds and
+        temperatures from its state buffers: no host value enters it)."""
         if self.decode_strategy == "greedy":
             return torch.argmax(logits, dim=-1)
+        d = self._state.dev
+        seeds = d["seeds"] if slots is None else self._dev(self._seeds[slots])
         if self._per_request_sampling:
-            temps = self._dev(self._temps[slots]).clamp_min(1e-6)
-            filt = _filter_logits(logits.float() / temps[:, None],
-                                  self.top_k, self.top_p, None)
+            temps = (d["temps"] if slots is None
+                     else self._dev(self._temps[slots]))
+            filt = _filter_logits(logits.float() / temps.clamp_min(1e-6)[
+                :, None], self.top_k, self.top_p, None)
         else:
             filt = _filter_logits(logits, self.top_k, self.top_p,
                                   self.temperature)
-        return gumbel_argmax(filt, [fold_seed(self._seeds[slot], step)
-                                    for slot, step in zip(slots, steps)])
+        return keyed_gumbel_argmax(filt, seeds, steps)
 
     @torch.inference_mode()
     def _mixed_forward(self, tables, enc_lens, dec_lens, this_time, ids):
@@ -447,7 +622,8 @@ class ServingEngine:
                 logits = self.model.lm_head(hidden[last_idx])
                 nxt = self._select(
                     logits, [r.slot for r in picked],
-                    [len(r.tokens) for r in picked]).cpu().numpy()
+                    self._dev(np.asarray([len(r.tokens) for r in picked],
+                                         np.int64))).cpu().numpy()
         now = time.perf_counter()
         for i, req in enumerate(rows):
             slot = req.slot
@@ -473,62 +649,143 @@ class ServingEngine:
         self._done[slot] = req.finished
 
     # -- the decode quantum ------------------------------------------------
-    def _decode_quantum(self):
-        """``decode_quantum`` steps for every slot. The slot state stays on
-        the device through the steps (retirement masks included) and comes
-        back to the host once, at the end. A slot live at step j has
-        emitted ``n_gen + j`` tokens (the host value at the quantum's
-        start), which keys its draw; a done slot's draw is discarded."""
+    def _choose_k(self):
+        """Quanta the next dispatch runs: ``multi_quantum`` when the
+        scheduler is in steady state (the batch cannot change before the
+        dispatch lands), else 1."""
+        if self._mq_max > 1 and self.scheduler.steady_state():
+            return self._mq_max
+        return 1
+
+    @torch.inference_mode()
+    def _quantum_body(self):
+        """``decode_quantum`` steps for every slot over the state buffers
+        alone (the function the card captures and the CPU runs): the
+        state is written back in place and the tokens land in
+        ``toks[qi]``. A slot live at a step has emitted ``n_gen`` tokens,
+        which keys its draw; a done slot's draw is discarded."""
+        d = self._state.dev
+        tables, max_new = d["tables"], d["max_new"]
+        seq_lens, last_tok = d["seq_lens"], d["last_tok"]
+        n_gen, done = d["n_gen"], d["done"]
+        pool = self.pool
+        eos = self.eos_token_id
+        # the quanta that start with a live row: the reference's
+        # while-loop count (done only grows within a dispatch)
+        d["count"].add_((~done.all()).int())
+        toks = []
+        for _ in range(self.config.decode_quantum):
+            live = ~done
+            logits = paged_decode_math(
+                self.model, self._scratch_block, last_tok[:, None],
+                seq_lens, tables, pool.k_pools, pool.v_pools, live,
+                pool.k_scales, pool.v_scales, self.attn_impl)
+            nxt = self._select(logits, None, n_gen).int()
+            nxt = torch.where(done, last_tok, nxt)
+            n_gen = n_gen + live.int()
+            done_next = done | (n_gen >= max_new)
+            if eos is not None:
+                done_next = done_next | (live & (nxt == eos))
+            seq_lens = seq_lens + live.int()
+            last_tok, done = nxt, done_next
+            toks.append(nxt)
+        d["toks"].index_copy_(0, d["qi"], torch.stack(toks)[None])
+        d["qi"].add_(1)
+        for name, val in (("seq_lens", seq_lens), ("last_tok", last_tok),
+                          ("n_gen", n_gen), ("done", done)):
+            d[name].copy_(val)
+
+    def _pool_ptrs(self):
+        pool = self.pool
+        return tuple(t.data_ptr() for t in (*pool.k_pools, *pool.v_pools,
+                                            *pool.k_scales, *pool.v_scales))
+
+    def _run_quanta(self, k):
+        """Run ``k`` quanta on the staged state: eagerly on the CPU (or
+        with ``_eager``), else as replays of the captured quantum. The
+        first dispatch on the card captures it: its first quantum is the
+        warm-up on the capture stream (the kernel library's load, K2's
+        ticket buffer of that stream, cuBLAS's workspace), then the
+        capture; the graph is never rebuilt."""
+        if self.device.type != "cuda" or self._eager:
+            for _ in range(k):
+                self._quantum_body()
+            return
+        if self._graph_error is not None:
+            raise RuntimeError(
+                "the decode quantum's CUDA graph failed to capture; the "
+                "engine cannot decode") from self._graph_error
+        if self._graph is None:
+            step = CapturedStep(self._quantum_body, self.device)
+            try:
+                step.warm_up()
+                step.capture()
+            except BaseException as exc:
+                # the warm-up already moved the device state, and a failed
+                # capture leaves torch's CUDA generators marked as
+                # capturing: the engine stops decoding
+                self._graph_error = exc
+                raise
+            self._graph = step
+            self._graph_pools = self._pool_ptrs()
+            k -= 1
+        if self._pool_ptrs() != self._graph_pools:
+            raise RuntimeError(
+                "the KV pools were reallocated after the decode quantum "
+                "was captured; its graph would write freed memory")
+        for _ in range(k):
+            self._graph.replay()
+
+    def _decode_dispatch(self):
+        """Grow the tables to cover the dispatch, stage the host mirrors
+        into the state buffers (one copy), run the quanta, and enqueue
+        the read-back of the whole buffer (one copy) behind an event:
+        no host sync. Returns the pending record."""
         t_steps = self.config.decode_quantum
+        k = self._choose_k()
         rows = self.scheduler.decoding()
         for req in rows:
-            # cover the whole quantum before entering the device loop,
-            # capped by the request's own prompt + max_new bound
+            # cover the whole dispatch (K quanta) before entering the
+            # device loop, capped by the request's own prompt + max_new
+            # bound, which admission reserved
             slot = req.slot
             cap = req.prompt_len + req.max_new_tokens - 1
-            need = min(int(self._seq_lens[slot]) + t_steps, cap)
+            need = min(int(self._seq_lens[slot]) + k * t_steps, cap)
             row = self.pool.grow_decode_table(
                 req.req_id, need, int(self._seq_lens[slot]),
                 pad_to=self._table_width)
             self._tables[slot] = row[:self._table_width]
-        tables = self._dev(self._tables)
-        seq_lens = self._dev(self._seq_lens)
-        last_tok = self._dev(self._last_tok)
-        n_gen = self._dev(self._n_gen)
-        done = self._dev(self._done)
-        max_new = self._dev(self._max_new)
-        eos = self.eos_token_id
-        toks = []
-        slots = list(range(self.config.num_slots))
-        with torch.inference_mode():
-            for j in range(t_steps):
-                live = ~done
-                logits = paged_decode_math(
-                    self.model, self._scratch_block, last_tok[:, None],
-                    seq_lens, tables, self.pool.k_pools, self.pool.v_pools,
-                    live, self.pool.k_scales, self.pool.v_scales)
-                nxt = self._select(logits, slots,
-                                   (self._n_gen + j).tolist()).int()
-                nxt = torch.where(done, last_tok, nxt)
-                n_gen = n_gen + live.int()
-                done_next = done | (n_gen >= max_new)
-                if eos is not None:
-                    done_next = done_next | (live & (nxt == eos))
-                seq_lens = seq_lens + live.int()
-                last_tok, done = nxt, done_next
-                toks.append(nxt)
-            # the ONE host sync of the quantum
-            host = torch.stack(toks + [seq_lens, last_tok, n_gen,
-                                       done.int()]).cpu().numpy()
-        toks = host[:t_steps]
-        self._seq_lens = host[t_steps].astype(np.int32)
-        self._last_tok = host[t_steps + 1].astype(np.int32)
-        self._n_gen = host[t_steps + 2].astype(np.int32)
-        self._done = host[t_steps + 3].astype(bool)
-        self.stats["decode_quanta"] += 1
+        st = self._state
+        for name in _STAGED:
+            np.copyto(st.stage[name], getattr(self, "_" + name))
+        st.stage["qi"][0] = 0
+        st.stage["count"][0] = 0
+        st.device_buf.copy_(st.stage_buf, non_blocking=True)
+        self._run_quanta(k)
+        st.back_buf.copy_(st.device_buf, non_blocking=True)
+        event = None
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record()
+        return {"rows": rows, "k": k, "event": event}
+
+    def _decode_collect(self, pending):
+        """Wait for the dispatch (the ONE host sync), refresh the host
+        mirrors, record the tokens of the quanta that ran and account
+        them, then retire finished requests."""
+        if pending["event"] is not None:
+            pending["event"].synchronize()
+        back = self._state.back
+        self._seq_lens = back["seq_lens"].copy()
+        self._last_tok = back["last_tok"].copy()
+        self._n_gen = back["n_gen"].copy()
+        self._done = back["done"].copy()
+        n_exec = max(int(back["count"][0]), 1)
+        toks = back["toks"][:n_exec].reshape(-1, self.config.num_slots)
+        self.stats["decode_quanta"] += n_exec
         self.stats["quantum_tokens"] += int(toks.shape[0] * toks.shape[1])
         now = time.perf_counter()
-        for req in rows:
+        for req in pending["rows"]:
             for j in range(toks.shape[0]):
                 if req.finished:
                     break

@@ -1114,3 +1114,204 @@ def test_cuda_packed_train_step_kernel_path_equals_plain_path(cuda,
             assert {k: ops.LAUNCHES[k] for k in want} == want
         runs.append(torch.stack(losses))
     torch.testing.assert_close(runs[0], runs[1], rtol=1e-5, atol=0)
+
+
+# ------------------------------------------------ captured decode graphs
+def _tiny_cuda_model(cuda, dtype="float32"):
+    return LlamaForCausalLM(
+        LlamaConfig.tiny(hidden_size=256, num_attention_heads=4,
+                         num_key_value_heads=2, vocab_size=512, dtype=dtype),
+        generator=torch.Generator(device=cuda).manual_seed(0))
+
+
+_GRAPH_PROMPTS = [np.random.RandomState(0).randint(1, 512, n).astype(np.int32)
+                  for n in (5, 40, 3, 77, 18)]
+_GRAPH_KW = dict(num_slots=3, block_size=16, prefill_chunk=32,
+                 decode_quantum=4)
+
+
+def _graph_run(model, eager, **kw):
+    engine = create_serving_engine(model, **_GRAPH_KW, **kw)
+    engine._eager = eager
+    reqs = [engine.submit(p, max_new_tokens=9 + i, seed=i)
+            for i, p in enumerate(_GRAPH_PROMPTS)]
+    ops.reset_launches()
+    engine.run()
+    return engine, [r.tokens for r in reqs], dict(ops.LAUNCHES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arm", ["greedy", "sampling", "per_request",
+                                 "int8", "k3", "fused_bf16"])
+def test_cuda_captured_quantum_equals_eager(cuda, arm):
+    """The decode quantum as a captured CUDA graph against the same body
+    run eagerly: equal streams, equal counters and equal launch counts
+    (each replay adds the launches its capture recorded), for greedy,
+    sampling (engine-wide and per-request), int8 weights and KV, three
+    quanta per dispatch, and bf16 pools with attn_impl='fused'."""
+    kw = {"greedy": {},
+          "sampling": dict(decode_strategy="sampling", top_k=50, top_p=0.9,
+                           temperature=0.8),
+          "per_request": dict(decode_strategy="sampling", top_k=50,
+                              per_request_sampling=True),
+          "int8": dict(quantize="weight_only_int8", kv_dtype="int8"),
+          "k3": dict(multi_quantum=3),
+          "fused_bf16": dict(attn_impl="fused")}[arm]
+    model = _tiny_cuda_model(cuda, "bfloat16" if arm == "fused_bf16"
+                             else "float32")
+    runs = [_graph_run(model, eager, **kw) for eager in (True, False)]
+    (eager_eng, eager_streams, eager_l), (eng, streams, launches) = runs
+    assert eager_eng._graph is None and eng._graph is not None
+    assert streams == eager_streams
+    assert launches == eager_l
+    k2 = ("paged_decode_attention_int8_rows" if arm == "int8"
+          else "paged_decode_attention")
+    layers, t = model.config.num_hidden_layers, _GRAPH_KW["decode_quantum"]
+    assert eng._graph.launches == {"rms_norm": (2 * layers + 1) * t,
+                                   k2: layers * t}
+    for key in ("steps", "mixed_steps", "decode_quanta", "quantum_tokens"):
+        assert eng.stats[key] == eager_eng.stats[key], key
+    if arm == "k3":
+        assert eng.stats["decode_quanta"] > eng.stats["steps"] - \
+            eng.stats["mixed_steps"]
+
+
+@pytest.mark.cuda
+def test_cuda_quantum_captures_on_its_own_stream_after_the_ticket_warm_up(
+        cuda):
+    """The graph is captured on a fresh side stream, after the warm-up
+    quantum made K2's ticket buffer of that stream: the buffer exists,
+    keyed by the capture stream, and replays leave it zero."""
+    from paddle_tpu_torch.ops import split_decode as SD
+
+    model = _tiny_cuda_model(cuda)
+    engine, streams, _ = _graph_run(model, eager=False)
+    stream = engine._graph.stream
+    assert stream.cuda_stream != torch.cuda.current_stream().cuda_stream
+    keys = [k for k in SD._TICKETS if k[1] == stream.cuda_stream]
+    assert keys, "no ticket buffer was made for the capture stream"
+    torch.cuda.synchronize()
+    assert all(int(SD._TICKETS[k].abs().sum()) == 0 for k in keys)
+    assert engine.stats["decode_quanta"] > 1   # replays ran
+    assert streams == _graph_run(model, eager=True)[1]
+
+
+@pytest.mark.cuda
+def test_cuda_replays_are_counted_once_each(cuda):
+    """ops.LAUNCHES counts at Python call time; a replay adds its graph's
+    launches once, the capture itself adds none."""
+    model = _tiny_cuda_model(cuda)
+    engine = create_serving_engine(model, **_GRAPH_KW)
+    for p in _GRAPH_PROMPTS[:3]:
+        engine.submit(p, max_new_tokens=30)
+    while engine.scheduler.prefilling() or engine.scheduler.waiting:
+        engine.step()
+    ops.reset_launches()
+    engine.step()                       # warm-up quantum + capture
+    first = dict(ops.LAUNCHES)
+    per_quantum = engine._graph.launches
+    assert first == {k: per_quantum.get(k, 0) for k in first}
+    ops.reset_launches()
+    engine.step()                       # one replay
+    assert dict(ops.LAUNCHES) == first
+
+
+_CAPTURE_FAILURE = """
+import sys
+import numpy as np
+import torch
+sys.path.insert(0, {root!r})
+from paddle_tpu_torch import create_serving_engine
+from paddle_tpu_torch.nlp import LlamaConfig, LlamaForCausalLM
+
+model = LlamaForCausalLM(
+    LlamaConfig.tiny(hidden_size=256, num_attention_heads=4,
+                     num_key_value_heads=2, vocab_size=512),
+    generator=torch.Generator(device="cuda").manual_seed(0))
+engine = create_serving_engine(model, num_slots=3, block_size=16,
+                               prefill_chunk=32, decode_quantum=4)
+select = engine._select
+
+def syncing(logits, slots, steps):
+    steps.sum().item()      # a host sync: refused while the stream captures
+    return select(logits, slots, steps)
+
+engine._select = syncing
+engine.submit(np.arange(1, 6, dtype=np.int32), max_new_tokens=20)
+try:
+    engine.run()
+    print("NO-RAISE")
+except RuntimeError:
+    assert engine._graph is None and engine._graph_error is not None
+    torch.cuda.synchronize()
+    try:
+        engine.step()
+        print("DECODED-AFTER-FAILURE")
+    except RuntimeError as exc:
+        print("REFUSED:", exc)
+"""
+
+
+@pytest.mark.cuda
+def test_cuda_capture_failure_raises_without_eager_fallback(cuda):
+    """A host sync inside the quantum makes the capture fail: the step
+    raises, and the engine refuses to decode afterwards instead of
+    running the body eagerly. In a child process: a failed capture leaves
+    PyTorch's default CUDA generator marked as capturing, so later random
+    draws in the same process raise."""
+    import os
+    import subprocess
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c",
+                          _CAPTURE_FAILURE.format(root=root)],
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert "REFUSED:" in out.stdout and "failed to capture" in out.stdout, \
+        out.stdout[-2000:]
+
+
+@pytest.mark.cuda
+def test_cuda_replay_refuses_reallocated_pools(cuda):
+    model = _tiny_cuda_model(cuda)
+    engine = create_serving_engine(model, **_GRAPH_KW)
+    engine.submit(_GRAPH_PROMPTS[0], max_new_tokens=30)
+    while engine._graph is None:
+        engine.step()
+    engine.pool.k_pools[0] = engine.pool.k_pools[0].clone()
+    with pytest.raises(RuntimeError, match="reallocated"):
+        engine.step()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [None, 24])
+def test_cuda_captured_generate_equals_eager(cuda, window, monkeypatch):
+    """generate's decode step as a captured graph against the eager step:
+    greedy and sampling, on a windowed model past its window; the launch
+    counts are those of every step run eagerly. A second call with the
+    same key only replays the kept graph, with the same stream and
+    counts."""
+    from paddle_tpu_torch.nlp import generation as G
+
+    model = LlamaForCausalLM(
+        LlamaConfig.tiny(hidden_size=256, num_attention_heads=4,
+                         num_key_value_heads=2, vocab_size=512,
+                         sliding_window=window),
+        generator=torch.Generator(device=cuda).manual_seed(0))
+    ids = torch.from_numpy(
+        np.random.RandomState(1).randint(1, 512, (3, 40))).to(cuda)
+    for kw in (dict(), dict(decode_strategy="sampling", top_k=20,
+                            temperature=0.7, seed=3)):
+        runs, kept = [], []
+        for eager in (True, False, False):
+            monkeypatch.setattr(G, "_EAGER", eager)
+            ops.reset_launches()
+            runs.append((G.generate(model, ids, max_new_tokens=30,
+                                    eos_token_id=7, **kw),
+                         dict(ops.LAUNCHES)))
+            kept.append(G._STEPS.get(model))
+        assert torch.equal(runs[0][0], runs[1][0])
+        assert torch.equal(runs[0][0], runs[2][0])
+        assert runs[0][1] == runs[1][1] == runs[2][1]
+        assert runs[1][1]["decode_attention"] == 2 * 29
+        assert kept[1] is kept[2] and kept[1].graph.graph is not None

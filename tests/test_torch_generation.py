@@ -246,13 +246,132 @@ def test_sampling_is_seeded(dense):
     assert not torch.equal(a, G.sampling_search(port, ids, seed=2, **kw))
     assert not torch.equal(a, G.generate_on_device(port, ids,
                                                    max_new_tokens=10))
-    # each draw depends only on (seed, step): rows do not share noise
+    # each draw depends only on (row seed, step): rows do not share noise
     assert G.fold_seed(1, 0) != G.fold_seed(1, 1) != G.fold_seed(2, 0)
-    filt = torch.zeros(2, 50)
-    counts = torch.bincount(torch.stack([
-        G.gumbel_argmax(filt[:1], [G.fold_seed(7, i)])
-        for i in range(2000)])[:, 0], minlength=50)
+    filt = torch.zeros(2000, 50)
+    draws = G.keyed_gumbel_argmax(filt, torch.full((2000,), 7),
+                                  torch.arange(2000))
+    counts = torch.bincount(draws, minlength=50)
     assert counts.min() > 10          # uniform logits: every token drawn
+
+
+def _np_mix32(x):
+    for shift, mul in ((16, 0x7FEB352D), (15, 0x5BD1E995)):
+        x = x ^ (x >> np.uint64(shift))
+        x = (x * np.uint64(mul)) & np.uint64(0xFFFFFFFF)
+    return x ^ (x >> np.uint64(16))
+
+
+def test_keyed_draw_hash_pinned_against_numpy():
+    """The keyed draw's integer hash, rebuilt in numpy on unsigned 64-bit
+    lanes, gives the same bits as the port's int64 torch version (which
+    the card computes with the same integer ops), for seeds past 2**32,
+    negative seeds and a 0-d step; the draw's u lies in (0, 1)."""
+    seeds = np.array([0, 7, 2 ** 40 + 3, -5, G.fold_seed(3, 1)], np.int64)
+    steps = np.array([0, 1, 123456, 2 ** 31 + 9, 5], np.int64)
+    vocab = 300
+    m32 = np.uint64(0xFFFFFFFF)
+    su = seeds.astype(np.uint64)
+    row = _np_mix32((su & m32) ^ np.uint64(0x3C6EF372))
+    row = _np_mix32(row ^ ((su >> np.uint64(32)) & m32))
+    row = _np_mix32(row ^ (steps.astype(np.uint64) & m32))
+    tok = _np_mix32(np.arange(vocab, dtype=np.uint64))
+    want = _np_mix32(row[:, None] ^ tok[None, :])
+    got = G.keyed_bits(torch.from_numpy(seeds), torch.from_numpy(steps),
+                       vocab)
+    np.testing.assert_array_equal(got.numpy().astype(np.uint64), want)
+    assert int(got.min()) >= 0 and int(got.max()) < 2 ** 32
+    one = G.keyed_bits(torch.from_numpy(seeds), torch.tensor(5), vocab)
+    np.testing.assert_array_equal(one[4].numpy(), got[4].numpy())
+    # distinct keys draw distinct noise; uniform logits spread the draws
+    assert len({tuple(r) for r in got[:, :16].tolist()}) == len(seeds)
+
+
+def test_keyed_noise_is_finite_at_the_extreme_hashes(monkeypatch):
+    """The noise of the largest hash is finite (in f32, u of the top 24
+    bits would round to 1.0 and its noise to +inf), the noise rises with
+    the hash across its whole range, and a token the filter cut is never
+    drawn, even where every cut token carries the largest hash and the
+    kept one the smallest."""
+    bits = torch.tensor([0, 1, 255, 256, 2 ** 31, 2 ** 32 - 257,
+                         2 ** 32 - 256, 2 ** 32 - 1], dtype=torch.int64)
+    noise = G.gumbel_noise(bits)
+    assert noise.dtype == torch.float32
+    assert bool(torch.isfinite(noise).all())
+    assert -2.9 < float(noise[0]) < -2.8 and 17.3 < float(noise[-1]) < 17.4
+    assert bool((noise[1:] >= noise[:-1]).all())
+    assert float(noise[-3]) < float(noise[-2])
+    vocab, kept = 64, 5
+    top = torch.full((3, vocab), 2 ** 32 - 1, dtype=torch.int64)
+    top[:, kept] = 0
+    monkeypatch.setattr(G, "keyed_bits", lambda seeds, steps, v: top)
+    filt = torch.full((3, vocab), -torch.inf)
+    filt[:, kept] = -50.0
+    draws = G.keyed_gumbel_argmax(filt, torch.zeros(3, dtype=torch.int64),
+                                  torch.tensor(0))
+    assert draws.tolist() == [kept] * 3
+
+
+@pytest.mark.parametrize("which", ["dense", "windowed"])
+def test_decode_steps_are_kept_per_key_and_restaged(which, request,
+                                                    monkeypatch):
+    """generate keeps one decode step per model with its buffers and
+    reuses it while the key holds: calls on other prompts of the same
+    shape, rows that hit eos in the call before, and sampling with other
+    seeds give what fresh buffers give (the windowed model well past its
+    window); a new strategy or shape makes a new one."""
+    _, port = request.getfixturevalue(which)
+    a, b = _ids((2, 6), seed=4), _ids((2, 6), seed=9)
+    new = 2 * WINDOW + 3
+    eos = int(G.generate_on_device(port, a, max_new_tokens=new)[0, 9])
+    calls = [dict(input_ids=a, eos_token_id=eos),
+             dict(input_ids=b, eos_token_id=eos),
+             dict(input_ids=a, eos_token_id=eos),
+             dict(input_ids=b, decode_strategy="sampling", top_k=20,
+                  seed=1),
+             dict(input_ids=a, decode_strategy="sampling", top_k=20,
+                  seed=2),
+             dict(input_ids=_ids((3, 5)), eos_token_id=eos)]
+    got, kept = [], []
+    for kw in calls:
+        got.append(G.generate(port, max_new_tokens=new, **kw))
+        kept.append(G._STEPS[port])
+    assert kept[0] is kept[1] is kept[2]
+    assert kept[3] is kept[4] and kept[3] is not kept[2]
+    assert kept[5] is not kept[4]
+    monkeypatch.setattr(G, "_EAGER", True)
+    for kw, out in zip(calls, got):
+        assert torch.equal(out, G.generate(port, max_new_tokens=new, **kw))
+    assert (got[0][0, 6 + 10:] == eos).all()    # row 0 hit eos, padded
+
+
+@pytest.mark.parametrize("which", ["dense", "windowed"])
+def test_tensor_position_decode_equals_int_position(which, request):
+    """The decode step with its position as a 0-d int32 tensor (what the
+    captured graph reads) gives the int position's logits and caches bit
+    for bit, on the dense model and on the windowed one well past its
+    window (the rolling buffer wraps twice)."""
+    _, port = request.getfixturevalue(which)
+    ids = torch.from_numpy(_ids((2, 6)))
+    total = 6 + 3 * WINDOW
+    runs = []
+    for as_tensor in (False, True):
+        caches = port.init_caches(2, total)
+        with torch.no_grad():
+            logits, caches = port(ids, 0, caches)
+            tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+            seen = []
+            for pos in range(6, total):
+                at = torch.tensor(pos, dtype=torch.int32) if as_tensor \
+                    else pos
+                logits, caches = port(tok, at, caches)
+                seen.append(logits)
+                tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        runs.append((torch.stack(seen), caches))
+    (a, ca), (b, cb) = runs
+    assert torch.equal(a, b)
+    for (k1, v1), (k2, v2) in zip(ca, cb):
+        assert torch.equal(k1, k2) and torch.equal(v1, v2)
 
 
 def test_generate_facade_refuses_mixed_knobs(dense):

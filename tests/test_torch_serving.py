@@ -171,9 +171,10 @@ def sampling_prompts():
 
 
 def _sample(model, prompts, decode_quantum=3, preempt=False, per_request=False,
-            **kw):
+            multi_quantum=1, **kw):
     engine = ServingEngine(model, decode_quantum=decode_quantum,
                            per_request_sampling=per_request,
+                           multi_quantum=multi_quantum,
                            **dict(_SAMPLING_KW, **kw))
     temp = {"temperature": _SAMPLING_KW["temperature"]} if per_request else {}
     reqs = [engine.submit(p, max_new_tokens=5, seed=i, **temp)
@@ -215,11 +216,14 @@ def test_sampling_stream_invariant_to_quantum_and_preemption(
         models, sampling_prompts, plain_sampling_outputs, decode_quantum,
         preempt):
     """Each draw is keyed by (request seed, tokens emitted so far): a
-    mid-run preemption (re-prefill on resume) and the grouping of steps
-    into quanta leave a fixed-seed stream unchanged."""
-    got = _sample(models[1], sampling_prompts, decode_quantum=decode_quantum,
-                  preempt=preempt)
-    assert got == plain_sampling_outputs
+    mid-run preemption (re-prefill on resume), the grouping of steps
+    into quanta and of quanta into multi-quantum dispatches leave a
+    fixed-seed stream unchanged."""
+    for multi_quantum in (1, 4):
+        got = _sample(models[1], sampling_prompts,
+                      decode_quantum=decode_quantum, preempt=preempt,
+                      multi_quantum=multi_quantum)
+        assert got == plain_sampling_outputs, multi_quantum
 
 
 def test_per_request_temperature_replays_engine_wide(models, sampling_prompts,
