@@ -134,7 +134,26 @@ Phases (any failure raises and the script exits non-zero):
     streams), and greedy ``generate`` through its entry point, eagerly
     and as replays of the step it captured and kept: per decode step the
     stream's ms, the host's enqueue ms and the device ms, with its busy
-    share.
+    share;
+14. the prefix cache at full width (run right after phase 3, on its
+    Llama-2-7B bf16 model and knobs): a warm request (a 1,024-token
+    system prompt + 96 tokens) runs to its first token, then 16 requests
+    sharing the system prompt (32-256-token tails, 32-64 new tokens; two
+    are the bare system prompt, one repeats the warm prompt), with
+    ``prefix_cache=True`` and without, the quantum captured; the cached
+    run's counters zeroed just before and read just after. Checks: hits
+    and at least 2 copy-on-writes; the prefill tokens saved equal the
+    cached tokens skipped (one short of a fully cached prompt); every
+    copy made in place (no pool tensor moves, the copy holds its
+    source's rows, the sources keep theirs to the end); the pool drains
+    to scratch + cached blocks; the captured streams equal the eager
+    body's; ``multi_quantum=4`` equals 1; an int8-KV arm's copies (scale
+    rows included). Per arm: hits, misses, copies, evictions, prefill
+    tokens, mixed steps, time to first token (median, max), tokens/s and
+    wall; the mixed step of one hit row under torch.profiler; then, at
+    Llama-2-7B width with 4 layers in f32, the cached engine's greedy
+    streams against the unshared engine's (a parting passes only as a
+    runner-up swap, as in phase 12).
 
 The line before the last is the ``{"kernels": [...]}`` record (each
 kernel's launches come from the run of the path that carries it: K1-K3
@@ -143,7 +162,8 @@ K7 the training run of phase 7, the f32 K7 and K4 the f32 kernel run of
 phase 8, K8 the packed training run of phase 9, the f32 K8 and K3 the f32
 packed kernel run of phase 10, K2's per-row int8 mode the int8-KV serving run
 of phase 11, its static int8 arm and its float-pool scaled mode the two
-runs of phase 12; ``launches_by_path`` has every path's count); the last
+runs of phase 12; ``launches_by_path`` has every path's count, phase 14's
+cached float and int8-KV runs among them); the last
 line is ``{"ok": true, "device": {...}}``.
 Without CUDA it prints no result and exits 2.
 """
@@ -1168,12 +1188,13 @@ def check_run(engine, reqs, vocab):
               f"{len(r.tokens)}/{r.max_new_tokens} tokens")
         check(all(0 <= t < vocab for t in r.tokens),
               f"request {r.req_id} emitted a token outside the vocabulary")
+    # the scratch block, and the blocks a prefix cache holds
     st = engine.pool.fragmentation_stats()
-    check(st["blocks_in_use"] == 1,
+    check(st["blocks_in_use"] == 1 + engine.pool.cached_blocks,
           f"pool did not drain to the scratch block: {st}")
 
 
-def e2e_phase(torch, dev):
+def e2e_phase(torch, dev, smi):
     from paddle_tpu_torch import ops
     from paddle_tpu_torch.nlp import LlamaConfig, LlamaForCausalLM
 
@@ -1229,9 +1250,12 @@ def e2e_phase(torch, dev):
     profile_phase(torch, model, requests)
     profile_phase(torch, model, sampled, labels=("decode_quantum",),
                   tag="_sampling", **SAMPLING)
+    # phase 14 on the same model: no second 7B model is built
+    prefix_launches = prefix_phase(torch, dev, smi, model)
     del model
+    gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return launches, prefix_launches
 
 
 def _kernel_family(name):
@@ -2343,7 +2367,7 @@ def _record_runner_up(engine, table):
     engine._select = traced
 
 
-def _partings(streams, tables, reqs):
+def _partings(streams, tables, reqs, names=("kernel", "plain")):
     """Each request's first differing token between two runs, with both
     runs' (best, runner-up, gap) there; a parting is a runner-up swap
     when each run's token is the other run's second choice."""
@@ -2353,8 +2377,8 @@ def _partings(streams, tables, reqs):
         if j is None:
             continue
         t0, t1 = tables[0][(r0.req_id, j)], tables[1][(r1.req_id, j)]
-        out.append({"request": len(out), "token": j, "kernel": t0,
-                    "plain": t1, "swap": (t0[0], t0[1]) == (a[j], b[j])
+        out.append({"request": len(out), "token": j, names[0]: t0,
+                    names[1]: t1, "swap": (t0[0], t0[1]) == (a[j], b[j])
                     and (t1[0], t1[1]) == (b[j], a[j])})
     return out
 
@@ -2638,6 +2662,295 @@ def graphs_serving_phase(torch, dev, smi):
           f"{greedy['decode_quanta']}")
 
 
+# ---------------------------------------------------------------- phase 14
+# the shared system prompt (32 full blocks), the warm request's tail, and
+# the tails and new tokens of the 16 requests after it
+PREFIX_SHAPE = dict(system=1024, warm_tail=96, tails=(32, 256),
+                    new=(32, 64), requests=16)
+# requests that are the bare system prompt (a fully cached chain: the last
+# token is prefilled again into a shared block) and the repeat of the warm
+# request's whole prompt
+PREFIX_BARE = (3, 9)
+PREFIX_REPEAT = 5
+
+
+def prefix_requests(vocab):
+    """Phase 14's trace, fixed by seed 0: the warm request, then 16
+    requests that share its system prompt."""
+    import numpy as np
+
+    rng = np.random.RandomState(SEED)
+    shape = PREFIX_SHAPE
+    system = rng.randint(1, vocab, shape["system"]).astype(np.int32)
+    warm = dict(prompt=np.concatenate([system, rng.randint(
+        1, vocab, shape["warm_tail"]).astype(np.int32)]), max_new_tokens=32)
+    lo, hi = shape["tails"]
+    tails = rng.randint(lo, hi + 1, shape["requests"])
+    new = rng.randint(shape["new"][0], shape["new"][1] + 1,
+                      shape["requests"])
+    requests = []
+    for i, (n, mn) in enumerate(zip(tails, new)):
+        if i in PREFIX_BARE:
+            prompt = system.copy()
+        elif i == PREFIX_REPEAT:
+            prompt = warm["prompt"].copy()
+        else:
+            prompt = np.concatenate([system, rng.randint(
+                1, vocab, int(n)).astype(np.int32)])
+        requests.append(dict(prompt=prompt, max_new_tokens=int(mn)))
+    return warm, requests
+
+
+class _CowAudit:
+    """Wraps an engine pool's ``make_writable``: around every call the
+    pool tensors' addresses must not change (and must be the captured
+    graph's once it exists), and every block copied must hold its source's
+    rows right after the copy. The sources' rows are kept, so that
+    ``check_sharers`` can show after the run that the writer's writes
+    never reached a block another holder maps."""
+
+    def __init__(self, torch, engine):
+        self.torch, self.engine = torch, engine
+        pool = engine.pool
+        self.tensors = pool._pool_tensors()
+        self.ptrs = engine._pool_ptrs()
+        self.copies, self.kept = 0, []
+        orig = pool.make_writable
+
+        def audited(seq_id, start, end):
+            table = list(pool._tables.get(seq_id, ()))
+            before = engine._pool_ptrs()
+            n = orig(seq_id, start, end)
+            after = engine._pool_ptrs()
+            check(before == after == self.ptrs,
+                  "a copy-on-write moved a pool tensor")
+            check(engine._graph_pools in (None, after),
+                  "the pools differ from the captured graph's")
+            if n:
+                new = pool._tables[seq_id]
+                for j, (old, blk) in enumerate(zip(table, new)):
+                    if old == blk:
+                        continue
+                    rows = [t[old].clone() for t in self.tensors]
+                    check(all(torch.equal(t[blk], r) for t, r in
+                              zip(self.tensors, rows)),
+                          f"copy-on-write block {old} -> {blk}: the copy "
+                          f"differs from its source")
+                    self.kept.append((old, rows))
+                    self.copies += 1
+            return n
+
+        pool.make_writable = audited
+
+    def check_sharers(self):
+        """Every source block the index still holds keeps the rows it had
+        when it was copied. Returns the blocks checked."""
+        pool, torch = self.engine.pool, self.torch
+        checked = 0
+        for blk, rows in self.kept:
+            if blk in pool._cached_blocks:
+                check(all(torch.equal(t[blk], r) for t, r in
+                          zip(self.tensors, rows)),
+                      f"the shared block {blk} changed after a "
+                      f"copy-on-write")
+                checked += 1
+        return checked
+
+
+def _prefix_trace(torch, model, warm, requests, eager=False, audit=False,
+                  on_engine=None, **kw):
+    """Phase 14's trace through a fresh engine: the warm request runs
+    until its first token (its chain is then published), then the 16
+    requests are submitted and the engine runs until idle. Returns the
+    engine, the requests (warm first), the wall time and the
+    ``_CowAudit`` (with ``audit``)."""
+    from paddle_tpu_torch import create_serving_engine
+
+    engine = create_serving_engine(model, **serve_kw(**kw))
+    engine._eager = eager
+    cow = _CowAudit(torch, engine) if audit else None
+    if on_engine is not None:
+        on_engine(engine)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first = engine.submit(**warm)
+    while not first.tokens:
+        engine.step()
+    reqs = [first] + [engine.submit(**r) for r in requests]
+    engine.run()
+    torch.cuda.synchronize()
+    return engine, reqs, time.perf_counter() - t0, cow
+
+
+def _prefix_record(engine, reqs, wall, smi):
+    import numpy as np
+
+    st = engine.engine_stats()
+    pc = st.get("prefix_cache") or {}
+    ttft = [r.first_token_time - r.arrival_time for r in reqs]
+    gen = sum(len(r.tokens) for r in reqs)
+    return {"gpu": smi, "hits": pc.get("hits", 0),
+            "misses": pc.get("misses", 0),
+            "cow_copies": pc.get("cow_copies", 0),
+            "evictions": pc.get("evictions", 0),
+            "cached_blocks": pc.get("cached_blocks", 0),
+            "prefill_tokens": st["prefill_tokens"],
+            "mixed_steps": st["mixed_steps"],
+            "decode_quanta": st["decode_quanta"],
+            "ttft_median_s": float(np.median(ttft)),
+            "ttft_max_s": float(max(ttft)), "wall_s": wall,
+            "generated_tokens": gen, "generated_tok_per_s": gen / wall}
+
+
+def _hit_row_profile(torch, model, warm, requests):
+    """torch.profiler over the one mixed step that admits and prefills a
+    request whose system prompt is cached (its tail in one chunk)."""
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch import create_serving_engine
+
+    engine = create_serving_engine(model, **serve_kw(prefix_cache=True))
+    engine.run([warm])
+    hit = next(r for i, r in enumerate(requests)
+               if i not in PREFIX_BARE and i != PREFIX_REPEAT
+               and len(r["prompt"]) - PREFIX_SHAPE["system"]
+               <= engine.config.prefill_chunk)
+    req = engine.submit(**hit)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.step()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    check(req.cached_prefix_tokens == PREFIX_SHAPE["system"]
+          and len(req.tokens) == 1,
+          f"the profiled step was no single-chunk hit: cached "
+          f"{req.cached_prefix_tokens}, tokens {len(req.tokens)}")
+    rec = _profile_record(torch, prof, "mixed_step_hit_row", wall_us)
+    rec["tail_tokens"] = int(len(hit["prompt"]) - req.cached_prefix_tokens)
+    del engine
+    return rec
+
+
+def prefix_phase(torch, dev, smi, model):
+    """Phase 14: the prefix cache at full width, on phase 3's Llama-2-7B
+    bf16 model and knobs. The trace (the warm request, then 16 requests
+    sharing its 1,024-token system prompt) with the cache on and off, the
+    quantum captured; the cached run's launch counters zeroed just before
+    and read just after. Checks: hits and copy-on-writes, the prefill
+    tokens saved equal to the cached tokens skipped, every copy made in
+    place (no pool tensor moves; the copy holds its source's rows; the
+    sources the index still holds keep theirs to the end), the pool
+    drained to scratch + cached blocks, the captured streams equal to the
+    eager body's, ``multi_quantum=4`` equal to 1, and an int8-KV arm's
+    copies (scale rows included). Then, at Llama-2-7B width with 4 layers
+    in f32, the cached engine's greedy streams against the unshared
+    engine's (a parting passes only as a runner-up swap). Returns the
+    launch counts of the cached float and int8-KV runs."""
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.nlp import LlamaConfig, LlamaForCausalLM
+
+    vocab = model.config.vocab_size
+    warm, requests = prefix_requests(vocab)
+    runs, launches = {}, {}
+    for name, kw, eager, audit in (
+            ("cached", dict(prefix_cache=True), False, True),
+            ("unshared", {}, False, False),
+            ("cached_eager", dict(prefix_cache=True), True, False),
+            ("cached_multi_quantum_4", dict(prefix_cache=True,
+                                            multi_quantum=4), False, False),
+            ("cached_int8_kv", dict(prefix_cache=True, kv_dtype="int8"),
+             False, True)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        ops.reset_launches()
+        engine, reqs, wall, cow = _prefix_trace(
+            torch, model, warm, requests, eager=eager, audit=audit, **kw)
+        counts = dict(ops.LAUNCHES)
+        check_run(engine, reqs, vocab)
+        check(eager == (engine._graph is None),
+              f"{name}: eager={eager} but graph {engine._graph}")
+        rec = _prefix_record(engine, reqs, wall, smi)
+        if cow is not None:
+            rec["audited_copies"] = cow.copies
+            rec["sharers_checked"] = cow.check_sharers()
+            check(cow.copies == rec["cow_copies"] and cow.copies >= 2,
+                  f"{name}: {cow.copies} audited copies, "
+                  f"{rec['cow_copies']} counted")
+            check(rec["sharers_checked"] > 0,
+                  f"{name}: no copied source stayed cached to be checked")
+        if name != "unshared":
+            check(rec["hits"] > 0 and rec["cow_copies"] >= 2,
+                  f"{name}: hits {rec['hits']}, copies {rec['cow_copies']}")
+        if name in ("cached", "cached_int8_kv"):
+            launches[name] = counts
+        rec["saved_prefill_tokens_expected"] = sum(
+            min(r.cached_prefix_tokens, r.prefill_target - 1) for r in reqs)
+        runs[name] = (rec, [list(r.tokens) for r in reqs])
+        emit({"phase": "prefix_llama2_7b_bf16", "arm": name, **rec,
+              **({"launches": counts} if name in launches else {})})
+        del engine, reqs
+    for name, kernels in (("cached", SERVING_KERNELS),
+                          ("cached_int8_kv", INT8_SERVING_KERNELS)):
+        for k in kernels:
+            check(launches[name][k] > 0,
+                  f"kernel {k} was not launched by the prefix path {name}")
+    check(launches["cached"]["paged_decode_attention_int8_rows"] == 0
+          and launches["cached_int8_kv"]["paged_decode_attention"] == 0,
+          f"a prefix arm launched the other pool's K2: {launches}")
+    cached, unshared = runs["cached"], runs["unshared"]
+    saved = unshared[0]["prefill_tokens"] - cached[0]["prefill_tokens"]
+    equal = {"captured_vs_eager": cached[1] == runs["cached_eager"][1],
+             "multi_quantum_4_vs_1":
+                 runs["cached_multi_quantum_4"][1] == cached[1]}
+    profile = _hit_row_profile(torch, model, warm, requests)
+    emit({"phase": "prefix_llama2_7b_bf16", "gpu": smi,
+          "streams_equal": equal,
+          "prefill_tokens_saved": saved,
+          "prefill_tokens_saved_expected":
+              cached[0]["saved_prefill_tokens_expected"],
+          "cached_vs_unshared_token_agreement": _agreement(cached[1],
+                                                          unshared[1]),
+          "int8_kv_vs_float_token_agreement": _agreement(
+              runs["cached_int8_kv"][1], cached[1]),
+          "mixed_step_hit_row": {"gpu": smi, **profile}})
+    check(all(equal.values()), f"prefix streams differ: {equal}")
+    check(saved == cached[0]["saved_prefill_tokens_expected"] > 0,
+          f"the cache saved {saved} prefill tokens, expected "
+          f"{cached[0]['saved_prefill_tokens_expected']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # f32 at full width, 4 layers: cached against unshared greedy streams
+    cfg = LlamaConfig.llama2_7b(num_hidden_layers=4, dtype="float32")
+    f32 = LlamaForCausalLM(
+        cfg, generator=torch.Generator(device=dev).manual_seed(SEED + 1))
+    streams, tables, by_arm = [], [], []
+    for prefix in (True, False):
+        table = {}
+        engine, reqs, wall, _ = _prefix_trace(
+            torch, f32, warm, requests, prefix_cache=prefix,
+            on_engine=lambda e, t=table: _record_runner_up(e, t))
+        check_run(engine, reqs, vocab)
+        streams.append([list(r.tokens) for r in reqs])
+        tables.append(table)
+        by_arm.append(reqs)
+        del engine
+    partings = _partings(streams, tables, by_arm, ("cached", "unshared"))
+    emit({"phase": "prefix_parity_f32_4layer", "gpu": smi,
+          "streams_equal": not partings,
+          "requests_equal": len(by_arm[0]) - len(partings),
+          "requests": len(by_arm[0]),
+          "token_agreement": _agreement(*streams), "partings": partings})
+    check(all(p["swap"] for p in partings),
+          f"f32 prefix cache: a parting is no runner-up swap: {partings}")
+    del f32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"prefix_serving": launches["cached"],
+            "prefix_serving_int8_kv": launches["cached_int8_kv"]}
+
+
 def main():
     import torch
 
@@ -2654,7 +2967,7 @@ def main():
     dev = torch.device("cuda")
     smi = env_phase(torch)
     primary = kernel_phase(torch, dev)
-    launches = e2e_phase(torch, dev)
+    launches, prefix_launches = e2e_phase(torch, dev, smi)
     parity_phase(torch, dev)
     gen_launches = generate_phase(torch, dev, smi)
     generate_parity_phase(torch, dev)
@@ -2669,7 +2982,8 @@ def main():
              "train": train_launches, "train_f32_parity": parity_launches,
              "packed_train": packed_launches,
              "packed_f32_parity": packed_parity_launches,
-             "int8_serving": int8_launches, **batch_launches}
+             "int8_serving": int8_launches, **batch_launches,
+             **prefix_launches}
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
         rec = primary[name]

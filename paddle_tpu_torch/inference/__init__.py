@@ -21,7 +21,13 @@ def create_serving_engine(model, **kwargs):
     syncs only), ``attn_impl`` (``"gather"`` or ``"fused"``, for parity
     with the reference: both launch K2 on the card, so it changes nothing
     there; on the CPU ``"fused"`` runs the online-softmax port of the
-    reference's block stream), ``device``
+    reference's block stream), ``prefix_cache`` (``True``: requests that
+    share full prompt blocks with a published prompt alias those blocks
+    and skip their prefill, and a write into a shared block copies it
+    first; on the card the copy runs in place on the current stream, so
+    the captured quantum keeps its pool addresses and its replay sees the
+    copy; ``engine_stats()["prefix_cache"]`` has the hits, misses, copies
+    and evictions), ``device``
     (default ``cuda``; raises without CUDA unless ``"cpu"``). On the card
     the decode quantum runs as one captured CUDA graph; drive the engine
     with ``step()`` or with ``step_dispatch()`` / ``step_collect()``."""

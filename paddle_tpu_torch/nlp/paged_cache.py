@@ -8,10 +8,28 @@ pools are ``(num_blocks, block_size, HK, D)`` torch tensors, one K and
 one V per layer, updated IN PLACE by the serving path (the reference
 replaces its immutable arrays instead).
 
-This slice ports the allocation and accounting subset and int8 pools
-(``kv_dtype="int8"``: int8 block buffers beside per-row f32 scale
-pools). The prefix cache (``prefix_cache=True``: chain-hash index,
-copy-on-write, LRU eviction) comes with a later slice.
+int8 pools (``kv_dtype="int8"``) keep int8 block buffers beside per-row
+f32 scale pools.
+
+The content-addressed prefix cache (``prefix_cache=True``) is the
+reference's: full token blocks are published into an index keyed by a
+chain hash (a block's key folds its parent's, so depth is part of the
+key), and every entry keeps its (parent, token tuple) key material, so a
+hash collision is verified before it aliases. A new sequence whose prompt
+walks a cached chain aliases those blocks into its table
+(``attach_prefix``); the first write into a block another holder still
+maps copies it first (``make_writable``). The index holds one refcount
+per published block, so a cached block outlives its sequences and is
+reclaimed (LRU, leaf first) only under allocation pressure and only when
+no live sequence maps it.
+
+The copy-on-write copies IN PLACE: the shared block's K and V rows (and
+an int8 pool's scale rows) are copied into the fresh block of the same
+tensors on the current stream, so no pool tensor is ever replaced. A
+captured decode graph keeps the pools' addresses, and a copy enqueued
+before a replay on the same stream is seen by it. The reference's content
+checksums and quarantine (``kv_checksums``) and its mesh layout are not
+ported (ROADMAP A5, A7).
 """
 from __future__ import annotations
 
@@ -20,7 +38,61 @@ import torch
 
 from .._device import resolve_device
 
-__all__ = ["PagedKVCachePool"]
+__all__ = ["PagedKVCachePool", "prompt_prefix_key"]
+
+_FNV_OFFSET = 0xCBF29CE484222325
+_FNV_PRIME = 0x100000001B3
+_MASK64 = (1 << 64) - 1
+
+
+def _chain_hash(parent_hash, tokens):
+    """Rolling FNV-1a over one block's token ids, seeded by the parent
+    block's chain hash: the same content at another prefix depth hashes
+    differently. A hit is still verified against the stored key material
+    before any alias."""
+    h = (int(parent_hash) ^ _FNV_OFFSET) & _MASK64
+    for t in tokens:
+        h ^= int(t) & 0xFFFFFFFF
+        h = (h * _FNV_PRIME) & _MASK64
+    return h
+
+
+def prompt_prefix_key(tokens, block_size, max_blocks=None):
+    """The content address of a prompt's leading FULL blocks: the chain
+    key :class:`PagedKVCachePool`'s index stores for the same tokens
+    (chained from parent hash 0 over each full ``block_size`` slice; the
+    trailing partial block never enters it). ``max_blocks`` caps the walk.
+    Returns the final 64-bit chain hash, or ``None`` when the prompt has
+    no full block."""
+    bs = int(block_size)
+    if bs <= 0:
+        raise ValueError(f"block_size must be positive, got {bs}")
+    n = len(tokens) // bs
+    if max_blocks is not None:
+        n = min(n, int(max_blocks))
+    if n <= 0:
+        return None
+    h = 0
+    for i in range(n):
+        h = _chain_hash(h, tuple(int(t) for t in tokens[i * bs:(i + 1) * bs]))
+    return h
+
+
+class _PrefixEntry:
+    """One published full block, a node of the prefix-chain trie. The
+    index holds ONE refcount on ``block`` while the entry lives; the
+    ``parent`` entry and the token tuple are the key material verified
+    behind the chain hash."""
+
+    __slots__ = ("hash", "parent", "tokens", "block", "nchildren", "tick")
+
+    def __init__(self, hash_, parent, tokens, block, tick):
+        self.hash = hash_
+        self.parent = parent
+        self.tokens = tokens
+        self.block = block
+        self.nchildren = 0
+        self.tick = tick
 
 
 class PagedKVCachePool:
@@ -36,6 +108,9 @@ class PagedKVCachePool:
             (num_blocks, block_size, num_kv_heads) f32: one abs-max
             scale per written KV row, written beside the row and read
             by the attention's dequant. ``None`` keeps float pools.
+        prefix_cache: turn on the content-addressed prefix index
+            (``attach_prefix`` / ``publish_prefix`` / ``make_writable``);
+            off by default, when the pool behaves as an unshared one.
         device: where the pools live (default ``cuda``; raises without
             CUDA unless ``"cpu"`` is asked for).
     """
@@ -43,9 +118,6 @@ class PagedKVCachePool:
     def __init__(self, num_blocks, block_size, num_kv_heads, head_dim,
                  num_layers=1, dtype=torch.bfloat16, prefix_cache=False,
                  kv_dtype=None, device=None):
-        if prefix_cache:
-            raise NotImplementedError(
-                "the prefix cache is not ported yet (ROADMAP A4)")
         if kv_dtype not in (None, "int8"):
             raise ValueError(
                 f"unsupported kv_dtype {kv_dtype!r} (None or 'int8')")
@@ -80,6 +152,18 @@ class PagedKVCachePool:
         self._refcounts: dict = {}  # block id -> holders (>= 1 while out)
         self._peak_blocks = 0       # high-water mark of blocks_in_use
         self._freed_total = 0       # blocks returned over the pool's life
+        # the content-addressed prefix index (enable_prefix_cache)
+        self._prefix_enabled = False
+        self._prefix_buckets: dict = {}  # chain hash -> [_PrefixEntry]
+        self._cached_blocks: dict = {}   # block id -> its entry
+        self._prefix_tick = 0            # LRU clock of the eviction
+        self.prefix_hits = 0             # blocks served from the index
+        self.prefix_misses = 0           # full blocks that had to be built
+        self.cow_copies = 0              # copy-on-write block copies
+        self.prefix_aliases = 0          # blocks the index aliased
+        self.prefix_evictions = 0        # entries reclaimed or cleared
+        if prefix_cache:
+            self.enable_prefix_cache()
 
     @property
     def quantized(self):
@@ -89,7 +173,12 @@ class PagedKVCachePool:
 
     # -- allocator ---------------------------------------------------------
     def _alloc_block(self):
-        """Pop one free block; it is born refcounted."""
+        """Pop one free block, reclaiming a cached-only prefix block (LRU)
+        when the free list is dry. The block is born refcounted, so a
+        stats snapshot taken in the middle of a copy-on-write never sees
+        an allocated but untracked block."""
+        if not self._free:
+            self.evict_prefix(1)
         if not self._free:
             raise RuntimeError(
                 f"KV pool exhausted ({self.num_blocks} blocks)")
@@ -111,14 +200,14 @@ class PagedKVCachePool:
     def grow_decode_table(self, seq_id, need_tokens, written_tokens,
                           pad_to=None, cow=False):
         """Grow ``seq_id``'s table to cover ``need_tokens`` before a decode
-        dispatch and return its padded host int32 row. ``written_tokens``
-        and ``cow`` serve the prefix cache's copy-on-write, which is not
-        ported yet."""
-        if cow:
-            raise NotImplementedError(
-                "copy-on-write needs the prefix cache (ROADMAP A4)")
+        dispatch (K quanta ahead; admission reserved the request's worst
+        case), copy-on-write the range ``[written_tokens, need_tokens)``
+        the dispatch will write when ``cow``, and return the padded host
+        int32 row the dispatch stages."""
         if need_tokens > self.seq_len(seq_id):
             self.ensure(seq_id, need_tokens)
+        if cow:
+            self.make_writable(seq_id, int(written_tokens), int(need_tokens))
         return self.block_table_array([seq_id], pad_to=pad_to)[0]
 
     def share(self, src_seq_id, dst_seq_id):
@@ -136,9 +225,239 @@ class PagedKVCachePool:
         self._lens[dst_seq_id] = self._lens.get(src_seq_id, 0)
         return self._tables[dst_seq_id]
 
+    # -- content-addressed prefix cache ------------------------------------
+    def enable_prefix_cache(self):
+        """Turn on the prefix index (off by default: an unshared pool never
+        walks the index or copies a block)."""
+        self._prefix_enabled = True
+
+    @property
+    def prefix_cache_enabled(self):
+        return self._prefix_enabled
+
+    @property
+    def cached_blocks(self):
+        """Blocks the prefix index holds (resident; reclaimable once no
+        live sequence maps them)."""
+        return len(self._cached_blocks)
+
+    def _full_blocks(self, tokens):
+        return len(tokens) // self.block_size
+
+    def _block_tokens(self, tokens, i):
+        bs = self.block_size
+        return tuple(int(t) for t in tokens[i * bs:(i + 1) * bs])
+
+    def _find(self, h, parent, blk_toks):
+        """The verified entry under chain hash ``h``: a hash match alone
+        never aliases, the parent entry and the token tuple must match."""
+        for e in self._prefix_buckets.get(h, ()):
+            if e.parent is parent and e.tokens == blk_toks:
+                return e
+        return None
+
+    def _match_entries(self, tokens, max_blocks=None):
+        """The longest verified entry chain over ``tokens``' full
+        blocks."""
+        if not self._prefix_enabled:
+            return []
+        n = self._full_blocks(tokens)
+        if max_blocks is not None:
+            n = min(n, int(max_blocks))
+        entries, parent, h = [], None, 0
+        for i in range(n):
+            blk_toks = self._block_tokens(tokens, i)
+            h = _chain_hash(h, blk_toks)
+            hit = self._find(h, parent, blk_toks)
+            if hit is None:
+                break
+            entries.append(hit)
+            parent = hit
+        return entries
+
+    def match_prefix(self, tokens):
+        """Cached tokens a new sequence with this prompt could alias (a
+        whole number of full blocks; 0 when the cache is off or cold)."""
+        return len(self._match_entries(tokens)) * self.block_size
+
+    def prefix_match_stats(self, tokens, max_blocks=None):
+        """What a lookup would alias, and how many of those blocks are
+        evictable now (the index their sole holder): attaching pins them,
+        so the scheduler's novel-demand check takes them out of the
+        reclaimable set."""
+        entries = self._match_entries(tokens, max_blocks=max_blocks)
+        ev = sum(1 for e in entries if self._refcounts.get(e.block) == 1)
+        return {"matched_blocks": len(entries),
+                "matched_tokens": len(entries) * self.block_size,
+                "evictable": ev}
+
+    def attach_prefix(self, seq_id, tokens, max_blocks=None):
+        """Alias the longest cached chain of ``tokens``' full blocks into
+        a NEW table for ``seq_id`` (refcounts bumped; the sequence starts
+        that many tokens deep). Returns the aliased token count and counts
+        the lookup (hits: aliased blocks; misses: the prompt's other full
+        blocks), so call it once per admission, cold cache included."""
+        if not self._prefix_enabled:
+            return 0
+        if seq_id in self._tables:
+            raise ValueError(f"sequence {seq_id!r} already exists")
+        entries = self._match_entries(tokens, max_blocks=max_blocks)
+        self.prefix_hits += len(entries)
+        self.prefix_misses += max(self._full_blocks(tokens) - len(entries),
+                                  0)
+        if not entries:
+            return 0
+        self._prefix_tick += 1
+        for e in entries:
+            self._refcounts[e.block] += 1
+            e.tick = self._prefix_tick
+        self._tables[seq_id] = [e.block for e in entries]
+        self._lens[seq_id] = len(entries) * self.block_size
+        self.prefix_aliases += len(entries)
+        return len(entries) * self.block_size
+
+    def publish_prefix(self, seq_id, tokens):
+        """Publish ``seq_id``'s written FULL blocks covering ``tokens``
+        into the index (at prefill completion, when their KV is in the
+        pool). Each new entry holds one refcount on its block. Chain
+        positions already indexed keep their entry; a block that already
+        backs another entry stops the walk. Returns the number of blocks
+        newly published."""
+        if not self._prefix_enabled:
+            return 0
+        table = self._tables.get(seq_id)
+        if table is None:
+            return 0
+        n = min(self._full_blocks(tokens), len(table))
+        self._prefix_tick += 1
+        parent, h, published = None, 0, 0
+        for i in range(n):
+            blk_toks = self._block_tokens(tokens, i)
+            h = _chain_hash(h, blk_toks)
+            hit = self._find(h, parent, blk_toks)
+            if hit is None:
+                blk = table[i]
+                if blk in self._cached_blocks:
+                    break
+                hit = _PrefixEntry(h, parent, blk_toks, blk,
+                                   self._prefix_tick)
+                self._prefix_buckets.setdefault(h, []).append(hit)
+                self._cached_blocks[blk] = hit
+                self._refcounts[blk] += 1
+                if parent is not None:
+                    parent.nchildren += 1
+                published += 1
+            else:
+                hit.tick = self._prefix_tick
+            parent = hit
+        return published
+
+    def _pool_tensors(self):
+        """Every device tensor of the pool: K and V, and an int8 pool's
+        scale pools."""
+        return (*self.k_pools, *self.v_pools, *self.k_scales,
+                *self.v_scales)
+
+    def make_writable(self, seq_id, start_token, end_token):
+        """Copy-on-write before a forward writes KV at positions
+        ``[start_token, end_token)``: every block of that range that
+        another holder (a sequence or the index) still maps is replaced in
+        ``seq_id``'s table by a fresh block holding a copy of its rows,
+        and the shared block is decref'd. The copy runs in place on the
+        current stream, layer by layer: K and V rows, and an int8 pool's
+        scale rows (a block's content, without which the writer's new
+        scales would corrupt the sharer's dequantized values). Returns the
+        number of blocks copied."""
+        table = self._tables.get(seq_id)
+        if not table or end_token <= start_token:
+            return 0
+        bs = self.block_size
+        lo = max(int(start_token) // bs, 0)
+        hi = min((int(end_token) - 1) // bs, len(table) - 1)
+        copies = 0
+        for j in range(lo, hi + 1):
+            blk = table[j]
+            if self._refcounts.get(blk, 1) <= 1:
+                continue
+            fresh = self._alloc_block()
+            for t in self._pool_tensors():
+                t[fresh].copy_(t[blk])
+            table[j] = fresh
+            self._release([blk])
+            copies += 1
+            self.cow_copies += 1
+        if copies:
+            self._peak_blocks = max(self._peak_blocks, self.blocks_in_use)
+        return copies
+
+    def evictable_prefix_blocks(self):
+        """Cached blocks reclaimable now: the index their sole holder."""
+        return sum(1 for b in self._cached_blocks
+                   if self._refcounts.get(b) == 1)
+
+    def _drop_entry(self, e):
+        bucket = self._prefix_buckets.get(e.hash, [])
+        bucket.remove(e)
+        if not bucket:
+            self._prefix_buckets.pop(e.hash, None)
+        if e.parent is not None:
+            e.parent.nchildren -= 1
+        del self._cached_blocks[e.block]
+        self._release([e.block])
+        self.prefix_evictions += 1
+
+    def evict_prefix(self, n):
+        """Reclaim up to ``n`` cached blocks: LRU over LEAF entries (a
+        dropped mid-chain node would orphan its descendants) whose block
+        the index alone holds, so a block a live sequence maps is never
+        taken. Returns the blocks reclaimed."""
+        freed = 0
+        while freed < n:
+            best = None
+            for b, e in self._cached_blocks.items():
+                if e.nchildren or self._refcounts.get(b) != 1:
+                    continue
+                if best is None or e.tick < best.tick:
+                    best = e
+            if best is None:
+                break
+            self._drop_entry(best)
+            freed += 1
+        return freed
+
+    def clear_prefix_cache(self):
+        """Release every index hold, leaves first. With the sequences
+        freed too, ``free_blocks`` is then ``num_blocks``. Returns the
+        entries dropped."""
+        dropped = 0
+        while self._cached_blocks:
+            leaves = [e for e in self._cached_blocks.values()
+                      if e.nchildren == 0]
+            if not leaves:  # chains are trees
+                raise RuntimeError("prefix index has no leaf entries")
+            for e in leaves:
+                self._drop_entry(e)
+                dropped += 1
+        return dropped
+
+    def prefix_cache_stats(self):
+        """The index's monotonic counters and occupancy (raises on
+        accounting drift, as ``fragmentation_stats``)."""
+        self._check_accounting()
+        return {
+            "hits": self.prefix_hits,
+            "misses": self.prefix_misses,
+            "cow_copies": self.cow_copies,
+            "aliased_blocks": self.prefix_aliases,
+            "evictions": self.prefix_evictions,
+            "cached_blocks": self.cached_blocks,
+            "evictable_blocks": self.evictable_prefix_blocks(),
+        }
+
     def _check_accounting(self):
-        """Invariants tying the free list, the refcount map and the tables
-        together; raises on drift instead of publishing wrong numbers."""
+        """Invariants tying the free list, the refcount map, the tables
+        and the prefix index together; raises on drift instead of
+        publishing wrong numbers."""
         held = set(self._refcounts)
         if len(held) != self.blocks_in_use:
             raise RuntimeError(
@@ -148,7 +467,7 @@ class PagedKVCachePool:
         if stale:
             raise RuntimeError(
                 f"blocks {sorted(stale)} are both free and refcounted")
-        mapped = set()
+        mapped = set(self._cached_blocks)
         for table in self._tables.values():
             mapped.update(table)
         untracked = mapped - held
@@ -198,8 +517,11 @@ class PagedKVCachePool:
         return -(-int(total_tokens) // self.block_size)
 
     def can_allocate(self, total_tokens):
-        """Could a NEW sequence of ``total_tokens`` be allocated now?"""
-        return self.blocks_needed(total_tokens) <= len(self._free)
+        """Could a NEW sequence of ``total_tokens`` be allocated now?
+        Cached-only prefix blocks count: ``_alloc_block`` evicts them on
+        demand."""
+        return (self.blocks_needed(total_tokens)
+                <= len(self._free) + self.evictable_prefix_blocks())
 
     def seq_len(self, seq_id):
         return self._lens.get(seq_id, 0)
@@ -229,6 +551,8 @@ class PagedKVCachePool:
                 c = min(bs, max(length - j * bs, 0))
                 if c > coverage.get(blk, 0):
                     coverage[blk] = c
+        for blk in self._cached_blocks:
+            coverage[blk] = bs  # published blocks are full
         live = sum(coverage.values())
         cap = self.blocks_in_use * self.block_size
         shared = sum(1 for n in self._refcounts.values() if n > 1)
@@ -242,7 +566,7 @@ class PagedKVCachePool:
             "tail_waste_tokens": cap - live,
             "utilization": (live / cap) if cap else 1.0,
             "shared_blocks": shared,
-            "cached_blocks": 0,
+            "cached_blocks": len(self._cached_blocks),
             "kv_dtype": str(self.k_pools[0].dtype).removeprefix("torch."),
             "bytes_in_use": self.bytes_in_use(),
             "per_chip_bytes_in_use": self.bytes_in_use(),

@@ -34,10 +34,21 @@ or on how steps group into quanta. int8 serving:
 ``quantize="weight_only_int8"`` sweeps the model's Linears to int8
 weights with per-channel scales, and ``kv_dtype="int8"`` keeps int8 pools
 with per-row scale pools, every written row quantized by its own abs-max
-(the quantum's attention is K2's per-row mode). Observability, SLOs, the
-flight recorder, fault injection, resilience, speculative decoding,
-tensor parallelism and the prefix cache are later slices (ROADMAP A2,
-A4, A5, A7); the engine does not take their options.
+(the quantum's attention is K2's per-row mode).
+
+``prefix_cache=True`` turns on the pool's content-addressed prefix cache:
+admission aliases the longest cached chain of a request's full prompt
+blocks into its table and its prefill starts after them (one token short
+of a fully cached prompt, whose last token is prefilled again to emit the
+first token); at prefill completion the prompt's full blocks are
+published. A write into a block another holder maps copies it first
+(copy-on-write), in the mixed step before the forward and in the decode
+dispatch before the mirrors are staged. The copy is made in place on the
+current stream, so the captured quantum's pool addresses never change and
+its replay sees the copy. Observability, SLOs, the flight recorder, fault
+injection, resilience, speculative decoding and tensor parallelism are
+later slices (ROADMAP A2, A5, A7); the engine does not take their
+options.
 """
 from __future__ import annotations
 
@@ -275,6 +286,15 @@ class ServingEngine:
             port of the reference's ``_fused_paged_decode_attn`` instead
             of the gather, the port held to the reference's in the CPU
             tests. Streams are equal.
+        prefix_cache: content-addressed prefix caching (default off).
+            Requests sharing full prompt blocks with a published prompt
+            skip their prefill (the shared-system-prompt case) and alias
+            the blocks instead of holding copies; admission counts only
+            their novel blocks; a write into a shared block copies it in
+            place first. Greedy streams equal the unshared engine's in
+            f32 (in bf16 the mixed batches differ in rows, so a near-tie
+            may part). ``engine_stats()["prefix_cache"]`` holds the
+            pool's counters.
         device: default ``cuda``; raises without CUDA unless ``"cpu"``.
 
     On the card the decode quantum runs only as a captured CUDA graph,
@@ -292,7 +312,8 @@ class ServingEngine:
                  decode_strategy="greedy", top_k=0, top_p=1.0,
                  temperature=1.0, eos_token_id=None,
                  per_request_sampling=False, quantize=None, kv_dtype=None,
-                 multi_quantum=1, attn_impl="gather", device=None):
+                 multi_quantum=1, attn_impl="gather", prefix_cache=False,
+                 device=None):
         cfg = model.config
         if getattr(cfg, "sliding_window", None):
             raise NotImplementedError(
@@ -313,6 +334,7 @@ class ServingEngine:
             raise ValueError(
                 f"attn_impl must be gather|fused, got {attn_impl!r}")
         self.attn_impl = attn_impl
+        self.prefix_cache = bool(prefix_cache)
         self._mq_max = int(multi_quantum)
         if self._mq_max < 1:
             raise ValueError(
@@ -353,8 +375,10 @@ class ServingEngine:
         self.pool = PagedKVCachePool(
             num_blocks, bs, cfg.num_key_value_heads, cfg.head_dim,
             num_layers=cfg.num_hidden_layers, dtype=cache_dtype,
-            kv_dtype=kv_dtype, device=self.device)
-        # masked (retired/empty) rows dump their KV writes here
+            prefix_cache=self.prefix_cache, kv_dtype=kv_dtype,
+            device=self.device)
+        # masked (retired/empty) rows dump their KV writes here (a pool
+        # sequence of its own: never published, never evicted)
         self._scratch_block = self.pool.ensure("__scratch__", 1)[0]
         self.scheduler = Scheduler(self.config, self.pool, reserved_blocks=1)
         self._table_width = w
@@ -503,6 +527,8 @@ class ServingEngine:
         if self.stats["steps"]:
             out["mean_occupancy"] = (self.stats["occupancy_sum"]
                                      / self.stats["steps"])
+        if self.prefix_cache:
+            out["prefix_cache"] = self.pool.prefix_cache_stats()
         return out
 
     # -- scheduling --------------------------------------------------------
@@ -511,7 +537,15 @@ class ServingEngine:
         for req in self.scheduler.try_admit():
             req.admit_time = now
             slot = req.slot
-            self._seq_lens[slot] = 0
+            cached = 0
+            if self.prefix_cache and req.cached_prefix_tokens:
+                # never skip the whole prefill source: its last token is
+                # prefilled again so that completion emits a token, and
+                # that write copies a fully cached tail block
+                cached = min(req.cached_prefix_tokens,
+                             req.prefill_target - 1)
+                req.prefill_pos = cached
+            self._seq_lens[slot] = cached
             self._n_gen[slot] = 0
             self._done[slot] = True  # not decodable until prefill ends
             self._max_new[slot] = req.max_new_tokens
@@ -595,16 +629,24 @@ class ServingEngine:
             enc_lens.append(n)
             dec_lens.append(req.prefill_pos)
             self.pool.ensure(req.req_id, req.prefill_pos + n)
+            if self.prefix_cache:
+                # copy-on-write before the forward writes the chunk
+                self.pool.make_writable(req.req_id, req.prefill_pos,
+                                        req.prefill_pos + n)
         for req in dec:
             slot = req.slot
+            seq = int(self._seq_lens[slot])
             toks.append(np.asarray([self._last_tok[slot]], np.int32))
             this_time.append(1)
             enc_lens.append(0)
-            dec_lens.append(int(self._seq_lens[slot]))
-            self.pool.ensure(req.req_id, int(self._seq_lens[slot]) + 1)
+            dec_lens.append(seq)
+            self.pool.ensure(req.req_id, seq + 1)
+            if self.prefix_cache:
+                self.pool.make_writable(req.req_id, seq, seq + 1)
         ids = np.concatenate(toks).astype(np.int32)
         self.stats["prefill_tokens"] += int(sum(enc_lens))
         cu = np.concatenate([[0], np.cumsum(this_time)]).astype(np.int64)
+        # read after the copy-on-write: the tables name the fresh blocks
         tables = self.pool.block_table_array(
             [r.req_id for r in rows], pad_to=self._table_width)
         hidden = self._mixed_forward(tables, enc_lens, dec_lens, this_time,
@@ -631,6 +673,12 @@ class ServingEngine:
                 req.prefill_pos += this_time[i]
                 self._seq_lens[slot] = req.prefill_pos
                 if req.prefill_pos >= req.prefill_target:
+                    if self.prefix_cache:
+                        # the whole prefill source is in the pool: publish
+                        # its full blocks for the next request to alias
+                        self.pool.publish_prefix(req.req_id,
+                                                 req.prefill_src)
+                        self.scheduler.clear_cow_debt(req)
                     tok = int(nxt[need.index(i)])
                     if req.first_token_time is None:
                         req.first_token_time = now
@@ -696,9 +744,7 @@ class ServingEngine:
             d[name].copy_(val)
 
     def _pool_ptrs(self):
-        pool = self.pool
-        return tuple(t.data_ptr() for t in (*pool.k_pools, *pool.v_pools,
-                                            *pool.k_scales, *pool.v_scales))
+        return tuple(t.data_ptr() for t in self.pool._pool_tensors())
 
     def _run_quanta(self, k):
         """Run ``k`` quanta on the staged state: eagerly on the CPU (or
@@ -747,13 +793,15 @@ class ServingEngine:
         for req in rows:
             # cover the whole dispatch (K quanta) before entering the
             # device loop, capped by the request's own prompt + max_new
-            # bound, which admission reserved
+            # bound, which admission reserved; with the prefix cache, copy
+            # the shared blocks of that range first (before the mirrors
+            # are staged, on the stream the graph replays on)
             slot = req.slot
             cap = req.prompt_len + req.max_new_tokens - 1
             need = min(int(self._seq_lens[slot]) + k * t_steps, cap)
             row = self.pool.grow_decode_table(
                 req.req_id, need, int(self._seq_lens[slot]),
-                pad_to=self._table_width)
+                pad_to=self._table_width, cow=self.prefix_cache)
             self._tables[slot] = row[:self._table_width]
         st = self._state
         for name in _STAGED:

@@ -11,8 +11,14 @@ a request is admitted only when its WORST-CASE block demand
 (``ceil((prompt + max_new) / block_size)``) fits under the pool capacity
 left unreserved by in-flight requests, so the pool can never exhaust
 mid-decode. Preemption evicts a live request and requeues it at the head
-of its class as a longer prompt (recompute-on-resume). The prefix-cache
-branches stay for parity; the port's pool reports the cache as off.
+of its class as a longer prompt (recompute-on-resume). With the pool's
+prefix cache on (``prefix_cache=True``), admission aliases the longest
+cached chain of the prefill source into the request's table
+(``_attach``) and the fit check counts only NOVEL block demand: each live
+request's remaining growth and pending copy-on-write debt, and the
+candidate's ``demand - matched``, against the free list plus what prefix
+eviction can reclaim (``_fits``). With the cache off the check is the
+static worst-case reservation.
 """
 from __future__ import annotations
 

@@ -1315,3 +1315,110 @@ def test_cuda_captured_generate_equals_eager(cuda, window, monkeypatch):
         assert runs[0][1] == runs[1][1] == runs[2][1]
         assert runs[1][1]["decode_attention"] == 2 * 29
         assert kept[1] is kept[2] and kept[1].graph.graph is not None
+
+
+# ------------------------------------------------ prefix cache, captured
+def _prefix_prompts():
+    """A 32-token system prompt (2 blocks of 16) with tails; the bare
+    system prompt (fully cached: its last token is prefilled again into a
+    shared block) and a repeat of the first prompt."""
+    rng = np.random.RandomState(3)
+    system = rng.randint(1, 512, 32).astype(np.int32)
+    first = np.concatenate([system, rng.randint(1, 512, 16)]).astype(
+        np.int32)
+    tails = [rng.randint(1, 512, n).astype(np.int32) for n in (5, 21, 40)]
+    return [first] + [np.concatenate([system, t]) for t in tails] + [
+        system.copy(), first.copy()]
+
+
+def _prefix_run(model, eager=False, pairs=False, **kw):
+    """The first prompt runs to its first token (its chain is published),
+    then the rest are submitted. Every pool tensor must keep its address,
+    every copy-on-write must hold its source's rows (scale rows included);
+    each copied source is returned with its rows at the copy, so that the
+    caller can show they never change while the index holds it."""
+    engine = create_serving_engine(model, **_GRAPH_KW, **kw)
+    engine._eager = eager
+    pool = engine.pool
+    tensors = pool._pool_tensors()
+    ptrs, copies = engine._pool_ptrs(), []
+    orig = pool.make_writable
+
+    def audited(seq_id, start, end):
+        table = list(pool._tables.get(seq_id, ()))
+        n = orig(seq_id, start, end)
+        assert engine._pool_ptrs() == ptrs
+        for old, new in zip(table, pool._tables.get(seq_id, ())):
+            if old != new:
+                rows = [t[old].clone() for t in tensors]
+                assert all(torch.equal(t[new], r)
+                           for t, r in zip(tensors, rows))
+                copies.append((old, rows))
+        return n
+
+    pool.make_writable = audited
+    prompts = _prefix_prompts()
+    first = engine.submit(prompts[0], max_new_tokens=12, seed=0)
+    while not first.tokens:
+        engine.step()
+    reqs = [first] + [engine.submit(p, max_new_tokens=9 + i, seed=i)
+                      for i, p in enumerate(prompts[1:])]
+    ops.reset_launches()
+    while engine.has_work:
+        if pairs:
+            pending = engine.step_dispatch()
+            engine.step_collect(pending)
+        else:
+            engine.step()
+    assert engine._pool_ptrs() == ptrs
+    assert engine._graph_pools in (None, ptrs)
+    assert pool.blocks_in_use == 1 + pool.cached_blocks
+    return engine, [r.tokens for r in reqs], dict(ops.LAUNCHES), copies
+
+
+@pytest.mark.cuda
+def test_cuda_captured_prefix_engine_equals_eager_and_unshared(cuda):
+    """The prefix cache under the captured quantum, tiny and in f32: the
+    captured engine's streams and launches equal its eager body's and its
+    streams equal the unshared engine's; copies are made in place (no pool
+    tensor moves) and the shared sources keep their rows."""
+    model = _tiny_cuda_model(cuda)
+    eager, e_streams, e_launches, _ = _prefix_run(model, eager=True,
+                                                  prefix_cache=True)
+    eng, streams, launches, copies = _prefix_run(model, prefix_cache=True)
+    base, b_streams, _, _ = _prefix_run(model)
+    assert eager._graph is None and eng._graph is not None
+    assert streams == e_streams == b_streams
+    assert launches == e_launches
+    st = eng.engine_stats()["prefix_cache"]
+    assert st["hits"] > 0 and st["cow_copies"] == len(copies) >= 2
+    assert eng.stats["prefill_tokens"] < base.stats["prefill_tokens"]
+    # the copied sources are still cached, and no later write reached them
+    kept = [(b, rows) for b, rows in copies if b in eng.pool._cached_blocks]
+    assert kept
+    for b, rows in kept:
+        assert all(torch.equal(t[b], r)
+                   for t, r in zip(eng.pool.k_pools + eng.pool.v_pools, rows))
+
+
+@pytest.mark.cuda
+def test_cuda_prefix_cow_under_multi_quantum_dispatch_collect(cuda):
+    """Copy-on-write under ``multi_quantum=4`` driven by ``step_dispatch``
+    / ``step_collect``, int8 KV pools included (scale rows are copied
+    too): streams equal ``step()`` at K=1 and the graph keeps its pool
+    addresses."""
+    model = _tiny_cuda_model(cuda)
+    for kw in ({}, dict(kv_dtype="int8")):
+        one, want, _, _ = _prefix_run(model, prefix_cache=True, **kw)
+        eng, got, launches, copies = _prefix_run(
+            model, pairs=True, prefix_cache=True, multi_quantum=4, **kw)
+        assert got == want
+        assert eng._graph is not None and len(copies) >= 2
+        assert eng.stats["decode_quanta"] > eng.stats["steps"] - \
+            eng.stats["mixed_steps"]
+        k2 = ("paged_decode_attention_int8_rows" if kw
+              else "paged_decode_attention")
+        assert launches[k2] > 0
+        if kw:
+            # the copied scale rows are live ones
+            assert all(rows[-1].abs().sum() > 0 for _, rows in copies)

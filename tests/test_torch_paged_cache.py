@@ -11,12 +11,12 @@ from paddle_tpu.nlp import PagedKVCachePool as RefPool
 from paddle_tpu_torch.nlp import PagedKVCachePool
 
 
-def _pools(num_blocks=24, bs=4, kv_dtype=None):
+def _pools(num_blocks=24, bs=4, kv_dtype=None, prefix_cache=False):
     ref = RefPool(num_blocks, bs, 2, 8, num_layers=2, dtype=jnp.float32,
-                  kv_dtype=kv_dtype)
+                  kv_dtype=kv_dtype, prefix_cache=prefix_cache)
     port = PagedKVCachePool(num_blocks, bs, 2, 8, num_layers=2,
                             dtype=torch.float32, kv_dtype=kv_dtype,
-                            device="cpu")
+                            prefix_cache=prefix_cache, device="cpu")
     return ref, port
 
 
@@ -104,8 +104,16 @@ def test_pools_are_device_tensors_written_in_place():
     assert port.k_pools[0].dtype == torch.bfloat16
     assert port.fragmentation_stats()["kv_dtype"] == "bfloat16"
     assert not port.quantized and port.k_scales == []
-    with pytest.raises(NotImplementedError, match="prefix"):
-        PagedKVCachePool(8, 4, 2, 8, prefix_cache=True, device="cpu")
+    # the prefix cache: an attach of a published chain, equal to the
+    # reference's
+    ref, cached = _pools(num_blocks=8, prefix_cache=True)
+    assert cached.prefix_cache_enabled and not port.prefix_cache_enabled
+    toks = np.arange(8, dtype=np.int32)
+    for pool in (ref, cached):
+        pool.ensure("a", 8)
+        assert pool.publish_prefix("a", toks) == 2
+        assert pool.attach_prefix("b", toks) == 8
+    _same(ref, cached, ["a", "b"])
     # int8 pools: int8 block buffers beside per-row f32 scale pools
     q8 = PagedKVCachePool(8, 4, 2, 8, num_layers=3, dtype=torch.bfloat16,
                           kv_dtype="int8", device="cpu")
@@ -118,8 +126,15 @@ def test_pools_are_device_tensors_written_in_place():
     assert q8.fragmentation_stats()["kv_dtype"] == "int8"
     with pytest.raises(ValueError, match="kv_dtype"):
         PagedKVCachePool(8, 4, 2, 8, kv_dtype="fp8", device="cpu")
-    with pytest.raises(NotImplementedError, match="copy-on-write"):
-        port.grow_decode_table("a", 4, 0, cow=True)
+    # copy-on-write through the decode dispatch's call: the written block
+    # is copied in place, the table equals the reference's
+    ptrs = [t.data_ptr() for t in cached.k_pools + cached.v_pools]
+    np.testing.assert_array_equal(
+        np.asarray(ref.grow_decode_table("b", 10, 7, pad_to=4, cow=True)),
+        cached.grow_decode_table("b", 10, 7, pad_to=4, cow=True))
+    assert cached.cow_copies == ref.cow_copies == 1
+    assert [t.data_ptr() for t in cached.k_pools + cached.v_pools] == ptrs
+    _same(ref, cached, ["a", "b"])
 
 
 def test_int8_pool_accounting_equals_reference():
