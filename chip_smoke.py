@@ -153,7 +153,29 @@ Phases (any failure raises and the script exits non-zero):
     wall; the mixed step of one hit row under torch.profiler; then, at
     Llama-2-7B width with 4 layers in f32, the cached engine's greedy
     streams against the unshared engine's (a parting passes only as a
-    runner-up swap, as in phase 12).
+    runner-up swap, as in phase 12);
+15. speculative serving (run last on phase 3's Llama-2-7B bf16 model,
+    after phase 14): a stand-in draft of one layer that shares the
+    target's embedding, layer 0, final norm and lm head, the target's
+    layers 1-31 with ``o_proj`` and ``down_proj`` scaled by 0.01
+    (``scripts/bench_serving.py``'s ``_spec_pair``), and an independent
+    seeded one-layer draft. (a) phase 3's requests and knobs through
+    ``create_serving_engine(spec_draft=stand-in, spec_gamma=4)``, the
+    round a captured CUDA graph, counters zeroed just before and read
+    just after (the ``spec_serving`` path): wall, tokens/s, time to first
+    token, acceptance, rounds, target forwards per token, peak memory,
+    beside the plain engine on the same trace (bf16 greedy agreement)
+    and the round's eager body (equal streams); (b) steady-state decode
+    capacity, the reference row ``scripts/bench_serving.py:1367`` (γ = 8,
+    8 live slots, block 32, max_context 1,792, 128-token prompts):
+    interleaved windows of rounds and plain quanta, the median of 5 per
+    draft, the round's wall, host and device ms, busy share, launches,
+    profile, and the verify attention's products and gather split out of
+    one eager round; (c) f32 at Llama-2-7B width with 4 layers: greedy
+    speculative streams equal the plain engine's for both drafts, and
+    sampling with the target as its own draft equals the plain sampling
+    engine's with every proposal accepted. Both pools drain to their
+    scratch block in every run.
 
 The line before the last is the ``{"kernels": [...]}`` record (each
 kernel's launches come from the run of the path that carries it: K1-K3
@@ -163,7 +185,8 @@ phase 8, K8 the packed training run of phase 9, the f32 K8 and K3 the f32
 packed kernel run of phase 10, K2's per-row int8 mode the int8-KV serving run
 of phase 11, its static int8 arm and its float-pool scaled mode the two
 runs of phase 12; ``launches_by_path`` has every path's count, phase 14's
-cached float and int8-KV runs among them); the last
+cached float and int8-KV runs and phase 15's ``spec_serving`` among them);
+the last
 line is ``{"ok": true, "device": {...}}``.
 Without CUDA it prints no result and exits 2.
 """
@@ -1171,6 +1194,9 @@ def serve(torch, model, requests, residency_at=None, on_engine=None,
 
     engine._decode_dispatch = timed_dispatch
     engine._decode_collect = timed_collect
+    if engine.spec_draft is not None:
+        # a speculative round runs to completion inside step_dispatch
+        engine._spec_round_step = timed(engine._spec_round_step, "decode_s")
     reqs = [engine.submit(**r) for r in requests]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1188,10 +1214,12 @@ def check_run(engine, reqs, vocab):
               f"{len(r.tokens)}/{r.max_new_tokens} tokens")
         check(all(0 <= t < vocab for t in r.tokens),
               f"request {r.req_id} emitted a token outside the vocabulary")
-    # the scratch block, and the blocks a prefix cache holds
-    st = engine.pool.fragmentation_stats()
-    check(st["blocks_in_use"] == 1 + engine.pool.cached_blocks,
-          f"pool did not drain to the scratch block: {st}")
+    # the scratch block, and the blocks a prefix cache holds (in the
+    # draft's pool too)
+    for pool in engine._pools():
+        st = pool.fragmentation_stats()
+        check(st["blocks_in_use"] == 1 + pool.cached_blocks,
+              f"pool did not drain to the scratch block: {st}")
 
 
 def e2e_phase(torch, dev, smi):
@@ -1252,10 +1280,12 @@ def e2e_phase(torch, dev, smi):
                   tag="_sampling", **SAMPLING)
     # phase 14 on the same model: no second 7B model is built
     prefix_launches = prefix_phase(torch, dev, smi, model)
+    # phase 15 last on it: its stand-in draft scales the model's tails
+    spec_launches = spec_phase(torch, dev, smi, model, requests)
     del model
     gc.collect()
     torch.cuda.empty_cache()
-    return launches, prefix_launches
+    return launches, {**prefix_launches, **spec_launches}
 
 
 def _kernel_family(name):
@@ -2949,6 +2979,388 @@ def prefix_phase(torch, dev, smi, model):
     torch.cuda.empty_cache()
     return {"prefix_serving": launches["cached"],
             "prefix_serving_int8_kv": launches["cached_int8_kv"]}
+
+
+# ---------------------------------------------------------------- phase 15
+# (a): proposals per round of the serving run; (b): the reference row
+# scripts/bench_serving.py:1367 (γ, slots, block, max_context, prompt
+# tokens), its interleaved windows and the dispatches in each; (c): the
+# f32 parity run's requests (phase 3's first 8)
+SPEC_GAMMA = 4
+SPEC_STEADY = dict(gamma=8, slots=8, block=32, max_context=1792,
+                   prompt=128, windows=5, dispatches=2)
+SPEC_F32_REQUESTS = 8
+# the stand-in draft's tail gain (bench_serving.py's eps)
+SPEC_TAIL_GAIN = 0.01
+
+
+def spec_drafts(torch, dev, target, seed):
+    """``scripts/bench_serving.py:1321`` ``_spec_pair`` on the port: the
+    stand-in draft is one layer that shares the target's embedding, layer
+    0, final norm and lm head (the modules themselves), and the target's
+    layers 1-31 get ``o_proj`` and ``down_proj`` scaled by 0.01 IN PLACE
+    (a low-gain tail, so acceptance lands in a trained pair's regime);
+    the independent draft is one seeded layer of the same width, the
+    acceptance floor. Returns (stand-in, independent)."""
+    import copy
+
+    from paddle_tpu_torch.nlp import LlamaForCausalLM
+
+    d_cfg = copy.copy(target.config)
+    d_cfg.num_hidden_layers = 1
+    standin = LlamaForCausalLM(
+        d_cfg, generator=torch.Generator(device=dev).manual_seed(seed))
+    standin.llama.embed_tokens = target.llama.embed_tokens
+    standin.llama.layers[0] = target.llama.layers[0]
+    standin.llama.norm = target.llama.norm
+    standin.lm_head = target.lm_head
+    with torch.no_grad():
+        for layer in target.llama.layers[1:]:
+            layer.self_attn.o_proj.weight.mul_(SPEC_TAIL_GAIN)
+            layer.mlp.down_proj.weight.mul_(SPEC_TAIL_GAIN)
+    indep = LlamaForCausalLM(
+        d_cfg, generator=torch.Generator(device=dev).manual_seed(seed + 1))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return standin.eval(), indep.eval()
+
+
+def _spec_record(engine, reqs, wall, split, smi):
+    import numpy as np
+
+    st = engine.engine_stats()
+    gen = sum(len(r.tokens) for r in reqs)
+    rec = {"gpu": smi, "wall_s": wall, "generated_tokens": gen,
+           "generated_tok_per_s": gen / wall,
+           "ttft_median_s": float(np.median(
+               [r.first_token_time - r.arrival_time for r in reqs])),
+           "mixed_steps": st["mixed_steps"], "mixed_step_s": split[
+               "mixed_s"], "decode_s": split["decode_s"]}
+    if engine.spec_draft is None:
+        rec["decode_quanta"] = st["decode_quanta"]
+        rec["target_forwards_per_decoded_token"] = 1.0
+        return rec
+    # slot-rounds (one target forward of a live row each) over the tokens
+    # the rounds emitted
+    slot_rounds = st["spec_proposed"] / engine.spec_gamma
+    rec.update(spec_rounds=st["spec_rounds"],
+               spec_proposed=st["spec_proposed"],
+               spec_accepted=st["spec_accepted"],
+               acceptance_rate=st["spec_acceptance_rate"],
+               round_tokens=st["quantum_tokens"],
+               target_forwards_per_decoded_token=(
+                   slot_rounds / max(st["quantum_tokens"], 1)),
+               draft_forwards_per_decoded_token=(
+                   slot_rounds * (engine.spec_gamma + 1)
+                   / max(st["quantum_tokens"], 1)))
+    return rec
+
+
+def _spec_serving(torch, target, standin, requests, smi):
+    """Phase 15 (a): phase 3's requests and knobs through
+    ``create_serving_engine(spec_draft=stand-in, spec_gamma=4)``, the
+    round captured (counters zeroed just before and read just after),
+    the plain engine on the same trace, and the round's eager body."""
+    from paddle_tpu_torch import ops
+
+    vocab = target.config.vocab_size
+    ops.reset_launches()
+    engine, reqs, wall, split = serve(torch, target, requests,
+                                      spec_draft=standin,
+                                      spec_gamma=SPEC_GAMMA)
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for name in SERVING_KERNELS:
+        check(launches[name] > 0,
+              f"kernel {name} was not launched by the speculative path")
+    check(engine._graph is not None,
+          "the speculative round did not run as a graph")
+    check_run(engine, reqs, vocab)
+    spec = _spec_record(engine, reqs, wall, split, smi)
+    spec.update(launches=launches, peak_mem_gb=peak,
+                round_graph_launches=engine._graph.launches)
+    streams = [list(r.tokens) for r in reqs]
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    engine, reqs, wall, split = serve(torch, target, requests)
+    check_run(engine, reqs, vocab)
+    plain = _spec_record(engine, reqs, wall, split, smi)
+    plain_streams = [list(r.tokens) for r in reqs]
+    del engine
+    engine, reqs, e_wall, _ = serve(torch, target, requests, eager=True,
+                                    spec_draft=standin,
+                                    spec_gamma=SPEC_GAMMA)
+    check_run(engine, reqs, vocab)
+    eager_streams = [list(r.tokens) for r in reqs]
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "spec_serving_llama2_7b_bf16", "gamma": SPEC_GAMMA,
+          "draft": "stand-in", "spec": spec, "plain": plain,
+          "eager_wall_s": e_wall,
+          "captured_equals_eager": streams == eager_streams,
+          "greedy_token_agreement_with_plain": _agreement(streams,
+                                                          plain_streams)})
+    check(streams == eager_streams,
+          "captured and eager speculative streams differ")
+    return launches
+
+
+def _steady_engine(torch, target, prompts, **kw):
+    from paddle_tpu_torch import create_serving_engine
+
+    cfg = SPEC_STEADY
+    engine = create_serving_engine(
+        target, num_slots=cfg["slots"], block_size=cfg["block"],
+        max_context=cfg["max_context"], prefill_chunk=cfg["prompt"],
+        decode_quantum=8, **kw)
+    for p in prompts:
+        engine.submit(p, max_new_tokens=cfg["max_context"] - cfg["prompt"]
+                      - cfg["gamma"] - 4)
+    while engine.scheduler.prefilling() or not engine.scheduler.decoding():
+        engine.step()
+    engine.step()           # the warm-up and the capture
+    check(engine._graph is not None, "a steady-state engine did not capture")
+    return engine
+
+
+def _window(torch, engine, n):
+    """Generated tokens/s over ``n`` dispatches (each ends synced)."""
+    g0 = int(engine._n_gen.sum())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        engine.step()
+    torch.cuda.synchronize()
+    return (int(engine._n_gen.sum()) - g0) / (time.perf_counter() - t0)
+
+
+def _round_timing(torch, engine, n=3):
+    """``n`` replayed rounds: wall ms (step start to its end, synced) and
+    host ms (step start until the round's graph and read-back are
+    enqueued), then one more round under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    stage = engine._stage_and_run
+    marks = []
+
+    def marked(k):
+        event = stage(k)
+        marks.append(time.perf_counter())
+        return event
+
+    engine._stage_and_run = marked
+    host, wall = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.step()
+        wall.append(1e3 * (time.perf_counter() - t0))
+        host.append(1e3 * (marks[-1] - t0))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.step()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    engine._stage_and_run = stage
+    rec = _profile_record(torch, prof, "spec_round", wall_us)
+    return {"wall_ms": wall, "host_ms": host,
+            "device_ms": rec["device_ms"],
+            "device_busy_share": rec["device_busy_share"],
+            "busy_share_unprofiled": (
+                rec["device_ms"] / (sorted(wall)[len(wall) // 2])
+                if isinstance(rec["device_ms"], float) else "not measured"),
+            "profiled_wall_ms": rec["wall_ms_under_profiler"],
+            "kernels_launched": rec["kernels_launched"],
+            "device_ms_by_family": rec["device_ms_by_family"]}
+
+
+def _verify_split(torch, engine):
+    """One round run eagerly with the verify attention
+    (``_paged_chunk_attn``) under a record_function range: the device ms
+    of its matrix products (the einsums) and of the rest inside it (the
+    gather, the mask, the softmax). A replay runs the same kernels but no
+    Python, so only an eager round splits them out."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from paddle_tpu_torch.serving import engine as engine_mod
+
+    attn = engine_mod._paged_chunk_attn
+
+    def ranged(*a, **kw):
+        with record_function("verify_attention"):
+            return attn(*a, **kw)
+
+    engine._eager = True
+    engine_mod._paged_chunk_attn = ranged
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            engine.step()
+            torch.cuda.synchronize()
+    finally:
+        engine_mod._paged_chunk_attn = attn
+        engine._eager = False
+    cuda = torch.autograd.DeviceType.CUDA
+    events = [ev for ev in prof.events() if ev.device_type == cuda]
+    spans = [(ev.time_range.start, ev.time_range.end) for ev in events
+             if ev.name == "verify_attention"]
+    out = {"einsum": 0.0, "gather_mask_softmax": 0.0, "kernels": {}}
+    for ev in events:
+        if ev.name == "verify_attention" or not any(
+                a <= ev.time_range.start and ev.time_range.end <= b
+                for a, b in spans):
+            continue
+        ms = (ev.time_range.end - ev.time_range.start) / 1e3
+        key = ("einsum" if _kernel_family(ev.name) == "matmul"
+               else "gather_mask_softmax")
+        out[key] += ms
+        out["kernels"][ev.name[:60]] = out["kernels"].get(ev.name[:60],
+                                                          0.0) + ms
+    return out if spans else "not measured"
+
+
+def _spec_steady(torch, target, drafts, smi):
+    """Phase 15 (b): steady-state decode capacity, the reference row
+    ``scripts/bench_serving.py:1367``: γ = 8, 8 live slots, block 32,
+    max_context 1,792, 128-token prompts; windows of spec rounds and of
+    plain quanta interleaved, the median of 5 per draft. Then the round's
+    wall, host and device ms, its busy share, its launches and a
+    breakdown of one replayed round (draft K2, matmul, the verify
+    attention's einsum and gather, other)."""
+    import numpy as np
+
+    cfg = SPEC_STEADY
+    vocab = target.config.vocab_size
+    rng = np.random.RandomState(SEED)
+    prompts = [rng.randint(1, vocab, cfg["prompt"]).astype(np.int32)
+               for _ in range(cfg["slots"])]
+    plain = _steady_engine(torch, target, prompts)
+    for name, draft in drafts.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        spec = _steady_engine(torch, target, prompts, spec_draft=draft,
+                              spec_gamma=cfg["gamma"])
+        st0 = spec.engine_stats()
+        pairs = [(_window(torch, plain, cfg["dispatches"]),
+                  _window(torch, spec, cfg["dispatches"]))
+                 for _ in range(cfg["windows"])]
+        st = spec.engine_stats()
+        rounds = st["spec_rounds"] - st0["spec_rounds"]
+        accepted = st["spec_accepted"] - st0["spec_accepted"]
+        proposed = st["spec_proposed"] - st0["spec_proposed"]
+        emitted = st["quantum_tokens"] - st0["quantum_tokens"]
+        ratios = sorted(q / p for p, q in pairs)
+        row = {"gpu": smi, "draft": name,
+               "spec_tok_per_s": float(np.median([q for _, q in pairs])),
+               "plain_tok_per_s": float(np.median([p for p, _ in pairs])),
+               "speedup_vs_plain_quantum": ratios[len(ratios) // 2],
+               "windows": [{"plain": p, "spec": q} for p, q in pairs],
+               "acceptance_rate": accepted / max(proposed, 1),
+               "tokens_per_round_per_slot": emitted / max(
+                   rounds * cfg["slots"], 1),
+               "launches_per_round": spec._graph.launches,
+               "round": _round_timing(torch, spec),
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+        if name == "stand-in":
+            split = _verify_split(torch, spec)
+            row["verify_attention_eager_ms"] = split
+            fam = row["round"]["device_ms_by_family"]
+            if isinstance(split, dict) and fam:
+                # the replay's families with the verify attention's
+                # kernels (timed in the eager round) taken out of them
+                row["round_breakdown_ms"] = {
+                    "draft K2": fam.get("K2 paged_decode", 0.0),
+                    "K1": fam.get("K1 rms_norm", 0.0),
+                    "matmul (weights)": fam.get("matmul", 0.0)
+                    - split["einsum"],
+                    "verify products": split["einsum"],
+                    "verify gather, move, mask, softmax":
+                        split["gather_mask_softmax"],
+                    "other": fam.get("other", 0.0)
+                    - split["gather_mask_softmax"]}
+        emit({"phase": "spec_steady_llama2_7b_bf16", **cfg, **row})
+        del spec
+    del plain
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _spec_parity(torch, dev, smi):
+    """Phase 15 (c), f32 at Llama-2-7B width with 4 layers, phase 3's
+    first 8 requests: for both drafts the greedy speculative streams equal
+    the plain engine's; sampling with the target as its own draft equals
+    the plain sampling engine's streams with every proposal accepted.
+    Both pools drain to their scratch block (``check_run``)."""
+    from paddle_tpu_torch.nlp import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig.llama2_7b(num_hidden_layers=4, dtype="float32")
+    target = LlamaForCausalLM(
+        cfg, generator=torch.Generator(device=dev).manual_seed(SEED + 1))
+    standin, indep = spec_drafts(torch, dev, target, SEED + 3)
+    requests = make_requests(cfg.vocab_size)[:SPEC_F32_REQUESTS]
+    sampled = [dict(r, seed=i) for i, r in enumerate(requests)]
+
+    def streams(reqs, **kw):
+        engine, rs, wall, _ = serve(torch, target, reqs, **kw)
+        check_run(engine, rs, cfg.vocab_size)
+        check(engine._graph is not None, f"{kw}: no captured graph")
+        st = engine.engine_stats()
+        out = ([list(r.tokens) for r in rs], st, wall)
+        del engine
+        return out
+
+    plain, _, _ = streams(requests)
+    rec = {"gpu": smi, "layers": 4, "requests": len(requests),
+           "gamma": SPEC_GAMMA}
+    for name, draft in (("stand-in", standin), ("independent", indep)):
+        got, st, wall = streams(requests, spec_draft=draft,
+                                spec_gamma=SPEC_GAMMA)
+        rec[name] = {"greedy_streams_equal": got == plain,
+                     "acceptance_rate": st["spec_acceptance_rate"],
+                     "wall_s": wall}
+    plain_s, _, _ = streams(sampled, **SAMPLING)
+    got, st, _ = streams(sampled, spec_draft=target, spec_gamma=SPEC_GAMMA,
+                         **SAMPLING)
+    partings = [{"request": i, "position": next(
+        j for j in range(min(len(a), len(b))) if a[j] != b[j]),
+        "spec": a, "plain": b} for i, (a, b) in enumerate(zip(got, plain_s))
+        if a != b]
+    rec["sampling_target_draft"] = {
+        "streams_equal": not partings, "partings": partings,
+        "spec_proposed": st["spec_proposed"],
+        "spec_accepted": st["spec_accepted"]}
+    emit({"phase": "spec_parity_f32_4layer", **rec})
+    for name in ("stand-in", "independent"):
+        check(rec[name]["greedy_streams_equal"],
+              f"f32 greedy speculative streams ({name} draft) differ from "
+              f"the plain engine's")
+    check(not partings and st["spec_accepted"] == st["spec_proposed"],
+          f"f32 sampling with the target as its own draft parted from the "
+          f"plain engine: {rec['sampling_target_draft']}")
+    del target, standin, indep
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def spec_phase(torch, dev, smi, model, requests):
+    """Phase 15: speculative serving. On phase 3's Llama-2-7B bf16 model
+    (last: the stand-in draft scales its tails): (a) the serving run, (b)
+    steady-state decode capacity; then (c) the f32 parity at 4 layers.
+    Returns the launches of (a)'s captured run as ``spec_serving``."""
+    standin, indep = spec_drafts(torch, dev, model, SEED + 2)
+    launches = _spec_serving(torch, model, standin, requests, smi)
+    _spec_steady(torch, model, {"stand-in": standin, "independent": indep},
+                 smi)
+    del standin, indep
+    gc.collect()
+    torch.cuda.empty_cache()
+    _spec_parity(torch, dev, smi)
+    return {"spec_serving": launches}
 
 
 def main():

@@ -15,6 +15,15 @@ call is a replay. The warm-up is what makes the capture safe:
   made inside a capture would come from the graph's private pool);
 - cuBLAS sets up its workspace for the capture stream.
 
+The cycle collector is run before the capture and held off during it. An
+engine that holds a captured graph is a reference cycle (the graph's step
+is one of its bound methods), so a dropped engine is freed only by the
+collector, at whatever allocation triggers it. Freed inside another
+graph's capture, its graph and memory pool make CUDA calls that a capture
+forbids, and the capture fails ("operation failed due to a previous error
+during capture"); the card showed exactly that, with a collection of 127
+objects inside the failed capture.
+
 :data:`ops.LAUNCHES` counts where a wrapper's Python code launches, which a
 replay never runs: the capture records the launches it saw, gives them
 back (a capture runs no kernel), and each replay adds them once.
@@ -22,6 +31,8 @@ back (a capture runs no kernel), and each replay adds them once.
 Nothing falls back: a capture or a replay that fails raises.
 """
 from __future__ import annotations
+
+import gc
 
 import torch
 
@@ -51,13 +62,19 @@ class CapturedStep:
         cur.wait_stream(self.stream)
 
     def capture(self):
-        """Capture ``fn`` on the stream it warmed up on."""
+        """Capture ``fn`` on the stream it warmed up on, with no cycle
+        collection inside the capture (see the module's docstring)."""
         before = dict(L.LAUNCHES)
         graph = torch.cuda.CUDAGraph()
+        gc.collect()
+        was_enabled = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(graph, stream=self.stream):
                 self.fn()
         finally:
+            if was_enabled:
+                gc.enable()
             seen = {k: n - before[k] for k, n in L.LAUNCHES.items()}
             L.LAUNCHES.update(before)
         self.launches = {k: n for k, n in seen.items() if n}

@@ -27,9 +27,18 @@ def create_serving_engine(model, **kwargs):
     first; on the card the copy runs in place on the current stream, so
     the captured quantum keeps its pool addresses and its replay sees the
     copy; ``engine_stats()["prefix_cache"]`` has the hits, misses, copies
-    and evictions), ``device``
+    and evictions), ``spec_draft`` (a draft causal LM of the same vocab:
+    the decode dispatch becomes the speculative round, the draft's
+    ``spec_gamma`` proposals (default 4) over its own paged pool, the
+    target's verify of all γ+1 positions in one chunked forward, and
+    acceptance on the device, one host sync a round; greedy streams equal
+    the target's own, sampling is rejection sampling, exact in
+    distribution; ``engine_stats()`` gains ``spec_rounds``,
+    ``spec_proposed``, ``spec_accepted``, ``spec_acceptance_rate`` and
+    ``draft_pool``), ``device``
     (default ``cuda``; raises without CUDA unless ``"cpu"``). On the card
-    the decode quantum runs as one captured CUDA graph; drive the engine
+    the decode quantum (or the speculative round) runs as one captured
+    CUDA graph; drive the engine
     with ``step()`` or with ``step_dispatch()`` / ``step_collect()``."""
     from ..serving import ServingEngine
 

@@ -19,7 +19,11 @@ Entry points:
   enqueued with no host sync. On the CPU the same step runs eagerly;
 - ``beam_search``: the same fixed-trip loop as eager steps (its caches
   are reordered by the surviving beams each step);
-- ``generate``: the paddle-style facade routing ``decode_strategy``.
+- ``generate``: the paddle-style facade routing ``decode_strategy``;
+- ``speculative_generate``: speculative decoding through the serving
+  engine's speculative round (one captured graph a round on the card);
+  ``speculative_greedy_search``: the host-driven batch-1 speculative loop
+  over contiguous caches, kept as the debuggable baseline.
 
 Every step is ``model(tokens, position_offset, caches)``: rope at the
 step's offset, the K/V written into the cache (wrapping in a sliding
@@ -31,8 +35,7 @@ over the filtered logits (:func:`keyed_gumbel_argmax`) whose noise for
 row r, token v is an integer hash of (the row's seed, the row's step, v)
 computed on the device: deterministic given (seed, inputs), independent of
 how steps are grouped, free of host values (so it can be captured), and
-the same bits on the CPU and the card. ``speculative_generate`` is not
-ported yet (ROADMAP A2).
+the same bits on the CPU and the card.
 """
 from __future__ import annotations
 
@@ -46,7 +49,8 @@ from .._graphs import CapturedStep
 from ..ops import _library as L
 
 __all__ = ["greedy_search", "generate_on_device", "sampling_search",
-           "beam_search", "generate", "fold_seed", "keyed_gumbel_argmax"]
+           "beam_search", "generate", "speculative_generate",
+           "speculative_greedy_search", "fold_seed", "keyed_gumbel_argmax"]
 
 _MASK64 = (1 << 64) - 1
 _M32 = 0xFFFFFFFF
@@ -430,3 +434,115 @@ def generate(model, input_ids, max_new_tokens=32,
     raise ValueError(
         f"decode_strategy must be greedy_search|sampling|beam_search, "
         f"got {decode_strategy!r}")
+
+
+def speculative_generate(target, draft, input_ids, max_new_tokens=32,
+                         gamma=4, decode_strategy="greedy", top_k=0,
+                         top_p=1.0, temperature=1.0, seed=0,
+                         eos_token_id=None, block_size=32):
+    """Speculative decoding through the serving engine: every batch row
+    rides a serving slot of ``ServingEngine(target, spec_draft=draft,
+    spec_gamma=gamma)``, and each round (the draft's ``gamma`` proposals,
+    the target's verify of all γ+1 positions in one forward, acceptance
+    and both pools' roll forward) is one captured CUDA graph on the card.
+    The greedy arm emits exactly the target's greedy decode;
+    ``decode_strategy="sampling"`` is rejection sampling, exact in
+    distribution, row i seeded with ``seed + i``.
+
+    Returns ``(tokens, acceptance_rate)``: (B, S_in + max_new_tokens)
+    int64 ids on the target's device (a row that ends early at
+    ``eos_token_id`` pads its tail with it, else with 0) and the share of
+    draft proposals accepted over the run."""
+    from ..serving import ServingEngine
+
+    dev = target.lm_head.weight.device
+    rows = np.asarray(input_ids.cpu() if isinstance(input_ids, torch.Tensor)
+                      else input_ids).astype(np.int32)
+    b, s_in = rows.shape
+    strategy = ("greedy" if decode_strategy in ("greedy", "greedy_search")
+                else decode_strategy)
+    engine = ServingEngine(
+        target, spec_draft=draft, spec_gamma=gamma, num_slots=b,
+        block_size=block_size, max_context=s_in + max_new_tokens,
+        decode_strategy=strategy, top_k=top_k, top_p=top_p,
+        temperature=temperature, eos_token_id=eos_token_id, device=dev)
+    reqs = [engine.submit(rows[i], max_new_tokens=max_new_tokens,
+                          seed=seed + i) for i in range(b)]
+    engine.run()
+    pad = 0 if eos_token_id is None else int(eos_token_id)
+    out = np.full((b, s_in + max_new_tokens), pad, np.int64)
+    for i, req in enumerate(reqs):
+        toks = engine.output_tokens(req)
+        out[i, :toks.shape[0]] = toks
+    return (torch.from_numpy(out).to(dev),
+            engine.engine_stats()["spec_acceptance_rate"])
+
+
+@torch.no_grad()
+def speculative_greedy_search(target, draft, input_ids, max_new_tokens=32,
+                              gamma=4):
+    """Speculative greedy decoding, host-driven, batch 1, over contiguous
+    caches in the models' dtypes: the draft proposes ``gamma`` tokens one
+    step at a time (the decode kernel K5), the target verifies them in
+    one (g+1)-token forward, and the longest prefix equal to the target's
+    own choices is accepted plus the target's token at the first
+    mismatch. The caches roll back by position: a rejected slot is
+    overwritten by the next round. After a full accept the draft runs one
+    extra forward to cache its last proposal. The output follows the
+    target's batched verify forwards: a near-tie may resolve there
+    otherwise than in a step-wise decode. The serving-grade path is
+    :func:`speculative_generate`. Returns ``(tokens, acceptance_rate)``,
+    tokens (1, S_in + max_new_tokens) int64."""
+    ids = _ids(target, input_ids)
+    b, s_in = ids.shape
+    if b != 1:
+        raise ValueError(
+            f"speculative decoding is per-sequence (batch 1), got {b}")
+    for name, m in (("target", target), ("draft", draft)):
+        if getattr(m.config, "sliding_window", None):
+            raise NotImplementedError(
+                f"speculative decoding with a sliding-window {name} is "
+                f"not supported: rollback-by-overwrite cannot restore "
+                f"rolling-buffer slots the rejected proposals wrapped "
+                f"over")
+    dev = ids.device
+    total = s_in + max_new_tokens + gamma + 1
+    t_caches = target.init_caches(1, total)
+    d_caches = draft.init_caches(1, total)
+    t_logits, t_caches = target(ids, 0, t_caches)
+    _, d_caches = draft(ids, 0, d_caches)
+    cur = int(t_logits[0, -1].argmax())
+
+    def tok(*values):
+        return torch.tensor([list(values)], dtype=torch.long, device=dev)
+
+    out = ids[0].tolist() + [cur]
+    pos, n = s_in, 1
+    proposed = accepted = 0
+    while n < max_new_tokens:
+        g = min(gamma, max_new_tokens - n)
+        props, d_cur = [], cur
+        for i in range(g):
+            dl, d_caches = draft(tok(d_cur), pos + i, d_caches)
+            d_cur = int(dl[0, -1].argmax())
+            props.append(d_cur)
+        # one target forward verifies every proposal (+ the bonus slot)
+        tl, t_caches = target(tok(cur, *props), pos, t_caches)
+        t_choice = tl[0].argmax(dim=-1).tolist()         # (g+1,)
+        a = 0
+        while a < g and props[a] == t_choice[a]:
+            a += 1
+        emit = props[:a] + [t_choice[a]]
+        proposed += g
+        accepted += a
+        out.extend(emit)
+        n += len(emit)
+        cur = emit[-1]
+        pos += a + 1
+        # a full accept: the draft proposed props[g-1] but never consumed
+        # it, so its slot would stay a hole in the draft's history
+        if a == g and n < max_new_tokens:
+            _, d_caches = draft(tok(props[g - 1]), pos - 1, d_caches)
+    tokens = torch.tensor([out[:s_in + max_new_tokens]], dtype=torch.long,
+                          device=dev)
+    return tokens, accepted / max(proposed, 1)

@@ -45,10 +45,18 @@ published. A write into a block another holder maps copies it first
 (copy-on-write), in the mixed step before the forward and in the decode
 dispatch before the mirrors are staged. The copy is made in place on the
 current stream, so the captured quantum's pool addresses never change and
-its replay sees the copy. Observability, SLOs, the flight recorder, fault
-injection, resilience, speculative decoding and tensor parallelism are
-later slices (ROADMAP A2, A5, A7); the engine does not take their
-options.
+its replay sees the copy.
+
+``spec_draft=`` makes the decode dispatch the speculative round
+(:mod:`~paddle_tpu_torch.serving.speculative`): the draft's γ+1 steps of
+:func:`paged_decode_math` over its own pool, the target's chunked verify
+(:func:`paged_chunk_math`), acceptance and both pools' roll forward, all on
+the device as one captured graph with one host sync per round. The draft
+ingests the mixed prefill rows beside the target, and its pool grows,
+attaches, publishes and copies prefixes in lockstep with the target's.
+Observability, SLOs, the flight recorder, fault injection, resilience
+(the speculative fault ladder among them) and tensor parallelism are later
+slices (ROADMAP A5, A7); the engine does not take their options.
 """
 from __future__ import annotations
 
@@ -70,15 +78,17 @@ from ..ops.paged_attention import (_paged_decode_attention_rows,
                                    paged_decode_attention)
 from .scheduler import Request, Scheduler, SchedulerConfig
 
-__all__ = ["ServingEngine", "paged_decode_math"]
+__all__ = ["ServingEngine", "paged_decode_math", "paged_chunk_math"]
 
 
 def _rope_rows(x, cos, sin):
-    """Rotate (S, H, D) rows by per-row angles (S, D/2), neox layout, in
-    f32 (the model's rotary layout at each row's own cache position)."""
+    """Rotate (..., H, D) rows by per-row angles (..., D/2), neox layout,
+    in f32 (the model's rotary layout at each row's own cache position):
+    (S, H, D) with (S, D/2) for the decode quantum, (S, C, H, D) with
+    (S, C, D/2) for the speculative verify chunk."""
     xf = x.float()
-    c = cos[:, None, :]
-    s = sin[:, None, :]
+    c = cos[..., None, :]
+    s = sin[..., None, :]
     d = x.shape[-1]
     x1, x2 = xf[..., : d // 2], xf[..., d // 2:]
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
@@ -206,6 +216,115 @@ def paged_decode_math(model, scratch_block, ids_t, seq_lens, tables, kc, vc,
     return model.lm_head(core.norm(hidden))[:, 0]
 
 
+def _paged_chunk_attn(q, kp, vp, tables, base_lens, ks=None, vs=None):
+    """Chunked decode attention over the paged pool (the speculative
+    verify; port of the reference's ``_xla_paged_chunk_attn``): query
+    position j of slot s attends pool positions ``< base_lens[s] + j +
+    1``, through a gather of the slot's table and an f32 masked softmax.
+    ``ks``/``vs`` are an int8 pool's per-row scale pools. q (S, C, H, D);
+    returns (S, C, H, D) in q's dtype. The reference has no Pallas kernel
+    for it, so it stays PyTorch; its shapes are static and it reads no
+    host value, so a graph can capture it.
+
+    The gathered rows are moved once, by the copy that casts them, into
+    (HK, S, W·BS, D): one batched product over (KV head, slot) then reads
+    them as they lie, a GQA group's query heads the rows of its head's
+    product. On the card a bf16 K is not cast: Q·Kᵀ is taken on the bf16
+    rows with f32 accumulation and f32 output (``bmm(out_dtype=)``), the
+    same products as on f32 copies of them (a bf16 product is exact in
+    f32). ``scripts/torch_spec_verify_variants.py`` times the layouts."""
+    s_, c, h, d = q.shape
+    w = tables.shape[1]
+    bs, hk = kp.shape[1], kp.shape[2]
+    rep, n = h // hk, w * bs
+    dev = q.device
+    t = tables.long()
+    native = (ks is None and q.is_cuda and q.dtype != torch.float32
+              and kp.dtype == q.dtype)
+
+    def moved(pool, scales, dtype):
+        rows = pool[t].reshape(s_, n, hk, d)
+        if scales is not None:
+            rows = rows.float() * scales[t].reshape(s_, n, hk)[..., None]
+        out = torch.empty((hk, s_, n, d), dtype=dtype, device=dev)
+        out.copy_(rows.permute(2, 0, 1, 3))
+        return out.view(hk * s_, n, d)
+
+    k = moved(kp, ks, q.dtype if native else torch.float32)
+    v = moved(vp, vs, torch.float32)
+    # (S, C, HK, R, D) -> (HK·S, R·C, D): query head g·R + r reads head g
+    qr = q.reshape(s_, c, hk, rep, d).permute(2, 0, 3, 1, 4).reshape(
+        hk * s_, rep * c, d)
+    if native:
+        logits = torch.bmm(qr, k.transpose(1, 2), out_dtype=torch.float32)
+    else:
+        logits = torch.bmm(qr.float(), k.transpose(1, 2))
+    logits = logits * (1.0 / math.sqrt(d))
+    lens = (base_lens.to(dev)[:, None]
+            + torch.arange(c, device=dev)[None, :] + 1)       # (S, C)
+    mask = torch.arange(n, device=dev)[None, None, :] < lens[:, :, None]
+    logits = torch.where(mask[None, :, None],
+                         logits.view(hk, s_, rep, c, n), -1e30)
+    p = torch.softmax(logits, dim=-1).view(hk * s_, rep * c, n)
+    out = torch.bmm(p, v).view(hk, s_, rep, c, d)
+    return out.permute(1, 3, 0, 2, 4).reshape(s_, c, h, d).to(q.dtype)
+
+
+def paged_chunk_math(model, scratch_block, ids_t, seq_lens, tables, kc, vc,
+                     live, ks=(), vs=()):
+    """The C-token forward of every slot over a paged pool (the
+    speculative round's target verify). ``ids_t`` (S, C): chunk position
+    j rotates at ``seq_lens + j``, writes its KV in place at ``seq_lens +
+    j`` (a masked row writes into the scratch block) and attends its own
+    prefix (:func:`_paged_chunk_attn`). ``ks``/``vs``: an int8 pool's
+    per-layer scale pools, each written row quantized by its own abs-max.
+    Rejected positions are rolled back by the length mask alone: the
+    caller advances ``seq_lens`` by the accepted count and the next
+    round's writes overwrite the rest. Returns logits (S, C, vocab)."""
+    cfg = model.config
+    core = model.llama
+    s, c = ids_t.shape
+    h, hk, d = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                cfg.head_dim)
+    bs = kc[0].shape[1]
+    w = tables.shape[1]
+    dev = ids_t.device
+
+    hidden = core.embed_tokens(ids_t)                   # (S, C, E)
+    wpos = seq_lens[:, None] + torch.arange(c, device=dev, dtype=torch.int32)
+    freqs = wpos.float()[..., None] * inv_freq(d, cfg.rope_theta, dev)
+    cos, sin = torch.cos(freqs), torch.sin(freqs)        # (S, C, D/2)
+
+    blk_idx = torch.clamp(wpos // bs, 0, w - 1).long()
+    own_blk = tables.gather(1, blk_idx).long()
+    write_blk = torch.where(live[:, None], own_blk, scratch_block)
+    write_off = torch.where(live[:, None], wpos % bs, 0).long()
+    base_lens = torch.where(live, seq_lens, 0)
+
+    for i, layer in enumerate(core.layers):
+        attn = layer.self_attn
+        residual = hidden
+        x = layer.input_layernorm(hidden)
+        qk = _rope_rows(torch.cat([attn.q_proj(x).view(s, c, h, d),
+                                   attn.k_proj(x).view(s, c, hk, d)], dim=2),
+                        cos, sin)
+        q, k = qk[:, :, :h], qk[:, :, h:]
+        v = attn.v_proj(x).view(s, c, hk, d)
+        ksi = vsi = None
+        if ks:
+            k, k_sc = quantize_kv_rows(k)
+            v, v_sc = quantize_kv_rows(v)
+            ksi, vsi = ks[i], vs[i]
+            ksi.index_put_((write_blk, write_off), k_sc)
+            vsi.index_put_((write_blk, write_off), v_sc)
+        kc[i].index_put_((write_blk, write_off), k.to(kc[i].dtype))
+        vc[i].index_put_((write_blk, write_off), v.to(vc[i].dtype))
+        att = _paged_chunk_attn(q, kc[i], vc[i], tables, base_lens, ksi, vsi)
+        hidden = residual + attn.o_proj(att.reshape(s, c, h * d))
+        hidden = hidden + layer.mlp(layer.post_attention_layernorm(hidden))
+    return model.lm_head(core.norm(hidden))
+
+
 class _StateBuffers:
     """The decode dispatch's slot state as views of ONE device byte
     buffer, beside two host buffers of the same layout (pinned on the
@@ -237,6 +356,7 @@ class _StateBuffers:
 
 
 # the host mirrors staged into the state buffers before each dispatch
+# (a speculative engine stages the draft pool's tables too)
 _STAGED = ("tables", "seq_lens", "last_tok", "n_gen", "max_new", "seeds",
            "temps", "done")
 
@@ -286,6 +406,22 @@ class ServingEngine:
             port of the reference's ``_fused_paged_decode_attn`` instead
             of the gather, the port held to the reference's in the CPU
             tests. Streams are equal.
+        spec_draft: a draft causal LM (same vocab) turns the decode
+            dispatch into the speculative round
+            (:mod:`~paddle_tpu_torch.serving.speculative`): the draft
+            proposes ``spec_gamma`` tokens over its own paged pool
+            (``d_pool``), the target verifies all γ+1 positions in one
+            chunked forward, and acceptance, the bonus or residual token
+            and both pools' roll forward happen on the device, one host
+            sync per round. Greedy streams equal the target's own greedy
+            decode; ``decode_strategy="sampling"`` is rejection sampling,
+            exact in distribution (a draft equal to the target replays
+            the plain sampling engine). The draft is fed the same mixed
+            prefill rows as the target, its pool attaches, publishes and
+            copies prefixes in lockstep, ``quantize=`` sweeps it too and
+            ``kv_dtype="int8"`` makes its pool int8. ``multi_quantum``
+            does not apply: each round needs its counts on the host.
+        spec_gamma: proposals per speculative round (default 4).
         prefix_cache: content-addressed prefix caching (default off).
             Requests sharing full prompt blocks with a published prompt
             skip their prefill (the shared-system-prompt case) and alias
@@ -297,10 +433,11 @@ class ServingEngine:
             pool's counters.
         device: default ``cuda``; raises without CUDA unless ``"cpu"``.
 
-    On the card the decode quantum runs only as a captured CUDA graph,
-    captured at the first decode dispatch and never rebuilt; a failed
-    capture or replay raises. (``_eager = True`` on an engine runs the
-    same body eagerly: the oracle of the card's tests.)
+    On the card the decode quantum (or the speculative round) runs only
+    as a captured CUDA graph, captured at the first decode dispatch and
+    never rebuilt; a failed capture or replay raises. (``_eager = True``
+    on an engine runs the same body eagerly: the oracle of the card's
+    tests.)
     """
 
     # run the quantum's body eagerly on the card (a test oracle; the
@@ -310,10 +447,10 @@ class ServingEngine:
     def __init__(self, model, num_slots=8, block_size=32, num_blocks=None,
                  max_context=None, prefill_chunk=64, decode_quantum=8,
                  decode_strategy="greedy", top_k=0, top_p=1.0,
-                 temperature=1.0, eos_token_id=None,
-                 per_request_sampling=False, quantize=None, kv_dtype=None,
-                 multi_quantum=1, attn_impl="gather", prefix_cache=False,
-                 device=None):
+                 temperature=1.0, eos_token_id=None, spec_draft=None,
+                 spec_gamma=4, per_request_sampling=False, quantize=None,
+                 kv_dtype=None, multi_quantum=1, attn_impl="gather",
+                 prefix_cache=False, device=None):
         cfg = model.config
         if getattr(cfg, "sliding_window", None):
             raise NotImplementedError(
@@ -330,6 +467,26 @@ class ServingEngine:
                 "per_request_sampling=True requires "
                 "decode_strategy='sampling' (per-slot temperature only "
                 "changes the sampling quantum)")
+        if self._per_request_sampling and spec_draft is not None:
+            raise NotImplementedError(
+                "per_request_sampling does not compose with spec_draft "
+                "yet: the speculative round's acceptance math takes the "
+                "engine-wide temperature")
+        if spec_draft is not None:
+            d_cfg = spec_draft.config
+            if getattr(d_cfg, "sliding_window", None):
+                raise NotImplementedError(
+                    "speculative serving with a sliding-window draft is "
+                    "not supported: rollback-by-length-mask cannot "
+                    "restore rolling-buffer slots rejected proposals "
+                    "wrapped over")
+            if d_cfg.vocab_size != cfg.vocab_size:
+                raise ValueError(
+                    f"draft vocab {d_cfg.vocab_size} != target vocab "
+                    f"{cfg.vocab_size}: acceptance compares token ids")
+            if int(spec_gamma) < 1:
+                raise ValueError(
+                    f"spec_gamma must be >= 1, got {spec_gamma}")
         if attn_impl not in ("gather", "fused"):
             raise ValueError(
                 f"attn_impl must be gather|fused, got {attn_impl!r}")
@@ -345,19 +502,28 @@ class ServingEngine:
         self.temperature = 1.0 if temperature is None else float(temperature)
         self.device = resolve_device(device)
         params = list(model.parameters())
-        if params[0].device.type != self.device.type:
-            raise ValueError(
-                f"the model lies on {params[0].device}, the engine on "
-                f"{self.device}: build the model with device=")
+        for m in (model, spec_draft):
+            if m is None:
+                continue
+            first = next(m.parameters())
+            if first.device.type != self.device.type:
+                raise ValueError(
+                    f"the model lies on {first.device}, the engine on "
+                    f"{self.device}: build the model with device=")
         if kv_dtype not in (None, "int8"):
             raise ValueError(
                 f"unsupported kv_dtype {kv_dtype!r} (None or 'int8')")
         if quantize is not None:
             # sweep before eval(): the quantized layers are what runs
             quantize_for_serving(model, algo=quantize)
+            if spec_draft is not None:
+                quantize_for_serving(spec_draft, algo=quantize)
             params = list(model.parameters())
         model.eval()
         self.model = model
+        self.spec_draft = spec_draft
+        self.spec_gamma = int(spec_gamma)
+        spec = spec_draft is not None
         self.config = SchedulerConfig(num_slots=num_slots,
                                       prefill_chunk=prefill_chunk,
                                       decode_quantum=decode_quantum)
@@ -369,7 +535,11 @@ class ServingEngine:
         cache_dtype = next(p.dtype for p in params if p.is_floating_point())
         s = self.config.num_slots
         bs = int(block_size)
-        w = -(-self.max_context // bs)
+        # the speculative verify writes up to gamma positions past the
+        # accepted history before the length mask rolls them back, so the
+        # tables (and the admission's worst case) carry that margin
+        margin = self.spec_gamma if spec else 0
+        w = -(-(self.max_context + margin) // bs)
         if num_blocks is None:
             num_blocks = s * w + 1  # +1: the masked-write scratch block
         self.pool = PagedKVCachePool(
@@ -380,7 +550,24 @@ class ServingEngine:
         # masked (retired/empty) rows dump their KV writes here (a pool
         # sequence of its own: never published, never evicted)
         self._scratch_block = self.pool.ensure("__scratch__", 1)[0]
-        self.scheduler = Scheduler(self.config, self.pool, reserved_blocks=1)
+        self.d_pool = None
+        if spec:
+            spec_draft.eval()
+            d_cfg = spec_draft.config
+            # the draft's pool: the same blocks and block size, the
+            # draft's geometry and float dtype, int8 with the target's
+            self.d_pool = PagedKVCachePool(
+                num_blocks, bs, d_cfg.num_key_value_heads, d_cfg.head_dim,
+                num_layers=d_cfg.num_hidden_layers,
+                dtype=next(p.dtype for p in spec_draft.parameters()
+                           if p.is_floating_point()),
+                prefix_cache=self.prefix_cache, kv_dtype=kv_dtype,
+                device=self.device)
+            self._d_scratch_block = self.d_pool.ensure("__scratch__", 1)[0]
+        self.scheduler = Scheduler(
+            self.config, self.pool, reserved_blocks=1,
+            companion_pools=[self.d_pool] if spec else [],
+            token_margin=margin)
         self._table_width = w
 
         # host mirrors of the per-slot device state
@@ -394,21 +581,32 @@ class ServingEngine:
         self._temps = np.ones(s, np.float32)
         # ... and the static device buffers the quantum reads and writes:
         # the mirrors, the (K, T, S) token buffer, the quantum index and
-        # the count of quanta that started with a live row
-        t = self.config.decode_quantum
-        self._state = _StateBuffers(
-            [("tables", (s, w), torch.int32),
-             ("seq_lens", (s,), torch.int32),
-             ("last_tok", (s,), torch.int32),
-             ("n_gen", (s,), torch.int32),
-             ("max_new", (s,), torch.int32),
-             ("seeds", (s,), torch.int64),
-             ("temps", (s,), torch.float32),
-             ("done", (s,), torch.bool),
-             ("toks", (self._mq_max, t, s), torch.int32),
-             ("qi", (1,), torch.int64),
-             ("count", (1,), torch.int32)], self.device)
-        self._graph = None          # the quantum's CapturedStep
+        # the count of quanta that started with a live row; a speculative
+        # round's instead: the draft's tables, the (S, γ+1) emission
+        # matrix, the per-slot yield and acceptance count
+        fields = [("tables", (s, w), torch.int32),
+                  ("seq_lens", (s,), torch.int32),
+                  ("last_tok", (s,), torch.int32),
+                  ("n_gen", (s,), torch.int32),
+                  ("max_new", (s,), torch.int32),
+                  ("seeds", (s,), torch.int64),
+                  ("temps", (s,), torch.float32),
+                  ("done", (s,), torch.bool)]
+        self._staged = _STAGED
+        if spec:
+            self._d_tables = np.zeros((s, w), np.int32)
+            self._staged = _STAGED + ("d_tables",)
+            fields += [("d_tables", (s, w), torch.int32),
+                       ("stream", (s, self.spec_gamma + 1), torch.int32),
+                       ("emitted", (s,), torch.int32),
+                       ("accepted", (s,), torch.int32)]
+        else:
+            t = self.config.decode_quantum
+            fields += [("toks", (self._mq_max, t, s), torch.int32),
+                       ("qi", (1,), torch.int64),
+                       ("count", (1,), torch.int32)]
+        self._state = _StateBuffers(fields, self.device)
+        self._graph = None          # the quantum's (round's) CapturedStep
         self._graph_pools = None    # the pool addresses it captured
         self._graph_error = None    # a failed capture stops the engine
 
@@ -417,10 +615,22 @@ class ServingEngine:
         cos, sin = build_rope_cache(self.max_context, cfg.head_dim,
                                     base=cfg.rope_theta, device=self.device)
         self._rotary = torch.stack([cos, sin])
+        self._body = self._quantum_body
+        if spec:
+            d_cos, d_sin = build_rope_cache(
+                self.max_context, d_cfg.head_dim, base=d_cfg.rope_theta,
+                device=self.device)
+            self._d_rotary = torch.stack([d_cos, d_sin])
+            from .speculative import make_spec_round
+
+            self._spec_round = make_spec_round(self)
+            self._body = self._spec_body
         self.completed: list = []
         self.stats = {"steps": 0, "mixed_steps": 0, "decode_quanta": 0,
                       "quantum_tokens": 0, "prefill_tokens": 0,
-                      "generated_tokens": 0, "occupancy_sum": 0.0}
+                      "generated_tokens": 0, "occupancy_sum": 0.0,
+                      "spec_rounds": 0, "spec_proposed": 0,
+                      "spec_accepted": 0}
 
     # -- public API --------------------------------------------------------
     def submit(self, prompt, max_new_tokens=32, req_id=None, seed=0,
@@ -487,6 +697,11 @@ class ServingEngine:
         if self.scheduler.prefilling():
             self._mixed_step()
         elif self.scheduler.decoding():
+            if self.spec_draft is not None:
+                # the host needs the round's counts before the next step:
+                # it runs to completion here
+                self._spec_round_step()
+                return None
             return self._decode_dispatch()
         return None
 
@@ -527,8 +742,15 @@ class ServingEngine:
         if self.stats["steps"]:
             out["mean_occupancy"] = (self.stats["occupancy_sum"]
                                      / self.stats["steps"])
+        if self.d_pool is not None:
+            out["draft_pool"] = self.d_pool.fragmentation_stats()
+            out["spec_acceptance_rate"] = (
+                self.stats["spec_accepted"]
+                / max(self.stats["spec_proposed"], 1))
         if self.prefix_cache:
             out["prefix_cache"] = self.pool.prefix_cache_stats()
+            if self.d_pool is not None:
+                out["draft_prefix_cache"] = self.d_pool.prefix_cache_stats()
         return out
 
     # -- scheduling --------------------------------------------------------
@@ -579,11 +801,13 @@ class ServingEngine:
         return keyed_gumbel_argmax(filt, seeds, steps)
 
     @torch.inference_mode()
-    def _mixed_forward(self, tables, enc_lens, dec_lens, this_time, ids):
-        """One mixed prefill(+decode) forward through
-        ``block_multihead_attention`` per layer; the pools are written in
-        place. Returns the (T, E) final hidden states."""
-        model = self.model
+    def _mixed_forward(self, model, pool, tables, rotary, enc_lens, dec_lens,
+                       this_time, ids):
+        """One mixed prefill(+decode) forward of ``model`` over ``pool``
+        through ``block_multihead_attention`` per layer; the pool is
+        written in place. The target and (speculative) the draft share it:
+        the draft ingests the same rows, so its pool stays in lockstep.
+        Returns the (T, E) final hidden states."""
         cfg = model.config
         core = model.llama
         h, hk, d = (cfg.num_attention_heads, cfg.num_key_value_heads,
@@ -592,11 +816,10 @@ class ServingEngine:
             seq_lens_encoder=np.asarray(enc_lens, np.int32),
             seq_lens_decoder=np.asarray(dec_lens, np.int32),
             seq_lens_this_time=np.asarray(this_time, np.int32),
-            block_tables=tables, rotary_embs=self._rotary,
+            block_tables=tables, rotary_embs=rotary,
             use_neox_rotary_style=True,  # the model's rope layout
             num_heads=h, kv_num_heads=hk, head_dim=d)
         hidden = core.embed_tokens(self._dev(ids))          # (T, E)
-        pool = self.pool
         for i, layer in enumerate(core.layers):
             attn = layer.self_attn
             x = layer.input_layernorm(hidden)
@@ -613,14 +836,21 @@ class ServingEngine:
             hidden = hidden + layer.mlp(layer.post_attention_layernorm(hidden))
         return core.norm(hidden)
 
+    def _pools(self):
+        """The target's pool, and the draft's of a speculative engine."""
+        return [p for p in (self.pool, self.d_pool) if p is not None]
+
     def _mixed_step(self):
         """One chunk of prefill for every prefilling slot and one decode
-        token for every in-flight slot, as a single mixed batch."""
+        token for every in-flight slot, as a single mixed batch. A
+        speculative engine pushes the same batch through the draft into
+        its pool (token selection stays the target's)."""
         self.stats["mixed_steps"] += 1
         chunk = self.config.prefill_chunk
         pre = self.scheduler.prefilling()
         dec = self.scheduler.decoding()
         rows = pre + dec
+        pools = self._pools()
         toks, this_time, enc_lens, dec_lens = [], [], [], []
         for req in pre:
             n = min(chunk, req.prefill_target - req.prefill_pos)
@@ -628,11 +858,13 @@ class ServingEngine:
             this_time.append(n)
             enc_lens.append(n)
             dec_lens.append(req.prefill_pos)
-            self.pool.ensure(req.req_id, req.prefill_pos + n)
+            for pool in pools:
+                pool.ensure(req.req_id, req.prefill_pos + n)
             if self.prefix_cache:
                 # copy-on-write before the forward writes the chunk
-                self.pool.make_writable(req.req_id, req.prefill_pos,
-                                        req.prefill_pos + n)
+                for pool in pools:
+                    pool.make_writable(req.req_id, req.prefill_pos,
+                                       req.prefill_pos + n)
         for req in dec:
             slot = req.slot
             seq = int(self._seq_lens[slot])
@@ -640,17 +872,27 @@ class ServingEngine:
             this_time.append(1)
             enc_lens.append(0)
             dec_lens.append(seq)
-            self.pool.ensure(req.req_id, seq + 1)
+            for pool in pools:
+                pool.ensure(req.req_id, seq + 1)
             if self.prefix_cache:
-                self.pool.make_writable(req.req_id, seq, seq + 1)
+                for pool in pools:
+                    pool.make_writable(req.req_id, seq, seq + 1)
         ids = np.concatenate(toks).astype(np.int32)
         self.stats["prefill_tokens"] += int(sum(enc_lens))
         cu = np.concatenate([[0], np.cumsum(this_time)]).astype(np.int64)
         # read after the copy-on-write: the tables name the fresh blocks
-        tables = self.pool.block_table_array(
-            [r.req_id for r in rows], pad_to=self._table_width)
-        hidden = self._mixed_forward(tables, enc_lens, dec_lens, this_time,
-                                     ids)
+        row_ids = [r.req_id for r in rows]
+        tables = self.pool.block_table_array(row_ids,
+                                             pad_to=self._table_width)
+        hidden = self._mixed_forward(self.model, self.pool, tables,
+                                     self._rotary, enc_lens, dec_lens,
+                                     this_time, ids)
+        if self.d_pool is not None:
+            d_tables = self.d_pool.block_table_array(
+                row_ids, pad_to=self._table_width)
+            self._mixed_forward(self.spec_draft, self.d_pool, d_tables,
+                                self._d_rotary, enc_lens, dec_lens,
+                                this_time, ids)
 
         # logits only where a next token is due: rows completing their
         # prefill this chunk, and every decode row
@@ -674,10 +916,12 @@ class ServingEngine:
                 self._seq_lens[slot] = req.prefill_pos
                 if req.prefill_pos >= req.prefill_target:
                     if self.prefix_cache:
-                        # the whole prefill source is in the pool: publish
-                        # its full blocks for the next request to alias
-                        self.pool.publish_prefix(req.req_id,
-                                                 req.prefill_src)
+                        # the whole prefill source is in the pool(s):
+                        # publish its full blocks for the next request to
+                        # alias (both pools in lockstep)
+                        for pool in pools:
+                            pool.publish_prefix(req.req_id,
+                                                req.prefill_src)
                         self.scheduler.clear_cow_debt(req)
                     tok = int(nxt[need.index(i)])
                     if req.first_token_time is None:
@@ -700,8 +944,10 @@ class ServingEngine:
     def _choose_k(self):
         """Quanta the next dispatch runs: ``multi_quantum`` when the
         scheduler is in steady state (the batch cannot change before the
-        dispatch lands), else 1."""
-        if self._mq_max > 1 and self.scheduler.steady_state():
+        dispatch lands), else 1. A speculative engine runs one round per
+        dispatch: its acceptance counts must reach the host."""
+        if (self._mq_max > 1 and self.spec_draft is None
+                and self.scheduler.steady_state()):
             return self._mq_max
         return 1
 
@@ -743,26 +989,33 @@ class ServingEngine:
                           ("n_gen", n_gen), ("done", done)):
             d[name].copy_(val)
 
+    @torch.inference_mode()
+    def _spec_body(self):
+        """One speculative round over the state buffers alone (the
+        function the card captures and the CPU runs)."""
+        self._spec_round(self._state.dev)
+
     def _pool_ptrs(self):
-        return tuple(t.data_ptr() for t in self.pool._pool_tensors())
+        return tuple(t.data_ptr() for pool in self._pools()
+                     for t in pool._pool_tensors())
 
     def _run_quanta(self, k):
-        """Run ``k`` quanta on the staged state: eagerly on the CPU (or
-        with ``_eager``), else as replays of the captured quantum. The
-        first dispatch on the card captures it: its first quantum is the
-        warm-up on the capture stream (the kernel library's load, K2's
-        ticket buffer of that stream, cuBLAS's workspace), then the
-        capture; the graph is never rebuilt."""
+        """Run ``k`` quanta (or one speculative round) on the staged
+        state: eagerly on the CPU (or with ``_eager``), else as replays of
+        the captured body. The first dispatch on the card captures it: its
+        first run is the warm-up on the capture stream (the kernel
+        library's load, K2's ticket buffer of that stream, cuBLAS's
+        workspace), then the capture; the graph is never rebuilt."""
         if self.device.type != "cuda" or self._eager:
             for _ in range(k):
-                self._quantum_body()
+                self._body()
             return
         if self._graph_error is not None:
             raise RuntimeError(
                 "the decode quantum's CUDA graph failed to capture; the "
                 "engine cannot decode") from self._graph_error
         if self._graph is None:
-            step = CapturedStep(self._quantum_body, self.device)
+            step = CapturedStep(self._body, self.device)
             try:
                 step.warm_up()
                 step.capture()
@@ -804,10 +1057,19 @@ class ServingEngine:
                 pad_to=self._table_width, cow=self.prefix_cache)
             self._tables[slot] = row[:self._table_width]
         st = self._state
-        for name in _STAGED:
-            np.copyto(st.stage[name], getattr(self, "_" + name))
         st.stage["qi"][0] = 0
         st.stage["count"][0] = 0
+        event = self._stage_and_run(k)
+        return {"rows": rows, "k": k, "event": event}
+
+    def _stage_and_run(self, k):
+        """Stage the host mirrors into the state buffers (one copy), run
+        ``k`` quanta or one round, and enqueue the read-back of the whole
+        buffer (one copy) behind an event, which it returns (``None`` on
+        the CPU)."""
+        st = self._state
+        for name in self._staged:
+            np.copyto(st.stage[name], getattr(self, "_" + name))
         st.device_buf.copy_(st.stage_buf, non_blocking=True)
         self._run_quanta(k)
         st.back_buf.copy_(st.device_buf, non_blocking=True)
@@ -815,7 +1077,49 @@ class ServingEngine:
         if self.device.type == "cuda":
             event = torch.cuda.Event()
             event.record()
-        return {"rows": rows, "k": k, "event": event}
+        return event
+
+    def _spec_round_step(self):
+        """One speculative round, run to completion: grow both pools'
+        tables to cover the round's writes (γ proposals past the accepted
+        history, copy-on-write first under the prefix cache), stage the
+        state, run the round (the captured graph on the card), wait for
+        its read-back (the ONE host sync), then emit each row's yield and
+        account the proposals and acceptances."""
+        g = self.spec_gamma
+        self.stats["spec_rounds"] += 1
+        rows = self.scheduler.decoding()
+        for req in rows:
+            slot = req.slot
+            seq = int(self._seq_lens[slot])
+            for pool, tables in ((self.pool, self._tables),
+                                 (self.d_pool, self._d_tables)):
+                row = pool.grow_decode_table(
+                    req.req_id, seq + g + 1, seq, pad_to=self._table_width,
+                    cow=self.prefix_cache)
+                tables[slot] = row[:self._table_width]
+        event = self._stage_and_run(1)
+        if event is not None:
+            event.synchronize()
+        back = self._state.back
+        self._seq_lens = back["seq_lens"].copy()
+        self._last_tok = back["last_tok"].copy()
+        self._n_gen = back["n_gen"].copy()
+        self._done = back["done"].copy()
+        stream, emitted = back["stream"], back["emitted"]
+        accepted = back["accepted"]
+        self.stats["quantum_tokens"] += int(emitted.sum())
+        self.stats["spec_proposed"] += g * len(rows)
+        self.stats["spec_accepted"] += int(accepted.sum())
+        now = time.perf_counter()
+        for req in rows:
+            for j in range(int(emitted[req.slot])):
+                if req.finished:
+                    break
+                req.record(int(stream[req.slot, j]), self.eos_token_id)
+            if req.finished:
+                req.finish_time = now
+        self._retire_finished()
 
     def _decode_collect(self, pending):
         """Wait for the dispatch (the ONE host sync), refresh the host

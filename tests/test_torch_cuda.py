@@ -1422,3 +1422,188 @@ def test_cuda_prefix_cow_under_multi_quantum_dispatch_collect(cuda):
         if kw:
             # the copied scale rows are live ones
             assert all(rows[-1].abs().sum() > 0 for _, rows in copies)
+
+
+# ------------------------------------------------ speculative round, captured
+def _tiny_cuda_draft(cuda, dtype="float32"):
+    return LlamaForCausalLM(
+        LlamaConfig.tiny(hidden_size=256, num_attention_heads=4,
+                         num_key_value_heads=2, vocab_size=512,
+                         num_hidden_layers=1, dtype=dtype),
+        generator=torch.Generator(device=cuda).manual_seed(1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arm", ["greedy", "sampling", "target_draft",
+                                 "int8", "bf16"])
+def test_cuda_captured_spec_round_equals_eager(cuda, arm):
+    """The speculative round as one captured CUDA graph against the same
+    body run eagerly: equal streams, counters and launch counts (each
+    replay adds its capture's launches: K1 in every norm of the draft's
+    γ+1 steps and of the verify, K2 in each draft step). Greedy streams
+    also equal the plain engine's in f32 (an independent draft and the
+    target as its own draft); the sampling arm with the target as its own
+    draft replays the plain sampling engine."""
+    dtype = "bfloat16" if arm == "bf16" else "float32"
+    model = _tiny_cuda_model(cuda, dtype)
+    draft = model if arm == "target_draft" else _tiny_cuda_draft(cuda, dtype)
+    kw = {"sampling": dict(decode_strategy="sampling", top_k=50,
+                           temperature=0.8),
+          "int8": dict(quantize="weight_only_int8", kv_dtype="int8")}.get(
+              arm, {})
+    gamma = 3
+    runs = [_graph_run(model, eager, spec_draft=draft, spec_gamma=gamma,
+                       **kw) for eager in (True, False)]
+    (eager_eng, eager_streams, eager_l), (eng, streams, launches) = runs
+    assert eager_eng._graph is None and eng._graph is not None
+    assert streams == eager_streams
+    assert launches == eager_l
+    for key in ("steps", "mixed_steps", "spec_rounds", "spec_proposed",
+                "spec_accepted", "quantum_tokens"):
+        assert eng.stats[key] == eager_eng.stats[key], key
+    k2 = ("paged_decode_attention_int8_rows" if arm == "int8"
+          else "paged_decode_attention")
+    t_layers = model.config.num_hidden_layers
+    d_layers = draft.config.num_hidden_layers
+    assert eng._graph.launches == {
+        "rms_norm": (gamma + 1) * (2 * d_layers + 1) + 2 * t_layers + 1,
+        k2: (gamma + 1) * d_layers}
+    k3 = ("varlen_flash_attention" if dtype == "bfloat16"
+          else "varlen_flash_attention_f32")
+    assert launches[k3] > 0
+    for pool in (eng.pool, eng.d_pool):
+        assert pool.blocks_in_use == 1
+    if arm in ("greedy", "target_draft"):
+        _, plain_streams, _ = _graph_run(model, False)
+        assert streams == plain_streams
+    if arm == "target_draft":
+        assert eng.stats["spec_accepted"] == eng.stats["spec_proposed"]
+    if arm == "sampling":
+        _, plain_streams, _ = _graph_run(model, False, **kw)
+        _, same, _ = _graph_run(model, False, spec_draft=model,
+                                spec_gamma=gamma, **kw)
+        assert same == plain_streams
+
+
+@pytest.mark.cuda
+def test_cuda_spec_prefix_cow_keeps_both_pools(cuda):
+    """The prefix cache under the captured round: both pools copy on
+    write in place (no pool tensor of either moves, the engine's address
+    check covers both), and the streams equal the eager round's and the
+    unshared speculative engine's."""
+    model, draft = _tiny_cuda_model(cuda), _tiny_cuda_draft(cuda)
+    kw = dict(spec_draft=draft, spec_gamma=3)
+    d_copies = []
+
+    def run(eager=False, **extra):
+        engine, streams, launches, copies = _prefix_run(
+            model, eager=eager, **kw, **extra)
+        if extra.get("prefix_cache"):
+            assert engine.d_pool.blocks_in_use == \
+                1 + engine.d_pool.cached_blocks
+            d_copies.append(engine.engine_stats()["draft_prefix_cache"])
+        return engine, streams, launches, copies
+
+    eager, e_streams, e_launches, _ = run(eager=True, prefix_cache=True)
+    eng, streams, launches, copies = run(prefix_cache=True)
+    _, b_streams, _, _ = run()
+    assert eng._graph is not None and len(copies) >= 2
+    assert eng._graph_pools == eng._pool_ptrs()
+    assert len(eng._pool_ptrs()) == len(eng.pool._pool_tensors()) + len(
+        eng.d_pool._pool_tensors())
+    assert streams == e_streams == b_streams
+    assert launches == e_launches
+    assert d_copies[-1]["cow_copies"] == \
+        eng.engine_stats()["prefix_cache"]["cow_copies"] >= 2
+
+
+_DEAD_ENGINE = """
+import gc
+import sys
+import numpy as np
+import torch
+sys.path.insert(0, {root!r})
+from paddle_tpu_torch import create_serving_engine
+from paddle_tpu_torch.nlp import LlamaConfig, LlamaForCausalLM
+
+model = LlamaForCausalLM(
+    LlamaConfig.tiny(hidden_size=256, num_attention_heads=4,
+                     num_key_value_heads=2, vocab_size=512),
+    generator=torch.Generator(device="cuda").manual_seed(0))
+kw = dict(num_slots=3, block_size=16, prefill_chunk=32, decode_quantum=4)
+prompt = np.arange(1, 6, dtype=np.int32)
+
+def run(engine):
+    req = engine.submit(prompt, max_new_tokens=12)
+    engine.run()
+    assert engine._graph is not None
+    return req.tokens
+
+dead = [create_serving_engine(model, **kw)]
+want = run(dead[0])
+engine = create_serving_engine(model, **kw)
+select = engine._select
+dropped = []
+
+def dropping(logits, slots, steps):
+    # inside the capture: drop the last reference to the other engine (a
+    # cycle holding a captured graph) and make the collector run often
+    if torch.cuda.is_current_stream_capturing() and dead:
+        dead.clear()
+        gc.set_threshold(1, 1, 1)
+        dropped.extend({{"i": i}} for i in range(1000))
+    return select(logits, slots, steps)
+
+engine._select = dropping
+try:
+    got = run(engine)
+finally:
+    gc.set_threshold(700, 10, 10)
+assert dropped and got == want, (got, want)
+print("CAPTURED")
+"""
+
+
+@pytest.mark.cuda
+def test_cuda_capture_survives_a_dropped_engine(cuda):
+    """A dropped engine holding a captured graph is a reference cycle. One
+    dropped inside another engine's capture, with the collector set to
+    run at every allocation, must not break that capture: the capture
+    holds the collector off. In a child process: a failed capture leaves
+    PyTorch's CUDA generator marked as capturing."""
+    import os
+    import subprocess
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c",
+                          _DEAD_ENGINE.format(root=root)],
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert "CAPTURED" in out.stdout, out.stdout[-2000:]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hq,hk", [(32, 32), (32, 8)])
+def test_cuda_verify_attention_bf16_rows_equal_f32_rows(cuda, hq, hk):
+    """The speculative verify attention takes Q·Kᵀ on bf16 pool rows with
+    f32 accumulation and output on the card; the same inputs cast to f32
+    (the path of f32 pools and of the CPU) give the same products up to
+    summation order, so the bf16 result is within one bf16 rounding step
+    of the f32 one. Masked rows, a chunk at the table's end, GQA."""
+    from paddle_tpu_torch.serving import engine as engine_mod
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    s, c, d, bs, w = 4, 5, 128, 32, 9
+    nb = s * w + 1
+    kp = _rnd(g, torch.bfloat16, nb, bs, hk, d)
+    vp = _rnd(g, torch.bfloat16, nb, bs, hk, d)
+    q = _rnd(g, torch.bfloat16, s, c, hq, d)
+    tables = torch.randperm(nb, generator=g, device=cuda)[:s * w].view(
+        s, w).int()
+    base = torch.tensor([0, 100, w * bs - c, 37], dtype=torch.int32,
+                        device=cuda)
+    out = engine_mod._paged_chunk_attn(q, kp, vp, tables, base)
+    ref = engine_mod._paged_chunk_attn(q.float(), kp.float(), vp.float(),
+                                       tables, base)
+    assert out.dtype == torch.bfloat16 and ref.dtype == torch.float32
+    torch.testing.assert_close(out.float(), ref, atol=1e-3, rtol=2 ** -8)

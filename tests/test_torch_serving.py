@@ -145,8 +145,18 @@ def test_engine_refuses_later_slices_and_bad_input(models):
                                            temperature=0.7)
     with pytest.raises(ValueError, match="greedy|sampling"):
         ServingEngine(port_model, decode_strategy="beam", device="cpu")
-    with pytest.raises(TypeError, match="spec_draft"):
-        ServingEngine(port_model, device="cpu", spec_draft=port_model)
+    # the reference's speculative refusals (tests/test_serving.py)
+    with pytest.raises(NotImplementedError, match="spec_draft"):
+        ServingEngine(port_model, decode_strategy="sampling",
+                      per_request_sampling=True, spec_draft=port_model,
+                      device="cpu")
+    with pytest.raises(ValueError, match="vocab"):
+        ServingEngine(port_model, device="cpu", spec_draft=LlamaForCausalLM(
+            LlamaConfig.tiny(tensor_parallel=False, vocab_size=64),
+            device="cpu"))
+    with pytest.raises(ValueError, match="spec_gamma"):
+        ServingEngine(port_model, device="cpu", spec_draft=port_model,
+                      spec_gamma=0)
     engine = ServingEngine(port_model, num_slots=2, block_size=4,
                            max_context=32, device="cpu")
     with pytest.raises(ValueError, match="max_context"):
