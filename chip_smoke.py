@@ -175,7 +175,37 @@ Phases (any failure raises and the script exits non-zero):
     speculative streams equal the plain engine's for both drafts, and
     sampling with the target as its own draft equals the plain sampling
     engine's with every proposal accepted. Both pools drain to their
-    scratch block in every run.
+    scratch block in every run;
+16. the serving front door (run after phase 14 and before phase 15, on
+    phase 3's Llama-2-7B bf16 model; each record beside the card's name
+    and power limit): (a) phase 3's requests and knobs through
+    ``inference.serve(policy=no_shed_policy(), trace=True)``, counters
+    zeroed just before and read just after (the ``frontdoor`` path):
+    streams and finish reasons equal the bare engine's on the same trace,
+    then the same trace under ``run_async`` with ``async for`` consumers
+    equals the sync run; (b) the observability overhead, the reference's
+    ``slo_overhead`` / ``serving_obs_overhead`` rows at their TPU
+    configuration (8 slots, block 32, quantum 16, 16-token prompts):
+    steady-state decode dispatches with obs, the trace, the SLOs (evaluated
+    after every dispatch) and the flight recorder on against
+    ``obs="off"``, 5 interleaved windows of 2, the median ratio of
+    tokens/s and of host ms a dispatch, and the synchronizing calls a
+    dispatch in both arms, which must be equal (one event wait, no other
+    sync); (c) overload, the reference's ``serving_overload`` row at its
+    TPU configuration (8 slots, block 32, quantum 16, 96 requests, prompts
+    log-uniform over 32-128 tokens, 16-64 new, its INTERACTIVE / NORMAL /
+    BATCH mix): a capacity calibrated on a warm door, Poisson arrivals at
+    3x it through a shedding door and a no-shed door (each warmed first),
+    both drained to JSONL: time to first token by class, sheds by reason,
+    preemptions, resumes, recomputed tokens, health, tokens/s; the
+    journal and the Chrome trace validate, the attribution ledger
+    conserves, a ``MetricsExporter`` on 127.0.0.1 answers ``/metrics``,
+    ``/healthz`` and ``/slo`` during the shed arm, and the shed arm
+    preempts; (d) recompute-on-resume under the captured quantum: 4 BATCH
+    requests sharing a 96-token system prompt decode in the graph, 2
+    INTERACTIVE arrivals preempt them, and in f32 at Llama-2-7B width with
+    4 layers every stream equals the undisturbed engine's, with and
+    without the prefix cache (bf16 on phase 3's model: agreement only).
 
 The line before the last is the ``{"kernels": [...]}`` record (each
 kernel's launches come from the run of the path that carries it: K1-K3
@@ -185,7 +215,8 @@ phase 8, K8 the packed training run of phase 9, the f32 K8 and K3 the f32
 packed kernel run of phase 10, K2's per-row int8 mode the int8-KV serving run
 of phase 11, its static int8 arm and its float-pool scaled mode the two
 runs of phase 12; ``launches_by_path`` has every path's count, phase 14's
-cached float and int8-KV runs and phase 15's ``spec_serving`` among them);
+cached float and int8-KV runs, phase 16's ``frontdoor`` and phase 15's
+``spec_serving`` among them);
 the last
 line is ``{"ok": true, "device": {...}}``.
 Without CUDA it prints no result and exits 2.
@@ -1184,13 +1215,13 @@ def serve(torch, model, requests, residency_at=None, on_engine=None,
     def timed_dispatch():
         t0 = time.perf_counter()
         pending = dispatch()
-        pending["t0"] = t0
+        pending["smoke_t0"] = t0
         return pending
 
     def timed_collect(pending):
         collect(pending)
         torch.cuda.synchronize()
-        split["decode_s"] += time.perf_counter() - pending["t0"]
+        split["decode_s"] += time.perf_counter() - pending["smoke_t0"]
 
     engine._decode_dispatch = timed_dispatch
     engine._decode_collect = timed_collect
@@ -1280,12 +1311,14 @@ def e2e_phase(torch, dev, smi):
                   tag="_sampling", **SAMPLING)
     # phase 14 on the same model: no second 7B model is built
     prefix_launches = prefix_phase(torch, dev, smi, model)
+    # phase 16 on it too, before phase 15
+    door_launches = frontdoor_phase(torch, dev, smi, model, requests)
     # phase 15 last on it: its stand-in draft scales the model's tails
     spec_launches = spec_phase(torch, dev, smi, model, requests)
     del model
     gc.collect()
     torch.cuda.empty_cache()
-    return launches, {**prefix_launches, **spec_launches}
+    return launches, {**prefix_launches, **door_launches, **spec_launches}
 
 
 def _kernel_family(name):
@@ -3361,6 +3394,556 @@ def spec_phase(torch, dev, smi, model, requests):
     torch.cuda.empty_cache()
     _spec_parity(torch, dev, smi)
     return {"spec_serving": launches}
+
+
+# ------------------------------------------------------------ phase 16
+# (b): steady-state decode at the reference's slo_overhead /
+# serving_obs_overhead TPU configuration (scripts/bench_serving.py:383,
+# :610): 8 slots, block 32, quantum 16, 16-token prompts, 5 interleaved
+# windows of 2 dispatches
+FRONTDOOR_STEADY = dict(slots=8, block=32, quantum=16, prompt=16,
+                        windows=5, dispatches=2)
+# (c): the serving_overload row at its TPU configuration
+# (scripts/bench_serving.py:696-860)
+FRONTDOOR_OVERLOAD = dict(slots=8, block=32, quantum=16, chunk=128,
+                          requests=96, prompt=(32, 128), new=(16, 64),
+                          overload=3.0)
+# (d): a system prompt and the tails of 6 requests over 4 slots; the first
+# 4 are BATCH, the last 2 INTERACTIVE arrivals that preempt them
+FRONTDOOR_PREEMPT = dict(system=96, tails=(40, 17, 63, 5, 28, 51), slots=4,
+                         new=24)
+
+
+def _sync_counts(torch, fn):
+    """(synchronizing calls PyTorch's sync debug mode reports, CUDA events
+    waited on) while ``fn`` runs: the decode dispatch's one host sync is
+    its event's."""
+    import warnings
+
+    events = [0]
+    sync = torch.cuda.Event.synchronize
+
+    def counted(ev):
+        events[0] += 1
+        return sync(ev)
+
+    torch.cuda.Event.synchronize = counted
+    # the mode is set before the recording starts: its first setting in a
+    # process warns by itself
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.Event.synchronize = sync
+    return (sum("synchronizing" in str(w.message) for w in caught),
+            events[0])
+
+
+def _registry_ttft(registry):
+    h = registry.get("serving_ttft_seconds")
+    return {"count": h.count(), "p50_s": h.quantile(0.5),
+            "p95_s": h.quantile(0.95)}
+
+
+def _door_streams(torch, model, requests, smi):
+    """Phase 16 (a): phase 3's requests through ``inference.serve`` with
+    ``no_shed_policy()`` and phase 3's knobs, greedy: the streams and
+    finish reasons equal the bare engine's on the same trace, then the
+    same trace under ``run_async`` with ``async for`` consumers equals the
+    sync run. Returns the sync run's launches (counters zeroed just
+    before, read just after)."""
+    import asyncio
+
+    from paddle_tpu_torch import create_serving_engine, ops
+    from paddle_tpu_torch.inference import serve
+    from paddle_tpu_torch.obs import validate_chrome_trace
+    from paddle_tpu_torch.serving import no_shed_policy
+
+    bare = create_serving_engine(model, **serve_kw())
+    bare_reqs = [bare.submit(**r) for r in requests]
+    bare.run()
+    want = [list(r.tokens) for r in bare_reqs]
+    want_reasons = [r.finish_reason for r in bare_reqs]
+    del bare, bare_reqs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    door = serve(model, policy=no_shed_policy(), trace=True, **serve_kw())
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    streams = [door.submit(r["prompt"], max_new_tokens=r["max_new_tokens"])
+               for r in requests]
+    got = [list(s) for s in streams]        # each pull pumps the engine
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    for name in SERVING_KERNELS:
+        check(launches[name] > 0,
+              f"kernel {name} was not launched through the front door")
+    eng = door.engine
+    check(eng._graph is not None,
+          "the front door's decode quantum did not run as a graph")
+    check_run(eng, [s.request for s in streams], model.config.vocab_size)
+    check(got == want and [s.finish_reason for s in streams]
+          == want_reasons,
+          "the front door's streams differ from the bare engine's")
+    validate_chrome_trace(eng.obs.tracer.chrome_trace())
+    rec = {"gpu": smi, "requests": len(requests),
+           "generated_tokens": sum(len(g) for g in got), "wall_s": wall,
+           "generated_tok_per_s": sum(len(g) for g in got) / wall,
+           "streams_equal_bare_engine": True,
+           "ttft_registry": _registry_ttft(eng.obs.registry),
+           "attribution": eng.attribution(), "health": eng.health()["state"],
+           "trace_events": len(eng.obs.tracer),
+           "drain": door.drain(), "launches": launches}
+    del door, eng, streams
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    adoor = serve(model, policy=no_shed_policy(), **serve_kw())
+
+    async def consume(stream):
+        return [tok async for tok in stream]
+
+    async def main():
+        streams = [adoor.submit(r["prompt"],
+                                max_new_tokens=r["max_new_tokens"])
+                   for r in requests]
+        task = asyncio.create_task(adoor.run_async(idle_s=0.001))
+        outs = await asyncio.gather(*(consume(s) for s in streams))
+        adoor.stop()
+        await asyncio.wait_for(task, timeout=600)
+        return outs
+
+    t0 = time.perf_counter()
+    agot = asyncio.run(main())
+    rec["async_wall_s"] = time.perf_counter() - t0
+    check(agot == got, "the async streams differ from the sync run's")
+    rec["async_streams_equal_sync"] = True
+    emit({"phase": "frontdoor_streams_llama2_7b_bf16", **rec})
+    del adoor
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _door_overhead(torch, model, smi):
+    """Phase 16 (b): steady-state decode dispatches with obs, the trace,
+    the SLOs and the flight recorder on and the SLOs evaluated after every
+    dispatch, against ``obs="off"``: interleaved windows, the median
+    ratio of tokens/s and of host ms a dispatch (host: until
+    ``step_dispatch`` returns, plus ``step_collect`` and the evaluation
+    after the card is done), and the synchronizing calls a dispatch in
+    both arms, which must be equal."""
+    import numpy as np
+
+    from paddle_tpu_torch import create_serving_engine
+
+    cfg = FRONTDOOR_STEADY
+    vocab = model.config.vocab_size
+    rng = np.random.RandomState(SEED)
+    t_steps, plen = cfg["quantum"], cfg["prompt"]
+    max_ctx = plen + t_steps * (2 * cfg["windows"] + 4) + 8
+    max_ctx = -(-max_ctx // cfg["block"]) * cfg["block"]
+
+    def steady(**kw):
+        engine = create_serving_engine(
+            model, num_slots=cfg["slots"], block_size=cfg["block"],
+            prefill_chunk=plen, decode_quantum=t_steps, max_context=max_ctx,
+            **kw)
+        for _ in range(cfg["slots"]):
+            engine.submit(rng.randint(1, vocab, plen).astype(np.int32),
+                          max_new_tokens=max_ctx - plen - 4)
+        while (engine.scheduler.prefilling()
+               or not engine.scheduler.decoding()):
+            engine.step()
+        engine.step()           # the warm-up and the capture
+        check(engine._graph is not None, "a steady engine did not capture")
+        return engine
+
+    def window(engine, evaluate):
+        g0 = int(engine._n_gen.sum())
+        dispatch = collect = 0.0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(cfg["dispatches"]):
+            a = time.perf_counter()
+            pending = engine.step_dispatch()
+            b = time.perf_counter()
+            check(pending is not None, "a timed step was no decode dispatch")
+            pending["event"].synchronize()      # the card is done
+            c = time.perf_counter()
+            engine.step_collect(pending)
+            if evaluate:
+                engine.health()     # the shedding admission's poll
+            d = time.perf_counter()
+            dispatch += b - a
+            collect += d - c
+        wall = time.perf_counter() - t0
+        n = cfg["dispatches"]
+        return {"tok_per_s": (int(engine._n_gen.sum()) - g0) / wall,
+                "dispatch_host_ms": 1e3 * dispatch / n,
+                "collect_host_ms": 1e3 * collect / n,
+                "host_ms": 1e3 * (dispatch + collect) / n}
+
+    base = steady(obs="off")
+    inst = steady(trace=True, slo=True, flight=True)
+    pairs = [(window(base, False), window(inst, True))
+             for _ in range(cfg["windows"])]
+
+    def med(xs):
+        return float(np.median(xs))
+
+    syncs = {}
+    for name, engine, evaluate in (("off", base, False), ("on", inst, True)):
+        def one(engine=engine, evaluate=evaluate):
+            engine.step()
+            if evaluate:
+                engine.health()
+        syncs[name] = [_sync_counts(torch, one) for _ in range(2)]
+    rec = {"gpu": smi, **cfg, "max_context": max_ctx,
+           "off_tok_per_s": med([b["tok_per_s"] for b, _ in pairs]),
+           "on_tok_per_s": med([i["tok_per_s"] for _, i in pairs]),
+           "tok_per_s_ratio_median": med([i["tok_per_s"] / b["tok_per_s"]
+                                          for b, i in pairs]),
+           "host_ms_ratio_median": med([i["host_ms"] / b["host_ms"]
+                                        for b, i in pairs]),
+           "off_host_ms": med([b["host_ms"] for b, _ in pairs]),
+           "on_host_ms": med([i["host_ms"] for _, i in pairs]),
+           "off_dispatch_host_ms": med([b["dispatch_host_ms"]
+                                        for b, _ in pairs]),
+           "on_dispatch_host_ms": med([i["dispatch_host_ms"]
+                                       for _, i in pairs]),
+           "off_collect_host_ms": med([b["collect_host_ms"]
+                                       for b, _ in pairs]),
+           "on_collect_host_ms": med([i["collect_host_ms"]
+                                      for _, i in pairs]),
+           "windows": [{"off": b, "on": i} for b, i in pairs],
+           "syncs_per_dispatch": {k: [{"sync_debug": a, "events": e}
+                                      for a, e in v]
+                                  for k, v in syncs.items()},
+           "health": inst.health()["state"]}
+    emit({"phase": "frontdoor_overhead_llama2_7b_bf16", **rec})
+    check(syncs["on"] == syncs["off"],
+          f"observability changed the syncs of a dispatch: {syncs}")
+    check(all(e == 1 for _, e in syncs["on"]),
+          f"a decode dispatch did not wait on exactly one event: {syncs}")
+    del base, inst
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _scrape(exporter, stop, seen):
+    """The exporter's three endpoints, scraped until ``stop`` is set (a
+    thread of its own; it touches no tensor)."""
+    import urllib.error
+    import urllib.request
+
+    while True:
+        for path in ("/metrics", "/healthz", "/slo"):
+            try:
+                with urllib.request.urlopen(exporter.url(path),
+                                            timeout=5) as resp:
+                    status, body = resp.status, resp.read()
+            except urllib.error.HTTPError as e:
+                status, body = e.code, e.read()
+            seen.setdefault(path, []).append((status, len(body)))
+        if stop.wait(0.2):
+            return
+
+
+def _door_overload(torch, model, smi, tmp):
+    """Phase 16 (c): the reference's serving_overload row at its TPU
+    configuration on the card: a capacity calibrated on a warm door, then
+    96 requests arriving as Poisson at 3x that capacity, through a
+    shedding door and a no-shed door (each warmed first: its first pump
+    captures the quantum), both ending in ``drain(path)``. Per arm: time
+    to first token of admitted requests by class (the stamps the
+    registry's histogram observes; the registry has no class label, its
+    own quantiles beside them) and from each request's scheduled arrival
+    (a submission waits for the pump in flight), sheds by reason, preemptions, resumes,
+    recomputed tokens, health and tokens/s. Checks: the drained journal
+    and the Chrome trace validate, the attribution ledger's invariants
+    hold, the exporter answers ``/metrics``, ``/healthz`` and ``/slo``
+    during the shed arm, and the shed arm preempts."""
+    import threading
+
+    import numpy as np
+
+    from paddle_tpu_torch.inference import serve
+    from paddle_tpu_torch.obs import (FlightRecorder, MetricsExporter,
+                                      SLOSet, load_flight_records,
+                                      validate_chrome_trace)
+    from paddle_tpu_torch.serving import (BATCH, INTERACTIVE, NORMAL,
+                                          FrontDoorPolicy, no_shed_policy)
+
+    cfg = FRONTDOOR_OVERLOAD
+    vocab = model.config.vocab_size
+    rng = np.random.RandomState(SEED)
+    n_req, slots = cfg["requests"], cfg["slots"]
+    p_lens = np.exp(rng.uniform(np.log(cfg["prompt"][0]),
+                                np.log(cfg["prompt"][1]), n_req)).astype(int)
+    n_news = np.exp(rng.uniform(np.log(cfg["new"][0]),
+                                np.log(cfg["new"][1]), n_req)).astype(int)
+    classes = [INTERACTIVE, NORMAL, BATCH, NORMAL, BATCH,
+               NORMAL, INTERACTIVE, NORMAL, BATCH, NORMAL]
+    requests = [(rng.randint(1, vocab, int(p)).astype(np.int32), int(n),
+                 classes[i % len(classes)])
+                for i, (p, n) in enumerate(zip(p_lens, n_news))]
+    mean_new = float(np.mean([n for _, n, _ in requests]))
+    max_ctx = max(p.shape[0] + n for p, n, _ in requests)
+    max_ctx = -(-max_ctx // cfg["block"]) * cfg["block"]
+
+    def build(shed):
+        policy = (FrontDoorPolicy(shed_on_warn=(BATCH,),
+                                  shed_on_critical=(BATCH,),
+                                  max_waiting=2 * slots, preempt=True)
+                  if shed else no_shed_policy(preempt=False))
+        slo = SLOSet()
+        return serve(model, policy=policy, slo=slo, trace=True,
+                     flight=FlightRecorder(slo=slo, max_anomalies=4096),
+                     num_slots=slots, block_size=cfg["block"],
+                     prefill_chunk=cfg["chunk"],
+                     decode_quantum=cfg["quantum"], max_context=max_ctx)
+
+    def warm(door):
+        for p, n, _ in requests[:slots]:
+            door.submit(p, max_new_tokens=n)
+        door.run_until_idle()
+
+    calib = build(shed=False)
+    warm(calib)                  # the capture pass
+    for p, n, _ in requests[:slots]:
+        calib.submit(p, max_new_tokens=n)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    calib.run_until_idle()
+    calib_s = time.perf_counter() - t0
+    capacity = sum(len(r.tokens) for r in calib.engine.completed[slots:]) \
+        / calib_s
+    del calib
+    gc.collect()
+    torch.cuda.empty_cache()
+    req_rate = cfg["overload"] * capacity / mean_new
+    arrivals = np.cumsum(rng.exponential(1.0 / req_rate, n_req))
+    arrivals[0] = 0.0
+
+    def run_arm(shed):
+        door = build(shed)
+        eng = door.engine
+        warm(door)
+        eng.completed.clear()
+        eng.obs.reset()
+        exporter = stop = scraper = None
+        seen = {}
+        if shed:
+            exporter = MetricsExporter.for_engine(eng).start()
+            stop = threading.Event()
+            scraper = threading.Thread(target=_scrape,
+                                       args=(exporter, stop, seen))
+            scraper.start()
+        try:
+            submitted = 0
+            scheduled = {}       # id(request) -> its Poisson arrival
+            t0 = eng.obs.now()   # the clock the requests are stamped on
+            while submitted < n_req or eng.has_work:
+                now = eng.obs.now() - t0
+                while submitted < n_req and arrivals[submitted] <= now:
+                    p, n, pri = requests[submitted]
+                    stream = door.submit(p, max_new_tokens=n, priority=pri)
+                    scheduled[id(stream.request)] = t0 + arrivals[submitted]
+                    submitted += 1
+                if eng.has_work:
+                    door.pump()
+                elif submitted < n_req:
+                    time.sleep(min(arrivals[submitted] - now, 0.01))
+            path = os.path.join(tmp, f"flight_{'shed' if shed else 'noshed'}"
+                                ".jsonl")
+            drain = door.drain(path)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            if scraper is not None:
+                stop.set()
+                scraper.join(timeout=30)
+                exporter.stop()
+        done = eng.completed
+        records = load_flight_records(path)
+        validate_chrome_trace(eng.obs.tracer.chrome_trace())
+        reasons = {}
+        for r in records:
+            ev = r["events"][-1]
+            if ev["kind"] == "shed":
+                reasons[ev["reason"]] = reasons.get(ev["reason"], 0) + 1
+        check(sum(reasons.values()) == len(door.shed_requests),
+              f"shed journals {reasons} != {len(door.shed_requests)} sheds")
+        att = eng.attribution()
+        raw = att["raw_counters"]
+        check(sum(att["emitted_tokens"].values())
+              == raw["serving_tokens_emitted_total"]
+              and att["prefill_work_tokens"]["novel"]
+              + att["prefill_work_tokens"]["recompute"]
+              == raw["serving_prefill_tokens_total"],
+              f"the attribution ledger does not conserve: {att}")
+        # submissions happen between pumps, so a request's stamp can lag
+        # its scheduled arrival by up to one pump: time to first token is
+        # read from both (the registry observes it from the stamp)
+        by_class, from_arrival = {}, {}
+        for name, pri in (("interactive", INTERACTIVE), ("normal", NORMAL),
+                          ("batch", BATCH)):
+            rs = [r for r in done
+                  if r.priority == pri and r.first_token_time is not None]
+            for out, start in ((by_class, lambda r: r.arrival_time),
+                               (from_arrival, lambda r: scheduled[id(r)])):
+                ts = sorted(r.first_token_time - start(r) for r in rs)
+                if ts:
+                    out[name] = {"n": len(ts),
+                                 "ttft_p50_s": ts[len(ts) // 2],
+                                 "ttft_p95_s": ts[int(len(ts) * 0.95)]}
+        lags = sorted(r.arrival_time - scheduled[id(r)] for r in done)
+        reg = eng.obs.registry
+        arm = {"gpu": smi, "shedding": shed, "completed": len(done),
+               "shed": len(door.shed_requests), "shed_by_reason": reasons,
+               "preempted": eng.scheduler.preempted_total,
+               "resumed": eng.scheduler.resumed_total,
+               "recomputed_tokens": reg.get(
+                   "serving_tokens_recomputed_total").value(),
+               "ttft_by_class": by_class,
+               "ttft_from_scheduled_arrival_by_class": from_arrival,
+               "submit_lag_s": {"p50": lags[len(lags) // 2],
+                                "p95": lags[int(len(lags) * 0.95)],
+                                "max": lags[-1]},
+               "ttft_registry": _registry_ttft(reg),
+               "tok_per_s": sum(len(r.tokens) for r in done) / wall,
+               "wall_s": wall, "health": eng.health()["state"],
+               "drain": {k: drain[k] for k in ("completed", "shed",
+                                               "preempted", "resumed")},
+               "flight_records": len(records),
+               "useful_token_fraction": att["useful_token_fraction"],
+               "trace_events": len(eng.obs.tracer)}
+        if shed:
+            arm["exporter"] = {k: {"answers": len(v),
+                                   "statuses": sorted({s for s, _ in v})}
+                               for k, v in seen.items()}
+            for path_ in ("/metrics", "/healthz", "/slo"):
+                check(any(s in (200, 503) for s, _ in seen.get(path_, ())),
+                      f"the exporter did not answer {path_}: {seen}")
+            check(arm["preempted"] >= 1, "the shed arm preempted nothing")
+        del door, eng, done
+        gc.collect()
+        torch.cuda.empty_cache()
+        return arm
+
+    shed_arm = run_arm(True)
+    noshed_arm = run_arm(False)
+    emit({"phase": "frontdoor_overload_llama2_7b_bf16", **cfg,
+          "gpu": smi, "calibrated_capacity_tok_per_s": capacity,
+          "offered_req_per_s": req_rate, "mean_new_tokens": mean_new,
+          "max_context": max_ctx, "shed_arm": shed_arm,
+          "no_shed_arm": noshed_arm})
+
+
+def _preempt_trace(torch, model, prefix_cache):
+    """Phase 16 (d)'s trace: a system prompt and 6 tails; undisturbed
+    through a bare engine, then through the front door with the first 4
+    as BATCH (each decoding in the captured quantum) and the last 2 as
+    INTERACTIVE arrivals that preempt them. Returns (undisturbed streams,
+    front door streams, front door stats)."""
+    import numpy as np
+
+    from paddle_tpu_torch import create_serving_engine
+    from paddle_tpu_torch.inference import serve
+    from paddle_tpu_torch.serving import BATCH, INTERACTIVE, FrontDoorPolicy
+
+    cfg = FRONTDOOR_PREEMPT
+    vocab = model.config.vocab_size
+    rng = np.random.RandomState(SEED + 5)
+    system = rng.randint(1, vocab, cfg["system"]).astype(np.int32)
+    prompts = [np.concatenate([system, rng.randint(1, vocab, n).astype(
+        np.int32)]) for n in cfg["tails"]]
+    kw = dict(num_slots=cfg["slots"], block_size=32, prefill_chunk=128,
+              decode_quantum=8, max_context=512, prefix_cache=prefix_cache)
+    calm = create_serving_engine(model, **kw)
+    want = [calm.submit(p, max_new_tokens=cfg["new"]) for p in prompts]
+    calm.run()
+    want = [list(r.tokens) for r in want]
+    del calm
+    door = serve(model, policy=FrontDoorPolicy(shed_on_warn=(),
+                                               shed_on_critical=()), **kw)
+    low = [door.submit(p, max_new_tokens=cfg["new"], priority=BATCH)
+           for p in prompts[:cfg["slots"]]]
+    while min(len(s.request.tokens) for s in low) < 4:
+        door.pump()
+    check(door.engine._graph is not None,
+          "the victims were not decoding in the captured quantum")
+    high = [door.submit(p, max_new_tokens=cfg["new"], priority=INTERACTIVE)
+            for p in prompts[cfg["slots"]:]]
+    door.run_until_idle()
+    got = [list(s.request.tokens) for s in low + high]
+    st = door.stats()
+    check_run(door.engine, [s.request for s in low + high], vocab)
+    stats = {"preempted": st["preempted"], "resumed": st["resumed"],
+             "recomputed_tokens": door.engine.obs.registry.get(
+                 "serving_tokens_recomputed_total").value(),
+             "prefix_cache": st.get("prefix_cache")}
+    check(stats["preempted"] >= 1 and stats["resumed"] == stats["preempted"],
+          f"the trace did not preempt and resume: {stats}")
+    del door
+    gc.collect()
+    torch.cuda.empty_cache()
+    return want, got, stats
+
+
+def _door_preemption(torch, dev, smi, model):
+    """Phase 16 (d): recompute-on-resume under the captured quantum. In
+    f32 at Llama-2-7B width with 4 layers the preempted-and-resumed
+    streams equal the undisturbed run's, without and with the prefix
+    cache; in bf16 on phase 3's model their agreement is recorded
+    (a re-prefill batches rows otherwise than the decode steps did)."""
+    from paddle_tpu_torch.nlp import LlamaConfig, LlamaForCausalLM
+
+    rec = {"gpu": smi, **FRONTDOOR_PREEMPT}
+    for prefix_cache in (False, True):
+        want, got, stats = _preempt_trace(torch, model, prefix_cache)
+        rec[f"bf16_prefix_{prefix_cache}"] = {
+            "agreement": _agreement(got, want), **stats}
+    cfg = LlamaConfig.llama2_7b(num_hidden_layers=4, dtype="float32")
+    f32 = LlamaForCausalLM(
+        cfg, generator=torch.Generator(device=dev).manual_seed(SEED + 6))
+    for prefix_cache in (False, True):
+        want, got, stats = _preempt_trace(torch, f32, prefix_cache)
+        rec[f"f32_prefix_{prefix_cache}"] = {"streams_equal": got == want,
+                                             **stats}
+    emit({"phase": "frontdoor_preemption", **rec})
+    for prefix_cache in (False, True):
+        check(rec[f"f32_prefix_{prefix_cache}"]["streams_equal"],
+              f"f32 preempted streams (prefix_cache={prefix_cache}) differ "
+              f"from the undisturbed run's")
+    del f32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def frontdoor_phase(torch, dev, smi, model, requests):
+    """Phase 16: the serving front door on phase 3's Llama-2-7B bf16 model
+    (before phase 15, which scales its tails): (a) the streams, (b) the
+    observability overhead, (c) overload, (d) recompute-on-resume. Returns
+    (a)'s launches as ``frontdoor``."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    launches = _door_streams(torch, model, requests, smi)
+    _door_overhead(torch, model, smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        _door_overload(torch, model, smi, tmp)
+    _door_preemption(torch, dev, smi, model)
+    emit({"phase": "frontdoor", "gpu": smi,
+          "wall_s": time.perf_counter() - t0})
+    return {"frontdoor": launches}
 
 
 def main():

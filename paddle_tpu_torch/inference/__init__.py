@@ -1,8 +1,36 @@
 """Inference entry points of the port (counterpart of
-``paddle_tpu/inference``; this slice ports ``create_serving_engine``)."""
+``paddle_tpu/inference``): ``create_serving_engine``, the serving front
+door ``serve``, and the ``PrecisionType`` / ``PlaceType`` enums.
+``Config``, ``Predictor`` and ``create_predictor`` need ``jit`` save and
+load (ROADMAP A9): they raise."""
 from __future__ import annotations
 
-__all__ = ["create_serving_engine"]
+from .._later import not_ported
+
+__all__ = ["Config", "Predictor", "create_predictor", "PrecisionType",
+           "PlaceType", "create_serving_engine", "serve"]
+
+
+class PrecisionType:
+    Float32 = 0
+    Half = 1
+    Bfloat16 = 2
+    Int8 = 3
+
+
+class PlaceType:
+    CPU = 0
+    GPU = 1
+    XPU = 2
+    CUSTOM = 3
+    TPU = 4
+
+
+# they need jit save/load
+Config = not_ported("paddle_tpu_torch.inference.Config", "A9")
+Predictor = not_ported("paddle_tpu_torch.inference.Predictor", "A9")
+create_predictor = not_ported("paddle_tpu_torch.inference.create_predictor",
+                              "A9")
 
 
 def create_serving_engine(model, **kwargs):
@@ -35,7 +63,9 @@ def create_serving_engine(model, **kwargs):
     the target's own, sampling is rejection sampling, exact in
     distribution; ``engine_stats()`` gains ``spec_rounds``,
     ``spec_proposed``, ``spec_accepted``, ``spec_acceptance_rate`` and
-    ``draft_pool``), ``device``
+    ``draft_pool``), ``obs`` / ``trace`` / ``slo`` / ``flight`` (the
+    metrics registry, a Chrome trace, the SLOs behind ``health()`` and
+    the flight recorder, all on the host), ``device``
     (default ``cuda``; raises without CUDA unless ``"cpu"``). On the card
     the decode quantum (or the speculative round) runs as one captured
     CUDA graph; drive the engine
@@ -43,3 +73,45 @@ def create_serving_engine(model, **kwargs):
     from ..serving import ServingEngine
 
     return ServingEngine(model, **kwargs)
+
+
+def serve(model, policy=None, slo=True, flight=True, device=None, **kwargs):
+    """The serving front door: build a
+    :class:`~paddle_tpu_torch.serving.ServingEngine` and wrap it in a
+    :class:`~paddle_tpu_torch.serving.ServingFrontDoor`: token-by-token
+    streams (sync, or ``async for`` under ``run_async()``), per-request
+    parameters, priority classes with preemption under pool pressure
+    (recompute-on-resume, the continuation equal to an undisturbed
+    run's), SLO burn-rate load shedding and queue backpressure
+    (``policy=`` a :class:`~paddle_tpu_torch.serving.FrontDoorPolicy`),
+    and graceful ``drain()``.
+
+    ``slo`` and ``flight`` default on (shedding reads the health report;
+    drain flushes the journals). ``decode_strategy="sampling"`` turns on
+    ``per_request_sampling`` so ``submit(..., temperature=)`` works per
+    request. Other keyword arguments go to the engine
+    (:func:`create_serving_engine` lists them); ``device`` defaults to
+    ``cuda`` and raises without CUDA unless ``"cpu"``.
+
+    On the card the first pump builds the kernels and captures the
+    decode quantum: that wall lands in the first requests' time to first
+    token and burns the stock 0.5 s objective, so the stock policy then
+    sheds NORMAL and BATCH traffic. Warm the engine before a shedding
+    run, or pass ``policy=no_shed_policy()`` for a deterministic drive.
+
+    ::
+
+        fd = serve(model, num_slots=8, eos_token_id=2)
+        stream = fd.submit(prompt, priority=INTERACTIVE,
+                           max_new_tokens=128)
+        for tok in stream:          # pumps the engine as it pulls
+            ...
+        fd.drain("flight.jsonl")    # stop admitting, finish, flush
+    """
+    from ..serving import ServingEngine, ServingFrontDoor
+
+    if kwargs.get("decode_strategy") == "sampling":
+        kwargs.setdefault("per_request_sampling", True)
+    engine = ServingEngine(model, slo=slo, flight=flight, device=device,
+                           **kwargs)
+    return ServingFrontDoor(engine, policy=policy)

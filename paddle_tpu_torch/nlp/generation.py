@@ -439,7 +439,7 @@ def generate(model, input_ids, max_new_tokens=32,
 def speculative_generate(target, draft, input_ids, max_new_tokens=32,
                          gamma=4, decode_strategy="greedy", top_k=0,
                          top_p=1.0, temperature=1.0, seed=0,
-                         eos_token_id=None, block_size=32):
+                         eos_token_id=None, block_size=32, obs=None):
     """Speculative decoding through the serving engine: every batch row
     rides a serving slot of ``ServingEngine(target, spec_draft=draft,
     spec_gamma=gamma)``, and each round (the draft's ``gamma`` proposals,
@@ -452,7 +452,13 @@ def speculative_generate(target, draft, input_ids, max_new_tokens=32,
     Returns ``(tokens, acceptance_rate)``: (B, S_in + max_new_tokens)
     int64 ids on the target's device (a row that ends early at
     ``eos_token_id`` pads its tail with it, else with 0) and the share of
-    draft proposals accepted over the run."""
+    draft proposals accepted over the run.
+
+    ``obs`` goes to the engine: a
+    :class:`~paddle_tpu_torch.obs.ServingObs` collects this call's time
+    to first token, latency and acceptance metrics (and trace spans, if
+    its tracer is set) into a registry you read; every hook runs at the
+    host's round boundaries, never in the captured round."""
     from ..serving import ServingEngine
 
     dev = target.lm_head.weight.device
@@ -465,7 +471,8 @@ def speculative_generate(target, draft, input_ids, max_new_tokens=32,
         target, spec_draft=draft, spec_gamma=gamma, num_slots=b,
         block_size=block_size, max_context=s_in + max_new_tokens,
         decode_strategy=strategy, top_k=top_k, top_p=top_p,
-        temperature=temperature, eos_token_id=eos_token_id, device=dev)
+        temperature=temperature, eos_token_id=eos_token_id, obs=obs,
+        device=dev)
     reqs = [engine.submit(rows[i], max_new_tokens=max_new_tokens,
                           seed=seed + i) for i in range(b)]
     engine.run()

@@ -54,28 +54,40 @@ its replay sees the copy.
 the device as one captured graph with one host sync per round. The draft
 ingests the mixed prefill rows beside the target, and its pool grows,
 attaches, publishes and copies prefixes in lockstep with the target's.
-Observability, SLOs, the flight recorder, fault injection, resilience
-(the speculative fault ladder among them) and tensor parallelism are later
-slices (ROADMAP A5, A7); the engine does not take their options.
+Observability rides the same host boundaries: ``obs=`` (a
+:class:`~paddle_tpu_torch.obs.ServingObs`, ``"off"``, or a fresh one) holds
+the metrics registry (``stats`` is its legacy view), ``trace=True`` a Chrome
+trace, ``slo=`` the burn-rate objectives behind :meth:`health`, ``flight=``
+the per-request flight recorder, and ``token_sink`` streams each emitted
+token to the front door (:mod:`~paddle_tpu_torch.serving.frontend`). No hook
+reads a tensor or synchronizes the card. Fault injection, resilience and
+snapshots (ROADMAP A5), tensor parallelism (A7) and the cost model (A8) are
+later slices: their options raise.
 """
 from __future__ import annotations
 
 import math
-import time
 
 import numpy as np
 import torch
 
 from .._device import resolve_device
 from .._graphs import CapturedStep
+from .._later import not_ported
 from ..incubate.nn.functional import block_multihead_attention
 from ..nlp.generation import _filter_logits, keyed_gumbel_argmax
 from ..nlp.paged_cache import PagedKVCachePool
 from ..nn.functional.rope import build_rope_cache, inv_freq
 from ..nn.quant import quantize_for_serving, quantize_kv_rows
+from ..obs.attribution import decode_flops_per_token
+from ..obs.flight import FlightRecorder
+from ..obs.serving import ServingObs
+from ..obs.slo import SLOSet
+from ..obs.trace import TraceRecorder
 from ..ops import _library as L
 from ..ops.paged_attention import (_paged_decode_attention_rows,
                                    paged_decode_attention)
+from ..profiler.mfu import peak_flops_per_chip
 from .scheduler import Request, Scheduler, SchedulerConfig
 
 __all__ = ["ServingEngine", "paged_decode_math", "paged_chunk_math"]
@@ -431,7 +443,25 @@ class ServingEngine:
             f32 (in bf16 the mixed batches differ in rows, so a near-tie
             may part). ``engine_stats()["prefix_cache"]`` holds the
             pool's counters.
+        obs: a :class:`~paddle_tpu_torch.obs.ServingObs` to record into
+            (share a registry across engines), ``"off"`` (only the legacy
+            ``stats`` counters count), or ``None`` (a fresh one).
+        trace: record a Chrome trace (``obs.tracer``).
+        slo: ``True`` (the stock objectives), an
+            :class:`~paddle_tpu_torch.obs.SLOSet` or a list of
+            :class:`~paddle_tpu_torch.obs.SLO`; :meth:`health` evaluates
+            them.
+        flight: ``True`` or a
+            :class:`~paddle_tpu_torch.obs.FlightRecorder`: per-request
+            journals, dumped on anomaly.
         device: default ``cuda``; raises without CUDA unless ``"cpu"``.
+
+    Every observability hook runs on the host at the reference's
+    boundaries, on values the host already holds: a decode dispatch keeps
+    its one host sync with everything on. A decode quantum's ``device_s``
+    is the host clock from the dispatch's return to its collect's sync.
+    ``mesh=`` / ``tp=`` (ROADMAP A7), ``faults=`` / ``resilience=`` (A5)
+    and ``cost_model=True`` (A8) raise ``NotImplementedError``.
 
     On the card the decode quantum (or the speculative round) runs only
     as a captured CUDA graph, captured at the first decode dispatch and
@@ -450,8 +480,18 @@ class ServingEngine:
                  temperature=1.0, eos_token_id=None, spec_draft=None,
                  spec_gamma=4, per_request_sampling=False, quantize=None,
                  kv_dtype=None, multi_quantum=1, attn_impl="gather",
-                 prefix_cache=False, device=None):
+                 prefix_cache=False, obs=None, trace=False, slo=None,
+                 flight=None, mesh=None, tp=None, faults=None,
+                 resilience=None, cost_model=False, device=None):
         cfg = model.config
+        # cost_model=True: the reference's walker is analysis.cost
+        for name, value, item in (
+                ("mesh", mesh, "A7"), ("tp", tp, "A7"),
+                ("faults", faults, "A5, second half"),
+                ("resilience", resilience, "A5, second half"),
+                ("cost_model", cost_model or None, "A8")):
+            if value is not None:
+                not_ported(f"ServingEngine({name}=)", item)()
         if getattr(cfg, "sliding_window", None):
             raise NotImplementedError(
                 "ServingEngine does not compose with sliding_window: a "
@@ -626,11 +666,43 @@ class ServingEngine:
             self._spec_round = make_spec_round(self)
             self._body = self._spec_body
         self.completed: list = []
-        self.stats = {"steps": 0, "mixed_steps": 0, "decode_quanta": 0,
-                      "quantum_tokens": 0, "prefill_tokens": 0,
-                      "generated_tokens": 0, "occupancy_sum": 0.0,
-                      "spec_rounds": 0, "spec_proposed": 0,
-                      "spec_accepted": 0}
+        # the front door's per-token push (serving/frontend.py)
+        self.token_sink = None
+        # observability: the registry (always on unless "off"), an
+        # optional tracer; `stats` is the legacy view over its counters
+        if obs == "off":
+            self.obs = ServingObs(enabled=False)
+        elif obs is None:
+            self.obs = ServingObs(trace=trace)
+        else:
+            self.obs = obs
+            if trace and self.obs.tracer is None:
+                self.obs.tracer = TraceRecorder()
+        self._now = self.obs.now
+        self.stats = self.obs.legacy_stats_view()
+        # the cost ledger's MFU constants: 2N FLOPs a token (embedding
+        # gathers left out) over the card's bf16 dense peak. A quantized
+        # engine keeps that peak: its int8 weights are dequantized and
+        # the products run in bf16 (ROADMAP queue C)
+        self.obs.ledger.configure(
+            flops_per_token=decode_flops_per_token(
+                sum(p.numel() for p in params),
+                n_embedding_params=cfg.vocab_size * cfg.hidden_size),
+            peak_flops=(peak_flops_per_chip(self.device)
+                        if self.device.type == "cuda" else 0.0))
+        # the SLOs behind health() and the flight recorder
+        if slo is True:
+            self.slo = SLOSet()
+        elif slo is None or isinstance(slo, SLOSet):
+            self.slo = slo
+        else:
+            self.slo = SLOSet(slo)
+        if flight is True:
+            self.flight = FlightRecorder(slo=self.slo)
+        elif flight is None or flight is False:
+            self.flight = None
+        else:
+            self.flight = flight
 
     # -- public API --------------------------------------------------------
     def submit(self, prompt, max_new_tokens=32, req_id=None, seed=0,
@@ -648,7 +720,7 @@ class ServingEngine:
                       seed=seed, priority=priority, temperature=temperature,
                       stop_token_ids=stop_token_ids,
                       stop_sequences=stop_sequences,
-                      arrival_time=(time.perf_counter()
+                      arrival_time=(self._now()
                                     if arrival_time is None
                                     else arrival_time))
         total = req.prompt_len + req.max_new_tokens
@@ -657,6 +729,7 @@ class ServingEngine:
                 f"request needs {total} tokens > max_context "
                 f"{self.max_context}")
         self.scheduler.submit(req)
+        self._on_submitted(req)
         return req
 
     def preempt(self, req):
@@ -668,10 +741,24 @@ class ServingEngine:
             raise ValueError(
                 f"request {req.req_id} is not live — only an admitted, "
                 f"unfinished request can be preempted")
-        self._done[req.slot] = True
-        self._max_new[req.slot] = 0
+        slot = req.slot
+        now = self._now()
+        cached = int(self._seq_lens[slot])
+        self._done[slot] = True
+        self._max_new[slot] = 0
         self.scheduler.preempt(req)
+        self.obs.on_preempt(req, now, cached_tokens=cached)
+        if self.flight is not None:
+            self.flight.on_preempt(req, now, cached_tokens=cached,
+                                   tokens_emitted=len(req.tokens))
         return req
+
+    def _on_submitted(self, req):
+        """Observability for one queued request (its id comes from the
+        scheduler, so this runs after the scheduler's submit)."""
+        self.obs.on_submit(req)
+        if self.flight is not None:
+            self.flight.on_submit(req, req.arrival_time)
 
     @property
     def has_work(self):
@@ -694,6 +781,8 @@ class ServingEngine:
         self._admit()
         live = self.scheduler.live()
         self.stats["occupancy_sum"] += len(live) / self.config.num_slots
+        self.obs.on_step(self._now(), len(live), self.config.num_slots,
+                         self.pool, self.d_pool)
         if self.scheduler.prefilling():
             self._mixed_step()
         elif self.scheduler.decoding():
@@ -720,6 +809,7 @@ class ServingEngine:
         for r in requests or ():
             if isinstance(r, Request):
                 self.scheduler.submit(r)
+                self._on_submitted(r)
             elif isinstance(r, dict):
                 self.submit(**r)
             else:
@@ -753,11 +843,69 @@ class ServingEngine:
                 out["draft_prefix_cache"] = self.d_pool.prefix_cache_stats()
         return out
 
+    def attribution(self):
+        """The cost ledger's report
+        (:meth:`~paddle_tpu_torch.obs.CostLedger.report`) plus the raw
+        counters its conservation invariants are held to."""
+        rep = self.obs.ledger.report()
+        r = self.obs.registry
+        rep["raw_counters"] = {
+            "serving_tokens_emitted_total":
+                int(r.get("serving_tokens_emitted_total").value()),
+            "serving_prefill_tokens_total":
+                int(self.stats["prefill_tokens"]),
+            "serving_spec_proposed_total":
+                int(self.stats["spec_proposed"]),
+            "serving_spec_accepted_total":
+                int(self.stats["spec_accepted"]),
+            "serving_tokens_recomputed_total":
+                int(r.get("serving_tokens_recomputed_total").value()),
+        }
+        return rep
+
+    def health(self, now=None):
+        """Evaluate the engine's SLOs over the obs sample series: the
+        multi-window burn-rate report (state ``ok`` / ``warn`` /
+        ``critical`` and each objective's windows) that ``/healthz`` and
+        the front door's shedding admission read. The reference's
+        ``"resilience"`` key comes with the resilience tier (ROADMAP
+        A5). The engine must have been built with ``slo=``."""
+        if self.slo is None:
+            raise ValueError(
+                "engine built without slo=: pass slo=True (stock "
+                "objectives) or an SLOSet to evaluate health")
+        return self.slo.evaluate(self.obs, now=now)
+
+    # crash recovery comes with the resilience tier
+    snapshot = not_ported("ServingEngine.snapshot", "A5, second half")
+    restore = not_ported("ServingEngine.restore", "A5, second half")
+
     # -- scheduling --------------------------------------------------------
     def _admit(self):
-        now = time.perf_counter()
+        now = self._now()
         for req in self.scheduler.try_admit():
+            resumed = req.preemptions > 0
             req.admit_time = now
+            if resumed:
+                self.obs.on_resume(req, now)
+                if self.flight is not None:
+                    self.flight.on_resume(
+                        req, now, slot=req.slot,
+                        prefill_tokens=req.prefill_target)
+            else:
+                self.obs.on_admit(req, now)
+                if self.flight is not None:
+                    st = self.pool.fragmentation_stats()
+                    reserved = self.scheduler._reservations.get(req)
+                    cached_blk = self.pool.held_blocks(req.req_id)
+                    self.flight.on_admit(
+                        req, now, queue_wait=now - req.arrival_time,
+                        blocks_reserved=reserved,
+                        pool_free_blocks=st["free_blocks"],
+                        pool_blocks_in_use=st["blocks_in_use"],
+                        cached_blocks=cached_blk,
+                        novel_blocks=(None if reserved is None
+                                      else reserved - cached_blk))
             slot = req.slot
             cached = 0
             if self.prefix_cache and req.cached_prefix_tokens:
@@ -767,6 +915,7 @@ class ServingEngine:
                 cached = min(req.cached_prefix_tokens,
                              req.prefill_target - 1)
                 req.prefill_pos = cached
+                self.obs.on_cached_prefill(req, cached)
             self._seq_lens[slot] = cached
             self._n_gen[slot] = 0
             self._done[slot] = True  # not decodable until prefill ends
@@ -845,6 +994,7 @@ class ServingEngine:
         token for every in-flight slot, as a single mixed batch. A
         speculative engine pushes the same batch through the draft into
         its pool (token selection stays the target's)."""
+        t0 = self._now()
         self.stats["mixed_steps"] += 1
         chunk = self.config.prefill_chunk
         pre = self.scheduler.prefilling()
@@ -852,8 +1002,15 @@ class ServingEngine:
         rows = pre + dec
         pools = self._pools()
         toks, this_time, enc_lens, dec_lens = [], [], [], []
+        # the cost ledger's work split: a resumed row's chunk recomputes
+        # KV a preemption dropped, a fresh row's is novel prefill
+        novel_toks = recompute_toks = 0
         for req in pre:
             n = min(chunk, req.prefill_target - req.prefill_pos)
+            if req.preemptions > 0:
+                recompute_toks += n
+            else:
+                novel_toks += n
             toks.append(req.prefill_src[req.prefill_pos:req.prefill_pos + n])
             this_time.append(n)
             enc_lens.append(n)
@@ -908,12 +1065,16 @@ class ServingEngine:
                     logits, [r.slot for r in picked],
                     self._dev(np.asarray([len(r.tokens) for r in picked],
                                          np.int64))).cpu().numpy()
-        now = time.perf_counter()
+        now = self._now()
+        emitted = prefill_emitted = 0
         for i, req in enumerate(rows):
             slot = req.slot
             if i < len(pre):
                 req.prefill_pos += this_time[i]
                 self._seq_lens[slot] = req.prefill_pos
+                if self.flight is not None:
+                    self.flight.on_prefill_chunk(
+                        req, now, this_time[i], req.prefill_pos)
                 if req.prefill_pos >= req.prefill_target:
                     if self.prefix_cache:
                         # the whole prefill source is in the pool(s):
@@ -925,15 +1086,40 @@ class ServingEngine:
                         self.scheduler.clear_cow_debt(req)
                     tok = int(nxt[need.index(i)])
                     if req.first_token_time is None:
+                        # once a request: a resumed request's re-prefill
+                        # emits a continuation token, not a first token
                         req.first_token_time = now
-                    req.record(tok, self.eos_token_id)
+                        self.obs.on_first_token(req, now)
+                        if self.flight is not None:
+                            self.flight.on_first_token(
+                                req, now, now - req.arrival_time)
+                    self._emit(req, tok)
+                    emitted += 1
+                    prefill_emitted += 1
                     self._record_host(slot, req, tok)
             else:
                 tok = int(nxt[need.index(i)])
                 self._seq_lens[slot] += 1  # last_tok entered the cache
-                req.record(tok, self.eos_token_id)
+                self._emit(req, tok)
+                emitted += 1
                 self._record_host(slot, req, tok)
+        self.obs.on_quantum(
+            "mixed", t0, now, emitted, len(rows),
+            breakdown={"prefill_emitted": prefill_emitted,
+                       "decode_emitted": emitted - prefill_emitted,
+                       "novel_tokens": novel_toks,
+                       "recompute_tokens": recompute_toks,
+                       "decode_rows": len(dec)})
         self._retire_finished()
+
+    def _emit(self, req, tok):
+        """Append ONE generated token to a request's stream (the
+        retirement rule included) and count it; the front door's
+        ``token_sink`` fires on the same boundary."""
+        req.record(tok, self.eos_token_id)
+        self.obs.on_token(req)
+        if self.token_sink is not None:
+            self.token_sink(req, int(tok))
 
     def _record_host(self, slot, req, tok):
         self._last_tok[slot] = tok
@@ -1040,6 +1226,7 @@ class ServingEngine:
         into the state buffers (one copy), run the quanta, and enqueue
         the read-back of the whole buffer (one copy) behind an event:
         no host sync. Returns the pending record."""
+        t0 = self._now()
         t_steps = self.config.decode_quantum
         k = self._choose_k()
         rows = self.scheduler.decoding()
@@ -1060,7 +1247,8 @@ class ServingEngine:
         st.stage["qi"][0] = 0
         st.stage["count"][0] = 0
         event = self._stage_and_run(k)
-        return {"rows": rows, "k": k, "event": event}
+        return {"rows": rows, "k": k, "event": event, "t0": t0,
+                "t_disp": self._now()}
 
     def _stage_and_run(self, k):
         """Stage the host mirrors into the state buffers (one copy), run
@@ -1087,6 +1275,7 @@ class ServingEngine:
         its read-back (the ONE host sync), then emit each row's yield and
         account the proposals and acceptances."""
         g = self.spec_gamma
+        t0 = self._now()
         self.stats["spec_rounds"] += 1
         rows = self.scheduler.decoding()
         for req in rows:
@@ -1111,14 +1300,24 @@ class ServingEngine:
         self.stats["quantum_tokens"] += int(emitted.sum())
         self.stats["spec_proposed"] += g * len(rows)
         self.stats["spec_accepted"] += int(accepted.sum())
-        now = time.perf_counter()
+        now = self._now()
+        n_emit = 0
         for req in rows:
+            got = 0
             for j in range(int(emitted[req.slot])):
                 if req.finished:
                     break
-                req.record(int(stream[req.slot, j]), self.eos_token_id)
+                self._emit(req, int(stream[req.slot, j]))
+                got += 1
+            n_emit += got
+            if self.flight is not None:
+                self.flight.on_spec_round(
+                    req, now, proposed=g, accepted=int(accepted[req.slot]),
+                    emitted=got)
             if req.finished:
                 req.finish_time = now
+        self.obs.on_quantum("spec_round", t0, now, n_emit, len(rows))
+        self.obs.on_spec_round(now, g * len(rows), int(accepted.sum()))
         self._retire_finished()
 
     def _decode_collect(self, pending):
@@ -1136,24 +1335,52 @@ class ServingEngine:
         toks = back["toks"][:n_exec].reshape(-1, self.config.num_slots)
         self.stats["decode_quanta"] += n_exec
         self.stats["quantum_tokens"] += int(toks.shape[0] * toks.shape[1])
-        now = time.perf_counter()
-        for req in pending["rows"]:
+        now = self._now()
+        t0 = pending["t0"]
+        device_s = max(now - pending["t_disp"], 0.0)
+        t_steps = self.config.decode_quantum
+        emitted_k = [0] * n_exec
+        rows = pending["rows"]
+        for req in rows:
+            got = 0
             for j in range(toks.shape[0]):
                 if req.finished:
                     break
-                req.record(int(toks[j, req.slot]), self.eos_token_id)
+                self._emit(req, int(toks[j, req.slot]))
+                emitted_k[j // t_steps] += 1
+                got += 1
+            if self.flight is not None and got:
+                self.flight.on_quantum_tokens(req, now, got)
             if req.finished:
                 req.finish_time = now
+        # K quanta of one dispatch are K quanta to the hooks: equal
+        # slices that partition [t0, now] exactly
+        dt = (now - t0) / n_exec
+        prev = t0
+        for j in range(n_exec):
+            edge = now if j == n_exec - 1 else t0 + (j + 1) * dt
+            self.obs.on_quantum("decode", prev, edge, emitted_k[j],
+                                len(rows), device_s=device_s / n_exec)
+            prev = edge
         self._retire_finished()
 
     def _retire_finished(self):
-        now = time.perf_counter()
+        now = self._now()
         for req in list(self.scheduler.live()):
             if req.finished:
                 slot = req.slot
                 if req.finish_time is None:
                     req.finish_time = now
                 self.stats["generated_tokens"] += len(req.tokens)
+                self.obs.on_retire(req, req.finish_time)
+                if self.flight is not None:
+                    self.flight.on_retire(
+                        req, req.finish_time,
+                        ttft=(req.first_token_time - req.arrival_time
+                              if req.first_token_time is not None
+                              else None),
+                        e2e=req.finish_time - req.arrival_time,
+                        reason=req.finish_reason)
                 self._done[slot] = True
                 self._max_new[slot] = 0
                 self.scheduler.retire(req)

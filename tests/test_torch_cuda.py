@@ -11,6 +11,7 @@ Tolerances: f32 ``1e-5`` (summation order only, full-f32 products), bf16
 f32 must be equal.
 """
 import sys
+import warnings
 
 import numpy as np
 import pytest
@@ -1607,3 +1608,106 @@ def test_cuda_verify_attention_bf16_rows_equal_f32_rows(cuda, hq, hk):
                                        tables, base)
     assert out.dtype == torch.bfloat16 and ref.dtype == torch.float32
     torch.testing.assert_close(out.float(), ref, atol=1e-3, rtol=2 ** -8)
+
+
+# ------------------------------------------------ the serving front door
+def _syncs_by_step(model, **kw):
+    """Run ``_GRAPH_PROMPTS`` through the engine; per step, whether it
+    dispatched the decode quantum, the synchronizing calls PyTorch's sync
+    debug mode reports inside it, and the CUDA events it waited on (the
+    decode dispatch's one host sync)."""
+    engine = create_serving_engine(model, **_GRAPH_KW, **kw)
+    for i, p in enumerate(_GRAPH_PROMPTS):
+        engine.submit(p, max_new_tokens=9 + i)
+    step, dispatch = engine.step, engine._decode_dispatch
+    event_sync = torch.cuda.Event.synchronize
+    state, steps = {}, []
+
+    def flagged_dispatch():
+        state["decode"] = True
+        return dispatch()
+
+    def counted_event_sync(ev):
+        state["events"] += 1
+        return event_sync(ev)
+
+    engine._decode_dispatch = flagged_dispatch
+    torch.cuda.Event.synchronize = counted_event_sync
+    try:
+        while engine.has_work:
+            state.update(decode=False, events=0)
+            # set before the recording starts: the mode's first setting in
+            # a process warns by itself
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    step()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            syncs = sum("synchronizing" in str(w.message) for w in caught)
+            steps.append((state["decode"], syncs, state["events"]))
+    finally:
+        torch.cuda.Event.synchronize = event_sync
+    return engine, steps
+
+
+@pytest.mark.cuda
+def test_cuda_obs_adds_no_sync_to_a_dispatch(cuda):
+    """The observability hooks read only host values: with obs, the trace,
+    the SLOs and the flight recorder on, every step makes the same
+    synchronizing calls as with ``obs="off"``, and a decode dispatch waits
+    on exactly one event."""
+    model = _tiny_cuda_model(cuda)
+    on, on_steps = _syncs_by_step(model, trace=True, slo=True, flight=True)
+    off, off_steps = _syncs_by_step(model, obs="off")
+    assert on._graph is not None and off._graph is not None
+    assert on_steps == off_steps
+    decode = [s for s in on_steps if s[0]]
+    assert len(decode) > 3
+    assert all(events == 1 for _, _, events in decode[1:])
+    assert on.obs.registry.get("serving_quantum_seconds").count(
+        kind="decode") == on.stats["decode_quanta"]
+    assert on.health()["state"] in ("ok", "warn", "critical")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prefix_cache", [False, True])
+def test_cuda_preempted_stream_under_captured_quantum(cuda, prefix_cache):
+    """Through the front door, INTERACTIVE arrivals preempt BATCH requests
+    decoding in the captured quantum; the victims re-prefill and rejoin
+    the replayed graph, and every stream equals an undisturbed engine's
+    (f32). With the prefix cache the requests share a system prompt."""
+    from paddle_tpu_torch.inference import serve
+    from paddle_tpu_torch.serving import BATCH, INTERACTIVE, FrontDoorPolicy
+
+    model = _tiny_cuda_model(cuda)
+    rng = np.random.RandomState(3)
+    system = rng.randint(1, 512, 40).astype(np.int32)
+    prompts = [np.concatenate([system, rng.randint(1, 512, n).astype(
+        np.int32)]) for n in (7, 21, 12, 3)]
+    kw = dict(num_slots=2, block_size=16, prefill_chunk=32,
+              decode_quantum=4, prefix_cache=prefix_cache)
+    calm = create_serving_engine(model, **kw)
+    want = [calm.submit(p, max_new_tokens=14) for p in prompts]
+    calm.run()
+    fd = serve(model, policy=FrontDoorPolicy(shed_on_warn=(),
+                                             shed_on_critical=()), **kw)
+    low = [fd.submit(p, max_new_tokens=14, priority=BATCH)
+           for p in prompts[:2]]
+    while len(low[1].request.tokens) < 6:
+        fd.pump()
+    assert fd.engine._graph is not None
+    high = [fd.submit(p, max_new_tokens=14, priority=INTERACTIVE)
+            for p in prompts[2:]]
+    fd.run_until_idle()
+    assert [s.request.tokens for s in low + high] == [r.tokens for r in want]
+    st = fd.stats()
+    assert st["preempted"] >= 1 and st["resumed"] == st["preempted"]
+    assert fd.engine.obs.registry.get(
+        "serving_tokens_recomputed_total").value() > 0
+    if prefix_cache:
+        assert st["prefix_cache"]["hits"] > 0
+    pool = fd.engine.pool
+    assert pool.fragmentation_stats()["blocks_in_use"] == \
+        1 + pool.cached_blocks

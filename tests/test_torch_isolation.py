@@ -14,6 +14,7 @@ import torch
 
 import paddle_tpu_torch
 from paddle_tpu_torch import create_serving_engine
+from paddle_tpu_torch.inference import serve
 from paddle_tpu_torch.nlp import (LlamaConfig, LlamaForCausalLM,
                                   PagedKVCachePool)
 from paddle_tpu_torch.serving import ServingEngine
@@ -35,6 +36,7 @@ def _run(code_or_args, cwd, with_repo=True):
 
 def test_import_leaves_jax_and_reference_out(tmp_path):
     out = _run("import sys, paddle_tpu_torch, paddle_tpu_torch.serving, "
+               "paddle_tpu_torch.obs, paddle_tpu_torch.inference, "
                "paddle_tpu_torch.incubate.nn.functional; "
                "print(sorted(m for m in sys.modules if m == 'jax' or "
                "m.startswith(('jax.', 'jaxlib')) or m == 'paddle_tpu' or "
@@ -69,7 +71,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         PagedKVCachePool(4, 4, 2, 8)
     model = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu")
     for build in (lambda: ServingEngine(model),
-                  lambda: create_serving_engine(model, num_slots=2)):
+                  lambda: create_serving_engine(model, num_slots=2),
+                  lambda: serve(model, num_slots=2)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build()
     engine = create_serving_engine(model, num_slots=2, block_size=4,
