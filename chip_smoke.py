@@ -205,7 +205,34 @@ Phases (any failure raises and the script exits non-zero):
     requests sharing a 96-token system prompt decode in the graph, 2
     INTERACTIVE arrivals preempt them, and in f32 at Llama-2-7B width with
     4 layers every stream equals the undisturbed engine's, with and
-    without the prefix cache (bf16 on phase 3's model: agreement only).
+    without the prefix cache (bf16 on phase 3's model: agreement only);
+17. resilience, crash recovery and the cluster (run after phase 16 and
+    before phase 15, on phase 3's Llama-2-7B bf16 model and an f32 model
+    of its width with 4 layers; replicas and restored engines share their
+    model's weights; each record beside the card's name and power limit):
+    (a) ``run_soak`` in f32 at 4 layers, rounds 50, seed 0, then its
+    speculative arm with a 1-layer draft of the same width, rounds 60:
+    the soak's own checks hold (non-poisoned streams equal the fault-free
+    arm's, definite finish reasons, no leaked block); (b) phase 3's 16
+    requests at 32 layers with ``resilience=True``, the prefix cache on
+    and an injector plan (transient decode and mixed raises, an
+    allocation failure, a poisoned request, a bit flip in a cached
+    block), then the same prompts again: every request ends with a
+    definite reason, the poisoned one with "error", the flip is
+    quarantined, the pools drain, K1-K3 launch (counters zeroed just
+    before the first wave, read just after: the ``resilience`` path); the
+    streams' agreement with phase 3's is recorded; then steady decode
+    dispatches of the default engine against ``resilience=True``: tokens/s
+    and host ms a dispatch, the watchdog's deadline and trips, and one
+    event wait and no other sync a dispatch in both arms, with the same
+    launches a replay; (c) snapshot mid-run, drop the engine, restore,
+    finish: f32 at 4 layers equal to the undisturbed run, bf16 at 32
+    layers agreement recorded; (d) two replicas over phase 3's trace with
+    two shared system prompts, a ``ClusterExporter`` scraped from a thread
+    meanwhile: affinity hits, f32 streams equal a cluster of one's, and
+    the prefill/decode hand-off's equal a single replica's; (e)
+    ``python -m paddle_tpu_torch.obs check --device cuda`` as a
+    subprocess exits 0.
 
 The line before the last is the ``{"kernels": [...]}`` record (each
 kernel's launches come from the run of the path that carries it: K1-K3
@@ -215,8 +242,8 @@ phase 8, K8 the packed training run of phase 9, the f32 K8 and K3 the f32
 packed kernel run of phase 10, K2's per-row int8 mode the int8-KV serving run
 of phase 11, its static int8 arm and its float-pool scaled mode the two
 runs of phase 12; ``launches_by_path`` has every path's count, phase 14's
-cached float and int8-KV runs, phase 16's ``frontdoor`` and phase 15's
-``spec_serving`` among them);
+cached float and int8-KV runs, phase 16's ``frontdoor``, phase 17's
+``resilience`` and phase 15's ``spec_serving`` among them);
 the last
 line is ``{"ok": true, "device": {...}}``.
 Without CUDA it prints no result and exits 2.
@@ -1274,6 +1301,7 @@ def e2e_phase(torch, dev, smi):
     check(engine._graph is not None,
           "the serving path's decode quantum did not run as a graph")
     check_run(engine, reqs, cfg.vocab_size)
+    want = [list(r.tokens) for r in reqs]
     st = engine.engine_stats()
     gen = sum(len(r.tokens) for r in reqs)
     emit({"phase": "e2e_llama2_7b_bf16", "layers": cfg.num_hidden_layers,
@@ -1311,14 +1339,16 @@ def e2e_phase(torch, dev, smi):
                   tag="_sampling", **SAMPLING)
     # phase 14 on the same model: no second 7B model is built
     prefix_launches = prefix_phase(torch, dev, smi, model)
-    # phase 16 on it too, before phase 15
+    # phases 16 and 17 on it too, before phase 15
     door_launches = frontdoor_phase(torch, dev, smi, model, requests)
+    res_launches = resilience_phase(torch, dev, smi, model, requests, want)
     # phase 15 last on it: its stand-in draft scales the model's tails
     spec_launches = spec_phase(torch, dev, smi, model, requests)
     del model
     gc.collect()
     torch.cuda.empty_cache()
-    return launches, {**prefix_launches, **door_launches, **spec_launches}
+    return launches, {**prefix_launches, **door_launches, **res_launches,
+                      **spec_launches}
 
 
 def _kernel_family(name):
@@ -3944,6 +3974,428 @@ def frontdoor_phase(torch, dev, smi, model, requests):
     emit({"phase": "frontdoor", "gpu": smi,
           "wall_s": time.perf_counter() - t0})
     return {"frontdoor": launches}
+
+
+# ---------------------------------------------------------------- phase 17
+# (b): the fault plan at full depth (each fires at its first eligible
+# calls), the poisoned request of phase 3's 16 and the new tokens of the
+# second wave that attaches the cached chains; (c): the dispatches before
+# the snapshot; (d): the two system prompts' length (4 blocks of 32)
+RESILIENCE_FAULTS = (("decode", "raise", 2), ("mixed", "raise", 1),
+                     ("alloc", "alloc_fail", 1), ("kv", "bit_flip", 1))
+RESILIENCE_POISON = 5
+RESILIENCE_WAVE_NEW = 4
+RESTORE_AFTER_STEPS = 24
+CLUSTER_SYSTEM = 128
+# steady dispatches before (b)'s timed windows: the watchdog arms after
+# its policy's min_samples (16) observations
+WATCHDOG_WARM = 16
+
+
+def _f32_model(torch, dev, layers, seed):
+    from paddle_tpu_torch.nlp import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig.llama2_7b(num_hidden_layers=layers, dtype="float32")
+    return LlamaForCausalLM(
+        cfg, generator=torch.Generator(device=dev).manual_seed(seed))
+
+
+def _free(torch):
+    """Collect the dropped engines and give their memory back."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _soaks(torch, dev, smi, f32):
+    """Phase 17 (a): the two-arm chaos soak (faults x preemption x
+    copy-on-write) at Llama-2-7B width in f32 with 4 layers, rounds 50,
+    seed 0, then its speculative arm with a 1-layer draft of the same
+    width, rounds 60. ``run_soak`` asserts itself that every non-poisoned
+    stream equals the fault-free arm's, that every request ends with a
+    definite reason and that no block leaks."""
+    from paddle_tpu_torch.serving import run_soak
+
+    t0 = time.perf_counter()
+    rep = run_soak(f32, rounds=50, seed=0, device=dev)
+    plain_s = time.perf_counter() - t0
+    draft = _f32_model(torch, dev, 1, SEED + 8)
+    t0 = time.perf_counter()
+    spec = run_soak(f32, spec_draft=draft, rounds=60, seed=0, device=dev)
+    spec_s = time.perf_counter() - t0
+    emit({"phase": "resilience_soak_llama2_7b_f32", "gpu": smi,
+          "layers": 4, "plain": {**rep, "wall_s": plain_s},
+          "speculative": {**spec, "wall_s": spec_s}})
+    for r in (rep, spec):
+        check(r["faults_injected"] > 0, f"the soak injected nothing: {r}")
+        check(r["bitexact_streams"] == r["requests"] - len(r["poisoned"]),
+              f"the soak lost streams: {r}")
+    del draft
+    _free(torch)
+
+
+def _fault_plan():
+    from paddle_tpu_torch.serving import FaultInjector, FaultSpec
+
+    return FaultInjector(plan=[FaultSpec(site, kind, times=n)
+                               for site, kind, n in RESILIENCE_FAULTS],
+                         seed=SEED)
+
+
+def _faults_full_depth(torch, smi, model, requests, want):
+    """Phase 17 (b): phase 3's 16 requests at Llama-2-7B bf16 (32 layers)
+    with ``resilience=True``, the prefix cache on and the injector's plan
+    (transient decode and mixed raises, an allocation failure, one
+    poisoned request, a bit flip in a cached block), then the same prompts
+    again (4 new tokens each), whose attach finds the flipped chain. Every
+    request ends with a definite reason, the poisoned one with "error";
+    the flip is quarantined; the pools drain. The non-poisoned streams'
+    agreement with phase 3's undisturbed run is recorded. Returns the
+    first wave's launches (counters zeroed just before, read just
+    after)."""
+    from paddle_tpu_torch import create_serving_engine, ops
+    from paddle_tpu_torch.serving import ResiliencePolicy
+
+    inj = _fault_plan()
+    engine = create_serving_engine(
+        model, faults=inj, resilience=ResiliencePolicy(),
+        **serve_kw(prefix_cache=True))
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    reqs = [engine.submit(**r) for r in requests]
+    inj.poison(reqs[RESILIENCE_POISON].req_id)
+    engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    for name in SERVING_KERNELS:
+        check(launches[name] > 0,
+              f"kernel {name} was not launched under faults")
+    check(engine._graph is not None,
+          "the faulted engine's decode quantum did not run as a graph")
+    wave = [engine.submit(r["prompt"], max_new_tokens=RESILIENCE_WAVE_NEW)
+            for r in requests]
+    engine.run()
+    rep = engine.resilience_report()
+    for i, r in enumerate(reqs + wave):
+        poisoned = i == RESILIENCE_POISON
+        check(r.finished and r.finish_reason == ("error" if poisoned
+                                                 else "length"),
+              f"request {r.req_id} ended {r.finish_reason}")
+    check(rep["quarantined"] == [str(reqs[RESILIENCE_POISON].req_id)],
+          f"the poisoned request was not quarantined: {rep}")
+    check(any("block" in j for j in inj.journal),
+          f"no cached block was flipped: {inj.journal}")
+    check(rep["prefix_quarantines"] >= 1,
+          f"the flipped block was not quarantined: {rep}")
+    for pool in engine._pools():
+        st = pool.fragmentation_stats()
+        check(st["blocks_in_use"] == 1 + pool.cached_blocks,
+              f"the faulted engine leaked blocks: {st}")
+    keep = [i for i in range(len(reqs)) if i != RESILIENCE_POISON]
+    got = [list(reqs[i].tokens) for i in keep]
+    rec = {"gpu": smi, "requests": len(reqs), "wave": len(wave),
+           "wall_s": wall, "generated_tokens": sum(len(g) for g in got),
+           "agreement_with_undisturbed": _agreement(
+               got, [want[i] for i in keep]),
+           "streams_equal_undisturbed": sum(
+               g == want[i] for g, i in zip(got, keep)),
+           "report": rep, "journal": inj.journal,
+           "watchdog_deadline_s": engine.watchdog.deadline("decode"),
+           "prefix_cache": engine.pool.prefix_cache_stats(),
+           "launches": launches}
+    emit({"phase": "resilience_faults_llama2_7b_bf16", **rec})
+    del engine, reqs, wave
+    _free(torch)
+    return launches
+
+
+def _resilience_overhead(torch, smi, model):
+    """Phase 17 (b), continued: steady decode dispatches of the default
+    engine against ``resilience=True`` (phase 16 (b)'s configuration and
+    windows, after WATCHDOG_WARM dispatches that arm the watchdog): the
+    median ratio of tokens/s and of host ms a dispatch, the watchdog's
+    deadline and trips, and the synchronizing calls of a dispatch in both
+    arms, which must be equal: one event wait and no other sync."""
+    import numpy as np
+
+    from paddle_tpu_torch import create_serving_engine
+
+    cfg = FRONTDOOR_STEADY
+    vocab = model.config.vocab_size
+    rng = np.random.RandomState(SEED)
+    t_steps, plen = cfg["quantum"], cfg["prompt"]
+    max_ctx = plen + t_steps * (2 * cfg["windows"] + 4 + WATCHDOG_WARM) + 8
+    max_ctx = -(-max_ctx // cfg["block"]) * cfg["block"]
+
+    def steady(**kw):
+        engine = create_serving_engine(
+            model, num_slots=cfg["slots"], block_size=cfg["block"],
+            prefill_chunk=plen, decode_quantum=t_steps, max_context=max_ctx,
+            **kw)
+        for _ in range(cfg["slots"]):
+            engine.submit(rng.randint(1, vocab, plen).astype(np.int32),
+                          max_new_tokens=max_ctx - plen - 4)
+        while (engine.scheduler.prefilling()
+               or not engine.scheduler.decoding()):
+            engine.step()
+        engine.step()           # the warm-up and the capture
+        check(engine._graph is not None, "a steady engine did not capture")
+        for _ in range(WATCHDOG_WARM):
+            engine.step()
+        return engine
+
+    def window(engine):
+        g0 = int(engine._n_gen.sum())
+        host = 0.0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(cfg["dispatches"]):
+            a = time.perf_counter()
+            pending = engine.step_dispatch()
+            b = time.perf_counter()
+            check(pending is not None, "a timed step was no decode dispatch")
+            pending["event"].synchronize()      # the card is done
+            c = time.perf_counter()
+            engine.step_collect(pending)
+            host += (b - a) + (time.perf_counter() - c)
+        wall = time.perf_counter() - t0
+        return {"tok_per_s": (int(engine._n_gen.sum()) - g0) / wall,
+                "host_ms": 1e3 * host / cfg["dispatches"]}
+
+    base = steady()
+    armed = steady(resilience=True)
+    pairs = [(window(base), window(armed)) for _ in range(cfg["windows"])]
+    syncs = {name: [_sync_counts(torch, engine.step) for _ in range(2)]
+             for name, engine in (("default", base), ("resilience", armed))}
+
+    def med(xs):
+        return float(np.median(xs))
+
+    rec = {"gpu": smi, **cfg, "max_context": max_ctx,
+           "default_tok_per_s": med([b["tok_per_s"] for b, _ in pairs]),
+           "resilience_tok_per_s": med([a["tok_per_s"] for _, a in pairs]),
+           "tok_per_s_ratio_median": med([a["tok_per_s"] / b["tok_per_s"]
+                                          for b, a in pairs]),
+           "default_host_ms": med([b["host_ms"] for b, _ in pairs]),
+           "resilience_host_ms": med([a["host_ms"] for _, a in pairs]),
+           "host_ms_ratio_median": med([a["host_ms"] / b["host_ms"]
+                                        for b, a in pairs]),
+           "windows": [{"default": b, "resilience": a} for b, a in pairs],
+           "watchdog": armed.resilience_report()["watchdog"],
+           "watchdog_deadline_s": armed.watchdog.deadline("decode"),
+           "graph_launches_per_replay": {"default": base._graph.launches,
+                                         "resilience": armed._graph.launches},
+           "syncs_per_dispatch": {k: [{"sync_debug": a, "events": e}
+                                      for a, e in v]
+                                  for k, v in syncs.items()}}
+    emit({"phase": "resilience_overhead_llama2_7b_bf16", **rec})
+    check(syncs["resilience"] == syncs["default"],
+          f"resilience changed the syncs of a dispatch: {syncs}")
+    check(all(e == 1 for _, e in syncs["resilience"]),
+          f"a decode dispatch did not make exactly one event wait: {syncs}")
+    check(base._graph.launches == armed._graph.launches,
+          "resilience changed the captured quantum's launches")
+    del base, armed
+    _free(torch)
+
+
+def _snapshot_restore(torch, model, requests, want):
+    """A run of ``requests`` snapshotted after RESTORE_AFTER_STEPS steps
+    (a JSON round trip), the engine dropped, a fresh one restored on the
+    same model and run to the end. Returns the streams and the record."""
+    from paddle_tpu_torch import create_serving_engine
+    from paddle_tpu_torch.serving import ServingEngine
+
+    engine = create_serving_engine(model, **serve_kw())
+    reqs = [engine.submit(**r) for r in requests]
+    for _ in range(RESTORE_AFTER_STEPS):
+        engine.step()
+    snap = json.loads(json.dumps(engine.snapshot()))
+    done = {str(r.req_id): list(r.tokens) for r in engine.completed}
+    ids = [str(r.req_id) for r in reqs]
+    inflight = {st["req_id"]: len(st["tokens"]) for st in snap["inflight"]}
+    del engine, reqs          # the crash: the pools go before the restore
+    _free(torch)
+    t0 = time.perf_counter()
+    restored = ServingEngine.restore(snap, model)
+    restored.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check_run(restored, restored.completed, model.config.vocab_size)
+    check(restored._graph is not None,
+          "the restored engine's decode quantum did not run as a graph")
+    done.update({str(r.req_id): list(r.tokens) for r in restored.completed})
+    got = [done[i] for i in ids]
+    rec = {"inflight": len(inflight),
+           "resumed_tokens": sum(inflight.values()),
+           "restore_wall_s": wall,
+           "restores": restored.obs.registry.get(
+               "serving_restores_total").value()}
+    del restored
+    _free(torch)
+    return got, rec
+
+
+def _restores(torch, smi, model, f32, requests, want):
+    """Phase 17 (c): snapshot mid-run, drop the engine, restore, finish.
+    In f32 at 4 layers the streams equal the undisturbed run's; in bf16 at
+    32 layers (phase 3's model) their agreement is recorded."""
+    from paddle_tpu_torch import create_serving_engine
+
+    calm = create_serving_engine(f32, **serve_kw())
+    want4 = [calm.submit(**r) for r in requests]
+    calm.run()
+    want4 = [list(r.tokens) for r in want4]
+    del calm
+    _free(torch)
+    got4, rec4 = _snapshot_restore(torch, f32, requests, want4)
+    got, rec = _snapshot_restore(torch, model, requests, want)
+    emit({"phase": "resilience_restore", "gpu": smi,
+          "after_steps": RESTORE_AFTER_STEPS,
+          "f32_4_layers": {**rec4, "streams_equal": got4 == want4},
+          "bf16_32_layers": {**rec, "agreement": _agreement(got, want)}})
+    check(rec4["inflight"] > 0 and rec["inflight"] > 0,
+          "the snapshot caught no request in flight")
+    check(got4 == want4, "f32 restored streams differ from the undisturbed "
+          "run's")
+
+
+def _ring_owner(tokens, replicas=2, vnodes=32):
+    """The replica a 2-replica router's ring gives ``tokens``' affinity
+    key (``ClusterRouter._ring_lookup`` over its default vnodes)."""
+    import bisect
+
+    from paddle_tpu_torch.serving import prompt_prefix_key
+    from paddle_tpu_torch.serving.cluster import _string_key
+
+    key = prompt_prefix_key(tokens, serve_kw()["block_size"], max_blocks=4)
+    ring = sorted((_string_key(f"r{i}#{v}"), f"r{i}")
+                  for i in range(replicas) for v in range(vnodes))
+    return ring[bisect.bisect_left(ring, (key,)) % len(ring)][1]
+
+
+def _cluster_trace(requests, vocab):
+    """Phase 3's trace over two shared system prompts, which the ring
+    gives to different replicas (so that both replicas decode)."""
+    import numpy as np
+
+    rng = np.random.RandomState(SEED + 9)
+    first = rng.randint(1, vocab, CLUSTER_SYSTEM).astype(np.int32)
+    second = rng.randint(1, vocab, CLUSTER_SYSTEM).astype(np.int32)
+    while _ring_owner(second) == _ring_owner(first):
+        second = rng.randint(1, vocab, CLUSTER_SYSTEM).astype(np.int32)
+    systems = (first, second)
+    return [dict(r, prompt=np.concatenate([systems[i % 2], r["prompt"]]))
+            for i, r in enumerate(requests)]
+
+
+def _run_cluster(torch, model, trace, roles, exporter_seen=None):
+    import threading
+
+    from paddle_tpu_torch import create_serving_engine
+    from paddle_tpu_torch.obs import ClusterExporter
+    from paddle_tpu_torch.serving import (ClusterFrontDoor, ClusterReplica,
+                                          ClusterRouter, no_shed_policy)
+
+    reps = [ClusterReplica(f"r{i}", create_serving_engine(
+        model, **serve_kw(prefix_cache=True)), role=role,
+        policy=no_shed_policy()) for i, role in enumerate(roles)]
+    cfd = ClusterFrontDoor(ClusterRouter(reps))
+    t0 = time.perf_counter()
+    streams = [cfd.submit(r["prompt"], max_new_tokens=r["max_new_tokens"])
+               for r in trace]
+    if exporter_seen is None:
+        cfd.run_until_idle()
+    else:
+        with ClusterExporter.for_cluster(cfd) as exp:
+            stop = threading.Event()
+            th = threading.Thread(target=_scrape,
+                                  args=(exp, stop, exporter_seen))
+            th.start()
+            try:
+                cfd.run_until_idle()
+            finally:
+                stop.set()
+                th.join()
+    wall = time.perf_counter() - t0
+    got = [list(s.result()) for s in streams]
+    for rep in reps:
+        check_run(rep.engine, [], model.config.vocab_size)
+    stats = {"wall_s": wall, "router": cfd.router.affinity_stats(),
+             "handoffs": cfd.router._c_handoffs.value(),
+             "per_replica": {r.name: r.engine.stats["decode_quanta"]
+                             for r in reps}}
+    del cfd, reps, streams
+    _free(torch)
+    return got, stats
+
+
+def _cluster(torch, smi, f32, requests):
+    """Phase 17 (d): two replicas (sharing the f32 4-layer model, their
+    graphs replaying on one stream) over phase 3's trace with two shared
+    system prompts, a ``ClusterExporter`` scraped from a thread meanwhile:
+    affinity hits > 0 and the streams equal a cluster of one's; then the
+    prefill/decode hand-off, whose streams equal a single replica's."""
+    trace = _cluster_trace(requests, f32.config.vocab_size)
+    one, one_st = _run_cluster(torch, f32, trace, ["general"])
+    seen = {}
+    two, two_st = _run_cluster(torch, f32, trace, ["general", "general"],
+                               exporter_seen=seen)
+    hand, hand_st = _run_cluster(torch, f32, trace, ["prefill", "decode"])
+    emit({"phase": "resilience_cluster_f32", "gpu": smi, "layers": 4,
+          "requests": len(trace), "system_prompt": CLUSTER_SYSTEM,
+          "one": one_st, "two": two_st, "handoff": hand_st,
+          "two_equal_one": two == one, "handoff_equal_one": hand == one,
+          "scrapes": {p: len(v) for p, v in seen.items()}})
+    check(two_st["router"]["affinity_hits"] > 0,
+          f"no request landed on its prefix's replica: {two_st}")
+    check(all(n > 0 for n in two_st["per_replica"].values()),
+          f"a replica did not decode: {two_st}")
+    check(two == one, "the 2-replica streams differ from a cluster of one's")
+    check(hand_st["handoffs"] > 0 and hand == one,
+          "the hand-off's streams differ from a single replica's")
+    check(seen.get("/metrics") and all(s == 200 for s, _ in seen["/metrics"]),
+          f"the cluster exporter's /metrics failed: {seen}")
+
+
+def _obs_check_cli(smi):
+    """Phase 17 (e): ``python -m paddle_tpu_torch.obs check --device cuda``
+    as a subprocess: rc 0, its lines printed."""
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "paddle_tpu_torch.obs", "check", "--device",
+         "cuda"], cwd=os.path.dirname(os.path.abspath(__file__)),
+        capture_output=True, text=True, timeout=600)
+    lines = out.stdout.strip().splitlines()
+    for ln in lines:
+        print(f"obs check: {ln}", flush=True)
+    emit({"phase": "resilience_obs_check", "gpu": smi, "rc": out.returncode,
+          "wall_s": time.perf_counter() - t0, "lines": len(lines),
+          "stderr_tail": out.stderr[-2000:]})
+    check(out.returncode == 0, f"obs check failed: {out.stderr[-2000:]}")
+
+
+def resilience_phase(torch, dev, smi, model, requests, want):
+    """Phase 17: resilience, crash recovery and the cluster on phase 3's
+    Llama-2-7B bf16 model (before phase 15, which scales its tails) and an
+    f32 4-layer model of the same width: (a) the soaks, (b) faults at full
+    depth and the tier's dispatch overhead, (c) snapshot / restore, (d)
+    the cluster, (e) the ``obs check`` command line. Returns (b)'s
+    launches as ``resilience``."""
+    t0 = time.perf_counter()
+    f32 = _f32_model(torch, dev, 4, SEED + 7)
+    _soaks(torch, dev, smi, f32)
+    launches = _faults_full_depth(torch, smi, model, requests, want)
+    _resilience_overhead(torch, smi, model)
+    _restores(torch, smi, model, f32, requests, want)
+    _cluster(torch, smi, f32, requests)
+    del f32
+    _free(torch)
+    _obs_check_cli(smi)
+    emit({"phase": "resilience", "gpu": smi,
+          "wall_s": time.perf_counter() - t0})
+    return {"resilience": launches}
 
 
 def main():

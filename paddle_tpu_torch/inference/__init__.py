@@ -65,8 +65,13 @@ def create_serving_engine(model, **kwargs):
     ``spec_proposed``, ``spec_accepted``, ``spec_acceptance_rate`` and
     ``draft_pool``), ``obs`` / ``trace`` / ``slo`` / ``flight`` (the
     metrics registry, a Chrome trace, the SLOs behind ``health()`` and
-    the flight recorder, all on the host), ``device``
-    (default ``cuda``; raises without CUDA unless ``"cpu"``). On the card
+    the flight recorder, all on the host), ``faults`` / ``resilience``
+    (a seeded :class:`~paddle_tpu_torch.serving.FaultInjector`, and
+    ``True`` or a :class:`~paddle_tpu_torch.serving.ResiliencePolicy`:
+    retries, step skips, the poison bisect, the watchdog, the speculative
+    fall-back, cached-prefix checksums; snapshot / restore come with every
+    engine), ``device`` (default ``cuda``; raises without CUDA unless
+    ``"cpu"``). On the card
     the decode quantum (or the speculative round) runs as one captured
     CUDA graph; drive the engine
     with ``step()`` or with ``step_dispatch()`` / ``step_collect()``."""

@@ -27,11 +27,22 @@ The copy-on-write copies IN PLACE: the shared block's K and V rows (and
 an int8 pool's scale rows) are copied into the fresh block of the same
 tensors on the current stream, so no pool tensor is ever replaced. A
 captured decode graph keeps the pools' addresses, and a copy enqueued
-before a replay on the same stream is seen by it. The reference's content
-checksums and quarantine (``kv_checksums``) and its mesh layout are not
-ported (ROADMAP A5, A7).
+before a replay on the same stream is seen by it.
+
+The resilience tier's hooks are the reference's: ``fault_hook`` fires in
+``_alloc_block`` before a block leaves the free list (seeded allocation
+failures); ``kv_checksums`` arms the content verify, a crc32 of each
+published block's layer-0 K rows (and an int8 pool's scale rows) checked
+again before an attach aliases it, whose first mismatch quarantines that
+entry's subtree (``quarantine_prefix``); ``rebuild_accounting`` rebuilds
+the refcounts and the free list from the live tables after drift. A
+checksum reads one block to the host, a device sync on each publish and
+attach, and only when ``kv_checksums`` is on. No pool tensor is ever
+replaced. The reference's mesh layout is not ported (ROADMAP A7).
 """
 from __future__ import annotations
+
+import zlib
 
 import numpy as np
 import torch
@@ -162,6 +173,13 @@ class PagedKVCachePool:
         self.cow_copies = 0              # copy-on-write block copies
         self.prefix_aliases = 0          # blocks the index aliased
         self.prefix_evictions = 0        # entries reclaimed or cleared
+        # the resilience tier: the injector's allocation hook, the content
+        # verify of cached blocks and the counters of its recoveries
+        self.fault_hook = None
+        self.kv_checksums = False
+        self._block_crcs: dict = {}      # block id -> publish-time crc
+        self.prefix_quarantines = 0      # entries dropped by the verify
+        self.accounting_rebuilds = 0
         if prefix_cache:
             self.enable_prefix_cache()
 
@@ -176,7 +194,10 @@ class PagedKVCachePool:
         """Pop one free block, reclaiming a cached-only prefix block (LRU)
         when the free list is dry. The block is born refcounted, so a
         stats snapshot taken in the middle of a copy-on-write never sees
-        an allocated but untracked block."""
+        an allocated but untracked block. A raising ``fault_hook`` fires
+        before any state changes, so the caller can retry."""
+        if self.fault_hook is not None:
+            self.fault_hook(self)
         if not self._free:
             self.evict_prefix(1)
         if not self._free:
@@ -302,6 +323,8 @@ class PagedKVCachePool:
         if seq_id in self._tables:
             raise ValueError(f"sequence {seq_id!r} already exists")
         entries = self._match_entries(tokens, max_blocks=max_blocks)
+        if self.kv_checksums:
+            entries = self._verify_entries(entries)
         self.prefix_hits += len(entries)
         self.prefix_misses += max(self._full_blocks(tokens) - len(entries),
                                   0)
@@ -346,6 +369,8 @@ class PagedKVCachePool:
                 self._refcounts[blk] += 1
                 if parent is not None:
                     parent.nchildren += 1
+                if self.kv_checksums:
+                    self._block_crcs[blk] = self._block_crc(blk)
                 published += 1
             else:
                 hit.tick = self._prefix_tick
@@ -403,8 +428,87 @@ class PagedKVCachePool:
         if e.parent is not None:
             e.parent.nchildren -= 1
         del self._cached_blocks[e.block]
+        self._block_crcs.pop(e.block, None)
         self._release([e.block])
         self.prefix_evictions += 1
+
+    # -- resilience: the content verify and the recovery from drift --------
+    def _block_crc(self, blk):
+        """crc32 of one cached block's layer-0 K rows, and on an int8 pool
+        of its scale rows too (the same codes under other scales are other
+        values). A cached block is immutable (a write copies it first), so
+        a mismatch at attach is corruption. Reads the block to the host."""
+        rows = self.k_pools[0][blk]
+        if rows.dtype == torch.bfloat16:
+            rows = rows.view(torch.int16)  # numpy has no bf16: same bytes
+        crc = zlib.crc32(rows.cpu().numpy().tobytes())
+        if self.quantized:
+            crc = zlib.crc32(self.k_scales[0][blk].cpu().numpy().tobytes(),
+                             crc)
+        return crc
+
+    def _verify_entries(self, entries):
+        """Checksum each matched cached block before it is aliased; the
+        FIRST mismatch quarantines that entry's whole subtree and cuts the
+        match there (the sequence goes on unshared from that depth)."""
+        for i, e in enumerate(entries):
+            want = self._block_crcs.get(e.block)
+            if want is None or self._block_crc(e.block) == want:
+                continue
+            self.quarantine_prefix(e)
+            return entries[:i]
+        return entries
+
+    def quarantine_prefix(self, entry):
+        """Drop ``entry`` and every descendant from the prefix index, leaves
+        first (live sequences that alias the blocks keep their holds; only
+        the index's holds release). Returns the entries quarantined."""
+        doomed = {id(entry): entry}
+        changed = True
+        while changed:
+            changed = False
+            for e in self._cached_blocks.values():
+                if id(e) in doomed:
+                    continue
+                if e.parent is not None and id(e.parent) in doomed:
+                    doomed[id(e)] = e
+                    changed = True
+        remaining = list(doomed.values())
+        while remaining:
+            leaves = [e for e in remaining if e.nchildren == 0]
+            if not leaves:  # chains are trees
+                raise RuntimeError("prefix subtree has no leaf")
+            for e in leaves:
+                self._drop_entry(e)
+                remaining.remove(e)
+        self.prefix_quarantines += len(doomed)
+        return len(doomed)
+
+    def rebuild_accounting(self):
+        """Recover from accounting drift: rebuild the refcounts and the
+        free list from the LIVE block tables and drop the whole prefix
+        index (its holds are forgotten, not released: cached subtrees are
+        not trusted after drift). ``_check_accounting`` passes afterwards.
+        Returns a summary."""
+        counts: dict = {}
+        for blocks in self._tables.values():
+            for b in blocks:
+                counts[b] = counts.get(b, 0) + 1
+        dropped_entries = len(self._cached_blocks)
+        self._prefix_buckets = {}
+        self._cached_blocks = {}
+        self._block_crcs = {}
+        self._refcounts = dict(counts)
+        held = set(counts)
+        self._free = [b for b in range(self.num_blocks - 1, -1, -1)
+                      if b not in held]
+        for s in list(self._lens):
+            if s not in self._tables:
+                del self._lens[s]
+        self.accounting_rebuilds += 1
+        return {"held_blocks": len(held),
+                "free_blocks": len(self._free),
+                "dropped_prefix_entries": dropped_entries}
 
     def evict_prefix(self, n):
         """Reclaim up to ``n`` cached blocks: LRU over LEAF entries (a

@@ -16,13 +16,14 @@ host at the engine's scheduler boundaries.
 - :mod:`.attribution`: :class:`CostLedger`, tokens and dispatch walls by
   phase, with its conservation invariants;
 - :mod:`.export`: :class:`MetricsExporter` (``/metrics``, ``/healthz``,
-  ``/slo``, ``/snapshot``, ``/anomalies`` on a local port) and
-  :func:`render_dashboard`.
+  ``/slo``, ``/snapshot``, ``/anomalies`` on a local port), the fleet's
+  :class:`ClusterExporter` and :func:`render_dashboard`;
+- ``python -m paddle_tpu_torch.obs``: the command line (``snapshot``,
+  ``export``, ``serve``, ``slo``, ``watch``, ``check``).
 
 No hook reads a tensor or synchronizes the card: a decode dispatch keeps
 its one host sync with everything on. ``InstrumentedTrainStep`` (ROADMAP
-A6), ``ClusterExporter`` and the ``obs`` command line (A5, second half)
-come later: they raise.
+A6) comes later: it raises.
 """
 from .registry import (  # noqa: F401
     Counter, Gauge, Histogram, LATENCY_BUCKETS, MetricsRegistry,
@@ -42,10 +43,11 @@ from .flight import (  # noqa: F401
 from .attribution import (  # noqa: F401
     CostLedger, decode_flops_per_token,
 )
-from .export import MetricsExporter, render_dashboard  # noqa: F401
+from .export import (  # noqa: F401
+    ClusterExporter, MetricsExporter, render_dashboard,
+)
 from .._later import not_ported
 
-ClusterExporter = not_ported("ClusterExporter", "A5, second half")
 InstrumentedTrainStep = not_ported("InstrumentedTrainStep", "A6")
 
 __all__ = [

@@ -21,8 +21,12 @@ from ``exporter.port``). The handler thread only READS the host-side
 dicts and deques the engine thread mutates at step boundaries, and a
 render retries a few times on a mutated-during-iteration race instead
 of locking the engine's hot path, as the reference does. It touches no
-tensor. The fleet-wide ``ClusterExporter`` comes with the cluster tier
-(ROADMAP A5).
+tensor.
+
+:class:`ClusterExporter` serves a fleet: ``/metrics`` merges every
+replica's registry under a ``replica`` label (the router's and the
+exporter's own series unlabeled), and ``/healthz`` is the worst replica's
+state.
 """
 from __future__ import annotations
 
@@ -30,7 +34,7 @@ import json
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
-__all__ = ["MetricsExporter", "render_dashboard"]
+__all__ = ["MetricsExporter", "ClusterExporter", "render_dashboard"]
 
 _STATUS_BY_STATE = {"ok": 200, "warn": 200, "critical": 503}
 
@@ -207,6 +211,123 @@ def _make_handler(exporter):
 
 
 # -------------------------------------------------------- dashboard
+# ----------------------------------------------- cluster aggregation
+class _MergedRegistry:
+    """Read-only multi-registry view for :class:`ClusterExporter`: a
+    merged snapshot with every member's series relabeled by replica,
+    rendered through the same :func:`prometheus_from_snapshot` the
+    live registry uses. Exporter-internal instruments (the error
+    counter) land in ``own``, which merges UNLABELED — so a fleet
+    scrape is exactly the union of the per-replica scrapes plus the
+    router/exporter series."""
+
+    def __init__(self, members, own):
+        self._members = list(members)   # [(replica_name, registry)]
+        self._own = own                 # a real MetricsRegistry
+
+    def counter(self, *a, **kw):
+        return self._own.counter(*a, **kw)
+
+    def gauge(self, *a, **kw):
+        return self._own.gauge(*a, **kw)
+
+    def snapshot(self):
+        merged = {}
+        for label, reg in [(None, self._own)] + self._members:
+            for m in reg.snapshot()["metrics"]:
+                e = merged.get(m["name"])
+                if e is None:
+                    e = {k: v for k, v in m.items() if k != "series"}
+                    e["series"] = []
+                    merged[m["name"]] = e
+                elif e["type"] != m["type"]:
+                    raise ValueError(
+                        f"metric {m['name']!r} registered as "
+                        f"{e['type']} and {m['type']} across replicas")
+                for s in m["series"]:
+                    s = dict(s)
+                    labels = dict(s.get("labels", {}))
+                    if label is not None:
+                        labels["replica"] = label
+                    s["labels"] = labels
+                    e["series"].append(s)
+        metrics = []
+        for name in sorted(merged):
+            e = merged[name]
+            e["series"].sort(key=lambda s: sorted(s["labels"].items()))
+            metrics.append(e)
+        return {"version": 1, "metrics": metrics}
+
+    def snapshot_json(self, indent=None):
+        return json.dumps(self.snapshot(), indent=indent,
+                          sort_keys=True)
+
+    def prometheus(self):
+        from .registry import prometheus_from_snapshot
+        return prometheus_from_snapshot(self.snapshot())
+
+
+class ClusterExporter(MetricsExporter):
+    """One scrape for the whole fleet: ``/metrics`` serves every
+    replica's registry merged under a ``replica`` label (router and
+    exporter series unlabeled), and ``/healthz`` is fleet-level with
+    WORST-STATE-WINS — one CRITICAL replica 503s the cluster scrape a
+    load balancer keys on, while the per-replica exporters (if any)
+    keep answering for themselves.
+
+    Args:
+        members: list of ``(replica_name, engine_or_exporter)`` — an
+            engine is wrapped in a (non-started) per-replica
+            :class:`MetricsExporter` via :meth:`for_engine` for its
+            healthz; a ready exporter is used as-is.
+        registry: extra UNLABELED registry merged into the scrape
+            (pass the cluster router's so ``serving_router_*`` ride
+            along); also hosts the exporter's own error counter.
+    """
+
+    def __init__(self, members, registry=None, host="127.0.0.1",
+                 port=0):
+        if registry is None:
+            from .registry import MetricsRegistry
+            registry = MetricsRegistry()
+        self._members = []
+        for name, m in members:
+            exp = (m if isinstance(m, MetricsExporter)
+                   else MetricsExporter.for_engine(m))
+            self._members.append((str(name), exp))
+        merged = _MergedRegistry(
+            [(n, e.registry) for n, e in self._members], registry)
+        super().__init__(merged, slos=None, obs=None, flight=None,
+                         host=host, port=port)
+
+    @classmethod
+    def for_cluster(cls, cluster, host="127.0.0.1", port=0):
+        """Wire a :class:`~paddle_tpu_torch.serving.cluster.ClusterFrontDoor`
+        (or its router): one member per replica + the router registry."""
+        router = getattr(cluster, "router", cluster)
+        return cls([(r.name, r.engine) for r in router.replicas],
+                   registry=router.registry, host=host, port=port)
+
+    def health_report(self, now=None):
+        """Worst-state-wins fleet report with every replica's own
+        report nested — the drill-down a fleet 503 points at."""
+        per = {n: e.health_report(now) for n, e in self._members}
+        worst = max((r["state"] for r in per.values()),
+                    key=lambda s: ("ok", "warn", "critical").index(s),
+                    default="ok")
+        return {"version": 1, "state": worst, "now": now,
+                "objectives": [], "replicas": per}
+
+    def healthz(self, now=None):
+        report = self.health_report(now)
+        body = {
+            "state": report["state"],
+            "replicas": {n: r["state"]
+                         for n, r in report["replicas"].items()},
+        }
+        return _STATUS_BY_STATE[report["state"]], body
+
+
 def _snap_metric(snap, name):
     for m in snap.get("metrics", ()):
         if m["name"] == name:
@@ -224,6 +345,25 @@ def _snap_value(snap, name, default=0.0, **labels):
                 == want:
             return s.get("value", default)
     return default
+
+
+def _snap_sum(snap, name):
+    """Sum of a metric's series across ALL label sets (e.g. the total
+    of a ``{site,kind}``-labeled counter)."""
+    m = _snap_metric(snap, name)
+    if m is None:
+        return 0.0
+    return sum(s.get("value", 0.0) for s in m["series"])
+
+
+def _snap_labels_where(snap, name, pred):
+    """Label dicts of a metric's series whose value satisfies
+    ``pred`` — e.g. the active modes of the degraded-mode gauge."""
+    m = _snap_metric(snap, name)
+    if m is None:
+        return []
+    return [s.get("labels", {}) for s in m["series"]
+            if pred(s.get("value", 0.0))]
 
 
 def _snap_quantile(snap, name, q):
@@ -352,5 +492,42 @@ def render_dashboard(snapshot, report=None, width=62):
             lines.append(
                 f" prefix[{pool:<4}] hits {hits:>6.0f}  misses "
                 f"{misses:>6.0f}  cow {cow:>4.0f}  cached {frac:6.1%}")
+    # resilience line — only once a fault/retry/trip/quarantine has
+    # happened, so pre-resilience snapshots render as before
+    faults = _snap_sum(snapshot, "serving_faults_injected_total")
+    retries = _snap_sum(snapshot, "serving_quantum_retries_total")
+    trips = _snap_sum(snapshot, "serving_watchdog_trips_total")
+    quar = _snap_sum(snapshot, "serving_quarantines_total")
+    restores = _snap_sum(snapshot, "serving_restores_total")
+    if faults or retries or trips or quar or restores:
+        lines.append(
+            f" faults    injected {faults:>5.0f}  retries {retries:>4.0f}"
+            f"  watchdog {trips:>4.0f}  quarantined {quar:>4.0f}"
+            f"  restores {restores:>3.0f}")
+    modes = sorted(lb.get("mode", "?") for lb in _snap_labels_where(
+        snapshot, "serving_degraded_mode", lambda v: v >= 1.0))
+    if modes:
+        lines.append(f" degraded  {', '.join(modes)}")
+    # cluster line — only once a router has placed traffic
+    routed = _snap_sum(snapshot, "serving_router_requests_total")
+    if routed:
+        m = _snap_metric(snapshot, "serving_router_requests_total")
+        by_reason = {}
+        for s in m["series"]:
+            r = s.get("labels", {}).get("reason", "?")
+            by_reason[r] = by_reason.get(r, 0.0) + s.get("value", 0.0)
+        hit_rate = _snap_sum(snapshot, "serving_router_affinity_hit_rate")
+        handoffs = _snap_sum(snapshot, "serving_router_handoffs_total")
+        lines.append(
+            f" cluster   routed {routed:>5.0f} "
+            f"(aff {by_reason.get('affinity', 0):>4.0f}, "
+            f"bal {by_reason.get('balance', 0):>4.0f}, "
+            f"fo {by_reason.get('failover', 0):>3.0f})  "
+            f"handoffs {handoffs:>3.0f}  hit {hit_rate:6.1%}")
+        host_gap = _snap_sum(snapshot, "serving_host_gap_fraction")
+        if host_gap:
+            lines.append(
+                f" host gap  {host_gap:6.1%} of decode dispatch wall "
+                f"spent host-side (multi-quantum collapses this)")
     lines.append(bar)
     return "\n".join(lines) + "\n"

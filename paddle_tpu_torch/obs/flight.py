@@ -1,19 +1,18 @@
 """Per-request flight recorder (counterpart of ``paddle_tpu/obs/flight.py``):
 a bounded journal of every lifecycle event a request passes through on
 the host (submit, admit with its pool context, prefill chunks, first
-token, decode-quantum yields, speculative rounds, preempt / resume,
-shed, retire), with DUMP-ON-ANOMALY: when a retiring request's TTFT or
-end-to-end latency crosses its SLO threshold, or its preemptions
+token, decode-quantum yields, speculative rounds, preempt / resume, the
+resilience tier's fault / retry / degrade / restore, the cluster tier's
+route / hand-off, shed, retire), with DUMP-ON-ANOMALY: when a retiring
+request's TTFT or end-to-end latency crosses its SLO threshold, or its preemptions
 re-computed more cached tokens than ``recompute_threshold``, the whole
 journal is captured into a bounded anomaly buffer, exportable as
 schema-validated JSON lines.
 
 One event is a dict append into a bounded per-request list; the live
 table and the anomaly buffer are bounded too, and every drop is
-counted. ``EVENT_KINDS`` keeps the reference's whole schema (the fault,
-route and hand-off kinds of the resilience and cluster tiers among
-them), so records of either package validate against either's
-:func:`validate_flight_records`.
+counted. ``EVENT_KINDS`` is the reference's schema, so records of either
+package validate against either's :func:`validate_flight_records`.
 """
 from __future__ import annotations
 
@@ -163,6 +162,45 @@ class FlightRecorder:
                     slot=(None if slot is None else int(slot)),
                     prefill_tokens=int(prefill_tokens),
                     preemptions=int(req.preemptions))
+
+    def on_fault(self, req, t, site=None, kind=None):
+        """An injected (or contained) fault touched this request: it fired
+        while the request was a row of the dispatch, or the bisect
+        finished it (``site="quarantine"``). The fault's kind rides in
+        ``fault`` (``kind`` is the event's)."""
+        self._event(req, "fault", t, site=site, fault=kind)
+
+    def on_retry(self, req, t, kind=None, attempt=None, backoff_s=None):
+        """The dispatch this request rode in was retried after an injected
+        fault (``attempt`` 1-based; the dispatch kind rides in
+        ``quantum``)."""
+        self._event(req, "retry", t, quantum=kind,
+                    attempt=(None if attempt is None else int(attempt)),
+                    backoff_s=backoff_s)
+
+    def on_degrade(self, req, t, mode=None):
+        """A degraded mode came on while this request was live
+        (``spec_disabled`` | ``pool_rebuild``)."""
+        self._event(req, "degrade", t, mode=mode)
+
+    def on_restore(self, req, t, tokens_resumed=0):
+        """The request was re-admitted into a restored engine:
+        ``tokens_resumed`` tokens were emitted before the restart and are
+        prefilled again, not emitted again."""
+        self._event(req, "restore", t, tokens_resumed=int(tokens_resumed))
+
+    def on_route(self, req, t, replica=None, reason=None):
+        """A cluster router placed this request on a replica (``reason``
+        ``affinity`` | ``balance`` | ``failover``), journaled on the chosen
+        replica's recorder after its ``submit`` event."""
+        self._event(req, "route", t, replica=replica, reason=reason)
+
+    def on_handoff(self, req, t, src=None, dst=None, tokens_prefilled=0):
+        """Prefill->decode hand-off: the prefill replica ``src`` published
+        the prompt's blocks and the decode replica ``dst`` re-admitted the
+        request through recompute-on-resume."""
+        self._event(req, "handoff", t, src=src, dst=dst,
+                    tokens_prefilled=int(tokens_prefilled))
 
     def on_shed(self, req, t, reason="shed"):
         """A request refused admission by a load-shedding policy: its

@@ -42,9 +42,13 @@ Exported metrics:
   ``inter_token_seconds`` and ``request_outcomes`` (1.0 a shed or error
   outcome, 0.0 eos / stop / length).
 
-The reference's resilience instruments (faults, retries, watchdog,
-degraded modes, quarantines, restores) come with the resilience tier,
-and its collective census with tensor parallelism (ROADMAP A5, A7).
+The resilience tier's instruments: ``serving_faults_injected_total{site,
+kind}``, ``serving_quantum_retries_total{kind}``,
+``serving_watchdog_trips_total{kind}``, ``serving_degraded_mode{mode}``,
+``serving_degrades_total{mode}``, ``serving_pool_rebuilds_total``,
+``serving_quarantines_total{kind}`` and ``serving_restores_total``, fed by
+the engine at its step boundaries. The reference's collective census comes
+with tensor parallelism (ROADMAP A7).
 """
 from __future__ import annotations
 
@@ -229,6 +233,35 @@ class ServingObs:
         self._g_pc_frac = r.gauge(
             "serving_prefix_cache_cached_block_fraction",
             "index-held blocks / blocks in use")
+        # the resilience tier: injected faults, dispatch retries, watchdog
+        # overruns, the degraded modes and quarantines, restores, all
+        # reported by the engine at its step boundaries
+        self._c_faults = r.counter(
+            "serving_faults_injected_total",
+            "faults the seeded injector fired, by site/kind")
+        self._c_retries = r.counter(
+            "serving_quantum_retries_total",
+            "quantum dispatches retried after an injected fault")
+        self._c_watchdog = r.counter(
+            "serving_watchdog_trips_total",
+            "quantum dispatches that overran the p99-derived deadline")
+        self._g_degraded = r.gauge(
+            "serving_degraded_mode",
+            "1 while a degraded mode is active, by mode "
+            "(spec_disabled|pool_rebuild)")
+        self._c_degrades = r.counter(
+            "serving_degrades_total",
+            "degradation-ladder activations, by mode")
+        self._c_pool_rebuilds = r.counter(
+            "serving_pool_rebuilds_total",
+            "pool accounting rebuilt from live block tables")
+        self._c_quarantines = r.counter(
+            "serving_quarantines_total",
+            "poison requests error-finished / prefix subtrees dropped, "
+            "by kind")
+        self._c_restores = r.counter(
+            "serving_restores_total",
+            "engines rebuilt from a snapshot (crash recovery)")
         # (pool identity, counter attr) -> last value synced; keyed by
         # id() so engines sharing one registry don't cross-credit, and
         # kept OUT of reset() so a registry reset restarts the counters
@@ -492,6 +525,64 @@ class ServingObs:
         rate = accepted / proposed
         self._g_accept.set(rate)
         self._series["spec_acceptance_rate"].append((now, rate))
+
+    # -- resilience hooks --------------------------------------------------
+    def on_fault(self, site, kind):
+        """One injected fault fired (carried from the injector's journal at
+        the step boundary; the injector never touches the registry)."""
+        if self.enabled:
+            self._c_faults.inc(site=site, kind=kind)
+
+    def on_retry(self, kind, attempt):
+        """One dispatch retried after an injected fault (``attempt`` is
+        1-based; only the count is exported)."""
+        if self.enabled:
+            self._c_retries.inc(kind=kind)
+
+    def on_watchdog(self, kind, elapsed):
+        """One dispatch overran its watchdog deadline (detection only: it
+        already returned)."""
+        if not self.enabled:
+            return
+        self._c_watchdog.inc(kind=kind)
+        if self.tracer is not None:
+            self.tracer.instant("watchdog_trip", self.now(), tid=0,
+                                args={"kind": kind,
+                                      "elapsed_s": float(elapsed)})
+
+    def on_degrade(self, mode, now):
+        """A degraded mode came on (``spec_disabled`` | ``pool_rebuild``):
+        its gauge latches 1 and the activation counter counts; a pool
+        rebuild also counts in its own counter."""
+        if not self.enabled:
+            return
+        self._g_degraded.set(1.0, mode=mode)
+        self._c_degrades.inc(mode=mode)
+        if mode == "pool_rebuild":
+            self._c_pool_rebuilds.inc()
+        if self.tracer is not None:
+            self.tracer.instant("degrade", now, tid=0, args={"mode": mode})
+
+    def on_quarantine(self, now, what, count=1):
+        """``what="poison"``: a poisoned request was isolated and finished
+        with an error. ``what="prefix"``: cached prefix entries dropped
+        after a checksum mismatch."""
+        if not self.enabled:
+            return
+        self._c_quarantines.inc(int(count), kind=what)
+        if self.tracer is not None:
+            self.tracer.instant("quarantine", now, tid=0,
+                                args={"kind": what, "count": int(count)})
+
+    def on_restore(self, now, inflight):
+        """An engine was rebuilt from a snapshot, re-admitting
+        ``inflight`` requests through recompute-on-resume."""
+        if not self.enabled:
+            return
+        self._c_restores.inc()
+        if self.tracer is not None:
+            self.tracer.instant("restore", now, tid=0,
+                                args={"inflight": int(inflight)})
 
     def on_cached_prefill(self, req, tokens):
         """Prompt tokens an admission skipped via a prefix-cache alias

@@ -1,16 +1,21 @@
-"""Continuous-batching serving of the port, and its front door
+"""Continuous-batching serving of the port, its front door
 (:class:`ServingFrontDoor` with :class:`FrontDoorPolicy`: streams,
 priority classes ``BATCH < NORMAL < INTERACTIVE``, preemption, shedding
-and drain; entry point :func:`paddle_tpu_torch.inference.serve`). The
-reference's fault injection, resilience, soak and cluster tiers come with
-the second half of ROADMAP A5: their names raise."""
-from .._later import not_ported
+and drain; entry point :func:`paddle_tpu_torch.inference.serve`), the
+resilience tier (:class:`FaultInjector`, :class:`ResiliencePolicy`,
+:class:`QuantumWatchdog`, the engine's snapshot / restore and
+:func:`run_soak`) and the cluster tier (:class:`ClusterReplica`,
+:class:`ClusterRouter`, :class:`ClusterFrontDoor`)."""
 from ..nlp.paged_cache import prompt_prefix_key
+from .cluster import ClusterFrontDoor, ClusterReplica, ClusterRouter
 from .engine import ServingEngine, paged_chunk_math, paged_decode_math
+from .faults import FaultInjector, FaultSpec, InjectedFault
 from .frontend import ServingFrontDoor, TokenStream
 from .policy import (BATCH, INTERACTIVE, NORMAL, FrontDoorPolicy,
                      choose_victim, no_shed_policy)
+from .resilience import QuantumWatchdog, ResiliencePolicy
 from .scheduler import Request, Scheduler, SchedulerConfig
+from .soak import run_soak, soak_plan
 from .speculative import make_spec_round, rejection_sample
 
 __all__ = ["ServingEngine", "paged_decode_math", "paged_chunk_math",
@@ -18,14 +23,8 @@ __all__ = ["ServingEngine", "paged_decode_math", "paged_chunk_math",
            "SchedulerConfig", "prompt_prefix_key",
            "BATCH", "NORMAL", "INTERACTIVE", "FrontDoorPolicy",
            "choose_victim", "no_shed_policy",
-           "ServingFrontDoor", "TokenStream"]
-
-_A5 = "A5, second half"
-FaultInjector = not_ported("FaultInjector", _A5)
-FaultSpec = not_ported("FaultSpec", _A5)
-QuantumWatchdog = not_ported("QuantumWatchdog", _A5)
-ResiliencePolicy = not_ported("ResiliencePolicy", _A5)
-ClusterReplica = not_ported("ClusterReplica", _A5)
-ClusterRouter = not_ported("ClusterRouter", _A5)
-ClusterFrontDoor = not_ported("ClusterFrontDoor", _A5)
-run_soak = not_ported("run_soak", _A5)
+           "ServingFrontDoor", "TokenStream",
+           "InjectedFault", "FaultSpec", "FaultInjector",
+           "ResiliencePolicy", "QuantumWatchdog",
+           "soak_plan", "run_soak",
+           "ClusterReplica", "ClusterRouter", "ClusterFrontDoor"]

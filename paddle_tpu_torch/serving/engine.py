@@ -60,9 +60,21 @@ the metrics registry (``stats`` is its legacy view), ``trace=True`` a Chrome
 trace, ``slo=`` the burn-rate objectives behind :meth:`health`, ``flight=``
 the per-request flight recorder, and ``token_sink`` streams each emitted
 token to the front door (:mod:`~paddle_tpu_torch.serving.frontend`). No hook
-reads a tensor or synchronizes the card. Fault injection, resilience and
-snapshots (ROADMAP A5), tensor parallelism (A7) and the cost model (A8) are
-later slices: their options raise.
+reads a tensor or synchronizes the card.
+
+The resilience tier is the reference's: ``faults=`` (a
+:class:`~paddle_tpu_torch.serving.faults.FaultInjector`) fires seeded faults
+on the host before the device work they target, and ``resilience=`` (a
+:class:`~paddle_tpu_torch.serving.resilience.ResiliencePolicy`) retries
+them, skips a step, isolates a poisoned request by bisecting the decode
+batch (each probe one quantum of the captured graph, the other rows staged
+done), falls back from the speculative round to the plain quantum, and
+quarantines a corrupted cached prefix. :meth:`snapshot` / :meth:`restore`
+restart an engine from a JSON image of its requests through
+recompute-on-resume. A default engine (no injector armed, no policy) keeps
+its captured graph, its launches and its one host sync a dispatch. Tensor
+parallelism (ROADMAP A7) and the cost model (A8) are later slices: their
+options raise.
 """
 from __future__ import annotations
 
@@ -88,6 +100,8 @@ from ..ops import _library as L
 from ..ops.paged_attention import (_paged_decode_attention_rows,
                                    paged_decode_attention)
 from ..profiler.mfu import peak_flops_per_chip
+from .faults import FaultInjector, InjectedFault
+from .resilience import QuantumWatchdog, ResiliencePolicy
 from .scheduler import Request, Scheduler, SchedulerConfig
 
 __all__ = ["ServingEngine", "paged_decode_math", "paged_chunk_math"]
@@ -454,14 +468,24 @@ class ServingEngine:
         flight: ``True`` or a
             :class:`~paddle_tpu_torch.obs.FlightRecorder`: per-request
             journals, dumped on anomaly.
+        faults: a :class:`~paddle_tpu_torch.serving.faults.FaultInjector`
+            whose seeded faults fire at the dispatch, allocation and
+            cached-KV boundaries (default: a disarmed one, a no-op).
+        resilience: ``True`` (the stock policy) or a
+            :class:`~paddle_tpu_torch.serving.resilience.ResiliencePolicy`:
+            retries with backoff, step skips, the poison bisect and
+            quarantine, the dispatch watchdog, the speculative fallback,
+            the pool-accounting audit and, with ``prefix_cache``, the
+            cached blocks' checksums (a device-to-host read of one block
+            at each publish and attach). ``None``: none of it.
         device: default ``cuda``; raises without CUDA unless ``"cpu"``.
 
     Every observability hook runs on the host at the reference's
     boundaries, on values the host already holds: a decode dispatch keeps
     its one host sync with everything on. A decode quantum's ``device_s``
     is the host clock from the dispatch's return to its collect's sync.
-    ``mesh=`` / ``tp=`` (ROADMAP A7), ``faults=`` / ``resilience=`` (A5)
-    and ``cost_model=True`` (A8) raise ``NotImplementedError``.
+    ``mesh=`` / ``tp=`` (ROADMAP A7) and ``cost_model=True`` (A8) raise
+    ``NotImplementedError``.
 
     On the card the decode quantum (or the speculative round) runs only
     as a captured CUDA graph, captured at the first decode dispatch and
@@ -487,8 +511,6 @@ class ServingEngine:
         # cost_model=True: the reference's walker is analysis.cost
         for name, value, item in (
                 ("mesh", mesh, "A7"), ("tp", tp, "A7"),
-                ("faults", faults, "A5, second half"),
-                ("resilience", resilience, "A5, second half"),
                 ("cost_model", cost_model or None, "A8")):
             if value is not None:
                 not_ported(f"ServingEngine({name}=)", item)()
@@ -563,6 +585,8 @@ class ServingEngine:
         self.model = model
         self.spec_draft = spec_draft
         self.spec_gamma = int(spec_gamma)
+        self.quantize = quantize
+        self.kv_dtype = kv_dtype
         spec = spec_draft is not None
         self.config = SchedulerConfig(num_slots=num_slots,
                                       prefill_chunk=prefill_chunk,
@@ -619,35 +643,9 @@ class ServingEngine:
         self._max_new = np.zeros(s, np.int32)
         self._seeds = np.zeros(s, np.int64)
         self._temps = np.ones(s, np.float32)
-        # ... and the static device buffers the quantum reads and writes:
-        # the mirrors, the (K, T, S) token buffer, the quantum index and
-        # the count of quanta that started with a live row; a speculative
-        # round's instead: the draft's tables, the (S, γ+1) emission
-        # matrix, the per-slot yield and acceptance count
-        fields = [("tables", (s, w), torch.int32),
-                  ("seq_lens", (s,), torch.int32),
-                  ("last_tok", (s,), torch.int32),
-                  ("n_gen", (s,), torch.int32),
-                  ("max_new", (s,), torch.int32),
-                  ("seeds", (s,), torch.int64),
-                  ("temps", (s,), torch.float32),
-                  ("done", (s,), torch.bool)]
-        self._staged = _STAGED
         if spec:
             self._d_tables = np.zeros((s, w), np.int32)
-            self._staged = _STAGED + ("d_tables",)
-            fields += [("d_tables", (s, w), torch.int32),
-                       ("stream", (s, self.spec_gamma + 1), torch.int32),
-                       ("emitted", (s,), torch.int32),
-                       ("accepted", (s,), torch.int32)]
-        else:
-            t = self.config.decode_quantum
-            fields += [("toks", (self._mq_max, t, s), torch.int32),
-                       ("qi", (1,), torch.int64),
-                       ("count", (1,), torch.int32)]
-        self._state = _StateBuffers(fields, self.device)
-        self._graph = None          # the quantum's (round's) CapturedStep
-        self._graph_pools = None    # the pool addresses it captured
+        self._build_state(spec)
         self._graph_error = None    # a failed capture stops the engine
 
         # rotary table of prefill (block_mha fused rope); the quantum
@@ -703,6 +701,62 @@ class ServingEngine:
             self.flight = None
         else:
             self.flight = flight
+        # the resilience tier: a disarmed injector is a constant-time no-op
+        # at every hook, so a default engine is untouched
+        self.faults = faults if faults is not None else FaultInjector()
+        for pool in self._pools():
+            pool.fault_hook = self.faults.on_alloc
+        if resilience is True:
+            resilience = ResiliencePolicy()
+        self.resilience = resilience
+        self.watchdog = (QuantumWatchdog(resilience)
+                         if resilience is not None else None)
+        if resilience is not None and self.prefix_cache:
+            # arm the content verify: publish records each block's
+            # checksum, attach checks it before aliasing
+            for pool in self._pools():
+                pool.kv_checksums = True
+        self._spec_disabled = False
+        self._spec_faults = 0
+        self._isolating = False
+        self._quarantined = []   # request ids finished with "error"
+        self._pool_rebuilds = 0
+        self._step_skips = 0
+        self._retries_total = 0
+        self._fault_mark = 0     # injector-journal cursor -> obs / flight
+        self._prefix_quarantine_mark = 0
+
+    def _build_state(self, spec):
+        """The static device buffers the dispatch reads and writes: the
+        mirrors, then the (K, T, S) token buffer, the quantum index and
+        the count of quanta that started with a live row; a speculative
+        round's instead: the draft's tables, the (S, γ+1) emission
+        matrix, the per-slot yield and acceptance count. A new layout
+        drops the captured graph, which read the old buffers."""
+        s, w = self.config.num_slots, self._table_width
+        fields = [("tables", (s, w), torch.int32),
+                  ("seq_lens", (s,), torch.int32),
+                  ("last_tok", (s,), torch.int32),
+                  ("n_gen", (s,), torch.int32),
+                  ("max_new", (s,), torch.int32),
+                  ("seeds", (s,), torch.int64),
+                  ("temps", (s,), torch.float32),
+                  ("done", (s,), torch.bool)]
+        self._staged = _STAGED
+        if spec:
+            self._staged = _STAGED + ("d_tables",)
+            fields += [("d_tables", (s, w), torch.int32),
+                       ("stream", (s, self.spec_gamma + 1), torch.int32),
+                       ("emitted", (s,), torch.int32),
+                       ("accepted", (s,), torch.int32)]
+        else:
+            t = self.config.decode_quantum
+            fields += [("toks", (self._mq_max, t, s), torch.int32),
+                       ("qi", (1,), torch.int64),
+                       ("count", (1,), torch.int32)]
+        self._state = _StateBuffers(fields, self.device)
+        self._graph = None          # the quantum's (round's) CapturedStep
+        self._graph_pools = None    # the pool addresses it captured
 
     # -- public API --------------------------------------------------------
     def submit(self, prompt, max_new_tokens=32, req_id=None, seed=0,
@@ -767,40 +821,70 @@ class ServingEngine:
     def step(self):
         """One scheduler iteration: admit, then either a mixed
         prefill(+decode) step or a decode dispatch, then retire. Returns
-        whether work remains. Exactly ``step_collect(step_dispatch())``."""
+        whether work remains. Exactly ``step_collect(step_dispatch())``.
+
+        With ``resilience=`` the step is also the FAULT BOUNDARY: the pool
+        accounting is audited first (drift rebuilds the allocator from the
+        live tables), and an injected fault that outlives the retry budget
+        is contained here: a poisoned request is isolated by bisecting the
+        batch and finished with ``finish_reason="error"``; a transient
+        fault skips the step (nothing reached the card, so the next step
+        retries)."""
         return self.step_collect(self.step_dispatch())
 
     def step_dispatch(self):
         """The dispatch half of :meth:`step`: admit, then either run the
-        mixed step to completion (returns ``None``) or enqueue the decode
-        quantum (K quanta in steady state) and its read-back WITHOUT a
-        host sync, returning a pending record for :meth:`step_collect`.
-        Between the halves the card works while the host is free (e.g. to
-        dispatch another engine)."""
+        mixed step (or a speculative round) to completion (returns
+        ``None``) or enqueue the decode quantum (K quanta in steady state)
+        and its read-back WITHOUT a host sync, returning a pending record
+        for :meth:`step_collect`. Between the halves the card works while
+        the host is free (e.g. to dispatch another engine)."""
         self.stats["steps"] += 1
-        self._admit()
-        live = self.scheduler.live()
-        self.stats["occupancy_sum"] += len(live) / self.config.num_slots
-        self.obs.on_step(self._now(), len(live), self.config.num_slots,
-                         self.pool, self.d_pool)
-        if self.scheduler.prefilling():
-            self._mixed_step()
-        elif self.scheduler.decoding():
-            if self.spec_draft is not None:
-                # the host needs the round's counts before the next step:
-                # it runs to completion here
-                self._spec_round_step()
-                return None
-            return self._decode_dispatch()
-        return None
+        if self.resilience is not None:
+            self._audit_pools()
+        if self.faults.armed:
+            self.faults.maybe_corrupt(self.pool)
+        pending = None
+        try:
+            self._admit()
+            live = self.scheduler.live()
+            self.stats["occupancy_sum"] += (len(live)
+                                            / self.config.num_slots)
+            self.obs.on_step(self._now(), len(live), self.config.num_slots,
+                             self.pool, self.d_pool)
+            if self.scheduler.prefilling():
+                self._mixed_step()
+            elif self.scheduler.decoding():
+                if self.spec_draft is not None and not self._spec_disabled:
+                    # the host needs the round's counts before the next
+                    # step: it runs to completion here
+                    self._spec_round_step()
+                else:
+                    pending = self._decode_dispatch()
+        except InjectedFault as e:
+            self._contain_fault(e)
+        finally:
+            if pending is None:
+                # the step ended in this half: close its fault boundary
+                self._sync_faults()
+                self._sync_prefix_quarantines()
+        return pending
 
     def step_collect(self, pending):
         """The collect half of :meth:`step`: wait for the pending
-        dispatch, refresh the host mirrors, record its tokens and retire
-        finished requests. ``pending=None`` (the step completed in
-        :meth:`step_dispatch`) only reports whether work remains."""
-        if pending is not None:
+        dispatch, refresh the host mirrors, record its tokens, retire
+        finished requests and close the step's fault boundary.
+        ``pending=None`` (the step completed in :meth:`step_dispatch`)
+        only reports whether work remains."""
+        if pending is None:
+            return self.scheduler.has_work
+        try:
             self._decode_collect(pending)
+        except InjectedFault as e:
+            self._contain_fault(e)
+        finally:
+            self._sync_faults()
+            self._sync_prefix_quarantines()
         return self.scheduler.has_work
 
     def run(self, requests=None):
@@ -841,6 +925,7 @@ class ServingEngine:
             out["prefix_cache"] = self.pool.prefix_cache_stats()
             if self.d_pool is not None:
                 out["draft_prefix_cache"] = self.d_pool.prefix_cache_stats()
+        out["resilience"] = self.resilience_report()
         return out
 
     def attribution(self):
@@ -867,18 +952,336 @@ class ServingEngine:
         """Evaluate the engine's SLOs over the obs sample series: the
         multi-window burn-rate report (state ``ok`` / ``warn`` /
         ``critical`` and each objective's windows) that ``/healthz`` and
-        the front door's shedding admission read. The reference's
-        ``"resilience"`` key comes with the resilience tier (ROADMAP
-        A5). The engine must have been built with ``slo=``."""
+        the front door's shedding admission read, with the resilience
+        tier's report under ``"resilience"``. The engine must have been
+        built with ``slo=``."""
         if self.slo is None:
             raise ValueError(
                 "engine built without slo=: pass slo=True (stock "
                 "objectives) or an SLOSet to evaluate health")
-        return self.slo.evaluate(self.obs, now=now)
+        report = self.slo.evaluate(self.obs, now=now)
+        report["resilience"] = self.resilience_report()
+        return report
 
-    # crash recovery comes with the resilience tier
-    snapshot = not_ported("ServingEngine.snapshot", "A5, second half")
-    restore = not_ported("ServingEngine.restore", "A5, second half")
+    # -- resilience: containment, degradation, recovery --------------------
+    def resilience_report(self):
+        """The resilience tier now: the degraded modes on, what was
+        quarantined or rebuilt, and the fault, retry and watchdog
+        counters (``health()`` and ``engine_stats()`` carry it)."""
+        out = {
+            "spec_disabled": self._spec_disabled,
+            "spec_faults": self._spec_faults,
+            "quarantined": list(self._quarantined),
+            "pool_rebuilds": self._pool_rebuilds,
+            "prefix_quarantines": self._prefix_quarantine_mark,
+            "step_skips": self._step_skips,
+            "retries_total": self._retries_total,
+            "faults": self.faults.stats(),
+        }
+        if self.watchdog is not None:
+            out["watchdog"] = self.watchdog.stats()
+        return out
+
+    def _audit_pools(self):
+        """Accounting drift: a pool whose invariants fail is REBUILT from
+        the live block tables (its prefix index dropped) and serving goes
+        on."""
+        for pool in self._pools():
+            try:
+                pool._check_accounting()
+            except RuntimeError:
+                pool.rebuild_accounting()
+                self._pool_rebuilds += 1
+                now = self._now()
+                self.obs.on_degrade("pool_rebuild", now)
+                if self.flight is not None:
+                    for r in self.scheduler.live():
+                        self.flight.on_degrade(r, now, mode="pool_rebuild")
+
+    def _sync_faults(self):
+        """Carry the injector's new journal entries into the obs counters
+        (and a poisoned request's flight journal)."""
+        j = self.faults.journal
+        if self._fault_mark >= len(j):
+            return
+        now = self._now()
+        live = {str(r.req_id): r for r in self.scheduler.live()}
+        for entry in j[self._fault_mark:]:
+            self.obs.on_fault(entry["site"], entry["kind"])
+            if self.flight is not None:
+                req = live.get(str(entry.get("poison", "")))
+                if req is not None:
+                    self.flight.on_fault(req, now, site=entry["site"],
+                                         kind=entry["kind"])
+        self._fault_mark = len(j)
+
+    def _sync_prefix_quarantines(self):
+        """Cached-KV corruption: the pools quarantine a corrupted cached
+        subtree at attach (``kv_checksums``); the counter's growth goes to
+        obs here."""
+        if not self.prefix_cache:
+            return
+        total = sum(int(p.prefix_quarantines) for p in self._pools())
+        if total > self._prefix_quarantine_mark:
+            delta = total - self._prefix_quarantine_mark
+            self._prefix_quarantine_mark = total
+            self.obs.on_quarantine(self._now(), "prefix", count=delta)
+
+    def _contain_fault(self, e):
+        """Contain an injected fault that outlived the retry budget. A
+        poison is isolated (by bisecting the decode batch; directly on the
+        mixed path) and its request finished with ``"error"``; a transient
+        fault drops the step: it fired before any device work and the
+        allocation is idempotent, so the next step retries."""
+        if e.poison is None:
+            self._step_skips += 1
+            return
+        victim = None
+        rows = self.scheduler.decoding()
+        if e.site in ("decode", "spec_round") and len(rows) > 1:
+            victim = self._isolate_poison()
+        if victim is None:
+            victim = next((r for r in self.scheduler.live()
+                           if str(r.req_id) == str(e.poison)), None)
+        if victim is not None:
+            self._quarantine(victim)
+
+    def _isolate_poison(self):
+        """Bisect the decoding rows with REAL dispatches: a clean subset
+        makes progress (its tokens are emitted; the other rows are staged
+        done and come out unchanged), a raising one holds the poison,
+        until one row is left. Relies only on "a dispatch raises iff its
+        rows hold a poison". Returns that request, or None if every probe
+        ran clean."""
+        suspects = list(self.scheduler.decoding())
+        self._isolating = True
+        try:
+            while len(suspects) > 1:
+                half = suspects[:len(suspects) // 2]
+                rest = suspects[len(suspects) // 2:]
+                if self._probe(half):
+                    suspects = half
+                else:
+                    suspects = [r for r in rest if not r.finished]
+            if len(suspects) == 1 and self._probe(suspects):
+                return suspects[0]
+            return None
+        finally:
+            self._isolating = False
+
+    def _probe(self, subset):
+        """One real dispatch of ``subset`` alone: True if an injected
+        fault fired (no progress), False after a clean dispatch."""
+        try:
+            self._decode_quantum(include=subset)
+        except InjectedFault:
+            return True
+        return False
+
+    def _quarantine(self, req):
+        """Finish a poisoned request with ``finish_reason="error"`` and go
+        on serving the rest: its blocks return through the normal retire
+        path, obs counts the bad outcome and the injector is cured."""
+        now = self._now()
+        req.finished = True
+        req.finish_reason = "error"
+        if req.finish_time is None:
+            req.finish_time = now
+        self.faults.cure(req.req_id)
+        self._quarantined.append(str(req.req_id))
+        self.obs.on_quarantine(now, "poison")
+        if self.flight is not None:
+            self.flight.on_fault(req, now, site="quarantine", kind="poison")
+        if req.slot is not None:
+            self._retire_finished()
+
+    def _note_spec_fault(self):
+        """Repeated speculative-round faults (injected raises or watchdog
+        trips) fall back to the plain quantum for good."""
+        if self.spec_draft is None or self._spec_disabled:
+            return
+        self._spec_faults += 1
+        if (self.resilience is not None
+                and self._spec_faults
+                >= self.resilience.spec_fault_threshold):
+            self._disable_spec()
+
+    def _disable_spec(self):
+        """Fall back from the speculative round to the PLAIN decode
+        quantum. The host mirrors carry over (the target pool holds every
+        accepted token's KV; the round's greedy stream is the target's own
+        argmax stream), the draft pool stops growing and frees on retire.
+        The round's graph and its state buffers are dropped once the card
+        is done with them; the plain quantum is captured at its first
+        dispatch."""
+        if self._spec_disabled or self.spec_draft is None:
+            return
+        self._spec_disabled = True
+        if self.device.type == "cuda":
+            # a round may still be in flight on the dropped graph
+            torch.cuda.synchronize(self.device)
+        self._body = self._quantum_body
+        self._build_state(spec=False)
+        now = self._now()
+        self.obs.on_degrade("spec_disabled", now)
+        if self.flight is not None:
+            for r in self.scheduler.live():
+                self.flight.on_degrade(r, now, mode="spec_disabled")
+
+    def _guarded_dispatch(self, kind, rows, quanta=1):
+        """One dispatch under the resilience envelope: the injector's
+        check BEFORE the state is staged (a retry re-stages against intact
+        state), backoff retries of transient injected faults, and the
+        watchdog over the host wall from the check to the enqueue of the
+        replays, per quantum. Any other exception propagates (fail-stop);
+        bisect probes never retry and a poison escalates at once. Returns
+        the read-back's event (None on the CPU)."""
+        rids = [r.req_id for r in rows]
+        pol = self.resilience
+        attempt = 0
+        while True:
+            t0 = self._now()
+            try:
+                self.faults.before_dispatch(kind, rids)
+                event = self._stage_and_run(quanta)
+            except InjectedFault as e:
+                if kind == "spec_round" and e.poison is None:
+                    self._note_spec_fault()
+                    if self._spec_disabled:
+                        # the fault crossed the threshold: a retry would
+                        # run the plain quantum under the round's caller;
+                        # skip the step, the next takes the plain path
+                        raise
+                if (self._isolating or e.poison is not None
+                        or pol is None or attempt >= pol.max_retries):
+                    raise
+                delay = pol.backoff_s(attempt)
+                attempt += 1
+                self._retries_total += 1
+                self.obs.on_retry(kind, attempt)
+                if self.flight is not None:
+                    now = self._now()
+                    for r in rows:
+                        self.flight.on_retry(r, now, kind=kind,
+                                             attempt=attempt,
+                                             backoff_s=delay)
+                pol.sleep(delay)
+                continue
+            if self.watchdog is not None:
+                dt = (self._now() - t0) / quanta
+                if self.watchdog.check(kind, dt):
+                    self.obs.on_watchdog(kind, dt)
+                    if kind == "spec_round":
+                        self._note_spec_fault()
+            return event
+
+    # -- crash recovery: snapshot / restore --------------------------------
+    def snapshot(self):
+        """A JSON-able image of the SCHEDULER tier: every in-flight
+        request's identity, generation parameters and tokens emitted so far
+        (and the completed requests' summaries). No device state: a
+        restored engine re-admits each in-flight request through
+        recompute-on-resume (re-prefill ``prompt + tokens``, continue with
+        the draw keyed by the tokens emitted), so greedy streams equal the
+        uninterrupted run's."""
+        def req_state(req):
+            return {
+                "req_id": str(req.req_id),
+                "prompt": [int(t) for t in np.asarray(req.prompt)],
+                "max_new_tokens": int(req.max_new_tokens),
+                "seed": int(req.seed),
+                "priority": int(req.priority),
+                "temperature": (None if req.temperature is None
+                                else float(req.temperature)),
+                "stop_token_ids": (sorted(req.stop_token_ids)
+                                   if req.stop_token_ids else None),
+                "stop_sequences": ([list(s) for s in req.stop_sequences]
+                                   if req.stop_sequences else None),
+                "tokens": [int(t) for t in req.tokens],
+                "preemptions": int(req.preemptions),
+            }
+
+        inflight = list(self.scheduler.live()) + list(self.scheduler.waiting)
+        return {
+            "version": 1,
+            "kind": "serving_engine_snapshot",
+            "num_slots": self.config.num_slots,
+            "block_size": self.pool.block_size,
+            "max_context": self.max_context,
+            "prefill_chunk": self.config.prefill_chunk,
+            "decode_quantum": self.config.decode_quantum,
+            "decode_strategy": self.decode_strategy,
+            "top_k": self.top_k, "top_p": self.top_p,
+            "temperature": self.temperature,
+            "eos_token_id": self.eos_token_id,
+            "spec_gamma": self.spec_gamma,
+            "prefix_cache": self.prefix_cache,
+            "per_request_sampling": self._per_request_sampling,
+            "quantize": self.quantize,
+            "kv_dtype": self.kv_dtype,
+            "submitted_total": self.scheduler._submitted_total,
+            "inflight": [req_state(r) for r in inflight],
+            "completed": [{"req_id": str(r.req_id),
+                           "tokens": [int(t) for t in r.tokens],
+                           "finish_reason": r.finish_reason}
+                          for r in self.completed],
+        }
+
+    @classmethod
+    def restore(cls, snap, model, spec_draft=None, **overrides):
+        """Build a FRESH engine from a :meth:`snapshot` and re-admit every
+        in-flight request through recompute-on-resume. ``model`` (and
+        ``spec_draft``) come from the caller: weights are not part of the
+        snapshot; ``overrides`` set any constructor argument (``device=``,
+        ``resilience=True``, ``flight=True``, ...). On the card, drop the
+        old engine first, or size both pools to fit."""
+        if snap.get("kind") != "serving_engine_snapshot":
+            raise ValueError(
+                "not a serving engine snapshot (kind="
+                f"{snap.get('kind')!r})")
+        kwargs = dict(
+            num_slots=snap["num_slots"], block_size=snap["block_size"],
+            max_context=snap["max_context"],
+            prefill_chunk=snap["prefill_chunk"],
+            decode_quantum=snap["decode_quantum"],
+            decode_strategy=snap["decode_strategy"],
+            top_k=snap["top_k"], top_p=snap["top_p"],
+            temperature=snap["temperature"],
+            eos_token_id=snap["eos_token_id"],
+            spec_gamma=snap["spec_gamma"],
+            prefix_cache=snap["prefix_cache"],
+            per_request_sampling=snap["per_request_sampling"],
+            quantize=snap.get("quantize"),
+            kv_dtype=snap.get("kv_dtype"))
+        kwargs.update(overrides)
+        eng = cls(model, spec_draft=spec_draft, **kwargs)
+        now = eng._now()
+        for st in snap["inflight"]:
+            req = Request(
+                np.asarray(st["prompt"], np.int32),
+                max_new_tokens=st["max_new_tokens"],
+                req_id=st["req_id"], seed=st["seed"],
+                priority=st["priority"],
+                temperature=st["temperature"],
+                stop_token_ids=st["stop_token_ids"],
+                stop_sequences=st["stop_sequences"],
+                arrival_time=now)
+            req.tokens = list(st["tokens"])
+            req.preemptions = int(st["preemptions"])
+            if req.tokens or req.preemptions:
+                # the restart is a whole-engine preemption: re-admission
+                # re-prefills prompt + tokens, which are not emitted again
+                req.begin_resume()
+            eng.scheduler.submit(req)
+            eng._on_submitted(req)
+            if eng.flight is not None:
+                eng.flight.on_restore(req, now,
+                                      tokens_resumed=len(req.tokens))
+        eng.scheduler._submitted_total = max(
+            eng.scheduler._submitted_total,
+            int(snap.get("submitted_total", 0)))
+        eng.obs.on_restore(now, len(snap["inflight"]))
+        return eng
 
     # -- scheduling --------------------------------------------------------
     def _admit(self):
@@ -989,6 +1392,13 @@ class ServingEngine:
         """The target's pool, and the draft's of a speculative engine."""
         return [p for p in (self.pool, self.d_pool) if p is not None]
 
+    def _serving_pools(self):
+        """The pools the serving path writes: the draft's only while the
+        speculative round is on (after the fallback it stops growing)."""
+        if self._spec_disabled:
+            return [self.pool]
+        return self._pools()
+
     def _mixed_step(self):
         """One chunk of prefill for every prefilling slot and one decode
         token for every in-flight slot, as a single mixed batch. A
@@ -1000,7 +1410,10 @@ class ServingEngine:
         pre = self.scheduler.prefilling()
         dec = self.scheduler.decoding()
         rows = pre + dec
-        pools = self._pools()
+        pools = self._serving_pools()
+        # the mixed step's fault boundary: BEFORE any pool change, so a
+        # raised step retries cleanly from the next step()
+        self.faults.before_dispatch("mixed", [r.req_id for r in rows])
         toks, this_time, enc_lens, dec_lens = [], [], [], []
         # the cost ledger's work split: a resumed row's chunk recomputes
         # KV a preemption dropped, a fresh row's is novel prefill
@@ -1044,7 +1457,7 @@ class ServingEngine:
         hidden = self._mixed_forward(self.model, self.pool, tables,
                                      self._rotary, enc_lens, dec_lens,
                                      this_time, ids)
-        if self.d_pool is not None:
+        if len(pools) > 1:
             d_tables = self.d_pool.block_table_array(
                 row_ids, pad_to=self._table_width)
             self._mixed_forward(self.spec_draft, self.d_pool, d_tables,
@@ -1131,8 +1544,11 @@ class ServingEngine:
         """Quanta the next dispatch runs: ``multi_quantum`` when the
         scheduler is in steady state (the batch cannot change before the
         dispatch lands), else 1. A speculative engine runs one round per
-        dispatch: its acceptance counts must reach the host."""
+        dispatch: its acceptance counts must reach the host. An armed
+        injector or a bisect probe runs one quantum a dispatch, so that a
+        fault is charged to exactly one quantum."""
         if (self._mq_max > 1 and self.spec_draft is None
+                and not self._isolating and not self.faults.armed
                 and self.scheduler.steady_state()):
             return self._mq_max
         return 1
@@ -1221,34 +1637,65 @@ class ServingEngine:
         for _ in range(k):
             self._graph.replay()
 
-    def _decode_dispatch(self):
+    def _decode_quantum(self, include=None):
+        """One decode step (or speculative round) of the ``include`` rows,
+        dispatched and collected synchronously: the bisect probe's
+        path."""
+        if self.spec_draft is not None and not self._spec_disabled:
+            self._spec_round_step(include=include)
+        else:
+            self._decode_collect(self._decode_dispatch(include=include))
+
+    def _restrict(self, include):
+        """The decoding rows of a dispatch, and those ``include`` leaves
+        out (a bisect probe's): the excluded rows are marked done in the
+        host mirror, so they are staged done and ride the dispatch inert
+        (no token, no KV write, no length change); the caller restores
+        their flag."""
+        rows = self.scheduler.decoding()
+        if include is None:
+            return rows, []
+        keep = {id(r) for r in include}
+        excluded = [r for r in rows if id(r) not in keep]
+        for r in excluded:
+            self._done[r.slot] = True
+        return [r for r in rows if id(r) in keep], excluded
+
+    def _decode_dispatch(self, include=None):
         """Grow the tables to cover the dispatch, stage the host mirrors
         into the state buffers (one copy), run the quanta, and enqueue
         the read-back of the whole buffer (one copy) behind an event:
-        no host sync. Returns the pending record."""
+        no host sync. Returns the pending record. ``include`` restricts
+        the dispatch to those rows (one quantum: the bisect probe)."""
         t0 = self._now()
         t_steps = self.config.decode_quantum
-        k = self._choose_k()
-        rows = self.scheduler.decoding()
-        for req in rows:
-            # cover the whole dispatch (K quanta) before entering the
-            # device loop, capped by the request's own prompt + max_new
-            # bound, which admission reserved; with the prefix cache, copy
-            # the shared blocks of that range first (before the mirrors
-            # are staged, on the stream the graph replays on)
-            slot = req.slot
-            cap = req.prompt_len + req.max_new_tokens - 1
-            need = min(int(self._seq_lens[slot]) + k * t_steps, cap)
-            row = self.pool.grow_decode_table(
-                req.req_id, need, int(self._seq_lens[slot]),
-                pad_to=self._table_width, cow=self.prefix_cache)
-            self._tables[slot] = row[:self._table_width]
-        st = self._state
-        st.stage["qi"][0] = 0
-        st.stage["count"][0] = 0
-        event = self._stage_and_run(k)
-        return {"rows": rows, "k": k, "event": event, "t0": t0,
-                "t_disp": self._now()}
+        k = 1 if include is not None else self._choose_k()
+        rows, excluded = self._restrict(include)
+        try:
+            for req in rows:
+                # cover the whole dispatch (K quanta) before entering the
+                # device loop, capped by the request's own prompt +
+                # max_new bound, which admission reserved; with the prefix
+                # cache, copy the shared blocks of that range first
+                # (before the mirrors are staged, on the stream the graph
+                # replays on)
+                slot = req.slot
+                cap = req.prompt_len + req.max_new_tokens - 1
+                need = min(int(self._seq_lens[slot]) + k * t_steps, cap)
+                row = self.pool.grow_decode_table(
+                    req.req_id, need, int(self._seq_lens[slot]),
+                    pad_to=self._table_width, cow=self.prefix_cache)
+                self._tables[slot] = row[:self._table_width]
+            st = self._state
+            st.stage["qi"][0] = 0
+            st.stage["count"][0] = 0
+            event = self._guarded_dispatch("decode", rows, quanta=k)
+        except BaseException:
+            for r in excluded:
+                self._done[r.slot] = r.finished
+            raise
+        return {"rows": rows, "excluded": excluded, "k": k, "event": event,
+                "t0": t0, "t_disp": self._now()}
 
     def _stage_and_run(self, k):
         """Stage the host mirrors into the state buffers (one copy), run
@@ -1267,34 +1714,47 @@ class ServingEngine:
             event.record()
         return event
 
-    def _spec_round_step(self):
+    def _spec_round_step(self, include=None):
         """One speculative round, run to completion: grow both pools'
         tables to cover the round's writes (γ proposals past the accepted
         history, copy-on-write first under the prefix cache), stage the
         state, run the round (the captured graph on the card), wait for
         its read-back (the ONE host sync), then emit each row's yield and
-        account the proposals and acceptances."""
+        account the proposals and acceptances. ``include`` restricts the
+        round to those rows (the bisect probe)."""
         g = self.spec_gamma
         t0 = self._now()
         self.stats["spec_rounds"] += 1
-        rows = self.scheduler.decoding()
-        for req in rows:
-            slot = req.slot
-            seq = int(self._seq_lens[slot])
-            for pool, tables in ((self.pool, self._tables),
-                                 (self.d_pool, self._d_tables)):
-                row = pool.grow_decode_table(
-                    req.req_id, seq + g + 1, seq, pad_to=self._table_width,
-                    cow=self.prefix_cache)
-                tables[slot] = row[:self._table_width]
-        event = self._stage_and_run(1)
+        rows, excluded = self._restrict(include)
+        # the round's buffers: a watchdog trip may switch the engine to
+        # the plain quantum's before this round is read back
+        st = self._state
+        try:
+            for req in rows:
+                slot = req.slot
+                seq = int(self._seq_lens[slot])
+                for pool, tables in ((self.pool, self._tables),
+                                     (self.d_pool, self._d_tables)):
+                    row = pool.grow_decode_table(
+                        req.req_id, seq + g + 1, seq,
+                        pad_to=self._table_width, cow=self.prefix_cache)
+                    tables[slot] = row[:self._table_width]
+            event = self._guarded_dispatch("spec_round", rows)
+        except BaseException:
+            for r in excluded:
+                self._done[r.slot] = r.finished
+            raise
         if event is not None:
             event.synchronize()
-        back = self._state.back
+        back = st.back
         self._seq_lens = back["seq_lens"].copy()
         self._last_tok = back["last_tok"].copy()
         self._n_gen = back["n_gen"].copy()
         self._done = back["done"].copy()
+        for r in excluded:
+            # an excluded row came through unchanged; only its done flag
+            # was forced: restore the host's
+            self._done[r.slot] = r.finished
         stream, emitted = back["stream"], back["emitted"]
         accepted = back["accepted"]
         self.stats["quantum_tokens"] += int(emitted.sum())
@@ -1331,6 +1791,10 @@ class ServingEngine:
         self._last_tok = back["last_tok"].copy()
         self._n_gen = back["n_gen"].copy()
         self._done = back["done"].copy()
+        for r in pending["excluded"]:
+            # an excluded row came through unchanged; only its done flag
+            # was forced: restore the host's
+            self._done[r.slot] = r.finished
         n_exec = max(int(back["count"][0]), 1)
         toks = back["toks"][:n_exec].reshape(-1, self.config.num_slots)
         self.stats["decode_quanta"] += n_exec

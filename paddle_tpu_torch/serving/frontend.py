@@ -30,8 +30,9 @@ graph with one host sync a dispatch.
   closes every open stream with ``finish_reason == "error"``, and
   ``timeout=`` bounds each token wait.
 
-Crash recovery (``snapshot`` / ``restore``) comes with the resilience
-tier (ROADMAP A5).
+- **crash recovery**: :meth:`ServingFrontDoor.snapshot` /
+  :meth:`ServingFrontDoor.restore` ride the engine's JSON snapshot; a
+  restored door's streams hold the tokens emitted before the restart.
 """
 from __future__ import annotations
 
@@ -39,7 +40,6 @@ from collections import deque
 
 import numpy as np
 
-from .._later import not_ported
 from .policy import NORMAL, FrontDoorPolicy, choose_victim
 from .scheduler import Request
 
@@ -420,8 +420,31 @@ class ServingFrontDoor:
         return out
 
     # -- crash recovery ----------------------------------------------------
-    snapshot = not_ported("ServingFrontDoor.snapshot", "A5, second half")
-    restore = not_ported("ServingFrontDoor.restore", "A5, second half")
+    def snapshot(self):
+        """The engine's crash-recovery snapshot (JSON-able; see
+        :meth:`ServingEngine.snapshot`): the door adds nothing, its
+        streams are rebuilt by :meth:`restore`."""
+        return self.engine.snapshot()
+
+    @classmethod
+    def restore(cls, snap, model, policy=None, spec_draft=None,
+                **overrides):
+        """Rebuild a front door and its engine from a snapshot: every
+        in-flight request is re-admitted through recompute-on-resume and
+        gets a FRESH open :class:`TokenStream` holding the tokens it had
+        emitted, so a consumer sees the whole sequence; a greedy
+        continuation equals the uninterrupted run's."""
+        from .engine import ServingEngine
+
+        eng = ServingEngine.restore(snap, model, spec_draft=spec_draft,
+                                    **overrides)
+        fd = cls(eng, policy=policy)
+        for req in list(eng.scheduler.waiting):
+            stream = TokenStream(req, fd)
+            for tok in req.tokens:
+                stream._buf.append(int(tok))
+            fd._streams[str(req.req_id)] = stream
+        return fd
 
     # -- views -------------------------------------------------------------
     @property

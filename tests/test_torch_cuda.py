@@ -1711,3 +1711,171 @@ def test_cuda_preempted_stream_under_captured_quantum(cuda, prefix_cache):
     pool = fd.engine.pool
     assert pool.fragmentation_stats()["blocks_in_use"] == \
         1 + pool.cached_blocks
+
+
+# ------------------------------------------------ the resilience tier
+def _nosleep(_s):
+    return None
+
+
+@pytest.mark.cuda
+def test_cuda_bit_flip_in_place_keeps_pools_and_replays(cuda):
+    """A bit flipped in a cached block on the card: every pool tensor keeps
+    its address, the captured quantum replays after the flip, the next
+    attach quarantines the flipped chain, and every stream equals an
+    unfaulted engine's (f32)."""
+    from paddle_tpu_torch.serving import (FaultInjector, FaultSpec,
+                                          ResiliencePolicy)
+
+    model = _tiny_cuda_model(cuda)
+    prompts = _prefix_prompts()
+    calm = create_serving_engine(model, prefix_cache=True, **_GRAPH_KW)
+    want = [calm.submit(p, max_new_tokens=8) for p in prompts]
+    calm.run()
+    inj = FaultInjector(plan=[FaultSpec("kv", "bit_flip", times=1)], seed=0)
+    engine = create_serving_engine(
+        model, prefix_cache=True, faults=inj,
+        resilience=ResiliencePolicy(sleep=_nosleep), **_GRAPH_KW)
+    ptrs = engine._pool_ptrs()
+    first = engine.submit(prompts[0], max_new_tokens=8)
+    engine.run()                      # its chain is published, now cached
+    graph = engine._graph
+    assert graph is not None
+    rest = [engine.submit(p, max_new_tokens=8) for p in prompts[1:]]
+    quanta = engine.stats["decode_quanta"]
+    engine.run()
+    flips = [j for j in inj.journal if "block" in j]
+    assert len(flips) == 1
+    assert engine._pool_ptrs() == ptrs
+    assert engine._graph is graph
+    assert engine.stats["decode_quanta"] > quanta
+    assert engine.resilience_report()["prefix_quarantines"] >= 1
+    assert [r.tokens for r in [first] + rest] == [r.tokens for r in want]
+    assert engine.pool.fragmentation_stats()["blocks_in_use"] == \
+        1 + engine.pool.cached_blocks
+
+
+@pytest.mark.cuda
+def test_cuda_probe_under_graph_leaves_excluded_rows(cuda):
+    """A bisect probe replays the captured quantum once with the other rows
+    staged done: their lengths, host mirrors and pool rows come out
+    unchanged, and no graph is captured again."""
+    from paddle_tpu_torch.serving import ResiliencePolicy
+
+    model = _tiny_cuda_model(cuda)
+    engine = create_serving_engine(
+        model, resilience=ResiliencePolicy(sleep=_nosleep), **_GRAPH_KW)
+    reqs = [engine.submit(p, max_new_tokens=40) for p in _GRAPH_PROMPTS[:3]]
+    while engine.scheduler.prefilling() or engine._graph is None:
+        engine.step()
+    rows = engine.scheduler.decoding()
+    assert len(rows) == 3
+    graph = engine._graph
+    keep, out = rows[:1], rows[1:]
+    slots = [r.slot for r in out]
+    before = {k: getattr(engine, "_" + k)[slots].copy()
+              for k in ("seq_lens", "last_tok", "n_gen", "done")}
+    blocks = sorted({b for r in out for b in engine.pool._tables[r.req_id]})
+    pools = engine.pool._pool_tensors()
+    rows_before = [t[blocks].clone() for t in pools]
+    kept = int(engine._seq_lens[keep[0].slot])
+    tokens = [list(r.tokens) for r in out]
+    ptrs = engine._pool_ptrs()
+    assert engine._probe(keep) is False
+    torch.cuda.synchronize()
+    for k, v in before.items():
+        np.testing.assert_array_equal(getattr(engine, "_" + k)[slots], v)
+    for t, tb in zip(pools, rows_before):
+        assert torch.equal(t[blocks], tb)
+    assert [list(r.tokens) for r in out] == tokens
+    assert int(engine._seq_lens[keep[0].slot]) == \
+        kept + _GRAPH_KW["decode_quantum"]
+    assert engine._graph is graph and engine._pool_ptrs() == ptrs
+    engine.run()
+    assert all(len(r.tokens) == 40 for r in reqs)
+
+
+@pytest.mark.cuda
+def test_cuda_resilience_dispatch_keeps_one_event_wait(cuda):
+    """A default engine's decode dispatch and a ``resilience=True``
+    engine's each wait on one event and make no other sync; both capture
+    the same launches a replay."""
+    model = _tiny_cuda_model(cuda)
+    plain, plain_steps = _syncs_by_step(model)
+    armed, armed_steps = _syncs_by_step(model, resilience=True)
+    assert plain._graph is not None and armed._graph is not None
+    assert plain_steps == armed_steps
+    decode = [s for s in armed_steps if s[0]]
+    assert len(decode) > 3
+    assert all(events == 1 for _, _, events in decode[1:])
+    assert plain._graph.launches == armed._graph.launches
+    assert armed.resilience_report()["watchdog"]["trips_total"] == 0
+
+
+@pytest.mark.cuda
+def test_cuda_two_replicas_on_one_stream_equal_one(cuda, monkeypatch):
+    """Two replicas whose graphs were captured on ONE stream (so they share
+    K2's merge tickets) and replay on one stream, driven by the cluster
+    pump (every replica dispatched before any is collected): the streams
+    equal a single replica's (f32)."""
+    from paddle_tpu_torch.ops import split_decode
+    from paddle_tpu_torch.serving import (ClusterFrontDoor, ClusterReplica,
+                                          ClusterRouter, no_shed_policy)
+
+    model = _tiny_cuda_model(cuda)
+    prompts = _prefix_prompts()[1:5] + _GRAPH_PROMPTS[:4]
+
+    def run(n):
+        reps = [ClusterReplica(f"r{i}", create_serving_engine(
+            model, prefix_cache=True, **_GRAPH_KW), policy=no_shed_policy())
+            for i in range(n)]
+        cfd = ClusterFrontDoor(ClusterRouter(reps, affinity_blocks=1,
+                                             strategy="round_robin"))
+        streams = [cfd.submit(p, max_new_tokens=10) for p in prompts]
+        cfd.run_until_idle()
+        return [list(s.result()) for s in streams], reps
+
+    want, _ = run(1)
+    shared = torch.cuda.Stream(cuda)
+    monkeypatch.setattr(torch.cuda, "Stream", lambda *a, **k: shared)
+    got, reps = run(2)
+    assert got == want
+    assert all(r.engine._graph is not None for r in reps)
+    assert all(r.engine._graph.stream is shared for r in reps)
+    assert sum(k[1] == shared.cuda_stream
+               for k in split_decode._TICKETS) == 1
+
+
+@pytest.mark.cuda
+def test_cuda_spec_disable_mid_run_captures_plain_quantum(cuda):
+    """Speculative-round faults past the threshold mid-run: the engine
+    drops the round's graph, captures the plain quantum at its next
+    dispatch and goes on equal to the plain engine (f32); both pools
+    drain."""
+    from paddle_tpu_torch.serving import (FaultInjector, FaultSpec,
+                                          ResiliencePolicy)
+
+    model, draft = _tiny_cuda_model(cuda), _tiny_cuda_draft(cuda)
+    prompts = _GRAPH_PROMPTS[:3]
+    plain = create_serving_engine(model, **_GRAPH_KW)
+    want = [plain.submit(p, max_new_tokens=24) for p in prompts]
+    plain.run()
+    inj = FaultInjector(seed=0)
+    engine = create_serving_engine(
+        model, spec_draft=draft, spec_gamma=2, faults=inj,
+        resilience=ResiliencePolicy(max_retries=0, spec_fault_threshold=2,
+                                    sleep=_nosleep), **_GRAPH_KW)
+    reqs = [engine.submit(p, max_new_tokens=24) for p in prompts]
+    while engine.stats["spec_rounds"] < 3:
+        engine.step()
+    spec_graph = engine._graph
+    assert spec_graph is not None and not engine._spec_disabled
+    inj.plan.append(FaultSpec("spec_round", "raise", times=2))
+    engine.run()
+    assert engine._spec_disabled
+    assert engine._graph is not None and engine._graph is not spec_graph
+    assert engine._body == engine._quantum_body
+    assert engine.stats["decode_quanta"] > 0
+    assert [r.tokens for r in reqs] == [r.tokens for r in want]
+    for pool in engine._pools():
+        assert pool.fragmentation_stats()["blocks_in_use"] == 1

@@ -380,27 +380,8 @@ def test_preempted_stream_equals_undisturbed(port_model, prefix_cache):
 _REFUSALS = {
     "mesh": (lambda m: ServingEngine(m, mesh=object(), device="cpu"), "A7"),
     "tp": (lambda m: ServingEngine(m, tp=2, device="cpu"), "A7"),
-    "faults": (lambda m: inference.serve(m, faults=object(), device="cpu"),
-               "A5, second half"),
-    "resilience": (lambda m: ServingEngine(m, resilience=True,
-                                           device="cpu"), "A5, second half"),
     "cost_model": (lambda m: ServingEngine(m, cost_model=True,
                                            device="cpu"), "A8"),
-    "engine_snapshot": (lambda m: ServingEngine(
-        m, num_slots=2, block_size=4, device="cpu").snapshot(),
-        "A5, second half"),
-    "engine_restore": (lambda m: ServingEngine.restore({}, m),
-                       "A5, second half"),
-    "door_snapshot": (lambda m: inference.serve(
-        m, num_slots=2, block_size=4, device="cpu").snapshot(),
-        "A5, second half"),
-    "door_restore": (lambda m: ServingFrontDoor.restore({}, m),
-                     "A5, second half"),
-    "cluster_exporter": (lambda m: P_obs.ClusterExporter([]),
-                         "A5, second half"),
-    "cluster": (lambda m: P.ClusterFrontDoor(None), "A5, second half"),
-    "soak": (lambda m: P.run_soak(m), "A5, second half"),
-    "fault_injector": (lambda m: P.FaultInjector(), "A5, second half"),
     "train_obs": (lambda m: P_obs.InstrumentedTrainStep(None), "A6"),
     "config": (lambda m: inference.Config("model"), "A9"),
     "predictor": (lambda m: inference.Predictor(None), "A9"),

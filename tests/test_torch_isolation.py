@@ -17,7 +17,8 @@ from paddle_tpu_torch import create_serving_engine
 from paddle_tpu_torch.inference import serve
 from paddle_tpu_torch.nlp import (LlamaConfig, LlamaForCausalLM,
                                   PagedKVCachePool)
-from paddle_tpu_torch.serving import ServingEngine
+from paddle_tpu_torch.serving import (ClusterFrontDoor, ClusterReplica,
+                                      ClusterRouter, ServingEngine)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "paddle_tpu_torch"
@@ -36,7 +37,12 @@ def _run(code_or_args, cwd, with_repo=True):
 
 def test_import_leaves_jax_and_reference_out(tmp_path):
     out = _run("import sys, paddle_tpu_torch, paddle_tpu_torch.serving, "
-               "paddle_tpu_torch.obs, paddle_tpu_torch.inference, "
+               "paddle_tpu_torch.serving.faults, "
+               "paddle_tpu_torch.serving.resilience, "
+               "paddle_tpu_torch.serving.soak, "
+               "paddle_tpu_torch.serving.cluster, "
+               "paddle_tpu_torch.obs, paddle_tpu_torch.obs.__main__, "
+               "paddle_tpu_torch.inference, "
                "paddle_tpu_torch.incubate.nn.functional; "
                "print(sorted(m for m in sys.modules if m == 'jax' or "
                "m.startswith(('jax.', 'jaxlib')) or m == 'paddle_tpu' or "
@@ -71,6 +77,7 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         PagedKVCachePool(4, 4, 2, 8)
     model = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu")
     for build in (lambda: ServingEngine(model),
+                  lambda: ServingEngine(model, resilience=True),
                   lambda: create_serving_engine(model, num_slots=2),
                   lambda: serve(model, num_slots=2)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -80,6 +87,15 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     req = engine.submit(np.arange(1, 6, dtype=np.int32), max_new_tokens=3)
     engine.run()
     assert len(req.tokens) == 3
+    # the resilience and cluster tiers build and serve on the CPU alone
+    armed = ServingEngine(model, num_slots=2, block_size=4,
+                          prefix_cache=True, resilience=True, device="cpu")
+    assert armed.pool.kv_checksums and armed.watchdog is not None
+    cfd = ClusterFrontDoor(ClusterRouter(
+        [ClusterReplica("r0", armed)]))
+    stream = cfd.submit(np.arange(1, 6, dtype=np.int32), max_new_tokens=2)
+    cfd.run_until_idle()
+    assert len(stream.result()) == 2
 
 
 def test_chip_smoke_refuses_without_cuda_and_outside_a_checkout(tmp_path):
