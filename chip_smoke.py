@@ -11,8 +11,8 @@ Phases (any failure raises and the script exits non-zero):
 2. each kernel against its plain PyTorch version on the card, at the
    serving, generation and training paths' shapes, in bf16 and f32
    (K4 also at the training shape against one ``is_causal`` SDPA call,
-   in bf16 and f32; the backward as the fused kernel K7, in bf16 on wgmma
-   and in f32 as 3xTF32; K7 also at
+   in bf16, f32 and fp16 (amp's O1 arm); the backward as the fused
+   kernel K7, in bf16 and fp16 on wgmma and in f32 as 3xTF32; K7 also at
    Mistral's GQA width with its window; K1 also at the training path's
    4,096 rows, past the L2; K6 also at the packed width 2,048 and at phase
    8's f32 rows; the varlen backward in bf16 as the
@@ -234,6 +234,26 @@ Phases (any failure raises and the script exits non-zero):
     ``python -m paddle_tpu_torch.obs check --device cuda`` as a
     subprocess exits 0.
 
+18. LoRA fine-tuning of Llama-2-7B under amp (run last; every record
+    beside the card's name and power limit): (a) the full 32-layer model
+    built in f32 and ``amp.decorate``d to bf16 at O2, ``get_lora_model``
+    (r = 8, alpha 16, q_proj / v_proj), AdamW over the adapters with
+    ``multi_precision``, ``JittedTrainStep`` in
+    ``InstrumentedTrainStep.for_transformer`` under ``auto_cast(O2,
+    bf16)``, B = 1, S = 4,096, 2 + 10 steps: exact launches per step (K1
+    65 and K6 64 in f32, rms_norm being black-listed; K4 and K7 32 in
+    bf16), step time, tokens/s and MFU from the registry and from CUDA
+    events, peak memory beside the full-parameter state, the loss falls,
+    every frozen parameter bit-equal to its start, one profiled step; (d)
+    ``merge`` then ``unmerge`` on (a)'s model: the fold bit-exact, unmerge
+    within one bf16 ulp, merged logits against the adapted forward; (b)
+    f32 without amp, 2 layers, S = 1,024: kernel path against plain path,
+    step-1 adapter gradients and 3 losses within 1e-4; (c) an f32 model of
+    4 layers, S = 4,096, under ``auto_cast(fp16)`` (O1) with
+    ``GradScaler.minimize``: exactly 4 fp16 K4 and 4 fp16 K7 launches a
+    step, the found-inf sequence and the scales (the reference's rule),
+    skipped steps leave every parameter bit-equal.
+
 The line before the last is the ``{"kernels": [...]}`` record (each
 kernel's launches come from the run of the path that carries it: K1-K3
 the serving run of phase 3, K4-K5 the generation run of phase 5, K6 and
@@ -243,7 +263,9 @@ packed kernel run of phase 10, K2's per-row int8 mode the int8-KV serving run
 of phase 11, its static int8 arm and its float-pool scaled mode the two
 runs of phase 12; ``launches_by_path`` has every path's count, phase 14's
 cached float and int8-KV runs, phase 16's ``frontdoor``, phase 17's
-``resilience`` and phase 15's ``spec_serving`` among them);
+``resilience``, phase 15's ``spec_serving`` and phase 18's ``lora`` and
+``lora_fp16`` among them; K4's and K7's fp16 arms take theirs from phase
+18 (c));
 the last
 line is ``{"ok": true, "device": {...}}``.
 Without CUDA it prints no result and exits 2.
@@ -256,6 +278,7 @@ import itertools
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -279,6 +302,12 @@ PACKED_LENS = [1600, 800, 600, 400, 300, 200, 120, 76]
 PACKED_TRAIN_STEPS = (2, 10, 3)
 # phase 10: the f32 kernel-vs-plain packed run's segments and steps
 PACKED_PARITY = ([500, 300, 150, 74], 3)
+# phase 18: LoRA at Llama-2-7B: batch, sequence, warm-up steps, timed
+# steps of (a); sequence and steps of (b)'s f32 parity; layers, sequence
+# and steps of (c)'s fp16 GradScaler run
+LORA_SHAPE = (1, 4096, 2, 10)
+LORA_PARITY_SHAPE = (1024, 3)
+LORA_FP16_SHAPE = (4, 4096, 16)
 # the serving sampling arm's knobs (phases 3 and 6)
 SAMPLING = dict(decode_strategy="sampling", top_k=50, top_p=0.9,
                 temperature=0.8)
@@ -359,12 +388,16 @@ def close(torch, out, ref, dtype, p_rounded=False):
     gradients are rounded to bf16 before a product (K3, K4, K7, K8, as the
     TPU kernels do): a p on a rounding boundary may round one step
     differently when the f32 scores differ in their last bits, which
-    moves the output by up to 2^-8 * |v|. A 1-D output (K6's dw, a sum
-    over every row) takes the absolute term times its largest value."""
-    if dtype != torch.bfloat16:
-        rtol, atol = 1e-4, 1e-4
-    else:
+    moves the output by up to 2^-8 * |v|. fp16 (K4 and K7 under amp's O1)
+    the same with fp16's step: 2^-10 relative, 2e-3 absolute where P or
+    dS are rounded. A 1-D output (K6's dw, a sum over every row) takes
+    the absolute term times its largest value."""
+    if dtype == torch.bfloat16:
         rtol, atol = 2.0 ** -7, (1e-2 if p_rounded else 1e-3)
+    elif dtype == torch.float16:
+        rtol, atol = 2.0 ** -10, (2e-3 if p_rounded else 1e-3)
+    else:
+        rtol, atol = 1e-4, 1e-4
     if isinstance(out, torch.Tensor):
         out, ref = (out,), (ref,)
     err, ok = 0.0, True
@@ -744,12 +777,14 @@ def k4_cases(torch, g, dev):
     # primary), Llama-2 no-cache dense causal, bottom-right causal (Sq <
     # Sk), and the training shape (Llama-2-7B width, S = 4,096), where one
     # is_causal SDPA call computes the same function
+    # fp16 at the training shape: amp's O1 attention (phase 18 (c))
     both = (torch.bfloat16, torch.float32)
     for label, b, sq, sk, h, hk, window, dtypes in (
             ("mistral_prefill", 1, 4608, 4608, 32, 8, 4096, both),
             ("dense_causal", 1, 2048, 2048, 32, 32, None, both),
             ("bottom_right", 1, 64, 1024, 32, 8, None, both),
-            ("train", 1, 4096, 4096, 32, 32, None, both)):
+            ("train", 1, 4096, 4096, 32, 32, None,
+             both + (torch.float16,))):
         mask = band_mask(sq, sk, True, window, dev)
         pairs = int(mask.sum())
         for dtype in dtypes:
@@ -776,15 +811,18 @@ def k4_cases(torch, g, dev):
                       f"causal,window={window}",
                 primary=(label == "mistral_prefill"
                          and dtype == torch.bfloat16)
-                or (label == "train" and dtype == torch.float32),
-                # the f32 forward (flash_f32.cuh) has its own row
-                row="flash_attention_f32" if dtype == torch.float32
-                else "flash_attention",
+                or (label == "train" and dtype != torch.bfloat16),
+                # the f32 forward (flash_f32.cuh) and the fp16 arm have
+                # rows of their own
+                row={torch.float32: "flash_attention_f32",
+                     torch.float16: "flash_attention_f16"}.get(
+                         dtype, "flash_attention"),
                 kernel=lambda q=q, k=k, v=v: ops.flash_attention(
                     q, k, v, causal=True, window_size=window),
                 plain=lambda q=q, k=k, v=v: ops.flash_attention_plain(
                     q, k, v, causal=True, window_size=window)[0],
                 library=library,
+                # fp16 runs at bf16's tensor-core rate
                 bound=attention_bound(nbytes, 4.0 * pairs * b * h * d,
                                       dtype == torch.float32))
 
@@ -875,7 +913,7 @@ def k7_cases(torch, g, dev):
     # width with its window
     for label, b, sq, h, hk, window, dtypes in (
             ("train", 1, 4096, 32, 32, None,
-             (torch.bfloat16, torch.float32)),
+             (torch.bfloat16, torch.float32, torch.float16)),
             ("mistral_gqa_window", 1, 4608, 32, 8, 4096,
              (torch.bfloat16,))):
         mask = band_mask(sq, sq, True, window, dev)
@@ -922,8 +960,9 @@ def k7_cases(torch, g, dev):
             # f32 each product is three TF32 products (3xTF32)
             flops = 10.0 * d * pairs * b * h
             yield dict(
-                name="flash_attention_bwd_f32" if f32 else
-                     "flash_attention_bwd",
+                name={torch.float32: "flash_attention_bwd_f32",
+                      torch.float16: "flash_attention_bwd_f16"}.get(
+                          dtype, "flash_attention_bwd"),
                 kernel=lambda args=args, window=window:
                     ops.flash_attention_bwd_fused(*args,
                                                   window_size=window),
@@ -1090,6 +1129,13 @@ KERNELS = {
     "flash_attention_f32": (
         "cuda", "paddle_tpu_torch/csrc/flash_attention.cu",
         "paddle_tpu/ops/pallas/flash_attention.py:225"),
+    # K4's and K7's fp16 arms (amp's O1 attention; phase 18 (c))
+    "flash_attention_f16": (
+        "cuda", "paddle_tpu_torch/csrc/flash_attention.cu",
+        "paddle_tpu/ops/pallas/flash_attention.py:225"),
+    "flash_attention_bwd_f16": (
+        "cuda", "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+        "paddle_tpu/ops/pallas/flash_attention.py:402, :425"),
     # K8, the fused bf16 varlen backward: both TPU kernels of `_varlen_bwd`
     "varlen_flash_attention_bwd": (
         "cuda", "paddle_tpu_torch/csrc/varlen_flash_attention_bwd.cu",
@@ -1114,6 +1160,11 @@ SERVING_F32_KERNELS = ("rms_norm", "paged_decode_attention",
 GENERATE_F32_KERNELS = ("rms_norm", "flash_attention_f32",
                         "decode_attention")
 TRAIN_KERNELS = ("rms_norm_bwd", "flash_attention_bwd")
+# phase 18: (a) LoRA under amp O2 bf16 (K1 and K6 run their f32 arms:
+# rms_norm is black-listed), (c) under O1 fp16
+LORA_KERNELS = ("rms_norm", "rms_norm_bwd", "flash_attention",
+                "flash_attention_bwd")
+LORA_FP16_KERNELS = ("flash_attention_f16", "flash_attention_bwd_f16")
 TRAIN_F32_KERNELS = ("rms_norm_bwd", "flash_attention_f32",
                      "flash_attention_bwd_f32")
 PACKED_KERNELS = ("varlen_flash_attention_bwd",)
@@ -1125,7 +1176,9 @@ STATIC_INT8_KERNELS = ("paged_decode_attention_int8",
                        "varlen_flash_attention_f32")
 SCALED_FLOAT_KERNELS = ("paged_decode_attention_scaled",)
 # the path whose run gives each kernel's launches in the kernels line
-KERNEL_PATH = {"flash_attention_bwd_f32": "train_f32_parity",
+KERNEL_PATH = {"flash_attention_f16": "lora_fp16",
+               "flash_attention_bwd_f16": "lora_fp16",
+               "flash_attention_bwd_f32": "train_f32_parity",
                "flash_attention_f32": "train_f32_parity",
                "varlen_flash_attention_bwd_f32": "packed_f32_parity",
                "varlen_flash_attention_f32": "packed_f32_parity",
@@ -4398,6 +4451,325 @@ def resilience_phase(torch, dev, smi, model, requests, want):
     return {"resilience": launches}
 
 
+# ---------------------------------------------------------------- phase 18
+def _lora_counts(layers, steps, backward_norms):
+    """Launches of ``steps`` LoRA steps over ``layers`` decoder layers
+    (q_proj / v_proj adapted, everything else frozen): K1 at every norm,
+    K4 and K7 once a layer; K6 at every norm whose input needs a gradient,
+    which is all but layer 0's input norm (its input is the frozen
+    embedding's output) when ``backward_norms``."""
+    return {"rms_norm": (2 * layers + 1) * steps,
+            "rms_norm_bwd": 2 * layers * steps if backward_norms else 0,
+            "attn": layers * steps}
+
+
+def _lora_model(torch, dev, cfg, seed, dtype=None, r=8, alpha=16):
+    """A seeded Llama in ``cfg.dtype``, decorated to ``dtype`` at O2 when
+    given, then LoRA on q_proj / v_proj (the reference's defaults)."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.nlp import LlamaForCausalLM
+    from paddle_tpu_torch.peft import LoRAConfig, get_lora_model
+
+    model = LlamaForCausalLM(
+        cfg, generator=torch.Generator(device=dev).manual_seed(seed))
+    if dtype is not None:
+        model = amp.decorate(model, level="O2", dtype=dtype)
+    return get_lora_model(
+        model, LoRAConfig(r=r, lora_alpha=alpha),
+        generator=torch.Generator(device=dev).manual_seed(seed + 1))
+
+
+def _adapters(lora):
+    return [(n, p) for n, p in lora.named_parameters() if p.requires_grad]
+
+
+def _host_copy(torch, lora):
+    """Every frozen parameter copied to the host (the bit-equality
+    reference, off the card's memory)."""
+    return {n: p.detach().to("cpu", copy=True)
+            for n, p in lora.named_parameters() if not p.requires_grad}
+
+
+def _frozen_equal(torch, lora, snap):
+    return all(torch.equal(p.detach().cpu(), snap[n])
+               for n, p in lora.named_parameters() if n in snap)
+
+
+def _scale_rule(init, found, incr_every, decr_every, incr=2.0, decr=0.5):
+    """The reference's GradScaler.update over a found-inf sequence: the
+    scale after each step."""
+    scale, good, bad, out = init, 0, 0, []
+    for f in found:
+        if f:
+            bad, good = bad + 1, 0
+            if bad >= decr_every:
+                scale, bad = max(scale * decr, 1.0), 0
+        else:
+            good, bad = good + 1, 0
+            if good >= incr_every:
+                scale, good = scale * incr, 0
+        out.append(scale)
+    return out
+
+
+def lora_phase(torch, dev, smi):
+    """Phase 18: LoRA fine-tuning of Llama-2-7B under amp. (a) bf16 O2 at
+    full size through JittedTrainStep in InstrumentedTrainStep, (d) merge
+    and unmerge on (a)'s model, (b) f32 kernel path against plain path at
+    two layers, (c) fp16 O1 with GradScaler at four layers. Returns the
+    ``lora`` (a) and ``lora_fp16`` (c) launch counts."""
+    from paddle_tpu_torch import amp, ops
+    from paddle_tpu_torch.jit import JittedTrainStep
+    from paddle_tpu_torch.nlp import LlamaConfig, LlamaPretrainingCriterion
+    from paddle_tpu_torch.obs import InstrumentedTrainStep
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.profiler import transformer_train_flops
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (a) -----------------------------------------------------------------
+    b, seq, warm, steps = LORA_SHAPE
+    cfg = LlamaConfig.llama2_7b(tensor_parallel=False)  # f32 weights
+    layers = cfg.num_hidden_layers
+    t0 = time.perf_counter()
+    lora = _lora_model(torch, dev, cfg, SEED + 18, dtype="bfloat16")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    check(all(p.dtype == torch.bfloat16 for n, p in lora.named_parameters()
+              if not p.requires_grad)
+          and all(p.dtype == torch.float32 for _, p in _adapters(lora)),
+          "decorate(O2) left a frozen weight outside bf16, or an adapter "
+          "outside f32")
+    n_params = sum(p.numel() for p in lora.parameters())
+    n_train = sum(p.numel() for _, p in _adapters(lora))
+    snap = _host_copy(torch, lora)
+    crit = LlamaPretrainingCriterion(cfg)
+    opt = AdamW(3e-4, parameters=_adapters(lora), multi_precision=True)
+    step = JittedTrainStep(lora, lambda out, lb: crit(out, lb), opt)
+    tokens = b * seq
+    inst = InstrumentedTrainStep.for_transformer(
+        step, n_params=n_params, tokens_per_step=tokens, num_layers=layers,
+        seq_len=seq, hidden=cfg.hidden_size)
+    ids = _train_ids(torch, dev, cfg.vocab_size, b, seq)
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    with amp.auto_cast(level="O2", dtype="bfloat16"):
+        for _ in range(warm):
+            losses.append(float(inst(ids, ids)))
+        ops.reset_launches()
+        inst.registry.reset()
+        inst._times.clear()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+        ev[0].record()
+        for i in range(steps):
+            losses.append(inst(ids, ids))
+            ev[i + 1].record()
+        torch.cuda.synchronize()
+        launches = dict(ops.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [float(x) for x in losses]
+    event_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(steps)]
+    c = _lora_counts(layers, steps, True)
+    want = {k: 0 for k in launches}
+    want.update(rms_norm=c["rms_norm"], rms_norm_bwd=c["rms_norm_bwd"],
+                flash_attention=c["attn"], flash_attention_bwd=c["attn"])
+    check(launches == want,
+          f"LoRA O2 launches {launches}, expected {want}")
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"the LoRA loss did not fall: {losses}")
+    frozen_ok = _frozen_equal(torch, lora, snap)
+    check(frozen_ok, "a frozen parameter moved during LoRA training")
+    reg = inst.registry
+    rep = inst.report()
+    step_s = statistics.median(event_ms) / 1e3
+    flops_6nt = transformer_train_flops(n_params, tokens, num_layers=layers,
+                                        seq_len=seq, hidden=cfg.hidden_size)
+    # LoRA's own work: the frozen weights take no weight gradient, so 4NT
+    # (forward 2NT, input gradients 2NT) plus attention's forward and
+    # backward
+    flops_lora = flops_6nt - 2.0 * n_params * tokens
+    emit({"phase": "lora_llama2_7b_bf16_o2", "gpu": smi, "layers": layers,
+          "params": n_params, "trainable_params": n_train,
+          "rank": lora.lora_config.r, "batch": b, "seq": seq,
+          "warmup_steps": warm, "timed_steps": steps,
+          "step_ms_events": event_ms, "step_ms_median_events": 1e3 * step_s,
+          "tok_per_s_events": tokens / step_s,
+          "registry": {
+              "train_steps_total": reg.get("train_steps_total").value(),
+              "train_tokens_per_second":
+                  reg.get("train_tokens_per_second").value(),
+              "train_mfu": reg.get("train_mfu").value(),
+              "train_model_tflops_per_second":
+                  reg.get("train_model_tflops_per_second").value()},
+          "report": rep,
+          "mfu_6nt_events": flops_6nt / step_s / PEAK_FLOPS["bfloat16"],
+          "mfu_lora_4nt_events": flops_lora / step_s
+          / PEAK_FLOPS["bfloat16"],
+          "losses": losses, "launches": launches,
+          "launches_per_step": {k: v // steps for k, v in launches.items()
+                                if v},
+          "frozen_bit_equal": frozen_ok, "model_init_s": init_s,
+          "peak_mem_gb": peak_gb,
+          # bf16 weights and gradients, f32 masters, bf16 moments: the
+          # full-parameter step phase 7 runs, without activations
+          "full_param_state_gb": 12 * n_params / 2 ** 30})
+    with amp.auto_cast(level="O2", dtype="bfloat16"):
+        train_profile(torch, step, ids, ids, label="lora_step")
+    del inst, step, opt, snap
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) merge then unmerge on (a)'s model -------------------------------
+    from paddle_tpu_torch.peft import LoRALinear
+
+    layers_l = [m for m in lora.modules() if isinstance(m, LoRALinear)]
+    with torch.no_grad():
+        w0 = [m.base.weight.detach().clone() for m in layers_l]
+        deltas = [m._delta(m.base.weight.dtype) for m in layers_l]
+    short = ids[:, :512]
+    with torch.no_grad(), amp.auto_cast(level="O2", dtype="bfloat16"):
+        adapted = lora(short).float()
+        lora.merge()
+        merged = lora(short).float()
+        merged_w = [m.base.weight.detach().clone() for m in layers_l]
+        lora.unmerge()
+        again = lora(short).float()
+    fold_exact = all(torch.equal(mw, w + d)
+                     for mw, w, d in zip(merged_w, w0, deltas))
+    eps = torch.finfo(torch.bfloat16).eps
+    unmerge_ulps = max(
+        float(((m.base.weight.float() - w.float()).abs()
+               / (eps * torch.maximum(w.float().abs(), mw.float().abs())
+                  .clamp_min(torch.finfo(torch.bfloat16).tiny))).max())
+        for m, w, mw in zip(layers_l, w0, merged_w))
+    scale = float(adapted.abs().max())
+    merge_rel = float((merged - adapted).abs().max()) / scale
+    again_rel = float((again - adapted).abs().max()) / scale
+    top1 = float((merged.argmax(-1) == adapted.argmax(-1)).float().mean())
+    emit({"phase": "lora_llama2_7b_merge", "gpu": smi, "tokens": 512,
+          "wrapped_layers": len(layers_l), "fold_bit_exact": fold_exact,
+          "unmerge_max_ulps": unmerge_ulps,
+          "merged_vs_adapted_rel_to_max": merge_rel,
+          "unmerged_vs_adapted_rel_to_max": again_rel,
+          "merged_top1_agreement": top1})
+    check(fold_exact, "merge did not fold W + bf16(A @ B * scaling)")
+    check(unmerge_ulps <= 1.0, f"unmerge left {unmerge_ulps} bf16 ulps")
+    check(math.isfinite(merge_rel) and merge_rel <= 2.0 ** -4,
+          f"merged logits part from the adapted forward: {merge_rel}")
+    del lora, w0, deltas, merged_w, adapted, merged, again
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) f32 parity, no amp ----------------------------------------------
+    pseq, psteps = LORA_PARITY_SHAPE
+    pcfg = LlamaConfig.llama2_7b(num_hidden_layers=2, tensor_parallel=False)
+    pids = _train_ids(torch, dev, pcfg.vocab_size, 1, pseq)
+    runs = []
+    for plain in (False, True):
+        lora = _lora_model(torch, dev, pcfg, SEED + 21)
+        crit = LlamaPretrainingCriterion(pcfg)
+        step = JittedTrainStep(lora, lambda out, lb: crit(out, lb),
+                               AdamW(1e-3, parameters=_adapters(lora)))
+        ops.reset_launches()
+        with (ops.plain_versions() if plain else contextlib.nullcontext()):
+            loss = crit(lora(pids), pids)
+            loss.backward()
+            grads = {n: p.grad.detach().clone() for n, p in _adapters(lora)}
+            lora.zero_grad(set_to_none=True)
+            plosses, walls = _timed_steps(step, pids, pids, psteps)
+        pl = dict(ops.LAUNCHES)
+        if plain:
+            check(all(v == 0 for v in pl.values()),
+                  f"the plain LoRA path launched a kernel: {pl}")
+        else:
+            c = _lora_counts(2, 1 + psteps, True)
+            want = {k: 0 for k in pl}
+            want.update(rms_norm=c["rms_norm"],
+                        rms_norm_bwd=c["rms_norm_bwd"],
+                        flash_attention_f32=c["attn"],
+                        flash_attention_bwd_f32=c["attn"])
+            check(pl == want, f"LoRA f32 launches {pl}, expected {want}")
+        emit({"phase": "lora_parity_f32_2layer",
+              "path": "plain" if plain else "kernels", "seq": pseq,
+              "losses": plosses, "step_wall_ms": walls, "launches": pl})
+        runs.append((grads, plosses))
+        del lora, step, loss
+        torch.cuda.empty_cache()
+    (gk, lk), (gp, lp) = runs
+    worst = max(float((gk[n] - gp[n]).abs().max())
+                / max(float(gp[n].abs().max()), 1e-30) for n in gp)
+    loss_rel = max(abs(x - y) / abs(y) for x, y in zip(lk, lp))
+    emit({"phase": "lora_parity_f32_2layer", "adapters": len(gp),
+          "grad_worst_rel_to_max": worst, "loss_worst_rel": loss_rel})
+    check(worst <= 1e-4, f"LoRA kernel and plain grads differ: {worst}")
+    check(loss_rel <= 1e-4, f"LoRA kernel and plain losses differ: {lk} "
+          f"{lp}")
+
+    # (c) fp16 O1 with GradScaler -----------------------------------------
+    flayers, fseq, fsteps = LORA_FP16_SHAPE
+    fcfg = LlamaConfig.llama2_7b(num_hidden_layers=flayers,
+                                 tensor_parallel=False)  # f32 weights
+    lora = _lora_model(torch, dev, fcfg, SEED + 23)
+    crit = LlamaPretrainingCriterion(fcfg)
+    opt = AdamW(1e-3, parameters=_adapters(lora))
+    # 2^24 overflows the fp16 gradients of the LoRA factors (sums over
+    # 4,096 tokens): the scaler halves to a scale that fits, then doubles
+    # after two good steps
+    init_scale, incr_every, decr_every = 2.0 ** 24, 2, 1
+    scaler = amp.GradScaler(init_loss_scaling=init_scale,
+                            incr_every_n_steps=incr_every,
+                            decr_every_n_nan_or_inf=decr_every)
+    fids = _train_ids(torch, dev, fcfg.vocab_size, 1, fseq)
+    found, scales, flosses, skipped_equal = [], [], [], []
+    ops.reset_launches()
+    fp16_launches = None
+    for i in range(fsteps):
+        before = {n: p.detach().clone() for n, p in lora.named_parameters()}
+        step_count = opt._step_count
+        ops.reset_launches()
+        with amp.auto_cast(dtype="float16"):
+            loss = crit(lora(fids), fids)
+        scaler.minimize(opt, scaler.scale(loss))
+        torch.cuda.synchronize()
+        sl = dict(ops.LAUNCHES)
+        want = {k: 0 for k in sl}
+        want.update(rms_norm=2 * flayers + 1, rms_norm_bwd=2 * flayers,
+                    flash_attention_f16=flayers,
+                    flash_attention_bwd_f16=flayers)
+        check(sl == want, f"fp16 O1 step {i} launches {sl}, expected {want}")
+        fp16_launches = {k: (fp16_launches or {}).get(k, 0) + v
+                         for k, v in sl.items()}
+        found.append(bool(scaler._found_inf))
+        scales.append(scaler._scale)
+        flosses.append(float(loss.detach()))
+        if scaler._found_inf:
+            same = opt._step_count == step_count and all(
+                torch.equal(p, before[n]) for n, p in lora.named_parameters())
+            skipped_equal.append(same)
+            check(same, f"skipped fp16 step {i} changed a parameter")
+        del before
+    want_scales = _scale_rule(init_scale, found, incr_every, decr_every)
+    emit({"phase": "lora_fp16_o1_grad_scaler", "gpu": smi,
+          "layers": flayers, "seq": fseq, "steps": fsteps,
+          "found_inf": found, "scales": scales,
+          "reference_rule_scales": want_scales, "losses": flosses,
+          "skipped": sum(found), "skipped_bit_equal": skipped_equal,
+          "launches": fp16_launches,
+          "launches_per_step": {k: v // fsteps
+                                for k, v in fp16_launches.items() if v}})
+    check(scales == want_scales,
+          f"GradScaler scales {scales} break the reference's rule "
+          f"{want_scales}")
+    check(any(found) and not all(found),
+          f"the fp16 run did not both skip and take steps: {found}")
+    del lora, opt, scaler
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "lora_done", "wall_s": time.perf_counter() - t_phase})
+    return {"lora": launches, "lora_fp16": fp16_launches}
+
+
 def main():
     import torch
 
@@ -4425,12 +4797,13 @@ def main():
     int8_launches = int8_serving_phase(torch, dev)
     batch_launches = int8_parity_phase(torch, dev)
     graphs_serving_phase(torch, dev, smi)
+    lora_launches = lora_phase(torch, dev, smi)
     paths = {"serving": launches, "generate": gen_launches,
              "train": train_launches, "train_f32_parity": parity_launches,
              "packed_train": packed_launches,
              "packed_f32_parity": packed_parity_launches,
              "int8_serving": int8_launches, **batch_launches,
-             **prefix_launches}
+             **prefix_launches, **lora_launches}
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
         rec = primary[name]

@@ -1,4 +1,4 @@
-// Pieces shared by the two fused bf16 attention backward kernels, dense K7
+// Pieces shared by the two fused 16-bit attention backward kernels, dense K7
 // (flash_attention_bwd.cu) and varlen K8 (varlen_flash_attention_bwd.cu):
 // the K / V staging into blocked wgmma tiles and the deterministic
 // reduction of dq across CTAs. Each kernel chooses its own CTA shape.
@@ -11,7 +11,7 @@
 // others), each in its turn: a contributor waits until the counter shows
 // its predecessor's add (no free atomics, so the sum's order is fixed and
 // calls are bit-equal). The last contributor reads the workspace, adds its
-// partial in registers and writes dq in bf16. A CTA releases a tile's
+// partial in registers and writes dq in bf16 (or fp16). A CTA releases a tile's
 // counter once its bulk op has completed, in its next step after its first
 // products (or at its end), and never while it waits itself.
 #pragma once
@@ -104,15 +104,15 @@ __device__ __forceinline__ void release_dq(int* sync, int* pending,
 // `first` stores into the workspace, any other contributor waits until
 // the counter reaches `want` and bulk-adds; the counter then reads
 // `done`. The `last` contributor instead adds the workspace (unless it is
-// also the first) to its partial in registers and writes dq in bf16: the
+// also the first) to its partial in registers and writes dq in T: the
 // tile's row r is row row0 + r of dq (rows of h heads of width D), `rows`
 // of them real. Thread 0 keeps the counter of an add in flight in
 // *pending (released by release_dq).
-template <int D, int NC = D / 2>
+template <int D, int NC = D / 2, typename T>
 __device__ __forceinline__ void add_dq(float (*dqa)[4], bool first,
                                        bool last, int* sync, int cidx,
                                        int want, int done, float* ws,
-                                       __nv_bfloat16* dq, size_t row0,
+                                       T* dq, size_t row0,
                                        int h, int head, int rows, int mq,
                                        int nc, float* stg, int* pending,
                                        int* pending_val) {
@@ -141,11 +141,11 @@ __device__ __forceinline__ void add_dq(float (*dqa)[4], bool first,
     for (int half = 0; half < 2; ++half) {
       const int r = mq + g + half * 8;
       if (r >= rows) continue;
-      __nv_bfloat16* o = dq + ((row0 + r) * h + head) * D + nc + tig * 2;
+      T* o = dq + ((row0 + r) * h + head) * D + nc + tig * 2;
 #pragma unroll
       for (int nd = 0; nd < kNtQ; ++nd)
-        *reinterpret_cast<__nv_bfloat162*>(o + nd * 8) =
-            __floats2bfloat162_rn(dqa[nd][2 * half], dqa[nd][2 * half + 1]);
+        *reinterpret_cast<uint32_t*>(o + nd * 8) =
+            pack2<T>(dqa[nd][2 * half], dqa[nd][2 * half + 1]);
     }
     return;
   }
@@ -174,9 +174,8 @@ __device__ __forceinline__ void add_dq(float (*dqa)[4], bool first,
 // ROWS rows of a head of width D into a blocked tile (wgmma.cuh) by all
 // THREADS threads of the CTA (consecutive threads fill consecutive 16-byte
 // chunks); rows at or past `limit` are zero-filled.
-template <int D, int ROWS, int THREADS>
-__device__ __forceinline__ void load_rows_blocked(__nv_bfloat16* dst,
-                                                  const __nv_bfloat16* src,
+template <int D, int ROWS, int THREADS, typename T>
+__device__ __forceinline__ void load_rows_blocked(T* dst, const T* src,
                                                   size_t stride, int row0,
                                                   int limit) {
   constexpr int kChunks = D / 8;

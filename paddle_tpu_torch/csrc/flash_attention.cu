@@ -11,7 +11,11 @@
 // pair against 2 * D K/V bytes read per KV head), bytes for short queries
 // over long keys.
 //
-// Design of the bf16 kernel (`flash_fwd_wgmma_kernel`). The tile plan is
+// Design of the bf16 and fp16 kernel (`flash_fwd_wgmma_kernel`, one
+// template on the element type: fp16 takes wgmma's f16 instruction of the
+// same shapes and TMA's FLOAT16 maps; softmax, l, m and O stay f32, and P
+// is rounded to fp16, v's dtype, as the TPU kernel computes in the
+// storage dtype under amp's fp16). The tile plan is
 // stated once in Python (ops/flash_attention.py `FwdTiles`, rehearsed on
 // the CPU by tests/test_torch_flash_fwd_tiles.py) and followed here:
 // - One CTA per (128-row query tile, head, batch), 256 threads: two
@@ -35,7 +39,7 @@
 // - Products on `wgmma` (wgmma.cuh), f32 accumulators: S = Q K^T from
 //   shared memory (both K-major: D is contiguous in Q and K), the online
 //   softmax on the accumulator (mma.sync's m16n8 layout per warp; exp2 in
-//   one MUFU instruction), P rounded to bf16 and re-packed as a register
+//   one MUFU instruction), P rounded to bf16 / fp16 and re-packed as a register
 //   A operand (the TPU kernel rounds P to v's dtype; the row sum l uses the
 //   unrounded P), O += P V with V MN-major (keys are the reduction axis, D
 //   contiguous: the `trans` flag).
@@ -67,8 +71,15 @@ namespace {
 static_assert(kBQ == flash_f32::kBQ && kBK == flash_f32::kBK,
               "the f32 path uses flash_f32.cuh's tiles");
 using bf16 = __nv_bfloat16;
+using f16 = __half;
 
-// ------------------------------------------------------------- bf16
+// The TMA element type of T.
+template <typename T>
+constexpr CUtensorMapDataType kMapType =
+    wg::kIsF16<T> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+
+// ------------------------------------------------------------- bf16 / fp16
 constexpr int kTQ = 128;  // query rows per CTA: two warpgroups of 64
 constexpr int kTK = 128;  // keys per tile
 constexpr int kThreadsWG = 256;
@@ -82,7 +93,7 @@ constexpr int kCol = 2 * kBox;   // one 64-column slice of a 128-row tile
 template <int D>
 struct FwdSmem {
   static constexpr int kStages = D == 64 ? 3 : 2;
-  static constexpr size_t tile = sizeof(bf16) * kTK * D;
+  static constexpr size_t tile = 2 * kTK * D;  // bf16 or fp16
   static constexpr size_t q = 0;
   static constexpr size_t k = q + tile;               // [kStages]
   static constexpr size_t v = k + kStages * tile;     // [kStages]
@@ -125,12 +136,12 @@ __device__ __forceinline__ void bar_arrive(int id, int threads) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kThreadsWG, 1)
     flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                            const __grid_constant__ CUtensorMap kmap,
                            const __grid_constant__ CUtensorMap vmap,
-                           bf16* __restrict__ out, float* __restrict__ lse,
+                           T* __restrict__ out, float* __restrict__ lse,
                            Dims s, int nb) {
   using M = FwdSmem<D>;
   constexpr int S = M::kStages;
@@ -220,7 +231,7 @@ __global__ void __launch_bounds__(kThreadsWG, 1)
 #pragma unroll
   for (int j = 0; j < kNtO; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
   float sc[kNtS][4];    // the scores of the tile in hand, then its P
-  uint32_t ap[kKs][4];  // P (bf16) of the tile whose P V is next
+  uint32_t ap[kKs][4];  // P (in T) of the tile whose P V is next
   float m[2] = {kNegInf, kNegInf};  // running max of scaled scores
   float l[2] = {0.f, 0.f};          // this thread's share of the row sum
   const float scale_log2 = s.scale * kLog2e;
@@ -244,7 +255,7 @@ __global__ void __launch_bounds__(kThreadsWG, 1)
     wg::fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wg::ss<kTK, 0, 0>(
+      wg::ss<kTK, 0, 0, T>(
           &sc[0][0], wg::desc_sw128(qa + kk / 4 * kCol + kk % 4 * 32, 16, 1024),
           wg::desc_sw128(kt + kk / 4 * kCol + kk % 4 * 32, 16, 1024), 1);
     wg::commit();
@@ -254,7 +265,7 @@ __global__ void __launch_bounds__(kThreadsWG, 1)
     const uint32_t vt = va + (t % S) * M::tile;
 #pragma unroll
     for (int kk = 0; kk < kKs; ++kk)
-      wg::rs<D, 1>(&o[0][0], ap[kk],
+      wg::rs<D, 1, T>(&o[0][0], ap[kk],
                    wg::desc_sw128(vt + kk * 2048, kCol, 1024), 1);
     wg::commit();
   };
@@ -299,7 +310,7 @@ __global__ void __launch_bounds__(kThreadsWG, 1)
       m[half] = m_new;
     }
   };
-  // O *= alpha, then P (bf16) straight from the score fragments
+  // O *= alpha, then P (in T) straight from the score fragments
   auto rescale_pack = [&](const float* alpha) {
 #pragma unroll
     for (int nd = 0; nd < kNtO; ++nd) {
@@ -309,7 +320,7 @@ __global__ void __launch_bounds__(kThreadsWG, 1)
       o[nd][3] *= alpha[1];
     }
 #pragma unroll
-    for (int kk = 0; kk < kKs; ++kk) pack_a(ap[kk], sc, kk);
+    for (int kk = 0; kk < kKs; ++kk) pack_a<T>(ap[kk], sc, kk);
   };
   auto wait_k = [&](int t) { mbar_wait(kfull + t % S, (t / S) & 1); };
   auto wait_v = [&](int t) { mbar_wait(vfull + t % S, (t / S) & 1); };
@@ -367,7 +378,7 @@ __global__ void __launch_bounds__(kThreadsWG, 1)
     if (wgi == 0) bar_sync(1, kThreadsWG);  // warpgroup 1's last arrival
   }
 
-  // O / max(l, 1e-30) in bf16; lse = m + log(max(l, 1e-30))
+  // O / max(l, 1e-30) in T; lse = m + log(max(l, 1e-30))
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     float lt = l[half];
@@ -377,13 +388,12 @@ __global__ void __launch_bounds__(kThreadsWG, 1)
     if (r < s.sq) {
       const float lc = fmaxf(lt, 1e-30f);
       const float inv = 1.f / lc;
-      bf16* dst = out + ((static_cast<size_t>(b) * s.sq + r) * s.h + head) * D +
-                  tig * 2;
+      T* dst = out + ((static_cast<size_t>(b) * s.sq + r) * s.h + head) * D +
+               tig * 2;
 #pragma unroll
       for (int nd = 0; nd < kNtO; ++nd)
-        *reinterpret_cast<__nv_bfloat162*>(dst + nd * 8) =
-            __floats2bfloat162_rn(o[nd][2 * half] * inv,
-                                  o[nd][2 * half + 1] * inv);
+        *reinterpret_cast<uint32_t*>(dst + nd * 8) =
+            pack2<T>(o[nd][2 * half] * inv, o[nd][2 * half + 1] * inv);
       if (tig == 0)
         lse[(static_cast<size_t>(b) * s.h + head) * s.sq + r] =
             m[half] + logf(lc);
@@ -454,9 +464,9 @@ int launch_f32(const void* q, const void* k, const void* v, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
-int launch_bf16(const void* q, const void* k, const void* v, void* out,
-                float* lse, const Dims& s, int b, cudaStream_t stream) {
+template <int D, typename T>
+int launch_16(const void* q, const void* k, const void* v, void* out,
+              float* lse, const Dims& s, int b, cudaStream_t stream) {
   static bool configured = false;
   const long long items =
       static_cast<long long>((s.sq + kTQ - 1) / kTQ) * b * s.h;
@@ -464,26 +474,28 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
   // with no keys no tile is copied, but a map needs a tensor: q's
   const bool keys = s.sk > 0;
   CUtensorMap qmap, kmap, vmap;
-  if (int e = make_map(&qmap, q, b, s.sq, s.h, D)) return e;
+  constexpr CUtensorMapDataType dt = kMapType<T>;
+  if (int e = make_map(&qmap, q, b, s.sq, s.h, D, dt)) return e;
   if (int e = make_map(&kmap, keys ? k : q, b, keys ? s.sk : s.sq,
-                       keys ? s.hk : s.h, D))
+                       keys ? s.hk : s.h, D, dt))
     return e;
   if (int e = make_map(&vmap, keys ? v : q, b, keys ? s.sk : s.sq,
-                       keys ? s.hk : s.h, D))
+                       keys ? s.hk : s.h, D, dt))
     return e;
   constexpr size_t bytes = FwdSmem<D>::bytes;
-  if (int e = set_smem(flash_fwd_wgmma_kernel<D>, bytes, &configured))
+  if (int e = set_smem(flash_fwd_wgmma_kernel<D, T>, bytes, &configured))
     return e;
-  flash_fwd_wgmma_kernel<D><<<static_cast<int>(items), kThreadsWG, bytes,
-                              stream>>>(qmap, kmap, vmap,
-                                        static_cast<bf16*>(out), lse, s, b);
+  flash_fwd_wgmma_kernel<D, T><<<static_cast<int>(items), kThreadsWG, bytes,
+                                 stream>>>(qmap, kmap, vmap,
+                                           static_cast<T*>(out), lse, s, b);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // q (B, Sq, H, D), k/v (B, Sk, HK, D), out like q, lse (B, H, Sq) f32; all
-// contiguous. D is 64 or 128; window 0 means none (needs causal).
+// contiguous, of one dtype (f32, bf16 or fp16) but lse. D is 64 or 128;
+// window 0 means none (needs causal).
 extern "C" int ptt_flash_attention(const void* q, const void* k,
                                    const void* v, void* out, void* lse,
                                    int b, int sq, int sk, int h, int hk,
@@ -498,8 +510,11 @@ extern "C" int ptt_flash_attention(const void* q, const void* k,
   const Dims s{sq, sk, h, hk, causal, window, sk - sq, sm_scale};
   float* l = static_cast<float*>(lse);
   if (dtype == kBF16)
-    return d == 64 ? launch_bf16<64>(q, k, v, out, l, s, b, st)
-                   : launch_bf16<128>(q, k, v, out, l, s, b, st);
+    return d == 64 ? launch_16<64, bf16>(q, k, v, out, l, s, b, st)
+                   : launch_16<128, bf16>(q, k, v, out, l, s, b, st);
+  if (dtype == kF16)
+    return d == 64 ? launch_16<64, f16>(q, k, v, out, l, s, b, st)
+                   : launch_16<128, f16>(q, k, v, out, l, s, b, st);
   if (dtype == kF32)
     return d == 64 ? launch_f32<64>(q, k, v, out, l, s, b, st)
                    : launch_f32<128>(q, k, v, out, l, s, b, st);

@@ -1,5 +1,5 @@
 // Flash attention backward for Hopper: K7, one fused kernel for dq, dk and
-// dv, in bf16 on wgmma and in f32 on the tensor cores as 3xTF32.
+// dv, in bf16 or fp16 on wgmma and in f32 on the tensor cores as 3xTF32.
 //
 // Replaces: paddle_tpu/ops/pallas/flash_attention.py, `_flash_bwd` ->
 // `_bwd_dq_kernel` (its pl.pallas_call at :402) and `_bwd_dkv_kernel`
@@ -24,7 +24,10 @@
 // 128, causal) that is 8.39 M live pairs per head, 344 GFLOP: 0.347 ms at
 // 989 TFLOP/s, against ~0.02 ms for its bytes.
 //
-// Design of the bf16 kernel K7 (`bwd_fused_wgmma_kernel`).
+// Design of the bf16 kernel K7 (`bwd_fused_wgmma_kernel`; the fp16 arm is
+// the same template on `__half`: wgmma's f16 instruction, TMA's FLOAT16
+// maps, P^T and dS^T rounded to fp16 where the bf16 arm rounds them to
+// bf16, every accumulator, lse and delta f32).
 // - One CTA per (batch, KV head, 128-key tile), 8 warps. K and V stay in
 //   shared memory for the whole walk; the CTA walks the 64-row query
 //   tiles that hold a live pair with its keys (highest first) and, for
@@ -83,6 +86,7 @@ using namespace ptt::bwd;
 namespace {
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
 
 // The query range [lo, hi) that sees at least one of the keys
 // [k0, k0 + BK): the transpose of key_range (`_q_band_clamp`).
@@ -118,7 +122,7 @@ __device__ __forceinline__ bool fused_full_pair(const Dims& s, int q0,
 // bf16 tiles are blocked (wgmma.cuh), without padding.
 template <int D>
 struct WgSmem {
-  static constexpr size_t kv_bytes = sizeof(bf16) * kFBK * D;
+  static constexpr size_t kv_bytes = sizeof(bf16) * kFBK * D;  // or fp16
   static constexpr size_t q_bytes = sizeof(bf16) * kBQ * D;
   static constexpr size_t k = 0;
   static constexpr size_t v = k + kv_bytes;
@@ -144,16 +148,16 @@ struct WgSmem {
 // (128-byte swizzle, completing on the stage's mbarrier), the threads
 // copy lse and delta with cp.async; K and V (blocked, no swizzle) are
 // copied once by cp.async.
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kFThreads, 1)
     bwd_fused_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                            const __grid_constant__ CUtensorMap dmap,
-                           const bf16* __restrict__ k,
-                           const bf16* __restrict__ v,
+                           const T* __restrict__ k,
+                           const T* __restrict__ v,
                            const float* __restrict__ lse,
                            const float* __restrict__ delta,
-                           bf16* __restrict__ dq, bf16* __restrict__ dk,
-                           bf16* __restrict__ dv, float* __restrict__ ws,
+                           T* __restrict__ dq, T* __restrict__ dk,
+                           T* __restrict__ dv, float* __restrict__ ws,
                            int* __restrict__ sync, Dims s, int nb) {
   using M = WgSmem<D>;
   constexpr int kRow8 = 16 * D;   // bytes between 8-row groups of a tile
@@ -164,10 +168,10 @@ __global__ void __launch_bounds__(kFThreads, 1)
   unsigned char* smem_raw =
       smem_dyn + ((1024 - (smem_u32(smem_dyn) & 1023)) & 1023);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem_raw + M::bars);
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw + M::k);
-  bf16* vs = reinterpret_cast<bf16*>(smem_raw + M::v);
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw + M::q);
-  bf16* dos = reinterpret_cast<bf16*>(smem_raw + M::dout);
+  T* ks = reinterpret_cast<T*>(smem_raw + M::k);
+  T* vs = reinterpret_cast<T*>(smem_raw + M::v);
+  T* qs = reinterpret_cast<T*>(smem_raw + M::q);
+  T* dos = reinterpret_cast<T*>(smem_raw + M::dout);
   char* dst = reinterpret_cast<char*>(smem_raw + M::dst);
   float* stg = reinterpret_cast<float*>(smem_raw + M::stage);
   float* ls = reinterpret_cast<float*>(smem_raw + M::lse);
@@ -204,7 +208,7 @@ __global__ void __launch_bounds__(kFThreads, 1)
     const int q0 = (ihi - t / grp) * kBQ;
     const int head = kvh * grp + t % grp;
     if (threadIdx.x == 0) {
-      mbar_expect_tx(full + st, 2 * sizeof(bf16) * kBQ * D);
+      mbar_expect_tx(full + st, 2 * sizeof(T) * kBQ * D);
 #pragma unroll
       for (int c = 0; c < D / 64; ++c) {
         tma_box(qs + st * kBQ * D + c * 64 * kBQ, &qmap, c * 64, head, q0, b,
@@ -285,13 +289,13 @@ __global__ void __launch_bounds__(kFThreads, 1)
     wg::fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wg::ss<kBQ, 0, 0>(&sc[0][0], wg::desc(ka + kk * 256, 128, kRow8),
+      wg::ss<kBQ, 0, 0, T>(&sc[0][0], wg::desc(ka + kk * 256, 128, kRow8),
                         wg::desc_sw128(qa + kk / 4 * 8192 + kk % 4 * 32, 16,
                                        1024), 1);
     wg::commit();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wg::ss<kBQ, 0, 0>(&dp[0][0], wg::desc(va + kk * 256, 128, kRow8),
+      wg::ss<kBQ, 0, 0, T>(&dp[0][0], wg::desc(va + kk * 256, 128, kRow8),
                         wg::desc_sw128(da + kk / 4 * 8192 + kk % 4 * 32, 16,
                                        1024), 1);
     wg::commit();
@@ -299,7 +303,7 @@ __global__ void __launch_bounds__(kFThreads, 1)
     wg::fence_regs<4 * kNtS>(&sc[0][0]);
 
     // P^T in sc (dead pairs 0 by a select), then dV += P^T dO (P^T rounded
-    // to bf16, A from registers; B MN-major: rows are the queries), in
+    // to T, A from registers; B MN-major: rows are the queries), in
     // flight while dS^T is formed
 #pragma unroll
     for (int nt = 0; nt < kNtS; ++nt)
@@ -314,33 +318,33 @@ __global__ void __launch_bounds__(kFThreads, 1)
       }
     uint32_t ap[kBQ / 16][4], ads[kBQ / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < kBQ / 16; ++kk) pack_a(ap[kk], sc, kk);
+    for (int kk = 0; kk < kBQ / 16; ++kk) pack_a<T>(ap[kk], sc, kk);
     wg::fence();
 #pragma unroll
     for (int kk = 0; kk < kBQ / 16; ++kk)
-      wg::rs<D, 1>(&adv[0][0], ap[kk],
+      wg::rs<D, 1, T>(&adv[0][0], ap[kk],
                    wg::desc_sw128(da + kk * 2048, 8192, 1024), 1);
     wg::commit();
     wg::wait<1>();
     wg::fence_regs<4 * kNtS>(&dp[0][0]);
 
     // dS^T = P^T (dP^T - delta) scale, then dK += dS^T Q (dS^T rounded to
-    // bf16)
+    // T)
 #pragma unroll
     for (int nt = 0; nt < kNtS; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         dp[nt][e] = sc[nt][e] * (dp[nt][e] - dl[nt][e & 1]) * s.scale;
 #pragma unroll
-    for (int kk = 0; kk < kBQ / 16; ++kk) pack_a(ads[kk], dp, kk);
+    for (int kk = 0; kk < kBQ / 16; ++kk) pack_a<T>(ads[kk], dp, kk);
     wg::fence();
 #pragma unroll
     for (int kk = 0; kk < kBQ / 16; ++kk)
-      wg::rs<D, 1>(&adk[0][0], ads[kk],
+      wg::rs<D, 1, T>(&adk[0][0], ads[kk],
                    wg::desc_sw128(qa + kk * 2048, 8192, 1024), 1);
     wg::commit();
 
-    // dS^T (bf16) into its blocked tile, rows the keys
+    // dS^T (in T) into its blocked tile, rows the keys
 #pragma unroll
     for (int nt = 0; nt < kNtS; ++nt)
 #pragma unroll
@@ -363,7 +367,7 @@ __global__ void __launch_bounds__(kFThreads, 1)
     wg::fence();
 #pragma unroll
     for (int kk = 0; kk < kFBK / 16; ++kk)
-      wg::ss<D / 2, 1, 1>(&dqa[0][0],
+      wg::ss<D / 2, 1, 1, T>(&dqa[0][0],
                           wg::desc(sa + kk * 2 * (16 * kBQ), 16 * kBQ, 128),
                           wg::desc(kb + kk * 2 * kRow8, kRow8, 128), 1);
     wg::commit();
@@ -547,22 +551,25 @@ bool valid(int sk, int h, int hk, int d, int causal, int window) {
          window >= 0 && (window == 0 || causal);
 }
 
-template <int D>
+template <int D, typename T>
 int launch_fused(const void* q, const void* k, const void* v,
                  const void* dout, const float* lse, const float* delta,
                  void* dq, void* dk, void* dv, float* ws, int* sync,
                  const Dims& s, int b, int items, cudaStream_t st) {
   static bool configured = false;
+  constexpr CUtensorMapDataType dt = wg::kIsF16<T>
+                                         ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                         : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   CUtensorMap qmap, dmap;
-  if (int e = make_map(&qmap, q, b, s.sq, s.h, D)) return e;
-  if (int e = make_map(&dmap, dout, b, s.sq, s.h, D)) return e;
+  if (int e = make_map(&qmap, q, b, s.sq, s.h, D, dt)) return e;
+  if (int e = make_map(&dmap, dout, b, s.sq, s.h, D, dt)) return e;
   constexpr size_t bytes = WgSmem<D>::bytes;
-  if (int e = set_smem(bwd_fused_wgmma_kernel<D>, bytes, &configured))
+  if (int e = set_smem(bwd_fused_wgmma_kernel<D, T>, bytes, &configured))
     return e;
-  bwd_fused_wgmma_kernel<D><<<items, kFThreads, bytes, st>>>(
-      qmap, dmap, static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      lse, delta, static_cast<bf16*>(dq), static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), ws, sync, s, b);
+  bwd_fused_wgmma_kernel<D, T><<<items, kFThreads, bytes, st>>>(
+      qmap, dmap, static_cast<const T*>(k), static_cast<const T*>(v), lse,
+      delta, static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv),
+      ws, sync, s, b);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -586,12 +593,12 @@ int launch_fused_f32(const void* q, const void* k, const void* v,
 }  // namespace
 
 // K7. q, do, dq (B, Sq, H, D); k, v, dk, dv (B, Sk, HK, D); lse, delta
-// (B, H, Sq) f32; all contiguous, of one dtype (bf16 or f32) but lse and
+// (B, H, Sq) f32; all contiguous, of one dtype (bf16, fp16 or f32) but lse and
 // delta. D is 64 or 128; window 0 means none (needs causal). counters are
 // 1 + B * H * ceil(Sq / 64) int32 zeros (the ticket, then one counter per
 // (batch, head, query tile)); dk, dv are each KV head's sum over the query
 // heads of its group. Rows of a query tile no key tile reaches (sq > sk,
-// causal) are not written. bf16: dq_ws is the f32 workspace (B, H,
+// causal) are not written. bf16 / fp16: dq_ws is the f32 workspace (B, H,
 // ceil(Sq / 64), 64, D + 4), CTAs of 128 keys; f32: dq takes the adds
 // itself (dq_ws unused), CTAs of 128 keys at D = 128 and 64 at D = 64.
 extern "C" int ptt_flash_attention_bwd_fused(
@@ -603,7 +610,7 @@ extern "C" int ptt_flash_attention_bwd_fused(
   const bool f32 = dtype == kF32;
   const int bk = f32 && d == 64 ? F32<64>::BK : kFBK;
   const long long items = static_cast<long long>((sk + bk - 1) / bk) * b * hk;
-  if (sq < 0 || (dtype != kBF16 && !f32) ||
+  if (sq < 0 || (dtype != kBF16 && dtype != kF16 && !f32) ||
       !valid(sk, h, hk, d, causal, window) || items > 0x7fffffffLL ||
       !aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(dout) ||
       !aligned16(dq) || !aligned16(dk) || !aligned16(dv) ||
@@ -621,8 +628,13 @@ extern "C" int ptt_flash_attention_bwd_fused(
                                           sync, s, b, n, st)
                    : launch_fused_f32<128>(q, k, v, dout, l, dl, dq, dk, dv,
                                            sync, s, b, n, st);
-  return d == 64 ? launch_fused<64>(q, k, v, dout, l, dl, dq, dk, dv, ws,
-                                    sync, s, b, n, st)
-                 : launch_fused<128>(q, k, v, dout, l, dl, dq, dk, dv, ws,
-                                     sync, s, b, n, st);
+  if (dtype == kF16)
+    return d == 64 ? launch_fused<64, f16>(q, k, v, dout, l, dl, dq, dk, dv,
+                                           ws, sync, s, b, n, st)
+                   : launch_fused<128, f16>(q, k, v, dout, l, dl, dq, dk,
+                                            dv, ws, sync, s, b, n, st);
+  return d == 64 ? launch_fused<64, bf16>(q, k, v, dout, l, dl, dq, dk, dv,
+                                          ws, sync, s, b, n, st)
+                 : launch_fused<128, bf16>(q, k, v, dout, l, dl, dq, dk, dv,
+                                           ws, sync, s, b, n, st);
 }

@@ -1,7 +1,7 @@
 // Pieces shared by the dense flash-attention kernels, forward (K4,
 // flash_attention.cu) and backward (K7, flash_attention_bwd.cu): the
 // tile sizes, the live band of (query, key) pairs (bottom-right causal,
-// sliding window, keys past sk), and the bf16 tensor-core building blocks
+// sliding window, keys past sk), and the 16-bit tensor-core building blocks
 // (`mma.sync` m16n8k16 with f32 accumulation, `ldmatrix.trans`, 16-byte
 // `cp.async` tile staging, and the fragment helpers, which the varlen
 // kernel K3 shares; K4, K7 and K8 take the fragment re-packing
@@ -98,8 +98,7 @@ __device__ __forceinline__ float exp2_ftz(float x) {
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+  return pack2<__nv_bfloat16>(lo, hi);
 }
 
 // c += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate
@@ -171,29 +170,31 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src,
                "l"(src), "r"(pred ? 4 : 0));
 }
 
-// Re-pack accumulator columns [16 kk, 16 kk + 16) as a bf16 A fragment.
+// Re-pack accumulator columns [16 kk, 16 kk + 16) as an A fragment of T
+// (bf16 or fp16).
+template <typename T = __nv_bfloat16>
 __device__ __forceinline__ void pack_a(uint32_t* a, float (*c)[4], int kk) {
-  a[0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
-  a[1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
-  a[2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
-  a[3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
+  a[0] = pack2<T>(c[2 * kk][0], c[2 * kk][1]);
+  a[1] = pack2<T>(c[2 * kk][2], c[2 * kk][3]);
+  a[2] = pack2<T>(c[2 * kk + 1][0], c[2 * kk + 1][1]);
+  a[3] = pack2<T>(c[2 * kk + 1][2], c[2 * kk + 1][3]);
 }
 
-// Write a warp's 16 x D accumulator rows (r0, r0 + 8) in bf16; `base` is
-// row 0 of the output, rows `stride` apart.
-template <int D>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* base,
-                                           size_t stride, float (*acc)[4],
-                                           int r0, int limit, int tig) {
+// Write a warp's 16 x D accumulator rows (r0, r0 + 8) in T (bf16 or
+// fp16); `base` is row 0 of the output, rows `stride` apart.
+template <int D, typename T>
+__device__ __forceinline__ void store_rows(T* base, size_t stride,
+                                           float (*acc)[4], int r0,
+                                           int limit, int tig) {
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int r = r0 + half * 8;
     if (r >= limit) continue;
-    __nv_bfloat16* dst = base + static_cast<size_t>(r) * stride + tig * 2;
+    T* dst = base + static_cast<size_t>(r) * stride + tig * 2;
 #pragma unroll
     for (int nd = 0; nd < D / 8; ++nd)
-      *reinterpret_cast<__nv_bfloat162*>(dst + nd * 8) =
-          __floats2bfloat162_rn(acc[nd][2 * half], acc[nd][2 * half + 1]);
+      *reinterpret_cast<uint32_t*>(dst + nd * 8) =
+          pack2<T>(acc[nd][2 * half], acc[nd][2 * half + 1]);
   }
 }
 

@@ -2,7 +2,7 @@
 // (`mbarrier`) for the port's kernels: the dense flash-attention forward
 // K4 (flash_attention.cu) and backward K7 (flash_attention_bwd.cu).
 //
-// A (B, S, H, D) bf16 tensor is described once on the host as a tensor
+// A (B, S, H, D) bf16 or fp16 tensor is described once on the host as a tensor
 // map of 64-row x 64-column boxes of one head (`make_map`); one thread
 // asks for a box (`tma_box`), which lands in shared memory in the 128-byte
 // swizzle that wgmma.cuh's `desc_sw128` reads, and completes on an
@@ -56,7 +56,7 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
   }
 }
 
-// One 64-row x 64-column box of a (B, S, H, D) bf16 tensor into shared
+// One 64-row x 64-column box of a (B, S, H, D) 16-bit tensor into shared
 // memory (128-byte swizzle), completing on `bar`.
 __device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map,
                                         int d0, int h, int s0, int b,
@@ -76,11 +76,13 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                  CUtensorMapL2promotion,
                                  CUtensorMapFloatOOBfill);
 
-// A (B, S, H, D) bf16 tensor as TMA boxes of 64 rows x 64 columns of one
-// head, 128-byte swizzle; rows past S read as zeros. The encoder comes
-// from the driver through the runtime, so the library links no -lcuda.
-inline int make_map(CUtensorMap* m, const void* base, int b, int s, int h,
-                    int d) {
+// A (B, S, H, D) bf16 (or, with `dt`, fp16) tensor as TMA boxes of 64
+// rows x 64 columns of one head, 128-byte swizzle; rows past S read as
+// zeros. The encoder comes from the driver through the runtime, so the
+// library links no -lcuda.
+inline int make_map(
+    CUtensorMap* m, const void* base, int b, int s, int h, int d,
+    CUtensorMapDataType dt = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   static EncodeTiled encode = nullptr;
   if (!encode) {
     cudaDriverEntryPointQueryResult found;
@@ -101,7 +103,7 @@ inline int make_map(CUtensorMap* m, const void* base, int b, int s, int h,
   const cuuint32_t box[4] = {64, 1, 64, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult r = encode(
-      m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+      m, dt, 4, const_cast<void*>(base), dims,
       strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

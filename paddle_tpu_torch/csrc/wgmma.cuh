@@ -1,5 +1,6 @@
 // Hopper's warpgroup matrix multiply (`wgmma`) for the port's kernels:
-// bf16 operands, f32 accumulators, shared-memory tiles without swizzle.
+// bf16 (or fp16) operands, f32 accumulators, shared-memory tiles without
+// swizzle or with the 128-byte swizzle.
 //
 // Tile layout ("blocked"): a tile of R rows and C bf16 columns is stored
 // as 8 x 8 core matrices (8 rows of 16 bytes, 128 contiguous bytes); the
@@ -23,6 +24,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 namespace ptt {
@@ -85,157 +87,140 @@ __device__ __forceinline__ void fence_regs(uint32_t* a) {
 
 // d (m64 x nN, f32) = A B + (scale_d ? d : 0) over one k16 step. `ss`: A
 // and B from shared memory (TA, TB: the MN-major flags); `rs`: A from
-// registers (the m16n8k16 A fragment of the warp's 16 rows).
-template <int TA, int TB>
+// registers (the m16n8k16 A fragment of the warp's 16 rows). The operand
+// type T is bf16 or fp16 (`__half`): one instruction each, the same shapes
+// and descriptors, TY its PTX name.
+template <typename T>
+constexpr bool kIsF16 = false;
+template <>
+constexpr bool kIsF16<__half> = true;
+
+#define PTT_WG_D16                                                       \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),        \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+#define PTT_WG_D32                                                          \
+  PTT_WG_D16, "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),           \
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),      \
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),      \
+      "+f"(d[30]), "+f"(d[31])
+#define PTT_WG_D64                                                          \
+  PTT_WG_D32, "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),           \
+      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),      \
+      "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),      \
+      "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),      \
+      "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),      \
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),      \
+      "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+#define PTT_WG_R16                                                          \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+#define PTT_WG_R32                                                          \
+  PTT_WG_R16 ", %16, %17, %18, %19, %20, %21, %22, %23, "                  \
+             "%24, %25, %26, %27, %28, %29, %30, %31"
+#define PTT_WG_R64                                                          \
+  PTT_WG_R32 ", %32, %33, %34, %35, %36, %37, %38, %39, "                  \
+             "%40, %41, %42, %43, %44, %45, %46, %47, "                     \
+             "%48, %49, %50, %51, %52, %53, %54, %55, "                     \
+             "%56, %57, %58, %59, %60, %61, %62, %63"
+
+#define PTT_WG_SS(N, TY, REGS, DOUT, A, P, T1, T2)                         \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" P ", 0;\n"           \
+               "wgmma.mma_async.sync.aligned.m64n" N "k16.f32." TY "." TY  \
+               " {" REGS "}, %" A ", p, 1, 1, %" T1 ", %" T2 ";\n}\n"     \
+               : DOUT                                                       \
+               : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB))
+#define PTT_WG_RS(N, TY, REGS, DOUT, A, P, T1)                             \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" P ", 0;\n"           \
+               "wgmma.mma_async.sync.aligned.m64n" N "k16.f32." TY "." TY  \
+               " {" REGS "}, " A ", p, 1, 1, %" T1 ";\n}\n"               \
+               : DOUT                                                       \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),       \
+                 "r"(scale_d), "n"(TB))
+
+template <int TA, int TB, typename T = __nv_bfloat16>
 __device__ __forceinline__ void ss_n32(float* d, uint64_t da, uint64_t db,
                                        int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15"
-      "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+  if constexpr (kIsF16<T>)
+    PTT_WG_SS("32", "f16", PTT_WG_R16, PTT_WG_D16, "16, %17", "18", "19",
+              "20");
+  else
+    PTT_WG_SS("32", "bf16", PTT_WG_R16, PTT_WG_D16, "16, %17", "18", "19",
+              "20");
 }
 
-template <int TA, int TB>
+template <int TA, int TB, typename T = __nv_bfloat16>
 __device__ __forceinline__ void ss_n64(float* d, uint64_t da, uint64_t db,
                                        int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+  if constexpr (kIsF16<T>)
+    PTT_WG_SS("64", "f16", PTT_WG_R32, PTT_WG_D32, "32, %33", "34", "35",
+              "36");
+  else
+    PTT_WG_SS("64", "bf16", PTT_WG_R32, PTT_WG_D32, "32, %33", "34", "35",
+              "36");
 }
 
-template <int TA, int TB>
+template <int TA, int TB, typename T = __nv_bfloat16>
 __device__ __forceinline__ void ss_n128(float* d, uint64_t da, uint64_t db,
                                         int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+  if constexpr (kIsF16<T>)
+    PTT_WG_SS("128", "f16", PTT_WG_R64, PTT_WG_D64, "64, %65", "66", "67",
+              "68");
+  else
+    PTT_WG_SS("128", "bf16", PTT_WG_R64, PTT_WG_D64, "64, %65", "66", "67",
+              "68");
 }
 
-template <int TB>
+template <int TB, typename T = __nv_bfloat16>
 __device__ __forceinline__ void rs_n64(float* d, const uint32_t* a,
                                        uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
-        "n"(TB));
+  if constexpr (kIsF16<T>)
+    PTT_WG_RS("64", "f16", PTT_WG_R32, PTT_WG_D32, "{%32, %33, %34, %35}, %36",
+              "37", "38");
+  else
+    PTT_WG_RS("64", "bf16", PTT_WG_R32, PTT_WG_D32,
+              "{%32, %33, %34, %35}, %36", "37", "38");
 }
 
-template <int TB>
+template <int TB, typename T = __nv_bfloat16>
 __device__ __forceinline__ void rs_n128(float* d, const uint32_t* a,
-                                       uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
-        "n"(TB));
+                                        uint64_t db, int scale_d) {
+  if constexpr (kIsF16<T>)
+    PTT_WG_RS("128", "f16", PTT_WG_R64, PTT_WG_D64,
+              "{%64, %65, %66, %67}, %68", "69", "70");
+  else
+    PTT_WG_RS("128", "bf16", PTT_WG_R64, PTT_WG_D64,
+              "{%64, %65, %66, %67}, %68", "69", "70");
 }
 
-template <int N, int TA, int TB>
+#undef PTT_WG_SS
+#undef PTT_WG_RS
+#undef PTT_WG_R64
+#undef PTT_WG_R32
+#undef PTT_WG_R16
+#undef PTT_WG_D64
+#undef PTT_WG_D32
+#undef PTT_WG_D16
+
+template <int N, int TA, int TB, typename T = __nv_bfloat16>
 __device__ __forceinline__ void ss(float* d, uint64_t da, uint64_t db,
                                    int scale_d) {
   static_assert(N == 32 || N == 64 || N == 128, "ss: n32, n64 or n128");
   if constexpr (N == 32)
-    ss_n32<TA, TB>(d, da, db, scale_d);
+    ss_n32<TA, TB, T>(d, da, db, scale_d);
   else if constexpr (N == 64)
-    ss_n64<TA, TB>(d, da, db, scale_d);
+    ss_n64<TA, TB, T>(d, da, db, scale_d);
   else
-    ss_n128<TA, TB>(d, da, db, scale_d);
+    ss_n128<TA, TB, T>(d, da, db, scale_d);
 }
 
-template <int N, int TB>
+template <int N, int TB, typename T = __nv_bfloat16>
 __device__ __forceinline__ void rs(float* d, const uint32_t* a, uint64_t db,
                                    int scale_d) {
   static_assert(N == 64 || N == 128, "rs: n64 or n128");
   if constexpr (N == 64)
-    rs_n64<TB>(d, a, db, scale_d);
+    rs_n64<TB, T>(d, a, db, scale_d);
   else
-    rs_n128<TB>(d, a, db, scale_d);
+    rs_n128<TB, T>(d, a, db, scale_d);
 }
 
 }  // namespace wg

@@ -1,1 +1,2 @@
-"""Incubating serving ops of the port."""
+"""Incubating ops of the port: the serving functionals (``incubate.nn``)
+and the optimizer wrappers (``incubate.optimizer``)."""

@@ -7,12 +7,24 @@ state is not consumed), ``lr = optimizer.get_lr()`` is read on every call
 and the schedule is stepped by the caller, the step number counts from 1,
 and the loss comes back as a 0-d device tensor without a host sync.
 
+Frozen parameters: the step differentiates, keeps optimizer state for and
+updates only the parameters with ``requires_grad`` (the reference's
+``not stop_gradient``); a frozen parameter gets no state and no update
+and stays bit-equal. This is the reference's eager loop's rule
+(``Optimizer.step`` updates ``trainable`` parameters with a gradient).
+The reference's jitted step instead differentiates and updates every
+named parameter, frozen ones included (``paddle_tpu/jit/train.py:50``,
+``:113-122``); the port does not copy that (ROADMAP queue C): with LoRA
+at 7B it would need optimizer state for every frozen weight. A model
+whose parameters are all trainable steps as before.
+
 Unlike the reference, which compiles the step into one XLA program over
-immutable arrays, the step runs eagerly as ordinary PyTorch (compiling it,
-and capturing it as a CUDA graph, are ROADMAP A1 and A8; the kernels'
-ctypes launches would not survive a graph capture today) and updates the
-model's own parameters in place, so ``params`` are the model's parameters
-and ``sync_to_model`` only hands the optimizer state back.
+immutable arrays, the step runs eagerly as ordinary PyTorch (compiling it
+is ROADMAP A8; capturing it as a CUDA graph is ROADMAP A1, which waits
+for B2.2: the kernels' launches themselves are capturable, as the decode
+quantum's graph shows) and updates the model's own parameters in place,
+so ``params`` are the model's trainable parameters and ``sync_to_model``
+only hands the optimizer state back.
 """
 from __future__ import annotations
 
@@ -41,10 +53,11 @@ class JittedTrainStep:
         self._model = model
         self._criterion = criterion
         self._optimizer = optimizer
-        named = list(model.named_parameters())
+        named = [(n, p) for n, p in model.named_parameters()
+                 if p.requires_grad]
         self._params = [p for _, p in named]
         self._states = [optimizer.new_state(p) for p in self._params]
-        self._decay_flags = [optimizer._decay_enabled(n) for n, _ in named]
+        self._decay_flags = [optimizer._decay_enabled(n, p) for n, p in named]
         self._step_no = 0
 
     def _one_step(self, inputs, labels, lr, step_no):

@@ -3,7 +3,9 @@
 Module names mirror the reference's, so its ``state_dict()`` keys map
 one to one onto this model's (see ``nlp/convert.py``). ``torch.nn.Linear``
 stores its weight as (out, in) where the reference stores (in, out); the
-carry transposes once. Both of the reference's builds, tensor-parallel
+carry transposes once. The projections and the embedding are the port's
+``Linear`` / ``Embedding`` (``nn/layer/common.py``), whose forward holds
+amp's cast seam. Both of the reference's builds, tensor-parallel
 (Column/RowParallelLinear, which degrade to serial layers without a mesh)
 and serial, give the same keys and shapes, so one port covers both.
 
@@ -33,6 +35,7 @@ from .._device import resolve_device
 from ..distributed.fleet.utils.recompute import recompute, should_remat_layer
 from ..nn import functional as F
 from ..nn.functional.rope import apply_rotary_emb, build_rope_cache
+from ..nn.layer.common import Embedding, Linear
 from ..nn.layer.norm import RMSNorm
 from ..ops.decode_attention import decode_attention
 
@@ -153,10 +156,10 @@ class LlamaAttention(nn.Module):
         self.num_heads, self.num_kv_heads, self.head_dim = h, hk, d
         bias = bool(config.attention_bias)
         kw = dict(device=device, dtype=dtype)
-        self.q_proj = nn.Linear(config.hidden_size, h * d, bias=bias, **kw)
-        self.k_proj = nn.Linear(config.hidden_size, hk * d, bias=bias, **kw)
-        self.v_proj = nn.Linear(config.hidden_size, hk * d, bias=bias, **kw)
-        self.o_proj = nn.Linear(h * d, config.hidden_size, bias=False, **kw)
+        self.q_proj = Linear(config.hidden_size, h * d, bias=bias, **kw)
+        self.k_proj = Linear(config.hidden_size, hk * d, bias=bias, **kw)
+        self.v_proj = Linear(config.hidden_size, hk * d, bias=bias, **kw)
+        self.o_proj = Linear(h * d, config.hidden_size, bias=False, **kw)
 
     def forward(self, hidden, position_offset=0, cache=None,
                 cu_seqlens=None, position_ids=None):
@@ -303,11 +306,11 @@ class LlamaMLP(nn.Module):
     def __init__(self, config, device=None, dtype=None):
         super().__init__()
         kw = dict(bias=False, device=device, dtype=dtype)
-        self.gate_proj = nn.Linear(config.hidden_size,
+        self.gate_proj = Linear(config.hidden_size,
                                    config.intermediate_size, **kw)
-        self.up_proj = nn.Linear(config.hidden_size,
+        self.up_proj = Linear(config.hidden_size,
                                  config.intermediate_size, **kw)
-        self.down_proj = nn.Linear(config.intermediate_size,
+        self.down_proj = Linear(config.intermediate_size,
                                    config.hidden_size, **kw)
 
     def forward(self, x):
@@ -365,7 +368,7 @@ class LlamaModel(nn.Module):
         super().__init__()
         self.config = config
         kw = dict(device=device, dtype=dtype)
-        self.embed_tokens = nn.Embedding(config.vocab_size,
+        self.embed_tokens = Embedding(config.vocab_size,
                                          config.hidden_size, **kw)
         self.layers = nn.ModuleList(
             LlamaDecoderLayer(config, **kw)
@@ -427,7 +430,7 @@ class LlamaForCausalLM(nn.Module):
         dtype = config.torch_dtype
         self.config = config
         self.llama = LlamaModel(config, device=dev, dtype=dtype)
-        self.lm_head = nn.Linear(config.hidden_size, config.vocab_size,
+        self.lm_head = Linear(config.hidden_size, config.vocab_size,
                                  bias=False, device=dev, dtype=dtype)
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)

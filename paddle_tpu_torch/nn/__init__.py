@@ -1,5 +1,5 @@
 """Neural-network layers, functionals and quantization of the port."""
-from . import functional, quant
-from .layer import RMSNorm
+from . import functional, layer, quant
+from .layer import *  # noqa: F401,F403
 
-__all__ = ["functional", "quant", "RMSNorm"]
+__all__ = ["functional", "layer", "quant"] + layer.__all__

@@ -10,7 +10,9 @@ tensors), as the reference routes to its Pallas flash kernel. An
 reference sends them to XLA. Packed (cu_seqlens) attention,
 :func:`flash_attn_unpadded`, goes through ``VarlenFlashAttentionFunction``
 (``ops/varlen_flash_attention.py``: K3 forward, K8 backward; K8a/K8b in
-f32).
+f32). Under ``amp.auto_cast`` the dense functionals cast their inputs by
+amp's rules (``scaled_dot_product_attention``, which ``flash_attention``
+calls, is white-listed: O1 attends in the amp dtype, fp16 included).
 """
 from __future__ import annotations
 
@@ -18,6 +20,8 @@ import math
 
 import torch
 
+from ... import amp
+from ...amp import amp_state
 from ...ops.flash_attention import FlashAttentionFunction, band_mask
 from ...ops.varlen_flash_attention import VarlenFlashAttentionFunction
 
@@ -63,6 +67,9 @@ def sliding_window_attention(query, key, value, window_size, training=True,
     w = int(window_size)
     if w < 1:
         raise ValueError(f"window_size must be >= 1, got {window_size}")
+    if amp_state.enabled:
+        query, key, value = amp.cast_inputs_for_op(
+            "sliding_window_attention", query, key, value)
     return FlashAttentionFunction.apply(query, key, value, True, None, w)
 
 
@@ -73,6 +80,9 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     device) feeds the dropout keep mask when ``dropout_p > 0`` and
     ``training``."""
     dropout = dropout_p if training else 0.0
+    if amp_state.enabled:
+        query, key, value, attn_mask = amp.cast_inputs_for_op(
+            "scaled_dot_product_attention", query, key, value, attn_mask)
     if attn_mask is None and dropout == 0.0:
         return FlashAttentionFunction.apply(query, key, value, is_causal)
     return _xla_attention(query, key, value, mask=attn_mask,

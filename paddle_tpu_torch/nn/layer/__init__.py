@@ -1,5 +1,9 @@
-"""Layers of the port; ``Linear`` and ``Embedding`` are ``torch.nn``'s
-(the weight-layout difference is handled by ``nlp.convert``)."""
+"""Layers of the port. ``Linear`` and ``Embedding`` are ``torch.nn``'s
+with amp's cast seam in their forward (the weight-layout difference is
+handled by ``nlp.convert``); the loss layers call the loss functionals."""
+from . import loss as _loss
+from .common import Embedding, Linear
+from .loss import *  # noqa: F401,F403  (the 21 loss layers)
 from .norm import RMSNorm
 
-__all__ = ["RMSNorm"]
+__all__ = ["RMSNorm", "Linear", "Embedding"] + _loss.__all__

@@ -18,12 +18,13 @@ host at the engine's scheduler boundaries.
 - :mod:`.export`: :class:`MetricsExporter` (``/metrics``, ``/healthz``,
   ``/slo``, ``/snapshot``, ``/anomalies`` on a local port), the fleet's
   :class:`ClusterExporter` and :func:`render_dashboard`;
+- :mod:`.train`: :class:`InstrumentedTrainStep`, step time, tokens/s and
+  MFU of a train step in the same registry;
 - ``python -m paddle_tpu_torch.obs``: the command line (``snapshot``,
   ``export``, ``serve``, ``slo``, ``watch``, ``check``).
 
-No hook reads a tensor or synchronizes the card: a decode dispatch keeps
-its one host sync with everything on. ``InstrumentedTrainStep`` (ROADMAP
-A6) comes later: it raises.
+No serving hook reads a tensor or synchronizes the card: a decode
+dispatch keeps its one host sync with everything on.
 """
 from .registry import (  # noqa: F401
     Counter, Gauge, Histogram, LATENCY_BUCKETS, MetricsRegistry,
@@ -46,9 +47,7 @@ from .attribution import (  # noqa: F401
 from .export import (  # noqa: F401
     ClusterExporter, MetricsExporter, render_dashboard,
 )
-from .._later import not_ported
-
-InstrumentedTrainStep = not_ported("InstrumentedTrainStep", "A6")
+from .train import InstrumentedTrainStep  # noqa: F401
 
 __all__ = [
     "Counter", "Gauge", "Histogram", "LATENCY_BUCKETS",

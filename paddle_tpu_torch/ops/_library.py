@@ -53,8 +53,10 @@ LAUNCHES = {"rms_norm": 0, "paged_decode_attention": 0,
             "paged_decode_attention_scaled": 0,
             "varlen_flash_attention": 0, "varlen_flash_attention_f32": 0,
             "flash_attention": 0, "flash_attention_f32": 0,
+            "flash_attention_f16": 0,
             "decode_attention": 0, "rms_norm_bwd": 0,
             "flash_attention_bwd": 0, "flash_attention_bwd_f32": 0,
+            "flash_attention_bwd_f16": 0,
             "varlen_flash_attention_bwd": 0,
             "varlen_flash_attention_bwd_f32": 0}
 

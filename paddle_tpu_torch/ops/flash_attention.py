@@ -1,7 +1,12 @@
 """Dense flash attention, forward and backward: the Hopper kernels K4
 (forward) and K7 (the backward: one fused kernel for dq, dk and dv, on
-wgmma in bf16 and as 3xTF32 in f32), their plain PyTorch versions, and the
-autograd Function that joins them.
+wgmma in bf16 and fp16 and as 3xTF32 in f32), their plain PyTorch
+versions, and the autograd Function that joins them. fp16 is amp's
+default dtype: under ``auto_cast`` O1 attention is white-listed and runs
+in fp16 storage with f32 softmax statistics and accumulators, P (and in
+the backward dS) rounded to fp16 as the TPU kernel rounds them to the
+storage dtype; launches count as ``flash_attention_f16`` and
+``flash_attention_bwd_f16``.
 
 Counterpart of ``paddle_tpu/ops/pallas/flash_attention.py``. Paddle
 layout: q (B, Sq, H, D), k/v (B, Sk, HK, D), H a multiple of HK. Causal
@@ -37,7 +42,14 @@ __all__ = ["flash_attention", "flash_attention_plain", "band_mask",
            "FwdTiles", "BwdSchedule", "bwd_block_k"]
 
 NEG_INF = -1e30
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# launch-count names by dtype: the bf16 names count bf16 launches only
+_FWD_NAMES = {torch.float32: "flash_attention_f32",
+              torch.bfloat16: "flash_attention",
+              torch.float16: "flash_attention_f16"}
+_BWD_NAMES = {torch.float32: "flash_attention_bwd_f32",
+              torch.bfloat16: "flash_attention_bwd",
+              torch.float16: "flash_attention_bwd_f16"}
 _HEAD_DIMS = (64, 128)
 # the bf16 forward's tiles (flash_attention.cu kTQ, kTK): 128 query rows
 # per CTA, 128 keys per tile
@@ -139,8 +151,7 @@ def flash_attention(q, k, v, causal=False, sm_scale=None, window_size=None,
         lse.data_ptr(), b, sq, sk, h, hk, d, int(bool(causal)),
         int(window_size or 0), float(sm_scale), _DTYPES[q.dtype],
         L.cuda_stream(q))
-    name = ("flash_attention_f32" if q.dtype == torch.float32
-            else "flash_attention")
+    name = _FWD_NAMES[q.dtype]
     L.check_status(name, status)
     L.LAUNCHES[name] += 1
     return (out, lse) if return_lse else out
@@ -149,8 +160,8 @@ def flash_attention(q, k, v, causal=False, sm_scale=None, window_size=None,
 def _check_kernel_inputs(name, q, *others):
     if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in others):
         raise TypeError(
-            f"{name} kernel takes float32 or bfloat16 inputs of one dtype, "
-            f"got {[t.dtype for t in (q, *others)]}")
+            f"{name} kernel takes float32, bfloat16 or float16 inputs of one "
+            f"dtype, got {[t.dtype for t in (q, *others)]}")
     if q.shape[-1] not in _HEAD_DIMS:
         raise NotImplementedError(
             f"{name} kernel takes head_dim in {_HEAD_DIMS}, got "
@@ -417,7 +428,8 @@ def flash_attention_bwd_fused(q, k, v, do, lse, delta, causal=False,
     (:func:`flash_attention_bwd_delta`); dk and dv are each KV head's sum
     over the query heads of its group. CPU tensors run the plain
     backward; CUDA tensors launch the bf16 kernel (counted as
-    ``flash_attention_bwd``) or the f32 one (``flash_attention_bwd_f32``)."""
+    ``flash_attention_bwd``), the fp16 one (``flash_attention_bwd_f16``)
+    or the f32 one (``flash_attention_bwd_f32``)."""
     if L.use_plain(q):
         return flash_attention_bwd_plain(q, k, v, None, lse, do, causal,
                                          sm_scale, window_size, delta)
@@ -434,12 +446,13 @@ def flash_attention_bwd_fused(q, k, v, do, lse, delta, causal=False,
     if causal and sq > sk:
         # rows that see no key: their tiles may have no contributor
         dq[:, :sq - sk].zero_()
-    # the f32 kernel adds into dq itself: no workspace
+    # the f32 kernel adds into dq itself: no workspace (bf16 and fp16 sum
+    # in an f32 one)
     ws = None if f32 else torch.empty(sched.workspace_shape(d),
                                       dtype=torch.float32, device=q.device)
     counters = torch.zeros(sched.n_counters, dtype=torch.int32,
                            device=q.device)
-    name = "flash_attention_bwd_f32" if f32 else "flash_attention_bwd"
+    name = _BWD_NAMES[q.dtype]
     status = L.library().ptt_flash_attention_bwd_fused(
         *ptrs, dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         None if ws is None else ws.data_ptr(), counters.data_ptr(), *dims)

@@ -1,13 +1,19 @@
-"""Learning-rate schedules (counterpart of ``paddle_tpu/optimizer/lr.py``;
-the slice ports ``LRScheduler``, ``LinearWarmup`` and
-``CosineAnnealingDecay``). Schedules are host-side state machines: the
-optimizer reads ``scheduler()`` each step, and the caller steps the
-schedule."""
+"""Learning-rate schedules (counterpart of ``paddle_tpu/optimizer/lr.py``):
+host-side state machines. The optimizer reads ``scheduler()`` each step
+and the caller steps the schedule; the formulas are the reference's, in
+Python floats.
+"""
 from __future__ import annotations
 
 import math
 
-__all__ = ["LRScheduler", "LinearWarmup", "CosineAnnealingDecay"]
+__all__ = [
+    "LRScheduler", "NoamDecay", "PiecewiseDecay", "NaturalExpDecay",
+    "InverseTimeDecay", "PolynomialDecay", "LinearWarmup", "ExponentialDecay",
+    "MultiStepDecay", "StepDecay", "LambdaDecay", "ReduceOnPlateau",
+    "CosineAnnealingDecay", "MultiplicativeDecay", "OneCycleLR",
+    "CyclicLR", "LinearLR", "CosineAnnealingWarmRestarts",
+]
 
 
 class LRScheduler:
@@ -34,21 +40,88 @@ class LRScheduler:
         raise NotImplementedError
 
     def state_dict(self):
-        return {k: v for k, v in self.__dict__.items()
-                if isinstance(v, (int, float, bool, str, list, tuple))}
+        return {
+            k: v
+            for k, v in self.__dict__.items()
+            if isinstance(v, (int, float, bool, str, list, tuple))
+        }
 
     def set_state_dict(self, state_dict):
         self.__dict__.update(state_dict)
 
+    set_dict = set_state_dict
+    state_keys = state_dict
+
+
+class NoamDecay(LRScheduler):
+    def __init__(self, d_model, warmup_steps, learning_rate=1.0, last_epoch=-1,
+                 verbose=False):
+        self.d_model, self.warmup_steps = d_model, warmup_steps
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        step = max(self.last_epoch, 1)
+        return (
+            self.base_lr
+            * self.d_model ** -0.5
+            * min(step ** -0.5, step * self.warmup_steps ** -1.5)
+        )
+
+
+class PiecewiseDecay(LRScheduler):
+    def __init__(self, boundaries, values, last_epoch=-1, verbose=False):
+        self.boundaries, self.values = list(boundaries), list(values)
+        super().__init__(values[0], last_epoch, verbose)
+
+    def get_lr(self):
+        for b, v in zip(self.boundaries, self.values):
+            if self.last_epoch < b:
+                return v
+        return self.values[len(self.boundaries)]
+
+
+class NaturalExpDecay(LRScheduler):
+    def __init__(self, learning_rate, gamma, last_epoch=-1, verbose=False):
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr * math.exp(-self.gamma * self.last_epoch)
+
+
+class InverseTimeDecay(LRScheduler):
+    def __init__(self, learning_rate, gamma, last_epoch=-1, verbose=False):
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr / (1 + self.gamma * self.last_epoch)
+
+
+class PolynomialDecay(LRScheduler):
+    def __init__(self, learning_rate, decay_steps, end_lr=0.0001, power=1.0,
+                 cycle=False, last_epoch=-1, verbose=False):
+        self.decay_steps, self.end_lr = decay_steps, end_lr
+        self.power, self.cycle = power, cycle
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        step = self.last_epoch
+        if self.cycle:
+            div = math.ceil(step / self.decay_steps) if step > 0 else 1
+            decay_steps = self.decay_steps * div
+        else:
+            decay_steps = self.decay_steps
+            step = min(step, decay_steps)
+        return (self.base_lr - self.end_lr) * (
+            (1 - step / decay_steps) ** self.power
+        ) + self.end_lr
+
 
 class LinearWarmup(LRScheduler):
-    """Linear ramp from ``start_lr`` to ``end_lr`` over ``warmup_steps``,
-    then ``learning_rate`` (a float, or a schedule stepped from 0)."""
-
     def __init__(self, learning_rate, warmup_steps, start_lr, end_lr,
                  last_epoch=-1, verbose=False):
-        self.lr_sched = (learning_rate
-                         if isinstance(learning_rate, LRScheduler) else None)
+        self.lr_sched = learning_rate if isinstance(learning_rate, LRScheduler) else None
         self.warmup_steps = warmup_steps
         self.start_lr, self.end_lr = start_lr, end_lr
         base = (learning_rate.base_lr if self.lr_sched is not None
@@ -58,7 +131,8 @@ class LinearWarmup(LRScheduler):
     def get_lr(self):
         if self.last_epoch < self.warmup_steps:
             return (self.end_lr - self.start_lr) * (
-                self.last_epoch / self.warmup_steps) + self.start_lr
+                self.last_epoch / self.warmup_steps
+            ) + self.start_lr
         if self.lr_sched is not None:
             self.lr_sched.step(self.last_epoch - self.warmup_steps)
             return self.lr_sched()
@@ -77,6 +151,57 @@ class LinearWarmup(LRScheduler):
         self.__dict__.update(state_dict)
 
 
+class ExponentialDecay(LRScheduler):
+    def __init__(self, learning_rate, gamma, last_epoch=-1, verbose=False):
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr * self.gamma**self.last_epoch
+
+
+class MultiStepDecay(LRScheduler):
+    def __init__(self, learning_rate, milestones, gamma=0.1, last_epoch=-1,
+                 verbose=False):
+        self.milestones, self.gamma = list(milestones), gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        n = sum(1 for m in self.milestones if self.last_epoch >= m)
+        return self.base_lr * self.gamma**n
+
+
+class StepDecay(LRScheduler):
+    def __init__(self, learning_rate, step_size, gamma=0.1, last_epoch=-1,
+                 verbose=False):
+        self.step_size, self.gamma = step_size, gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr * self.gamma ** (self.last_epoch // self.step_size)
+
+
+class LambdaDecay(LRScheduler):
+    def __init__(self, learning_rate, lr_lambda, last_epoch=-1, verbose=False):
+        self.lr_lambda = lr_lambda
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr * self.lr_lambda(self.last_epoch)
+
+
+class MultiplicativeDecay(LRScheduler):
+    def __init__(self, learning_rate, lr_lambda, last_epoch=-1, verbose=False):
+        self.lr_lambda = lr_lambda
+        self._cur = float(learning_rate)
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        if self.last_epoch > 0:
+            self._cur = self._cur * self.lr_lambda(self.last_epoch)
+        return self._cur
+
+
 class CosineAnnealingDecay(LRScheduler):
     def __init__(self, learning_rate, T_max, eta_min=0, last_epoch=-1,
                  verbose=False):
@@ -84,5 +209,149 @@ class CosineAnnealingDecay(LRScheduler):
         super().__init__(learning_rate, last_epoch, verbose)
 
     def get_lr(self):
-        return (self.eta_min + (self.base_lr - self.eta_min)
-                * (1 + math.cos(math.pi * self.last_epoch / self.T_max)) / 2)
+        return (
+            self.eta_min
+            + (self.base_lr - self.eta_min)
+            * (1 + math.cos(math.pi * self.last_epoch / self.T_max))
+            / 2
+        )
+
+
+class CosineAnnealingWarmRestarts(LRScheduler):
+    def __init__(self, learning_rate, T_0, T_mult=1, eta_min=0, last_epoch=-1,
+                 verbose=False):
+        self.T_0, self.T_mult, self.eta_min = T_0, T_mult, eta_min
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        t = self.last_epoch
+        t_i = self.T_0
+        while t >= t_i:
+            t -= t_i
+            t_i *= self.T_mult
+        return (
+            self.eta_min
+            + (self.base_lr - self.eta_min) * (1 + math.cos(math.pi * t / t_i)) / 2
+        )
+
+
+class LinearLR(LRScheduler):
+    def __init__(self, learning_rate, total_steps, start_factor=1.0 / 3,
+                 end_factor=1.0, last_epoch=-1, verbose=False):
+        self.total_steps = total_steps
+        self.start_factor, self.end_factor = start_factor, end_factor
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        t = min(self.last_epoch, self.total_steps)
+        factor = self.start_factor + (self.end_factor - self.start_factor) * (
+            t / self.total_steps
+        )
+        return self.base_lr * factor
+
+
+class OneCycleLR(LRScheduler):
+    def __init__(self, max_learning_rate, total_steps, divide_factor=25.0,
+                 end_learning_rate=0.0001, phase_pct=0.3,
+                 anneal_strategy="cos", three_phase=False, last_epoch=-1,
+                 verbose=False):
+        self.max_lr = max_learning_rate
+        self.total_steps = total_steps
+        self.initial_lr = max_learning_rate / divide_factor
+        self.end_lr = end_learning_rate
+        self.phase_pct = phase_pct
+        self.anneal = anneal_strategy
+        super().__init__(self.initial_lr, last_epoch, verbose)
+
+    def _anneal(self, start, end, pct):
+        if self.anneal == "cos":
+            return end + (start - end) / 2.0 * (math.cos(math.pi * pct) + 1)
+        return (end - start) * pct + start
+
+    def get_lr(self):
+        up_steps = int(self.phase_pct * self.total_steps)
+        t = min(self.last_epoch, self.total_steps)
+        if t <= up_steps:
+            return self._anneal(self.initial_lr, self.max_lr, t / max(up_steps, 1))
+        return self._anneal(
+            self.max_lr, self.end_lr, (t - up_steps) / max(self.total_steps - up_steps, 1)
+        )
+
+
+class CyclicLR(LRScheduler):
+    def __init__(self, base_learning_rate, max_learning_rate, step_size_up,
+                 step_size_down=None, mode="triangular", exp_gamma=1.0,
+                 scale_fn=None, scale_mode="cycle", last_epoch=-1, verbose=False):
+        self.max_lr = max_learning_rate
+        self.step_size_up = step_size_up
+        self.step_size_down = step_size_down or step_size_up
+        self.mode, self.exp_gamma = mode, exp_gamma
+        super().__init__(base_learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        total = self.step_size_up + self.step_size_down
+        cycle = math.floor(1 + self.last_epoch / total)
+        x = self.last_epoch - (cycle - 1) * total
+        if x <= self.step_size_up:
+            pct = x / self.step_size_up
+        else:
+            pct = 1 - (x - self.step_size_up) / self.step_size_down
+        amp = (self.max_lr - self.base_lr) * pct
+        if self.mode == "triangular2":
+            amp = amp / (2.0 ** (cycle - 1))
+        elif self.mode == "exp_range":
+            amp = amp * (self.exp_gamma**self.last_epoch)
+        return self.base_lr + amp
+
+
+class ReduceOnPlateau(LRScheduler):
+    def __init__(self, learning_rate, mode="min", factor=0.1, patience=10,
+                 threshold=1e-4, threshold_mode="rel", cooldown=0, min_lr=0,
+                 epsilon=1e-8, verbose=False):
+        self.mode, self.factor, self.patience = mode, factor, patience
+        self.threshold, self.threshold_mode = threshold, threshold_mode
+        self.cooldown, self.min_lr, self.epsilon = cooldown, min_lr, epsilon
+        self.best = None
+        self.num_bad_epochs = 0
+        self.cooldown_counter = 0
+        self._lr = float(learning_rate)
+        self.base_lr = float(learning_rate)
+        self.last_lr = self._lr
+        self.last_epoch = 0
+        self.verbose = verbose
+
+    def step(self, metrics=None, epoch=None):
+        self.last_epoch += 1
+        if metrics is None:
+            return
+        current = float(metrics)
+        if self.best is None:
+            self.best = current
+        else:
+            if self._is_better(current, self.best):
+                self.best = current
+                self.num_bad_epochs = 0
+            else:
+                self.num_bad_epochs += 1
+        if self.cooldown_counter > 0:
+            self.cooldown_counter -= 1
+            self.num_bad_epochs = 0
+        if self.num_bad_epochs > self.patience:
+            new_lr = max(self._lr * self.factor, self.min_lr)
+            if self._lr - new_lr > self.epsilon:
+                self._lr = new_lr
+            self.cooldown_counter = self.cooldown
+            self.num_bad_epochs = 0
+        self.last_lr = self._lr
+
+    def _is_better(self, a, best):
+        if self.mode == "min":
+            if self.threshold_mode == "rel":
+                return a < best * (1 - self.threshold)
+            return a < best - self.threshold
+        if self.threshold_mode == "rel":
+            return a > best * (1 + self.threshold)
+        return a > best + self.threshold
+
+    def get_lr(self):
+        return self._lr

@@ -7,8 +7,9 @@ no JAX it runs without the suite's conftest:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Tolerances: f32 ``1e-5`` (summation order only, full-f32 products), bf16
-``2e-2`` (about two bf16 rounding steps at |x| ~ 1); engine streams in
-f32 must be equal.
+``2e-2`` (about two bf16 rounding steps at |x| ~ 1), fp16 ``4e-3`` (about
+four fp16 steps; a probability on a rounding boundary may round one step
+apart); engine streams in f32 must be equal.
 """
 import sys
 import warnings
@@ -249,7 +250,8 @@ def test_cuda_engine_kernel_path_equals_plain_path(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
-                                       (torch.bfloat16, 2e-2)])
+                                       (torch.bfloat16, 2e-2),
+                                       (torch.float16, 4e-3)])
 def test_cuda_flash_attention_matches_plain(cuda, dtype, tol):
     g = torch.Generator(device=cuda).manual_seed(1)
     # (B, Sq, Sk, H, HK, D, causal, window): dense, ragged, bottom-right
@@ -286,7 +288,8 @@ def test_cuda_flash_attention_matches_plain(cuda, dtype, tol):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 def test_cuda_flash_attention_is_deterministic(cuda, dtype):
     """Two calls of the forward (bf16, and the f32 3xTF32 kernel) on the
     same inputs are bit-equal in out and lse (no reduction across CTAs:
@@ -647,10 +650,11 @@ def test_cuda_rms_norm_forward_training_rows(cuda, dtype, tol):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
-                                       (torch.bfloat16, 3e-2)])
+                                       (torch.bfloat16, 3e-2),
+                                       (torch.float16, 6e-3)])
 def test_cuda_flash_attention_backward_matches_plain(cuda, dtype, tol):
     """One launch of the fused K7 for dq, dk and dv: the wgmma kernel in
-    bf16, the 3xTF32 one in f32."""
+    bf16 and fp16, the 3xTF32 one in f32."""
     g = torch.Generator(device=cuda).manual_seed(4)
     # (B, Sq, Sk, H, HK, D, causal, window): GQA groups 1, 4 and 7 at D 64
     # and 128, a window band, ragged lengths, bottom-right causal (Sq <
@@ -679,9 +683,10 @@ def test_cuda_flash_attention_backward_matches_plain(cuda, dtype, tol):
                                       window_size=window)
         want = ops.flash_attention_bwd_plain(q, k, v, out, lse, do, causal,
                                              window_size=window)
-        bf16 = dtype == torch.bfloat16
-        assert ops.LAUNCHES["flash_attention_bwd"] == int(bf16)
-        assert ops.LAUNCHES["flash_attention_bwd_f32"] == int(not bf16)
+        for name, dt in (("flash_attention_bwd", torch.bfloat16),
+                         ("flash_attention_bwd_f16", torch.float16),
+                         ("flash_attention_bwd_f32", torch.float32)):
+            assert ops.LAUNCHES[name] == int(dtype == dt), name
         for a, ref in zip(got, want):
             assert a.dtype == dtype and a.shape == ref.shape
             scale = max(1.0, float(ref.float().abs().max()))
@@ -697,7 +702,8 @@ def test_cuda_flash_attention_backward_matches_plain(cuda, dtype, tol):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.float16])
 def test_cuda_flash_attention_backward_is_deterministic(cuda, dtype):
     """Two calls of the fused backward (bf16 or f32) on the same inputs
     are bit-equal in dq, dk and dv: its dq adds across CTAs land in a
@@ -714,6 +720,37 @@ def test_cuda_flash_attention_backward_is_deterministic(cuda, dtype):
                 for _ in range(2)]
         for a, c in zip(*runs):
             assert torch.equal(a, c)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_f16_against_f32(cuda):
+    """K4 and K7 in fp16 (amp's O1 attention) held to the plain version in
+    f32 on the same fp16-rounded inputs, at phase 2's training shape
+    (Llama-2-7B width, S = 4,096, causal) and a GQA window: the only
+    differences are fp16's roundings of P and dS and of the outputs.
+    Bounds: out 4e-3 (one fp16 step of |out| < 4 plus P's rounding), dq /
+    dk / dv 1e-2 of the tensor's largest |value| (dS's rounding in fp16,
+    which keeps 3 more bits than bf16, through sums over 4,096 keys)."""
+    g = torch.Generator(device=cuda).manual_seed(19)
+    for b, s, h, hk, window in ((1, 4096, 32, 32, None),
+                                (1, 1000, 28, 4, 129)):
+        q, do = (_rnd(g, torch.float16, b, s, h, 128) for _ in range(2))
+        k, v = (_rnd(g, torch.float16, b, s, hk, 128) for _ in range(2))
+        out, lse = ops.flash_attention(q, k, v, causal=True,
+                                       window_size=window, return_lse=True)
+        ref, lse_ref = ops.flash_attention_plain(
+            q.float(), k.float(), v.float(), causal=True, window_size=window)
+        torch.testing.assert_close(out.float(), ref, atol=4e-3, rtol=4e-3)
+        torch.testing.assert_close(lse, lse_ref, atol=1e-3, rtol=1e-4)
+        got = ops.flash_attention_bwd(q, k, v, out, lse, do, True,
+                                      window_size=window)
+        want = ops.flash_attention_bwd_plain(
+            q.float(), k.float(), v.float(), ref, lse_ref, do.float(), True,
+            window_size=window)
+        for a, w in zip(got, want):
+            assert a.dtype == torch.float16 and bool(a.isfinite().all())
+            bound = 1e-2 * float(w.abs().max())
+            assert float((a.float() - w).abs().max()) <= bound
 
 
 @pytest.mark.cuda
@@ -1879,3 +1916,68 @@ def test_cuda_spec_disable_mid_run_captures_plain_quantum(cuda):
     assert [r.tokens for r in reqs] == [r.tokens for r in want]
     for pool in engine._pools():
         assert pool.fragmentation_stats()["blocks_in_use"] == 1
+
+
+@pytest.mark.cuda
+def test_cuda_lora_step_keeps_frozen_weights_bit_equal(cuda):
+    """The frozen rule on the card: LoRA under amp O2 bf16 through
+    JittedTrainStep moves the adapters only, every frozen weight stays
+    bit-equal; per step K1 and K6 run their f32 arms (rms_norm is
+    black-listed) at every norm, K6 at all but layer 0's input norm, and
+    the bf16 K4 / K7 once a layer."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.peft import LoRAConfig, get_lora_model
+
+    model = amp.decorate(_tiny_cuda_model(cuda), level="O2",
+                         dtype="bfloat16")
+    lora = get_lora_model(model, LoRAConfig(r=4, lora_alpha=8),
+                          generator=torch.Generator(device=cuda)
+                          .manual_seed(1))
+    frozen = {n: p.detach().clone() for n, p in lora.named_parameters()
+              if not p.requires_grad}
+    adapters = [p for p in lora.parameters() if p.requires_grad]
+    start = [p.detach().clone() for p in adapters]
+    crit = LlamaPretrainingCriterion(model.config)
+    step = JittedTrainStep(lora, lambda o, lb: crit(o, lb),
+                           AdamW(1e-3, parameters=adapters,
+                                 multi_precision=True))
+    ids = torch.randint(0, 512, (2, 64), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(2))
+    with amp.auto_cast(level="O2", dtype="bfloat16"):
+        step(ids, ids)
+        ops.reset_launches()
+        losses = [float(step(ids, ids)) for _ in range(2)]
+    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    assert launches == {"rms_norm": 10, "rms_norm_bwd": 8,
+                        "flash_attention": 4, "flash_attention_bwd": 4}
+    assert all(np.isfinite(losses))
+    for n, p in lora.named_parameters():
+        if n in frozen:
+            assert torch.equal(p, frozen[n]), n
+    assert all(not torch.equal(p, s) for p, s in zip(adapters, start))
+
+
+@pytest.mark.cuda
+def test_cuda_amp_off_keeps_the_quantum_launches(cuda, monkeypatch):
+    """With amp off the seams cost one attribute read: no cast runs in the
+    serving quantum, and a replay launches what the quantum did before
+    amp existed, K1 at every norm (2 L + 1) and K2 once a layer, per
+    decode step of the quantum."""
+    from paddle_tpu_torch import amp
+
+    def no_cast(*a, **k):
+        raise AssertionError("amp cast with amp off")
+
+    monkeypatch.setattr(amp, "cast_inputs_for_op", no_cast)
+    model = _tiny_cuda_model(cuda)
+    engine = create_serving_engine(model, **_GRAPH_KW)
+    for p in _GRAPH_PROMPTS[:3]:
+        engine.submit(p, max_new_tokens=30)
+    while engine.scheduler.prefilling() or engine.scheduler.waiting:
+        engine.step()
+    engine.step()                       # warm-up quantum + capture
+    ops.reset_launches()
+    engine.step()                       # one replay
+    q, layers = _GRAPH_KW["decode_quantum"], model.config.num_hidden_layers
+    assert {k: v for k, v in ops.LAUNCHES.items() if v} == {
+        "rms_norm": (2 * layers + 1) * q, "paged_decode_attention": layers * q}
