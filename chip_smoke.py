@@ -13,7 +13,12 @@ Phases (any failure raises and the script exits non-zero):
    (K4 also at the training shape against one ``is_causal`` SDPA call,
    in bf16, f32 and fp16 (amp's O1 arm); the backward as the fused
    kernel K7, in bf16 and fp16 on wgmma and in f32 as 3xTF32; K7 also at
-   Mistral's GQA width with its window; K1 also at the training path's
+   Mistral's GQA width with its window; K4 and K7 also at GPT-2 345M's
+   training shape, B = 16, S = 1,024, H = 16, D = 64, in bf16 against
+   ``is_causal`` SDPA, K4 also at phase 19's generate forward (S = 543,
+   partial tiles) and FusedMultiTransformer prefill (B = 8, S = 512,
+   H = 32, D = 128), K5 also at its decode step (B = 8, H = HK = 32,
+   S_max = 1,024, 513-576 live tokens); K1 also at the training path's
    4,096 rows, past the L2; K6 also at the packed width 2,048 and at phase
    8's f32 rows; the varlen backward in bf16 as the
    fused kernel K8 at the packed 941M row, with GQA and a window, with
@@ -234,8 +239,8 @@ Phases (any failure raises and the script exits non-zero):
     ``python -m paddle_tpu_torch.obs check --device cuda`` as a
     subprocess exits 0.
 
-18. LoRA fine-tuning of Llama-2-7B under amp (run last; every record
-    beside the card's name and power limit): (a) the full 32-layer model
+18. LoRA fine-tuning of Llama-2-7B under amp (run after phase 13; every
+    record beside the card's name and power limit): (a) the full 32-layer model
     built in f32 and ``amp.decorate``d to bf16 at O2, ``get_lora_model``
     (r = 8, alpha 16, q_proj / v_proj), AdamW over the adapters with
     ``multi_precision``, ``JittedTrainStep`` in
@@ -253,6 +258,38 @@ Phases (any failure raises and the script exits non-zero):
     ``GradScaler.minimize``: exactly 4 fp16 K4 and 4 fp16 K7 launches a
     step, the found-inf sequence and the scales (the reference's rule),
     skipped steps leave every parameter bit-equal.
+19. the GPT-2 family and the incubate fused tier (run last; every record
+    beside the card's name and power limit): (a) GPT-2 345M training,
+    ``scripts/bench_suite.py``'s ``gpt2_jit`` recipe (B = 16, S = 1,024,
+    D = 64, selective recompute, the fused lm-head + CE in 2,048-row
+    chunks, bf16 parameters, f32 masters, bf16 AdamW moments), 1 + 5
+    steps on one batch: exactly 36 K4 (24 and the 12 recomputed blocks')
+    and 24 K7 launches a step, step ms, tokens/s, MFU, peak memory, the
+    loss falls, one profiled step; (b) greedy ``generate`` on (a)'s
+    model, 2 rows of 512-token prompts and 32 new tokens: 24 K4 a token,
+    the kernel path's agreement with the plain path (where a row's
+    streams part: the step, the plain path's top-2 margin there and the
+    two paths' largest logit difference), the kernel path's logits over
+    the longest forward within 2^-5 (relative L2) of the plain path's,
+    and a 2-layer f32 model's kernel and plain streams equal; (c)
+    ``FusedMultiTransformer`` at Llama-2-7B width (32 layers, swiglu,
+    rmsnorm, bf16), 8 rows of 512-token prompts into 1,024-slot caches,
+    then 64 decode steps: exactly 32 K4 and 64 K1 in the prefill, 32 K5
+    and 64 K1 a decode step, prefill ms, decode ms a step, tokens/s, peak
+    memory, the prefill's and the first 4 decode steps' outputs within
+    2^-5 (relative L2) of the plain path's on the same inputs, one
+    profiled decode step; (d) (c) after ``quantize_weight_only``: the int8 bytes,
+    the casts' ms a call, decode ms a step with the same launches, the
+    outputs within 5% (relative L2) of (c)'s; (e) f32 at two layers of
+    (c)'s width with GQA 32 / 8: prefill, a chunked prefill and 8 decode
+    steps with per-row lengths, the kernel path against the plain path,
+    outputs and caches; (f) ``MoELayer`` at Mixtral-8x7B's layer width
+    (GShard top-2, swiglu, bf16, 4,096 tokens): forward and backward in
+    the einsum and grouped modes, their ms, the dropped assignments, and
+    the two modes within 2^-5 of the largest value, at the layer's
+    capacity factor 2 and at 0.5, where assignments are dropped.
+    ``scripts/torch_gpt_phase.py`` runs this phase alone, after phase 2's
+    cases at its shapes.
 
 The line before the last is the ``{"kernels": [...]}`` record (each
 kernel's launches come from the run of the path that carries it: K1-K3
@@ -263,8 +300,8 @@ packed kernel run of phase 10, K2's per-row int8 mode the int8-KV serving run
 of phase 11, its static int8 arm and its float-pool scaled mode the two
 runs of phase 12; ``launches_by_path`` has every path's count, phase 14's
 cached float and int8-KV runs, phase 16's ``frontdoor``, phase 17's
-``resilience``, phase 15's ``spec_serving`` and phase 18's ``lora`` and
-``lora_fp16`` among them; K4's and K7's fp16 arms take theirs from phase
+``resilience``, phase 15's ``spec_serving``, phase 18's ``lora`` and
+``lora_fp16`` and phase 19's ``gpt_train`` and ``fmt_decode`` among them; K4's and K7's fp16 arms take theirs from phase
 18 (c));
 the last
 line is ``{"ok": true, "device": {...}}``.
@@ -308,6 +345,46 @@ PACKED_PARITY = ([500, 300, 150, 74], 3)
 LORA_SHAPE = (1, 4096, 2, 10)
 LORA_PARITY_SHAPE = (1024, 3)
 LORA_FP16_SHAPE = (4, 4096, 16)
+# phase 19 and phase 2's rows at its attention: GPT-2 345M training's
+# attention (label, B, Sq, Sk, H, HK, D); (a)'s warm-up and timed steps;
+# (b)'s rows, prompt and new tokens; (c)'s rows, prompt, max_length and
+# decode steps; (e)'s prefill, chunk and decode steps; (f)'s tokens
+GPT2_TRAIN_ATTN = ("gpt2_train", 16, 1024, 1024, 16, 16, 64)
+GPT_TRAIN_STEPS = (1, 5)
+GPT_GENERATE_SHAPE = (2, 512, 32)
+FMT_SHAPE = (8, 512, 1024, 64)
+# phase 2's rows at (b)'s and (c)'s attention: (b)'s longest forward
+# (prompt + new - 1 tokens), (c)'s prefill, and (c)'s decode step as
+# (label, S_max, lens, H, HK), the rows spread over the 64 steps' lengths
+GPT2_GENERATE_ATTN = ("gpt2_generate", 2, 543, 543, 16, 16, 64)
+FMT_PREFILL_ATTN = ("fmt_prefill", 8, 512, 512, 32, 32, 128)
+FMT_DECODE_ATTN = ("fmt_decode", 1024, [513 + 9 * i for i in range(8)],
+                   32, 32)
+GPT_PHASE_LABELS = ("gpt2_train", "gpt2_generate", "fmt_prefill",
+                    "fmt_decode")
+# (c)'s width: Llama-2-7B's embed, heads, FFN and layers; (f)'s:
+# Mixtral-8x7B's d_model, d_hidden and experts
+FMT_WIDTH = (4096, 32, 11008, 32)
+MOE_WIDTH = (4096, 14336, 8)
+FMT_PARITY_SHAPE = (256, 64, 8)
+# (c)'s decode steps that are also run on the plain path
+FMT_PLAIN_STEPS = 4
+MOE_TOKENS = 4096
+# (d)'s bound: the int8 stack's outputs against the float stack's, L2
+# over L2 (per-channel int8 moves a product by ~1% of its size)
+FMT_INT8_BOUND = 0.05
+# (b)'s and (c)'s bound: the bf16 kernel path's outputs against the
+# plain path's on the same inputs, L2 over L2 (both compute in f32 and
+# round once, but K4 rounds P to bf16 before its product and the
+# roundings compound over the layers; a wrong tile or split is O(1))
+KERNEL_PATH_BOUND = 2.0 ** -5
+# (f)'s bound: the grouped mode against the einsum mode, max |diff| over
+# the largest |value| (bf16: the modes round and sum in other orders, a
+# few bf16 steps apart)
+MOE_AGREE_BOUND = 2.0 ** -5
+# (f)'s second capacity factor: 0.5 gives 8 experts room for half of the
+# 2 * 4,096 assignments, so the overflow path drops some
+MOE_OVERFLOW_FACTOR = 0.5
 # the serving sampling arm's knobs (phases 3 and 6)
 SAMPLING = dict(decode_strategy="sampling", top_k=50, top_p=0.9,
                 temperature=0.8)
@@ -772,19 +849,23 @@ def k4_cases(torch, g, dev):
     from paddle_tpu_torch.ops.flash_attention import band_mask
     import torch.nn.functional as tF
 
-    d = 128
-    # (label, B, Sq, Sk, H, HK, window, dtypes): Mistral prefill (the
+    # (label, B, Sq, Sk, H, HK, D, window, dtypes): Mistral prefill (the
     # primary), Llama-2 no-cache dense causal, bottom-right causal (Sq <
-    # Sk), and the training shape (Llama-2-7B width, S = 4,096), where one
-    # is_causal SDPA call computes the same function
+    # Sk), the training shape (Llama-2-7B width, S = 4,096), where one
+    # is_causal SDPA call computes the same function, and phase 19's
+    # shapes in bf16: GPT-2 345M's training (D = 64), its generate's
+    # longest forward (partial tiles) and FusedMultiTransformer's prefill
     # fp16 at the training shape: amp's O1 attention (phase 18 (c))
     both = (torch.bfloat16, torch.float32)
-    for label, b, sq, sk, h, hk, window, dtypes in (
-            ("mistral_prefill", 1, 4608, 4608, 32, 8, 4096, both),
-            ("dense_causal", 1, 2048, 2048, 32, 32, None, both),
-            ("bottom_right", 1, 64, 1024, 32, 8, None, both),
-            ("train", 1, 4096, 4096, 32, 32, None,
-             both + (torch.float16,))):
+    for label, b, sq, sk, h, hk, d, window, dtypes in (
+            ("mistral_prefill", 1, 4608, 4608, 32, 8, 128, 4096, both),
+            ("dense_causal", 1, 2048, 2048, 32, 32, 128, None, both),
+            ("bottom_right", 1, 64, 1024, 32, 8, 128, None, both),
+            ("train", 1, 4096, 4096, 32, 32, 128, None,
+             both + (torch.float16,)),
+            *(shape + (None, (torch.bfloat16,))
+              for shape in (GPT2_TRAIN_ATTN, GPT2_GENERATE_ATTN,
+                            FMT_PREFILL_ATTN))):
         mask = band_mask(sq, sk, True, window, dev)
         pairs = int(mask.sum())
         for dtype in dtypes:
@@ -831,15 +912,19 @@ def k5_cases(torch, g, dev):
     from paddle_tpu_torch import ops
     import torch.nn.functional as tF
 
-    b, d, s_max = 4, 128, 4096
-    # Mistral's GQA 4, MHA, and Qwen2-7B's group of 7 over 1-4,096 live
-    # tokens; then the generate run's own step (4 rows of 4,096 live tokens
-    # in the rolling 4,096-token buffer), bf16
-    shapes = [([1, 1500, 3000, 4096], h, hk, dtype)
+    d = 128
+    # (label, S_max, lens, H, HK, dtype): Mistral's GQA 4, MHA, and
+    # Qwen2-7B's group of 7 over 1-4,096 live tokens; then the generate
+    # run's own step (4 rows of 4,096 live tokens in the rolling
+    # 4,096-token buffer) and FusedMultiTransformer's decode step (phase
+    # 19 (c)), bf16
+    shapes = [("", 4096, [1, 1500, 3000, 4096], h, hk, dtype)
               for h, hk in ((32, 8), (32, 32), (28, 4))
               for dtype in (torch.bfloat16, torch.float32)]
-    shapes.append(([s_max] * b, 32, 8, torch.bfloat16))
-    for lens_list, h, hk, dtype in shapes:
+    shapes.append(("", 4096, [4096] * 4, 32, 8, torch.bfloat16))
+    shapes.append(FMT_DECODE_ATTN + (torch.bfloat16,))
+    for label, s_max, lens_list, h, hk, dtype in shapes:
+        b = len(lens_list)
         lens = torch.tensor(lens_list, dtype=torch.int32, device=dev)
         mask = (torch.arange(s_max, device=dev)[None]
                 < lens[:, None])[:, None, None, :]
@@ -856,8 +941,8 @@ def k5_cases(torch, g, dev):
         nbytes = (2 * b * h * d + 2 * live * hk * d) * e + 4 * b
         yield dict(
             name="decode_attention", dtype=dtype,
-            shape=f"B={b},H={h},HK={hk},D={d},S_max={s_max},"
-                  f"lens={lens_list}",
+            shape=f"{label + ':' if label else ''}B={b},H={h},HK={hk},"
+                  f"D={d},S_max={s_max},lens={lens_list}",
             primary=(hk == 8 and dtype == torch.bfloat16
                      and lens_list[0] == 1),
             kernel=lambda q=q, kc=kc, vc=vc, lens=lens:
@@ -906,16 +991,17 @@ def k7_cases(torch, g, dev):
     from paddle_tpu_torch.ops.flash_attention import band_mask
     import torch.nn.functional as tF
 
-    d = 128
-    # (label, B, S, H, HK, window, dtypes): the training path (Llama-2-7B
-    # width, S=4,096, causal; the fused kernel K7 is the primary in bf16
-    # and in f32, its 3xTF32 kernel) and Mistral's GQA
-    # width with its window
-    for label, b, sq, h, hk, window, dtypes in (
-            ("train", 1, 4096, 32, 32, None,
+    # (label, B, S, H, HK, D, window, dtypes): the training path
+    # (Llama-2-7B width, S=4,096, causal; the fused kernel K7 is the
+    # primary in bf16 and in f32, its 3xTF32 kernel), Mistral's GQA width
+    # with its window, and GPT-2 345M's training shape (phase 19 (a))
+    for label, b, sq, h, hk, d, window, dtypes in (
+            ("train", 1, 4096, 32, 32, 128, None,
              (torch.bfloat16, torch.float32, torch.float16)),
-            ("mistral_gqa_window", 1, 4608, 32, 8, 4096,
-             (torch.bfloat16,))):
+            ("mistral_gqa_window", 1, 4608, 32, 8, 128, 4096,
+             (torch.bfloat16,)),
+            GPT2_TRAIN_ATTN[:3] + GPT2_TRAIN_ATTN[4:] + (
+                None, (torch.bfloat16,))):
         mask = band_mask(sq, sq, True, window, dev)
         pairs = int(mask.sum())
         for dtype in dtypes:
@@ -1187,57 +1273,75 @@ KERNEL_PATH = {"flash_attention_f16": "lora_fp16",
                "paged_decode_attention_scaled": "scaled_float_decode"}
 
 
-def kernel_phase(torch, dev):
+def run_kernel_case(torch, case):
+    """Hold one case's kernel to its plain version and time the kernel,
+    the plain version and the library call(s). Emits the record, fails on
+    a disagreement and returns the record."""
+    out = case["kernel"]()
+    ref = case["plain"]()
+    torch.cuda.synchronize()
+    err, ok, tol = close(torch, out, ref, case["dtype"],
+                         "flash_attention" in case["name"])
+    del out, ref
+    ms, ms_timer = device_ms(torch, case["kernel"])
+    plain_ms, plain_timer = device_ms(torch, case["plain"], iters=3)
+    # several library calls compute the same function: the fastest one is
+    # the yardstick, and the record says which
+    libs = case["library"]
+    if not isinstance(libs, dict):
+        libs = {"library": libs}
+    lib_times = {k: device_ms(torch, fn) for k, fn in libs.items()}
+    lib_call = min(lib_times, key=lambda k: lib_times[k][0])
+    lib_ms, lib_timer = lib_times[lib_call]
+    rec = {"phase": "kernel_check", "name": case["name"],
+           "dtype": str(case["dtype"]).removeprefix("torch."),
+           "shape": case["shape"], "max_abs_err": err, "tol": tol,
+           "ok": ok, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+           "timers": {"ms": ms_timer, "plain_ms": plain_timer,
+                      "library_ms": lib_timer},
+           "event_ms": cuda_ms(torch, case["kernel"]),
+           "bound_ms": case["bound"][0], "bound_by": case["bound"][1],
+           # the share of the card's peak the kernel reaches, and its time
+           # over the library call's
+           "bound_share": case["bound"][0] / ms, "vs_library": ms / lib_ms}
+    if len(libs) > 1:
+        rec["library_call"] = lib_call
+        rec["library_calls_ms"] = {k: v[0] for k, v in lib_times.items()}
+    emit(rec)
+    check(ok, f"{case['name']} disagrees with its plain version: {rec}")
+    return rec
+
+
+def all_kernel_cases(torch, dev):
+    """Every case of phase 2, one at a time, from one seeded generator."""
     g = torch.Generator(device=dev).manual_seed(SEED)
+    return itertools.chain(k1_cases(torch, g, dev), k2_cases(torch, g, dev),
+                           k2_int8_cases(torch, g, dev),
+                           k3_cases(torch, g, dev), k4_cases(torch, g, dev),
+                           k5_cases(torch, g, dev), k6_cases(torch, g, dev),
+                           k7_cases(torch, g, dev), k8_cases(torch, g, dev))
+
+
+def kernel_phase(torch, dev):
     primary = {}
     # one case at a time: each case's inputs live only while it runs
-    for case in itertools.chain(k1_cases(torch, g, dev),
-                                k2_cases(torch, g, dev),
-                                k2_int8_cases(torch, g, dev),
-                                k3_cases(torch, g, dev),
-                                k4_cases(torch, g, dev),
-                                k5_cases(torch, g, dev),
-                                k6_cases(torch, g, dev),
-                                k7_cases(torch, g, dev),
-                                k8_cases(torch, g, dev)):
-        out = case["kernel"]()
-        ref = case["plain"]()
-        torch.cuda.synchronize()
-        err, ok, tol = close(torch, out, ref, case["dtype"],
-                             "flash_attention" in case["name"])
-        ms, ms_timer = device_ms(torch, case["kernel"])
-        plain_ms, plain_timer = device_ms(torch, case["plain"], iters=3)
-        # several library calls compute the same function: the fastest
-        # one is the yardstick, and the record says which
-        libs = case["library"]
-        if not isinstance(libs, dict):
-            libs = {"library": libs}
-        lib_times = {k: device_ms(torch, fn) for k, fn in libs.items()}
-        lib_call = min(lib_times, key=lambda k: lib_times[k][0])
-        lib_ms, lib_timer = lib_times[lib_call]
-        rec = {"phase": "kernel_check", "name": case["name"],
-               "dtype": str(case["dtype"]).removeprefix("torch."),
-               "shape": case["shape"], "max_abs_err": err, "tol": tol,
-               "ok": ok, "ms": ms, "plain_ms": plain_ms,
-               "library_ms": lib_ms,
-               "timers": {"ms": ms_timer, "plain_ms": plain_timer,
-                          "library_ms": lib_timer},
-               "event_ms": cuda_ms(torch, case["kernel"]),
-               "bound_ms": case["bound"][0], "bound_by": case["bound"][1],
-               # the share of the card's peak the kernel reaches, and its
-               # time over the library call's
-               "bound_share": case["bound"][0] / ms,
-               "vs_library": ms / lib_ms}
-        if len(libs) > 1:
-            rec["library_call"] = lib_call
-            rec["library_calls_ms"] = {k: v[0] for k, v in lib_times.items()}
-        emit(rec)
-        check(ok, f"{case['name']} disagrees with its plain version: {rec}")
+    for case in all_kernel_cases(torch, dev):
+        rec = run_kernel_case(torch, case)
         if case["primary"]:
             primary[case.get("row", case["name"])] = rec
-        del out, ref, case, libs
+        del case
     torch.cuda.empty_cache()
     return primary
+
+
+def run_kernel_cases(torch, dev, keep):
+    """Phase 2's cases for which ``keep(case)`` holds, on phase 2's own
+    seeded inputs (a phase run alone checks its kernels' shapes)."""
+    for case in all_kernel_cases(torch, dev):
+        if keep(case):
+            run_kernel_case(torch, case)
+        del case
+    torch.cuda.empty_cache()
 
 
 # ------------------------------------------------------------ phase 3, 4
@@ -4770,6 +4874,495 @@ def lora_phase(torch, dev, smi):
     return {"lora": launches, "lora_fp16": fp16_launches}
 
 
+# ---------------------------------------------------------------- phase 19
+def _event_ms(torch, fn):
+    """(fn's result, CUDA-event ms of the one call)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _rel_to_max(a, b):
+    """max |a - b| over max |b|, in f32."""
+    return float((a.float() - b.float()).abs().max()) / max(
+        float(b.float().abs().max()), 1e-30)
+
+
+def _gpt_train(torch, dev, smi):
+    """(a) GPT-2 345M training, scripts/bench_suite.py's gpt2_jit recipe:
+    B = 16, S = 1,024, selective recompute, the fused lm-head + CE in
+    2,048-row chunks over the unshifted ids (the recipe's criterion), bf16
+    parameters with f32 masters and bf16 moments. Returns the model, the
+    timed steps' launches and the record."""
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.incubate.nn.functional import (
+        fused_linear_cross_entropy)
+    from paddle_tpu_torch.jit import JittedTrainStep
+    from paddle_tpu_torch.nlp import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.profiler import transformer_train_flops
+
+    _, b, seq, _, h, _, d = GPT2_TRAIN_ATTN
+    warm, steps = GPT_TRAIN_STEPS
+    cfg = GPTConfig.gpt2_345m(
+        intermediate_size=4096, use_recompute=True,
+        recompute_granularity="selective", fuse_linear_cross_entropy=True,
+        lce_chunk_rows=2048, dtype="bfloat16")
+    layers, e = cfg.num_hidden_layers, cfg.hidden_size
+    check(cfg.num_attention_heads == h and cfg.head_dim == d,
+          "phase 2's GPT-2 attention rows do not match the model")
+    t0 = time.perf_counter()
+    model = GPTForCausalLM(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(SEED + 19))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+
+    def crit(out, labels):
+        return fused_linear_cross_entropy(
+            out.reshape(-1, e), model.lm_head.weight, labels.reshape(-1),
+            chunk_rows=cfg.lce_chunk_rows)
+
+    opt = AdamW(1e-4, parameters=model.parameters(), multi_precision=True,
+                moment_dtype="bfloat16")
+    step = JittedTrainStep(model, crit, opt)
+    ids = _train_ids(torch, dev, cfg.vocab_size, b, seq)
+    n_params = sum(p.numel() for p in model.parameters())
+    tokens = b * seq
+    flops = transformer_train_flops(n_params, tokens, num_layers=layers,
+                                    seq_len=seq, hidden=e, causal=True)
+    torch.cuda.reset_peak_memory_stats()
+    losses = [float(step(ids, ids)) for _ in range(warm)]
+    ops.reset_launches()
+    ms = []
+    for _ in range(steps):
+        loss, t = _event_ms(torch, lambda: step(ids, ids))
+        losses.append(float(loss))
+        ms.append(t)
+    launches = dict(ops.LAUNCHES)
+    # selective recompute wraps the even blocks: their backward runs the
+    # block's forward again, K4 included
+    remat = sum(1 for i in range(layers) if i % 2 == 0)
+    per_step = {"flash_attention": layers + remat,
+                "flash_attention_bwd": layers}
+    want = {k: per_step.get(k, 0) * steps for k in launches}
+    check(launches == want, f"GPT train launches {launches}, expected "
+          f"{want}")
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"the GPT loss did not fall: {losses}")
+    step_ms = statistics.median(ms)
+    rec = {"phase": "gpt2_345m_train_bf16", "gpu": smi, "layers": layers,
+           "params": n_params, "batch": b, "seq": seq, "heads": h,
+           "head_dim": d, "recompute": "selective",
+           "lce_chunk_rows": cfg.lce_chunk_rows, "warmup_steps": warm,
+           "timed_steps": steps, "step_ms": step_ms, "step_ms_all": ms,
+           "train_tok_per_s": tokens / step_ms * 1e3,
+           "model_tflops_per_step": flops / 1e12,
+           "mfu_vs_989_tflops": flops / (step_ms / 1e3)
+           / PEAK_FLOPS["bfloat16"],
+           "losses": losses, "launches": launches,
+           "launches_per_step_per_layer": {
+               k: v / steps / layers for k, v in launches.items() if v},
+           "model_init_s": init_s,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+    emit(rec)
+    train_profile(torch, step, ids, ids, label="gpt2_345m_train_step")
+    del step, opt
+    return model, launches
+
+
+def _gpt_generate(torch, dev, smi, model):
+    """(b) GPT-2 345M greedy generate on (a)'s bf16 model: kernel path
+    against plain path (agreement), then a 2-layer f32 model at the same
+    width whose kernel and plain streams must be equal."""
+    import numpy as np
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.nlp import GPTConfig, GPTForCausalLM
+
+    rows, prompt, new = GPT_GENERATE_SHAPE
+    vocab = model.config.vocab_size
+    ids = torch.from_numpy(np.random.RandomState(SEED + 1).randint(
+        0, vocab, (rows, prompt))).to(dev)
+    model.eval()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out = model.generate(ids, max_new_tokens=new)
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    layers = model.config.num_hidden_layers
+    want = {k: 0 for k in launches}
+    want["flash_attention"] = layers * new
+    check(launches == want, f"GPT generate launches {launches}, expected "
+          f"{want}")
+    with ops.plain_versions():
+        plain = model.generate(ids, max_new_tokens=new)
+    agree = float((out[:, prompt:] == plain[:, prompt:]).float().mean())
+    # the kernel path's logits against the plain path's over the kernel
+    # stream's longest forward (phase 2 checks K4 at that shape); where a
+    # row's streams part, the plain path's top-2 margin at that step and
+    # the two paths' largest logit difference there
+    seq = out[:, :-1]
+    with torch.no_grad():
+        k_logits = model.lm_head(model.gpt(seq)).float()
+        with ops.plain_versions():
+            p_logits = model.lm_head(model.gpt(seq)).float()
+    rel_l2 = float((k_logits - p_logits).norm() / p_logits.norm())
+    partings = []
+    for r in range(rows):
+        diff = (out[r, prompt:] != plain[r, prompt:]).nonzero()
+        if diff.numel():
+            t = int(diff[0])
+            top2 = p_logits[r, prompt + t - 1].topk(2).values
+            partings.append({
+                "row": r, "step": t,
+                "tokens": [int(out[r, prompt + t]), int(plain[r, prompt + t])],
+                "plain_top2_margin": float(top2[0] - top2[1]),
+                "max_logit_diff_there": float(
+                    (k_logits[r, prompt + t - 1]
+                     - p_logits[r, prompt + t - 1]).abs().max())})
+    del k_logits, p_logits
+    cfg = GPTConfig.gpt2_345m(num_hidden_layers=2)
+    f32 = GPTForCausalLM(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(SEED + 20))
+    f_out = f32.generate(ids, max_new_tokens=new)
+    with ops.plain_versions():
+        f_plain = f32.generate(ids, max_new_tokens=new)
+    equal = bool(torch.equal(f_out, f_plain))
+    emit({"phase": "gpt2_345m_generate", "gpu": smi, "rows": rows,
+          "prompt": prompt, "new_tokens": new, "wall_s": wall,
+          "tok_per_s": rows * new / wall, "launches": launches,
+          "bf16_kernel_vs_plain_agreement": agree,
+          "bf16_logits_rel_l2": rel_l2, "rel_l2_bound": KERNEL_PATH_BOUND,
+          "partings": partings,
+          "kernel_stream": out[:, prompt:].tolist(),
+          "plain_stream": plain[:, prompt:].tolist(),
+          "f32_2layer_streams_equal": equal})
+    check(out.shape == (rows, prompt + new), f"generate shape {out.shape}")
+    check(rel_l2 <= KERNEL_PATH_BOUND, f"GPT bf16 kernel-path logits "
+          f"{rel_l2} (relative L2) from the plain path's")
+    check(equal, "GPT f32 kernel and plain greedy streams differ")
+    del f32
+
+
+def _fmt_inputs(torch, dev, b, prompt, chunk, steps, e, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    xs = [torch.randn(b, prompt, e, generator=g, device=dev).to(dtype)]
+    if chunk:
+        xs.append(torch.randn(b, chunk, e, generator=g, device=dev).to(dtype))
+    xs += [torch.randn(b, 1, e, generator=g, device=dev).to(dtype)
+           for _ in range(steps)]
+    return xs
+
+
+def _fmt_run(torch, fmt, xs, max_len, cache_dtype, seq_lens=None):
+    """Prefill xs[0] (and a chunk where the next input has more than one
+    token), then one decode step per one-token input, on fresh caches.
+    ``seq_lens(offset)`` gives the decode rows' lengths. Returns (outputs,
+    caches, prefill ms, each decode step's ms, the prefill's launches, the
+    decode steps' launches), times by CUDA events."""
+    from paddle_tpu_torch import ops
+
+    caches = fmt.gen_cache(xs[0].shape[0], max_len, cache_dtype)
+    outs, pre_ms, dec_ms, off = [], 0.0, [], 0
+    pre_launches = None
+    ops.reset_launches()
+    for x in xs:
+        s = x.shape[1]
+        if s == 1 and pre_launches is None:
+            pre_launches = dict(ops.LAUNCHES)
+            ops.reset_launches()
+        kw = {"seq_lens": seq_lens(off)} if s == 1 and seq_lens else {}
+        (out, caches), t = _event_ms(
+            torch, lambda: fmt(x, caches=caches, time_step=off, **kw))
+        if s == 1:
+            dec_ms.append(t)
+        else:
+            pre_ms += t
+        outs.append(out)
+        off += s
+    return outs, caches, pre_ms, dec_ms, pre_launches, dict(ops.LAUNCHES)
+
+
+def _fmt_step_profile(torch, fmt, xs, max_len, label):
+    """Where one decode step of the stack spends device time
+    (torch.profiler), after a prefill of xs[0] on fresh caches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    caches = fmt.gen_cache(xs[0].shape[0], max_len, "bfloat16")
+    _, caches = fmt(xs[0], caches=caches, time_step=0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fmt(xs[1], caches=caches, time_step=xs[0].shape[1])
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    emit(_profile_record(torch, prof, label, wall_us))
+
+
+def _fmt_phase(torch, dev, smi):
+    """(c) FusedMultiTransformer at Llama-2-7B width in bf16, prefill and
+    decode, then the prefill and first decode steps again on the plain
+    path; (d) the same after quantize_weight_only; (e) f32 parity at two
+    layers with GQA 32 / 8."""
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.incubate.nn import FusedMultiTransformer
+
+    b, prompt, max_len, steps = FMT_SHAPE
+    e, h, ffn, layers = FMT_WIDTH
+    t0 = time.perf_counter()
+    fmt = FusedMultiTransformer(
+        e, h, ffn, activation="swiglu", norm_type="rmsnorm",
+        num_layers=layers, epsilon=1e-6, dtype="bfloat16", device=dev,
+        generator=torch.Generator(device=dev).manual_seed(SEED + 21))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    xs = _fmt_inputs(torch, dev, b, prompt, 0, steps, e, torch.bfloat16,
+                     SEED + 22)
+    with torch.no_grad():
+        _fmt_run(torch, fmt, xs[:3], max_len, "bfloat16")   # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        outs, _, pre_ms, dec_ms, pre_l, dec_l = _fmt_run(
+            torch, fmt, xs, max_len, "bfloat16")
+    want_pre = {k: 0 for k in pre_l}
+    want_pre.update(flash_attention=layers, rms_norm=2 * layers)
+    want_dec = {k: 0 for k in dec_l}
+    want_dec.update(decode_attention=layers * steps,
+                    rms_norm=2 * layers * steps)
+    check(pre_l == want_pre, f"FMT prefill launches {pre_l}, expected "
+          f"{want_pre}")
+    check(dec_l == want_dec, f"FMT decode launches {dec_l}, expected "
+          f"{want_dec}")
+    check(all(bool(torch.isfinite(o).all()) for o in outs),
+          "FMT output not finite")
+    # the kernel path against the plain path on the same inputs and fresh
+    # caches: the prefill and the first decode steps
+    n_plain = 1 + FMT_PLAIN_STEPS
+    with torch.no_grad(), ops.plain_versions():
+        pouts = _fmt_run(torch, fmt, xs[:n_plain], max_len, "bfloat16")[0]
+    plain_l2 = [float((o.float() - p.float()).norm() / p.float().norm())
+                for o, p in zip(outs[:n_plain], pouts)]
+    del pouts
+    weight_gb = sum(p.numel() * p.element_size()
+                    for p in fmt.parameters()) / 1e9
+    step_ms = statistics.median(dec_ms)
+    emit({"phase": "fmt_llama2_7b_width_bf16", "gpu": smi, "layers": layers,
+          "embed_dim": e, "heads": h, "kv_heads": h, "ffn": ffn,
+          "batch": b, "prompt": prompt, "max_length": max_len,
+          "decode_steps": steps, "prefill_ms": pre_ms,
+          "prefill_tok_per_s": b * prompt / pre_ms * 1e3,
+          "decode_ms_per_step": step_ms,
+          "decode_ms_mean": statistics.fmean(dec_ms),
+          "decode_tok_per_s": b / step_ms * 1e3,
+          "weights_gb": weight_gb, "model_init_s": init_s,
+          "prefill_launches": pre_l, "decode_launches": dec_l,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "kernel_vs_plain_rel_l2": plain_l2,
+          "rel_l2_bound": KERNEL_PATH_BOUND})
+    check(max(plain_l2) <= KERNEL_PATH_BOUND, f"FMT bf16 kernel-path "
+          f"outputs {plain_l2} (relative L2: prefill, then decode steps) "
+          f"from the plain path's")
+    with torch.no_grad():
+        _fmt_step_profile(torch, fmt, xs, max_len, "fmt_decode_step")
+
+    # (d) weight-only int8 ------------------------------------------------
+    with torch.no_grad():
+        fmt.quantize_weight_only()
+        torch.cuda.empty_cache()
+        names = ("qkv_weight", "linear_weight", "ffn1_weight", "ffn2_weight")
+        int8_bytes = sum(getattr(fmt, n).numel() for n in names)
+
+        def casts():
+            # the casts one call of the stack makes: every layer's four
+            # int8 weights to bf16
+            return [getattr(fmt, n)[i].to(torch.bfloat16)
+                    for i in range(layers) for n in names]
+        casts()
+        cast_ms = statistics.median(_event_ms(torch, casts)[1]
+                                    for _ in range(3))
+        _fmt_run(torch, fmt, xs[:3], max_len, "bfloat16")
+        torch.cuda.reset_peak_memory_stats()
+        qouts, _, qpre_ms, qdec_ms, _, qdec_l = _fmt_run(
+            torch, fmt, xs, max_len, "bfloat16")
+    check(qdec_l == want_dec, f"int8 FMT decode launches {qdec_l}, "
+          f"expected {want_dec}")
+    with torch.no_grad():
+        _fmt_step_profile(torch, fmt, xs, max_len, "fmt_int8_decode_step")
+    dev_q = max(_rel_to_max(q, f) for q, f in zip(qouts, outs))
+    l2 = max(float((q.float() - f.float()).norm() / f.float().norm())
+             for q, f in zip(qouts, outs))
+    q_ms = statistics.median(qdec_ms)
+    emit({"phase": "fmt_llama2_7b_width_int8", "gpu": smi,
+          "int8_bytes": int8_bytes, "cast_ms_per_call": cast_ms,
+          "prefill_ms": qpre_ms, "decode_ms_per_step": q_ms,
+          "decode_tok_per_s": b / q_ms * 1e3,
+          "decode_over_float": q_ms / step_ms,
+          "max_err_rel_to_max_vs_float": dev_q,
+          "max_rel_l2_vs_float": l2, "rel_l2_bound": FMT_INT8_BOUND,
+          "decode_launches": qdec_l,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
+    check(l2 <= FMT_INT8_BOUND, f"int8 FMT outputs {l2} (relative L2) from "
+          f"the float stack's, over {FMT_INT8_BOUND}")
+    del fmt, outs, qouts
+    gc.collect()
+    torch.cuda.empty_cache()
+    _fmt_parity(torch, dev, smi)
+    return dec_l
+
+
+def _fmt_parity(torch, dev, smi):
+    """(e) f32, two layers at (c)'s width with GQA 32 / 8: the kernel
+    path against the plain path over a prefill, one chunked prefill and
+    decode steps with per-row lengths."""
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.incubate.nn import FusedMultiTransformer
+
+    prompt, chunk, steps = FMT_PARITY_SHAPE
+    b, max_len = 4, 512
+    e, h, ffn, _ = FMT_WIDTH
+    hk = h // 4                     # GQA 32 / 8 at Llama-2-7B's width
+    fmt = FusedMultiTransformer(
+        e, h, ffn, activation="swiglu", norm_type="rmsnorm",
+        num_layers=2, num_key_value_heads=hk, epsilon=1e-6, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(SEED + 23))
+    xs = _fmt_inputs(torch, dev, b, prompt, chunk, steps, e,
+                     torch.float32, SEED + 24)
+
+    def lens(off):
+        # row 1 leaves out its last two cached tokens
+        return torch.tensor([off + 1, off - 1, off + 1, off + 1],
+                            dtype=torch.int32, device=dev)
+
+    with torch.no_grad():
+        outs, caches, _, _, pre_l, dec_l = _fmt_run(
+            torch, fmt, xs, max_len, "float32", lens)
+        with ops.plain_versions():
+            pouts, pcaches, _, _, _, _ = _fmt_run(
+                torch, fmt, xs, max_len, "float32", lens)
+    errs = [close(torch, o, p, torch.float32) for o, p in zip(outs, pouts)]
+    cerrs = [close(torch, c, p, torch.float32)
+             for c, p in zip(caches, pcaches)]
+    emit({"phase": "fmt_parity_f32_2layer", "gpu": smi, "batch": b,
+          "prompt": prompt, "chunk": chunk, "decode_steps": steps,
+          "kv_heads": hk, "max_abs_err": max(x[0] for x in errs),
+          "cache_max_abs_err": max(x[0] for x in cerrs), "tol": errs[0][2],
+          "prefill_launches": pre_l, "decode_launches": dec_l})
+    check(all(x[1] for x in errs + cerrs),
+          "FMT f32 kernel and plain paths disagree")
+    check(pre_l["flash_attention_f32"] == 4 and
+          dec_l["decode_attention"] == 2 * steps,
+          f"FMT f32 launches {pre_l} {dec_l}")
+    del fmt
+
+
+def _moe_phase(torch, dev, smi):
+    """(f) MoELayer at Mixtral-8x7B's layer width in bf16: GShard top-2,
+    swiglu, forward and backward in both dispatch modes, which must
+    agree; at the layer's capacity factor, then at one that drops
+    assignments (the overflow path)."""
+    import numpy as np
+    from paddle_tpu_torch.incubate.distributed.models.moe import MoELayer
+    from paddle_tpu_torch.incubate.distributed.models.moe.gate import (
+        _capacity)
+
+    t = MOE_TOKENS
+    m, hid, experts = MOE_WIDTH
+    moe = MoELayer(m, hid, experts, gate="gshard", activation="swiglu",
+                   dtype=torch.bfloat16, device=dev,
+                   generator=torch.Generator(device=dev).manual_seed(
+                       SEED + 25))
+    g = torch.Generator(device=dev).manual_seed(SEED + 26)
+    x = torch.randn(t, m, generator=g, device=dev).to(torch.bfloat16)
+    dy = torch.randn(t, m, generator=g, device=dev).to(torch.bfloat16)
+    for factor in (moe.gate.capacity_factor, MOE_OVERFLOW_FACTOR):
+        moe.gate.capacity_factor = factor
+        res = {}
+        for mode in ("einsum", "grouped"):
+            moe.dispatch_mode = mode
+            xg = x.clone().requires_grad_()
+            moe.zero_grad(set_to_none=True)
+
+            def fwd():
+                return moe(xg)
+            with torch.no_grad():
+                fwd()
+                _, fwd_ms = _event_ms(torch, fwd)
+
+            def fwd_bwd():
+                y = moe(xg)
+                torch.autograd.backward((y, moe.l_aux), (dy, torch.ones_like(
+                    moe.l_aux)))
+                return y
+            fwd_bwd()
+            moe.zero_grad(set_to_none=True)
+            xg.grad = None
+            torch.cuda.reset_peak_memory_stats()
+            y, fb_ms = _event_ms(torch, fwd_bwd)
+            res[mode] = dict(
+                y=y.detach(), dx=xg.grad, aux=float(moe.l_aux.detach()),
+                grads={n: p.grad.clone() for n, p in moe.named_parameters()},
+                fwd_ms=fwd_ms, fwd_bwd_ms=fb_ms,
+                peak_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+        with torch.no_grad():
+            logits = x.float() @ moe.gate_weight.float()
+            _, gate_vals, _ = moe.gate.topk_assignments(logits)
+        dropped = int((gate_vals == 0).sum())
+        ein, grp = res["einsum"], res["grouped"]
+        err = {"y": _rel_to_max(grp["y"], ein["y"]),
+               "dx": _rel_to_max(grp["dx"], ein["dx"]),
+               **{f"d{n}": _rel_to_max(grp["grads"][n], ein["grads"][n])
+                  for n in ein["grads"]}}
+        emit({"phase": "moe_mixtral_width_bf16", "gpu": smi, "tokens": t,
+              "d_model": m, "d_hidden": hid, "experts": experts,
+              "top_k": moe.gate.top_k, "capacity_factor": factor,
+              "capacity": _capacity(t, experts, factor, moe.gate.top_k),
+              "dropped_assignments": dropped,
+              "assignments": moe.gate.top_k * t,
+              "expert_weight_gb": (moe.w1.numel() + moe.w2.numel()) * 2 / 1e9,
+              **{f"{k}_{q}": res[k][q] for k in res
+                 for q in ("fwd_ms", "fwd_bwd_ms", "peak_gb")},
+              "l_aux": [ein["aux"], grp["aux"]],
+              "grouped_vs_einsum_rel_to_max": err,
+              "bound_rel_to_max": MOE_AGREE_BOUND})
+        check(all(np.isfinite(v) for v in err.values()),
+              f"MoE not finite {err}")
+        check(max(err.values()) <= MOE_AGREE_BOUND,
+              f"MoE grouped and einsum modes disagree: {err}")
+        check(abs(ein["aux"] - grp["aux"]) <= 1e-6 * max(1.0, abs(ein["aux"])),
+              f"MoE l_aux differs between modes: {ein['aux']} {grp['aux']}")
+        check(factor != MOE_OVERFLOW_FACTOR or dropped > 0,
+              f"MoE at capacity factor {factor} dropped nothing")
+        del res, ein, grp
+    del moe
+
+
+def gpt_phase(torch, dev, smi):
+    """Phase 19: the GPT-2 family and the incubate fused tier. (a) GPT-2
+    345M training, (b) its greedy generate, (c) FusedMultiTransformer at
+    Llama-2-7B width, (d) the same in weight-only int8, (e) its f32
+    kernel-vs-plain parity, (f) MoELayer at Mixtral's layer width.
+    Returns the ``gpt_train`` and ``fmt_decode`` launch counts."""
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, train_launches = _gpt_train(torch, dev, smi)
+    _gpt_generate(torch, dev, smi, model)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    fmt_launches = _fmt_phase(torch, dev, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _moe_phase(torch, dev, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "gpt_done", "wall_s": time.perf_counter() - t_phase})
+    return {"gpt_train": train_launches, "fmt_decode": fmt_launches}
+
+
 def main():
     import torch
 
@@ -4798,12 +5391,13 @@ def main():
     batch_launches = int8_parity_phase(torch, dev)
     graphs_serving_phase(torch, dev, smi)
     lora_launches = lora_phase(torch, dev, smi)
+    gpt_launches = gpt_phase(torch, dev, smi)
     paths = {"serving": launches, "generate": gen_launches,
              "train": train_launches, "train_f32_parity": parity_launches,
              "packed_train": packed_launches,
              "packed_f32_parity": packed_parity_launches,
              "int8_serving": int8_launches, **batch_launches,
-             **prefix_launches, **lora_launches}
+             **prefix_launches, **lora_launches, **gpt_launches}
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
         rec = primary[name]

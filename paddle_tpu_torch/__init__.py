@@ -12,7 +12,10 @@ from . import (amp, distributed, incubate, inference, jit, nlp, nn, obs,
                ops, optimizer, peft, profiler, regularizer, serving)
 from .inference import create_serving_engine
 from .jit import JittedTrainStep
-from .nlp import LlamaConfig, LlamaForCausalLM, LlamaPretrainingCriterion
+from .incubate.distributed.models.moe import MoELayer
+from .incubate.nn import FusedMultiTransformer
+from .nlp import (GPTConfig, GPTForCausalLM, LlamaConfig, LlamaForCausalLM,
+                  LlamaPretrainingCriterion)
 from .serving import ServingEngine
 
 __version__ = "0.1.0"
@@ -20,5 +23,6 @@ __version__ = "0.1.0"
 __all__ = ["amp", "distributed", "incubate", "inference", "jit", "nlp", "nn",
            "obs", "ops", "optimizer", "peft", "profiler", "regularizer",
            "serving", "create_serving_engine", "LlamaConfig",
-           "LlamaForCausalLM", "LlamaPretrainingCriterion",
+           "LlamaForCausalLM", "LlamaPretrainingCriterion", "GPTConfig",
+           "GPTForCausalLM", "FusedMultiTransformer", "MoELayer",
            "JittedTrainStep", "ServingEngine"]

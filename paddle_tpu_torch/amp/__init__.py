@@ -47,7 +47,7 @@ BLACK_LIST = {
 # the op names the port's seams pass (besides the two lists)
 SEAM_OPS = {"linear", "matmul", "embedding", "scaled_dot_product_attention",
             "flash_attention", "sliding_window_attention", "rms_norm",
-            "softmax", "cross_entropy"}
+            "layer_norm", "softmax", "cross_entropy"}
 
 _DTYPES = {"float16": torch.float16, "fp16": torch.float16,
            "half": torch.float16, "bfloat16": torch.bfloat16,

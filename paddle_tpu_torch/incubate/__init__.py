@@ -1,2 +1,6 @@
-"""Incubating ops of the port: the serving functionals (``incubate.nn``)
-and the optimizer wrappers (``incubate.optimizer``)."""
+"""Incubating ops of the port: the fused layers and functionals
+(``incubate.nn``), the serial MoE layer (``incubate.distributed``) and the
+optimizer wrappers (``incubate.optimizer``)."""
+from . import distributed, nn, optimizer
+
+__all__ = ["nn", "distributed", "optimizer"]

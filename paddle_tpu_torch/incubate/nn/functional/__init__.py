@@ -1,23 +1,147 @@
-"""Serving attention ops and the fused training loss (counterpart of
-``paddle_tpu/incubate/nn/functional/__init__.py``): the one-token decode op
-``masked_multihead_attention`` over a contiguous cache,
-``block_multihead_attention`` over the paged KV pool (float pools, and
-int8 pools with static or per-row scales), and
-``fused_linear_cross_entropy``."""
+"""Fused-op wrappers, serving attention ops and the fused training loss
+(counterpart of ``paddle_tpu/incubate/nn/functional/__init__.py``): the
+one-token decode op ``masked_multihead_attention`` over a contiguous
+cache, ``block_multihead_attention`` over the paged KV pool (float pools,
+and int8 pools with static or per-row scales),
+``fused_linear_cross_entropy``, and the wrappers the reference composes
+from its functionals: ``fused_rms_norm`` (K1 through ``F.rms_norm``),
+``fused_multi_head_attention`` (K4 through ``F.scaled_dot_product_attention``),
+``fused_layer_norm``, ``fused_linear``, ``fused_bias_act``,
+``fused_feedforward`` and ``fused_rotary_position_embedding`` (from
+``nn/functional/rope.py``)."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ....nn.functional.rope import apply_rotary_emb
+from ....nn import functional as _F
+from ....nn.functional.rope import (apply_rotary_emb,
+                                    fused_rotary_position_embedding)
 from ....nn.quant import quantize_kv_rows
 from ....ops.decode_attention import decode_attention, decode_attention_plain
 from ....ops.paged_attention import paged_decode_attention
 from ....ops.varlen_flash_attention import varlen_flash_attention
 from .fused_linear_cross_entropy import fused_linear_cross_entropy
 
-__all__ = ["masked_multihead_attention", "block_multihead_attention",
+__all__ = ["fused_rotary_position_embedding", "fused_rms_norm",
+           "fused_layer_norm", "fused_linear", "fused_bias_act",
+           "fused_multi_head_attention", "fused_feedforward",
+           "masked_multihead_attention", "block_multihead_attention",
            "fused_linear_cross_entropy"]
+
+
+def _add_residual(x, bias, residual):
+    if bias is not None:
+        x = x + bias
+    return x, (x + residual if residual is not None else None)
+
+
+def fused_rms_norm(x, norm_weight, norm_bias=None, epsilon=1e-6,
+                   begin_norm_axis=-1, bias=None, residual=None,
+                   quant_scale=-1, **quant_kwargs):
+    """``rms_norm(x + bias + residual)`` (K1 with a weight and no
+    ``norm_bias``); with a residual returns ``(out, x + bias +
+    residual)``. The quantization arguments are taken for the reference's
+    signature and, as there, not read."""
+    x, res = _add_residual(x, bias, residual)
+    out = _F.rms_norm(res if res is not None else x, norm_weight, norm_bias,
+                      epsilon, begin_norm_axis)
+    return (out, res) if residual is not None else out
+
+
+def fused_layer_norm(x, norm_weight, norm_bias, epsilon=1e-5,
+                     begin_norm_axis=-1, bias=None, residual=None, **kw):
+    """``layer_norm(x + bias + residual)`` over dims
+    ``[begin_norm_axis:]``; with a residual returns ``(out, x + bias +
+    residual)``."""
+    x, res = _add_residual(x, bias, residual)
+    x = res if res is not None else x
+    out = _F.layer_norm(x, x.shape[begin_norm_axis:], norm_weight,
+                        norm_bias, epsilon)
+    return (out, res) if residual is not None else out
+
+
+def fused_linear(x, weight, bias=None, transpose_weight=False, name=None):
+    """``x @ weight + bias`` with paddle's (in, out) weight, or (out, in)
+    with ``transpose_weight``."""
+    if transpose_weight:
+        weight = weight.t()
+    return _F.linear(x, weight, bias)
+
+
+def fused_bias_act(x, bias=None, act_method="gelu", **kw):
+    """``act(x + bias)``, ``act_method`` naming a functional of
+    ``paddle_tpu_torch.nn.functional`` (``gelu`` is the erf form)."""
+    if bias is not None:
+        x = x + bias
+    return getattr(_F, act_method)(x)
+
+
+def fused_multi_head_attention(x, qkv_weight, linear_weight,
+                               pre_layer_norm=False, pre_ln_scale=None,
+                               pre_ln_bias=None, ln_scale=None, ln_bias=None,
+                               pre_ln_epsilon=1e-5, qkv_bias=None,
+                               linear_bias=None, cache_kv=None,
+                               attn_mask=None, dropout_rate=0.0,
+                               attn_dropout_rate=0.0, ln_epsilon=1e-5,
+                               training=True, mode="upscale_in_train",
+                               ring_id=-1, add_residual=True, name=None):
+    """The training-time fused attention block: (pre-)LayerNorm, the qkv
+    product with paddle's (3, H, D, E) weight, non-causal attention
+    (K4 through ``F.scaled_dot_product_attention`` without a mask or
+    dropout; the plain masked attention with them), the out-projection
+    ((H * D, E) weight), dropout, the residual and the post-LayerNorm.
+    ``cache_kv`` is taken for the reference's signature and, as there,
+    not read."""
+    b, s, e = x.shape
+    residual = x
+    if pre_layer_norm:
+        x = _F.layer_norm(x, [e], pre_ln_scale, pre_ln_bias, pre_ln_epsilon)
+    three, h, d, _ = qkv_weight.shape
+    qkv = _F.linear(x, qkv_weight.reshape(3 * h * d, e).t(),
+                    None if qkv_bias is None
+                    else qkv_bias.reshape(3 * h * d))
+    q, k, v = (t.contiguous()
+               for t in qkv.reshape(b, s, 3, h, d).unbind(2))
+    attn = _F.scaled_dot_product_attention(
+        q, k, v, attn_mask=attn_mask, dropout_p=attn_dropout_rate,
+        training=training)
+    out = _F.linear(attn.reshape(b, s, h * d), linear_weight, linear_bias)
+    if dropout_rate:
+        out = _F.dropout(out, p=dropout_rate, training=training)
+    if add_residual:
+        out = residual + out
+    if not pre_layer_norm:
+        out = _F.layer_norm(out, [e], ln_scale, ln_bias, ln_epsilon)
+    return out
+
+
+def fused_feedforward(x, linear1_weight, linear2_weight, linear1_bias=None,
+                      linear2_bias=None, ln1_scale=None, ln1_bias=None,
+                      ln2_scale=None, ln2_bias=None, dropout1_rate=0.5,
+                      dropout2_rate=0.5, activation="relu",
+                      ln1_epsilon=1e-5, ln2_epsilon=1e-5,
+                      pre_layer_norm=False, training=True,
+                      mode="upscale_in_train", ring_id=-1,
+                      add_residual=True, name=None):
+    """The fused FFN block: (pre-)LayerNorm, ``linear2(dropout(act(
+    linear1(x))))`` with (in, out) weights, dropout, the residual and the
+    post-LayerNorm."""
+    e = x.shape[-1]
+    residual = x
+    if pre_layer_norm:
+        x = _F.layer_norm(x, [e], ln1_scale, ln1_bias, ln1_epsilon)
+    h = getattr(_F, activation)(_F.linear(x, linear1_weight, linear1_bias))
+    if dropout1_rate:
+        h = _F.dropout(h, p=dropout1_rate, training=training)
+    out = _F.linear(h, linear2_weight, linear2_bias)
+    if dropout2_rate:
+        out = _F.dropout(out, p=dropout2_rate, training=training)
+    if add_residual:
+        out = residual + out
+    if not pre_layer_norm:
+        out = _F.layer_norm(out, [e], ln2_scale, ln2_bias, ln2_epsilon)
+    return out
 
 def _host(x):
     if isinstance(x, torch.Tensor):

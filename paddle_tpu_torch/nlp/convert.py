@@ -7,6 +7,12 @@ as the port's parameters. Paddle's ``Linear`` keeps its weight as
 Linear weight once and copies everything else as it is. A quantized
 model's int8 ``quant_weight`` (``QuantizedLinear``) is transposed the same
 way; its ``weight_scale`` is per output channel and carries as it is.
+The GPT's blocks are the ModuleList ``gpt.h``, so the reference's
+``gpt.h.{i}...`` keys land on them. The stacked raw parameters of
+``FusedMultiTransformer`` ((L, in, out), int8 after
+``quantize_weight_only`` with their (L, out) scales) and ``MoELayer``
+((E, in, out) and the (d_model, E) gate) are no Linear weights and carry
+as they are.
 """
 from __future__ import annotations
 

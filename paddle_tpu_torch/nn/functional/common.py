@@ -15,7 +15,7 @@ import torch
 from ... import amp
 from ...amp import amp_state
 
-__all__ = ["linear", "matmul", "embedding"]
+__all__ = ["linear", "matmul", "embedding", "dropout"]
 
 _HALF = (torch.bfloat16, torch.float16)
 
@@ -67,3 +67,31 @@ def embedding(x, weight, padding_idx=None, sparse=False, name=None):
         (weight,) = amp.cast_inputs_for_op("embedding", weight)
     return torch.nn.functional.embedding(x, weight, padding_idx,
                                          sparse=sparse)
+
+
+def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
+            name=None, generator=None):
+    """``paddle.nn.functional.dropout``: in training, zero each element
+    (or, with ``axis``, each slice along those axes) with probability
+    ``p``, the keep mask drawn from ``generator`` (a ``torch.Generator``
+    on x's device; the global one when omitted); ``upscale_in_train``
+    divides the kept values by ``1 - p``. Outside training it is the
+    identity, or a scale by ``1 - p`` under ``downscale_in_infer``. The
+    draws are PyTorch's, not the reference's JAX keys."""
+    if mode not in ("upscale_in_train", "downscale_in_infer"):
+        raise ValueError(f"unsupported dropout mode {mode!r}")
+    if not training or p == 0.0:
+        if mode == "downscale_in_infer" and not training:
+            return x * (1.0 - p)
+        return x
+    if p == 1.0:
+        return torch.zeros_like(x)
+    shape = list(x.shape)
+    if axis is not None:
+        axes = {a % x.dim() for a in
+                ((axis,) if isinstance(axis, int) else tuple(axis))}
+        shape = [s if i in axes else 1 for i, s in enumerate(shape)]
+    keep = torch.rand(shape, generator=generator, device=x.device) < 1.0 - p
+    if mode == "upscale_in_train":
+        return torch.where(keep, x / (1.0 - p), 0.0).to(x.dtype)
+    return torch.where(keep, x, 0.0).to(x.dtype)

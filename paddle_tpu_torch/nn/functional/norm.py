@@ -1,5 +1,5 @@
 """Normalization functionals (counterpart of
-``paddle_tpu/nn/functional/norm.py``; the slice ports ``rms_norm``)."""
+``paddle_tpu/nn/functional/norm.py``: ``rms_norm`` and ``layer_norm``)."""
 from __future__ import annotations
 
 import torch
@@ -8,7 +8,7 @@ from ... import amp
 from ...amp import amp_state
 from ...ops.rms_norm import RMSNormFunction
 
-__all__ = ["rms_norm"]
+__all__ = ["rms_norm", "layer_norm"]
 
 
 def rms_norm(x, weight=None, bias=None, epsilon=1e-6, begin_norm_axis=-1,
@@ -37,4 +37,28 @@ def rms_norm(x, weight=None, bias=None, epsilon=1e-6, begin_norm_axis=-1,
         out = out * weight.reshape(x.shape[axis0:])
     if bias is not None:
         out = out + bias.reshape(x.shape[axis0:])
+    return out
+
+
+def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5,
+               name=None):
+    """LayerNorm over the trailing ``normalized_shape`` dims (op name
+    ``layer_norm``, black-listed by amp). The reference runs it through
+    XLA with no Pallas kernel, and so does the port through PyTorch's own
+    ``layer_norm``, in the reference's rounding order: ``(x - mean) *
+    rsqrt(var + eps)`` in f32 (population variance), rounded to x's
+    dtype, then times the weight and plus the bias (promoting, as in the
+    reference: a bf16 x with an f32 weight gives f32)."""
+    if amp_state.enabled:
+        x, weight, bias = amp.cast_inputs_for_op("layer_norm", x, weight,
+                                                 bias)
+    if isinstance(normalized_shape, int):
+        normalized_shape = (normalized_shape,)
+    shape = tuple(int(n) for n in normalized_shape)
+    out = torch.nn.functional.layer_norm(x.float(), shape,
+                                         eps=epsilon).to(x.dtype)
+    if weight is not None:
+        out = out * weight
+    if bias is not None:
+        out = out + bias
     return out

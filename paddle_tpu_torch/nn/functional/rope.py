@@ -10,7 +10,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["inv_freq", "build_rope_cache", "apply_rotary_emb"]
+__all__ = ["inv_freq", "build_rope_cache", "apply_rotary_emb",
+           "fused_rotary_position_embedding"]
 
 
 def inv_freq(head_dim, base=10000.0, device=None):
@@ -51,3 +52,33 @@ def apply_rotary_emb(x, cos, sin, neox=True, position_ids=None):
         out = torch.stack([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
                           dim=-1).reshape(x.shape)
     return out.to(x.dtype)
+
+
+def fused_rotary_position_embedding(q, k=None, v=None, sin=None, cos=None,
+                                    position_ids=None,
+                                    use_neox_rotary_style=True,
+                                    rotary_emb_base=10000.0,
+                                    time_major=False):
+    """``paddle.incubate.nn.functional.fused_rotary_position_embedding``:
+    q / k / v (B, S, H, D), each rotated (``None`` passes through).
+    Without ``sin`` / ``cos`` the table comes from ``rotary_emb_base``;
+    given, they are paddle's (1, S, 1, D) with duplicated halves or
+    (S, D/2). ``time_major`` is taken for the signature and, as in the
+    reference, not read."""
+    first = next(t for t in (q, k, v) if t is not None)
+    s, d = first.shape[1], first.shape[3]
+    if cos is None or sin is None:
+        cos_a, sin_a = build_rope_cache(s, d, base=rotary_emb_base,
+                                        device=first.device)
+    else:
+        # (1, S, 1, D) or (S, D): the reference reshapes by the last two
+        # dims, which refuses paddle's 4-d layout its docstring promises
+        cos_a = cos.reshape(-1, cos.shape[-1])
+        sin_a = sin.reshape(-1, sin.shape[-1])
+        if cos_a.shape[-1] == d:  # duplicated halves: take one
+            cos_a, sin_a = cos_a[..., : d // 2], sin_a[..., : d // 2]
+    return tuple(
+        None if t is None else apply_rotary_emb(
+            t, cos_a, sin_a, neox=use_neox_rotary_style,
+            position_ids=position_ids)
+        for t in (q, k, v))

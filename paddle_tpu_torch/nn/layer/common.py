@@ -1,16 +1,17 @@
 """``Linear`` and ``Embedding`` of the port: ``torch.nn``'s, with their
 forward through the functionals that hold amp's cast seam
 (``nn/functional/common.py``). Subclasses, so ``isinstance(m,
-torch.nn.Linear)`` still holds (the weight carry transposes by it)."""
+torch.nn.Linear)`` still holds (the weight carry transposes by it).
+``Dropout`` is paddle's, over ``F.dropout``."""
 from __future__ import annotations
 
 import torch
 
 from ... import amp
 from ...amp import amp_state
-from ..functional.common import torch_linear
+from ..functional.common import dropout, torch_linear
 
-__all__ = ["Linear", "Embedding"]
+__all__ = ["Linear", "Embedding", "Dropout"]
 
 
 class Linear(torch.nn.Linear):
@@ -32,3 +33,18 @@ class Embedding(torch.nn.Embedding):
         return torch.nn.functional.embedding(
             x, w, self.padding_idx, self.max_norm, self.norm_type,
             self.scale_grad_by_freq, self.sparse)
+
+
+class Dropout(torch.nn.Module):
+    """``paddle.nn.Dropout``: :func:`~paddle_tpu_torch.nn.functional.dropout`
+    in training mode (``self.training``)."""
+
+    def __init__(self, p=0.5, axis=None, mode="upscale_in_train", name=None):
+        super().__init__()
+        self.p, self.axis, self.mode = p, axis, mode
+
+    def forward(self, x):
+        return dropout(x, self.p, self.axis, self.training, self.mode)
+
+    def extra_repr(self):
+        return f"p={self.p}"

@@ -111,7 +111,7 @@ def decode_attention(q, k_cache, v_cache, seq_lens, sm_scale=None):
         raise NotImplementedError(
             f"decode_attention kernel takes head_dim in {_HEAD_DIMS} and "
             f"at most {_MAX_GROUP} query heads per kv head, got D={d}, "
-            f"G={h // hk}")
+            f"G={h // hk} (other widths: ROADMAP A10)")
     if not all(t.is_contiguous() for t in (k_cache, v_cache, seq_lens)):
         raise ValueError("decode_attention kernel needs contiguous caches "
                          "and lens")

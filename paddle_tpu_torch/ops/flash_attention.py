@@ -165,7 +165,7 @@ def _check_kernel_inputs(name, q, *others):
     if q.shape[-1] not in _HEAD_DIMS:
         raise NotImplementedError(
             f"{name} kernel takes head_dim in {_HEAD_DIMS}, got "
-            f"{q.shape[-1]}")
+            f"{q.shape[-1]} (other widths: ROADMAP A10)")
     if any(t.device != q.device for t in others):
         raise ValueError(f"{name}: inputs lie on different devices")
     if not all(t.is_contiguous() for t in (q, *others)):

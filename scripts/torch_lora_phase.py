@@ -4,8 +4,8 @@ amp) alone, on one GPU, with phase 2's fp16 K4 and K7 cases.
     python scripts/torch_lora_phase.py [--no-kernels]
 
 Builds the kernels, holds K4's and K7's fp16 arms to their plain versions
-at the training shape (each timed beside its plain version and fp16 SDPA),
-then runs ``chip_smoke.lora_phase``: (a) bf16 O2 at full size, (d) merge /
+at the training shape on phase 2's own inputs (each timed beside its
+plain version and fp16 SDPA), then runs ``chip_smoke.lora_phase``: (a) bf16 O2 at full size, (d) merge /
 unmerge, (b) the f32 parity at two layers, (c) fp16 O1 with GradScaler.
 Prints the phase's JSON records, its launches and its wall.
 """
@@ -18,29 +18,6 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
-
-
-def fp16_kernel_cases(torch, C, dev):
-    """Phase 2's K4 and K7 cases in fp16, through its own check and
-    timing."""
-    g = torch.Generator(device=dev).manual_seed(C.SEED)
-    for case in list(C.k4_cases(torch, g, dev)) + list(
-            C.k7_cases(torch, g, dev)):
-        if case["dtype"] != torch.float16:
-            continue
-        out, ref = case["kernel"](), case["plain"]()
-        torch.cuda.synchronize()
-        err, ok, tol = C.close(torch, out, ref, case["dtype"], True)
-        ms, _ = C.device_ms(torch, case["kernel"])
-        plain_ms, _ = C.device_ms(torch, case["plain"], iters=3)
-        lib_ms, _ = C.device_ms(torch, case["library"])
-        C.emit({"phase": "kernel_check", "name": case["name"],
-                "dtype": "float16", "shape": case["shape"],
-                "max_abs_err": err, "tol": tol, "ok": ok, "ms": ms,
-                "event_ms": C.cuda_ms(torch, case["kernel"]),
-                "plain_ms": plain_ms, "library_ms": lib_ms,
-                "bound_ms": case["bound"][0], "bound_by": case["bound"][1]})
-        C.check(ok, f"{case['name']} fp16 disagrees with its plain version")
 
 
 def main():
@@ -56,7 +33,8 @@ def main():
     dev = torch.device("cuda")
     smi = C.env_phase(torch)
     if "--no-kernels" not in sys.argv[1:]:
-        fp16_kernel_cases(torch, C, dev)
+        C.run_kernel_cases(torch, dev,
+                           lambda case: case["dtype"] == torch.float16)
     t0 = time.perf_counter()
     launches = C.lora_phase(torch, dev, smi)
     print(json.dumps({"lora_phase_s": time.perf_counter() - t0,

@@ -1981,3 +1981,125 @@ def test_cuda_amp_off_keeps_the_quantum_launches(cuda, monkeypatch):
     q, layers = _GRAPH_KW["decode_quantum"], model.config.num_hidden_layers
     assert {k: v for k, v in ops.LAUNCHES.items() if v} == {
         "rms_norm": (2 * layers + 1) * q, "paged_decode_attention": layers * q}
+
+
+def _fmt_calls(fmt, xs, max_len, dtype, lens=None):
+    """Prefill, chunk and decode calls over fresh caches; the outputs and
+    the caches."""
+    caches = fmt.gen_cache(xs[0].shape[0], max_len, dtype)
+    outs, off = [], 0
+    for x in xs:
+        kw = {"seq_lens": lens(off)} if x.shape[1] == 1 and lens else {}
+        out, caches = fmt(x, caches=caches, time_step=off, **kw)
+        outs.append(out)
+        off += x.shape[1]
+    return outs, caches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("int8", [False, True])
+def test_cuda_fused_multi_transformer_kernel_matches_plain(cuda, dtype, tol,
+                                                          int8):
+    """FusedMultiTransformer at D = 128 with GQA 8 / 2: prefill, a chunked
+    prefill and decode steps with per-row lengths, the kernels (K1, K4,
+    K5) against their plain versions, float and weight-only int8."""
+    from paddle_tpu_torch.incubate.nn import FusedMultiTransformer
+
+    fmt = FusedMultiTransformer(
+        1024, 8, 2048, num_layers=2, norm_type="rmsnorm",
+        activation="swiglu", num_key_value_heads=2, dtype=dtype,
+        device=cuda, generator=torch.Generator(device=cuda).manual_seed(0))
+    if int8:
+        fmt.quantize_weight_only()
+    g = torch.Generator(device=cuda).manual_seed(1)
+    xs = [_rnd(g, dtype, 2, s, 1024) for s in (40, 24, 1, 1, 1)]
+
+    def lens(off):
+        return torch.tensor([off + 1, off - 3], dtype=torch.int32,
+                            device=cuda)
+
+    name = "flash_attention_f32" if dtype == torch.float32 else \
+        "flash_attention"
+    with torch.no_grad():
+        ops.reset_launches()
+        outs, caches = _fmt_calls(fmt, xs, 128, dtype, lens)
+        assert ops.LAUNCHES[name] == 4
+        assert ops.LAUNCHES["decode_attention"] == 6
+        assert ops.LAUNCHES["rms_norm"] == 20
+        with ops.plain_versions():
+            pouts, pcaches = _fmt_calls(fmt, xs, 128, dtype, lens)
+    for o, p in zip(list(outs) + list(caches), list(pouts) + list(pcaches)):
+        torch.testing.assert_close(o.float(), p.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("recompute", [False, True])
+def test_cuda_gpt_step_launches_flash_kernels(cuda, recompute):
+    """One bf16 GPT train step at D = 64: K4 forward and K7 backward per
+    layer (full recompute relaunches K4 in the backward), nothing else."""
+    from paddle_tpu_torch.nlp import GPTConfig, GPTForCausalLM
+
+    cfg = GPTConfig(vocab_size=512, hidden_size=256, num_hidden_layers=2,
+                    num_attention_heads=4, max_position_embeddings=256,
+                    dtype="bfloat16", use_recompute=recompute)
+    model = GPTForCausalLM(cfg, device=cuda)
+    step = JittedTrainStep(model, lambda o, y: F.cross_entropy(
+        o.float().reshape(-1, 512), y.reshape(-1)), AdamW(
+            1e-3, parameters=model.parameters(), multi_precision=True))
+    ids = torch.randint(0, 512, (2, 128), device=cuda)
+    ops.reset_launches()
+    loss = step(ids, ids)
+    torch.cuda.synchronize()
+    want = {k: 0 for k in ops.LAUNCHES}
+    want.update(flash_attention=4 if recompute else 2,
+                flash_attention_bwd=2)
+    assert dict(ops.LAUNCHES) == want
+    assert torch.isfinite(loss)
+    ops.reset_launches()
+    with torch.no_grad():
+        out = model.generate(ids[:, :16], max_new_tokens=2)
+    assert out.shape == (2, 18) and ops.LAUNCHES["flash_attention"] == 4
+
+
+@pytest.mark.cuda
+def test_cuda_moe_grouped_matches_einsum(cuda):
+    from paddle_tpu_torch.incubate.distributed.models.moe import MoELayer
+
+    res = {}
+    for mode in ("einsum", "grouped"):
+        moe = MoELayer(256, 512, 8, gate="gshard", activation="swiglu",
+                       capacity_factor=0.5, dispatch_mode=mode, device=cuda,
+                       generator=torch.Generator(device=cuda).manual_seed(3))
+        x = torch.randn(512, 256, device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(4))
+        x.requires_grad_()
+        y = moe(x)
+        ((y * y).mean() + 0.01 * moe.l_aux).backward()
+        res[mode] = [y.detach(), x.grad] + [p.grad for p in moe.parameters()]
+    for a, b in zip(res["grouped"], res["einsum"]):
+        torch.testing.assert_close(a, b, rtol=2e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_head_dim_16_refuses_naming_a10(cuda):
+    """D = 16 (the tiny configs) has no kernel arm on the card: the
+    models raise, with no fallback."""
+    from paddle_tpu_torch.incubate.nn import FusedMultiTransformer
+    from paddle_tpu_torch.nlp import GPTConfig, GPTForCausalLM
+
+    model = GPTForCausalLM(GPTConfig.tiny(), device=cuda)
+    with pytest.raises(NotImplementedError, match="A10"):
+        model(torch.randint(0, 128, (2, 8), device=cuda))
+    fmt = FusedMultiTransformer(64, 4, 128, num_layers=1, device=cuda)
+    with torch.no_grad():
+        with pytest.raises(NotImplementedError, match="A10"):
+            fmt(torch.randn(2, 8, 64, device=cuda))
+        caches = fmt.gen_cache(2, 16)
+        with ops.plain_versions():
+            _, caches = fmt(torch.randn(2, 8, 64, device=cuda),
+                            caches=caches, time_step=0)
+        with pytest.raises(NotImplementedError, match="A10"):
+            fmt(torch.randn(2, 1, 64, device=cuda), caches=caches,
+                time_step=8)

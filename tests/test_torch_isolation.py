@@ -14,9 +14,11 @@ import torch
 
 import paddle_tpu_torch
 from paddle_tpu_torch import create_serving_engine
+from paddle_tpu_torch.incubate.distributed.models.moe import MoELayer
+from paddle_tpu_torch.incubate.nn import FusedMultiTransformer
 from paddle_tpu_torch.inference import serve
-from paddle_tpu_torch.nlp import (LlamaConfig, LlamaForCausalLM,
-                                  PagedKVCachePool)
+from paddle_tpu_torch.nlp import (GPTConfig, GPTForCausalLM, LlamaConfig,
+                                  LlamaForCausalLM, PagedKVCachePool)
 from paddle_tpu_torch.serving import (ClusterFrontDoor, ClusterReplica,
                                       ClusterRouter, ServingEngine)
 
@@ -43,7 +45,9 @@ def test_import_leaves_jax_and_reference_out(tmp_path):
                "paddle_tpu_torch.serving.cluster, "
                "paddle_tpu_torch.obs, paddle_tpu_torch.obs.__main__, "
                "paddle_tpu_torch.inference, "
-               "paddle_tpu_torch.incubate.nn.functional; "
+               "paddle_tpu_torch.incubate.nn.functional, "
+               "paddle_tpu_torch.incubate.distributed.models.moe, "
+               "paddle_tpu_torch.nlp.gpt; "
                "print(sorted(m for m in sys.modules if m == 'jax' or "
                "m.startswith(('jax.', 'jaxlib')) or m == 'paddle_tpu' or "
                "m.startswith('paddle_tpu.')))", tmp_path)
@@ -75,6 +79,12 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         LlamaForCausalLM(LlamaConfig.tiny())
     with pytest.raises(RuntimeError, match="device='cpu'"):
         PagedKVCachePool(4, 4, 2, 8)
+    for build in (lambda **kw: GPTForCausalLM(GPTConfig.tiny(), **kw),
+                  lambda **kw: FusedMultiTransformer(64, 4, 128, **kw),
+                  lambda **kw: MoELayer(16, 32, 4, **kw)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()
+        build(device="cpu")
     model = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu")
     for build in (lambda: ServingEngine(model),
                   lambda: ServingEngine(model, resilience=True),
