@@ -29,7 +29,11 @@ Phases (any failure raises and the script exits non-zero):
    per-row scale pools at the serving shape and at GQA 32/8, and K2's
    static scales over float pools; K2 also over one sequence and one KV
    head of 4,096 tokens, K5 also at the generate run's own step, 4 rows
-   of 4,096 live tokens): max error, kernel / plain /
+   of 4,096 live tokens; K4 also non-causal at phase 20's SD UNet
+   attention, against one SDPA call each: self-attention at the 64 x 64
+   latents (B = 2, S = 4,096, H = 5, D = 64), cross-attention there (Sk =
+   77) and self-attention at the 8 x 8 level (S = 64, H = 20)): max
+   error, kernel / plain /
    library-call device times (torch.profiler, summed kernel durations;
    CUDA events where the profiler records none, as ``timers`` says; where
    several library calls compute the same function the fastest counts,
@@ -128,7 +132,7 @@ Phases (any failure raises and the script exits non-zero):
     captured, and its streams must equal the eager kernel run's;
 13. the decode graphs at full width (the card's name and power limit
     beside every timing). Serving: Llama-2-7B bf16 with phase 3's knobs
-    and requests, the captured quantum against its eager body (greedy;
+    and first 8 requests, the captured quantum against its eager body (greedy;
     sampled at fixed seeds), ``multi_quantum=4`` against 1 (equal streams
     and ``decode_quanta``), two engines driven dispatch, dispatch,
     collect, collect against ``step()``, and phase 11's w8kv8 engine
@@ -290,6 +294,33 @@ Phases (any failure raises and the script exits non-zero):
     capacity factor 2 and at 0.5, where assignments are dropped.
     ``scripts/torch_gpt_phase.py`` runs this phase alone, after phase 2's
     cases at its shapes.
+20. the vision tier (run last; every record beside the card's name and
+    power limit): (a) the SD UNet at stable-diffusion-2-base's widths
+    (block channels 320 / 640 / 1,280 / 1,280, 2 layers a block, heads of
+    64, 1,024-wide context, 64 x 64 latents) through the reference's UNet
+    architecture, seeded weights in bf16, batch 2, 77-token context, 20
+    DDIM steps through ``ddim_sample``, whose whole loop is one captured
+    CUDA graph: exactly 42 K4 launches a step (21 attention blocks, self
+    and cross), the captured sampler's latents equal the eager sampler's
+    bit for bit, the kernel path's latents within the bf16 / f32 gap of
+    the plain path's (relative L2: the kernel path may part from the
+    plain path by no more than bf16 itself parts from f32 on the same
+    weights), ms a sample and a UNet step (CUDA events, median of 5), the
+    eager sampler's, device ms, busy share and K4's share of one step by
+    kernel family (convolutions, GroupNorm and LayerNorm passes, K4,
+    products), one profiled replay; then in f32 at 1 layer a block, 3
+    steps, the kernel path (K4's f32 arm) within 1e-4 of the plain path;
+    (b) ResNet-50 at ``scripts/bench_suite.py``'s ``resnet50_eager``
+    recipe (f32, batch 32, 224 x 224, CrossEntropyLoss, Momentum(0.1)):
+    10 eager steps with the f32 convolutions in full f32 (this script
+    turns cuDNN's TF32 off; images/s over the first 5), bn1's running
+    statistics move by paddle's rule, one profiled step; 5 more with TF32
+    on (torch's default) and their images/s; the run's last 5 losses each
+    below its first; an eval forward in bf16 and its images/s. ``scripts/torch_vision_phase.py`` runs this phase alone,
+    after phase 2's K4 cases at the UNet's shapes (self-attention at 64 x
+    64, B = 2, S = 4,096, H = 5, D = 64; cross-attention there, Sk = 77;
+    self-attention at 8 x 8, S = 64, H = 20; non-causal, against one
+    SDPA call each).
 
 The line before the last is the ``{"kernels": [...]}`` record (each
 kernel's launches come from the run of the path that carries it: K1-K3
@@ -301,7 +332,8 @@ of phase 11, its static int8 arm and its float-pool scaled mode the two
 runs of phase 12; ``launches_by_path`` has every path's count, phase 14's
 cached float and int8-KV runs, phase 16's ``frontdoor``, phase 17's
 ``resilience``, phase 15's ``spec_serving``, phase 18's ``lora`` and
-``lora_fp16`` and phase 19's ``gpt_train`` and ``fmt_decode`` among them; K4's and K7's fp16 arms take theirs from phase
+``lora_fp16``, phase 19's ``gpt_train`` and ``fmt_decode`` and phase
+20's ``sd_unet`` (one captured sample) among them; K4's and K7's fp16 arms take theirs from phase
 18 (c));
 the last
 line is ``{"ok": true, "device": {...}}``.
@@ -362,6 +394,41 @@ FMT_DECODE_ATTN = ("fmt_decode", 1024, [513 + 9 * i for i in range(8)],
                    32, 32)
 GPT_PHASE_LABELS = ("gpt2_train", "gpt2_generate", "fmt_prefill",
                     "fmt_decode")
+# phase 20 and phase 2's rows at its attention: the SD UNet's K4 calls at
+# stable-diffusion-2-base's widths, batch 2 (a classifier-free-guidance
+# pair), non-causal (label, B, Sq, Sk, H, D): (a) self-attention at the
+# 64 x 64 latents, (b) cross-attention there (77 text tokens: a partial
+# key tile), (c) self-attention at the 8 x 8 level
+UNET_SELF_ATTN = ("unet_self_64x64", 2, 4096, 4096, 5, 64)
+UNET_CROSS_ATTN = ("unet_cross_64x64", 2, 4096, 77, 5, 64)
+UNET_LOW_ATTN = ("unet_self_8x8", 2, 64, 64, 20, 64)
+UNET_PHASE_LABELS = ("unet_",)
+# (a): stable-diffusion-2-base's unet/config.json widths through the
+# reference's UNet architecture; 20 DDIM steps (scripts/bench_suite.py's
+# sd_unet count); timed samples; (a)'s f32 kernel-vs-plain run at
+# layers_per_block=1 and its steps
+SD_UNET_WIDTH = dict(block_out_channels=(320, 640, 1280, 1280),
+                     layers_per_block=2, cross_attention_dim=1024,
+                     attention_head_dim=64, norm_num_groups=32,
+                     sample_size=64)
+SD_BATCH, SD_CONTEXT, SD_STEPS, SD_TIMED = 2, 77, 20, 5
+SD_F32_STEPS = 3
+# (a)'s f32 bound: max |kernel - plain| over max |plain| latent after
+# SD_F32_STEPS steps (K4's f32 arm is 3xTF32, ~f32; the convolutions are
+# the same calls on both paths)
+SD_F32_BOUND = 1e-4
+# (b): scripts/bench_suite.py's resnet50_eager recipe: batch, image side,
+# classes, steps (TF32 off, then on), learning rate
+RESNET_SHAPE = (32, 224, 1000)
+# (b)'s steps, one training run on one batch: 5 timed in f32, 5 more in
+# f32, one profiled, 5 timed with TF32 on. At lr 0.1 with momentum and no
+# warm-up the loss swings before it settles (on an H100: 7.67, 7.00,
+# 11.89-11.99, 7.78-7.99, 8.94-9.28, then 9.25, 9.69-10.29, 7.15-7.86,
+# 5.20-5.80, 5.24-8.38; cuDNN's backward sums in no fixed order, so runs
+# part from step 2), so the loss is held at the run's end: each of the
+# last 5 losses below the first
+RESNET_STEPS = (5, 5, 5)
+RESNET_LR = 0.1
 # (c)'s width: Llama-2-7B's embed, heads, FFN and layers; (f)'s:
 # Mixtral-8x7B's d_model, d_hidden and experts
 FMT_WIDTH = (4096, 32, 11008, 32)
@@ -390,7 +457,14 @@ SAMPLING = dict(decode_strategy="sampling", top_k=50, top_p=0.9,
                 temperature=0.8)
 
 
+_T0 = time.perf_counter()
+
+
 def emit(record):
+    """One JSON line; a phase's record also gets ``t_s``, the seconds
+    since the script started."""
+    if "phase" in record:
+        record = {**record, "t_s": time.perf_counter() - _T0}
     print(json.dumps(record), flush=True)
 
 
@@ -908,6 +982,35 @@ def k4_cases(torch, g, dev):
                                       dtype == torch.float32))
 
 
+def k4_unet_cases(torch, g, dev):
+    """K4 at the SD UNet's attention (phase 20 (a)), bf16, non-causal with
+    HK = H: each against its plain version and one non-causal SDPA call."""
+    from paddle_tpu_torch import ops
+    import torch.nn.functional as tF
+
+    for label, b, sq, sk, h, d in (UNET_SELF_ATTN, UNET_CROSS_ATTN,
+                                   UNET_LOW_ATTN):
+        dtype = torch.bfloat16
+        q = torch.randn(b, sq, h, d, generator=g, device=dev).to(dtype)
+        k = torch.randn(b, sk, h, d, generator=g, device=dev).to(dtype)
+        v = torch.randn(b, sk, h, d, generator=g, device=dev).to(dtype)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        nbytes = (2 * b * sq * h * d + 2 * b * sk * h * d) * 2 \
+            + 4 * b * h * sq
+        yield dict(
+            name="flash_attention", dtype=dtype,
+            shape=f"{label}:B={b},Sq={sq},Sk={sk},H={h},HK={h},D={d},"
+                  f"non-causal",
+            primary=False,
+            kernel=lambda q=q, k=k, v=v: ops.flash_attention(q, k, v),
+            plain=lambda q=q, k=k, v=v: ops.flash_attention_plain(
+                q, k, v)[0],
+            library=lambda qt=qt, kt=kt, vt=vt:
+                tF.scaled_dot_product_attention(qt, kt, vt),
+            bound=attention_bound(nbytes, 4.0 * sq * sk * b * h * d,
+                                  False))
+
+
 def k5_cases(torch, g, dev):
     from paddle_tpu_torch import ops
     import torch.nn.functional as tF
@@ -1318,6 +1421,7 @@ def all_kernel_cases(torch, dev):
     return itertools.chain(k1_cases(torch, g, dev), k2_cases(torch, g, dev),
                            k2_int8_cases(torch, g, dev),
                            k3_cases(torch, g, dev), k4_cases(torch, g, dev),
+                           k4_unet_cases(torch, g, dev),
                            k5_cases(torch, g, dev), k6_cases(torch, g, dev),
                            k7_cases(torch, g, dev), k8_cases(torch, g, dev))
 
@@ -1815,7 +1919,8 @@ def generate_phase(torch, dev, smi):
 def _generate_timing(torch, model, ids, eager, timed=2):
     """Greedy ``generate`` through its entry point, its decode steps
     eager or replays of the step the entry point captured and kept: one
-    call to warm up (the captured arm's capture), ``timed`` calls timed
+    call to warm up (the captured arm's capture; the eager arm runs after
+    phase 5's calls and has none), ``timed`` calls timed
     (``_timed_generate``), one under torch.profiler. Per decode step and
     timed call: the stream's ms between the events after the prefill
     and at the end (the decode's wall on the card) and the host's ms to
@@ -1825,7 +1930,8 @@ def _generate_timing(torch, model, ids, eager, timed=2):
     from torch.profiler import ProfilerActivity, profile
 
     new = GENERATE_SHAPE[2]
-    _timed_generate(torch, model, ids, eager=eager, max_new_tokens=new)
+    if not eager:   # the eager arm captures nothing to warm up
+        _timed_generate(torch, model, ids, eager=eager, max_new_tokens=new)
     runs = [_timed_generate(torch, model, ids, eager=eager,
                             max_new_tokens=new)[1] for _ in range(timed)]
     with profile(activities=[ProfilerActivity.CPU,
@@ -2832,7 +2938,7 @@ def _overlapped(torch, model, traces):
 
 def graphs_serving_phase(torch, dev, smi):
     """Phase 13 (serving): full Llama-2-7B bf16, phase 3's knobs and
-    requests. The captured quantum against its eager body (greedy,
+    first 8 requests. The captured quantum against its eager body (greedy,
     sampled at fixed seeds), ``multi_quantum=4`` against 1, two engines
     driven dispatch, dispatch, collect, collect against ``step()``, and
     phase 11's w8kv8 engine captured against eager: streams equal token
@@ -2841,7 +2947,9 @@ def graphs_serving_phase(torch, dev, smi):
     from paddle_tpu_torch.nlp import LlamaConfig, LlamaForCausalLM
 
     cfg = LlamaConfig.llama2_7b(dtype="bfloat16")
-    requests = make_requests(cfg.vocab_size)
+    # phase 3's first 8 requests: one wave of its 8 slots (the whole
+    # smoke's time limit; phases 3 and 14-17 serve all 16)
+    requests = make_requests(cfg.vocab_size)[:8]
     sampled = [dict(r, seed=i) for i, r in enumerate(requests)]
     w8kv8 = dict(INT8_ARMS)["w8kv8"]
     arms = (("greedy", requests, {}, (True, False)),
@@ -5363,6 +5471,383 @@ def gpt_phase(torch, dev, smi):
     return {"gpt_train": train_launches, "fmt_decode": fmt_launches}
 
 
+# ---------------------------------------------------------------- phase 20
+def _rel_l2(a, b):
+    """||a - b|| / ||b|| in f32."""
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def _vision_family(name):
+    """A kernel's family by name: cuDNN's convolution kernels (forward,
+    dgrad, wgrad), K4, matrix products, the rest."""
+    low = name.lower()
+    if "flash_fwd_" in name:
+        return "K4 flash_attention"
+    if any(k in low for k in ("conv", "dgrad", "wgrad", "fprop", "cudnn",
+                              "implicit", "winograd", "xmma")):
+        return "convolution"
+    return _kernel_family(name)
+
+
+def _vision_profile(torch, fn, label, ranges):
+    """Device time of one call of ``fn`` by family: a kernel that runs
+    inside a device-side span of one of the record_function ``ranges``
+    (a dict, range name -> family: the forward's convolutions and norm
+    passes) counts for that family, the rest by :func:`_vision_family`
+    (the backward's BatchNorm passes fall under "other"). Device busy
+    share = summed kernel time over the call's wall under the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    cuda = torch.autograd.DeviceType.CUDA
+    events = [ev for ev in prof.events() if ev.device_type == cuda]
+    spans = {r: [(ev.time_range.start, ev.time_range.end) for ev in events
+                 if ev.name == r] for r in ranges}
+    fams, n = {}, 0
+    for ev in events:
+        if ev.name in ranges:
+            continue
+        a, b = ev.time_range.start, ev.time_range.end
+        if b <= a:
+            continue
+        fam = next((ranges[r] for r, sp in spans.items()
+                    if any(x <= a and b <= y for x, y in sp)),
+                   None) or _vision_family(ev.name)
+        fams[fam] = fams.get(fam, 0.0) + (b - a)
+        n += 1
+    busy = sum(fams.values())
+    return {"phase": "profile", "step": label,
+            "wall_ms_under_profiler": wall_us / 1e3,
+            "device_ms": busy / 1e3 if busy else "not measured",
+            "device_busy_share": busy / wall_us if busy else "not measured",
+            "kernels_launched": n,
+            "device_ms_by_family": {k: v / 1e3 for k, v in sorted(
+                fams.items(), key=lambda kv: -kv[1])}}
+
+
+@contextlib.contextmanager
+def _traced_functionals(torch, names):
+    """The port's functionals ``names`` under record_function ranges of
+    their own names (the layers look them up on the module at call
+    time)."""
+    from torch.profiler import record_function
+    from paddle_tpu_torch.nn import functional as F
+
+    saved = {n: getattr(F, n) for n in names}
+
+    def traced(n, fn):
+        def call(*a, **kw):
+            with record_function(n):
+                return fn(*a, **kw)
+        return call
+
+    for n, fn in saved.items():
+        setattr(F, n, traced(n, fn))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(F, n, fn)
+
+
+def _sd_inputs(torch, dev, cfg, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    side = cfg["sample_size"]
+    lat = torch.randn(SD_BATCH, 4, side, side, generator=g, device=dev)
+    ctx = torch.randn(SD_BATCH, SD_CONTEXT, cfg["cross_attention_dim"],
+                      generator=g, device=dev)
+    return lat.to(dtype), ctx.to(dtype)
+
+
+def _sd_unet(torch, dev, smi):
+    """(a) the SD UNet at stable-diffusion-2-base's widths in bf16, batch
+    2, 77 x 1,024 context, 20 DDIM steps through the captured sampler.
+    Returns the launches of one captured sample."""
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.vision.models import (SDUNetConfig,
+                                                UNet2DConditionModel,
+                                                ddim_sample, sd_unet)
+
+    cfg = SDUNetConfig(**SD_UNET_WIDTH)
+    t0 = time.perf_counter()
+    unet = UNet2DConditionModel(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(SEED + 20)).eval()
+    n_params = sum(p.numel() for p in unet.parameters())
+    f32_state = {k: v.clone() for k, v in unet.state_dict().items()}
+    unet.to(torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    heads = {c // 64 for c in cfg.block_out_channels}
+    check({h for *_, h, _ in (UNET_SELF_ATTN, UNET_CROSS_ATTN,
+                              UNET_LOW_ATTN)} <= heads,
+          "phase 2's UNet attention rows do not match the model")
+    lat, ctx = _sd_inputs(torch, dev, SD_UNET_WIDTH, torch.bfloat16,
+                          SEED + 21)
+    torch.cuda.reset_peak_memory_stats()
+
+    def sample():
+        return ddim_sample(unet, lat, ctx, num_inference_steps=SD_STEPS)
+
+    # the first call warms up on the capture stream (its answer) and
+    # captures; later calls replay
+    ops.reset_launches()
+    first, first_ms = _event_ms(torch, sample)
+    check(len(unet._ddim_loops) == 1, "the sampler was not cached")
+    loop = next(iter(unet._ddim_loops.values()))
+    check(loop.graph is not None and loop.graph.graph is not None,
+          "the DDIM loop was not captured")
+    ops.reset_launches()
+    captured, _ = _event_ms(torch, sample)
+    launches = dict(ops.LAUNCHES)
+    blocks = 2 * len(cfg.block_out_channels) * cfg.layers_per_block \
+        + len(cfg.block_out_channels) + 1
+    want = {k: 0 for k in launches}
+    want["flash_attention"] = 2 * blocks * SD_STEPS
+    check(launches == want, f"SD sample launches {launches}, expected "
+          f"{want}")
+    ms = [_event_ms(torch, sample)[1] for _ in range(SD_TIMED)]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    graph_prof = _vision_profile(torch, sample, "sd_unet_sample_replay",
+                                 {})
+    step_prof = _sd_step_profile(torch, unet, lat, ctx)
+    # the eager oracle, then the plain path (eager), then f32 (plain)
+    sd_unet._EAGER = True
+    try:
+        eager, eager_ms = _event_ms(torch, sample)
+        eager_ms2 = _event_ms(torch, sample)[1]
+        with ops.plain_versions():
+            plain = sample()
+        unet.to(torch.float32).load_state_dict(f32_state)
+        del f32_state
+        with ops.plain_versions():
+            f32 = ddim_sample(unet, lat.float(), ctx.float(),
+                              num_inference_steps=SD_STEPS)
+    finally:
+        sd_unet._EAGER = False
+    check(torch.equal(captured, eager) and torch.equal(first, eager),
+          "the captured sampler's latents differ from the eager sampler's")
+    check(bool(torch.isfinite(captured).all())
+          and captured.shape == lat.shape, "SD latents not finite")
+    kernel_gap = _rel_l2(captured, plain)
+    precision_gap = _rel_l2(plain, f32)
+    unet._ddim_loops.clear()
+    k4 = step_prof["device_ms_by_family"].get("K4 flash_attention", 0.0)
+    sample_ms = statistics.median(ms)
+    rec = {"phase": "sd_unet_sd2base_bf16", "gpu": smi,
+           "config": SD_UNET_WIDTH, "params": n_params, "batch": SD_BATCH,
+           "context": [SD_CONTEXT, SD_UNET_WIDTH["cross_attention_dim"]],
+           "steps": SD_STEPS, "model_init_s": init_s,
+           "first_call_ms_warmup_and_capture": first_ms,
+           "sample_ms": sample_ms, "sample_ms_all": ms,
+           "unet_step_ms": sample_ms / SD_STEPS,
+           "eager_sample_ms": [eager_ms, eager_ms2],
+           "eager_unet_step_ms": eager_ms2 / SD_STEPS,
+           "launches_per_sample": launches,
+           "k4_launches_per_step": launches["flash_attention"] / SD_STEPS,
+           "captured_equals_eager": True,
+           "kernel_vs_plain_rel_l2": kernel_gap,
+           "bf16_vs_f32_rel_l2": precision_gap,
+           "bound": "kernel_vs_plain_rel_l2 <= bf16_vs_f32_rel_l2",
+           "step_device_ms": step_prof["device_ms"],
+           "step_device_busy_share": step_prof["device_busy_share"],
+           "k4_share_of_step_device_ms": (
+               k4 / step_prof["device_ms"]
+               if isinstance(step_prof["device_ms"], float) else
+               "not measured"),
+           "replay_device_busy_share": graph_prof["device_busy_share"],
+           "replay_device_ms_per_step": (
+               graph_prof["device_ms"] / SD_STEPS
+               if isinstance(graph_prof["device_ms"], float) else
+               "not measured"),
+           "peak_mem_gb": peak}
+    emit(rec)
+    emit({**graph_prof, "gpu": smi})
+    check(kernel_gap <= precision_gap,
+          f"the kernel path parts from the plain path by more than bf16 "
+          f"from f32: {kernel_gap} > {precision_gap}")
+    del unet, first, captured, eager, plain, f32
+    return launches
+
+
+def _sd_step_profile(torch, unet, lat, ctx):
+    """One eager UNet step (the kernel path) by family: convolutions,
+    GroupNorm and LayerNorm passes (their functionals' ranges), K4,
+    matrix products, the rest."""
+    t = torch.full((lat.shape[0],), 999, dtype=torch.int32,
+                   device=lat.device)
+    ranges = {"conv2d": "convolution", "group_norm": "group_norm",
+              "layer_norm": "layer_norm"}
+    with torch.no_grad():
+        unet(lat, t, ctx)
+        with _traced_functionals(torch, ranges):
+            rec = _vision_profile(torch, lambda: unet(lat, t, ctx),
+                                  "sd_unet_step_eager", ranges)
+    emit(rec)
+    return rec
+
+
+def _sd_f32_parity(torch, dev, smi):
+    """(a) in f32 at layers_per_block=1: the kernel path (K4's f32 arm)
+    against the plain path over SD_F32_STEPS DDIM steps, both eager."""
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.vision.models import (SDUNetConfig,
+                                                UNet2DConditionModel,
+                                                ddim_sample, sd_unet)
+
+    width = dict(SD_UNET_WIDTH, layers_per_block=1)
+    unet = UNet2DConditionModel(SDUNetConfig(**width), device=dev,
+                                generator=torch.Generator(
+                                    device=dev).manual_seed(SEED + 22))
+    lat, ctx = _sd_inputs(torch, dev, width, torch.float32, SEED + 23)
+    sd_unet._EAGER = True
+    try:
+        ops.reset_launches()
+        got = ddim_sample(unet, lat, ctx, num_inference_steps=SD_F32_STEPS)
+        launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+        with ops.plain_versions():
+            want = ddim_sample(unet, lat, ctx,
+                               num_inference_steps=SD_F32_STEPS)
+    finally:
+        sd_unet._EAGER = False
+    err = _rel_to_max(got, want)
+    emit({"phase": "sd_unet_parity_f32_1layer", "gpu": smi,
+          "steps": SD_F32_STEPS, "max_err_over_max": err,
+          "bound": SD_F32_BOUND, "launches": launches})
+    check(launches.get("flash_attention_f32", 0) > 0,
+          f"the f32 UNet did not reach K4's f32 arm: {launches}")
+    check(err <= SD_F32_BOUND, f"SD f32 kernel and plain paths part: "
+          f"{err}")
+    del unet
+
+
+def _resnet50(torch, dev, smi):
+    """(b) ResNet-50 at scripts/bench_suite.py's resnet50_eager recipe:
+    f32, batch 32, 3 x 224 x 224, CrossEntropyLoss, Momentum(0.1), eager
+    steps on one batch with the convolutions in full f32 (cuDNN's TF32
+    off, as this script sets it), one more under the profiler, then steps
+    with TF32 on (torch's own default for convolutions), then an eval
+    forward in bf16. The loss is held at the run's end
+    (``RESNET_STEPS``)."""
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import resnet50
+
+    b, side, classes = RESNET_SHAPE
+    timed, more, tf32_steps = RESNET_STEPS
+    model = resnet50(device=dev, generator=torch.Generator(
+        device=dev).manual_seed(SEED + 25))
+    g = torch.Generator(device=dev).manual_seed(SEED + 26)
+    x = torch.randn(b, 3, side, side, generator=g, device=dev)
+    y = torch.randint(0, classes, (b,), generator=g, device=dev)
+    ce = CrossEntropyLoss()
+    opt = Momentum(RESNET_LR, parameters=model.parameters())
+
+    def step():
+        loss = ce(model(x), y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return float(loss)
+
+    def steps(n):
+        losses, walls = [], []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            losses.append(step())
+            walls.append(1e3 * (time.perf_counter() - t0))
+        return losses, walls
+
+    # bn1's input and running statistics around the first step
+    seen = {}
+    hook = model.bn1.register_forward_pre_hook(
+        lambda m, a: seen.setdefault("x", a[0].detach().float()))
+    before = (model.bn1._mean.clone(), model.bn1._variance.clone())
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls = steps(1)
+    hook.remove()
+    after = (model.bn1._mean.clone(), model.bn1._variance.clone())
+    xs = seen.pop("x")
+    n = xs.numel() // xs.shape[1]
+    var = xs.var(dim=(0, 2, 3), unbiased=False) * n / (n - 1)
+    stats_err = max(
+        _rel_to_max(after[0], 0.9 * before[0] + 0.1 * xs.mean(dim=(0, 2, 3))),
+        _rel_to_max(after[1], 0.9 * before[1] + 0.1 * var))
+    del xs
+    more_losses, more_walls = steps(timed - 1 + more)
+    losses += more_losses
+    walls += more_walls
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ranges = {"conv2d": "convolution", "batch_norm": "batch_norm"}
+    with _traced_functionals(torch, ranges):
+        prof = _vision_profile(torch, step, "resnet50_train_step_f32",
+                               ranges)
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        tf32_losses, tf32_walls = steps(tf32_steps)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    model.to(torch.bfloat16).eval()
+    xb = x.to(torch.bfloat16)
+    with torch.no_grad():
+        logits = model(xb)
+        fwd_ms = [_event_ms(torch, lambda: model(xb))[1] for _ in range(5)]
+    # the first step pays cuDNN's and the allocator's warm-up
+    step_ms = statistics.median(walls[1:timed])
+    tf32_ms = statistics.median(tf32_walls[1:])
+    rec = {"phase": "resnet50_train_f32", "gpu": smi, "batch": b,
+           "image": [3, side, side], "lr": RESNET_LR,
+           "conv_precision": "float32 (cudnn.allow_tf32 False)",
+           "losses_f32": losses, "losses_tf32": tf32_losses,
+           "step_ms_f32": walls[:timed],
+           "images_per_s_f32": b / step_ms * 1e3,
+           "step_ms_tf32": tf32_walls,
+           "images_per_s_tf32": b / tf32_ms * 1e3,
+           "bn1_running_stats_err_over_max": stats_err,
+           "peak_mem_gb": peak,
+           "eval_bf16_forward_ms": fwd_ms,
+           "eval_bf16_images_per_s": b / statistics.median(fwd_ms) * 1e3,
+           "step_device_ms": prof["device_ms"],
+           "step_device_busy_share": prof["device_busy_share"]}
+    emit(rec)
+    emit({**prof, "gpu": smi})
+    every = losses + tf32_losses
+    check(all(math.isfinite(v) for v in every), f"non-finite loss {every}")
+    check(all(v < losses[0] for v in tf32_losses),
+          f"the ResNet-50 loss did not fall: {every}")
+    check(stats_err <= 1e-5, f"bn1's running statistics did not move by "
+          f"paddle's rule: {stats_err}")
+    check(logits.shape == (b, classes)
+          and bool(torch.isfinite(logits).all()), "bf16 eval logits")
+    del model, opt
+
+
+def vision_phase(torch, dev, smi):
+    """Phase 20: the vision tier. (a) the SD UNet's captured DDIM sampler
+    at stable-diffusion-2-base's widths, with its f32 parity run, (b)
+    ResNet-50 training at resnet50_eager's recipe. Returns the
+    ``sd_unet`` launch counts (one captured sample)."""
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = _sd_unet(torch, dev, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _sd_f32_parity(torch, dev, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _resnet50(torch, dev, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "vision_done", "wall_s": time.perf_counter() - t_phase})
+    return {"sd_unet": launches}
+
+
 def main():
     import torch
 
@@ -5392,12 +5877,14 @@ def main():
     graphs_serving_phase(torch, dev, smi)
     lora_launches = lora_phase(torch, dev, smi)
     gpt_launches = gpt_phase(torch, dev, smi)
+    vision_launches = vision_phase(torch, dev, smi)
     paths = {"serving": launches, "generate": gen_launches,
              "train": train_launches, "train_f32_parity": parity_launches,
              "packed_train": packed_launches,
              "packed_f32_parity": packed_parity_launches,
              "int8_serving": int8_launches, **batch_launches,
-             **prefix_launches, **lora_launches, **gpt_launches}
+             **prefix_launches, **lora_launches, **gpt_launches,
+             **vision_launches}
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
         rec = primary[name]

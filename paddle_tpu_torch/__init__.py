@@ -9,7 +9,7 @@ kernels of ``paddle_tpu/ops/pallas`` become hand-written CUDA kernels under
 passes ``device="cpu"``.
 """
 from . import (amp, distributed, incubate, inference, jit, nlp, nn, obs,
-               ops, optimizer, peft, profiler, regularizer, serving)
+               ops, optimizer, peft, profiler, regularizer, serving, vision)
 from .inference import create_serving_engine
 from .jit import JittedTrainStep
 from .incubate.distributed.models.moe import MoELayer
@@ -22,7 +22,7 @@ __version__ = "0.1.0"
 
 __all__ = ["amp", "distributed", "incubate", "inference", "jit", "nlp", "nn",
            "obs", "ops", "optimizer", "peft", "profiler", "regularizer",
-           "serving", "create_serving_engine", "LlamaConfig",
+           "serving", "vision", "create_serving_engine", "LlamaConfig",
            "LlamaForCausalLM", "LlamaPretrainingCriterion", "GPTConfig",
            "GPTForCausalLM", "FusedMultiTransformer", "MoELayer",
            "JittedTrainStep", "ServingEngine"]

@@ -12,7 +12,9 @@ The GPT's blocks are the ModuleList ``gpt.h``, so the reference's
 ``FusedMultiTransformer`` ((L, in, out), int8 after
 ``quantize_weight_only`` with their (L, out) scales) and ``MoELayer``
 ((E, in, out) and the (d_model, E) gate) are no Linear weights and carry
-as they are.
+as they are. Persistent buffers travel too, as they are (BatchNorm's
+``_mean`` and ``_variance`` running statistics, keyed as the
+reference's); conv weights are no Linear weights and carry untransposed.
 """
 from __future__ import annotations
 
@@ -26,14 +28,19 @@ __all__ = ["load_paddle_tpu_arrays", "paddle_tpu_arrays_to_port"]
 
 
 def _params(model):
-    """key -> (parameter, is a Linear weight) in registration order."""
+    """key -> (parameter or persistent buffer, is a Linear weight) in
+    registration order."""
     out = {}
     for name, mod in model.named_modules():
+        prefix = f"{name}." if name else ""
         for pname, p in mod.named_parameters(recurse=False):
-            key = f"{name}.{pname}" if name else pname
-            out[key] = (p, (isinstance(mod, nn.Linear) and pname == "weight")
-                        or (isinstance(mod, QuantizedLinear)
-                            and pname == "quant_weight"))
+            out[prefix + pname] = (
+                p, (isinstance(mod, nn.Linear) and pname == "weight")
+                or (isinstance(mod, QuantizedLinear)
+                    and pname == "quant_weight"))
+        for bname, b in mod.named_buffers(recurse=False):
+            if bname not in mod._non_persistent_buffers_set:
+                out[prefix + bname] = (b, False)
     return out
 
 
@@ -42,8 +49,8 @@ def paddle_tpu_arrays_to_port(model, arrays):
     ``key -> numpy array`` with the keys and transposes of
     :func:`load_paddle_tpu_arrays` (each Linear weight transposed). Raises
     on a missing or extra key and on a shape that does not match. Use it
-    to hold the reference's gradients or updated parameters against the
-    port's."""
+    to hold the reference's gradients, updated parameters or running
+    statistics against the port's."""
     params = _params(model)
     missing = sorted(set(params) - set(arrays))
     extra = sorted(set(arrays) - set(params))
@@ -65,8 +72,8 @@ def paddle_tpu_arrays_to_port(model, arrays):
 
 
 def load_paddle_tpu_arrays(model, arrays):
-    """Copy the reference's arrays into ``model``'s parameters (onto the
-    model's device and dtype). Raises on a missing or extra key and on a
+    """Copy the reference's arrays into ``model``'s parameters and
+    persistent buffers (onto the model's device and their dtypes). Raises on a missing or extra key and on a
     shape that does not match. Returns the model."""
     ported = paddle_tpu_arrays_to_port(model, arrays)
     params = _params(model)

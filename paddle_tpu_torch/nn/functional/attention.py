@@ -6,8 +6,12 @@ a mask or dropout, attention goes through
 :class:`~paddle_tpu_torch.ops.flash_attention.FlashAttentionFunction` (K4
 forward, K7 backward on CUDA tensors; their plain versions on CPU
 tensors), as the reference routes to its Pallas flash kernel. An
-``attn_mask`` or dropout takes the plain :func:`_xla_attention`, as the
-reference sends them to XLA. Packed (cu_seqlens) attention,
+``attn_mask``, dropout or a head width under 64 takes the plain
+:func:`_xla_attention` on every device, as the reference sends them to
+XLA (its gate, ``paddle_tpu/nn/functional/attention.py:71-75`` and
+``:107-113``, is a shape rule: D < 64 never reaches its kernel). Widths
+of 64 and above reach the kernel, which takes D in {64, 128} and refuses
+the rest (ROADMAP A10). Packed (cu_seqlens) attention,
 :func:`flash_attn_unpadded`, goes through ``VarlenFlashAttentionFunction``
 (``ops/varlen_flash_attention.py``: K3 forward, K8 backward; K8a/K8b in
 f32). Under ``amp.auto_cast`` the dense functionals cast their inputs by
@@ -27,6 +31,9 @@ from ...ops.varlen_flash_attention import VarlenFlashAttentionFunction
 
 __all__ = ["scaled_dot_product_attention", "flash_attention",
            "flash_attn_unpadded", "sliding_window_attention"]
+
+# the reference's gate: narrower heads take the XLA path on every backend
+_KERNEL_MIN_HEAD_DIM = 64
 
 
 def _xla_attention(q, k, v, mask=None, causal=False, dropout_p=0.0,
@@ -63,13 +70,18 @@ def sliding_window_attention(query, key, value, window_size, training=True,
                              name=None):
     """Causal sliding-window attention (Mistral semantics: each query
     attends to the last ``window_size`` keys, itself included) through
-    K4's banded tiles (K7 backward)."""
+    K4's banded tiles (K7 backward); heads narrower than 64 through the
+    plain band-masked :func:`_xla_attention`, as the reference."""
     w = int(window_size)
     if w < 1:
         raise ValueError(f"window_size must be >= 1, got {window_size}")
     if amp_state.enabled:
         query, key, value = amp.cast_inputs_for_op(
             "sliding_window_attention", query, key, value)
+    if query.shape[-1] < _KERNEL_MIN_HEAD_DIM:
+        band = band_mask(query.shape[1], key.shape[1], True, w,
+                         device=query.device)
+        return _xla_attention(query, key, value, mask=band)
     return FlashAttentionFunction.apply(query, key, value, True, None, w)
 
 
@@ -83,7 +95,8 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     if amp_state.enabled:
         query, key, value, attn_mask = amp.cast_inputs_for_op(
             "scaled_dot_product_attention", query, key, value, attn_mask)
-    if attn_mask is None and dropout == 0.0:
+    if attn_mask is None and dropout == 0.0 \
+            and query.shape[-1] >= _KERNEL_MIN_HEAD_DIM:
         return FlashAttentionFunction.apply(query, key, value, is_causal)
     return _xla_attention(query, key, value, mask=attn_mask,
                           causal=is_causal, dropout_p=dropout,

@@ -2083,23 +2083,102 @@ def test_cuda_moe_grouped_matches_einsum(cuda):
 
 
 @pytest.mark.cuda
-def test_cuda_head_dim_16_refuses_naming_a10(cuda):
-    """D = 16 (the tiny configs) has no kernel arm on the card: the
-    models raise, with no fallback."""
+def test_cuda_head_dim_16_takes_the_plain_path_and_k5_refuses_a10(cuda):
+    """D = 16 (the tiny configs) takes the reference's gate on the card:
+    SDPA sends it to the plain attention, so the tiny GPT and
+    FusedMultiTransformer's prefill answer and equal their plain-version
+    runs; the fused stack's decode step calls K5 directly, which has no
+    D = 16 arm, and raises, with no fallback."""
     from paddle_tpu_torch.incubate.nn import FusedMultiTransformer
     from paddle_tpu_torch.nlp import GPTConfig, GPTForCausalLM
 
     model = GPTForCausalLM(GPTConfig.tiny(), device=cuda)
-    with pytest.raises(NotImplementedError, match="A10"):
-        model(torch.randint(0, 128, (2, 8), device=cuda))
-    fmt = FusedMultiTransformer(64, 4, 128, num_layers=1, device=cuda)
+    ids = torch.randint(0, 128, (2, 8), device=cuda)
+    ops.reset_launches()
     with torch.no_grad():
-        with pytest.raises(NotImplementedError, match="A10"):
-            fmt(torch.randn(2, 8, 64, device=cuda))
-        caches = fmt.gen_cache(2, 16)
+        logits = model(ids)
+        assert not any(ops.LAUNCHES.values())
         with ops.plain_versions():
-            _, caches = fmt(torch.randn(2, 8, 64, device=cuda),
-                            caches=caches, time_step=0)
+            assert torch.equal(logits, model(ids))
+    fmt = FusedMultiTransformer(64, 4, 128, num_layers=1, device=cuda)
+    x = torch.randn(2, 8, 64, device=cuda)
+    with torch.no_grad():
+        out = fmt(x)
+        with ops.plain_versions():
+            assert torch.equal(out, fmt(x))
+        caches = fmt.gen_cache(2, 16)
+        _, caches = fmt(x, caches=caches, time_step=0)
         with pytest.raises(NotImplementedError, match="A10"):
             fmt(torch.randn(2, 1, 64, device=cuda), caches=caches,
                 time_step=8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,sk,h", [(2, 4096, 4096, 5), (2, 4096, 77, 5),
+                                       (2, 64, 64, 20)])
+def test_cuda_flash_attention_at_unet_shapes(cuda, b, sq, sk, h):
+    """K4 at the SD UNet's attention (bf16, non-causal, HK = H): the 64 x
+    64 level's self- and cross-attention (77 keys: a partial key tile) and
+    the 8 x 8 level's self-attention."""
+    g = torch.Generator(device=cuda).manual_seed(sq + sk + h)
+    q = _rnd(g, torch.bfloat16, b, sq, h, 64)
+    k, v = (_rnd(g, torch.bfloat16, b, sk, h, 64) for _ in range(2))
+    out = ops.flash_attention(q, k, v)
+    ref = ops.flash_attention_plain(q, k, v)[0]
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+@pytest.mark.cuda
+def test_cuda_ddim_sampler_captured_equals_eager(cuda):
+    """The SD sampler's whole loop as one CUDA graph: its latents equal
+    the eager loop's bit for bit, a repeated call replays the cached
+    graph, and every self- and cross-attention of every step went through
+    K4 (7 blocks x 2 x 3 steps)."""
+    from paddle_tpu_torch.vision.models import (SDUNetConfig,
+                                                UNet2DConditionModel,
+                                                ddim_sample, sd_unet)
+
+    cfg = SDUNetConfig(block_out_channels=(64, 128), attention_head_dim=64,
+                       cross_attention_dim=64, norm_num_groups=8,
+                       sample_size=16)
+    unet = UNet2DConditionModel(cfg, device=cuda).to(torch.bfloat16)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    lat = _rnd(g, torch.bfloat16, 2, 4, 16, 16)
+    ctx = _rnd(g, torch.bfloat16, 2, 77, 64)
+    ops.reset_launches()
+    first = ddim_sample(unet, lat, ctx, num_inference_steps=3)
+    ops.reset_launches()
+    again = ddim_sample(unet, lat, ctx, num_inference_steps=3)
+    assert dict(ops.LAUNCHES)["flash_attention"] == 42
+    loop = next(iter(unet._ddim_loops.values()))
+    assert len(unet._ddim_loops) == 1 and loop.graph.graph is not None
+    sd_unet._EAGER = True
+    try:
+        eager = ddim_sample(unet, lat, ctx, num_inference_steps=3)
+    finally:
+        sd_unet._EAGER = False
+    assert torch.equal(first, again) and torch.equal(first, eager)
+    assert torch.isfinite(first).all()
+
+
+@pytest.mark.cuda
+def test_cuda_resnet18_step(cuda):
+    """One Momentum step of resnet18 on the card: a finite loss, moved
+    running statistics, and a bf16 eval forward."""
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import resnet18
+
+    model = resnet18(num_classes=10, device=cuda)
+    opt = Momentum(0.1, parameters=model.parameters())
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = _rnd(g, torch.float32, 8, 3, 64, 64)
+    y = torch.randint(0, 10, (8,), device=cuda, generator=g)
+    loss = CrossEntropyLoss()(model(x), y)
+    loss.backward()
+    opt.step()
+    assert torch.isfinite(loss) and float(model.bn1._mean.abs().max()) > 0
+    model.to(torch.bfloat16).eval()
+    with torch.no_grad():
+        assert torch.isfinite(model(x.bfloat16())).all()

@@ -47,7 +47,8 @@ def test_import_leaves_jax_and_reference_out(tmp_path):
                "paddle_tpu_torch.inference, "
                "paddle_tpu_torch.incubate.nn.functional, "
                "paddle_tpu_torch.incubate.distributed.models.moe, "
-               "paddle_tpu_torch.nlp.gpt; "
+               "paddle_tpu_torch.nlp.gpt, paddle_tpu_torch.vision, "
+               "paddle_tpu_torch.vision.models.sd_unet; "
                "print(sorted(m for m in sys.modules if m == 'jax' or "
                "m.startswith(('jax.', 'jaxlib')) or m == 'paddle_tpu' or "
                "m.startswith('paddle_tpu.')))", tmp_path)
@@ -106,6 +107,21 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     stream = cfd.submit(np.arange(1, 6, dtype=np.int32), max_new_tokens=2)
     cfd.run_until_idle()
     assert len(stream.result()) == 2
+
+
+def test_vision_entry_points_raise_without_cuda(monkeypatch):
+    from paddle_tpu_torch.vision.models import (SDUNetConfig,
+                                                UNet2DConditionModel,
+                                                mobilenet_v2, resnet18)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for build in (lambda **kw: resnet18(num_classes=10, **kw),
+                  lambda **kw: mobilenet_v2(num_classes=10, **kw),
+                  lambda **kw: UNet2DConditionModel(SDUNetConfig.tiny(),
+                                                    **kw)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()
+        build(device="cpu")
 
 
 def test_chip_smoke_refuses_without_cuda_and_outside_a_checkout(tmp_path):
