@@ -321,6 +321,36 @@ Phases (any failure raises and the script exits non-zero):
     64, B = 2, S = 4,096, H = 5, D = 64; cross-attention there, Sk = 77;
     self-attention at 8 x 8, S = 64, H = 20; non-causal, against one
     SDPA call each).
+21. BASELINE config #4 and its layer tier (run last; every record beside
+    the card's name and power limit): (a) ERNIE-3.0 base
+    (``ErnieConfig()``: 12 layers, hidden 768, 12 heads, FFN 3,072, vocab
+    40,000) pretraining through the auto-parallel ``Engine`` by
+    ``scripts/bench_suite.py``'s ``ernie_engine`` recipe at the model's
+    full length (f32, dropout 0, AdamW(1e-4), labels on every 7th token,
+    B = 16, S = 512): a cold and a warm ``fit`` epoch of 8 batches with
+    TF32 off and one with TF32 on, ms a step (median by CUDA events),
+    tokens/s, one profiled step by family (products, the plain f32
+    attention, LayerNorm, the MLM log-softmax, AdamW), no K4 / K7 (the
+    masked attention is plain, as the reference's), the warm epoch's last
+    loss below the cold epoch's first, ``evaluate`` and ``predict`` on the
+    card, ``save`` -> a new ``Engine``'s ``load`` evaluating equal, and
+    the first step's loss within 1e-5 of the CPU's on the same weights
+    (B = 1, S = 128); (b) ``nn.Transformer`` at its defaults (d_model
+    512, 8 heads, 6 + 6 layers, FFN 2,048; dropout 0) in bf16, B = 16,
+    source = target = 512 under the causal target mask: one train step
+    with exactly 12 K4 and 12 K7 (the encoder's self- and the decoder's
+    cross-attention), its loss and whole gradient within 2^-5 (relative
+    L2) of the plain path's, each parameter's gradient within that or
+    within bf16's own gap from the f32 plain step, and 32 cached decode
+    steps (``Cache``, no mask:
+    12 K4 a step at Sq = 1) against the plain path; (c) ``hapi.Model``
+    with LeNet on synthetic 28 x 28 images: ``evaluate``, ``fit``,
+    ``evaluate`` (accuracy and loss improve), ``save`` / ``load``; (d)
+    T5-small (``T5Config()``, dropout 0) in f32, 5 train steps at B = 16,
+    source 512, target 128: the loss falls, exactly 32 K1 and 32 K6 a
+    step (its RMSNorms; its attention is plain). ``scripts/
+    torch_bert_phase.py`` runs this phase alone, after phase 2's K4 / K7
+    cases at nn.Transformer's shapes.
 
 The line before the last is the ``{"kernels": [...]}`` record (each
 kernel's launches come from the run of the path that carries it: K1-K3
@@ -333,7 +363,9 @@ runs of phase 12; ``launches_by_path`` has every path's count, phase 14's
 cached float and int8-KV runs, phase 16's ``frontdoor``, phase 17's
 ``resilience``, phase 15's ``spec_serving``, phase 18's ``lora`` and
 ``lora_fp16``, phase 19's ``gpt_train`` and ``fmt_decode`` and phase
-20's ``sd_unet`` (one captured sample) among them; K4's and K7's fp16 arms take theirs from phase
+20's ``sd_unet`` (one captured sample) and phase 21's
+``ernie_engine``, ``transformer_train``, ``transformer_decode`` and
+``t5_train`` among them; K4's and K7's fp16 arms take theirs from phase
 18 (c));
 the last
 line is ``{"ok": true, "device": {...}}``.
@@ -342,6 +374,7 @@ Without CUDA it prints no result and exits 2.
 from __future__ import annotations
 
 import contextlib
+import copy
 import gc
 import itertools
 import json
@@ -429,6 +462,30 @@ RESNET_SHAPE = (32, 224, 1000)
 # last 5 losses below the first
 RESNET_STEPS = (5, 5, 5)
 RESNET_LR = 0.1
+# phase 21 and phase 2's rows at its attention: (a) BASELINE config #4,
+# ERNIE-3.0 base through the auto-parallel Engine at scripts/
+# bench_suite.py's ernie_engine recipe with the model's full length: batch,
+# sequence, batches an epoch, and the CPU parity check's sequence (batch
+# 1); (b) nn.Transformer at its defaults (d_model 512, 8 heads, D = 64,
+# 6 + 6 layers, FFN 2,048) in bf16: batch, source = target length,
+# incremental decode steps; its K4 / K7 calls as (label, B, Sq, Sk, H,
+# D): the encoder's self-attention and the decoder's cross-attention
+# (non-causal, no mask), the cached decode's cross-attention over the
+# memory and its self-attention at the last step; (c) LeNet under
+# hapi.Model: samples, batch, epochs; (d) t5-small: batch, source and
+# target lengths, steps
+ERNIE_SHAPE = (16, 512, 8, 128)
+TRANSFORMER_SHAPE = (16, 512, 32)
+TRANSFORMER_ATTN = ("transformer_train", 16, 512, 512, 8, 64)
+TRANSFORMER_DECODE_CROSS = ("transformer_decode_cross", 16, 1, 512, 8, 64)
+TRANSFORMER_DECODE_SELF = ("transformer_decode_self", 16, 1, 32, 8, 64)
+BERT_PHASE_LABELS = ("transformer_",)
+LENET_SHAPE = (512, 64, 3)
+T5_SHAPE = (16, 512, 128, 5)
+# (a)'s bound on the first step's loss, the card's (TF32 off) against the
+# CPU's on the same weights and batch: relative, f32 summed in other
+# orders over 12 layers and a 40,000-way log-softmax
+ERNIE_CPU_BOUND = 1e-5
 # (c)'s width: Llama-2-7B's embed, heads, FFN and layers; (f)'s:
 # Mixtral-8x7B's d_model, d_hidden and experts
 FMT_WIDTH = (4096, 32, 11008, 32)
@@ -1011,6 +1068,59 @@ def k4_unet_cases(torch, g, dev):
                                   False))
 
 
+def k47_transformer_cases(torch, g, dev):
+    """K4 and K7 at nn.Transformer's attention (phase 21 (b)), bf16,
+    non-causal with HK = H: K4 at the encoder's self-attention and the
+    decoder's cross-attention (one shape) and at the cached decode's two
+    calls (Sq = 1), K7 at the training shape; each against its plain
+    version and non-causal SDPA (its whole backward through autograd for
+    K7)."""
+    from paddle_tpu_torch import ops
+    import torch.nn.functional as tF
+
+    dtype = torch.bfloat16
+    for label, b, sq, sk, h, d in (TRANSFORMER_ATTN, TRANSFORMER_DECODE_CROSS,
+                                   TRANSFORMER_DECODE_SELF):
+        q = torch.randn(b, sq, h, d, generator=g, device=dev).to(dtype)
+        k = torch.randn(b, sk, h, d, generator=g, device=dev).to(dtype)
+        v = torch.randn(b, sk, h, d, generator=g, device=dev).to(dtype)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        nbytes = (2 * b * sq * h * d + 2 * b * sk * h * d) * 2 \
+            + 4 * b * h * sq
+        yield dict(
+            name="flash_attention", dtype=dtype,
+            shape=f"{label}:B={b},Sq={sq},Sk={sk},H={h},HK={h},D={d},"
+                  f"non-causal",
+            primary=False,
+            kernel=lambda q=q, k=k, v=v: ops.flash_attention(q, k, v),
+            plain=lambda q=q, k=k, v=v: ops.flash_attention_plain(
+                q, k, v)[0],
+            library=lambda qt=qt, kt=kt, vt=vt:
+                tF.scaled_dot_product_attention(qt, kt, vt),
+            bound=attention_bound(nbytes, 4.0 * sq * sk * b * h * d,
+                                  False))
+    label, b, s, _, h, d = TRANSFORMER_ATTN
+    q, k, v, do = (torch.randn(b, s, h, d, generator=g, device=dev).to(dtype)
+                   for _ in range(4))
+    out, lse = ops.flash_attention(q, k, v, return_lse=True)
+    delta = ops.flash_attention_bwd_delta(out, do)
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    lo = tF.scaled_dot_product_attention(qt, kt, vt)
+    dot = do.transpose(1, 2).contiguous()
+    nbytes = 7 * b * s * h * d * 2 + 8 * b * h * s
+    yield dict(
+        name="flash_attention_bwd", dtype=dtype, primary=False,
+        shape=f"{label}:B={b},S={s},H={h},HK={h},D={d},non-causal",
+        kernel=lambda: ops.flash_attention_bwd_fused(q, k, v, do, lse, delta,
+                                                     False),
+        plain=lambda: ops.flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                                    False, delta=delta),
+        library=lambda: torch.autograd.grad(lo, (qt, kt, vt), dot,
+                                            retain_graph=True),
+        bound=attention_bound(nbytes, 10.0 * d * s * s * b * h, False))
+
+
 def k5_cases(torch, g, dev):
     from paddle_tpu_torch import ops
     import torch.nn.functional as tF
@@ -1423,7 +1533,8 @@ def all_kernel_cases(torch, dev):
                            k3_cases(torch, g, dev), k4_cases(torch, g, dev),
                            k4_unet_cases(torch, g, dev),
                            k5_cases(torch, g, dev), k6_cases(torch, g, dev),
-                           k7_cases(torch, g, dev), k8_cases(torch, g, dev))
+                           k7_cases(torch, g, dev), k8_cases(torch, g, dev),
+                           k47_transformer_cases(torch, g, dev))
 
 
 def kernel_phase(torch, dev):
@@ -5489,12 +5600,13 @@ def _vision_family(name):
     return _kernel_family(name)
 
 
-def _vision_profile(torch, fn, label, ranges):
+def _vision_profile(torch, fn, label, ranges, family=None):
     """Device time of one call of ``fn`` by family: a kernel that runs
     inside a device-side span of one of the record_function ``ranges``
     (a dict, range name -> family: the forward's convolutions and norm
     passes) counts for that family, the rest by :func:`_vision_family`
-    (the backward's BatchNorm passes fall under "other"). Device busy
+    (the backward's BatchNorm passes fall under "other"; ``family``
+    replaces that rule for a model without convolutions). Device busy
     share = summed kernel time over the call's wall under the profiler."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -5518,7 +5630,7 @@ def _vision_profile(torch, fn, label, ranges):
             continue
         fam = next((ranges[r] for r, sp in spans.items()
                     if any(x <= a and b <= y for x, y in sp)),
-                   None) or _vision_family(ev.name)
+                   None) or (family or _vision_family)(ev.name)
         fams[fam] = fams.get(fam, 0.0) + (b - a)
         n += 1
     busy = sum(fams.values())
@@ -5848,6 +5960,489 @@ def vision_phase(torch, dev, smi):
     return {"sd_unet": launches}
 
 
+# ---------------------------------------------------------------- phase 21
+def _recorded_steps(torch, step):
+    """Wrap the train step's ``_one_step`` so each step leaves its loss
+    and a pair of CUDA events; returns the list they land in."""
+    rec = []
+    one = step._one_step
+
+    def timed(*a, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss = one(*a, **kw)
+        end.record()
+        rec.append((loss, start, end))
+        return loss
+
+    step._one_step = timed
+    return rec
+
+
+def _epoch(torch, eng, data, batch):
+    """One ``Engine.fit`` epoch; (losses, step ms by CUDA events, wall
+    s)."""
+    step = eng._ensure_train_step()
+    rec = _recorded_steps(torch, step)
+    t0 = time.perf_counter()
+    eng.fit(data, batch_size=batch, epochs=1, verbose=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    del step._one_step
+    return ([float(x[0]) for x in rec],
+            [x[1].elapsed_time(x[2]) for x in rec], wall)
+
+
+def _ernie_family(name):
+    """A kernel's family in a model without convolutions: cuBLAS's f32
+    products are named ``..._xmma_gemm_...`` on Hopper, which the vision
+    rule would count as convolutions."""
+    low = name.lower()
+    if "gemm" in low or "nvjet" in low or "cutlass" in low:
+        return "matmul"
+    return _kernel_family(name)
+
+
+def _ernie_step_profile(torch, eng, data, batch):
+    """Where one ERNIE train step's device time goes: the forward's
+    LayerNorms, plain attention and MLM cross entropy inside
+    record_function ranges of their functionals, the AdamW update in its
+    own, the rest by kernel name."""
+    from torch.profiler import record_function
+
+    step = eng._ensure_train_step()
+    ins, lbs = eng._split_batch(next(iter(eng._loader(data, batch, False))))
+    opt = step._optimizer
+    apply = opt.apply
+
+    def traced_apply(*a, **kw):
+        with record_function("adamw_update"):
+            return apply(*a, **kw)
+
+    opt.apply = traced_apply
+    ranges = {"layer_norm": "LayerNorm", "cross_entropy":
+              "MLM log-softmax + NLL", "scaled_dot_product_attention":
+              "attention (plain f32)", "adamw_update": "AdamW update"}
+    try:
+        with _traced_functionals(torch, [k for k in ranges
+                                         if k != "adamw_update"]):
+            prof = _vision_profile(torch, lambda: step(ins, lbs),
+                                   "ernie_engine_train_step_f32", ranges,
+                                   family=_ernie_family)
+    finally:
+        del opt.apply
+    step.sync_to_model()
+    return prof
+
+
+def _ernie(torch, dev, smi):
+    """(a) BASELINE config #4: ERNIE-3.0 base (``ErnieConfig()``: 12
+    layers, hidden 768, 12 heads, FFN 3,072, vocab 40,000) pretraining
+    through ``Engine.fit``, ernie_engine's recipe at B = 16, S = 512: f32,
+    dropout 0, AdamW(1e-4), a cold and a warm epoch of 8 batches with TF32
+    off, one more with TF32 on; evaluate and predict on the card, save ->
+    a new Engine's load evaluates equal; the first step's loss against
+    the CPU's on the same weights at B = 1, S = 128. Returns the timed
+    epochs' launches (ERNIE's attention runs under its additive mask:
+    the plain path, no K4 / K7, as the reference's XLA path)."""
+    import tempfile
+
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.distributed.auto_parallel import Engine
+    from paddle_tpu_torch.nlp import (BertPretrainingCriterion, ErnieConfig,
+                                      ErnieForPretraining)
+    from paddle_tpu_torch.optimizer import AdamW
+
+    import numpy as np
+    from paddle_tpu_torch.io import Dataset
+
+    class ErnieData(Dataset):
+        """ernie_engine's dataset: ids from RandomState(seed) in [1,
+        vocab), labels on every 7th token, -100 elsewhere."""
+
+        def __init__(self, n, seq, seed):
+            rng = np.random.RandomState(seed)
+            self.ids = rng.randint(1, cfg.vocab_size, (n, seq)).astype("i8")
+            self.labels = np.full((n, seq), -100, "i8")
+            self.labels[:, ::7] = self.ids[:, ::7]
+
+        def __len__(self):
+            return len(self.ids)
+
+        def __getitem__(self, i):
+            return self.ids[i], self.labels[i]
+
+    b, seq, batches, cpu_seq = ERNIE_SHAPE
+    cfg = ErnieConfig(hidden_dropout_prob=0.0,
+                      attention_probs_dropout_prob=0.0)
+    check(cfg.hidden_size // cfg.num_attention_heads == 64
+          and cfg.max_position_embeddings >= seq, "ERNIE widths")
+    t0 = time.perf_counter()
+    model = ErnieForPretraining(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(SEED + 31))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    crit = BertPretrainingCriterion()
+
+    def loss_fn(out, labels):
+        return crit(out[0], out[1], labels)
+
+    def engine(m):
+        return Engine(m, loss_fn, AdamW(1e-4, parameters=m.parameters()),
+                      device=dev)
+
+    # the first step's loss against the CPU's on the same weights
+    probe = ErnieData(1, cpu_seq, SEED + 32)
+    pids, plabels = (torch.from_numpy(a) for a in (probe.ids, probe.labels))
+    with torch.no_grad():
+        gpu_loss = float(loss_fn(model(pids.to(dev)), plabels.to(dev)))
+    cpu_model = ErnieForPretraining(cfg, device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in
+                               model.state_dict().items()})
+    with torch.no_grad():
+        cpu_loss = float(loss_fn(cpu_model(pids), plabels))
+    del cpu_model
+    cpu_err = abs(gpu_loss - cpu_loss) / abs(cpu_loss)
+    eng = engine(model)
+    data = ErnieData(b * batches, seq, SEED)
+    torch.cuda.reset_peak_memory_stats()
+    cold, cold_ms, cold_wall = _epoch(torch, eng, data, b)
+    ops.reset_launches()
+    warm, warm_ms, warm_wall = _epoch(torch, eng, data, b)
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    prof = _ernie_step_profile(torch, eng, data, b)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32, tf32_ms, tf32_wall = _epoch(torch, eng, data, b)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    tokens = b * seq
+    step_ms = statistics.median(warm_ms)
+    tf32_step_ms = statistics.median(tf32_ms)
+    n_params = sum(p.numel() for p in model.parameters())
+    # evaluate and predict on the card; save -> a new engine loads equal
+    held = ErnieData(2 * b + 3, seq, SEED + 33)
+    t0 = time.perf_counter()
+    ev = eng.evaluate(held, batch_size=b, verbose=0)
+    eval_s = time.perf_counter() - t0
+    preds = eng.predict(held, batch_size=b)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ernie")
+        eng.save(path)
+        other = ErnieForPretraining(cfg, device=dev,
+                                    generator=torch.Generator(
+                                        device=dev).manual_seed(SEED + 34))
+        eng2 = engine(other)
+        eng2.load(path)
+        ev2 = eng2.evaluate(held, batch_size=b, verbose=0)
+    tied = other.cls.decoder_weight is \
+        other.bert.embeddings.word_embeddings.weight
+    del other, eng2
+    rec = {"phase": "ernie_engine_train_f32", "gpu": smi,
+           "config": "ErnieConfig() (ERNIE-3.0 base), dropout 0",
+           "layers": cfg.num_hidden_layers, "hidden": cfg.hidden_size,
+           "heads": cfg.num_attention_heads, "vocab": cfg.vocab_size,
+           "params": n_params, "batch": b, "seq": seq,
+           "steps_an_epoch": batches, "model_init_s": init_s,
+           "losses_cold": cold, "losses_warm": warm, "losses_tf32": tf32,
+           "step_ms_cold": cold_ms, "step_ms_warm": warm_ms,
+           "step_ms_tf32": tf32_ms, "epoch_wall_s": {
+               "cold": cold_wall, "warm": warm_wall, "tf32": tf32_wall},
+           "step_ms": step_ms, "train_tok_per_s": tokens / step_ms * 1e3,
+           "step_ms_tf32_median": tf32_step_ms,
+           "train_tok_per_s_tf32": tokens / tf32_step_ms * 1e3,
+           "warm_epoch_tok_per_s_wall": tokens * batches / warm_wall,
+           "step_device_ms": prof["device_ms"],
+           "step_device_busy_share": prof["device_busy_share"],
+           "step_kernels_launched": prof["kernels_launched"],
+           "launches_warm_epoch": {k: v for k, v in launches.items() if v},
+           "peak_mem_gb": peak,
+           "eval_loss": ev["loss"], "eval_loss_after_load": ev2["loss"],
+           "eval_s": eval_s, "predict_batches": [
+               int(p[0].shape[0]) for p in preds],
+           "first_step_loss_b1_s128": {"cuda": gpu_loss, "cpu": cpu_loss,
+                                       "rel_err": cpu_err,
+                                       "bound": ERNIE_CPU_BOUND}}
+    emit(rec)
+    emit({**prof, "gpu": smi})
+    every = cold + warm + tf32
+    check(all(math.isfinite(v) for v in every), f"non-finite loss {every}")
+    check(len(cold) == len(warm) == batches, f"steps an epoch {rec}")
+    check(warm[-1] < cold[0], f"the ERNIE loss did not fall: {every}")
+    check(not any(launches.values()), f"ERNIE's masked attention reached a "
+          f"kernel: {launches}")
+    check(cpu_err <= ERNIE_CPU_BOUND, f"ERNIE's first loss on the card is "
+          f"{gpu_loss}, on the CPU {cpu_loss}")
+    check(math.isfinite(ev["loss"]) and tied
+          and abs(ev2["loss"] - ev["loss"]) <= 1e-6 * abs(ev["loss"]),
+          f"Engine.save -> load evaluates {ev2['loss']} against "
+          f"{ev['loss']} (tied {tied})")
+    check([p[0].shape[0] for p in preds] == [b, b, 3]
+          and all(p[0].device.type == "cuda"
+                  and bool(torch.isfinite(p[0]).all()) for p in preds),
+          "Engine.predict on the card")
+    del eng, model, preds
+    return launches
+
+
+def _transformer(torch, dev, smi):
+    """(b) ``nn.Transformer`` at its defaults (dropout 0), bf16, B = 16,
+    source = target = 512, the causal target mask from
+    ``generate_square_subsequent_mask``: one train step through the
+    kernels (exactly 12 K4 and 12 K7: the encoder's self-attention and
+    the decoder's cross-attention; the masked self-attention is plain),
+    one with ``plain_versions``: the loss and the whole gradient within
+    ``KERNEL_PATH_BOUND`` of the plain path's, and each parameter's
+    gradient within that bound or within the gap between the plain
+    path's bf16 gradient and its f32 one, where that is larger (the
+    kernel path may part from the plain path by no more than bf16
+    itself parts from f32); then 32 cached decode steps (``Cache``, no
+    mask: 12 K4 a step at Sq = 1) against the plain path. Returns the
+    train step's and the decode's launches."""
+    from paddle_tpu_torch import nn, ops
+
+    b, s, steps = TRANSFORMER_SHAPE
+    _, _, _, _, h, d = TRANSFORMER_ATTN
+    torch.manual_seed(SEED + 35)
+    model = nn.Transformer(dropout=0.0, device=dev, dtype=torch.bfloat16)
+    check(model.d_model // model.nhead == d and model.nhead == h,
+          "phase 2's Transformer rows do not match the model")
+    layers = len(model.encoder.layers)
+    g = torch.Generator(device=dev).manual_seed(SEED + 36)
+    src, tgt, w = (torch.randn(b, s, model.d_model, generator=g,
+                               device=dev).to(torch.bfloat16)
+                   for _ in range(3))
+    mask = nn.Transformer.generate_square_subsequent_mask(s, device=dev)
+
+    def train_step(m=model, dtype=torch.bfloat16):
+        for p in m.parameters():
+            p.grad = None
+        out = m(src.to(dtype), tgt.to(dtype), tgt_mask=mask)
+        loss = (out.float() * w.float()).mean()
+        loss.backward()
+        return loss.detach(), {n: p.grad.detach().float()
+                               for n, p in m.named_parameters()}
+
+    def errs(got, want):
+        """Each gradient's relative L2 error, over its own norm or over
+        the norm it would have at the whole gradient's RMS where that is
+        larger (a bias or norm gradient is a sum over 8,192 rows that
+        mostly cancels: its own norm can sit below the rounding its terms
+        carry), and the whole gradient's."""
+        cat = torch.cat([g.flatten() for g in want.values()])
+        rms = float(cat.norm()) / cat.numel() ** 0.5
+        per = {n: float((got[n] - want[n]).norm())
+               / max(float(want[n].norm()), rms * want[n].numel() ** 0.5)
+               for n in want}
+        whole = _rel_l2(torch.cat([g.flatten() for g in got.values()]), cat)
+        return per, whole
+
+    train_step()  # warm-up
+    ops.reset_launches()
+    (loss, grads), ms = _event_ms(torch, train_step)
+    train_launches = dict(ops.LAUNCHES)
+    with ops.plain_versions():
+        (plain_loss, plain_grads), plain_ms = _event_ms(torch, train_step)
+        # the same step in f32 on the plain path: how far bf16 itself
+        # moves each gradient
+        f32 = copy.deepcopy(model).float()
+        f32_loss, f32_grads = train_step(f32, torch.float32)
+        del f32
+    loss_err = abs(float(loss) - float(plain_loss)) / max(
+        abs(float(plain_loss)), 1e-30)
+    grad_errs, all_err = errs(grads, plain_grads)
+    gaps, all_gap = errs(plain_grads, f32_grads)
+    over = {n: (e, gaps[n]) for n, e in grad_errs.items()
+            if e > max(KERNEL_PATH_BOUND, gaps[n])}
+    del grads, plain_grads, f32_grads
+    # the cached decoder: Cache (self) + StaticCache (cross), no mask
+    with torch.no_grad():
+        memory = model.encoder(src)
+
+        def decode(n):
+            cache = model.decoder.gen_cache(memory)
+            outs = []
+            for i in range(n):
+                out, cache = model.decoder(tgt[:, i:i + 1], memory,
+                                           cache=cache)
+                outs.append(out)
+            return torch.cat(outs, dim=1)
+
+        decode(2)  # warm-up
+        ops.reset_launches()
+        dec, dec_ms = _event_ms(torch, lambda: decode(steps))
+        decode_launches = dict(ops.LAUNCHES)
+        with ops.plain_versions():
+            plain_dec, plain_dec_ms = _event_ms(torch, lambda: decode(steps))
+    dec_err = _rel_l2(dec, plain_dec)
+    rec = {"phase": "transformer_bf16", "gpu": smi,
+           "d_model": model.d_model, "heads": h, "head_dim": d,
+           "layers": [layers, len(model.decoder.layers)], "batch": b,
+           "seq": s, "train_step_ms": ms, "plain_train_step_ms": plain_ms,
+           "loss": float(loss), "plain_loss": float(plain_loss),
+           "loss_rel_err": loss_err, "grads_rel_l2_all": all_err,
+           "grads_rel_l2_max": max(grad_errs.values()),
+           "grads_rel_l2_worst": dict(sorted(
+               grad_errs.items(), key=lambda kv: -kv[1])[:3]),
+           "f32_loss": float(f32_loss),
+           "bf16_vs_f32_grads_rel_l2_all": all_gap,
+           "bf16_vs_f32_worst": dict(sorted(
+               gaps.items(), key=lambda kv: -kv[1])[:3]),
+           "grads_over_bound_and_gap": over,
+           "train_launches": {k: v for k, v in train_launches.items() if v},
+           "decode_steps": steps, "decode_ms": dec_ms,
+           "decode_ms_a_step": dec_ms / steps,
+           "plain_decode_ms": plain_dec_ms, "decode_rel_l2": dec_err,
+           "decode_launches": {k: v for k, v in decode_launches.items()
+                               if v},
+           "bound": KERNEL_PATH_BOUND}
+    emit(rec)
+    want = {k: 0 for k in train_launches}
+    want.update(flash_attention=2 * layers, flash_attention_bwd=2 * layers)
+    check(train_launches == want, f"Transformer step launches "
+          f"{train_launches}, expected {want}")
+    want = {k: 0 for k in decode_launches}
+    want.update(flash_attention=2 * layers * steps)
+    check(decode_launches == want, f"cached decode launches "
+          f"{decode_launches}, expected {want}")
+    check(math.isfinite(float(loss)) and loss_err <= KERNEL_PATH_BOUND
+          and all_err <= KERNEL_PATH_BOUND and not over,
+          f"the Transformer kernel path parts from the plain path: {rec}")
+    check(dec_err <= KERNEL_PATH_BOUND and bool(torch.isfinite(dec).all()),
+          f"the cached decode parts from the plain path: {dec_err}")
+    del model
+    return train_launches, decode_launches
+
+
+def _hapi_lenet(torch, dev, smi):
+    """(c) ``hapi.Model`` with LeNet (tests/test_vision_hapi.py's recipe)
+    on synthetic 28 x 28 images, 4 classes, each image its class's fixed
+    pattern plus noise: ``prepare`` with ``Accuracy``, ``evaluate``,
+    ``fit``, ``evaluate`` (accuracy rises), ``save`` -> zeroed weights ->
+    ``load`` evaluates equal."""
+    import tempfile
+
+    import numpy as np
+    from paddle_tpu_torch import Model, metric
+    from paddle_tpu_torch.io import TensorDataset
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.vision.models import LeNet
+
+    n, batch, epochs = LENET_SHAPE
+    rng = np.random.RandomState(SEED + 37)
+    patterns = rng.standard_normal((4, 1, 28, 28)).astype(np.float32)
+    labels = rng.randint(0, 4, (n, 1)).astype(np.int64)
+    images = (patterns[labels[:, 0]] + 2.0 * rng.standard_normal(
+        (n, 1, 28, 28))).astype(np.float32)
+    data = TensorDataset([images, labels])
+    net = LeNet(num_classes=4, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(SEED + 38))
+    model = Model(net, device=dev)
+    model.prepare(Adam(1e-3, parameters=net.parameters()),
+                  CrossEntropyLoss(), metric.Accuracy())
+    before = model.evaluate(data, batch_size=batch, verbose=0)
+    t0 = time.perf_counter()
+    model.fit(data, epochs=epochs, batch_size=batch, verbose=0)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    after = model.evaluate(data, batch_size=batch, verbose=0)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "lenet")
+        model.save(path)
+        with torch.no_grad():
+            for p in net.parameters():
+                p.zero_()
+        model.load(path)
+    again = model.evaluate(data, batch_size=batch, verbose=0)
+    before, after, again = ({k: float(v) for k, v in r.items()}
+                            for r in (before, after, again))
+    rec = {"phase": "hapi_lenet", "gpu": smi, "samples": n, "batch": batch,
+           "epochs": epochs, "before": before, "after": after,
+           "after_load": again, "fit_s": fit_s}
+    emit(rec)
+    check(after["acc"] > before["acc"] and after["loss"] < before["loss"],
+          f"hapi.Model's LeNet did not learn: {rec}")
+    check(again == after, f"hapi save -> load: {again} against {after}")
+
+
+def _t5(torch, dev, smi):
+    """(d) T5-small (``T5Config()``, dropout 0) in f32: 5 train steps
+    (``JittedTrainStep``, AdamW(1e-3)) on one batch, B = 16, source 512,
+    target 128; every loss finite and falling. T5's attention is plain
+    (no 1/sqrt(d), an f32 bias); its RMSNorms run K1 and K6. Returns the
+    steps' launches."""
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.jit import JittedTrainStep
+    from paddle_tpu_torch.nlp import T5Config, T5ForConditionalGeneration
+    from paddle_tpu_torch.optimizer import AdamW
+
+    b, src_len, tgt_len, steps = T5_SHAPE
+    cfg = T5Config(dropout_rate=0.0)
+    model = T5ForConditionalGeneration(cfg, device=dev,
+                                       generator=torch.Generator(
+                                           device=dev).manual_seed(SEED + 39))
+    g = torch.Generator(device=dev).manual_seed(SEED + 40)
+    src = torch.randint(1, cfg.vocab_size, (b, src_len), generator=g,
+                        device=dev)
+    labels = torch.randint(1, cfg.vocab_size, (b, tgt_len), generator=g,
+                           device=dev)
+    dec = model.prepare_decoder_input_ids(labels)
+    step = JittedTrainStep(model, lambda out: out[0],
+                           AdamW(1e-3, parameters=model.parameters()))
+    ops.reset_launches()
+    losses, ms = [], []
+    for _ in range(steps):
+        loss, t = _event_ms(torch, lambda: step([src, dec, labels], []))
+        losses.append(float(loss))
+        ms.append(t)
+    launches = dict(ops.LAUNCHES)
+    norms = 2 * cfg.num_layers + 1 + 3 * cfg.num_decoder_layers + 1
+    rec = {"phase": "t5_small_train_f32", "gpu": smi, "batch": b,
+           "source": src_len, "target": tgt_len, "losses": losses,
+           "step_ms": ms, "tokens_per_s": b * (src_len + tgt_len)
+           / statistics.median(ms[1:]) * 1e3,
+           "launches": {k: v for k, v in launches.items() if v},
+           "rms_norms_a_step": norms}
+    emit(rec)
+    check(all(math.isfinite(v) for v in losses), f"non-finite T5 loss "
+          f"{losses}")
+    check(losses[-1] < losses[0], f"the T5 loss did not fall: {losses}")
+    want = {k: 0 for k in launches}
+    want.update(rms_norm=norms * steps, rms_norm_bwd=norms * steps)
+    check(launches == want, f"T5 launches {launches}, expected {want}")
+    del step, model
+    return launches
+
+
+def bert_phase(torch, dev, smi):
+    """Phase 21: BASELINE config #4 and the layer tier it stands on. (a)
+    ERNIE-3.0 base pretraining through ``Engine``, (b) ``nn.Transformer``
+    at its defaults with its cached decoder, (c) ``hapi.Model`` with
+    LeNet, (d) T5-small training. Returns the launches of (a)'s warm
+    epoch, (b)'s train step and cached decode, and (d)'s steps."""
+    t_phase = time.perf_counter()
+    out = {}
+    for name, run in (("ernie_engine", _ernie), ("transformer", _transformer),
+                      ("hapi_lenet", _hapi_lenet), ("t5_train", _t5)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        got = run(torch, dev, smi)
+        emit({"phase": "bert_phase_part", "part": name,
+              "wall_s": time.perf_counter() - t0})
+        if name == "transformer":
+            out["transformer_train"], out["transformer_decode"] = got
+        elif got is not None:
+            out[name] = got
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "bert_done", "wall_s": time.perf_counter() - t_phase})
+    return out
+
+
 def main():
     import torch
 
@@ -5878,13 +6473,14 @@ def main():
     lora_launches = lora_phase(torch, dev, smi)
     gpt_launches = gpt_phase(torch, dev, smi)
     vision_launches = vision_phase(torch, dev, smi)
+    bert_launches = bert_phase(torch, dev, smi)
     paths = {"serving": launches, "generate": gen_launches,
              "train": train_launches, "train_f32_parity": parity_launches,
              "packed_train": packed_launches,
              "packed_f32_parity": packed_parity_launches,
              "int8_serving": int8_launches, **batch_launches,
              **prefix_launches, **lora_launches, **gpt_launches,
-             **vision_launches}
+             **vision_launches, **bert_launches}
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
         rec = primary[name]

@@ -8,8 +8,11 @@ kernels of ``paddle_tpu/ops/pallas`` become hand-written CUDA kernels under
 ``paddle_tpu_torch/ops``. Entry points run on ``cuda`` unless the caller
 passes ``device="cpu"``.
 """
-from . import (amp, distributed, incubate, inference, jit, nlp, nn, obs,
-               ops, optimizer, peft, profiler, regularizer, serving, vision)
+from . import (amp, callbacks, distributed, framework, hapi, incubate,
+               inference, io, jit, metric, nlp, nn, obs, ops, optimizer,
+               peft, profiler, regularizer, serving, vision, visualdl)
+from .framework import load, save
+from .hapi import Model, flops, summary
 from .inference import create_serving_engine
 from .jit import JittedTrainStep
 from .incubate.distributed.models.moe import MoELayer
@@ -20,9 +23,11 @@ from .serving import ServingEngine
 
 __version__ = "0.1.0"
 
-__all__ = ["amp", "distributed", "incubate", "inference", "jit", "nlp", "nn",
+__all__ = ["amp", "callbacks", "distributed", "framework", "hapi",
+           "incubate", "inference", "io", "jit", "metric", "nlp", "nn",
            "obs", "ops", "optimizer", "peft", "profiler", "regularizer",
-           "serving", "vision", "create_serving_engine", "LlamaConfig",
+           "serving", "vision", "visualdl", "save", "load", "Model",
+           "summary", "flops", "create_serving_engine", "LlamaConfig",
            "LlamaForCausalLM", "LlamaPretrainingCriterion", "GPTConfig",
            "GPTForCausalLM", "FusedMultiTransformer", "MoELayer",
            "JittedTrainStep", "ServingEngine"]

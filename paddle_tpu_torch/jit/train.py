@@ -93,6 +93,15 @@ class JittedTrainStep:
             self._step_no += 1
         return torch.stack(losses)
 
+    def resume_from_optimizer(self):
+        """Start from the live optimizer's state and step count where it
+        holds state for a parameter (after its ``set_state_dict``): the
+        inverse of :meth:`sync_to_model`."""
+        live = self._optimizer._states
+        self._states = [live.get(id(p), st)
+                        for p, st in zip(self._params, self._states)]
+        self._step_no = self._optimizer._step_count
+
     def sync_to_model(self):
         """Hand the step's optimizer state and step count to the live
         optimizer (the parameters are the model's own already)."""

@@ -2182,3 +2182,130 @@ def test_cuda_resnet18_step(cuda):
     model.to(torch.bfloat16).eval()
     with torch.no_grad():
         assert torch.isfinite(model(x.bfloat16())).all()
+
+
+@pytest.mark.cuda
+def test_cuda_ernie_step_matches_cpu(cuda):
+    """One Engine.fit step of a 2-layer ERNIE (hidden 128, D = 64; its
+    masked attention is plain on every device) on the card against the
+    same step on the CPU (f32, TF32 off): the loss within 1e-5; every
+    element of every parameter within 2 lr, and all but 0.1% of each
+    tensor's elements (the key biases' gradients, zero in exact
+    arithmetic, left out) within 1e-5 of its largest |value| (Adam's first
+    step moves an element by ~lr times its gradient's sign, and where a
+    gradient is rounding noise the two devices may draw other signs);
+    no kernel launched."""
+    from paddle_tpu_torch.distributed.auto_parallel import Engine
+    from paddle_tpu_torch.io import TensorDataset
+    from paddle_tpu_torch.nlp import (BertPretrainingCriterion, ErnieConfig,
+                                      ErnieForPretraining)
+
+    cfg = ErnieConfig.tiny(hidden_size=128, intermediate_size=256,
+                           vocab_size=500)
+    rng = np.random.RandomState(0)
+    ids = rng.randint(1, 500, (4, 64)).astype(np.int64)
+    labels = np.full_like(ids, -100)
+    labels[:, ::7] = ids[:, ::7]
+    crit = BertPretrainingCriterion()
+    runs = {}
+    for dev in ("cpu", cuda):
+        model = ErnieForPretraining(cfg, device="cpu")
+        model.to(dev)
+        eng = Engine(model, lambda out, lb: crit(out[0], out[1], lb),
+                     AdamW(1e-4, parameters=model.parameters()), device=dev)
+        ops.reset_launches()
+        hist = eng.fit(TensorDataset([ids, labels]), batch_size=4,
+                       shuffle=False, verbose=0)
+        runs[str(dev)] = (hist["loss"][0], {
+            n: p.detach().cpu() for n, p in model.named_parameters()})
+        assert not any(ops.LAUNCHES.values())
+        assert model.cls.decoder_weight is \
+            model.bert.embeddings.word_embeddings.weight
+    (cpu_loss, cpu_p), (gpu_loss, gpu_p) = runs["cpu"], runs[str(cuda)]
+    assert abs(gpu_loss - cpu_loss) <= 1e-5 * abs(cpu_loss)
+    for n, want in cpu_p.items():
+        err = (gpu_p[n] - want).abs()
+        assert float(err.max()) <= 2e-4, n
+        if n.endswith("k_proj.bias"):
+            continue  # a zero gradient in exact arithmetic: all noise
+        far = int((err > 1e-5 * float(want.abs().max())).sum())
+        assert far <= max(1, want.numel() // 1000), n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-4)])
+def test_cuda_multi_head_attention_takes_k4_and_k7(cuda, dtype, tol):
+    """nn.MultiHeadAttention without a mask (D = 64): forward K4 and
+    backward K7, once each, against the plain path; with a mask, no
+    kernel."""
+    from paddle_tpu_torch import nn
+
+    torch.manual_seed(0)
+    mha = nn.MultiHeadAttention(128, 2, device=cuda, dtype=dtype)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q, kv = _rnd(g, dtype, 2, 96, 128), _rnd(g, dtype, 2, 160, 128)
+
+    def run():
+        mha.zero_grad()
+        out = mha(q, kv)
+        out.float().square().mean().backward()
+        # the key bias's gradient is zero in exact arithmetic: left out
+        return out.detach(), {n: p.grad.clone() for n, p in
+                              mha.named_parameters() if n != "k_proj.bias"}
+
+    ops.reset_launches()
+    out, grads = run()
+    fwd, bwd = (("flash_attention", "flash_attention_bwd")
+                if dtype == torch.bfloat16 else
+                ("flash_attention_f32", "flash_attention_bwd_f32"))
+    assert {k: v for k, v in ops.LAUNCHES.items() if v} == {fwd: 1, bwd: 1}
+    with ops.plain_versions():
+        want, want_grads = run()
+    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+    for n, ref in want_grads.items():
+        assert float((grads[n].float() - ref.float()).norm()
+                     / ref.float().norm()) <= tol, n
+    ops.reset_launches()
+    mask = torch.zeros(96, 160, device=cuda)
+    mha(q, kv, attn_mask=mask)
+    assert not any(ops.LAUNCHES.values())
+
+
+@pytest.mark.cuda
+def test_cuda_transformer_decoder_cached_steps_take_k4(cuda):
+    """The decoder's cached steps (Cache + StaticCache, no mask) in bf16:
+    two K4 launches a layer and step (Sq = 1), outputs against the plain
+    path; the causal training forward's self-attention stays plain."""
+    from paddle_tpu_torch import nn
+
+    torch.manual_seed(2)
+    dec = nn.TransformerDecoder(nn.TransformerDecoderLayer(
+        128, 2, 256, dropout=0.0, device=cuda, dtype=torch.bfloat16), 2)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    tgt, mem = (_rnd(g, torch.bfloat16, 2, n, 128) for n in (6, 40))
+
+    def decode():
+        cache = dec.gen_cache(mem)
+        outs = []
+        for i in range(tgt.shape[1]):
+            out, cache = dec(tgt[:, i:i + 1], mem, cache=cache)
+            outs.append(out)
+        return torch.cat(outs, 1)
+
+    with torch.no_grad():
+        ops.reset_launches()
+        got = decode()
+        assert {k: v for k, v in ops.LAUNCHES.items() if v} == {
+            "flash_attention": 2 * 2 * 6}
+        with ops.plain_versions():
+            want = decode()
+        ops.reset_launches()
+        full = dec(tgt, mem, nn.Transformer.generate_square_subsequent_mask(
+            6, device=cuda))
+        assert {k: v for k, v in ops.LAUNCHES.items() if v} == {
+            "flash_attention": 2}  # the cross-attention only
+    assert float((got.float() - want.float()).norm()
+                 / want.float().norm()) <= 2.0 ** -5
+    assert float((got.float() - full.float()).norm()
+                 / full.float().norm()) <= 2.0 ** -5

@@ -48,7 +48,15 @@ def test_import_leaves_jax_and_reference_out(tmp_path):
                "paddle_tpu_torch.incubate.nn.functional, "
                "paddle_tpu_torch.incubate.distributed.models.moe, "
                "paddle_tpu_torch.nlp.gpt, paddle_tpu_torch.vision, "
-               "paddle_tpu_torch.vision.models.sd_unet; "
+               "paddle_tpu_torch.vision.models.sd_unet, "
+               "paddle_tpu_torch.nn.layer.transformer, "
+               "paddle_tpu_torch.nlp.bert, paddle_tpu_torch.nlp.t5, "
+               "paddle_tpu_torch.io, paddle_tpu_torch.io._native, "
+               "paddle_tpu_torch.framework.io, "
+               "paddle_tpu_torch.distributed.auto_parallel, "
+               "paddle_tpu_torch.metric, paddle_tpu_torch.hapi, "
+               "paddle_tpu_torch.hapi.summary, paddle_tpu_torch.callbacks, "
+               "paddle_tpu_torch.visualdl; "
                "print(sorted(m for m in sys.modules if m == 'jax' or "
                "m.startswith(('jax.', 'jaxlib')) or m == 'paddle_tpu' or "
                "m.startswith('paddle_tpu.')))", tmp_path)
@@ -122,6 +130,34 @@ def test_vision_entry_points_raise_without_cuda(monkeypatch):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build()
         build(device="cpu")
+
+
+def test_trainers_and_new_models_raise_without_cuda(monkeypatch):
+    from paddle_tpu_torch import Model
+    from paddle_tpu_torch.distributed.auto_parallel import Engine
+    from paddle_tpu_torch.nlp import (BertConfig, BertForPretraining,
+                                      BertForSequenceClassification,
+                                      BertModel, ErnieConfig,
+                                      ErnieForPretraining, T5Config,
+                                      T5ForConditionalGeneration, T5Model)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for build in (lambda **kw: BertModel(BertConfig.tiny(), **kw),
+                  lambda **kw: BertForPretraining(BertConfig.tiny(), **kw),
+                  lambda **kw: BertForSequenceClassification(
+                      BertConfig.tiny(), **kw),
+                  lambda **kw: ErnieForPretraining(ErnieConfig.tiny(), **kw),
+                  lambda **kw: T5Model(T5Config.tiny(), **kw),
+                  lambda **kw: T5ForConditionalGeneration(T5Config.tiny(),
+                                                          **kw)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()
+        model = build(device="cpu")
+    for trainer in (lambda **kw: Engine(model, **kw),
+                    lambda **kw: Model(model, **kw)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            trainer()
+        trainer(device="cpu")
 
 
 def test_chip_smoke_refuses_without_cuda_and_outside_a_checkout(tmp_path):
