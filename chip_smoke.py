@@ -351,6 +351,24 @@ Phases (any failure raises and the script exits non-zero):
     step (its RMSNorms; its attention is plain). ``scripts/
     torch_bert_phase.py`` runs this phase alone, after phase 2's K4 / K7
     cases at nn.Transformer's shapes.
+22. BASELINE config #3's hybrid-parallel tier on one card (``fleet_phase``,
+    last): ``python -m paddle_tpu_torch.distributed.launch
+    --nproc_per_node 1 --device cuda chip_smoke.py --fleet-worker OUT``
+    starts one NCCL rank that trains phase 7's configuration (Llama-2-7B
+    width, 4 layers, bf16, B = 1, S = 4,096, the same seed and batch)
+    through ``fleet.init`` (dp = mp = pp = sharding = 1, stage-3
+    sharding), the tensor-parallel build (``tensor_parallel=True``),
+    ``distributed_model``, ``distributed_optimizer(AdamW)`` and
+    ``JittedTrainStep(state_sharding_axis="sharding")``: every collective
+    of the tier runs, at degree 1 (2 warm-up and 6 timed steps). Checks:
+    the backend is nccl, every parameter and state tensor is on cuda:0
+    and a stage-3 shard, one unit gathered at a time, exactly phase 7's
+    launches a step (K1 9, K4 4, K6 9, K7 4), losses bit-equal to phase
+    7's (same weights, batch and kernels; degree 1), a falling loss,
+    the worker's exit code 0 and its result file read back. Emits step ms
+    (median by CUDA events), tokens/s and MFU beside phase 7's, peak
+    memory, the rank's parameter and optimizer bytes, and one step's
+    device time by family with NCCL's kernels as a family of their own.
 
 The line before the last is the ``{"kernels": [...]}`` record (each
 kernel's launches come from the run of the path that carries it: K1-K3
@@ -365,8 +383,8 @@ cached float and int8-KV runs, phase 16's ``frontdoor``, phase 17's
 ``lora_fp16``, phase 19's ``gpt_train`` and ``fmt_decode`` and phase
 20's ``sd_unet`` (one captured sample) and phase 21's
 ``ernie_engine``, ``transformer_train``, ``transformer_decode`` and
-``t5_train`` among them; K4's and K7's fp16 arms take theirs from phase
-18 (c));
+``t5_train`` and phase 22's ``fleet`` among them; K4's and K7's fp16
+arms take theirs from phase 18 (c));
 the last
 line is ``{"ok": true, "device": {...}}``.
 Without CUDA it prints no result and exits 2.
@@ -396,6 +414,9 @@ GENERATE_SHAPE = (4, 4608, 64)
 GENERATE_PARITY_SHAPE = (2, 4352, 16)
 # phase 7: batch, sequence, warm-up steps, timed steps (one run_steps)
 TRAIN_SHAPE = (1, 4096, 2, 10)
+# phase 22: the fleet step's warm-up and timed steps (phase 7's batch and
+# sequence)
+FLEET_STEPS = (2, 6)
 # phase 8: sequence and steps of the f32 kernel-vs-plain training run
 TRAIN_PARITY_SHAPE = (1024, 3)
 # phase 9: the packed row of scripts/bench_suite.py's 941M configuration
@@ -1726,7 +1747,9 @@ def e2e_phase(torch, dev, smi):
 def _kernel_family(name):
     # K6 is two launches: the row pass (rms_norm_bwd_rows_kernel, or
     # rms_norm_bwd_any_kernel off the vector path) and the dw reduction
-    for key, fam in (("rms_norm_bwd_", "K6 rms_norm_bwd"),
+    for key, fam in (("nccl", "NCCL collectives"),
+                     ("Memcpy", "memcpy"),
+                     ("rms_norm_bwd_", "K6 rms_norm_bwd"),
                      ("rms_norm_dw_kernel", "K6 rms_norm_bwd"),
                      ("rms_norm_kernel", "K1 rms_norm"),
                      ("varlen_bwd_fused_f32",
@@ -2197,6 +2220,9 @@ def _train_ids(torch, dev, vocab, b, s):
         np.random.RandomState(SEED).randint(0, vocab, (b, s))).to(dev)
 
 
+TRAIN_RECORD = {}  # phase 7's losses and speed, for phase 22
+
+
 def train_phase(torch, dev):
     from paddle_tpu_torch import ops
     from paddle_tpu_torch.nlp import LlamaConfig
@@ -2235,6 +2261,9 @@ def train_phase(torch, dev):
     check(float(losses[-1]) < float(losses[0]),
           f"the loss did not fall over {len(losses)} steps: {losses}")
     step_s = res["step_time_s"] / steps
+    TRAIN_RECORD.update(losses=[float(x) for x in losses],
+                        step_ms=1e3 * step_s, tok_per_s=tokens / step_s,
+                        mfu=flops / step_s / PEAK_FLOPS["bfloat16"])
     emit({"phase": "train_llama2_7b_width_bf16", "layers": layers,
           "params": n_params, "batch": b, "seq": seq,
           "warmup_steps": warm, "timed_steps": steps, "step_ms": 1e3 * step_s,
@@ -2300,25 +2329,37 @@ def train_profile(torch, step, inputs, labels, label="train_step"):
     emit(rec)
 
 
-def _split_range(torch, prof, rec, name, family):
-    """Move the device time of the kernels that ran inside the
-    record_function range ``name`` from "other" to ``family`` in a profile
-    record: each kernel within one of the range's device-side annotation
-    spans, once (the spans themselves are no kernels); returns it in ms,
-    or "not measured"."""
+def _range_kernels(torch, prof, name):
+    """(kernel name, device ms) of each kernel that ran within one of the
+    record_function range ``name``'s device-side annotation spans, once
+    (the spans themselves are no kernels); None if the range left no
+    span."""
     cuda = torch.autograd.DeviceType.CUDA
     events = [ev for ev in prof.events() if ev.device_type == cuda]
     spans = [(ev.time_range.start, ev.time_range.end) for ev in events
              if ev.name == name]
-    us = sum(ev.time_range.end - ev.time_range.start for ev in events
-             if ev.name != name
-             and any(a <= ev.time_range.start and ev.time_range.end <= b
-                     for a, b in spans))
+    if not spans:
+        return None
+    return [(ev.name, (ev.time_range.end - ev.time_range.start) / 1e3)
+            for ev in events
+            if ev.name != name
+            and any(a <= ev.time_range.start and ev.time_range.end <= b
+                    for a, b in spans)]
+
+
+def _split_range(torch, prof, rec, name, family):
+    """Move the device time of the kernels that ran inside the
+    record_function range ``name`` to ``family`` in a profile record,
+    each out of its own family; returns it in ms, or "not measured"."""
     fams = rec["device_ms_by_family"]
-    if us and "other" in fams:
-        fams[family] = us / 1e3
-        fams["other"] -= us / 1e3
-    return us / 1e3 if us else "not measured"
+    total = 0.0
+    for kernel, ms in _range_kernels(torch, prof, name) or ():
+        own = _kernel_family(kernel)
+        if own in fams:
+            fams[own] -= ms
+            fams[family] = fams.get(family, 0.0) + ms
+        total += ms
+    return total if total else "not measured"
 
 
 def _timed_steps(step, inputs, labels, n):
@@ -3643,23 +3684,18 @@ def _verify_split(torch, engine):
     finally:
         engine_mod._paged_chunk_attn = attn
         engine._eager = False
-    cuda = torch.autograd.DeviceType.CUDA
-    events = [ev for ev in prof.events() if ev.device_type == cuda]
-    spans = [(ev.time_range.start, ev.time_range.end) for ev in events
-             if ev.name == "verify_attention"]
-    out = {"einsum": 0.0, "gather_mask_softmax": 0.0, "kernels": {}}
-    for ev in events:
-        if ev.name == "verify_attention" or not any(
-                a <= ev.time_range.start and ev.time_range.end <= b
-                for a, b in spans):
-            continue
-        ms = (ev.time_range.end - ev.time_range.start) / 1e3
-        key = ("einsum" if _kernel_family(ev.name) == "matmul"
-               else "gather_mask_softmax")
-        out[key] += ms
-        out["kernels"][ev.name[:60]] = out["kernels"].get(ev.name[:60],
-                                                          0.0) + ms
-    return out if spans else "not measured"
+    inside = _range_kernels(torch, prof, "verify_attention")
+    if inside is None:
+        return "not measured"
+    out = {"einsum": 0.0, "gather_mask_softmax": 0.0, "kernels": {},
+           "by_family": {}}
+    for kernel, ms in inside:
+        fam = _kernel_family(kernel)
+        out["einsum" if fam == "matmul" else "gather_mask_softmax"] += ms
+        out["by_family"][fam] = out["by_family"].get(fam, 0.0) + ms
+        out["kernels"][kernel[:60]] = out["kernels"].get(kernel[:60],
+                                                         0.0) + ms
+    return out
 
 
 def _spec_steady(torch, target, drafts, smi):
@@ -3711,7 +3747,9 @@ def _spec_steady(torch, target, drafts, smi):
             fam = row["round"]["device_ms_by_family"]
             if isinstance(split, dict) and fam:
                 # the replay's families with the verify attention's
-                # kernels (timed in the eager round) taken out of them
+                # kernels (timed in the eager round) taken out of them,
+                # each out of its own family
+                inner = split["by_family"]
                 row["round_breakdown_ms"] = {
                     "draft K2": fam.get("K2 paged_decode", 0.0),
                     "K1": fam.get("K1 rms_norm", 0.0),
@@ -3720,8 +3758,10 @@ def _spec_steady(torch, target, drafts, smi):
                     "verify products": split["einsum"],
                     "verify gather, move, mask, softmax":
                         split["gather_mask_softmax"],
+                    "memcpy": fam.get("memcpy", 0.0)
+                    - inner.get("memcpy", 0.0),
                     "other": fam.get("other", 0.0)
-                    - split["gather_mask_softmax"]}
+                    - inner.get("other", 0.0)}
         emit({"phase": "spec_steady_llama2_7b_bf16", **cfg, **row})
         del spec
     del plain
@@ -6443,6 +6483,195 @@ def bert_phase(torch, dev, smi):
     return out
 
 
+def _fleet_worker(out_path):
+    """Phase 22's rank (``chip_smoke.py --fleet-worker OUT``, started by
+    the port's launcher): phase 7's configuration through fleet at degree
+    1 with stage-3 sharding; writes its record to ``OUT``."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet.meta_parallel.sharding import (
+        group_sharded)
+    from paddle_tpu_torch.jit import JittedTrainStep
+    from paddle_tpu_torch.nlp import (LlamaConfig, LlamaForCausalLM,
+                                      LlamaPretrainingCriterion)
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.profiler import transformer_train_flops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs = {"dp_degree": 1, "mp_degree": 1,
+                               "pp_degree": 1, "sharding_degree": 1}
+    strategy.sharding = True
+    strategy.sharding_configs = {"stage": 3}
+    fleet.init(is_collective=True, strategy=strategy)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    b, seq, _, _ = TRAIN_SHAPE
+    warm, steps = FLEET_STEPS
+    cfg = LlamaConfig.llama2_7b(num_hidden_layers=4, tensor_parallel=True,
+                                dtype="bfloat16")
+    layers = cfg.num_hidden_layers
+    t0 = time.perf_counter()
+    raw = LlamaForCausalLM(
+        cfg, generator=torch.Generator(device=dev).manual_seed(SEED))
+    n_params = sum(p.numel() for p in raw.parameters())
+    model = fleet.distributed_model(raw)
+    crit = LlamaPretrainingCriterion(cfg)
+    opt = fleet.distributed_optimizer(AdamW(
+        1e-4, parameters=model.named_parameters(), weight_decay=0.01,
+        multi_precision=True, moment_dtype="bfloat16"))
+    step = JittedTrainStep(model, lambda out, lb: crit(out.float(), lb), opt,
+                           state_sharding_axis="sharding")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    ids = _train_ids(torch, dev, cfg.vocab_size, b, seq)
+    tensors = ([p for p in model.parameters()]
+               + [t for st in step._states for t in st.values()])
+    state_bytes = {
+        "params": sum(p.numel() * p.element_size()
+                      for p in model.parameters()),
+        "optimizer": sum(t.numel() * t.element_size()
+                         for st in step._states for t in st.values())}
+    torch.cuda.reset_peak_memory_stats()
+    group_sharded.stage3_stats(reset=True)
+    losses = [float(step(ids, ids)) for _ in range(warm)]
+    ops.reset_launches()
+    events = []
+    for _ in range(steps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss = step(ids, ids)
+        end.record()
+        events.append((start, end, loss))
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    losses += [float(loss) for _, _, loss in events]
+    step_ms = [s_.elapsed_time(e_) for s_, e_, _ in events]
+    stats = group_sharded.stage3_stats()
+    peak = torch.cuda.max_memory_allocated()
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    # the update's kernels are elementwise ones, named like "other": give
+    # them a range, as train_profile does
+    inner = getattr(step._optimizer, "_inner", step._optimizer)
+    apply = inner.apply
+
+    def traced_apply(*a, **kw):
+        with record_function("optimizer_update"):
+            return apply(*a, **kw)
+
+    inner.apply = traced_apply
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        step(ids, ids)
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t1)
+    del inner.apply
+    prof_rec = _profile_record(torch, prof, "fleet_step", wall_us,
+                               ranges=("optimizer_update",))
+    prof_rec["optimizer_device_ms"] = _split_range(
+        torch, prof, prof_rec, "optimizer_update", "optimizer (AdamW update)")
+    med = statistics.median(step_ms)
+    tokens = b * seq
+    flops = transformer_train_flops(n_params, tokens, num_layers=layers,
+                                    seq_len=seq, hidden=cfg.hidden_size)
+    record = {
+        "backend": dist.get_backend(), "world_size": dist.get_world_size(),
+        "devices": sorted({str(t.device) for t in tensors}),
+        "degrees": {a: g.nranks for a, g in
+                    fleet.get_hybrid_communicate_group()._groups.items()},
+        "sharded": all(getattr(p, "_stage3", None) is not None
+                       for p in model.parameters()),
+        "layers": layers, "params": n_params, "batch": b, "seq": seq,
+        "warmup_steps": warm, "timed_steps": steps, "losses": losses,
+        "launches": launches, "step_ms": step_ms, "step_ms_median": med,
+        "train_tok_per_s": tokens / (med / 1e3),
+        "mfu_vs_989_tflops": flops / (med / 1e3) / PEAK_FLOPS["bfloat16"],
+        "peak_mem_gb": peak / 2 ** 30, "state_bytes": state_bytes,
+        "stage3_gathers_per_step": stats["gathers"] / (warm + steps),
+        "stage3_peak_units": stats["peak"], "model_init_s": init_s,
+        "profile": prof_rec}
+    with open(out_path, "w") as f:
+        json.dump(record, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def fleet_phase(torch, dev, smi):
+    """Phase 22: BASELINE config #3's hybrid-parallel tier at degree 1.
+    ``python -m paddle_tpu_torch.distributed.launch --nproc_per_node 1
+    --device cuda`` starts one NCCL rank running phase 7's configuration
+    (Llama-2-7B width, 4 layers, bf16, B = 1, S = 4,096, the same seed and
+    batch) through ``fleet.init`` (dp = mp = pp = sharding = 1, stage-3
+    sharding), ``distributed_model``, ``distributed_optimizer(AdamW)`` and
+    ``JittedTrainStep(state_sharding_axis="sharding")``: the mp layers,
+    the stage-3 gathers and reduce-scatters and the data-parallel
+    all-reduces all run, on one rank. Checks the backend, the devices,
+    phase 7's launches a step and losses, and a falling loss; returns the
+    timed steps' launches."""
+    import tempfile
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "fleet.json")
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            [root] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                      if p])
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+             "--nproc_per_node", "1", "--device", "cuda",
+             os.path.abspath(__file__), "--fleet-worker", out],
+            env=env, cwd=root, capture_output=True, text=True, timeout=300)
+        wall = time.perf_counter() - t0
+        check(proc.returncode == 0,
+              f"the fleet worker exited {proc.returncode}:\n"
+              f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        with open(out) as f:
+            rec = json.load(f)
+    warm, steps = FLEET_STEPS
+    layers = rec["layers"]
+    check(rec["backend"] == "nccl", f"backend {rec['backend']}, not nccl")
+    check(rec["devices"] == ["cuda:0"],
+          f"parameters and state on {rec['devices']}, not cuda:0 alone")
+    check(rec["sharded"], "a parameter is not a stage-3 shard")
+    check(rec["stage3_peak_units"] == 1,
+          f"{rec['stage3_peak_units']} units gathered at once, not 1")
+    per_step = {"rms_norm": 2 * layers + 1, "flash_attention": layers,
+                "rms_norm_bwd": 2 * layers + 1,
+                "flash_attention_bwd": layers}
+    want = {k: per_step.get(k, 0) * steps for k in rec["launches"]}
+    check(rec["launches"] == want,
+          f"fleet launches {rec['launches']}, expected {want}")
+    losses, ref = rec["losses"], TRAIN_RECORD["losses"]
+    n = min(len(losses), len(ref))
+    check(all(math.isfinite(x) for x in losses), f"non-finite: {losses}")
+    check(losses[-1] < losses[0],
+          f"the loss did not fall over {len(losses)} steps: {losses}")
+    check(losses[:n] == ref[:n],
+          f"losses {losses[:n]} are not bit-equal to phase 7's {ref[:n]} "
+          "for the same weights, batch and kernels")
+    profile = rec.pop("profile")
+    emit({"phase": "fleet_llama2_7b_width", **rec, "worker_wall_s": wall,
+          "phase7_losses": ref[:n],
+          "phase7_step_ms": TRAIN_RECORD["step_ms"],
+          "phase7_train_tok_per_s": TRAIN_RECORD["tok_per_s"],
+          "phase7_mfu_vs_989_tflops": TRAIN_RECORD["mfu"], "smi": smi})
+    emit({**profile, "phase": "profile",
+          "nccl_device_ms": profile["device_ms_by_family"].get(
+              "NCCL collectives", 0.0)})
+    return rec["launches"]
+
+
 def main():
     import torch
 
@@ -6450,6 +6679,8 @@ def main():
         print("chip_smoke: CUDA is not available; nothing was run",
               file=sys.stderr)
         return 2
+    if "--fleet-worker" in sys.argv:
+        return _fleet_worker(sys.argv[sys.argv.index("--fleet-worker") + 1])
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import paddle_tpu_torch  # noqa: F401  (fails outside a checkout)
 
@@ -6474,13 +6705,14 @@ def main():
     gpt_launches = gpt_phase(torch, dev, smi)
     vision_launches = vision_phase(torch, dev, smi)
     bert_launches = bert_phase(torch, dev, smi)
+    fleet_launches = fleet_phase(torch, dev, smi)
     paths = {"serving": launches, "generate": gen_launches,
              "train": train_launches, "train_f32_parity": parity_launches,
              "packed_train": packed_launches,
              "packed_f32_parity": packed_parity_launches,
              "int8_serving": int8_launches, **batch_launches,
              **prefix_launches, **lora_launches, **gpt_launches,
-             **vision_launches, **bert_launches}
+             **vision_launches, **bert_launches, "fleet": fleet_launches}
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
         rec = primary[name]

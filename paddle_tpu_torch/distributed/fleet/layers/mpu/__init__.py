@@ -1,0 +1,5 @@
+from . import mp_ops  # noqa: F401
+from .mp_layers import (  # noqa: F401
+    ColumnParallelLinear, ParallelCrossEntropy, RowParallelLinear,
+    VocabParallelEmbedding,
+)

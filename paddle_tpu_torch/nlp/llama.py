@@ -5,9 +5,16 @@ one to one onto this model's (see ``nlp/convert.py``). ``torch.nn.Linear``
 stores its weight as (out, in) where the reference stores (in, out); the
 carry transposes once. The projections and the embedding are the port's
 ``Linear`` / ``Embedding`` (``nn/layer/common.py``), whose forward holds
-amp's cast seam. Both of the reference's builds, tensor-parallel
-(Column/RowParallelLinear, which degrade to serial layers without a mesh)
-and serial, give the same keys and shapes, so one port covers both.
+amp's cast seam. With ``tensor_parallel`` and the hybrid mesh installed
+(``fleet.init``), the model builds the reference's tensor-parallel layers
+(``_use_mp``): q/k/v, gate and up as ``ColumnParallelLinear``, o and down
+as ``RowParallelLinear``, the embedding as ``VocabParallelEmbedding`` and
+the lm head as ``ColumnParallelLinear(gather_output=True)``, so a rank
+holds H/mp query heads and HK/mp KV heads and its slices of the weights.
+Without a mesh the reference's parallel layers are serial layers; the
+port then builds the serial ones, which hold the same keys and shapes.
+Every rank draws each full weight from the one generator and keeps its
+slice, so a parallel build of seed s equals the serial build of seed s.
 
 Attention without a cache runs through ``F.scaled_dot_product_attention``
 (dense) or ``F.sliding_window_attention`` (windowed), both the flash
@@ -32,12 +39,14 @@ import torch
 from torch import nn
 
 from .._device import resolve_device
+from ..distributed.fleet.layers.mpu import mp_layers
 from ..distributed.fleet.utils.recompute import recompute, should_remat_layer
 from ..nn import functional as F
 from ..nn.functional.rope import apply_rotary_emb, build_rope_cache
 from ..nn.layer.common import Embedding, Linear
 from ..nn.layer.norm import RMSNorm
 from ..ops.decode_attention import decode_attention
+from ..parallel import mesh as mesh_state
 
 __all__ = ["LlamaConfig", "LlamaAttention", "LlamaMLP", "LlamaDecoderLayer",
            "LlamaModel", "LlamaForCausalLM", "LlamaPretrainingCriterion",
@@ -70,8 +79,7 @@ class LlamaConfig:
         self.rms_norm_eps = rms_norm_eps
         self.rope_theta = rope_theta
         self.tie_word_embeddings = tie_word_embeddings
-        # without a device mesh the reference's tensor-parallel layers are
-        # serial layers with the same parameters; the port has no mesh yet
+        # the tensor-parallel layers, under the hybrid mesh (_use_mp)
         self.tensor_parallel = tensor_parallel
         self.sequence_parallel = sequence_parallel
         self.context_parallel = context_parallel
@@ -133,6 +141,25 @@ class LlamaConfig:
         return LlamaConfig(**cfg)
 
 
+def _use_mp(config):
+    """The reference's tensor-parallel build: asked for, and a mesh
+    installed (without one its parallel layers are serial layers)."""
+    return bool(config.tensor_parallel) and mesh_state.has_mesh()
+
+
+def _mp_heads(config):
+    """(query heads, KV heads) on this rank."""
+    h, hk = config.num_attention_heads, config.num_key_value_heads
+    if not _use_mp(config):
+        return h, hk
+    mp = mesh_state.mesh_axis_size("mp")
+    if h % mp or hk % mp:
+        raise ValueError(
+            f"mp degree {mp} must divide the {h} query heads and the {hk} "
+            f"KV heads")
+    return h // mp, hk // mp
+
+
 def _check_ported(config):
     """Refuse the options whose code paths belong to later slices."""
     later = {
@@ -153,13 +180,27 @@ class LlamaAttention(nn.Module):
         self.config = config
         h, hk, d = (config.num_attention_heads, config.num_key_value_heads,
                     config.head_dim)
-        self.num_heads, self.num_kv_heads, self.head_dim = h, hk, d
+        self.num_heads, self.num_kv_heads = _mp_heads(config)
+        self.head_dim = d
         bias = bool(config.attention_bias)
         kw = dict(device=device, dtype=dtype)
-        self.q_proj = Linear(config.hidden_size, h * d, bias=bias, **kw)
-        self.k_proj = Linear(config.hidden_size, hk * d, bias=bias, **kw)
-        self.v_proj = Linear(config.hidden_size, hk * d, bias=bias, **kw)
-        self.o_proj = Linear(h * d, config.hidden_size, bias=False, **kw)
+        e = config.hidden_size
+        if _use_mp(config):
+            col, row = mp_layers.ColumnParallelLinear, \
+                mp_layers.RowParallelLinear
+            self.q_proj = col(e, h * d, has_bias=bias, gather_output=False,
+                              **kw)
+            self.k_proj = col(e, hk * d, has_bias=bias, gather_output=False,
+                              **kw)
+            self.v_proj = col(e, hk * d, has_bias=bias, gather_output=False,
+                              **kw)
+            self.o_proj = row(h * d, e, has_bias=False,
+                              input_is_parallel=True, **kw)
+        else:
+            self.q_proj = Linear(e, h * d, bias=bias, **kw)
+            self.k_proj = Linear(e, hk * d, bias=bias, **kw)
+            self.v_proj = Linear(e, hk * d, bias=bias, **kw)
+            self.o_proj = Linear(h * d, e, bias=False, **kw)
 
     def forward(self, hidden, position_offset=0, cache=None,
                 cu_seqlens=None, position_ids=None):
@@ -305,13 +346,21 @@ class LlamaMLP(nn.Module):
 
     def __init__(self, config, device=None, dtype=None):
         super().__init__()
-        kw = dict(bias=False, device=device, dtype=dtype)
-        self.gate_proj = Linear(config.hidden_size,
-                                   config.intermediate_size, **kw)
-        self.up_proj = Linear(config.hidden_size,
-                                 config.intermediate_size, **kw)
-        self.down_proj = Linear(config.intermediate_size,
-                                   config.hidden_size, **kw)
+        e, f = config.hidden_size, config.intermediate_size
+        kw = dict(device=device, dtype=dtype)
+        if _use_mp(config):
+            col, row = mp_layers.ColumnParallelLinear, \
+                mp_layers.RowParallelLinear
+            self.gate_proj = col(e, f, has_bias=False, gather_output=False,
+                                 **kw)
+            self.up_proj = col(e, f, has_bias=False, gather_output=False,
+                               **kw)
+            self.down_proj = row(f, e, has_bias=False,
+                                 input_is_parallel=True, **kw)
+        else:
+            self.gate_proj = Linear(e, f, bias=False, **kw)
+            self.up_proj = Linear(e, f, bias=False, **kw)
+            self.down_proj = Linear(f, e, bias=False, **kw)
 
     def forward(self, x):
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
@@ -368,8 +417,9 @@ class LlamaModel(nn.Module):
         super().__init__()
         self.config = config
         kw = dict(device=device, dtype=dtype)
-        self.embed_tokens = Embedding(config.vocab_size,
-                                         config.hidden_size, **kw)
+        emb = (mp_layers.VocabParallelEmbedding if _use_mp(config)
+               else Embedding)
+        self.embed_tokens = emb(config.vocab_size, config.hidden_size, **kw)
         self.layers = nn.ModuleList(
             LlamaDecoderLayer(config, **kw)
             for _ in range(config.num_hidden_layers))
@@ -430,23 +480,40 @@ class LlamaForCausalLM(nn.Module):
         dtype = config.torch_dtype
         self.config = config
         self.llama = LlamaModel(config, device=dev, dtype=dtype)
-        self.lm_head = Linear(config.hidden_size, config.vocab_size,
-                                 bias=False, device=dev, dtype=dtype)
+        if _use_mp(config):
+            if config.fuse_linear_cross_entropy:
+                raise NotImplementedError(
+                    "fuse_linear_cross_entropy over a vocabulary split on "
+                    "mp is not ported yet (ROADMAP A7)")
+            self.lm_head = mp_layers.ColumnParallelLinear(
+                config.hidden_size, config.vocab_size, has_bias=False,
+                gather_output=True, device=dev, dtype=dtype)
+        else:
+            self.lm_head = Linear(config.hidden_size, config.vocab_size,
+                                  bias=False, device=dev, dtype=dtype)
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
         self._init_weights(generator)
 
     @torch.no_grad()
     def _init_weights(self, generator):
+        """Each weight drawn at its full shape, a split one keeping this
+        rank's slice (the same draws on every rank and in the serial
+        build)."""
+        def draw(w, std):
+            full = torch.empty(mp_layers.full_shape(w), dtype=w.dtype,
+                               device=w.device)
+            full.normal_(0.0, std, generator=generator)
+            w.copy_(mp_layers.local_of(w, full))
+
         for mod in self.modules():
             if isinstance(mod, nn.Linear):
-                fan_out, fan_in = mod.weight.shape
-                std = math.sqrt(2.0 / (fan_in + fan_out))
-                mod.weight.normal_(0.0, std, generator=generator)
+                fan_out, fan_in = mp_layers.full_shape(mod.weight)
+                draw(mod.weight, math.sqrt(2.0 / (fan_in + fan_out)))
                 if mod.bias is not None:
                     mod.bias.zero_()
             elif isinstance(mod, nn.Embedding):
-                mod.weight.normal_(0.0, 1.0, generator=generator)
+                draw(mod.weight, 1.0)
             elif isinstance(mod, RMSNorm):
                 mod.weight.fill_(1.0)
 
@@ -487,7 +554,7 @@ class LlamaForCausalLM(nn.Module):
             max_len = min(max_len, cfg.sliding_window)
         dev = self.lm_head.weight.device
         dt = cfg.torch_dtype if dtype is None else _DTYPES.get(dtype, dtype)
-        shape = (batch_size, max_len, cfg.num_key_value_heads, cfg.head_dim)
+        shape = (batch_size, max_len, _mp_heads(cfg)[1], cfg.head_dim)
         return [(torch.zeros(shape, dtype=dt, device=dev),
                  torch.zeros(shape, dtype=dt, device=dev))
                 for _ in range(cfg.num_hidden_layers)]

@@ -2,8 +2,15 @@
 (ROADMAP C11) on one GPU and record, for every run, what its suspects
 need: each K2 ticket buffer's key, whether it was made inside a CUDA
 graph capture and on which stream, and the split plans the launches took.
+Each run takes the one-replica arm twice (does it, not the two-replica
+arm, move?), records which replica served each request and each
+replica's captured graph (its stream and its replays), and, for a
+stream that parts, both runs' tokens up to the parting and the model's
+logits there (a full eager forward of the shared prefix: the top three
+ids and values, so a parting at a near-tie shows as one).
 
     python scripts/torch_c11_repeat.py [N] [--keep-tickets]
+        [--variant own_streams|sequential|no_prefix|eager[,...]]
 
 Runs the test's body N times (default 20) in one process, each with its
 own ``pytest.MonkeyPatch``, and reads every ticket buffer before and
@@ -12,7 +19,16 @@ records which streams parted and at which token, and the streams'
 handles (PyTorch hands out pooled CUDA streams, so a handle recurs). By default the ticket buffers are dropped
 before each run, so every run starts as a fresh process does (the first
 K2 launch on a stream makes its buffer); ``--keep-tickets`` keeps them
-across runs, as a whole-file pytest run does. Prints one JSON line a run
+across runs, as a whole-file pytest run does. ``--variant`` changes the
+body to localize a parting: ``own_streams`` leaves each replica its own
+capture stream, ``sequential`` collects each replica before dispatching
+the next (no overlap), ``no_prefix`` turns the prefix cache off,
+``eager`` runs the decode quantum eagerly (no graphs), and
+``fresh_tickets`` gives every K2 launch a new zeroed ticket buffer (eager
+only: a graph keeps the address it captured), and ``poison`` fills the
+caching allocator's free memory with NaN before each arm (every block a
+later tensor takes holds NaN until written: a read of memory the run
+never wrote shows). Prints one JSON line a run
 (pass or the assertion, the buffers made, made inside a capture, the
 plans) and a summary line.
 """
@@ -45,10 +61,11 @@ def _first_diff(a, b):
                 min(len(a), len(b)))
 
 
-def _body(T, torch, dev, mp):
-    """The test's body, returning both runs' streams and the stream
-    handles: one replica, then two whose graphs were captured on one
-    shared stream and replay on one stream under the cluster pump."""
+def _body(T, torch, dev, mp, variant=()):
+    """The test's body, returning the runs' streams and what each run's
+    replicas did: one replica twice, then two whose graphs were captured
+    on one shared stream and replay on one stream under the cluster
+    pump."""
     from paddle_tpu_torch import create_serving_engine
     from paddle_tpu_torch.serving import (ClusterFrontDoor, ClusterReplica,
                                           ClusterRouter, no_shed_policy)
@@ -56,22 +73,89 @@ def _body(T, torch, dev, mp):
     model = T._tiny_cuda_model(dev)
     prompts = T._prefix_prompts()[1:5] + T._GRAPH_PROMPTS[:4]
 
+    def poison():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        nan = float("nan")
+        held = [torch.full((262144,), nan, device=dev) for _ in range(256)]
+        held.append(torch.full((1 << 28,), nan, device=dev))
+        del held
+        torch.cuda.synchronize()
+
     def run(n):
+        if "poison" in variant:
+            poison()
         reps = [ClusterReplica(f"r{i}", create_serving_engine(
-            model, prefix_cache=True, **T._GRAPH_KW), policy=no_shed_policy())
-            for i in range(n)]
+            model, prefix_cache="no_prefix" not in variant, **T._GRAPH_KW),
+            policy=no_shed_policy()) for i in range(n)]
+        for rep in reps:
+            rep.engine._eager = "eager" in variant
+        served = {}
+        for rep in reps:
+            submit = rep.door.submit
+
+            def traced(tokens, *a, _rep=rep, _submit=submit, **kw):
+                stream = _submit(tokens, *a, **kw)
+                served[stream.request.req_id] = _rep.name
+                return stream
+
+            rep.door.submit = traced
         cfd = ClusterFrontDoor(ClusterRouter(reps, affinity_blocks=1,
                                              strategy="round_robin"))
+        if "sequential" in variant:
+            def pump():
+                alive = False
+                for rep in cfd.replicas:
+                    if rep.engine.has_work:
+                        alive = rep.door.pump_collect(
+                            rep.door.pump_dispatch()) or alive
+                return alive
+
+            cfd.pump = pump
         streams = [cfd.submit(p, max_new_tokens=10) for p in prompts]
         cfd.run_until_idle()
-        return [list(s.result()) for s in streams], reps
+        graphs = {r.name: {
+            "stream": (r.engine._graph.stream.cuda_stream
+                       if r.engine._graph is not None else None),
+            "prefix_cache": r.engine.pool.prefix_cache_stats()
+            if r.engine.prefix_cache else None,
+            "decode_quanta": r.engine.stats.get("decode_quanta")}
+            for r in reps}
+        return ([list(s.result()) for s in streams],
+                {"served_by": [served[s.request.req_id] for s in streams],
+                 "graphs": graphs})
 
-    want, reps1 = run(1)
-    one = [r.engine._graph.stream.cuda_stream for r in reps1]
+    want, one = run(1)
+    want2, one2 = run(1)
     shared = torch.cuda.Stream(dev)
-    mp.setattr(torch.cuda, "Stream", lambda *a, **k: shared)
-    got, reps = run(2)
-    return want, got, {"one_replica": one, "shared": shared.cuda_stream}
+    if "own_streams" not in variant:
+        mp.setattr(torch.cuda, "Stream", lambda *a, **k: shared)
+    got, two = run(2)
+    return want, want2, got, prompts, model, {
+        "one_replica": one, "one_replica_again": one2, "two_replicas": two,
+        "shared": shared.cuda_stream}
+
+
+def _partings(torch, model, prompts, a, b):
+    """Each stream where ``a`` and ``b`` part: the token index, both
+    runs' tokens up to it, and the logits of a full eager forward of the
+    shared prefix there (top three ids and values)."""
+    out = []
+    for j, (x, y) in enumerate(zip(a, b)):
+        if x == y:
+            continue
+        k = _first_diff(x, y)
+        ids = torch.tensor([list(prompts[j]) + x[:k]],
+                           device=model.lm_head.weight.device)
+        with torch.no_grad():
+            logits = model(ids)[0, -1].float()
+        top = logits.topk(3)
+        out.append({"stream": j, "token": k,
+                    "a": [int(t) for t in x[:k + 1]],
+                    "b": [int(t) for t in y[:k + 1]],
+                    "top_ids": top.indices.tolist(),
+                    "top_logits": top.values.tolist()})
+    return out
 
 
 def main():
@@ -85,14 +169,23 @@ def main():
     from paddle_tpu_torch.ops import split_decode
 
     args = [a for a in sys.argv[1:] if not a.startswith("--")]
-    n = int(args[0]) if args else 20
     keep = "--keep-tickets" in sys.argv
+    variant = ()
+    if "--variant" in sys.argv:
+        named = sys.argv[sys.argv.index("--variant") + 1]
+        variant = tuple(named.split(","))
+        args = [a for a in args if a != named]
+    n = int(args[0]) if args else 20
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     made, plans = [], set()
     tickets_for, plan_for = split_decode.tickets_for, split_decode.plan_for
 
     def traced_tickets(device, stream, pairs):
+        if "fresh_tickets" in variant:
+            return torch.zeros(split_decode.ticket_key(
+                device.index, stream, pairs)[2], dtype=torch.int32,
+                device=device)
         key = split_decode.ticket_key(device.index, stream, pairs)
         if key not in split_decode._TICKETS:
             made.append({"key": list(key), "in_capture":
@@ -108,7 +201,7 @@ def main():
 
     split_decode.tickets_for = traced_tickets
     split_decode.plan_for = traced_plan
-    failures = 0
+    failures = one_moved = 0
     t_all = time.perf_counter()
     for i in range(n):
         if not keep:
@@ -120,19 +213,23 @@ def main():
         mp = pytest.MonkeyPatch()
         t0 = time.perf_counter()
         try:
-            want, got, streams = _body(T, torch, dev, mp)
-            parted = [(j, _first_diff(w, g))
-                      for j, (w, g) in enumerate(zip(want, got)) if w != g]
-            result = "pass" if not parted else f"parted {parted}"
+            want, want2, got, prompts, model, streams = _body(
+                T, torch, dev, mp, variant)
+            moved = _partings(torch, model, prompts, want, want2)
+            parted = _partings(torch, model, prompts, want, got)
+            result = ("pass" if not parted else
+                      f"parted {[(p['stream'], p['token']) for p in parted]}")
             failures += bool(parted)
+            one_moved += bool(moved)
         except Exception:
             failures += 1
-            parted, streams = None, None
+            parted, moved, streams = None, None, None
             result = traceback.format_exc(limit=3)[-2000:]
         finally:
             mp.undo()
         torch.cuda.synchronize()
         print(json.dumps({"run": i, "result": result, "streams": streams,
+                          "partings": parted, "one_replica_moved": moved,
                           "dirty_tickets_before": dirty_before,
                           "dirty_tickets_after": _dirty(torch, split_decode),
                           "s": time.perf_counter() - t0,
@@ -143,6 +240,8 @@ def main():
                                           split_decode._TICKETS],
                           "plans": sorted(plans)}), flush=True)
     print(json.dumps({"c11_runs": n, "failures": failures,
+                      "one_replica_moved": one_moved,
+                      "variant": list(variant),
                       "keep_tickets": keep,
                       "wall_s": time.perf_counter() - t_all}))
     return 1 if failures else 0

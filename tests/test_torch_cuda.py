@@ -2309,3 +2309,80 @@ def test_cuda_transformer_decoder_cached_steps_take_k4(cuda):
                  / want.float().norm()) <= 2.0 ** -5
     assert float((got.float() - full.float()).norm()
                  / full.float().norm()) <= 2.0 ** -5
+
+
+@pytest.mark.cuda
+def test_cuda_fleet_one_nccl_rank_matches_serial(cuda):
+    """One NCCL rank (fleet.init at degree 1, stage-3 sharding): the mp
+    layers and a stage-3 sharded MLP with its sharded AdamW step against
+    the plain serial layers on the card, f32 within 1e-5; every
+    collective runs, over groups of one rank."""
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding)
+    from paddle_tpu_torch.distributed.fleet.meta_parallel.sharding import (
+        ShardedOptimizer, group_sharded)
+
+    strategy = fleet.DistributedStrategy()
+    strategy.sharding = True
+    strategy.sharding_configs = {"stage": 3}
+    fleet.init(is_collective=True, strategy=strategy)
+    try:
+        assert dist.get_backend() == "nccl"
+        g = torch.Generator(device=cuda).manual_seed(0)
+        col = ColumnParallelLinear(64, 128, has_bias=True,
+                                   gather_output=False, device=cuda)
+        row = RowParallelLinear(128, 64, has_bias=True,
+                                input_is_parallel=True, device=cuda)
+        emb = VocabParallelEmbedding(100, 64, device=cuda)
+        with torch.no_grad():
+            for p in (*col.parameters(), *row.parameters(), emb.weight):
+                p.copy_(_rnd(g, torch.float32, *p.shape))
+        x = _rnd(g, torch.float32, 8, 64).requires_grad_(True)
+        ids = torch.randint(0, 100, (4, 5), device=cuda, generator=g)
+        out = row(col(x)) + emb(ids[:1, :1]).reshape(1, 64)
+        xs = x.detach().clone().requires_grad_(True)
+        ref = torch.nn.functional.linear(
+            torch.nn.functional.linear(xs, col.weight, col.bias),
+            row.weight, row.bias) + emb.weight[ids[0, 0]]
+        # f32, TF32 off: within 1e-5 of the largest value (sums of 64 and
+        # 128 products in other orders: addmm against mm, then the add;
+        # an element near zero after cancellation carries the error of
+        # the largest terms). The printed ratio is the margin.
+        def within(got, want, what):
+            scale = float(want.abs().max())
+            print(f"{what}: max|diff| / max|ref| = "
+                  f"{float((got - want).abs().max()) / scale:.3e}")
+            torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * scale)
+
+        within(out, ref, "out")
+        out.square().sum().backward()
+        ref.square().sum().backward()
+        within(x.grad, xs.grad, "x.grad")
+        torch.testing.assert_close(emb(ids), emb.weight[ids])
+
+        def mlp():
+            torch.manual_seed(1)
+            return torch.nn.Sequential(torch.nn.Linear(64, 96),
+                                       torch.nn.ReLU(),
+                                       torch.nn.Linear(96, 8)).to(cuda)
+
+        serial, sharded = mlp(), mlp()
+        group_sharded.shard_model_params_stage3(sharded)
+        assert all(p.dim() == 1 for p in sharded.parameters())
+        opts = [AdamW(1e-2, parameters=m.named_parameters())
+                for m in (serial, sharded)]
+        opts[1] = ShardedOptimizer(opts[1], 2)
+        xb = _rnd(g, torch.float32, 16, 64)
+        for _ in range(2):
+            for m, opt in zip((serial, sharded), opts):
+                m(xb).square().mean().backward()
+                opt.step()
+                opt.clear_grad()
+        full = group_sharded.full_state_dict(sharded)
+        for name, p in serial.named_parameters():
+            torch.testing.assert_close(full[name], p, atol=1e-5, rtol=1e-5)
+        assert group_sharded.stage3_stats()["live"] == 0
+    finally:
+        dist.destroy_process_group()

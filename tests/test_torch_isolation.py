@@ -56,7 +56,11 @@ def test_import_leaves_jax_and_reference_out(tmp_path):
                "paddle_tpu_torch.distributed.auto_parallel, "
                "paddle_tpu_torch.metric, paddle_tpu_torch.hapi, "
                "paddle_tpu_torch.hapi.summary, paddle_tpu_torch.callbacks, "
-               "paddle_tpu_torch.visualdl; "
+               "paddle_tpu_torch.visualdl, paddle_tpu_torch.parallel, "
+               "paddle_tpu_torch.distributed.launch.main, "
+               "paddle_tpu_torch.distributed.fleet.meta_parallel, "
+               "paddle_tpu_torch.distributed.sharding, "
+               "paddle_tpu_torch.distributed.utils; "
                "print(sorted(m for m in sys.modules if m == 'jax' or "
                "m.startswith(('jax.', 'jaxlib')) or m == 'paddle_tpu' or "
                "m.startswith('paddle_tpu.')))", tmp_path)
@@ -158,6 +162,47 @@ def test_trainers_and_new_models_raise_without_cuda(monkeypatch):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             trainer()
         trainer(device="cpu")
+
+
+def test_distributed_start_needs_cuda_unless_asked_for_the_cpu(monkeypatch):
+    """The ranks run on CUDA with NCCL by default; gloo only when the
+    caller asks for the CPU, and never as a fallback."""
+    import torch.distributed as tdist
+
+    import paddle_tpu_torch.distributed as dist
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    called = []
+    monkeypatch.setattr(tdist, "init_process_group",
+                        lambda **kw: called.append(kw))
+    monkeypatch.setattr(tdist, "is_initialized", lambda: False)
+    for kw in ({}, {"backend": "nccl"}, {"device": "cuda"}):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            dist.init_parallel_env(**kw)
+    with pytest.raises(ValueError, match="nccl backend needs"):
+        dist.init_parallel_env(backend="nccl", device="cpu")
+    assert not called
+    for kw in ({"device": "cpu"}, {"backend": "gloo"}):
+        dist.init_parallel_env(**kw)
+        assert called.pop()["backend"] == "gloo"
+
+
+def test_later_distributed_parts_raise_naming_a7():
+    from paddle_tpu_torch.distributed import utils
+    from paddle_tpu_torch.distributed.fleet.meta_parallel.sharding import (
+        ShardedOptimizer)
+    from paddle_tpu_torch.optimizer import AdamW, ClipGradByGlobalNorm, Lamb
+
+    w = torch.nn.Parameter(torch.ones(4))
+    for opt in (Lamb(parameters=[w]),
+                AdamW(parameters=[w], grad_clip=ClipGradByGlobalNorm(1.0))):
+        with pytest.raises(NotImplementedError, match="A7"):
+            ShardedOptimizer(opt, 1, group=object())
+    with pytest.raises(NotImplementedError, match="A7"):
+        utils.global_scatter(w, w, w)
+    with pytest.raises(NotImplementedError, match="A7"):
+        LlamaForCausalLM(LlamaConfig.tiny(context_parallel="ring"),
+                         device="cpu")
 
 
 def test_chip_smoke_refuses_without_cuda_and_outside_a_checkout(tmp_path):

@@ -285,8 +285,17 @@ def test_run_steps_equals_single_steps_and_syncs_state():
 
 
 def test_train_step_refuses_mesh_options():
-    model = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu")
-    opt = AdamW(LR, parameters=model.parameters())
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        JittedTrainStep(model, LlamaPretrainingCriterion(), opt,
-                        state_sharding_axis="sharding")
+    """The mesh options are ported (tests/test_torch_fleet.py runs them
+    across ranks); without a mesh they change nothing, as in the
+    reference (``paddle_tpu/jit/train.py``: ``if state_sharding_axis and
+    mesh_state.has_mesh()``)."""
+    ids = torch.from_numpy(np.random.RandomState(3).randint(0, 128, (2, 16)))
+    losses = []
+    for kw in ({}, {"state_sharding_axis": "sharding",
+                    "input_batch_axes": ("dp",)}):
+        model = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu")
+        opt = AdamW(LR, parameters=model.parameters())
+        step = JittedTrainStep(model, LlamaPretrainingCriterion(), opt, **kw)
+        losses.append([float(step(ids, ids)) for _ in range(2)])
+        assert step._optimizer is opt
+    assert losses[0] == losses[1]
