@@ -369,6 +369,31 @@ Phases (any failure raises and the script exits non-zero):
     (median by CUDA events), tokens/s and MFU beside phase 7's, peak
     memory, the rank's parameter and optimizer bytes, and one step's
     device time by family with NCCL's kernels as a family of their own.
+23. the Paddle tensor API tier (``tensor_api_phase``, last; every record
+    beside the card's name and power limit): (a) every op of
+    ``paddle_tpu_torch.tensor`` and ``linalg`` once on CUDA tensors
+    against the same port function on a CPU copy computed in f64
+    (elementwise, reduction and manipulation ops on (2, 2,048, 4,096) in
+    bf16 and f32, the CPU computing the first 256 rows of the row-wise
+    ones; sorts, searches and quantiles on (2, 512, 4,096); products at
+    4,096, the CPU computing their first 256 rows; decompositions at 512
+    in f32; creation ops on the card against the CPU): max |card - cpu|
+    over max(1, max |cpu|) within ``TENSOR_API_TOL`` per dtype, integer
+    and copied results exact; every random op drawn twice after one
+    seed (equal) with its moments within 5 sigma; one record of the ops
+    run, failures by name and the worst error per dtype; (b) BASELINE
+    config #1 through the public API: ``scripts/bench_suite.py``'s
+    ``resnet50_eager`` body with ``import paddle_tpu_torch as paddle``
+    and ``float(loss)`` for its JAX-only sync, the weights carried into
+    phase 20's direct-path model, cuDNN deterministic: three losses
+    bit-equal to the direct path's, the same kernel launches a step
+    under the profiler, images/s beside phase 20's; (c) a user-written
+    ``paddle.nn.Layer`` (a SwiGLU MLP 4,096 -> 11,008 -> 4,096 from
+    ``create_parameter`` and ``ParamAttr(initializer=)``, ``paddle.matmul``
+    and ``paddle.mean``) trained three AdamW steps in bf16 on (2, 2,048,
+    4,096): finite losses, and its first forward's first 64 rows within
+    2^-5 (relative L2) of an f32 CPU run of the same weights.
+    ``scripts/torch_tensor_api_phase.py`` runs this phase alone.
 
 The line before the last is the ``{"kernels": [...]}`` record (each
 kernel's launches come from the run of the path that carries it: K1-K3
@@ -383,7 +408,8 @@ cached float and int8-KV runs, phase 16's ``frontdoor``, phase 17's
 ``lora_fp16``, phase 19's ``gpt_train`` and ``fmt_decode`` and phase
 20's ``sd_unet`` (one captured sample) and phase 21's
 ``ernie_engine``, ``transformer_train``, ``transformer_decode`` and
-``t5_train`` and phase 22's ``fleet`` among them; K4's and K7's fp16
+``t5_train``, phase 22's ``fleet`` and phase 23's ``tensor_api`` (no
+hand-written kernel: all zero) among them; K4's and K7's fp16
 arms take theirs from phase 18 (c));
 the last
 line is ``{"ok": true, "device": {...}}``.
@@ -530,6 +556,33 @@ MOE_AGREE_BOUND = 2.0 ** -5
 # (f)'s second capacity factor: 0.5 gives 8 experts room for half of the
 # 2 * 4,096 assignments, so the overflow path drops some
 MOE_OVERFLOW_FACTOR = 0.5
+# phase 23: (a) the op sweep's shapes: elementwise, reduction and
+# manipulation ops; sorts, searches and quantiles (the CPU reference sorts
+# in f64); products (the CPU reference computes their first rows) and
+# decompositions; its tolerance, max |card - cpu f64| over max(1, max
+# |cpu|): f32 products and reductions of up to 2^24 terms in other orders,
+# and in bf16 two roundings of an element (2^-8 of it each: an
+# intermediate's and the output's) with room;
+# (b) the public-API ResNet-50's steps compared and timed; (c) the SwiGLU
+# layer's width, batch and sequence, steps, the rows checked against the
+# CPU and their bound (relative L2: bf16 rounds the two products' inputs
+# and the hidden activation, ~2^-8 each, over f32's run of the same
+# weights)
+TENSOR_API_SHAPE = (2, 2048, 4096)
+TENSOR_API_SEARCH_SHAPE = (2, 512, 4096)
+TENSOR_API_MATMUL = 4096
+TENSOR_API_CPU_ROWS = 256
+TENSOR_API_DECOMP = 512
+# and the decompositions' (f32 at 512: cuSOLVER's and LAPACK's orders of
+# operations; an eigen-reconstruction carries ~n eps ||A||)
+TENSOR_API_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -6,
+                  "float32_decomposition": 1e-3}
+RESNET_API_STEPS, RESNET_API_TIMED = 3, 3
+SWIGLU_WIDTH = (4096, 11008)
+SWIGLU_SHAPE = (2, 2048)
+SWIGLU_STEPS = 3
+SWIGLU_CPU_ROWS = 64
+SWIGLU_BOUND = 2.0 ** -5
 # the serving sampling arm's knobs (phases 3 and 6)
 SAMPLING = dict(decode_strategy="sampling", top_k=50, top_p=0.9,
                 temperature=0.8)
@@ -2221,6 +2274,7 @@ def _train_ids(torch, dev, vocab, b, s):
 
 
 TRAIN_RECORD = {}  # phase 7's losses and speed, for phase 22
+RESNET_RECORD = {}  # phase 20's ResNet-50 speed, for phase 23
 
 
 def train_phase(torch, dev):
@@ -5967,6 +6021,7 @@ def _resnet50(torch, dev, smi):
            "step_device_ms": prof["device_ms"],
            "step_device_busy_share": prof["device_busy_share"]}
     emit(rec)
+    RESNET_RECORD.update(images_per_s_f32=rec["images_per_s_f32"])
     emit({**prof, "gpu": smi})
     every = losses + tf32_losses
     check(all(math.isfinite(v) for v in every), f"non-finite loss {every}")
@@ -6672,6 +6727,1036 @@ def fleet_phase(torch, dev, smi):
     return rec["launches"]
 
 
+# ---------------------------------------------------------------- phase 23
+def _api_inputs(torch, dev, shape, dtype, seed):
+    """The sweep's named inputs on the card: normals, domains for the ops
+    that need one, integer-valued floats (``mod`` / ``floor_divide`` stay
+    exact), ints and bools."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def u(lo, hi):
+        return (torch.rand(shape, generator=g, device=dev) * (hi - lo)
+                + lo).to(dtype)
+
+    def n():
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    ints = torch.randint(-50, 50, shape, generator=g, device=dev)
+    return {"x": n(), "y": n(), "pos": u(0.1, 3.0), "pos2": u(0.1, 3.0),
+            "unit": u(-0.9, 0.9), "gt1": u(1.1, 4.0),
+            "prob": u(0.05, 0.95), "near1": u(0.998, 1.002),
+            "exp": u(-1.5, 1.5), "whole": ints.to(dtype),
+            "wdiv": torch.randint(1, 10, shape, generator=g,
+                                  device=dev).to(dtype),
+            "ints": ints, "small": torch.randint(1, 12, shape, generator=g,
+                                                 device=dev),
+            "shift": torch.randint(0, 8, shape, generator=g,
+                                   device=dev).to(torch.int32),
+            "mask": torch.rand(shape, generator=g, device=dev) > 0.5,
+            "mask2": torch.rand(shape, generator=g, device=dev) > 0.5}
+
+
+def _api_cases(paddle):
+    """(name, input keys, fn(paddle, *inputs), compare) for every op of the
+    tier: ``compare`` is "close" (max |card - cpu| over max(1, max|cpu|)),
+    "exact", or a function (card out, cpu out, card ins, cpu ins) -> that
+    same error. Index outputs where bf16 ties make the index ambiguous are
+    held by the values they pick."""
+    C, E = "close", "exact"
+    unary = ["exp", "expm1", "square", "abs", "neg", "sign", "floor", "ceil",
+             "round", "trunc", "frac", "sin", "cos", "tan", "atan", "sinh",
+             "cosh", "tanh", "asinh", "erf", "sigmoid", "deg2rad",
+             "rad2deg", "positive", "stanh", "sgn", "i0", "i0e", "i1",
+             "i1e", "isnan", "isinf", "isfinite", "isposinf", "isneginf",
+             "isreal", "signbit", "nan_to_num", "real"]
+    unary_dom = {"log": "pos", "log2": "pos", "log10": "pos",
+                 "log1p": "pos", "sqrt": "pos", "rsqrt": "pos",
+                 "reciprocal": "pos", "digamma": "pos", "lgamma": "pos",
+                 "gammaln": "pos", "asin": "unit", "acos": "unit",
+                 "atanh": "unit", "erfinv": "unit", "acosh": "gt1",
+                 "logit": "prob"}
+    binary = ["add", "subtract", "multiply", "maximum", "minimum", "fmax",
+              "fmin", "atan2", "hypot", "logaddexp", "copysign", "heaviside"]
+    cases = [(n, ("x",), lambda m, a, n=n: getattr(m, n)(a), C)
+             for n in unary]
+    cases += [(n, (d,), lambda m, a, n=n: getattr(m, n)(a), C)
+              for n, d in unary_dom.items()]
+    cases += [(n, ("x", "y"), lambda m, a, b, n=n: getattr(m, n)(a, b), C)
+              for n in binary]
+    cases += [
+        ("divide", ("x", "pos"), lambda m, a, b: m.divide(a, b), C),
+        # one step to the next value of the input's own dtype: its CPU
+        # reference runs in that dtype
+        ("nextafter", ("x", "y"), lambda m, a, b: m.nextafter(a, b),
+         "same_dtype"),
+        ("pow", ("pos", "exp"), lambda m, a, b: m.pow(a, b), C),
+        ("igamma", ("pos", "pos2"), lambda m, a, b: m.igamma(a, b), C),
+        ("igammac", ("pos", "pos2"), lambda m, a, b: m.igammac(a, b), C),
+        ("gammainc", ("pos", "pos2"), lambda m, a, b: m.gammainc(a, b), C),
+        ("gammaincc", ("pos", "pos2"), lambda m, a, b: m.gammaincc(a, b),
+         C),
+        ("polygamma", ("pos",), lambda m, a: m.polygamma(a, 1), C),
+        ("multigammaln", ("gt1",), lambda m, a: m.multigammaln(a, 2), C),
+        ("ldexp", ("x", "shift"), lambda m, a, b: m.ldexp(a, b), C),
+        ("frexp", ("pos",), lambda m, a: m.frexp(a), C),
+    ]
+    cases += [(n, ("whole", "wdiv"), lambda m, a, b, n=n: getattr(m, n)(
+        a, b), C) for n in ("mod", "remainder", "floor_mod",
+                            "floor_divide")]
+    cases += [(n, ("ints", "small"), lambda m, a, b, n=n: getattr(m, n)(
+        a, b), E) for n in ("gcd", "lcm", "bitwise_and", "bitwise_or",
+                            "bitwise_xor", "equal", "not_equal",
+                            "greater_than", "greater_equal", "less_than",
+                            "less_equal")]
+    cases += [(n, ("ints", "shift"), lambda m, a, b, n=n: getattr(m, n)(
+        a.abs().to(b.dtype), b), E) for n in ("bitwise_left_shift",
+                                              "bitwise_right_shift")]
+    cases += [(n, ("mask", "mask2"), lambda m, a, b, n=n: getattr(m, n)(
+        a, b), E) for n in ("logical_and", "logical_or", "logical_xor")]
+    cases += [
+        ("logical_not", ("mask",), lambda m, a: m.logical_not(a), E),
+        ("bitwise_not", ("ints",), lambda m, a: m.bitwise_not(a), E),
+        ("isclose", ("x", "y"), lambda m, a, b: m.isclose(a, a + 1e-9 * b),
+         E),
+        ("allclose", ("x",), lambda m, a: m.allclose(a, a), E),
+        ("equal_all", ("x", "y"), lambda m, a, b: m.equal_all(a, b), E),
+        ("where", ("mask", "x", "y"), lambda m, c, a, b: m.where(c, a, b),
+         E),
+        ("clip", ("x",), lambda m, a: m.clip(a, -0.5, 0.7), C),
+        ("scale", ("x",), lambda m, a: m.scale(a, 2.0, 0.5), C),
+        ("lerp", ("x", "y"), lambda m, a, b: m.lerp(a, b, 0.25), C),
+        ("increment", ("x",), lambda m, a: m.increment(a.clone(), 2.0), C),
+        ("add_n", ("x", "y"), lambda m, a, b: m.add_n([a, b, a]), C),
+        ("angle", ("x",), lambda m, a: m.angle(a), C),
+        ("conj", ("x",), lambda m, a: m.conj(a), C),
+        ("imag", ("x",), lambda m, a: m.imag(m.complex(
+            a.float(), a.float())), C),
+        ("complex", ("x", "y"), lambda m, a, b: m.complex(a.float(),
+                                                          b.float()), C),
+        ("polar", ("pos", "x"), lambda m, a, b: m.polar(a.float(),
+                                                        b.float()), C),
+        ("as_real", ("x", "y"), lambda m, a, b: m.as_real(
+            m.complex(a.float(), b.float())), C),
+        ("as_complex", ("x",), lambda m, a: m.as_complex(
+            a.float().reshape([-1, 2])), C),
+        ("rsqrt_", ("pos",), lambda m, a: m.rsqrt_(a.clone()), C),
+    ]
+    # reductions (positive inputs: sums of 2^24 terms stay well scaled)
+    for n in ("sum", "mean", "nansum", "nanmean", "max", "min", "amax",
+              "amin", "logsumexp"):
+        cases.append((n, ("pos",), lambda m, a, n=n: getattr(m, n)(
+            a, axis=-1), C))
+        cases.append((n + "[all]", ("pos",), lambda m, a, n=n: getattr(
+            m, n)(a), C))
+    cases += [
+        ("prod", ("near1",), lambda m, a: m.prod(a, axis=-1), C),
+        ("std", ("x",), lambda m, a: m.std(a, axis=-1), C),
+        ("var", ("x",), lambda m, a: m.var(a, axis=[0, 2],
+                                           unbiased=False), C),
+        ("all", ("mask",), lambda m, a: m.all(a, axis=-1), E),
+        ("any", ("mask",), lambda m, a: m.any(a, axis=1), E),
+        ("count_nonzero", ("mask",), lambda m, a: m.count_nonzero(a, axis=0),
+         E),
+        ("numel", ("x",), lambda m, a: m.numel(a), E),
+        ("cumsum", ("pos",), lambda m, a: m.cumsum(a, axis=-1), C),
+        ("cumprod", ("near1",), lambda m, a: m.cumprod(a, dim=-1), C),
+        ("logcumsumexp", ("x",), lambda m, a: m.logcumsumexp(a, axis=-1),
+         C),
+        ("cummax", ("x",), lambda m, a: m.cummax(a, axis=-1)[0], C),
+        ("cummin", ("x",), lambda m, a: m.cummin(a, axis=1)[0], C),
+        ("diff", ("x",), lambda m, a: m.diff(a, axis=-1), C),
+        ("trapezoid", ("pos",), lambda m, a: m.trapezoid(a, dx=0.5,
+                                                         axis=-1), C),
+        ("cumulative_trapezoid", ("pos",),
+         lambda m, a: m.cumulative_trapezoid(a, axis=-1), C),
+        ("renorm", ("x",), lambda m, a: m.renorm(a, 2.0, 1, 20.0), C),
+    ]
+    # manipulation: exact copies
+    cases += [
+        ("reshape", ("x",), lambda m, a: m.reshape(a, [0, -1, 64]), E),
+        ("reshape_", ("x",), lambda m, a: m.reshape_(
+            a.clone(), [-1, a.shape[2]]), E),
+        ("view", ("x",), lambda m, a: m.view(a, [a.shape[2], -1]), E),
+        ("view_as", ("x",), lambda m, a: m.view_as(a[0], a[1]), E),
+        ("transpose", ("x",), lambda m, a: m.transpose(a, [2, 0, 1]), E),
+        ("permute", ("x",), lambda m, a: m.permute(a, 1, 0, 2), E),
+        ("moveaxis", ("x",), lambda m, a: m.moveaxis(a, 0, 2), E),
+        ("t", ("x",), lambda m, a: m.t(a[0]), E),
+        ("transpose_last", ("x",), lambda m, a: m.transpose_last(a), E),
+        ("squeeze", ("x",), lambda m, a: m.squeeze(a[:1], 0), E),
+        ("squeeze_", ("x",), lambda m, a: m.squeeze_(a[:1].clone(), 0), E),
+        ("unsqueeze", ("x",), lambda m, a: m.unsqueeze(a, [0, -1]), E),
+        ("unsqueeze_", ("x",), lambda m, a: m.unsqueeze_(a.clone(), 1), E),
+        ("concat", ("x", "y"), lambda m, a, b: m.concat([a, b], axis=1), E),
+        ("stack", ("x", "y"), lambda m, a, b: m.stack([a, b], axis=-1), E),
+        ("hstack", ("x", "y"), lambda m, a, b: m.hstack([a, b]), E),
+        ("row_stack", ("x", "y"), lambda m, a, b: m.row_stack([a, b]), E),
+        ("column_stack", ("x", "y"), lambda m, a, b: m.column_stack(
+            [a[0], b[0]]), E),
+        ("split", ("x",), lambda m, a: m.split(a, [a.shape[1] // 2, -1],
+                                               axis=1), E),
+        ("chunk", ("x",), lambda m, a: m.chunk(a, 4, axis=-1), E),
+        ("tensor_split", ("x",), lambda m, a: m.tensor_split(a, 3, axis=2),
+         E),
+        ("hsplit", ("x",), lambda m, a: m.hsplit(a, [a.shape[1] // 3]), E),
+        ("vsplit", ("x",), lambda m, a: m.vsplit(a, 2), E),
+        ("dsplit", ("x",), lambda m, a: m.dsplit(a, [5, a.shape[2] - 7]),
+         E),
+        ("unbind", ("x",), lambda m, a: m.unbind(a, axis=0), E),
+        ("unstack", ("x",), lambda m, a: m.unstack(a, axis=0), E),
+        ("flatten", ("x",), lambda m, a: m.flatten(a, 0, 1), E),
+        ("unflatten", ("x",), lambda m, a: m.unflatten(a, 2, [-1, 64]), E),
+        ("flip", ("x",), lambda m, a: m.flip(a, [0, 2]), E),
+        ("rot90", ("x",), lambda m, a: m.rot90(a, 1, (1, 2)), E),
+        ("roll", ("x",), lambda m, a: m.roll(a, 17, axis=2), E),
+        ("tile", ("x",), lambda m, a: m.tile(a[:, :64], [1, 2, 1]), E),
+        ("expand", ("x",), lambda m, a: m.expand(a[:, :1], list(a.shape)),
+         E),
+        ("expand_as", ("x", "y"), lambda m, a, b: m.expand_as(a[:1], b), E),
+        ("broadcast_to", ("x",), lambda m, a: m.broadcast_to(
+            a[:, :, :1], list(a.shape)), E),
+        ("broadcast_tensors", ("x", "y"), lambda m, a, b:
+         m.broadcast_tensors([a, b[:1]]), E),
+        ("slice", ("x",), lambda m, a: m.slice(a, [1, 2], [5, 7], [
+            a.shape[1] // 2, a.shape[2] - 9]), E),
+        ("strided_slice", ("x",), lambda m, a: m.strided_slice(
+            a, [2], [1], [a.shape[2] - 5], [3]), E),
+        ("crop", ("x",), lambda m, a: m.crop(a, [1, a.shape[1] // 2,
+                                                a.shape[2] // 2],
+                                             [1, 10, 20]), E),
+        ("pad", ("x",), lambda m, a: m.pad(a, [1, 2], mode="reflect"), E),
+        ("diagonal", ("x",), lambda m, a: m.diagonal(a, 0, 1, 2), E),
+        ("diag", ("x",), lambda m, a: m.diag(a[0, 0, :512]), E),
+        ("diagflat", ("x",), lambda m, a: m.diagflat(a[0, 0, :256]), E),
+        ("diag_embed", ("x",), lambda m, a: m.diag_embed(a[0, :8, :256]), E),
+        ("tril", ("x",), lambda m, a: m.tril(a, -1), E),
+        ("triu", ("x",), lambda m, a: m.triu(a, 1), E),
+        ("trace", ("x",), lambda m, a: m.trace(a[0]), C),
+        ("atleast_1d", ("x",), lambda m, a: m.atleast_1d(a[0, 0, 0]), E),
+        ("atleast_2d", ("x",), lambda m, a: m.atleast_2d(a[0, 0]), E),
+        ("atleast_3d", ("x",), lambda m, a: m.atleast_3d(a[0]), E),
+        ("as_strided", ("x",), lambda m, a: m.as_strided(
+            a, [a.shape[1] // 2, 64], [a.shape[2], 2], 3), E),
+        ("repeat_interleave", ("x",), lambda m, a: m.repeat_interleave(
+            a[:, :256], 2, axis=1), E),
+        ("block_diag", ("x", "y"), lambda m, a, b: m.block_diag(
+            [a[0, :64, :64], b[0, :32, :96]]), E),
+        ("select_scatter", ("x", "y"), lambda m, a, b: m.select_scatter(
+            a, b[:, 0], 1, 5), E),
+        ("slice_scatter", ("x", "y"), lambda m, a, b: m.slice_scatter(
+            a, b[:, :, :a.shape[2] // 2], [2], [0], [a.shape[2]], [2]), E),
+        ("diagonal_scatter", ("x", "y"), lambda m, a, b:
+         m.diagonal_scatter(a[0], b[0].diagonal()), E),
+        ("cast", ("x",), lambda m, a: m.cast(a, "float32"), E),
+        ("clone", ("x",), lambda m, a: m.clone(a), E),
+        ("assign", ("x",), lambda m, a: m.assign(a), E),
+        ("masked_fill", ("x", "mask"), lambda m, a, k: m.masked_fill(
+            a, k, -1.0), E),
+        ("masked_select", ("x", "mask"), lambda m, a, k: m.masked_select(
+            a, k), E),
+        ("masked_scatter", ("x", "mask", "y"), lambda m, a, k, b:
+         m.masked_scatter(a, k, b), E),
+        ("gather", ("x", "ints"), lambda m, a, i: m.gather(
+            a, i[0, 0, :100] % a.shape[1], axis=1), E),
+        ("gather_nd", ("x", "ints"), lambda m, a, i: m.gather_nd(
+            a, m.stack([i[0, 0, :100] % 2, i[0, 1, :100] % a.shape[1]],
+                       axis=1)), E),
+        ("index_select", ("x", "ints"), lambda m, a, i: m.index_select(
+            a, i[0, 0, :100] % a.shape[2], axis=2), E),
+        ("index_sample", ("x", "ints"), lambda m, a, i: m.index_sample(
+            a[0], i[0, :, :8] % a.shape[2]), E),
+        ("take_along_axis", ("x", "ints"), lambda m, a, i:
+         m.take_along_axis(a, i[:, :, :8] % a.shape[2], axis=2), E),
+        ("put_along_axis", ("x", "ints"), lambda m, a, i: m.put_along_axis(
+            a, (i[:, :, :1] + 50) % a.shape[2], 9.0, axis=2), E),
+        ("take", ("x", "ints"), lambda m, a, i: m.take(
+            a, i[0, :4] % 1000), E),
+        ("index_fill", ("x", "ints"), lambda m, a, i: m.index_fill(
+            a, i[0, 0, :4] % a.shape[2], 2, -7.0), E),
+        ("index_add", ("x", "y", "ints"), lambda m, a, b, i: m.index_add(
+            a, i[0, 0, :4] % a.shape[1], 1, b[:, :4]), C),
+        ("index_put", ("x", "y", "ints"), lambda m, a, b, i: m.index_put(
+            a[0], (i[0, 0, :64] % a.shape[1], i[0, 1, :64] % a.shape[2]),
+            b[0, 0, :64], accumulate=True), C),
+        ("scatter", ("x", "y"), lambda m, a, b: m.scatter(
+            a[0], m.flip(m.arange(8), [0]) * 3, b[0, :8]), E),
+        ("scatter_", ("x", "y"), lambda m, a, b: m.scatter_(
+            a[0].clone(), m.arange(8) * 5, b[0, :8]), E),
+        ("scatter_nd", ("y", "ints"), lambda m, b, i: m.scatter_nd(
+            m.reshape(i[0, 0, :8] % b.shape[1], [8, 1]), b[0, :8],
+            list(b.shape[1:])), C),
+        ("scatter_nd_add", ("x", "y", "ints"), lambda m, a, b, i:
+         m.scatter_nd_add(a[0], m.reshape(i[0, 0, :8] % a.shape[1], [8, 1]),
+                          b[0, :8]), C),
+        ("multiplex", ("x", "y", "ints"), lambda m, a, b, i: m.multiplex(
+            [a[0], b[0]], m.reshape(i[0, :, :1] % 2, [a.shape[1], 1])), E),
+        ("shard_index", ("ints",), lambda m, i: m.shard_index(
+            m.reshape(i[0, 0] + 50, [-1, 1]), 100, 4, 1), E),
+        ("one_hot", ("ints",), lambda m, i: m.one_hot(i[0, 0, :512] + 50,
+                                                      100), E),
+        ("bincount", ("ints",), lambda m, i: m.bincount(i[0, 0] + 50), E),
+        ("histogram", ("x",), lambda m, a: m.histogram(a[0], bins=50,
+                                                       min=-3, max=3), E),
+        ("histogramdd", ("x",), lambda m, a: m.histogramdd(
+            a[0, :, :2].float(), bins=8)[0], E),
+        ("unique", ("ints",), lambda m, i: m.unique(
+            i, return_index=True, return_inverse=True, return_counts=True),
+         E),
+        ("unique_consecutive", ("ints",), lambda m, i:
+         m.unique_consecutive(i // 20, return_counts=True), E),
+        ("vander", ("x",), lambda m, a: m.vander(a[0, 0, :64], 5), C),
+        ("combinations", ("x",), lambda m, a: m.combinations(
+            a[0, 0, :64], 2), E),
+        ("cartesian_prod", ("x", "y"), lambda m, a, b: m.cartesian_prod(
+            [a[0, 0, :64], b[0, 0, :64]]), E),
+        ("meshgrid", ("x", "y"), lambda m, a, b: m.meshgrid(
+            a[0, 0, :64], b[0, 0, :32]), E),
+        ("unfold", ("x",), lambda m, a: m.unfold(
+            a[:, :8, :256].reshape([2, 8, 16, 16]), 3, 1, 1), E),
+        ("is_empty", ("x",), lambda m, a: m.is_empty(a), E),
+        ("rank", ("x",), lambda m, a: m.rank(a), E),
+        ("shape", ("x",), lambda m, a: m.shape(a), E),
+    ]
+    return cases
+
+
+def _row_wise(cases):
+    """Names among ``cases`` that act on each row of the inputs' dim 1 alone
+    (elementwise ops, reductions and scans along the last axis): their CPU
+    reference computes the first ``TENSOR_API_CPU_ROWS`` rows."""
+    along_last = {"sum", "mean", "nansum", "nanmean", "max", "min", "amax",
+                  "amin", "logsumexp", "prod", "std", "cumsum", "cumprod",
+                  "logcumsumexp", "cummax", "diff", "trapezoid",
+                  "cumulative_trapezoid"}
+    shaped = {"x", "y", "pos", "pos2", "unit", "gt1", "prob", "near1",
+              "exp", "whole", "wdiv", "ints", "small", "shift", "mask",
+              "mask2"}
+    elementwise = set()
+    for name, keys, fn, cmp in cases:
+        if name in along_last or (set(keys) <= shaped and name in _ELEMENTWISE):
+            elementwise.add(name)
+    return elementwise
+
+
+def _rows(x):
+    if isinstance(x, (list, tuple)):
+        return type(x)(_rows(e) for e in x)
+    return x[:, :TENSOR_API_CPU_ROWS]
+
+
+def _api_search_cases(paddle):
+    """Sorts, searches and quantiles, at ``TENSOR_API_SEARCH_SHAPE``."""
+    C, E = "close", "exact"
+
+    def picked(key_axis):
+        def err(a, b, ins_a, ins_b):
+            return _api_err(_take(ins_a[0], a, key_axis),
+                            _take(ins_b[0], b, key_axis))
+        return err
+
+    def vals_picked(a, b, ins_a, ins_b):
+        return max(_api_err(a[0], b[0]), picked(-1)(a[1], b[1], ins_a,
+                                                      ins_b))
+
+    return [
+        ("argmax", ("x",), lambda m, a: m.argmax(a, axis=-1, keepdim=True),
+         picked(-1)),
+        ("argmin", ("x",), lambda m, a: m.argmin(a, axis=-1, keepdim=True),
+         picked(-1)),
+        ("argsort", ("x",), lambda m, a: m.argsort(a, axis=-1), E),
+        ("argsort[desc]", ("x",), lambda m, a: m.argsort(
+            a, axis=-1, descending=True), E),
+        ("sort", ("x",), lambda m, a: m.sort(a, axis=-1), E),
+        ("topk", ("x",), lambda m, a: m.topk(a, 8, axis=-1), vals_picked),
+        ("kthvalue", ("x",), lambda m, a: m.kthvalue(a, 10, axis=-1), E),
+        ("mode", ("ints",), lambda m, i: m.mode(i % 7, axis=-1), E),
+        ("median", ("x",), lambda m, a: m.median(a, axis=-1), C),
+        ("nanmedian", ("x",), lambda m, a: m.nanmedian(a, axis=-1), C),
+        ("quantile", ("x",), lambda m, a: m.quantile(a, [0.1, 0.9],
+                                                     axis=-1), C),
+        ("nanquantile", ("x",), lambda m, a: m.nanquantile(a, 0.3,
+                                                           axis=-1), C),
+        ("nonzero", ("mask",), lambda m, k: m.nonzero(k[0]), E),
+        ("searchsorted", ("x", "y"), lambda m, a, b: m.searchsorted(
+            m.sort(a, axis=-1), b), E),
+        ("bucketize", ("x", "y"), lambda m, a, b: m.bucketize(
+            b[0, 0], m.sort(a[0, 0])), E),
+    ]
+
+
+def _api_product_cases(paddle):
+    """Products at ``TENSOR_API_MATMUL`` over (a, b): (name, fn, cpu_args,
+    part): the CPU reference computes ``fn`` on ``cpu_args(a, b)`` (the
+    first ``TENSOR_API_CPU_ROWS`` rows where a full f64 product would take
+    the CPU seconds) and is held against ``part(card output)``."""
+    r = TENSOR_API_CPU_ROWS
+
+    def rows_a(a, b):
+        return a[:r], b
+
+    def rows_ab(a, b):
+        return a[:r], b[:r]
+
+    def full(a, b):
+        return a, b
+
+    def first(o):
+        return o[:r]
+
+    def whole(o):
+        return o
+
+    return [
+        ("matmul", lambda m, a, b: m.matmul(a, b), rows_a, first),
+        ("matmul[T]", lambda m, a, b: m.matmul(a, b, transpose_y=True),
+         rows_a, first),
+        ("mm", lambda m, a, b: m.mm(a, b), rows_a, first),
+        ("bmm", lambda m, a, b: m.bmm(m.stack([a, a]), m.stack([b, b])),
+         rows_a, lambda o: o[:, :r]),
+        ("addmm", lambda m, a, b: m.addmm(m.ones_like(a[:, :64]), a,
+                                          b[:, :64]), rows_a, first),
+        ("mv", lambda m, a, b: m.mv(a, b[:, 0]), rows_a, first),
+        ("einsum", lambda m, a, b: m.einsum("ik,kj->ij", a, b), rows_a,
+         first),
+        ("tensordot", lambda m, a, b: m.tensordot(a, b, [[1], [0]]),
+         rows_a, first),
+        ("multi_dot", lambda m, a, b: m.multi_dot([a, b, b[:, :64]]),
+         rows_a, first),
+        ("inner", lambda m, a, b: m.inner(a, b), rows_a, first),
+        ("cdist", lambda m, a, b: m.cdist(a, b), rows_a, first),
+        ("outer", lambda m, a, b: m.outer(a[:, 0], b[0]), rows_a, first),
+        ("dot", lambda m, a, b: m.dot(a, b), rows_ab, first),
+        ("cross", lambda m, a, b: m.cross(a[:, :3], b[:, :3], axis=1),
+         rows_ab, first),
+        ("norm", lambda m, a, b: m.norm(a, p=2, axis=1), rows_a, first),
+        ("kron", lambda m, a, b: m.kron(a[:64, :64], b[:64, :64]), full,
+         whole),
+        ("dist", lambda m, a, b: m.dist(a, b), full, whole),
+    ]
+
+
+def _api_linalg_cases(paddle):
+    """Decompositions and solves at ``TENSOR_API_DECOMP`` in f32, over a
+    well-conditioned matrix near the identity (``near``), an SPD matrix
+    (``spd``) and a tall one (``tall``); results that are unique only up
+    to signs are compared by what is unique (values, reconstructions)."""
+    C = "close"
+    L = paddle.linalg
+
+    def recon_svd(m, a):
+        u, s, vh = L.svd(a)
+        return s, m.matmul(u * s[None, :], vh)
+
+    def recon_qr(m, a):
+        q, r = L.qr(a)
+        return m.abs(r), m.matmul(q, r)
+
+    def recon_eigh(m, a):
+        w, v = L.eigh(a)
+        return w, m.matmul(v * w[None, :], v.T)
+
+    def recon_lu(m, a):
+        p, lo, up = L.lu_unpack(*L.lu(a))
+        return m.matmul(p, m.matmul(lo, up))
+
+    return [
+        ("inv", ("near",), lambda m, a: L.inv(a), C),
+        ("inverse", ("near",), lambda m, a: m.inverse(a), C),
+        ("det", ("near",), lambda m, a: L.det(a), C),
+        ("slogdet", ("spd",), lambda m, a: L.slogdet(a), C),
+        ("cholesky", ("spd",), lambda m, a: L.cholesky(a), C),
+        ("cholesky_solve", ("spd", "rhs"), lambda m, a, b: L.cholesky_solve(
+            b, L.cholesky(a)), C),
+        ("solve", ("near", "rhs"), lambda m, a, b: L.solve(a, b), C),
+        ("triangular_solve", ("near", "rhs"), lambda m, a, b:
+         L.triangular_solve(m.triu(a), b), C),
+        ("lstsq", ("tall", "rhs2"), lambda m, a, b: L.lstsq(a, b)[0], C),
+        ("pinv", ("tall",), lambda m, a: L.pinv(a), C),
+        ("matrix_power", ("near",), lambda m, a: L.matrix_power(a, 3), C),
+        ("matrix_rank", ("tall",), lambda m, a: L.matrix_rank(a), "exact"),
+        ("matrix_exp", ("near",), lambda m, a: L.matrix_exp(a), C),
+        ("cond", ("spd",), lambda m, a: L.cond(a), C),
+        ("svd", ("tall",), recon_svd, C),
+        ("qr", ("tall",), recon_qr, C),
+        ("eigh", ("spd",), recon_eigh, C),
+        ("eigvalsh", ("spd",), lambda m, a: L.eigvalsh(a), C),
+        ("eig", ("spd",), lambda m, a: m.sort(m.real(L.eig(a)[0])), C),
+        ("eigvals", ("spd",), lambda m, a: m.sort(m.real(L.eigvals(a))), C),
+        ("lu", ("near",), lambda m, a: L.lu(a), C),
+        ("lu_unpack", ("near",), recon_lu, C),
+        ("householder_product", ("refl", "tau"), lambda m, a, t:
+         L.householder_product(a, t), C),
+        ("corrcoef", ("tall",), lambda m, a: L.corrcoef(a[:, :64].T), C),
+        ("cov", ("tall",), lambda m, a: L.cov(a[:, :64].T), C),
+    ]
+
+
+def _api_creation_cases(paddle):
+    """Ops that make tensors from shapes and values, on the current place
+    (the card, then the CPU for the reference)."""
+    import numpy as np
+
+    b, r, n = TENSOR_API_SHAPE
+    return [
+        ("zeros", lambda m: m.zeros([b, r, n])),
+        ("ones", lambda m: m.ones([r, n], dtype="bfloat16")),
+        ("full", lambda m: m.full([r, n], 1.5)),
+        ("empty", lambda m: m.empty([r, n]) * 0),
+        ("zeros_like", lambda m: m.zeros_like(m.ones([8, n]))),
+        ("ones_like", lambda m: m.ones_like(m.zeros([8, n]))),
+        ("full_like", lambda m: m.full_like(m.zeros([8, n]), 2.5)),
+        ("empty_like", lambda m: m.empty_like(m.zeros([8, n])) * 0),
+        ("arange", lambda m: m.arange(0, r * n)),
+        ("linspace", lambda m: m.linspace(-1.0, 1.0, r * n)),
+        ("logspace", lambda m: m.logspace(0, 2, 4096)),
+        ("eye", lambda m: m.eye(n)),
+        ("tril_indices", lambda m: m.tril_indices(512, 512, -1)),
+        ("triu_indices", lambda m: m.triu_indices(512, 512, 1)),
+        ("to_tensor", lambda m: m.to_tensor(np.arange(1 << 20,
+                                                       dtype=np.float64))),
+        ("broadcast_shape", lambda m: m.to_tensor(
+            m.broadcast_shape([b, 1, n], [r, 1]))),
+        ("tolist", lambda m: m.to_tensor(m.tolist(m.arange(64)))),
+        ("is_tensor", lambda m: m.to_tensor(m.is_tensor(m.ones([2])))),
+        ("is_complex", lambda m: m.to_tensor(m.is_complex(m.ones([2])))),
+        ("is_floating_point", lambda m: m.to_tensor(
+            m.is_floating_point(m.ones([2])))),
+        ("is_integer", lambda m: m.to_tensor(m.is_integer(m.arange(2)))),
+    ]
+
+
+def _api_random_cases(paddle, shape, dtype):
+    """(name, draw(), mean, variance) at the sweep's shape: each draw is
+    taken twice after ``seed(s)`` (equal bit for bit) and its moments held
+    within 5 sigma (a sample mean's and a sample variance's own sd)."""
+    x = paddle.zeros(list(shape), dtype=dtype)
+    return [
+        ("rand", lambda: paddle.rand(list(shape), dtype=dtype), 0.5, 1 / 12),
+        ("randn", lambda: paddle.randn(list(shape), dtype=dtype), 0.0, 1.0),
+        ("standard_normal", lambda: paddle.standard_normal(
+            list(shape), dtype=dtype), 0.0, 1.0),
+        ("uniform", lambda: paddle.uniform(list(shape), dtype=dtype,
+                                           min=-2.0, max=4.0), 1.0, 3.0),
+        ("normal", lambda: paddle.normal(2.0, 3.0, list(shape)), 2.0, 9.0),
+        ("rand_like", lambda: paddle.rand_like(x), 0.5, 1 / 12),
+        ("randn_like", lambda: paddle.randn_like(x), 0.0, 1.0),
+        ("randint", lambda: paddle.randint(0, 10, list(shape)), 4.5,
+         99 / 12),
+        ("randint_like", lambda: paddle.randint_like(x, 0, 4), 1.5, 15 / 12),
+        ("bernoulli", lambda: paddle.bernoulli(paddle.full_like(
+            x, 0.3, dtype="float32")), 0.3, 0.21),
+        ("poisson", lambda: paddle.poisson(paddle.full_like(
+            x, 4.0, dtype="float32")), 4.0, 4.0),
+        ("multinomial", lambda: paddle.multinomial(paddle.to_tensor(
+            [0.2, 0.3, 0.5]), 1 << 20, replacement=True), 1.3, 0.61),
+        ("randperm", lambda: paddle.randperm(1 << 20).float() / (1 << 20),
+         0.5 - 0.5 / (1 << 20), None),
+        ("uniform_", lambda: paddle.uniform_(x.clone(), 0.0, 2.0), 1.0,
+         1 / 3),
+        ("normal_", lambda: paddle.normal_(x.clone(), 1.0, 0.5), 1.0, 0.25),
+        ("exponential_", lambda: paddle.exponential_(x.clone(), 2.0), 0.5,
+         0.25),
+        ("gumbel_softmax", lambda: paddle.gumbel_softmax(
+            x.reshape([-1, 2]).float())[:, 0], 0.5, None),
+    ]
+
+
+def _api_ref(x, device):
+    """An output as a tensor on ``device`` to compare: floats in f64,
+    complex in complex128, ints in int64; nested structures kept."""
+    import torch
+
+    if isinstance(x, (list, tuple)):
+        return [_api_ref(e, device) for e in x]
+    if not isinstance(x, torch.Tensor):
+        x = torch.as_tensor(x)
+    x = x.detach().to(device)
+    if x.is_complex():
+        return x.to(torch.complex128)
+    if x.is_floating_point():
+        return x.double()
+    return x.long()
+
+
+def _first_device(x):
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.device
+    if isinstance(x, (list, tuple)):
+        for e in x:
+            d = _first_device(e)
+            if d is not None:
+                return d
+    return None
+
+
+def _api_err(a, b):
+    """max |a - b| over max(1, max |b|), with NaN / inf where both have
+    them; a mismatch of structure, shape or finiteness is inf. Computed on
+    ``a``'s device (the card: the CPU reference moves there)."""
+    import torch
+
+    dev = _first_device(a) or torch.device("cpu")
+    a, b = _api_ref(a, dev), _api_ref(b, dev)
+    if isinstance(b, list):
+        if not isinstance(a, list) or len(a) != len(b):
+            return math.inf
+        return max([_api_err(x, y) for x, y in zip(a, b)] or [0.0])
+    if isinstance(a, list) or a.shape != b.shape:
+        return math.inf
+    if b.numel() == 0:
+        return 0.0
+    if not (b.is_floating_point() or b.is_complex()):
+        return 0.0 if torch.equal(a.double(), b.double()) else math.inf
+    fa, fb = torch.isfinite(a), torch.isfinite(b)
+    if not torch.equal(fa, fb):
+        return math.inf
+    if not torch.equal(a[~fb].nan_to_num(0.0, 1.0, -1.0),
+                       b[~fb].nan_to_num(0.0, 1.0, -1.0)):
+        return math.inf
+    if not bool(fb.any()):
+        return 0.0
+    scale = max(1.0, float(b[fb].abs().max()))
+    return float((a[fb] - b[fb]).abs().max()) / scale
+
+
+def _take(x, idx, axis):
+    """``x``'s values at indices ``idx`` along ``axis`` (on ``x``'s
+    device)."""
+    return x.gather(axis, idx.to(x.device))
+
+
+def _api_cpu(t):
+    """A card input's CPU copy, floats in f64 (complex in complex128)."""
+    import torch
+
+    t = t.detach().cpu()
+    if t.is_complex():
+        return t.to(torch.complex128)
+    return t.double() if t.is_floating_point() else t
+
+
+class _Sweep:
+    """Runs cases on the card and their references on the CPU; keeps the
+    ops run, the failures by name and the worst error per dtype."""
+
+    def __init__(self, torch, paddle):
+        self.torch, self.paddle = torch, paddle
+        self.run_names, self.failures, self.worst = set(), {}, {}
+        self.errors, self.walls = {}, {}
+        self.count = 0
+
+    def case(self, name, fn, ins, compare, dtype_name, cpu_ins=None,
+             cpu_args=None, part=None):
+        torch, paddle = self.torch, self.paddle
+        place = paddle.core.place
+        label = f"{name}[{dtype_name}]"
+        self.run_names.add(name.split("[")[0])
+        t0 = time.perf_counter()
+        try:
+            out = fn(paddle, *ins)
+            torch.cuda.synchronize()
+            if cpu_ins is None:
+                cpu_ins = [t.detach().cpu() if compare == "same_dtype"
+                           else _api_cpu(t)
+                           for t in (cpu_args(*ins) if cpu_args else ins)]
+            saved = place._current
+            paddle.set_device("cpu")
+            try:
+                ref = fn(paddle, *cpu_ins)
+            finally:
+                place._current = saved
+            if part is not None:
+                out = part(out)
+            err = (compare(out, ref, ins, cpu_ins) if callable(compare)
+                   else _api_err(out, ref))
+        except Exception as e:  # recorded as this op's failure
+            self.failures[label] = f"{type(e).__name__}: {e}"[:300]
+            return
+        self.count += 1
+        self.walls[label] = time.perf_counter() - t0
+        tol = 0.0 if compare in ("exact", "same_dtype") else \
+            TENSOR_API_TOL[dtype_name]
+        if tol:
+            self.worst[dtype_name] = max(self.worst.get(dtype_name, 0.0),
+                                         err)
+            self.errors[label] = err
+        if not err <= tol:
+            self.failures[label] = err
+
+
+def _api_sweep(torch, paddle, dev):
+    """(a) every op of the tier once on CUDA tensors against the same port
+    function on a CPU copy in f64; random ops by reproducibility at a seed
+    and moments. Returns the record."""
+    sweep = _Sweep(torch, paddle)
+    t0 = time.perf_counter()
+    cases = _api_cases(paddle)
+    typed = [c for c in cases if any(k in c[1] for k in _API_FLOAT_KEYS)]
+    row_wise = _row_wise(cases)
+    untyped = [c for c in cases if c not in typed]
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[1]
+        ins = _api_inputs(torch, dev, TENSOR_API_SHAPE, dtype, SEED + 40)
+        cpu = {k: _api_cpu(v) for k, v in ins.items()}
+        rows = {k: v[:, :TENSOR_API_CPU_ROWS] for k, v in cpu.items()}
+        for name, keys, fn, cmp in typed:
+            by_row = name in row_wise
+            sweep.case(name, fn, [ins[k] for k in keys], cmp, dname,
+                       cpu_ins=None if cmp == "same_dtype" else
+                       [(rows if by_row else cpu)[k] for k in keys],
+                       cpu_args=(lambda *a: [_rows(t) for t in a])
+                       if by_row else None,
+                       part=_rows if by_row else None)
+        del cpu, rows
+        sins = _api_inputs(torch, dev, TENSOR_API_SEARCH_SHAPE, dtype,
+                           SEED + 41)
+        cpu = {k: _api_cpu(v) for k, v in sins.items()}
+        for name, keys, fn, cmp in _api_search_cases(paddle):
+            sweep.case(name, fn, [sins[k] for k in keys], cmp, dname,
+                       cpu_ins=[cpu[k] for k in keys])
+        del cpu
+        g = torch.Generator(device=dev).manual_seed(SEED + 42)
+        n = TENSOR_API_MATMUL
+        a = torch.randn(n, n, generator=g, device=dev).to(dtype)
+        b = torch.randn(n, n, generator=g, device=dev).to(dtype)
+        for name, fn, cpu_args, part in _api_product_cases(paddle):
+            sweep.case(name, fn, [a, b], "close", dname, cpu_args=cpu_args,
+                       part=part)
+        del ins, sins, a, b
+        gc.collect()
+        torch.cuda.empty_cache()
+    ints = _api_inputs(torch, dev, TENSOR_API_SHAPE, torch.float32,
+                       SEED + 40)
+    cpu = {k: _api_cpu(v) for k, v in ints.items()}
+    rows = {k: v[:, :TENSOR_API_CPU_ROWS] for k, v in cpu.items()}
+    for name, keys, fn, cmp in untyped:
+        by_row = name in row_wise
+        sweep.case(name, fn, [ints[k] for k in keys], cmp, "int",
+                   cpu_ins=[(rows if by_row else cpu)[k] for k in keys],
+                   part=_rows if by_row else None)
+    del cpu, rows
+    del ints
+    g = torch.Generator(device=dev).manual_seed(SEED + 43)
+    n = TENSOR_API_DECOMP
+    c = torch.randn(n, n, generator=g, device=dev)
+    lin = {"near": torch.eye(n, device=dev) + c / (4 * math.sqrt(n)),
+           "spd": c @ c.T / n + torch.eye(n, device=dev),
+           "tall": torch.randn(2 * n, n, generator=g, device=dev),
+           "rhs": torch.randn(n, 8, generator=g, device=dev),
+           "rhs2": torch.randn(2 * n, 8, generator=g, device=dev),
+           "tau": torch.rand(n, generator=g, device=dev) + 0.5}
+    # reflectors with a unit head and a small tail, as geqrf leaves them
+    lin["refl"] = lin["tall"] / (4 * math.sqrt(2 * n))
+    for name, keys, fn, cmp in _api_linalg_cases(paddle):
+        sweep.case(name, fn, [lin[k] for k in keys], cmp,
+                   "float32_decomposition")
+    for name, fn in _api_creation_cases(paddle):
+        sweep.case(name, lambda m, fn=fn: fn(m), [], "close"
+                   if name in ("linspace", "logspace") else "exact",
+                   "float32")
+    random_rec = {}
+    for name, draw, mean, var in _api_random_cases(
+            paddle, TENSOR_API_SHAPE, "float32"):
+        sweep.run_names.add(name)
+        try:
+            paddle.seed(SEED + 44)
+            first = draw()
+            paddle.seed(SEED + 44)
+            again = draw()
+            same = bool(torch.equal(first, again))
+            v = first.double()
+            k = v.numel()
+            var_s = float(v.var())
+            sd = math.sqrt(var if var is not None else var_s)
+            mean_z = abs(float(v.mean()) - mean) / (sd / math.sqrt(k))
+            var_z = 0.0
+            if var is not None:
+                mu4 = float(((v - v.mean()) ** 4).mean())
+                var_z = abs(var_s - var) / math.sqrt(
+                    max(mu4 - var ** 2, 1e-30) / k)
+            if name == "randperm":
+                same = same and bool(torch.equal(
+                    torch.sort(first).values,
+                    torch.arange(k, device=dev).float() / k))
+            random_rec[name] = {"n": k, "repeats": same,
+                                "mean_sigmas": mean_z, "var_sigmas": var_z}
+            sweep.count += 1
+            if not (same and mean_z <= 5 and var_z <= 5):
+                sweep.failures[f"{name}[random]"] = random_rec[name]
+        except Exception as e:  # recorded as this op's failure
+            sweep.failures[f"{name}[random]"] = \
+                f"{type(e).__name__}: {e}"[:300]
+    missing = sorted(set(paddle.tensor.__all__) - sweep.run_names)
+    return {"phase": "tensor_api_sweep", "ops_run": sweep.count,
+            "op_names": len(sweep.run_names), "not_run": missing,
+            "failures": sweep.failures, "worst_err_by_dtype": sweep.worst,
+            "largest_errors": dict(sorted(sweep.errors.items(),
+                                          key=lambda kv: -kv[1])[:12]),
+            "slowest_cases_s": dict(sorted(sweep.walls.items(),
+                                           key=lambda kv: -kv[1])[:12]),
+            "tolerance_by_dtype": dict(TENSOR_API_TOL),
+            "shapes": {"elementwise_reduction_manipulation":
+                       list(TENSOR_API_SHAPE),
+                       "search": list(TENSOR_API_SEARCH_SHAPE),
+                       "products": [TENSOR_API_MATMUL] * 2,
+                       "products_cpu_rows": TENSOR_API_CPU_ROWS,
+                       "decompositions": [TENSOR_API_DECOMP] * 2},
+            "random": random_rec, "wall_s": time.perf_counter() - t0}
+
+
+_API_FLOAT_KEYS = ("x", "y", "pos", "pos2", "unit", "gt1", "prob", "near1",
+                   "exp", "whole", "wdiv")
+# the elementwise ops of the sweep (output element i reads input element i)
+_ELEMENTWISE = {
+    "exp", "expm1", "square", "abs", "neg", "sign", "floor", "ceil", "round",
+    "trunc", "frac", "sin", "cos", "tan", "atan", "sinh", "cosh", "tanh",
+    "asinh", "erf", "sigmoid", "deg2rad", "rad2deg", "positive", "stanh",
+    "sgn", "i0", "i0e", "i1", "i1e", "isnan", "isinf", "isfinite",
+    "isposinf", "isneginf", "isreal", "signbit", "nan_to_num", "real", "log",
+    "log2", "log10", "log1p", "sqrt", "rsqrt", "reciprocal", "digamma",
+    "lgamma", "gammaln", "asin", "acos", "atanh", "erfinv", "acosh", "logit",
+    "add", "subtract", "multiply", "maximum", "minimum", "fmax", "fmin",
+    "atan2", "hypot", "logaddexp", "copysign", "heaviside", "divide", "pow",
+    "igamma", "igammac", "gammainc", "gammaincc", "polygamma",
+    "multigammaln", "ldexp", "frexp", "mod", "remainder", "floor_mod",
+    "floor_divide", "gcd", "lcm", "bitwise_and", "bitwise_or", "bitwise_xor",
+    "equal", "not_equal", "greater_than", "greater_equal", "less_than",
+    "less_equal", "bitwise_left_shift", "bitwise_right_shift", "logical_and",
+    "logical_or", "logical_xor", "logical_not", "bitwise_not", "isclose",
+    "where", "clip", "scale", "lerp", "increment", "add_n", "angle", "conj",
+    "rsqrt_", "masked_fill"}
+
+
+def _kernel_names(torch, fn):
+    """The CUDA kernels one call of ``fn`` launches, by name (a Counter),
+    from one torch.profiler window."""
+    import collections
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    return collections.Counter(ev.name for ev in prof.events()
+                               if ev.device_type == cuda)
+
+
+def _api_resnet(torch, paddle, dev, smi):
+    """(b) BASELINE config #1 through the public API: the body of
+    scripts/bench_suite.py's ``resnet50_eager`` with the import swapped to
+    ``paddle_tpu_torch`` and its JAX-only sync (``np.asarray(
+    loss._value)``) replaced by ``float(loss)``; the weights carried into
+    phase 20's direct-path model (``vision.models.resnet50(device=,
+    generator=)``, the port's CrossEntropyLoss and Momentum) before either
+    steps; both fed the same batch. cuDNN runs deterministic algorithms
+    here, so the two paths' losses can be equal bit for bit."""
+    import numpy as np
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import resnet50
+
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        # -- the body of resnet50_eager (scripts/bench_suite.py:48-73)
+        paddle.seed(0)
+        model = resnet50()
+        ce = paddle.nn.CrossEntropyLoss()
+        opt = paddle.optimizer.Momentum(0.1, parameters=model.parameters())
+        rng = np.random.RandomState(0)
+        batch = 32
+        x = paddle.to_tensor(rng.randn(batch, 3, 224, 224).astype("f4"))
+        y = paddle.to_tensor(rng.randint(0, 1000, batch).astype("i8"))
+
+        def step():
+            loss = ce(model(x), y)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            float(loss)  # block: same sync rule as the jit bench
+            return loss
+        # -- end of the body
+
+        direct = resnet50(device=dev, generator=torch.Generator(
+            device=dev).manual_seed(SEED + 25))
+        direct.load_state_dict(model.state_dict())
+        d_ce = CrossEntropyLoss()
+        d_opt = Momentum(RESNET_LR, parameters=direct.parameters())
+
+        def d_step():
+            loss = d_ce(direct(x), y)
+            loss.backward()
+            d_opt.step()
+            d_opt.clear_grad()
+            return float(loss)
+
+        check(model.training and x.device.type == "cuda"
+              and next(model.parameters()).device.type == "cuda",
+              "the public path did not build on the card by default")
+        api = [float(step()) for _ in range(RESNET_API_STEPS)]
+        ref = [d_step() for _ in range(RESNET_API_STEPS)]
+        # a profile may drop events (one profile of the direct step once
+        # read 35 fewer launches than the same step in another run), so
+        # each path is profiled twice, in turns, and counts its larger one
+        profiles = {"public_api": [], "direct": []}
+        for _ in range(2):
+            profiles["public_api"].append(_kernel_names(torch, step))
+            profiles["direct"].append(_kernel_names(torch, d_step))
+        counts = {k: [sum(c.values()) for c in v]
+                  for k, v in profiles.items()}
+        most = {k: max(v, key=lambda c: sum(c.values()))
+                for k, v in profiles.items()}
+        differ = {n: (most["public_api"][n], most["direct"][n])
+                  for n in set(most["public_api"]) | set(most["direct"])
+                  if most["public_api"][n] != most["direct"][n]}
+        walls = []
+        for _ in range(RESNET_API_TIMED):
+            t0 = time.perf_counter()
+            step()
+            walls.append(1e3 * (time.perf_counter() - t0))
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+    ms = statistics.median(walls)
+    rec = {"phase": "tensor_api_resnet50", "gpu": smi, "batch": batch,
+           "losses_public_api": api, "losses_direct": ref,
+           "bit_equal": api == ref,
+           "launches_per_step_public_api": max(counts["public_api"]),
+           "launches_per_step_direct": max(counts["direct"]),
+           "launches_by_profile": counts,
+           "kernels_differing": dict(list(differ.items())[:10]),
+           "step_ms_public_api": walls,
+           "images_per_s_public_api": batch / ms * 1e3,
+           "images_per_s_phase20_direct_f32": RESNET_RECORD.get(
+               "images_per_s_f32", "not measured"),
+           "cudnn_deterministic": True}
+    emit(rec)
+    check(api == ref, f"public-API losses {api} are not bit-equal to the "
+          f"direct path's {ref}")
+    check(all(math.isfinite(v) for v in api), f"non-finite losses {api}")
+    check(max(counts["public_api"]) == max(counts["direct"]),
+          f"kernel launches a step through the public API {counts} differ "
+          f"from the direct path's: {differ}")
+    del model, direct, opt, d_opt
+
+
+def _swiglu(paddle, d, f, dtype):
+    """A user-written paddle Layer: a SwiGLU MLP d -> f -> d built with
+    ``create_parameter`` and ``ParamAttr(initializer=...)``."""
+    init = paddle.nn.initializer
+
+    class SwiGLU(paddle.nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.gate = self.create_parameter([d, f], dtype=dtype,
+                                              attr=paddle.ParamAttr(
+                                                  name="gate",
+                                                  initializer=init.Normal(
+                                                      0.0, 0.02)))
+            self.up = self.create_parameter([d, f], dtype=dtype,
+                                            attr=paddle.ParamAttr(
+                                                name="up", initializer=(
+                                                    init.XavierUniform())))
+            self.down = self.create_parameter([f, d], dtype=dtype,
+                                              attr=paddle.ParamAttr(
+                                                  name="down",
+                                                  initializer=init.Normal(
+                                                      0.0, 0.02)))
+
+        def forward(self, x):
+            h = paddle.nn.functional.silu(paddle.matmul(x, self.gate))
+            return paddle.matmul(h * paddle.matmul(x, self.up), self.down)
+
+    return SwiGLU()
+
+
+def _api_swiglu(torch, paddle, dev, smi):
+    """(c) a user-written ``paddle.nn.Layer`` at Llama-2-7B's MLP width
+    (4,096 -> 11,008 -> 4,096) in bf16: three AdamW steps on (2, 2,048,
+    4,096) with a ``paddle.mean`` loss; its first forward's first
+    ``SWIGLU_CPU_ROWS`` rows against an f32 CPU run of the same weights."""
+    d, f = SWIGLU_WIDTH
+    b, s = SWIGLU_SHAPE
+    paddle.seed(SEED + 45)
+    layer = _swiglu(paddle, d, f, "bfloat16")
+    start = {k: v.detach().float().cpu() for k, v in
+             layer.state_dict().items()}
+    x = paddle.randn([b, s, d], dtype="bfloat16")
+    target = paddle.randn([b, s, d], dtype="bfloat16")
+    opt = paddle.optimizer.AdamW(learning_rate=1e-3,
+                                 parameters=layer.parameters())
+    losses, walls, first = [], [], None
+    for _ in range(SWIGLU_STEPS):
+        t0 = time.perf_counter()
+        out = layer(x)
+        if first is None:
+            first = out[0, :SWIGLU_CPU_ROWS].detach().float().cpu()
+        loss = paddle.mean((out - target) * (out - target))
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(float(loss.detach()))
+        walls.append(1e3 * (time.perf_counter() - t0))
+    place = paddle.core.place
+    saved = place._current
+    paddle.set_device("cpu")
+    try:
+        cpu_layer = _swiglu(paddle, d, f, "float32")
+        missing, unexpected = cpu_layer.set_state_dict(start)
+        with paddle.no_grad():
+            want = cpu_layer(x[0, :SWIGLU_CPU_ROWS].float().cpu())
+    finally:
+        place._current = saved
+    err = _rel_l2(first, want)
+    rec = {"phase": "tensor_api_swiglu", "gpu": smi, "width": [d, f, d],
+           "shape": [b, s, d], "dtype": "bfloat16", "losses": losses,
+           "step_ms": walls, "param_names": sorted(layer.state_dict()),
+           "cpu_rows": SWIGLU_CPU_ROWS, "rel_l2_vs_cpu_f32": err,
+           "bound": SWIGLU_BOUND}
+    emit(rec)
+    check(not missing and not unexpected,
+          f"the CPU copy's state dict: missing {missing}, unexpected "
+          f"{unexpected}")
+    check(all(math.isfinite(v) for v in losses), f"non-finite {losses}")
+    check(err <= SWIGLU_BOUND, f"the bf16 layer's first rows are {err} "
+          f"(relative L2) from the f32 CPU run, above {SWIGLU_BOUND}")
+    del layer, opt
+
+
+def tensor_api_phase(torch, dev, smi):
+    """Phase 23: the Paddle tensor API tier. (a) the op sweep, (b)
+    ResNet-50 through the public API against phase 20's direct path, (c)
+    a user-written SwiGLU Layer at Llama-2-7B's width. Returns the
+    launches of (b) and (c), counted from zero (the ``tensor_api``
+    path: they reach no hand-written kernel)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import ops
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec = _api_sweep(torch, paddle, dev)
+    emit({**rec, "gpu": smi})
+    check(not rec["failures"], f"the op sweep failed: {rec['failures']}")
+    check(not rec["not_run"], f"ops the sweep did not run: {rec['not_run']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    ops.reset_launches()
+    _api_resnet(torch, paddle, dev, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _api_swiglu(torch, paddle, dev, smi)
+    launches = dict(ops.LAUNCHES)
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "tensor_api_done", "wall_s": time.perf_counter() - t_phase,
+          "launches": launches})
+    return {"tensor_api": launches}
+
+
 def main():
     import torch
 
@@ -6706,13 +7791,15 @@ def main():
     vision_launches = vision_phase(torch, dev, smi)
     bert_launches = bert_phase(torch, dev, smi)
     fleet_launches = fleet_phase(torch, dev, smi)
+    api_launches = tensor_api_phase(torch, dev, smi)
     paths = {"serving": launches, "generate": gen_launches,
              "train": train_launches, "train_f32_parity": parity_launches,
              "packed_train": packed_launches,
              "packed_f32_parity": packed_parity_launches,
              "int8_serving": int8_launches, **batch_launches,
              **prefix_launches, **lora_launches, **gpt_launches,
-             **vision_launches, **bert_launches, "fleet": fleet_launches}
+             **vision_launches, **bert_launches, "fleet": fleet_launches,
+             **api_launches}
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
         rec = primary[name]

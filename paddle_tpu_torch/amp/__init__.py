@@ -28,6 +28,8 @@ import warnings
 
 import torch
 
+from ..core.dtype import one_of
+
 __all__ = ["auto_cast", "amp_guard", "GradScaler", "decorate", "amp_state",
            "cast_inputs_for_op", "WHITE_LIST", "BLACK_LIST"]
 
@@ -49,19 +51,16 @@ SEAM_OPS = {"linear", "matmul", "embedding", "scaled_dot_product_attention",
             "flash_attention", "sliding_window_attention", "rms_norm",
             "layer_norm", "softmax", "cross_entropy"}
 
-_DTYPES = {"float16": torch.float16, "fp16": torch.float16,
-           "half": torch.float16, "bfloat16": torch.bfloat16,
-           "bf16": torch.bfloat16, "float32": torch.float32,
-           "fp32": torch.float32}
+_DTYPES = (torch.float16, torch.bfloat16, torch.float32)
 
 
 def _dtype(dtype):
     if isinstance(dtype, torch.dtype):
         return dtype
-    try:
-        return _DTYPES[str(dtype)]
-    except KeyError:
-        raise ValueError(f"unsupported amp dtype {dtype!r}") from None
+    dt = one_of(str(dtype), _DTYPES)
+    if dt is None:
+        raise ValueError(f"unsupported amp dtype {dtype!r}")
+    return dt
 
 
 class _AmpState:
@@ -76,11 +75,15 @@ amp_state = _AmpState()
 
 
 def _known_op_names():
-    """The lists, the port's seam names and the bare names of its
-    functionals: a custom list entry outside them never matches."""
-    from ..nn import functional as F
+    """The op registry's names and their bare forms (``functional.relu``
+    also as ``relu``), the op names run so far, the lists and the port's
+    seam names, as the reference checks its registry: a custom list entry
+    outside them never matches."""
+    from ..core.dispatch import OP_REGISTRY, SEAM_OPS as RUN
 
-    return WHITE_LIST | BLACK_LIST | SEAM_OPS | set(F.__all__)
+    names = set(OP_REGISTRY) | RUN
+    names.update(n.rsplit(".", 1)[-1] for n in OP_REGISTRY)
+    return names | WHITE_LIST | BLACK_LIST | SEAM_OPS
 
 
 def cast_inputs_for_op(op_name, *tensors):

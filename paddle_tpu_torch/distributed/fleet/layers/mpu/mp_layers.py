@@ -35,6 +35,7 @@ from .....nn.functional.loss import cross_entropy
 from .....nn.layer.common import Embedding, Linear
 from .....parallel import mesh as mesh_state
 from .mp_ops import _c_concat, _c_identity, _c_split, _mp_allreduce
+from .....nn.layer.layers import Layer
 
 __all__ = ["VocabParallelEmbedding", "ColumnParallelLinear",
            "RowParallelLinear", "ParallelCrossEntropy", "local_of",
@@ -151,7 +152,7 @@ class RowParallelLinear(Linear):
         return out if self.bias is None else out + self.bias.to(out.dtype)
 
 
-class ParallelCrossEntropy(torch.nn.Module):
+class ParallelCrossEntropy(Layer):
     """Cross entropy (per position, a trailing dim of 1) over logits whose
     last dim is split over mp; ``ignore_index`` positions give 0."""
 

@@ -22,6 +22,8 @@ import torch.distributed as dist
 from torch import nn
 
 from ....communication.group import new_group
+from .....nn.layer.common import LayerDict
+from .....nn.layer.layers import Layer
 
 __all__ = ["LayerDesc", "SharedLayerDesc", "PipelineLayer"]
 
@@ -57,7 +59,7 @@ def _class_name(item):
     return type(item).__name__
 
 
-class PipelineLayer(nn.Module):
+class PipelineLayer(Layer):
     def __init__(self, layers, num_stages=None, topology=None, loss_fn=None,
                  seg_method="uniform", recompute_interval=0,
                  num_virtual_pipeline_stages=None, **kwargs):
@@ -89,7 +91,7 @@ class PipelineLayer(nn.Module):
                 index[j] = k
                 k += 1
         built, shared = {}, {}
-        self.run_function = nn.ModuleDict()
+        self.run_function = LayerDict()
         for chunk, (lo, hi) in enumerate(self._segment):
             if not self.is_local_chunk(chunk):
                 continue

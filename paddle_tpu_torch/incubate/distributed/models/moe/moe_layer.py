@@ -31,11 +31,12 @@ from ....._device import resolve_device
 from ....._later import not_ported
 from .....nn import functional as F
 from .gate import SwitchGate, TopKGate
+from .....nn.layer.layers import Layer
 
 __all__ = ["MoELayer"]
 
 
-class MoELayer(nn.Module):
+class MoELayer(Layer):
     """MoE FFN block.
 
     Args:

@@ -40,20 +40,25 @@ from ...nn import functional as F
 from ...nn.functional.rope import apply_rotary_emb, build_rope_cache
 from ...nn.quant import weight_quantize_stacked
 from ...ops.decode_attention import decode_attention
+from ...core.dtype import one_of
+from ...nn.layer.layers import Layer
 
 __all__ = ["FusedMultiTransformer"]
 
 _MATMULS = ("qkv_weight", "linear_weight", "ffn1_weight", "ffn2_weight")
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _dtype(dtype):
     if dtype is None or isinstance(dtype, torch.dtype):
         return dtype
-    return _DTYPES[str(dtype)]
+    dt = one_of(dtype, _DTYPES)
+    if dt is None:
+        raise KeyError(str(dtype))
+    return dt
 
 
-class FusedMultiTransformer(nn.Module):
+class FusedMultiTransformer(Layer):
     """Pre-LN decoder stack with KV-cache decode.
 
     Args mirror the reference's; ``norm_type`` "layernorm" | "rmsnorm",

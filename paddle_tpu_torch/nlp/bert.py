@@ -34,6 +34,7 @@ from ..nn.functional.common import torch_linear
 from ..nn.layer.common import Dropout, Embedding, Linear
 from ..nn.layer.norm import LayerNorm
 from ..nn.layer.transformer import TransformerEncoder, TransformerEncoderLayer
+from ..nn.layer.layers import Layer
 
 __all__ = [
     "BertConfig", "BertModel", "BertForPretraining",
@@ -109,7 +110,7 @@ def _device_and_generator(device, generator):
     return dev, generator
 
 
-class BertEmbeddings(nn.Module):
+class BertEmbeddings(Layer):
     def __init__(self, config, device=None):
         super().__init__()
         kw = dict(device=device)
@@ -135,7 +136,7 @@ class BertEmbeddings(nn.Module):
         return self.dropout(self.layer_norm(emb))
 
 
-class BertPooler(nn.Module):
+class BertPooler(Layer):
     def __init__(self, config, device=None):
         super().__init__()
         self.dense = Linear(config.hidden_size, config.hidden_size,
@@ -158,7 +159,7 @@ def additive_mask(attention_mask):
     return torch.where(base.bool(), 0.0, _MASKED).float()
 
 
-class BertModel(nn.Module):
+class BertModel(Layer):
     """Embeddings, a post-norm ``TransformerEncoder`` and the pooler.
     Built on ``device`` (default ``cuda``; raises without CUDA unless
     ``device="cpu"``) in f32, with weights drawn from ``generator`` (a
@@ -191,7 +192,7 @@ class BertModel(nn.Module):
         return hidden, self.pooler(hidden)
 
 
-class BertLMPredictionHead(nn.Module):
+class BertLMPredictionHead(Layer):
     """Transform, LayerNorm and a decoder over the (V, E) word-embedding
     table ``embedding_weights`` (held, not registered: tied). Without it
     the head registers a table of its own as ``_tied`` (the reference's
@@ -221,7 +222,7 @@ class BertLMPredictionHead(nn.Module):
         return torch_linear(h, self.decoder_weight, self.decoder_bias)
 
 
-class BertForPretraining(nn.Module):
+class BertForPretraining(Layer):
     """MLM + NSP heads over ``BertModel``; returns ``(prediction_scores
     (B, S, V), seq_relationship_score (B, 2))``. Device and weights as
     :class:`BertModel`."""
@@ -242,7 +243,7 @@ class BertForPretraining(nn.Module):
         return self.cls(hidden), self.nsp(pooled)
 
 
-class BertPretrainingCriterion(nn.Module):
+class BertPretrainingCriterion(Layer):
     """Masked-LM loss (mean over the positions whose label is not
     ``ignore_index``, at least one), plus the next-sentence loss when
     ``next_sentence_labels`` is given; both in f32."""
@@ -263,7 +264,7 @@ class BertPretrainingCriterion(nn.Module):
         return loss
 
 
-class BertForSequenceClassification(nn.Module):
+class BertForSequenceClassification(Layer):
     def __init__(self, config, device=None, generator=None):
         super().__init__()
         dev, generator = _device_and_generator(device, generator)

@@ -29,9 +29,10 @@ from .._device import resolve_device
 from .._later import not_ported
 from ..distributed.fleet.utils.recompute import recompute, should_remat_layer
 from ..nn import functional as F
-from ..nn.layer.common import Dropout, Embedding, Linear
+from ..nn.layer.common import Dropout, Embedding, LayerList, Linear
 from ..nn.layer.norm import LayerNorm
-from .llama import _DTYPES
+from .llama import _model_dtype
+from ..nn.layer.layers import Layer
 
 __all__ = ["GPTConfig", "GPTBlock", "GPTModel", "GPTForCausalLM"]
 
@@ -67,9 +68,7 @@ class GPTConfig:
 
     @property
     def torch_dtype(self):
-        if self.dtype not in _DTYPES:
-            raise ValueError(f"unsupported model dtype {self.dtype!r}")
-        return _DTYPES[self.dtype]
+        return _model_dtype(self.dtype)
 
     @staticmethod
     def gpt2_345m(**overrides):
@@ -86,7 +85,7 @@ class GPTConfig:
         return GPTConfig(**cfg)
 
 
-class GPTBlock(nn.Module):
+class GPTBlock(Layer):
     def __init__(self, config, device=None, dtype=None):
         super().__init__()
         h, d = config.num_attention_heads, config.head_dim
@@ -113,7 +112,7 @@ class GPTBlock(nn.Module):
         return hidden + self.dropout(self.fc_out(F.gelu(self.fc_in(x))))
 
 
-class GPTModel(nn.Module):
+class GPTModel(Layer):
     def __init__(self, config, device=None, dtype=None):
         super().__init__()
         self.config = config
@@ -121,8 +120,8 @@ class GPTModel(nn.Module):
         self.wte = Embedding(config.vocab_size, config.hidden_size, **kw)
         self.wpe = Embedding(config.max_position_embeddings,
                              config.hidden_size, **kw)
-        self.h = nn.ModuleList(GPTBlock(config, **kw)
-                               for _ in range(config.num_hidden_layers))
+        self.h = LayerList(GPTBlock(config, **kw)
+                           for _ in range(config.num_hidden_layers))
         self.ln_f = LayerNorm(config.hidden_size,
                               epsilon=config.layer_norm_epsilon, **kw)
 
@@ -143,7 +142,7 @@ class GPTModel(nn.Module):
         return self.ln_f(hidden)
 
 
-class GPTForCausalLM(nn.Module):
+class GPTForCausalLM(Layer):
     """Causal LM. Built on ``device`` (default ``cuda``; raises without
     CUDA unless ``device="cpu"``) in ``config.dtype``, with weights drawn
     from ``generator`` (a ``torch.Generator`` on that device; seed 0 when

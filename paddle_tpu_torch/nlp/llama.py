@@ -43,17 +43,28 @@ from ..distributed.fleet.layers.mpu import mp_layers
 from ..distributed.fleet.utils.recompute import recompute, should_remat_layer
 from ..nn import functional as F
 from ..nn.functional.rope import apply_rotary_emb, build_rope_cache
-from ..nn.layer.common import Embedding, Linear
+from ..nn.layer.common import Embedding, LayerList, Linear
 from ..nn.layer.norm import RMSNorm
 from ..ops.decode_attention import decode_attention
 from ..parallel import mesh as mesh_state
+from ..core.dtype import one_of, to_torch_dtype
+from ..nn.layer.layers import Layer
 
 __all__ = ["LlamaConfig", "LlamaAttention", "LlamaMLP", "LlamaDecoderLayer",
            "LlamaModel", "LlamaForCausalLM", "LlamaPretrainingCriterion",
            "packed_position_ids"]
 
 # the dtypes the port's kernels take
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _model_dtype(name):
+    """A model config's dtype name -> its torch dtype, one the kernels
+    take."""
+    dt = one_of(name, _DTYPES)
+    if dt is None:
+        raise ValueError(f"unsupported model dtype {name!r}")
+    return dt
 
 
 class LlamaConfig:
@@ -97,9 +108,7 @@ class LlamaConfig:
 
     @property
     def torch_dtype(self):
-        if self.dtype not in _DTYPES:
-            raise ValueError(f"unsupported model dtype {self.dtype!r}")
-        return _DTYPES[self.dtype]
+        return _model_dtype(self.dtype)
 
     @staticmethod
     def llama2_7b(**overrides):
@@ -171,7 +180,7 @@ def _check_ported(config):
                 f"{what} ({field}) is not ported yet ({item})")
 
 
-class LlamaAttention(nn.Module):
+class LlamaAttention(Layer):
     """Self-attention with rotary embedding, GQA, Qwen2-style q/k/v biases
     and the optional sliding window, with or without a KV cache."""
 
@@ -341,7 +350,7 @@ class LlamaAttention(nn.Module):
         return out.to(q.dtype)
 
 
-class LlamaMLP(nn.Module):
+class LlamaMLP(Layer):
     """SwiGLU MLP: down(silu(gate(x)) * up(x))."""
 
     def __init__(self, config, device=None, dtype=None):
@@ -366,7 +375,7 @@ class LlamaMLP(nn.Module):
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
 
 
-class LlamaDecoderLayer(nn.Module):
+class LlamaDecoderLayer(Layer):
     def __init__(self, config, device=None, dtype=None):
         super().__init__()
         self.config = config
@@ -412,7 +421,7 @@ def packed_position_ids(cu_seqlens, total_tokens):
     return (t - cu[seg])[None, :]
 
 
-class LlamaModel(nn.Module):
+class LlamaModel(Layer):
     def __init__(self, config, device=None, dtype=None):
         super().__init__()
         self.config = config
@@ -420,7 +429,7 @@ class LlamaModel(nn.Module):
         emb = (mp_layers.VocabParallelEmbedding if _use_mp(config)
                else Embedding)
         self.embed_tokens = emb(config.vocab_size, config.hidden_size, **kw)
-        self.layers = nn.ModuleList(
+        self.layers = LayerList(
             LlamaDecoderLayer(config, **kw)
             for _ in range(config.num_hidden_layers))
         self.norm = RMSNorm(config.hidden_size, epsilon=config.rms_norm_eps,
@@ -464,7 +473,7 @@ class LlamaModel(nn.Module):
         return self.norm(hidden), new_caches
 
 
-class LlamaForCausalLM(nn.Module):
+class LlamaForCausalLM(Layer):
     """Causal LM. Built on ``device`` (default ``cuda``; raises without
     CUDA unless ``device="cpu"``) in ``config.dtype``, with weights drawn
     from ``generator`` (a ``torch.Generator`` on that device; seed 0 when
@@ -553,7 +562,7 @@ class LlamaForCausalLM(nn.Module):
         if cfg.sliding_window:
             max_len = min(max_len, cfg.sliding_window)
         dev = self.lm_head.weight.device
-        dt = cfg.torch_dtype if dtype is None else _DTYPES.get(dtype, dtype)
+        dt = cfg.torch_dtype if dtype is None else to_torch_dtype(dtype)
         shape = (batch_size, max_len, _mp_heads(cfg)[1], cfg.head_dim)
         return [(torch.zeros(shape, dtype=dt, device=dev),
                  torch.zeros(shape, dtype=dt, device=dev))
@@ -570,7 +579,7 @@ def _same_segment(cu_seqlens, n):
             == torch.searchsorted(cu, pos + 1, right=True))
 
 
-class LlamaPretrainingCriterion(nn.Module):
+class LlamaPretrainingCriterion(Layer):
     """Shifted next-token cross entropy (the reference's criterion). With
     ``config.fuse_linear_cross_entropy`` the model returns the final
     hidden states and this criterion applies the chunked fused lm-head +

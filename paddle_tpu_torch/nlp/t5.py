@@ -25,6 +25,7 @@ from ..nn.functional.common import torch_linear
 from ..nn.layer.common import Dropout, Embedding, LayerList, Linear
 from ..nn.layer.norm import RMSNorm
 from .bert import _device_and_generator, _init_weights
+from ..nn.layer.layers import Layer
 
 __all__ = ["T5Config", "T5Attention", "T5Model",
            "T5ForConditionalGeneration", "relative_position_bucket"]
@@ -90,7 +91,7 @@ def relative_position_bucket(relative_position, bidirectional, num_buckets,
     return ret + torch.where(is_small, rp.to(torch.int32), large)
 
 
-class T5Attention(nn.Module):
+class T5Attention(Layer):
     def __init__(self, config, has_relative_bias=False, bidirectional=True,
                  device=None):
         super().__init__()
@@ -145,7 +146,7 @@ class T5Attention(nn.Module):
         return self.o(out.reshape(b, sq, h * d))
 
 
-class T5FF(nn.Module):
+class T5FF(Layer):
     def __init__(self, config, device=None):
         super().__init__()
         self.gated = config.feed_forward_proj.startswith("gated")
@@ -165,7 +166,7 @@ class T5FF(nn.Module):
         return self.wo(F.relu(self.wi(x)))
 
 
-class T5Block(nn.Module):
+class T5Block(Layer):
     def __init__(self, config, is_decoder, has_relative_bias, device=None):
         super().__init__()
         eps = config.layer_norm_epsilon
@@ -191,7 +192,7 @@ class T5Block(nn.Module):
         return h + self.dropout(self.ff(self.ln2(h)))
 
 
-class T5Stack(nn.Module):
+class T5Stack(Layer):
     def __init__(self, config, is_decoder, embed, device=None):
         super().__init__()
         self.cfg = config
@@ -226,7 +227,7 @@ def _pad_bias(input_ids, pad_id):
                        _MASKED).float()
 
 
-class T5Model(nn.Module):
+class T5Model(Layer):
     """Encoder and decoder over one ``shared`` embedding. Built on
     ``device`` (default ``cuda``; raises without CUDA unless
     ``device="cpu"``) in f32, with weights drawn from ``generator`` (a
@@ -253,7 +254,7 @@ class T5Model(nn.Module):
         return dec, memory
 
 
-class T5ForConditionalGeneration(nn.Module):
+class T5ForConditionalGeneration(Layer):
     """``T5Model`` and a language-model head: tied to ``shared`` (hidden
     scaled by d_model^-0.5 first, the reference's) unless
     ``tie_word_embeddings`` is False. With ``labels`` returns ``(mean

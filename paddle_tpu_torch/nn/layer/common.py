@@ -23,6 +23,7 @@ from ...amp import amp_state
 from ..functional import activation as _act
 from ..functional.common import (dropout, interpolate, pad, pixel_shuffle,
                                  pixel_unshuffle, torch_linear)
+from .layers import Layer
 
 __all__ = [
     "Linear", "Embedding", "Dropout", "Flatten", "Unflatten", "Identity",
@@ -36,7 +37,7 @@ __all__ = [
     "PReLU", "RReLU", "Maxout", "GLU", "LogSigmoid"]
 
 
-class Linear(torch.nn.Linear):
+class Linear(torch.nn.Linear, Layer):
     """``torch.nn.Linear`` (weight (out, in)) under amp's ``linear`` rule
     and the reference's mixed-dtype promotion."""
 
@@ -44,7 +45,7 @@ class Linear(torch.nn.Linear):
         return torch_linear(x, self.weight, self.bias)
 
 
-class Embedding(torch.nn.Embedding):
+class Embedding(torch.nn.Embedding, Layer):
     """``torch.nn.Embedding`` under amp's ``embedding`` rule (O2 reads the
     table in the amp dtype)."""
 
@@ -57,7 +58,7 @@ class Embedding(torch.nn.Embedding):
             self.scale_grad_by_freq, self.sparse)
 
 
-class Dropout(torch.nn.Module):
+class Dropout(Layer):
     """``paddle.nn.Dropout``: :func:`~paddle_tpu_torch.nn.functional.dropout`
     in training mode (``self.training``)."""
 
@@ -72,7 +73,7 @@ class Dropout(torch.nn.Module):
         return f"p={self.p}"
 
 
-class Flatten(torch.nn.Module):
+class Flatten(Layer):
     def __init__(self, start_axis=1, stop_axis=-1):
         super().__init__()
         self.start_axis, self.stop_axis = start_axis, stop_axis
@@ -81,7 +82,7 @@ class Flatten(torch.nn.Module):
         return torch.flatten(x, self.start_axis, self.stop_axis)
 
 
-class Unflatten(torch.nn.Module):
+class Unflatten(Layer):
     def __init__(self, axis, shape, name=None):
         super().__init__()
         self.axis, self.shape = axis, tuple(shape)
@@ -90,7 +91,7 @@ class Unflatten(torch.nn.Module):
         return x.unflatten(self.axis, self.shape)
 
 
-class Identity(torch.nn.Module):
+class Identity(Layer):
     def __init__(self, *args, **kwargs):
         super().__init__()
 
@@ -98,7 +99,7 @@ class Identity(torch.nn.Module):
         return x
 
 
-class _PadN(torch.nn.Module):
+class _PadN(Layer):
     def __init__(self, padding, mode="constant", value=0.0,
                  data_format="NCHW", name=None):
         super().__init__()
@@ -130,7 +131,7 @@ class ZeroPad2D(Pad2D):
         super().__init__(padding, "constant", 0.0, data_format)
 
 
-class Upsample(torch.nn.Module):
+class Upsample(Layer):
     """``paddle.nn.Upsample`` over
     :func:`~paddle_tpu_torch.nn.functional.interpolate`."""
 
@@ -162,7 +163,7 @@ class UpsamplingBilinear2D(Upsample):
                          data_format)
 
 
-class PixelShuffle(torch.nn.Module):
+class PixelShuffle(Layer):
     def __init__(self, upscale_factor, data_format="NCHW", name=None):
         super().__init__()
         self.upscale_factor, self.data_format = upscale_factor, data_format
@@ -171,7 +172,7 @@ class PixelShuffle(torch.nn.Module):
         return pixel_shuffle(x, self.upscale_factor, self.data_format)
 
 
-class PixelUnshuffle(torch.nn.Module):
+class PixelUnshuffle(Layer):
     def __init__(self, downscale_factor, data_format="NCHW", name=None):
         super().__init__()
         self.downscale_factor = downscale_factor
@@ -182,7 +183,7 @@ class PixelUnshuffle(torch.nn.Module):
 
 
 # -- containers: torch's, taking paddle's constructor forms -----------------
-class Sequential(torch.nn.Sequential):
+class Sequential(torch.nn.Sequential, Layer):
     """Layers in order, named ``"0"``, ``"1"``, ... (or by an
     ``OrderedDict``, or by ``(name, layer)`` pairs), as the reference's."""
 
@@ -200,24 +201,24 @@ class Sequential(torch.nn.Sequential):
         super().__init__(named)
 
 
-class LayerList(torch.nn.ModuleList):
+class LayerList(torch.nn.ModuleList, Layer):
     def __init__(self, sublayers=None):
         super().__init__(sublayers)
 
 
-class LayerDict(torch.nn.ModuleDict):
+class LayerDict(torch.nn.ModuleDict, Layer):
     def __init__(self, sublayers=None):
         super().__init__(sublayers)
 
 
-class ParameterList(torch.nn.ParameterList):
+class ParameterList(torch.nn.ParameterList, Layer):
     def __init__(self, parameters=None):
         super().__init__(parameters)
 
 
 # -- activation layers: each calls its functional ---------------------------
 def _act_layer(fname):
-    class _Act(torch.nn.Module):
+    class _Act(Layer):
         def __init__(self, *args, name=None, **kwargs):
             super().__init__()
             self._args, self._kwargs = args, kwargs
@@ -229,7 +230,7 @@ def _act_layer(fname):
     return _Act
 
 
-class ReLU(torch.nn.Module):
+class ReLU(Layer):
     def __init__(self, name=None):
         super().__init__()
 
@@ -237,7 +238,7 @@ class ReLU(torch.nn.Module):
         return torch.relu(x)
 
 
-class GELU(torch.nn.Module):
+class GELU(Layer):
     def __init__(self, approximate=False, name=None):
         super().__init__()
         self._approximate = approximate
@@ -246,7 +247,7 @@ class GELU(torch.nn.Module):
         return _act.gelu(x, self._approximate)
 
 
-class Softmax(torch.nn.Module):
+class Softmax(Layer):
     def __init__(self, axis=-1, name=None):
         super().__init__()
         self._axis = axis
@@ -255,7 +256,7 @@ class Softmax(torch.nn.Module):
         return _act.softmax(x, self._axis)
 
 
-class LogSoftmax(torch.nn.Module):
+class LogSoftmax(Layer):
     def __init__(self, axis=-1, name=None):
         super().__init__()
         self._axis = axis
@@ -264,7 +265,7 @@ class LogSoftmax(torch.nn.Module):
         return _act.log_softmax(x, self._axis)
 
 
-class LeakyReLU(torch.nn.Module):
+class LeakyReLU(Layer):
     def __init__(self, negative_slope=0.01, name=None):
         super().__init__()
         self._slope = negative_slope
@@ -273,7 +274,7 @@ class LeakyReLU(torch.nn.Module):
         return _act.leaky_relu(x, self._slope)
 
 
-class PReLU(torch.nn.Module):
+class PReLU(Layer):
     def __init__(self, num_parameters=1, init=0.25, weight_attr=None,
                  data_format="NCHW", name=None, device=None, dtype=None):
         super().__init__()

@@ -13,6 +13,7 @@ import math
 import torch
 
 from .. import functional as F
+from .layers import Layer
 
 __all__ = ["Conv1D", "Conv2D", "Conv3D", "Conv1DTranspose",
            "Conv2DTranspose", "Conv3DTranspose"]
@@ -22,7 +23,7 @@ def _tuplize(v, n):
     return (v,) * n if isinstance(v, int) else tuple(v)
 
 
-class _ConvNd(torch.nn.Module):
+class _ConvNd(Layer):
     def __init__(self, n, in_channels, out_channels, kernel_size, stride=1,
                  padding=0, dilation=1, groups=1, padding_mode="zeros",
                  weight_attr=None, bias_attr=None, data_format="NCHW",

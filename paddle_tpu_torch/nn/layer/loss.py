@@ -7,6 +7,7 @@ import torch
 
 from .. import functional as F
 from ..functional import loss as L
+from .layers import Layer
 
 __all__ = [
     "CrossEntropyLoss", "MSELoss", "L1Loss", "NLLLoss", "BCELoss",
@@ -18,7 +19,7 @@ __all__ = [
 ]
 
 
-class _Loss(torch.nn.Module):
+class _Loss(Layer):
     """A loss layer: ``fn(*inputs, **options)``."""
 
     fn = None
@@ -188,7 +189,7 @@ class PoissonNLLLoss(_Loss):
                          reduction=reduction)
 
 
-class PairwiseDistance(torch.nn.Module):
+class PairwiseDistance(Layer):
     """``|x - y + epsilon|_p`` over the last axis."""
 
     def __init__(self, p=2.0, epsilon=1e-6, keepdim=False, name=None):
@@ -200,7 +201,7 @@ class PairwiseDistance(torch.nn.Module):
                                         dim=-1, keepdim=self.keepdim)
 
 
-class HSigmoidLoss(torch.nn.Module):
+class HSigmoidLoss(Layer):
     """Hierarchical sigmoid over the default complete binary tree
     (``is_custom=False``) or caller-supplied ``path_table`` /
     ``path_code``; holds the (num_classes - 1, feature_size) node weight

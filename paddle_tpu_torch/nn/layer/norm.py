@@ -9,6 +9,7 @@ import torch
 
 from ..._later import not_ported
 from .. import functional as F
+from .layers import Layer
 
 __all__ = [
     "BatchNorm", "BatchNorm1D", "BatchNorm2D", "BatchNorm3D",
@@ -27,7 +28,7 @@ def _affine_params(module, n, weight_attr, bias_attr, kw):
         torch.zeros(n, **kw)))
 
 
-class RMSNorm(torch.nn.Module):
+class RMSNorm(Layer):
     """The Llama-family norm: K1 forward, K6 backward (``F.rms_norm``)."""
 
     def __init__(self, hidden_size, epsilon=1e-6, device=None, dtype=None):
@@ -43,7 +44,7 @@ class RMSNorm(torch.nn.Module):
         return f"{self.weight.shape[0]}, epsilon={self.epsilon}"
 
 
-class LayerNorm(torch.nn.Module):
+class LayerNorm(Layer):
     """``paddle.nn.LayerNorm``: weight 1 and bias 0 over
     ``normalized_shape`` (``weight_attr`` / ``bias_attr`` False drops
     them), through :func:`~paddle_tpu_torch.nn.functional.layer_norm`."""
@@ -70,7 +71,7 @@ class LayerNorm(torch.nn.Module):
                 f"epsilon={self._epsilon}")
 
 
-class _BatchNormBase(torch.nn.Module):
+class _BatchNormBase(Layer):
     def __init__(self, num_features, momentum=0.9, epsilon=1e-5,
                  weight_attr=None, bias_attr=None, data_format="NCHW",
                  use_global_stats=None, name=None, device=None, dtype=None):
@@ -148,7 +149,7 @@ class SyncBatchNorm(_BatchNormBase):
         not_ported("SyncBatchNorm.convert_sync_batchnorm", "A7")()
 
 
-class GroupNorm(torch.nn.Module):
+class GroupNorm(Layer):
     def __init__(self, num_groups, num_channels, epsilon=1e-5,
                  weight_attr=None, bias_attr=None, data_format="NCHW",
                  name=None, device=None, dtype=None):
@@ -166,7 +167,7 @@ class GroupNorm(torch.nn.Module):
         return f"num_groups={self._num_groups}, epsilon={self._epsilon}"
 
 
-class _InstanceNormBase(torch.nn.Module):
+class _InstanceNormBase(Layer):
     def __init__(self, num_features, epsilon=1e-5, momentum=0.9,
                  weight_attr=None, bias_attr=None, data_format="NCHW",
                  name=None, device=None, dtype=None):
@@ -197,7 +198,7 @@ class InstanceNorm3D(_InstanceNormBase):
     pass
 
 
-class LocalResponseNorm(torch.nn.Module):
+class LocalResponseNorm(Layer):
     def __init__(self, size, alpha=1e-4, beta=0.75, k=1.0,
                  data_format="NCHW", name=None):
         super().__init__()
@@ -207,7 +208,7 @@ class LocalResponseNorm(torch.nn.Module):
         return F.local_response_norm(x, *self._args)
 
 
-class SpectralNorm(torch.nn.Module):
+class SpectralNorm(Layer):
     """A weight divided by its largest singular value, estimated by
     ``power_iters`` steps of power iteration from the vectors ``weight_u``
     (h,) and ``weight_v`` (w,) (parameters that take no gradient; drawn
@@ -246,7 +247,7 @@ class SpectralNorm(torch.nn.Module):
 
 # -- pooling layers ----------------------------------------------------------
 def _pool_layer(fname):
-    class _Pool(torch.nn.Module):
+    class _Pool(Layer):
         def __init__(self, kernel_size=None, stride=None, padding=0,
                      **kwargs):
             super().__init__()
@@ -272,7 +273,7 @@ AvgPool3D = _pool_layer("avg_pool3d")
 
 
 def _adaptive_pool_layer(fname):
-    class _Pool(torch.nn.Module):
+    class _Pool(Layer):
         def __init__(self, output_size, **kwargs):
             super().__init__()
             self._output_size = output_size

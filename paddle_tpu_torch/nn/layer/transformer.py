@@ -35,6 +35,7 @@ import torch
 from .. import functional as F
 from .common import Dropout, LayerList, Linear
 from .norm import LayerNorm
+from .layers import Layer
 
 __all__ = [
     "MultiHeadAttention", "TransformerEncoderLayer", "TransformerEncoder",
@@ -46,7 +47,7 @@ def _bias(bias_attr):
     return bias_attr is not False
 
 
-class MultiHeadAttention(torch.nn.Module):
+class MultiHeadAttention(Layer):
     Cache = collections.namedtuple("Cache", ["k", "v"])
     StaticCache = collections.namedtuple("StaticCache", ["k", "v"])
 
@@ -116,7 +117,7 @@ class MultiHeadAttention(torch.nn.Module):
         return out
 
 
-class TransformerEncoderLayer(torch.nn.Module):
+class TransformerEncoderLayer(Layer):
     def __init__(self, d_model, nhead, dim_feedforward, dropout=0.1,
                  activation="relu", attn_dropout=None, act_dropout=None,
                  normalize_before=False, weight_attr=None, bias_attr=None,
@@ -164,7 +165,7 @@ class TransformerEncoderLayer(torch.nn.Module):
         return self.self_attn.gen_cache(src)
 
 
-class TransformerEncoder(torch.nn.Module):
+class TransformerEncoder(Layer):
     """``num_layers`` copies of ``encoder_layer`` (the first is the layer
     itself, the rest deep copies), then ``norm`` when given."""
 
@@ -193,7 +194,7 @@ class TransformerEncoder(torch.nn.Module):
         return [layer.gen_cache(src) for layer in self.layers]
 
 
-class TransformerDecoderLayer(torch.nn.Module):
+class TransformerDecoderLayer(Layer):
     def __init__(self, d_model, nhead, dim_feedforward, dropout=0.1,
                  activation="relu", attn_dropout=None, act_dropout=None,
                  normalize_before=False, weight_attr=None, bias_attr=None,
@@ -265,7 +266,7 @@ class TransformerDecoderLayer(torch.nn.Module):
         return incr, static
 
 
-class TransformerDecoder(torch.nn.Module):
+class TransformerDecoder(Layer):
     def __init__(self, decoder_layer, num_layers, norm=None):
         super().__init__()
         self.layers = LayerList(
@@ -296,7 +297,7 @@ class TransformerDecoder(torch.nn.Module):
         return caches
 
 
-class Transformer(torch.nn.Module):
+class Transformer(Layer):
     def __init__(self, d_model=512, nhead=8, num_encoder_layers=6,
                  num_decoder_layers=6, dim_feedforward=2048, dropout=0.1,
                  activation="relu", attn_dropout=None, act_dropout=None,

@@ -34,6 +34,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as tF
 from torch import nn
+from ..layer.layers import Layer
 
 __all__ = [
     "fake_quantize_dequantize_abs_max",
@@ -144,7 +145,7 @@ def a8w8_linear(x, weight, x_scale, weight_scale, bias=None, name=None):
         "int32 product)")
 
 
-class QuantizedLinear(nn.Module):
+class QuantizedLinear(Layer):
     """Weight-only int8 Linear: ``quant_weight`` int8 ``(out, in)`` and
     ``weight_scale`` f32 ``(out,)``, both parameters without grad; the
     bias (if any) in the float weight's dtype."""

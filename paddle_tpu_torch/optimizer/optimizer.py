@@ -30,6 +30,7 @@ import warnings
 import numpy as np
 import torch
 
+from ..core.dtype import one_of
 from .clip import ClipGradBase
 from .lr import LRScheduler
 
@@ -40,8 +41,7 @@ __all__ = [
 ]
 
 _LOW_PRECISION = (torch.float16, torch.bfloat16)
-_MOMENT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
-                  "bf16": torch.bfloat16}
+_MOMENT_DTYPES = (torch.float32, torch.bfloat16)
 _f32 = np.float32
 
 
@@ -293,11 +293,12 @@ class Adam(Optimizer):
         super().__init__(learning_rate, parameters, weight_decay, grad_clip,
                          multi_precision, name)
         self._beta1, self._beta2, self._eps = beta1, beta2, epsilon
-        if moment_dtype not in _MOMENT_DTYPES:
+        dt = one_of(moment_dtype, _MOMENT_DTYPES)
+        if dt is None:
             raise ValueError(
                 f"moment_dtype must be float32 or bfloat16, got "
                 f"{moment_dtype!r}")
-        self._moment_dtype = _MOMENT_DTYPES[moment_dtype]
+        self._moment_dtype = dt
 
     def _init_state(self, p):
         return {"moment1": torch.zeros(p.shape, dtype=self._moment_dtype,

@@ -20,6 +20,7 @@ from torch import nn
 
 from ..nn import functional as F
 from ..nn.quant import QuantizedLinear
+from ..nn.layer.layers import Layer
 
 __all__ = [
     "LoRAConfig", "LoRALinear", "LoRAModel", "get_lora_model",
@@ -51,7 +52,7 @@ class LoRAConfig:
         self.trainable_bias = bool(trainable_bias)
 
 
-class LoRALinear(nn.Module):
+class LoRALinear(Layer):
     """A ``torch.nn.Linear`` wrapped with a low-rank delta; the base keeps
     its weight, frozen. ``generator`` (on the base's device) draws A."""
 
@@ -183,7 +184,7 @@ def lora_state_dict(model):
     return out
 
 
-class LoRAModel(nn.Module):
+class LoRAModel(Layer):
     """Wraps the target modules of ``model`` in place, freezes the rest and
     forwards transparently; other attributes reach the wrapped model."""
 

@@ -8,11 +8,12 @@ from ...nn.layer import common as C
 from ...nn.layer import conv as CV
 from ...nn.layer import norm as N
 from ._build import seed_weights
+from ...nn.layer.layers import Layer
 
 __all__ = ["LeNet"]
 
 
-class LeNet(torch.nn.Module):
+class LeNet(Layer):
     def __init__(self, num_classes=10, device=None, generator=None):
         super().__init__()
         self.num_classes = num_classes

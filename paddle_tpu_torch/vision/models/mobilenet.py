@@ -9,6 +9,7 @@ from ...nn.layer import common as C
 from ...nn.layer import conv as CV
 from ...nn.layer import norm as N
 from ._build import seed_weights
+from ...nn.layer.layers import Layer
 
 __all__ = ["MobileNetV2", "mobilenet_v2"]
 
@@ -31,7 +32,7 @@ class ConvBNReLU(C.Sequential):
             N.BatchNorm2D(out_planes), C.ReLU6())
 
 
-class InvertedResidual(torch.nn.Module):
+class InvertedResidual(Layer):
     def __init__(self, inp, oup, stride, expand_ratio):
         super().__init__()
         self.stride = stride
@@ -53,7 +54,7 @@ class InvertedResidual(torch.nn.Module):
         return self.conv(x)
 
 
-class MobileNetV2(torch.nn.Module):
+class MobileNetV2(Layer):
     def __init__(self, scale=1.0, num_classes=1000, with_pool=True,
                  device=None, generator=None):
         super().__init__()

@@ -15,6 +15,7 @@ from ...nn.layer import common as C
 from ...nn.layer import conv as CV
 from ...nn.layer import norm as N
 from ._build import seed_weights
+from ...nn.layer.layers import Layer
 
 __all__ = [
     "ResNet", "resnet18", "resnet34", "resnet50", "resnet101", "resnet152",
@@ -22,7 +23,7 @@ __all__ = [
     "resnext101_32x4d"]
 
 
-class BasicBlock(torch.nn.Module):
+class BasicBlock(Layer):
     expansion = 1
 
     def __init__(self, inplanes, planes, stride=1, downsample=None, groups=1,
@@ -47,7 +48,7 @@ class BasicBlock(torch.nn.Module):
         return self.relu(out + identity)
 
 
-class BottleneckBlock(torch.nn.Module):
+class BottleneckBlock(Layer):
     expansion = 4
 
     def __init__(self, inplanes, planes, stride=1, downsample=None, groups=1,
@@ -78,7 +79,7 @@ class BottleneckBlock(torch.nn.Module):
         return self.relu(out + identity)
 
 
-class ResNet(torch.nn.Module):
+class ResNet(Layer):
     def __init__(self, block, depth=50, width=64, num_classes=1000,
                  with_pool=True, groups=1, device=None, generator=None):
         super().__init__()

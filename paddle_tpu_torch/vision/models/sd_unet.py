@@ -38,6 +38,7 @@ from ...nn.layer.conv import Conv2D
 from ...nn.layer.norm import GroupNorm, LayerNorm
 from ...ops import _library as L
 from ._build import seed_weights
+from ...nn.layer.layers import Layer
 
 __all__ = ["SDUNetConfig", "UNet2DConditionModel", "DDIMScheduler",
            "ddim_sample"]
@@ -75,7 +76,7 @@ def timestep_embedding(t, dim, max_period=10000.0):
     return torch.cat([torch.cos(ang), torch.sin(ang)], dim=-1)
 
 
-class ResnetBlock2D(torch.nn.Module):
+class ResnetBlock2D(Layer):
     def __init__(self, in_ch, out_ch, temb_ch, groups):
         super().__init__()
         self.norm1 = GroupNorm(groups, in_ch)
@@ -94,7 +95,7 @@ class ResnetBlock2D(torch.nn.Module):
         return skip + h
 
 
-class CrossAttnBlock(torch.nn.Module):
+class CrossAttnBlock(Layer):
     """Self-attention, cross-attention and an MLP over the flattened
     spatial tokens, each pre-LayerNorm with a residual."""
 
@@ -139,7 +140,7 @@ class CrossAttnBlock(torch.nn.Module):
         return tokens.transpose(1, 2).reshape(b, c, h, w)
 
 
-class Downsample2D(torch.nn.Module):
+class Downsample2D(Layer):
     def __init__(self, ch):
         super().__init__()
         self.conv = Conv2D(ch, ch, 3, stride=2, padding=1)
@@ -148,7 +149,7 @@ class Downsample2D(torch.nn.Module):
         return self.conv(x)
 
 
-class Upsample2D(torch.nn.Module):
+class Upsample2D(Layer):
     def __init__(self, ch):
         super().__init__()
         self.conv = Conv2D(ch, ch, 3, padding=1)
@@ -160,7 +161,7 @@ class Upsample2D(torch.nn.Module):
         return self.conv(x)
 
 
-class UNet2DConditionModel(torch.nn.Module):
+class UNet2DConditionModel(Layer):
     """Conditional UNet: down levels (res + cross-attn blocks, then a
     strided conv), the mid block, up levels over the skips (then nearest
     x2 and a conv)."""

@@ -8,6 +8,7 @@ from ...nn.layer import common as C
 from ...nn.layer import conv as CV
 from ...nn.layer import norm as N
 from ._build import seed_weights
+from ...nn.layer.layers import Layer
 
 __all__ = ["VGG", "vgg11", "vgg13", "vgg16", "vgg19"]
 
@@ -37,7 +38,7 @@ def make_layers(cfg, batch_norm=False):
     return C.Sequential(*layers)
 
 
-class VGG(torch.nn.Module):
+class VGG(Layer):
     """``features`` is built by :func:`make_layers`; built under ``with
     device:`` it lands there (the ``vgg*`` constructors do so)."""
 

@@ -10,7 +10,8 @@ logits there (a full eager forward of the shared prefix: the top three
 ids and values, so a parting at a near-tie shows as one).
 
     python scripts/torch_c11_repeat.py [N] [--keep-tickets]
-        [--variant own_streams|sequential|no_prefix|eager[,...]]
+        [--variant own_streams|sequential|no_prefix|eager|own_models|record[,...]]
+        [--own-models] [--record]
 
 Runs the test's body N times (default 20) in one process, each with its
 own ``pytest.MonkeyPatch``, and reads every ticket buffer before and
@@ -28,7 +29,16 @@ the next (no overlap), ``no_prefix`` turns the prefix cache off,
 only: a graph keeps the address it captured), and ``poison`` fills the
 caching allocator's free memory with NaN before each arm (every block a
 later tensor takes holds NaN until written: a read of memory the run
-never wrote shows). Prints one JSON line a run
+never wrote shows), ``own_models`` (or ``--own-models``) gives each
+replica of the two-replica arm its own model, carried from the first
+model's ``state_dict()`` (the test shares one model object between the
+replicas), and ``record`` (or ``--record``) records every mixed step's
+inputs in every arm (per row: its request, ids, the three lengths, its
+block-table row, the batch's rows and tokens) and, for each row that takes
+a token there, its logits; a parted stream then reports the first mixed
+step whose inputs differ between the arms, and for each token the arms
+both took in a mixed step, the largest logit difference between them and
+from a full eager forward of the shared prefix. Prints one JSON line a run
 (pass or the assertion, the buffers made, made inside a capture, the
 plans) and a summary line.
 """
@@ -61,6 +71,83 @@ def _first_diff(a, b):
                 min(len(a), len(b)))
 
 
+def _recorder(engine, log):
+    """Wrap ``engine``'s mixed forward and token selection so every mixed
+    step of its own model appends, per row, the row's inputs to
+    ``log[req_id]``, and the selection adds the logits and the token of
+    each row that takes one (a replayed quantum runs no Python and
+    records nothing)."""
+    import numpy as np
+
+    forward, select = engine._mixed_forward, engine._select
+
+    def rec_forward(model, pool, tables, rotary, enc_lens, dec_lens,
+                    this_time, ids):
+        if model is engine.model:
+            rows = engine.scheduler.prefilling() + engine.scheduler.decoding()
+            cu = np.concatenate([[0], np.cumsum(this_time)]).astype(int)
+            for i, r in enumerate(rows):
+                log.setdefault(r.req_id, []).append({
+                    "ids": [int(t) for t in ids[cu[i]:cu[i + 1]]],
+                    "enc": int(enc_lens[i]), "dec": int(dec_lens[i]),
+                    "n": int(this_time[i]),
+                    "table": [int(b) for b in tables[i]],
+                    "batch_rows": len(rows), "batch_tokens": int(cu[-1])})
+        return forward(model, pool, tables, rotary, enc_lens, dec_lens,
+                       this_time, ids)
+
+    def rec_select(logits, slots, steps):
+        out = select(logits, slots, steps)
+        if slots is not None:
+            for row, slot in enumerate(slots):
+                req = engine.scheduler.slots[slot]
+                entry = log[req.req_id][-1]
+                entry["token_index"] = len(req.tokens)
+                entry["token"] = int(out[row])
+                entry["logits"] = logits[row].float().cpu().tolist()
+        return out
+
+    engine._mixed_forward = rec_forward
+    engine._select = rec_select
+
+
+def _first_input_diff(a, b, upto):
+    """The first mixed-step row of one request, by its first position,
+    whose inputs differ between two arms' records, over the positions
+    before ``upto`` that both arms fed in a mixed step (ids, the three
+    lengths; the table rows name each arm's own blocks, and a decode token
+    may run in a mixed step in one arm and in a quantum in the other):
+    both entries, or None."""
+    keys = ("ids", "enc", "dec", "n")
+    xa = {e["dec"]: e for e in a if e["dec"] < upto}
+    xb = {e["dec"]: e for e in b if e["dec"] < upto}
+    for pos in sorted(set(xa) & set(xb)):
+        x, y = xa[pos], xb[pos]
+        if any(x[k] != y[k] for k in keys):
+            return {"position": pos, "a": {k: x[k] for k in keys},
+                    "b": {k: y[k] for k in keys}}
+    return None
+
+
+def _logit_diffs(a, b, eager):
+    """Per token both arms took in a mixed step: the largest |logit|
+    difference between them, and of each from ``eager`` (the full eager
+    forward's logits at the parting, for that token only)."""
+    out = []
+    la = {e["token_index"]: e for e in a if "logits" in e}
+    lb = {e["token_index"]: e for e in b if "logits" in e}
+    for k in sorted(set(la) & set(lb)):
+        x, y = la[k]["logits"], lb[k]["logits"]
+        rec = {"token": k, "tokens": [la[k]["token"], lb[k]["token"]],
+               "batch_rows": [la[k]["batch_rows"], lb[k]["batch_rows"]],
+               "max_abs_diff": max(abs(p - q) for p, q in zip(x, y))}
+        if k in eager:
+            rec["a_vs_eager"] = max(abs(p - q) for p, q in zip(x, eager[k]))
+            rec["b_vs_eager"] = max(abs(p - q) for p, q in zip(y, eager[k]))
+        out.append(rec)
+    return out
+
+
 def _body(T, torch, dev, mp, variant=()):
     """The test's body, returning the runs' streams and what each run's
     replicas did: one replica twice, then two whose graphs were captured
@@ -82,14 +169,24 @@ def _body(T, torch, dev, mp, variant=()):
         del held
         torch.cuda.synchronize()
 
+    def own_model():
+        m = T._tiny_cuda_model(dev)
+        m.load_state_dict(model.state_dict())
+        return m
+
     def run(n):
         if "poison" in variant:
             poison()
+        own = "own_models" in variant and n > 1
         reps = [ClusterReplica(f"r{i}", create_serving_engine(
-            model, prefix_cache="no_prefix" not in variant, **T._GRAPH_KW),
+            own_model() if own else model,
+            prefix_cache="no_prefix" not in variant, **T._GRAPH_KW),
             policy=no_shed_policy()) for i in range(n)]
+        logs = {}
         for rep in reps:
             rep.engine._eager = "eager" in variant
+            if "record" in variant:
+                _recorder(rep.engine, logs.setdefault(rep.name, {}))
         served = {}
         for rep in reps:
             submit = rep.door.submit
@@ -121,9 +218,12 @@ def _body(T, torch, dev, mp, variant=()):
             if r.engine.prefix_cache else None,
             "decode_quanta": r.engine.stats.get("decode_quanta")}
             for r in reps}
+        by = [served[s.request.req_id] for s in streams]
+        steps = [logs.get(name, {}).get(s.request.req_id, [])
+                 for name, s in zip(by, streams)]
         return ([list(s.result()) for s in streams],
-                {"served_by": [served[s.request.req_id] for s in streams],
-                 "graphs": graphs})
+                {"served_by": by, "graphs": graphs, "own_models": own,
+                 "mixed_steps": steps})
 
     want, one = run(1)
     want2, one2 = run(1)
@@ -154,8 +254,27 @@ def _partings(torch, model, prompts, a, b):
                     "a": [int(t) for t in x[:k + 1]],
                     "b": [int(t) for t in y[:k + 1]],
                     "top_ids": top.indices.tolist(),
-                    "top_logits": top.values.tolist()})
+                    "top_logits": top.values.tolist(),
+                    "eager_logits": logits.tolist()})
     return out
+
+
+def _diff_records(parted, prompts, one, two):
+    """For each parted stream: the first mixed step whose inputs differ
+    between the one-replica and the two-replica arm, and the logit
+    differences of the tokens both took in a mixed step. Drops the eager
+    logits row from ``parted`` once used."""
+    for p in parted:
+        eager = {p["token"]: p.pop("eager_logits")}
+        a = one["mixed_steps"][p["stream"]]
+        b = two["mixed_steps"][p["stream"]]
+        if not (a or b):
+            continue
+        upto = len(prompts[p["stream"]]) + p["token"]
+        p["first_input_diff"] = _first_input_diff(a, b, upto)
+        p["logit_diffs"] = _logit_diffs(a, b, eager)
+        p["mixed_step_tokens"] = [[e.get("token_index") for e in a],
+                                  [e.get("token_index") for e in b]]
 
 
 def main():
@@ -175,6 +294,9 @@ def main():
         named = sys.argv[sys.argv.index("--variant") + 1]
         variant = tuple(named.split(","))
         args = [a for a in args if a != named]
+    variant += tuple(v for flag, v in (("--own-models", "own_models"),
+                                       ("--record", "record"))
+                     if flag in sys.argv)
     n = int(args[0]) if args else 20
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -217,6 +339,16 @@ def main():
                 T, torch, dev, mp, variant)
             moved = _partings(torch, model, prompts, want, want2)
             parted = _partings(torch, model, prompts, want, got)
+            for p in moved:
+                p.pop("eager_logits")
+            if "record" in variant:
+                _diff_records(parted, prompts, streams["one_replica"],
+                              streams["two_replicas"])
+            else:
+                for p in parted:
+                    p.pop("eager_logits")
+            for arm in ("one_replica", "one_replica_again", "two_replicas"):
+                streams[arm].pop("mixed_steps")
             result = ("pass" if not parted else
                       f"parted {[(p['stream'], p['token']) for p in parted]}")
             failures += bool(parted)

@@ -2386,3 +2386,114 @@ def test_cuda_fleet_one_nccl_rank_matches_serial(cuda):
         assert group_sharded.stage3_stats()["live"] == 0
     finally:
         dist.destroy_process_group()
+
+
+# -- the Paddle tensor API tier ----------------------------------------------
+@pytest.mark.cuda
+def test_cuda_tensor_api_places_on_the_card_by_default(cuda):
+    """With no place set, ``to_tensor``, the creation ops, the random ops,
+    ``Parameter`` and ``Layer.create_parameter`` all land on the card, and
+    the ops follow their inputs there."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core import place
+
+    saved = place._current
+    place._current = None
+    try:
+        made = [paddle.to_tensor([1.0, 2.0]), paddle.zeros([2, 3]),
+                paddle.full([2], 3.0), paddle.arange(5), paddle.eye(3),
+                paddle.rand([4]), paddle.randint(0, 5, [3]),
+                paddle.Parameter(np.ones(3, np.float32)),
+                paddle.nn.Layer().create_parameter([2, 2])]
+        assert all(t.device.type == "cuda" for t in made)
+        assert paddle.get_device() == "gpu:0"
+        x = made[0]
+        assert x.place == paddle.CUDAPlace(0)
+        out = paddle.matmul(paddle.reshape(x, [1, 2]),
+                            paddle.ones([2, 2]))
+        assert out.device.type == "cuda" and out.tolist() == [[3.0, 3.0]]
+        assert paddle.to_tensor([1.0], place=paddle.CPUPlace()).device.type \
+            == "cpu"
+    finally:
+        place._current = saved
+
+
+@pytest.mark.cuda
+def test_cuda_public_api_resnet_step_equals_direct_path(cuda):
+    """Phase 23 (b) at a small size: resnet18 through the public API
+    (``paddle.seed``, ``to_tensor``, ``nn.CrossEntropyLoss``,
+    ``optimizer.Momentum``) against the direct-path model carrying its
+    weights: three steps' losses bit-equal (cuDNN deterministic), and the
+    same kernel launches a step under the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import resnet18
+
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        paddle.seed(0)
+        model = resnet18()
+        ce = paddle.nn.CrossEntropyLoss()
+        opt = paddle.optimizer.Momentum(0.1, parameters=model.parameters())
+        rng = np.random.RandomState(0)
+        x = paddle.to_tensor(rng.randn(4, 3, 64, 64).astype("f4"))
+        y = paddle.to_tensor(rng.randint(0, 1000, 4).astype("i8"))
+        direct = resnet18(device=cuda, generator=torch.Generator(
+            device=cuda).manual_seed(25))
+        direct.load_state_dict(model.state_dict())
+        d_ce, d_opt = CrossEntropyLoss(), Momentum(
+            0.1, parameters=direct.parameters())
+
+        def step(m, c, o):
+            loss = c(m(x), y)
+            loss.backward()
+            o.step()
+            o.clear_grad()
+            return float(loss)
+
+        api = [step(model, ce, opt) for _ in range(3)]
+        ref = [step(direct, d_ce, d_opt) for _ in range(3)]
+        assert api == ref
+
+        def launches(m, c, o):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                step(m, c, o)
+                torch.cuda.synchronize()
+            return sum(ev.count for ev in prof.key_averages()
+                       if ev.device_type == torch.autograd.DeviceType.CUDA)
+
+        assert launches(model, ce, opt) == launches(direct, d_ce, d_opt)
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+
+
+@pytest.mark.cuda
+def test_cuda_device_module_streams_events_and_memory(cuda):
+    """``paddle.device`` on ``torch.cuda``: a Stream and Event order work,
+    the allocator's statistics see an allocation, properties name the
+    card."""
+    import paddle_tpu_torch as paddle
+
+    dev = paddle.device
+    assert dev.device_count() == torch.cuda.device_count() >= 1
+    assert dev.get_device_properties().name == torch.cuda.get_device_name(0)
+    before = dev.memory_allocated()
+    x = torch.ones(1 << 20, device=cuda)
+    assert dev.memory_allocated() >= before + x.numel() * 4
+    assert dev.max_memory_allocated() >= dev.memory_allocated()
+    s = dev.Stream()
+    ev = dev.Event(enable_timing=True)
+    with torch.cuda.stream(s):
+        y = x * 2
+        ev.record()
+    ev.synchronize()
+    dev.synchronize()
+    assert float(y.sum()) == 2 * x.numel()
+    assert dev.cuda.Stream is dev.Stream and ev.query()
+    dev.empty_cache()

@@ -218,3 +218,101 @@ def test_chip_smoke_refuses_without_cuda_and_outside_a_checkout(tmp_path):
         assert out.returncode != 0
         assert '"ok"' not in out.stdout and '"kernels"' not in out.stdout
     assert paddle_tpu_torch.__version__
+
+
+# -- the Paddle tensor API tier ----------------------------------------------
+@pytest.fixture
+def _place_restored():
+    """Whatever a test sets with ``set_device``, the place before it comes
+    back after it."""
+    from paddle_tpu_torch.core import place
+
+    saved = place._current
+    yield place
+    place._current = saved
+
+
+def test_tensor_api_modules_import_neither_jax_nor_reference(tmp_path):
+    out = _run("import sys, paddle_tpu_torch, paddle_tpu_torch.core.dtype, "
+               "paddle_tpu_torch.core.place, paddle_tpu_torch.core.random, "
+               "paddle_tpu_torch.core.flags, paddle_tpu_torch.core.tensor, "
+               "paddle_tpu_torch.core.autograd, "
+               "paddle_tpu_torch.core.dispatch, paddle_tpu_torch.tensor, "
+               "paddle_tpu_torch.tensor.linalg, paddle_tpu_torch.autograd, "
+               "paddle_tpu_torch.device, paddle_tpu_torch.utils, "
+               "paddle_tpu_torch.nn.initializer, "
+               "paddle_tpu_torch.nn.layer.layers; "
+               "print(sorted(m for m in sys.modules if m == 'jax' or "
+               "m.startswith(('jax.', 'jaxlib')) or m == 'paddle_tpu' or "
+               "m.startswith('paddle_tpu.')))", tmp_path)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_import_replaces_no_torch_tensor_attribute(tmp_path):
+    """A fresh interpreter snapshots every attribute of ``torch.Tensor`` (as
+    stored, before descriptors bind), imports the port, and finds each one
+    the same object; the port's
+    additions are exactly the names that were absent."""
+    out = _run(
+        "import inspect, torch\n"
+        "raw = lambda n: inspect.getattr_static(torch.Tensor, n)\n"
+        "before = {n: raw(n) for n in dir(torch.Tensor)}\n"
+        "import paddle_tpu_torch\n"
+        "from paddle_tpu_torch.tensor import ATTACHED\n"
+        "changed = [n for n, v in before.items() if raw(n) is not v]\n"
+        "added = sorted(set(dir(torch.Tensor)) - set(before))\n"
+        "assert not changed, changed\n"
+        "assert added == sorted(ATTACHED), (added, ATTACHED)\n"
+        "assert not set(ATTACHED) & set(before)\n"
+        "print(len(added))\n", tmp_path)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout) > 50
+
+
+def test_to_tensor_and_creation_ops_need_cuda_unless_asked_for_the_cpu(
+        monkeypatch, _place_restored):
+    import paddle_tpu_torch as paddle
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    _place_restored._current = None
+    makers = [
+        lambda: paddle.to_tensor([1.0, 2.0]), lambda: paddle.zeros([2]),
+        lambda: paddle.ones([2]), lambda: paddle.full([2], 3.0),
+        lambda: paddle.empty([2]), lambda: paddle.arange(4),
+        lambda: paddle.linspace(0, 1, 3), lambda: paddle.logspace(0, 1, 3),
+        lambda: paddle.eye(2), lambda: paddle.tril_indices(3, 3),
+        lambda: paddle.triu_indices(3, 3), lambda: paddle.rand([2]),
+        lambda: paddle.randn([2]), lambda: paddle.randint(0, 4, [2]),
+        lambda: paddle.uniform([2]), lambda: paddle.normal(shape=[2]),
+        lambda: paddle.randperm(4), lambda: paddle.standard_normal([2]),
+        lambda: paddle.Parameter(np.ones(2, np.float32)),
+        lambda: paddle.nn.initializer.Constant(1.0)([2]),
+        lambda: paddle.nn.Layer().create_parameter([2, 2]),
+    ]
+    for make in makers:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    x = paddle.to_tensor([1.0], place=paddle.CPUPlace())
+    assert x.device.type == "cpu"
+    assert paddle.to_tensor([1.0], place="cpu").device.type == "cpu"
+    # a tensor argument's device decides; no default is asked for
+    assert paddle.zeros_like(x).device.type == "cpu"
+    assert paddle.add(x, 1.0).device.type == "cpu"
+    paddle.set_device("cpu")
+    for make in makers:
+        out = make()
+        assert out.device.type == "cpu"
+
+
+def test_place_fixture_restores_the_place(_place_restored):
+    import paddle_tpu_torch as paddle
+
+    paddle.set_device("cpu")
+    assert _place_restored._current is not None
+
+
+def test_no_test_left_a_place_set():
+    from paddle_tpu_torch.core import place
+
+    assert place._current is None
