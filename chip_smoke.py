@@ -394,6 +394,28 @@ Phases (any failure raises and the script exits non-zero):
     4,096): finite losses, and its first forward's first 64 rows within
     2^-5 (relative L2) of an f32 CPU run of the same weights.
     ``scripts/torch_tensor_api_phase.py`` runs this phase alone.
+24. the static and deployment tier (``static_phase``, last; every record
+    beside the card's name and power limit): (a) Llama-2-7B's widths
+    (hidden 4,096, 32 heads, FFN 11,008, vocab 32,000) in bf16 at
+    ``STATIC_LAYERS`` layers, ids (2, 512): ``torch._dynamo.explain``
+    finds one graph and no break; ``jit.to_static`` (inductor) launches
+    exactly the eager forward's K1 (2L + 1) and K4 (L), its logits within
+    phase 2's bf16 tolerance (or 2^-5 relative L2) of eager's, the same
+    compiled forward under ``plain_versions()`` launches nothing and
+    agrees within 2^-5; ``loss.backward()`` through it launches K6 (2L +
+    1) and K7 (L) with every gradient within 2^-5 of eager's; ``jit.save``
+    with ``InputSpec([None, None], "int64")``, ``inference.Config`` and
+    ``create_predictor``: the Predictor launches K1 and K4 as eager does
+    and its logits hold to to_static's, also at a second shape; the
+    compile-and-first-call wall, steady and eager calls (CUDA events),
+    save and load walls; (b) ResNet-50 at ``resnet50_eager``'s batch (32,
+    224 x 224, f32, eval) through ``jit.save`` with a dynamic batch and a
+    Predictor, against the eager forward; the C API's client
+    (``paddle_tpu_torch/csrc/capi/predict_client.c``, built with g++ on
+    the card) runs the saved model from a second process, and its output
+    and its clone's (a second thread) equal the Python Predictor's at the
+    client's precision flags (torch's defaults) within f32's tolerance.
+    ``scripts/torch_static_phase.py`` runs this phase alone.
 
 The line before the last is the ``{"kernels": [...]}`` record (each
 kernel's launches come from the run of the path that carries it: K1-K3
@@ -408,8 +430,10 @@ cached float and int8-KV runs, phase 16's ``frontdoor``, phase 17's
 ``lora_fp16``, phase 19's ``gpt_train`` and ``fmt_decode`` and phase
 20's ``sd_unet`` (one captured sample) and phase 21's
 ``ernie_engine``, ``transformer_train``, ``transformer_decode`` and
-``t5_train``, phase 22's ``fleet`` and phase 23's ``tensor_api`` (no
-hand-written kernel: all zero) among them; K4's and K7's fp16
+``t5_train``, phase 22's ``fleet``, phase 23's ``tensor_api`` (no
+hand-written kernel: all zero), phase 24's ``static_train`` (the
+to_static train step), ``static_predictor`` and ``static_resnet``
+among them; K4's and K7's fp16
 arms take theirs from phase 18 (c));
 the last
 line is ``{"ok": true, "device": {...}}``.
@@ -583,6 +607,13 @@ SWIGLU_SHAPE = (2, 2048)
 SWIGLU_STEPS = 3
 SWIGLU_CPU_ROWS = 64
 SWIGLU_BOUND = 2.0 ** -5
+# phase 24: (a) Llama-2-7B's widths in bf16 at this many decoder layers
+# (the depth is cut: the compiled graph repeats one layer's code, and the
+# kernels' shapes are every layer's), the ids' batch and length, and the
+# steady calls timed by CUDA events
+STATIC_LAYERS = 2
+STATIC_IDS = (2, 512)
+STATIC_TIMED = 5
 # the serving sampling arm's knobs (phases 3 and 6)
 SAMPLING = dict(decode_strategy="sampling", top_k=50, top_p=0.9,
                 temperature=0.8)
@@ -7757,6 +7788,283 @@ def tensor_api_phase(torch, dev, smi):
     return {"tensor_api": launches}
 
 
+# ------------------------------------------------------------ phase 24
+def _launched(ops):
+    return {k: v for k, v in ops.LAUNCHES.items() if v}
+
+
+def _event_timed(torch, fn, n):
+    """(wall s of the first call, median CUDA-event ms of ``n`` more)."""
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    times = []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return first, statistics.median(times) if times else None
+
+
+def _static_llama(torch, dev, smi, tmp):
+    """(a) Llama-2-7B's widths in bf16 at ``STATIC_LAYERS`` layers:
+    to_static of the forward (zero graph breaks, K1 and K4 launched as
+    the eager forward launches them, logits against eager and against
+    the same compiled run under ``plain_versions()``), the backward
+    through it (K6 and K7, gradients against eager's), then ``jit.save``
+    with a dynamic (batch, length) spec, ``inference.Config`` and
+    ``create_predictor``: the Predictor's logits against to_static's."""
+    from paddle_tpu_torch import inference, jit, ops
+    from paddle_tpu_torch.nlp import (LlamaConfig, LlamaForCausalLM,
+                                      LlamaPretrainingCriterion)
+    from paddle_tpu_torch.static import InputSpec
+
+    layers = STATIC_LAYERS
+    b, s = STATIC_IDS
+    cfg = LlamaConfig.llama2_7b(dtype="bfloat16", num_hidden_layers=layers)
+    model = LlamaForCausalLM(
+        cfg, generator=torch.Generator(device=dev).manual_seed(SEED + 40))
+    crit = LlamaPretrainingCriterion(cfg)
+    ids = torch.randint(0, cfg.vocab_size, (b, s), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(
+                            SEED + 41))
+    want = {"rms_norm": 2 * layers + 1, "flash_attention": layers}
+    want_bwd = {"rms_norm_bwd": 2 * layers + 1, "flash_attention_bwd": layers}
+
+    with torch.no_grad():
+        ops.reset_launches()
+        eager = model(ids)
+        eager_launches = _launched(ops)
+        explain = torch._dynamo.explain(model.forward)(ids)
+    check(eager_launches == want,
+          f"the eager forward launched {eager_launches}, not {want}")
+    check(explain.graph_break_count == 0 and explain.graph_count == 1,
+          f"to_static of the Llama forward breaks its graph: "
+          f"{explain.break_reasons}")
+    t0 = time.perf_counter()
+    jit.to_static(model)
+    sf = model.forward
+    with torch.no_grad():
+        ops.reset_launches()
+        first_s, steady_ms = _event_timed(torch, lambda: model(ids), 0)
+        static_launches = _launched(ops)
+        logits = model(ids)
+        _, steady_ms = _event_timed(torch, lambda: model(ids), STATIC_TIMED)
+        _, eager_ms = _event_timed(
+            torch, lambda: sf._function(ids), STATIC_TIMED)
+        with ops.plain_versions():
+            ops.reset_launches()
+            plain = model(ids)
+            plain_launches = _launched(ops)
+    check(sf.graph_breaks == [], f"to_static broke: {sf.graph_breaks}")
+    check(static_launches == want,
+          f"to_static's first forward launched {static_launches}, not {want}")
+    check(plain_launches == {},
+          f"to_static under plain_versions() launched {plain_launches}")
+    err, ok, tol = close(torch, logits, eager, torch.bfloat16, True)
+    rel = _rel_l2(logits, eager)
+    plain_rel = _rel_l2(plain, logits)
+    check(bool(torch.isfinite(logits).all()), "to_static logits not finite")
+    check(ok or rel <= KERNEL_PATH_BOUND,
+          f"to_static logits {err} (rel L2 {rel}) from eager's")
+    check(plain_rel <= KERNEL_PATH_BOUND,
+          f"to_static's kernel path {plain_rel} (rel L2) from its plain "
+          "path")
+
+    # the backward through the compiled forward, against eager's
+    def grads(fn):
+        model.zero_grad(set_to_none=True)
+        loss = crit(fn(ids).float(), ids)
+        loss.backward()
+        return loss.detach(), {n: p.grad.detach().clone()
+                               for n, p in model.named_parameters()}
+
+    eager_loss, eager_grads = grads(sf._function)
+    ops.reset_launches()
+    t1 = time.perf_counter()
+    static_loss, static_grads = grads(model)
+    torch.cuda.synchronize()
+    bwd_first_s = time.perf_counter() - t1
+    bwd_launches = _launched(ops)
+    train_counts = dict(ops.LAUNCHES)
+    model.zero_grad(set_to_none=True)
+    check(all(bwd_launches.get(k) == v for k, v in {**want, **want_bwd}
+              .items()), f"to_static's train step launched {bwd_launches}")
+    grad_rel = max(_rel_l2(static_grads[n], eager_grads[n])
+                   for n in eager_grads)
+    check(grad_rel <= KERNEL_PATH_BOUND,
+          f"to_static's gradients {grad_rel} (rel L2) from eager's")
+    del eager_grads, static_grads
+    compile_s = time.perf_counter() - t0
+
+    # jit.save -> Config -> create_predictor
+    prefix = os.path.join(tmp, "llama")
+    t2 = time.perf_counter()
+    jit.save(model, prefix, input_spec=[InputSpec([None, None], "int64")])
+    save_s = time.perf_counter() - t2
+    t3 = time.perf_counter()
+    pred = inference.create_predictor(inference.Config(prefix + ".pdmodel",
+                                                       prefix + ".pdiparams"))
+    load_s = time.perf_counter() - t3
+    ids_np = ids.cpu().numpy()
+    ops.reset_launches()
+    (pred_logits,) = pred.run([ids_np])
+    pred_launches = _launched(ops)
+    pred_counts = dict(ops.LAUNCHES)
+    _, pred_ms = _event_timed(torch, lambda: pred.run([ids_np]), 2)
+    pl = torch.from_numpy(pred_logits)
+    p_err, p_ok, _ = close(torch, pl, logits.float().cpu(), torch.bfloat16,
+                           True)
+    p_rel = _rel_l2(pl, logits.cpu())
+    eager_exact = float((pl - eager.float().cpu()).abs().max())
+    check(pred_launches == want,
+          f"the Predictor launched {pred_launches}, not {want}")
+    check(p_ok or p_rel <= KERNEL_PATH_BOUND,
+          f"the Predictor's logits {p_err} (rel L2 {p_rel}) from "
+          "to_static's")
+    # another shape through the same dynamic program
+    ids2 = ids[:1, :s // 2].contiguous()
+    (pl2,) = pred.run([ids2.cpu().numpy()])
+    with torch.no_grad():
+        e2 = sf._function(ids2).float().cpu()
+    check(_rel_l2(torch.from_numpy(pl2), e2) <= KERNEL_PATH_BOUND,
+          "the Predictor's second shape parts from eager")
+    emit({"phase": "static_llama2_7b_width", "layers": layers, "ids": [b, s],
+          "graph_breaks": explain.graph_break_count,
+          "graphs": len(sf.graphs), "backend": "inductor",
+          "compile_and_first_call_s": first_s,
+          "steady_call_ms": steady_ms, "eager_call_ms": eager_ms,
+          "train_step_first_call_s": bwd_first_s,
+          "phase_compile_s": compile_s,
+          "launches_forward": static_launches,
+          "launches_train_step": bwd_launches,
+          "logits_max_abs_err_vs_eager": err, "logits_close": ok,
+          "logits_tol": tol, "logits_rel_l2_vs_eager": rel,
+          "plain_rel_l2": plain_rel, "plain_launches": plain_launches,
+          "loss": float(static_loss), "eager_loss": float(eager_loss),
+          "grad_max_rel_l2": grad_rel, "save_s": save_s,
+          "predictor_load_s": load_s, "predictor_ms": pred_ms,
+          "predictor_launches": pred_launches,
+          "predictor_max_abs_err_vs_static": p_err,
+          "predictor_rel_l2_vs_static": p_rel,
+          "predictor_max_abs_diff_vs_eager": eager_exact, "gpu": smi})
+    del model, pred, sf
+    return train_counts, pred_counts
+
+
+def _static_resnet(torch, dev, smi, tmp):
+    """(b) ResNet-50 at resnet50_eager's batch in f32, eval: ``jit.save``
+    with a dynamic batch, a Predictor against the eager forward, and the
+    C API's client compiled on the card: its output and its clone's
+    (second thread) equal to the Python Predictor's at the client's
+    precision flags (f32 tolerance; bit equality reported)."""
+    from paddle_tpu_torch import inference, jit, ops
+    from paddle_tpu_torch.inference import capi
+    from paddle_tpu_torch.static import InputSpec
+    from paddle_tpu_torch.vision.models import resnet50
+    import numpy as np
+
+    b, side, classes = RESNET_SHAPE
+    model = resnet50(device=dev, generator=torch.Generator(
+        device=dev).manual_seed(SEED + 42))
+    model.eval()
+    x = torch.randn(b, 3, side, side, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(
+                        SEED + 43))
+    with torch.no_grad():
+        eager = model(x)
+    prefix = os.path.join(tmp, "resnet50")
+    t0 = time.perf_counter()
+    jit.save(model, prefix, input_spec=[InputSpec([None, 3, side, side],
+                                                  "float32")])
+    save_s = time.perf_counter() - t0
+    pred = inference.create_predictor(inference.Config(prefix))
+    x_np = x.cpu().numpy()
+    ops.reset_launches()
+    (out,) = pred.run([x_np])
+    launches = dict(ops.LAUNCHES)
+    _, pred_ms = _event_timed(torch, lambda: pred.run([x_np]), 2)
+    err, ok, tol = close(torch, torch.from_numpy(out), eager.cpu(),
+                         torch.float32)
+    check(out.shape == (b, classes) and ok,
+          f"the ResNet-50 Predictor {err} from the eager forward")
+    t1 = time.perf_counter()
+    exe = capi.build_client(os.path.join(tmp, "predict_client"))
+    build_s = time.perf_counter() - t1
+    x_np.tofile(os.path.join(tmp, "in.f32"))
+    t2 = time.perf_counter()
+    r = subprocess.run(
+        [exe, prefix, os.path.join(tmp, "in.f32"),
+         os.path.join(tmp, "out.f32"), "4", str(b), "3", str(side),
+         str(side)], capture_output=True, text=True,
+        env=capi.client_env(), timeout=600)
+    client_s = time.perf_counter() - t2
+    check(r.returncode == 0, f"the C client failed ({r.returncode}): "
+          f"{r.stderr[-2000:]}")
+    got = np.fromfile(os.path.join(tmp, "out.f32"), np.float32)
+    got_clone = np.fromfile(os.path.join(tmp, "out.f32.clone"), np.float32)
+    # the client's process runs at torch's default precision flags (cuDNN
+    # may use TF32), this script with TF32 off: its Predictor is run
+    # again at the defaults for the comparison
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
+        (out_default,) = pred.run([x_np])
+    c_err, c_ok, _ = close(torch, torch.from_numpy(got.reshape(out.shape)),
+                           torch.from_numpy(out_default), torch.float32)
+    cl_err, cl_ok, _ = close(torch, torch.from_numpy(
+        got_clone.reshape(out.shape)), torch.from_numpy(out_default),
+        torch.float32)
+    c_equal = bool(np.array_equal(got.reshape(out.shape), out_default))
+    check(c_ok and cl_ok,
+          f"the C client's outputs part from the Predictor's: {c_err}, "
+          f"clone {cl_err}")
+    emit({"phase": "static_resnet50", "batch": b, "side": side,
+          "save_s": save_s, "predictor_ms": pred_ms,
+          "predictor_max_abs_err_vs_eager": err, "tol": tol,
+          "launches": {k: v for k, v in launches.items() if v},
+          "c_api_build_s": build_s,
+          "c_client_wall_s": client_s,
+          "c_client_stdout": r.stdout.strip().splitlines()[-1:],
+          "c_client_max_abs_diff": c_err, "c_clone_max_abs_diff": cl_err,
+          "c_client_bit_equal": c_equal,
+          "c_client_vs_tf32_off_max_abs_diff": float(np.abs(
+              got.reshape(out.shape) - out).max()), "gpu": smi})
+    return launches
+
+
+def static_phase(torch, dev, smi):
+    """Phase 24: the static and deployment tier. (a) ``to_static``,
+    ``jit.save`` and a Predictor at Llama-2-7B's widths, (b) ResNet-50
+    through ``jit.save``, a Predictor and the C API. Returns the
+    launches of (a)'s to_static train step and Predictor run and of
+    (b)'s Predictor run, each counted from zero."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        train, pred = _static_llama(torch, dev, smi, tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+        resnet = _static_resnet(torch, dev, smi, tmp)
+    gc.collect()
+    torch.cuda.empty_cache()
+    from torch._inductor import async_compile
+
+    async_compile.shutdown_compile_workers()
+    emit({"phase": "static_done", "wall_s": time.perf_counter() - t_phase})
+    return {"static_train": train, "static_predictor": pred,
+            "static_resnet": resnet}
+
+
 def main():
     import torch
 
@@ -7792,6 +8100,7 @@ def main():
     bert_launches = bert_phase(torch, dev, smi)
     fleet_launches = fleet_phase(torch, dev, smi)
     api_launches = tensor_api_phase(torch, dev, smi)
+    static_launches = static_phase(torch, dev, smi)
     paths = {"serving": launches, "generate": gen_launches,
              "train": train_launches, "train_f32_parity": parity_launches,
              "packed_train": packed_launches,
@@ -7799,7 +8108,7 @@ def main():
              "int8_serving": int8_launches, **batch_launches,
              **prefix_launches, **lora_launches, **gpt_launches,
              **vision_launches, **bert_launches, "fleet": fleet_launches,
-             **api_launches}
+             **api_launches, **static_launches}
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
         rec = primary[name]

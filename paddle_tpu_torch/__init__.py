@@ -36,9 +36,8 @@ from .tensor import linalg
 
 from . import (amp, autograd, callbacks, device, distributed, framework,
                hapi, incubate, inference, io, jit, metric, nlp, nn, obs,
-               ops, optimizer, peft, profiler, regularizer, serving, utils,
-               vision, visualdl)
-from ._later import not_ported as _not_ported
+               ops, optimizer, peft, profiler, regularizer, serving, static,
+               utils, vision, visualdl)
 from .distributed.parallel import DataParallel
 from .framework import load, save
 from .hapi import Model, flops, summary
@@ -58,15 +57,24 @@ bool = bool8
 __version__ = "0.1.0"
 
 
+_static_mode = False
+
+
 def disable_static():
-    """Dynamic mode is the only mode; nothing to switch."""
+    global _static_mode
+    _static_mode = False
 
 
-enable_static = _not_ported("enable_static", "A9 (static/)")
+def enable_static():
+    """Record static mode, as the reference does: ``in_dynamic_mode()``
+    turns False. Ops still run eagerly; ``jit.to_static`` and
+    ``static.save_inference_model(program=)`` build the programs."""
+    global _static_mode
+    _static_mode = True
 
 
 def in_dynamic_mode():
-    return True
+    return not _static_mode
 
 
 def device_count():

@@ -1,11 +1,19 @@
 """Inference entry points of the port (counterpart of
-``paddle_tpu/inference``): ``create_serving_engine``, the serving front
-door ``serve``, and the ``PrecisionType`` / ``PlaceType`` enums.
-``Config``, ``Predictor`` and ``create_predictor`` need ``jit`` save and
-load (ROADMAP A9): they raise."""
+``paddle_tpu/inference``): the ``Config`` / ``Predictor`` /
+``create_predictor`` deployment API over ``jit.save``'s artifacts,
+``create_serving_engine``, the serving front door ``serve``, and the
+``PrecisionType`` / ``PlaceType`` enums.
+
+A ``Predictor`` loads ``prefix.pdmodel`` / ``prefix.pdiparams``
+(``jit.load``) and runs the exported program on the device it was saved
+from; its zero-copy handles hold device tensors. ``clone()`` shares the
+program and the weights and gets fresh handles. The C inference API
+(``paddle_tpu_torch/csrc/capi/``, built by :mod:`.capi`) drives this
+module from an embedded interpreter."""
 from __future__ import annotations
 
-from .._later import not_ported
+import numpy as np
+import torch
 
 __all__ = ["Config", "Predictor", "create_predictor", "PrecisionType",
            "PlaceType", "create_serving_engine", "serve"]
@@ -26,11 +34,121 @@ class PlaceType:
     TPU = 4
 
 
-# they need jit save/load
-Config = not_ported("paddle_tpu_torch.inference.Config", "A9")
-Predictor = not_ported("paddle_tpu_torch.inference.Predictor", "A9")
-create_predictor = not_ported("paddle_tpu_torch.inference.create_predictor",
-                              "A9")
+class Config:
+    """``paddle.inference.Config``: ``Config(prefix)`` or
+    ``Config(model_file, params_file)``. The tuning knobs (every
+    ``enable_*`` / ``set_*`` / ``switch_*`` / ``disable_*``) are accepted
+    and recorded in ``ignored_options``: the exported program runs as
+    saved."""
+
+    def __init__(self, prog_file=None, params_file=None):
+        self._prefix = None
+        self._params_file = None if params_file is None else str(params_file)
+        if prog_file is not None:
+            self.set_prog_file(prog_file)
+        self.ignored_options = []
+
+    def set_prog_file(self, path):
+        p = str(path)
+        self._prefix = p[:-len(".pdmodel")] if p.endswith(".pdmodel") else p
+
+    def set_params_file(self, path):
+        self._params_file = str(path)
+
+    def prog_file(self):
+        return (self._prefix or "") + ".pdmodel"
+
+    def params_file(self):
+        return self._params_file or (self._prefix or "") + ".pdiparams"
+
+    def __getattr__(self, name):
+        # accept and record every tuning knob
+        if name.startswith(("enable_", "set_", "switch_", "disable_")):
+            def sink(*a, **k):
+                self.ignored_options.append(name)
+            return sink
+        raise AttributeError(name)
+
+
+class _Handle:
+    """A zero-copy tensor handle: it holds a tensor on the predictor's
+    device."""
+
+    def __init__(self, device=None):
+        self._value = None
+        self._device = device
+
+    def copy_from_cpu(self, arr):
+        t = torch.tensor(np.asarray(arr))
+        self._value = t.to(self._device) if self._device is not None else t
+
+    def reshape(self, shape):
+        if self._value is not None:
+            self._value = self._value.reshape(tuple(shape))
+
+    def copy_to_cpu(self):
+        t = self._value.detach()
+        if t.dtype in (torch.bfloat16, torch.float16):
+            t = t.float()  # numpy has no bfloat16
+        return t.cpu().numpy()
+
+    def shape(self):
+        return list(self._value.shape) if self._value is not None else []
+
+
+class Predictor:
+    """``paddle_infer::Predictor`` over a ``jit.save`` artifact."""
+
+    def __init__(self, config: Config):
+        from ..jit import load
+
+        self._layer = load(config._prefix, params_path=config.params_file())
+        self._inputs = {f"input_{i}": _Handle(self._layer._device)
+                        for i in range(self._layer._n_inputs)}
+        self._outputs = {}
+
+    def get_input_names(self):
+        return list(self._inputs)
+
+    def get_input_handle(self, name):
+        return self._inputs[name]
+
+    def run(self, inputs=None):
+        """``Predictor::Run``. With ``inputs`` (a list of arrays or
+        tensors) returns the outputs as numpy arrays; else reads the input
+        handles and fills the output handles."""
+        vals = list(inputs) if inputs is not None else [
+            h._value for h in self._inputs.values()]
+        out = self._layer(*vals)
+        outs = out if isinstance(out, (list, tuple)) else [out]
+        self._outputs = {}
+        for i, o in enumerate(outs):
+            h = _Handle(self._layer._device)
+            h._value = o
+            self._outputs[f"output_{i}"] = h
+        if inputs is not None:
+            return [h.copy_to_cpu() for h in self._outputs.values()]
+        return True
+
+    def get_output_names(self):
+        return list(self._outputs)
+
+    def get_output_handle(self, name):
+        return self._outputs[name]
+
+    def clone(self):
+        """A predictor for another thread (``AnalysisPredictor::Clone``):
+        the program and weights are shared, the handles are its own."""
+        new = object.__new__(Predictor)
+        new._layer = self._layer
+        new._inputs = {name: _Handle(self._layer._device)
+                       for name in self._inputs}
+        new._outputs = {}
+        return new
+
+
+def create_predictor(config: Config) -> Predictor:
+    return Predictor(config)
 
 
 def create_serving_engine(model, **kwargs):

@@ -8,11 +8,20 @@ and loaded with ``ctypes``. The library's file name carries a hash of the
 sources and flags, so an edited source rebuilds and an unchanged one
 loads straight away.
 
-Each wrapper adds one to its entry in :data:`LAUNCHES` where it launches
-its kernel, and nowhere else. :func:`plain_versions` is the explicit
-switch that makes the wrappers run their plain PyTorch versions on CUDA
-tensors too; only tests and ``chip_smoke.py`` set it, to compare the two
-paths end to end. It is never a fallback: a kernel that fails to build
+K1 / K6, K3 / K8 and K4 / K7 are ``torch.library`` custom ops in the
+``paddle_tpu_torch::`` namespace (:func:`custom_op`): their CUDA
+implementation launches the kernel, their CPU implementation is the plain
+version, and a fake implementation gives their output shapes, so
+TorchDynamo and ``torch.export`` trace through them (``jit.to_static``,
+``jit.save``). An eager call runs the CUDA implementation directly
+(:func:`route`), without the dispatcher's host cost. K2 and K5 stay
+direct calls and refuse to be traced (:func:`refuse_trace`). Each
+kernel's CUDA implementation adds one to its entry in :data:`LAUNCHES`
+where it launches the kernel, and nowhere else, so a compiled graph
+counts its real launches, not its traces. :func:`plain_versions` is the
+explicit switch that makes the wrappers run their plain PyTorch versions
+on CUDA tensors too; only tests and ``chip_smoke.py`` set it, to compare
+the two paths end to end. It is never a fallback: a kernel that fails to build
 or launch raises.
 """
 from __future__ import annotations
@@ -27,12 +36,13 @@ import threading
 from pathlib import Path
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from . import split_decode as sd
 
 __all__ = ["LAUNCHES", "reset_launches", "plain_versions", "use_plain",
-           "refuse_grad", "library", "check_status", "cuda_stream",
-           "BUILD_DIR"]
+           "route", "refuse_grad", "refuse_trace", "custom_op",
+           "library", "check_status", "cuda_stream", "BUILD_DIR"]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -93,6 +103,54 @@ def use_plain(t: torch.Tensor) -> bool:
     if t.device.type != "cuda":
         raise ValueError(f"unsupported device {t.device}")
     return _plain
+
+
+def route(t: torch.Tensor, *tensors) -> str:
+    """How a wrapper of a custom-op kernel runs on ``t`` (and the other
+    inputs): ``"op"`` while TorchDynamo or ``torch.export`` traces it (a
+    fake tensor, or Dynamo compiling), so the graph holds the op;
+    otherwise ``"kernel"``, a direct call of the op's CUDA implementation
+    (eager calls skip the dispatcher's host cost; the launch and its
+    count are the same), or ``"plain"``: CPU tensors, and
+    :func:`plain_versions` on the card. A traced call takes ``"plain"``
+    too where autograd must see through it (on CPU tensors that require
+    grad: the ops carry no autograd formula, their autograd Functions do)
+    or inside :func:`plain_versions`."""
+    if torch.compiler.is_compiling() or isinstance(t, FakeTensor):
+        if t.device.type == "cuda":
+            return "plain" if _plain else "op"
+        grad = torch.is_grad_enabled() and any(
+            x.requires_grad for x in (t, *tensors))
+        return "plain" if grad else "op"
+    if t.device.type == "cpu":
+        return "plain"
+    if t.device.type != "cuda":
+        raise ValueError(f"unsupported device {t.device}")
+    return "plain" if _plain else "kernel"
+
+
+def custom_op(name, cuda_impl):
+    """Register ``cuda_impl`` (its arguments and results annotated) as the
+    CUDA implementation of the custom op ``paddle_tpu_torch::<name>``;
+    returns the op, whose ``register_kernel("cpu")`` and
+    ``register_fake`` add the rest. A compiled graph hands the op its
+    inputs in the strides the trace saw (the kernels take contiguous
+    tensors)."""
+    return torch.library.custom_op(
+        f"paddle_tpu_torch::{name}", cuda_impl, mutates_args=(),
+        device_types="cuda", tags=(torch.Tag.needs_fixed_stride_order,))
+
+
+def refuse_trace(name):
+    """Raise when TorchDynamo or ``torch.export`` traces a kernel that is
+    not a custom op yet (K2 and K5, whose split plans and ticket buffers
+    keyed by stream live on the host): no graph may hold a call it cannot
+    replay."""
+    if torch.compiler.is_compiling() or torch.compiler.is_exporting():
+        raise NotImplementedError(
+            f"the {name} kernel is not a traceable custom op yet (ROADMAP "
+            f"A9, K2 / K5 as custom ops): to_static and jit.save cannot "
+            f"hold it; run the decode step eagerly")
 
 
 def refuse_grad(name, item, *tensors):

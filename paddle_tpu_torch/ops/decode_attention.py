@@ -70,6 +70,7 @@ def decode_attention(q, k_cache, v_cache, seq_lens, sm_scale=None):
     kernel or raise. A q whose dtype differs from the cache's (bf16
     queries over the f32 caches of ``greedy_search``) is cast to the
     cache's dtype for the kernel, which computes in f32 either way."""
+    L.refuse_trace("decode_attention")
     squeeze = q.dim() == 4
     q3 = q[:, 0] if squeeze else q
     if q3.dim() != 3 or k_cache.dim() != 4 or v_cache.shape != k_cache.shape:

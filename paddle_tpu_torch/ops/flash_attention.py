@@ -139,22 +139,57 @@ def flash_attention(q, k, v, causal=False, sm_scale=None, window_size=None,
     b, sq, sk, h, hk, d = _check_args(q, k, v, causal, window_size)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
-    if L.use_plain(q):
+    how = L.route(q, k, v)
+    if how == "plain":
         out, lse = flash_attention_plain(q, k, v, causal, sm_scale,
                                          window_size)
-        return (out, lse) if return_lse else out
+    else:
+        fn = (_flash_attention_cuda if how == "kernel"
+              else torch.ops.paddle_tpu_torch.flash_attention.default)
+        out, lse = fn(q, k, v, bool(causal), float(sm_scale),
+                      int(window_size or 0))
+    return (out, lse) if return_lse else out
+
+
+def _flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          causal: bool, sm_scale: float,
+                          window_size: int) -> tuple[torch.Tensor,
+                                                     torch.Tensor]:
+    """K4 as a custom op: ``(out, lse)`` (``window_size`` 0: no window).
+    On CUDA tensors it launches the kernel; on CPU tensors it is
+    :func:`flash_attention_plain`."""
     _check_kernel_inputs("flash_attention", q, k, v)
+    b, sq, h, d = q.shape
+    sk, hk = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     status = L.library().ptt_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), b, sq, sk, h, hk, d, int(bool(causal)),
-        int(window_size or 0), float(sm_scale), _DTYPES[q.dtype],
-        L.cuda_stream(q))
+        lse.data_ptr(), b, sq, sk, h, hk, d, int(causal), window_size,
+        sm_scale, _DTYPES[q.dtype], L.cuda_stream(q))
     name = _FWD_NAMES[q.dtype]
     L.check_status(name, status)
     L.LAUNCHES[name] += 1
-    return (out, lse) if return_lse else out
+    return out, lse
+
+
+_flash_attention_op = L.custom_op("flash_attention", _flash_attention_cuda)
+
+
+@_flash_attention_op.register_kernel("cpu")
+def _(q, k, v, causal, sm_scale, window_size):
+    out, lse = flash_attention_plain(q, k, v, causal, sm_scale,
+                                     window_size or None)
+    return out.contiguous(), lse.contiguous()
+
+
+@_flash_attention_op.register_fake
+def _(q, k, v, causal, sm_scale, window_size):
+    if q.device.type == "cuda":
+        _check_kernel_inputs("flash_attention", q, k, v)
+    b, sq, h, _ = q.shape
+    return (torch.empty_like(q, memory_format=torch.contiguous_format),
+            q.new_empty((b, h, sq), dtype=torch.float32))
 
 
 def _check_kernel_inputs(name, q, *others):
@@ -398,8 +433,7 @@ class BwdSchedule:
         return (self.b, self.h, self.n_q, self.block_q, d + 4)
 
 
-def _bwd_launch_args(q, k, v, do, lse, delta, causal, sm_scale,
-                     window_size):
+def _bwd_check(q, k, v, do, lse, delta, causal, window_size):
     b, sq, sk, h, hk, d = _check_args(q, k, v, causal, window_size)
     if do.shape != q.shape or lse.shape != (b, h, sq) \
             or delta.shape != (b, h, sq):
@@ -413,6 +447,13 @@ def _bwd_launch_args(q, k, v, do, lse, delta, causal, sm_scale,
                 or t.device != q.device:
             raise TypeError("flash_attention backward kernels take "
                             "contiguous f32 lse and delta on q's device")
+    return b, sq, sk, h, hk, d
+
+
+def _bwd_launch_args(q, k, v, do, lse, delta, causal, sm_scale,
+                     window_size):
+    b, sq, sk, h, hk, d = _bwd_check(q, k, v, do, lse, delta, causal,
+                                     window_size)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
     return (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
@@ -421,33 +462,28 @@ def _bwd_launch_args(q, k, v, do, lse, delta, causal, sm_scale,
         float(sm_scale), _DTYPES[q.dtype], L.cuda_stream(q))
 
 
-def flash_attention_bwd_fused(q, k, v, do, lse, delta, causal=False,
-                              sm_scale=None, window_size=None):
-    """K7: ``(dq, dk, dv)`` in one launch of the fused backward kernel,
-    from the forward's ``lse`` and ``delta``
-    (:func:`flash_attention_bwd_delta`); dk and dv are each KV head's sum
-    over the query heads of its group. CPU tensors run the plain
-    backward; CUDA tensors launch the bf16 kernel (counted as
-    ``flash_attention_bwd``), the fp16 one (``flash_attention_bwd_f16``)
-    or the f32 one (``flash_attention_bwd_f32``)."""
-    if L.use_plain(q):
-        return flash_attention_bwd_plain(q, k, v, None, lse, do, causal,
-                                         sm_scale, window_size, delta)
+def _flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, do: torch.Tensor,
+                              lse: torch.Tensor, delta: torch.Tensor,
+                              causal: bool, sm_scale: float,
+                              window_size: int) -> tuple[torch.Tensor,
+                                                         torch.Tensor,
+                                                         torch.Tensor]:
+    """K7 as a custom op: ``(dq, dk, dv)`` (``window_size`` 0: no
+    window). On CUDA tensors it launches the fused kernel; on CPU tensors
+    it is :func:`flash_attention_bwd_plain`."""
     ptrs, dims = _bwd_launch_args(q, k, v, do, lse, delta, causal, sm_scale,
-                                  window_size)
+                                  window_size or None)
     b, sq, sk, h, hk, d = dims[:6]
     f32 = q.dtype == torch.float32
-    sched = BwdSchedule(b, sq, sk, h, hk, causal, window_size,
+    sched = BwdSchedule(b, sq, sk, h, hk, causal, window_size or None,
                         block_k=bwd_block_k(q.dtype, d))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if sk == 0:
         return torch.zeros_like(q), dk, dv
     dq = torch.empty_like(q)
     if causal and sq > sk:
-        # rows that see no key: their tiles may have no contributor
         dq[:, :sq - sk].zero_()
-    # the f32 kernel adds into dq itself: no workspace (bf16 and fp16 sum
-    # in an f32 one)
     ws = None if f32 else torch.empty(sched.workspace_shape(d),
                                       dtype=torch.float32, device=q.device)
     counters = torch.zeros(sched.n_counters, dtype=torch.int32,
@@ -461,13 +497,54 @@ def flash_attention_bwd_fused(q, k, v, do, lse, delta, causal=False,
     return dq, dk, dv
 
 
+_flash_attention_bwd_op = L.custom_op("flash_attention_bwd",
+                                      _flash_attention_bwd_cuda)
+
+
+@_flash_attention_bwd_op.register_kernel("cpu")
+def _(q, k, v, do, lse, delta, causal, sm_scale, window_size):
+    return tuple(t.contiguous() for t in flash_attention_bwd_plain(
+        q, k, v, None, lse, do, causal, sm_scale, window_size or None,
+        delta))
+
+
+@_flash_attention_bwd_op.register_fake
+def _(q, k, v, do, lse, delta, causal, sm_scale, window_size):
+    if q.device.type == "cuda":
+        _bwd_check(q, k, v, do, lse, delta, causal, window_size or None)
+    return tuple(torch.empty_like(t, memory_format=torch.contiguous_format)
+                 for t in (q, k, v))
+
+
+def flash_attention_bwd_fused(q, k, v, do, lse, delta, causal=False,
+                              sm_scale=None, window_size=None):
+    """K7: ``(dq, dk, dv)`` in one launch of the fused backward kernel,
+    from the forward's ``lse`` and ``delta``
+    (:func:`flash_attention_bwd_delta`); dk and dv are each KV head's sum
+    over the query heads of its group. Runs the custom op
+    ``paddle_tpu_torch::flash_attention_bwd``: CPU tensors run the plain
+    backward; CUDA tensors launch the bf16 kernel (counted as
+    ``flash_attention_bwd``), the fp16 one (``flash_attention_bwd_f16``)
+    or the f32 one (``flash_attention_bwd_f32``)."""
+    how = L.route(q, k, v, do)
+    if how == "plain":
+        return flash_attention_bwd_plain(q, k, v, None, lse, do, causal,
+                                         sm_scale, window_size, delta)
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    fn = (_flash_attention_bwd_cuda if how == "kernel"
+          else torch.ops.paddle_tpu_torch.flash_attention_bwd.default)
+    return fn(q, k, v, do, lse, delta, bool(causal), float(sm_scale),
+              int(window_size or 0))
+
+
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=False,
                            sm_scale=None, window_size=None):
     """dq (like q) from the forward's ``lse`` and ``delta``
     (:func:`flash_attention_bwd_delta`). CPU tensors run the plain
     backward; CUDA tensors launch the fused K7 (which also computes dk
     and dv) or raise."""
-    if L.use_plain(q):
+    if L.route(q, k, v, do) == "plain":
         return flash_attention_bwd_plain(q, k, v, None, lse, do, causal,
                                          sm_scale, window_size, delta)[0]
     return flash_attention_bwd_fused(q, k, v, do, lse, delta, causal,
@@ -479,7 +556,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal=False,
     """``(dk, dv)`` (like k, v), each KV head's sum over the query heads
     of its group. CPU tensors run the plain backward; CUDA tensors launch
     the fused K7 or raise."""
-    if L.use_plain(q):
+    if L.route(q, k, v, do) == "plain":
         return flash_attention_bwd_plain(q, k, v, None, lse, do, causal,
                                          sm_scale, window_size, delta)[1:]
     return flash_attention_bwd_fused(q, k, v, do, lse, delta, causal,
@@ -495,8 +572,8 @@ def flash_attention_bwd(q, k, v, out, lse, do, causal=False, sm_scale=None,
     if out.shape != q.shape:
         raise ValueError(f"flash_attention_bwd: out {tuple(out.shape)} for "
                          f"q {tuple(q.shape)}")
-    if L.use_plain(q):
-        _check_args(q, k, v, causal, window_size)
+    _check_args(q, k, v, causal, window_size)
+    if L.route(q, k, v, do) == "plain":
         return flash_attention_bwd_plain(q, k, v, out, lse, do, causal,
                                          sm_scale, window_size)
     delta = flash_attention_bwd_delta(out, do)

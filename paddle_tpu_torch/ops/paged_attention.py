@@ -218,6 +218,7 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, seq_lens,
     Returns (B, H, D) (or (B, 1, H, D) matching q) in the query's dtype.
     CPU tensors run :func:`paged_decode_attention_plain`; CUDA tensors
     launch the kernel or raise."""
+    L.refuse_trace("paged_decode_attention")
     squeeze = q.dim() == 4
     if squeeze:
         q = q[:, 0]
@@ -255,6 +256,7 @@ def _paged_decode_attention_rows(q, k_pool, v_pool, k_scales, v_scales,
     (B, H, D). CPU tensors run
     :func:`_paged_decode_attention_rows_plain`; CUDA tensors launch the
     kernel or raise."""
+    L.refuse_trace("paged_decode_attention")
     _check("paged_decode_attention_int8_rows", q, k_pool, v_pool,
            block_tables, seq_lens)
     if sm_scale is None:

@@ -182,31 +182,57 @@ def _check_kernel_inputs(name, x, weight, *others):
         raise ValueError(f"{name} kernel needs contiguous inputs")
 
 
-def rms_norm(x, weight, epsilon=1e-6, return_rstd=False):
-    """RMSNorm over the last axis; ``x`` (..., N), ``weight`` (N,).
-
-    CPU tensors run :func:`rms_norm_plain`; CUDA tensors launch the
-    kernel, or raise on a dtype, shape or layout it does not take. With
-    ``return_rstd`` also returns the per-row ``rsqrt(mean(x^2) + eps)``
-    that the backward takes. The result carries no autograd history on
-    the kernel path: differentiate through :class:`RMSNormFunction`."""
-    _check(x, weight)
-    if L.use_plain(x):
-        y, r = rms_norm_plain(x, weight, epsilon)
-        return (y, r) if return_rstd else y
+def _rms_norm_cuda(x: torch.Tensor, weight: torch.Tensor,
+                   epsilon: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1 as a custom op: ``(y, rstd)``. On CUDA tensors it launches the
+    kernel; on CPU tensors it is :func:`rms_norm_plain`."""
     _check_kernel_inputs("rms_norm", x, weight)
     n = x.shape[-1]
     rows = x.numel() // n if n else 0
     y = torch.empty_like(x)
-    r = (torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
-         if return_rstd else None)
-    lib = L.library()
-    status = lib.ptt_rms_norm(
-        x.data_ptr(), weight.data_ptr(), y.data_ptr(),
-        r.data_ptr() if r is not None else None, rows, n, float(epsilon),
-        _DTYPES[x.dtype], L.cuda_stream(x))
+    r = torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
+    status = L.library().ptt_rms_norm(
+        x.data_ptr(), weight.data_ptr(), y.data_ptr(), r.data_ptr(), rows,
+        n, float(epsilon), _DTYPES[x.dtype], L.cuda_stream(x))
     L.check_status("rms_norm", status)
     L.LAUNCHES["rms_norm"] += 1
+    return y, r
+
+
+_rms_norm_op = L.custom_op("rms_norm", _rms_norm_cuda)
+
+
+@_rms_norm_op.register_kernel("cpu")
+def _(x, weight, epsilon):
+    y, r = rms_norm_plain(x, weight, epsilon)
+    return y.contiguous(), r.contiguous()
+
+
+@_rms_norm_op.register_fake
+def _(x, weight, epsilon):
+    if x.device.type == "cuda":
+        _check_kernel_inputs("rms_norm", x, weight)
+    return (torch.empty_like(x, memory_format=torch.contiguous_format),
+            x.new_empty(x.shape[:-1], dtype=torch.float32))
+
+
+def rms_norm(x, weight, epsilon=1e-6, return_rstd=False):
+    """RMSNorm over the last axis; ``x`` (..., N), ``weight`` (N,).
+
+    Runs the custom op ``paddle_tpu_torch::rms_norm``: CUDA tensors
+    launch the kernel, or raise on a dtype, shape or layout it does not
+    take (also when traced); CPU tensors run :func:`rms_norm_plain`. With
+    ``return_rstd`` also returns the per-row ``rsqrt(mean(x^2) + eps)``
+    that the backward takes. The result carries no autograd history on
+    the kernel path: differentiate through :class:`RMSNormFunction`."""
+    _check(x, weight)
+    how = L.route(x, weight)
+    if how == "plain":
+        y, r = rms_norm_plain(x, weight, epsilon)
+    else:
+        fn = (_rms_norm_cuda if how == "kernel"
+              else torch.ops.paddle_tpu_torch.rms_norm.default)
+        y, r = fn(x, weight, float(epsilon))
     return (y, r) if return_rstd else y
 
 
@@ -224,25 +250,21 @@ def rms_norm_bwd_plain(x, weight, rstd, dy):
     return dx.reshape(x.shape).to(x.dtype), dw.to(weight.dtype)
 
 
-def rms_norm_bwd(x, weight, rstd, dy):
-    """RMSNorm backward: ``(dx, dw)`` from x (..., N), weight (N,), the
-    forward's ``rstd`` (x.shape[:-1], f32) and the upstream ``dy`` (like
-    x). CPU tensors run :func:`rms_norm_bwd_plain`; CUDA tensors launch
-    K6 as :func:`bwd_plan` plans it (a row pass writing dx and one dw
-    partial row per CTA, then a fixed-order reduction of the partials:
-    deterministic, no atomics) or raise."""
-    _check(x, weight)
-    if dy.shape != x.shape or rstd.shape != x.shape[:-1]:
-        raise ValueError(
-            f"rms_norm_bwd: dy {tuple(dy.shape)} and rstd "
-            f"{tuple(rstd.shape)} do not match x {tuple(x.shape)}")
-    if L.use_plain(x):
-        return rms_norm_bwd_plain(x, weight, rstd, dy)
+def _check_bwd_kernel_inputs(x, weight, rstd, dy):
     _check_kernel_inputs("rms_norm_bwd", x, weight, dy, rstd)
     if dy.dtype != x.dtype or rstd.dtype != torch.float32:
         raise TypeError(
             f"rms_norm_bwd kernel takes dy in x's dtype and f32 rstd, got "
             f"{dy.dtype} and {rstd.dtype}")
+
+
+def _rms_norm_bwd_cuda(x: torch.Tensor, weight: torch.Tensor,
+                       rstd: torch.Tensor,
+                       dy: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """K6 as a custom op: ``(dx, dw)``. On CUDA tensors it launches the
+    kernel as :func:`bwd_plan` plans it; on CPU tensors it is
+    :func:`rms_norm_bwd_plain`."""
+    _check_bwd_kernel_inputs(x, weight, rstd, dy)
     n = x.shape[-1]
     rows = x.numel() // n if n else 0
     dx = torch.empty_like(x)
@@ -259,6 +281,44 @@ def rms_norm_bwd(x, weight, rstd, dy):
     L.check_status("rms_norm_bwd", status)
     L.LAUNCHES["rms_norm_bwd"] += 1
     return dx, dw
+
+
+_rms_norm_bwd_op = L.custom_op("rms_norm_bwd", _rms_norm_bwd_cuda)
+
+
+@_rms_norm_bwd_op.register_kernel("cpu")
+def _(x, weight, rstd, dy):
+    dx, dw = rms_norm_bwd_plain(x, weight, rstd, dy)
+    return dx.contiguous(), dw.contiguous()
+
+
+@_rms_norm_bwd_op.register_fake
+def _(x, weight, rstd, dy):
+    if x.device.type == "cuda":
+        _check_bwd_kernel_inputs(x, weight, rstd, dy)
+    return (torch.empty_like(x, memory_format=torch.contiguous_format),
+            torch.empty_like(weight, memory_format=torch.contiguous_format))
+
+
+def rms_norm_bwd(x, weight, rstd, dy):
+    """RMSNorm backward: ``(dx, dw)`` from x (..., N), weight (N,), the
+    forward's ``rstd`` (x.shape[:-1], f32) and the upstream ``dy`` (like
+    x). Runs the custom op ``paddle_tpu_torch::rms_norm_bwd``: CUDA
+    tensors launch K6 as :func:`bwd_plan` plans it (a row pass writing dx
+    and one dw partial row per CTA, then a fixed-order reduction of the
+    partials: deterministic, no atomics) or raise; CPU tensors run
+    :func:`rms_norm_bwd_plain`."""
+    _check(x, weight)
+    if dy.shape != x.shape or rstd.shape != x.shape[:-1]:
+        raise ValueError(
+            f"rms_norm_bwd: dy {tuple(dy.shape)} and rstd "
+            f"{tuple(rstd.shape)} do not match x {tuple(x.shape)}")
+    how = L.route(x, weight, rstd, dy)
+    if how == "plain":
+        return rms_norm_bwd_plain(x, weight, rstd, dy)
+    fn = (_rms_norm_bwd_cuda if how == "kernel"
+          else torch.ops.paddle_tpu_torch.rms_norm_bwd.default)
+    return fn(x, weight, rstd, dy)
 
 
 class RMSNormFunction(torch.autograd.Function):

@@ -121,15 +121,26 @@ def varlen_flash_attention(q, k, v, cu_seqlens_q, cu_seqlens_k,
         raise ValueError("cu_seqlens_q and cu_seqlens_k must be (B+1,)")
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
-    if L.use_plain(q):
+    how = L.route(q, k, v)
+    if how == "plain":
         out, lse = varlen_flash_attention_plain(
             q, k, v, cu_seqlens_q, cu_seqlens_k, causal, sm_scale,
             window_size)
         return (out, lse) if return_lse else out
-    L.refuse_grad("varlen_flash_attention",
-                  "its backward K8 runs through "
-                  "VarlenFlashAttentionFunction, or F.flash_attn_unpadded",
-                  q, k, v)
+    if q.device.type == "cuda":
+        L.refuse_grad("varlen_flash_attention",
+                      "its backward K8 runs through "
+                      "VarlenFlashAttentionFunction, or F.flash_attn_unpadded",
+                      q, k, v)
+    fn = (_varlen_cuda if how == "kernel"
+          else torch.ops.paddle_tpu_torch.varlen_flash_attention.default)
+    out, lse = fn(q, k, v, cu_seqlens_q, cu_seqlens_k, bool(causal),
+                  float(sm_scale), int(window_size or 0))
+    return (out, lse) if return_lse else out
+
+
+def _fwd_kernel_check(q, k, v, cu_seqlens_q, cu_seqlens_k):
+    d = q.shape[-1]
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(
             f"varlen_flash_attention kernel takes float32 or bfloat16 q, k, "
@@ -148,6 +159,18 @@ def varlen_flash_attention(q, k, v, cu_seqlens_q, cu_seqlens_k,
                                            cu_seqlens_k)):
         raise ValueError("varlen_flash_attention kernel needs contiguous "
                          "inputs")
+
+
+def _varlen_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 cu_seqlens_q: torch.Tensor, cu_seqlens_k: torch.Tensor,
+                 causal: bool, sm_scale: float,
+                 window_size: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """K3 as a custom op: ``(out, lse)`` (``window_size`` 0: no window).
+    On CUDA tensors it launches the kernel; on CPU tensors it is
+    :func:`varlen_flash_attention_plain`."""
+    _fwd_kernel_check(q, k, v, cu_seqlens_q, cu_seqlens_k)
+    tq, h, d = q.shape
+    tk, hk = k.shape[0], k.shape[1]
     out = torch.empty_like(q)
     lse = torch.empty((h, tq), dtype=torch.float32, device=q.device)
     order = _order_scratch(tq, q)
@@ -155,14 +178,33 @@ def varlen_flash_attention(q, k, v, cu_seqlens_q, cu_seqlens_k,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), cu_seqlens_q.data_ptr(),
         cu_seqlens_k.data_ptr(), order.data_ptr(), out.data_ptr(),
         lse.data_ptr(), tq, tk,
-        cu_seqlens_q.shape[0] - 1, h, hk, d, int(bool(causal)),
-        int(window_size or 0), float(sm_scale), _DTYPES[q.dtype],
-        L.cuda_stream(q))
+        cu_seqlens_q.shape[0] - 1, h, hk, d, int(causal), window_size,
+        sm_scale, _DTYPES[q.dtype], L.cuda_stream(q))
     name = ("varlen_flash_attention_f32" if q.dtype == torch.float32
             else "varlen_flash_attention")
     L.check_status(name, status)
     L.LAUNCHES[name] += 1
-    return (out, lse) if return_lse else out
+    return out, lse
+
+
+_varlen_op = L.custom_op("varlen_flash_attention", _varlen_cuda)
+
+
+@_varlen_op.register_kernel("cpu")
+def _(q, k, v, cu_seqlens_q, cu_seqlens_k, causal, sm_scale, window_size):
+    out, lse = varlen_flash_attention_plain(
+        q, k, v, cu_seqlens_q, cu_seqlens_k, causal, sm_scale,
+        window_size or None)
+    return out.contiguous(), lse.contiguous()
+
+
+@_varlen_op.register_fake
+def _(q, k, v, cu_seqlens_q, cu_seqlens_k, causal, sm_scale, window_size):
+    if q.device.type == "cuda":
+        _fwd_kernel_check(q, k, v, cu_seqlens_q, cu_seqlens_k)
+    tq, h, _ = q.shape
+    return (torch.empty_like(q, memory_format=torch.contiguous_format),
+            q.new_empty((h, tq), dtype=torch.float32))
 
 
 def varlen_flash_attention_bwd_delta(out, do):
@@ -207,8 +249,8 @@ def varlen_flash_attention_bwd_plain(q, k, v, out, lse, do, cu_seqlens_q,
             dv.to(v.dtype))
 
 
-def _bwd_launch_args(q, k, v, do, lse, delta, cu_seqlens_q, cu_seqlens_k,
-                     causal, sm_scale, window_size):
+def _bwd_check(q, k, v, do, lse, delta, cu_seqlens_q, cu_seqlens_k, causal,
+               window_size):
     if window_size is not None and not causal:
         raise ValueError("window_size requires causal=True")
     tq, h, d = q.shape
@@ -245,6 +287,15 @@ def _bwd_launch_args(q, k, v, do, lse, delta, cu_seqlens_q, cu_seqlens_k,
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("varlen_flash_attention backward kernels need "
                          "contiguous inputs")
+    return tensors
+
+
+def _bwd_launch_args(q, k, v, do, lse, delta, cu_seqlens_q, cu_seqlens_k,
+                     causal, sm_scale, window_size):
+    tensors = _bwd_check(q, k, v, do, lse, delta, cu_seqlens_q, cu_seqlens_k,
+                         causal, window_size)
+    tq, h, d = q.shape
+    tk, hk = k.shape[0], k.shape[1]
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
     ptrs = tuple(t.data_ptr() for t in tensors)
@@ -535,20 +586,17 @@ class VarlenBwdSchedule:
         return self.launch_sizes(self.tq, self.h, d)[0]
 
 
-def varlen_flash_attention_bwd_fused(q, k, v, do, lse, delta, cu_seqlens_q,
-                                     cu_seqlens_k, causal=False,
-                                     sm_scale=None, window_size=None):
-    """K8: ``(dq, dk, dv)`` in one launch of the fused backward kernel,
-    from the forward's ``lse`` and ``delta``
-    (:func:`varlen_flash_attention_bwd_delta`); dk and dv are each KV
-    head's sum over the query heads of its group. CPU tensors run the
-    plain backward; CUDA tensors launch the bf16 kernel (counted as
-    ``varlen_flash_attention_bwd``) or the f32 one
-    (``varlen_flash_attention_bwd_f32``)."""
-    if L.use_plain(q):
-        return varlen_flash_attention_bwd_plain(
-            q, k, v, None, lse, do, cu_seqlens_q, cu_seqlens_k, causal,
-            sm_scale, window_size, delta)
+def _varlen_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     do: torch.Tensor, lse: torch.Tensor,
+                     delta: torch.Tensor, cu_seqlens_q: torch.Tensor,
+                     cu_seqlens_k: torch.Tensor, causal: bool,
+                     sm_scale: float,
+                     window_size: int) -> tuple[torch.Tensor, torch.Tensor,
+                                                torch.Tensor]:
+    """K8 as a custom op: ``(dq, dk, dv)`` (``window_size`` 0: no
+    window). On CUDA tensors it launches the fused kernel; on CPU tensors
+    it is :func:`varlen_flash_attention_bwd_plain`."""
+    window_size = window_size or None
     ptrs, dims = _bwd_launch_args(q, k, v, do, lse, delta, cu_seqlens_q,
                                   cu_seqlens_k, causal, sm_scale, window_size)
     tq, tk, h, d = q.shape[0], k.shape[0], q.shape[1], q.shape[2]
@@ -573,6 +621,50 @@ def varlen_flash_attention_bwd_fused(q, k, v, do, lse, delta, cu_seqlens_q,
     return dq, dk, dv
 
 
+_varlen_bwd_op = L.custom_op("varlen_flash_attention_bwd", _varlen_bwd_cuda)
+
+
+@_varlen_bwd_op.register_kernel("cpu")
+def _(q, k, v, do, lse, delta, cu_seqlens_q, cu_seqlens_k, causal, sm_scale,
+      window_size):
+    return tuple(t.contiguous() for t in varlen_flash_attention_bwd_plain(
+        q, k, v, None, lse, do, cu_seqlens_q, cu_seqlens_k, causal,
+        sm_scale, window_size or None, delta))
+
+
+@_varlen_bwd_op.register_fake
+def _(q, k, v, do, lse, delta, cu_seqlens_q, cu_seqlens_k, causal, sm_scale,
+      window_size):
+    if q.device.type == "cuda":
+        _bwd_check(q, k, v, do, lse, delta, cu_seqlens_q, cu_seqlens_k,
+                   causal, window_size or None)
+    return tuple(torch.empty_like(t, memory_format=torch.contiguous_format)
+                 for t in (q, k, v))
+
+
+def varlen_flash_attention_bwd_fused(q, k, v, do, lse, delta, cu_seqlens_q,
+                                     cu_seqlens_k, causal=False,
+                                     sm_scale=None, window_size=None):
+    """K8: ``(dq, dk, dv)`` in one launch of the fused backward kernel,
+    from the forward's ``lse`` and ``delta``
+    (:func:`varlen_flash_attention_bwd_delta`); dk and dv are each KV
+    head's sum over the query heads of its group. CPU tensors run the
+    plain backward; CUDA tensors launch the bf16 kernel (counted as
+    ``varlen_flash_attention_bwd``) or the f32 one
+    (``varlen_flash_attention_bwd_f32``)."""
+    how = L.route(q, k, v, do)
+    if how == "plain":
+        return varlen_flash_attention_bwd_plain(
+            q, k, v, None, lse, do, cu_seqlens_q, cu_seqlens_k, causal,
+            sm_scale, window_size, delta)
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    fn = (_varlen_bwd_cuda if how == "kernel"
+          else torch.ops.paddle_tpu_torch.varlen_flash_attention_bwd.default)
+    return fn(q, k, v, do, lse, delta, cu_seqlens_q, cu_seqlens_k,
+              bool(causal), float(sm_scale), int(window_size or 0))
+
+
 def varlen_flash_attention_bwd_dq(q, k, v, do, lse, delta, cu_seqlens_q,
                                   cu_seqlens_k, causal=False, sm_scale=None,
                                   window_size=None):
@@ -580,7 +672,7 @@ def varlen_flash_attention_bwd_dq(q, k, v, do, lse, delta, cu_seqlens_q,
     (:func:`varlen_flash_attention_bwd_delta`). CPU tensors run the plain
     backward; CUDA tensors launch the fused K8 (which also computes dk and
     dv) or raise."""
-    if L.use_plain(q):
+    if L.route(q, k, v, do) == "plain":
         return varlen_flash_attention_bwd_plain(
             q, k, v, None, lse, do, cu_seqlens_q, cu_seqlens_k, causal,
             sm_scale, window_size, delta)[0]
@@ -595,7 +687,7 @@ def varlen_flash_attention_bwd_dkv(q, k, v, do, lse, delta, cu_seqlens_q,
     """``(dk, dv)`` (like k, v), each KV head's sum over the query heads
     of its group. CPU tensors run the plain backward; CUDA tensors launch
     the fused K8 or raise."""
-    if L.use_plain(q):
+    if L.route(q, k, v, do) == "plain":
         return varlen_flash_attention_bwd_plain(
             q, k, v, None, lse, do, cu_seqlens_q, cu_seqlens_k, causal,
             sm_scale, window_size, delta)[1:]
@@ -614,7 +706,7 @@ def varlen_flash_attention_bwd(q, k, v, out, lse, do, cu_seqlens_q,
     if out.shape != q.shape:
         raise ValueError(f"varlen_flash_attention_bwd: out "
                          f"{tuple(out.shape)} for q {tuple(q.shape)}")
-    if L.use_plain(q):
+    if L.route(q, k, v, do) == "plain":
         return varlen_flash_attention_bwd_plain(
             q, k, v, out, lse, do, cu_seqlens_q, cu_seqlens_k, causal,
             sm_scale, window_size)

@@ -10,7 +10,7 @@ logits there (a full eager forward of the shared prefix: the top three
 ids and values, so a parting at a near-tie shows as one).
 
     python scripts/torch_c11_repeat.py [N] [--keep-tickets]
-        [--variant own_streams|sequential|no_prefix|eager|own_models|record[,...]]
+        [--variant own_streams|sequential|no_prefix|eager|own_models|record|mem_pools|sync_mixed|graph_tickets|keep_cache[,...]]
         [--own-models] [--record]
 
 Runs the test's body N times (default 20) in one process, each with its
@@ -38,7 +38,19 @@ block-table row, the batch's rows and tokens) and, for each row that takes
 a token there, its logits; a parted stream then reports the first mixed
 step whose inputs differ between the arms, and for each token the arms
 both took in a mixed step, the largest logit difference between them and
-from a full eager forward of the shared prefix. Prints one JSON line a run
+from a full eager forward of the shared prefix, and the request's pool
+rows after each mixed step (every layer's K and V at every cached
+position, gathered on the card with no host sync), diffed between the
+arms after the run: the first differing step, layer, position and
+blocks. ``mem_pools`` gives each replica's engine (its KV
+pools) its own caching-allocator pool (``torch.cuda.MemPool``): a
+replica that writes memory the other's pools hold parts with one shared
+pool and not with two. ``sync_mixed`` synchronizes the card after every
+mixed forward. ``graph_tickets`` gives each captured graph a K2 ticket
+buffer of its own (made and zeroed inside its capture) while the
+replicas still capture on one stream; ``keep_cache`` makes
+``torch.cuda.empty_cache`` (which every capture calls first) do nothing.
+Prints one JSON line a run
 (pass or the assertion, the buffers made, made inside a capture, the
 plans) and a summary line.
 """
@@ -83,18 +95,21 @@ def _recorder(engine, log):
 
     def rec_forward(model, pool, tables, rotary, enc_lens, dec_lens,
                     this_time, ids):
+        out = forward(model, pool, tables, rotary, enc_lens, dec_lens,
+                      this_time, ids)
         if model is engine.model:
             rows = engine.scheduler.prefilling() + engine.scheduler.decoding()
             cu = np.concatenate([[0], np.cumsum(this_time)]).astype(int)
             for i, r in enumerate(rows):
+                table = [int(b) for b in tables[i]]
                 log.setdefault(r.req_id, []).append({
                     "ids": [int(t) for t in ids[cu[i]:cu[i + 1]]],
                     "enc": int(enc_lens[i]), "dec": int(dec_lens[i]),
-                    "n": int(this_time[i]),
-                    "table": [int(b) for b in tables[i]],
-                    "batch_rows": len(rows), "batch_tokens": int(cu[-1])})
-        return forward(model, pool, tables, rotary, enc_lens, dec_lens,
-                       this_time, ids)
+                    "n": int(this_time[i]), "table": table,
+                    "batch_rows": len(rows), "batch_tokens": int(cu[-1]),
+                    "kv": _pool_rows(pool, table,
+                                     int(dec_lens[i]) + int(this_time[i]))})
+        return out
 
     def rec_select(logits, slots, steps):
         out = select(logits, slots, steps)
@@ -109,6 +124,54 @@ def _recorder(engine, log):
 
     engine._mixed_forward = rec_forward
     engine._select = rec_select
+
+
+def _pool_rows(pool, table, n):
+    """The request's pool rows at positions ``[0, n)`` after a mixed step:
+    (layers, 2, n, HK, D) (K then V), with each position's block id. The
+    rows are gathered on the card, in stream order, and stay there: no
+    host sync (one takes the parting away); :func:`_first_pool_diff`
+    reads them after the run."""
+    import torch
+
+    dev = pool.k_pools[0].device
+    bs = pool.block_size
+    # a pinned source: a copy from pageable memory would sync the stream
+    tab = torch.tensor(table, dtype=torch.long).pin_memory().to(
+        dev, non_blocking=True)
+    pos = torch.arange(n, device=dev)
+    b, o = tab[pos // bs], pos % bs
+    rows = torch.stack([torch.stack([k[b, o], v[b, o]]) for k, v in
+                        zip(pool.k_pools, pool.v_pools)])
+    return {"rows": rows, "blocks": [table[p // bs] for p in range(n)]}
+
+
+def _first_pool_diff(a, b, upto):
+    """The first pool row that differs between two arms' snapshots of one
+    request, over the mixed steps both arms ran at one position (by the
+    cached length before the step) before ``upto``: the step, the layer,
+    K or V, the position, each arm's block, and the largest difference
+    there; or None. Rows written by decode quanta in between show in the
+    next mixed step's snapshot."""
+    xa = {e["dec"]: e for e in a if e["dec"] < upto and "kv" in e}
+    xb = {e["dec"]: e for e in b if e["dec"] < upto and "kv" in e}
+    for dec in sorted(set(xa) & set(xb)):
+        ra, rb = xa[dec]["kv"], xb[dec]["kv"]
+        n = min(ra["rows"].shape[2], rb["rows"].shape[2])
+        diff = (ra["rows"][:, :, :n].cpu()
+                - rb["rows"][:, :, :n].cpu()).abs()
+        if bool((diff > 0).any()):
+            per_pos = diff.amax(dim=(0, 1, 3, 4))
+            pos = int((per_pos > 0).nonzero()[0])
+            layer, kv = [int(i) for i in
+                         (diff[:, :, pos].amax(dim=(2, 3)) > 0).nonzero()[0]]
+            return {"step_cached_len": dec, "layer": layer,
+                    "kv": "kv"[kv], "position": pos,
+                    "blocks": [ra["blocks"][pos], rb["blocks"][pos]],
+                    "max_abs_diff": float(diff.max()),
+                    "positions_differing": int((per_pos > 0).sum()),
+                    "of_positions": n}
+    return None
 
 
 def _first_input_diff(a, b, upto):
@@ -174,14 +237,42 @@ def _body(T, torch, dev, mp, variant=()):
         m.load_state_dict(model.state_dict())
         return m
 
+    def replica(i, n, own):
+        engine = create_serving_engine(
+            own_model() if own else model,
+            prefix_cache="no_prefix" not in variant, **T._GRAPH_KW)
+        return ClusterReplica(f"r{i}", engine, policy=no_shed_policy())
+
+    def synced(fn):
+        def run(*a, **k):
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            return out
+        return run
+
+    def in_pool(pool, fn):
+        def run(*a, **k):
+            with torch.cuda.use_mem_pool(pool):
+                return fn(*a, **k)
+        return run
+
     def run(n):
         if "poison" in variant:
             poison()
         own = "own_models" in variant and n > 1
-        reps = [ClusterReplica(f"r{i}", create_serving_engine(
-            own_model() if own else model,
-            prefix_cache="no_prefix" not in variant, **T._GRAPH_KW),
-            policy=no_shed_policy()) for i in range(n)]
+        if "mem_pools" in variant:
+            # each replica's engine (its KV pools) allocated from a
+            # caching-allocator pool of its own; the steps allocate from
+            # the shared one (a capture may not run under a MemPool)
+            pools = [torch.cuda.MemPool() for _ in range(n)]
+            reps = [in_pool(p, replica)(i, n, own)
+                    for i, p in enumerate(pools)]
+        else:
+            pools = None
+            reps = [replica(i, n, own) for i in range(n)]
+        if "sync_mixed" in variant:
+            for rep in reps:
+                rep.engine._mixed_forward = synced(rep.engine._mixed_forward)
         logs = {}
         for rep in reps:
             rep.engine._eager = "eager" in variant
@@ -223,7 +314,7 @@ def _body(T, torch, dev, mp, variant=()):
                  for name, s in zip(by, streams)]
         return ([list(s.result()) for s in streams],
                 {"served_by": by, "graphs": graphs, "own_models": own,
-                 "mixed_steps": steps})
+                 "mixed_steps": steps, "mem_pools": pools})
 
     want, one = run(1)
     want2, one2 = run(1)
@@ -272,6 +363,7 @@ def _diff_records(parted, prompts, one, two):
             continue
         upto = len(prompts[p["stream"]]) + p["token"]
         p["first_input_diff"] = _first_input_diff(a, b, upto)
+        p["first_pool_diff"] = _first_pool_diff(a, b, upto)
         p["logit_diffs"] = _logit_diffs(a, b, eager)
         p["mixed_step_tokens"] = [[e.get("token_index") for e in a],
                                   [e.get("token_index") for e in b]]
@@ -303,7 +395,34 @@ def main():
     made, plans = [], set()
     tickets_for, plan_for = split_decode.tickets_for, split_decode.plan_for
 
+    if "keep_cache" in variant:
+        # no capture releases the allocator's cached blocks to the driver
+        torch.cuda.empty_cache = lambda: None
+    capturing = {"step": None}
+    graph_tickets = {}
+    if "graph_tickets" in variant:
+        from paddle_tpu_torch import _graphs
+
+        capture = _graphs.CapturedStep.capture
+
+        def own_capture(self):
+            capturing["step"] = id(self)
+            try:
+                return capture(self)
+            finally:
+                capturing["step"] = None
+
+        _graphs.CapturedStep.capture = own_capture
+
     def traced_tickets(device, stream, pairs):
+        if capturing["step"] is not None:
+            # this capture's own buffer, made (and zeroed) inside it
+            key = (capturing["step"],) + split_decode.ticket_key(
+                device.index, stream, pairs)
+            if key not in graph_tickets:
+                graph_tickets[key] = torch.zeros(key[-1], dtype=torch.int32,
+                                                 device=device)
+            return graph_tickets[key]
         if "fresh_tickets" in variant:
             return torch.zeros(split_decode.ticket_key(
                 device.index, stream, pairs)[2], dtype=torch.int32,
@@ -349,6 +468,7 @@ def main():
                     p.pop("eager_logits")
             for arm in ("one_replica", "one_replica_again", "two_replicas"):
                 streams[arm].pop("mixed_steps")
+                streams[arm].pop("mem_pools", None)
             result = ("pass" if not parted else
                       f"parted {[(p['stream'], p['token']) for p in parted]}")
             failures += bool(parted)

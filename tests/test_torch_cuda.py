@@ -2497,3 +2497,111 @@ def test_cuda_device_module_streams_events_and_memory(cuda):
     assert float(y.sum()) == 2 * x.numel()
     assert dev.cuda.Stream is dev.Stream and ev.query()
     dev.empty_cache()
+
+
+def _static_llama(cuda):
+    """A small Llama at head width 128 (hidden 256, 2 heads, 1 KV head) in
+    bf16: its attention reaches K4 / K7, its norms K1 / K6."""
+    cfg = LlamaConfig.tiny(tensor_parallel=False, hidden_size=256,
+                           num_attention_heads=2, num_key_value_heads=1,
+                           dtype="bfloat16")
+    model = LlamaForCausalLM(cfg, generator=torch.Generator(
+        device=cuda).manual_seed(0))
+    ids = torch.randint(0, cfg.vocab_size, (2, 128), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(1))
+    return model, ids
+
+
+def _counts():
+    return {k: v for k, v in ops.LAUNCHES.items() if v}
+
+
+@pytest.mark.cuda
+def test_cuda_custom_op_launches_under_to_static_equal_eager(cuda):
+    """The kernels' custom ops count real launches: a to_static forward
+    and train step launch what the eager ones launch, and the compiled
+    forward under plain_versions() (a recompile) launches nothing."""
+    from paddle_tpu_torch import jit
+
+    model, ids = _static_llama(cuda)
+    with torch.no_grad():
+        ops.reset_launches()
+        eager = model(ids)
+        eager_fwd = _counts()
+    ops.reset_launches()
+    model(ids).float().square().mean().backward()
+    eager_step = _counts()
+    assert eager_fwd == {"rms_norm": 5, "flash_attention": 2}
+    assert eager_step == {**eager_fwd, "rms_norm_bwd": 5,
+                          "flash_attention_bwd": 2}
+    jit.to_static(model)
+    with torch.no_grad():
+        ops.reset_launches()
+        out = model(ids)
+        assert _counts() == eager_fwd
+        with ops.plain_versions():
+            ops.reset_launches()
+            plain = model(ids)
+            assert _counts() == {}
+    ops.reset_launches()
+    model(ids).float().square().mean().backward()
+    assert _counts() == eager_step
+    assert model.forward.graph_breaks == []
+    torch.testing.assert_close(out.float(), eager.float(), atol=6e-2,
+                               rtol=2e-2)
+    torch.testing.assert_close(plain.float(), out.float(), atol=6e-2,
+                               rtol=2e-2)
+
+
+@pytest.mark.cuda
+def test_cuda_llama_jit_save_predictor_round_trip_equals_eager(cuda,
+                                                               tmp_path):
+    from paddle_tpu_torch import inference, jit
+    from paddle_tpu_torch.static import InputSpec
+
+    model, ids = _static_llama(cuda)
+    with torch.no_grad():
+        eager = model(ids).float().cpu().numpy()
+    prefix = str(tmp_path / "llama")
+    jit.save(model, prefix, input_spec=[InputSpec([None, None], "int64")])
+    pred = inference.create_predictor(inference.Config(prefix))
+    ops.reset_launches()
+    (logits,) = pred.run([ids.cpu().numpy()])
+    assert _counts() == {"rms_norm": 5, "flash_attention": 2}
+    np.testing.assert_allclose(logits, eager, atol=2e-2, rtol=2e-2)
+    loaded = jit.load(prefix)
+    assert loaded._device.type == "cuda"
+    short = ids[:1, :64].contiguous()
+    with torch.no_grad():
+        want = model(short).float()
+    torch.testing.assert_close(loaded(short).float(), want, atol=2e-2,
+                               rtol=2e-2)
+
+
+@pytest.mark.cuda
+def test_cuda_decode_kernels_refuse_jit_save(cuda, tmp_path):
+    """K2 and K5 are not custom ops yet: a jit.save of a Layer that
+    reaches them raises, naming the ROADMAP item."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.static import InputSpec
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    cache = _rnd(g, torch.bfloat16, 2, 64, 2, 128)
+    lens = torch.tensor([3, 64], dtype=torch.int32, device=cuda)
+    pool = _rnd(g, torch.bfloat16, 4, 32, 2, 128)
+    tables = torch.tensor([[0, 1], [2, 3]], dtype=torch.int32, device=cuda)
+
+    class K5(torch.nn.Module):
+        def forward(self, q):
+            return ops.decode_attention(q, cache, cache, lens)
+
+    class K2(torch.nn.Module):
+        def forward(self, q):
+            return ops.paged_decode_attention(q, pool, pool, tables, lens)
+
+    for layer in (K5(), K2()):
+        with torch.no_grad():
+            layer(_rnd(g, torch.bfloat16, 2, 4, 128))  # eager runs
+        with pytest.raises(Exception, match="K2 / K5 as custom ops"):
+            jit.save(layer, str(tmp_path / type(layer).__name__),
+                     input_spec=[InputSpec([2, 4, 128], "bfloat16")])

@@ -382,9 +382,6 @@ _REFUSALS = {
     "tp": (lambda m: ServingEngine(m, tp=2, device="cpu"), "A7"),
     "cost_model": (lambda m: ServingEngine(m, cost_model=True,
                                            device="cpu"), "A8"),
-    "config": (lambda m: inference.Config("model"), "A9"),
-    "predictor": (lambda m: inference.Predictor(None), "A9"),
-    "create_predictor": (lambda m: inference.create_predictor(None), "A9"),
 }
 
 

@@ -107,7 +107,21 @@ def test_distributed_batch_sampler_equal_at_every_rank(shuffle, drop_last):
     assert (one.nranks, one.local_rank) == (1, 0)
 
 
-def test_native_permutation_and_random_sampler_at_70000():
+@pytest.fixture
+def own_ref_native(tmp_path, monkeypatch):
+    """The reference's native io core built by its own ``_try_build`` into
+    this test's directory and bound for this test alone. The reference's
+    loader otherwise binds the shared ``~/.cache/paddle_tpu`` build, which
+    another test process may be writing at that moment (a half-written
+    library fails to bind, and the loader remembers the failure for the
+    life of its process)."""
+    built = ref_native._try_build(str(tmp_path / "libpaddle_tpu_io.so"))
+    assert built is not None, "g++ could not build csrc/paddle_tpu_io.cc"
+    monkeypatch.setattr(ref_native, "_LIB", ref_native._bind(built))
+    monkeypatch.setattr(ref_native, "_TRIED", True)
+
+
+def test_native_permutation_and_random_sampler_at_70000(own_ref_native):
     assert ref_native.lib() is not None, "the reference's native io core"
     for seed in (0, 12345, 2**31 - 2):
         np.testing.assert_array_equal(_native.shuffle_indices(70000, seed),

@@ -316,3 +316,48 @@ def test_no_test_left_a_place_set():
     from paddle_tpu_torch.core import place
 
     assert place._current is None
+
+
+def test_static_and_deployment_modules_import_neither_jax_nor_reference(
+        tmp_path):
+    out = _run("import sys, paddle_tpu_torch, paddle_tpu_torch.jit, "
+               "paddle_tpu_torch.static, paddle_tpu_torch.static.nn, "
+               "paddle_tpu_torch.inference, paddle_tpu_torch.inference.capi; "
+               "print(sorted(m for m in sys.modules if m == 'jax' or "
+               "m.startswith(('jax.', 'jaxlib')) or m == 'paddle_tpu' or "
+               "m.startswith('paddle_tpu.')))", tmp_path)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_c_inference_api_embeds_only_the_port():
+    """The C API's source imports the port's modules (and numpy) into
+    its interpreter, nothing of jax or the reference; its header is the
+    port's own copy."""
+    import re
+
+    capi = PORT / "csrc" / "capi"
+    src = (capi / "paddle_tpu_torch_infer_capi.cc").read_text()
+    mods = set(re.findall(r'PyImport_ImportModule\("([^"]+)"\)', src))
+    assert mods == {"paddle_tpu_torch.inference", "numpy"}, mods
+    assert '#include "paddle_tpu_torch_infer_capi.h"' in src
+    assert (capi / "paddle_tpu_torch_infer_capi.h").is_file()
+
+
+def test_saved_program_for_the_card_needs_cuda(tmp_path, monkeypatch):
+    """A program saved from the card loads only where CUDA is: no quiet
+    run on the CPU."""
+    from paddle_tpu_torch import inference, jit
+    from paddle_tpu_torch.static import InputSpec
+
+    net = torch.nn.Linear(4, 2)
+    prefix = str(tmp_path / "m")
+    jit.save(net, prefix, input_spec=[InputSpec([2, 4])])
+    blob = torch.load(prefix + ".pdiparams", weights_only=True)
+    blob["device"] = "cuda:0"
+    torch.save(blob, prefix + ".pdiparams")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        jit.load(prefix)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        inference.create_predictor(inference.Config(prefix))

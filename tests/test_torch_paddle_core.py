@@ -21,7 +21,7 @@ MANIFESTS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "manifests")
 # every stand-in among the manifests' names, with its ROADMAP item
 STAND_INS = {
-    "top_level.txt": {"enable_static": "A9"},
+    "top_level.txt": {},
     "linalg.txt": {"to_jax_dtype": "A9", "cholesky_fn": "A9"},
 }
 
