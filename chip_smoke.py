@@ -416,6 +416,38 @@ Phases (any failure raises and the script exits non-zero):
     and its clone's (a second thread) equal the Python Predictor's at the
     client's precision flags (torch's defaults) within f32's tolerance.
     ``scripts/torch_static_phase.py`` runs this phase alone.
+25. the manifest tier (``manifest_phase``, last; every record beside the
+    card's name and power limit): (a) K2 and K5 as custom ops in graphs,
+    Llama-2-7B's widths in bf16 at ``STATIC_LAYERS`` layers: the
+    contiguous-cache decode step (K5; 8 rows, a 1,024-token cache, at
+    positions 512 and 1,023) and phase 3's engine's paged decode math
+    over its pool (K2, float and w8kv8's per-row int8 mode; 8 rows of
+    512-1,024 cached tokens), each through ``torch._dynamo.explain``
+    (one graph, no break) and ``jit.to_static`` (inductor): launches as
+    eager's, outputs within phase 2's bf16 bound or 2^-5 relative L2 of
+    eager's and of the same compiled function under ``plain_versions()``
+    (which launches nothing); ``jit.save`` and a Predictor of the K5 step
+    (its caches buffers the program mutates), its logits against eager's;
+    no eager K5 call and no eager or captured engine quantum through the
+    dispatcher (profiler op events), phase 13's captured quantum beside
+    the recorded one (``RECORDED_QUANTUM_MS``); (b)
+    ``flash_attn_qkvpacked`` at (1, 4,096, 3, 32, 128), causal, bf16: K4
+    and K7 once each, against ``plain_versions()`` at phase 2's bounds;
+    (c) the large PTB LSTM of Zaremba et al. 2014 (2 x 1,500, vocabulary
+    10,000, 35 steps, batch 20), f32: AdamW steps
+    (dropout off) held against the port's CPU run of the same weights,
+    timed steps with the paper's dropout 0.65; a bidirectional 2-layer
+    GRU and a SimpleRNN forward at the same width against the CPU; (d)
+    ``signal.stft`` / ``istft`` at Whisper's front end (8 x 30 s of 16
+    kHz audio, n_fft 400, hop 160, Hann) and ``fft.rfft`` / ``fft2`` /
+    ``irfftn`` on (8, 256, 256), against the CPU; (e) ``affine_grid`` +
+    ``grid_sample`` at (32, 3, 224, 224) and ``unfold`` / ``fold`` at
+    (8, 64, 56, 56) with a 3 x 3 kernel, forward and backward, against
+    the CPU; (f) ``sparse.matmul`` of a (4,096, 4,096) COO matrix at 1%
+    by (4,096, 512), forward and backward, against ``to_dense()`` and a
+    product. f32 results within ``MANIFEST_F32_BOUND`` (max |card - cpu|
+    over max |cpu|). ``scripts/torch_manifest_phase.py`` runs this phase
+    alone.
 
 The line before the last is the ``{"kernels": [...]}`` record (each
 kernel's launches come from the run of the path that carries it: K1-K3
@@ -432,8 +464,10 @@ cached float and int8-KV runs, phase 16's ``frontdoor``, phase 17's
 ``ernie_engine``, ``transformer_train``, ``transformer_decode`` and
 ``t5_train``, phase 22's ``fleet``, phase 23's ``tensor_api`` (no
 hand-written kernel: all zero), phase 24's ``static_train`` (the
-to_static train step), ``static_predictor`` and ``static_resnet``
-among them; K4's and K7's fp16
+to_static train step), ``static_predictor`` and ``static_resnet``,
+phase 25's ``manifest_k5_step``, ``manifest_k5_predictor``,
+``manifest_k2_float``, ``manifest_k2_w8kv8`` (the compiled calls, each
+counted from zero) and ``manifest_qkvpacked`` among them; K4's and K7's fp16
 arms take theirs from phase 18 (c));
 the last
 line is ``{"ok": true, "device": {...}}``.
@@ -618,6 +652,41 @@ STATIC_TIMED = 5
 SAMPLING = dict(decode_strategy="sampling", top_k=50, top_p=0.9,
                 temperature=0.8)
 
+
+# phase 25: (a) K2 and K5 in graphs at STATIC_LAYERS layers of Llama-2-7B's
+# widths in bf16: the contiguous-cache decode step over (rows, cache
+# length) at each of the positions, and phase 3's engine's paged decode
+# math over its pool with the rows' cached tokens drawn in the range
+MANIFEST_DECODE = (8, 1024, (512, 1023))
+MANIFEST_PAGED_LENS = (512, 1024)
+# the captured decode quantum at phase 3's knobs as PERF.md §6 records it
+# before K2 / K5 became custom ops (wall ms a dispatch, NVIDIA H100 80GB
+# HBM3, 700 W)
+RECORDED_QUANTUM_MS = (63.2, 66.7)
+# (b) flash_attn_qkvpacked at phase 7's attention shape (B, S, H, D)
+QKVPACKED_SHAPE = (1, 4096, 32, 128)
+# (c) the large PTB LSTM of Zaremba, Sutskever and Vinyals 2014
+# (arXiv:1409.2329): layers, hidden, vocabulary, unrolled steps, batch,
+# dropout; AdamW at PTB_LR; PTB_STEPS = (steps held against the CPU with
+# dropout off, timed steps with the paper's dropout)
+PTB_LARGE = (2, 1500, 10000, 35, 20, 0.65)
+PTB_LR = 1e-3
+PTB_STEPS = (3, 3)
+# (d) Whisper's audio front end (whisper/audio.py): batch, samples (30 s
+# at 16 kHz), n_fft, hop; and the (B, H, W) field of the transforms
+WHISPER_AUDIO = (8, 480000, 400, 160)
+FFT_FIELD = (8, 256, 256)
+# (e) the grid ops at ResNet-50's input, unfold / fold with a 3 x 3 kernel
+GRID_SHAPE = (32, 3, 224, 224)
+FOLD_SHAPE = (8, 64, 56, 56, 3)
+# (f) a COO matrix (M, K) at this density times a dense (K, N)
+SPARSE_SHAPE = (4096, 4096, 0.01, 512)
+# f32 results on the card against the port's CPU run of the same inputs
+# and weights: max |card - cpu| / max |cpu| (summation orders only: cuBLAS,
+# cuFFT and atomics against the CPU's; the LSTM's losses after AdamW
+# steps, where an update's sign follows a gradient's last bits, 1e-4
+# relative each)
+MANIFEST_F32_BOUND = 1e-4
 
 _T0 = time.perf_counter()
 
@@ -2306,6 +2375,7 @@ def _train_ids(torch, dev, vocab, b, s):
 
 TRAIN_RECORD = {}  # phase 7's losses and speed, for phase 22
 RESNET_RECORD = {}  # phase 20's ResNet-50 speed, for phase 23
+QUANTUM_RECORD = {}  # phase 13's decode dispatch timing, for phase 25
 
 
 def train_phase(torch, dev):
@@ -3248,6 +3318,7 @@ def graphs_serving_phase(torch, dev, smi):
           "runs": {f"{n}_{'eager' if e else 'captured'}":
                    {k: v for k, v in r.items() if k != "streams"}
                    for (n, e), r in runs.items()}})
+    QUANTUM_RECORD.update(timing)
     for name, rec in timing.items():
         emit({"phase": "graphs_llama2_7b_decode_dispatch", "engine": name,
               **rec})
@@ -8065,6 +8136,607 @@ def static_phase(torch, dev, smi):
             "static_resnet": resnet}
 
 
+# ------------------------------------------------------------ phase 25
+def _dispatched(torch, fn):
+    """Calls of the port's custom ops that went through the dispatcher
+    while ``fn`` ran (the profiler's op events named
+    ``paddle_tpu_torch::...``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.name.startswith("paddle_tpu_torch::"))
+
+
+def _graph_check(torch, ops, name, fn, args, want):
+    """``torch._dynamo.explain`` (no break, one graph), then ``to_static``
+    of ``fn``: its launches against ``want`` (as eager's), its outputs
+    against eager's (phase 2's bf16 bound, or ``KERNEL_PATH_BOUND``
+    relative L2) and against the same compiled function under
+    ``plain_versions()`` (no launch, within ``KERNEL_PATH_BOUND``).
+    ``args`` is a list of argument tuples, run in turn. Returns the
+    compiled calls' launch counts and the record."""
+    from paddle_tpu_torch import jit
+
+    with torch.no_grad():
+        explain = torch._dynamo.explain(fn)(*args[0])
+        ops.reset_launches()
+        eager = [fn(*a) for a in args]
+        eager_launches = _launched(ops)
+        sf = jit.to_static(fn)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        outs = [sf(*a) for a in args]
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = _launched(ops)
+        counts = dict(ops.LAUNCHES)
+        _, static_ms = _event_timed(torch, lambda: sf(*args[-1]),
+                                    STATIC_TIMED)
+        _, eager_ms = _event_timed(torch, lambda: fn(*args[-1]),
+                                   STATIC_TIMED)
+        with ops.plain_versions():
+            ops.reset_launches()
+            plain = [sf(*a) for a in args]
+            plain_launches = _launched(ops)
+    check(explain.graph_break_count == 0 and explain.graph_count == 1,
+          f"{name}: to_static breaks its graph: {explain.break_reasons}")
+    check(sf.graph_breaks == [], f"{name}: {sf.graph_breaks}")
+    check(eager_launches == want and launches == want,
+          f"{name}: launches eager {eager_launches}, to_static "
+          f"{launches}, not {want}")
+    check(plain_launches == {},
+          f"{name}: plain_versions() launched {plain_launches}")
+    errs, rels, plain_rels = [], [], []
+    for o, e, p in zip(outs, eager, plain):
+        err, ok, tol = close(torch, o, e, torch.bfloat16, True)
+        rel, prel = _rel_l2(o, e), _rel_l2(p, o)
+        check(bool(torch.isfinite(o).all()), f"{name}: not finite")
+        check(ok or rel <= KERNEL_PATH_BOUND,
+              f"{name}: to_static {err} (rel L2 {rel}) from eager")
+        check(prel <= KERNEL_PATH_BOUND,
+              f"{name}: the kernel path {prel} (rel L2) from the plain")
+        errs.append(err)
+        rels.append(rel)
+        plain_rels.append(prel)
+    return counts, {
+        "graph_breaks": explain.graph_break_count,
+        "graphs": len(sf.graphs), "launches": launches,
+        "compile_and_first_calls_s": first_s, "static_ms": static_ms,
+        "eager_ms": eager_ms, "max_abs_err_vs_eager": errs,
+        "rel_l2_vs_eager": rels, "plain_rel_l2": plain_rels,
+        "plain_launches": plain_launches, "bound": tol}
+
+
+def _decode_step_layer(torch, model, caches):
+    """The Llama's contiguous-cache decode step as a Layer whose caches
+    are buffers: ``forward(tok, pos)`` writes the token's K/V at ``pos``
+    in place and returns the logits (jit.save exports the writes as
+    mutated inputs)."""
+    class DecodeStep(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.model = model
+            for i, (k, v) in enumerate(caches):
+                self.register_buffer(f"k{i}", k)
+                self.register_buffer(f"v{i}", v)
+            self.n = len(caches)
+
+        def forward(self, tok, pos):
+            pairs = [(getattr(self, f"k{i}"), getattr(self, f"v{i}"))
+                     for i in range(self.n)]
+            return self.model(tok, pos, pairs)[0]
+
+    return DecodeStep()
+
+
+def _manifest_decode(torch, dev, smi, tmp):
+    """(a) K5 and K2 in graphs at Llama-2-7B's widths, bf16, at
+    ``STATIC_LAYERS`` layers: to_static of the contiguous decode step
+    (K5) at each position of ``MANIFEST_DECODE``, then its jit.save and
+    Predictor; to_static of the serving engine's paged decode math (K2)
+    over phase 3's pool, float and w8kv8 (K2's per-row int8 mode); no
+    eager or captured call of the engine through the dispatcher. Returns
+    the launches of each compiled path."""
+    from paddle_tpu_torch import create_serving_engine, inference, jit, ops
+    from paddle_tpu_torch.nlp import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.serving.engine import paged_decode_math
+    from paddle_tpu_torch.static import InputSpec
+    import numpy as np
+
+    layers = STATIC_LAYERS
+    rows, cache_len, positions = MANIFEST_DECODE
+    cfg = LlamaConfig.llama2_7b(dtype="bfloat16", num_hidden_layers=layers)
+    g = torch.Generator(device=dev).manual_seed(SEED + 50)
+    model = LlamaForCausalLM(cfg, generator=g)
+    paths, records = {}, {}
+
+    # K5: the contiguous-cache decode step
+    caches = model.init_caches(rows, cache_len)
+    for kc, vc in caches:
+        kc.copy_(torch.randn(kc.shape, generator=g, device=dev))
+        vc.copy_(torch.randn(vc.shape, generator=g, device=dev))
+    tok = torch.randint(0, cfg.vocab_size, (rows, 1), device=dev,
+                        generator=g)
+    pos_t = [torch.tensor(p, dtype=torch.int32, device=dev)
+             for p in positions]
+
+    def k5_step(tok, pos):
+        return model(tok, pos, caches)[0]
+
+    want = {"rms_norm": (2 * layers + 1) * len(positions),
+            "decode_attention": layers * len(positions)}
+    counts, rec = _graph_check(torch, ops, "k5_step", k5_step,
+                               [(tok, p) for p in pos_t], want)
+    paths["manifest_k5_step"] = counts
+    records["k5_step"] = rec
+    with torch.no_grad():
+        eager_direct = _dispatched(torch, lambda: k5_step(tok, pos_t[-1]))
+    # jit.save -> Predictor of the step; the saved caches are this state
+    layer = _decode_step_layer(torch, model, caches)
+    prefix = os.path.join(tmp, "k5_step")
+    t0 = time.perf_counter()
+    jit.save(layer, prefix, input_spec=[InputSpec([rows, 1], "int64"),
+                                        InputSpec([], "int32")])
+    save_s = time.perf_counter() - t0
+    pred = inference.create_predictor(inference.Config(prefix))
+    with torch.no_grad():
+        eager = layer(tok, pos_t[-1]).float().cpu()
+    ops.reset_launches()
+    (got,) = pred.run([tok.cpu().numpy(), np.asarray(positions[-1],
+                                                     np.int32)])
+    pred_launches = _launched(ops)
+    paths["manifest_k5_predictor"] = dict(ops.LAUNCHES)
+    _, pred_ms = _event_timed(torch, lambda: pred.run(
+        [tok.cpu().numpy(), np.asarray(positions[-1], np.int32)]), 2)
+    got = torch.from_numpy(got)
+    p_err, p_ok, _ = close(torch, got, eager, torch.bfloat16, True)
+    check(pred_launches == {"rms_norm": 2 * layers + 1,
+                            "decode_attention": layers},
+          f"the K5 Predictor launched {pred_launches}")
+    check(p_ok, f"the K5 Predictor's logits {p_err} from eager's")
+    records["k5_predictor"] = {
+        "save_s": save_s, "predictor_ms": pred_ms,
+        "launches": pred_launches, "max_abs_err_vs_eager": p_err,
+        "bit_equal": bool(torch.equal(got, eager))}
+    del pred, layer, caches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # K2: the serving engine's paged decode math, float and w8kv8
+    lo, hi = MANIFEST_PAGED_LENS
+    for arm, kw, kernel in (
+            ("float", {}, "paged_decode_attention"),
+            ("w8kv8", dict(INT8_ARMS)["w8kv8"],
+             "paged_decode_attention_int8_rows")):
+        if arm == "w8kv8":  # the w8 engine sweeps its model in place
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+            model = LlamaForCausalLM(cfg, generator=torch.Generator(
+                device=dev).manual_seed(SEED + 50))
+        engine = create_serving_engine(model, **serve_kw(**kw))
+        pool = engine.pool
+        # eager and captured quanta of the engine: no op call through the
+        # dispatcher (the captured replay runs no Python at all)
+        for r in make_requests(cfg.vocab_size)[:rows]:
+            engine.submit(**dict(r, max_new_tokens=32))
+        while engine.scheduler.prefilling() or \
+                not engine.scheduler.decoding():
+            engine.step()
+        engine.step()
+
+        def quantum():
+            pending = engine.step_dispatch()
+            check(pending is not None, f"{arm}: no decode dispatch")
+            engine.step_collect(pending)
+
+        captured = _dispatched(torch, quantum)
+        check(engine._graph is not None, f"{arm}: no captured quantum")
+        engine._eager = True
+        eager_quantum = _dispatched(torch, quantum)
+        check(captured == 0 and eager_quantum == 0 and eager_direct == 0,
+              f"{arm}: calls through the dispatcher: captured {captured}, "
+              f"eager quantum {eager_quantum}, eager K5 {eager_direct}")
+        scratch = engine._scratch_block
+        bs = pool.block_size
+        width = -(-(hi + 1) // bs)
+        free = [b for b in range(pool.num_blocks) if b != scratch]
+        check(len(free) >= rows * width, f"{arm}: the pool is too small")
+        tables = torch.tensor(free[:rows * width], dtype=torch.int32,
+                              device=dev).reshape(rows, width)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 51)
+        for p in pool.k_pools + pool.v_pools:
+            if p.dtype == torch.int8:
+                p.copy_(torch.randint(-127, 128, p.shape, generator=gen,
+                                      device=dev, dtype=torch.int8))
+            else:
+                p.copy_(torch.randn(p.shape, generator=gen, device=dev))
+        for sc in pool.k_scales + pool.v_scales:
+            sc.copy_(torch.rand(sc.shape, generator=gen, device=dev) / 64)
+        lens = torch.randint(lo, hi, (rows,), generator=gen, device=dev,
+                             dtype=torch.int32)
+        live = torch.ones(rows, dtype=torch.bool, device=dev)
+        live[-1] = False  # a finished row writes the scratch block
+        ids = torch.randint(0, cfg.vocab_size, (rows, 1), generator=gen,
+                            device=dev)
+
+        def k2_step(ids, lens, tables, live):
+            return paged_decode_math(
+                engine.model, scratch, ids, lens, tables, pool.k_pools,
+                pool.v_pools, live, pool.k_scales, pool.v_scales,
+                engine.attn_impl)
+
+        counts, rec = _graph_check(
+            torch, ops, f"k2_{arm}", k2_step, [(ids, lens, tables, live)],
+            {"rms_norm": 2 * layers + 1, kernel: layers})
+        paths[f"manifest_k2_{arm}"] = counts
+        records[f"k2_{arm}"] = dict(rec, lens=lens.tolist(),
+                                    dispatcher_calls={
+                                        "captured_quantum": captured,
+                                        "eager_quantum": eager_quantum})
+        del engine, pool
+        gc.collect()
+        torch.cuda.empty_cache()
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    q13 = QUANTUM_RECORD.get("greedy", {}).get("captured", {})
+    emit({"phase": "manifest_decode_graphs", "layers": layers,
+          "rows": rows, "cache_len": cache_len, "positions": positions,
+          "paged_lens": [lo, hi], **records,
+          "eager_k5_dispatcher_calls": eager_direct,
+          "phase13_captured_quantum_wall_ms": q13.get("wall_ms"),
+          "recorded_captured_quantum_wall_ms": list(RECORDED_QUANTUM_MS),
+          "gpu": smi})
+    return paths
+
+
+def _manifest_qkvpacked(torch, dev, smi):
+    """(b) ``flash_attn_qkvpacked`` at phase 7's attention shape, causal,
+    bf16: forward and backward launch K4 and K7 once each, held against
+    the same calls under ``plain_versions()`` at phase 2's bounds."""
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.nn.functional.flash_attention import \
+        flash_attn_qkvpacked
+
+    b, s, h, d = QKVPACKED_SHAPE
+    g = torch.Generator(device=dev).manual_seed(SEED + 52)
+    qkv0 = torch.randn(b, s, 3, h, d, generator=g, device=dev).to(
+        torch.bfloat16)
+    do = torch.randn(b, s, h, d, generator=g, device=dev).to(torch.bfloat16)
+
+    def run():
+        qkv = qkv0.clone().requires_grad_()
+        out = flash_attn_qkvpacked(qkv, causal=True)[0]
+        out.backward(do)
+        return out.detach(), qkv.grad
+
+    ops.reset_launches()
+    out, grad = run()
+    launches = _launched(ops)
+    counts = dict(ops.LAUNCHES)
+    check(launches == {"flash_attention": 1, "flash_attention_bwd": 1},
+          f"flash_attn_qkvpacked launched {launches}")
+    _, ms = _event_timed(torch, run, 3)
+    with ops.plain_versions():
+        p_out, p_grad = run()
+        _, plain_ms = _event_timed(torch, run, 1)
+    err, ok, tol = close(torch, out, p_out, torch.bfloat16, True)
+    g_err, g_ok, _ = close(torch, grad, p_grad, torch.bfloat16, True)
+    check(ok and g_ok, f"flash_attn_qkvpacked {err} / grad {g_err} from "
+          "its plain path")
+    emit({"phase": "manifest_qkvpacked", "shape": [b, s, 3, h, d],
+          "causal": True, "launches": launches, "fwd_bwd_ms": ms,
+          "plain_fwd_bwd_ms": plain_ms, "max_abs_err": err,
+          "grad_max_abs_err": g_err, "tol": tol, "gpu": smi})
+    return counts
+
+
+def _rel_max(torch, a, b):
+    """max |a - b| / max |b| (f32; complex by magnitude)."""
+    a, b = a.detach(), b.detach()
+    if a.is_complex():
+        a, b = torch.view_as_real(a), torch.view_as_real(b)
+    return float((a.float().cpu() - b.float().cpu()).abs().max()
+                 / b.float().abs().max().clamp_min(1e-30).cpu())
+
+
+def _ptb_model(torch, nn):
+    layers, hidden, vocab, _, _, p = PTB_LARGE
+
+    class PTBLarge(nn.Layer):
+        """Embedding -> dropout -> LSTM (dropout between layers) ->
+        dropout -> Linear: the non-recurrent connections dropped, as
+        in the paper."""
+
+        def __init__(self):
+            super().__init__()
+            self.embed = nn.Embedding(vocab, hidden)
+            self.drop = nn.Dropout(p)
+            self.lstm = nn.LSTM(hidden, hidden, num_layers=layers,
+                                dropout=p)
+            self.head = nn.Linear(hidden, vocab)
+
+        def forward(self, ids):
+            out, _ = self.lstm(self.drop(self.embed(ids)))
+            return self.head(self.drop(out))
+
+    return PTBLarge()
+
+
+def _manifest_rnn(torch, dev, smi):
+    """(c) The RNN family at the large PTB LSTM's width, f32: AdamW train
+    steps of Embedding -> LSTM -> Linear held against the port's CPU run
+    of the same weights (dropout off, so both draw nothing), timed steps
+    with the paper's dropout; a bidirectional 2-layer GRU and a
+    SimpleRNN forward against the CPU."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import AdamW
+
+    layers, hidden, vocab, steps, batch, p = PTB_LARGE
+    held, timed = PTB_STEPS
+    torch.manual_seed(SEED + 53)
+    model = _ptb_model(torch, nn).to(dev)
+    cpu_model = copy.deepcopy(model).to("cpu")
+    g = torch.Generator(device=dev).manual_seed(SEED + 54)
+    data = torch.randint(0, vocab, (held + timed, batch, steps + 1),
+                         generator=g, device=dev)
+
+    def train(m, n, offset, device):
+        opt = AdamW(PTB_LR, parameters=m.parameters())
+        losses, logits0 = [], None
+        for i in range(n):
+            seq = data[offset + i].to(device)
+            logits = m(seq[:, :-1])
+            if logits0 is None:
+                logits0 = logits.detach()
+            loss = F.cross_entropy(logits.reshape(-1, vocab),
+                                   seq[:, 1:].reshape(-1))
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            losses.append(loss.detach())
+        return losses, logits0
+
+    model.eval()
+    cpu_model.eval()
+    t0 = time.perf_counter()
+    losses, logits0 = train(model, held, 0, dev)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    place = paddle.get_device()
+    paddle.set_device("cpu")
+    try:
+        t1 = time.perf_counter()
+        cpu_losses, cpu_logits0 = train(cpu_model, held, 0, "cpu")
+        cpu_s = time.perf_counter() - t1
+    finally:
+        paddle.set_device(place)
+    loss_rel = [abs(float(a) - float(b)) / abs(float(b))
+                for a, b in zip(losses, cpu_losses)]
+    logits_rel = _rel_max(torch, logits0, cpu_logits0)
+    check(max(loss_rel) <= MANIFEST_F32_BOUND
+          and logits_rel <= MANIFEST_F32_BOUND,
+          f"the PTB LSTM parts from its CPU run: losses {loss_rel}, "
+          f"logits {logits_rel}")
+    # the paper's dropout in training: timed steps (CUDA events)
+    model.train()
+    step_ms, train_losses = [], []
+    opt = AdamW(PTB_LR, parameters=model.parameters())
+    for i in range(timed):
+        seq = data[held + i]
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+        start.record()
+        loss = F.cross_entropy(model(seq[:, :-1]).reshape(-1, vocab),
+                               seq[:, 1:].reshape(-1))
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        end.record()
+        torch.cuda.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        train_losses.append(float(loss.detach()))
+    check(all(math.isfinite(v) for v in train_losses),
+          f"the PTB LSTM's dropout steps: {train_losses}")
+    del model, cpu_model, opt
+    # a bidirectional 2-layer GRU and a SimpleRNN at the same width
+    x = torch.randn(batch, steps, hidden, generator=g, device=dev)
+    fwd = {}
+    for name, make in (("gru_bidirect_2", lambda: nn.GRU(
+            hidden, hidden, num_layers=2, direction="bidirect")),
+                       ("simple_rnn", lambda: nn.SimpleRNN(hidden, hidden))):
+        torch.manual_seed(SEED + 55)
+        m = make().to(dev)
+        cpu_m = copy.deepcopy(m).to("cpu")
+        with torch.no_grad():
+            out, h = m(x)
+            _, ms = _event_timed(torch, lambda: m(x), 3)
+            cpu_out, cpu_h = cpu_m(x.cpu())
+        err = max(_rel_max(torch, out, cpu_out), _rel_max(torch, h, cpu_h))
+        check(err <= MANIFEST_F32_BOUND, f"{name} {err} from its CPU run")
+        fwd[name] = {"forward_ms": ms, "rel_max_err_vs_cpu": err,
+                     "final_states": list(h.shape)}
+        del m, cpu_m
+    emit({"phase": "manifest_rnn_ptb_large", "config": {
+        "layers": layers, "hidden": hidden, "vocab": vocab,
+        "steps": steps, "batch": batch, "dropout": p, "lr": PTB_LR},
+        "held_losses": [float(v) for v in losses],
+        "cpu_losses": [float(v) for v in cpu_losses],
+        "loss_rel_err": loss_rel, "logits_rel_max_err": logits_rel,
+        "held_steps_s": card_s, "cpu_steps_s": cpu_s,
+        "train_step_ms": step_ms, "dropout_losses": train_losses,
+        **fwd, "bound": MANIFEST_F32_BOUND, "gpu": smi})
+
+
+def _manifest_signal(torch, dev, smi):
+    """(d) ``signal.stft`` / ``istft`` at Whisper's front end and
+    ``fft.rfft`` / ``fft2`` / ``irfftn`` on a field, each against the
+    CPU run of the same input; the round trip back to the audio."""
+    from paddle_tpu_torch import fft, signal
+
+    b, n, n_fft, hop = WHISPER_AUDIO
+    g = torch.Generator(device=dev).manual_seed(SEED + 56)
+    x = 0.1 * torch.randn(b, n, generator=g, device=dev)
+    win = torch.hann_window(n_fft, device=dev)
+
+    def stft(v, w):
+        return signal.stft(v, n_fft, hop, window=w)
+
+    def istft(spec, w):
+        return signal.istft(spec, n_fft, hop, window=w, length=n)
+
+    spec = stft(x, win)
+    back = istft(spec, win)
+    _, stft_ms = _event_timed(torch, lambda: stft(x, win), 3)
+    _, istft_ms = _event_timed(torch, lambda: istft(spec, win), 3)
+    cpu_spec = stft(x.cpu(), win.cpu())
+    cpu_back = istft(cpu_spec, win.cpu())
+    errs = {"stft": _rel_max(torch, spec, cpu_spec),
+            "istft": _rel_max(torch, back, cpu_back),
+            "round_trip": _rel_max(torch, back, x)}
+    field = torch.randn(*FFT_FIELD, generator=g, device=dev)
+    cpu_field = field.cpu()
+    ms = {}
+    for name, fn in (("rfft", fft.rfft), ("fft2", fft.fft2),
+                     ("irfftn", lambda v: fft.irfftn(fft.rfftn(v)))):
+        errs[name] = _rel_max(torch, fn(field), fn(cpu_field))
+        _, ms[name] = _event_timed(torch, lambda: fn(field), 3)
+    check(all(e <= MANIFEST_F32_BOUND for e in errs.values()),
+          f"signal / fft from their CPU runs: {errs}")
+    emit({"phase": "manifest_signal_fft", "audio": [b, n],
+          "n_fft": n_fft, "hop": hop, "spectrum": list(spec.shape),
+          "field": list(FFT_FIELD), "stft_ms": stft_ms,
+          "istft_ms": istft_ms, "fft_ms": ms, "rel_max_err_vs_cpu": errs,
+          "bound": MANIFEST_F32_BOUND, "gpu": smi})
+
+
+def _manifest_grid_fold(torch, dev, smi):
+    """(e) ``affine_grid`` + ``grid_sample`` (bilinear, zeros) at
+    ResNet-50's input and ``unfold`` / ``fold`` with a 3 x 3 kernel,
+    forward and backward, against the CPU run of the same inputs."""
+    from paddle_tpu_torch.nn import functional as F
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 57)
+    n, c, hh, ww = GRID_SHAPE
+    x0 = torch.randn(n, c, hh, ww, generator=g, device=dev)
+    theta0 = (torch.tensor([[1.0, 0, 0], [0, 1, 0]], device=dev)
+              + 0.1 * torch.randn(n, 2, 3, generator=g, device=dev))
+    w_grid = torch.randn(n, c, hh, ww, generator=g, device=dev)
+    fb, fc, fh, fw, k = FOLD_SHAPE
+    y0 = torch.randn(fb, fc, fh, fw, generator=g, device=dev)
+    w_fold = torch.randn(fb, fc, fh, fw, generator=g, device=dev)
+
+    def grid(x0, theta0, w):
+        x, theta = x0.clone().requires_grad_(), theta0.clone() \
+            .requires_grad_()
+        out = F.grid_sample(x, F.affine_grid(theta, list(x.shape),
+                                             align_corners=False),
+                            mode="bilinear", padding_mode="zeros",
+                            align_corners=False)
+        (out * w).sum().backward()
+        return out.detach(), x.grad, theta.grad
+
+    def fold(y0, w):
+        y = y0.clone().requires_grad_()
+        cols = F.unfold(y, k, paddings=k // 2)
+        out = F.fold(cols, [fh, fw], k, paddings=k // 2)
+        (out * w).sum().backward()
+        return cols.detach(), out.detach(), y.grad
+
+    errs, ms = {}, {}
+    for name, fn, args in (("grid", grid, (x0, theta0, w_grid)),
+                           ("fold", fold, (y0, w_fold))):
+        card = fn(*args)
+        _, ms[name] = _event_timed(torch, lambda: fn(*args), 3)
+        cpu = fn(*(a.cpu() for a in args))
+        errs[name] = [_rel_max(torch, a, b) for a, b in zip(card, cpu)]
+    check(all(e <= MANIFEST_F32_BOUND for v in errs.values() for e in v),
+          f"grid / fold from their CPU runs: {errs}")
+    emit({"phase": "manifest_grid_fold", "grid_input": list(GRID_SHAPE),
+          "fold_input": [fb, fc, fh, fw], "kernel": k,
+          "fwd_bwd_ms": ms, "rel_max_err_vs_cpu": errs,
+          "bound": MANIFEST_F32_BOUND, "gpu": smi})
+
+
+def _manifest_sparse(torch, dev, smi):
+    """(f) ``sparse.matmul`` of a COO matrix at ``SPARSE_SHAPE``'s
+    density by a dense matrix, forward and backward (to the values and
+    the dense operand), against ``to_dense()`` followed by a product."""
+    from paddle_tpu_torch import sparse
+
+    m, k, density, n = SPARSE_SHAPE
+    g = torch.Generator(device=dev).manual_seed(SEED + 58)
+    nnz = int(m * k * density)
+    flat = torch.randperm(m * k, generator=g, device=dev)[:nnz]
+    idx = torch.stack([flat // k, flat % k])
+    vals0 = torch.randn(nnz, generator=g, device=dev)
+    y0 = torch.randn(k, n, generator=g, device=dev)
+    w = torch.randn(m, n, generator=g, device=dev)
+
+    def run(dense):
+        vals, y = vals0.clone().requires_grad_(), y0.clone() \
+            .requires_grad_()
+        sp = sparse.sparse_coo_tensor(idx, vals, (m, k))
+        out = sp.to_dense() @ y if dense else sparse.matmul(sp, y)
+        (out * w).sum().backward()
+        return out.detach(), vals.grad, y.grad
+
+    got, want = run(False), run(True)
+    errs = [_rel_max(torch, a, b) for a, b in zip(got, want)]
+    check(max(errs) <= MANIFEST_F32_BOUND,
+          f"sparse.matmul from to_dense() @ y: {errs}")
+    _, ms = _event_timed(torch, lambda: run(False), 3)
+    _, dense_ms = _event_timed(torch, lambda: run(True), 3)
+    emit({"phase": "manifest_sparse", "shape": [m, k, n], "nnz": nnz,
+          "fwd_bwd_ms": ms, "to_dense_fwd_bwd_ms": dense_ms,
+          "rel_max_err_vs_dense": errs, "bound": MANIFEST_F32_BOUND,
+          "gpu": smi})
+
+
+def manifest_phase(torch, dev, smi):
+    """Phase 25: the manifest tier. (a) K2 and K5 in to_static graphs
+    and a jit.save Predictor, (b) ``flash_attn_qkvpacked``, (c) the RNN
+    family at the large PTB LSTM's width, (d) ``signal`` and ``fft`` at
+    Whisper's front end, (e) the grid ops and ``unfold`` / ``fold``, (f)
+    ``sparse.matmul``. Returns the launches of each compiled or
+    kernel-reaching path, each counted from zero."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    walls = {}
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        t0 = time.perf_counter()
+        paths = _manifest_decode(torch, dev, smi, tmp)
+        walls["decode"] = time.perf_counter() - t0
+    for name, part in (("qkvpacked", _manifest_qkvpacked),
+                       ("rnn", _manifest_rnn), ("signal", _manifest_signal),
+                       ("grid_fold", _manifest_grid_fold),
+                       ("sparse", _manifest_sparse)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        counts = part(torch, dev, smi)
+        walls[name] = time.perf_counter() - t0
+        if counts is not None:
+            paths[f"manifest_{name}"] = counts
+    gc.collect()
+    torch.cuda.empty_cache()
+    from torch._inductor import async_compile
+
+    async_compile.shutdown_compile_workers()
+    emit({"phase": "manifest_done", "walls_s": walls,
+          "wall_s": time.perf_counter() - t_phase})
+    return paths
+
+
 def main():
     import torch
 
@@ -8101,6 +8773,7 @@ def main():
     fleet_launches = fleet_phase(torch, dev, smi)
     api_launches = tensor_api_phase(torch, dev, smi)
     static_launches = static_phase(torch, dev, smi)
+    manifest_launches = manifest_phase(torch, dev, smi)
     paths = {"serving": launches, "generate": gen_launches,
              "train": train_launches, "train_f32_parity": parity_launches,
              "packed_train": packed_launches,
@@ -8108,7 +8781,7 @@ def main():
              "int8_serving": int8_launches, **batch_launches,
              **prefix_launches, **lora_launches, **gpt_launches,
              **vision_launches, **bert_launches, "fleet": fleet_launches,
-             **api_launches, **static_launches}
+             **api_launches, **static_launches, **manifest_launches}
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
         rec = primary[name]

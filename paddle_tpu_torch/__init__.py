@@ -34,10 +34,10 @@ from .tensor import *  # noqa: F401,F403
 from . import tensor
 from .tensor import linalg
 
-from . import (amp, autograd, callbacks, device, distributed, framework,
-               hapi, incubate, inference, io, jit, metric, nlp, nn, obs,
-               ops, optimizer, peft, profiler, regularizer, serving, static,
-               utils, vision, visualdl)
+from . import (amp, autograd, callbacks, device, distributed, fft,
+               framework, hapi, incubate, inference, io, jit, metric, nlp,
+               nn, obs, ops, optimizer, peft, profiler, regularizer, serving,
+               signal, sparse, static, utils, vision, visualdl)
 from .distributed.parallel import DataParallel
 from .framework import load, save
 from .hapi import Model, flops, summary

@@ -12,8 +12,15 @@ call is a replay. The warm-up is what makes the capture safe:
   each kernel's one-time shared-memory attribute is set;
 - K2/K5's merge-ticket buffer of the capture stream is made
   (``ops.split_decode.tickets_for`` keys tickets by stream, and a buffer
-  made inside a capture would come from the graph's private pool);
-- cuBLAS sets up its workspace for the capture stream.
+  made inside a capture would come from the graph's private pool).
+
+cuBLAS's workspaces are the other way round: they are dropped right
+before and right after each capture, so the capture allocates its own
+workspace in the graph's private pool, which lives as long as the graph
+(as inductor's CUDA graph trees do). A workspace taken from the shared
+pool is keyed by (handle, stream), so graphs captured on one stream
+share it, and it can be freed and its memory handed to other tensors
+while a graph still writes it (ROADMAP C11).
 
 The cycle collector is run before the capture and held off during it. An
 engine that holds a captured graph is a reference cycle (the graph's step
@@ -63,16 +70,19 @@ class CapturedStep:
 
     def capture(self):
         """Capture ``fn`` on the stream it warmed up on, with no cycle
-        collection inside the capture (see the module's docstring)."""
+        collection inside the capture and cuBLAS's workspaces dropped on
+        either side (see the module's docstring)."""
         before = dict(L.LAUNCHES)
         graph = torch.cuda.CUDAGraph()
         gc.collect()
         was_enabled = gc.isenabled()
         gc.disable()
+        torch._C._cuda_clearCublasWorkspaces()
         try:
             with torch.cuda.graph(graph, stream=self.stream):
                 self.fn()
         finally:
+            torch._C._cuda_clearCublasWorkspaces()
             if was_enabled:
                 gc.enable()
             seen = {k: n - before[k] for k, n in L.LAUNCHES.items()}

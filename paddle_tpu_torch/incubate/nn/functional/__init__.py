@@ -21,6 +21,7 @@ from ....nn.quant import quantize_kv_rows
 from ....ops.decode_attention import decode_attention, decode_attention_plain
 from ....ops.paged_attention import paged_decode_attention
 from ....ops.varlen_flash_attention import varlen_flash_attention
+from ....tensor._helpers import ensure_tensor  # noqa: F401  (re-exported)
 from .fused_linear_cross_entropy import fused_linear_cross_entropy
 
 __all__ = ["fused_rotary_position_embedding", "fused_rms_norm",

@@ -21,15 +21,20 @@ import torch
 from ... import amp
 from ...amp import amp_state
 from ..functional import activation as _act
-from ..functional.common import (dropout, interpolate, pad, pixel_shuffle,
-                                 pixel_unshuffle, torch_linear)
+from ..functional.common import (alpha_dropout, bilinear, channel_shuffle,
+                                 cosine_similarity, dropout, dropout2d,
+                                 dropout3d, fold, interpolate, pad,
+                                 pixel_shuffle, pixel_unshuffle,
+                                 torch_linear, unfold)
 from .layers import Layer
 
 __all__ = [
-    "Linear", "Embedding", "Dropout", "Flatten", "Unflatten", "Identity",
+    "Linear", "Embedding", "Dropout", "Dropout2D", "Dropout3D",
+    "AlphaDropout", "Flatten", "Unflatten", "Identity",
     "Pad1D", "Pad2D", "Pad3D", "ZeroPad2D", "Upsample",
     "UpsamplingNearest2D", "UpsamplingBilinear2D", "PixelShuffle",
-    "PixelUnshuffle", "Sequential", "LayerList", "LayerDict",
+    "PixelUnshuffle", "ChannelShuffle", "CosineSimilarity", "Bilinear",
+    "Unfold", "Fold", "Sequential", "LayerList", "LayerDict",
     "ParameterList", "ReLU", "ReLU6", "GELU", "SiLU", "Swish", "Sigmoid",
     "Tanh", "Softmax", "LogSoftmax", "LeakyReLU", "ELU", "SELU", "CELU",
     "Hardswish", "Hardsigmoid", "Hardtanh", "Hardshrink", "Softshrink",
@@ -71,6 +76,33 @@ class Dropout(Layer):
 
     def extra_repr(self):
         return f"p={self.p}"
+
+
+class Dropout2D(Layer):
+    def __init__(self, p=0.5, data_format="NCHW", name=None):
+        super().__init__()
+        self.p, self.data_format = p, data_format
+
+    def forward(self, x):
+        return dropout2d(x, self.p, self.training, self.data_format)
+
+
+class Dropout3D(Layer):
+    def __init__(self, p=0.5, data_format="NCDHW", name=None):
+        super().__init__()
+        self.p, self.data_format = p, data_format
+
+    def forward(self, x):
+        return dropout3d(x, self.p, self.training, self.data_format)
+
+
+class AlphaDropout(Layer):
+    def __init__(self, p=0.5, name=None):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x):
+        return alpha_dropout(x, self.p, self.training)
 
 
 class Flatten(Layer):
@@ -180,6 +212,62 @@ class PixelUnshuffle(Layer):
 
     def forward(self, x):
         return pixel_unshuffle(x, self.downscale_factor, self.data_format)
+
+
+class ChannelShuffle(Layer):
+    def __init__(self, groups, data_format="NCHW", name=None):
+        super().__init__()
+        self.groups, self.data_format = groups, data_format
+
+    def forward(self, x):
+        return channel_shuffle(x, self.groups, self.data_format)
+
+
+class CosineSimilarity(Layer):
+    def __init__(self, axis=1, eps=1e-8):
+        super().__init__()
+        self.axis, self.eps = axis, eps
+
+    def forward(self, x1, x2):
+        return cosine_similarity(x1, x2, self.axis, self.eps)
+
+
+class Bilinear(Layer):
+    """``paddle.nn.Bilinear``: weight (out, in1, in2) Xavier-normal and
+    bias (out,) zeros, the reference's defaults."""
+
+    def __init__(self, in1_features, in2_features, out_features,
+                 weight_attr=None, bias_attr=None, name=None):
+        super().__init__()
+        self.weight = self.create_parameter(
+            (out_features, in1_features, in2_features), attr=weight_attr)
+        self.bias = (self.create_parameter((out_features,), attr=bias_attr,
+                                           is_bias=True)
+                     if bias_attr is not False else None)
+
+    def forward(self, x1, x2):
+        return bilinear(x1, x2, self.weight, self.bias)
+
+
+class Unfold(Layer):
+    def __init__(self, kernel_sizes, strides=1, paddings=0, dilations=1,
+                 name=None):
+        super().__init__()
+        self.args = (kernel_sizes, strides, paddings, dilations)
+
+    def forward(self, x):
+        return unfold(x, *self.args)
+
+
+class Fold(Layer):
+    def __init__(self, output_sizes, kernel_sizes, strides=1, paddings=0,
+                 dilations=1, name=None):
+        super().__init__()
+        self.args = (output_sizes, kernel_sizes, strides, paddings,
+                     dilations)
+
+    def forward(self, x):
+        return fold(x, *self.args)
 
 
 # -- containers: torch's, taking paddle's constructor forms -----------------

@@ -8,14 +8,16 @@ and loaded with ``ctypes``. The library's file name carries a hash of the
 sources and flags, so an edited source rebuilds and an unchanged one
 loads straight away.
 
-K1 / K6, K3 / K8 and K4 / K7 are ``torch.library`` custom ops in the
-``paddle_tpu_torch::`` namespace (:func:`custom_op`): their CUDA
-implementation launches the kernel, their CPU implementation is the plain
-version, and a fake implementation gives their output shapes, so
+Every kernel is a ``torch.library`` custom op in the
+``paddle_tpu_torch::`` namespace (:func:`custom_op`): its CUDA
+implementation launches the kernel, its CPU implementation is the plain
+version, and a fake implementation gives its output shapes, so
 TorchDynamo and ``torch.export`` trace through them (``jit.to_static``,
 ``jit.save``). An eager call runs the CUDA implementation directly
-(:func:`route`), without the dispatcher's host cost. K2 and K5 stay
-direct calls and refuse to be traced (:func:`refuse_trace`). Each
+(:func:`route`), without the dispatcher's host cost. K2's and K5's CUDA
+implementations plan their splits, allocate their partials and take the
+current stream's ticket buffer at call time, from the concrete shapes,
+so a graph that holds them needs none of that state as an input. Each
 kernel's CUDA implementation adds one to its entry in :data:`LAUNCHES`
 where it launches the kernel, and nowhere else, so a compiled graph
 counts its real launches, not its traces. :func:`plain_versions` is the
@@ -41,7 +43,7 @@ from torch._subclasses.fake_tensor import FakeTensor
 from . import split_decode as sd
 
 __all__ = ["LAUNCHES", "reset_launches", "plain_versions", "use_plain",
-           "route", "refuse_grad", "refuse_trace", "custom_op",
+           "route", "refuse_grad", "custom_op",
            "library", "check_status", "cuda_stream", "BUILD_DIR"]
 
 _PKG = Path(__file__).resolve().parents[1]
@@ -139,18 +141,6 @@ def custom_op(name, cuda_impl):
     return torch.library.custom_op(
         f"paddle_tpu_torch::{name}", cuda_impl, mutates_args=(),
         device_types="cuda", tags=(torch.Tag.needs_fixed_stride_order,))
-
-
-def refuse_trace(name):
-    """Raise when TorchDynamo or ``torch.export`` traces a kernel that is
-    not a custom op yet (K2 and K5, whose split plans and ticket buffers
-    keyed by stream live on the host): no graph may hold a call it cannot
-    replay."""
-    if torch.compiler.is_compiling() or torch.compiler.is_exporting():
-        raise NotImplementedError(
-            f"the {name} kernel is not a traceable custom op yet (ROADMAP "
-            f"A9, K2 / K5 as custom ops): to_static and jit.save cannot "
-            f"hold it; run the decode step eagerly")
 
 
 def refuse_grad(name, item, *tensors):

@@ -12,7 +12,10 @@ kernel's ``has_scales`` arm) multiply the rows of float or int8 pools
 inside the kernel; int8 pools also dequantize by the per-row scale
 pools of the int8 serving engine (:func:`_paged_decode_attention_rows`,
 whose plain version ports the reference engine's
-``_xla_paged_decode_attn(ks=, vs=)``). The CUDA source is
+``_xla_paged_decode_attn(ks=, vs=)``). Both entry points are custom ops
+(``paddle_tpu_torch::paged_decode_attention`` and
+``_paged_decode_attention_rows``, see ``ops/_library.py``), so a traced
+decode step holds them. The CUDA source is
 ``paddle_tpu_torch/csrc/paged_attention.cu``.
 """
 from __future__ import annotations
@@ -128,15 +131,14 @@ def _check(name, q, k_pool, v_pool, block_tables, seq_lens):
             f"and lens {tuple(seq_lens.shape)} do not match batch {b}")
 
 
-def _launch(name, q, k_pool, v_pool, block_tables, seq_lens, sm_scale,
-            scales=None, per_row=False):
-    """Check the kernel's inputs and launch K2 on the card: pools of q's
-    dtype, without ``scales`` or with (HK,) ones, or int8 pools with (HK,)
-    or (``per_row``) per-row scales."""
-    L.refuse_grad(name, "decode attention is inference-only, as the "
-                  "TPU kernel is", q, k_pool, v_pool)
+def _check_kernel(name, q, k_pool, v_pool, block_tables, seq_lens,
+                  scales=None, per_row=False):
+    """The kernel's dtype, device and width rules (the custom ops' fake
+    implementation runs them too, so a trace meets the same refusals):
+    pools of q's dtype, without ``scales`` or with (HK,) f32 ones, or
+    int8 pools with (HK,) or (``per_row``) per-row f32 scales."""
     b, h, d = q.shape
-    num_blocks, bs, hk = k_pool.shape[:3]
+    hk = k_pool.shape[2]
     int8 = k_pool.dtype == torch.int8
     if q.dtype not in _DTYPES or k_pool.dtype not in (q.dtype, torch.int8) \
             or v_pool.dtype != k_pool.dtype or (int8 and scales is None) \
@@ -161,6 +163,20 @@ def _launch(name, q, k_pool, v_pool, block_tables, seq_lens, sm_scale,
         if any(t.dtype != torch.float32 or tuple(t.shape) != want
                for t in scales):
             raise TypeError(f"{name}: scales must be float32 {want}")
+
+
+def _launch(name, q, k_pool, v_pool, block_tables, seq_lens, sm_scale,
+            scales=None, per_row=False):
+    """Launch K2 on the card after :func:`_check_kernel`; counts the
+    launch under ``name``. The split plan, the partials and the ticket
+    buffer of the current stream are made here, at call time, from the
+    concrete shapes (so a traced graph that holds the op replays them)."""
+    _check_kernel(name, q, k_pool, v_pool, block_tables, seq_lens, scales,
+                  per_row)
+    b, h, d = q.shape
+    num_blocks, bs, hk = k_pool.shape[:3]
+    int8 = k_pool.dtype == torch.int8
+    others = (k_pool, v_pool, block_tables, seq_lens) + tuple(scales or ())
     q = q.contiguous()
     if not all(t.is_contiguous() for t in others):
         raise ValueError(f"{name} kernel needs contiguous pools, scales, "
@@ -196,7 +212,81 @@ def _launch(name, q, k_pool, v_pool, block_tables, seq_lens, sm_scale,
             block_tables.data_ptr(), seq_lens.data_ptr(), *scratch,
             *geometry, int(per_row), stream)
     L.check_status(name, status)
+    L.LAUNCHES[name] += 1
     return out
+
+
+def _variant(k_pool, k_scale):
+    if k_pool.dtype == torch.int8:
+        return "paged_decode_attention_int8"
+    if k_scale is not None:
+        return "paged_decode_attention_scaled"
+    return "paged_decode_attention"
+
+
+def _paged_cuda(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+                block_tables: torch.Tensor, seq_lens: torch.Tensor,
+                sm_scale: float, k_scale: torch.Tensor | None,
+                v_scale: torch.Tensor | None) -> torch.Tensor:
+    """K2 as the custom op ``paddle_tpu_torch::paged_decode_attention``:
+    q (B, H, D), float pools with or without (HK,) scales, or int8 pools
+    with them (both scales given or neither)."""
+    scales = None if k_scale is None else (k_scale, v_scale)
+    return _launch(_variant(k_pool, k_scale), q, k_pool, v_pool,
+                   block_tables, seq_lens, sm_scale, scales)
+
+
+_paged_op = L.custom_op("paged_decode_attention", _paged_cuda)
+
+
+@_paged_op.register_kernel("cpu")
+def _(q, k_pool, v_pool, block_tables, seq_lens, sm_scale, k_scale,
+      v_scale):
+    return paged_decode_attention_plain(
+        q, k_pool, v_pool, block_tables, seq_lens, sm_scale, k_scale,
+        v_scale).contiguous()
+
+
+@_paged_op.register_fake
+def _(q, k_pool, v_pool, block_tables, seq_lens, sm_scale, k_scale,
+      v_scale):
+    if q.device.type == "cuda":
+        _check_kernel(_variant(k_pool, k_scale), q, k_pool, v_pool,
+                      block_tables, seq_lens,
+                      None if k_scale is None else (k_scale, v_scale))
+    return torch.empty_like(q, memory_format=torch.contiguous_format)
+
+
+def _rows_cuda(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+               k_scales: torch.Tensor, v_scales: torch.Tensor,
+               block_tables: torch.Tensor, seq_lens: torch.Tensor,
+               sm_scale: float) -> torch.Tensor:
+    """K2's per-row mode as the custom op
+    ``paddle_tpu_torch::_paged_decode_attention_rows``."""
+    return _launch("paged_decode_attention_int8_rows", q, k_pool, v_pool,
+                   block_tables, seq_lens, sm_scale, (k_scales, v_scales),
+                   per_row=True)
+
+
+_rows_op = L.custom_op("_paged_decode_attention_rows", _rows_cuda)
+
+
+@_rows_op.register_kernel("cpu")
+def _(q, k_pool, v_pool, k_scales, v_scales, block_tables, seq_lens,
+      sm_scale):
+    return _paged_decode_attention_rows_plain(
+        q, k_pool, v_pool, k_scales, v_scales, block_tables, seq_lens,
+        sm_scale).contiguous()
+
+
+@_rows_op.register_fake
+def _(q, k_pool, v_pool, k_scales, v_scales, block_tables, seq_lens,
+      sm_scale):
+    if q.device.type == "cuda":
+        _check_kernel("paged_decode_attention_int8_rows", q, k_pool, v_pool,
+                      block_tables, seq_lens, (k_scales, v_scales),
+                      per_row=True)
+    return torch.empty_like(q, memory_format=torch.contiguous_format)
 
 
 def paged_decode_attention(q, k_pool, v_pool, block_tables, seq_lens,
@@ -216,9 +306,9 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, seq_lens,
             ones, and int8 pools without either run at scale 1, as in the
             reference.
     Returns (B, H, D) (or (B, 1, H, D) matching q) in the query's dtype.
-    CPU tensors run :func:`paged_decode_attention_plain`; CUDA tensors
-    launch the kernel or raise."""
-    L.refuse_trace("paged_decode_attention")
+    Runs the custom op ``paddle_tpu_torch::paged_decode_attention``: CUDA
+    tensors launch the kernel or raise (also when traced); CPU tensors
+    run :func:`paged_decode_attention_plain`."""
     squeeze = q.dim() == 4
     if squeeze:
         q = q[:, 0]
@@ -226,25 +316,25 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, seq_lens,
            seq_lens)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    int8 = k_pool.dtype == torch.int8
-    if L.use_plain(q):
+    how = L.route(q, k_pool, v_pool)
+    if how == "plain":
         out = paged_decode_attention_plain(q, k_pool, v_pool, block_tables,
                                            seq_lens, sm_scale, k_scale,
                                            v_scale)
-    elif int8:
-        scales = _head_scales(k_scale, v_scale, k_pool.shape[2], q.device)
-        out = _launch("paged_decode_attention_int8", q, k_pool, v_pool,
-                      block_tables, seq_lens, sm_scale, scales)
-        L.LAUNCHES["paged_decode_attention_int8"] += 1
-    elif k_scale is not None or v_scale is not None:
-        scales = _head_scales(k_scale, v_scale, k_pool.shape[2], q.device)
-        out = _launch("paged_decode_attention_scaled", q, k_pool, v_pool,
-                      block_tables, seq_lens, sm_scale, scales)
-        L.LAUNCHES["paged_decode_attention_scaled"] += 1
     else:
-        out = _launch("paged_decode_attention", q, k_pool, v_pool,
-                      block_tables, seq_lens, sm_scale)
-        L.LAUNCHES["paged_decode_attention"] += 1
+        if k_scale is not None or v_scale is not None \
+                or k_pool.dtype == torch.int8:
+            k_scale, v_scale = _head_scales(k_scale, v_scale,
+                                            k_pool.shape[2], q.device)
+        if how == "kernel":
+            L.refuse_grad("paged_decode_attention", "decode attention is "
+                          "inference-only, as the TPU kernel is", q, k_pool,
+                          v_pool)
+            fn = _paged_cuda
+        else:
+            fn = torch.ops.paddle_tpu_torch.paged_decode_attention.default
+        out = fn(q, k_pool, v_pool, block_tables, seq_lens, float(sm_scale),
+                 k_scale, v_scale)
     return out[:, None] if squeeze else out
 
 
@@ -253,23 +343,28 @@ def _paged_decode_attention_rows(q, k_pool, v_pool, k_scales, v_scales,
     """K2's per-row mode, the int8 serving engine's decode attention:
     int8 pools with (num_blocks, block_size, HK) f32 scale pools, one
     scale per pool row, read beside the row inside the kernel. ``q`` is
-    (B, H, D). CPU tensors run
-    :func:`_paged_decode_attention_rows_plain`; CUDA tensors launch the
-    kernel or raise."""
-    L.refuse_trace("paged_decode_attention")
+    (B, H, D). Runs the custom op
+    ``paddle_tpu_torch::_paged_decode_attention_rows``: CUDA tensors
+    launch the kernel or raise; CPU tensors run
+    :func:`_paged_decode_attention_rows_plain`."""
     _check("paged_decode_attention_int8_rows", q, k_pool, v_pool,
            block_tables, seq_lens)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    if L.use_plain(q):
+    how = L.route(q, k_pool, v_pool, k_scales, v_scales)
+    if how == "plain":
         return _paged_decode_attention_rows_plain(
             q, k_pool, v_pool, k_scales, v_scales, block_tables, seq_lens,
             sm_scale)
-    out = _launch("paged_decode_attention_int8_rows", q, k_pool, v_pool,
-                  block_tables, seq_lens, sm_scale, (k_scales, v_scales),
-                  per_row=True)
-    L.LAUNCHES["paged_decode_attention_int8_rows"] += 1
-    return out
+    if how == "kernel":
+        L.refuse_grad("paged_decode_attention_int8_rows", "decode attention "
+                      "is inference-only, as the TPU kernel is", q, k_pool,
+                      v_pool)
+        fn = _rows_cuda
+    else:
+        fn = torch.ops.paddle_tpu_torch._paged_decode_attention_rows.default
+    return fn(q, k_pool, v_pool, k_scales, v_scales, block_tables, seq_lens,
+              float(sm_scale))
 
 
 def paged_cache_write(k_pool, v_pool, k_new, v_new, block_tables, positions):

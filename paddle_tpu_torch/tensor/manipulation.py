@@ -456,16 +456,21 @@ def pad(x, pad, mode="constant", value=0.0, data_format="NCHW", name=None):
     return v.permute(*inv)
 
 
+def paddings4(paddings):
+    """paddle's im2col paddings (an int, [h, w] or [top, left, bottom,
+    right]) as (top, bottom, left, right)."""
+    if isinstance(paddings, int):
+        return (paddings,) * 4
+    if len(paddings) == 2:
+        return (paddings[0], paddings[0], paddings[1], paddings[1])
+    top, left, bottom, right = paddings
+    return (top, bottom, left, right)
+
+
 def unfold(x, kernel_sizes, strides=1, paddings=0, dilations=1, name=None):
     """im2col: NCHW -> (N, C * kh * kw, L)."""
     x = ensure_tensor(x)
-    if isinstance(paddings, int):
-        pads = (paddings, paddings, paddings, paddings)
-    elif len(paddings) == 2:
-        pads = (paddings[0], paddings[0], paddings[1], paddings[1])
-    else:
-        pt, pl, pb, pr = paddings
-        pads = (pt, pb, pl, pr)
+    pads = paddings4(paddings)
     if pads[0] == pads[1] and pads[2] == pads[3]:
         return _F.unfold(x, kernel_sizes, dilation=dilations,
                          padding=(pads[0], pads[2]), stride=strides)

@@ -10,7 +10,7 @@ logits there (a full eager forward of the shared prefix: the top three
 ids and values, so a parting at a near-tie shows as one).
 
     python scripts/torch_c11_repeat.py [N] [--keep-tickets]
-        [--variant own_streams|sequential|no_prefix|eager|own_models|record|mem_pools|sync_mixed|graph_tickets|keep_cache[,...]]
+        [--variant own_streams|sequential|no_prefix|eager|own_models|record|mem_pools|sync_mixed|graph_tickets|keep_cache|mem_snapshots[,...]]
         [--own-models] [--record]
 
 Runs the test's body N times (default 20) in one process, each with its
@@ -50,6 +50,16 @@ mixed forward. ``graph_tickets`` gives each captured graph a K2 ticket
 buffer of its own (made and zeroed inside its capture) while the
 replicas still capture on one stream; ``keep_cache`` makes
 ``torch.cuda.empty_cache`` (which every capture calls first) do nothing.
+``mem_snapshots`` records the caching allocator's history
+(``torch.cuda.memory._record_memory_history``) and takes a snapshot
+before and after every captured step's warm-up and capture and at the
+end of each arm: a block of the shared pool that a step's warm-up or
+capture allocated and that is freed while the step's graph lives is a
+suspect (a graph keeps the addresses it captured); each run reports the
+suspects with the frames that allocated them and, where a later block
+took the address, the frames that did. Run the base arm with
+``CUBLAS_WORKSPACE_CONFIG=:0:0`` in the environment for no cuBLAS
+workspace.
 Prints one JSON line a run
 (pass or the assertion, the buffers made, made inside a capture, the
 plans) and a summary line.
@@ -76,6 +86,52 @@ def _dirty(torch, split_decode):
         if nz:
             out[str(list(key))] = (nz, int(t.sum()))
     return out
+
+
+def _blocks(torch, label):
+    """The caching allocator's active blocks (address -> size, pool,
+    the allocating frames) at ``label``."""
+    out = {}
+    for seg in torch.cuda.memory._snapshot()["segments"]:
+        pool = list(seg.get("segment_pool_id", (0, 0)))
+        for b in seg["blocks"]:
+            if b["state"] != "active_allocated":
+                continue
+            frames = [f"{os.path.basename(f['filename'])}:{f['line']}:"
+                      f"{f['name']}" for f in b.get("frames", [])
+                      if "paddle_tpu_torch" in f["filename"]
+                      or "tests" in f["filename"]][:5]
+            out[b["address"]] = (b["size"], pool, frames)
+    return label, out
+
+
+def _suspects(marks, windows):
+    """Blocks a captured step's warm-up or capture allocated in the
+    shared pool (pool (0, 0)) that a later snapshot no longer holds,
+    with the block that took the address next, if any. ``marks`` is the
+    ordered list of (label, blocks); ``windows`` maps a step to the
+    indices of its (before warm-up, after capture) marks."""
+    found = []
+    for step, (i0, i1) in windows.items():
+        before = marks[i0][1]
+        made = {a: v for j in range(i0 + 1, i1 + 1)
+                for a, v in marks[j][1].items()
+                if a not in before and tuple(v[1]) == (0, 0)}
+        for addr, (size, _, frames) in made.items():
+            for label, blocks in marks[i1 + 1:]:
+                if addr in blocks and blocks[addr][2] == frames:
+                    continue
+                taker = next(((a, v) for a, v in blocks.items()
+                              if a <= addr < a + v[0] or
+                              addr <= a < addr + size), None)
+                found.append({"step": step, "address": addr, "size": size,
+                              "frames": frames, "freed_by": label,
+                              "taken_by": None if taker is None else {
+                                  "address": taker[0],
+                                  "size": taker[1][0],
+                                  "frames": taker[1][2]}})
+                break
+    return found
 
 
 def _first_diff(a, b):
@@ -398,6 +454,30 @@ def main():
     if "keep_cache" in variant:
         # no capture releases the allocator's cached blocks to the driver
         torch.cuda.empty_cache = lambda: None
+    marks, windows = [], {}
+    if "mem_snapshots" in variant:
+        from paddle_tpu_torch import _graphs
+
+        torch.cuda.memory._record_memory_history(max_entries=200000)
+        warm, cap = _graphs.CapturedStep.warm_up, _graphs.CapturedStep.capture
+
+        def mark(label):
+            torch.cuda.synchronize()
+            marks.append(_blocks(torch, label))
+            return len(marks) - 1
+
+        def marked_warm(self):
+            windows[id(self)] = [mark(f"{id(self)}:before_warm_up"), None]
+            warm(self)
+            mark(f"{id(self)}:after_warm_up")
+
+        def marked_capture(self):
+            mark(f"{id(self)}:before_capture")
+            cap(self)
+            windows[id(self)][1] = mark(f"{id(self)}:after_capture")
+
+        _graphs.CapturedStep.warm_up = marked_warm
+        _graphs.CapturedStep.capture = marked_capture
     capturing = {"step": None}
     graph_tickets = {}
     if "graph_tickets" in variant:
@@ -447,6 +527,8 @@ def main():
     for i in range(n):
         if not keep:
             split_decode._TICKETS.clear()
+        marks.clear()
+        windows.clear()
         made.clear()
         plans.clear()
         torch.cuda.synchronize()
@@ -480,7 +562,14 @@ def main():
         finally:
             mp.undo()
         torch.cuda.synchronize()
+        suspects = None
+        if "mem_snapshots" in variant:
+            marks.append(_blocks(torch, "end"))
+            suspects = _suspects(marks, {k: tuple(v) for k, v in
+                                         windows.items() if v[1]})
         print(json.dumps({"run": i, "result": result, "streams": streams,
+                          "suspects": suspects,
+                          "captured_steps": list(windows),
                           "partings": parted, "one_replica_moved": moved,
                           "dirty_tickets_before": dirty_before,
                           "dirty_tickets_after": _dirty(torch, split_decode),
@@ -495,6 +584,8 @@ def main():
                       "one_replica_moved": one_moved,
                       "variant": list(variant),
                       "keep_tickets": keep,
+                      "cublas_workspace_config": os.environ.get(
+                          "CUBLAS_WORKSPACE_CONFIG"),
                       "wall_s": time.perf_counter() - t_all}))
     return 1 if failures else 0
 

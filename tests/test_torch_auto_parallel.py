@@ -48,6 +48,16 @@ from paddle_tpu_torch.nlp import (BertPretrainingCriterion, ErnieConfig,
                                   paddle_tpu_arrays_to_port)
 from paddle_tpu_torch.optimizer import AdamW
 
+
+@pytest.fixture(autouse=True)
+def _numpy_global_state():
+    """Leave numpy's global random stream as this test found it (the tests
+    here seed it, and a later test in the same worker may draw from it)."""
+    state = np.random.get_state()
+    yield
+    np.random.set_state(state)
+
+
 LR = 1e-4
 B, S = 4, 16
 TABLE = "bert.embeddings.word_embeddings.weight"

@@ -2579,10 +2579,11 @@ def test_cuda_llama_jit_save_predictor_round_trip_equals_eager(cuda,
 
 
 @pytest.mark.cuda
-def test_cuda_decode_kernels_refuse_jit_save(cuda, tmp_path):
-    """K2 and K5 are not custom ops yet: a jit.save of a Layer that
-    reaches them raises, naming the ROADMAP item."""
-    from paddle_tpu_torch import jit
+def test_cuda_decode_kernels_jit_save_predictor_equal_eager(cuda, tmp_path):
+    """K2 and K5 are custom ops: a Layer that reaches each goes through
+    jit.save -> Predictor.run, launches its kernel once a call and gives
+    the eager output back."""
+    from paddle_tpu_torch import inference, jit
     from paddle_tpu_torch.static import InputSpec
 
     g = torch.Generator(device=cuda).manual_seed(0)
@@ -2591,17 +2592,35 @@ def test_cuda_decode_kernels_refuse_jit_save(cuda, tmp_path):
     pool = _rnd(g, torch.bfloat16, 4, 32, 2, 128)
     tables = torch.tensor([[0, 1], [2, 3]], dtype=torch.int32, device=cuda)
 
-    class K5(torch.nn.Module):
-        def forward(self, q):
-            return ops.decode_attention(q, cache, cache, lens)
+    class Decode(torch.nn.Module):
+        """The caches and tables as buffers: the program's inputs, on the
+        card."""
 
-    class K2(torch.nn.Module):
-        def forward(self, q):
-            return ops.paged_decode_attention(q, pool, pool, tables, lens)
+        def __init__(self, **buffers):
+            super().__init__()
+            for name, t in buffers.items():
+                self.register_buffer(name, t)
 
-    for layer in (K5(), K2()):
+    class K5(Decode):
+        def forward(self, q):
+            return ops.decode_attention(q, self.cache, self.cache, self.lens)
+
+    class K2(Decode):
+        def forward(self, q):
+            return ops.paged_decode_attention(q, self.pool, self.pool,
+                                              self.tables, self.lens)
+
+    for layer, kernel in ((K5(cache=cache, lens=lens), "decode_attention"),
+                          (K2(pool=pool, tables=tables, lens=lens),
+                           "paged_decode_attention")):
+        q = _rnd(g, torch.bfloat16, 2, 4, 128)
         with torch.no_grad():
-            layer(_rnd(g, torch.bfloat16, 2, 4, 128))  # eager runs
-        with pytest.raises(Exception, match="K2 / K5 as custom ops"):
-            jit.save(layer, str(tmp_path / type(layer).__name__),
-                     input_spec=[InputSpec([2, 4, 128], "bfloat16")])
+            eager = layer(q)
+        prefix = str(tmp_path / type(layer).__name__)
+        jit.save(layer, prefix,
+                 input_spec=[InputSpec([2, 4, 128], "bfloat16")])
+        pred = inference.create_predictor(inference.Config(prefix))
+        ops.reset_launches()
+        (out,) = pred.run([q])
+        assert {k: v for k, v in ops.LAUNCHES.items() if v} == {kernel: 1}
+        np.testing.assert_array_equal(out, eager.float().cpu().numpy())

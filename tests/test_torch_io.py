@@ -17,6 +17,15 @@ from paddle_tpu_torch import io
 from paddle_tpu_torch.io import _native
 
 
+@pytest.fixture(autouse=True)
+def _numpy_global_state():
+    """Leave numpy's global random stream as this test found it (the tests
+    here seed it, and a later test in the same worker may draw from it)."""
+    state = np.random.get_state()
+    yield
+    np.random.set_state(state)
+
+
 def _fields(n=22, seed=0):
     rng = np.random.RandomState(seed)
     return (rng.standard_normal((n, 3)).astype(np.float32),

@@ -411,25 +411,105 @@ def test_llama_d64_to_static_runs_the_attention_op_and_grads():
                                    rtol=1e-4, atol=1e-6, err_msg=n)
 
 
-def test_decode_kernels_refuse_to_be_traced():
-    """K2 and K5 stay direct calls: a trace that reaches them raises,
-    naming the ROADMAP item."""
-    q = torch.randn(2, 4, 64)
-    cache = torch.randn(2, 8, 2, 64)
+def _decode_inputs():
+    g = torch.Generator().manual_seed(1)
+    r = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
+    q, cache = r(2, 4, 64), r(2, 8, 2, 64)
     lens = torch.tensor([3, 8], dtype=torch.int32)
+    tables = torch.tensor([[0, 2], [1, 3]], dtype=torch.int32)
+    pool = r(4, 4, 2, 64)
+    pool8 = (pool * 30).to(torch.int8)
+    hs = torch.rand(2, generator=g) + 0.5
+    rows = torch.rand(4, 4, 2, generator=g) * 0.05
+    return q, cache, lens, tables, pool, pool8, hs, rows
+
+
+def _decode_op_cases():
+    """K2's and K5's ops: (name, op, args, the plain version's output)."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    q, cache, lens, tables, pool, pool8, hs, rows = _decode_inputs()
+    op = torch.ops.paddle_tpu_torch
+    return [
+        ("decode_attention", op.decode_attention.default,
+         (q, cache, cache, lens, 0.125),
+         ops.decode_attention_plain(q, cache, cache, lens, 0.125)),
+        ("paged_decode_attention", op.paged_decode_attention.default,
+         (q, pool, pool, tables, lens, 0.125, None, None),
+         ops.paged_decode_attention_plain(q, pool, pool, tables, lens,
+                                          0.125)),
+        ("paged_decode_attention_scaled", op.paged_decode_attention.default,
+         (q, pool, pool, tables, lens, 0.125, hs, hs.flip(0)),
+         ops.paged_decode_attention_plain(q, pool, pool, tables, lens,
+                                          0.125, hs, hs.flip(0))),
+        ("paged_decode_attention_int8", op.paged_decode_attention.default,
+         (q, pool8, pool8, tables, lens, 0.125, hs, hs),
+         ops.paged_decode_attention_plain(q, pool8, pool8, tables, lens,
+                                          0.125, hs, hs)),
+        ("paged_decode_attention_int8_rows",
+         op._paged_decode_attention_rows.default,
+         (q, pool8, pool8, rows, rows, tables, lens, 0.125),
+         pa._paged_decode_attention_rows_plain(q, pool8, pool8, rows, rows,
+                                               tables, lens, 0.125)),
+    ]
+
+
+_DECODE_IDS = ["decode_attention", "paged_decode_attention",
+               "paged_decode_attention_scaled",
+               "paged_decode_attention_int8",
+               "paged_decode_attention_int8_rows"]
+
+
+@pytest.mark.parametrize("case", range(5), ids=_DECODE_IDS)
+def test_decode_custom_op_opcheck(case):
+    """K2 (every mode) and K5 as custom ops: torch.library's checks pass,
+    and on CPU tensors each op IS the plain version."""
+    name, op, args, want = _decode_op_cases()[case]
+    result = torch.library.opcheck(op, args)
+    assert all(v == "SUCCESS" for v in result.values()), (name, result)
+    assert torch.equal(op(*args), want), name
+
+
+def test_decode_kernels_trace_and_export_round_trip(tmp_path):
+    """K2 and K5 as custom ops: a compiled step holds K5's op with no
+    graph break and equals eager; ``jit.save`` / ``load`` of a Layer
+    that calls K5, K2 over float pools and K2's per-row int8 mode
+    exports the ops and gives eager's outputs back."""
+    from paddle_tpu_torch.ops.paged_attention import \
+        _paged_decode_attention_rows
+
+    q, cache, lens, tables, pool, pool8, hs, rows = _decode_inputs()
 
     def step(q, kc, vc, lens):
         return ops.decode_attention(q, kc, vc, lens)
 
-    with pytest.raises(Exception, match="K2 / K5 as custom ops"):
-        torch.compile(step, backend="aot_eager", fullgraph=True)(
-            q, cache, cache, lens)
-    tables = torch.tensor([[0], [1]], dtype=torch.int32)
-    pool = torch.randn(2, 8, 2, 64)
+    sf = jit.StaticFunction(step)
+    torch.testing.assert_close(sf(q, cache, cache, lens),
+                               step(q, cache, cache, lens), rtol=0, atol=0)
+    assert sf.graph_breaks == []
+    assert any("decode_attention" in t for t in _graph_targets(
+        sf.graphs[0])), sorted(_graph_targets(sf.graphs[0]))
 
-    class Paged(torch.nn.Module):
+    class K5(torch.nn.Module):
+        def forward(self, q):
+            return ops.decode_attention(q[:, None], cache, cache, lens)
+
+    class K2(torch.nn.Module):
         def forward(self, q):
             return ops.paged_decode_attention(q, pool, pool, tables, lens)
 
-    with pytest.raises(Exception, match="K2 / K5 as custom ops"):
-        torch.export.export(Paged(), (q,), strict=False)
+    class K2Rows(torch.nn.Module):
+        def forward(self, q):
+            return _paged_decode_attention_rows(q, pool8, pool8, rows, rows,
+                                                tables, lens)
+
+    for layer, op in ((K5(), "decode_attention"),
+                      (K2(), "paged_decode_attention"),
+                      (K2Rows(), "_paged_decode_attention_rows")):
+        prefix = str(tmp_path / type(layer).__name__)
+        jit.save(layer, prefix, input_spec=[InputSpec([2, 4, 64],
+                                                      "float32")])
+        loaded = jit.load(prefix)
+        targets = {str(n.target) for n in loaded._exported.graph.nodes}
+        assert f"paddle_tpu_torch.{op}.default" in targets, targets
+        torch.testing.assert_close(loaded(q), layer(q), rtol=0, atol=0)

@@ -23,6 +23,11 @@ MANIFESTS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 STAND_INS = {
     "top_level.txt": {},
     "linalg.txt": {"to_jax_dtype": "A9", "cholesky_fn": "A9"},
+    "nn_functional.txt": {},
+    "nn_layers.txt": {},
+    "incubate_functional.txt": {},
+    "fft.txt": {},
+    "sparse.txt": {},
 }
 
 
@@ -44,9 +49,13 @@ def _is_stand_in(fn):
         "x", "y").__code__
 
 
-@pytest.mark.parametrize("fname,ns", [("top_level.txt", T),
-                                      ("linalg.txt", T.linalg)],
-                         ids=["top_level", "linalg"])
+@pytest.mark.parametrize("fname,ns", [
+    ("top_level.txt", T), ("linalg.txt", T.linalg),
+    ("nn_functional.txt", T.nn.functional), ("nn_layers.txt", T.nn),
+    ("incubate_functional.txt", T.incubate.nn.functional),
+    ("fft.txt", T.fft), ("sparse.txt", T.sparse)],
+    ids=["top_level", "linalg", "nn_functional", "nn_layers",
+         "incubate_functional", "fft", "sparse"])
 def test_manifest_names_are_ported_or_listed_stand_ins(fname, ns):
     names = _names(fname)
     missing = [n for n in names if not callable(getattr(ns, n, None))]
